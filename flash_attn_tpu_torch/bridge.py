@@ -1,0 +1,79 @@
+"""Carry JAX-side state into the port through numpy, so both sides run on
+identical values.
+
+This module imports no JAX: it takes anything ``numpy.asarray`` accepts
+(a JAX array converts itself), including the ``ml_dtypes`` bfloat16 and
+float8_e4m3fn arrays that JAX produces.
+
+- ``params_from_jax``: a params pytree (dicts, lists, float arrays and
+  ``(int8, scales)`` tuples) -> the same structure of torch tensors.
+- ``kv_cache_from_jax``: a JAX ``KVCache`` -> the port's ``KVCache``.  The
+  JAX cache stores scales lane-dense as [B, Hk, 1, S] and, for fp8 caches
+  whose capacity is a multiple of 2048, permuted evens-then-odds within
+  each 2048 chunk (flash_attn_tpu/engine/kv_cache.py:93-100); the port
+  stores [B, Hk, S] in natural order, so the permutation is undone here.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from flash_attn_tpu_torch.engine.kv_cache import KVCache
+
+
+def to_torch(x, device="cpu") -> torch.Tensor:
+    """One array -> torch tensor, keeping bfloat16 and float8_e4m3fn."""
+    a = np.asarray(x)
+    name = a.dtype.name
+    if name == "bfloat16":
+        t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    elif name == "float8_e4m3fn":
+        t = torch.from_numpy(a.view(np.uint8).copy()).view(torch.float8_e4m3fn)
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(a).copy())
+    return t.to(device)
+
+
+def params_from_jax(tree, device="cpu"):
+    """Recursively convert a JAX params pytree."""
+    if isinstance(tree, dict):
+        return {k: params_from_jax(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [params_from_jax(v, device) for v in tree]
+    if isinstance(tree, tuple):
+        if len(tree) != 2:
+            raise NotImplementedError("only (int8, scales) weight tuples are ported")
+        return tuple(to_torch(t, device) for t in tree)
+    if tree is None or isinstance(tree, (int, float, str)):
+        return tree
+    return to_torch(tree, device)
+
+
+def depermute_scale_lanes(s: np.ndarray, chunk: int) -> np.ndarray:
+    """Undo the evens-then-odds lane order within each ``chunk`` of the
+    last axis (inverse of flash_attn_tpu/ops/decode.py
+    _permute_scale_lanes)."""
+    lead = s.shape[:-1]
+    S = s.shape[-1]
+    r = s.reshape(*lead, S // chunk, 2, chunk // 2)
+    return np.swapaxes(r, -1, -2).reshape(*lead, S)
+
+
+def kv_cache_from_jax(jcache, device="cpu") -> KVCache:
+    """A JAX ``KVCache`` (duck-typed: k, v, k_scale, v_scale, length, mode,
+    scale_perm_chunk) -> the port's cache on ``device``."""
+    k = [to_torch(x, device) for x in jcache.k]
+    v = [to_torch(x, device) for x in jcache.v]
+    ks = vs = None
+    if jcache.mode != "none":
+        def scales(buf):
+            s = np.asarray(buf, np.float32)[:, :, 0, :]  # [B, Hk, S]
+            if jcache.scale_perm_chunk:
+                s = depermute_scale_lanes(s, jcache.scale_perm_chunk)
+            return torch.from_numpy(np.array(s, np.float32)).to(device)
+
+        ks = [scales(x) for x in jcache.k_scale]
+        vs = [scales(x) for x in jcache.v_scale]
+    length = torch.from_numpy(np.asarray(jcache.length, np.int32).copy()).to(device)
+    return KVCache(k, v, ks, vs, length, jcache.mode)

@@ -1,0 +1,125 @@
+"""KV-cache state: per-layer BHSD caches with optional INT8/FP8
+quantize-on-append.
+
+Port of flash_attn_tpu/engine/kv_cache.py:KVCache.  The JAX cache is a
+functional pytree; this one is updated IN PLACE: ``append``, ``advance``
+and ``set_length`` mutate the buffers and return ``self`` so that call
+sites read like the JAX ones.
+
+  k, v:             L lists of [B, Hk, S, D] (int8 / float8_e4m3fn / model dtype)
+  k_scale, v_scale: L lists of [B, Hk, S] fp32 in natural position order
+                    (None for mode 'none')
+  length:           [B] int32 valid entries per sequence
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from flash_attn_tpu_torch._device import resolve_device
+from flash_attn_tpu_torch.ops.kv_append import kv_append_token
+from flash_attn_tpu_torch.ops.quant import quantize_kv
+
+_STORE = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
+
+
+@dataclass
+class KVCache:
+    k: list
+    v: list
+    k_scale: list | None
+    v_scale: list | None
+    length: torch.Tensor
+    mode: str = "none"
+
+    @property
+    def num_layers(self) -> int:
+        return len(self.k)
+
+    @property
+    def capacity(self) -> int:
+        return self.k[0].shape[2]
+
+    @classmethod
+    def create(cls, num_layers, batch, capacity, num_kv_heads, head_dim,
+               dtype=torch.bfloat16, mode: str = "none", device=None):
+        """Zeroed cache on ``device`` (default: the card)."""
+        dev = resolve_device(device)
+        if mode == "none":
+            store = dtype
+        elif mode in _STORE:
+            store = _STORE[mode]
+        else:
+            raise ValueError(f"unknown kv cache mode {mode!r}")
+        shape = (batch, num_kv_heads, capacity, head_dim)
+        k = [torch.zeros(shape, dtype=store, device=dev) for _ in range(num_layers)]
+        v = [torch.zeros(shape, dtype=store, device=dev) for _ in range(num_layers)]
+        ks = vs = None
+        if mode != "none":
+            sshape = (batch, num_kv_heads, capacity)
+            ks = [torch.ones(sshape, device=dev) for _ in range(num_layers)]
+            vs = [torch.ones(sshape, device=dev) for _ in range(num_layers)]
+        length = torch.zeros((batch,), dtype=torch.int32, device=dev)
+        return cls(k, v, ks, vs, length, mode)
+
+    def append(self, layer: int, new_k: torch.Tensor,
+               new_v: torch.Tensor) -> "KVCache":
+        """Insert [B, T, Hk, D] entries at position ``length`` of every
+        sequence, in place.  Does not advance ``length``: call advance()
+        once after all layers.  T == 1 (the decode path) runs K2, which
+        skips sequences whose length has reached the capacity; T > 1
+        quantizes with plain PyTorch and must fit."""
+        ks = None if self.k_scale is None else self.k_scale[layer]
+        vs = None if self.v_scale is None else self.v_scale[layer]
+        if new_k.shape[1] == 1:
+            kv_append_token(
+                self.k[layer], self.v[layer], ks, vs,
+                new_k[:, 0].contiguous(), new_v[:, 0].contiguous(),
+                self.length, mode=self.mode)
+            return self
+        t = new_k.shape[1]
+        kq, ksn, vq, vsn = quantize_kv(new_k, new_v, self.mode)
+        for b, start in enumerate(self.length.tolist()):
+            if start + t > self.capacity:
+                raise ValueError(f"append of {t} at {start} overflows capacity")
+            self._put(layer, b, start, kq[b], vq[b],
+                      None if ksn is None else ksn[b], None if vsn is None else vsn[b])
+        return self
+
+    def _put(self, layer, slot, start, kq, vq, ks, vs):
+        """Write one sequence's quantized [T, Hk, D] entries (and [T, Hk, 1]
+        scales) at ``start``."""
+        t = kq.shape[0]
+        for buf, new in ((self.k[layer], kq), (self.v[layer], vq)):
+            dst = buf[slot, :, start:start + t]
+            if buf.dtype == torch.float8_e4m3fn:
+                dst.view(torch.uint8).copy_(new.transpose(0, 1).view(torch.uint8))
+            else:
+                dst.copy_(new.transpose(0, 1))
+        if ks is not None:
+            self.k_scale[layer][slot, :, start:start + t] = ks[..., 0].transpose(0, 1)
+            self.v_scale[layer][slot, :, start:start + t] = vs[..., 0].transpose(0, 1)
+
+    def insert_prompt(self, layer: int, slot: int, k: torch.Tensor,
+                      v: torch.Tensor) -> "KVCache":
+        """Quantize a whole prompt's [S, Hk, D] K/V and write it at
+        position 0 of ``slot`` (the engine's prefill write), in place."""
+        kq, ks, vq, vs = quantize_kv(k, v, self.mode)
+        self._put(layer, slot, 0, kq, vq, ks, vs)
+        return self
+
+    def advance(self, t: int = 1) -> "KVCache":
+        self.length += t
+        return self
+
+    def set_length(self, slot: int, value: int) -> "KVCache":
+        self.length[slot] = value
+        return self
+
+    def layer(self, i: int):
+        """(k, v, k_scale, v_scale) of layer i: the buffers themselves."""
+        ks = None if self.k_scale is None else self.k_scale[i]
+        vs = None if self.v_scale is None else self.v_scale[i]
+        return self.k[i], self.v[i], ks, vs

@@ -1,0 +1,302 @@
+"""The PyTorch port's ops (flash_attn_tpu_torch.ops) against the JAX
+package on the same inputs, on the CPU.
+
+Inputs are made with numpy from a seed and handed to both sides.  The JAX
+side runs its Pallas kernels in interpret mode, as its own tests do; the
+port runs the plain PyTorch versions of its CUDA kernels (CPU tensors).
+Each tolerance is stated with its reason.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from flash_attn_tpu.ops import quant as jquant
+from flash_attn_tpu.ops.attention import flash_attention as j_flash_attention
+from flash_attn_tpu.ops.decode import flash_decode as j_flash_decode
+from flash_attn_tpu.ops.kv_append import kv_append_token as j_kv_append
+from flash_attn_tpu.ops.lse import lse_merge as j_lse_merge
+from flash_attn_tpu.ops.matmul import matmul_int8 as j_matmul_int8
+from flash_attn_tpu.ops.reference import mha_reference as j_mha_reference
+from flash_attn_tpu.ops.rope import rope_cos_sin as j_rope_cos_sin
+from flash_attn_tpu.ops.rope import rope_rotate as j_rope_rotate
+from flash_attn_tpu_torch.bridge import to_torch
+from flash_attn_tpu_torch.ops import quant as tquant
+from flash_attn_tpu_torch.ops.attention import flash_attention
+from flash_attn_tpu_torch.ops.decode import flash_decode
+from flash_attn_tpu_torch.ops.kv_append import kv_append_token
+from flash_attn_tpu_torch.ops.lse import lse_merge
+from flash_attn_tpu_torch.ops.matmul import matmul_int8, quantized_matmul
+from flash_attn_tpu_torch.ops.reference import mha_reference
+from flash_attn_tpu_torch.ops.rope import rope_cos_sin, rope_rotate
+
+# bf16 outputs: one bf16 rounding of a value of size ~1 is 2^-8 ~ 4e-3;
+# the two sides also round p (or p * v_scale) to bf16 relative to different
+# running maxima, so allow a few roundings.
+BF16_TOL = 2e-2
+
+
+def _np(t):
+    return t.float().numpy() if isinstance(t, torch.Tensor) else np.asarray(t, np.float32)
+
+
+def _rng(seed=0):
+    return np.random.default_rng(seed)
+
+
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+def test_quantize_matches_jax(kind):
+    x = _rng(1).standard_normal((4, 3, 64)).astype(np.float32) * 3
+    x[0, 0] = 0.0  # absmax 0 -> scale 1
+    jf = jquant.quantize_int8 if kind == "int8" else jquant.quantize_fp8
+    tf = tquant.quantize_int8 if kind == "int8" else tquant.quantize_fp8
+    jv, js = jf(jnp.asarray(x))
+    tv, ts = tf(torch.from_numpy(x))
+    # same arithmetic (x / scale, half-to-even / native fp8 cast): bit-exact
+    np.testing.assert_array_equal(_np(to_torch(jv)), _np(tv))
+    np.testing.assert_array_equal(np.asarray(js), ts.numpy())
+    deq = tquant.dequantize(tv, ts)
+    np.testing.assert_allclose(deq.numpy(), np.asarray(jquant.dequantize(jv, js)), rtol=0, atol=0)
+
+
+def test_quantize_kv_matches_jax():
+    k = _rng(2).standard_normal((2, 5, 2, 16)).astype(np.float32)
+    v = _rng(3).standard_normal((2, 5, 2, 16)).astype(np.float32)
+    for mode in ("int8", "fp8"):
+        jk, jks, jv, jvs = jquant.quantize_kv(jnp.asarray(k), jnp.asarray(v), mode)
+        tk, tks, tv, tvs = tquant.quantize_kv(torch.from_numpy(k), torch.from_numpy(v), mode)
+        np.testing.assert_array_equal(_np(to_torch(jk)), _np(tk))
+        np.testing.assert_array_equal(_np(to_torch(jv)), _np(tv))
+        np.testing.assert_array_equal(np.asarray(jks), tks.numpy())
+        np.testing.assert_array_equal(np.asarray(jvs), tvs.numpy())
+
+
+def test_rope_matches_jax():
+    pos = np.arange(40, dtype=np.int32).reshape(2, 20) * 3
+    x = _rng(4).standard_normal((2, 20, 3, 32)).astype(np.float32)
+    jc, js = j_rope_cos_sin(jnp.asarray(pos), 32, 10000.0)
+    tc, ts = rope_cos_sin(torch.from_numpy(pos), 32, 10000.0)
+    # fp32 transcendentals of the same angles; libraries differ by ulps
+    np.testing.assert_allclose(tc.numpy(), np.asarray(jc), atol=2e-6)
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), atol=2e-6)
+    jr = j_rope_rotate(jnp.asarray(x), jc, js)
+    tr = rope_rotate(torch.from_numpy(x), tc, ts)
+    np.testing.assert_allclose(tr.numpy(), np.asarray(jr), atol=1e-5)
+
+
+def test_lse_merge_matches_jax():
+    r = _rng(5)
+    outs = r.standard_normal((3, 2, 4, 8)).astype(np.float32)
+    lses = r.standard_normal((3, 2, 4)).astype(np.float32)
+    lses[1, 0, 0] = -np.inf  # a fully masked partial weighs 0
+    lses[:, 1, 1] = -np.inf  # all partials masked -> out 0, lse -inf
+    jo, jl = j_lse_merge(jnp.asarray(outs), jnp.asarray(lses), axis=0)
+    to, tl = lse_merge(torch.from_numpy(outs), torch.from_numpy(lses), dim=0)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=1e-6)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-6)
+
+
+def test_mha_reference_matches_jax():
+    r = _rng(6)
+    q = r.standard_normal((2, 12, 4, 16)).astype(np.float32)
+    k = r.standard_normal((2, 20, 2, 16)).astype(np.float32)
+    v = r.standard_normal((2, 20, 2, 16)).astype(np.float32)
+    jo, jl = j_mha_reference(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             causal=True, return_lse=True)
+    to, tl = mha_reference(torch.from_numpy(q), torch.from_numpy(k),
+                           torch.from_numpy(v), causal=True, return_lse=True)
+    # fp32 einsum/softmax in both frameworks: summation-order differences
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=1e-5)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-5)
+
+
+def _kv_inputs(mode, B=3, Hk=2, S=64, D=32, seed=7):
+    r = _rng(seed)
+    store = {"none": np.float32, "int8": np.int8, "fp8": np.float32}[mode]
+    kc = (r.standard_normal((B, Hk, S, D)) * 2).astype(store)
+    vc = (r.standard_normal((B, Hk, S, D)) * 2).astype(store)
+    ks = r.uniform(0.5, 2.0, (B, Hk, S)).astype(np.float32)
+    vs = r.uniform(0.5, 2.0, (B, Hk, S)).astype(np.float32)
+    nk = (r.standard_normal((B, Hk, D)) * 3).astype(np.float32)
+    nv = (r.standard_normal((B, Hk, D)) * 3).astype(np.float32)
+    return kc, vc, ks, vs, nk, nv
+
+
+@pytest.mark.parametrize("mode", ["none", "int8", "fp8"])
+def test_kv_append_matches_jax(mode):
+    kc, vc, ks, vs, nk, nv = _kv_inputs(mode)
+    length = np.array([0, 17, 63], np.int32)
+    jdt = {"none": jnp.bfloat16, "int8": jnp.int8, "fp8": jnp.float8_e4m3fn}[mode]
+    jkc, jvc = jnp.asarray(kc).astype(jdt), jnp.asarray(vc).astype(jdt)
+    jks = None if mode == "none" else jnp.asarray(ks)[:, :, None, :]
+    jvs = None if mode == "none" else jnp.asarray(vs)[:, :, None, :]
+    jnk = jnp.asarray(nk).astype(jnp.bfloat16)
+    jnv = jnp.asarray(nv).astype(jnp.bfloat16)
+    out = j_kv_append(jkc, jvc, jks, jvs, jnk, jnv, jnp.asarray(length),
+                      mode=mode, interpret=True)
+    tkc, tvc = to_torch(jkc), to_torch(jvc)
+    tks = None if mode == "none" else torch.from_numpy(ks.copy())
+    tvs = None if mode == "none" else torch.from_numpy(vs.copy())
+    kv_append_token(tkc, tvc, tks, tvs, to_torch(jnk), to_torch(jnv),
+                    torch.from_numpy(length), mode=mode)
+    # identical arithmetic on identical bf16 inputs: bit-exact caches
+    np.testing.assert_array_equal(_np(tkc), _np(to_torch(out[0])))
+    np.testing.assert_array_equal(_np(tvc), _np(to_torch(out[1])))
+    if mode != "none":
+        # XLA may turn amax / qmax into amax * (1 / qmax): 1 ulp on a scale
+        np.testing.assert_allclose(tks.numpy(), np.asarray(out[2])[:, :, 0], rtol=2.4e-7)
+        np.testing.assert_allclose(tvs.numpy(), np.asarray(out[3])[:, :, 0], rtol=2.4e-7)
+
+
+@pytest.mark.parametrize("mode", ["none", "int8", "fp8"])
+def test_kv_append_past_capacity_writes_nothing(mode):
+    """Idle engine slots keep advancing past the capacity: K2 must skip
+    them and still write the live ones."""
+    kc, vc, ks, vs, nk, nv = _kv_inputs(mode, S=32)
+    dt = {"none": torch.bfloat16, "int8": torch.int8, "fp8": torch.float8_e4m3fn}[mode]
+    tkc, tvc = torch.from_numpy(kc).to(dt), torch.from_numpy(vc).to(dt)
+    before_k, before_v = tkc.clone(), tvc.clone()
+    tks = None if mode == "none" else torch.from_numpy(ks.copy())
+    tvs = None if mode == "none" else torch.from_numpy(vs.copy())
+    length = torch.tensor([32, 45, 5], dtype=torch.int32)
+    kv_append_token(tkc, tvc, tks, tvs, torch.from_numpy(nk).bfloat16(),
+                    torch.from_numpy(nv).bfloat16(), length, mode=mode)
+    np.testing.assert_array_equal(_np(tkc[:2]), _np(before_k[:2]))
+    np.testing.assert_array_equal(_np(tvc[:2]), _np(before_v[:2]))
+    if mode != "none":
+        np.testing.assert_array_equal(tks[:2].numpy(), ks[:2])
+    changed = (_np(tkc[2]) != _np(before_k[2])).any(axis=-1)  # [Hk, S]
+    assert changed[:, 5].all() and not changed[:, :5].any() and not changed[:, 6:].any()
+
+
+def _decode_case(kv, seed=8, B=2, H=8, Hk=2, S=256, D=64):
+    r = _rng(seed)
+    q = r.standard_normal((B, H, D)).astype(np.float32)
+    k = r.standard_normal((B, Hk, S, D)).astype(np.float32)
+    v = r.standard_normal((B, Hk, S, D)).astype(np.float32)
+    jq = jnp.asarray(q).astype(jnp.bfloat16)
+    if kv == "bf16":
+        jk, jv = jnp.asarray(k).astype(jnp.bfloat16), jnp.asarray(v).astype(jnp.bfloat16)
+        jks = jvs = None
+    else:
+        jk, jks, jv, jvs = jquant.quantize_kv(jnp.asarray(k), jnp.asarray(v), kv)
+    return jq, jk, jv, jks, jvs
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("softmax_mode", ["online", "clamped"])
+@pytest.mark.parametrize("num_splits", [1, 3])
+def test_flash_decode_matches_jax(kv, softmax_mode, num_splits):
+    jq, jk, jv, jks, jvs = _decode_case(kv)
+    kv_length = np.array([200, 37], np.int32)
+    jo, jl = j_flash_decode(
+        jq, jk, jv, k_scale=jks, v_scale=jvs, kv_length=jnp.asarray(kv_length),
+        kv_layout="bhsd", softmax_mode=softmax_mode, return_lse=True,
+        interpret=True)
+    ks = None if jks is None else to_torch(jks)[..., 0].contiguous()
+    vs = None if jvs is None else to_torch(jvs)[..., 0].contiguous()
+    to, tl = flash_decode(
+        to_torch(jq), to_torch(jk), to_torch(jv), k_scale=ks, v_scale=vs,
+        kv_length=torch.from_numpy(kv_length), kv_layout="bhsd",
+        softmax_mode=softmax_mode, num_splits=num_splits, return_lse=True)
+    assert to.dtype == torch.bfloat16 and to.shape == (2, 8, 64)
+    np.testing.assert_allclose(_np(to), _np(to_torch(jo)), atol=BF16_TOL, rtol=BF16_TOL)
+    # lse sums fp32 p in both; only the bf16 q pre-scale is shared rounding
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4, rtol=1e-4)
+
+
+def test_flash_decode_default_mode_follows_kv_dtype():
+    from flash_attn_tpu_torch.ops.decode import _default_softmax_mode
+
+    assert _default_softmax_mode(torch.float8_e4m3fn) == "clamped"
+    assert _default_softmax_mode(torch.int8) == "online"
+    assert _default_softmax_mode(torch.bfloat16) == "online"
+    assert _default_softmax_mode(torch.float8_e4m3fn, logit_softcap=50.0) == "online"
+
+
+def test_flash_decode_matches_oracle_fp32():
+    """fp32 query and cache: the plain K1 equals exact attention."""
+    r = _rng(9)
+    q = torch.from_numpy(r.standard_normal((3, 4, 32)).astype(np.float32))
+    k = torch.from_numpy(r.standard_normal((3, 2, 96, 32)).astype(np.float32))
+    v = torch.from_numpy(r.standard_normal((3, 2, 96, 32)).astype(np.float32))
+    kv_length = torch.tensor([96, 1, 50], dtype=torch.int32)
+    out = flash_decode(q, k, v, kv_length=kv_length)
+    for b in range(3):
+        n = int(kv_length[b])
+        want = mha_reference(q[b:b + 1, None], k[b:b + 1, :, :n].transpose(1, 2),
+                             v[b:b + 1, :, :n].transpose(1, 2))[0, 0]
+        np.testing.assert_allclose(out[b].numpy(), want.numpy(), atol=1e-5)
+
+
+def test_flash_decode_rejects_unported_options():
+    q = torch.zeros(1, 2, 32)
+    k = torch.zeros(1, 1, 64, 32)
+    with pytest.raises(NotImplementedError):
+        flash_decode(q, k, k, window=16)
+    with pytest.raises(NotImplementedError):
+        flash_decode(q, k, k, logit_softcap=30.0)
+
+
+@pytest.mark.parametrize("M", [5, 40])
+def test_matmul_int8_matches_jax(M):
+    r = _rng(10)
+    x = r.standard_normal((M, 256)).astype(np.float32)
+    w = r.standard_normal((256, 384)).astype(np.float32) * 0.02
+    jw, js = jquant.quantize_int8(jnp.asarray(w), axes=(0,))
+    jx = jnp.asarray(x).astype(jnp.bfloat16)
+    jo = j_matmul_int8(jx, jw, js[0], interpret=True)
+    to = matmul_int8(to_torch(jx), to_torch(jw), to_torch(js[0]))
+    assert to.dtype == torch.bfloat16 and to.shape == (M, 384)
+    # fp32 accumulation of identical products; the bf16 output rounding
+    # (2^-8 relative) is the only visible difference
+    np.testing.assert_allclose(_np(to), _np(to_torch(jo)), rtol=1e-2, atol=1e-3)
+    # the tuple dispatch reaches the same function
+    np.testing.assert_array_equal(
+        _np(quantized_matmul(to_torch(jx), (to_torch(jw), to_torch(js[0])))), _np(to))
+
+
+def test_quantized_matmul_float_weight():
+    r = _rng(11)
+    x = torch.from_numpy(r.standard_normal((3, 64)).astype(np.float32))
+    w = torch.from_numpy(r.standard_normal((64, 32)).astype(np.float32)).bfloat16()
+    out = quantized_matmul(x, w)
+    assert out.dtype == torch.float32  # x.dtype, as jnp.dot(...).astype(x.dtype)
+    np.testing.assert_allclose(out.numpy(), (x @ w.float()).numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("softmax_mode", ["clamped", "online"])
+def test_flash_fwd_matches_jax(softmax_mode):
+    r = _rng(12)
+    B, S, H, Hk, D = 1, 96, 4, 2, 64
+    q = jnp.asarray(r.standard_normal((B, S, H, D)), jnp.bfloat16)
+    k = jnp.asarray(r.standard_normal((B, S, Hk, D)), jnp.bfloat16)
+    v = jnp.asarray(r.standard_normal((B, S, Hk, D)), jnp.bfloat16)
+    pos = np.arange(S, dtype=np.int32)[None]
+    jc, js = j_rope_cos_sin(jnp.asarray(pos), D, 10000.0)
+    jo, jl = j_flash_attention(q, k, v, causal=True, rope_cos=jc, rope_sin=js,
+                               softmax_mode=softmax_mode, return_lse=True,
+                               interpret=True)
+    to, tl = flash_attention(to_torch(q), to_torch(k), to_torch(v), causal=True,
+                             rope_cos=to_torch(jc), rope_sin=to_torch(js),
+                             softmax_mode=softmax_mode, return_lse=True)
+    assert to.dtype == torch.bfloat16 and to.shape == (B, S, H, D)
+    np.testing.assert_allclose(_np(to), _np(to_torch(jo)), atol=BF16_TOL, rtol=BF16_TOL)
+    # fp32 softmax sums; only summation order differs
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4, rtol=1e-4)
+    # and against the port's own oracle on the rotated q (fp32, exact
+    # softmax): bf16 rounding of q, p and out
+    qr = rope_rotate(to_torch(q).float(), to_torch(jc), to_torch(js))
+    want = mha_reference(qr, to_torch(k).float(), to_torch(v).float(), causal=True)
+    np.testing.assert_allclose(_np(to), want.numpy(), atol=3e-2, rtol=3e-2)
+
+
+def test_flash_attention_rejects_unported_options():
+    q = torch.zeros(1, 8, 2, 32, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError):
+        flash_attention(q, q, q, window=(4, 0))
+    with pytest.raises(NotImplementedError):
+        flash_attention(q, q, q, mask=torch.zeros(8, 8))
+    with pytest.raises(NotImplementedError):
+        flash_attention(q, q, q, dropout_rate=0.1)
