@@ -5,19 +5,29 @@
 
 Phases, one line each with its seconds:
   1. environment: card name and power limit, CUDA, nvcc, kernel build time;
-  2. each hand-written kernel (K1 decode, K2 kv-append, K3 int8 matmul,
-     K4 flash forward) against its plain PyTorch version on the card at the
-     Llama-3-8B shapes, with its time (CUDA events), its bound and the time
-     of one PyTorch library call for the same function;
-  3. a 2-layer model at full 8B widths with int8 weights and fp8 KV: two
-     prompts and four decode steps on the card (kernels) against the CPU
-     (plain versions);
-  4. the main path: Llama-3-8B (32 layers, random int8 weights from a seed)
-     served by the continuous-batching engine, 8 greedy requests, fp8 KV
-     then int8 KV, with the launch count of every kernel in each run.
+  2. each hand-written kernel against its plain PyTorch version on the card
+     at its main-path shapes, with its time (CUDA events), its bound and
+     the time of one PyTorch library call for the same function: K1 decode,
+     K2 kv-append, K3 int8 matmul (8B shapes), K4 flash forward, K3 grouped,
+     K6 int4 matmul (70B shapes), K5 W4A8 matmul (8B shapes), K7 W8A8
+     matmul (70B head, bit-exact); then once each what the main paths do
+     not run: group sizes 32 and 64, K7's bf16 output, and the int8, int4
+     and W4A8 LM heads' fp32 activations or output;
+  3. a 2-layer model at full 8B widths with fp8 KV: two prompts and four
+     decode steps on the card (kernels) against the CPU (plain versions),
+     with int8 weights, int4 + W8A8 head fused, W4A8 + W8A8 head fused,
+     int8 weights + int8 head, and int4 + int4 head fused;
+  4-6. the main paths, each model alone on the card, served by the
+     continuous-batching engine (8 greedy requests, prompts of 128-1024
+     tokens from the seed), with the launch count of every kernel in each
+     run: 4. Llama-3-8B int8 weights, fp8 then int8 KV (32 tokens);
+     5. Llama-3-8B W4A8 layers + W8A8 head, fused, fp8 KV (32 tokens);
+     6. Llama-3-70B (80 layers, random weights from the seed) int4 g=128
+     layers + W8A8 head, fused, fp8 KV (16 tokens), with its peak memory.
 
-The last two lines are the kernels' JSON record and the card, then the
-last line is {"ok": true, "device": {...}}.  Any failed check exits
+Before the last line come the kernels' JSON record (each row's launches
+are those of the run named in its "launches_run") and the card; the last
+line is {"ok": true, "device": {...}}.  Any failed check exits
 nonzero without that line; so does a machine without CUDA or a directory
 without the rest of the repository.
 """
@@ -34,6 +44,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor cores
+INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8 tensor cores
+MAX_70B_GIB = 75.0             # the 70B serve fails above this peak
 SEED = 0
 
 
@@ -41,27 +53,33 @@ def say(msg: str) -> None:
     print(msg, flush=True)
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, peak: float = BF16_FLOPS_PER_S):
+    """(least ms, what bounds it): bytes over the HBM rate against
+    operations over ``peak`` (bf16, or int8 for the int8-activation
+    kernels)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def row_err(got, ref):
+def row_err(got, ref, rel=2.0 ** -6):
     """(max |got - ref|, worst share of its row's tolerance).
 
     A row is one output vector (a query's head, a product's row).  Its
-    tolerance is two bf16 ulps of its largest |ref| (2^-6 of it): the
-    kernel and its plain version differ by the bf16 rounding of the output
-    and of fp32 values summed in another order, at most one ulp of an
-    element, and no element's ulp exceeds 2^-7 of the row's largest.  A
-    long attention row has small outputs, so a tolerance taken from the
+    tolerance is ``rel`` of its largest |ref|.  For a bf16 output that is
+    two bf16 ulps (2^-6): the kernel and its plain version differ by the
+    bf16 rounding of the output and of fp32 values summed in another order,
+    at most one ulp of an element, and no element's ulp exceeds 2^-7 of the
+    row's largest.  An fp32 output of exact products (fp32 x in three bf16
+    parts, or int8 x) differs only by fp32 sums in another order, far below
+    its ``rel`` of 2^-16; rounding x to one bf16 part would miss it by ~2^-11.
+    A long attention row has small outputs, so a tolerance taken from the
     whole tensor's largest value (a short row's) would not see a lost or
     doubled tile there."""
     g = got.float().reshape(-1, got.shape[-1])
     r = ref.float().reshape(-1, ref.shape[-1])
     err = (g - r).abs()
-    tol = 2.0 ** -6 * r.abs().amax(dim=-1, keepdim=True) + 1e-6
+    tol = rel * r.abs().amax(dim=-1, keepdim=True) + 1e-6
     return float(err.max()), float((err / tol).max())
 
 
@@ -154,9 +172,279 @@ def check_k3(torch, checks, rows):
                 main = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                             bound_ms=b_ms, bound_by=b_by)
     rows["K3"] = dict(name="int8_matmul (M=8, K=4096, N=14336)",
-                      source="flash_attn_tpu_torch/csrc/matmul_int8.cu",
+                      source="flash_attn_tpu_torch/csrc/matmul_q.cu",
                       replaces="flash_attn_tpu/ops/matmul.py:60",
                       max_abs_err=worst, **main)
+
+
+def _timed(torch, got_fn, plain_fn, lib_fn):
+    """(ms, plain_ms, library_ms) by CUDA events, the plain version over
+    fewer launches (it is slow and only a reference)."""
+    return (cuda_ms(torch, got_fn), cuda_ms(torch, plain_fn, iters=3, warmup=1),
+            cuda_ms(torch, lib_fn))
+
+
+def _int4_weight(torch, g, K, N, gs=128):
+    """A random [K, N] weight quantized to int4, group size ``gs``."""
+    from flash_attn_tpu_torch.ops.quant import quantize_int4
+
+    wf = torch.randn((K, N), generator=g, device="cuda", dtype=torch.bfloat16) * 0.02
+    w = quantize_int4(wf, group_size=gs)
+    del wf
+    return w
+
+
+def _int8_grouped_weight(torch, g, K, N, gs):
+    """A random [K, N] weight as int8 with [K/gs, N] scales, and its bf16
+    dequantization."""
+    from flash_attn_tpu_torch.ops.quant import quantize_int8
+
+    wf = torch.randn((K // gs, gs, N), generator=g, device="cuda", dtype=torch.bfloat16) * 0.02
+    w, s = quantize_int8(wf, dims=(1,))
+    w, s = w.reshape(K, N).contiguous(), s[:, 0].contiguous()
+    wdq = (w.float().reshape(K // gs, gs, N) * s[:, None, :]).reshape(K, N).bfloat16()
+    return w, s, wdq
+
+
+def check_k6(torch, checks, rows):
+    """K6 at the 70B fused shapes (wqkv, wo, w_gate_up, w_down), g = 128,
+    at decode (M = 8) and the largest prompt bucket that reaches it (256)."""
+    from flash_attn_tpu_torch.ops import matmul as mm
+    from flash_attn_tpu_torch.ops.quant import dequantize_int4
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    worst = 0.0
+    main = None
+    for (K, N) in ((8192, 10240), (8192, 8192), (8192, 57344), (28672, 8192)):
+        w = _int4_weight(torch, g, K, N)
+        wdq = dequantize_int4(w, torch.bfloat16)
+        for M in (8, 256):
+            x = torch.randn((M, K), generator=g, device="cuda", dtype=torch.bfloat16)
+            args = (x, w.packed, w.scales, 128, torch.bfloat16)
+            got = mm.matmul_int4_cuda(*args)
+            ref = mm.matmul_int4_plain(*args)
+            torch.cuda.synchronize()
+            err, share = row_err(got, ref)
+            ok = checks.check(f"K6 M={M} K={K} N={N}", share, 1.0)
+            worst = max(worst, err)
+            ms, plain_ms, lib_ms = _timed(torch, lambda: mm.matmul_int4_cuda(*args),
+                                          lambda: mm.matmul_int4_plain(*args),
+                                          lambda: torch.matmul(x, wdq))
+            nbytes = M * K * 2 + K * N // 2 + w.scales.numel() * 4 + M * N * 2
+            b_ms, b_by = bound(nbytes, 2 * M * K * N)
+            say(f"  K6 M={M} K={K} N={N}: max_abs_err {err:.3e} ({share:.3f} of its "
+                f"row's tol) {'ok' if ok else 'FAIL'} | {ms:.4f} ms, plain {plain_ms:.4f}, "
+                f"library (matmul on the bf16-dequantized weight) {lib_ms:.4f}, bound "
+                f"{b_ms:.4f} ({b_by})")
+            if (M, K, N) == (8, 8192, 57344):
+                main = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                            bound_ms=b_ms, bound_by=b_by)
+        del w, wdq
+    rows["K6"] = dict(name="int4_matmul (M=8, K=8192, N=57344, g=128)",
+                      source="flash_attn_tpu_torch/csrc/matmul_q.cu",
+                      replaces="flash_attn_tpu/ops/matmul.py:187",
+                      max_abs_err=worst, **main)
+
+
+def check_k5(torch, checks, rows):
+    """K5 at the 8B fused shapes, g = 128, M = 8 and 256; x is quantized
+    per token by the port's plain quantize_activations first."""
+    from flash_attn_tpu_torch.ops import matmul as mm
+    from flash_attn_tpu_torch.ops.quant import dequantize_int4
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    worst = 0.0
+    main = None
+    for (K, N) in ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096)):
+        w = _int4_weight(torch, g, K, N)
+        wdq = dequantize_int4(w, torch.bfloat16)
+        for M in (8, 256):
+            x = torch.randn((M, K), generator=g, device="cuda", dtype=torch.bfloat16)
+            xq, sx = mm.quantize_activations(x)
+            args = (xq, sx, w.packed, w.scales, 128, torch.bfloat16)
+            got = mm.matmul_w4a8_cuda(*args)
+            ref = mm.matmul_w4a8_plain(*args)
+            torch.cuda.synchronize()
+            err, share = row_err(got, ref)
+            ok = checks.check(f"K5 M={M} K={K} N={N}", share, 1.0)
+            worst = max(worst, err)
+            ms, plain_ms, lib_ms = _timed(torch, lambda: mm.matmul_w4a8_cuda(*args),
+                                          lambda: mm.matmul_w4a8_plain(*args),
+                                          lambda: torch.matmul(x, wdq))
+            nbytes = M * K + M * 4 + K * N // 2 + w.scales.numel() * 4 + M * N * 2
+            b_ms, b_by = bound(nbytes, 2 * M * K * N, INT8_OPS_PER_S)
+            say(f"  K5 M={M} K={K} N={N}: max_abs_err {err:.3e} ({share:.3f} of its "
+                f"row's tol) {'ok' if ok else 'FAIL'} | {ms:.4f} ms, plain {plain_ms:.4f}, "
+                f"library (bf16 matmul on the dequantized weight) {lib_ms:.4f}, bound "
+                f"{b_ms:.4f} ({b_by})")
+            if (M, K, N) == (8, 4096, 28672):
+                main = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                            bound_ms=b_ms, bound_by=b_by)
+        del w, wdq
+    rows["K5"] = dict(name="w4a8_matmul (M=8, K=4096, N=28672, g=128)",
+                      source="flash_attn_tpu_torch/csrc/matmul_q.cu",
+                      replaces="flash_attn_tpu/ops/matmul.py:588",
+                      max_abs_err=worst, **main)
+
+
+def check_k7(torch, checks, rows):
+    """K7 at the 70B head (8192 x 128256) on fp32 activations, M = 8
+    (decode) and 1024 (the largest prefill bucket): bit-exact against the
+    plain version, whose int32 dot is exact in float64."""
+    from flash_attn_tpu_torch.ops import matmul as mm
+    from flash_attn_tpu_torch.ops.quant import quantize_int8
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    K, N = 8192, 128256
+    wf = torch.randn((K, N), generator=g, device="cuda", dtype=torch.bfloat16) * 0.02
+    w, sw = quantize_int8(wf, dims=(0,))
+    w, sw = w.contiguous(), sw[0].contiguous()
+    del wf
+    wbf = w.to(torch.bfloat16)
+    worst = 0.0
+    main = None
+    for M in (8, 1024):
+        x = torch.randn((M, K), generator=g, device="cuda", dtype=torch.float32)
+        xq, sx = mm.quantize_activations(x)
+        args = (xq, sx, w, sw, torch.float32)
+        got = mm.matmul_w8a8_cuda(*args)
+        ref = mm.matmul_w8a8_plain(*args)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        ok = checks.check(f"K7 M={M} bit-exact", err, 0.0)
+        worst = max(worst, err)
+        if M > 16:  # torch._int_mm's shape rule
+            lib_name, lib_fn = "torch._int_mm", lambda: torch._int_mm(xq, w)
+        else:
+            xb = x.to(torch.bfloat16)
+            lib_name, lib_fn = "bf16 matmul on the int8 values", lambda: torch.matmul(xb, wbf)
+        ms, plain_ms, lib_ms = _timed(torch, lambda: mm.matmul_w8a8_cuda(*args),
+                                      lambda: mm.matmul_w8a8_plain(*args), lib_fn)
+        nbytes = M * K + M * 4 + K * N + N * 4 + M * N * 4
+        b_ms, b_by = bound(nbytes, 2 * M * K * N, INT8_OPS_PER_S)
+        say(f"  K7 M={M} K={K} N={N}: max_abs_err {err:.3e} (tol 0, bit-exact) "
+            f"{'ok' if ok else 'FAIL'} | {ms:.4f} ms, plain {plain_ms:.4f}, library "
+            f"({lib_name}) {lib_ms:.4f}, bound {b_ms:.4f} ({b_by})")
+        if M == 8:
+            main = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                        bound_ms=b_ms, bound_by=b_by)
+    del w, wbf
+    rows["K7"] = dict(name="w8a8_matmul (M=8, K=8192, N=128256, fp32 out)",
+                      source="flash_attn_tpu_torch/csrc/matmul_q.cu",
+                      replaces="flash_attn_tpu/ops/matmul.py:488",
+                      max_abs_err=worst, **main)
+
+
+def check_k3g(torch, checks, rows):
+    """K3 grouped at 4096 x 14336, g = 128 (no model mode makes grouped
+    int8 scales, so this phase is its only caller)."""
+    from flash_attn_tpu_torch.ops import matmul as mm
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    K, N, gs = 4096, 14336, 128
+    w, s, wdq = _int8_grouped_weight(torch, g, K, N, gs)
+    worst = 0.0
+    main = None
+    for M in (8, 256):
+        x = torch.randn((M, K), generator=g, device="cuda", dtype=torch.bfloat16)
+        args = (x, w, s, gs, torch.bfloat16)
+        got = mm.matmul_int8_grouped_cuda(*args)
+        ref = mm.matmul_int8_grouped_plain(*args)
+        torch.cuda.synchronize()
+        err, share = row_err(got, ref)
+        ok = checks.check(f"K3 grouped M={M}", share, 1.0)
+        worst = max(worst, err)
+        ms, plain_ms, lib_ms = _timed(torch, lambda: mm.matmul_int8_grouped_cuda(*args),
+                                      lambda: mm.matmul_int8_grouped_plain(*args),
+                                      lambda: torch.matmul(x, wdq))
+        nbytes = M * K * 2 + K * N + s.numel() * 4 + M * N * 2
+        b_ms, b_by = bound(nbytes, 2 * M * K * N)
+        say(f"  K3 grouped M={M} K={K} N={N} g={gs}: max_abs_err {err:.3e} ({share:.3f} "
+            f"of its row's tol) {'ok' if ok else 'FAIL'} | {ms:.4f} ms, plain {plain_ms:.4f}, "
+            f"library (matmul on the bf16-dequantized weight) {lib_ms:.4f}, bound {b_ms:.4f} ({b_by})")
+        if M == 8:
+            main = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                        bound_ms=b_ms, bound_by=b_by)
+    rows["K3g"] = dict(name="int8_matmul grouped (M=8, K=4096, N=14336, g=128)",
+                       source="flash_attn_tpu_torch/csrc/matmul_q.cu",
+                       replaces="flash_attn_tpu/ops/matmul.py:133",
+                       max_abs_err=worst, **main)
+
+
+def check_variants(torch, checks):
+    """What the main paths do not run, each checked once: K3 grouped, K6
+    and K5 at g = 32 and 64, and K7 with a bf16 output, at the 8B wqkv
+    shape (4096 x 6144) with M = 8 (split K) and 256; the LM heads of the
+    other modes at the 8B head (4096 x 128256), whose activations are
+    fp32: K3 (int8 head) and K6 (int4 head) on fp32 x in three bf16 parts,
+    K5 (W4A8 head) with an fp32 output."""
+    from flash_attn_tpu_torch.ops import matmul as mm
+    from flash_attn_tpu_torch.ops.quant import quantize_int8
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def run(label, fn, plain, rel):
+        got, ref = fn(), plain()
+        torch.cuda.synchronize()
+        if rel:
+            err, share = row_err(got, ref, rel)
+            ok = checks.check(label, share, 1.0)
+            what = f"{share:.3f} of its row's tol, {rel:g} of the row's largest"
+        else:
+            err = float((got.float() - ref.float()).abs().max())
+            ok = checks.check(label, err, 0.0)
+            what = "tol 0, bit-exact"
+        ms = cuda_ms(torch, fn)
+        say(f"  {label}: max_abs_err {err:.3e} ({what}) {'ok' if ok else 'FAIL'} | {ms:.4f} ms")
+
+    def per_column_int8(K, N):
+        wf = torch.randn((K, N), generator=gen, device="cuda", dtype=bf) * 0.02
+        w, s = quantize_int8(wf, dims=(0,))
+        return w.contiguous(), s[0].contiguous()
+
+    K, N = 4096, 6144
+    for gs in (32, 64):
+        w8, s8, _ = _int8_grouped_weight(torch, gen, K, N, gs)
+        w4 = _int4_weight(torch, gen, K, N, gs)
+        for M in (8, 256):
+            x = torch.randn((M, K), generator=gen, device="cuda", dtype=bf)
+            xq, sx = mm.quantize_activations(x)
+            a = (x, w8, s8, gs, bf)
+            run(f"K3 grouped g={gs} M={M} K={K} N={N}", lambda: mm.matmul_int8_grouped_cuda(*a),
+                lambda: mm.matmul_int8_grouped_plain(*a), 2.0 ** -6)
+            a = (x, w4.packed, w4.scales, gs, bf)
+            run(f"K6 g={gs} M={M} K={K} N={N}", lambda: mm.matmul_int4_cuda(*a),
+                lambda: mm.matmul_int4_plain(*a), 2.0 ** -6)
+            a = (xq, sx, w4.packed, w4.scales, gs, bf)
+            run(f"K5 g={gs} M={M} K={K} N={N}", lambda: mm.matmul_w4a8_cuda(*a),
+                lambda: mm.matmul_w4a8_plain(*a), 2.0 ** -6)
+    w, sw = per_column_int8(K, N)
+    for M in (8, 256):
+        xq, sx = mm.quantize_activations(torch.randn((M, K), generator=gen, device="cuda", dtype=bf))
+        a = (xq, sx, w, sw, bf)
+        run(f"K7 bf16 out M={M} K={K} N={N}", lambda: mm.matmul_w8a8_cuda(*a),
+            lambda: mm.matmul_w8a8_plain(*a), 0.0)
+    del w8, s8, w4, w, sw
+
+    K, N = 4096, 128256
+    w, sw = per_column_int8(K, N)
+    for M in (8, 1024):
+        x = torch.randn((M, K), generator=gen, device="cuda", dtype=f32)
+        run(f"K3 fp32 x, fp32 out M={M} K={K} N={N}", lambda: mm.matmul_int8_cuda(x, w, sw, f32),
+            lambda: mm.matmul_int8_plain(x, w, sw, f32), 2.0 ** -16)
+    del w, sw
+    w4 = _int4_weight(torch, gen, K, N)
+    for M in (8, 256):
+        x = torch.randn((M, K), generator=gen, device="cuda", dtype=f32)
+        xq, sx = mm.quantize_activations(x)
+        a = (x, w4.packed, w4.scales, 128, f32)
+        run(f"K6 fp32 x, fp32 out M={M} K={K} N={N}", lambda: mm.matmul_int4_cuda(*a),
+            lambda: mm.matmul_int4_plain(*a), 2.0 ** -16)
+        a = (xq, sx, w4.packed, w4.scales, 128, f32)
+        run(f"K5 fp32 out M={M} K={K} N={N}", lambda: mm.matmul_w4a8_cuda(*a),
+            lambda: mm.matmul_w4a8_plain(*a), 2.0 ** -16)
+    del w4
 
 
 def _decode_inputs(torch, kv, g, B=8, H=32, Hk=8, S=4096, D=128):
@@ -323,33 +611,55 @@ def phase_kernels(torch, checks):
     check_k2(torch, checks, rows)
     check_k4(torch, checks, rows)
     torch.cuda.empty_cache()
+    for check in (check_k3g, check_k6, check_k5, check_k7):
+        check(torch, checks, rows)
+        torch.cuda.empty_cache()
+    check_variants(torch, checks)
+    torch.cuda.empty_cache()
     say(f"[phase 2 kernels vs plain] {'ok' if not checks.failed else 'FAIL'} | "
         f"{time.perf_counter() - t0:.2f}s")
     return rows
 
 
 def _to(tree, device):
+    """A params tree (dicts, lists, tuples, the weight dataclasses) with
+    every tensor moved to ``device``."""
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_to(v, device) for v in tree]
     if isinstance(tree, tuple):
         return tuple(_to(v, device) for v in tree)
-    return tree.to(device)
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: _to(getattr(tree, f.name), device) for f in dataclasses.fields(tree)})
+    return tree.to(device) if hasattr(tree, "to") else tree
 
 
-def phase_card_vs_cpu(torch, checks):
-    """2 layers at full 8B widths, int8 weights, fp8 KV: two prompts and
-    four decode steps in lockstep on the card and on the CPU, fed the same
-    tokens (the CPU's greedy choices)."""
+# (label, quantize, head_mode, fuse) of the card-vs-CPU runs
+CARD_VS_CPU = (
+    ("int8 weights", "int8", None, False),
+    ("int4 g=128 + W8A8 head, fused", "int4", "w8a8", True),
+    ("W4A8 g=128 + W8A8 head, fused", "w4a8", "w8a8", True),
+    ("int8 weights + int8 head", "int8", "int8", False),
+    ("int4 g=128 + int4 head, fused", "int4", "int4", True),
+)
+
+
+def card_vs_cpu(torch, checks, label, quantize, head_mode, fuse):
+    """2 layers at full 8B widths, fp8 KV: two prompts and four decode
+    steps in lockstep on the card and on the CPU, fed the same tokens (the
+    CPU's greedy choices).  The weights are made and quantized on the card
+    and copied to the CPU."""
     import numpy as np
 
     from flash_attn_tpu_torch.models import llama
 
     t0 = time.perf_counter()
     cfg = dataclasses.replace(llama.LLAMA3_8B, num_layers=2)
-    cpu_params = llama.init_params(cfg, seed=SEED + 4, device="cpu", quantize="int8")
-    sides = {"cpu": cpu_params, "cuda": _to(cpu_params, "cuda")}
+    card = llama.init_params(cfg, seed=SEED + 4, device="cuda", quantize=quantize,
+                             head_mode=head_mode, fuse=fuse)
+    sides = {"cpu": _to(card, "cpu"), "cuda": card}
     caches = {d: llama.make_cache(cfg, 2, 256, mode="fp8", device=d) for d in sides}
     rng = np.random.default_rng(SEED + 4)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (100, 37)]
@@ -375,82 +685,149 @@ def phase_card_vs_cpu(torch, checks):
     finite = bool(torch.isfinite(got).all())
     err = float((got - ref).abs().max())
     # bf16 activations: kernels and plain versions round at the same points,
-    # so only summation order differs; it can flip a bf16 (2^-8) or an fp8
-    # KV (2^-4) rounding, which two layers carry into the logits
+    # so only summation order differs; it can flip a bf16 (2^-8), an int8
+    # activation (1/127 of a row's absmax) or an fp8 KV (2^-4) rounding,
+    # which two layers carry into the logits
     tol = 5e-2 * float(ref.abs().max())
-    ok = checks.check("card vs cpu logits", err, tol) and finite
+    ok = checks.check(f"card vs cpu logits, {label}", err, tol) and finite
     if not finite:
-        checks.failed.append("card logits not finite")
+        checks.failed.append(f"card logits not finite, {label}")
     agree = int((got.argmax(-1) == ref.argmax(-1)).sum())
-    say(f"[phase 3 card vs cpu, 2 layers at 8B widths, int8 weights, fp8 KV] logits "
+    say(f"[phase 3 card vs cpu, 2 layers at 8B widths, {label}, fp8 KV] logits "
         f"{tuple(got.shape)} finite={finite} max_abs_err {err:.3e} (tol {tol:.3e}, "
         f"max |logit| {float(ref.abs().max()):.3f}) {'ok' if ok else 'FAIL'} | greedy "
         f"agreement {agree}/{ref.shape[0]} | {time.perf_counter() - t0:.2f}s")
-    del sides, caches, cpu_params
+    del sides, caches, card
     torch.cuda.empty_cache()
 
 
 def _counters():
+    from flash_attn_tpu_torch.ops import matmul as mm
     from flash_attn_tpu_torch.ops.decode import flash_decode_cuda
     from flash_attn_tpu_torch.ops.flash_fwd import flash_fwd_cuda
     from flash_attn_tpu_torch.ops.kv_append import kv_append_cuda
-    from flash_attn_tpu_torch.ops.matmul import matmul_int8_cuda
 
     return {"K1": flash_decode_cuda, "K2": kv_append_cuda,
-            "K3": matmul_int8_cuda, "K4": flash_fwd_cuda}
+            "K3": mm.matmul_int8_cuda, "K3g": mm.matmul_int8_grouped_cuda,
+            "K4": flash_fwd_cuda, "K5": mm.matmul_w4a8_cuda,
+            "K6": mm.matmul_int4_cuda, "K7": mm.matmul_w8a8_cuda}
 
 
-def phase_serve(torch, checks):
-    """The main path: Llama-3-8B (32 layers) through the engine, fp8 KV
-    then int8 KV.  Returns the launch counts of the fp8 run."""
+def _prompts(vocab):
     import numpy as np
 
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(128, 1025, 8)
+    return lens, [rng.integers(0, vocab, int(n)).tolist() for n in lens]
+
+
+def serve(torch, checks, label, cfg, params, kv_mode, max_tokens, path):
+    """One engine run of 8 greedy requests (max_batch 8, capacity 4096).
+    Every counter is set to 0 just before and read just after; each kernel
+    in ``path`` must have launched.  Returns the counts."""
     from flash_attn_tpu_torch.engine.engine import InferenceEngine
     from flash_attn_tpu_torch.models import llama
 
-    t0 = time.perf_counter()
-    cfg = llama.LLAMA3_8B
-    torch.cuda.reset_peak_memory_stats()
-    params = llama.init_params(cfg, seed=SEED, device="cuda", quantize="int8")
+    t1 = time.perf_counter()
+    lens, prompts = _prompts(cfg.vocab_size)
+    eng = InferenceEngine(params, llama.make_adapter(cfg), max_batch=8,
+                          capacity=4096, kv_mode=kv_mode, device="cuda")
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    reqs = [eng.submit(p, max_tokens=max_tokens) for p in prompts]
+    eng.run()
     torch.cuda.synchronize()
+    counts = {k: fn.launches for k, fn in counters.items()}
+    snap = eng.metrics.snapshot()
+    good = all(r.done and len(r.generated) == max_tokens
+               and all(0 <= t < cfg.vocab_size for t in r.generated) for r in reqs)
+    if not good:
+        checks.failed.append(f"{label}: a request did not finish with {max_tokens} valid tokens")
+    idle = [k for k in path if counts[k] <= 0]
+    if idle:
+        checks.failed.append(f"{label}: kernels {idle} were not launched: {counts}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    m = eng.metrics
+    say(f"[{label}] 8 requests, prompts {lens.tolist()}, {max_tokens} tokens each: "
+        f"{'ok' if good else 'FAIL'} | prefill "
+        f"{m.prefill_tokens / max(m.prefill_seconds, 1e-9):.1f} tok/s | decode "
+        f"{m.decode_tokens / max(m.decode_seconds, 1e-9):.1f} tok/s "
+        f"({snap['decode_step_ms']} ms/step) | max_memory_allocated {peak:.2f} GiB | "
+        f"{time.perf_counter() - t1:.2f}s")
+    say("kernels " + json.dumps({"run": label, **counts}))
+    del eng
+    torch.cuda.empty_cache()
+    return counts, peak
+
+
+def _fresh_model(torch, cfg, **quant):
+    """Params on the card from the seed, with the peak-memory count reset
+    first so the run's peak includes them."""
+    from flash_attn_tpu_torch.models import llama
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, seed=SEED, device="cuda", **quant)
+    torch.cuda.synchronize()
+    return params, time.perf_counter() - t0
+
+
+def phase_serve(torch, checks):
+    """The main paths through the engine, one model on the card at a time:
+    4. Llama-3-8B, int8 weights, fp8 then int8 KV, 32 tokens;
+    5. Llama-3-8B, W4A8 layers + W8A8 head, fused, fp8 KV, 32 tokens;
+    6. Llama-3-70B, int4 g=128 layers + W8A8 head, fused, fp8 KV, 16 tokens.
+    Returns {run label: that run's launch counts}."""
+    from flash_attn_tpu_torch.models import llama
+
+    runs = {}
+    base = ("K1", "K2", "K4")
+
+    def add(label, counts):
+        runs[label] = counts
+
+    params, secs = _fresh_model(torch, llama.LLAMA3_8B, quantize="int8")
     say(f"  8B params (int8 weights, bf16 embeddings and head) on the card in "
-        f"{time.perf_counter() - t0:.2f}s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    rng = np.random.default_rng(SEED)
-    lens = rng.integers(128, 1025, 8)
-    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist() for n in lens]
-    first = None
+        f"{secs:.2f}s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     for kv_mode in ("fp8", "int8"):
-        t1 = time.perf_counter()
-        eng = InferenceEngine(params, llama.make_adapter(cfg), max_batch=8,
-                              capacity=4096, kv_mode=kv_mode, device="cuda")
-        counters = _counters()
-        for fn in counters.values():
-            fn.launches = 0
-        reqs = [eng.submit(p, max_tokens=32) for p in prompts]
-        eng.run()
-        torch.cuda.synchronize()
-        counts = {k: fn.launches for k, fn in counters.items()}
-        snap = eng.metrics.snapshot()
-        good = all(r.done and len(r.generated) == 32
-                   and all(0 <= t < cfg.vocab_size for t in r.generated) for r in reqs)
-        if not good:
-            checks.failed.append(f"serve {kv_mode}: a request did not finish with 32 valid tokens")
-        if min(counts.values()) <= 0:
-            checks.failed.append(f"serve {kv_mode}: a kernel was not launched: {counts}")
-        m = eng.metrics
-        say(f"[phase 4 serve Llama-3-8B, {kv_mode} KV] 8 requests, prompts "
-            f"{lens.tolist()}, 32 tokens each: {'ok' if good else 'FAIL'} | prefill "
-            f"{m.prefill_tokens / max(m.prefill_seconds, 1e-9):.1f} tok/s | decode "
-            f"{m.decode_tokens / max(m.decode_seconds, 1e-9):.1f} tok/s "
-            f"({snap['decode_step_ms']} ms/step) | max_memory_allocated "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | "
-            f"{time.perf_counter() - t1:.2f}s")
-        say("kernels " + json.dumps({"kv": kv_mode, **counts}))
-        if first is None:
-            first = counts
-        del eng
-        torch.cuda.empty_cache()
-    return first
+        label = f"phase 4 serve Llama-3-8B int8, {kv_mode} KV"
+        add(label, serve(torch, checks, label, llama.LLAMA3_8B, params, kv_mode, 32,
+                         base + ("K3",))[0])
+    del params
+
+    params, secs = _fresh_model(torch, llama.LLAMA3_8B, quantize="w4a8",
+                                group_size=128, head_mode="w8a8", fuse=True)
+    say(f"  8B params (W4A8 g=128 fused layers, W8A8 head) on the card in "
+        f"{secs:.2f}s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    add(RUN_8B_W4A8, serve(torch, checks, RUN_8B_W4A8, llama.LLAMA3_8B, params, "fp8", 32,
+                           base + ("K5", "K7"))[0])
+    del params
+
+    params, secs = _fresh_model(torch, llama.LLAMA3_70B, quantize="int4",
+                                group_size=128, head_mode="w8a8", fuse=True)
+    say(f"  70B params (int4 g=128 fused layers, W8A8 head, bf16 embeddings) on the "
+        f"card in {secs:.2f}s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    counts, peak = serve(torch, checks, RUN_70B, llama.LLAMA3_70B, params, "fp8", 16,
+                         base + ("K6", "K7"))
+    add(RUN_70B, counts)
+    if peak > MAX_70B_GIB:
+        checks.failed.append(f"70B serve peak {peak:.2f} GiB > {MAX_70B_GIB} GiB")
+    del params
+    torch.cuda.empty_cache()
+    return runs
+
+
+RUN_8B_INT8 = "phase 4 serve Llama-3-8B int8, fp8 KV"
+RUN_8B_W4A8 = "phase 5 serve Llama-3-8B W4A8 + W8A8 head, fused, fp8 KV"
+RUN_70B = "phase 6 serve Llama-3-70B int4 + W8A8 head, fused, fp8 KV"
+KERNEL_ROWS = ("K1", "K2", "K3", "K3g", "K4", "K5", "K6", "K7")
+# the run whose launches a kernel's row reports: the main path that the
+# kernel serves (this slice's 70B serve for the shared K1, K2 and K4);
+# K3 grouped has no model path, so its row reports none
+ROW_RUN = {"K1": RUN_70B, "K2": RUN_70B, "K3": RUN_8B_INT8, "K3g": None,
+           "K4": RUN_70B, "K5": RUN_8B_W4A8, "K6": RUN_70B, "K7": RUN_70B}
 
 
 def main() -> int:
@@ -473,10 +850,12 @@ def main() -> int:
     checks = Checks()
     smi = phase_env(torch)
     rows = phase_kernels(torch, checks)
-    phase_card_vs_cpu(torch, checks)
-    counts = phase_serve(torch, checks)
+    for case in CARD_VS_CPU:
+        card_vs_cpu(torch, checks, *case)
+    runs = phase_serve(torch, checks)
     for key, row in rows.items():
-        row["launches"] = counts[key]
+        row["launches_run"] = ROW_RUN[key]
+        row["launches"] = runs[ROW_RUN[key]][key] if ROW_RUN[key] else 0
     say(f"[total] {time.perf_counter() - t_start:.2f}s")
     if checks.failed:
         for f in checks.failed:
@@ -484,10 +863,11 @@ def main() -> int:
         return 1
     kernels = [dict(name=r["name"], route="cuda", source=r["source"],
                     replaces=r["replaces"], launches=r["launches"],
+                    launches_run=r["launches_run"],
                     max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                     library_ms=r["library_ms"])
-               for r in (rows[k] for k in ("K1", "K2", "K3", "K4"))]
+               for r in (rows[k] for k in KERNEL_ROWS)]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -36,7 +36,8 @@ _SIGNATURES = {
     "fatt_decode_bhsd": [P, P, P, P, P, P, P, P, P,
                          I, I, I, I, I, I, I, I, F, I, F, P],
     "fatt_kv_append": [P, P, P, P, P, P, P, I, I, I, I, I, P],
-    "fatt_matmul_int8": [P, P, P, P, P, I, I, I, I, P],
+    "fatt_matmul_float_q": [P, P, P, P, P, I, I, I, I, I, I, I, I, P],
+    "fatt_matmul_s8_q": [P, P, P, P, P, P, I, I, I, I, I, I, I, P],
     "fatt_flash_fwd": [P, P, P, P, P, P, P,
                        I, I, I, I, I, I, I, F, I, I, P],
 }

@@ -5,8 +5,12 @@ This module imports no JAX: it takes anything ``numpy.asarray`` accepts
 (a JAX array converts itself), including the ``ml_dtypes`` bfloat16 and
 float8_e4m3fn arrays that JAX produces.
 
-- ``params_from_jax``: a params pytree (dicts, lists, float arrays and
-  ``(int8, scales)`` tuples) -> the same structure of torch tensors.
+- ``params_from_jax``: a params pytree (dicts, lists, float arrays,
+  ``(int8, scales)`` tuples, the legacy ``("w8a8", int8, scales)`` tuple,
+  and the weight classes ``Int4Weight``, ``W4A8Weight``, ``W8A8Weight``,
+  ``BiasedWeight``, recognised by class name) -> the same structure of
+  torch tensors and the port's classes.  An ``Int4Weight`` in the TPU's
+  "planes" layout is repacked as halves, the port's one layout.
 - ``kv_cache_from_jax``: a JAX ``KVCache`` -> the port's ``KVCache``.  The
   JAX cache stores scales lane-dense as [B, Hk, 1, S] and, for fp8 caches
   whose capacity is a multiple of 2048, permuted evens-then-odds within
@@ -19,10 +23,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from flash_attn_tpu_torch._device import resolve_device
 from flash_attn_tpu_torch.engine.kv_cache import KVCache
+from flash_attn_tpu_torch.ops.matmul import BiasedWeight, W4A8Weight, W8A8Weight
+from flash_attn_tpu_torch.ops.quant import Int4Weight, pack_int4, unpack_int4
 
 
-def to_torch(x, device="cpu") -> torch.Tensor:
+def to_torch(x, device=None) -> torch.Tensor:
     """One array -> torch tensor, keeping bfloat16 and float8_e4m3fn."""
     a = np.asarray(x)
     name = a.dtype.name
@@ -32,18 +39,42 @@ def to_torch(x, device="cpu") -> torch.Tensor:
         t = torch.from_numpy(a.view(np.uint8).copy()).view(torch.float8_e4m3fn)
     else:
         t = torch.from_numpy(np.ascontiguousarray(a).copy())
-    return t.to(device)
+    return t.to(resolve_device(device))
 
 
-def params_from_jax(tree, device="cpu"):
-    """Recursively convert a JAX params pytree."""
+def _int4_from_jax(w, device):
+    """A JAX Int4Weight / W4A8Weight -> (packed halves, scales), on the
+    CPU first so a planes relayout never needs the card."""
+    packed = to_torch(w.packed, "cpu")
+    if getattr(w, "layout", "halves") == "planes":
+        packed = pack_int4(unpack_int4(packed, w.group_size, "planes"), w.group_size)
+    return packed.to(device), to_torch(w.scales, device)
+
+
+def params_from_jax(tree, device=None):
+    """Recursively convert a JAX params pytree onto ``device`` (default:
+    the card)."""
+    device = resolve_device(device)
+    kind = type(tree).__name__
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
         return [params_from_jax(v, device) for v in tree]
+    if kind == "Int4Weight":
+        return Int4Weight(*_int4_from_jax(tree, device), tree.group_size,
+                          tuple(tree.shape))
+    if kind == "W4A8Weight":
+        return W4A8Weight(*_int4_from_jax(tree, device), tree.group_size,
+                          tuple(tree.shape))
+    if kind == "W8A8Weight":
+        return W8A8Weight(to_torch(tree.vals, device), to_torch(tree.scales, device))
+    if kind == "BiasedWeight":
+        return BiasedWeight(params_from_jax(tree.w, device), to_torch(tree.bias, device))
     if isinstance(tree, tuple):
+        if len(tree) == 3 and tree[0] == "w8a8":
+            return ("w8a8", to_torch(tree[1], device), to_torch(tree[2], device))
         if len(tree) != 2:
-            raise NotImplementedError("only (int8, scales) weight tuples are ported")
+            raise ValueError(f"unknown weight tuple of length {len(tree)}")
         return tuple(to_torch(t, device) for t in tree)
     if tree is None or isinstance(tree, (int, float, str)):
         return tree
@@ -60,9 +91,11 @@ def depermute_scale_lanes(s: np.ndarray, chunk: int) -> np.ndarray:
     return np.swapaxes(r, -1, -2).reshape(*lead, S)
 
 
-def kv_cache_from_jax(jcache, device="cpu") -> KVCache:
+def kv_cache_from_jax(jcache, device=None) -> KVCache:
     """A JAX ``KVCache`` (duck-typed: k, v, k_scale, v_scale, length, mode,
-    scale_perm_chunk) -> the port's cache on ``device``."""
+    scale_perm_chunk) -> the port's cache on ``device`` (default: the
+    card)."""
+    device = resolve_device(device)
     k = [to_torch(x, device) for x in jcache.k]
     v = [to_torch(x, device) for x in jcache.v]
     ks = vs = None

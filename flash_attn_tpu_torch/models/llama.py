@@ -1,16 +1,21 @@
 """Llama-3 in PyTorch: RMSNorm + RoPE + GQA + SwiGLU over the port's
-kernels (prefill K4, decode K1 + K2, projections K3).
+kernels (prefill K4, decode K1 + K2, projections and quantized heads K3,
+K5, K6, K7).
 
-Port of flash_attn_tpu/models/llama.py for the serving path: the config,
-``init_params`` (from a ``torch.Generator``), ``quantize_weights``
-(int8), ``prefill_with_kv``, ``decode_step``, ``make_cache`` and
-``make_adapter``.  Params are a plain dict like the JAX pytree: per block
-wq/wk/wv/wo, w_gate/w_up/w_down (float tensors or ``(int8, scales)``
-tuples), attn_norm/mlp_norm; top level tok_emb, final_norm, lm_head.
+Port of flash_attn_tpu/models/llama.py for the serving path: the configs,
+``init_params`` (from a ``torch.Generator``), ``quantize_weights`` (int8,
+int4, w8a8, w4a8, with a separate ``head_mode``), ``fuse_projections``,
+``prefill_with_kv``, ``decode_step``, ``make_cache`` and ``make_adapter``.
+Params are a plain dict like the JAX pytree: per block wq/wk/wv (or the
+fused wqkv), wo, w_gate/w_up (or w_gate_up), w_down, attn_norm/mlp_norm;
+top level tok_emb, final_norm, lm_head.  A weight is any kind that
+``ops/matmul.quantized_matmul`` takes.
 
-The LM head runs in fp32 as in the JAX model; the first call that needs
-it stores an fp32 copy of the head in the params dict under
-``"_lm_head_f32"`` (about 2.1 GB at the 8B shape), so no step converts it.
+The LM head takes fp32 activations as in the JAX model.  A float head
+runs as an fp32 matmul: the first call that needs it stores an fp32 copy
+in the params dict under ``"_lm_head_f32"`` (about 2.1 GB at the 8B
+shape), so no step converts it.  A quantized head (``head_mode``) is used
+as it is.
 """
 
 from __future__ import annotations
@@ -23,12 +28,20 @@ from flash_attn_tpu_torch._device import resolve_device
 from flash_attn_tpu_torch.engine.kv_cache import KVCache
 from flash_attn_tpu_torch.ops.attention import flash_attention
 from flash_attn_tpu_torch.ops.decode import flash_decode
-from flash_attn_tpu_torch.ops.matmul import quantized_matmul
-from flash_attn_tpu_torch.ops.quant import quantize_int8
+from flash_attn_tpu_torch.ops.matmul import (
+    BiasedWeight,
+    W4A8Weight,
+    W8A8Weight,
+    concat_weights,
+    quantized_matmul,
+)
+from flash_attn_tpu_torch.ops.quant import quantize_int4, quantize_int8
 from flash_attn_tpu_torch.ops.rope import rope_cos_sin, rope_rotate
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-_PROJ_NAMES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+_PROJ_NAMES = ("wq", "wk", "wv", "wqkv", "wo", "w_gate", "w_up",
+               "w_gate_up", "w_down")
+_MODES = ("int8", "int4", "w8a8", "w4a8")
 
 
 @dataclass(frozen=True)
@@ -52,6 +65,9 @@ class LlamaConfig:
 
 
 LLAMA3_8B = LlamaConfig()
+LLAMA3_70B = LlamaConfig(
+    hidden=8192, intermediate=28672, num_layers=80, num_heads=64, num_kv_heads=8
+)
 LLAMA_TINY = LlamaConfig(
     vocab_size=512, hidden=128, intermediate=256, num_layers=2,
     num_heads=4, num_kv_heads=2, head_dim=32, max_position=256,
@@ -59,19 +75,49 @@ LLAMA_TINY = LlamaConfig(
 )
 
 
-def _quant_int8(w: torch.Tensor):
-    vals, scale = quantize_int8(w, dims=(0,))
-    return vals.contiguous(), scale[0].contiguous()
+def _quant(w, mode: str, group_size: int = 128):
+    """One weight in one quantization mode (flash_attn_tpu/models/llama.py:
+    quantize_weights.quant)."""
+    if isinstance(w, BiasedWeight):
+        return BiasedWeight(_quant(w.w, mode, group_size), w.bias)
+    if mode in ("int8", "w8a8"):
+        vals, scale = quantize_int8(w, dims=(0,))
+        vals, scale = vals.contiguous(), scale[0].contiguous()
+        return (vals, scale) if mode == "int8" else W8A8Weight(vals, scale)
+    if mode == "int4":
+        return quantize_int4(w, group_size=group_size)
+    if mode == "w4a8":
+        q4 = quantize_int4(w, group_size=group_size)
+        return W4A8Weight(q4.packed, q4.scales, q4.group_size, q4.shape)
+    raise ValueError(f"unknown quantization mode {mode!r}")
+
+
+def _fuse_block(blk: dict) -> dict:
+    """wq/wk/wv -> wqkv and w_gate/w_up -> w_gate_up (idempotent)."""
+    if "wqkv" in blk:
+        return blk
+    nb = {k: v for k, v in blk.items()
+          if k not in ("wq", "wk", "wv", "w_gate", "w_up")}
+    nb["wqkv"] = concat_weights([blk["wq"], blk["wk"], blk["wv"]])
+    nb["w_gate_up"] = concat_weights([blk["w_gate"], blk["w_up"]])
+    return nb
 
 
 def init_params(cfg: LlamaConfig, seed: int = 0, *, device=None,
-                quantize: str | None = None) -> dict:
+                quantize: str | None = None, group_size: int = 128,
+                head_mode: str | None = None, fuse: bool = False) -> dict:
     """Random weights (normal * 0.02, norms 1) from ``seed`` on ``device``
-    (default: the card).  quantize='int8' quantizes each block's
-    projections as soon as they are made, so the float copy of the whole
-    model never exists (peak memory stays near the int8 size)."""
-    if quantize not in (None, "int8"):
-        raise NotImplementedError(f"quantize={quantize!r} is not ported yet")
+    (default: the card).  ``quantize`` (any mode of ``quantize_weights``)
+    quantizes each block's projections as soon as they are made, and
+    ``fuse`` fuses them right after, so neither a float model nor an
+    unfused copy ever exists (at 70B that is the difference between ~42
+    and ~170 GB).  ``head_mode`` quantizes the LM head as it is made;
+    without it the head stays float.  Equal to ``fuse_projections(
+    quantize_weights(init_params(...), quantize, group_size,
+    skip=("tok_emb",) if head_mode else ("tok_emb", "lm_head"),
+    head_mode=head_mode))``."""
+    if quantize not in (None, *_MODES) or head_mode not in (None, *_MODES):
+        raise ValueError(f"unknown quantization mode {quantize!r} / {head_mode!r}")
     dev = resolve_device(device)
     dtype = cfg.torch_dtype
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -84,46 +130,64 @@ def init_params(cfg: LlamaConfig, seed: int = 0, *, device=None,
     kv_dim = cfg.num_kv_heads * cfg.head_dim
     blocks = []
     for _ in range(cfg.num_layers):
-        blk = {
-            "attn_norm": torch.ones(cfg.hidden, dtype=dtype, device=dev),
-            "wq": w(cfg.hidden, q_dim),
-            "wk": w(cfg.hidden, kv_dim),
-            "wv": w(cfg.hidden, kv_dim),
-            "wo": w(q_dim, cfg.hidden),
-            "mlp_norm": torch.ones(cfg.hidden, dtype=dtype, device=dev),
-            "w_gate": w(cfg.hidden, cfg.intermediate),
-            "w_up": w(cfg.hidden, cfg.intermediate),
-            "w_down": w(cfg.intermediate, cfg.hidden),
-        }
-        if quantize == "int8":
-            for name in _PROJ_NAMES:
-                blk[name] = _quant_int8(blk[name])
-        blocks.append(blk)
+        blk = {"attn_norm": torch.ones(cfg.hidden, dtype=dtype, device=dev)}
+        # one projection at a time: quantized before the next is drawn
+        for name, kin, kout in (
+                ("wq", cfg.hidden, q_dim), ("wk", cfg.hidden, kv_dim),
+                ("wv", cfg.hidden, kv_dim), ("wo", q_dim, cfg.hidden)):
+            blk[name] = w(kin, kout)
+            if quantize:
+                blk[name] = _quant(blk[name], quantize, group_size)
+        blk["mlp_norm"] = torch.ones(cfg.hidden, dtype=dtype, device=dev)
+        for name, kin, kout in (
+                ("w_gate", cfg.hidden, cfg.intermediate),
+                ("w_up", cfg.hidden, cfg.intermediate),
+                ("w_down", cfg.intermediate, cfg.hidden)):
+            blk[name] = w(kin, kout)
+            if quantize:
+                blk[name] = _quant(blk[name], quantize, group_size)
+        blocks.append(_fuse_block(blk) if fuse else blk)
+    tok_emb = w(cfg.vocab_size, cfg.hidden)
+    lm_head = w(cfg.hidden, cfg.vocab_size)
+    if head_mode:
+        lm_head = _quant(lm_head, head_mode, group_size)
     return {
-        "tok_emb": w(cfg.vocab_size, cfg.hidden),
+        "tok_emb": tok_emb,
         "blocks": blocks,
         "final_norm": torch.ones(cfg.hidden, dtype=dtype, device=dev),
-        "lm_head": w(cfg.hidden, cfg.vocab_size),
+        "lm_head": lm_head,
     }
 
 
-def quantize_weights(params: dict, mode: str = "int8",
-                     skip=("tok_emb", "lm_head")) -> dict:
-    """Weight-only int8 quantization of every projection (per-column
-    scales); embeddings and head stay float by default.  Returns a new
-    dict that shares the unquantized tensors."""
-    if mode != "int8":
-        raise NotImplementedError(f"mode {mode!r} is not ported yet")
+def quantize_weights(params: dict, mode: str = "int8", group_size: int = 128,
+                     skip=("tok_emb", "lm_head"),
+                     head_mode: str | None = None) -> dict:
+    """Quantize every projection (fused names too) in ``mode``: 'int8'
+    (per-column scales), 'int4' (group-``group_size`` Int4Weight), 'w8a8'
+    or 'w4a8' (the same weights, with per-token int8 activations).  The
+    embeddings and head stay float unless 'lm_head' is left out of
+    ``skip``; ``head_mode`` then overrides ``mode`` for the head.  Returns
+    a new dict that shares the unquantized tensors."""
     out = {k: v for k, v in params.items() if k != "_lm_head_f32"}
     out["blocks"] = []
     for blk in params["blocks"]:
         nb = dict(blk)
         for name in _PROJ_NAMES:
-            if name in nb and not isinstance(nb[name], tuple):
-                nb[name] = _quant_int8(nb[name])
+            if name in nb:
+                nb[name] = _quant(blk[name], mode, group_size)
         out["blocks"].append(nb)
     if "lm_head" not in skip and not isinstance(params["lm_head"], tuple):
-        out["lm_head"] = _quant_int8(params["lm_head"])
+        out["lm_head"] = _quant(params["lm_head"], head_mode or mode, group_size)
+    return out
+
+
+def fuse_projections(params: dict) -> dict:
+    """Fuse wq/wk/wv -> wqkv and w_gate/w_up -> w_gate_up in every block,
+    before or after quantization (``ops/matmul.concat_weights``).  Returns
+    a new dict; at 70B prefer ``init_params(fuse=True)``, which never
+    holds both copies."""
+    out = dict(params)
+    out["blocks"] = [_fuse_block(blk) for blk in params["blocks"]]
     return out
 
 
@@ -142,29 +206,40 @@ def _proj(x, w):
 
 def _block_mlp(x, blk, cfg):
     h = _rms_norm(x, blk["mlp_norm"], cfg.rms_eps)
-    gate = _proj(h, blk["w_gate"])
-    up = _proj(h, blk["w_up"])
+    if "w_gate_up" in blk:
+        y = _proj(h, blk["w_gate_up"])
+        gate, up = y[..., :cfg.intermediate], y[..., cfg.intermediate:]
+    else:
+        gate = _proj(h, blk["w_gate"])
+        up = _proj(h, blk["w_up"])
     act = torch.nn.functional.silu(gate.float()) * up.float()
     return x + _proj(act.to(x.dtype), blk["w_down"])
 
 
 def _logits(params, x, cfg):
-    """fp32 LM head on the final-normed hidden state."""
+    """LM head on the fp32 final-normed hidden state: a float head as an
+    fp32 matmul, a quantized one through its kernel."""
     head = params.get("_lm_head_f32")
     if head is None:
         w = params["tok_emb"].T if cfg.tie_embeddings else params["lm_head"]
-        if isinstance(w, tuple):
-            raise NotImplementedError("a quantized LM head is not ported yet")
+        if not isinstance(w, torch.Tensor):
+            return _proj(x.float(), w)
         head = w.float().contiguous()
         params["_lm_head_f32"] = head
     return _proj(x.float(), head)
 
 
 def _qkv(h, blk, cfg, b, s):
-    q = _proj(h, blk["wq"]).reshape(b, s, cfg.num_heads, cfg.head_dim)
-    k = _proj(h, blk["wk"]).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-    v = _proj(h, blk["wv"]).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-    return q, k, v
+    q_dim = cfg.num_heads * cfg.head_dim
+    kv_dim = cfg.num_kv_heads * cfg.head_dim
+    if "wqkv" in blk:
+        y = _proj(h, blk["wqkv"])
+        q, k, v = y[..., :q_dim], y[..., q_dim:q_dim + kv_dim], y[..., q_dim + kv_dim:]
+    else:
+        q, k, v = _proj(h, blk["wq"]), _proj(h, blk["wk"]), _proj(h, blk["wv"])
+    return (q.reshape(b, s, cfg.num_heads, cfg.head_dim),
+            k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim),
+            v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim))
 
 
 def prefill_with_kv(params, tokens, positions, cfg: LlamaConfig):

@@ -33,10 +33,19 @@ PROMPTS = [[5, 6, 7, 8, 9, 10, 11], [300, 2, 41], list(range(40, 75)), [9]]
 MAX_TOKENS = [6, 4, 5, 7]
 
 
+def params_from_jax(tree):
+    """The bridge onto the CPU, where these tests run the plain versions."""
+    return bridge.params_from_jax(jax.device_get(tree), device="cpu")
+
+
+def kv_cache_from_jax(cache):
+    return bridge.kv_cache_from_jax(jax.device_get(cache), device="cpu")
+
+
 @pytest.fixture(scope="module")
 def both_params():
     jp = jllama.quantize_weights(jllama.init_params(jllama.LLAMA_TINY, jax.random.PRNGKey(0)))
-    return jp, bridge.params_from_jax(jax.device_get(jp))
+    return jp, params_from_jax(jp)
 
 
 @pytest.mark.parametrize("kv_mode", ["int8", "fp8", "none"])
@@ -59,6 +68,33 @@ def test_engine_greedy_tokens_equal_jax(both_params, kv_mode):
         assert tr.generated == jr.generated
     assert teng.metrics.completed_requests == len(PROMPTS)
     assert teng.metrics.decode_tokens == jeng.metrics.decode_tokens
+
+
+@pytest.mark.parametrize("mode", ["int4", "w4a8"])
+def test_engine_greedy_tokens_equal_jax_int4_w8a8_head(mode):
+    """The quantized serving modes at LLAMA_TINY: int4 (g = 128, packed as
+    planes by JAX and repacked by the bridge) or W4A8 (g = 32) layers, a
+    W8A8 head, fused projections and fp8 KV.  Every greedy token equals
+    the JAX engine's."""
+    g = 128 if mode == "int4" else 32
+    jp = jllama.fuse_projections(jllama.quantize_weights(
+        jllama.init_params(jllama.LLAMA_TINY, jax.random.PRNGKey(0)), mode,
+        group_size=g, skip=("tok_emb",), head_mode="w8a8"))
+    tp = params_from_jax(jp)
+    assert "wqkv" in tp["blocks"][0] and type(tp["lm_head"]).__name__ == "W8A8Weight"
+    jadapter = dataclasses.replace(
+        jllama.make_adapter(jllama.LLAMA_TINY, interpret=True), prefill_packed=None)
+    jeng = JEngine(jp, jadapter, max_batch=2, capacity=64, kv_mode="fp8",
+                   cache_dtype=jnp.float32)
+    teng = InferenceEngine(tp, llama.make_adapter(CFG), max_batch=2, capacity=64,
+                           kv_mode="fp8", cache_dtype=torch.float32, device="cpu")
+    jreqs = [jeng.submit(p, max_tokens=n) for p, n in zip(PROMPTS, MAX_TOKENS)]
+    treqs = [teng.submit(p, max_tokens=n) for p, n in zip(PROMPTS, MAX_TOKENS)]
+    jeng.run()
+    teng.run()
+    for jr, tr, n in zip(jreqs, treqs, MAX_TOKENS):
+        assert tr.done and len(tr.generated) == n
+        assert tr.generated == jr.generated
 
 
 def test_engine_matches_direct_greedy_decode(both_params):
@@ -101,7 +137,7 @@ def test_kv_cache_append_matches_jax(kv_mode):
             jc = jc.append(layer, jnp.asarray(k), jnp.asarray(v))
             tc = tc.append(layer, torch.from_numpy(k), torch.from_numpy(v))
         jc, tc = jc.advance(t), tc.advance(t)
-    got = bridge.kv_cache_from_jax(jax.device_get(jc))
+    got = kv_cache_from_jax(jc)
     np.testing.assert_array_equal(tc.length.numpy(), got.length.numpy())
     for layer in range(L):
         for mine, theirs in ((tc.k, got.k), (tc.v, got.v)):

@@ -29,12 +29,21 @@ CFG = llama.LLAMA_TINY
 LOGIT_TOL = 2e-3
 
 
+def params_from_jax(tree):
+    """The bridge onto the CPU, where these tests run the plain versions."""
+    return bridge.params_from_jax(jax.device_get(tree), device="cpu")
+
+
+def kv_cache_from_jax(cache):
+    return bridge.kv_cache_from_jax(jax.device_get(cache), device="cpu")
+
+
 @pytest.fixture(scope="module")
 def both_params():
     assert jllama.LLAMA_TINY == jllama.LlamaConfig(**{
         f: getattr(CFG, f) for f in CFG.__dataclass_fields__})
     jp = jllama.quantize_weights(jllama.init_params(jllama.LLAMA_TINY, jax.random.PRNGKey(0)))
-    return jp, bridge.params_from_jax(jax.device_get(jp))
+    return jp, params_from_jax(jp)
 
 
 def test_bridge_params_keep_int8_tuples(both_params):
@@ -49,7 +58,7 @@ def test_bridge_params_keep_int8_tuples(both_params):
 def test_quantize_weights_matches_jax():
     jp = jllama.init_params(jllama.LLAMA_TINY, jax.random.PRNGKey(1))
     jq = jllama.quantize_weights(jp)
-    tq = llama.quantize_weights(bridge.params_from_jax(jax.device_get(jp)))
+    tq = llama.quantize_weights(params_from_jax(jp))
     for name in ("wq", "w_down"):
         np.testing.assert_array_equal(tq["blocks"][1][name][0].numpy(),
                                       np.asarray(jq["blocks"][1][name][0]))
@@ -87,7 +96,7 @@ def test_decode_step_matches_jax(both_params, kv_mode):
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=LOGIT_TOL)
     np.testing.assert_array_equal(tcache.length.numpy(), np.asarray(jcache.length))
     # the port's cache equals the JAX cache after the bridge
-    got = bridge.kv_cache_from_jax(jax.device_get(jcache))
+    got = kv_cache_from_jax(jcache)
     np.testing.assert_allclose(tcache.k[1].float().numpy(), got.k[1].float().numpy(),
                                atol=0.51 if kv_mode == "int8" else 0.07)
 
@@ -106,7 +115,7 @@ def test_bridge_kv_cache_fp8_depermutes_scale_lanes():
     k1 = r.standard_normal((B, 1, Hk, D)).astype(np.float32)
     v1 = r.standard_normal((B, 1, Hk, D)).astype(np.float32)
     jc = jc.append(0, jnp.asarray(k1), jnp.asarray(v1)).advance(1)
-    tc = bridge.kv_cache_from_jax(jax.device_get(jc))
+    tc = kv_cache_from_jax(jc)
     assert tc.k_scale[0].shape == (B, Hk, S)
     _, want_ks, _, want_vs = j_quantize_kv(jnp.asarray(np.concatenate([k, k1], 1)),
                                            jnp.asarray(np.concatenate([v, v1], 1)), "fp8")
@@ -144,3 +153,94 @@ def test_entry_points_default_to_the_card():
         llama.init_params(CFG, seed=0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         llama.make_cache(CFG, 1, 32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bridge.to_torch(np.zeros(2, np.float32))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bridge.params_from_jax({"w": np.zeros(2, np.float32)})
+
+
+# (mode, head_mode, group_size, fuse).  At g = 128 the JAX package packs
+# int4 as planes and the bridge repacks it as halves.
+QUANT_CASES = [
+    ("int4", None, 32, False),
+    ("int4", "w8a8", 128, True),
+    ("w4a8", "w8a8", 32, True),
+    ("w4a8", None, 32, False),
+    ("int8", "w8a8", 128, False),
+    ("int8", "w8a8", 128, True),
+    # weight-only heads, whose kernels take the head's fp32 activations
+    ("int8", "int8", 128, False),
+    ("int4", "int4", 32, True),
+]
+
+
+def _weight_leaves(tree):
+    """Every tensor of a port params tree, in a fixed order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _weight_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for x in tree for t in _weight_leaves(x)]
+    if hasattr(tree, "__dataclass_fields__"):
+        return [t for f in tree.__dataclass_fields__ for t in _weight_leaves(getattr(tree, f))]
+    return []
+
+
+@pytest.mark.parametrize("mode,head_mode,g,fuse", QUANT_CASES)
+def test_quantized_modes_match_jax(mode, head_mode, g, fuse):
+    """quantize_weights (+ fuse_projections) on the bridged float params
+    gives the JAX package's quantized tree bit for bit, and its prefill and
+    fp8-KV decode logits match JAX's.  Tolerance as LOGIT_TOL; the int8
+    activations of w4a8/w8a8 add at most a flipped x rounding (1/127 of a
+    row's step) whose effect on a logit is ~1e-4."""
+    jp = jllama.init_params(jllama.LLAMA_TINY, jax.random.PRNGKey(4))
+    skip = ("tok_emb",) if head_mode else ("tok_emb", "lm_head")
+    jq = jllama.quantize_weights(jp, mode, group_size=g, skip=skip, head_mode=head_mode)
+    tq = llama.quantize_weights(params_from_jax(jp), mode, group_size=g, skip=skip,
+                                head_mode=head_mode)
+    if fuse:
+        jq, tq = jllama.fuse_projections(jq), llama.fuse_projections(tq)
+    bridged = params_from_jax(jq)
+    assert ("wqkv" in bridged["blocks"][0]) == fuse
+    mine, theirs = _weight_leaves(tq), _weight_leaves(bridged)
+    assert len(mine) == len(theirs)
+    for a, b in zip(mine, theirs):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+    toks = np.random.default_rng(5).integers(0, CFG.vocab_size, (1, 20)).astype(np.int32)
+    pos = np.arange(20, dtype=np.int32)[None]
+    jprefill = jax.jit(lambda p, t, q: jllama.prefill_with_kv(
+        p, t, q, jllama.LLAMA_TINY, interpret=True)[0])
+    jl = jprefill(jq, jnp.asarray(toks), jnp.asarray(pos))
+    tl, _ = llama.prefill_with_kv(tq, torch.from_numpy(toks).long(), torch.from_numpy(pos), CFG)
+    assert tl.dtype == torch.float32
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=LOGIT_TOL)
+
+    jcache = jllama.make_cache(jllama.LLAMA_TINY, 2, 32, mode="fp8")
+    tcache = llama.make_cache(CFG, 2, 32, mode="fp8", device="cpu")
+    jstep = jax.jit(lambda p, t, c: jllama.decode_step(p, t, jllama.LLAMA_TINY, c,
+                                                       interpret=True))
+    steps = np.random.default_rng(6).integers(0, CFG.vocab_size, (3, 2)).astype(np.int32)
+    for step in steps:
+        jl, jcache = jstep(jq, jnp.asarray(step), jcache)
+        tl, tcache = llama.decode_step(tq, torch.from_numpy(step).long(), CFG, tcache)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=LOGIT_TOL)
+
+
+@pytest.mark.parametrize("mode", ["int4", "w4a8", "w8a8"])
+def test_init_params_quantized_and_fused_on_the_fly(mode):
+    """init_params(quantize, head_mode, fuse) quantizes and fuses each
+    block as it is made; the result equals quantizing and fusing the float
+    model afterwards."""
+    a = llama.init_params(CFG, seed=7, device="cpu", quantize=mode, group_size=32,
+                          head_mode="w8a8", fuse=True)
+    b = llama.fuse_projections(llama.quantize_weights(
+        llama.init_params(CFG, seed=7, device="cpu"), mode, group_size=32,
+        skip=("tok_emb",), head_mode="w8a8"))
+    assert set(a["blocks"][0]) == set(b["blocks"][0]) and "wqkv" in a["blocks"][0]
+    assert type(a["lm_head"]).__name__ == "W8A8Weight"
+    mine, theirs = _weight_leaves(a), _weight_leaves(b)
+    assert len(mine) == len(theirs)
+    for x, y in zip(mine, theirs):
+        assert torch.equal(x, y)

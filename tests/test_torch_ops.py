@@ -21,7 +21,7 @@ from flash_attn_tpu.ops.matmul import matmul_int8 as j_matmul_int8
 from flash_attn_tpu.ops.reference import mha_reference as j_mha_reference
 from flash_attn_tpu.ops.rope import rope_cos_sin as j_rope_cos_sin
 from flash_attn_tpu.ops.rope import rope_rotate as j_rope_rotate
-from flash_attn_tpu_torch.bridge import to_torch
+from flash_attn_tpu_torch import bridge
 from flash_attn_tpu_torch.ops import quant as tquant
 from flash_attn_tpu_torch.ops.attention import flash_attention
 from flash_attn_tpu_torch.ops.decode import flash_decode
@@ -35,6 +35,11 @@ from flash_attn_tpu_torch.ops.rope import rope_cos_sin, rope_rotate
 # the two sides also round p (or p * v_scale) to bf16 relative to different
 # running maxima, so allow a few roundings.
 BF16_TOL = 2e-2
+
+
+def to_torch(x):
+    """The bridge onto the CPU, where these tests run the plain versions."""
+    return bridge.to_torch(x, device="cpu")
 
 
 def _np(t):
