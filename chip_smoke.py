@@ -8,22 +8,30 @@ Phases, one line each with its seconds:
   2. each hand-written kernel against its plain PyTorch version on the card
      at its main-path shapes, with its time (CUDA events), its bound and
      the time of one PyTorch library call for the same function: K1 decode,
-     K2 kv-append, K3 int8 matmul (8B shapes), K4 flash forward, K3 grouped,
-     K6 int4 matmul (70B shapes), K5 W4A8 matmul (8B shapes), K7 W8A8
-     matmul (70B head, bit-exact); then once each what the main paths do
-     not run: group sizes 32 and 64, K7's bf16 output, and the int8, int4
-     and W4A8 LM heads' fp32 activations or output;
+     K2 kv-append, K3 int8 matmul (8B shapes), K4 flash forward, K8 paged
+     decode (decode mode at pages of 128 and 512, also against K1 on the
+     same content, and chunk mode), K3 grouped, K6 int4 matmul (70B
+     shapes), K5 W4A8 matmul (8B shapes), K7 W8A8 matmul (70B head,
+     bit-exact); then once each what the main paths do not run: group
+     sizes 32 and 64, K7's bf16 output, and the int8, int4 and W4A8 LM
+     heads' fp32 activations or output;
   3. a 2-layer model at full 8B widths with fp8 KV: two prompts and four
      decode steps on the card (kernels) against the CPU (plain versions),
      with int8 weights, int4 + W8A8 head fused, W4A8 + W8A8 head fused,
-     int8 weights + int8 head, and int4 + int4 head fused;
+     int8 weights + int8 head, and int4 + int4 head fused; then the paged
+     path (int8 weights): a prompt, a prompt sharing its first two pages
+     through the suffix prefill, and four paged decode steps;
   4-6. the main paths, each model alone on the card, served by the
      continuous-batching engine (8 greedy requests, prompts of 128-1024
      tokens from the seed), with the launch count of every kernel in each
      run: 4. Llama-3-8B int8 weights, fp8 then int8 KV (32 tokens);
      5. Llama-3-8B W4A8 layers + W8A8 head, fused, fp8 KV (32 tokens);
      6. Llama-3-70B (80 layers, random weights from the seed) int4 g=128
-     layers + W8A8 head, fused, fp8 KV (16 tokens), with its peak memory.
+     layers + W8A8 head, fused, fp8 KV (16 tokens), with its peak memory;
+  7. (run right after phase 4, on its params) Llama-3-8B int8 weights
+     served by the paged engine with prefix caching, fp8 KV, pages of
+     128: two waves of 8 requests sharing a 512-token prefix, the first
+     all misses, the second all hits that prefill only their suffixes.
 
 Before the last line come the kernels' JSON record (each row's launches
 are those of the run named in its "launches_run") and the card; the last
@@ -603,6 +611,160 @@ def check_k4(torch, checks, rows):
     rows["K4"]["max_abs_err"] = worst
 
 
+def _paged_inputs(torch, kv, g, page, B=8, H=32, Hk=8, S=4096, D=128):
+    """A pool of B sequences' worth of pages of ``page`` tokens plus the
+    null page, page ids a seeded permutation of the pool, and ragged
+    lengths including S, 1, a page boundary (1024) and 0."""
+    from flash_attn_tpu_torch.ops.quant import quantize_kv
+
+    mp = S // page
+    P = B * mp + 1
+    q = torch.randn((B, H, D), generator=g, device="cuda", dtype=torch.bfloat16)
+    kf = torch.randn((P, Hk, page, D), generator=g, device="cuda", dtype=torch.bfloat16)
+    vf = torch.randn((P, Hk, page, D), generator=g, device="cuda", dtype=torch.bfloat16)
+    perm = torch.randperm(P - 1, generator=g, device="cuda") + 1
+    table = perm[:B * mp].reshape(B, mp).to(torch.int32).contiguous()
+    lens = torch.randint(1, S + 1, (B,), generator=g, device="cuda", dtype=torch.int32)
+    lens[:4] = torch.tensor([S, 1, 1024, 0], dtype=torch.int32)[:B]
+    if kv == "bf16":
+        return q, kf, vf, None, None, table, lens
+    kq, ks, vq, vs = quantize_kv(kf, vf, kv)
+    return q, kq, vq, ks[..., 0].contiguous(), vs[..., 0].contiguous(), table, lens
+
+
+def _mode_args(dec, kv_dtype):
+    """(clamped, clamp2) of the default softmax mode for this KV type."""
+    return dec._default_softmax_mode(kv_dtype) == "clamped", dec._clamp2(kv_dtype)
+
+
+def check_k8(torch, checks, rows):
+    """K8 in decode mode at B=8, H=32, Hk=8, D=128, 32 pages of 128 (then 8
+    of 512) per sequence, bf16/int8/fp8, against its plain version and
+    against K1 on the same content copied into a contiguous cache; then in
+    chunk mode at B=1, T=128, kv_len 640 (512 resident + the chunk)."""
+    import torch.nn.functional as F
+
+    from flash_attn_tpu_torch.ops import decode as dec
+    from flash_attn_tpu_torch.ops import paged_decode as pd
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    worst = worst_c = 0.0
+    for page in (128, 512):
+        for kv in ("bf16", "int8", "fp8"):
+            q, k, v, ks, vs, table, lens = _paged_inputs(torch, kv, g, page)
+            B, H, D = q.shape
+            S = table.shape[1] * page
+            clamped, clamp2 = _mode_args(dec, k.dtype)
+            nsplit, split_len = dec._splits(B, k.shape[1], S, None)
+            args = (q, k, v, ks, vs, table, lens, D ** -0.5, clamped, clamp2, 1,
+                    nsplit, split_len)
+            got, glse = pd.paged_flash_decode(q, k, v, table, lens, k_scale=ks,
+                                              v_scale=vs, return_lse=True)
+            ref, rlse = dec.merge_splits(*pd.paged_flash_decode_plain(*args), torch.bfloat16)
+            # K1 on the same content in a contiguous [B, Hk, S, D] cache
+            kc, vc = pd._gather(k, table), pd._gather(v, table)
+            kcs = None if ks is None else pd._gather(ks, table)
+            vcs = None if vs is None else pd._gather(vs, table)
+            k1_args = (q, kc, vc, kcs, vcs, lens, D ** -0.5, clamped, clamp2, nsplit, split_len)
+            k1 = dec.flash_decode(q, kc, vc, k_scale=kcs, v_scale=vcs, kv_length=lens)
+            torch.cuda.synchronize()
+            err, share = row_err(got, ref)
+            _, share_k1 = row_err(got, k1)
+            live = lens > 0
+            # fp32 sums of at most S terms in another order: far below 1e-3
+            lerr = float((glse - rlse)[live].abs().max())
+            empty = bool((got[~live] == 0).all() and (glse[~live] <= -1e29).all())
+            label = f"K8 decode {kv} page={page}"
+            ok = (checks.check(f"{label} out", share, 1.0)
+                  & checks.check(f"{label} lse", lerr, 1e-3)
+                  & checks.check(f"{label} vs K1 on the same content", share_k1, 1.0))
+            if not empty:
+                checks.failed.append(f"{label}: the empty sequence is not out 0, lse <= -1e29")
+            worst = max(worst, err)
+            ms = cuda_ms(torch, lambda: pd.paged_flash_decode_cuda(*args))
+            k1_ms = cuda_ms(torch, lambda: dec.flash_decode_cuda(*k1_args))
+            say(f"  {label} ({nsplit} splits): max_abs_err {err:.3e} ({share:.3f} of its "
+                f"row's tol; vs K1 {share_k1:.3f}), lse err {lerr:.3e} (tol 1e-3), empty "
+                f"sequence {'ok' if empty else 'FAIL'} {'ok' if ok and empty else 'FAIL'} | "
+                f"{ms:.4f} ms, K1 on the same content {k1_ms:.4f}")
+            if page == 128 and kv == "fp8":
+                call_ms = cuda_ms(torch, lambda: pd.paged_flash_decode(
+                    q, k, v, table, lens, k_scale=ks, v_scale=vs))
+                plain_ms = cuda_ms(torch, lambda: pd.paged_flash_decode_plain(*args), iters=3)
+                kd = (kc.float() * kcs[..., None]).bfloat16()
+                vd = (vc.float() * vcs[..., None]).bfloat16()
+                mask = (torch.arange(S, device="cuda")[None, :] < lens[:, None].long())[:, None, None, :]
+                lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                    q[:, :, None, :], kd, vd, attn_mask=mask, enable_gqa=True))
+                nbytes = k1_bytes(kc, lens, kcs) + 2 * q.numel() * 2 + lens.numel() * 4 + table.numel() * 4
+                live_rows = int(lens.long().clamp(max=S).sum())
+                b_ms, b_by = bound(nbytes, 4 * H * D * live_rows)
+                say(f"    K8 decode fp8 page=128: {ms:.4f} ms ({call_ms:.4f} with the LSE "
+                    f"merge), K1 {k1_ms:.4f}, plain {plain_ms:.4f}, library (SDPA on the "
+                    f"gathered, dequantized cache) {lib_ms:.4f}, bound {b_ms:.4f} ({b_by})")
+                rows["K8"] = dict(name="paged_decode, decode mode (B=8, H=32, Hk=8, page=128, "
+                                       "32 pages/seq, fp8 KV)",
+                                  source="flash_attn_tpu_torch/csrc/paged_decode.cu",
+                                  replaces="flash_attn_tpu/ops/paged_decode.py:47",
+                                  ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                  bound_ms=b_ms, bound_by=b_by, k1_ms=k1_ms)
+                del kd, vd
+            del q, k, v, ks, vs, kc, vc, kcs, vcs
+    # chunk mode: one sequence, 512 tokens resident + a 128-token chunk
+    T, kv_len = 128, 640
+    for kv in ("bf16", "int8", "fp8"):
+        _, k, v, ks, vs, table, _ = _paged_inputs(torch, kv, g, 128, B=1)
+        H, D = 32, 128
+        Hk = k.shape[1]
+        S = table.shape[1] * 128
+        qc = torch.randn((1, T, H, D), generator=g, device="cuda", dtype=torch.bfloat16)
+        lens = torch.tensor([kv_len], dtype=torch.int32, device="cuda")
+        clamped, clamp2 = _mode_args(dec, k.dtype)
+        q2 = qc.reshape(1, T, Hk, H // Hk, D).transpose(1, 2).reshape(1, Hk * T * (H // Hk), D).contiguous()
+        nsplit, split_len = dec._splits(pd._row_tiles(T * H // Hk), Hk, S, None)
+        args = (q2, k, v, ks, vs, table, lens, D ** -0.5, clamped, clamp2, T, nsplit, split_len)
+        got, glse = pd.paged_flash_decode_chunk(qc, k, v, table, lens, k_scale=ks,
+                                                v_scale=vs, return_lse=True)
+        ref2, rlse2 = dec.merge_splits(*pd.paged_flash_decode_plain(*args), torch.bfloat16)
+        torch.cuda.synchronize()
+        ref = ref2.reshape(1, Hk, T, H // Hk, D).transpose(1, 2).reshape(1, T, H, D)
+        rlse = rlse2.reshape(1, Hk, T, H // Hk).transpose(1, 2).reshape(1, T, H)
+        err, share = row_err(got, ref)
+        lerr = float((glse - rlse).abs().max())
+        label = f"K8 chunk {kv} T={T} kv_len={kv_len}"
+        ok = checks.check(f"{label} out", share, 1.0) & checks.check(f"{label} lse", lerr, 1e-3)
+        worst_c = max(worst_c, err)
+        ms = cuda_ms(torch, lambda: pd.paged_flash_decode_cuda(*args))
+        say(f"  {label} ({nsplit} splits): max_abs_err {err:.3e} ({share:.3f} of its row's "
+            f"tol), lse err {lerr:.3e} (tol 1e-3) {'ok' if ok else 'FAIL'} | {ms:.4f} ms")
+        if kv == "fp8":
+            plain_ms = cuda_ms(torch, lambda: pd.paged_flash_decode_plain(*args), iters=3)
+            kd = (pd._gather(k, table).float() * pd._gather(ks, table)[..., None])[:, :, :kv_len].bfloat16()
+            vd = (pd._gather(v, table).float() * pd._gather(vs, table)[..., None])[:, :, :kv_len].bfloat16()
+            qt = qc.transpose(1, 2)
+            cmask = (torch.arange(kv_len, device="cuda")[None, :]
+                     <= torch.arange(T, device="cuda")[:, None] + kv_len - T)
+            lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kd, vd, attn_mask=cmask, enable_gqa=True))
+            pairs = sum(kv_len - (T - 1) + t for t in range(T))
+            nbytes = (2 * Hk * kv_len * (D + 4) + 2 * qc.numel() * 2 + glse.numel() * 4
+                      + table.numel() * 4 + 4)
+            b_ms, b_by = bound(nbytes, 4 * H * D * pairs)
+            say(f"    K8 chunk fp8: {ms:.4f} ms ({4 * H * D * pairs / ms / 1e9:.1f} TFLOP/s), "
+                f"plain {plain_ms:.4f}, library (SDPA on the gathered, dequantized cache, "
+                f"causal mask) {lib_ms:.4f}, bound {b_ms:.4f} ({b_by})")
+            rows["K8c"] = dict(name="paged_decode, chunk mode (B=1, T=128, H=32, Hk=8, "
+                                    "kv_len=640, page=128, fp8 KV)",
+                               source="flash_attn_tpu_torch/csrc/paged_decode.cu",
+                               replaces="flash_attn_tpu/ops/paged_decode.py:47",
+                               ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                               bound_ms=b_ms, bound_by=b_by)
+            del kd, vd
+        del k, v, ks, vs
+    rows["K8"]["max_abs_err"] = worst
+    rows["K8c"]["max_abs_err"] = worst_c
+
+
 def phase_kernels(torch, checks):
     t0 = time.perf_counter()
     rows = {}
@@ -610,6 +772,8 @@ def phase_kernels(torch, checks):
     check_k1(torch, checks, rows)
     check_k2(torch, checks, rows)
     check_k4(torch, checks, rows)
+    torch.cuda.empty_cache()
+    check_k8(torch, checks, rows)
     torch.cuda.empty_cache()
     for check in (check_k3g, check_k6, check_k5, check_k7):
         check(torch, checks, rows)
@@ -701,16 +865,97 @@ def card_vs_cpu(torch, checks, label, quantize, head_mode, fuse):
     torch.cuda.empty_cache()
 
 
+def paged_card_vs_cpu(torch, checks):
+    """The paged path, 2 layers at full 8B widths, int8 weights, fp8 KV,
+    pages of 128: prompt A (300 tokens) prefilled into slot 0; prompt B,
+    sharing A's first 256 tokens (slot 1's table starts with A's two
+    pages), through prefill_suffix_paged from 256 (K8 chunk mode); then
+    four decode_step_paged steps (K8 decode mode) in lockstep on the card
+    and the CPU, fed the CPU's greedy tokens."""
+    import numpy as np
+
+    from flash_attn_tpu_torch.engine.paged import PagedKVPool
+    from flash_attn_tpu_torch.models import llama
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(llama.LLAMA3_8B, num_layers=2)
+    card = llama.init_params(cfg, seed=SEED + 11, device="cuda", quantize="int8")
+    sides = {"cpu": _to(card, "cpu"), "cuda": card}
+    rng = np.random.default_rng(SEED + 11)
+    a = rng.integers(0, cfg.vocab_size, 300).tolist()
+    b = a[:256] + rng.integers(0, cfg.vocab_size, 100).tolist()
+    pages = (rng.permutation(8) + 1).tolist()  # of a pool of 9 (page 0 null)
+    logits = {d: [] for d in sides}
+    pools = {}
+    for d, params in sides.items():
+        pool = PagedKVPool.create(2, 9, 128, 2, 4, cfg.num_kv_heads, cfg.head_dim,
+                                  mode="fp8", device=d)
+        pool.assign_pages(0, pages[:3]).assign_pages(1, pages[:2] + pages[3:5])
+        out, kvs = llama.prefill_with_kv(params, torch.tensor([a], device=d),
+                                         torch.arange(len(a), device=d)[None], cfg)
+        for layer, (k, v) in enumerate(kvs):
+            pool.append_prefill(layer, 0, k[0], v[0], 0)
+        logits[d].append(out[0, -1].float().cpu())
+        toks = torch.zeros((1, 128), dtype=torch.long, device=d)
+        toks[0, :100] = torch.tensor(b[256:], device=d)
+        out, _ = llama.prefill_suffix_paged(params, toks, cfg, pool, 1, 256)
+        logits[d].append(out[0, 99].float().cpu())
+        pools[d] = pool.set_lengths([len(a), len(b)])
+    nxt = torch.stack(logits["cpu"]).argmax(-1)
+    for _ in range(4):
+        for d, params in sides.items():
+            out, _ = llama.decode_step_paged(params, nxt.to(d), cfg, pools[d])
+            logits[d].extend(out.float().cpu())
+        nxt = torch.stack(logits["cpu"][-2:]).argmax(-1)
+    torch.cuda.synchronize()
+    ref, got = torch.stack(logits["cpu"]), torch.stack(logits["cuda"])
+    finite = bool(torch.isfinite(got).all())
+    err = float((got - ref).abs().max())
+    # as card_vs_cpu: only summation order differs, which can flip a bf16,
+    # int8-activation or fp8-KV rounding that two layers carry on
+    tol = 5e-2 * float(ref.abs().max())
+    ok = checks.check("paged card vs cpu logits", err, tol) and finite
+    if not finite:
+        checks.failed.append("paged card logits not finite")
+    agree = int((got.argmax(-1) == ref.argmax(-1)).sum())
+    say(f"[phase 3 card vs cpu, paged: 2 layers at 8B widths, int8 weights, fp8 KV, "
+        f"page 128, suffix prefill from 256 + 4 decode steps] logits {tuple(got.shape)} "
+        f"finite={finite} max_abs_err {err:.3e} (tol {tol:.3e}) {'ok' if ok else 'FAIL'} | "
+        f"greedy agreement {agree}/{ref.shape[0]} | {time.perf_counter() - t0:.2f}s")
+    del sides, pools, card
+    torch.cuda.empty_cache()
+
+
 def _counters():
+    """(name -> kernel wrapper, the K8 wrapper): K8 also counts its
+    chunk-mode launches apart."""
     from flash_attn_tpu_torch.ops import matmul as mm
     from flash_attn_tpu_torch.ops.decode import flash_decode_cuda
     from flash_attn_tpu_torch.ops.flash_fwd import flash_fwd_cuda
     from flash_attn_tpu_torch.ops.kv_append import kv_append_cuda
+    from flash_attn_tpu_torch.ops.paged_decode import paged_flash_decode_cuda
 
-    return {"K1": flash_decode_cuda, "K2": kv_append_cuda,
-            "K3": mm.matmul_int8_cuda, "K3g": mm.matmul_int8_grouped_cuda,
-            "K4": flash_fwd_cuda, "K5": mm.matmul_w4a8_cuda,
-            "K6": mm.matmul_int4_cuda, "K7": mm.matmul_w8a8_cuda}
+    return ({"K1": flash_decode_cuda, "K2": kv_append_cuda,
+             "K3": mm.matmul_int8_cuda, "K3g": mm.matmul_int8_grouped_cuda,
+             "K4": flash_fwd_cuda, "K5": mm.matmul_w4a8_cuda,
+             "K6": mm.matmul_int4_cuda, "K7": mm.matmul_w8a8_cuda},
+            paged_flash_decode_cuda)
+
+
+def _reset_counts():
+    wrappers, k8 = _counters()
+    for fn in (*wrappers.values(), k8):
+        fn.launches = 0
+    k8.chunk_launches = 0
+
+
+def _read_counts() -> dict:
+    """Each kernel's launches; K8 split into decode mode and chunk mode."""
+    wrappers, k8 = _counters()
+    counts = {k: fn.launches for k, fn in wrappers.items()}
+    counts["K8"] = k8.launches - k8.chunk_launches
+    counts["K8c"] = k8.chunk_launches
+    return counts
 
 
 def _prompts(vocab):
@@ -732,13 +977,11 @@ def serve(torch, checks, label, cfg, params, kv_mode, max_tokens, path):
     lens, prompts = _prompts(cfg.vocab_size)
     eng = InferenceEngine(params, llama.make_adapter(cfg), max_batch=8,
                           capacity=4096, kv_mode=kv_mode, device="cuda")
-    counters = _counters()
-    for fn in counters.values():
-        fn.launches = 0
+    _reset_counts()
     reqs = [eng.submit(p, max_tokens=max_tokens) for p in prompts]
     eng.run()
     torch.cuda.synchronize()
-    counts = {k: fn.launches for k, fn in counters.items()}
+    counts = _read_counts()
     snap = eng.metrics.snapshot()
     good = all(r.done and len(r.generated) == max_tokens
                and all(0 <= t < cfg.vocab_size for t in r.generated) for r in reqs)
@@ -759,6 +1002,77 @@ def serve(torch, checks, label, cfg, params, kv_mode, max_tokens, path):
     del eng
     torch.cuda.empty_cache()
     return counts, peak
+
+
+def serve_paged(torch, checks, params):
+    """Phase 7: Llama-3-8B (phase 4's int8 params) through
+    PagedInferenceEngine with prefix caching, fp8 KV, pages of 128,
+    max_batch 8, capacity 4096, 32 greedy tokens per request.  Traffic: a
+    512-token shared prefix (4 full pages) and 16 distinct suffixes of
+    64-512 tokens, all from the seed, in two waves of 8.  Wave 1 is
+    admitted in one round before any prefill, so all 8 miss and the first
+    to prefill donates the prefix pages; wave 2, submitted after wave 1
+    completes, must hit 8 times and prefill only its suffixes (K8 chunk
+    mode, no K4).  Counters are set to 0 before each wave and read after
+    it; returns the two waves' counts summed."""
+    import numpy as np
+
+    from flash_attn_tpu_torch.engine.engine import PagedInferenceEngine
+    from flash_attn_tpu_torch.models import llama
+
+    t1 = time.perf_counter()
+    cfg, n_tok = llama.LLAMA3_8B, 32
+    rng = np.random.default_rng(SEED + 7)
+    prefix = rng.integers(0, cfg.vocab_size, 512).tolist()
+    suffix_lens = rng.integers(64, 513, 16)
+    prompts = [prefix + rng.integers(0, cfg.vocab_size, int(n)).tolist() for n in suffix_lens]
+    torch.cuda.reset_peak_memory_stats()
+    eng = PagedInferenceEngine(params, llama.make_adapter(cfg), max_batch=8, capacity=4096,
+                               page_size=128, kv_mode="fp8", prefix_cache=True, device="cuda")
+    m = eng.metrics
+    waves, total = [], {}
+    for w in range(2):
+        before = (m.prefill_tokens, m.prefill_seconds, m.decode_tokens, m.decode_seconds, m.steps)
+        _reset_counts()
+        reqs = [eng.submit(p, max_tokens=n_tok) for p in prompts[8 * w:8 * (w + 1)]]
+        eng.run()
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        total = {k: total.get(k, 0) + n for k, n in counts.items()}
+        good = all(r.done and len(r.generated) == n_tok
+                   and all(0 <= t < cfg.vocab_size for t in r.generated) for r in reqs)
+        if not good:
+            checks.failed.append(f"{RUN_PAGED} wave {w + 1}: a request did not finish "
+                                 f"with {n_tok} valid tokens")
+        after = (m.prefill_tokens, m.prefill_seconds, m.decode_tokens, m.decode_seconds, m.steps)
+        d = [x - y for x, y in zip(after, before)]
+        waves.append(counts)
+        say(f"  wave {w + 1}: suffixes {suffix_lens[8 * w:8 * (w + 1)].tolist()} | prefix "
+            f"hits {eng.prefix.hits}, misses {eng.prefix.misses} so far | prefill "
+            f"{d[0] / max(d[1], 1e-9):.1f} tok/s ({d[0]} tokens in {d[1]:.3f}s) | decode "
+            f"{d[2] / max(d[3], 1e-9):.1f} tok/s ({1e3 * d[3] / max(d[4], 1):.3f} ms/step) | "
+            f"{'ok' if good else 'FAIL'} | kernels {json.dumps(counts)}")
+    free, resident = eng.alloc.free_count, eng.prefix.resident_pages
+    num_pages = eng.pool.num_pages
+    for name, got, want in (("prefix hits", eng.prefix.hits, 8),
+                            ("prefix misses", eng.prefix.misses, 8),
+                            ("K4 launches in wave 2", waves[1]["K4"], 0),
+                            ("free pages after both waves", free, num_pages - 1 - resident)):
+        if got != want:
+            checks.failed.append(f"{RUN_PAGED}: {name} {got}, expected {want}")
+    for key in ("K8", "K8c", "K3", "K4"):
+        if total[key] <= 0:
+            checks.failed.append(f"{RUN_PAGED}: kernel {key} was not launched: {total}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    say(f"[{RUN_PAGED}] 16 requests in two waves, {n_tok} tokens each: hits "
+        f"{eng.prefix.hits}, misses {eng.prefix.misses}, resident pages {resident}, free "
+        f"{free} of {num_pages - 1} | decode {m.decode_tokens / max(m.decode_seconds, 1e-9):.1f} "
+        f"tok/s ({1e3 * m.decode_seconds / max(m.steps, 1):.3f} ms/step) | "
+        f"max_memory_allocated {peak:.2f} GiB | {time.perf_counter() - t1:.2f}s")
+    say("kernels " + json.dumps({"run": RUN_PAGED, **total}))
+    del eng
+    torch.cuda.empty_cache()
+    return total
 
 
 def _fresh_model(torch, cfg, **quant):
@@ -795,6 +1109,7 @@ def phase_serve(torch, checks):
         label = f"phase 4 serve Llama-3-8B int8, {kv_mode} KV"
         add(label, serve(torch, checks, label, llama.LLAMA3_8B, params, kv_mode, 32,
                          base + ("K3",))[0])
+    add(RUN_PAGED, serve_paged(torch, checks, params))
     del params
 
     params, secs = _fresh_model(torch, llama.LLAMA3_8B, quantize="w4a8",
@@ -822,12 +1137,15 @@ def phase_serve(torch, checks):
 RUN_8B_INT8 = "phase 4 serve Llama-3-8B int8, fp8 KV"
 RUN_8B_W4A8 = "phase 5 serve Llama-3-8B W4A8 + W8A8 head, fused, fp8 KV"
 RUN_70B = "phase 6 serve Llama-3-70B int4 + W8A8 head, fused, fp8 KV"
-KERNEL_ROWS = ("K1", "K2", "K3", "K3g", "K4", "K5", "K6", "K7")
+RUN_PAGED = "phase 7 serve Llama-3-8B int8, fp8 KV, paged + prefix cache"
+KERNEL_ROWS = ("K1", "K2", "K3", "K3g", "K4", "K5", "K6", "K7", "K8", "K8c")
 # the run whose launches a kernel's row reports: the main path that the
-# kernel serves (this slice's 70B serve for the shared K1, K2 and K4);
-# K3 grouped has no model path, so its row reports none
+# kernel serves (the 70B serve for the shared K1, K2 and K4, the paged
+# serve for K8 in both modes); K3 grouped has no model path, so its row
+# reports none
 ROW_RUN = {"K1": RUN_70B, "K2": RUN_70B, "K3": RUN_8B_INT8, "K3g": None,
-           "K4": RUN_70B, "K5": RUN_8B_W4A8, "K6": RUN_70B, "K7": RUN_70B}
+           "K4": RUN_70B, "K5": RUN_8B_W4A8, "K6": RUN_70B, "K7": RUN_70B,
+           "K8": RUN_PAGED, "K8c": RUN_PAGED}
 
 
 def main() -> int:
@@ -852,6 +1170,7 @@ def main() -> int:
     rows = phase_kernels(torch, checks)
     for case in CARD_VS_CPU:
         card_vs_cpu(torch, checks, *case)
+    paged_card_vs_cpu(torch, checks)
     runs = phase_serve(torch, checks)
     for key, row in rows.items():
         row["launches_run"] = ROW_RUN[key]

@@ -40,6 +40,8 @@ _SIGNATURES = {
     "fatt_matmul_s8_q": [P, P, P, P, P, P, I, I, I, I, I, I, I, P],
     "fatt_flash_fwd": [P, P, P, P, P, P, P,
                        I, I, I, I, I, I, I, F, I, I, P],
+    "fatt_paged_decode": [P, P, P, P, P, P, P, P, P, P,
+                          I, I, I, I, I, I, I, I, I, I, F, I, F, P],
 }
 
 # seconds the last build took in this process (0.0 when it was cached)

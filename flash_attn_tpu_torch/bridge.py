@@ -16,6 +16,8 @@ float8_e4m3fn arrays that JAX produces.
   whose capacity is a multiple of 2048, permuted evens-then-odds within
   each 2048 chunk (flash_attn_tpu/engine/kv_cache.py:93-100); the port
   stores [B, Hk, S] in natural order, so the permutation is undone here.
+- ``paged_pool_from_jax``: a JAX ``PagedKVPool`` -> the port's pool, its
+  fp8 scales put back in natural order the same way (chunk = page).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 
 from flash_attn_tpu_torch._device import resolve_device
 from flash_attn_tpu_torch.engine.kv_cache import KVCache
+from flash_attn_tpu_torch.engine.paged import PagedKVPool
 from flash_attn_tpu_torch.ops.matmul import BiasedWeight, W4A8Weight, W8A8Weight
 from flash_attn_tpu_torch.ops.quant import Int4Weight, pack_int4, unpack_int4
 
@@ -91,6 +94,15 @@ def depermute_scale_lanes(s: np.ndarray, chunk: int) -> np.ndarray:
     return np.swapaxes(r, -1, -2).reshape(*lead, S)
 
 
+def _natural_scales(buf, chunk, device) -> torch.Tensor:
+    """JAX's lane-dense [X, Hk, 1, S] scales -> [X, Hk, S] fp32, with the
+    evens-then-odds order within each ``chunk`` undone (none if None)."""
+    s = np.asarray(buf, np.float32)[:, :, 0, :]
+    if chunk:
+        s = depermute_scale_lanes(s, chunk)
+    return torch.from_numpy(np.array(s, np.float32)).to(device)
+
+
 def kv_cache_from_jax(jcache, device=None) -> KVCache:
     """A JAX ``KVCache`` (duck-typed: k, v, k_scale, v_scale, length, mode,
     scale_perm_chunk) -> the port's cache on ``device`` (default: the
@@ -100,13 +112,29 @@ def kv_cache_from_jax(jcache, device=None) -> KVCache:
     v = [to_torch(x, device) for x in jcache.v]
     ks = vs = None
     if jcache.mode != "none":
-        def scales(buf):
-            s = np.asarray(buf, np.float32)[:, :, 0, :]  # [B, Hk, S]
-            if jcache.scale_perm_chunk:
-                s = depermute_scale_lanes(s, jcache.scale_perm_chunk)
-            return torch.from_numpy(np.array(s, np.float32)).to(device)
-
-        ks = [scales(x) for x in jcache.k_scale]
-        vs = [scales(x) for x in jcache.v_scale]
+        chunk = jcache.scale_perm_chunk
+        ks = [_natural_scales(x, chunk, device) for x in jcache.k_scale]
+        vs = [_natural_scales(x, chunk, device) for x in jcache.v_scale]
     length = torch.from_numpy(np.asarray(jcache.length, np.int32).copy()).to(device)
     return KVCache(k, v, ks, vs, length, jcache.mode)
+
+
+def paged_pool_from_jax(jpool, device=None) -> PagedKVPool:
+    """A JAX ``PagedKVPool`` (duck-typed: k_pages, v_pages, k_scale,
+    v_scale, block_table, length, mode) -> the port's pool on ``device``
+    (default: the card).  The JAX pool stores scales lane-dense as
+    [P, Hk, 1, page] and, for fp8 pools whose page is a multiple of 4,
+    evens-then-odds within each page (flash_attn_tpu/engine/paged.py:
+    57-64); the port stores [P, Hk, page] in natural order."""
+    device = resolve_device(device)
+    k = [to_torch(x, device) for x in jpool.k_pages]
+    v = [to_torch(x, device) for x in jpool.v_pages]
+    ks = vs = None
+    if jpool.mode != "none":
+        page = k[0].shape[2]
+        chunk = page if jpool.mode == "fp8" and page % 4 == 0 else None
+        ks = [_natural_scales(x, chunk, device) for x in jpool.k_scale]
+        vs = [_natural_scales(x, chunk, device) for x in jpool.v_scale]
+    table = torch.from_numpy(np.asarray(jpool.block_table, np.int32).copy()).to(device)
+    length = torch.from_numpy(np.asarray(jpool.length, np.int32).copy()).to(device)
+    return PagedKVPool(k, v, ks, vs, table, length, jpool.mode)

@@ -1,13 +1,15 @@
-"""Inference engine: continuous batching over a one-prompt prefill and a
+"""Inference engines: continuous batching over a one-prompt prefill and a
 batched decode step.
 
-Port of flash_attn_tpu/engine/engine.py:InferenceEngine for the plain
-path: bucketed prefill of one prompt per call and one decode token for
-every slot per step (idle slots are masked by kv_length and ignored by the
-scheduler).  Chunked and packed prefill, decode bursts, speculative
-decoding, LoRA banks and meshes are still to port and raise
-``NotImplementedError``.  PyTorch runs eagerly, so there is no jit; the
-KV cache is updated in place.
+Port of flash_attn_tpu/engine/engine.py for the plain paths:
+``InferenceEngine`` (a contiguous KV cache) and ``PagedInferenceEngine``
+(a paged KV pool, admission gated by the native page allocator, optional
+automatic prefix caching).  Both prefill one prompt per call, padded to
+its bucket, and decode one token for every slot per step (idle slots are
+masked by kv_length and ignored by the scheduler).  Chunked and packed
+prefill, decode bursts, speculative decoding, LoRA banks and meshes are
+still to port and raise ``NotImplementedError``.  PyTorch runs eagerly,
+so there is no jit; the KV cache and pool are updated in place.
 """
 
 from __future__ import annotations
@@ -21,12 +23,15 @@ import torch
 
 from flash_attn_tpu_torch._device import resolve_device
 from flash_attn_tpu_torch.engine.kv_cache import KVCache
+from flash_attn_tpu_torch.engine.paged import PagedKVPool
+from flash_attn_tpu_torch.engine.prefix_cache import PrefixCache
 from flash_attn_tpu_torch.engine.sampler import SamplingParams, sample
 from flash_attn_tpu_torch.engine.scheduler import (
     ContinuousBatchingScheduler,
     Request,
     bucket_length,
 )
+from flash_attn_tpu_torch.runtime.abi import PagePool
 from flash_attn_tpu_torch.utils.metrics import EngineMetrics
 
 
@@ -43,6 +48,12 @@ class ModelAdapter:
     num_kv_heads: int
     head_dim: int
     eos_token: int | None = None
+    # paged decode: (params, token [B], pool: PagedKVPool) -> (logits
+    # [B, V], pool), used by PagedInferenceEngine
+    decode_step_paged: Callable | None = None
+    # prefix-cache suffix prefill: (params, tokens [1, C], pool, slot,
+    # start) -> (logits [1, C, V], pool)
+    prefill_suffix_paged: Callable | None = None
 
 
 class InferenceEngine:
@@ -144,6 +155,205 @@ class InferenceEngine:
             if not self.sched.step_done(slot, tok):
                 self.next_token[slot] = tok
                 continue
+            self.metrics.completed_requests += 1
+
+
+class PagedInferenceEngine:
+    """Continuous batching over a paged KV pool (engine/paged.py), with the
+    native page allocator (runtime/abi.py) gating admission: a request is
+    admitted only when pages for its prompt + max_tokens are free, and its
+    pages return to the free list at completion.
+
+    With ``prefix_cache`` (engine/prefix_cache.py) full prompt pages are
+    shared: after its prefill a request donates them to the cache, owned
+    by the pseudo-slot ``max_batch``, and a later request whose prompt
+    starts with the same pages points its table at them and prefills only
+    its suffix (the model's ``prefill_suffix_paged``).  Unreferenced cache
+    pages are evicted, oldest first, when admission runs short."""
+
+    def __init__(self, params, adapter: ModelAdapter, *, max_batch: int = 8,
+                 capacity: int = 2048, page_size: int = 128,
+                 num_pages: int | None = None, kv_mode: str = "none",
+                 cache_dtype=torch.bfloat16,
+                 sampling: SamplingParams | None = None, rng_seed: int = 0,
+                 prefix_cache: bool = False, decode_burst: int = 1,
+                 device=None):
+        """device: where the pool lives and the steps run (default: the
+        card); it must be where ``params`` are.  num_pages defaults to
+        max_batch full sequences plus the null page."""
+        if decode_burst != 1:
+            raise NotImplementedError("decode_burst is not ported yet")
+        if adapter.decode_step_paged is None:
+            raise ValueError("adapter has no decode_step_paged")
+        if prefix_cache and adapter.prefill_suffix_paged is None:
+            raise ValueError("prefix_cache needs adapter.prefill_suffix_paged")
+        self.device = resolve_device(device)
+        self.params = params
+        self.adapter = adapter
+        self.page_size = page_size
+        self.max_pages = -(-capacity // page_size)
+        num_pages = num_pages or (max_batch * self.max_pages + 1)
+        self.alloc = PagePool(num_pages)
+        self.pool = PagedKVPool.create(
+            adapter.num_layers, num_pages, page_size, max_batch,
+            self.max_pages, adapter.num_kv_heads, adapter.head_dim,
+            dtype=cache_dtype, mode=kv_mode, device=self.device)
+        self.sampling = sampling or SamplingParams()
+        self.sched = ContinuousBatchingScheduler(max_batch)
+        self.generator = torch.Generator(device=self.device).manual_seed(rng_seed)
+        self.next_token = np.zeros((max_batch,), np.int64)
+        # host mirror of pool.length (no device reads on the hot path)
+        self._host_lens = np.zeros((max_batch,), np.int64)
+        self.metrics = EngineMetrics(kv_capacity=(num_pages - 1) * page_size)
+        self._pending_pages: dict[int, list[int]] = {}
+        self.prefix = None
+        if prefix_cache:
+            self.prefix = PrefixCache(page_size)
+            self.cache_slot = max_batch
+            self._pending_prefix: dict[int, tuple] = {}
+            self._slot_prefix: dict[int, tuple] = {}
+            self._slot_pages: dict[int, list[int]] = {}
+            self._slot_refs: dict[int, tuple] = {}
+
+    def submit(self, prompt, max_tokens=64) -> Request:
+        return self.sched.submit(prompt, max_tokens, self.adapter.eos_token)
+
+    def cancel(self, req: Request) -> bool:
+        return self.sched.cancel(req)
+
+    def run(self, max_steps: int = 10_000) -> None:
+        """Drive until all submitted work completes."""
+        steps = 0
+        while self.sched.has_work and steps < max_steps:
+            steps += 1
+            for req in self.sched.admit(self._can_admit):
+                self._admit_pages(req)
+                self._do_prefill(req)
+            if self.sched.active:
+                self._do_decode_step()
+
+    def _pages_needed(self, req: Request) -> int:
+        return -(-(len(req.prompt) + req.max_tokens) // self.page_size)
+
+    def _can_admit(self, req: Request) -> bool:
+        """Acquire the request's pages now, against the slot the scheduler
+        will give it (free_slots[0]), so a second admission in the same
+        round sees the smaller free list.  Cached prefix pages are reused
+        (and referenced here, so an eviction in the same round cannot free
+        them); if the free list falls short, unreferenced cache entries are
+        evicted LRU."""
+        if not self.sched.free_slots:
+            return False
+        slot = self.sched.free_slots[0]
+        cached_pages, cached_len = [], 0
+        if self.prefix is not None:
+            cached_pages, cached_len = self.prefix.lookup(req.prompt)
+            self.prefix.ref(req.prompt, len(cached_pages))
+        need = self._pages_needed(req) - len(cached_pages)
+        pages = self.alloc.acquire(slot, need)
+        if pages is None and self.prefix is not None:
+            self.prefix.evict(need - self.alloc.free_count, self.alloc)
+            pages = self.alloc.acquire(slot, need)
+        if pages is None:
+            if self.prefix is not None:
+                self.prefix.unref(req.prompt, len(cached_pages))
+            return False
+        self._pending_pages[req.uid] = cached_pages + pages
+        if self.prefix is not None:
+            self._pending_prefix[req.uid] = (len(cached_pages), cached_len)
+        return True
+
+    def _admit_pages(self, req: Request):
+        pages = self._pending_pages.pop(req.uid)
+        self.pool.assign_pages(req.slot, pages)
+        if self.prefix is not None:
+            self._slot_prefix[req.slot] = self._pending_prefix.pop(req.uid)
+            self._slot_pages[req.slot] = pages
+
+    def _release(self, slot: int):
+        if self.prefix is not None:
+            n_ref, prompt = self._slot_refs.pop(slot, (0, ()))
+            self.prefix.unref(prompt, n_ref)
+            self._slot_prefix.pop(slot, None)
+            self._slot_pages.pop(slot, None)
+        self.alloc.release_slot(slot)
+        # zero the table row, so the decode appends of the now idle slot
+        # land on the null page, never on pages acquired by another slot
+        self.pool.assign_pages(slot, [0] * self.max_pages)
+        self.pool.set_length(slot, 0)
+        self._host_lens[slot] = 0
+
+    def _prefill_tokens(self, tokens, bucket: int):
+        toks = np.zeros((1, bucket), np.int64)
+        toks[0, :len(tokens)] = tokens
+        return torch.from_numpy(toks).to(self.device)
+
+    def _do_prefill(self, req: Request):
+        t0 = time.perf_counter()
+        n_cached, cached_len = (self._slot_prefix.get(req.slot, (0, 0))
+                                if self.prefix is not None else (0, 0))
+        if cached_len > 0:
+            # prefix-cache hit: prefill only the suffix; a bucket longer
+            # than the suffix writes its padding past the prompt, where
+            # decode overwrites it, or onto the null page
+            suffix = req.prompt[cached_len:]
+            bucket = min(bucket_length(len(suffix)),
+                         self.max_pages * self.page_size - cached_len)
+            logits_all, self.pool = self.adapter.prefill_suffix_paged(
+                self.params, self._prefill_tokens(suffix, bucket), self.pool,
+                req.slot, cached_len)
+            logits = logits_all[0, len(suffix) - 1]
+            n_tokens = len(suffix)
+        else:
+            bucket = min(bucket_length(len(req.prompt)), self.max_pages * self.page_size)
+            positions = torch.arange(bucket, device=self.device)[None]
+            logits_all, kvs = self.adapter.prefill_with_kv(
+                self.params, self._prefill_tokens(req.prompt, bucket), positions)
+            for layer, (k, v) in enumerate(kvs):
+                self.pool.append_prefill(layer, req.slot, k[0], v[0], 0)
+            logits = logits_all[0, len(req.prompt) - 1]
+            n_tokens = len(req.prompt)
+        self.pool.set_length(req.slot, len(req.prompt))
+        if self.prefix is not None:
+            # donate the prompt's full pages to the cache and hold one
+            # reference per full-prefix entry for the request's lifetime
+            full = max(0, (len(req.prompt) - 1) // self.page_size)
+            self.prefix.insert(req.prompt, self._slot_pages[req.slot][:full],
+                               self.alloc, self.cache_slot)
+            self.prefix.ref(req.prompt, full)
+            self.prefix.unref(req.prompt, n_cached)
+            self._slot_refs[req.slot] = (full, tuple(req.prompt))
+        tok = int(sample(logits[None], self.generator, self.sampling)[0])
+        self.metrics.record_prefill(n_tokens, time.perf_counter() - t0)
+        self._host_lens[req.slot] = len(req.prompt)
+        req.generated.append(tok)
+        if len(req.generated) >= req.max_tokens or (
+            req.eos_token is not None and tok == req.eos_token
+        ):
+            slot = req.slot
+            self.sched.complete(req)
+            self._release(slot)
+            self.metrics.completed_requests += 1
+        else:
+            self.next_token[req.slot] = tok
+
+    def _do_decode_step(self):
+        t0 = time.perf_counter()
+        slots = self.sched.active_slots()
+        logits, self.pool = self.adapter.decode_step_paged(
+            self.params, torch.from_numpy(self.next_token).to(self.device),
+            self.pool)
+        toks = sample(logits, self.generator, self.sampling).cpu().numpy()
+        self._host_lens += 1  # decode appends for every batch slot
+        self.metrics.record_decode(len(slots), time.perf_counter() - t0)
+        self.metrics.kv_tokens_in_use = int(
+            sum(self._host_lens[s] for s in self.sched.active_slots()))
+        for slot in slots:
+            tok = int(toks[slot])
+            if not self.sched.step_done(slot, tok):
+                self.next_token[slot] = tok
+                continue
+            self._release(slot)
             self.metrics.completed_requests += 1
 
 

@@ -25,6 +25,16 @@ from flash_attn_tpu_torch.ops.quant import quantize_kv
 _STORE = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
 
 
+def store_dtype(mode: str, dtype) -> torch.dtype:
+    """The element type a cache of ``mode`` stores: int8 or fp8 for the
+    quantized modes, ``dtype`` for 'none'."""
+    if mode == "none":
+        return dtype
+    if mode not in _STORE:
+        raise ValueError(f"unknown kv cache mode {mode!r}")
+    return _STORE[mode]
+
+
 @dataclass
 class KVCache:
     k: list
@@ -47,12 +57,7 @@ class KVCache:
                dtype=torch.bfloat16, mode: str = "none", device=None):
         """Zeroed cache on ``device`` (default: the card)."""
         dev = resolve_device(device)
-        if mode == "none":
-            store = dtype
-        elif mode in _STORE:
-            store = _STORE[mode]
-        else:
-            raise ValueError(f"unknown kv cache mode {mode!r}")
+        store = store_dtype(mode, dtype)
         shape = (batch, num_kv_heads, capacity, head_dim)
         k = [torch.zeros(shape, dtype=store, device=dev) for _ in range(num_layers)]
         v = [torch.zeros(shape, dtype=store, device=dev) for _ in range(num_layers)]

@@ -1,11 +1,12 @@
 """Llama-3 in PyTorch: RMSNorm + RoPE + GQA + SwiGLU over the port's
-kernels (prefill K4, decode K1 + K2, projections and quantized heads K3,
-K5, K6, K7).
+kernels (prefill K4, decode K1 + K2, paged decode and suffix prefill K8,
+projections and quantized heads K3, K5, K6, K7).
 
 Port of flash_attn_tpu/models/llama.py for the serving path: the configs,
 ``init_params`` (from a ``torch.Generator``), ``quantize_weights`` (int8,
 int4, w8a8, w4a8, with a separate ``head_mode``), ``fuse_projections``,
-``prefill_with_kv``, ``decode_step``, ``make_cache`` and ``make_adapter``.
+``prefill_with_kv``, ``decode_step``, ``decode_step_paged``,
+``prefill_suffix_paged``, ``make_cache`` and ``make_adapter``.
 Params are a plain dict like the JAX pytree: per block wq/wk/wv (or the
 fused wqkv), wo, w_gate/w_up (or w_gate_up), w_down, attn_norm/mlp_norm;
 top level tok_emb, final_norm, lm_head.  A weight is any kind that
@@ -26,6 +27,7 @@ import torch
 
 from flash_attn_tpu_torch._device import resolve_device
 from flash_attn_tpu_torch.engine.kv_cache import KVCache
+from flash_attn_tpu_torch.engine.paged import PagedKVPool, paged_decode_attention
 from flash_attn_tpu_torch.ops.attention import flash_attention
 from flash_attn_tpu_torch.ops.decode import flash_decode
 from flash_attn_tpu_torch.ops.matmul import (
@@ -35,6 +37,7 @@ from flash_attn_tpu_torch.ops.matmul import (
     concat_weights,
     quantized_matmul,
 )
+from flash_attn_tpu_torch.ops.paged_decode import paged_flash_decode_chunk
 from flash_attn_tpu_torch.ops.quant import quantize_int4, quantize_int8
 from flash_attn_tpu_torch.ops.rope import rope_cos_sin, rope_rotate
 
@@ -290,6 +293,69 @@ def decode_step(params, token, cfg: LlamaConfig, cache: KVCache):
     return _logits(params, x, cfg), cache
 
 
+def decode_step_paged(params, token, cfg: LlamaConfig, pool: PagedKVPool):
+    """One decode step for every slot against a paged pool: token [B] ->
+    (logits [B, V] fp32, pool).  Per layer the token's K/V is appended at
+    ``length``, then attention (K8, decode mode) sees ``length + 1``
+    positions; ``length`` advances once after the last layer.  The pool
+    is updated in place."""
+    b = token.shape[0]
+    x = params["tok_emb"][token][:, None, :]
+    cos, sin = rope_cos_sin(pool.length[:, None], cfg.head_dim, cfg.rope_theta)
+    kv_length = pool.length + 1
+    for i, blk in enumerate(params["blocks"]):
+        h = _rms_norm(x, blk["attn_norm"], cfg.rms_eps)
+        q, k, v = _qkv(h, blk, cfg, b, 1)
+        q = rope_rotate(q, cos, sin)
+        k = rope_rotate(k, cos, sin)
+        pool.append_token(i, k[:, 0], v[:, 0])
+        attn = paged_decode_attention(pool, i, q[:, 0].contiguous(),
+                                      kv_length=kv_length)
+        x = x + _proj(attn.reshape(b, 1, cfg.num_heads * cfg.head_dim), blk["wo"])
+        x = _block_mlp(x, blk, cfg)
+    pool.advance(1)
+    x = _rms_norm(x[:, 0], params["final_norm"], cfg.rms_eps)
+    return _logits(params, x, cfg), pool
+
+
+def prefill_suffix_paged(params, tokens, cfg: LlamaConfig, pool: PagedKVPool,
+                         slot: int, start: int, sub_chunk: int = 128):
+    """Prefix-cache suffix prefill: tokens [1, C] at positions [start,
+    start + C) of ``slot``, whose positions [0, start) are already in its
+    pages.  Each ``sub_chunk``-token piece goes through every layer before
+    the next: per layer its K/V is appended to the pool, then its queries
+    attend to the slot's pages through K8's chunk mode, so the prefix KV
+    streams from its pages and is never recomputed.  The pieces set M in
+    every projection, as in the JAX model.  Returns (logits [1, C, V]
+    fp32, pool)."""
+    b, c = tokens.shape
+    table = pool.block_table[slot:slot + 1]
+    parts = []
+    for off in range(0, c, sub_chunk):
+        cc = min(sub_chunk, c - off)
+        start_cc = start + off
+        x = params["tok_emb"][tokens[:, off:off + cc]]
+        qpos = (start_cc + torch.arange(cc, device=tokens.device))[None]
+        cos, sin = rope_cos_sin(qpos, cfg.head_dim, cfg.rope_theta)
+        # includes this piece
+        kv_len = torch.full((1,), start_cc + cc, dtype=torch.int32, device=tokens.device)
+        for i, blk in enumerate(params["blocks"]):
+            h = _rms_norm(x, blk["attn_norm"], cfg.rms_eps)
+            q, k, v = _qkv(h, blk, cfg, b, cc)
+            q = rope_rotate(q, cos, sin)
+            k = rope_rotate(k, cos, sin)
+            pool.append_prefill(i, slot, k[0], v[0], start_cc)
+            attn = paged_flash_decode_chunk(
+                q, pool.k_pages[i], pool.v_pages[i], table, kv_len,
+                k_scale=None if pool.k_scale is None else pool.k_scale[i],
+                v_scale=None if pool.v_scale is None else pool.v_scale[i])
+            x = x + _proj(attn.reshape(b, cc, cfg.num_heads * cfg.head_dim), blk["wo"])
+            x = _block_mlp(x, blk, cfg)
+        x = _rms_norm(x, params["final_norm"], cfg.rms_eps)
+        parts.append(_logits(params, x, cfg))
+    return torch.cat(parts, dim=1), pool
+
+
 def make_cache(cfg: LlamaConfig, batch, capacity, mode="none", dtype=None,
                device=None) -> KVCache:
     return KVCache.create(
@@ -299,12 +365,16 @@ def make_cache(cfg: LlamaConfig, batch, capacity, mode="none", dtype=None,
 
 
 def make_adapter(cfg: LlamaConfig, *, eos_token=None):
-    """Engine adapter: one-prompt prefill and the batched decode step."""
+    """Engine adapter: one-prompt prefill, the batched decode step, and
+    their paged counterparts (decode step, prefix-cache suffix prefill)."""
     from flash_attn_tpu_torch.engine.engine import ModelAdapter
 
     return ModelAdapter(
         prefill_with_kv=lambda p, t, pos: prefill_with_kv(p, t, pos, cfg),
         decode_step=lambda p, tok, cache: decode_step(p, tok, cfg, cache),
+        decode_step_paged=lambda p, tok, pool: decode_step_paged(p, tok, cfg, pool),
+        prefill_suffix_paged=lambda p, t, pool, slot, start: prefill_suffix_paged(
+            p, t, cfg, pool, slot, start),
         num_layers=cfg.num_layers,
         num_kv_heads=cfg.num_kv_heads,
         head_dim=cfg.head_dim,

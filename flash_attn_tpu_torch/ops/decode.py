@@ -41,6 +41,11 @@ def _default_softmax_mode(kv_dtype, logit_softcap=None) -> str:
     return "clamped"
 
 
+def _clamp2(kv_dtype) -> float:
+    """The clamped-softmax ceiling (base 2) for this KV type."""
+    return CLAMP2_DEC_FP8 if kv_dtype == torch.float8_e4m3fn else CLAMP2_DEC
+
+
 def _splits(batch: int, num_heads_k: int, seqlen: int, num_splits):
     """(num_splits, split_len): enough (sequence, KV head, split) blocks to
     fill the card unless the caller fixed the count."""
@@ -85,7 +90,7 @@ def flash_decode(q, k, v, *, kv_length=None, scale: float | None = None,
     if softmax_mode not in ("online", "clamped"):
         raise ValueError(f"unknown softmax_mode {softmax_mode!r}")
     clamped = softmax_mode == "clamped"
-    clamp2 = CLAMP2_DEC_FP8 if k.dtype == torch.float8_e4m3fn else CLAMP2_DEC
+    clamp2 = _clamp2(k.dtype)
     if kv_length is None:
         kv_length = torch.full((B,), S, dtype=torch.int32, device=q.device)
     nsplit, split_len = _splits(B, Hk, S, num_splits)
@@ -95,14 +100,19 @@ def flash_decode(q, k, v, *, kv_length=None, scale: float | None = None,
         outs, lses = flash_decode_cuda(*args)
     else:
         outs, lses = flash_decode_plain(*args)
-    if nsplit == 1:
-        out, lse = outs[0].to(q.dtype), lses[0]
-    else:
-        out, lse = lse_merge(outs, lses, dim=0)
-        out = out.to(q.dtype)
+    out, lse = merge_splits(outs, lses, q.dtype)
     if return_lse:
         return out, lse
     return out
+
+
+def merge_splits(outs, lses, dtype):
+    """(out in ``dtype``, lse) from per-split partials [n, ...] by the LSE
+    rule; one split is taken as it is."""
+    if outs.shape[0] == 1:
+        return outs[0].to(dtype), lses[0]
+    out, lse = lse_merge(outs, lses, dim=0)
+    return out.to(dtype), lse
 
 
 def _qscale(scale, clamped, dtype):
@@ -128,6 +138,18 @@ def flash_decode_plain(q, k, v, k_scale, v_scale, kv_length, scale, clamped,
     pos = torch.arange(S, device=q.device)
     valid = pos[None, :] < kv_length.to(q.device).long()[:, None]  # [B, S]
     s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    outs, lses = split_partials(s, v, v_scale, clamped, clamp2, nsplit,
+                                split_len, cdt)
+    return outs.reshape(nsplit, B, H, D), lses.reshape(nsplit, B, H)
+
+
+def split_partials(s, v, v_scale, clamped, clamp2, nsplit, split_len, cdt):
+    """Softmax and PV of masked scores s [B, Hk, R, S] (fp32, NEG_INF where
+    masked) against v [B, Hk, S, D] (v_scale [B, Hk, S] or None), one
+    partial per ``split_len`` keys: (out [n, B, Hk, R, D] fp32, lse
+    [n, B, Hk, R]).  p * v_scale is rounded to ``cdt`` before PV, as the
+    kernels round it."""
+    S = s.shape[-1]
     outs, lses = [], []
     for i in range(nsplit):
         lo, hi = i * split_len, min(S, (i + 1) * split_len)
@@ -150,8 +172,7 @@ def flash_decode_plain(q, k, v, k_scale, v_scale, kv_length, scale, clamped,
         outs.append(torch.where(ok[..., None], o / torch.where(
             ok, l, torch.ones_like(l))[..., None], torch.zeros_like(o)))
         lses.append(torch.where(ok, lse, torch.full_like(lse, NEG_INF)))
-    return (torch.stack(outs).reshape(nsplit, B, H, D),
-            torch.stack(lses).reshape(nsplit, B, H))
+    return torch.stack(outs), torch.stack(lses)
 
 
 def flash_decode_cuda(q, k, v, k_scale, v_scale, kv_length, scale, clamped,

@@ -1,0 +1,235 @@
+"""Paged flash-decode (kernel K8, ``csrc/paged_decode.cu``): attention of
+one query token (decode mode) or of T causal query tokens (chunk mode) per
+sequence over a pool of KV pages addressed through a block table.
+
+Port of flash_attn_tpu/ops/paged_decode.py (``paged_flash_decode`` and
+``paged_flash_decode_chunk``).  Layouts:
+
+  k_pages, v_pages: [num_pages, Hk, page, D]  bf16, int8 or float8_e4m3fn
+                    (page 0 is the null page)
+  k_scale, v_scale: [num_pages, Hk, page] fp32 in natural position order
+  block_table:      [B, max_pages] int32 page ids
+  kv_length:        [B] int32
+
+The TPU's lane-dense [P, Hk, 1, page] scales with their evens-then-odds
+order, the packed-fp8 bit decode, the per-call scale reconciliation and
+the G-pages-per-grid-step grouping exist only for Mosaic and are not
+ported.  Sliding windows and logit softcaps are not on the Llama-3 path
+and raise for now.
+
+Chunk mode runs the decode kernel on virtual heads: the T tokens' query
+heads in (hk, t, g) order, row t of a KV head seeing positions
+< kv_length - (T - 1) + t.  Pages are walked up to the table's reach
+(max_pages * page) at most, so an idle slot whose length has run past
+its capacity reads only its own (null) table entries.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from flash_attn_tpu_torch import _build
+from flash_attn_tpu_torch.ops.decode import (
+    _KV_TYPES,
+    NEG_INF,
+    _clamp2,
+    _default_softmax_mode,
+    _qscale,
+    _splits,
+    merge_splits,
+    split_partials,
+)
+
+# K8's key tile: a page holds a whole number of them.
+TILE = 64
+# K8 takes query rows per KV head in tiles of 16 (decode) or 64 (chunk).
+_MAX_GROUP = 16
+_HEAD_DIM = 128
+
+
+def _row_tiles(rows: int) -> int:
+    return -(-rows // (16 if rows <= 16 else 64))
+
+
+def paged_flash_decode(q, k_pages, v_pages, block_table, kv_length, *,
+                       k_scale=None, v_scale=None, scale: float | None = None,
+                       return_lse: bool = False, softmax_mode: str | None = None,
+                       chunk: int = 1, num_splits: int | None = None,
+                       window: int | None = None,
+                       logit_softcap: float | None = None):
+    """Single-token decode attention over a paged KV pool.
+
+    q: [B, H, D]; pool, scales, table and lengths as the module docstring.
+    softmax_mode: "online" or "clamped"; None follows the port's
+      _default_softmax_mode (clamped for fp8 pages).
+    chunk: internal (use paged_flash_decode_chunk): q rows are virtual
+      heads, ``chunk`` tokens per KV head in (t, g) order.
+    num_splits: split-KV blocks per (sequence, KV head, row tile); None
+      picks enough to fill the card.  Partials merge with ops.lse.lse_merge.
+    Returns out [B, H, D] in q.dtype; with return_lse also lse [B, H] fp32.
+    """
+    if window is not None or logit_softcap is not None:
+        raise NotImplementedError("window and logit_softcap are not ported yet")
+    B, H, D = q.shape
+    _, Hk, page, _ = k_pages.shape
+    max_pages = block_table.shape[1]
+    if H % Hk or (H // Hk) % chunk:
+        raise ValueError(f"{H} virtual heads do not split into {Hk} KV heads x {chunk} tokens")
+    if (k_scale is None) != (k_pages.dtype not in (torch.int8, torch.float8_e4m3fn)):
+        raise ValueError("int8/fp8 pages need scales, float pages none")
+    if scale is None:
+        scale = D ** -0.5
+    if softmax_mode is None:
+        softmax_mode = _default_softmax_mode(k_pages.dtype, logit_softcap)
+    if softmax_mode not in ("online", "clamped"):
+        raise ValueError(f"unknown softmax_mode {softmax_mode!r}")
+    clamped = softmax_mode == "clamped"
+    clamp2 = _clamp2(k_pages.dtype)
+    nsplit, split_len = _splits(B * _row_tiles(H // Hk), Hk, max_pages * page,
+                                num_splits)
+    args = (q, k_pages, v_pages, k_scale, v_scale, block_table, kv_length,
+            scale, clamped, clamp2, chunk, nsplit, split_len)
+    if q.is_cuda:
+        outs, lses = paged_flash_decode_cuda(*args)
+    else:
+        outs, lses = paged_flash_decode_plain(*args)
+    out, lse = merge_splits(outs, lses, q.dtype)
+    if return_lse:
+        return out, lse
+    return out
+
+
+def paged_flash_decode_chunk(q, k_pages, v_pages, block_table, kv_length, *,
+                             k_scale=None, v_scale=None,
+                             scale: float | None = None,
+                             return_lse: bool = False,
+                             softmax_mode: str | None = None,
+                             window: int | None = None,
+                             logit_softcap: float | None = None):
+    """T query tokens per sequence, causal within the chunk, over a paged
+    pool that already holds the chunk's own KV at positions
+    kv_length - T .. kv_length - 1 (append first, then score).
+
+    q: [B, T, H, D]; kv_length INCLUDES the chunk's T tokens.  Returns out
+    [B, T, H, D] (+ lse [B, T, H] with return_lse)."""
+    B, T, H, D = q.shape
+    Hk = k_pages.shape[1]
+    G = H // Hk
+    # (hk, t, g)-major virtual heads: each KV head's rows stay contiguous
+    q2 = (q.reshape(B, T, Hk, G, D).transpose(1, 2)
+          .reshape(B, Hk * T * G, D).contiguous())
+    res = paged_flash_decode(
+        q2, k_pages, v_pages, block_table, kv_length, k_scale=k_scale,
+        v_scale=v_scale, scale=scale, return_lse=return_lse,
+        softmax_mode=softmax_mode, chunk=T, window=window,
+        logit_softcap=logit_softcap)
+
+    def unshuffle(x):
+        rest = x.shape[2:]
+        return (x.reshape(B, Hk, T, G, *rest).transpose(1, 2)
+                .reshape(B, T, H, *rest))
+
+    if return_lse:
+        return unshuffle(res[0]), unshuffle(res[1])
+    return unshuffle(res)
+
+
+def _gather(pages, block_table):
+    """pages [P, Hk, page, ...] -> each sequence's pages in table order,
+    [B, Hk, max_pages * page, ...] (fp8 moves as bytes)."""
+    fp8 = pages.dtype == torch.float8_e4m3fn
+    src = pages.view(torch.uint8) if fp8 else pages
+    g = src[block_table.long()]  # [B, mp, Hk, page, ...]
+    B, mp, Hk, page = g.shape[:4]
+    g = g.transpose(1, 2).reshape(B, Hk, mp * page, *g.shape[4:])
+    return g.view(torch.float8_e4m3fn) if fp8 else g
+
+
+def paged_flash_decode_plain(q, k_pages, v_pages, k_scale, v_scale,
+                             block_table, kv_length, scale, clamped, clamp2,
+                             chunk, nsplit, split_len):
+    """Plain PyTorch version of K8: the sequences' pages gathered into
+    contiguous [B, Hk, max_pages * page, D] views, then K1's arithmetic
+    with a causal limit per virtual row.  Returns per-split (out [n, B, H,
+    D] fp32, lse [n, B, H])."""
+    B, H, D = q.shape
+    Hk = k_pages.shape[1]
+    R = H // Hk
+    cdt = torch.float32 if q.dtype == torch.float32 else torch.bfloat16
+    k = _gather(k_pages, block_table)
+    v = _gather(v_pages, block_table)
+    S = k.shape[2]
+    qs = (q.to(cdt) * _qscale(scale, clamped, cdt).to(q.device)).float()
+    s = torch.einsum("bhrd,bhsd->bhrs", qs.view(B, Hk, R, D), k.to(cdt).float())
+    vs = None
+    if k_scale is not None:
+        s = s * _gather(k_scale, block_table)[:, :, None, :]
+        vs = _gather(v_scale, block_table)
+    # row r = t * G + g sees positions < kv_length - (chunk - 1) + t
+    t = torch.arange(R, device=q.device) // (R // chunk)
+    limit = kv_length.to(q.device).long()[:, None] - (chunk - 1) + t[None, :]
+    valid = torch.arange(S, device=q.device)[None, None, :] < limit[:, :, None]
+    s = torch.where(valid[:, None], s, torch.full_like(s, NEG_INF))
+    outs, lses = split_partials(s, v, vs, clamped, clamp2, nsplit, split_len, cdt)
+    return outs.reshape(nsplit, B, H, D), lses.reshape(nsplit, B, H)
+
+
+def paged_flash_decode_cuda(q, k_pages, v_pages, k_scale, v_scale,
+                            block_table, kv_length, scale, clamped, clamp2,
+                            chunk, nsplit, split_len):
+    """Launch K8.  Replaces flash_attn_tpu/ops/paged_decode.py:
+    _paged_decode_kernel in decode and chunk mode; bound by bytes in decode
+    mode and by operations in chunk mode (see the source note in
+    csrc/paged_decode.cu).  Returns (out, lse): with one split out is
+    [1, B, H, D] bf16 written by the kernel, else fp32 partials
+    [n, B, H, D]."""
+    B, H, D = q.shape
+    P, Hk, page, _ = k_pages.shape
+    max_pages = block_table.shape[1]
+    R = H // Hk
+    if q.dtype != torch.bfloat16:
+        raise ValueError("K8 takes a bf16 query")
+    if k_pages.dtype not in _KV_TYPES or v_pages.dtype != k_pages.dtype:
+        raise ValueError(f"K8 takes bf16, int8 or fp8 pages, got {k_pages.dtype}")
+    if D != _HEAD_DIM or R // chunk > _MAX_GROUP:
+        raise ValueError(f"K8 needs head_dim {_HEAD_DIM} and H/Hk <= {_MAX_GROUP}; "
+                         f"got D={D}, H/Hk={R // chunk}")
+    if page % TILE:
+        raise ValueError(f"K8 takes pages of a multiple of {TILE} tokens, got {page}")
+    if block_table.dtype != torch.int32 or kv_length.dtype != torch.int32:
+        raise ValueError("block_table and kv_length must be int32")
+    if block_table.shape[0] != B or kv_length.shape != (B,):
+        raise ValueError("block_table must be [B, max_pages] and kv_length [B]")
+    tensors = [q, k_pages, v_pages, block_table, kv_length]
+    if k_scale is not None:
+        for s in (k_scale, v_scale):
+            if s.shape != (P, Hk, page) or s.dtype != torch.float32:
+                raise ValueError("scales must be [num_pages, Hk, page] fp32")
+        tensors += [k_scale, v_scale]
+    for t in tensors:
+        if not t.is_cuda or not t.is_contiguous():
+            raise ValueError("K8 takes contiguous CUDA tensors")
+    if nsplit == 1:
+        out = torch.empty((1, B, H, D), dtype=torch.bfloat16, device=q.device)
+        part = None
+    else:
+        out = None
+        part = torch.empty((nsplit, B, H, D), dtype=torch.float32, device=q.device)
+    lse = torch.empty((nsplit, B, H), dtype=torch.float32, device=q.device)
+    qscale = float(_qscale(scale, clamped, torch.bfloat16))
+    p = _build.ptr
+    rc = _build.lib().fatt_paged_decode(
+        p(q), p(k_pages), p(v_pages), p(k_scale), p(v_scale), p(block_table),
+        p(kv_length), p(out), p(part), p(lse), B, Hk, R, chunk, page,
+        max_pages, D, _KV_TYPES[k_pages.dtype], nsplit, split_len, qscale,
+        int(clamped), float(clamp2), _build.stream())
+    _build.check(rc, "fatt_paged_decode")
+    paged_flash_decode_cuda.launches += 1
+    if chunk > 1:
+        paged_flash_decode_cuda.chunk_launches += 1
+    return (out if nsplit == 1 else part), lse
+
+
+# every launch, and those of them in chunk mode
+paged_flash_decode_cuda.launches = 0
+paged_flash_decode_cuda.chunk_launches = 0

@@ -1,0 +1,371 @@
+"""The port's paged serving path against the JAX package on the CPU: the
+page allocator and prefix cache, the paged pool, paged decode in decode
+and chunk mode (K8's plain version against the JAX kernel in interpret
+mode), the paged Llama steps, and PagedInferenceEngine token for token.
+
+Inputs are made with numpy from a seed; JAX pools, params and engines
+are carried over by the bridge.  The port runs the plain PyTorch versions
+of its kernels (CPU tensors).  Each tolerance is stated with its reason.
+"""
+
+import time
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from flash_attn_tpu.engine.engine import PagedInferenceEngine as JPagedEngine
+from flash_attn_tpu.engine.paged import PagedKVPool as JPool
+from flash_attn_tpu.engine.prefix_cache import PrefixCache as JPrefixCache
+from flash_attn_tpu.models import llama as jllama
+from flash_attn_tpu.ops.paged_decode import paged_flash_decode as j_paged_decode
+from flash_attn_tpu.ops.paged_decode import paged_flash_decode_chunk as j_paged_chunk
+from flash_attn_tpu.runtime import abi as jabi
+from flash_attn_tpu_torch import bridge
+from flash_attn_tpu_torch.engine.engine import PagedInferenceEngine
+from flash_attn_tpu_torch.engine.paged import PagedKVPool
+from flash_attn_tpu_torch.engine.prefix_cache import PrefixCache
+from flash_attn_tpu_torch.models import llama
+from flash_attn_tpu_torch.ops.decode import flash_decode
+from flash_attn_tpu_torch.ops.paged_decode import (
+    paged_flash_decode,
+    paged_flash_decode_chunk,
+)
+from flash_attn_tpu_torch.runtime.abi import PagePool
+
+CFG = llama.LLAMA_TINY
+# fp32 queries and caches on both sides: the two differ only in the order
+# of fp32 sums (and the port's split-KV merge), well below 3e-4
+# (tests/test_engine.py uses the same bound for the JAX kernel's own modes)
+TOL = 3e-4
+# a pool of 16 pages of 8 for 3 sequences of up to 4 pages, handed out in
+# an order that is not 1..n, as an allocator hands them out after releases
+PAGE, NPAGES, MAXP, HK, D = 8, 16, 4, 2, 32
+TABLE = [[9, 3, 14, 6], [1, 12, 5, 10], [15, 2, 8, 11]]
+
+
+@pytest.fixture(scope="module")
+def jax_allocator():
+    """The JAX engine's page allocator library.  make builds it in place
+    at first use, and another test process may be writing it at the same
+    moment, so a failed load is retried."""
+    for _ in range(10):
+        try:
+            return jabi.load()
+        except OSError:
+            time.sleep(3)
+    return jabi.load()
+
+
+def pool_from_jax(jpool):
+    return bridge.paged_pool_from_jax(jax.device_get(jpool), device="cpu")
+
+
+def to_torch(x):
+    return bridge.to_torch(x, device="cpu")
+
+
+def _filled_pools(mode, lens, seed=0, L=1):
+    """The same tokens appended to a JAX pool and to the port's: slot 0 by
+    one prefill append, the others token by token; then the lengths.
+    Returns (jax pool, port pool, k, v) with k, v [T, B, Hk, D]."""
+    r = np.random.default_rng(seed)
+    B, T = len(lens), max(lens)
+    k = r.standard_normal((T, B, HK, D)).astype(np.float32)
+    v = r.standard_normal((T, B, HK, D)).astype(np.float32)
+    jp = JPool.create(L, NPAGES, PAGE, B, MAXP, HK, D, dtype=jnp.float32, mode=mode)
+    tp = PagedKVPool.create(L, NPAGES, PAGE, B, MAXP, HK, D, dtype=torch.float32,
+                            mode=mode, device="cpu")
+    for b in range(B):
+        jp = jp.assign_pages(b, TABLE[b])
+        tp.assign_pages(b, TABLE[b])
+    for layer in range(L):
+        jp = jp.append_prefill(layer, 0, jnp.asarray(k[:, 0]), jnp.asarray(v[:, 0]), 0)
+        tp.append_prefill(layer, 0, torch.from_numpy(k[:, 0]), torch.from_numpy(v[:, 0]), 0)
+    for t in range(T):
+        for layer in range(L):
+            jp = jp.append_token(layer, jnp.asarray(k[t]), jnp.asarray(v[t]))
+            tp.append_token(layer, torch.from_numpy(k[t]), torch.from_numpy(v[t]))
+        jp, tp = jp.advance(1), tp.advance(1)
+    return jp.set_lengths(lens), tp.set_lengths(lens), k, v
+
+
+@pytest.mark.parametrize("mode", ["none", "int8", "fp8"])
+def test_paged_pool_matches_jax(mode):
+    """append_prefill, append_token and the gather oracles equal JAX's,
+    and the bridge's copy of the JAX pool equals the port's pool (the
+    JAX fp8 scales, stored evens-then-odds per page, come back in natural
+    order).  The raw fp8 scale buffers differ in order by design, so the
+    comparison goes through the gathers."""
+    jp, tp, _, _ = _filled_pools(mode, [20, 13, 32], seed=1)
+    got = pool_from_jax(jp)
+    np.testing.assert_array_equal(tp.block_table.numpy(), got.block_table.numpy())
+    np.testing.assert_array_equal(tp.length.numpy(), got.length.numpy())
+    jg, tg = jp.gather_layer(0), tp.gather_layer(0)
+    for j, t in zip(jg[:2], tg[:2]):
+        # identical quantization arithmetic on identical fp32 inputs
+        np.testing.assert_array_equal(t.float().numpy(), to_torch(j).float().numpy())
+    for mine, theirs in ((tp.k_pages[0], got.k_pages[0]), (tp.v_pages[0], got.v_pages[0])):
+        np.testing.assert_array_equal(mine.float().numpy(), theirs.float().numpy())
+    if mode != "none":
+        # XLA may turn amax / qmax into amax * (1 / qmax): 1 ulp on a scale
+        for j, t in zip(jg[2:], tg[2:]):
+            np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=2.4e-7)
+        np.testing.assert_allclose(tp.k_scale[0].numpy(), got.k_scale[0].numpy(), rtol=2.4e-7)
+        np.testing.assert_allclose(tp.v_scale[0].numpy(), got.v_scale[0].numpy(), rtol=2.4e-7)
+    for slot in range(3):
+        for j, t in zip(jp.gather_slot(0, slot), tp.gather_slot(0, slot)):
+            np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=2.4e-7, atol=0)
+
+
+def test_append_token_past_capacity_lands_on_the_last_table_entry():
+    """An idle slot (table row all zeros) whose length has run past the
+    table's reach writes onto the null page, as JAX's clamped gather does;
+    a page index must not raise."""
+    jp = JPool.create(1, NPAGES, PAGE, 2, MAXP, HK, D, dtype=jnp.float32, mode="int8")
+    tp = PagedKVPool.create(1, NPAGES, PAGE, 2, MAXP, HK, D, dtype=torch.float32,
+                            mode="int8", device="cpu")
+    jp, tp = jp.assign_pages(0, TABLE[0]), tp.assign_pages(0, TABLE[0])
+    lens = [5, MAXP * PAGE + 11]
+    jp, tp = jp.set_lengths(lens), tp.set_lengths(lens)
+    k = np.random.default_rng(2).standard_normal((2, HK, D)).astype(np.float32)
+    jp = jp.append_token(0, jnp.asarray(k), jnp.asarray(-k))
+    tp.append_token(0, torch.from_numpy(k), torch.from_numpy(-k))
+    got = pool_from_jax(jp)
+    np.testing.assert_array_equal(tp.k_pages[0].numpy(), got.k_pages[0].numpy())
+    np.testing.assert_array_equal(tp.v_pages[0].numpy(), got.v_pages[0].numpy())
+    assert tp.k_pages[0][0].abs().sum() > 0  # the null page took the write
+
+
+def _decode_inputs(mode, lens, seed, H=4):
+    jp, tp, _, _ = _filled_pools(mode, lens, seed=seed)
+    q = np.random.default_rng(seed + 100).standard_normal((len(lens), H, D)).astype(np.float32)
+    ks = None if jp.k_scale is None else jp.k_scale[0]
+    vs = None if jp.v_scale is None else jp.v_scale[0]
+    jargs = (jnp.asarray(q), jp.k_pages[0], jp.v_pages[0], jp.block_table, jp.length)
+    targs = (torch.from_numpy(q), tp.k_pages[0], tp.v_pages[0], tp.block_table, tp.length)
+    tkw = {} if tp.k_scale is None else {"k_scale": tp.k_scale[0], "v_scale": tp.v_scale[0]}
+    return jargs, dict(k_scale=ks, v_scale=vs, scales_permuted=jp.scales_permuted), targs, tkw
+
+
+@pytest.mark.parametrize("mode", ["none", "int8", "fp8"])
+@pytest.mark.parametrize("softmax_mode", ["online", "clamped"])
+def test_paged_decode_matches_jax(mode, softmax_mode):
+    """Decode mode over a shuffled table, a partial last page (19, 11) and
+    an empty sequence (0).  In interpret mode JAX's fp8 clamped ceiling is
+    80 where the port's is 40 (the TPU's packed path); these scores, base 2,
+    stay far below 40, so the two agree."""
+    jargs, jkw, targs, tkw = _decode_inputs(mode, [19, 11, 0], seed=3)
+    jo, jl = j_paged_decode(*jargs, **jkw, interpret=True, return_lse=True,
+                            softmax_mode=softmax_mode)
+    to, tl = paged_flash_decode(*targs, **tkw, return_lse=True, softmax_mode=softmax_mode)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=TOL, rtol=TOL)
+    np.testing.assert_allclose(tl[:2].numpy(), np.asarray(jl)[:2], atol=TOL, rtol=TOL)
+    assert np.all(to[2].numpy() == 0) and np.all(tl[2].numpy() <= -1e29)
+
+
+@pytest.mark.parametrize("mode", ["none", "int8"])
+def test_paged_chunk_matches_jax(mode):
+    """Chunk mode: T = 4 query tokens per sequence, causal within the chunk
+    (the suffix-prefill primitive), lengths 22 and 13 including the chunk."""
+    jargs, jkw, targs, tkw = _decode_inputs(mode, [22, 13], seed=4)
+    q = np.random.default_rng(5).standard_normal((2, 4, 4, D)).astype(np.float32)
+    jo, jl = j_paged_chunk(jnp.asarray(q), *jargs[1:], **jkw, interpret=True, return_lse=True)
+    to, tl = paged_flash_decode_chunk(torch.from_numpy(q), *targs[1:], **tkw, return_lse=True)
+    assert to.shape == (2, 4, 4, D) and tl.shape == (2, 4, 4)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=TOL, rtol=TOL)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("num_splits", [1, 3])
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+def test_paged_decode_matches_contiguous_decode(mode, num_splits):
+    """The port's paged decode against the port's flash_decode on the same
+    content, copied into a contiguous [B, Hk, S, D] cache, with the same
+    split boundaries: the paged walk adds no arithmetic of its own."""
+    _, _, targs, tkw = _decode_inputs(mode, [32, 9, 1], seed=6, H=8)
+    q, kp, vp, table, lens = targs
+    pool = PagedKVPool([kp], [vp], [tkw["k_scale"]], [tkw["v_scale"]], table, lens, mode)
+    k, v, ks, vs = pool.gather_layer(0)
+    want = flash_decode(q, k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous(),
+                        k_scale=ks[..., 0].transpose(1, 2).contiguous(),
+                        v_scale=vs[..., 0].transpose(1, 2).contiguous(),
+                        kv_length=lens, num_splits=num_splits)
+    got = paged_flash_decode(q, kp, vp, table, lens, **tkw, num_splits=num_splits)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6, rtol=1e-6)
+
+
+def _owned(alloc, slot):
+    """The pages of a 12-page pool that ``slot`` owns, in id order."""
+    return [p for p in range(1, 12) if alloc.owner(p) == slot]
+
+
+def test_page_pool_and_prefix_cache_match_jax(jax_allocator):
+    """One scripted sequence of allocator and prefix-cache operations on
+    both sides: the same page ids, owners, free counts, hits, misses,
+    refcounts and evictions."""
+    jalloc, talloc = jabi.PagePool(12), PagePool(12)
+    jcache, tcache = JPrefixCache(page_size=4), PrefixCache(page_size=4)
+    a = list(range(1, 14))          # 3 full pages + 1 token
+    b = a[:8] + [50, 51, 52, 53, 54]  # shares 2 pages with a
+    c = [7] * 9
+    log = []
+
+    def both(fn):
+        j, t = fn(jalloc, jcache), fn(talloc, tcache)
+        assert j == t, (j, t)
+        log.append(t)
+
+    both(lambda al, pc: al.free_count)
+    both(lambda al, pc: al.acquire(0, 4))
+    both(lambda al, pc: al.acquire(1, 9))  # too many: nothing taken
+    both(lambda al, pc: al.acquire(1, 3))
+    both(lambda al, pc: pc.lookup(a))
+    both(lambda al, pc: pc.insert(a, _owned(al, 0)[:3], al, 2))
+    both(lambda al, pc: [al.owner(p) for p in range(12)])
+    both(lambda al, pc: al.release_slot(0))
+    both(lambda al, pc: (al.free_count, pc.resident_pages))
+    both(lambda al, pc: pc.lookup(b))
+    both(lambda al, pc: pc.ref(b, 2))
+    both(lambda al, pc: pc.lookup(a))
+    both(lambda al, pc: pc.lookup(a[:12]))  # never the last page of a prompt
+    both(lambda al, pc: pc.evict(5, al))  # two entries are referenced
+    both(lambda al, pc: pc.unref(b, 2))
+    both(lambda al, pc: pc.lookup(c))
+    both(lambda al, pc: pc.evict(1, al))
+    both(lambda al, pc: (pc.hits, pc.misses, pc.resident_pages, al.free_count))
+    both(lambda al, pc: al.acquire(3, al.free_count))
+    both(lambda al, pc: al.release_pages([1, 2, 99, 0]))
+    both(lambda al, pc: al.transfer([5, 6], 4))
+    both(lambda al, pc: [al.owner(p) for p in range(12)])
+    assert log[1] is not None and log[2] is None
+
+
+@pytest.fixture(scope="module")
+def both_params():
+    jp = jllama.quantize_weights(jllama.init_params(jllama.LLAMA_TINY, jax.random.PRNGKey(0)))
+    return jp, bridge.params_from_jax(jax.device_get(jp), device="cpu")
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+def test_paged_steps_match_jax(both_params, mode):
+    """A 16-token prompt prefilled into slot 0, then prefill_suffix_paged
+    of 20 tokens from position 16 (two sub-chunks of 16, against the
+    shuffled pages of the prefix), then three decode_step_paged steps for
+    both slots: logits equal JAX's, and the pools stay equal."""
+    jp, tp = both_params
+    B, mp, page = 2, 8, 8
+    jpool = JPool.create(CFG.num_layers, 24, page, B, mp, CFG.num_kv_heads,
+                         CFG.head_dim, dtype=jnp.float32, mode=mode)
+    rng = np.random.default_rng(7)
+    order = rng.permutation(np.arange(1, 24))
+    for b in range(B):
+        jpool = jpool.assign_pages(b, order[b * mp:(b + 1) * mp].tolist())
+    prompt = rng.integers(0, CFG.vocab_size, (1, 16)).astype(np.int32)
+    _, kvs = jllama.prefill_with_kv(jp, jnp.asarray(prompt), jnp.arange(16)[None],
+                                    jllama.LLAMA_TINY, interpret=True)
+    for layer, (k, v) in enumerate(kvs):
+        jpool = jpool.append_prefill(layer, 0, k[0], v[0], 0)
+    jpool = jpool.set_lengths([16, 3])
+    tpool = pool_from_jax(jpool)
+
+    # jitted, as the JAX engine runs them (eager interpret mode is slow)
+    j_suffix = jax.jit(lambda p, t, pool: jllama.prefill_suffix_paged(
+        p, t, jllama.LLAMA_TINY, pool, 0, 16, interpret=True, sub_chunk=16))
+    j_decode = jax.jit(lambda p, t, pool: jllama.decode_step_paged(
+        p, t, jllama.LLAMA_TINY, pool, interpret=True))
+    suffix = rng.integers(0, CFG.vocab_size, (1, 20)).astype(np.int32)
+    jl, jpool = j_suffix(jp, jnp.asarray(suffix), jpool)
+    tl, tpool = llama.prefill_suffix_paged(tp, torch.from_numpy(suffix).long(), CFG,
+                                           tpool, 0, 16, sub_chunk=16)
+    # fp32 model on both sides: fp32 sums in another order, carried
+    # through two layers and the int8 weight products
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=2e-4, rtol=2e-4)
+    jpool, tpool = jpool.set_lengths([36, 3]), tpool.set_lengths([36, 3])
+    tok = np.asarray(jl)[0, -1].argmax()
+    toks = np.array([tok, 5], np.int32)
+    for _ in range(3):
+        jl, jpool = j_decode(jp, jnp.asarray(toks), jpool)
+        tl, tpool = llama.decode_step_paged(tp, torch.from_numpy(toks).long(), CFG, tpool)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=2e-4, rtol=2e-4)
+        toks = np.asarray(jl).argmax(-1).astype(np.int32)
+    np.testing.assert_array_equal(tpool.length.numpy(), np.asarray(jpool.length))
+    for layer in range(CFG.num_layers):
+        for j, t in zip(jpool.gather_slot(layer, 0), tpool.gather_slot(layer, 0)):
+            np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=1e-5, rtol=1e-5)
+
+
+# Engine scenarios: (kv mode, engine kwargs, waves of (prompt, max_tokens)).
+_SHARED = list(range(1, 17))  # two full pages of 8
+ENGINE_CASES = {
+    # one sequence's pages for two slots: the second request waits for the
+    # first to finish (deferred admission), and slot 1 stays idle through
+    # more than 32 decode steps, its length past the table's reach
+    "none-deferred-idle-past-capacity": (
+        "none", dict(max_batch=2, capacity=32, num_pages=5),
+        [[(list(range(1, 11)), 22), (list(range(4, 14)), 22), ([9, 8, 7], 4)]]),
+    # prefix cache on: a hit against a donated prefix, then a prompt that
+    # needs every page, which evicts the unreferenced entries (LRU)
+    "int8-prefix-hit-then-eviction": (
+        "int8", dict(max_batch=1, capacity=32, num_pages=5, prefix_cache=True),
+        [[(_SHARED + [21, 22, 23, 24], 3)], [(_SHARED + [31, 32], 3)],
+         [(list(range(40, 65)), 6)]]),
+    # prefix cache on, more requests than slots and than the pool holds
+    # at once: a wave of misses (one admission round, so nothing is cached
+    # yet), then a wave of hits against the donated pages
+    "fp8-prefix-waves": (
+        "fp8", dict(max_batch=2, capacity=48, num_pages=11, prefix_cache=True),
+        [[(_SHARED + [21, 22, 23, 24, 25], 4), (_SHARED + [31], 5),
+          (list(range(60, 90)), 3)],
+         [(_SHARED + [41, 42, 43], 4), (_SHARED + list(range(70, 80)), 3)]]),
+}
+
+
+@pytest.mark.parametrize("case", list(ENGINE_CASES))
+def test_paged_engine_matches_jax(jax_allocator, both_params, case):
+    """Greedy tokens equal the JAX engine's token for token, wave by wave,
+    with the same prefix hits, misses and resident pages, and the same
+    allocator free count after each wave."""
+    kv_mode, kw, waves = ENGINE_CASES[case]
+    jp, tp = both_params
+    jeng = JPagedEngine(jp, jllama.make_adapter(jllama.LLAMA_TINY, interpret=True),
+                        page_size=PAGE, kv_mode=kv_mode, cache_dtype=jnp.float32, **kw)
+    teng = PagedInferenceEngine(tp, llama.make_adapter(CFG), page_size=PAGE,
+                                kv_mode=kv_mode, cache_dtype=torch.float32,
+                                device="cpu", **kw)
+    for wave in waves:
+        jreqs = [jeng.submit(p, max_tokens=n) for p, n in wave]
+        treqs = [teng.submit(p, max_tokens=n) for p, n in wave]
+        jeng.run()
+        teng.run()
+        for jr, tr, (_, n) in zip(jreqs, treqs, wave):
+            assert tr.done and len(tr.generated) == n
+            assert tr.generated == jr.generated
+        assert teng.alloc.free_count == jeng.alloc.free_count
+        if teng.prefix is not None:
+            assert (teng.prefix.hits, teng.prefix.misses, teng.prefix.resident_pages) == (
+                jeng.prefix.hits, jeng.prefix.misses, jeng.prefix.resident_pages)
+            assert teng.alloc.free_count == kw["num_pages"] - 1 - teng.prefix.resident_pages
+        else:
+            assert teng.alloc.free_count == kw["num_pages"] - 1
+    assert teng.metrics.decode_tokens == jeng.metrics.decode_tokens
+    if case.startswith("none"):
+        assert int(teng.pool.length[1]) > MAXP * PAGE  # the idle slot ran past
+    else:
+        assert teng.prefix.hits > 0
+
+
+def test_paged_engine_rejects_unported_options(both_params):
+    _, tp = both_params
+    with pytest.raises(NotImplementedError):
+        PagedInferenceEngine(tp, llama.make_adapter(CFG), max_batch=1, capacity=32,
+                             page_size=PAGE, device="cpu", decode_burst=2)
+    q = torch.zeros(1, 2, 32)
+    pages = torch.zeros(4, 1, 8, 32)
+    table = torch.zeros(1, 2, dtype=torch.int32)
+    lens = torch.ones(1, dtype=torch.int32)
+    for kw in ({"window": 4}, {"logit_softcap": 30.0}):
+        with pytest.raises(NotImplementedError):
+            paged_flash_decode(q, pages, pages, table, lens, **kw)
