@@ -12,15 +12,20 @@ Phases, one line each with its seconds:
      decode (decode mode at pages of 128 and 512, also against K1 on the
      same content, and chunk mode), K3 grouped, K6 int4 matmul (70B
      shapes), K5 W4A8 matmul (8B shapes), K7 W8A8 matmul (70B head,
-     bit-exact); then once each what the main paths do not run: group
-     sizes 32 and 64, K7's bf16 output, and the int8, int4 and W4A8 LM
-     heads' fp32 activations or output;
+     bit-exact), K9 and K10 flash backward (dq and dk/dv passes, at the
+     training shape, at a shifted causal Sq=1000, Sk=1500 and non-causal
+     at B=2, each also launched twice and held bitwise equal); then once
+     each what the main paths do not run: group sizes 32 and 64, K7's
+     bf16 output, and the int8, int4 and W4A8 LM heads' fp32 activations
+     or output;
   3. a 2-layer model at full 8B widths with fp8 KV: two prompts and four
      decode steps on the card (kernels) against the CPU (plain versions),
      with int8 weights, int4 + W8A8 head fused, W4A8 + W8A8 head fused,
      int8 weights + int8 head, and int4 + int4 head fused; then the paged
      path (int8 weights): a prompt, a prompt sharing its first two pages
-     through the suffix prefill, and four paged decode steps;
+     through the suffix prefill, and four paged decode steps; then one
+     training loss and every parameter's gradient (2 layers at 8B widths,
+     bf16, B=1, S=128, remat);
   4-6. the main paths, each model alone on the card, served by the
      continuous-batching engine (8 greedy requests, prompts of 128-1024
      tokens from the seed), with the launch count of every kernel in each
@@ -31,7 +36,11 @@ Phases, one line each with its seconds:
   7. (run right after phase 4, on its params) Llama-3-8B int8 weights
      served by the paged engine with prefix caching, fp8 KV, pages of
      128: two waves of 8 requests sharing a 512-token prefix, the first
-     all misses, the second all hits that prefill only their suffixes.
+     all misses, the second all hits that prefill only their suffixes;
+  8. training: Llama-3-8B at full widths and depth (bf16 params, AdamW
+     moments in bf16), B=1, S=2048, the default TrainConfig (remat on), 5
+     AdamW steps on one seeded batch: losses, ms per step, tokens/s, peak
+     memory, and the launches of K4, K9 and K10.
 
 Before the last line come the kernels' JSON record (each row's launches
 are those of the run named in its "launches_run") and the card; the last
@@ -54,6 +63,10 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor cores
 INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8 tensor cores
 MAX_70B_GIB = 75.0             # the 70B serve fails above this peak
+MAX_TRAIN_GIB = 75.0           # the training run fails above this peak
+TRAIN_LAYERS, TRAIN_SEQ, TRAIN_STEPS = 32, 2048, 5
+TRAIN_LOSS_TOL = 1e-3          # phase 3 training, card vs CPU (see there)
+TRAIN_GRAD_TOL = 5e-2
 SEED = 0
 
 
@@ -70,7 +83,7 @@ def bound(nbytes: float, flops: float, peak: float = BF16_FLOPS_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def row_err(got, ref, rel=2.0 ** -6):
+def row_err(got, ref, rel=2.0 ** -6, floor=1e-6):
     """(max |got - ref|, worst share of its row's tolerance).
 
     A row is one output vector (a query's head, a product's row).  Its
@@ -83,11 +96,15 @@ def row_err(got, ref, rel=2.0 ** -6):
     its ``rel`` of 2^-16; rounding x to one bf16 part would miss it by ~2^-11.
     A long attention row has small outputs, so a tolerance taken from the
     whole tensor's largest value (a short row's) would not see a lost or
-    doubled tile there."""
+    doubled tile there.  ``floor`` is an absolute tolerance added to every
+    row's: a number, or one per row (a tensor shaped like ``ref`` without its
+    last dimension, or with it as 1)."""
     g = got.float().reshape(-1, got.shape[-1])
     r = ref.float().reshape(-1, ref.shape[-1])
     err = (g - r).abs()
-    tol = rel * r.abs().amax(dim=-1, keepdim=True) + 1e-6
+    if hasattr(floor, "reshape"):
+        floor = floor.float().reshape(-1, 1)
+    tol = rel * r.abs().amax(dim=-1, keepdim=True) + floor
     return float(err.max()), float((err / tol).max())
 
 
@@ -611,6 +628,129 @@ def check_k4(torch, checks, rows):
     rows["K4"]["max_abs_err"] = worst
 
 
+def _bwd_inputs(torch, g, B, Sq, Sk, causal, rope, H=32, Hk=8, D=128):
+    """Random bf16 q, k, v, dout; out and lse from K4 (online); delta as
+    flash_bwd forms it; RoPE tables (each sequence its own positions) or
+    None."""
+    from flash_attn_tpu_torch.ops import flash_fwd as ff
+    from flash_attn_tpu_torch.ops.rope import rope_cos_sin
+
+    q = torch.randn((B, Sq, H, D), generator=g, device="cuda", dtype=torch.bfloat16)
+    k = torch.randn((B, Sk, Hk, D), generator=g, device="cuda", dtype=torch.bfloat16)
+    v = torch.randn((B, Sk, Hk, D), generator=g, device="cuda", dtype=torch.bfloat16)
+    dout = torch.randn((B, Sq, H, D), generator=g, device="cuda", dtype=torch.bfloat16)
+    cos = sin = None
+    if rope:
+        pos = torch.arange(Sq, device="cuda")[None] + 7 * torch.arange(B, device="cuda")[:, None]
+        cos, sin = rope_cos_sin(pos, D, 500000.0)
+    out, lse = ff.flash_fwd(q, k, v, causal=causal, rope_cos=cos, rope_sin=sin)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    return q, k, v, dout, lse, delta, cos, sin
+
+
+def one_key_floor(torch, ref, Sk, causal):
+    """Per-row floor for dq [B, Sq, H, D]: 2^-12 of its largest |value| on
+    the rows of queries that see fewer than two keys under the bottom-right
+    causal mask (their true gradient is 0), 1e-6 on every other row."""
+    B, Sq, H, _ = ref.shape
+    i = torch.arange(Sq, device=ref.device)
+    live = torch.clamp(i + Sk - Sq + 1, 0, Sk) if causal else torch.full_like(i, Sk)
+    noise = 2.0 ** -12 * float(ref.abs().max())
+    return torch.where(live < 2, noise, 1e-6)[None, :, None].expand(B, Sq, H)
+
+
+def check_k9_k10(torch, checks, rows):
+    """K9 (dq) and K10 (dk, dv per query head, fp32) against the plain
+    version on the same inputs: causal at the training shape (B=1, S=2048,
+    H=32, Hk=8, D=128, rope) and at Sq=1000, Sk=1500 without rope (the
+    bottom-right shift and partial tiles on both sides), and once
+    non-causal at B=2, Sq=1000, Sk=1500 with per-sequence rope; each output
+    row held to 2^-6 of its largest value plus the other kernels' floor of
+    1e-6, and a second launch bitwise equal to the first (no atomics).  A
+    dq row of a query that sees one key (query 0 under the causal mask
+    without shift) has a true gradient of 0: its ds = p (dp - delta) with
+    dp = delta up to fp32 summation order, so both sides give rounding
+    noise there (0.988 of the 1e-6 floor on an NVIDIA H100 80GB HBM3 at
+    700 W); those rows alone get a floor of 2^-12 of dq's largest value
+    (``one_key_floor``).  Bounds:
+    dq 3 GEMMs and dk/dv 4 of 2*D flops per (query, key) pair the causal
+    mask keeps (every pair when not causal)."""
+    import torch.nn.functional as F
+
+    from flash_attn_tpu_torch.ops import flash_bwd as fb
+    from flash_attn_tpu_torch.ops.rope import rope_rotate
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    worst = {"K9": 0.0, "K10": 0.0}
+    for B, Sq, Sk, causal, rope in ((1, 2048, 2048, True, True), (1, 1000, 1500, True, False),
+                                    (2, 1000, 1500, False, True)):
+        q, k, v, dout, lse, delta, cos, sin = _bwd_inputs(torch, g, B, Sq, Sk, causal, rope)
+        H, D = q.shape[2:]
+        args = (q, k, v, dout, lse, delta, causal, D ** -0.5, cos, sin)
+        dq, dq2 = fb.flash_bwd_dq_cuda(*args), fb.flash_bwd_dq_cuda(*args)
+        (dk, dv), (dk2, dv2) = fb.flash_bwd_dkv_cuda(*args), fb.flash_bwd_dkv_cuda(*args)
+        rdq, rdk, rdv = fb.flash_bwd_plain(*args)
+        torch.cuda.synchronize()
+        label = (f"B={B} Sq={Sq} Sk={Sk}{'' if causal else ', not causal'}"
+                 f"{', rope' if rope else ''}")
+        same = {"K9": torch.equal(dq, dq2),
+                "K10": torch.equal(dk, dk2) and torch.equal(dv, dv2)}
+        res = {}
+        floors = {"dq": one_key_floor(torch, rdq, Sk, causal)}
+        for key, outs in (("K9", ((dq, rdq, "dq"),)),
+                          ("K10", ((dk, rdk, "dk"), (dv, rdv, "dv")))):
+            parts = []
+            for got, ref, name in outs:
+                err, share = row_err(got, ref, floor=floors.get(name, 1e-6))
+                checks.check(f"{key} {name} {label}", share, 1.0)
+                worst[key] = max(worst[key], err)
+                parts.append(f"{name} max_abs_err {err:.3e} ({share:.3f} of its row's tol)")
+            if not same[key]:
+                checks.failed.append(f"{key} {label}: two launches differ")
+            res[key] = "; ".join(parts) + f", bitwise repeat {'ok' if same[key] else 'FAIL'}"
+        # one product over the kept pairs
+        gemm = k4_flops(B, Sq, Sk, H, D) // 2 if causal else 2 * B * H * Sq * Sk * D
+        ins = (q.numel() + dout.numel() + k.numel() + v.numel()) * 2 + (lse.numel() + delta.numel()) * 4
+        if rope:
+            ins += 2 * cos.numel() * 4
+        ms9 = cuda_ms(torch, lambda: fb.flash_bwd_dq_cuda(*args))
+        ms10 = cuda_ms(torch, lambda: fb.flash_bwd_dkv_cuda(*args))
+        b9 = bound(ins + dq.numel() * 4, 3 * gemm)
+        b10 = bound(ins + 2 * B * H * Sk * D * 4, 4 * gemm)
+        say(f"  K9 {label}: {res['K9']} | {ms9:.4f} ms ({3 * gemm / ms9 / 1e9:.1f} TFLOP/s), "
+            f"bound {b9[0]:.4f} ({b9[1]})")
+        say(f"  K10 {label}: {res['K10']} | {ms10:.4f} ms ({4 * gemm / ms10 / 1e9:.1f} TFLOP/s), "
+            f"bound {b10[0]:.4f} ({b10[1]})")
+        if Sq == 2048:  # the training shape: the rows of the kernels record
+            plain_ms = cuda_ms(torch, lambda: fb.flash_bwd_plain(*args), iters=3, warmup=1)
+            qt = rope_rotate(q, cos, sin).transpose(1, 2).contiguous().requires_grad_(True)
+            kt = k.transpose(1, 2).contiguous().requires_grad_(True)
+            vt = v.transpose(1, 2).contiguous().requires_grad_(True)
+            o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+            do_t = dout.transpose(1, 2).contiguous()
+            lib_ms = cuda_ms(torch, lambda: torch.autograd.grad(o, (qt, kt, vt), do_t,
+                                                                retain_graph=True))
+            say(f"    K9 + K10 together {ms9 + ms10:.4f} ms; plain (both passes, one "
+                f"call) {plain_ms:.4f}; library (the backward of SDPA on rotated q, "
+                f"is_causal, enable_gqa: dq, dk, dv in one call, one number for both "
+                f"rows) {lib_ms:.4f}")
+            shape = "B=1, S=2048, H=32, Hk=8, D=128, causal, rope"
+            rows["K9"] = dict(name=f"flash_bwd dq pass ({shape})",
+                              source="flash_attn_tpu_torch/csrc/flash_bwd.cu",
+                              replaces="flash_attn_tpu/ops/flash_bwd.py:127",
+                              ms=ms9, plain_ms=plain_ms, library_ms=lib_ms,
+                              bound_ms=b9[0], bound_by=b9[1])
+            rows["K10"] = dict(name=f"flash_bwd dk/dv pass ({shape})",
+                               source="flash_attn_tpu_torch/csrc/flash_bwd.cu",
+                               replaces="flash_attn_tpu/ops/flash_bwd.py:194",
+                               ms=ms10, plain_ms=plain_ms, library_ms=lib_ms,
+                               bound_ms=b10[0], bound_by=b10[1])
+            del qt, kt, vt, o
+        del q, k, v, dout, lse, delta, dq, dq2, dk, dv, dk2, dv2, rdq, rdk, rdv
+    rows["K9"]["max_abs_err"] = worst["K9"]
+    rows["K10"]["max_abs_err"] = worst["K10"]
+
+
 def _paged_inputs(torch, kv, g, page, B=8, H=32, Hk=8, S=4096, D=128):
     """A pool of B sequences' worth of pages of ``page`` tokens plus the
     null page, page ids a seeded permutation of the pool, and ragged
@@ -773,6 +913,8 @@ def phase_kernels(torch, checks):
     check_k2(torch, checks, rows)
     check_k4(torch, checks, rows)
     torch.cuda.empty_cache()
+    check_k9_k10(torch, checks, rows)
+    torch.cuda.empty_cache()
     check_k8(torch, checks, rows)
     torch.cuda.empty_cache()
     for check in (check_k3g, check_k6, check_k5, check_k7):
@@ -926,11 +1068,69 @@ def paged_card_vs_cpu(torch, checks):
     torch.cuda.empty_cache()
 
 
+def _train_fwd(cfg):
+    from flash_attn_tpu_torch.models import llama
+
+    return lambda p, tokens, remat: llama.forward(p, tokens, cfg, remat=remat)
+
+
+def train_card_vs_cpu(torch, checks):
+    """One training loss and every parameter's gradient (the train step's
+    forward and backward, remat on), 2 layers at full 8B widths, bf16
+    params made on the card and copied to the CPU, B=1, S=128, on the card
+    (K4, K9, K10) against the CPU (plain versions)."""
+    import numpy as np
+
+    from flash_attn_tpu_torch.models import llama
+    from flash_attn_tpu_torch.utils import train
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(llama.LLAMA3_8B, num_layers=2)
+    card = llama.init_params(cfg, seed=SEED + 13, device="cuda")
+    sides = {"cpu": _to(card, "cpu"), "cuda": card}
+    batch = np.random.default_rng(SEED + 13).integers(0, cfg.vocab_size, (1, 129))
+    res = {}
+    for d, params in sides.items():
+        leaves = train.param_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        toks = torch.from_numpy(batch).to(d)
+        loss, grads = train.loss_and_grads(_train_fwd(cfg), params, toks[:, :-1], toks[:, 1:])
+        res[d] = (float(loss), [gr.float().cpu() for gr in grads])
+    torch.cuda.synchronize()
+    names = [name for name, _ in train.named_leaves(card)]
+    (lc, gc), (lg, gg) = res["cpu"], res["cuda"]
+    finite = all(bool(torch.isfinite(x).all()) for x in gg) and np.isfinite(lg)
+    # bf16 activations and gradients: the card (cuBLAS, K4/K9/K10) and the
+    # CPU (the plain versions) round at the same points and sum in another
+    # order, which can flip a bf16 rounding (2^-8) that two layers and the
+    # backward carry on; measured on an NVIDIA H100 80GB HBM3 at 700 W: loss
+    # 9.3e-05, worst gradient 1.8e-02 of its norm (wk, through the softmax)
+    lerr = abs(lg - lc) / abs(lc)
+    ok = checks.check("train card vs cpu loss (relative)", lerr, TRAIN_LOSS_TOL) and finite
+    worst, worst_name = 0.0, ""
+    for name, a, b in zip(names, gg, gc):
+        e = float((a - b).norm() / b.norm().clamp(min=1e-30))
+        ok = checks.check(f"train card vs cpu grad {name} (relative norm)", e, TRAIN_GRAD_TOL) and ok
+        if e > worst:
+            worst, worst_name = e, name
+    if not finite:
+        checks.failed.append("train card loss or gradients not finite")
+    say(f"[phase 3 card vs cpu, training: 2 layers at 8B widths, bf16, B=1 S=128, remat] "
+        f"loss {lg:.6f} (cpu {lc:.6f}, relative err {lerr:.3e}, tol {TRAIN_LOSS_TOL:g}) | "
+        f"{len(gg)} gradients finite={finite}, worst relative norm err {worst:.3e} "
+        f"({worst_name}; tol {TRAIN_GRAD_TOL:g}) {'ok' if ok else 'FAIL'} | "
+        f"{time.perf_counter() - t0:.2f}s")
+    del sides, card, res
+    torch.cuda.empty_cache()
+
+
 def _counters():
     """(name -> kernel wrapper, the K8 wrapper): K8 also counts its
     chunk-mode launches apart."""
     from flash_attn_tpu_torch.ops import matmul as mm
     from flash_attn_tpu_torch.ops.decode import flash_decode_cuda
+    from flash_attn_tpu_torch.ops.flash_bwd import flash_bwd_dkv_cuda, flash_bwd_dq_cuda
     from flash_attn_tpu_torch.ops.flash_fwd import flash_fwd_cuda
     from flash_attn_tpu_torch.ops.kv_append import kv_append_cuda
     from flash_attn_tpu_torch.ops.paged_decode import paged_flash_decode_cuda
@@ -938,7 +1138,8 @@ def _counters():
     return ({"K1": flash_decode_cuda, "K2": kv_append_cuda,
              "K3": mm.matmul_int8_cuda, "K3g": mm.matmul_int8_grouped_cuda,
              "K4": flash_fwd_cuda, "K5": mm.matmul_w4a8_cuda,
-             "K6": mm.matmul_int4_cuda, "K7": mm.matmul_w8a8_cuda},
+             "K6": mm.matmul_int4_cuda, "K7": mm.matmul_w8a8_cuda,
+             "K9": flash_bwd_dq_cuda, "K10": flash_bwd_dkv_cuda},
             paged_flash_decode_cuda)
 
 
@@ -1134,18 +1335,78 @@ def phase_serve(torch, checks):
     return runs
 
 
+def phase_train(torch, checks):
+    """Phase 8: TRAIN_STEPS AdamW steps of Llama-3 at 8B widths and
+    TRAIN_LAYERS layers (bf16 params from the seed; at 32 layers the bf16
+    params, gradients and two moments take 64.2 GB), B=1,
+    S=TRAIN_SEQ, the default TrainConfig (lr 3e-4, weight decay 0.1, clip
+    1.0, remat on), on one seeded batch whose targets are its tokens
+    shifted by one.  The counters are set to 0 just before the steps and
+    read just after.  Returns the counts."""
+    import numpy as np
+
+    from flash_attn_tpu_torch.models import llama
+    from flash_attn_tpu_torch.utils import train
+
+    t1 = time.perf_counter()
+    cfg = dataclasses.replace(llama.LLAMA3_8B, num_layers=TRAIN_LAYERS)
+    params, secs = _fresh_model(torch, cfg)
+    n_params = sum(p.numel() for p in train.param_leaves(params))
+    init_fn, step_fn = train.make_train_step(_train_fwd(cfg), train.TrainConfig())
+    state = init_fn(params)
+    batch = np.random.default_rng(SEED + 14).integers(0, cfg.vocab_size, (1, TRAIN_SEQ + 1))
+    batch = torch.from_numpy(batch).to("cuda")
+    tok, tgt = batch[:, :-1], batch[:, 1:]
+    say(f"  {TRAIN_LAYERS}-layer 8B-width params ({n_params / 1e9:.3f} B, bf16) and AdamW "
+        f"state on the card in {secs:.2f}s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.synchronize()
+    _reset_counts()
+    losses, norms, secs_per_step = [], [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, tok, tgt)
+        torch.cuda.synchronize()
+        secs_per_step.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    counts = _read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_ms = 1e3 * float(np.median(secs_per_step[1:]))
+    want = {"K9": TRAIN_LAYERS * TRAIN_STEPS, "K10": TRAIN_LAYERS * TRAIN_STEPS,
+            "K4": 2 * TRAIN_LAYERS * TRAIN_STEPS}  # remat reruns each K4 once
+    for key, n in want.items():
+        if counts[key] != n:
+            checks.failed.append(f"{RUN_TRAIN}: {key} launched {counts[key]} times, expected {n}")
+    good = all(np.isfinite(losses)) and losses[-1] < losses[0]
+    if not good:
+        checks.failed.append(f"{RUN_TRAIN}: losses not finite and falling: {losses}")
+    if peak > MAX_TRAIN_GIB:
+        checks.failed.append(f"{RUN_TRAIN}: peak {peak:.2f} GiB > {MAX_TRAIN_GIB} GiB")
+    say(f"[{RUN_TRAIN}] losses {[round(x, 6) for x in losses]} grad_norm "
+        f"{[round(x, 4) for x in norms]} {'ok' if good else 'FAIL'} | step ms "
+        f"{[round(1e3 * x, 3) for x in secs_per_step]}, median of steps 2-{TRAIN_STEPS} "
+        f"{step_ms:.3f} ms, {TRAIN_SEQ / step_ms * 1e3:.1f} tokens/s | max_memory_allocated "
+        f"{peak:.2f} GiB (limit {MAX_TRAIN_GIB}) | {time.perf_counter() - t1:.2f}s")
+    say("kernels " + json.dumps({"run": RUN_TRAIN, **counts}))
+    del params, state, m
+    torch.cuda.empty_cache()
+    return counts
+
+
 RUN_8B_INT8 = "phase 4 serve Llama-3-8B int8, fp8 KV"
 RUN_8B_W4A8 = "phase 5 serve Llama-3-8B W4A8 + W8A8 head, fused, fp8 KV"
 RUN_70B = "phase 6 serve Llama-3-70B int4 + W8A8 head, fused, fp8 KV"
 RUN_PAGED = "phase 7 serve Llama-3-8B int8, fp8 KV, paged + prefix cache"
-KERNEL_ROWS = ("K1", "K2", "K3", "K3g", "K4", "K5", "K6", "K7", "K8", "K8c")
+RUN_TRAIN = (f"phase 8 train Llama-3 8B widths, {TRAIN_LAYERS} layers, B=1 S={TRAIN_SEQ}, "
+             f"{TRAIN_STEPS} AdamW steps")
+KERNEL_ROWS = ("K1", "K2", "K3", "K3g", "K4", "K5", "K6", "K7", "K8", "K8c", "K9", "K10")
 # the run whose launches a kernel's row reports: the main path that the
 # kernel serves (the 70B serve for the shared K1, K2 and K4, the paged
-# serve for K8 in both modes); K3 grouped has no model path, so its row
-# reports none
+# serve for K8 in both modes, the training run for K9 and K10); K3 grouped
+# has no model path, so its row reports none
 ROW_RUN = {"K1": RUN_70B, "K2": RUN_70B, "K3": RUN_8B_INT8, "K3g": None,
            "K4": RUN_70B, "K5": RUN_8B_W4A8, "K6": RUN_70B, "K7": RUN_70B,
-           "K8": RUN_PAGED, "K8c": RUN_PAGED}
+           "K8": RUN_PAGED, "K8c": RUN_PAGED, "K9": RUN_TRAIN, "K10": RUN_TRAIN}
 
 
 def main() -> int:
@@ -1171,7 +1432,9 @@ def main() -> int:
     for case in CARD_VS_CPU:
         card_vs_cpu(torch, checks, *case)
     paged_card_vs_cpu(torch, checks)
+    train_card_vs_cpu(torch, checks)
     runs = phase_serve(torch, checks)
+    runs[RUN_TRAIN] = phase_train(torch, checks)
     for key, row in rows.items():
         row["launches_run"] = ROW_RUN[key]
         row["launches"] = runs[ROW_RUN[key]][key] if ROW_RUN[key] else 0

@@ -1,10 +1,12 @@
 """Llama-3 in PyTorch: RMSNorm + RoPE + GQA + SwiGLU over the port's
 kernels (prefill K4, decode K1 + K2, paged decode and suffix prefill K8,
-projections and quantized heads K3, K5, K6, K7).
+projections and quantized heads K3, K5, K6, K7; the training forward's
+attention K4 with its backward K9 + K10).
 
-Port of flash_attn_tpu/models/llama.py for the serving path: the configs,
-``init_params`` (from a ``torch.Generator``), ``quantize_weights`` (int8,
-int4, w8a8, w4a8, with a separate ``head_mode``), ``fuse_projections``,
+Port of flash_attn_tpu/models/llama.py for the serving and training
+paths: the configs, ``init_params`` (from a ``torch.Generator``),
+``quantize_weights`` (int8, int4, w8a8, w4a8, with a separate
+``head_mode``), ``fuse_projections``, ``forward`` (training),
 ``prefill_with_kv``, ``decode_step``, ``decode_step_paged``,
 ``prefill_suffix_paged``, ``make_cache`` and ``make_adapter``.
 Params are a plain dict like the JAX pytree: per block wq/wk/wv (or the
@@ -16,7 +18,9 @@ The LM head takes fp32 activations as in the JAX model.  A float head
 runs as an fp32 matmul: the first call that needs it stores an fp32 copy
 in the params dict under ``"_lm_head_f32"`` (about 2.1 GB at the 8B
 shape), so no step converts it.  A quantized head (``head_mode``) is used
-as it is.
+as it is.  The training ``forward`` keeps no such copy: its fp32 head is
+made from the bf16 one at each call, so it follows the optimizer's updates
+and passes the gradient back to ``lm_head``.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from flash_attn_tpu_torch._device import resolve_device
 from flash_attn_tpu_torch.engine.kv_cache import KVCache
@@ -243,6 +248,43 @@ def _qkv(h, blk, cfg, b, s):
     return (q.reshape(b, s, cfg.num_heads, cfg.head_dim),
             k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim),
             v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim))
+
+
+def _block_train(x, blk, cfg, cos, sin):
+    """One layer of the training forward: causal attention with q rotated
+    inside the kernel (online softmax), then the MLP."""
+    b, s, _ = x.shape
+    h = _rms_norm(x, blk["attn_norm"], cfg.rms_eps)
+    q, k, v = _qkv(h, blk, cfg, b, s)
+    k = rope_rotate(k, cos, sin)
+    attn = flash_attention(q.contiguous(), k, v.contiguous(), causal=True,
+                           rope_cos=cos, rope_sin=sin)
+    x = x + _proj(attn.reshape(b, s, cfg.num_heads * cfg.head_dim), blk["wo"])
+    return _block_mlp(x, blk, cfg)
+
+
+def forward(params, tokens, cfg: LlamaConfig, *, positions=None,
+            segment_ids=None, remat: bool = False):
+    """tokens [B, S] -> logits [B, S, V] fp32 (training, causal), and
+    differentiable w.r.t. every float param.  ``remat`` checkpoints each
+    block (``torch.utils.checkpoint``): the backward reruns its forward,
+    K4 included.  ``jax.checkpoint`` of the whole forward, as the JAX
+    train step does it, gives the same values."""
+    if segment_ids is not None:
+        raise NotImplementedError("forward option 'segment_ids' is not ported yet")
+    b, s = tokens.shape
+    if positions is None:
+        positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+    x = params["tok_emb"][tokens]
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    for blk in params["blocks"]:
+        if remat:
+            x = checkpoint(_block_train, x, blk, cfg, cos, sin, use_reentrant=False)
+        else:
+            x = _block_train(x, blk, cfg, cos, sin)
+    x = _rms_norm(x, params["final_norm"], cfg.rms_eps)
+    head = params["tok_emb"].T if cfg.tie_embeddings else params["lm_head"]
+    return _proj(x.float(), head)
 
 
 def prefill_with_kv(params, tokens, positions, cfg: LlamaConfig):

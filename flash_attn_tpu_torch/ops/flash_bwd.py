@@ -1,0 +1,173 @@
+"""FlashAttention-2 backward (kernels K9 and K10, ``csrc/flash_bwd.cu``).
+
+Port of flash_attn_tpu/ops/flash_bwd.py:flash_bwd for the subset the Llama
+training step uses: BSHD layout, GQA, bottom-right causal mask, q-side
+RoPE inside the kernels, ``scale``.  Bias and dbias, segment ids,
+positions, windows, softcap, ALiBi, dropout and fp16 are still to port
+and raise ``NotImplementedError``.
+
+As on the TPU: ``delta = rowsum(dout * out)`` is plain fp32 arithmetic
+outside the kernels; the dq pass (K9) and the dk/dv pass (K10) each
+recompute P from (R(q), k, lse) and are deterministic (no atomics); K10
+writes dk/dv per query head in fp32 and the GQA group is summed here.
+The recompute works in natural units, s = (R(q) k^T) * scale, unlike the
+forward's base-2 scores, so P differs from the forward's by rounding, as
+in the reference.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from flash_attn_tpu_torch import _build
+from flash_attn_tpu_torch.ops.rope import rope_rotate, rope_unrotate
+
+NEG_INF = -1e30
+_TILE = 64  # K10 writes dk/dv in whole 64-key tiles
+
+
+def _unset(val) -> bool:
+    return val is None or val is False or (isinstance(val, (int, float)) and val == 0)
+
+
+def flash_bwd(q, k, v, out, lse, dout, *, causal: bool = False,
+              scale: float | None = None, rope_cos=None, rope_sin=None,
+              **unported):
+    """q, out, dout: [B, Sq, H, D]; k, v: [B, Sk, Hk, D]; lse [B, H, Sq]
+    fp32.  Returns (dq, dk, dv) in the dtypes of q, k, v.
+
+    rope_cos/rope_sin ([B, Sq, D/2] or [Sq, D/2] fp32): q arrives
+    un-rotated, as in the forward; dq is w.r.t. the un-rotated q."""
+    for name, val in unported.items():
+        if not _unset(val):
+            raise NotImplementedError(f"flash_bwd option {name!r} is not ported yet")
+    if q.dtype == torch.float16:
+        raise NotImplementedError("flash_bwd in fp16 is not ported yet")
+    B, Sq, H, D = q.shape
+    _, Sk, Hk, _ = k.shape
+    if H % Hk:
+        raise ValueError(f"num_heads {H} not divisible by num_heads_k {Hk}")
+    if (rope_cos is None) != (rope_sin is None):
+        raise ValueError("rope_cos and rope_sin go together")
+    if rope_cos is not None and rope_cos.shape[-2:] != (Sq, D // 2):
+        raise ValueError(f"rope tables must be [B, {Sq}, {D // 2}] or [{Sq}, {D // 2}]")
+    if scale is None:
+        scale = D ** -0.5
+    # softmax_d (flash_attn.h:73): fp32 elementwise product and row sum
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    if q.is_cuda:
+        dq, dk, dv = flash_bwd_cuda(q, k, v, dout, lse, delta, causal, scale,
+                                    rope_cos, rope_sin)
+    else:
+        dq, dk, dv = flash_bwd_plain(q, k, v, dout, lse, delta, causal, scale,
+                                     rope_cos, rope_sin)
+    group = H // Hk
+
+    def reduce(g, like):  # [B, H, Sk, D] per query head -> [B, Sk, Hk, D]
+        g = g.reshape(B, Hk, group, Sk, D).sum(2) if group > 1 else g
+        return g.transpose(1, 2).to(like.dtype)
+
+    return dq.to(q.dtype), reduce(dk, k), reduce(dv, v)
+
+
+def flash_bwd_plain(q, k, v, dout, lse, delta, causal, scale, rope_cos, rope_sin):
+    """Plain PyTorch version of K9 + K10 (whole rows at once, the kernels'
+    roundings: R(q) in q's dtype, P in dout's and dS in k's/q's dtype
+    before their products, fp32 accumulation).  Returns dq [B, Sq, H, D]
+    and dk, dv [B, H, Sk, D] per query head, all fp32."""
+    B, Sq, H, D = q.shape
+    Sk, Hk = k.shape[1], k.shape[2]
+    qr = q if rope_cos is None else rope_rotate(q, rope_cos.float(), rope_sin.float())
+    kf = k.float().repeat_interleave(H // Hk, dim=2)
+    vf = v.float().repeat_interleave(H // Hk, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", qr.float(), kf) * scale
+    live = (lse > NEG_INF / 2)[..., None]
+    if causal:
+        rows = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
+        live = live & (torch.arange(Sk, device=q.device)[None, :] <= rows)
+    lse_safe = torch.clamp(lse, min=NEG_INF / 2)[..., None]
+    p = torch.where(live, torch.exp(s - lse_safe), torch.zeros_like(s))
+    dp = torch.einsum("bqhd,bkhd->bhqk", dout.float(), vf)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), kf) * scale
+    if rope_cos is not None:
+        dq = rope_unrotate(dq, rope_cos.float(), rope_sin.float())
+    dv = torch.einsum("bhqk,bqhd->bhkd", p.to(dout.dtype).float(), dout.float())
+    dk = torch.einsum("bhqk,bqhd->bhkd", ds.to(q.dtype).float(), qr.float()) * scale
+    return dq, dk, dv
+
+
+def _check_cuda(q, k, v, dout, lse, delta, rope_cos, rope_sin, name):
+    """Raise on anything the kernels do not take; returns the rope tables'
+    batch stride (0 when shared across the batch or absent)."""
+    B, Sq, H, D = q.shape
+    if not (q.dtype == k.dtype == v.dtype == dout.dtype == torch.bfloat16):
+        raise ValueError(f"{name} takes bf16 q, k, v, dout")
+    if D != 128:
+        raise ValueError(f"{name} takes head_dim 128 (Llama-3), got {D}")
+    if lse.dtype != torch.float32 or delta.dtype != torch.float32:
+        raise ValueError(f"{name} takes fp32 lse and delta")
+    tensors = [q, k, v, dout, lse, delta]
+    bstride = 0
+    if rope_cos is not None:
+        if rope_cos.dtype != torch.float32 or rope_sin.dtype != torch.float32:
+            raise ValueError("rope tables must be fp32")
+        if rope_cos.ndim == 3 and rope_cos.shape[0] == B and B > 1:
+            bstride = Sq * (D // 2)
+        tensors += [rope_cos, rope_sin]
+    for t in tensors:
+        if not t.is_cuda or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} takes contiguous, 16-byte aligned CUDA tensors")
+    return bstride
+
+
+def flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal, scale, rope_cos, rope_sin):
+    """Launch K9 (replaces flash_attn_tpu/ops/flash_bwd.py:_dq_kernel;
+    bound by operations, see csrc/flash_bwd.cu).  Returns dq [B, Sq, H, D]
+    fp32."""
+    bstride = _check_cuda(q, k, v, dout, lse, delta, rope_cos, rope_sin, "K9")
+    B, Sq, H, D = q.shape
+    Sk, Hk = k.shape[1], k.shape[2]
+    dq = torch.empty((B, Sq, H, D), dtype=torch.float32, device=q.device)
+    p = _build.ptr
+    rc = _build.lib().fatt_flash_bwd_dq(
+        p(q), p(k), p(v), p(dout), p(lse), p(delta), p(rope_cos), p(rope_sin),
+        p(dq), B, Sq, Sk, H, Hk, D, bstride, float(scale), int(causal),
+        _build.stream())
+    _build.check(rc, "fatt_flash_bwd_dq")
+    flash_bwd_dq_cuda.launches += 1
+    return dq
+
+
+def flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, causal, scale, rope_cos, rope_sin):
+    """Launch K10 (replaces flash_attn_tpu/ops/flash_bwd.py:_dkv_kernel;
+    bound by operations).  Returns dk, dv [B, H, Sk, D] fp32 per query
+    head (views of whole-tile buffers)."""
+    bstride = _check_cuda(q, k, v, dout, lse, delta, rope_cos, rope_sin, "K10")
+    B, Sq, H, D = q.shape
+    Sk, Hk = k.shape[1], k.shape[2]
+    sk_pad = -(-Sk // _TILE) * _TILE
+    dk = torch.empty((B, H, sk_pad, D), dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    p = _build.ptr
+    rc = _build.lib().fatt_flash_bwd_dkv(
+        p(q), p(k), p(v), p(dout), p(lse), p(delta), p(rope_cos), p(rope_sin),
+        p(dk), p(dv), B, Sq, Sk, H, Hk, D, bstride, float(scale), int(causal),
+        _build.stream())
+    _build.check(rc, "fatt_flash_bwd_dkv")
+    flash_bwd_dkv_cuda.launches += 1
+    return dk[:, :, :Sk], dv[:, :, :Sk]
+
+
+def flash_bwd_cuda(q, k, v, dout, lse, delta, causal, scale, rope_cos, rope_sin):
+    """K10 then K9 on the card; each wrapper counts its own launches.
+    Returns what flash_bwd_plain returns."""
+    dk, dv = flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, causal, scale,
+                                rope_cos, rope_sin)
+    dq = flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal, scale,
+                           rope_cos, rope_sin)
+    return dq, dk, dv
+
+
+flash_bwd_dq_cuda.launches = 0
+flash_bwd_dkv_cuda.launches = 0

@@ -28,3 +28,9 @@ def rope_rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
     c = cos[..., None, :].float()
     s = sin[..., None, :].float()
     return torch.cat([xf1 * c - xf2 * s, xf2 * c + xf1 * s], dim=-1).to(x.dtype)
+
+
+def rope_unrotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
+    """Inverse rotation (R is orthogonal: R^-1 = R(-angle)).  Used by the
+    attention backward to pull dq back through an in-kernel q rotation."""
+    return rope_rotate(x, cos, -sin)

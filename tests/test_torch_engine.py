@@ -193,7 +193,7 @@ def test_port_imports_no_jax():
     assert len(files) > 10 and (ROOT / "chip_smoke.py").exists()
     names = {p.relative_to(ROOT).as_posix() for p in files}
     for module in ("engine/paged.py", "engine/prefix_cache.py", "ops/paged_decode.py",
-                   "runtime/abi.py"):
+                   "runtime/abi.py", "ops/flash_bwd.py", "utils/train.py"):
         assert f"flash_attn_tpu_torch/{module}" in names
     from flash_attn_tpu_torch.runtime import abi
 
