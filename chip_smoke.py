@@ -8,7 +8,10 @@ Phases, one line each with its seconds:
   2. each hand-written kernel against its plain PyTorch version on the card
      at its main-path shapes, with its time (CUDA events), its bound and
      the time of one PyTorch library call for the same function: K1 decode,
-     K2 kv-append, K3 int8 matmul (8B shapes), K4 flash forward, K8 paged
+     K1 in chunk mode (T=5 at H=32 and 64) and over a BSHD cache (through
+     flash_attn_tpu_torch.flash_decode, JAX's default layout), K1 and K4 at
+     the draft's H=24, K2 kv-append, K3 int8 matmul (8B shapes), K4 flash
+     forward, K8 paged
      decode (decode mode at pages of 128 and 512, also against K1 on the
      same content, and chunk mode), K3 grouped, K6 int4 matmul (70B
      shapes), K5 W4A8 matmul (8B shapes), K7 W8A8 matmul (70B head,
@@ -23,7 +26,9 @@ Phases, one line each with its seconds:
      with int8 weights, int4 + W8A8 head fused, W4A8 + W8A8 head fused,
      int8 weights + int8 head, and int4 + int4 head fused; then the paged
      path (int8 weights): a prompt, a prompt sharing its first two pages
-     through the suffix prefill, and four paged decode steps; then one
+     through the suffix prefill, and four paged decode steps; the verify
+     step (int8 weights): two prompts, then decode_multi of 5 tokens
+     against the CPU and against five decode steps on the card; then one
      training loss and every parameter's gradient (2 layers at 8B widths,
      bf16, B=1, S=128, remat);
   4-6. the main paths, each model alone on the card, served by the
@@ -37,6 +42,13 @@ Phases, one line each with its seconds:
      served by the paged engine with prefix caching, fp8 KV, pages of
      128: two waves of 8 requests sharing a 512-token prefix, the first
      all misses, the second all hits that prefill only their suffixes;
+  9. (run right after phase 7, on phase 4's params) speculative decoding,
+     4 drafts per round, the same 8 prompts and 32 tokens: (a) n-gram
+     drafts, fp8 KV; (b) a self-draft with bf16 KV, whose acceptance must
+     reach 0.5; (c) a draft at Llama-3.2-3B widths (bf16, random from the
+     seed), fp8 KV; each with tokens/s, ms per round, tokens per verify
+     step, acceptance, the launches (K1's chunk mode 32 per verify round)
+     and its tokens against phase 4's plain run;
   8. training: Llama-3-8B at full widths and depth (bf16 params, AdamW
      moments in bf16), B=1, S=2048, the default TrainConfig (remat on), 5
      AdamW steps on one seeded batch: losses, ms per step, tokens/s, peak
@@ -486,6 +498,11 @@ def _decode_inputs(torch, kv, g, B=8, H=32, Hk=8, S=4096, D=128):
     return q, kq, vq, ks[..., 0].contiguous(), vs[..., 0].contiguous(), lens
 
 
+def _dequant(k, ks):
+    """A bf16 dequantized copy of a cache (scales on all but the last dim)."""
+    return (k.float() if ks is None else k.float() * ks[..., None]).bfloat16()
+
+
 def check_k1(torch, checks, rows):
     import torch.nn.functional as F
 
@@ -503,7 +520,7 @@ def check_k1(torch, checks, rows):
         nsplit, split_len = dec._splits(B, k.shape[1], S, None)
         args = (q, k, v, ks, vs, lens, D ** -0.5, clamped, clamp2, nsplit, split_len)
         got, glse = dec.flash_decode(q, k, v, k_scale=ks, v_scale=vs, kv_length=lens,
-                                     return_lse=True)
+                                     return_lse=True, kv_layout="bhsd")
         po, pl = dec.flash_decode_plain(*args)
         ref, rlse = dec.lse_merge(po, pl, dim=0)
         torch.cuda.synchronize()
@@ -514,11 +531,10 @@ def check_k1(torch, checks, rows):
         ok = checks.check(f"K1 {kv} out", share, 1.0) & checks.check(f"K1 {kv} lse", lerr, 1e-3)
         worst = max(worst, err)
         ms = cuda_ms(torch, lambda: dec.flash_decode_cuda(*args))
-        call_ms = cuda_ms(torch, lambda: dec.flash_decode(q, k, v, k_scale=ks, v_scale=vs, kv_length=lens))
+        call_ms = cuda_ms(torch, lambda: dec.flash_decode(q, k, v, k_scale=ks, v_scale=vs,
+                                                          kv_length=lens, kv_layout="bhsd"))
         plain_ms = cuda_ms(torch, lambda: dec.flash_decode_plain(*args), iters=3)
-        kd = k.float() if ks is None else k.float() * ks[..., None]
-        vd = v.float() if vs is None else v.float() * vs[..., None]
-        kd, vd = kd.bfloat16(), vd.bfloat16()
+        kd, vd = _dequant(k, ks), _dequant(v, vs)
         mask = (torch.arange(S, device="cuda")[None, :] < lens[:, None].long())[:, None, None, :]
         lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
             q[:, :, None, :], kd, vd, attn_mask=mask, enable_gqa=True))
@@ -537,6 +553,175 @@ def check_k1(torch, checks, rows):
                               bound_ms=b_ms, bound_by=b_by)
         del q, k, v, ks, vs, kd, vd
     rows["K1"]["max_abs_err"] = worst
+
+
+def check_k1c(torch, checks, rows):
+    """K1 in chunk mode, the verify step's attention, at T=5, B=8, Hk=8,
+    S=4096, D=128: H=32 (8B, 20 rows per KV head in three row tiles) with
+    bf16, int8 and fp8 caches, and H=64 (70B, 40 rows) with fp8, each in
+    its default softmax mode.  Lengths include the chunk: random, with S,
+    T and an idle slot's S + 7 among them.  Against the plain version on
+    the same inputs, each output row to two bf16 ulps of its largest value,
+    and its LSE."""
+    import torch.nn.functional as F
+
+    from flash_attn_tpu_torch.ops import decode as dec
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    T, B, Hk, S, D = 5, 8, 8, 4096, 128
+    worst = 0.0
+    for H, kv in ((32, "bf16"), (32, "int8"), (32, "fp8"), (64, "fp8")):
+        _, k, v, ks, vs, _ = _decode_inputs(torch, kv, g, H=H)
+        q = torch.randn((B, T, H, D), generator=g, device="cuda", dtype=torch.bfloat16)
+        lens = torch.randint(T, S + 1, (B,), generator=g, device="cuda", dtype=torch.int32)
+        lens[0], lens[1], lens[2] = S, T, S + 7
+        G = H // Hk
+        clamped, clamp2 = _mode_args(dec, k.dtype)
+        q2 = q.reshape(B, T, Hk, G, D).transpose(1, 2).reshape(B, Hk * T * G, D).contiguous()
+        nsplit, split_len = dec._splits(B * -(-(T * G) // dec.ROWS), Hk, S, None)
+        args = (q2, k, v, ks, vs, lens, D ** -0.5, clamped, clamp2, nsplit, split_len, T)
+        got, glse = dec.flash_decode_chunk(q, k, v, k_scale=ks, v_scale=vs, kv_length=lens,
+                                           return_lse=True)
+        ref2, rlse2 = dec.merge_splits(*dec.flash_decode_plain(*args), torch.bfloat16)
+        torch.cuda.synchronize()
+        ref = ref2.reshape(B, Hk, T, G, D).transpose(1, 2).reshape(B, T, H, D)
+        rlse = rlse2.reshape(B, Hk, T, G).transpose(1, 2).reshape(B, T, H)
+        err, share = row_err(got, ref)
+        # fp32 sums of at most 4096 terms in another order, as for K1
+        lerr = float((glse - rlse).abs().max())
+        label = f"K1c {kv} H={H} T={T} ({'clamped' if clamped else 'online'}, {nsplit} splits)"
+        ok = checks.check(f"{label} out", share, 1.0) & checks.check(f"{label} lse", lerr, 1e-3)
+        worst = max(worst, err)
+        ms = cuda_ms(torch, lambda: dec.flash_decode_cuda(*args))
+        say(f"  {label}: max_abs_err {err:.3e} ({share:.3f} of its row's tol), lse err "
+            f"{lerr:.3e} (tol 1e-3) {'ok' if ok else 'FAIL'} | {ms:.4f} ms")
+        if (H, kv) == (32, "fp8"):
+            call_ms = cuda_ms(torch, lambda: dec.flash_decode_chunk(
+                q, k, v, k_scale=ks, v_scale=vs, kv_length=lens))
+            plain_ms = cuda_ms(torch, lambda: dec.flash_decode_plain(*args), iters=3)
+            kd, vd = _dequant(k, ks), _dequant(v, vs)
+            limit = torch.clamp(lens.long()[:, None] - (T - 1)
+                                + torch.arange(T, device="cuda")[None], max=S)  # [B, T]
+            mask = (torch.arange(S, device="cuda")[None, None, :] < limit[:, :, None])[:, None]
+            qt = q.transpose(1, 2)
+            lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kd, vd, attn_mask=mask, enable_gqa=True))
+            nbytes = k1_bytes(k, lens, ks) + 2 * q.numel() * 2 + lens.numel() * 4
+            b_ms, b_by = bound(nbytes, 4 * H * D * int(limit.sum()))
+            say(f"    K1c fp8 H=32: {ms:.4f} ms ({call_ms:.4f} with the reorder and LSE merge), "
+                f"plain {plain_ms:.4f}, library (SDPA on the dequantized cache, the chunk's "
+                f"causal mask) {lib_ms:.4f}, bound {b_ms:.4f} ({b_by})")
+            rows["K1c"] = dict(name="decode_bhsd, chunk mode (B=8, T=5, H=32, Hk=8, S=4096, fp8 KV)",
+                               source="flash_attn_tpu_torch/csrc/decode.cu",
+                               replaces="flash_attn_tpu/ops/decode.py:747",
+                               ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                               bound_ms=b_ms, bound_by=b_by)
+            del kd, vd
+        del q, k, v, ks, vs
+    rows["K1c"]["max_abs_err"] = worst
+
+
+def check_k1b(torch, checks, rows):
+    """K1 over a BSHD cache (B12: JAX's default layout, online softmax, the
+    softmax scale on the scores), called through
+    flash_attn_tpu_torch.flash_decode with no kv_layout, at B=8, H=32,
+    Hk=8, S=4096, D=128 with bf16, int8 and fp8 caches and [B, S, Hk, 1]
+    scales; against the plain version as K1 is held."""
+    import torch.nn.functional as F
+
+    import flash_attn_tpu_torch as fat
+    from flash_attn_tpu_torch.ops import decode as dec
+    from flash_attn_tpu_torch.ops.quant import quantize_kv
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    B, H, Hk, S, D = 8, 32, 8, 4096, 128
+    worst = 0.0
+    for kv in ("bf16", "int8", "fp8"):
+        q = torch.randn((B, H, D), generator=g, device="cuda", dtype=torch.bfloat16)
+        k = torch.randn((B, S, Hk, D), generator=g, device="cuda", dtype=torch.bfloat16)
+        v = torch.randn((B, S, Hk, D), generator=g, device="cuda", dtype=torch.bfloat16)
+        lens = torch.randint(1, S + 1, (B,), generator=g, device="cuda", dtype=torch.int32)
+        lens[0], lens[1] = S, 1
+        ks4 = vs4 = ks = vs = None
+        if kv != "bf16":
+            k, ks4, v, vs4 = quantize_kv(k, v, kv)  # scales [B, S, Hk, 1]
+            ks, vs = ks4[..., 0].contiguous(), vs4[..., 0].contiguous()
+        nsplit, split_len = dec._splits(B, Hk, S, None)
+        args = (q, k, v, ks, vs, lens, D ** -0.5, False, dec._clamp2(k.dtype), nsplit,
+                split_len, 1, "bshd")
+        got, glse = fat.flash_decode(q, k, v, k_scale=ks4, v_scale=vs4, kv_length=lens,
+                                     return_lse=True)
+        ref, rlse = dec.merge_splits(*dec.flash_decode_plain(*args), torch.bfloat16)
+        torch.cuda.synchronize()
+        err, share = row_err(got, ref)
+        lerr = float((glse - rlse).abs().max())
+        ok = checks.check(f"K1b {kv} out", share, 1.0) & checks.check(f"K1b {kv} lse", lerr, 1e-3)
+        worst = max(worst, err)
+        ms = cuda_ms(torch, lambda: dec.flash_decode_cuda(*args))
+        say(f"  K1b {kv} (BSHD, online, {nsplit} splits): max_abs_err {err:.3e} ({share:.3f} of "
+            f"its row's tol), lse err {lerr:.3e} (tol 1e-3) {'ok' if ok else 'FAIL'} | {ms:.4f} ms")
+        if kv == "fp8":
+            call_ms = cuda_ms(torch, lambda: fat.flash_decode(q, k, v, k_scale=ks4, v_scale=vs4,
+                                                              kv_length=lens))
+            plain_ms = cuda_ms(torch, lambda: dec.flash_decode_plain(*args), iters=3)
+            kd = _dequant(k, ks).transpose(1, 2).contiguous()
+            vd = _dequant(v, vs).transpose(1, 2).contiguous()
+            mask = (torch.arange(S, device="cuda")[None, :] < lens[:, None].long())[:, None, None, :]
+            lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                q[:, :, None, :], kd, vd, attn_mask=mask, enable_gqa=True))
+            live = int(lens.long().clamp(max=S).sum())
+            nbytes = 2 * Hk * live * (D + 4) + 2 * q.numel() * 2 + lens.numel() * 4
+            b_ms, b_by = bound(nbytes, 4 * H * D * live)
+            say(f"    K1b fp8: {ms:.4f} ms ({call_ms:.4f} with the scale copies and LSE merge), "
+                f"plain {plain_ms:.4f}, library (SDPA on the transposed, dequantized cache) "
+                f"{lib_ms:.4f}, bound {b_ms:.4f} ({b_by})")
+            rows["K1b"] = dict(name="decode over a BSHD cache (B=8, H=32, Hk=8, S=4096, fp8 KV)",
+                               source="flash_attn_tpu_torch/csrc/decode.cu",
+                               replaces="flash_attn_tpu/ops/decode.py:548",
+                               ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                               bound_ms=b_ms, bound_by=b_by)
+            del kd, vd
+        del q, k, v, ks, vs, ks4, vs4
+    rows["K1b"]["max_abs_err"] = worst
+
+
+def check_g3(torch, checks):
+    """The draft model's head grouping (Llama-3.2-3B: H=24, Hk=8, G=3),
+    once each: K1 in decode mode over a bf16 cache (the draft's cache) at
+    B=8, S=4096, and K4 at B=1, S=2048 (causal, rope, clamped)."""
+    from flash_attn_tpu_torch.ops import decode as dec
+    from flash_attn_tpu_torch.ops import flash_fwd as ff
+    from flash_attn_tpu_torch.ops.rope import rope_cos_sin
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    q, k, v, _, _, lens = _decode_inputs(torch, "bf16", g, H=24)
+    D = q.shape[-1]
+    nsplit, split_len = dec._splits(8, 8, 4096, None)
+    args = (q, k, v, None, None, lens, D ** -0.5, False, dec.CLAMP2_DEC, nsplit, split_len)
+    got, glse = dec.flash_decode(q, k, v, kv_length=lens, return_lse=True, kv_layout="bhsd")
+    ref, rlse = dec.merge_splits(*dec.flash_decode_plain(*args), torch.bfloat16)
+    torch.cuda.synchronize()
+    err, share = row_err(got, ref)
+    lerr = float((glse - rlse).abs().max())
+    ok = checks.check("K1 H=24 out", share, 1.0) & checks.check("K1 H=24 lse", lerr, 1e-3)
+    ms = cuda_ms(torch, lambda: dec.flash_decode_cuda(*args))
+    say(f"  K1 bf16 H=24 Hk=8: max_abs_err {err:.3e} ({share:.3f} of its row's tol), lse err "
+        f"{lerr:.3e} {'ok' if ok else 'FAIL'} | {ms:.4f} ms")
+    del q, k, v
+    B, S, H, Hk = 1, 2048, 24, 8
+    q = torch.randn((B, S, H, D), generator=g, device="cuda", dtype=torch.bfloat16)
+    k = torch.randn((B, S, Hk, D), generator=g, device="cuda", dtype=torch.bfloat16)
+    v = torch.randn((B, S, Hk, D), generator=g, device="cuda", dtype=torch.bfloat16)
+    cos, sin = rope_cos_sin(torch.arange(S, device="cuda")[None], D, 500000.0)
+    out, lse = ff.flash_fwd(q, k, v, causal=True, rope_cos=cos, rope_sin=sin, softmax_mode="clamped")
+    rout, rlse = ff.flash_fwd_plain(q, k, v, True, D ** -0.5, cos, sin, True)
+    torch.cuda.synchronize()
+    err, share = row_err(out, rout)
+    lerr = float((lse - rlse).abs().max())
+    ok = checks.check("K4 H=24 out", share, 1.0) & checks.check("K4 H=24 lse", lerr, 1e-3)
+    ms = cuda_ms(torch, lambda: ff.flash_fwd_cuda(q, k, v, True, D ** -0.5, cos, sin, True))
+    say(f"  K4 clamped H=24 Hk=8 B=1 S=2048: max_abs_err {err:.3e} ({share:.3f} of its row's "
+        f"tol), lse err {lerr:.3e} {'ok' if ok else 'FAIL'} | {ms:.4f} ms")
 
 
 def check_k2(torch, checks, rows):
@@ -806,7 +991,8 @@ def check_k8(torch, checks, rows):
             kcs = None if ks is None else pd._gather(ks, table)
             vcs = None if vs is None else pd._gather(vs, table)
             k1_args = (q, kc, vc, kcs, vcs, lens, D ** -0.5, clamped, clamp2, nsplit, split_len)
-            k1 = dec.flash_decode(q, kc, vc, k_scale=kcs, v_scale=vcs, kv_length=lens)
+            k1 = dec.flash_decode(q, kc, vc, k_scale=kcs, v_scale=vcs, kv_length=lens,
+                                  kv_layout="bhsd")
             torch.cuda.synchronize()
             err, share = row_err(got, ref)
             _, share_k1 = row_err(got, k1)
@@ -831,8 +1017,7 @@ def check_k8(torch, checks, rows):
                 call_ms = cuda_ms(torch, lambda: pd.paged_flash_decode(
                     q, k, v, table, lens, k_scale=ks, v_scale=vs))
                 plain_ms = cuda_ms(torch, lambda: pd.paged_flash_decode_plain(*args), iters=3)
-                kd = (kc.float() * kcs[..., None]).bfloat16()
-                vd = (vc.float() * vcs[..., None]).bfloat16()
+                kd, vd = _dequant(kc, kcs), _dequant(vc, vcs)
                 mask = (torch.arange(S, device="cuda")[None, :] < lens[:, None].long())[:, None, None, :]
                 lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
                     q[:, :, None, :], kd, vd, attn_mask=mask, enable_gqa=True))
@@ -910,6 +1095,10 @@ def phase_kernels(torch, checks):
     rows = {}
     check_k3(torch, checks, rows)
     check_k1(torch, checks, rows)
+    check_k1c(torch, checks, rows)
+    check_k1b(torch, checks, rows)
+    check_g3(torch, checks)
+    torch.cuda.empty_cache()
     check_k2(torch, checks, rows)
     check_k4(torch, checks, rows)
     torch.cuda.empty_cache()
@@ -1068,6 +1257,80 @@ def paged_card_vs_cpu(torch, checks):
     torch.cuda.empty_cache()
 
 
+def _clone_cache(cache):
+    """An independent copy of a KVCache."""
+    from flash_attn_tpu_torch.engine.kv_cache import KVCache
+
+    copy = lambda xs: None if xs is None else [x.clone() for x in xs]  # noqa: E731
+    return KVCache(copy(cache.k), copy(cache.v), copy(cache.k_scale), copy(cache.v_scale),
+                   cache.length.clone(), cache.mode)
+
+
+def multi_card_vs_cpu(torch, checks):
+    """The verify step, 2 layers at full 8B widths, int8 weights, fp8 KV:
+    two prompts (100 and 37 tokens), then decode_multi of T=5 tokens per
+    sequence (the CPU's greedy first token and four from the seed) on the
+    card (K1 in chunk mode) against the CPU (plain versions), and against
+    five decode_step calls of the same tokens on the card from a copy of
+    the same prefilled cache: the verify step scores what plain decoding
+    would."""
+    import numpy as np
+
+    from flash_attn_tpu_torch.models import llama
+
+    t0 = time.perf_counter()
+    T = 5
+    cfg = dataclasses.replace(llama.LLAMA3_8B, num_layers=2)
+    card = llama.init_params(cfg, seed=SEED + 18, device="cuda", quantize="int8")
+    sides = {"cpu": _to(card, "cpu"), "cuda": card}
+    caches = {d: llama.make_cache(cfg, 2, 256, mode="fp8", device=d) for d in sides}
+    rng = np.random.default_rng(SEED + 18)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (100, 37)]
+    first = []
+    for slot, prompt in enumerate(prompts):
+        toks = torch.zeros((1, 128), dtype=torch.long)
+        toks[0, :len(prompt)] = torch.tensor(prompt)
+        for d, params in sides.items():
+            out, kvs = llama.prefill_with_kv(params, toks.to(d), torch.arange(128, device=d)[None], cfg)
+            for layer, (k, v) in enumerate(kvs):
+                caches[d].insert_prompt(layer, slot, k[0], v[0])
+            caches[d].set_length(slot, len(prompt))
+            if d == "cpu":
+                first.append(int(out[0, len(prompt) - 1].argmax()))
+    toks = torch.tensor([[f] + rng.integers(0, cfg.vocab_size, T - 1).tolist() for f in first])
+    steps_cache = _clone_cache(caches["cuda"])
+    multi = {d: llama.decode_multi(params, toks.to(d), cfg, caches[d])[0].float().cpu()
+             for d, params in sides.items()}
+    steps = []
+    for t in range(T):
+        out, _ = llama.decode_step(card, toks[:, t].cuda(), cfg, steps_cache)
+        steps.append(out.float().cpu())
+    torch.cuda.synchronize()
+    ref, got, steps = multi["cpu"], multi["cuda"], torch.stack(steps, dim=1)
+    finite = bool(torch.isfinite(got).all())
+    err, err_steps = float((got - ref).abs().max()), float((got - steps).abs().max())
+    # as card_vs_cpu: the sides round at the same points and sum in another
+    # order (the decode steps also multiply M=2 rows where the verify step
+    # multiplies M=10), which can flip a bf16, int8-activation or fp8-KV
+    # rounding that two layers carry on
+    tol = 5e-2 * float(ref.abs().max())
+    ok = (checks.check("verify step card vs cpu logits", err, tol)
+          & checks.check("verify step vs five decode steps on the card", err_steps, tol) and finite)
+    lengths_ok = caches["cuda"].length.tolist() == steps_cache.length.tolist() == [105, 42]
+    if not finite:
+        checks.failed.append("verify step logits not finite")
+    if not lengths_ok:
+        checks.failed.append("verify step lengths differ from five decode steps'")
+    agree = int((got.argmax(-1) == ref.argmax(-1)).sum())
+    say(f"[phase 3 card vs cpu, verify step: 2 layers at 8B widths, int8 weights, fp8 KV, "
+        f"decode_multi T={T}] logits {tuple(got.shape)} finite={finite} max_abs_err {err:.3e} vs "
+        f"cpu, {err_steps:.3e} vs {T} decode steps (tol {tol:.3e}) "
+        f"{'ok' if ok and lengths_ok else 'FAIL'} | greedy agreement {agree}/{2 * T} | "
+        f"{time.perf_counter() - t0:.2f}s")
+    del sides, caches, steps_cache, card
+    torch.cuda.empty_cache()
+
+
 def _train_fwd(cfg):
     from flash_attn_tpu_torch.models import llama
 
@@ -1148,12 +1411,18 @@ def _reset_counts():
     for fn in (*wrappers.values(), k8):
         fn.launches = 0
     k8.chunk_launches = 0
+    wrappers["K1"].chunk_launches = wrappers["K1"].bshd_launches = 0
 
 
 def _read_counts() -> dict:
-    """Each kernel's launches; K8 split into decode mode and chunk mode."""
+    """Each kernel's launches; K1 split into decode mode (BHSD), chunk mode
+    and BSHD, K8 into decode mode and chunk mode."""
     wrappers, k8 = _counters()
     counts = {k: fn.launches for k, fn in wrappers.items()}
+    k1 = wrappers["K1"]
+    counts["K1"] = k1.launches - k1.chunk_launches - k1.bshd_launches
+    counts["K1c"] = k1.chunk_launches
+    counts["K1b"] = k1.bshd_launches
     counts["K8"] = k8.launches - k8.chunk_launches
     counts["K8c"] = k8.chunk_launches
     return counts
@@ -1170,7 +1439,8 @@ def _prompts(vocab):
 def serve(torch, checks, label, cfg, params, kv_mode, max_tokens, path):
     """One engine run of 8 greedy requests (max_batch 8, capacity 4096).
     Every counter is set to 0 just before and read just after; each kernel
-    in ``path`` must have launched.  Returns the counts."""
+    in ``path`` must have launched.  Returns the counts, the peak memory
+    and the generated tokens."""
     from flash_attn_tpu_torch.engine.engine import InferenceEngine
     from flash_attn_tpu_torch.models import llama
 
@@ -1202,7 +1472,7 @@ def serve(torch, checks, label, cfg, params, kv_mode, max_tokens, path):
     say("kernels " + json.dumps({"run": label, **counts}))
     del eng
     torch.cuda.empty_cache()
-    return counts, peak
+    return counts, peak, [r.generated for r in reqs]
 
 
 def serve_paged(torch, checks, params):
@@ -1276,6 +1546,95 @@ def serve_paged(torch, checks, params):
     return total
 
 
+def _draft_3b(torch):
+    """A draft model at Llama-3.2-3B's published widths (hidden 3072, 28
+    layers, 24 heads, 8 KV heads, head_dim 128, intermediate 8192, vocab
+    128256, tied embeddings, rope_theta 500000), bf16 random weights from
+    the seed: (config, params) on the card."""
+    from flash_attn_tpu_torch.models import llama
+
+    cfg = dataclasses.replace(llama.LLAMA3_8B, hidden=3072, intermediate=8192, num_layers=28,
+                              num_heads=24, num_kv_heads=8, tie_embeddings=True)
+    return cfg, llama.init_params(cfg, seed=SEED + 19, device="cuda")
+
+
+def serve_spec(torch, checks, params, plain_tokens):
+    """Phase 9: speculative decoding (num_draft 4) on phase 4's params,
+    Llama-3-8B int8, the same 8 greedy prompts and 32 tokens, max_batch 8,
+    capacity 4096: (a) n-gram drafts (ngram 2), fp8 KV; (b) a self-draft
+    (the draft is the target) with the target's KV unquantized, so both
+    caches hold the same values and every draft should be accepted up to
+    rounding; (c) a draft at Llama-3.2-3B widths, fp8 KV.  Every counter is
+    set to 0 just before each run and read just after; the verify rounds
+    are counted at the adapter.  Returns {run label: counts}."""
+    from flash_attn_tpu_torch.engine.engine import InferenceEngine, SpecConfig
+    from flash_attn_tpu_torch.models import llama
+
+    cfg, n_tok, K = llama.LLAMA3_8B, 32, 4
+    lens, prompts = _prompts(cfg.vocab_size)
+    adapter = llama.make_adapter(cfg)
+    runs = {}
+    for label in (RUN_SPEC_NGRAM, RUN_SPEC_SELF, RUN_SPEC_3B):
+        t1 = time.perf_counter()
+        kv_mode, path = "fp8", ("K1c", "K3", "K4")
+        if label == RUN_SPEC_NGRAM:
+            spec = SpecConfig(num_draft=K, ngram=2)
+        elif label == RUN_SPEC_SELF:
+            kv_mode, path = "none", path + ("K1", "K2")
+            spec = SpecConfig(num_draft=K, draft_params=params, draft_adapter=adapter)
+        else:
+            path += ("K1", "K2")
+            dcfg, dparams = _draft_3b(torch)
+            spec = SpecConfig(num_draft=K, draft_params=dparams,
+                              draft_adapter=llama.make_adapter(dcfg))
+        rounds = []
+
+        def verify(p, toks, cache):
+            rounds.append(1)
+            return adapter.decode_multi(p, toks, cache)
+
+        eng = InferenceEngine(params, dataclasses.replace(adapter, decode_multi=verify),
+                              max_batch=8, capacity=4096, kv_mode=kv_mode, spec=spec, device="cuda")
+        _reset_counts()
+        reqs = [eng.submit(p, max_tokens=n_tok) for p in prompts]
+        eng.run()
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        runs[label] = counts
+        m, snap = eng.metrics, eng.metrics.snapshot()
+        good = all(r.done and len(r.generated) == n_tok
+                   and all(0 <= t < cfg.vocab_size for t in r.generated) for r in reqs)
+        if not good:
+            checks.failed.append(f"{label}: a request did not finish with {n_tok} valid tokens")
+        if m.spec_steps <= 0:
+            checks.failed.append(f"{label}: no verify step")
+        if counts["K1c"] != cfg.num_layers * len(rounds):
+            checks.failed.append(f"{label}: K1c launched {counts['K1c']} times in "
+                                 f"{len(rounds)} verify rounds, expected {cfg.num_layers} each")
+        idle = [k for k in path if counts[k] <= 0]
+        if idle:
+            checks.failed.append(f"{label}: kernels {idle} were not launched: {counts}")
+        accept = snap["spec_draft_acceptance"]
+        if label == RUN_SPEC_SELF and accept < 0.5:
+            checks.failed.append(f"{label}: draft acceptance {accept} < 0.5")
+        same = [sum(a == b for a, b in zip(r.generated, want))
+                for r, want in zip(reqs, plain_tokens)]
+        diverge = [next((i for i, (a, b) in enumerate(zip(r.generated, want)) if a != b), None)
+                   for r, want in zip(reqs, plain_tokens)]
+        emitted = sum(len(r.generated) - 1 for r in reqs)  # the first token is the prefill's
+        say(f"[{label}] 8 requests, {n_tok} tokens each: {'ok' if good else 'FAIL'} | decode "
+            f"{emitted / max(m.decode_seconds, 1e-9):.1f} tok/s, "
+            f"{1e3 * m.decode_seconds / max(m.steps, 1):.3f} ms per round ({len(rounds)} verify "
+            f"rounds of {m.steps}) | spec_tokens_per_step {snap['spec_tokens_per_step']}, draft "
+            f"acceptance {accept} | tokens equal to phase 4's plain run {sum(same)}/{8 * n_tok}, "
+            f"first divergence per request {diverge} | max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | {time.perf_counter() - t1:.2f}s")
+        say("kernels " + json.dumps({"run": label, **counts}))
+        del eng, spec
+        torch.cuda.empty_cache()
+    return runs
+
+
 def _fresh_model(torch, cfg, **quant):
     """Params on the card from the seed, with the peak-memory count reset
     first so the run's peak includes them."""
@@ -1306,11 +1665,15 @@ def phase_serve(torch, checks):
     params, secs = _fresh_model(torch, llama.LLAMA3_8B, quantize="int8")
     say(f"  8B params (int8 weights, bf16 embeddings and head) on the card in "
         f"{secs:.2f}s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    plain_tokens = None
     for kv_mode in ("fp8", "int8"):
         label = f"phase 4 serve Llama-3-8B int8, {kv_mode} KV"
-        add(label, serve(torch, checks, label, llama.LLAMA3_8B, params, kv_mode, 32,
-                         base + ("K3",))[0])
+        counts, _, tokens = serve(torch, checks, label, llama.LLAMA3_8B, params, kv_mode, 32,
+                                  base + ("K3",))
+        add(label, counts)
+        plain_tokens = plain_tokens or tokens
     add(RUN_PAGED, serve_paged(torch, checks, params))
+    runs.update(serve_spec(torch, checks, params, plain_tokens))
     del params
 
     params, secs = _fresh_model(torch, llama.LLAMA3_8B, quantize="w4a8",
@@ -1325,8 +1688,8 @@ def phase_serve(torch, checks):
                                 group_size=128, head_mode="w8a8", fuse=True)
     say(f"  70B params (int4 g=128 fused layers, W8A8 head, bf16 embeddings) on the "
         f"card in {secs:.2f}s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    counts, peak = serve(torch, checks, RUN_70B, llama.LLAMA3_70B, params, "fp8", 16,
-                         base + ("K6", "K7"))
+    counts, peak, _ = serve(torch, checks, RUN_70B, llama.LLAMA3_70B, params, "fp8", 16,
+                            base + ("K6", "K7"))
     add(RUN_70B, counts)
     if peak > MAX_70B_GIB:
         checks.failed.append(f"70B serve peak {peak:.2f} GiB > {MAX_70B_GIB} GiB")
@@ -1397,16 +1760,21 @@ RUN_8B_INT8 = "phase 4 serve Llama-3-8B int8, fp8 KV"
 RUN_8B_W4A8 = "phase 5 serve Llama-3-8B W4A8 + W8A8 head, fused, fp8 KV"
 RUN_70B = "phase 6 serve Llama-3-70B int4 + W8A8 head, fused, fp8 KV"
 RUN_PAGED = "phase 7 serve Llama-3-8B int8, fp8 KV, paged + prefix cache"
+RUN_SPEC_NGRAM = "phase 9a serve Llama-3-8B int8, fp8 KV, n-gram speculation"
+RUN_SPEC_SELF = "phase 9b serve Llama-3-8B int8, bf16 KV, self-draft speculation"
+RUN_SPEC_3B = "phase 9c serve Llama-3-8B int8, fp8 KV, Llama-3.2-3B-width draft"
 RUN_TRAIN = (f"phase 8 train Llama-3 8B widths, {TRAIN_LAYERS} layers, B=1 S={TRAIN_SEQ}, "
              f"{TRAIN_STEPS} AdamW steps")
-KERNEL_ROWS = ("K1", "K2", "K3", "K3g", "K4", "K5", "K6", "K7", "K8", "K8c", "K9", "K10")
+KERNEL_ROWS = ("K1", "K1c", "K1b", "K2", "K3", "K3g", "K4", "K5", "K6", "K7", "K8", "K8c",
+               "K9", "K10")
 # the run whose launches a kernel's row reports: the main path that the
-# kernel serves (the 70B serve for the shared K1, K2 and K4, the paged
-# serve for K8 in both modes, the training run for K9 and K10); K3 grouped
-# has no model path, so its row reports none
-ROW_RUN = {"K1": RUN_70B, "K2": RUN_70B, "K3": RUN_8B_INT8, "K3g": None,
-           "K4": RUN_70B, "K5": RUN_8B_W4A8, "K6": RUN_70B, "K7": RUN_70B,
-           "K8": RUN_PAGED, "K8c": RUN_PAGED, "K9": RUN_TRAIN, "K10": RUN_TRAIN}
+# kernel serves (the 70B serve for the shared K1, K2 and K4, the n-gram
+# speculative serve for K1's chunk mode, the paged serve for K8 in both
+# modes, the training run for K9 and K10); K3 grouped and K1 over a BSHD
+# cache have no model path, so their rows report none
+ROW_RUN = {"K1": RUN_70B, "K1c": RUN_SPEC_NGRAM, "K1b": None, "K2": RUN_70B,
+           "K3": RUN_8B_INT8, "K3g": None, "K4": RUN_70B, "K5": RUN_8B_W4A8, "K6": RUN_70B,
+           "K7": RUN_70B, "K8": RUN_PAGED, "K8c": RUN_PAGED, "K9": RUN_TRAIN, "K10": RUN_TRAIN}
 
 
 def main() -> int:
@@ -1432,6 +1800,7 @@ def main() -> int:
     for case in CARD_VS_CPU:
         card_vs_cpu(torch, checks, *case)
     paged_card_vs_cpu(torch, checks)
+    multi_card_vs_cpu(torch, checks)
     train_card_vs_cpu(torch, checks)
     runs = phase_serve(torch, checks)
     runs[RUN_TRAIN] = phase_train(torch, checks)

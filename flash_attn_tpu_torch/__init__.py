@@ -12,5 +12,6 @@ reaches the plain version.
 """
 
 from flash_attn_tpu_torch._device import resolve_device
+from flash_attn_tpu_torch.ops.decode import flash_decode, flash_decode_chunk
 
-__all__ = ["resolve_device"]
+__all__ = ["flash_decode", "flash_decode_chunk", "resolve_device"]

@@ -33,8 +33,8 @@ F = ctypes.c_float
 
 # C entry point -> argument types (every pointer and the stream as c_void_p)
 _SIGNATURES = {
-    "fatt_decode_bhsd": [P, P, P, P, P, P, P, P, P,
-                         I, I, I, I, I, I, I, I, F, I, F, P],
+    "fatt_decode": [P, P, P, P, P, P, P, P, P,
+                    I, I, I, I, I, I, I, I, I, I, F, F, I, F, P],
     "fatt_kv_append": [P, P, P, P, P, P, P, I, I, I, I, I, P],
     "fatt_matmul_float_q": [P, P, P, P, P, I, I, I, I, I, I, I, I, P],
     "fatt_matmul_s8_q": [P, P, P, P, P, P, I, I, I, I, I, I, I, P],

@@ -1,25 +1,40 @@
-// K1: single-token decode attention over a BHSD KV cache (bf16, int8 or
-// fp8-e4m3 with per-(position, head) fp32 scales).
+// K1: decode attention over a contiguous KV cache (bf16, int8 or fp8-e4m3
+// with per-(position, head) fp32 scales), in decode mode (one query token
+// per sequence) and chunk mode (T causal query tokens per sequence riding
+// as virtual heads), over a BHSD or a BSHD cache.
 //
-// Replaces flash_attn_tpu/ops/decode.py:_decode_kernel_bhsd.
+// Replaces flash_attn_tpu/ops/decode.py:_decode_kernel_bhsd (decode and
+// chunk mode, B1) and _decode_kernel (the BSHD-layout decode, B12).  One
+// kernel template serves both layouts: a K/V row (D elements) of position
+// t of KV head hk in sequence b is row (b*Hk + hk)*S + t for BHSD and
+// (b*S + t)*Hk + hk for BSHD; scales sit at the same row index ([B, Hk, S]
+// or [B, S, Hk] fp32).  Decode mode and BHSD are template parameters, so
+// the decode step's instance carries no per-row limits, row tiles or
+// strides: as runtime values they made it 1.3x slower.
 //
 // Bound on the H100: bytes.  Each step reads every live K/V row once
-// (B*Hk*kv_len*D*2 elements) and does 4 flops per element; at 1-2 bytes
-// per element that is far below the 295 flop/byte ridge.  The design
-// therefore only has to read each byte once and keep enough loads in
-// flight:
-//   * one block serves all H/Hk query heads of one KV head (GQA grouped),
-//     so each K/V tile is read from device memory once, not H/Hk times;
+// (B*Hk*kv_len*D*2 elements) and does 4 flops per element and query row;
+// at 1-2 bytes per element and at most 8 rows per block that is far below
+// the 295 flop/byte ridge.  The design therefore only has to read each
+// byte once per block and keep enough loads in flight:
+//   * one block serves up to 8 query rows of one KV head (its GQA group in
+//     decode mode; in chunk mode a tile of the T*G virtual rows in (t, g)
+//     order, a grid axis over the tiles), so each K/V tile is read from
+//     device memory once per tile of rows, not once per row;
 //   * each 64-row K and V tile is staged in shared memory by all threads
 //     with independent 16-byte loads, then consumed from there: scores by
 //     two threads per row, PV by one thread per head-dim column;
-//   * tiles at or beyond kv_length are never read;
+//   * each query row has its own causal limit (kv_len in decode mode,
+//     kv_len - (T-1) + t in chunk mode, never past S); tiles at or beyond
+//     the block's highest limit are never read;
 //   * a split-KV grid axis (blockIdx.y) cuts the sequence so that B*Hk
 //     blocks (64 at batch 8) become enough to fill 132 SMs; each split
 //     writes an fp32 (out, lse) partial that the wrapper merges with the
 //     LSE rule (ops/lse.py).
 // Dequantization is fused: scores are scaled by the K scale of their
-// position and p by the V scale before the PV product, as on the TPU.
+// position and p by the V scale before the PV product, as on the TPU.  The
+// softmax scale rides on q (qscale, rounded to bf16 as B1 folds it) or on
+// the scores (sscale, as B12 applies it); the wrapper sets one to 1.
 #include "common.cuh"
 
 namespace {
@@ -29,7 +44,7 @@ using fatt::kNegInf;
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 64;
-constexpr int kMaxGroup = 8;
+constexpr int kMaxRows = 8;  // query rows per block
 constexpr int kMaxD = 128;
 constexpr int kRowPad = 32;  // bytes; shifts successive rows by 8 banks
 constexpr int kRowBytes = kMaxD * 2 + kRowPad;
@@ -54,51 +69,72 @@ __device__ __forceinline__ void load8(const unsigned char* p, float* out) {
   }
 }
 
-template <int KV>
-__global__ void __launch_bounds__(kThreads) decode_bhsd_kernel(
+// kChunk: query rows in tiles of 8 with a causal limit each, T > 1 tokens
+// or more than 8 heads per KV head (else one tile of R <= 8 rows, one limit
+// kv_len); kBshd: the BSHD layout (else BHSD).
+template <int KV, bool kChunk, bool kBshd>
+__global__ void __launch_bounds__(kThreads) decode_kernel(
     const __nv_bfloat16* __restrict__ q, const void* __restrict__ k,
     const void* __restrict__ v, const float* __restrict__ ks,
     const float* __restrict__ vs, const int* __restrict__ kv_len,
     __nv_bfloat16* __restrict__ out, float* __restrict__ part_out,
-    float* __restrict__ part_lse, int B, int H, int Hk, int S, int D,
-    int split_len, float qscale, int clamped, float clamp2) {
+    float* __restrict__ part_lse, int B, int Hk, int R, int chunk, int S,
+    int D, int split_len, float qscale, float sscale, int clamped,
+    float clamp2) {
   constexpr int kElem = KV == fatt::kBf16 ? 2 : 1;
   const int b = blockIdx.x / Hk;
   const int hk = blockIdx.x % Hk;
   const int split = blockIdx.y;
   const int nsplit = gridDim.y;
-  const int G = H / Hk;
+  const int r0 = kChunk ? blockIdx.z * kMaxRows : 0;
+  const int G = R / chunk;  // query heads per KV head and token
+  const int nrows = kChunk ? min(kMaxRows, R - r0) : R;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  const int64_t qrow0 = ((int64_t)b * Hk + hk) * R + r0;  // this block's row 0
 
   __shared__ __align__(16) unsigned char k_s[kTile * kRowBytes];
   __shared__ __align__(16) unsigned char v_s[kTile * kRowBytes];
-  __shared__ float q_s[kMaxGroup][kMaxD];
-  __shared__ float s_s[kMaxGroup][kTile];
+  __shared__ float q_s[kMaxRows][kMaxD];
+  __shared__ float s_s[kMaxRows][kTile];
   __shared__ float ks_s[kTile], vs_s[kTile];
-  __shared__ float m_s[kMaxGroup], l_s[kMaxGroup], a_s[kMaxGroup];
+  __shared__ float m_s[kMaxRows], l_s[kMaxRows], a_s[kMaxRows];
 
   // q pre-scaled in bf16, as the TPU kernel folds the softmax scale into
-  // its bf16 q block (qscale is already rounded to bf16 by the wrapper).
-  for (int i = tid; i < G * D; i += kThreads) {
+  // its bf16 q block (qscale is already rounded to bf16 by the wrapper;
+  // it is 1 when the scale rides on the scores).
+  for (int i = tid; i < nrows * D; i += kThreads) {
     const int g = i / D, d = i % D;
-    const float x = __bfloat162float(q[((int64_t)b * H + hk * G + g) * D + d]);
+    const float x = __bfloat162float(q[(qrow0 + g) * D + d]);
     q_s[g][d] = fatt::bf16_round(x * qscale);
   }
-  if (tid < kMaxGroup) {
+  if (tid < kMaxRows) {
     m_s[tid] = kNegInf;
     l_s[tid] = 0.f;
     a_s[tid] = 1.f;
   }
-  float acc[kMaxGroup];
+  float acc[kMaxRows];
 #pragma unroll
-  for (int g = 0; g < kMaxGroup; ++g) acc[g] = 0.f;
+  for (int g = 0; g < kMaxRows; ++g) acc[g] = 0.f;
 
-  const int len = min(kv_len[b], S);
+  // Row g sees positions < lim[g]: kv_len - (T-1) + its token, never past
+  // S (an idle slot's length runs past the capacity).  The limits grow
+  // with g, so the last row's bounds the walk.  In decode mode every row
+  // sees kv_len.
+  const int len = kv_len[b];
+  int lim[kMaxRows];
+  if constexpr (kChunk) {
+#pragma unroll
+    for (int g = 0; g < kMaxRows; ++g)
+      lim[g] = g < nrows ? min(len - (chunk - 1) + (r0 + g) / G, S) : 0;
+  }
+  const int walk_end = kChunk ? min(len - (chunk - 1) + (r0 + nrows - 1) / G, S) : min(len, S);
   const int lo = split * split_len;
-  const int hi = min(lo + split_len, len);
-  const int64_t row0 = ((int64_t)b * Hk + hk) * S;  // first cache row
+  const int hi = min(lo + split_len, walk_end);
+  // row index of position t: row0 + t * t_stride
+  const int64_t row0 = kBshd ? (int64_t)b * S * Hk + hk : ((int64_t)b * Hk + hk) * S;
+  const int t_stride = kBshd ? Hk : 1;
   const int row_bytes = D * kElem;
   const int chunks = row_bytes / 16;  // 16-byte chunks per row
   const unsigned char* kb = static_cast<const unsigned char*>(k);
@@ -112,7 +148,7 @@ __global__ void __launch_bounds__(kThreads) decode_bhsd_kernel(
       const int r = i / chunks, c = i % chunks;
       uint4 kv4 = make_uint4(0, 0, 0, 0), vv4 = make_uint4(0, 0, 0, 0);
       if (r < nvalid) {
-        const int64_t off = (row0 + t0 + r) * row_bytes + c * 16;
+        const int64_t off = (row0 + (int64_t)(t0 + r) * t_stride) * row_bytes + c * 16;
         kv4 = *reinterpret_cast<const uint4*>(kb + off);
         vv4 = *reinterpret_cast<const uint4*>(vb + off);
       }
@@ -121,43 +157,51 @@ __global__ void __launch_bounds__(kThreads) decode_bhsd_kernel(
     }
     if (tid < kTile) {
       const bool in = KV != fatt::kBf16 && tid < nvalid;
-      ks_s[tid] = in ? ks[row0 + t0 + tid] : 1.f;
-      vs_s[tid] = in ? vs[row0 + t0 + tid] : 0.f;
+      const int64_t row = row0 + (int64_t)(t0 + tid) * t_stride;
+      ks_s[tid] = in ? ks[row] : 1.f;
+      vs_s[tid] = in ? vs[row] : 0.f;
     }
     __syncthreads();
 
-    // Phase 1: s[g][j] = (q_g . k_j) * k_scale_j; two threads per row j,
-    // each taking alternate 8-element chunks of the head dim.
+    // Phase 1: s[g][j] = (q_g . k_j) * k_scale_j * sscale, masked past the
+    // row's limit; two threads per key j, each taking alternate 8-element
+    // chunks of the head dim.
     {
       const int j = tid >> 1, h = tid & 1;
-      float dots[kMaxGroup];
+      float dots[kMaxRows];
 #pragma unroll
-      for (int g = 0; g < kMaxGroup; ++g) dots[g] = 0.f;
+      for (int g = 0; g < kMaxRows; ++g) dots[g] = 0.f;
       for (int cc = h; cc < D / 8; cc += 2) {
         float kf[8];
         load8<KV>(k_s + j * kRowBytes + cc * 8 * kElem, kf);
 #pragma unroll
-        for (int g = 0; g < kMaxGroup; ++g) {
-          if (g < G) {
+        for (int g = 0; g < kMaxRows; ++g) {
+          if (g < nrows) {
 #pragma unroll
             for (int e = 0; e < 8; ++e) dots[g] += q_s[g][cc * 8 + e] * kf[e];
           }
         }
       }
 #pragma unroll
-      for (int g = 0; g < kMaxGroup; ++g)
+      for (int g = 0; g < kMaxRows; ++g)
         dots[g] += __shfl_xor_sync(0xffffffffu, dots[g], 1);
       if (h == 0) {
 #pragma unroll
-        for (int g = 0; g < kMaxGroup; ++g)
-          if (g < G) s_s[g][j] = j < nvalid ? dots[g] * ks_s[j] : kNegInf;
+        for (int g = 0; g < kMaxRows; ++g)
+          if (g < nrows) {
+            bool keep = j < nvalid;
+            if constexpr (kChunk) keep = keep && t0 + j < lim[g];
+            float s = dots[g] * ks_s[j];
+            if constexpr (kBshd) s *= sscale;
+            s_s[g][j] = keep ? s : kNegInf;
+          }
       }
     }
     __syncthreads();
 
-    // Phase 2: softmax statistics, one warp per query head; p * v_scale is
+    // Phase 2: softmax statistics, one warp per query row; p * v_scale is
     // rounded to bf16 as the TPU kernel feeds it to the PV product.
-    for (int g = warp; g < G; g += kWarps) {
+    for (int g = warp; g < nrows; g += kWarps) {
       const float s0 = s_s[g][lane], s1 = s_s[g][lane + 32];
       float p0, p1, alpha = 1.f;
       if (clamped) {
@@ -187,81 +231,112 @@ __global__ void __launch_bounds__(kThreads) decode_bhsd_kernel(
     // Phase 3: acc[g] (column d = tid) = acc * alpha + sum_j p[g][j] v[j][d].
     if (tid < D) {
 #pragma unroll
-      for (int g = 0; g < kMaxGroup; ++g)
-        if (g < G) acc[g] *= a_s[g];
+      for (int g = 0; g < kMaxRows; ++g)
+        if (g < nrows) acc[g] *= a_s[g];
       for (int j = 0; j < nvalid; ++j) {
         const float vv = fatt::load_kv<KV>(v_s + j * kRowBytes, tid);
 #pragma unroll
-        for (int g = 0; g < kMaxGroup; ++g)
-          if (g < G) acc[g] += s_s[g][j] * vv;
+        for (int g = 0; g < kMaxRows; ++g)
+          if (g < nrows) acc[g] += s_s[g][j] * vv;
       }
     }
   }
   __syncthreads();
 
   // Finalize: a row is valid iff some unmasked score was seen.
+  const int64_t rows = (int64_t)B * Hk * R;
   if (tid < D) {
 #pragma unroll
-    for (int g = 0; g < kMaxGroup; ++g) {
-      if (g >= G) continue;
+    for (int g = 0; g < kMaxRows; ++g) {
+      if (g >= nrows) continue;
       const float l = l_s[g];
       const bool valid = l > 0.f && (clamped || m_s[g] > kNegInf / 2);
       const float o = valid ? acc[g] / l : 0.f;
-      const int64_t h = (int64_t)b * H + hk * G + g;
+      const int64_t h = qrow0 + g;
       if (nsplit == 1) {
         out[h * D + tid] = __float2bfloat16(o);
       } else {
-        part_out[((int64_t)split * B * H + h) * D + tid] = o;
+        part_out[(split * rows + h) * D + tid] = o;
       }
     }
   }
-  if (tid < G) {
+  if (tid < nrows) {
     const float l = l_s[tid];
     const bool valid = l > 0.f && (clamped || m_s[tid] > kNegInf / 2);
     const float lse = valid ? (clamped ? logf(l) : m_s[tid] + logf(l)) : kNegInf;
-    part_lse[(int64_t)split * B * H + (int64_t)b * H + hk * G + tid] = lse;
+    part_lse[split * rows + qrow0 + tid] = lse;
   }
+}
+
+template <int KV, bool kChunk, bool kBshd>
+int launch(const void* q, const void* k, const void* v, const void* ks,
+           const void* vs, const void* kv_len, void* out, void* part_out,
+           void* part_lse, int B, int Hk, int R, int chunk, int S, int D,
+           int num_splits, int split_len, float qscale, float sscale,
+           int clamped, float clamp2, cudaStream_t st) {
+  dim3 grid(B * Hk, num_splits, (R + kMaxRows - 1) / kMaxRows);
+  decode_kernel<KV, kChunk, kBshd><<<grid, kThreads, 0, st>>>(
+      static_cast<const __nv_bfloat16*>(q), k, v, static_cast<const float*>(ks),
+      static_cast<const float*>(vs), static_cast<const int*>(kv_len),
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(part_out),
+      static_cast<float*>(part_lse), B, Hk, R, chunk, S, D, split_len, qscale,
+      sscale, clamped, clamp2);
+  return (int)cudaGetLastError();
+}
+
+// The instances launched: BHSD in decode and chunk mode, BSHD in decode
+// mode (no caller needs a BSHD chunk on the card).  Decode mode with more
+// than 8 heads per KV head runs as a chunk of one token.
+template <int KV>
+int launch_mode(const void* q, const void* k, const void* v, const void* ks,
+                const void* vs, const void* kv_len, void* out, void* part_out,
+                void* part_lse, int B, int Hk, int R, int chunk, int S, int D,
+                int bshd, int num_splits, int split_len, float qscale,
+                float sscale, int clamped, float clamp2, cudaStream_t st) {
+  const bool tiled = chunk > 1 || R > kMaxRows;
+  if (bshd && tiled) return (int)cudaErrorInvalidValue;
+  auto fn = bshd ? launch<KV, false, true>
+                 : tiled ? launch<KV, true, false> : launch<KV, false, false>;
+  return fn(q, k, v, ks, vs, kv_len, out, part_out, part_lse, B, Hk, R, chunk,
+            S, D, num_splits, split_len, qscale, sscale, clamped, clamp2, st);
 }
 
 }  // namespace
 
-extern "C" int fatt_decode_bhsd(const void* q, const void* k, const void* v,
-                                const void* ks, const void* vs,
-                                const void* kv_len, void* out, void* part_out,
-                                void* part_lse, int B, int H, int Hk, int S,
-                                int D, int kv_type, int num_splits,
-                                int split_len, float qscale, int clamped,
-                                float clamp2, void* stream) {
-  if (H % Hk != 0 || H / Hk > kMaxGroup || D > kMaxD || D % 32 != 0 ||
+// q: [B, Hk * R, D] bf16 rows, R = chunk * (H / Hk) per KV head in (t, g)
+// order (R = H / Hk in decode mode); k, v: BHSD [B, Hk, S, D] (bshd 0) or
+// BSHD [B, S, Hk, D] (bshd 1, decode mode only); scales fp32 at the rows'
+// indices (null for bf16); kv_len [B] int32.  One split writes out
+// [B, Hk * R, D] bf16, several write fp32 partials part_out
+// [n, B, Hk * R, D]; part_lse [n, B, Hk * R] always.
+extern "C" int fatt_decode(const void* q, const void* k, const void* v,
+                           const void* ks, const void* vs, const void* kv_len,
+                           void* out, void* part_out, void* part_lse, int B,
+                           int Hk, int R, int chunk, int S, int D, int bshd,
+                           int kv_type, int num_splits, int split_len,
+                           float qscale, float sscale, int clamped,
+                           float clamp2, void* stream) {
+  if (R < 1 || chunk < 1 || R % chunk != 0 || D > kMaxD || D % 32 != 0 ||
       num_splits < 1 || split_len % kTile != 0)
     return (int)cudaErrorInvalidValue;
-  dim3 grid(B * Hk, num_splits);
   auto st = static_cast<cudaStream_t>(stream);
-  auto qp = static_cast<const __nv_bfloat16*>(q);
-  auto ksp = static_cast<const float*>(ks);
-  auto vsp = static_cast<const float*>(vs);
-  auto lp = static_cast<const int*>(kv_len);
-  auto op = static_cast<__nv_bfloat16*>(out);
-  auto po = static_cast<float*>(part_out);
-  auto pl = static_cast<float*>(part_lse);
   switch (kv_type) {
     case fatt::kBf16:
-      decode_bhsd_kernel<fatt::kBf16><<<grid, kThreads, 0, st>>>(
-          qp, k, v, ksp, vsp, lp, op, po, pl, B, H, Hk, S, D, split_len,
-          qscale, clamped, clamp2);
-      break;
+      return launch_mode<fatt::kBf16>(q, k, v, ks, vs, kv_len, out, part_out,
+                                      part_lse, B, Hk, R, chunk, S, D, bshd,
+                                      num_splits, split_len, qscale, sscale,
+                                      clamped, clamp2, st);
     case fatt::kInt8:
-      decode_bhsd_kernel<fatt::kInt8><<<grid, kThreads, 0, st>>>(
-          qp, k, v, ksp, vsp, lp, op, po, pl, B, H, Hk, S, D, split_len,
-          qscale, clamped, clamp2);
-      break;
+      return launch_mode<fatt::kInt8>(q, k, v, ks, vs, kv_len, out, part_out,
+                                      part_lse, B, Hk, R, chunk, S, D, bshd,
+                                      num_splits, split_len, qscale, sscale,
+                                      clamped, clamp2, st);
     case fatt::kFp8:
-      decode_bhsd_kernel<fatt::kFp8><<<grid, kThreads, 0, st>>>(
-          qp, k, v, ksp, vsp, lp, op, po, pl, B, H, Hk, S, D, split_len,
-          qscale, clamped, clamp2);
-      break;
+      return launch_mode<fatt::kFp8>(q, k, v, ks, vs, kv_len, out, part_out,
+                                     part_lse, B, Hk, R, chunk, S, D, bshd,
+                                     num_splits, split_len, qscale, sscale,
+                                     clamped, clamp2, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }

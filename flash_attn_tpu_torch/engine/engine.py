@@ -1,15 +1,19 @@
 """Inference engines: continuous batching over a one-prompt prefill and a
 batched decode step.
 
-Port of flash_attn_tpu/engine/engine.py for the plain paths:
-``InferenceEngine`` (a contiguous KV cache) and ``PagedInferenceEngine``
-(a paged KV pool, admission gated by the native page allocator, optional
-automatic prefix caching).  Both prefill one prompt per call, padded to
-its bucket, and decode one token for every slot per step (idle slots are
-masked by kv_length and ignored by the scheduler).  Chunked and packed
-prefill, decode bursts, speculative decoding, LoRA banks and meshes are
-still to port and raise ``NotImplementedError``.  PyTorch runs eagerly,
-so there is no jit; the KV cache and pool are updated in place.
+Port of flash_attn_tpu/engine/engine.py for the plain paths and greedy
+speculative decoding: ``InferenceEngine`` (a contiguous KV cache, with
+n-gram or draft-model speculation through the model's ``decode_multi``)
+and ``PagedInferenceEngine`` (a paged KV pool, admission gated by the
+native page allocator, optional automatic prefix caching).  Both prefill
+one prompt per call, padded to its bucket, and decode one token (or one
+verify round) for every slot per step (idle slots are masked by kv_length
+and ignored by the scheduler).  Chunked and packed prefill, decode bursts,
+LoRA banks and meshes are still to port and raise
+``NotImplementedError``.  PyTorch runs eagerly, so there is no jit; the KV
+caches and pool are updated in place.  The host's token buffer is copied
+before a step takes it, so the host never overwrites tokens that a step
+still reads.
 """
 
 from __future__ import annotations
@@ -36,6 +40,41 @@ from flash_attn_tpu_torch.utils.metrics import EngineMetrics
 
 
 @dataclass
+class SpecConfig:
+    """Speculative decoding, greedy only (flash_attn_tpu/engine/engine.py:
+    34-63): each round proposes ``num_draft`` tokens per slot and verifies
+    [current token, drafts] in ONE ``decode_multi`` call; the longest
+    draft prefix that agrees with the greedy argmax is accepted, plus the
+    model's own correction token, so greedy output is unchanged.
+
+    Drafts come from an n-gram lookup in the request's history (prompt +
+    generated) by default, or from a draft model over the same vocabulary
+    when ``draft_params`` and ``draft_adapter`` are set: the engine keeps
+    the draft's own KV cache (unquantized), prefills it at admission and
+    runs num_draft + 1 greedy draft steps per round (the last appends the
+    last draft's KV, so both caches hold the same K + 1 new entries and
+    roll back to the same length)."""
+
+    num_draft: int = 4
+    ngram: int = 2
+    draft_params: object = None
+    draft_adapter: object = None  # ModelAdapter of the draft model
+
+
+def _ngram_draft(history: list[int], n: int, k: int) -> list[int]:
+    """Prompt-lookup draft: continue the most recent prior occurrence of
+    the trailing n-gram; the fallback repeats the last token."""
+    if len(history) > n:
+        pat = history[-n:]
+        for j in range(len(history) - n - 1, -1, -1):
+            if history[j:j + n] == pat:
+                cont = history[j + n:j + n + k]
+                if cont:
+                    return (cont + [cont[-1]] * k)[:k]
+    return [history[-1]] * k
+
+
+@dataclass
 class ModelAdapter:
     """What the engine needs from a model family."""
 
@@ -48,6 +87,9 @@ class ModelAdapter:
     num_kv_heads: int
     head_dim: int
     eos_token: int | None = None
+    # speculative verify step: (params, tokens [B, T], cache) -> (logits
+    # [B, T, V], cache); appends all T tokens' KV and advances by T
+    decode_multi: Callable | None = None
     # paged decode: (params, token [B], pool: PagedKVPool) -> (logits
     # [B, V], pool), used by PagedInferenceEngine
     decode_step_paged: Callable | None = None
@@ -63,11 +105,13 @@ class InferenceEngine:
                  sampling: SamplingParams | None = None, rng_seed: int = 0,
                  device=None, prefill_chunk_size: int | None = None,
                  spec=None, mesh=None, lora_bank=None, decode_burst: int = 1):
-        """device: where the cache lives and the steps run (default: the
-        card); it must be where ``params`` are."""
+        """device: where the caches live and the steps run (default: the
+        card); it must be where ``params`` (and a draft's params) are.
+        spec: a SpecConfig; it speculates when sampling is greedy."""
+        if spec is not None:
+            _check_spec(spec, adapter, mesh, prefill_chunk_size)
         unported = {
             "prefill_chunk_size": prefill_chunk_size is not None,
-            "spec": spec is not None,
             "mesh": mesh is not None,
             "lora_bank": lora_bank is not None,
             "decode_burst": decode_burst != 1,
@@ -86,6 +130,15 @@ class InferenceEngine:
             adapter.head_dim, dtype=cache_dtype, mode=kv_mode,
             device=self.device,
         )
+        self.spec = spec
+        self.draft_cache = None
+        if spec is not None and spec.draft_adapter is not None:
+            da = spec.draft_adapter
+            # the draft's own cache, unquantized (the draft is small; its
+            # exactness keeps acceptance high)
+            self.draft_cache = KVCache.create(
+                da.num_layers, max_batch, capacity, da.num_kv_heads,
+                da.head_dim, dtype=cache_dtype, mode="none", device=self.device)
         self.generator = torch.Generator(device=self.device).manual_seed(rng_seed)
         self.next_token = np.zeros((max_batch,), np.int64)
         # host mirror of cache.length (prefill sets it, decode advances every
@@ -111,13 +164,21 @@ class InferenceEngine:
 
     def _prefill_one(self, tokens, slot: int, true_len: int):
         """Run the model on one padded prompt, write its KV into ``slot``
-        and return the logits at its last real token."""
+        and return the logits at its last real token.  With a draft model
+        its cache gets the prompt's KV and length too (its first proposal
+        comes from its decode step, seeded by the target's first token)."""
         positions = torch.arange(tokens.shape[1], device=self.device)[None]
         logits_all, kvs = self.adapter.prefill_with_kv(
             self.params, tokens, positions)
         for layer, (k, v) in enumerate(kvs):
             _insert_slot_kv(self.cache, layer, slot, k[0], v[0])
         self.cache.set_length(slot, true_len)
+        if self.draft_cache is not None:
+            _, kvs = self.spec.draft_adapter.prefill_with_kv(
+                self.spec.draft_params, tokens, positions)
+            for layer, (k, v) in enumerate(kvs):
+                _insert_slot_kv(self.draft_cache, layer, slot, k[0], v[0])
+            self.draft_cache.set_length(slot, true_len)
         return logits_all[0, true_len - 1]
 
     def _do_prefill(self, req: Request):
@@ -139,23 +200,100 @@ class InferenceEngine:
         else:
             self.next_token[req.slot] = tok
 
+    def _update_kv_metric(self):
+        self.metrics.kv_tokens_in_use = int(
+            sum(self._host_lens[s] for s in self.sched.active_slots()))
+
     def _do_decode_step(self):
         t0 = time.perf_counter()
         slots = self.sched.active_slots()
-        logits, self.cache = self.adapter.decode_step(
-            self.params, torch.from_numpy(self.next_token).to(self.device),
-            self.cache)
+        if self.spec is not None and self.sampling.temperature == 0.0:
+            # verify appends K+1 KV entries before acceptance is known: fall
+            # back to plain decode when any slot lacks the headroom (the
+            # clamped append would overwrite live context)
+            if all(int(self._host_lens[s]) + self.spec.num_draft + 1 <= self.capacity
+                   for s in slots):
+                self._do_spec_decode_step(slots, t0)
+                return
+        tokens = _device_tokens(self.next_token, self.device)
+        logits, self.cache = self.adapter.decode_step(self.params, tokens, self.cache)
+        if self.draft_cache is not None and self.sampling.temperature == 0.0:
+            # spec fell back to plain decode this round: the draft cache
+            # takes the same tokens, so both caches stay in lockstep
+            _, self.draft_cache = self.spec.draft_adapter.decode_step(
+                self.spec.draft_params, tokens, self.draft_cache)
         toks = sample(logits, self.generator, self.sampling).cpu().numpy()
         self._host_lens += 1  # decode appends for every batch slot
         self.metrics.record_decode(len(slots), time.perf_counter() - t0)
-        self.metrics.kv_tokens_in_use = int(
-            sum(self._host_lens[s] for s in self.sched.active_slots()))
+        self._update_kv_metric()
         for slot in slots:
             tok = int(toks[slot])
             if not self.sched.step_done(slot, tok):
                 self.next_token[slot] = tok
                 continue
             self.metrics.completed_requests += 1
+
+    def _draft_scan(self, tokens):
+        """num_draft + 1 greedy draft decode steps from ``tokens`` [B]:
+        returns the drafts [B, K] on the host.  The last step's logits are
+        discarded; it appends the last draft's KV, so the draft cache holds
+        the same K + 1 new entries as the verified target cache."""
+        tok, drafts = tokens, []
+        for _ in range(self.spec.num_draft + 1):
+            logits, self.draft_cache = self.spec.draft_adapter.decode_step(
+                self.spec.draft_params, tok, self.draft_cache)
+            tok = torch.argmax(logits, dim=-1)
+            drafts.append(tok)
+        return torch.stack(drafts[:-1], dim=1).cpu().numpy()
+
+    def _do_spec_decode_step(self, slots, t0):
+        """One speculative round: K drafts per slot, ONE decode_multi over
+        [current, drafts], then the accepted prefix plus the model's
+        correction token per slot (greedy-exact); both caches roll back to
+        the context each slot consumed."""
+        K = self.spec.num_draft
+        max_b = self.next_token.shape[0]
+        tok_in = np.zeros((max_b, K + 1), np.int64)
+        tok_in[:, 0] = self.next_token
+        if self.draft_cache is not None:
+            drafts = self._draft_scan(_device_tokens(self.next_token, self.device))
+        else:
+            drafts = np.zeros((max_b, K), np.int64)
+            for s in slots:
+                req = self.sched.active[s]
+                drafts[s] = _ngram_draft(req.prompt + req.generated, self.spec.ngram, K)
+        tok_in[:, 1:] = drafts
+        lens_before = self._host_lens.copy()
+        logits, self.cache = self.adapter.decode_multi(
+            self.params, _device_tokens(tok_in, self.device), self.cache)
+        greedy = torch.argmax(logits, dim=-1).cpu().numpy()  # [B, K+1]
+        self._host_lens += K + 1  # decode_multi advanced every slot
+        self.metrics.record_decode(len(slots), time.perf_counter() - t0)
+        self._update_kv_metric()
+        # active slots roll back to their consumed context; the over-appended
+        # KV is overwritten by the next append
+        new_len = self._host_lens.copy()
+        for s in slots:
+            n_acc = 0
+            while n_acc < K and drafts[s, n_acc] == greedy[s, n_acc]:
+                n_acc += 1
+            emitted = [int(t) for t in drafts[s, :n_acc]] + [int(greedy[s, n_acc])]
+            self.metrics.record_spec(len(emitted), K)
+            done = False
+            for tok in emitted:
+                if self.sched.step_done(s, tok):
+                    done = True
+                    self.metrics.completed_requests += 1
+                    break
+            # the cache holds context for everything but the newest token
+            new_len[s] = lens_before[s] + n_acc + 1
+            if not done:
+                self.next_token[s] = emitted[-1]
+        lengths = torch.tensor(new_len, dtype=torch.int32, device=self.device)
+        self.cache.length.copy_(lengths)
+        if self.draft_cache is not None:
+            self.draft_cache.length.copy_(lengths)
+        self._host_lens = new_len
 
 
 class PagedInferenceEngine:
@@ -341,8 +479,7 @@ class PagedInferenceEngine:
         t0 = time.perf_counter()
         slots = self.sched.active_slots()
         logits, self.pool = self.adapter.decode_step_paged(
-            self.params, torch.from_numpy(self.next_token).to(self.device),
-            self.pool)
+            self.params, _device_tokens(self.next_token, self.device), self.pool)
         toks = sample(logits, self.generator, self.sampling).cpu().numpy()
         self._host_lens += 1  # decode appends for every batch slot
         self.metrics.record_decode(len(slots), time.perf_counter() - t0)
@@ -355,6 +492,29 @@ class PagedInferenceEngine:
                 continue
             self._release(slot)
             self.metrics.completed_requests += 1
+
+
+def _device_tokens(toks: np.ndarray, device) -> torch.Tensor:
+    """A copy of host tokens on ``device``: on the CPU ``torch.from_numpy``
+    would share the buffer that the host overwrites after the step."""
+    return torch.tensor(toks, dtype=torch.int64, device=device)
+
+
+def _check_spec(spec: SpecConfig, adapter: ModelAdapter, mesh, prefill_chunk_size):
+    """The JAX engine's constructor checks for speculative decoding
+    (flash_attn_tpu/engine/engine.py:162-182)."""
+    if adapter.decode_multi is None:
+        raise ValueError("spec decoding needs adapter.decode_multi")
+    da = spec.draft_adapter
+    if da is None:
+        return
+    if da.prefill_with_kv is None or da.decode_step is None:
+        raise ValueError("draft-model speculation needs the draft adapter's "
+                         "prefill_with_kv and decode_step")
+    if mesh is not None:
+        raise ValueError("draft-model speculation does not compose with sharded KV yet")
+    if prefill_chunk_size is not None:
+        raise ValueError("draft-model speculation does not compose with chunked prefill yet")
 
 
 def _insert_slot_kv(cache: KVCache, layer: int, slot: int, k, v) -> KVCache:

@@ -74,8 +74,13 @@ class KVCache:
         """Insert [B, T, Hk, D] entries at position ``length`` of every
         sequence, in place.  Does not advance ``length``: call advance()
         once after all layers.  T == 1 (the decode path) runs K2, which
-        skips sequences whose length has reached the capacity; T > 1
-        quantizes with plain PyTorch and must fit."""
+        skips sequences whose length has reached the capacity.  T > 1 (the
+        verify step) quantizes with plain PyTorch and reproduces, on
+        purpose, what JAX's append does to a sequence that does not fit (an
+        idle slot keeps advancing): the values land at the start clamped to
+        capacity - T, as ``dynamic_update_slice`` clamps it, while each
+        scale goes to its own position and is dropped past the capacity, as
+        JAX's scatter drops it.  No length is read back to the host."""
         ks = None if self.k_scale is None else self.k_scale[layer]
         vs = None if self.v_scale is None else self.v_scale[layer]
         if new_k.shape[1] == 1:
@@ -84,13 +89,29 @@ class KVCache:
                 new_k[:, 0].contiguous(), new_v[:, 0].contiguous(),
                 self.length, mode=self.mode)
             return self
-        t = new_k.shape[1]
+        B, t = new_k.shape[:2]
+        cap = self.capacity
         kq, ksn, vq, vsn = quantize_kv(new_k, new_v, self.mode)
-        for b, start in enumerate(self.length.tolist()):
-            if start + t > self.capacity:
-                raise ValueError(f"append of {t} at {start} overflows capacity")
-            self._put(layer, b, start, kq[b], vq[b],
-                      None if ksn is None else ksn[b], None if vsn is None else vsn[b])
+        dev = self.length.device
+        start = self.length.long()[:, None]
+        steps = torch.arange(t, device=dev)[None]
+        rows = torch.arange(B, device=dev)[:, None]
+        vpos = torch.clamp(start, 0, cap - t) + steps  # [B, T], distinct per row
+        for buf, new in ((self.k[layer], kq), (self.v[layer], vq)):
+            if buf.dtype == torch.float8_e4m3fn:
+                buf.view(torch.uint8)[rows, :, vpos] = new.view(torch.uint8)
+            else:
+                buf[rows, :, vpos] = new.to(buf.dtype)
+        if ks is not None:
+            # a dropped scale is written to the last position instead, with
+            # the value that position gets (or already holds), so that no
+            # two writes to one place differ
+            last = torch.clamp(start + steps, max=cap - 1)
+            src = torch.clamp(last - start, 0, t - 1)
+            keep_old = (start >= cap)[..., None]
+            for buf, new in ((ks, ksn), (vs, vsn)):
+                val = torch.gather(new[..., 0], 1, src[..., None].expand(B, t, new.shape[2]))
+                buf[rows, :, last] = torch.where(keep_old, buf[:, None, :, cap - 1], val)
         return self
 
     def _put(self, layer, slot, start, kq, vq, ks, vs):

@@ -1,5 +1,6 @@
 """Llama-3 in PyTorch: RMSNorm + RoPE + GQA + SwiGLU over the port's
-kernels (prefill K4, decode K1 + K2, paged decode and suffix prefill K8,
+kernels (prefill K4, decode K1 + K2, the speculative verify step K1 in
+chunk mode, paged decode and suffix prefill K8,
 projections and quantized heads K3, K5, K6, K7; the training forward's
 attention K4 with its backward K9 + K10).
 
@@ -7,8 +8,9 @@ Port of flash_attn_tpu/models/llama.py for the serving and training
 paths: the configs, ``init_params`` (from a ``torch.Generator``),
 ``quantize_weights`` (int8, int4, w8a8, w4a8, with a separate
 ``head_mode``), ``fuse_projections``, ``forward`` (training),
-``prefill_with_kv``, ``decode_step``, ``decode_step_paged``,
-``prefill_suffix_paged``, ``make_cache`` and ``make_adapter``.
+``prefill_with_kv``, ``decode_step``, ``decode_multi``,
+``decode_step_paged``, ``prefill_suffix_paged``, ``make_cache`` and
+``make_adapter``.
 Params are a plain dict like the JAX pytree: per block wq/wk/wv (or the
 fused wqkv), wo, w_gate/w_up (or w_gate_up), w_down, attn_norm/mlp_norm;
 top level tok_emb, final_norm, lm_head.  A weight is any kind that
@@ -34,7 +36,7 @@ from flash_attn_tpu_torch._device import resolve_device
 from flash_attn_tpu_torch.engine.kv_cache import KVCache
 from flash_attn_tpu_torch.engine.paged import PagedKVPool, paged_decode_attention
 from flash_attn_tpu_torch.ops.attention import flash_attention
-from flash_attn_tpu_torch.ops.decode import flash_decode
+from flash_attn_tpu_torch.ops.decode import flash_decode, flash_decode_chunk
 from flash_attn_tpu_torch.ops.matmul import (
     BiasedWeight,
     W4A8Weight,
@@ -335,6 +337,34 @@ def decode_step(params, token, cfg: LlamaConfig, cache: KVCache):
     return _logits(params, x, cfg), cache
 
 
+def decode_multi(params, tokens, cfg: LlamaConfig, cache: KVCache):
+    """T cached decode tokens per sequence in one pass, the speculative
+    verify step: tokens [B, T] -> (logits [B, T, V] fp32, cache).  Per
+    layer the chunk's K/V is appended at ``length`` first, then its T
+    queries attend to the cache through K1's chunk mode (one cache sweep,
+    causal within the chunk); ``length`` advances by T after the last
+    layer.  The cache is updated in place."""
+    b, t = tokens.shape
+    x = params["tok_emb"][tokens]  # [B, T, hidden]
+    pos = cache.length[:, None] + torch.arange(t, device=tokens.device)[None]
+    cos, sin = rope_cos_sin(pos, cfg.head_dim, cfg.rope_theta)
+    kv_length = cache.length + t
+    for i, blk in enumerate(params["blocks"]):
+        h = _rms_norm(x, blk["attn_norm"], cfg.rms_eps)
+        q, k, v = _qkv(h, blk, cfg, b, t)
+        q = rope_rotate(q, cos, sin)
+        k = rope_rotate(k, cos, sin)
+        cache.append(i, k, v)
+        kc, vc, ks, vs = cache.layer(i)
+        attn = flash_decode_chunk(q, kc, vc, k_scale=ks, v_scale=vs,
+                                  kv_length=kv_length, kv_layout="bhsd")
+        x = x + _proj(attn.reshape(b, t, cfg.num_heads * cfg.head_dim), blk["wo"])
+        x = _block_mlp(x, blk, cfg)
+    cache.advance(t)
+    x = _rms_norm(x, params["final_norm"], cfg.rms_eps)
+    return _logits(params, x, cfg), cache
+
+
 def decode_step_paged(params, token, cfg: LlamaConfig, pool: PagedKVPool):
     """One decode step for every slot against a paged pool: token [B] ->
     (logits [B, V] fp32, pool).  Per layer the token's K/V is appended at
@@ -407,13 +437,15 @@ def make_cache(cfg: LlamaConfig, batch, capacity, mode="none", dtype=None,
 
 
 def make_adapter(cfg: LlamaConfig, *, eos_token=None):
-    """Engine adapter: one-prompt prefill, the batched decode step, and
-    their paged counterparts (decode step, prefix-cache suffix prefill)."""
+    """Engine adapter: one-prompt prefill, the batched decode step, the
+    speculative verify step, and the paged counterparts (decode step,
+    prefix-cache suffix prefill)."""
     from flash_attn_tpu_torch.engine.engine import ModelAdapter
 
     return ModelAdapter(
         prefill_with_kv=lambda p, t, pos: prefill_with_kv(p, t, pos, cfg),
         decode_step=lambda p, tok, cache: decode_step(p, tok, cfg, cache),
+        decode_multi=lambda p, toks, cache: decode_multi(p, toks, cfg, cache),
         decode_step_paged=lambda p, tok, pool: decode_step_paged(p, tok, cfg, pool),
         prefill_suffix_paged=lambda p, t, pool, slot, start: prefill_suffix_paged(
             p, t, cfg, pool, slot, start),

@@ -1,12 +1,28 @@
-"""Flash-decode: one query token per sequence against a BHSD KV cache
-(kernel K1, ``csrc/decode.cu``), split-KV partials merged by the LSE rule.
+"""Flash-decode (kernel K1, ``csrc/decode.cu``): attention of one query
+token per sequence (``flash_decode``) or of T causal query tokens per
+sequence (``flash_decode_chunk``, the speculative verify step) over a
+contiguous KV cache, split-KV partials merged by the LSE rule.
 
-Port of flash_attn_tpu/ops/decode.py:flash_decode for ``kv_layout="bhsd"``
-with a bf16, int8 or fp8 cache.  Scales are [B, Hk, S] fp32 in natural
-position order.  The TPU's packed e4m3 bit-decode (E4M3_FIX, P_SHIFT*)
-and its scale-lane permutation exist only because of Mosaic and are not
-ported: Hopper converts e4m3 natively.  Sliding windows and logit
-softcaps are not on the Llama-3 path and raise for now.
+Port of flash_attn_tpu/ops/decode.py with a bf16, int8 or fp8 cache in
+either layout:
+
+  kv_layout="bshd" (the default, as in JAX): k, v [B, S, Hk, D]; scales
+      broadcastable to [B, S, Hk, 1].  JAX runs this layout through its
+      legacy kernel ``_decode_kernel`` (online softmax only, the softmax
+      scale applied to the scores); so does the port.
+  kv_layout="bhsd" (the engine's cache): k, v [B, Hk, S, D]; scales
+      [B, Hk, S] fp32 in natural position order.  JAX's
+      ``_decode_kernel_bhsd``: online or clamped softmax, the softmax scale
+      folded into a bf16 q.
+
+One kernel serves both layouts through a head stride and a token stride.
+Chunk mode reorders the T tokens' query heads into (hk, t, g) virtual
+heads; row t of a KV head sees positions < kv_length - (T - 1) + t.  The
+TPU's packed e4m3 bit-decode (E4M3_FIX, P_SHIFT*) and its scale-lane
+permutation exist only because of Mosaic and are not ported: Hopper
+converts e4m3 natively.  Sliding windows and logit softcaps are not on the
+Llama-3 path and raise for now, in both layouts.  fp16 computes as bf16,
+as in JAX.
 """
 
 from __future__ import annotations
@@ -23,10 +39,13 @@ CLAMP2_DEC = 80.0
 CLAMP2_DEC_FP8 = 40.0
 # K1's key tile; split lengths are multiples of it.
 TILE = 64
+# K1 takes the query rows of a KV head in tiles of this many.
+ROWS = 8
 # Blocks that fill the H100's 132 SMs twice over.
 _TARGET_BLOCKS = 264
 
 _KV_TYPES = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
+_LAYOUTS = ("bshd", "bhsd")
 
 
 def _default_softmax_mode(kv_dtype, logit_softcap=None) -> str:
@@ -56,54 +75,156 @@ def _splits(batch: int, num_heads_k: int, seqlen: int, num_splits):
     return -(-seqlen // split_len), split_len
 
 
+def _heads_len(k, kv_layout):
+    """(Hk, S) of a cache in ``kv_layout``."""
+    if kv_layout not in _LAYOUTS:
+        raise ValueError(f"unknown kv_layout {kv_layout!r}")
+    return (k.shape[1], k.shape[2]) if kv_layout == "bhsd" else (k.shape[2], k.shape[1])
+
+
+def _as_bf16(x):
+    return x.to(torch.bfloat16) if x is not None and x.dtype == torch.float16 else x
+
+
+def _check(k, k_scale, H, Hk, window, logit_softcap):
+    if window is not None or logit_softcap is not None:
+        raise NotImplementedError("window and logit_softcap are not ported yet")
+    if H % Hk:
+        raise ValueError(f"num_heads {H} not divisible by num_heads_k {Hk}")
+    if (k_scale is None) != (k.dtype not in (torch.int8, torch.float8_e4m3fn)):
+        raise ValueError("int8/fp8 caches need scales, float caches none")
+
+
+def _mode(softmax_mode, kv_dtype, kv_layout) -> bool:
+    """Whether the softmax is clamped: the default follows the KV type on
+    BHSD; BSHD always runs online, as JAX's BSHD paths do (decode.py:
+    248-249), whatever the mode asked."""
+    if softmax_mode is None:
+        softmax_mode = _default_softmax_mode(kv_dtype)
+    if softmax_mode not in ("online", "clamped"):
+        raise ValueError(f"unknown softmax_mode {softmax_mode!r}")
+    return softmax_mode == "clamped" and kv_layout == "bhsd"
+
+
+def _bshd_scales(s, B, S, Hk):
+    """BSHD scales broadcastable to [B, S, Hk, 1] -> contiguous [B, S, Hk]
+    fp32, as JAX's scales_arg broadcasts them (decode.py:664-668)."""
+    if s is None:
+        return None
+    return torch.broadcast_to(s, (B, S, Hk, 1))[..., 0].float().contiguous()
+
+
 def flash_decode(q, k, v, *, kv_length=None, scale: float | None = None,
                  num_splits: int | None = None, k_scale=None, v_scale=None,
-                 return_lse: bool = False, kv_layout: str = "bhsd",
+                 return_lse: bool = False, kv_layout: str = "bshd",
                  softmax_mode: str | None = None, window: int | None = None,
                  logit_softcap: float | None = None):
     """Single-token decode attention over a (possibly quantized) cache.
 
-    q: [B, H, D]; k, v: [B, Hk, S, D] (bf16, int8 or float8_e4m3fn);
-    k_scale, v_scale: [B, Hk, S] fp32 dequant scales (quantized caches);
+    q: [B, H, D]; k, v: [B, S, Hk, D] (kv_layout="bshd", the default) or
+      [B, Hk, S, D] ("bhsd"), bf16, fp16, int8 or float8_e4m3fn (fp32 on
+      the CPU);
+    k_scale, v_scale: dequant scales of int8/fp8 caches, broadcastable to
+      [B, S, Hk, 1] (bshd) or [B, Hk, S] fp32 (bhsd);
     kv_length: [B] int32 valid entries per sequence (None = all S); a
       value past S counts as S.
     num_splits: split-KV blocks per (sequence, KV head); None picks enough
       to fill the card.  Partials merge with ops.lse.lse_merge.
     softmax_mode: "online" or "clamped"; None follows
-      _default_softmax_mode (clamped for fp8 KV).
+      _default_softmax_mode (clamped for fp8 KV).  BSHD runs online.
     Returns out [B, H, D] in q.dtype; with return_lse also lse [B, H] fp32.
     """
-    if kv_layout != "bhsd":
-        raise NotImplementedError("only kv_layout='bhsd' is ported")
-    if window is not None or logit_softcap is not None:
-        raise NotImplementedError("window and logit_softcap are not ported yet")
+    if torch.float16 in (q.dtype, k.dtype):
+        res = flash_decode(
+            _as_bf16(q), _as_bf16(k), _as_bf16(v), kv_length=kv_length,
+            scale=scale, num_splits=num_splits, k_scale=k_scale,
+            v_scale=v_scale, return_lse=return_lse, kv_layout=kv_layout,
+            softmax_mode=softmax_mode, window=window,
+            logit_softcap=logit_softcap)
+        return _restore_fp16(res, q.dtype, return_lse)
     B, H, D = q.shape
-    _, Hk, S, _ = k.shape
-    if H % Hk:
-        raise ValueError(f"num_heads {H} not divisible by num_heads_k {Hk}")
-    if (k_scale is None) != (k.dtype not in (torch.int8, torch.float8_e4m3fn)):
-        raise ValueError("int8/fp8 caches need scales, float caches none")
+    Hk, S = _heads_len(k, kv_layout)
+    _check(k, k_scale, H, Hk, window, logit_softcap)
+    clamped = _mode(softmax_mode, k.dtype, kv_layout)
+    if kv_layout == "bshd":
+        k_scale, v_scale = _bshd_scales(k_scale, B, S, Hk), _bshd_scales(v_scale, B, S, Hk)
+    out, lse = _attend(q, k, v, k_scale, v_scale, kv_length, scale, clamped,
+                       1, kv_layout, num_splits)
+    return (out, lse) if return_lse else out
+
+
+def flash_decode_chunk(q, k, v, *, kv_length, scale: float | None = None,
+                       num_splits: int | None = None, k_scale=None,
+                       v_scale=None, return_lse: bool = False,
+                       kv_layout: str = "bhsd",
+                       softmax_mode: str | None = None,
+                       window: int | None = None,
+                       logit_softcap: float | None = None):
+    """T query tokens per sequence, causal within the chunk, over a cache
+    that already holds the chunk's own KV at positions kv_length - T ..
+    kv_length - 1 (append first, then score): the speculative verify step.
+
+    q: [B, T, H, D]; kv_length [B] INCLUDES the chunk's T tokens; the
+    cache and scales as ``flash_decode``'s, in kv_layout "bhsd" (the
+    default, as in JAX) or "bshd".  The default softmax follows
+    _default_softmax_mode (clamped for fp8) on BHSD.  BSHD chunks run
+    online and only on the CPU: JAX sends them to its jnp oracle, and no
+    path of the port needs them on the card.  Returns out [B, T, H, D]
+    (+ lse [B, T, H] with return_lse)."""
+    if torch.float16 in (q.dtype, k.dtype):
+        res = flash_decode_chunk(
+            _as_bf16(q), _as_bf16(k), _as_bf16(v), kv_length=kv_length,
+            scale=scale, num_splits=num_splits, k_scale=k_scale,
+            v_scale=v_scale, return_lse=return_lse, kv_layout=kv_layout,
+            softmax_mode=softmax_mode, window=window,
+            logit_softcap=logit_softcap)
+        return _restore_fp16(res, q.dtype, return_lse)
+    B, T, H, D = q.shape
+    Hk, S = _heads_len(k, kv_layout)
+    _check(k, k_scale, H, Hk, window, logit_softcap)
+    clamped = _mode(softmax_mode, k.dtype, kv_layout)
+    if kv_layout == "bshd":
+        k_scale, v_scale = _bshd_scales(k_scale, B, S, Hk), _bshd_scales(v_scale, B, S, Hk)
+    G = H // Hk
+    # (hk, t, g)-major virtual heads: each KV head's rows stay contiguous
+    q2 = q.reshape(B, T, Hk, G, D).transpose(1, 2).reshape(B, Hk * T * G, D).contiguous()
+    out, lse = _attend(q2, k, v, k_scale, v_scale, kv_length, scale, clamped,
+                       T, kv_layout, num_splits)
+
+    def unshuffle(x):
+        rest = x.shape[2:]
+        return x.reshape(B, Hk, T, G, *rest).transpose(1, 2).reshape(B, T, H, *rest)
+
+    out = unshuffle(out)
+    return (out, unshuffle(lse)) if return_lse else out
+
+
+def _restore_fp16(res, dtype, return_lse):
+    if dtype != torch.float16:
+        return res
+    if return_lse:
+        return res[0].to(torch.float16), res[1]
+    return res.to(torch.float16)
+
+
+def _attend(q, k, v, k_scale, v_scale, kv_length, scale, clamped, chunk,
+            layout, num_splits):
+    """(out in q.dtype, lse) of q [B, Hk * R, D] rows, R = chunk * G per KV
+    head in (t, g) order, through K1 on the card or its plain version."""
+    B, rows, D = q.shape
+    Hk, S = _heads_len(k, layout)
     if scale is None:
         scale = D ** -0.5
-    if softmax_mode is None:
-        softmax_mode = _default_softmax_mode(k.dtype, logit_softcap)
-    if softmax_mode not in ("online", "clamped"):
-        raise ValueError(f"unknown softmax_mode {softmax_mode!r}")
-    clamped = softmax_mode == "clamped"
-    clamp2 = _clamp2(k.dtype)
     if kv_length is None:
         kv_length = torch.full((B,), S, dtype=torch.int32, device=q.device)
-    nsplit, split_len = _splits(B, Hk, S, num_splits)
-    args = (q, k, v, k_scale, v_scale, kv_length, scale, clamped, clamp2,
-            nsplit, split_len)
+    nsplit, split_len = _splits(B * -(-(rows // Hk) // ROWS), Hk, S, num_splits)
+    args = (q, k, v, k_scale, v_scale, kv_length, scale, clamped, _clamp2(k.dtype),
+            nsplit, split_len, chunk, layout)
     if q.is_cuda:
         outs, lses = flash_decode_cuda(*args)
     else:
         outs, lses = flash_decode_plain(*args)
-    out, lse = merge_splits(outs, lses, q.dtype)
-    if return_lse:
-        return out, lse
-    return out
+    return merge_splits(outs, lses, q.dtype)
 
 
 def merge_splits(outs, lses, dtype):
@@ -122,25 +243,35 @@ def _qscale(scale, clamped, dtype):
 
 
 def flash_decode_plain(q, k, v, k_scale, v_scale, kv_length, scale, clamped,
-                       clamp2, nsplit, split_len):
-    """Plain PyTorch version of K1: returns per-split (out [n, B, H, D]
-    fp32, lse [n, B, H]) with the kernel's roundings (bf16 q pre-scale,
-    bf16 p * v_scale before PV; fp32 throughout for fp32 q)."""
-    B, H, D = q.shape
+                       clamp2, nsplit, split_len, chunk=1, layout="bhsd"):
+    """Plain PyTorch version of K1: returns per-split (out [n, B, rows, D]
+    fp32, lse [n, B, rows]) for q [B, rows, D] (``chunk`` tokens per KV
+    head in (t, g) order), with the kernel's roundings: on BHSD the bf16
+    q pre-scale, on BSHD the scale applied to the fp32 scores; bf16
+    p * v_scale before PV; fp32 throughout for fp32 q."""
+    B, rows, D = q.shape
+    if layout == "bshd":
+        k, v = k.transpose(1, 2), v.transpose(1, 2)
+        if k_scale is not None:
+            k_scale, v_scale = k_scale.transpose(1, 2), v_scale.transpose(1, 2)
     _, Hk, S, _ = k.shape
-    G = H // Hk
+    R = rows // Hk
+    fold = layout == "bhsd"
     cdt = torch.float32 if q.dtype == torch.float32 else torch.bfloat16
-    qs = (q.to(cdt) * _qscale(scale, clamped, cdt).to(q.device)).float()
-    s = torch.einsum("bhgd,bhsd->bhgs", qs.view(B, Hk, G, D),
-                     k.to(cdt).float())
+    qs = (q.to(cdt) * _qscale(scale if fold else 1.0, clamped, cdt).to(q.device)).float()
+    s = torch.einsum("bhrd,bhsd->bhrs", qs.reshape(B, Hk, R, D), k.to(cdt).float())
     if k_scale is not None:
         s = s * k_scale[:, :, None, :]
-    pos = torch.arange(S, device=q.device)
-    valid = pos[None, :] < kv_length.to(q.device).long()[:, None]  # [B, S]
-    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    if not fold:
+        s = s * scale
+    # row r = t * G + g sees positions < kv_length - (chunk - 1) + t
+    t = torch.arange(R, device=q.device) // (R // chunk)
+    limit = kv_length.to(q.device).long()[:, None] - (chunk - 1) + t[None, :]
+    valid = torch.arange(S, device=q.device)[None, None, :] < limit[:, :, None]
+    s = torch.where(valid[:, None], s, torch.full_like(s, NEG_INF))
     outs, lses = split_partials(s, v, v_scale, clamped, clamp2, nsplit,
                                 split_len, cdt)
-    return outs.reshape(nsplit, B, H, D), lses.reshape(nsplit, B, H)
+    return outs.reshape(nsplit, B, rows, D), lses.reshape(nsplit, B, rows)
 
 
 def split_partials(s, v, v_scale, clamped, clamp2, nsplit, split_len, cdt):
@@ -176,48 +307,63 @@ def split_partials(s, v, v_scale, clamped, clamp2, nsplit, split_len, cdt):
 
 
 def flash_decode_cuda(q, k, v, k_scale, v_scale, kv_length, scale, clamped,
-                      clamp2, nsplit, split_len):
-    """Launch K1.  Replaces flash_attn_tpu/ops/decode.py:_decode_kernel_bhsd;
-    bound by bytes (see the source note in csrc/decode.cu).  Returns
-    (out, lse): with one split out is [1, B, H, D] bf16 written by the
-    kernel, else fp32 partials [n, B, H, D]."""
-    B, H, D = q.shape
-    _, Hk, S, _ = k.shape
+                      clamp2, nsplit, split_len, chunk=1, layout="bhsd"):
+    """Launch K1.  Replaces flash_attn_tpu/ops/decode.py:_decode_kernel_bhsd
+    (decode and chunk mode) and, on a BSHD cache, _decode_kernel; bound by
+    bytes (see the source note in csrc/decode.cu).  Returns (out, lse):
+    with one split out is [1, B, rows, D] bf16 written by the kernel, else
+    fp32 partials [n, B, rows, D]."""
+    B, rows, D = q.shape
+    Hk, S = _heads_len(k, layout)
     if q.dtype != torch.bfloat16:
         raise ValueError("K1 takes a bf16 query")
-    if k.dtype not in _KV_TYPES or v.dtype != k.dtype:
+    if k.dtype not in _KV_TYPES or v.dtype != k.dtype or v.shape != k.shape:
         raise ValueError(f"K1 takes a bf16, int8 or fp8 cache, got {k.dtype}")
-    if H // Hk > 8 or D > 128 or D % 32:
-        raise ValueError(f"K1 needs H/Hk <= 8 and D % 32 == 0, D <= 128; "
-                         f"got H={H}, Hk={Hk}, D={D}")
-    if kv_length.dtype != torch.int32:
-        raise ValueError("kv_length must be int32")
+    if rows % Hk or (rows // Hk) % chunk or D > 128 or D % 32:
+        raise ValueError(f"K1 needs rows a multiple of Hk * chunk, D % 32 == 0 and "
+                         f"D <= 128; got rows={rows}, Hk={Hk}, chunk={chunk}, D={D}")
+    if layout == "bshd" and (chunk > 1 or rows // Hk > ROWS):
+        raise NotImplementedError(f"K1 takes a BSHD cache in decode mode, at most "
+                                  f"{ROWS} heads per KV head")
+    if kv_length.dtype != torch.int32 or kv_length.shape != (B,):
+        raise ValueError("kv_length must be [B] int32")
     tensors = [q, k, v, kv_length]
     if k_scale is not None:
-        if k_scale.shape != (B, Hk, S) or k_scale.dtype != torch.float32:
-            raise ValueError("scales must be [B, Hk, S] fp32")
+        sshape = (B, Hk, S) if layout == "bhsd" else (B, S, Hk)
+        for s in (k_scale, v_scale):
+            if s.shape != sshape or s.dtype != torch.float32:
+                raise ValueError(f"scales must be {list(sshape)} fp32")
         tensors += [k_scale, v_scale]
     for t in tensors:
         if not t.is_cuda or not t.is_contiguous():
             raise ValueError("K1 takes contiguous CUDA tensors")
     if nsplit == 1:
-        out = torch.empty((1, B, H, D), dtype=torch.bfloat16, device=q.device)
+        out = torch.empty((1, B, rows, D), dtype=torch.bfloat16, device=q.device)
         part = None
     else:
         out = None
-        part = torch.empty((nsplit, B, H, D), dtype=torch.float32,
-                           device=q.device)
-    lse = torch.empty((nsplit, B, H), dtype=torch.float32, device=q.device)
-    qscale = float(_qscale(scale, clamped, torch.bfloat16))
+        part = torch.empty((nsplit, B, rows, D), dtype=torch.float32, device=q.device)
+    lse = torch.empty((nsplit, B, rows), dtype=torch.float32, device=q.device)
+    if layout == "bhsd":  # B1: scale folded into a bf16 q
+        qscale, sscale = float(_qscale(scale, clamped, torch.bfloat16)), 1.0
+    else:  # B12: scale applied to the scores
+        qscale, sscale = 1.0, float(scale)
     p = _build.ptr
-    rc = _build.lib().fatt_decode_bhsd(
+    rc = _build.lib().fatt_decode(
         p(q), p(k), p(v), p(k_scale), p(v_scale), p(kv_length), p(out),
-        p(part), p(lse), B, H, Hk, S, D, _KV_TYPES[k.dtype], nsplit,
-        split_len, qscale, int(clamped), float(clamp2), _build.stream())
-    _build.check(rc, "fatt_decode_bhsd")
+        p(part), p(lse), B, Hk, rows // Hk, chunk, S, D, int(layout == "bshd"),
+        _KV_TYPES[k.dtype], nsplit, split_len, qscale, sscale, int(clamped),
+        float(clamp2), _build.stream())
+    _build.check(rc, "fatt_decode")
     flash_decode_cuda.launches += 1
+    if chunk > 1:
+        flash_decode_cuda.chunk_launches += 1
+    if layout == "bshd":
+        flash_decode_cuda.bshd_launches += 1
     return (out if nsplit == 1 else part), lse
 
 
+# every launch, and those of them in chunk mode and on a BSHD cache
 flash_decode_cuda.launches = 0
-
+flash_decode_cuda.chunk_launches = 0
+flash_decode_cuda.bshd_launches = 0

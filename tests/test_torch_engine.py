@@ -155,7 +155,8 @@ def test_kv_cache_append_matches_jax(kv_mode):
 def test_engine_rejects_unported_options(both_params):
     _, tp = both_params
     adapter = llama.make_adapter(CFG)
-    for kw in ({"prefill_chunk_size": 16}, {"decode_burst": 4}, {"spec": object()}):
+    for kw in ({"prefill_chunk_size": 16}, {"decode_burst": 4}, {"mesh": object()},
+               {"lora_bank": object()}):
         with pytest.raises(NotImplementedError):
             InferenceEngine(tp, adapter, max_batch=1, capacity=32, device="cpu", **kw)
 

@@ -131,7 +131,7 @@ def test_bridge_kv_cache_fp8_depermutes_scale_lanes():
                         kv_layout="bhsd", interpret=True, **jc.scale_args())
     to = flash_decode(torch.from_numpy(np.array(q)), tc.k[0], tc.v[0],
                       k_scale=tc.k_scale[0], v_scale=tc.v_scale[0],
-                      kv_length=tc.length)
+                      kv_length=tc.length, kv_layout="bhsd")
     np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=1e-5)
 
 

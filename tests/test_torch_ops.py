@@ -227,7 +227,7 @@ def test_flash_decode_matches_oracle_fp32():
     k = torch.from_numpy(r.standard_normal((3, 2, 96, 32)).astype(np.float32))
     v = torch.from_numpy(r.standard_normal((3, 2, 96, 32)).astype(np.float32))
     kv_length = torch.tensor([96, 1, 50], dtype=torch.int32)
-    out = flash_decode(q, k, v, kv_length=kv_length)
+    out = flash_decode(q, k, v, kv_length=kv_length, kv_layout="bhsd")
     for b in range(3):
         n = int(kv_length[b])
         want = mha_reference(q[b:b + 1, None], k[b:b + 1, :, :n].transpose(1, 2),
@@ -239,9 +239,9 @@ def test_flash_decode_rejects_unported_options():
     q = torch.zeros(1, 2, 32)
     k = torch.zeros(1, 1, 64, 32)
     with pytest.raises(NotImplementedError):
-        flash_decode(q, k, k, window=16)
+        flash_decode(q, k, k, window=16, kv_layout="bhsd")
     with pytest.raises(NotImplementedError):
-        flash_decode(q, k, k, logit_softcap=30.0)
+        flash_decode(q, k, k, logit_softcap=30.0, kv_layout="bhsd")
 
 
 @pytest.mark.parametrize("M", [5, 40])

@@ -192,7 +192,7 @@ def test_paged_decode_matches_contiguous_decode(mode, num_splits):
     want = flash_decode(q, k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous(),
                         k_scale=ks[..., 0].transpose(1, 2).contiguous(),
                         v_scale=vs[..., 0].transpose(1, 2).contiguous(),
-                        kv_length=lens, num_splits=num_splits)
+                        kv_length=lens, num_splits=num_splits, kv_layout="bhsd")
     got = paged_flash_decode(q, kp, vp, table, lens, **tkw, num_splits=num_splits)
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6, rtol=1e-6)
 
