@@ -8,10 +8,12 @@ Phases, one line each with its seconds:
   2. each hand-written kernel against its plain PyTorch version on the card
      at its main-path shapes, with its time (CUDA events), its bound and
      the time of one PyTorch library call for the same function: K1 decode,
-     K1 in chunk mode (T=5 at H=32 and 64) and over a BSHD cache (through
-     flash_attn_tpu_torch.flash_decode, JAX's default layout), K1 and K4 at
-     the draft's H=24, K2 kv-append, K3 int8 matmul (8B shapes), K4 flash
-     forward, K8 paged
+     K1m (the split-KV combine: bf16 and fp32 out, splits at -1e30 and
+     -inf, an idle slot), K1 in chunk mode (T=5 at H=32 and 64) and over a
+     BSHD cache (through flash_attn_tpu_torch.flash_decode, JAX's default
+     layout), K1 and K4 at the draft's H=24, K2 kv-append, K3 int8 matmul
+     (8B shapes), K4 flash forward (both softmax modes, also at S=891, a
+     shifted Sq=1000 Sk=1500, B=2 with per-sequence rope and H=24), K8 paged
      decode (decode mode at pages of 128 and 512, also against K1 on the
      same content, and chunk mode), K3 grouped, K6 int4 matmul (70B
      shapes), K5 W4A8 matmul (8B shapes), K7 W8A8 matmul (70B head,
@@ -139,6 +141,18 @@ def k4_flops(B, Sq, Sk, H, D) -> int:
     return 4 * B * H * D * pairs
 
 
+def plain_merge(outs, lses, dtype):
+    """Plain partials merged by the plain version of K1m (ops/lse.py:
+    lse_merge), as merge_splits merges them on the CPU: the references
+    below never go through a kernel."""
+    from flash_attn_tpu_torch.ops.lse import lse_merge
+
+    if outs.shape[0] == 1:
+        return outs[0].to(dtype), lses[0]
+    out, lse = lse_merge(outs, lses, dim=0)
+    return out.to(dtype), lse
+
+
 def cuda_ms(torch, fn, iters=20, warmup=3) -> float:
     for _ in range(warmup):
         fn()
@@ -151,6 +165,25 @@ def cuda_ms(torch, fn, iters=20, warmup=3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, per_graph=10, replays=20) -> float:
+    """The device's time for one call of ``fn``: ``per_graph`` calls
+    captured in a CUDA graph, replayed ``replays`` times, so no host work
+    sits between the kernels (for a kernel shorter than its wrapper's host
+    work, which a loop of calls from Python would time instead)."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_graph):
+            fn()
+    return cuda_ms(torch, graph.replay, iters=replays, warmup=2) / per_graph
 
 
 class Checks:
@@ -543,7 +576,7 @@ def check_k1(torch, checks, rows):
         b_ms, b_by = bound(nbytes, 4 * H * D * live)
         say(f"  K1 {kv} ({mode}, {nsplit} splits): max_abs_err {err:.3e} ({share:.3f} of "
             f"its row's tol), lse err {lerr:.3e} (tol 1e-3) "
-            f"{'ok' if ok else 'FAIL'} | {ms:.4f} ms ({call_ms:.4f} with the LSE merge), "
+            f"{'ok' if ok else 'FAIL'} | {ms:.4f} ms ({call_ms:.4f} with the K1m merge), "
             f"plain {plain_ms:.4f}, library (SDPA on the dequantized cache) {lib_ms:.4f}, bound {b_ms:.4f} ({b_by})")
         if kv == "fp8":
             rows["K1"] = dict(name="decode_bhsd (B=8, H=32, Hk=8, S=4096, fp8 KV)",
@@ -553,6 +586,62 @@ def check_k1(torch, checks, rows):
                               bound_ms=b_ms, bound_by=b_by)
         del q, k, v, ks, vs, kd, vd
     rows["K1"]["max_abs_err"] = worst
+
+
+def check_k1m(torch, checks, rows):
+    """K1m, the split-KV combine, on K1's fp8 partials at the decode
+    step's shape (B=8, H=32, Hk=8, S=4096, the splits flash_decode picks),
+    with lengths S, 1 (every split but the first at -1e30), 0 (an idle
+    slot: all at -1e30) and random, and a quarter of the rows' second
+    partial set to -inf (JAX's masked value): against lse_merge, each row
+    to two bf16 ulps of its largest value (bf16 out) or 2^-16 (fp32 out:
+    the same exp and sums in another order), the LSE to 1e-3; the idle
+    slot's rows must be out 0 and lse <= -1e29."""
+    from flash_attn_tpu_torch.ops import decode as dec
+    from flash_attn_tpu_torch.ops.lse import lse_merge, lse_merge_cuda
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    q, k, v, ks, vs, lens = _decode_inputs(torch, "fp8", g)
+    lens[2] = 0
+    B, H, D = q.shape
+    S = k.shape[2]
+    clamped, clamp2 = _mode_args(dec, k.dtype)
+    nsplit, split_len = dec._splits(B, k.shape[1], S, None)
+    outs, lses = dec.flash_decode_cuda(q, k, v, ks, vs, lens, D ** -0.5, clamped, clamp2,
+                                       nsplit, split_len)
+    lses[1, :, ::4] = float("-inf")
+    worst = 0.0
+    ok = True
+    for dtype, rel in ((torch.bfloat16, 2.0 ** -6), (torch.float32, 2.0 ** -16)):
+        got, glse = lse_merge_cuda(outs, lses, dtype)
+        ref, rlse = lse_merge(outs, lses, dim=0)
+        torch.cuda.synchronize()
+        err, share = row_err(got, ref.to(dtype), rel=rel)
+        lerr = float((glse - rlse).abs().max())
+        idle = bool((got[2] == 0).all() and (glse[2] <= -1e29).all())
+        name = f"K1m {str(dtype)[6:]} out"
+        ok &= checks.check(name, share, 1.0) & checks.check(f"{name} lse", lerr, 1e-3)
+        if not idle:
+            checks.failed.append(f"{name}: the idle slot is not out 0, lse <= -1e29")
+        ok &= idle
+        worst = max(worst, err)
+        say(f"  K1m {nsplit} splits -> {str(dtype)[6:]}: max_abs_err {err:.3e} ({share:.3f} of "
+            f"its row's tol), lse err {lerr:.3e} (tol 1e-3), idle slot {'ok' if idle else 'FAIL'}")
+    ms = graph_ms(torch, lambda: lse_merge_cuda(outs, lses, torch.bfloat16))
+    loop_ms = cuda_ms(torch, lambda: lse_merge_cuda(outs, lses, torch.bfloat16), iters=100)
+    plain_ms = cuda_ms(torch, lambda: lse_merge(outs, lses, dim=0)[0].to(torch.bfloat16))
+    nbytes = outs.numel() * 4 + lses.numel() * 4 + outs[0].numel() * 2 + lses[0].numel() * 4
+    b_ms, b_by = bound(nbytes, 2 * outs.numel())
+    say(f"  K1m {'ok' if ok else 'FAIL'} | {ms:.4f} ms (CUDA graph; {loop_ms:.4f} called from "
+        f"Python, the wrapper's host work), plain (eager lse_merge) {plain_ms:.4f}, library "
+        f"none, bound {b_ms:.4f} ({b_by})")
+    rows["K1m"] = dict(name=f"lse_merge ({nsplit} splits of B=8, H=32, D=128 fp32 partials "
+                            "-> bf16)",
+                       source="flash_attn_tpu_torch/csrc/lse_merge.cu",
+                       replaces="flash_attn_tpu/ops/lse.py:23",
+                       ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                       bound_by=b_by, max_abs_err=worst)
+    del q, k, v, ks, vs, outs, lses
 
 
 def check_k1c(torch, checks, rows):
@@ -582,7 +671,7 @@ def check_k1c(torch, checks, rows):
         args = (q2, k, v, ks, vs, lens, D ** -0.5, clamped, clamp2, nsplit, split_len, T)
         got, glse = dec.flash_decode_chunk(q, k, v, k_scale=ks, v_scale=vs, kv_length=lens,
                                            return_lse=True)
-        ref2, rlse2 = dec.merge_splits(*dec.flash_decode_plain(*args), torch.bfloat16)
+        ref2, rlse2 = plain_merge(*dec.flash_decode_plain(*args), torch.bfloat16)
         torch.cuda.synchronize()
         ref = ref2.reshape(B, Hk, T, G, D).transpose(1, 2).reshape(B, T, H, D)
         rlse = rlse2.reshape(B, Hk, T, G).transpose(1, 2).reshape(B, T, H)
@@ -608,7 +697,7 @@ def check_k1c(torch, checks, rows):
                 qt, kd, vd, attn_mask=mask, enable_gqa=True))
             nbytes = k1_bytes(k, lens, ks) + 2 * q.numel() * 2 + lens.numel() * 4
             b_ms, b_by = bound(nbytes, 4 * H * D * int(limit.sum()))
-            say(f"    K1c fp8 H=32: {ms:.4f} ms ({call_ms:.4f} with the reorder and LSE merge), "
+            say(f"    K1c fp8 H=32: {ms:.4f} ms ({call_ms:.4f} with the reorder and K1m merge), "
                 f"plain {plain_ms:.4f}, library (SDPA on the dequantized cache, the chunk's "
                 f"causal mask) {lib_ms:.4f}, bound {b_ms:.4f} ({b_by})")
             rows["K1c"] = dict(name="decode_bhsd, chunk mode (B=8, T=5, H=32, Hk=8, S=4096, fp8 KV)",
@@ -651,7 +740,7 @@ def check_k1b(torch, checks, rows):
                 split_len, 1, "bshd")
         got, glse = fat.flash_decode(q, k, v, k_scale=ks4, v_scale=vs4, kv_length=lens,
                                      return_lse=True)
-        ref, rlse = dec.merge_splits(*dec.flash_decode_plain(*args), torch.bfloat16)
+        ref, rlse = plain_merge(*dec.flash_decode_plain(*args), torch.bfloat16)
         torch.cuda.synchronize()
         err, share = row_err(got, ref)
         lerr = float((glse - rlse).abs().max())
@@ -672,7 +761,7 @@ def check_k1b(torch, checks, rows):
             live = int(lens.long().clamp(max=S).sum())
             nbytes = 2 * Hk * live * (D + 4) + 2 * q.numel() * 2 + lens.numel() * 4
             b_ms, b_by = bound(nbytes, 4 * H * D * live)
-            say(f"    K1b fp8: {ms:.4f} ms ({call_ms:.4f} with the scale copies and LSE merge), "
+            say(f"    K1b fp8: {ms:.4f} ms ({call_ms:.4f} with the scale copies and K1m merge), "
                 f"plain {plain_ms:.4f}, library (SDPA on the transposed, dequantized cache) "
                 f"{lib_ms:.4f}, bound {b_ms:.4f} ({b_by})")
             rows["K1b"] = dict(name="decode over a BSHD cache (B=8, H=32, Hk=8, S=4096, fp8 KV)",
@@ -699,7 +788,7 @@ def check_g3(torch, checks):
     nsplit, split_len = dec._splits(8, 8, 4096, None)
     args = (q, k, v, None, None, lens, D ** -0.5, False, dec.CLAMP2_DEC, nsplit, split_len)
     got, glse = dec.flash_decode(q, k, v, kv_length=lens, return_lse=True, kv_layout="bhsd")
-    ref, rlse = dec.merge_splits(*dec.flash_decode_plain(*args), torch.bfloat16)
+    ref, rlse = plain_merge(*dec.flash_decode_plain(*args), torch.bfloat16)
     torch.cuda.synchronize()
     err, share = row_err(got, ref)
     lerr = float((glse - rlse).abs().max())
@@ -811,6 +900,49 @@ def check_k4(torch, checks, rows):
                               ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                               bound_ms=b_ms, bound_by=b_by)
     rows["K4"]["max_abs_err"] = worst
+
+
+K4_SHAPES = (  # (B, Sq, Sk, H, Hk, per-sequence rope): the prefill's and training's
+    (1, 891, 891, 32, 8, False),     # a phase-4 prompt length (ragged tiles)
+    (1, 1000, 1500, 32, 8, False),   # a shifted causal mask (a suffix over a prefix)
+    (2, 1024, 1024, 32, 8, True),    # two sequences, each its own rope positions
+    (1, 2048, 2048, 24, 8, False),   # the 3B-width draft's G=3
+)
+
+
+def check_k4_shapes(torch, checks):
+    """K4 in both softmax modes at K4_SHAPES (causal, rope), against its
+    plain version as check_k4 holds it."""
+    from flash_attn_tpu_torch.ops import flash_fwd as ff
+    from flash_attn_tpu_torch.ops.rope import rope_cos_sin
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    D = 128
+    for B, Sq, Sk, H, Hk, per_seq in K4_SHAPES:
+        q = torch.randn((B, Sq, H, D), generator=g, device="cuda", dtype=torch.bfloat16)
+        k = torch.randn((B, Sk, Hk, D), generator=g, device="cuda", dtype=torch.bfloat16)
+        v = torch.randn((B, Sk, Hk, D), generator=g, device="cuda", dtype=torch.bfloat16)
+        pos = torch.arange(Sq, device="cuda")[None] + (Sk - Sq)
+        if per_seq:
+            pos = pos + 37 * torch.arange(B, device="cuda")[:, None]
+        cos, sin = rope_cos_sin(pos, D, 500000.0)
+        for mode in ("clamped", "online"):
+            clamped = mode == "clamped"
+            out, lse = ff.flash_fwd(q, k, v, causal=True, rope_cos=cos, rope_sin=sin,
+                                    softmax_mode=mode)
+            rout, rlse = ff.flash_fwd_plain(q, k, v, True, D ** -0.5, cos, sin, clamped)
+            torch.cuda.synchronize()
+            err, share = row_err(out, rout)
+            lerr = float((lse - rlse).abs().max())
+            label = f"K4 {mode} B={B} Sq={Sq} Sk={Sk} H={H} Hk={Hk}"
+            ok = checks.check(f"{label} out", share, 1.0) & checks.check(f"{label} lse", lerr, 1e-3)
+            ms = cuda_ms(torch, lambda: ff.flash_fwd_cuda(q, k, v, True, D ** -0.5, cos, sin,
+                                                          clamped))
+            flops = k4_flops(B, Sq, Sk, H, D)
+            say(f"  {label}{' per-sequence rope' if per_seq else ''}: max_abs_err {err:.3e} "
+                f"({share:.3f} of its row's tol), lse err {lerr:.3e} (tol 1e-3) "
+                f"{'ok' if ok else 'FAIL'} | {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s)")
+        del q, k, v
 
 
 def _bwd_inputs(torch, g, B, Sq, Sk, causal, rope, H=32, Hk=8, D=128):
@@ -985,7 +1117,7 @@ def check_k8(torch, checks, rows):
                     nsplit, split_len)
             got, glse = pd.paged_flash_decode(q, k, v, table, lens, k_scale=ks,
                                               v_scale=vs, return_lse=True)
-            ref, rlse = dec.merge_splits(*pd.paged_flash_decode_plain(*args), torch.bfloat16)
+            ref, rlse = plain_merge(*pd.paged_flash_decode_plain(*args), torch.bfloat16)
             # K1 on the same content in a contiguous [B, Hk, S, D] cache
             kc, vc = pd._gather(k, table), pd._gather(v, table)
             kcs = None if ks is None else pd._gather(ks, table)
@@ -1024,7 +1156,7 @@ def check_k8(torch, checks, rows):
                 nbytes = k1_bytes(kc, lens, kcs) + 2 * q.numel() * 2 + lens.numel() * 4 + table.numel() * 4
                 live_rows = int(lens.long().clamp(max=S).sum())
                 b_ms, b_by = bound(nbytes, 4 * H * D * live_rows)
-                say(f"    K8 decode fp8 page=128: {ms:.4f} ms ({call_ms:.4f} with the LSE "
+                say(f"    K8 decode fp8 page=128: {ms:.4f} ms ({call_ms:.4f} with the K1m "
                     f"merge), K1 {k1_ms:.4f}, plain {plain_ms:.4f}, library (SDPA on the "
                     f"gathered, dequantized cache) {lib_ms:.4f}, bound {b_ms:.4f} ({b_by})")
                 rows["K8"] = dict(name="paged_decode, decode mode (B=8, H=32, Hk=8, page=128, "
@@ -1046,11 +1178,12 @@ def check_k8(torch, checks, rows):
         lens = torch.tensor([kv_len], dtype=torch.int32, device="cuda")
         clamped, clamp2 = _mode_args(dec, k.dtype)
         q2 = qc.reshape(1, T, Hk, H // Hk, D).transpose(1, 2).reshape(1, Hk * T * (H // Hk), D).contiguous()
-        nsplit, split_len = dec._splits(pd._row_tiles(T * H // Hk), Hk, S, None)
+        nsplit, split_len = dec._splits(pd._row_tiles(T * H // Hk), Hk, S, None,
+                                        pd._CHUNK_TARGET_BLOCKS)
         args = (q2, k, v, ks, vs, table, lens, D ** -0.5, clamped, clamp2, T, nsplit, split_len)
         got, glse = pd.paged_flash_decode_chunk(qc, k, v, table, lens, k_scale=ks,
                                                 v_scale=vs, return_lse=True)
-        ref2, rlse2 = dec.merge_splits(*pd.paged_flash_decode_plain(*args), torch.bfloat16)
+        ref2, rlse2 = plain_merge(*pd.paged_flash_decode_plain(*args), torch.bfloat16)
         torch.cuda.synchronize()
         ref = ref2.reshape(1, Hk, T, H // Hk, D).transpose(1, 2).reshape(1, T, H, D)
         rlse = rlse2.reshape(1, Hk, T, H // Hk).transpose(1, 2).reshape(1, T, H)
@@ -1095,12 +1228,14 @@ def phase_kernels(torch, checks):
     rows = {}
     check_k3(torch, checks, rows)
     check_k1(torch, checks, rows)
+    check_k1m(torch, checks, rows)
     check_k1c(torch, checks, rows)
     check_k1b(torch, checks, rows)
     check_g3(torch, checks)
     torch.cuda.empty_cache()
     check_k2(torch, checks, rows)
     check_k4(torch, checks, rows)
+    check_k4_shapes(torch, checks)
     torch.cuda.empty_cache()
     check_k9_k10(torch, checks, rows)
     torch.cuda.empty_cache()
@@ -1396,9 +1531,10 @@ def _counters():
     from flash_attn_tpu_torch.ops.flash_bwd import flash_bwd_dkv_cuda, flash_bwd_dq_cuda
     from flash_attn_tpu_torch.ops.flash_fwd import flash_fwd_cuda
     from flash_attn_tpu_torch.ops.kv_append import kv_append_cuda
+    from flash_attn_tpu_torch.ops.lse import lse_merge_cuda
     from flash_attn_tpu_torch.ops.paged_decode import paged_flash_decode_cuda
 
-    return ({"K1": flash_decode_cuda, "K2": kv_append_cuda,
+    return ({"K1": flash_decode_cuda, "K1m": lse_merge_cuda, "K2": kv_append_cuda,
              "K3": mm.matmul_int8_cuda, "K3g": mm.matmul_int8_grouped_cuda,
              "K4": flash_fwd_cuda, "K5": mm.matmul_w4a8_cuda,
              "K6": mm.matmul_int4_cuda, "K7": mm.matmul_w8a8_cuda,
@@ -1531,7 +1667,7 @@ def serve_paged(torch, checks, params):
                             ("free pages after both waves", free, num_pages - 1 - resident)):
         if got != want:
             checks.failed.append(f"{RUN_PAGED}: {name} {got}, expected {want}")
-    for key in ("K8", "K8c", "K3", "K4"):
+    for key in ("K8", "K8c", "K1m", "K3", "K4"):
         if total[key] <= 0:
             checks.failed.append(f"{RUN_PAGED}: kernel {key} was not launched: {total}")
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1576,7 +1712,7 @@ def serve_spec(torch, checks, params, plain_tokens):
     runs = {}
     for label in (RUN_SPEC_NGRAM, RUN_SPEC_SELF, RUN_SPEC_3B):
         t1 = time.perf_counter()
-        kv_mode, path = "fp8", ("K1c", "K3", "K4")
+        kv_mode, path = "fp8", ("K1c", "K1m", "K3", "K4")
         if label == RUN_SPEC_NGRAM:
             spec = SpecConfig(num_draft=K, ngram=2)
         elif label == RUN_SPEC_SELF:
@@ -1657,7 +1793,7 @@ def phase_serve(torch, checks):
     from flash_attn_tpu_torch.models import llama
 
     runs = {}
-    base = ("K1", "K2", "K4")
+    base = ("K1", "K1m", "K2", "K4")
 
     def add(label, counts):
         runs[label] = counts
@@ -1765,14 +1901,14 @@ RUN_SPEC_SELF = "phase 9b serve Llama-3-8B int8, bf16 KV, self-draft speculation
 RUN_SPEC_3B = "phase 9c serve Llama-3-8B int8, fp8 KV, Llama-3.2-3B-width draft"
 RUN_TRAIN = (f"phase 8 train Llama-3 8B widths, {TRAIN_LAYERS} layers, B=1 S={TRAIN_SEQ}, "
              f"{TRAIN_STEPS} AdamW steps")
-KERNEL_ROWS = ("K1", "K1c", "K1b", "K2", "K3", "K3g", "K4", "K5", "K6", "K7", "K8", "K8c",
+KERNEL_ROWS = ("K1", "K1m", "K1c", "K1b", "K2", "K3", "K3g", "K4", "K5", "K6", "K7", "K8", "K8c",
                "K9", "K10")
 # the run whose launches a kernel's row reports: the main path that the
-# kernel serves (the 70B serve for the shared K1, K2 and K4, the n-gram
+# kernel serves (the 70B serve for the shared K1, K1m, K2 and K4, the n-gram
 # speculative serve for K1's chunk mode, the paged serve for K8 in both
 # modes, the training run for K9 and K10); K3 grouped and K1 over a BSHD
 # cache have no model path, so their rows report none
-ROW_RUN = {"K1": RUN_70B, "K1c": RUN_SPEC_NGRAM, "K1b": None, "K2": RUN_70B,
+ROW_RUN = {"K1": RUN_70B, "K1m": RUN_70B, "K1c": RUN_SPEC_NGRAM, "K1b": None, "K2": RUN_70B,
            "K3": RUN_8B_INT8, "K3g": None, "K4": RUN_70B, "K5": RUN_8B_W4A8, "K6": RUN_70B,
            "K7": RUN_70B, "K8": RUN_PAGED, "K8c": RUN_PAGED, "K9": RUN_TRAIN, "K10": RUN_TRAIN}
 

@@ -30,6 +30,7 @@ _FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
+L = ctypes.c_int64
 
 # C entry point -> argument types (every pointer and the stream as c_void_p)
 _SIGNATURES = {
@@ -46,6 +47,7 @@ _SIGNATURES = {
                           I, I, I, I, I, I, I, F, I, P],
     "fatt_flash_bwd_dkv": [P, P, P, P, P, P, P, P, P, P,
                            I, I, I, I, I, I, I, F, I, P],
+    "fatt_lse_merge": [P, P, P, P, I, L, I, I, P],
 }
 
 # seconds the last build took in this process (0.0 when it was cached)

@@ -21,16 +21,20 @@
 //     decode mode; in chunk mode a tile of the T*G virtual rows in (t, g)
 //     order, a grid axis over the tiles), so each K/V tile is read from
 //     device memory once per tile of rows, not once per row;
-//   * each 64-row K and V tile is staged in shared memory by all threads
-//     with independent 16-byte loads, then consumed from there: scores by
-//     two threads per row, PV by one thread per head-dim column;
+//   * 64-row K and V tiles and their scales stream through a ring of three
+//     stages (two for bf16) in shared memory, filled by cp.async (16 bytes
+//     a copy, rows past the walk zero-filled), so later tiles are in flight
+//     while the scores and PV of the current one run; stored values are converted to fp32
+//     in registers as they are read from the ring: scores by two threads
+//     per key, PV by one thread per head-dim column;
 //   * each query row has its own causal limit (kv_len in decode mode,
 //     kv_len - (T-1) + t in chunk mode, never past S); tiles at or beyond
 //     the block's highest limit are never read;
 //   * a split-KV grid axis (blockIdx.y) cuts the sequence so that B*Hk
 //     blocks (64 at batch 8) become enough to fill 132 SMs; each split
 //     writes an fp32 (out, lse) partial that the wrapper merges with the
-//     LSE rule (ops/lse.py).
+//     LSE rule in one launch of K1m (csrc/lse_merge.cu); since a merge is
+//     one launch, the wrapper aims at six blocks an SM (ops/decode.py).
 // Dequantization is fused: scores are scaled by the K scale of their
 // position and p by the V scale before the PV product, as on the TPU.  The
 // softmax scale rides on q (qscale, rounded to bf16 as B1 folds it) or on
@@ -46,8 +50,21 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 64;
 constexpr int kMaxRows = 8;  // query rows per block
 constexpr int kMaxD = 128;
-constexpr int kRowPad = 32;  // bytes; shifts successive rows by 8 banks
-constexpr int kRowBytes = kMaxD * 2 + kRowPad;
+
+// Ring layout of one KV type: per stage a K tile, a V tile (rows padded so
+// that the two threads of a key and the keys of a quarter warp hit distinct
+// banks), then the K and V scales of the tile's positions.  Three stages of
+// 1-byte tiles (63 KB a block with q and the scores, three blocks an SM),
+// two of bf16 tiles (81 KB, two blocks an SM).
+template <int KV>
+struct Ring {
+  static constexpr int kStages = KV == fatt::kBf16 ? 2 : 3;
+  static constexpr int kElem = KV == fatt::kBf16 ? 2 : 1;
+  static constexpr int kRowBytes = kMaxD * kElem + (KV == fatt::kBf16 ? 32 : 16);
+  static constexpr int kTileBytes = kTile * kRowBytes;
+  static constexpr int kStageBytes = 2 * kTileBytes + 2 * kTile * 4;
+  static constexpr int kBytes = kStages * kStageBytes;
+};
 
 // Eight consecutive stored elements as floats.
 template <int KV>
@@ -81,7 +98,9 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
     float* __restrict__ part_lse, int B, int Hk, int R, int chunk, int S,
     int D, int split_len, float qscale, float sscale, int clamped,
     float clamp2) {
-  constexpr int kElem = KV == fatt::kBf16 ? 2 : 1;
+  using L = Ring<KV>;
+  constexpr int kElem = L::kElem;
+  constexpr int kRowBytes = L::kRowBytes;
   const int b = blockIdx.x / Hk;
   const int hk = blockIdx.x % Hk;
   const int split = blockIdx.y;
@@ -94,11 +113,9 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
   const int warp = tid >> 5;
   const int64_t qrow0 = ((int64_t)b * Hk + hk) * R + r0;  // this block's row 0
 
-  __shared__ __align__(16) unsigned char k_s[kTile * kRowBytes];
-  __shared__ __align__(16) unsigned char v_s[kTile * kRowBytes];
+  extern __shared__ __align__(16) unsigned char ring[];
   __shared__ float q_s[kMaxRows][kMaxD];
   __shared__ float s_s[kMaxRows][kTile];
-  __shared__ float ks_s[kTile], vs_s[kTile];
   __shared__ float m_s[kMaxRows], l_s[kMaxRows], a_s[kMaxRows];
 
   // q pre-scaled in bf16, as the TPU kernel folds the softmax scale into
@@ -140,28 +157,48 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
   const unsigned char* kb = static_cast<const unsigned char*>(k);
   const unsigned char* vb = static_cast<const unsigned char*>(v);
 
-  for (int t0 = lo; t0 < hi; t0 += kTile) {
+  const int n_tiles = hi > lo ? (hi - lo + kTile - 1) / kTile : 0;
+
+  // Tile i of this split into ring stage i % kStages (rows past the walk
+  // zero-filled; their scores are masked and their p is 0).
+  auto load_tile = [&](int i) {
+    unsigned char* st = ring + (i % L::kStages) * L::kStageBytes;
+    const int t0 = lo + i * kTile;
     const int nvalid = min(kTile, hi - t0);
-    __syncthreads();  // the previous tile is consumed; q_s/stats are set
-    // Stage the K and V tiles (rows past nvalid are zero).
-    for (int i = tid; i < kTile * chunks; i += kThreads) {
-      const int r = i / chunks, c = i % chunks;
-      uint4 kv4 = make_uint4(0, 0, 0, 0), vv4 = make_uint4(0, 0, 0, 0);
-      if (r < nvalid) {
-        const int64_t off = (row0 + (int64_t)(t0 + r) * t_stride) * row_bytes + c * 16;
-        kv4 = *reinterpret_cast<const uint4*>(kb + off);
-        vv4 = *reinterpret_cast<const uint4*>(vb + off);
-      }
-      *reinterpret_cast<uint4*>(k_s + r * kRowBytes + c * 16) = kv4;
-      *reinterpret_cast<uint4*>(v_s + r * kRowBytes + c * 16) = vv4;
+    for (int e = tid; e < kTile * chunks; e += kThreads) {
+      const int r = e / chunks, c = e % chunks;
+      const bool in = r < nvalid;
+      const int64_t off = (row0 + (int64_t)(in ? t0 + r : lo) * t_stride) * row_bytes + c * 16;
+      fatt::cp_async16(fatt::smem_u32(st + r * kRowBytes + c * 16), kb + off, in ? 16 : 0);
+      fatt::cp_async16(fatt::smem_u32(st + L::kTileBytes + r * kRowBytes + c * 16), vb + off,
+                       in ? 16 : 0);
     }
-    if (tid < kTile) {
-      const bool in = KV != fatt::kBf16 && tid < nvalid;
-      const int64_t row = row0 + (int64_t)(t0 + tid) * t_stride;
-      ks_s[tid] = in ? ks[row] : 1.f;
-      vs_s[tid] = in ? vs[row] : 0.f;
+    if constexpr (KV != fatt::kBf16) {
+      const int r = tid % kTile;
+      const bool in = r < nvalid;
+      const int64_t row = row0 + (int64_t)(in ? t0 + r : lo) * t_stride;
+      const float* src = tid < kTile ? ks + row : vs + row;
+      fatt::cp_async4(fatt::smem_u32(st + 2 * L::kTileBytes + (tid / kTile) * kTile * 4 + r * 4),
+                      src, in ? 4 : 0);
     }
-    __syncthreads();
+  };
+#pragma unroll
+  for (int i = 0; i < L::kStages - 1; ++i) {
+    if (i < n_tiles) load_tile(i);
+    fatt::cp_async_commit();
+  }
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int t0 = lo + it * kTile;
+    const int nvalid = min(kTile, hi - t0);
+    fatt::cp_async_wait<L::kStages - 2>();
+    __syncthreads();  // tile it has landed; tile it-1 is consumed; q_s/stats are set
+    if (it + L::kStages - 1 < n_tiles) load_tile(it + L::kStages - 1);
+    fatt::cp_async_commit();
+    const unsigned char* k_s = ring + (it % L::kStages) * L::kStageBytes;
+    const unsigned char* v_s = k_s + L::kTileBytes;
+    const float* ks_s = reinterpret_cast<const float*>(k_s + 2 * L::kTileBytes);
+    const float* vs_s = ks_s + kTile;
 
     // Phase 1: s[g][j] = (q_g . k_j) * k_scale_j * sscale, masked past the
     // row's limit; two threads per key j, each taking alternate 8-element
@@ -191,7 +228,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
           if (g < nrows) {
             bool keep = j < nvalid;
             if constexpr (kChunk) keep = keep && t0 + j < lim[g];
-            float s = dots[g] * ks_s[j];
+            float s = KV != fatt::kBf16 ? dots[g] * ks_s[j] : dots[g];
             if constexpr (kBshd) s *= sscale;
             s_s[g][j] = keep ? s : kNegInf;
           }
@@ -241,6 +278,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
       }
     }
   }
+  fatt::cp_async_wait<0>();
   __syncthreads();
 
   // Finalize: a row is valid iff some unmasked score was seen.
@@ -274,8 +312,12 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
            void* part_lse, int B, int Hk, int R, int chunk, int S, int D,
            int num_splits, int split_len, float qscale, float sscale,
            int clamped, float clamp2, cudaStream_t st) {
+  auto kernel = decode_kernel<KV, kChunk, kBshd>;
+  static fatt::SmemLimitSet smem_set;  // one for each instance
+  cudaError_t e = fatt::smem_limit_once(kernel, Ring<KV>::kBytes, smem_set);
+  if (e != cudaSuccess) return (int)e;
   dim3 grid(B * Hk, num_splits, (R + kMaxRows - 1) / kMaxRows);
-  decode_kernel<KV, kChunk, kBshd><<<grid, kThreads, 0, st>>>(
+  kernel<<<grid, kThreads, Ring<KV>::kBytes, st>>>(
       static_cast<const __nv_bfloat16*>(q), k, v, static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const int*>(kv_len),
       static_cast<__nv_bfloat16*>(out), static_cast<float*>(part_out),

@@ -3,223 +3,364 @@
 // softmax, fp32 LSE.
 //
 // Replaces flash_attn_tpu/ops/flash_fwd.py:_fwd_kernel on the subset the
-// Llama prefill uses (models/llama.py prefill_with_kv).
+// Llama prefill and the training forward use (models/llama.py).
 //
 // Bound on the H100: operations.  At S = 2048, D = 128 the causal half of
 // QK^T and PV is ~4*S^2*D/2 flops per head against ~4*S*D bytes, far above
-// the ridge, so the tensor cores set the bound.  The design keeps scores
-// and probabilities out of device memory:
-//   * one block per (64-query tile, head, batch); 4 warps, each owning 16
-//     query rows; Q is loaded once, scaled, rotated in fp32 and rounded to
-//     bf16 (as flash_fwd.py:146-160 does), then K/V tiles of 64 keys
-//     stream through shared memory;
-//   * QK^T and PV run on the tensor cores (WMMA bf16, fp32 accumulate);
-//     the softmax runs on the fp32 scores in shared memory, p is rounded
-//     to bf16 for the PV product, as on the TPU;
-//   * tiles wholly above the causal diagonal are never loaded;
+// the ridge, so the tensor cores set the bound.  The design keeps every
+// intermediate in registers and the tensor cores fed:
+//   * one block per (64-query tile, head, batch): one warpgroup of 4 warps,
+//     16 query rows each.  Each thread builds its Q fragments straight from
+//     device memory: scaled, rounded to bf16, rotated in fp32 and rounded
+//     again (as flash_fwd.py:146-160 does); a column and its rotation
+//     partner 64 away land in the same thread;
+//   * QK^T and PV run on wgmma m64n64k16 (bf16 in, fp32 accumulate): A (Q,
+//     then P) from registers, B (K, then V transposed) read by descriptor
+//     from shared memory once for the warpgroup's 64 rows.  Scores, the
+//     running max and sum, and the O accumulator live in registers for the
+//     whole KV loop; P is packed to bf16 straight from the score
+//     accumulators, whose layout is the A-fragment layout; O is written
+//     once, at the end, through the drained ring;
+//   * K/V tiles of 64 keys arrive by cp.async into a two-stage ring, so the
+//     next tile loads while the current one computes; rows past Sk are
+//     zero-filled (src-size 0), so V rows that p = 0 multiplies are finite.
+//     The ring holds each tile as two 64-column halves in the 128-byte
+//     swizzle that wgmma reads, which also keeps the cp.async writes free
+//     of bank conflicts.  65 KB and 167 registers a block: three blocks an
+//     SM;
+//   * only tiles that a warp's diagonal (or Sk's ragged edge) crosses are
+//     masked element by element; tiles above the diagonal are never
+//     loaded; the heavy (last) query tiles are scheduled first;
 //   * the KV head is h / (H / Hk): GQA without a materialised broadcast.
 // Scores are in base-2 units (log2(e) folded into the q pre-scale).
 // Clamped mode drops the running max: p = 2^min(s, 80), no rescale.
-#include <mma.h>
-
 #include "common.cuh"
 
 namespace {
 
-using namespace nvcuda;
 using fatt::kNegInf;
 
-constexpr int kBQ = 64;
-constexpr int kBK = 64;
-constexpr int kWarps = 4;
+constexpr int kD = 128;
+constexpr int kBQ = 64;  // query rows per block: one warpgroup
+constexpr int kBK = 64;  // keys per tile
+constexpr int kWarps = kBQ / 16;
 constexpr int kThreads = kWarps * 32;
+constexpr int kStages = 2;
+constexpr int kRowBytes = kD * 2;
+constexpr int kChunks = kRowBytes / 16;  // 16-byte chunks per row
+constexpr int kTileBytes = kBK * kRowBytes;
+constexpr int kHalfBytes = kBK * 128;  // 64 columns of a K/V tile (wgmma layout)
+// + 1024: the ring starts at the next 1024-byte boundary (the swizzle atom)
+constexpr int kSmemBytes = kStages * 2 * kTileBytes + 1024;
 constexpr float kClamp2 = 80.f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-template <int D>
-struct Smem {
-  static constexpr int kQLd = D + 8;    // bf16 stride of Q/K/V tiles
-  static constexpr int kSLd = kBK + 4;  // fp32 stride of scores
-  static constexpr int kPLd = kBK + 8;  // bf16 stride of probabilities
-  static constexpr int kOLd = D + 4;    // fp32 stride of the accumulator
-  static constexpr size_t kQ = 0;
-  static constexpr size_t kK = kQ + (size_t)kBQ * kQLd * 2;
-  static constexpr size_t kV = kK + (size_t)kBK * kQLd * 2;
-  static constexpr size_t kS = kV + (size_t)kBK * kQLd * 2;
-  static constexpr size_t kP = kS + (size_t)kBQ * kSLd * 4;
-  static constexpr size_t kO = kP + (size_t)kBQ * kPLd * 2;
-  static constexpr size_t kBytes = kO + (size_t)kBQ * kOLd * 4;
-};
+// Byte offset of 16-byte chunk c of row r in a swizzled [rows][kD] tile.
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return r * kRowBytes + ((c ^ (r & 7)) << 4);
+}
 
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
+// The same for a K/V ring tile, as two wgmma halves.
+__device__ __forceinline__ uint32_t kv_off(int r, int c) {
+  return (c >> 3) * kHalfBytes + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+}
+
+// Warpgroup products (sm_90a).  K and V tiles sit in shared memory as two
+// halves of 64 columns, [half][row][128 bytes], each 16-byte chunk c of row
+// r stored at chunk c ^ (r & 7): the 128-byte swizzle of a wgmma operand,
+// whose 8-row groups lie 1024 bytes apart.  Every operand an instruction
+// reads spans one swizzle atom in its contiguous dimension (K: 16 of 64
+// columns; V: 64 of 64), so the descriptor's leading offset is unused.
+__device__ __forceinline__ uint64_t wg_desc(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving accumulators across an asynchronous product.
+template <int N>
+__device__ __forceinline__ void pin(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 64 fp32, this thread's 32) = a (64 x 16 bf16 from registers, the
+// mma.sync A layout per warp) * B (16 x 64 from shared memory) + (scale_d ? d
+// : 0).  kTransB 0: B K-major (rows of K); 1: B N-major (rows of V).
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t desc,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d), "n"(kTransB));
+}
+
+__global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const float* __restrict__ cosv,
     const float* __restrict__ sinv, __nv_bfloat16* __restrict__ out,
     float* __restrict__ lse, int Sq, int Sk, int H, int Hk,
     int rope_bstride, float eff_scale, int causal, int clamped) {
-  using L = Smem<D>;
   extern __shared__ __align__(128) unsigned char smem[];
-  auto Qs = reinterpret_cast<__nv_bfloat16*>(smem + L::kQ);
-  auto Ks = reinterpret_cast<__nv_bfloat16*>(smem + L::kK);
-  auto Vs = reinterpret_cast<__nv_bfloat16*>(smem + L::kV);
-  auto Ss = reinterpret_cast<float*>(smem + L::kS);
-  auto Ps = reinterpret_cast<__nv_bfloat16*>(smem + L::kP);
-  auto Os = reinterpret_cast<float*>(smem + L::kO);
+  const uint32_t s_base = fatt::smem_u32(smem);
+  const uint32_t kv_base = (s_base + 1023) & ~1023u;
+  // The ring's first stage holds O on its way out once the ring is drained.
+  unsigned char* Os = smem + (kv_base - s_base);
 
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int qt = gridDim.z - 1 - blockIdx.z;  // heavy causal tiles first
   const int kvh = h / (H / Hk);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int row0 = qt * kBQ;
   const int shift = Sk - Sq;  // bottom-right causal alignment
-  constexpr int D2 = D / 2;
-
-  // Q tile: scale in fp32, round to bf16, rotate (rotate-half) in fp32
-  // with the row's cos/sin, round to bf16.  Rows >= Sq are zero.
-  for (int i = tid; i < kBQ * D2; i += kThreads) {
-    const int r = i / D2, c = i % D2;
-    const int gq = row0 + r;
-    float o1 = 0.f, o2 = 0.f;
-    if (gq < Sq) {
-      const int64_t base = (((int64_t)b * Sq + gq) * H + h) * D;
-      const float x1 = fatt::bf16_round(__bfloat162float(q[base + c]) * eff_scale);
-      const float x2 = fatt::bf16_round(__bfloat162float(q[base + c + D2]) * eff_scale);
-      if (cosv != nullptr) {
-        const int64_t t = (int64_t)b * rope_bstride + (int64_t)gq * D2 + c;
-        const float cs = cosv[t], sn = sinv[t];
-        o1 = x1 * cs - x2 * sn;
-        o2 = x2 * cs + x1 * sn;
-      } else {
-        o1 = x1;
-        o2 = x2;
-      }
-    }
-    Qs[r * L::kQLd + c] = __float2bfloat16(o1);
-    Qs[r * L::kQLd + c + D2] = __float2bfloat16(o2);
-  }
-  for (int i = tid; i < kBQ * D; i += kThreads) Os[(i / D) * L::kOLd + i % D] = 0.f;
-
-  // Row statistics: lane pair (2r', 2r'+1) of warp w owns row w*16 + r'.
-  const int my_row = warp * 16 + (lane >> 1);
-  const int half = (lane & 1) * (kBK / 2);
-  const int g_row = row0 + my_row;
-  float m_run = kNegInf, l_run = 0.f;
 
   int kv_end = Sk;
   if (causal) kv_end = min(Sk, min(row0 + kBQ - 1, Sq - 1) + shift + 1);
+  const int n_tiles = kv_end > 0 ? (kv_end + kBK - 1) / kBK : 0;
 
-  for (int k0 = 0; k0 < kv_end; k0 += kBK) {
-    __syncthreads();  // previous tile fully consumed
-    for (int i = tid; i < kBK * D / 8; i += kThreads) {
-      const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-      uint4 kv4 = make_uint4(0, 0, 0, 0), vv4 = make_uint4(0, 0, 0, 0);
-      if (k0 + r < Sk) {
-        const int64_t g = (((int64_t)b * Sk + k0 + r) * Hk + kvh) * D + c;
-        kv4 = *reinterpret_cast<const uint4*>(k + g);
-        vv4 = *reinterpret_cast<const uint4*>(v + g);
+  // K and V of the tile at key k0 into ring stage st.
+  auto load_tile = [&](int st, int k0) {
+    const uint32_t ks = kv_base + st * 2 * kTileBytes;
+    const uint32_t vs = ks + kTileBytes;
+    for (int i = tid; i < kBK * kChunks; i += kThreads) {
+      const int r = i / kChunks, c = i % kChunks;
+      const bool in = k0 + r < Sk;
+      const int64_t g = (((int64_t)b * Sk + (in ? k0 + r : 0)) * Hk + kvh) * kD + c * 8;
+      fatt::cp_async16(ks + kv_off(r, c), k + g, in ? 16 : 0);
+      fatt::cp_async16(vs + kv_off(r, c), v + g, in ? 16 : 0);
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < n_tiles) load_tile(i, i * kBK);
+    fatt::cp_async_commit();
+  }
+
+  // Q: scale in fp32, round to bf16, rotate (rotate-half) in fp32 with the
+  // row's cos/sin, round to bf16.  Rows >= Sq are zero.
+  uint32_t qf[kD / 16][4];  // this warp's 16 rows as A fragments, 16 columns each
+  // Straight into the fragments: this thread holds columns 16kk + 2(lane%4)
+  // + {0, 1} (+ 8) of rows lane/4 and lane/4 + 8; column c < 64 and its
+  // rotation partner c + 64 sit in fragments kk and kk + 4 of one thread.
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int gq = row0 + warp * 16 + (lane >> 2) + hf * 8;
+    const bool in = gq < Sq;
+    const __nv_bfloat16* src = q + (((int64_t)b * Sq + (in ? gq : 0)) * H + h) * kD;
+    const int64_t t = (int64_t)b * rope_bstride + (int64_t)(in ? gq : 0) * (kD / 2);
+#pragma unroll
+    for (int kk = 0; kk < kD / 32; ++kk) {
+#pragma unroll
+      for (int h8 = 0; h8 < 2; ++h8) {
+        const int c = kk * 16 + h8 * 8 + (lane & 3) * 2;
+        float2 x1 = make_float2(0.f, 0.f), x2 = make_float2(0.f, 0.f);
+        if (in) {
+          x1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(src + c));
+          x2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(src + c + kD / 2));
+        }
+        float a[2] = {fatt::bf16_round(x1.x * eff_scale), fatt::bf16_round(x1.y * eff_scale)};
+        float e[2] = {fatt::bf16_round(x2.x * eff_scale), fatt::bf16_round(x2.y * eff_scale)};
+        if (cosv != nullptr) {
+          const float2 cs = *reinterpret_cast<const float2*>(cosv + t + c);
+          const float2 sn = *reinterpret_cast<const float2*>(sinv + t + c);
+          const float cv[2] = {cs.x, cs.y}, sv[2] = {sn.x, sn.y};
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const float o1 = __fsub_rn(__fmul_rn(a[u], cv[u]), __fmul_rn(e[u], sv[u]));
+            const float o2 = __fadd_rn(__fmul_rn(e[u], cv[u]), __fmul_rn(a[u], sv[u]));
+            a[u] = o1;
+            e[u] = o2;
+          }
+        }
+        qf[kk][hf + 2 * h8] = fatt::pack_bf16(a[0], a[1]);
+        qf[kk + kD / 32][hf + 2 * h8] = fatt::pack_bf16(e[0], e[1]);
       }
-      *reinterpret_cast<uint4*>(Ks + r * L::kQLd + c) = kv4;
-      *reinterpret_cast<uint4*>(Vs + r * L::kQLd + c) = vv4;
-    }
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows (fp32 into shared memory).
-#pragma unroll
-    for (int j = 0; j < kBK / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sf;
-      wmma::fill_fragment(sf, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < D; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> bt;
-        wmma::load_matrix_sync(a, Qs + warp * 16 * L::kQLd + kk, L::kQLd);
-        wmma::load_matrix_sync(bt, Ks + j * 16 * L::kQLd + kk, L::kQLd);
-        wmma::mma_sync(sf, a, bt, sf);
-      }
-      wmma::store_matrix_sync(Ss + warp * 16 * L::kSLd + j * 16, sf, L::kSLd,
-                              wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // Softmax on this lane's 32 columns of its row.
-    float* srow = Ss + my_row * L::kSLd + half;
-    float mx = kNegInf;
-#pragma unroll 8
-    for (int c = 0; c < kBK / 2; ++c) {
-      const int col = k0 + half + c;
-      float s = srow[c];
-      if (col >= Sk || (causal && col > g_row + shift)) s = kNegInf;
-      srow[c] = s;
-      mx = fmaxf(mx, s);
-    }
-    float alpha = 1.f, m_new = 0.f;
-    if (!clamped) {
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      m_new = fmaxf(m_run, mx);
-      alpha = exp2f(m_run - m_new);
-      m_run = m_new;
-    }
-    float psum = 0.f;
-    __nv_bfloat16* prow = Ps + my_row * L::kPLd + half;
-#pragma unroll 8
-    for (int c = 0; c < kBK / 2; ++c) {
-      const float p = clamped ? exp2f(fminf(srow[c], kClamp2)) : exp2f(srow[c] - m_new);
-      psum += p;
-      prow[c] = __float2bfloat16(p);
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    l_run = l_run * alpha + psum;
-    if (!clamped) {
-      float* orow = Os + my_row * L::kOLd + (lane & 1) * D2;
-      for (int c = 0; c < D2; ++c) orow[c] *= alpha;
-    }
-    __syncwarp();
-
-    // O += P V for this warp's rows, accumulated through shared memory.
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> of;
-      float* optr = Os + warp * 16 * L::kOLd + n * 16;
-      wmma::load_matrix_sync(of, optr, L::kOLd, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < kBK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bv;
-        wmma::load_matrix_sync(a, Ps + warp * 16 * L::kPLd + kk, L::kPLd);
-        wmma::load_matrix_sync(bv, Vs + kk * L::kQLd + n * 16, L::kQLd);
-        wmma::mma_sync(of, a, bv, of);
-      }
-      wmma::store_matrix_sync(optr, of, L::kOLd, wmma::mem_row_major);
     }
   }
-  __syncthreads();
 
-  // Finalize: out = O / l; lse in natural-log units.
-  const bool valid = l_run > 0.f && (clamped || m_run > kNegInf / 2);
-  if (g_row < Sq) {
-    const float* orow = Os + my_row * L::kOLd;
-    __nv_bfloat16* dst = out + (((int64_t)b * Sq + g_row) * H + h) * D;
-    for (int c = (lane & 1) * D2; c < (lane & 1) * D2 + D2; ++c)
-      dst[c] = __float2bfloat16(valid ? orow[c] / l_run : 0.f);
-    if ((lane & 1) == 0) {
-      float l = kNegInf;
-      if (valid) l = clamped ? logf(l_run) : m_run * kLn2 + logf(l_run);
-      lse[((int64_t)b * H + h) * Sq + g_row] = l;
+  float o[kD / 8][4];
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  // This thread's rows: wrow0 + lane/4 (accumulator entries 0, 1) and 8
+  // below it (entries 2, 3).  l_run holds this thread's share of the sum;
+  // the quad's four shares are added at the end.
+  const int wrow0 = row0 + warp * 16;
+  const int my_row = wrow0 + (lane >> 2);
+  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + kStages - 1 < n_tiles) load_tile((t + kStages - 1) % kStages, (t + kStages - 1) * kBK);
+    fatt::cp_async_commit();
+    fatt::cp_async_wait<kStages - 1>();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // cp.async -> wgmma
+    __syncthreads();
+    const uint32_t ks = kv_base + (t % kStages) * 2 * kTileBytes;
+    const uint32_t vs = ks + kTileBytes;
+    const int k0 = t * kBK;
+
+    // S = Q K^T: 16 rows x 64 keys as eight n8 tiles.
+    float s[kBK / 8][4];
+#pragma unroll
+    for (int j = 0; j < kBK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    {
+      auto& sd = reinterpret_cast<float(&)[32]>(s);
+      pin(sd);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk)
+        wgmma_rs<0>(sd, qf[kk], wg_desc(ks + (kk >> 2) * kHalfBytes + (kk & 3) * 32), kk > 0);
+      wg_commit();
+      wg_wait_all();
+      pin(sd);
     }
+
+    // Mask only where this warp's diagonal or Sk's edge crosses the tile.
+    const bool edge = k0 + kBK > Sk || (causal && k0 + kBK - 1 > wrow0 + shift);
+    if (edge) {
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + j * 8 + (lane & 3) * 2 + (e & 1);
+          const int row = my_row + (e >> 1) * 8;
+          if (col >= Sk || (causal && col > row + shift)) s[j][e] = kNegInf;
+        }
+    }
+
+    // Softmax in registers; P to bf16 A fragments (keys 16c..16c+15).
+    uint32_t pf[kBK / 16][4];
+    float alpha[2] = {1.f, 1.f};
+    if (!clamped) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float mx = kNegInf;
+#pragma unroll
+        for (int j = 0; j < kBK / 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * hf], s[j][2 * hf + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m_run[hf], mx);
+        alpha[hf] = exp2f(m_run[hf] - m_new);
+        m_run[hf] = m_new;
+      }
+    }
+    float psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < kBK / 8; ++j) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[e] = clamped ? exp2f(fminf(s[j][e], kClamp2)) : exp2f(s[j][e] - m_run[e >> 1]);
+        psum[e >> 1] += p[e];
+      }
+      pf[j / 2][(j & 1) * 2] = fatt::pack_bf16(p[0], p[1]);
+      pf[j / 2][(j & 1) * 2 + 1] = fatt::pack_bf16(p[2], p[3]);
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) l_run[hf] = l_run[hf] * alpha[hf] + psum[hf];
+    if (!clamped) {
+#pragma unroll
+      for (int j = 0; j < kD / 8; ++j) {
+        o[j][0] *= alpha[0];
+        o[j][1] *= alpha[0];
+        o[j][2] *= alpha[1];
+        o[j][3] *= alpha[1];
+      }
+    }
+
+    // O += P V.
+    {
+      auto& o0 = reinterpret_cast<float(&)[32]>(o[0]);
+      auto& o1 = reinterpret_cast<float(&)[32]>(o[kD / 16]);
+      pin(o0);
+      pin(o1);
+      wg_fence();
+#pragma unroll
+      for (int kc = 0; kc < kBK / 16; ++kc) {
+        wgmma_rs<1>(o0, pf[kc], wg_desc(vs + kc * 16 * 128), 1);
+        wgmma_rs<1>(o1, pf[kc], wg_desc(vs + kHalfBytes + kc * 16 * 128), 1);
+      }
+      wg_commit();
+      wg_wait_all();
+      pin(o0);
+      pin(o1);
+    }
+    __syncthreads();  // the stage is consumed before the ring refills it
+  }
+  fatt::cp_async_wait<0>();
+
+  // Finalize: out = O / l (staged in this warp's rows of the drained ring,
+  // then written as 16-byte rows); lse in natural-log units.
+  float inv[2];
+  bool valid[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    float l = l_run[hf];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    valid[hf] = l > 0.f && (clamped || m_run[hf] > kNegInf / 2);
+    inv[hf] = valid[hf] ? 1.f / l : 0.f;
+    const int row = my_row + hf * 8;
+    if ((lane & 3) == 0 && row < Sq) {
+      float x = kNegInf;
+      if (valid[hf]) x = clamped ? logf(l) : m_run[hf] * kLn2 + logf(l);
+      lse[((int64_t)b * H + h) * Sq + row] = x;
+    }
+  }
+  const int lr = warp * 16 + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const float x0 = valid[hf] ? o[j][2 * hf] * inv[hf] : 0.f;
+      const float x1 = valid[hf] ? o[j][2 * hf + 1] * inv[hf] : 0.f;
+      *reinterpret_cast<uint32_t*>(Os + swz(lr + hf * 8, j) + (lane & 3) * 4) =
+          fatt::pack_bf16(x0, x1);
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int it = 0; it < 16 * kChunks / 32; ++it) {
+    const int idx = it * 32 + lane;
+    const int r = warp * 16 + idx / kChunks, c = idx % kChunks;
+    const int grow = row0 + r;
+    if (grow < Sq)
+      *reinterpret_cast<uint4*>(out + (((int64_t)b * Sq + grow) * H + h) * kD + c * 8) =
+          *reinterpret_cast<const uint4*>(Os + swz(r, c));
   }
 }
 
-template <int D>
 int launch(const void* q, const void* k, const void* v, const void* cosv,
            const void* sinv, void* out, void* lse, int B, int Sq, int Sk, int H,
            int Hk, int rope_bstride, float eff_scale, int causal, int clamped,
            cudaStream_t st) {
-  const size_t bytes = Smem<D>::kBytes;
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  static fatt::SmemLimitSet smem_set;
+  cudaError_t e = fatt::smem_limit_once(flash_fwd_kernel, kSmemBytes, smem_set);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_fwd_kernel<D><<<grid, kThreads, bytes, st>>>(
+  dim3 grid(H, B, (Sq + kBQ - 1) / kBQ);
+  flash_fwd_kernel<<<grid, kThreads, kSmemBytes, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(cosv),
       static_cast<const float*>(sinv), static_cast<__nv_bfloat16*>(out),
@@ -237,9 +378,9 @@ extern "C" int fatt_flash_fwd(const void* q, const void* k, const void* v,
                               void* lse, int B, int Sq, int Sk, int H, int Hk,
                               int D, int rope_bstride, float eff_scale,
                               int causal, int clamped, void* stream) {
-  // Only head_dim 128 (Llama-3) is built; another D needs a card check.
-  if (H % Hk != 0 || D != 128) return (int)cudaErrorInvalidValue;
-  return launch<128>(q, k, v, cosv, sinv, out, lse, B, Sq, Sk, H, Hk,
-                     rope_bstride, eff_scale, causal, clamped,
-                     static_cast<cudaStream_t>(stream));
+  // Only head_dim 128 (Llama-3) is built.
+  if (H % Hk != 0 || D != kD || B > 65535 || (Sq + kBQ - 1) / kBQ > 65535)
+    return (int)cudaErrorInvalidValue;
+  return launch(q, k, v, cosv, sinv, out, lse, B, Sq, Sk, H, Hk, rope_bstride,
+                eff_scale, causal, clamped, static_cast<cudaStream_t>(stream));
 }

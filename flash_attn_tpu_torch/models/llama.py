@@ -19,10 +19,12 @@ top level tok_emb, final_norm, lm_head.  A weight is any kind that
 The LM head takes fp32 activations as in the JAX model.  A float head
 runs as an fp32 matmul: the first call that needs it stores an fp32 copy
 in the params dict under ``"_lm_head_f32"`` (about 2.1 GB at the 8B
-shape), so no step converts it.  A quantized head (``head_mode``) is used
-as it is.  The training ``forward`` keeps no such copy: its fp32 head is
-made from the bf16 one at each call, so it follows the optimizer's updates
-and passes the gradient back to ``lm_head``.
+shape) beside the head tensor and its version counter, so no step
+converts it and a head changed in place (a training step) is copied
+anew.  A quantized head (``head_mode``) is used as it is.  The training
+``forward`` keeps no such copy: its fp32 head is made from the bf16 one
+at each call, so it follows the optimizer's updates and passes the
+gradient back to ``lm_head``.
 """
 
 from __future__ import annotations
@@ -228,15 +230,19 @@ def _block_mlp(x, blk, cfg):
 
 def _logits(params, x, cfg):
     """LM head on the fp32 final-normed hidden state: a float head as an
-    fp32 matmul, a quantized one through its kernel."""
-    head = params.get("_lm_head_f32")
-    if head is None:
-        w = params["tok_emb"].T if cfg.tie_embeddings else params["lm_head"]
-        if not isinstance(w, torch.Tensor):
-            return _proj(x.float(), w)
-        head = w.float().contiguous()
-        params["_lm_head_f32"] = head
-    return _proj(x.float(), head)
+    fp32 matmul, a quantized one through its kernel.  The fp32 copy is
+    kept with the tensor it was made from and that tensor's version, and
+    made anew once either changes (an optimizer step updates the head in
+    place)."""
+    src = params["tok_emb"] if cfg.tie_embeddings else params["lm_head"]
+    if not isinstance(src, torch.Tensor):
+        return _proj(x.float(), src)
+    cached = params.get("_lm_head_f32")
+    if cached is None or cached[0] is not src or cached[1] != src._version:
+        w = src.T if cfg.tie_embeddings else src
+        cached = (src, src._version, w.float().contiguous())
+        params["_lm_head_f32"] = cached
+    return _proj(x.float(), cached[2])
 
 
 def _qkv(h, blk, cfg, b, s):

@@ -30,7 +30,7 @@ from __future__ import annotations
 import torch
 
 from flash_attn_tpu_torch import _build
-from flash_attn_tpu_torch.ops.lse import lse_merge
+from flash_attn_tpu_torch.ops.lse import lse_merge, lse_merge_cuda
 
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
@@ -41,8 +41,10 @@ CLAMP2_DEC_FP8 = 40.0
 TILE = 64
 # K1 takes the query rows of a KV head in tiles of this many.
 ROWS = 8
-# Blocks that fill the H100's 132 SMs twice over.
-_TARGET_BLOCKS = 264
+# Split-KV blocks to aim at: six per SM of the H100's 132.  Measured best
+# of 132-1056 for the decode step at batch 8 (G=4 and G=8) and for K8, now
+# that a merge is one K1m launch (chip_tools/k1_probe.py, PERF.md).
+_TARGET_BLOCKS = 792
 
 _KV_TYPES = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
 _LAYOUTS = ("bshd", "bhsd")
@@ -65,11 +67,13 @@ def _clamp2(kv_dtype) -> float:
     return CLAMP2_DEC_FP8 if kv_dtype == torch.float8_e4m3fn else CLAMP2_DEC
 
 
-def _splits(batch: int, num_heads_k: int, seqlen: int, num_splits):
+def _splits(batch: int, num_heads_k: int, seqlen: int, num_splits,
+            target: int | None = None):
     """(num_splits, split_len): enough (sequence, KV head, split) blocks to
-    fill the card unless the caller fixed the count."""
+    reach ``target`` (default ``_TARGET_BLOCKS``) unless the caller fixed
+    the count."""
     if num_splits is None:
-        num_splits = -(-_TARGET_BLOCKS // (batch * num_heads_k))
+        num_splits = -(-(target or _TARGET_BLOCKS) // (batch * num_heads_k))
     num_splits = max(1, min(int(num_splits), -(-seqlen // TILE)))
     split_len = -(-(-(-seqlen // num_splits)) // TILE) * TILE
     return -(-seqlen // split_len), split_len
@@ -129,7 +133,7 @@ def flash_decode(q, k, v, *, kv_length=None, scale: float | None = None,
     kv_length: [B] int32 valid entries per sequence (None = all S); a
       value past S counts as S.
     num_splits: split-KV blocks per (sequence, KV head); None picks enough
-      to fill the card.  Partials merge with ops.lse.lse_merge.
+      to fill the card.  Partials merge by the LSE rule (merge_splits).
     softmax_mode: "online" or "clamped"; None follows
       _default_softmax_mode (clamped for fp8 KV).  BSHD runs online.
     Returns out [B, H, D] in q.dtype; with return_lse also lse [B, H] fp32.
@@ -229,9 +233,12 @@ def _attend(q, k, v, k_scale, v_scale, kv_length, scale, clamped, chunk,
 
 def merge_splits(outs, lses, dtype):
     """(out in ``dtype``, lse) from per-split partials [n, ...] by the LSE
-    rule; one split is taken as it is."""
+    rule; one split is taken as it is.  Several splits on the card merge
+    in one launch of K1m, on the CPU through its plain version."""
     if outs.shape[0] == 1:
         return outs[0].to(dtype), lses[0]
+    if outs.is_cuda:
+        return lse_merge_cuda(outs, lses, dtype)
     out, lse = lse_merge(outs, lses, dim=0)
     return out.to(dtype), lse
 

@@ -1,6 +1,8 @@
 """LSE-merge algebra: combines partial attentions over disjoint KV sets.
 
-Port of flash_attn_tpu/ops/lse.py:lse_merge.
+Port of flash_attn_tpu/ops/lse.py:lse_merge (``lse_merge``, the plain
+version), and the split-KV combine kernel K1m (``csrc/lse_merge.cu``,
+``lse_merge_cuda``) that merges the decode kernels' partials on the card.
 
     lse = logsumexp_i(lse_i)
     out = sum_i exp(lse_i - lse) * out_i
@@ -11,6 +13,8 @@ Fully-masked partials (lse = -inf, or the kernels' finite -1e30) weigh 0.
 from __future__ import annotations
 
 import torch
+
+from flash_attn_tpu_torch import _build
 
 
 def lse_merge(outs: torch.Tensor, lses: torch.Tensor, dim: int = 0):
@@ -29,3 +33,34 @@ def lse_merge(outs: torch.Tensor, lses: torch.Tensor, dim: int = 0):
     w = torch.where(torch.isfinite(lses), w, torch.zeros_like(w))
     out = (outs * w[..., None]).sum(dim=dim)
     return out.to(out_dtype), lse
+
+
+def lse_merge_cuda(outs: torch.Tensor, lses: torch.Tensor, dtype):
+    """Launch K1m: merge partials stacked on dim 0 (outs [n, ..., D] fp32,
+    lses [n, ...] fp32) into (out [..., D] in ``dtype``, bf16 or fp32;
+    lse [...] fp32), as ``lse_merge`` does.  Replaces the eager merge of
+    ops/lse.py, which the JAX package leaves to XLA; bound by bytes (see
+    the source note in csrc/lse_merge.cu)."""
+    if outs.dtype != torch.float32 or lses.dtype != torch.float32:
+        raise ValueError("K1m takes fp32 partials and LSEs")
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"K1m writes bf16 or fp32, got {dtype}")
+    n, D = outs.shape[0], outs.shape[-1]
+    if lses.shape != outs.shape[:-1] or D % 4:
+        raise ValueError(f"K1m needs lses {list(outs.shape[:-1])} and D % 4 == 0, "
+                         f"got {list(lses.shape)} and D={D}")
+    for t in (outs, lses):
+        if not t.is_cuda or not t.is_contiguous():
+            raise ValueError("K1m takes contiguous CUDA tensors")
+    rows = lses[0].numel()
+    out = torch.empty(outs.shape[1:], dtype=dtype, device=outs.device)
+    lse = torch.empty(lses.shape[1:], dtype=torch.float32, device=outs.device)
+    p = _build.ptr
+    rc = _build.lib().fatt_lse_merge(p(outs), p(lses), p(out), p(lse), n, rows, D,
+                                     int(dtype == torch.float32), _build.stream())
+    _build.check(rc, "fatt_lse_merge")
+    lse_merge_cuda.launches += 1
+    return out, lse
+
+
+lse_merge_cuda.launches = 0

@@ -47,6 +47,13 @@ _MAX_GROUP = 16
 _HEAD_DIM = 128
 
 
+# Split-KV blocks that K8's chunk mode aims at: fewer than decode mode's
+# _TARGET_BLOCKS, since its 64-row tiles already make many blocks and the
+# splits past kv_length only write empty partials (at T=128 over 640
+# positions, 0.1343 ms at 792 blocks against 0.1246 at 264; PERF.md).
+_CHUNK_TARGET_BLOCKS = 264
+
+
 def _row_tiles(rows: int) -> int:
     return -(-rows // (16 if rows <= 16 else 64))
 
@@ -65,7 +72,8 @@ def paged_flash_decode(q, k_pages, v_pages, block_table, kv_length, *,
     chunk: internal (use paged_flash_decode_chunk): q rows are virtual
       heads, ``chunk`` tokens per KV head in (t, g) order.
     num_splits: split-KV blocks per (sequence, KV head, row tile); None
-      picks enough to fill the card.  Partials merge with ops.lse.lse_merge.
+      picks enough to fill the card.  Partials merge by the LSE rule
+      (ops/decode.py merge_splits).
     Returns out [B, H, D] in q.dtype; with return_lse also lse [B, H] fp32.
     """
     if window is not None or logit_softcap is not None:
@@ -86,7 +94,7 @@ def paged_flash_decode(q, k_pages, v_pages, block_table, kv_length, *,
     clamped = softmax_mode == "clamped"
     clamp2 = _clamp2(k_pages.dtype)
     nsplit, split_len = _splits(B * _row_tiles(H // Hk), Hk, max_pages * page,
-                                num_splits)
+                                num_splits, None if chunk == 1 else _CHUNK_TARGET_BLOCKS)
     args = (q, k_pages, v_pages, k_scale, v_scale, block_table, kv_length,
             scale, clamped, clamp2, chunk, nsplit, split_len)
     if q.is_cuda:

@@ -102,6 +102,75 @@ def test_lse_merge_matches_jax():
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-6)
 
 
+def _merge_partials(case):
+    """Split-KV partials (out [n, B, rows, D] fp32, lse [n, B, rows]) from
+    the plain versions of the decode kernels at small shapes: "k1" and
+    "bf16" from K1 (B=3, Hk=2, 4 heads per KV head, S=256 in 4 splits;
+    lengths 256, 0 (an idle slot) and 70, so 2 of the last sequence's splits
+    and all of the idle one's are at -1e30), "k8" from K8 (pages of 64,
+    the same lengths), "single" from K1 in one split."""
+    from flash_attn_tpu_torch.ops.decode import flash_decode_plain
+    from flash_attn_tpu_torch.ops.paged_decode import paged_flash_decode_plain
+
+    r = _rng(21)
+    B, Hk, G, S, D = 3, 2, 4, 256, 32
+    q = torch.from_numpy(r.standard_normal((B, Hk * G, D)).astype(np.float32)).bfloat16()
+    k = torch.from_numpy(r.standard_normal((B, Hk, S, D)).astype(np.float32)).bfloat16()
+    v = torch.from_numpy(r.standard_normal((B, Hk, S, D)).astype(np.float32)).bfloat16()
+    lens = torch.tensor([256, 0, 70], dtype=torch.int32)
+    nsplit, split_len = (1, 256) if case == "single" else (4, 64)
+    if case != "k8":
+        return flash_decode_plain(q, k, v, None, None, lens, D ** -0.5, False, 80.0,
+                                  nsplit, split_len)
+    page = 64
+    pages = torch.cat([torch.zeros((1, Hk, page, D), dtype=torch.bfloat16),
+                       k.reshape(B, Hk, S // page, page, D).transpose(1, 2)
+                       .reshape(-1, Hk, page, D)])
+    vpages = torch.cat([torch.zeros((1, Hk, page, D), dtype=torch.bfloat16),
+                        v.reshape(B, Hk, S // page, page, D).transpose(1, 2)
+                        .reshape(-1, Hk, page, D)])
+    table = (1 + torch.arange(B * S // page, dtype=torch.int32)).reshape(B, S // page)
+    return paged_flash_decode_plain(q, pages, vpages, None, None, table, lens, D ** -0.5,
+                                    False, 80.0, 1, nsplit, split_len)
+
+
+@pytest.mark.parametrize("case", ["k1", "k8", "single", "bf16"])
+def test_merge_splits_matches_jax(case):
+    """merge_splits (K1m's plain version on the CPU) against JAX's
+    lse_merge on the decode kernels' partials: splits at -1e30, an idle
+    slot whose partials are all -1e30 (out 0), one split, a bf16 output.
+    Both sides merge in fp32: exp and sums in another order (1e-6); the
+    bf16 output is that rounded once."""
+    from flash_attn_tpu_torch.ops.decode import merge_splits
+
+    outs, lses = _merge_partials(case)
+    if case != "single":
+        assert (lses[2:, 2] == -1e30).all() and (lses[:, 1] == -1e30).all()
+    dtype = torch.bfloat16 if case == "bf16" else torch.float32
+    to, tl = merge_splits(outs, lses, dtype)
+    jo, jl = j_lse_merge(jnp.asarray(outs.numpy()), jnp.asarray(lses.numpy()), axis=0)
+    assert to.dtype == dtype and to.shape == outs.shape[1:] and tl.shape == lses.shape[1:]
+    want = torch.from_numpy(np.array(jo)).to(dtype)
+    np.testing.assert_allclose(_np(to), _np(want), atol=1e-6 if case != "bf16" else 2e-2,
+                               rtol=0 if case != "bf16" else 2.0 ** -8)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-6)
+    assert (to[1] == 0).all() and (tl[1] <= -1e29).all()
+
+
+def test_lse_merge_cuda_refuses_what_it_does_not_take():
+    """K1m's wrapper checks its inputs before it builds or launches: CPU
+    tensors, fp16 partials and an fp16 output raise and launch nothing."""
+    from flash_attn_tpu_torch.ops.lse import lse_merge_cuda
+
+    outs, lses = torch.zeros(3, 4, 8), torch.zeros(3, 4)
+    before = lse_merge_cuda.launches
+    for args in ((outs, lses, torch.bfloat16), (outs.half(), lses, torch.bfloat16),
+                 (outs, lses, torch.float16), (outs, lses[:, :2], torch.float32)):
+        with pytest.raises(ValueError):
+            lse_merge_cuda(*args)
+    assert lse_merge_cuda.launches == before
+
+
 def test_mha_reference_matches_jax():
     r = _rng(6)
     q = r.standard_normal((2, 12, 4, 16)).astype(np.float32)
@@ -295,6 +364,53 @@ def test_flash_fwd_matches_jax(softmax_mode):
     qr = rope_rotate(to_torch(q).float(), to_torch(jc), to_torch(js))
     want = mha_reference(qr, to_torch(k).float(), to_torch(v).float(), causal=True)
     np.testing.assert_allclose(_np(to), want.numpy(), atol=3e-2, rtol=3e-2)
+
+
+# Shapes for K4's plain version at Llama-3's head_dim: (B, Sq, Sk, H, Hk,
+# causal, per-batch rope): ragged Sq = Sk = 77, a shifted causal 50 / 130,
+# G = 3, and two sequences with their own rope tables.
+FWD_CASES = {
+    "ragged77": (1, 77, 77, 4, 2, True, False),
+    "shifted50x130": (1, 50, 130, 4, 2, True, False),
+    "g3": (1, 64, 64, 6, 2, True, False),
+    "b2_rope_per_batch": (2, 40, 40, 4, 2, True, True),
+}
+
+
+@pytest.mark.parametrize("softmax_mode", ["clamped", "online"])
+@pytest.mark.parametrize("case", list(FWD_CASES))
+def test_flash_fwd_plain_matches_reference(case, softmax_mode):
+    """The plain version that K4 is held against, at D=128, against JAX's
+    exact fp32 mha_reference on the same q rotated in fp32: the plain
+    version rounds the scaled q, the rotated q, p and out to bf16 (a few
+    bf16 ulps of O(1) values, as test_flash_fwd_matches_jax allows), and
+    its LSE moves by the scores' rounding (measured below 4e-3; output
+    errors at most 1.6e-2)."""
+    from flash_attn_tpu_torch.ops.flash_fwd import flash_fwd_plain
+
+    B, Sq, Sk, H, Hk, causal, per_batch = FWD_CASES[case]
+    D = 128
+    r = _rng(31)
+    q = r.standard_normal((B, Sq, H, D)).astype(np.float32)
+    k = r.standard_normal((B, Sk, Hk, D)).astype(np.float32)
+    v = r.standard_normal((B, Sk, Hk, D)).astype(np.float32)
+    pos = (np.arange(Sq, dtype=np.int32)[None] + 7 * np.arange(B, dtype=np.int32)[:, None]
+           if per_batch else np.arange(Sq, dtype=np.int32)[None])
+    jc, js = j_rope_cos_sin(jnp.asarray(pos), D, 500000.0)
+    tq, tk, tv = (torch.from_numpy(x).bfloat16() for x in (q, k, v))
+    cos, sin = to_torch(jc), to_torch(js)
+    to, tl = flash_fwd_plain(tq, tk, tv, causal, D ** -0.5, cos, sin,
+                             softmax_mode == "clamped")
+    jq = j_rope_rotate(jnp.asarray(tq.float().numpy()), jc, js)
+    jo, jl = j_mha_reference(jq, jnp.asarray(tk.float().numpy()),
+                             jnp.asarray(tv.float().numpy()), causal=causal,
+                             return_lse=True)
+    assert to.dtype == torch.bfloat16 and to.shape == (B, Sq, H, D) and tl.shape == (B, H, Sq)
+    np.testing.assert_allclose(_np(to), np.asarray(jo), atol=3e-2, rtol=3e-2)
+    live = np.isfinite(np.asarray(jl))
+    np.testing.assert_allclose(tl.numpy()[live], np.asarray(jl)[live], atol=1e-2)
+    # rows with nothing to attend: out 0, lse -1e30 (the reference's -inf)
+    assert (tl.numpy()[~live] == -1e30).all()
 
 
 def test_flash_attention_rejects_unported_options():

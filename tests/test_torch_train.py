@@ -359,6 +359,52 @@ def test_training_head_is_live(tiny):
     assert all(leaf is not tp["_lm_head_f32"] for leaf in train.param_leaves(tp))
 
 
+# Serve, train, serve: logits of the trained params against JAX's.  fp32:
+# summation order, as test_forward_matches_jax holds them.  bf16: the
+# decode step rounds bf16 activations at other points than XLA does
+# (measured 3.8e-3 on logits of 0.77); one step moves the logits by 7.5e-2,
+# and scoring with the head from before the step misses JAX's by 1.5e-2.
+SERVED_TOL = {"float32": 1e-4, "bfloat16": 8e-3}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_serve_train_serve_reads_the_trained_head(dtype):
+    """One decode step, one make_train_step step, one decode step on the
+    same params dict: the second step scores with the trained head, equal
+    to JAX's decode step on JAX's trained params and bit for bit to a
+    fresh copy of the params.  A bf16 head is served from an fp32 copy
+    that the first step caches; AdamW changes the head in place."""
+    import dataclasses
+
+    jcfg = dataclasses.replace(jllama.LLAMA_TINY, dtype=dtype)
+    cfg = dataclasses.replace(CFG, dtype=dtype)
+    jp = jllama.init_params(jcfg, jax.random.PRNGKey(0))
+    tp = bridge.params_from_jax(jax.device_get(jp), device="cpu")
+    tok0 = tokens(9, (2,))
+    batch = tokens(10, (2, 17))
+    tok, tgt = batch[:, :-1], batch[:, 1:]
+    llama.decode_step(tp, torch.from_numpy(tok0).long(), cfg,
+                      llama.make_cache(cfg, 2, 16, device="cpu"))
+    jinit, jstep = jtrain.make_train_step(
+        lambda p, t: jllama.forward(p, t, jcfg, interpret=True), jtrain.TrainConfig())
+    jp, _, _ = jax.jit(jstep)(jp, jinit(jp), jnp.asarray(tok), jnp.asarray(tgt))
+    init_fn, step_fn = train.make_train_step(
+        lambda p, t, remat: llama.forward(p, t, cfg, remat=remat), train.TrainConfig())
+    tp, _, _ = step_fn(tp, init_fn(tp), torch.from_numpy(tok).long(),
+                       torch.from_numpy(tgt).long())
+    with torch.no_grad():
+        got, _ = llama.decode_step(tp, torch.from_numpy(tok0).long(), cfg,
+                                   llama.make_cache(cfg, 2, 16, device="cpu"))
+        fresh = {k: v for k, v in tp.items() if not k.startswith("_")}
+        again, _ = llama.decode_step(fresh, torch.from_numpy(tok0).long(), cfg,
+                                     llama.make_cache(cfg, 2, 16, device="cpu"))
+    want, _ = jllama.decode_step(jp, jnp.asarray(tok0), jcfg, jllama.make_cache(jcfg, 2, 16),
+                                 interpret=True)
+    assert torch.equal(got, again)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32),
+                               atol=SERVED_TOL[dtype])
+
+
 @pytest.mark.parametrize("option", [
     {"bias": np.zeros((1, 1, SQ, SK), np.float32)}, {"q_segment_ids": np.zeros((B, SQ))},
     {"window": (8, 0)}, {"logit_softcap": 30.0}, {"alibi_slopes": np.ones(H)},
