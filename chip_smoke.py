@@ -18,8 +18,10 @@ Phases, one line each with its seconds:
      same content, and chunk mode), K3 grouped, K6 int4 matmul (70B
      shapes), K5 W4A8 matmul (8B shapes), K7 W8A8 matmul (70B head,
      bit-exact), K9 and K10 flash backward (dq and dk/dv passes, at the
-     training shape, at a shifted causal Sq=1000, Sk=1500 and non-causal
-     at B=2, each also launched twice and held bitwise equal); then once
+     training shape, at a shifted causal Sq=1000, Sk=1500, non-causal at
+     B=2, at group sizes 1 and 8 and non-causal at S=2048, each also
+     launched twice and held bitwise equal, beside the device time of
+     SDPA's backward); then once
      each what the main paths do not run: group sizes 32 and 64, K7's
      bf16 output, and the int8, int4 and W4A8 LM heads' fp32 activations
      or output;
@@ -976,22 +978,55 @@ def one_key_floor(torch, ref, Sk, causal):
     return torch.where(live < 2, noise, 1e-6)[None, :, None].expand(B, Sq, H)
 
 
+def sdpa_bwd_device_ms(torch, fn, calls=10):
+    """Device time of one call of ``fn`` (a backward of SDPA) and the
+    backend that ran it: the sum of the CUDA kernels' times that
+    torch.profiler records over ``calls`` calls, divided by ``calls``.
+    Autograd runs a backward on the stream of its forward, so the call
+    alone does not go into a CUDA graph as the kernels' wrappers do.
+    Returns (ms, backend, kernel names); ms is None when the profiler saw
+    no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
+    names = sorted({e.name for e in kernels})
+    us = sum(e.time_range.elapsed_us() for e in kernels)
+    text = " ".join(names).lower()
+    backend = ("cudnn" if "cudnn" in text else "flash" if "flash" in text
+               else "efficient" if "fmha" in text or "mem_eff" in text else "math")
+    return (us / calls / 1e3 if us > 0 else None), backend, names
+
+
+# K9/K10 shapes (B, Sq, Sk, H, Hk, causal, rope): the training shape first
+# (the kernels' rows), the bottom-right shift with ragged tiles on both
+# sides (Sq and Sk not multiples of the kernels' 128-row blocks or 64-row
+# tiles), non-causal at B=2 with per-sequence rope, group sizes 1 and 8
+# (the 70B widths), and non-causal at the training shape (every tile live)
+BWD_SHAPES = ((1, 2048, 2048, 32, 8, True, True), (1, 1000, 1500, 32, 8, True, False),
+              (2, 1000, 1500, 32, 8, False, True), (1, 2048, 2048, 8, 8, True, True),
+              (1, 2048, 2048, 64, 8, True, True), (1, 2048, 2048, 32, 8, False, True))
+
+
 def check_k9_k10(torch, checks, rows):
-    """K9 (dq) and K10 (dk, dv per query head, fp32) against the plain
-    version on the same inputs: causal at the training shape (B=1, S=2048,
-    H=32, Hk=8, D=128, rope) and at Sq=1000, Sk=1500 without rope (the
-    bottom-right shift and partial tiles on both sides), and once
-    non-causal at B=2, Sq=1000, Sk=1500 with per-sequence rope; each output
-    row held to 2^-6 of its largest value plus the other kernels' floor of
-    1e-6, and a second launch bitwise equal to the first (no atomics).  A
-    dq row of a query that sees one key (query 0 under the causal mask
-    without shift) has a true gradient of 0: its ds = p (dp - delta) with
-    dp = delta up to fp32 summation order, so both sides give rounding
-    noise there (0.988 of the 1e-6 floor on an NVIDIA H100 80GB HBM3 at
-    700 W); those rows alone get a floor of 2^-12 of dq's largest value
-    (``one_key_floor``).  Bounds:
-    dq 3 GEMMs and dk/dv 4 of 2*D flops per (query, key) pair the causal
-    mask keeps (every pair when not causal)."""
+    """K9 (dq, and R(q) for K10) and K10 (dk, dv per query head, fp32, from
+    K9's R(q)) against the plain version on the same inputs at BWD_SHAPES;
+    each output row held to 2^-6 of its largest value plus the other
+    kernels' floor of 1e-6, R(q) bitwise equal to rope_rotate, and a second
+    launch of each bitwise equal to the first (no atomics).  A dq row of a
+    query that sees one key (query 0 under the causal mask without shift)
+    has a true gradient of 0: its ds = p (dp - delta) with dp = delta up to
+    fp32 summation order, so both sides give rounding noise there (0.988 of
+    the 1e-6 floor on an NVIDIA H100 80GB HBM3 at 700 W); those rows alone
+    get a floor of 2^-12 of dq's largest value (``one_key_floor``).  Times:
+    CUDA events over 20 launches, and CUDA-graph replays (``graph_ms``).
+    Bounds: dq 3 GEMMs and dk/dv 4 of 2*D flops per (query, key) pair the
+    causal mask keeps (every pair when not causal)."""
     import torch.nn.functional as F
 
     from flash_attn_tpu_torch.ops import flash_bwd as fb
@@ -999,19 +1034,23 @@ def check_k9_k10(torch, checks, rows):
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 12)
     worst = {"K9": 0.0, "K10": 0.0}
-    for B, Sq, Sk, causal, rope in ((1, 2048, 2048, True, True), (1, 1000, 1500, True, False),
-                                    (2, 1000, 1500, False, True)):
-        q, k, v, dout, lse, delta, cos, sin = _bwd_inputs(torch, g, B, Sq, Sk, causal, rope)
-        H, D = q.shape[2:]
+    for B, Sq, Sk, H, Hk, causal, rope in BWD_SHAPES:
+        q, k, v, dout, lse, delta, cos, sin = _bwd_inputs(torch, g, B, Sq, Sk, causal, rope,
+                                                          H, Hk)
+        D = q.shape[3]
         args = (q, k, v, dout, lse, delta, causal, D ** -0.5, cos, sin)
-        dq, dq2 = fb.flash_bwd_dq_cuda(*args), fb.flash_bwd_dq_cuda(*args)
-        (dk, dv), (dk2, dv2) = fb.flash_bwd_dkv_cuda(*args), fb.flash_bwd_dkv_cuda(*args)
+        (dq, rq), (dq2, rq2) = fb.flash_bwd_dq_cuda(*args), fb.flash_bwd_dq_cuda(*args)
+        kargs = (rq, k, v, dout, lse, delta, causal, D ** -0.5)
+        (dk, dv), (dk2, dv2) = fb.flash_bwd_dkv_cuda(*kargs), fb.flash_bwd_dkv_cuda(*kargs)
         rdq, rdk, rdv = fb.flash_bwd_plain(*args)
+        rq_ok = torch.equal(rq, q if cos is None else rope_rotate(q, cos, sin))
         torch.cuda.synchronize()
-        label = (f"B={B} Sq={Sq} Sk={Sk}{'' if causal else ', not causal'}"
+        label = (f"B={B} Sq={Sq} Sk={Sk} H={H} Hk={Hk}{'' if causal else ', not causal'}"
                  f"{', rope' if rope else ''}")
-        same = {"K9": torch.equal(dq, dq2),
+        same = {"K9": torch.equal(dq, dq2) and torch.equal(rq, rq2),
                 "K10": torch.equal(dk, dk2) and torch.equal(dv, dv2)}
+        if not rq_ok:
+            checks.failed.append(f"K9 {label}: R(q) differs from rope_rotate")
         res = {}
         floors = {"dq": one_key_floor(torch, rdq, Sk, causal)}
         for key, outs in (("K9", ((dq, rdq, "dq"),)),
@@ -1025,32 +1064,41 @@ def check_k9_k10(torch, checks, rows):
             if not same[key]:
                 checks.failed.append(f"{key} {label}: two launches differ")
             res[key] = "; ".join(parts) + f", bitwise repeat {'ok' if same[key] else 'FAIL'}"
+        res["K9"] += f", R(q) {'bitwise ok' if rq_ok else 'FAIL'}"
         # one product over the kept pairs
         gemm = k4_flops(B, Sq, Sk, H, D) // 2 if causal else 2 * B * H * Sq * Sk * D
         ins = (q.numel() + dout.numel() + k.numel() + v.numel()) * 2 + (lse.numel() + delta.numel()) * 4
         if rope:
             ins += 2 * cos.numel() * 4
         ms9 = cuda_ms(torch, lambda: fb.flash_bwd_dq_cuda(*args))
-        ms10 = cuda_ms(torch, lambda: fb.flash_bwd_dkv_cuda(*args))
+        ms10 = cuda_ms(torch, lambda: fb.flash_bwd_dkv_cuda(*kargs))
+        g9 = graph_ms(torch, lambda: fb.flash_bwd_dq_cuda(*args))
+        g10 = graph_ms(torch, lambda: fb.flash_bwd_dkv_cuda(*kargs))
         b9 = bound(ins + dq.numel() * 4, 3 * gemm)
         b10 = bound(ins + 2 * B * H * Sk * D * 4, 4 * gemm)
-        say(f"  K9 {label}: {res['K9']} | {ms9:.4f} ms ({3 * gemm / ms9 / 1e9:.1f} TFLOP/s), "
-            f"bound {b9[0]:.4f} ({b9[1]})")
-        say(f"  K10 {label}: {res['K10']} | {ms10:.4f} ms ({4 * gemm / ms10 / 1e9:.1f} TFLOP/s), "
-            f"bound {b10[0]:.4f} ({b10[1]})")
-        if Sq == 2048:  # the training shape: the rows of the kernels record
+        say(f"  K9 {label}: {res['K9']} | {ms9:.4f} ms, graph {g9:.4f} "
+            f"({3 * gemm / g9 / 1e9:.1f} TFLOP/s), bound {b9[0]:.4f} ({b9[1]})")
+        say(f"  K10 {label}: {res['K10']} | {ms10:.4f} ms, graph {g10:.4f} "
+            f"({4 * gemm / g10 / 1e9:.1f} TFLOP/s), bound {b10[0]:.4f} ({b10[1]})")
+        if (B, Sq, H, causal) == (1, 2048, 32, True):  # the training shape: the kernels' rows
             plain_ms = cuda_ms(torch, lambda: fb.flash_bwd_plain(*args), iters=3, warmup=1)
             qt = rope_rotate(q, cos, sin).transpose(1, 2).contiguous().requires_grad_(True)
             kt = k.transpose(1, 2).contiguous().requires_grad_(True)
             vt = v.transpose(1, 2).contiguous().requires_grad_(True)
             o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
             do_t = dout.transpose(1, 2).contiguous()
-            lib_ms = cuda_ms(torch, lambda: torch.autograd.grad(o, (qt, kt, vt), do_t,
-                                                                retain_graph=True))
-            say(f"    K9 + K10 together {ms9 + ms10:.4f} ms; plain (both passes, one "
-                f"call) {plain_ms:.4f}; library (the backward of SDPA on rotated q, "
-                f"is_causal, enable_gqa: dq, dk, dv in one call, one number for both "
-                f"rows) {lib_ms:.4f}")
+
+            def lib_call():
+                return torch.autograd.grad(o, (qt, kt, vt), do_t, retain_graph=True)
+            lib_events = cuda_ms(torch, lib_call)
+            # device time only: the event time takes autograd's host work in
+            lib_ms, backend, names = sdpa_bwd_device_ms(torch, lib_call)
+            say(f"    K9 + K10 together {ms9 + ms10:.4f} ms, graph {g9 + g10:.4f}; plain (both "
+                f"passes, one call) {plain_ms:.4f}; library (the backward of SDPA on rotated "
+                f"q, is_causal, enable_gqa: dq, dk, dv in one call, one number for both rows) "
+                f"device time {'not measured' if lib_ms is None else f'{lib_ms:.4f}'} "
+                f"(torch.profiler), events {lib_events:.4f}; backend {backend}: "
+                f"{', '.join(names)[:300]}")
             shape = "B=1, S=2048, H=32, Hk=8, D=128, causal, rope"
             rows["K9"] = dict(name=f"flash_bwd dq pass ({shape})",
                               source="flash_attn_tpu_torch/csrc/flash_bwd.cu",
@@ -1063,7 +1111,7 @@ def check_k9_k10(torch, checks, rows):
                                ms=ms10, plain_ms=plain_ms, library_ms=lib_ms,
                                bound_ms=b10[0], bound_by=b10[1])
             del qt, kt, vt, o
-        del q, k, v, dout, lse, delta, dq, dq2, dk, dv, dk2, dv2, rdq, rdk, rdv
+        del q, k, v, dout, lse, delta, dq, dq2, rq, rq2, dk, dv, dk2, dv2, rdq, rdk, rdv
     rows["K9"]["max_abs_err"] = worst["K9"]
     rows["K10"]["max_abs_err"] = worst["K10"]
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time this tree against another checkout on one card, in turns.
 
-    python3 chip_tools/ab_turns.py --other DIR [--order OTTO] [--no-models]
+    python3 chip_tools/ab_turns.py --other DIR [--order OTTO] [--models all|train|none]
 
 DIR is another checkout of the repository (for example the parent commit
 unpacked with ``git archive`` into a directory that .gitignore lists).
@@ -14,7 +14,9 @@ shows drift as well as the difference.
 Kernel level (CUDA events; "loop": 20 calls from Python, the wrapper's
 host work included; "graph": 10 calls captured in a CUDA graph, replayed
 20 times, the device's time alone):
-  K4 clamped and online, B=1 S=2048 H=32 Hk=8 D=128, causal, rope;
+  K4 clamped and online, B=1 S=2048 H=32 Hk=8 D=128, causal, rope, and
+  flash_bwd as the training step calls it at that shape (delta, K9, K10
+  and the GQA group's sum);
   K1 fp8 alone and flash_decode as the decode step calls it (BHSD, B=8,
   H=32, Hk=8, S=4096, chip_smoke.py's lengths), and the merge alone on
   K1's partials (merge_splits: K1m where the tree has it);
@@ -22,11 +24,12 @@ host work included; "graph": 10 calls captured in a CUDA graph, replayed
   K1 over a BSHD cache alone and flash_decode with its default layout;
   K8 (pages of 128) alone and paged_flash_decode as called; K8's chunk
   mode (T=128 over 512 resident tokens) alone and as called.
-Model level (unless --no-models; random weights from seed 0, the
+Model level (``--models``, default all; random weights from seed 0, the
 prompts of chip_smoke.py): Llama-3-8B int8 weights, fp8 KV, 8 requests x
 32 tokens (ms per decode step, prefill tokens/s); Llama-3-70B int4 g=128
-+ W8A8 head, fused, fp8 KV, 8 x 16 tokens; training Llama-3-8B (32
-layers, bf16, B=1, S=2048, remat, 5 AdamW steps: median ms of steps 2-5).
++ W8A8 head, fused, fp8 KV, 8 x 16 tokens (both left out with
+``--models train``); training Llama-3-8B (32 layers, bf16, B=1, S=2048, remat,
+5 AdamW steps: median ms of steps 2-5).
 
 Prints one "turn" JSON line per turn and a table: each metric's value in
 every turn.  The card's name and power limit head the output.
@@ -52,6 +55,7 @@ from chip_smoke import _prompts, cuda_ms, graph_ms  # noqa: E402
 def kernels(torch, res):
     import flash_attn_tpu_torch as fat
     from flash_attn_tpu_torch.ops import decode as dec
+    from flash_attn_tpu_torch.ops import flash_bwd as fb
     from flash_attn_tpu_torch.ops import flash_fwd as ff
     from flash_attn_tpu_torch.ops import paged_decode as pd
     from flash_attn_tpu_torch.ops.quant import quantize_kv
@@ -70,7 +74,11 @@ def kernels(torch, res):
     for clamped in (True, False):
         both(f"K4 {'clamped' if clamped else 'online'}",
              lambda: ff.flash_fwd_cuda(q, k, v, True, D ** -0.5, cos, sin, clamped))
-    del q, k, v
+    out, lse = ff.flash_fwd(q, k, v, causal=True, rope_cos=cos, rope_sin=sin)
+    dout = torch.randn((B, S, H, D), generator=g, device="cuda", dtype=torch.bfloat16)
+    both("flash_bwd as called", lambda: fb.flash_bwd(q, k, v, out, lse, dout, causal=True,
+                                                     rope_cos=cos, rope_sin=sin))
+    del q, k, v, out, dout
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     B, S = 8, 4096
@@ -184,7 +192,7 @@ def train(torch, res):
     torch.cuda.empty_cache()
 
 
-def measure(tree: Path, models: bool) -> None:
+def measure(tree: Path, models: str) -> None:
     sys.path.insert(0, str(tree))
     import torch
 
@@ -197,12 +205,13 @@ def measure(tree: Path, models: bool) -> None:
     t0 = time.perf_counter()
     kernels(torch, res)
     torch.cuda.empty_cache()
-    if models:
+    if models != "none":
         from flash_attn_tpu_torch.models import llama
 
-        serve(torch, res, "8B int8 fp8-KV", llama.LLAMA3_8B, 32, quantize="int8")
-        serve(torch, res, "70B int4 fp8-KV", llama.LLAMA3_70B, 16, quantize="int4",
-              group_size=128, head_mode="w8a8", fuse=True)
+        if models == "all":
+            serve(torch, res, "8B int8 fp8-KV", llama.LLAMA3_8B, 32, quantize="int8")
+            serve(torch, res, "70B int4 fp8-KV", llama.LLAMA3_70B, 16, quantize="int4",
+                  group_size=128, head_mode="w8a8", fuse=True)
         train(torch, res)
     res["seconds"] = time.perf_counter() - t0
     print("turn " + json.dumps(res), flush=True)
@@ -212,11 +221,12 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--other", type=Path, help="another checkout of the repository")
     ap.add_argument("--order", default="OTTO")
-    ap.add_argument("--no-models", action="store_true")
+    ap.add_argument("--models", choices=("all", "train", "none"), default="all",
+                    help="models measured after the kernels")
     ap.add_argument("--measure", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.measure:
-        measure(args.measure, not args.no_models)
+        measure(args.measure, args.models)
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
@@ -224,9 +234,8 @@ def main() -> int:
     trees = {"T": ROOT, "O": args.other}
     turns = []
     for who in args.order:
-        cmd = [sys.executable, str(Path(__file__).resolve()), "--measure", str(trees[who])]
-        if args.no_models:
-            cmd.append("--no-models")
+        cmd = [sys.executable, str(Path(__file__).resolve()), "--measure", str(trees[who]),
+               "--models", args.models]
         out = subprocess.run(cmd, capture_output=True, text=True)
         line = next((x for x in out.stdout.splitlines() if x.startswith("turn ")), None)
         if out.returncode != 0 or line is None:

@@ -1,378 +1,546 @@
 // K9 and K10: FlashAttention-2 backward, BSHD bf16, D = 128, bottom-right
-// causal GQA with q-side RoPE applied in the kernels.  Two passes, each
-// deterministic by construction (no atomics), as on the TPU:
+// causal GQA with q-side RoPE.  Two passes, each deterministic by
+// construction (no atomics), as on the TPU:
 //   K9  (dq pass)    replaces flash_attn_tpu/ops/flash_bwd.py:_dq_kernel;
 //   K10 (dk/dv pass) replaces flash_attn_tpu/ops/flash_bwd.py:_dkv_kernel
 // on the subset the Llama training step uses (no bias/dbias, segments,
-// positions, window, softcap, ALiBi or dropout).
+// positions, window, softcap, ALiBi or dropout).  K9 runs first: it rotates
+// q once and writes R(q), which K10 streams as it is.
 //
 // Bound on the H100: operations.  At S = 2048, D = 128 the causal half of
-// the five products (QK^T, dO V^T, dS K; QK^T, dO V^T, P^T dO, dS^T Q,
-// counted 3 + 4 GEMMs of 2*S^2*D/2 flops per head) is far above the
-// ridge against ~4*S*D*2 bytes of inputs per head.  The design keeps
-// scores, probabilities and dS out of device memory:
-//   * K9: one block per (64-query tile, head, batch), 4 warps each owning
-//     16 query rows.  R(q) and dO are loaded once; K/V tiles of 64 keys
-//     stream through shared memory up to the causal limit; dq stays in
-//     WMMA accumulators (fp32) for the whole loop, then is scaled, pulled
-//     back through the rotation in fp32 and written as fp32.
-//   * K10: one block per (64-key tile, query head, batch), 4 warps each
-//     owning 16 keys.  K/V are loaded once; q tiles (rotated at load) and
-//     dO stream from the first live tile; S^T and dP^T are computed key-
-//     major so each warp's P^T and dS^T rows feed its own dv += P^T dO and
-//     dk += dS^T R(q) in accumulators.  Each query head writes its own
-//     fp32 dk/dv; the wrapper sums a GQA group afterwards.
-//   * Products on the tensor cores (WMMA bf16, fp32 accumulate); the
-//     elementwise softmax backward in fp32 through shared memory.
-//   * Dead causal tiles are never loaded (:178-182, :254-265).
-//   * ~111 KB of shared memory per block, so two blocks share an SM.
+// the five products (QK^T, dO V^T, dS K in K9; QK^T, dO V^T, P^T dO,
+// dS^T R(q) in K10, each 2*D flops per live (query, key) pair) is far
+// above the ridge against ~4*S*D*2 bytes of inputs per head.  The design
+// keeps scores, P and dS in registers and the tensor cores fed:
+//   * every product is a warpgroup wgmma m64n64k16 (bf16 in, fp32
+//     accumulate).  A block is two warpgroups, each owning 64 of its 128
+//     rows and sharing its streamed tiles.  Operands read from shared
+//     memory sit in the 128-byte swizzle that wgmma reads, as two
+//     64-column halves of 64 rows (tile_off), each tile 1024-byte aligned;
+//   * K9: one block per (128-query tile, head, batch), heavy causal tiles
+//     first.  R(q) (rotated in fp32 from the bf16 q, rounded to bf16, also
+//     written to device memory for K10) and dO stay in shared memory as
+//     each warpgroup's A operands; K/V tiles of 64 keys arrive by cp.async
+//     into a two-stage ring up to the causal limit.  S = R(q) K^T and
+//     dP = dO V^T go to register accumulators; dS = P (dP - delta) is
+//     packed to bf16 A fragments straight from them (the accumulator
+//     layout is the A layout); dq += dS K reads K as a transposed (N-major)
+//     operand.  dq stays in registers for the whole loop, then is scaled,
+//     pulled back through the rotation in fp32 (a column and its partner
+//     64 away sit in one thread) and written as fp32;
+//   * K10: one block per (128-key tile, query head, batch), key tile 0
+//     (the most live query tiles) first.  K and V stay in shared memory as
+//     each warpgroup's A operands; R(q), dO and the tile's lse and delta
+//     stream through a two-stage cp.async ring from the first live query
+//     tile of 64.  S^T = K R(q)^T and dP^T = V dO^T go to registers; P^T
+//     and dS^T are packed to bf16 A fragments there; dv += P^T dO and
+//     dk += dS^T R(q) read dO and R(q) as transposed operands.  Each query
+//     head writes its own fp32 dk/dv and the wrapper sums a GQA group (one
+//     block walking a group's query heads in order and writing their sum
+//     measured slower);
+//   * only tiles that a warp's diagonal or a ragged edge crosses are
+//     masked element by element; dead causal tiles are never loaded;
+//   * ~129 KB of shared memory and 256 threads a block, one block an SM
+//     (two blocks of one warpgroup each measured 2-4 % slower).
 // Roundings as the reference: R(q) rounded to bf16 before the products
 // (flash_fwd.py:146-160); s = (R(q) k^T) * scale in natural units;
-// p = exp(s - lse) masked elementwise (padded and fully masked rows carry
-// lse = NEG_INF); ds = p (dp - delta); dS cast to bf16 before dq and dk,
-// P cast to bf16 before dv.
-#include <mma.h>
-
+// p = exp(s - lse), evaluated as 2^(s * scale * log2 e - lse * log2 e),
+// masked elementwise (padded and fully masked rows carry lse = NEG_INF and
+// give 0); ds = p (dp - delta); P cast to bf16 before dv, dS before dq and
+// dk; dq pulled back through the rotation in fp32.
 #include "common.cuh"
 
 namespace {
 
-using namespace nvcuda;
 using fatt::kNegInf;
 
-constexpr int kBQ = 64;  // query rows per tile
-constexpr int kBK = 64;  // keys per tile
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
+constexpr int kD = 128;
+constexpr int kRows = 64;  // rows a warpgroup owns, and a streamed tile's rows
+// Warpgroups a block: each owns 64 rows of the block's (query rows in K9,
+// keys in K10), all share the block's streamed tiles.
+constexpr int kWarpgroups = 2;
+constexpr int kThreads = 128 * kWarpgroups;
+constexpr int kBlockRows = kRows * kWarpgroups;
+constexpr int kRowBytes = kD * 2;
+constexpr int kChunks = kRowBytes / 16;  // 16-byte chunks per row
+constexpr int kTileBytes = kRows * kRowBytes;
+constexpr int kHalfBytes = kRows * 128;  // 64 columns of a tile
+constexpr float kLog2e = 1.4426950408889634f;
+// K9: R(q) and dO of each warpgroup, then two stages of (K, V); K10: K and
+// V of each warpgroup, then two stages of (R(q), dO) and two of (lse,
+// delta).  + 1024: tiles start at the next 1024-byte boundary (the swizzle
+// atom).
+constexpr int kDqSmem = (2 * kWarpgroups + 4) * kTileBytes + 1024;
+constexpr int kStatBytes = 2 * kRows * 4;
+constexpr int kDkvSmem = (2 * kWarpgroups + 4) * kTileBytes + 2 * kStatBytes + 1024;
 
-template <int D>
-struct Smem {
-  static constexpr int kLd = D + 8;     // bf16 stride of the D-wide tiles
-  static constexpr int kSLd = 64 + 4;   // fp32 stride of a 64x64 score tile
-  static constexpr int kPLd = 64 + 8;   // bf16 stride of a 64x64 p/ds tile
-  static constexpr int kOLd = D + 4;    // fp32 stride of K9's dq epilogue
-  static constexpr size_t kTile = (size_t)64 * kLd * 2;
-  static constexpr size_t kScore = (size_t)64 * kSLd * 4;
-  // four D-wide bf16 tiles (A, B fixed per block; C, E streamed), two fp32
-  // score tiles, one bf16 64x64 tile, then 2 x 64 fp32 row statistics
-  static constexpr size_t kA = 0;
-  static constexpr size_t kB = kA + kTile;
-  static constexpr size_t kC = kB + kTile;
-  static constexpr size_t kE = kC + kTile;
-  static constexpr size_t kS = kE + kTile;
-  static constexpr size_t kDP = kS + kScore;
-  static constexpr size_t kP = kDP + kScore;
-  static constexpr size_t kRow = kP + (size_t)64 * kPLd * 2;
-  static constexpr size_t kBytes = kRow + 2 * 64 * 4;
-  static_assert((size_t)64 * kOLd * 4 <= 2 * kScore, "dq epilogue fits the score tiles");
-};
+// Byte offset of 16-byte chunk c of row r in a tile: two halves of 64
+// columns, [half][row][128 bytes], chunk c of row r at chunk c ^ (r & 7).
+__device__ __forceinline__ uint32_t tile_off(int r, int c) {
+  return (c >> 3) * kHalfBytes + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+}
 
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using FragBc = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major>;
-using FragBr = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// 64 rows from row0 of head hx of a [B, S, Hx, D] bf16 tensor into a tile
-// (zeros past S), 16 bytes a thread per step.
-template <int D>
-__device__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* src, int b,
-                          int row0, int S, int Hx, int hx) {
-  constexpr int L = Smem<D>::kLd;
-  for (int i = threadIdx.x; i < 64 * D / 8; i += kThreads) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-    uint4 x = make_uint4(0, 0, 0, 0);
-    if (row0 + r < S)
-      x = *reinterpret_cast<const uint4*>(src + (((int64_t)b * S + row0 + r) * Hx + hx) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * L + c) = x;
+// 64 rows from row0 of head hx of a [B, S, Hx, D] bf16 tensor into the
+// tile at dst by cp.async; rows past S are zero-filled (src-size 0).
+__device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src, int b,
+                                          int row0, int S, int Hx, int hx) {
+  for (int i = threadIdx.x; i < kRows * kChunks; i += kThreads) {
+    const int r = i / kChunks, c = i % kChunks;
+    const bool in = row0 + r < S;
+    const int64_t g = (((int64_t)b * S + (in ? row0 + r : 0)) * Hx + hx) * kD + c * 8;
+    fatt::cp_async16(dst + tile_off(r, c), src + g, in ? 16 : 0);
   }
 }
 
-// 64 query rows of head h, rotated (rotate-half) in fp32 with each row's
-// cos/sin and rounded to bf16: rope_rotate_block on a bf16 block.  The
-// products are rounded apart (no fused multiply-add), as PyTorch's
-// elementwise ops round them.  Without tables, the rows as they are.
-template <int D>
-__device__ void load_q(__nv_bfloat16* dst, const __nv_bfloat16* q, const float* cosv,
-                       const float* sinv, int b, int row0, int Sq, int H, int h,
-                       int rope_bstride) {
-  if (cosv == nullptr) {
-    load_rows<D>(dst, q, b, row0, Sq, H, h);
-    return;
-  }
-  constexpr int L = Smem<D>::kLd, D2 = D / 2;
-  for (int i = threadIdx.x; i < 64 * D2; i += kThreads) {
-    const int r = i / D2, c = i % D2, gq = row0 + r;
-    float o1 = 0.f, o2 = 0.f;
-    if (gq < Sq) {
-      const int64_t base = (((int64_t)b * Sq + gq) * H + h) * D;
-      const float x1 = __bfloat162float(q[base + c]);
-      const float x2 = __bfloat162float(q[base + c + D2]);
-      const int64_t t = (int64_t)b * rope_bstride + (int64_t)gq * D2 + c;
-      const float cs = cosv[t], sn = sinv[t];
-      o1 = __fsub_rn(__fmul_rn(x1, cs), __fmul_rn(x2, sn));
-      o2 = __fadd_rn(__fmul_rn(x2, cs), __fmul_rn(x1, sn));
-    }
-    dst[r * L + c] = __float2bfloat16(o1);
-    dst[r * L + c + D2] = __float2bfloat16(o2);
-  }
+// Warpgroup products (sm_90a).  Every operand an instruction reads spans
+// one swizzle atom in its contiguous dimension (K-major: 16 of 64 columns;
+// N-major: 64 of 64), so only the 1024-byte stride of 8-row groups enters
+// the descriptor.  A K-major operand of depth step kk starts at
+// tile + (kk / 4) * kHalfBytes + (kk % 4) * 32; an N-major one of depth
+// step kc at tile + half * kHalfBytes + kc * 16 * 128.
+__device__ __forceinline__ uint64_t wg_desc(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         (1ull << 62);
 }
 
-// out[16 x 64] (fp32, stride kSLd) = a[16 x D] . b[64 x D]^T, one warp.
-template <int D>
-__device__ __forceinline__ void mm_abt(float* out, const __nv_bfloat16* a,
-                                       const __nv_bfloat16* b) {
-  constexpr int L = Smem<D>::kLd;
+__device__ __forceinline__ uint32_t kmajor(uint32_t tile, int kk) {
+  return tile + (kk >> 2) * kHalfBytes + (kk & 3) * 32;
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving accumulators across an asynchronous product.
+__device__ __forceinline__ void pin(float (&d)[32]) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 64 fp32, this thread's 32) = A (64 x 16, K-major in shared
+// memory) * B (16 x 64, K-major in shared memory) + (scale_d ? d : 0).
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d += a (64 x 16 bf16 from registers, the mma.sync A layout per warp) *
+// B (16 x 64, N-major in shared memory).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// acc (64 x 64) = A (64 x 128) * B (64 x 128)^T, both K-major tiles.
+__device__ __forceinline__ void product_abt(float (&acc)[32], uint32_t a, uint32_t b) {
 #pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      FragA fa;
-      FragBc fb;
-      wmma::load_matrix_sync(fa, a + kk, L);
-      wmma::load_matrix_sync(fb, b + j * 16 * L + kk, L);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(out + j * 16, acc, Smem<D>::kSLd, wmma::mem_row_major);
+  for (int kk = 0; kk < kD / 16; ++kk)
+    wgmma_ss(acc, wg_desc(kmajor(a, kk)), wg_desc(kmajor(b, kk)), kk > 0);
+}
+
+// acc (64 x 128, as two 64-column halves) += frag (64 x 64 from registers)
+// * tile (64 rows x 128), the tile read N-major.
+__device__ __forceinline__ void product_acc(float (&lo)[32], float (&hi)[32],
+                                            const uint32_t (&frag)[4][4], uint32_t tile) {
+#pragma unroll
+  for (int kc = 0; kc < kRows / 16; ++kc) {
+    wgmma_rs(lo, frag[kc], wg_desc(tile + kc * 16 * 128));
+    wgmma_rs(hi, frag[kc], wg_desc(tile + kHalfBytes + kc * 16 * 128));
   }
 }
 
-// acc[16 x D] += a[16 x 64] (bf16, stride kPLd) . b[64 x D], one warp.
-template <int D>
-__device__ __forceinline__ void mm_acc(FragC (&acc)[D / 16], const __nv_bfloat16* a,
-                                       const __nv_bfloat16* b) {
-  constexpr int L = Smem<D>::kLd;
+__device__ __forceinline__ void zero(float (&d)[32]) {
 #pragma unroll
-  for (int kk = 0; kk < 64; kk += 16) {
-    FragA fa;
-    wmma::load_matrix_sync(fa, a + kk, Smem<D>::kPLd);
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      FragBr fb;
-      wmma::load_matrix_sync(fb, b + kk * L + n * 16, L);
-      wmma::mma_sync(acc[n], fa, fb, acc[n]);
-    }
-  }
+  for (int i = 0; i < 32; ++i) d[i] = 0.f;
 }
 
-// p = exp(s * scale - lse) where the element is live, else 0.
-__device__ __forceinline__ float prob(float s, float scale, float lse, bool live) {
-  return live ? expf(__fsub_rn(__fmul_rn(s, scale), lse)) : 0.f;
+// A row's lse in base 2, +inf for a dead row (lse = NEG_INF), so that
+// 2^(s - lse2) is 0 there.
+__device__ __forceinline__ float lse_base2(float lse) {
+  return lse > kNegInf / 2 ? lse * kLog2e : __int_as_float(0x7f800000);
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads) dq_kernel(
+__global__ void __launch_bounds__(kThreads, 2 / kWarpgroups) dq_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
     const float* __restrict__ cosv, const float* __restrict__ sinv,
-    float* __restrict__ dq, int Sq, int Sk, int H, int Hk, int rope_bstride,
-    float scale, int causal) {
-  using L = Smem<D>;
+    float* __restrict__ dq, __nv_bfloat16* __restrict__ rq, int Sq, int Sk, int H, int Hk,
+    int rope_bstride, float scale, int causal) {
   extern __shared__ __align__(128) unsigned char smem[];
-  auto Qs = reinterpret_cast<__nv_bfloat16*>(smem + L::kA);
-  auto dOs = reinterpret_cast<__nv_bfloat16*>(smem + L::kB);
-  auto Ks = reinterpret_cast<__nv_bfloat16*>(smem + L::kC);
-  auto Vs = reinterpret_cast<__nv_bfloat16*>(smem + L::kE);
-  auto Ss = reinterpret_cast<float*>(smem + L::kS);
-  auto DPs = reinterpret_cast<float*>(smem + L::kDP);
-  auto dSs = reinterpret_cast<__nv_bfloat16*>(smem + L::kP);
+  const uint32_t s_base = fatt::smem_u32(smem);
+  const uint32_t qs0 = (s_base + 1023) & ~1023u;  // R(q) of warpgroup w at qs0 + w tiles
+  const uint32_t dos0 = qs0 + kWarpgroups * kTileBytes;  // dO likewise
+  // ring stage st: K at ring + 2 st tiles, V after it
+  const uint32_t ring = dos0 + kWarpgroups * kTileBytes;
+  unsigned char* q_tiles = smem + (qs0 - s_base);
 
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int qt = gridDim.z - 1 - blockIdx.z;  // heavy causal tiles first
   const int kvh = h / (H / Hk);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int row0 = qt * kBQ;
-  const int shift = Sk - Sq;
-
-  load_q<D>(Qs, q, cosv, sinv, b, row0, Sq, H, h, rope_bstride);
-  load_rows<D>(dOs, dout, b, row0, Sq, H, h);
-
-  // lane pair (2r', 2r'+1) of warp w owns row w*16 + r', 32 columns each
-  const int my_row = warp * 16 + (lane >> 1);
-  const int half = (lane & 1) * (kBK / 2);
-  const int g_row = row0 + my_row;
-  float lse_r = kNegInf, delta_r = 0.f;
-  if (g_row < Sq) {
-    const int64_t r = ((int64_t)b * H + h) * Sq + g_row;
-    lse_r = lse[r];
-    delta_r = delta[r];
-  }
-  const bool row_live = g_row < Sq && lse_r > kNegInf / 2;
-
-  FragC acc[D / 16];
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
+  const int tid = threadIdx.x, lane = tid & 31, warp = (tid >> 5) & 3, wg = tid >> 7;
+  const int row0 = qt * kBlockRows;
+  const int shift = Sk - Sq;  // bottom-right causal alignment
 
   int kv_end = Sk;
-  if (causal) kv_end = min(Sk, min(row0 + kBQ - 1, Sq - 1) + shift + 1);
+  if (causal) kv_end = min(Sk, min(row0 + kBlockRows - 1, Sq - 1) + shift + 1);
+  const int n_tiles = kv_end > 0 ? (kv_end + kRows - 1) / kRows : 0;
 
-  for (int k0 = 0; k0 < kv_end; k0 += kBK) {
-    __syncthreads();  // previous K/V tile fully consumed
-    load_rows<D>(Ks, k, b, k0, Sk, Hk, kvh);
-    load_rows<D>(Vs, v, b, k0, Sk, Hk, kvh);
-    __syncthreads();
-
-    mm_abt<D>(Ss + warp * 16 * L::kSLd, Qs + warp * 16 * L::kLd, Ks);
-    mm_abt<D>(DPs + warp * 16 * L::kSLd, dOs + warp * 16 * L::kLd, Vs);
-    __syncwarp();
-
-    const float* srow = Ss + my_row * L::kSLd + half;
-    const float* dprow = DPs + my_row * L::kSLd + half;
-    __nv_bfloat16* dsrow = dSs + my_row * L::kPLd + half;
-#pragma unroll 8
-    for (int c = 0; c < kBK / 2; ++c) {
-      const int col = k0 + half + c;
-      const bool live = row_live && col < Sk && (!causal || col <= g_row + shift);
-      const float p = prob(srow[c], scale, lse_r, live);
-      dsrow[c] = __float2bfloat16(p * (dprow[c] - delta_r));
-    }
-    __syncwarp();
-
-    mm_acc<D>(acc, dSs + warp * 16 * L::kPLd, Ks);
+  auto load_kv = [&](int st, int k0) {
+    const uint32_t ks = ring + st * 2 * kTileBytes;
+    load_tile(ks, k, b, k0, Sk, Hk, kvh);
+    load_tile(ks + kTileBytes, v, b, k0, Sk, Hk, kvh);
+  };
+#pragma unroll
+  for (int w = 0; w < kWarpgroups; ++w) {
+    load_tile(dos0 + w * kTileBytes, dout, b, row0 + w * kRows, Sq, H, h);
+    if (cosv == nullptr) load_tile(qs0 + w * kTileBytes, q, b, row0 + w * kRows, Sq, H, h);
   }
-  __syncthreads();  // every warp is done with the score tiles
+  if (n_tiles > 0) load_kv(0, 0);
+  fatt::cp_async_commit();
+
+  // R(q): rotate-half in fp32 with each row's cos/sin, products rounded
+  // apart (no fused multiply-add) as PyTorch's elementwise ops round them,
+  // then bf16.  Chunk c (columns 8c..8c+7) and its partner c + 8 go to the
+  // tiles and, when rq is given, to device memory; rows >= Sq are zero.
+  if (cosv != nullptr) {
+    for (int i = tid; i < kBlockRows * (kChunks / 2); i += kThreads) {
+      const int r = i / (kChunks / 2), c = i % (kChunks / 2);
+      const int gq = row0 + r;
+      uint4 lo = make_uint4(0, 0, 0, 0), hi = lo;
+      if (gq < Sq) {
+        const int64_t g = (((int64_t)b * Sq + gq) * H + h) * kD + c * 8;
+        const uint4 x1 = *reinterpret_cast<const uint4*>(q + g);
+        const uint4 x2 = *reinterpret_cast<const uint4*>(q + g + kD / 2);
+        const int64_t t = (int64_t)b * rope_bstride + (int64_t)gq * (kD / 2) + c * 8;
+        float cs[8], sn[8];
+        *reinterpret_cast<float4*>(cs) = *reinterpret_cast<const float4*>(cosv + t);
+        *reinterpret_cast<float4*>(cs + 4) = *reinterpret_cast<const float4*>(cosv + t + 4);
+        *reinterpret_cast<float4*>(sn) = *reinterpret_cast<const float4*>(sinv + t);
+        *reinterpret_cast<float4*>(sn + 4) = *reinterpret_cast<const float4*>(sinv + t + 4);
+        const __nv_bfloat162* a = reinterpret_cast<const __nv_bfloat162*>(&x1);
+        const __nv_bfloat162* e = reinterpret_cast<const __nv_bfloat162*>(&x2);
+        uint32_t o1[4], o2[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float2 fa = __bfloat1622float2(a[u]), fe = __bfloat1622float2(e[u]);
+          const float c0 = cs[2 * u], c1 = cs[2 * u + 1], s0 = sn[2 * u], s1 = sn[2 * u + 1];
+          o1[u] = fatt::pack_bf16(__fsub_rn(__fmul_rn(fa.x, c0), __fmul_rn(fe.x, s0)),
+                                  __fsub_rn(__fmul_rn(fa.y, c1), __fmul_rn(fe.y, s1)));
+          o2[u] = fatt::pack_bf16(__fadd_rn(__fmul_rn(fe.x, c0), __fmul_rn(fa.x, s0)),
+                                  __fadd_rn(__fmul_rn(fe.y, c1), __fmul_rn(fa.y, s1)));
+        }
+        lo = make_uint4(o1[0], o1[1], o1[2], o1[3]);
+        hi = make_uint4(o2[0], o2[1], o2[2], o2[3]);
+        if (rq != nullptr) {
+          *reinterpret_cast<uint4*>(rq + g) = lo;
+          *reinterpret_cast<uint4*>(rq + g + kD / 2) = hi;
+        }
+      }
+      unsigned char* tile = q_tiles + (r / kRows) * kTileBytes;
+      *reinterpret_cast<uint4*>(tile + tile_off(r % kRows, c)) = lo;
+      *reinterpret_cast<uint4*>(tile + tile_off(r % kRows, c + kChunks / 2)) = hi;
+    }
+  }
+
+  // This warpgroup's tiles; this thread's rows: wrow0 + lane/4
+  // (accumulator entries 0, 1 of each n8 block) and 8 below it (entries 2, 3).
+  const uint32_t qs = qs0 + wg * kTileBytes, dos = dos0 + wg * kTileBytes;
+  const int wrow0 = row0 + wg * kRows + warp * 16;
+  const int my_row = wrow0 + (lane >> 2);
+  const float sl2 = scale * kLog2e;
+  float l2[2], dl[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int row = my_row + hf * 8;
+    const int64_t r = ((int64_t)b * H + h) * Sq + row;
+    l2[hf] = lse_base2(row < Sq ? lse[r] : kNegInf);
+    dl[hf] = row < Sq ? delta[r] : 0.f;
+  }
+
+  float acc_lo[32], acc_hi[32];  // dq, columns 0-63 and 64-127
+  zero(acc_lo);
+  zero(acc_hi);
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) load_kv((t + 1) & 1, (t + 1) * kRows);
+    fatt::cp_async_commit();
+    fatt::cp_async_wait<1>();
+    // cp.async and the R(q) stores -> wgmma's reads
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    const uint32_t ks = ring + (t & 1) * 2 * kTileBytes;
+    const uint32_t vs = ks + kTileBytes;
+    const int k0 = t * kRows;
+
+    float s[32], dp[32];
+    zero(s);
+    zero(dp);
+    pin(s);
+    pin(dp);
+    wg_fence();
+    product_abt(s, qs, ks);    // S = R(q) K^T
+    product_abt(dp, dos, vs);  // dP = dO V^T
+    wg_commit();
+    wg_wait_all();
+    pin(s);
+    pin(dp);
+
+    // dS = P (dP - delta), masked only where this warp's diagonal or Sk's
+    // edge crosses the tile, packed to bf16 A fragments (keys 16c..16c+15).
+    const bool edge = k0 + kRows > Sk || (causal && k0 + kRows - 1 > wrow0 + shift);
+    uint32_t dsf[4][4];
+#pragma unroll
+    for (int j = 0; j < kRows / 8; ++j) {
+      float x[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(fmaf(s[4 * j + e], sl2, -l2[e >> 1]));
+        if (edge) {
+          const int col = k0 + j * 8 + (lane & 3) * 2 + (e & 1);
+          const int row = my_row + (e >> 1) * 8;
+          if (col >= Sk || (causal && col > row + shift)) p = 0.f;
+        }
+        x[e] = p * (dp[4 * j + e] - dl[e >> 1]);
+      }
+      dsf[j / 2][(j & 1) * 2] = fatt::pack_bf16(x[0], x[1]);
+      dsf[j / 2][(j & 1) * 2 + 1] = fatt::pack_bf16(x[2], x[3]);
+    }
+
+    pin(acc_lo);
+    pin(acc_hi);
+    wg_fence();
+    product_acc(acc_lo, acc_hi, dsf, ks);  // dq += dS K
+    wg_commit();
+    wg_wait_all();
+    pin(acc_lo);
+    pin(acc_hi);
+    __syncthreads();  // the stage is consumed before the ring refills it
+  }
+  fatt::cp_async_wait<0>();
 
   // dq = scale * acc, pulled back through the rotation (R^-1 = R(-angle))
-  // in fp32 on this warp's own rows.
-  float* Os = reinterpret_cast<float*>(smem + L::kS);
+  // in fp32: column c < 64 (acc_lo) and its partner c + 64 (acc_hi).
 #pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
+  for (int hf = 0; hf < 2; ++hf) {
+    const int row = my_row + hf * 8;
+    if (row >= Sq) continue;
+    float* dst = dq + (((int64_t)b * Sq + row) * H + h) * kD;
+    const int64_t t = (int64_t)b * rope_bstride + (int64_t)row * (kD / 2);
 #pragma unroll
-    for (int i = 0; i < acc[n].num_elements; ++i) acc[n].x[i] *= scale;
-    wmma::store_matrix_sync(Os + warp * 16 * L::kOLd + n * 16, acc[n], L::kOLd,
-                            wmma::mem_row_major);
-  }
-  __syncwarp();
-  if (g_row < Sq) {
-    constexpr int D2 = D / 2;
-    const float* orow = Os + my_row * L::kOLd;
-    float* dst = dq + (((int64_t)b * Sq + g_row) * H + h) * D;
-    const int c0 = (lane & 1) * (D2 / 2);
-    for (int c = c0; c < c0 + D2 / 2; ++c) {
-      const float x1 = orow[c], x2 = orow[c + D2];
-      float o1 = x1, o2 = x2;
+    for (int j = 0; j < kRows / 8; ++j) {
+      const int c = j * 8 + (lane & 3) * 2;
+      float x1[2] = {acc_lo[4 * j + 2 * hf] * scale, acc_lo[4 * j + 2 * hf + 1] * scale};
+      float x2[2] = {acc_hi[4 * j + 2 * hf] * scale, acc_hi[4 * j + 2 * hf + 1] * scale};
       if (cosv != nullptr) {
-        const int64_t t = (int64_t)b * rope_bstride + (int64_t)g_row * D2 + c;
-        const float cs = cosv[t], sn = sinv[t];
-        o1 = __fadd_rn(__fmul_rn(x1, cs), __fmul_rn(x2, sn));
-        o2 = __fsub_rn(__fmul_rn(x2, cs), __fmul_rn(x1, sn));
+        const float2 cs = *reinterpret_cast<const float2*>(cosv + t + c);
+        const float2 sn = *reinterpret_cast<const float2*>(sinv + t + c);
+        const float cv[2] = {cs.x, cs.y}, sv[2] = {sn.x, sn.y};
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const float o1 = __fadd_rn(__fmul_rn(x1[u], cv[u]), __fmul_rn(x2[u], sv[u]));
+          const float o2 = __fsub_rn(__fmul_rn(x2[u], cv[u]), __fmul_rn(x1[u], sv[u]));
+          x1[u] = o1;
+          x2[u] = o2;
+        }
       }
-      dst[c] = o1;
-      dst[c + D2] = o2;
+      *reinterpret_cast<float2*>(dst + c) = make_float2(x1[0], x1[1]);
+      *reinterpret_cast<float2*>(dst + c + kD / 2) = make_float2(x2[0], x2[1]);
     }
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads) dkv_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+__global__ void __launch_bounds__(kThreads, 2 / kWarpgroups) dkv_kernel(
+    const __nv_bfloat16* __restrict__ rq, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    const float* __restrict__ cosv, const float* __restrict__ sinv,
     float* __restrict__ dk, float* __restrict__ dv, int Sq, int Sk, int H, int Hk,
-    int rope_bstride, float scale, int causal) {
-  using L = Smem<D>;
+    float scale, int causal) {
   extern __shared__ __align__(128) unsigned char smem[];
-  auto Ks = reinterpret_cast<__nv_bfloat16*>(smem + L::kA);
-  auto Vs = reinterpret_cast<__nv_bfloat16*>(smem + L::kB);
-  auto Qs = reinterpret_cast<__nv_bfloat16*>(smem + L::kC);
-  auto dOs = reinterpret_cast<__nv_bfloat16*>(smem + L::kE);
-  auto STs = reinterpret_cast<float*>(smem + L::kS);
-  auto dPTs = reinterpret_cast<float*>(smem + L::kDP);
-  auto Ps = reinterpret_cast<__nv_bfloat16*>(smem + L::kP);
-  auto lse_s = reinterpret_cast<float*>(smem + L::kRow);
-  auto delta_s = lse_s + 64;
+  const uint32_t s_base = fatt::smem_u32(smem);
+  const uint32_t ks0 = (s_base + 1023) & ~1023u;  // K of warpgroup w at ks0 + w tiles
+  const uint32_t vs0 = ks0 + kWarpgroups * kTileBytes;  // V likewise
+  // ring stage st: R(q) at ring + 2 st tiles, dO after it
+  const uint32_t ring = vs0 + kWarpgroups * kTileBytes;
+  const uint32_t stats = ring + 4 * kTileBytes;  // stage st: lse then delta, 64 each
+  const float* stats_ptr = reinterpret_cast<const float*>(smem + (stats - s_base));
 
-  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int h = blockIdx.x, b = blockIdx.y, kt = blockIdx.z;  // kt 0 first: the most work
   const int kvh = h / (H / Hk);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int k0 = kt * kBK;
+  const int tid = threadIdx.x, lane = tid & 31, warp = (tid >> 5) & 3, wg = tid >> 7;
+  const int k0 = kt * kBlockRows;
   const int shift = Sk - Sq;
 
-  load_rows<D>(Ks, k, b, k0, Sk, Hk, kvh);
-  load_rows<D>(Vs, v, b, k0, Sk, Hk, kvh);
-
-  // lane pair (2r', 2r'+1) of warp w owns key w*16 + r', 32 queries each
-  const int my_key = warp * 16 + (lane >> 1);
-  const int half = (lane & 1) * (kBQ / 2);
-  const int g_key = k0 + my_key;
-
-  FragC acc_k[D / 16], acc_v[D / 16];
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    wmma::fill_fragment(acc_k[n], 0.f);
-    wmma::fill_fragment(acc_v[n], 0.f);
-  }
-
-  // First live q tile: (kt, qt) is live iff k0 <= qt*kBQ + kBQ - 1 + shift.
+  // First live query tile: (k0, qt) is live iff k0 <= qt*64 + 63 + shift.
   int qt0 = 0;
   if (causal) {
-    const int t = k0 - shift - (kBQ - 1);
-    qt0 = t > 0 ? (t + kBQ - 1) / kBQ : 0;
+    const int t = k0 - shift - (kRows - 1);
+    qt0 = t > 0 ? (t + kRows - 1) / kRows : 0;
   }
-  const int nq = (Sq + kBQ - 1) / kBQ;
+  const int n_iter = max((Sq + kRows - 1) / kRows - qt0, 0);
 
-  for (int qt = qt0; qt < nq; ++qt) {
-    const int row0 = qt * kBQ;
-    __syncthreads();  // previous q tile fully consumed
-    load_q<D>(Qs, q, cosv, sinv, b, row0, Sq, H, h, rope_bstride);
-    load_rows<D>(dOs, dout, b, row0, Sq, H, h);
-    for (int i = threadIdx.x; i < kBQ; i += kThreads) {
-      const int gq = row0 + i;
-      const int64_t r = ((int64_t)b * H + h) * Sq + gq;
-      lse_s[i] = gq < Sq ? lse[r] : kNegInf;
-      delta_s[i] = gq < Sq ? delta[r] : 0.f;
+  // R(q), dO, lse and delta of query tile qt0 + it into ring stage st.
+  auto load_q = [&](int st, int it) {
+    const int q0 = (qt0 + it) * kRows;
+    const uint32_t rs = ring + st * 2 * kTileBytes;
+    load_tile(rs, rq, b, q0, Sq, H, h);
+    load_tile(rs + kTileBytes, dout, b, q0, Sq, H, h);
+    if (tid < 2 * kRows) {
+      const int gq = q0 + (tid % kRows);
+      const bool in = gq < Sq;
+      const float* src = (tid < kRows ? lse : delta) + ((int64_t)b * H + h) * Sq + (in ? gq : 0);
+      fatt::cp_async4(stats + st * kStatBytes + tid * 4, src, in ? 4 : 0);
     }
+  };
+#pragma unroll
+  for (int w = 0; w < kWarpgroups; ++w) {
+    load_tile(ks0 + w * kTileBytes, k, b, k0 + w * kRows, Sk, Hk, kvh);
+    load_tile(vs0 + w * kTileBytes, v, b, k0 + w * kRows, Sk, Hk, kvh);
+  }
+  if (n_iter > 0) load_q(0, 0);
+  fatt::cp_async_commit();
+
+  // This warpgroup's K and V; this thread's keys: wkey0 + lane/4
+  // (accumulator entries 0, 1) and 8 below it (entries 2, 3); its queries
+  // 8j + 2 (lane % 4) + {0, 1}.
+  const uint32_t ks = ks0 + wg * kTileBytes, vs = vs0 + wg * kTileBytes;
+  const int wkey0 = k0 + wg * kRows + warp * 16;
+  const int my_key = wkey0 + (lane >> 2);
+  const float sl2 = scale * kLog2e;
+  float dk_lo[32], dk_hi[32], dv_lo[32], dv_hi[32];
+  zero(dk_lo);
+  zero(dk_hi);
+  zero(dv_lo);
+  zero(dv_hi);
+  for (int it = 0; it < n_iter; ++it) {
+    if (it + 1 < n_iter) load_q((it + 1) & 1, it + 1);
+    fatt::cp_async_commit();
+    fatt::cp_async_wait<1>();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // cp.async -> wgmma
     __syncthreads();
+    const uint32_t rs = ring + (it & 1) * 2 * kTileBytes;
+    const uint32_t ds = rs + kTileBytes;
+    const float* lse_s = stats_ptr + (it & 1) * 2 * kRows;
+    const float* delta_s = lse_s + kRows;
+    const int q0 = (qt0 + it) * kRows;
 
-    // S^T and dP^T for this warp's 16 keys against the tile's 64 queries
-    mm_abt<D>(STs + warp * 16 * L::kSLd, Ks + warp * 16 * L::kLd, Qs);
-    mm_abt<D>(dPTs + warp * 16 * L::kSLd, Vs + warp * 16 * L::kLd, dOs);
-    __syncwarp();
+    float st[32], dpt[32];
+    zero(st);
+    zero(dpt);
+    pin(st);
+    pin(dpt);
+    wg_fence();
+    product_abt(st, ks, rs);   // S^T = K R(q)^T
+    product_abt(dpt, vs, ds);  // dP^T = V dO^T
+    wg_commit();
+    wg_wait_all();
+    pin(st);
+    pin(dpt);
 
-    float* strow = STs + my_key * L::kSLd + half;
-    __nv_bfloat16* prow = Ps + my_key * L::kPLd + half;
-#pragma unroll 8
-    for (int c = 0; c < kBQ / 2; ++c) {
-      const int row = row0 + half + c;
-      const float l = lse_s[half + c];
-      const bool live = row < Sq && l > kNegInf / 2 && g_key < Sk &&
-                        (!causal || g_key <= row + shift);
-      const float p = prob(strow[c], scale, l, live);
-      strow[c] = p;
-      prow[c] = __float2bfloat16(p);
+    // P^T and dS^T = P^T (dP^T - delta), masked only where this warp's
+    // diagonal or a ragged edge crosses the tile, packed to bf16 A
+    // fragments (queries 16c..16c+15).
+    const bool edge = wkey0 + 16 > Sk || q0 + kRows > Sq || (causal && wkey0 + 15 > q0 + shift);
+    uint32_t pf[4][4], dsf[4][4];
+#pragma unroll
+    for (int j = 0; j < kRows / 8; ++j) {
+      const int c = j * 8 + (lane & 3) * 2;
+      const float2 l = *reinterpret_cast<const float2*>(lse_s + c);
+      const float2 d = *reinterpret_cast<const float2*>(delta_s + c);
+      const float l2[2] = {lse_base2(l.x), lse_base2(l.y)}, dl[2] = {d.x, d.y};
+      float p[4], x[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[e] = exp2f(fmaf(st[4 * j + e], sl2, -l2[e & 1]));
+        if (edge) {
+          const int key = my_key + (e >> 1) * 8, col = q0 + c + (e & 1);
+          if (key >= Sk || col >= Sq || (causal && key > col + shift)) p[e] = 0.f;
+        }
+        x[e] = p[e] * (dpt[4 * j + e] - dl[e & 1]);
+      }
+      pf[j / 2][(j & 1) * 2] = fatt::pack_bf16(p[0], p[1]);
+      pf[j / 2][(j & 1) * 2 + 1] = fatt::pack_bf16(p[2], p[3]);
+      dsf[j / 2][(j & 1) * 2] = fatt::pack_bf16(x[0], x[1]);
+      dsf[j / 2][(j & 1) * 2 + 1] = fatt::pack_bf16(x[2], x[3]);
     }
-    __syncwarp();
-    mm_acc<D>(acc_v, Ps + warp * 16 * L::kPLd, dOs);  // dv += P^T dO
-    __syncwarp();
 
-    const float* dprow = dPTs + my_key * L::kSLd + half;
-#pragma unroll 8
-    for (int c = 0; c < kBQ / 2; ++c)
-      prow[c] = __float2bfloat16(strow[c] * (dprow[c] - delta_s[half + c]));
-    __syncwarp();
-    mm_acc<D>(acc_k, Ps + warp * 16 * L::kPLd, Qs);  // dk += dS^T R(q)
+    pin(dv_lo);
+    pin(dv_hi);
+    pin(dk_lo);
+    pin(dk_hi);
+    wg_fence();
+    product_acc(dv_lo, dv_hi, pf, ds);   // dv += P^T dO
+    product_acc(dk_lo, dk_hi, dsf, rs);  // dk += dS^T R(q)
+    wg_commit();
+    wg_wait_all();
+    pin(dv_lo);
+    pin(dv_hi);
+    pin(dk_lo);
+    pin(dk_hi);
+    __syncthreads();  // the stage is consumed before the ring refills it
   }
+  fatt::cp_async_wait<0>();
 
-  // fp32 [B, H, Sk_pad, D] rows of this tile; Sk_pad = gridDim.x * kBK
-  const int64_t row = ((int64_t)b * H + h) * ((int64_t)gridDim.x * kBK) + k0 + warp * 16;
+  // fp32 [B, H, Sk, D] rows of this thread's keys.
+  const int64_t base = ((int64_t)b * H + h) * Sk;
 #pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
+  for (int hf = 0; hf < 2; ++hf) {
+    const int key = my_key + hf * 8;
+    if (key >= Sk) continue;
+    float* dkr = dk + (base + key) * kD;
+    float* dvr = dv + (base + key) * kD;
 #pragma unroll
-    for (int i = 0; i < acc_k[n].num_elements; ++i) acc_k[n].x[i] *= scale;
-    wmma::store_matrix_sync(dk + row * D + n * 16, acc_k[n], D, wmma::mem_row_major);
-    wmma::store_matrix_sync(dv + row * D + n * 16, acc_v[n], D, wmma::mem_row_major);
+    for (int j = 0; j < kRows / 8; ++j) {
+      const int c = j * 8 + (lane & 3) * 2, e = 4 * j + 2 * hf;
+      *reinterpret_cast<float2*>(dkr + c) = make_float2(dk_lo[e] * scale, dk_lo[e + 1] * scale);
+      *reinterpret_cast<float2*>(dkr + c + 64) =
+          make_float2(dk_hi[e] * scale, dk_hi[e + 1] * scale);
+      *reinterpret_cast<float2*>(dvr + c) = make_float2(dv_lo[e], dv_lo[e + 1]);
+      *reinterpret_cast<float2*>(dvr + c + 64) = make_float2(dv_hi[e], dv_hi[e + 1]);
+    }
   }
 }
 
-template <typename Kernel>
-int prepare(Kernel kernel, size_t bytes) {
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                                   (int)cudaSharedmemCarveoutMaxShared);
+bool shape_ok(int B, int Sq, int Sk, int H, int Hk, int D) {
+  return Sq > 0 && Sk > 0 && Hk > 0 && H % Hk == 0 && D == kD && B <= 65535 &&
+         (Sq + kBlockRows - 1) / kBlockRows <= 65535 && (Sk + kBlockRows - 1) / kBlockRows <= 65535;
 }
 
 }  // namespace
@@ -380,45 +548,43 @@ int prepare(Kernel kernel, size_t bytes) {
 // q, dout [B, Sq, H, D]; k, v [B, Sk, Hk, D] bf16; lse, delta [B, H, Sq]
 // fp32; cos/sin [B or 1, Sq, D/2] fp32 with batch stride rope_bstride (0
 // when shared), or both null.  dq: [B, Sq, H, D] fp32, w.r.t. un-rotated q.
+// rq (with the tables, else unused): [B, Sq, H, D] bf16, R(q) for K10.
 extern "C" int fatt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse, const void* delta,
-                                 const void* cosv, const void* sinv, void* dq, int B,
-                                 int Sq, int Sk, int H, int Hk, int D, int rope_bstride,
-                                 float scale, int causal, void* stream) {
+                                 const void* cosv, const void* sinv, void* dq, void* rq,
+                                 int B, int Sq, int Sk, int H, int Hk, int D,
+                                 int rope_bstride, float scale, int causal, void* stream) {
   // Only head_dim 128 (Llama-3) is built; another D needs a card check.
-  if (H % Hk != 0 || D != 128) return (int)cudaErrorInvalidValue;
-  constexpr size_t bytes = Smem<128>::kBytes;
-  int e = prepare(dq_kernel<128>, bytes);
-  if (e != 0) return e;
-  dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  dq_kernel<128><<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+  if (!shape_ok(B, Sq, Sk, H, Hk, D)) return (int)cudaErrorInvalidValue;
+  static fatt::SmemLimitSet smem_set;
+  cudaError_t e = fatt::smem_limit_once(dq_kernel, kDqSmem, smem_set);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(H, B, (Sq + kBlockRows - 1) / kBlockRows);
+  dq_kernel<<<grid, kThreads, kDqSmem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<const float*>(cosv), static_cast<const float*>(sinv),
-      static_cast<float*>(dq), Sq, Sk, H, Hk, rope_bstride, scale, causal);
+      static_cast<float*>(dq), static_cast<__nv_bfloat16*>(rq), Sq, Sk, H, Hk, rope_bstride,
+      scale, causal);
   return (int)cudaGetLastError();
 }
 
-// As fatt_flash_bwd_dq; dk, dv: [B, H, ceil(Sk / 64) * 64, D] fp32 per
-// query head (rows past Sk are zero).
-extern "C" int fatt_flash_bwd_dkv(const void* q, const void* k, const void* v,
+// rq: R(q) [B, Sq, H, D] bf16 (q itself without rope); the rest as
+// fatt_flash_bwd_dq.  dk, dv: [B, H, Sk, D] fp32, per query head.
+extern "C" int fatt_flash_bwd_dkv(const void* rq, const void* k, const void* v,
                                   const void* dout, const void* lse, const void* delta,
-                                  const void* cosv, const void* sinv, void* dk, void* dv,
-                                  int B, int Sq, int Sk, int H, int Hk, int D,
-                                  int rope_bstride, float scale, int causal,
-                                  void* stream) {
-  if (H % Hk != 0 || D != 128) return (int)cudaErrorInvalidValue;
-  constexpr size_t bytes = Smem<128>::kBytes;
-  int e = prepare(dkv_kernel<128>, bytes);
-  if (e != 0) return e;
-  dim3 grid((Sk + kBK - 1) / kBK, H, B);
-  dkv_kernel<128><<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+                                  void* dk, void* dv, int B, int Sq, int Sk, int H, int Hk,
+                                  int D, float scale, int causal, void* stream) {
+  if (!shape_ok(B, Sq, Sk, H, Hk, D)) return (int)cudaErrorInvalidValue;
+  static fatt::SmemLimitSet smem_set;
+  cudaError_t e = fatt::smem_limit_once(dkv_kernel, kDkvSmem, smem_set);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(H, B, (Sk + kBlockRows - 1) / kBlockRows);
+  dkv_kernel<<<grid, kThreads, kDkvSmem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(rq), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const float*>(cosv), static_cast<const float*>(sinv),
-      static_cast<float*>(dk), static_cast<float*>(dv), Sq, Sk, H, Hk, rope_bstride,
-      scale, causal);
+      static_cast<float*>(dk), static_cast<float*>(dv), Sq, Sk, H, Hk, scale, causal);
   return (int)cudaGetLastError();
 }

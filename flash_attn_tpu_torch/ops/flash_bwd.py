@@ -2,17 +2,18 @@
 
 Port of flash_attn_tpu/ops/flash_bwd.py:flash_bwd for the subset the Llama
 training step uses: BSHD layout, GQA, bottom-right causal mask, q-side
-RoPE inside the kernels, ``scale``.  Bias and dbias, segment ids,
-positions, windows, softcap, ALiBi, dropout and fp16 are still to port
-and raise ``NotImplementedError``.
+RoPE, ``scale``.  Bias and dbias, segment ids, positions, windows,
+softcap, ALiBi, dropout and fp16 are still to port and raise
+``NotImplementedError``.
 
 As on the TPU: ``delta = rowsum(dout * out)`` is plain fp32 arithmetic
 outside the kernels; the dq pass (K9) and the dk/dv pass (K10) each
-recompute P from (R(q), k, lse) and are deterministic (no atomics); K10
-writes dk/dv per query head in fp32 and the GQA group is summed here.
-The recompute works in natural units, s = (R(q) k^T) * scale, unlike the
-forward's base-2 scores, so P differs from the forward's by rounding, as
-in the reference.
+recompute P from (R(q), k, lse) and are deterministic (no atomics).  K9
+runs first: it rotates q once and also writes R(q) in bf16, which K10
+reads as it is.  K10 writes dk/dv per query head in fp32 and the GQA group
+is summed here.  The recompute works in natural units, s = (R(q) k^T) *
+scale, unlike the forward's base-2 scores, so P differs from the
+forward's by rounding, as in the reference.
 """
 
 from __future__ import annotations
@@ -23,7 +24,6 @@ from flash_attn_tpu_torch import _build
 from flash_attn_tpu_torch.ops.rope import rope_rotate, rope_unrotate
 
 NEG_INF = -1e30
-_TILE = 64  # K10 writes dk/dv in whole 64-key tiles
 
 
 def _unset(val) -> bool:
@@ -124,48 +124,47 @@ def _check_cuda(q, k, v, dout, lse, delta, rope_cos, rope_sin, name):
 def flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal, scale, rope_cos, rope_sin):
     """Launch K9 (replaces flash_attn_tpu/ops/flash_bwd.py:_dq_kernel;
     bound by operations, see csrc/flash_bwd.cu).  Returns dq [B, Sq, H, D]
-    fp32."""
+    fp32 and R(q) [B, Sq, H, D] bf16, the rotated q that K9 writes for
+    K10 (q itself without rope tables)."""
     bstride = _check_cuda(q, k, v, dout, lse, delta, rope_cos, rope_sin, "K9")
     B, Sq, H, D = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
     dq = torch.empty((B, Sq, H, D), dtype=torch.float32, device=q.device)
+    rq = q if rope_cos is None else torch.empty_like(q)
     p = _build.ptr
     rc = _build.lib().fatt_flash_bwd_dq(
         p(q), p(k), p(v), p(dout), p(lse), p(delta), p(rope_cos), p(rope_sin),
-        p(dq), B, Sq, Sk, H, Hk, D, bstride, float(scale), int(causal),
+        p(dq), p(rq), B, Sq, Sk, H, Hk, D, bstride, float(scale), int(causal),
         _build.stream())
     _build.check(rc, "fatt_flash_bwd_dq")
     flash_bwd_dq_cuda.launches += 1
-    return dq
+    return dq, rq
 
 
-def flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, causal, scale, rope_cos, rope_sin):
+def flash_bwd_dkv_cuda(rq, k, v, dout, lse, delta, causal, scale):
     """Launch K10 (replaces flash_attn_tpu/ops/flash_bwd.py:_dkv_kernel;
-    bound by operations).  Returns dk, dv [B, H, Sk, D] fp32 per query
-    head (views of whole-tile buffers)."""
-    bstride = _check_cuda(q, k, v, dout, lse, delta, rope_cos, rope_sin, "K10")
-    B, Sq, H, D = q.shape
+    bound by operations) on R(q) from K9.  Returns dk, dv [B, H, Sk, D]
+    fp32 per query head."""
+    _check_cuda(rq, k, v, dout, lse, delta, None, None, "K10")
+    B, Sq, H, D = rq.shape
     Sk, Hk = k.shape[1], k.shape[2]
-    sk_pad = -(-Sk // _TILE) * _TILE
-    dk = torch.empty((B, H, sk_pad, D), dtype=torch.float32, device=q.device)
+    dk = torch.empty((B, H, Sk, D), dtype=torch.float32, device=rq.device)
     dv = torch.empty_like(dk)
     p = _build.ptr
     rc = _build.lib().fatt_flash_bwd_dkv(
-        p(q), p(k), p(v), p(dout), p(lse), p(delta), p(rope_cos), p(rope_sin),
-        p(dk), p(dv), B, Sq, Sk, H, Hk, D, bstride, float(scale), int(causal),
-        _build.stream())
+        p(rq), p(k), p(v), p(dout), p(lse), p(delta), p(dk), p(dv),
+        B, Sq, Sk, H, Hk, D, float(scale), int(causal), _build.stream())
     _build.check(rc, "fatt_flash_bwd_dkv")
     flash_bwd_dkv_cuda.launches += 1
-    return dk[:, :, :Sk], dv[:, :, :Sk]
+    return dk, dv
 
 
 def flash_bwd_cuda(q, k, v, dout, lse, delta, causal, scale, rope_cos, rope_sin):
-    """K10 then K9 on the card; each wrapper counts its own launches.
+    """K9, then K10 on K9's R(q); each wrapper counts its own launches.
     Returns what flash_bwd_plain returns."""
-    dk, dv = flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, causal, scale,
-                                rope_cos, rope_sin)
-    dq = flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal, scale,
-                           rope_cos, rope_sin)
+    dq, rq = flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal, scale,
+                               rope_cos, rope_sin)
+    dk, dv = flash_bwd_dkv_cuda(rq, k, v, dout, lse, delta, causal, scale)
     return dq, dk, dv
 
 

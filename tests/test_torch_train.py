@@ -44,11 +44,13 @@ def rel_err(got, want) -> float:
     return float(np.abs(g - w).max() / np.abs(w).max())
 
 
-def attn_inputs(seed, dtype):
+def attn_inputs(seed, dtype, b=B, h=H, hk=HK):
+    """q, k, v, dout and rope tables; with b > 1 each sequence has its own
+    positions (sequence i starts at 7 i), so the tables are [b, SQ, D/2]."""
     rng = np.random.default_rng(seed)
     arr = lambda *s: jnp.asarray(rng.standard_normal(s), jnp.float32).astype(dtype)
-    q, k, v, dout = arr(B, SQ, H, D), arr(B, SK, HK, D), arr(B, SK, HK, D), arr(B, SQ, H, D)
-    cos, sin = j_rope_cos_sin(jnp.arange(SQ)[None], D, 10000.0)
+    q, k, v, dout = arr(b, SQ, h, D), arr(b, SK, hk, D), arr(b, SK, hk, D), arr(b, SQ, h, D)
+    cos, sin = j_rope_cos_sin(jnp.arange(SQ)[None] + 7 * jnp.arange(b)[:, None], D, 10000.0)
     return q, k, v, dout, cos, sin
 
 
@@ -61,10 +63,18 @@ def attn_inputs(seed, dtype):
 BWD_TOL = {"float32": 2e-6, "bfloat16": 2.0 ** -7}
 
 
-@pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_flash_bwd_plain_matches_jax(dtype, causal):
-    q, k, v, dout, cos, sin = attn_inputs(1, dtype)
+# (dtype, causal, batch, heads, kv heads): GQA 4/2 in both dtypes and
+# masks; group sizes 1 (H = Hk) and 4 (one KV head), and B=2 with
+# per-sequence rope tables, on the causal training mask
+BWD_CASES = [pytest.param(dt, c, B, H, HK, id=f"{dt}-{c}")
+             for c in (False, True) for dt in ("float32", "bfloat16")]
+BWD_CASES += [pytest.param(dt, True, b, h, hk, id=f"{dt}-True-B{b}-H{h}-Hk{hk}")
+              for dt in ("float32", "bfloat16") for b, h, hk in ((1, 4, 4), (1, 4, 1), (2, 4, 2))]
+
+
+@pytest.mark.parametrize("dtype,causal,b,h,hk", BWD_CASES)
+def test_flash_bwd_plain_matches_jax(dtype, causal, b, h, hk):
+    q, k, v, dout, cos, sin = attn_inputs(1, dtype, b, h, hk)
     kw = dict(causal=causal, rope_cos=cos, rope_sin=sin)
     out, lse = j_flash_fwd(q, k, v, interpret=True, **kw)
     want = j_flash_bwd(q, k, v, out, lse, dout, interpret=True, **kw)
@@ -417,23 +427,32 @@ def test_flash_bwd_refuses_unported_options(option):
 
 
 def test_training_wrappers_refuse():
-    """fp16, what K9/K10 do not take (CPU tensors, fp32, D != 128; raised
-    before any build), and the unported model and attention options."""
+    """fp16, what K9/K10 do not take (CPU tensors, fp32, D != 128, fp32
+    lse, fp32 rope tables; raised before any build), and the unported
+    model and attention options.  K10 takes R(q) from K9 and no tables."""
     q, k, v, dout, _, _ = (T(x) for x in attn_inputs(10, "float32"))
     lse = torch.zeros((B, H, SQ))
     with pytest.raises(NotImplementedError):
         fb.flash_bwd(q.half(), k.half(), v.half(), q.half(), lse, dout.half())
     delta = torch.zeros((B, H, SQ))
     bf = [x.bfloat16() for x in (q, k, v, dout)]
-    for kernel in (fb.flash_bwd_dq_cuda, fb.flash_bwd_dkv_cuda):
-        for args in ((q, k, v, dout), bf):  # fp32; then bf16 on the CPU / D = 32
-            with pytest.raises(ValueError):
-                kernel(*args, lse, delta, True, 1.0, None, None)
+    for args in ((q, k, v, dout), bf):  # fp32; then bf16 on the CPU / D = 32
+        with pytest.raises(ValueError):
+            fb.flash_bwd_dq_cuda(*args, lse, delta, True, 1.0, None, None)
+        with pytest.raises(ValueError):
+            fb.flash_bwd_dkv_cuda(*args, lse, delta, True, 1.0)
     big = [torch.zeros(s, dtype=torch.bfloat16) for s in
            ((1, 8, 2, 128), (1, 8, 1, 128), (1, 8, 1, 128), (1, 8, 2, 128))]
+    stats = torch.zeros((1, 2, 8))
     with pytest.raises(ValueError, match="CUDA"):
-        fb.flash_bwd_dq_cuda(*big, torch.zeros((1, 2, 8)), torch.zeros((1, 2, 8)), True,
-                             1.0, None, None)
+        fb.flash_bwd_dq_cuda(*big, stats, stats, True, 1.0, None, None)
+    with pytest.raises(ValueError, match="CUDA"):
+        fb.flash_bwd_dkv_cuda(*big, stats, stats, True, 1.0)
+    with pytest.raises(ValueError, match="fp32 lse"):
+        fb.flash_bwd_dkv_cuda(*big, stats.bfloat16(), stats, True, 1.0)
+    tables = torch.zeros((8, 64), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="fp32"):
+        fb.flash_bwd_dq_cuda(*big, stats, stats, True, 1.0, tables, tables)
     assert fb.flash_bwd_dq_cuda.launches == 0 and fb.flash_bwd_dkv_cuda.launches == 0
     toks = torch.zeros((1, 4), dtype=torch.long)
     with pytest.raises(NotImplementedError):
