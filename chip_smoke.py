@@ -12,12 +12,13 @@ Phases, one line each with its seconds:
      -inf, an idle slot), K1 in chunk mode (T=5 at H=32 and 64) and over a
      BSHD cache (through flash_attn_tpu_torch.flash_decode, JAX's default
      layout), K1 and K4 at the draft's H=24, K2 kv-append, K3 int8 matmul
-     (8B shapes), K4 flash forward (both softmax modes, also at S=891, a
+     (8B shapes, M = 8 and 512, and 17 and 100), K4 flash forward (both softmax modes, also at S=891, a
      shifted Sq=1000 Sk=1500, B=2 with per-sequence rope and H=24), K8 paged
      decode (decode mode at pages of 128 and 512, also against K1 on the
      same content, and chunk mode), K3 grouped, K6 int4 matmul (70B
-     shapes), K5 W4A8 matmul (8B shapes), K7 W8A8 matmul (70B head,
-     bit-exact), K9 and K10 flash backward (dq and dk/dv passes, at the
+     shapes) and K5 W4A8 matmul (8B shapes), both at M = 8 and 256, at
+     17-128 on w_gate_up and on an N tail (4096 x 6148), K7 W8A8 matmul
+     (70B head, M = 8, 100, 1024, bit-exact), K9 and K10 flash backward (dq and dk/dv passes, at the
      training shape, at a shifted causal Sq=1000, Sk=1500, non-causal at
      B=2, at group sizes 1 and 8 and non-causal at S=2048, each also
      launched twice and held bitwise equal, beside the device time of
@@ -59,10 +60,11 @@ Phases, one line each with its seconds:
      memory, and the launches of K4, K9 and K10.
 
 Before the last line come the kernels' JSON record (each row's launches
-are those of the run named in its "launches_run") and the card; the last
-line is {"ok": true, "device": {...}}.  Any failed check exits
-nonzero without that line; so does a machine without CUDA or a directory
-without the rest of the repository.
+are those of the run named in its "launches_run"; the quantized matmuls'
+rows also carry their prompt bucket's numbers under "prompt") and the
+card; the last line is {"ok": true, "device": {...}}.  Any failed check
+exits nonzero without that line; so does a machine without CUDA or a
+directory without the rest of the repository.
 """
 
 from __future__ import annotations
@@ -213,47 +215,76 @@ def phase_env(torch):
     return smi
 
 
+def _q_point(torch, checks, label, run, plain, lib=None, lib_name="", nbytes=0, flops=0,
+             peak=BF16_FLOPS_PER_S, exact=False):
+    """One quantized matmul against its plain version: every output row
+    within its tolerance (``exact``: bit for bit), its time by CUDA events
+    and, where ``lib`` is given, the plain version's time (fewer launches:
+    it is slow and only a reference), the library call's and the bound.
+    Returns a row's numbers."""
+    got = run()
+    ref = plain()
+    torch.cuda.synchronize()
+    if exact:
+        err = float((got.float() - ref.float()).abs().max())
+        ok = checks.check(f"{label} bit-exact", err, 0.0)
+        what = "tol 0, bit-exact"
+    else:
+        err, share = row_err(got, ref)
+        ok = checks.check(label, share, 1.0)
+        what = f"{share:.3f} of its row's tol"
+    del got, ref
+    res = dict(max_abs_err=err, ms=cuda_ms(torch, run))
+    line = f"  {label}: max_abs_err {err:.3e} ({what}) {'ok' if ok else 'FAIL'} | {res['ms']:.4f} ms"
+    if lib is not None:
+        res["plain_ms"] = cuda_ms(torch, plain, iters=3, warmup=1)
+        res["library_ms"] = cuda_ms(torch, lib)
+        res["bound_ms"], res["bound_by"] = bound(nbytes, flops, peak)
+        line += (f", plain {res['plain_ms']:.4f}, library ({lib_name}) {res['library_ms']:.4f}, "
+                 f"bound {res['bound_ms']:.4f} ({res['bound_by']})")
+    say(line)
+    return res
+
+
+def _q_row(name, replaces, points, main, prompt):
+    """A kernel row: the main-path decode point's numbers, the prompt
+    bucket's beside them, and the worst error over every point."""
+    row = dict(name=name, source="flash_attn_tpu_torch/csrc/matmul_q.cu", replaces=replaces,
+               max_abs_err=max(p["max_abs_err"] for p in points.values()))
+    row.update({k: points[main][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                              "bound_by")})
+    row["prompt"] = dict(M=prompt[0], **{k: points[prompt][k] for k in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+    return row
+
+
 def check_k3(torch, checks, rows):
+    """K3 at the 8B shapes, M = 8 (decode) and 512 (the 8B int8 prefill,
+    which has no M >= 512 route), and at M = 17 and 100 (rows that fill
+    no whole 64- or 128-row block) on 4096 x 14336."""
     from flash_attn_tpu_torch.ops import matmul as mm
     from flash_attn_tpu_torch.ops.quant import quantize_int8
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    worst = 0.0
-    main = None
+    points = {}
     for (K, N) in ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)):
         wf = torch.randn((K, N), generator=g, device="cuda", dtype=torch.bfloat16) * 0.02
         wq, s = quantize_int8(wf, dims=(0,))
         wq, s = wq.contiguous(), s[0].contiguous()
         del wf
-        for M in (8, 512):
+        wbf = wq.bfloat16()
+        for M in (8, 512) + ((17, 100) if (K, N) == (4096, 14336) else ()):
             x = torch.randn((M, K), generator=g, device="cuda", dtype=torch.bfloat16)
-            got = mm.matmul_int8_cuda(x, wq, s, torch.bfloat16)
-            ref = mm.matmul_int8_plain(x, wq, s, torch.bfloat16)
-            torch.cuda.synchronize()
-            err, share = row_err(got, ref)
-            ok = checks.check(f"K3 M={M} K={K} N={N}", share, 1.0)
-            worst = max(worst, err)
-            ms = cuda_ms(torch, lambda: mm.matmul_int8_cuda(x, wq, s, torch.bfloat16))
-            plain_ms = cuda_ms(torch, lambda: mm.matmul_int8_plain(x, wq, s, torch.bfloat16), iters=5)
-            lib_ms = cuda_ms(torch, lambda: torch.matmul(x, wq.bfloat16()) * s)
-            b_ms, b_by = bound(M * K * 2 + K * N + N * 4 + M * N * 2, 2 * M * K * N)
-            say(f"  K3 M={M} K={K} N={N}: max_abs_err {err:.3e} ({share:.3f} of its "
-                f"row's tol) {'ok' if ok else 'FAIL'} | {ms:.4f} ms, plain {plain_ms:.4f}, "
-                f"library {lib_ms:.4f}, bound {b_ms:.4f} ({b_by})")
-            if (M, K, N) == (8, 4096, 14336):
-                main = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                            bound_ms=b_ms, bound_by=b_by)
-    rows["K3"] = dict(name="int8_matmul (M=8, K=4096, N=14336)",
-                      source="flash_attn_tpu_torch/csrc/matmul_q.cu",
-                      replaces="flash_attn_tpu/ops/matmul.py:60",
-                      max_abs_err=worst, **main)
-
-
-def _timed(torch, got_fn, plain_fn, lib_fn):
-    """(ms, plain_ms, library_ms) by CUDA events, the plain version over
-    fewer launches (it is slow and only a reference)."""
-    return (cuda_ms(torch, got_fn), cuda_ms(torch, plain_fn, iters=3, warmup=1),
-            cuda_ms(torch, lib_fn))
+            timed = M in (8, 512)
+            points[(M, K, N)] = _q_point(
+                torch, checks, f"K3 M={M} K={K} N={N}",
+                lambda: mm.matmul_int8_cuda(x, wq, s, torch.bfloat16),
+                lambda: mm.matmul_int8_plain(x, wq, s, torch.bfloat16),
+                (lambda: torch.matmul(x, wbf) * s) if timed else None, "matmul, then the scales",
+                M * K * 2 + K * N + N * 4 + M * N * 2, 2 * M * K * N)
+        del wq, s, wbf
+    rows["K3"] = _q_row("int8_matmul (M=8, K=4096, N=14336)", "flash_attn_tpu/ops/matmul.py:60",
+                        points, (8, 4096, 14336), (512, 4096, 14336))
 
 
 def _int4_weight(torch, g, K, N, gs=128):
@@ -278,91 +309,77 @@ def _int8_grouped_weight(torch, g, K, N, gs):
     return w, s, wdq
 
 
+# M at which K6 and K5 are also checked on their fused gate+up shape: rows
+# that fill no whole block (17, 100) and the prompt buckets below 256
+_EXTRA_M = (17, 32, 64, 100, 128)
+# an N that is not a multiple of the kernels' 128 columns (nor of 16)
+_TAIL = (4096, 6148)
+
+
 def check_k6(torch, checks, rows):
     """K6 at the 70B fused shapes (wqkv, wo, w_gate_up, w_down), g = 128,
-    at decode (M = 8) and the largest prompt bucket that reaches it (256)."""
+    at decode (M = 8) and the largest prompt bucket that reaches it (256),
+    at _EXTRA_M on w_gate_up, and on the N tail at M = 8, 17, 100, 256."""
     from flash_attn_tpu_torch.ops import matmul as mm
     from flash_attn_tpu_torch.ops.quant import dequantize_int4
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 5)
-    worst = 0.0
-    main = None
-    for (K, N) in ((8192, 10240), (8192, 8192), (8192, 57344), (28672, 8192)):
+    points = {}
+    for (K, N) in ((8192, 10240), (8192, 8192), (8192, 57344), (28672, 8192), _TAIL):
         w = _int4_weight(torch, g, K, N)
         wdq = dequantize_int4(w, torch.bfloat16)
-        for M in (8, 256):
+        ms = (8, 17, 100, 256) if (K, N) == _TAIL else (8, 256)
+        for M in ms + (_EXTRA_M if (K, N) == (8192, 57344) else ()):
             x = torch.randn((M, K), generator=g, device="cuda", dtype=torch.bfloat16)
             args = (x, w.packed, w.scales, 128, torch.bfloat16)
-            got = mm.matmul_int4_cuda(*args)
-            ref = mm.matmul_int4_plain(*args)
-            torch.cuda.synchronize()
-            err, share = row_err(got, ref)
-            ok = checks.check(f"K6 M={M} K={K} N={N}", share, 1.0)
-            worst = max(worst, err)
-            ms, plain_ms, lib_ms = _timed(torch, lambda: mm.matmul_int4_cuda(*args),
-                                          lambda: mm.matmul_int4_plain(*args),
-                                          lambda: torch.matmul(x, wdq))
-            nbytes = M * K * 2 + K * N // 2 + w.scales.numel() * 4 + M * N * 2
-            b_ms, b_by = bound(nbytes, 2 * M * K * N)
-            say(f"  K6 M={M} K={K} N={N}: max_abs_err {err:.3e} ({share:.3f} of its "
-                f"row's tol) {'ok' if ok else 'FAIL'} | {ms:.4f} ms, plain {plain_ms:.4f}, "
-                f"library (matmul on the bf16-dequantized weight) {lib_ms:.4f}, bound "
-                f"{b_ms:.4f} ({b_by})")
-            if (M, K, N) == (8, 8192, 57344):
-                main = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                            bound_ms=b_ms, bound_by=b_by)
+            timed = M in (8, 256) and (K, N) != _TAIL
+            points[(M, K, N)] = _q_point(
+                torch, checks, f"K6 M={M} K={K} N={N}", lambda: mm.matmul_int4_cuda(*args),
+                lambda: mm.matmul_int4_plain(*args),
+                (lambda: torch.matmul(x, wdq)) if timed else None,
+                "matmul on the bf16-dequantized weight",
+                M * K * 2 + K * N // 2 + w.scales.numel() * 4 + M * N * 2, 2 * M * K * N)
         del w, wdq
-    rows["K6"] = dict(name="int4_matmul (M=8, K=8192, N=57344, g=128)",
-                      source="flash_attn_tpu_torch/csrc/matmul_q.cu",
-                      replaces="flash_attn_tpu/ops/matmul.py:187",
-                      max_abs_err=worst, **main)
+    rows["K6"] = _q_row("int4_matmul (M=8, K=8192, N=57344, g=128)",
+                        "flash_attn_tpu/ops/matmul.py:187", points, (8, 8192, 57344),
+                        (256, 8192, 57344))
 
 
 def check_k5(torch, checks, rows):
-    """K5 at the 8B fused shapes, g = 128, M = 8 and 256; x is quantized
-    per token by the port's plain quantize_activations first."""
+    """K5 at the 8B fused shapes, g = 128, M = 8 and 256, at _EXTRA_M on
+    w_gate_up, and on the N tail at M = 8, 17, 100, 256; x is quantized per
+    token by the port's plain quantize_activations first."""
     from flash_attn_tpu_torch.ops import matmul as mm
     from flash_attn_tpu_torch.ops.quant import dequantize_int4
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 6)
-    worst = 0.0
-    main = None
-    for (K, N) in ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096)):
+    points = {}
+    for (K, N) in ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096), _TAIL):
         w = _int4_weight(torch, g, K, N)
         wdq = dequantize_int4(w, torch.bfloat16)
-        for M in (8, 256):
+        ms = (8, 17, 100, 256) if (K, N) == _TAIL else (8, 256)
+        for M in ms + (_EXTRA_M if (K, N) == (4096, 28672) else ()):
             x = torch.randn((M, K), generator=g, device="cuda", dtype=torch.bfloat16)
             xq, sx = mm.quantize_activations(x)
             args = (xq, sx, w.packed, w.scales, 128, torch.bfloat16)
-            got = mm.matmul_w4a8_cuda(*args)
-            ref = mm.matmul_w4a8_plain(*args)
-            torch.cuda.synchronize()
-            err, share = row_err(got, ref)
-            ok = checks.check(f"K5 M={M} K={K} N={N}", share, 1.0)
-            worst = max(worst, err)
-            ms, plain_ms, lib_ms = _timed(torch, lambda: mm.matmul_w4a8_cuda(*args),
-                                          lambda: mm.matmul_w4a8_plain(*args),
-                                          lambda: torch.matmul(x, wdq))
-            nbytes = M * K + M * 4 + K * N // 2 + w.scales.numel() * 4 + M * N * 2
-            b_ms, b_by = bound(nbytes, 2 * M * K * N, INT8_OPS_PER_S)
-            say(f"  K5 M={M} K={K} N={N}: max_abs_err {err:.3e} ({share:.3f} of its "
-                f"row's tol) {'ok' if ok else 'FAIL'} | {ms:.4f} ms, plain {plain_ms:.4f}, "
-                f"library (bf16 matmul on the dequantized weight) {lib_ms:.4f}, bound "
-                f"{b_ms:.4f} ({b_by})")
-            if (M, K, N) == (8, 4096, 28672):
-                main = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                            bound_ms=b_ms, bound_by=b_by)
+            timed = M in (8, 256) and (K, N) != _TAIL
+            points[(M, K, N)] = _q_point(
+                torch, checks, f"K5 M={M} K={K} N={N}", lambda: mm.matmul_w4a8_cuda(*args),
+                lambda: mm.matmul_w4a8_plain(*args),
+                (lambda: torch.matmul(x, wdq)) if timed else None,
+                "bf16 matmul on the dequantized weight",
+                M * K + M * 4 + K * N // 2 + w.scales.numel() * 4 + M * N * 2, 2 * M * K * N,
+                INT8_OPS_PER_S)
         del w, wdq
-    rows["K5"] = dict(name="w4a8_matmul (M=8, K=4096, N=28672, g=128)",
-                      source="flash_attn_tpu_torch/csrc/matmul_q.cu",
-                      replaces="flash_attn_tpu/ops/matmul.py:588",
-                      max_abs_err=worst, **main)
+    rows["K5"] = _q_row("w4a8_matmul (M=8, K=4096, N=28672, g=128)",
+                        "flash_attn_tpu/ops/matmul.py:588", points, (8, 4096, 28672),
+                        (256, 4096, 28672))
 
 
 def check_k7(torch, checks, rows):
     """K7 at the 70B head (8192 x 128256) on fp32 activations, M = 8
-    (decode) and 1024 (the largest prefill bucket): bit-exact against the
-    plain version, whose int32 dot is exact in float64."""
+    (decode), 100 and 1024 (the largest prefill bucket): bit-exact against
+    the plain version, whose int32 dot is exact in float64."""
     from flash_attn_tpu_torch.ops import matmul as mm
     from flash_attn_tpu_torch.ops.quant import quantize_int8
 
@@ -373,74 +390,47 @@ def check_k7(torch, checks, rows):
     w, sw = w.contiguous(), sw[0].contiguous()
     del wf
     wbf = w.to(torch.bfloat16)
-    worst = 0.0
-    main = None
-    for M in (8, 1024):
+    points = {}
+    for M in (8, 100, 1024):
         x = torch.randn((M, K), generator=g, device="cuda", dtype=torch.float32)
         xq, sx = mm.quantize_activations(x)
         args = (xq, sx, w, sw, torch.float32)
-        got = mm.matmul_w8a8_cuda(*args)
-        ref = mm.matmul_w8a8_plain(*args)
-        torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
-        ok = checks.check(f"K7 M={M} bit-exact", err, 0.0)
-        worst = max(worst, err)
         if M > 16:  # torch._int_mm's shape rule
             lib_name, lib_fn = "torch._int_mm", lambda: torch._int_mm(xq, w)
         else:
             xb = x.to(torch.bfloat16)
             lib_name, lib_fn = "bf16 matmul on the int8 values", lambda: torch.matmul(xb, wbf)
-        ms, plain_ms, lib_ms = _timed(torch, lambda: mm.matmul_w8a8_cuda(*args),
-                                      lambda: mm.matmul_w8a8_plain(*args), lib_fn)
-        nbytes = M * K + M * 4 + K * N + N * 4 + M * N * 4
-        b_ms, b_by = bound(nbytes, 2 * M * K * N, INT8_OPS_PER_S)
-        say(f"  K7 M={M} K={K} N={N}: max_abs_err {err:.3e} (tol 0, bit-exact) "
-            f"{'ok' if ok else 'FAIL'} | {ms:.4f} ms, plain {plain_ms:.4f}, library "
-            f"({lib_name}) {lib_ms:.4f}, bound {b_ms:.4f} ({b_by})")
-        if M == 8:
-            main = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                        bound_ms=b_ms, bound_by=b_by)
+        points[(M, K, N)] = _q_point(
+            torch, checks, f"K7 M={M} K={K} N={N}", lambda: mm.matmul_w8a8_cuda(*args),
+            lambda: mm.matmul_w8a8_plain(*args), lib_fn if M != 100 else None, lib_name,
+            M * K + M * 4 + K * N + N * 4 + M * N * 4, 2 * M * K * N, INT8_OPS_PER_S, exact=True)
     del w, wbf
-    rows["K7"] = dict(name="w8a8_matmul (M=8, K=8192, N=128256, fp32 out)",
-                      source="flash_attn_tpu_torch/csrc/matmul_q.cu",
-                      replaces="flash_attn_tpu/ops/matmul.py:488",
-                      max_abs_err=worst, **main)
+    rows["K7"] = _q_row("w8a8_matmul (M=8, K=8192, N=128256, fp32 out)",
+                        "flash_attn_tpu/ops/matmul.py:488", points, (8, K, N), (1024, K, N))
 
 
 def check_k3g(torch, checks, rows):
-    """K3 grouped at 4096 x 14336, g = 128 (no model mode makes grouped
-    int8 scales, so this phase is its only caller)."""
+    """K3 grouped at 4096 x 14336, g = 128, M = 8, 17, 100 and 256 (no
+    model mode makes grouped int8 scales, so this phase is its only
+    caller)."""
     from flash_attn_tpu_torch.ops import matmul as mm
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 8)
     K, N, gs = 4096, 14336, 128
     w, s, wdq = _int8_grouped_weight(torch, g, K, N, gs)
-    worst = 0.0
-    main = None
-    for M in (8, 256):
+    points = {}
+    for M in (8, 17, 100, 256):
         x = torch.randn((M, K), generator=g, device="cuda", dtype=torch.bfloat16)
         args = (x, w, s, gs, torch.bfloat16)
-        got = mm.matmul_int8_grouped_cuda(*args)
-        ref = mm.matmul_int8_grouped_plain(*args)
-        torch.cuda.synchronize()
-        err, share = row_err(got, ref)
-        ok = checks.check(f"K3 grouped M={M}", share, 1.0)
-        worst = max(worst, err)
-        ms, plain_ms, lib_ms = _timed(torch, lambda: mm.matmul_int8_grouped_cuda(*args),
-                                      lambda: mm.matmul_int8_grouped_plain(*args),
-                                      lambda: torch.matmul(x, wdq))
-        nbytes = M * K * 2 + K * N + s.numel() * 4 + M * N * 2
-        b_ms, b_by = bound(nbytes, 2 * M * K * N)
-        say(f"  K3 grouped M={M} K={K} N={N} g={gs}: max_abs_err {err:.3e} ({share:.3f} "
-            f"of its row's tol) {'ok' if ok else 'FAIL'} | {ms:.4f} ms, plain {plain_ms:.4f}, "
-            f"library (matmul on the bf16-dequantized weight) {lib_ms:.4f}, bound {b_ms:.4f} ({b_by})")
-        if M == 8:
-            main = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                        bound_ms=b_ms, bound_by=b_by)
-    rows["K3g"] = dict(name="int8_matmul grouped (M=8, K=4096, N=14336, g=128)",
-                       source="flash_attn_tpu_torch/csrc/matmul_q.cu",
-                       replaces="flash_attn_tpu/ops/matmul.py:133",
-                       max_abs_err=worst, **main)
+        points[(M, K, N)] = _q_point(
+            torch, checks, f"K3 grouped M={M} K={K} N={N} g={gs}",
+            lambda: mm.matmul_int8_grouped_cuda(*args),
+            lambda: mm.matmul_int8_grouped_plain(*args),
+            (lambda: torch.matmul(x, wdq)) if M in (8, 256) else None,
+            "matmul on the bf16-dequantized weight",
+            M * K * 2 + K * N + s.numel() * 4 + M * N * 2, 2 * M * K * N)
+    rows["K3g"] = _q_row("int8_matmul grouped (M=8, K=4096, N=14336, g=128)",
+                         "flash_attn_tpu/ops/matmul.py:133", points, (8, K, N), (256, K, N))
 
 
 def check_variants(torch, checks):
@@ -2001,7 +1991,8 @@ def main() -> int:
                     launches_run=r["launches_run"],
                     max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                    library_ms=r["library_ms"])
+                    library_ms=r["library_ms"],
+                    **({"prompt": r["prompt"]} if "prompt" in r else {}))
                for r in (rows[k] for k in KERNEL_ROWS)]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time this tree against another checkout on one card, in turns.
 
-    python3 chip_tools/ab_turns.py --other DIR [--order OTTO] [--models all|train|none]
+    python3 chip_tools/ab_turns.py --other DIR [--order OTTO] [--models all|serve|train|none]
 
 DIR is another checkout of the repository (for example the parent commit
 unpacked with ``git archive`` into a directory that .gitignore lists).
@@ -26,10 +26,11 @@ host work included; "graph": 10 calls captured in a CUDA graph, replayed
   mode (T=128 over 512 resident tokens) alone and as called.
 Model level (``--models``, default all; random weights from seed 0, the
 prompts of chip_smoke.py): Llama-3-8B int8 weights, fp8 KV, 8 requests x
-32 tokens (ms per decode step, prefill tokens/s); Llama-3-70B int4 g=128
-+ W8A8 head, fused, fp8 KV, 8 x 16 tokens (both left out with
-``--models train``); training Llama-3-8B (32 layers, bf16, B=1, S=2048, remat,
-5 AdamW steps: median ms of steps 2-5).
+32 tokens (ms per decode step, prefill tokens/s); the same with W4A8 g=128
+layers + W8A8 head, fused; Llama-3-70B int4 g=128 + W8A8 head, fused, fp8
+KV, 8 x 16 tokens (the serving runs: ``--models serve``, or all; left out
+with ``--models train``); training Llama-3-8B (32 layers, bf16, B=1,
+S=2048, remat, 5 AdamW steps: median ms of steps 2-5; all or train).
 
 Prints one "turn" JSON line per turn and a table: each metric's value in
 every turn.  The card's name and power limit head the output.
@@ -208,11 +209,14 @@ def measure(tree: Path, models: str) -> None:
     if models != "none":
         from flash_attn_tpu_torch.models import llama
 
-        if models == "all":
+        if models in ("all", "serve"):
             serve(torch, res, "8B int8 fp8-KV", llama.LLAMA3_8B, 32, quantize="int8")
+            serve(torch, res, "8B w4a8 fp8-KV", llama.LLAMA3_8B, 32, quantize="w4a8",
+                  group_size=128, head_mode="w8a8", fuse=True)
             serve(torch, res, "70B int4 fp8-KV", llama.LLAMA3_70B, 16, quantize="int4",
                   group_size=128, head_mode="w8a8", fuse=True)
-        train(torch, res)
+        if models in ("all", "train"):
+            train(torch, res)
     res["seconds"] = time.perf_counter() - t0
     print("turn " + json.dumps(res), flush=True)
 
@@ -221,7 +225,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--other", type=Path, help="another checkout of the repository")
     ap.add_argument("--order", default="OTTO")
-    ap.add_argument("--models", choices=("all", "train", "none"), default="all",
+    ap.add_argument("--models", choices=("all", "serve", "train", "none"), default="all",
                     help="models measured after the kernels")
     ap.add_argument("--measure", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()

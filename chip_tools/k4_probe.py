@@ -13,8 +13,9 @@ this one with a design change to try; every version exports
 the training and prefill shape (B=1, S=2048, H=32, Hk=8, D=128, causal,
 rope) in both softmax modes: the largest output error as a share of its
 row's tolerance (2^-6 of the row's largest |ref|, as chip_smoke.py holds
-K4), the LSE error, and the time (CUDA events over 20 launches, after
-warm-up), in turns (old..., this, this, ...old reversed).  The card's name
+K4), the LSE error, whether output and LSE are bitwise those of the first
+version, and the time (CUDA events over 20 launches, after warm-up), in
+turns (old..., this, this, ...old reversed).  The card's name
 and power limit head the output.
 """
 
@@ -88,6 +89,7 @@ def main() -> int:
         fns[name], info = build(name, Path(src), out_dir)
         print(f"[build] {name}: {info}", flush=True)
     order = [n for n, _ in olds] + ["this", "this"] + [n for n, _ in reversed(olds)]
+    first = {}  # softmax mode -> the first version's (out, lse)
     for name in order:
         fn = fns[name]
         line = []
@@ -100,9 +102,12 @@ def main() -> int:
             rout, rlse = refs[clamped]
             _, share = row_err(out, rout)
             lerr = float((lse - rlse).abs().max())
+            f_out, f_lse = first.setdefault(clamped, (out.clone(), lse.clone()))
+            same = torch.equal(out, f_out) and torch.equal(lse, f_lse)
             ms = cuda_ms(torch, call)
             line.append(f"{'clamped' if clamped else 'online'} {ms:.4f} ms "
-                        f"({flops / ms / 1e9:.1f} TFLOP/s), share {share:.3f}, lse err {lerr:.2e}")
+                        f"({flops / ms / 1e9:.1f} TFLOP/s), share {share:.3f}, lse err {lerr:.2e}, "
+                        f"bitwise {order[0]}'s {same}")
         print(f"[turn] {name}: " + "; ".join(line), flush=True)
     shutil.rmtree(out_dir, ignore_errors=True)
     return 0

@@ -22,7 +22,8 @@ the mutant must exceed it.  Times: CUDA events over 20 launches and
 CUDA-graph replays, in turns (old..., this, wg1, wg1, this, ...old
 reversed), and K10 followed by the reduction ``flash_bwd`` makes of its
 outputs (the sum over each GQA group, then dk and dv in bf16 as
-[B, Sk, Hk, D]).
+[B, Sk, Hk, D]).  Each check line also says whether dq, dk and dv are
+bitwise those of the first version.
 The card's name and power limit head the output.
 """
 
@@ -164,15 +165,20 @@ def main() -> int:
             return (dq, *group_sum(), torch.equal(rq, rq_ref) if abi == "rq" else None)
         return c9, c10, c10_reduced, outs
 
-    for label in [n for n, _ in olds] + ["this", *EDITS]:
+    labels = [n for n, _ in olds] + ["this", *EDITS]
+    first = None
+    for label in labels:
         c9, c10, _, outs = runner(label)
         assert c9() == 0 and c10() == 0, label
         torch.cuda.synchronize()
         dq, dk, dv, rq_ok = outs()
+        first = first or (dq.clone(), dk.clone(), dv.clone())
+        same = all(torch.equal(a, b) for a, b in zip((dq, dk, dv), first))
         shares = [row_err(dq, rdq, floor=floor)[1], row_err(dk, rdk)[1], row_err(dv, rdv)[1]]
         print(f"[check] {label}: share of the row tolerance dq {shares[0]:.3f}, dk "
               f"{shares[1]:.3f}, dv {shares[2]:.3f}"
-              f"{'' if rq_ok is None else f'; R(q) bitwise {rq_ok}'}", flush=True)
+              f"{'' if rq_ok is None else f'; R(q) bitwise {rq_ok}'}; bitwise {labels[0]}'s "
+              f"{same}", flush=True)
 
     order = [n for n, _ in olds] + ["this", "wg1", "wg1", "this"] + [n for n, _ in reversed(olds)]
     for label in order:

@@ -82,6 +82,164 @@ __device__ __forceinline__ float load_kv(const void* p, int64_t i) {
   }
 }
 
+// Warpgroup products (sm_90a), shared by K4, K9, K10 and the quantized
+// GEMMs.  An operand in shared memory is a tile of kRows rows in the
+// 128-byte swizzle that wgmma reads: [part][row][128 bytes], 16-byte chunk
+// c of row r stored at chunk (c & 7) ^ (r & 7) of part c / 8, whose 8-row
+// groups lie 1024 bytes apart.  Every operand an instruction reads spans
+// one swizzle atom in its contiguous dimension (K-major: 32 bytes of 128;
+// N-major: 64 bf16 of 64), so only that 1024-byte stride enters the
+// descriptor; the leading offset is unused.
+
+// Byte offset of 16-byte chunk c of row r in such a tile.
+template <int kRows>
+__device__ __forceinline__ uint32_t sw128(int r, int c) {
+  return (c >> 3) * (kRows * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+}
+
+// The K-major operand of depth step kk (32 bytes: 16 bf16 or 32 int8) of
+// such a tile.
+template <int kRows>
+__device__ __forceinline__ uint32_t kmajor(uint32_t tile, int kk) {
+  return tile + (kk >> 2) * (kRows * 128) + (kk & 3) * 32;
+}
+
+__device__ __forceinline__ uint64_t wg_desc(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Generic-proxy writes to shared memory (cp.async, st.shared) before the
+// async proxy's reads (wgmma): each writer fences, then the block syncs.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Keep the compiler from moving accumulators across an asynchronous product.
+template <int N>
+__device__ __forceinline__ void pin(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+#define FATT_D8(c, i)                                                                   \
+  c(d[i]), c(d[i + 1]), c(d[i + 2]), c(d[i + 3]), c(d[i + 4]), c(d[i + 5]), c(d[i + 6]), \
+      c(d[i + 7])
+
+// d (64 x N fp32, this thread's N / 2) = a (64 x 16 bf16 from registers,
+// the mma.sync A layout per warp) * B (16 x N from shared memory) +
+// (scale_d ? d : 0).  kTransB 0: B K-major; 1: B N-major.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t desc,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+      : FATT_D8("+f", 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d), "n"(kTransB));
+}
+
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t desc,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : FATT_D8("+f", 0), FATT_D8("+f", 8), FATT_D8("+f", 16), FATT_D8("+f", 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d), "n"(kTransB));
+}
+
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t desc,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : FATT_D8("+f", 0), FATT_D8("+f", 8), FATT_D8("+f", 16), FATT_D8("+f", 24),
+        FATT_D8("+f", 32), FATT_D8("+f", 40), FATT_D8("+f", 48), FATT_D8("+f", 56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d), "n"(kTransB));
+}
+
+// d (64 x N int32) = a (64 x 32 int8 from registers, the mma.sync m16n8k32
+// A layout per warp) * B (32 x N int8, K-major in shared memory) +
+// (scale_d ? d : 0); exact.
+__device__ __forceinline__ void wgmma_rs_s8(int (&d)[8], const uint32_t (&a)[4],
+                                            uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p;\n}\n"
+      : FATT_D8("+r", 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_s8(int (&d)[32], const uint32_t (&a)[4],
+                                            uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p;\n}\n"
+      : FATT_D8("+r", 0), FATT_D8("+r", 8), FATT_D8("+r", 16), FATT_D8("+r", 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_s8(int (&d)[64], const uint32_t (&a)[4],
+                                            uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p;\n}\n"
+      : FATT_D8("+r", 0), FATT_D8("+r", 8), FATT_D8("+r", 16), FATT_D8("+r", 24),
+        FATT_D8("+r", 32), FATT_D8("+r", 40), FATT_D8("+r", 48), FATT_D8("+r", 56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+#undef FATT_D8
+
 // Host side.  A kernel's dynamic shared-memory limit is raised once on each
 // device, not before every launch: a launcher keeps one SmemLimitSet (a
 // function-local static, so one for each kernel instance) and calls

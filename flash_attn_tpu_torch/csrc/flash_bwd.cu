@@ -16,7 +16,7 @@
 //     accumulate).  A block is two warpgroups, each owning 64 of its 128
 //     rows and sharing its streamed tiles.  Operands read from shared
 //     memory sit in the 128-byte swizzle that wgmma reads, as two
-//     64-column halves of 64 rows (tile_off), each tile 1024-byte aligned;
+//     64-column halves of 64 rows (fatt::sw128), each tile 1024-byte aligned;
 //   * K9: one block per (128-query tile, head, batch), heavy causal tiles
 //     first.  R(q) (rotated in fp32 from the bf16 q, rounded to bf16, also
 //     written to device memory for K10) and dO stay in shared memory as
@@ -74,12 +74,6 @@ constexpr int kDqSmem = (2 * kWarpgroups + 4) * kTileBytes + 1024;
 constexpr int kStatBytes = 2 * kRows * 4;
 constexpr int kDkvSmem = (2 * kWarpgroups + 4) * kTileBytes + 2 * kStatBytes + 1024;
 
-// Byte offset of 16-byte chunk c of row r in a tile: two halves of 64
-// columns, [half][row][128 bytes], chunk c of row r at chunk c ^ (r & 7).
-__device__ __forceinline__ uint32_t tile_off(int r, int c) {
-  return (c >> 3) * kHalfBytes + r * 128 + (((c & 7) ^ (r & 7)) << 4);
-}
-
 // 64 rows from row0 of head hx of a [B, S, Hx, D] bf16 tensor into the
 // tile at dst by cp.async; rows past S are zero-filled (src-size 0).
 __device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src, int b,
@@ -88,40 +82,19 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src
     const int r = i / kChunks, c = i % kChunks;
     const bool in = row0 + r < S;
     const int64_t g = (((int64_t)b * S + (in ? row0 + r : 0)) * Hx + hx) * kD + c * 8;
-    fatt::cp_async16(dst + tile_off(r, c), src + g, in ? 16 : 0);
+    fatt::cp_async16(dst + fatt::sw128<kRows>(r, c), src + g, in ? 16 : 0);
   }
 }
 
-// Warpgroup products (sm_90a).  Every operand an instruction reads spans
-// one swizzle atom in its contiguous dimension (K-major: 16 of 64 columns;
-// N-major: 64 of 64), so only the 1024-byte stride of 8-row groups enters
-// the descriptor.  A K-major operand of depth step kk starts at
-// tile + (kk / 4) * kHalfBytes + (kk % 4) * 32; an N-major one of depth
-// step kc at tile + half * kHalfBytes + kc * 16 * 128.
-__device__ __forceinline__ uint64_t wg_desc(uint32_t saddr) {
-  return (uint64_t)((saddr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ uint32_t kmajor(uint32_t tile, int kk) {
-  return tile + (kk >> 2) * kHalfBytes + (kk & 3) * 32;
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keep the compiler from moving accumulators across an asynchronous product.
-__device__ __forceinline__ void pin(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
+// Warpgroup products (sm_90a) on the 128-byte-swizzled tiles of
+// fatt::sw128.  A K-major operand of depth step kk starts at
+// fatt::kmajor<kRows>(tile, kk); an N-major one of depth step kc at
+// tile + half * kHalfBytes + kc * 16 * 128.
+using fatt::pin;
+using fatt::wg_commit;
+using fatt::wg_desc;
+using fatt::wg_fence;
+using fatt::wg_wait_all;
 
 // d (64 x 64 fp32, this thread's 32) = A (64 x 16, K-major in shared
 // memory) * B (16 x 64, K-major in shared memory) + (scale_d ? d : 0).
@@ -146,34 +119,12 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t d
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// d += a (64 x 16 bf16 from registers, the mma.sync A layout per warp) *
-// B (16 x 64, N-major in shared memory).
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
 // acc (64 x 64) = A (64 x 128) * B (64 x 128)^T, both K-major tiles.
 __device__ __forceinline__ void product_abt(float (&acc)[32], uint32_t a, uint32_t b) {
 #pragma unroll
   for (int kk = 0; kk < kD / 16; ++kk)
-    wgmma_ss(acc, wg_desc(kmajor(a, kk)), wg_desc(kmajor(b, kk)), kk > 0);
+    wgmma_ss(acc, wg_desc(fatt::kmajor<kRows>(a, kk)),
+             wg_desc(fatt::kmajor<kRows>(b, kk)), kk > 0);
 }
 
 // acc (64 x 128, as two 64-column halves) += frag (64 x 64 from registers)
@@ -182,8 +133,8 @@ __device__ __forceinline__ void product_acc(float (&lo)[32], float (&hi)[32],
                                             const uint32_t (&frag)[4][4], uint32_t tile) {
 #pragma unroll
   for (int kc = 0; kc < kRows / 16; ++kc) {
-    wgmma_rs(lo, frag[kc], wg_desc(tile + kc * 16 * 128));
-    wgmma_rs(hi, frag[kc], wg_desc(tile + kHalfBytes + kc * 16 * 128));
+    fatt::wgmma_rs<1>(lo, frag[kc], wg_desc(tile + kc * 16 * 128), 1);
+    fatt::wgmma_rs<1>(hi, frag[kc], wg_desc(tile + kHalfBytes + kc * 16 * 128), 1);
   }
 }
 
@@ -276,8 +227,8 @@ __global__ void __launch_bounds__(kThreads, 2 / kWarpgroups) dq_kernel(
         }
       }
       unsigned char* tile = q_tiles + (r / kRows) * kTileBytes;
-      *reinterpret_cast<uint4*>(tile + tile_off(r % kRows, c)) = lo;
-      *reinterpret_cast<uint4*>(tile + tile_off(r % kRows, c + kChunks / 2)) = hi;
+      *reinterpret_cast<uint4*>(tile + fatt::sw128<kRows>(r % kRows, c)) = lo;
+      *reinterpret_cast<uint4*>(tile + fatt::sw128<kRows>(r % kRows, c + kChunks / 2)) = hi;
     }
   }
 
@@ -304,7 +255,7 @@ __global__ void __launch_bounds__(kThreads, 2 / kWarpgroups) dq_kernel(
     fatt::cp_async_commit();
     fatt::cp_async_wait<1>();
     // cp.async and the R(q) stores -> wgmma's reads
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    fatt::fence_proxy_async();
     __syncthreads();
     const uint32_t ks = ring + (t & 1) * 2 * kTileBytes;
     const uint32_t vs = ks + kTileBytes;
@@ -453,7 +404,7 @@ __global__ void __launch_bounds__(kThreads, 2 / kWarpgroups) dkv_kernel(
     if (it + 1 < n_iter) load_q((it + 1) & 1, it + 1);
     fatt::cp_async_commit();
     fatt::cp_async_wait<1>();
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // cp.async -> wgmma
+    fatt::fence_proxy_async();  // cp.async -> wgmma
     __syncthreads();
     const uint32_t rs = ring + (it & 1) * 2 * kTileBytes;
     const uint32_t ds = rs + kTileBytes;

@@ -60,63 +60,15 @@ __device__ __forceinline__ uint32_t swz(int r, int c) {
   return r * kRowBytes + ((c ^ (r & 7)) << 4);
 }
 
-// The same for a K/V ring tile, as two wgmma halves.
-__device__ __forceinline__ uint32_t kv_off(int r, int c) {
-  return (c >> 3) * kHalfBytes + r * 128 + (((c & 7) ^ (r & 7)) << 4);
-}
-
-// Warpgroup products (sm_90a).  K and V tiles sit in shared memory as two
-// halves of 64 columns, [half][row][128 bytes], each 16-byte chunk c of row
-// r stored at chunk c ^ (r & 7): the 128-byte swizzle of a wgmma operand,
-// whose 8-row groups lie 1024 bytes apart.  Every operand an instruction
-// reads spans one swizzle atom in its contiguous dimension (K: 16 of 64
-// columns; V: 64 of 64), so the descriptor's leading offset is unused.
-__device__ __forceinline__ uint64_t wg_desc(uint32_t saddr) {
-  return (uint64_t)((saddr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keep the compiler from moving accumulators across an asynchronous product.
-template <int N>
-__device__ __forceinline__ void pin(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (64 x 64 fp32, this thread's 32) = a (64 x 16 bf16 from registers, the
-// mma.sync A layout per warp) * B (16 x 64 from shared memory) + (scale_d ? d
-// : 0).  kTransB 0: B K-major (rows of K); 1: B N-major (rows of V).
-template <int kTransB>
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t desc,
-                                         int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d), "n"(kTransB));
-}
+// A K/V ring tile is two 64-column halves of kBK rows in the 128-byte
+// swizzle (fatt::sw128): every operand K4's products read from it spans one
+// swizzle atom (K: 16 of 64 columns; V: 64 of 64).
+using fatt::pin;
+using fatt::wg_commit;
+using fatt::wg_desc;
+using fatt::wg_fence;
+using fatt::wg_wait_all;
+using fatt::wgmma_rs;
 
 __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
@@ -149,8 +101,8 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
       const int r = i / kChunks, c = i % kChunks;
       const bool in = k0 + r < Sk;
       const int64_t g = (((int64_t)b * Sk + (in ? k0 + r : 0)) * Hk + kvh) * kD + c * 8;
-      fatt::cp_async16(ks + kv_off(r, c), k + g, in ? 16 : 0);
-      fatt::cp_async16(vs + kv_off(r, c), v + g, in ? 16 : 0);
+      fatt::cp_async16(ks + fatt::sw128<kBK>(r, c), k + g, in ? 16 : 0);
+      fatt::cp_async16(vs + fatt::sw128<kBK>(r, c), v + g, in ? 16 : 0);
     }
   };
 #pragma unroll
@@ -215,7 +167,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
     if (t + kStages - 1 < n_tiles) load_tile((t + kStages - 1) % kStages, (t + kStages - 1) * kBK);
     fatt::cp_async_commit();
     fatt::cp_async_wait<kStages - 1>();
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // cp.async -> wgmma
+    fatt::fence_proxy_async();  // cp.async -> wgmma
     __syncthreads();
     const uint32_t ks = kv_base + (t % kStages) * 2 * kTileBytes;
     const uint32_t vs = ks + kTileBytes;
@@ -231,7 +183,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < kD / 16; ++kk)
-        wgmma_rs<0>(sd, qf[kk], wg_desc(ks + (kk >> 2) * kHalfBytes + (kk & 3) * 32), kk > 0);
+        wgmma_rs<0>(sd, qf[kk], wg_desc(fatt::kmajor<kBK>(ks, kk)), kk > 0);
       wg_commit();
       wg_wait_all();
       pin(sd);

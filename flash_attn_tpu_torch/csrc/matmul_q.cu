@@ -1,5 +1,5 @@
-// Quantized matmuls on mma.sync, out[M, N] = x[M, K] @ W[K, N] with the
-// scales folded out of the product:
+// Quantized matmuls on Hopper's warpgroup products, out[M, N] = x[M, K] @
+// W[K, N] with the scales folded out of the product:
 //
 //   K3  float x @ int8 W, scales [N]     replaces flash_attn_tpu/ops/matmul.py:
 //                                        _int8_kernel
@@ -22,529 +22,506 @@
 // stream (0.5 or 1 byte per element plus the scales) is everything; at a
 // prompt bucket (M = 32 .. 511 for the int4 kinds, up to 2048 for the
 // int8 ones) operations on the tensor cores (bf16 for K3/K3g/K6, three
-// times as many for fp32 x; int8 for K5/K7).
-// The design, simple first:
-//   * a block owns 128 columns and BM rows (16 at decode, else 64) and
-//     walks K in tiles of 128 k-rows; each tile of weights is read once
-//     from device memory as 4-byte words (4 k-rows x 4 columns per thread,
-//     128 contiguous bytes per warp and row), transposed in registers with
-//     byte permutes and decoded into shared memory as one word per (k-pair
-//     or k-quad, column), so an mma B fragment is one conflict-free 32-bit
-//     load and four columns are one 16-byte store; at decode the next
-//     tile's words are fetched into registers while the mma runs;
-//   * the bf16 kernel runs mma.sync m16n8k16 (fp32 accumulate), the int8
-//     kernel m16n8k32 (exact int32 accumulate); each group's partial sum
-//     stays in its own registers and is folded into the fp32 accumulator
-//     with its scale row when the group ends, so a scale multiplies
-//     O(M*N) values per group, never the K*N weights; per-column scales
-//     (K3) multiply the finished sum, each tile's partial folded in
-//     unscaled;
-//   * K6 keeps the nibble n (0..15, exact in bf16) and subtracts 8 * sum(x)
-//     per group as the TPU kernel does; K5 decodes n - 8 to int8 with one
-//     SIMD byte subtract and needs no offset; K7's int32 sum covers the
-//     whole K, and float(acc) * sx * sw is rounded exactly as its plain
-//     version does, so the two agree bit for bit;
-//   * at decode K is split across blockIdx.z so that a projection's N/128
-//     column blocks still fill the 132 SMs; partials (fp32, or int32 for
-//     K7, whose sum then stays exact) are summed by a second small kernel.
+// times as many for fp32 x; int8 for K5/K7).  One design for both:
+//   * the product runs transposed, out^T = W^T x^T, on wgmma m64nBMk16
+//     (bf16, fp32 accumulate) or m64nBMk32 (int8, exact int32): a block is
+//     two warpgroups, each owning 64 of the block's 128 columns as the A
+//     operand in registers, and x's BM rows (16 at decode, 64 or 128 at a
+//     prompt bucket) are the B operand, read by descriptor from shared
+//     memory in the 128-byte swizzle.  Each weight is decoded once per
+//     block, by one thread, straight into its A fragment (ldmatrix.trans
+//     gives a thread two adjacent columns of two k-rows), and never
+//     touches shared memory decoded;
+//   * the raw weight bytes and the tile's scale rows arrive by cp.async
+//     (16-byte copies, 4-byte ones where N % 16 != 0), and x's tile by TMA
+//     at the prompt sizes (by cp.async at decode and for fp32 x), in a
+//     ring of 3-6 stages, tile after tile of 128 k-rows, rows past M and
+//     columns past N zero-filled; so a prompt block's loads hide behind its
+//     products and a decode block keeps tens of KB of weights in flight;
+//   * the k order inside one product step (16 k for bf16, 32 for int8) is
+//     free as long as A and B agree: for packed int4 a step takes the low
+//     nibbles of 8 (16) packed rows, then their high nibbles -- value rows
+//     g/2 further on -- and x's 16-byte chunks are placed to match, so the
+//     halves layout needs no shuffle across k;
+//   * each group's partial sum starts fresh (scale-d 0) in its own
+//     registers and is folded into the fp32 total times its scale row when
+//     the group ends, so a scale multiplies O(M*N) values per group, never
+//     the K*N weights; per-column scales (K3) multiply the finished sum,
+//     each tile's partial folded in unscaled, so no chain of the tensor
+//     cores' fp32 accumulation (which truncates) is longer than one tile;
+//   * K6 decodes n - 8 exactly (bf16 0x4300 | n is 128 + n, minus 136), K5
+//     n - 8 as int8; K7's int32 sum covers the whole K, and
+//     float(acc) * sx * sw is rounded exactly as its plain version does,
+//     so the two agree bit for bit;
+//   * K is split across blockIdx.z when the output tiles alone do not fill
+//     the card (ops/matmul.py:_q_plan); partials (fp32, or int32 for K7,
+//     whose sum then stays exact) are summed by a second small kernel.
+// Measured at the prompt buckets (PERF.md): not the tensor cores but the
+// copies from L2 set the time -- every 128-column block reads x's whole
+// tile, 32 KB of bf16 for each 8 KB of int4 weights (TMA moves it faster
+// than 16-byte cp.async copies).
+#include <cuda.h>
+#include <cudaTypedefs.h>
+
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
 
 constexpr int kBK = 128;  // k-rows (value rows) per tile
-constexpr int kBN = 128;  // columns per block
-constexpr int kThreads = 128;
+constexpr int kBN = 128;  // columns per block, 64 per warpgroup
+constexpr int kThreads = 256;
 
 enum WKind { kW8 = 0, kW4 = 1 };
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+// One instance: weight kind, per-column scales (K3, K7), x's type, x rows
+// a block.
+template <int KIND, bool kCol, typename XT, int BM>
+struct Cfg {
+  static constexpr bool kS8 = sizeof(XT) == 1;   // K5, K7
+  static constexpr bool kF32 = sizeof(XT) == 4;  // fp32 x in three bf16 parts
+  static constexpr bool kWhole = kS8 && kCol;    // K7: one int32 sum over K
+  // x's tile by TMA at the prompt sizes (bf16 or int8 x); by cp.async at
+  // decode, where TMA measured slower, and for fp32 x, which is converted
+  static constexpr bool kTmaX = !kF32 && BM > 16;
+  static constexpr int kParts = kF32 ? 3 : 1;
+  static constexpr int kStepK = kS8 ? 32 : 16;   // k per product step
+  static constexpr int kSteps = kBK / kStepK;
+  static constexpr int kWRows = KIND == kW4 ? kBK / 2 : kBK;  // stored rows a tile
+  static constexpr int kMats = kWRows / 8;       // ldmatrix 8x8 matrices a warp
+  static constexpr int kXBytes = BM * kBK * (int)sizeof(XT);
+  static constexpr int kWBytes = kWRows * kBN;
+  static constexpr int kSBytes = kCol ? 0 : (kBK / 32) * kBN * 4;  // g >= 32
+  static constexpr int kStage = kXBytes + kWBytes + kSBytes;
+  static constexpr int kPartTile = BM * kBK * 2;  // one bf16 operand tile
+  static constexpr int kPartsBytes = kF32 ? 3 * kPartTile : 0;
+  // decode: two blocks an SM, each with up to six tiles in flight; prompt:
+  // one block an SM, four stages
+  static constexpr int kBudget = (BM <= 16 ? 96 : 200) * 1024 - kPartsBytes;
+  static constexpr int kFit = kBudget / kStage;
+  static constexpr int kMaxStages = BM <= 16 ? 6 : 4;
+  static constexpr int kStages = kFit < 3 ? 3 : (kFit > kMaxStages ? kMaxStages : kFit);
+  // + 1024: the ring starts at the next 1024-byte boundary (the swizzle atom)
+  static constexpr int kSmem = 1024 + kStages * kStage + kPartsBytes + kStages * 8;
+  static constexpr int kAcc = BM / 2;  // accumulator registers a thread
+};
+
+// Position of chunk c (16 bytes) of a raw weight row r in the ring: the
+// chunks of the 8 rows one ldmatrix reads fall in 8 distinct bank groups,
+// both for 8 consecutive rows and for the s8 kinds' rows {4q, 4q + 1} and
+// {4q + 2, 4q + 3} of a 16-row chunk (mat_row).
+__device__ __forceinline__ uint32_t w_off(int r, int c) {
+  return r * kBN + ((c ^ ((r ^ ((r >> 2) & 2)) & 7)) << 4);
+}
+
+// Stored row of row i (0..7) of a warp's ldmatrix matrix mi in a tile.
+// bf16 kinds: rows 8mi .. 8mi + 7 (16 stored rows 16j .. are matrices 2j
+// and 2j + 1).  s8 kinds: a 16-row chunk is two matrices, giving thread
+// quad q rows 4q, 4q + 1, then 4q + 2, 4q + 3.
+template <bool kS8>
+__device__ __forceinline__ int mat_row(int mi, int i) {
+  if constexpr (!kS8) return 8 * mi + i;
+  return 16 * (mi >> 1) + 2 * (mi & 1) + 4 * (i >> 1) + (i & 1);
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// A register r from ldmatrix.trans holds bytes (k, c), (k, c + 1),
+// (k + 1, c), (k + 1, c + 1): two k-rows of this thread's two columns.
+
+// Nibbles n at bit `sh` of bytes 0 and 2 of r as the bf16 pair n - 8:
+// 0x4300 | n is 128 + n exactly, and 136 is exact.
+__device__ __forceinline__ uint32_t nib_bf16(uint32_t r, int sh) {
+  const uint32_t v = ((r >> sh) & 0x000F000Fu) | 0x43004300u;
+  const __nv_bfloat162 d =
+      __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v), __floats2bfloat162_rn(136.f, 136.f));
+  return *reinterpret_cast<const uint32_t*>(&d);
+}
+
+// Signed bytes j and j + 2 of r as a bf16 pair (exact): 0x4B0000 | (b ^ 0x80)
+// is 2^23 + 128 + b in fp32.
+__device__ __forceinline__ uint32_t s8_bf16(uint32_t r, int j) {
+  const uint32_t u = r ^ 0x80808080u;
+  const float lo = __int_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + j)) - 8388736.f;
+  const float hi = __int_as_float(__byte_perm(u, 0x4B000000u, 0x7542 + j)) - 8388736.f;
+  return fatt::pack_bf16(lo, hi);
+}
+
+// Nibbles n (low nibble of each byte of w) as the int8 values n - 8.
+__device__ __forceinline__ uint32_t nib_s8(uint32_t w) {
+  return ((w & 0x0F0F0F0Fu) + 0x78787878u) ^ 0x80808080u;
+}
+
+// Column c's (and c + 1's) bytes of k-rows 4q .. 4q + 3 of an s8 kinds'
+// 16-row chunk c16, k-row 4q in the low byte.
+template <int kMats>
+__device__ __forceinline__ uint32_t col4(const uint32_t (&r)[kMats], int c16, int hi) {
+  return __byte_perm(r[2 * c16], r[2 * c16 + 1], hi ? 0x7531 : 0x6420);
+}
+
+// This thread's A fragment of product step s (x's k-rows s*kStepK .. of the
+// tile, in order) from its ldmatrix registers; LG = log2(g).  A rows gid
+// and gid + 8 of the warp's 16 are its columns c and c + 1.
+template <int KIND, bool kS8, int LG, int kMats>
+__device__ __forceinline__ void decode_a(uint32_t (&a)[4], const uint32_t (&r)[kMats], int s) {
+  if constexpr (!kS8 && KIND == kW8) {  // K3, K3g: k-rows 16s + (2q, 2q+1), then + 8
+    a[0] = s8_bf16(r[2 * s], 0);
+    a[1] = s8_bf16(r[2 * s], 1);
+    a[2] = s8_bf16(r[2 * s + 1], 0);
+    a[3] = s8_bf16(r[2 * s + 1], 1);
+  } else if constexpr (!kS8) {
+    // K6: a step is the low or the high nibbles of 16 packed rows 16j ..; a
+    // group's g/32 low steps come first, then its high ones
+    constexpr int lh = LG - 5;
+    const int half = (s >> lh) & 1;
+    const int j = ((s >> (lh + 1)) << lh) + (s & ((1 << lh) - 1));
+    a[0] = nib_bf16(r[2 * j], 4 * half);
+    a[1] = nib_bf16(r[2 * j], 8 + 4 * half);
+    a[2] = nib_bf16(r[2 * j + 1], 4 * half);
+    a[3] = nib_bf16(r[2 * j + 1], 8 + 4 * half);
+  } else if constexpr (KIND == kW8) {  // K7: 16-row chunks 2s and 2s + 1
+    a[0] = col4(r, 2 * s, 0);
+    a[1] = col4(r, 2 * s, 1);
+    a[2] = col4(r, 2 * s + 1, 0);
+    a[3] = col4(r, 2 * s + 1, 1);
+  } else if constexpr (LG == 5) {  // K5, g = 32: chunk s's low nibbles, then high
+    const uint32_t c0 = col4(r, s, 0), c1 = col4(r, s, 1);
+    a[0] = nib_s8(c0);
+    a[1] = nib_s8(c1);
+    a[2] = nib_s8(c0 >> 4);
+    a[3] = nib_s8(c1 >> 4);
+  } else {  // K5: the low or high nibbles of 32 packed rows 32j .. (chunks 2j, 2j + 1)
+    const int half = LG == 7 ? s >> 1 : s & 1, j = LG == 7 ? s & 1 : s >> 1;
+    a[0] = nib_s8(col4(r, 2 * j, 0) >> (4 * half));
+    a[1] = nib_s8(col4(r, 2 * j, 1) >> (4 * half));
+    a[2] = nib_s8(col4(r, 2 * j + 1, 0) >> (4 * half));
+    a[3] = nib_s8(col4(r, 2 * j + 1, 1) >> (4 * half));
+  }
+}
+
+// An int32 group partial (|v| < 2^22) as float, exactly: 0x4B400000 + v is
+// 1.5 * 2^23 + v.
+__device__ __forceinline__ float i2f_small(int v) {
+  return __int_as_float(0x4B400000 + v) - 12582912.f;
+}
+
+// At the prompt sizes x's tile (bf16 or int8) arrives by TMA, one box of
+// 128 bytes a row per 64 (bf16) or 128 (int8) k, in the 128-byte swizzle,
+// rows past M zero-filled; one barrier a stage counts its bytes.
+__device__ __forceinline__ void bar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void bar_expect(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(uint32_t bar, int parity) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
 }
 
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                            uint32_t bar) {
   asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
 }
 
-__device__ __forceinline__ uint32_t lds32(const void* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+template <typename T, int N>
+__device__ __forceinline__ void zero(T (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) d[i] = 0;
 }
 
-// Byte c of each of four words (k-rows 0..3 of one column quad) as one
-// word, k-row 0 in the low byte.
-__device__ __forceinline__ uint32_t gather_col(const uint32_t (&r)[4], int c) {
-  const uint32_t sel = c | ((c + 4) << 4);
-  const uint32_t t01 = __byte_perm(r[0], r[1], sel);
-  const uint32_t t23 = __byte_perm(r[2], r[3], sel);
-  return __byte_perm(t01, t23, 0x5410);
+// Two outputs (row, col) and (row, col + 1) at element o of dst: fp32, or
+// bf16 when as_bf16; int32 for K7's partials.
+__device__ __forceinline__ void store_pair(void* dst, int64_t o, float v0, float v1, int as_bf16) {
+  if (as_bf16)
+    *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(dst) + o) = fatt::pack_bf16(v0, v1);
+  else
+    *reinterpret_cast<float2*>(static_cast<float*>(dst) + o) = make_float2(v0, v1);
 }
 
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
+__device__ __forceinline__ void store_pair(void* dst, int64_t o, int v0, int v1) {
+  *reinterpret_cast<int2*>(static_cast<int*>(dst) + o) = make_int2(v0, v1);
 }
-
-// Bytes (2h, 2h + 1) of `word`, signed int8, as a bf16 pair (exact).
-__device__ __forceinline__ uint32_t s8_pair(uint32_t word, int h) {
-  return bits(__floats2bfloat162_rn((float)(int8_t)(word >> (16 * h)),
-                                    (float)(int8_t)(word >> (16 * h + 8))));
-}
-
-// Nibbles n in bytes (2h, 2h + 1) of `word` as the bf16 pair (n, n): one
-// byte permute puts n in the mantissa under the exponent of 128 (bf16
-// 0x4300 | n == 128 + n exactly), one subtract removes the 128.
-__device__ __forceinline__ uint32_t nib_pair(uint32_t word, int h) {
-  const uint32_t v = __byte_perm(word, 0x43434343u, h ? 0x4342u : 0x4140u);
-  return bits(__hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v),
-                      __floats2bfloat162_rn(128.f, 128.f)));
-}
-
-// Shared-memory weight layout, for both operand types: 32-bit words
-// ws[kg][n], where word (kg, n) holds the P consecutive k-values
-// kg*P .. kg*P + P - 1 of column n (P = 2 bf16 or 4 int8) -- exactly one
-// mma B-fragment register.  A row holds kBN + 8 words, so the eight
-// columns and four k-groups one fragment load touches fall in 32
-// distinct banks, and four columns' words are one 16-byte store.
-constexpr int kLDW = kBN + 8;
-
-// The raw words of one weight tile (4 stored rows x 4 columns per item),
-// fetched from device memory ahead of their decode.
-template <int KIND>
-struct WFrag {
-  static constexpr int kRows = KIND == kW4 ? kBK / 2 : kBK;  // stored rows
-  static constexpr int kItems = (kRows / 4) * (kBN / 4) / kThreads;
-  uint32_t r[kItems][4];
-};
-
-// Item it of a thread: k-quad kq = warp + 4 * it, column quad = lane, so a
-// warp reads 128 contiguous bytes of each stored row.  Columns >= N
-// (N % 4 == 0: whole quads) read as zero; their outputs are never written.
-template <int KIND>
-__device__ __forceinline__ void fetch_w(WFrag<KIND>& f, const uint8_t* __restrict__ w,
-                                        int k0, int n0, int N) {
-  const int row0 = KIND == kW4 ? k0 / 2 : k0;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n = n0 + lane * 4;
-#pragma unroll
-  for (int it = 0; it < WFrag<KIND>::kItems; ++it) {
-    const int kq = warp + it * (kThreads / 32);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      f.r[it][j] = n < N ? __ldg(reinterpret_cast<const uint32_t*>(
-                               w + (int64_t)(row0 + kq * 4 + j) * N + n))
-                         : 0u;
-  }
-}
-
-// Decode a fetched tile into ws (layout above) as the kernel's operand
-// type T: bf16 (int8 values, or nibbles n for K6, which subtracts 8 sum(x)
-// per group) or int8 (int8 values, or n - 8 for K5).
-template <int KIND, typename T>
-__device__ __forceinline__ void stash_w(uint32_t* ws, const WFrag<KIND>& f, int g) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int it = 0; it < WFrag<KIND>::kItems; ++it) {
-    const int kq = warp + it * (kThreads / 32);
-    uint32_t c[4];  // per column: its 4 k-values, k-row 0 in the low byte
-#pragma unroll
-    for (int cc = 0; cc < 4; ++cc) c[cc] = gather_col(f.r[it], cc);
-    uint32_t* dst = ws + lane * 4;
-    if constexpr (sizeof(T) == 1) {
-      if constexpr (KIND == kW8) {
-        *reinterpret_cast<uint4*>(dst + kq * kLDW) = make_uint4(c[0], c[1], c[2], c[3]);
-      } else {
-        const int half = g / 2, pr = kq * 4;  // packed row; g/2 % 4 == 0
-        const int klo = (pr / half) * g + pr % half;
-        uint32_t lo[4], hi[4];
-#pragma unroll
-        for (int cc = 0; cc < 4; ++cc) {
-          lo[cc] = __vsub4(c[cc] & 0x0F0F0F0Fu, 0x08080808u);
-          hi[cc] = __vsub4((c[cc] >> 4) & 0x0F0F0F0Fu, 0x08080808u);
-        }
-        *reinterpret_cast<uint4*>(dst + (klo / 4) * kLDW) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
-        *reinterpret_cast<uint4*>(dst + ((klo + half) / 4) * kLDW) =
-            make_uint4(hi[0], hi[1], hi[2], hi[3]);
-      }
-    } else {
-      if constexpr (KIND == kW8) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          *reinterpret_cast<uint4*>(dst + (kq * 2 + h) * kLDW) =
-              make_uint4(s8_pair(c[0], h), s8_pair(c[1], h), s8_pair(c[2], h), s8_pair(c[3], h));
-      } else {
-        const int half = g / 2, pr = kq * 4;
-        const int klo = (pr / half) * g + pr % half;
-#pragma unroll
-        for (int part = 0; part < 2; ++part) {  // low nibbles, then high
-          uint32_t n4[4];
-#pragma unroll
-          for (int cc = 0; cc < 4; ++cc) n4[cc] = (c[cc] >> (4 * part)) & 0x0F0F0F0Fu;
-          const int kp = (klo + part * half) / 2;
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-            *reinterpret_cast<uint4*>(dst + (kp + h) * kLDW) =
-                make_uint4(nib_pair(n4[0], h), nib_pair(n4[1], h), nib_pair(n4[2], h),
-                           nib_pair(n4[3], h));
-        }
-      }
-    }
-  }
-}
-
-// The x tile [BM, kBK], 16 bytes per item; rows >= M read as zero.
-template <typename T, int BM>
-struct XFrag {
-  static constexpr int kPer = 16 / sizeof(T);  // elements per item
-  static constexpr int kChunks = kBK / kPer;   // items per row
-  static constexpr int kItems = BM * kChunks / kThreads;
-  uint4 v[kItems];
-};
-
-template <typename T, int BM>
-__device__ __forceinline__ void fetch_x(XFrag<T, BM>& f, const T* __restrict__ x,
-                                        int m0, int k0, int M, int K) {
-  using F = XFrag<T, BM>;
-#pragma unroll
-  for (int it = 0; it < F::kItems; ++it) {
-    const int i = threadIdx.x + it * kThreads;
-    const int r = i / F::kChunks, c = (i % F::kChunks) * F::kPer;
-    f.v[it] = m0 + r < M ? __ldg(reinterpret_cast<const uint4*>(x + (int64_t)(m0 + r) * K + k0 + c))
-                         : make_uint4(0, 0, 0, 0);
-  }
-}
-
-template <typename T, int BM, int LD>
-__device__ __forceinline__ void stash_x(T* xs, const XFrag<T, BM>& f) {
-  using F = XFrag<T, BM>;
-#pragma unroll
-  for (int it = 0; it < F::kItems; ++it) {
-    const int i = threadIdx.x + it * kThreads;
-    const int r = i / F::kChunks, c = (i % F::kChunks) * F::kPer;
-    *reinterpret_cast<uint4*>(xs + r * LD + c) = f.v[it];
-  }
-}
-
-// An fp32 x tile as three bf16 tiles (xs + p * BM * LD, p = 0, 1, 2) whose
-// sum is x exactly: each part is the bf16 rounding of what the earlier
-// parts left, and that remainder is exact in fp32.
-template <int BM, int LD>
-__device__ __forceinline__ void stash_x_parts(__nv_bfloat16* xs, const XFrag<float, BM>& f) {
-  using F = XFrag<float, BM>;
-#pragma unroll
-  for (int it = 0; it < F::kItems; ++it) {
-    const int i = threadIdx.x + it * kThreads;
-    const int r = i / F::kChunks, c = (i % F::kChunks) * F::kPer;
-    float v[4];
-    *reinterpret_cast<uint4*>(v) = f.v[it];
-#pragma unroll
-    for (int p = 0; p < 3; ++p) {
-      const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
-      const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
-      v[0] -= __low2float(lo);
-      v[1] -= __high2float(lo);
-      v[2] -= __low2float(hi);
-      v[3] -= __high2float(hi);
-      *reinterpret_cast<uint2*>(xs + p * BM * LD + r * LD + c) = make_uint2(bits(lo), bits(hi));
-    }
-  }
-}
-
-template <int BM, int WARPS_M>
-struct Tile {
-  static constexpr int kWarpsN = 4 / WARPS_M;
-  static constexpr int kWM = BM / WARPS_M;  // rows per warp
-  static constexpr int kMT = kWM / 16;      // m16 tiles per warp
-  static constexpr int kWN = kBN / kWarpsN; // columns per warp
-  static constexpr int kNT = kWN / 8;       // n8 tiles per warp
-};
 
 // ---------------------------------------------------------------------------
-// float activations (XT = bf16, or fp32 in three bf16 parts): K3 (KIND =
-// kW8, kCol: per-column scales [N]), K3 grouped (kW8) and K6 (kW4); g is a
-// power of two
+// The kernel.  Float x (XT bf16 or fp32): K3 (KIND = kW8, kCol), K3g (kW8),
+// K6 (kW4).  int8 x (XT int8, sx per row): K5 (kW4), K7 (kW8, kCol).  g is
+// a power of two in 32..128 (0 for kCol).
 // ---------------------------------------------------------------------------
 
-template <int KIND, bool kCol, typename XT, int BM, int WARPS_M>
-__global__ void __launch_bounds__(kThreads)
-float_q_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ w,
-               const float* __restrict__ scales, void* __restrict__ out,
-               float* __restrict__ part, int M, int K, int N, int g,
-               int out_bf16, int k_per_split) {
-  using TL = Tile<BM, WARPS_M>;
-  constexpr int kParts = sizeof(XT) == 4 ? 3 : 1;
-  constexpr int LD = kBK + 8;  // bf16 row stride of the x tile
-  constexpr bool kAhead = BM <= 16;  // fetch the next tile during the mma
-  extern __shared__ __align__(16) unsigned char smem[];
-  auto xs = reinterpret_cast<__nv_bfloat16*>(smem);
-  auto ws = reinterpret_cast<uint32_t*>(xs + kParts * BM * LD);
+template <int KIND, bool kCol, typename XT, int BM>
+__global__ void __launch_bounds__(kThreads, BM <= 16 ? 2 : 1)
+q_kernel(const XT* __restrict__ x, const float* __restrict__ sx,
+         const uint8_t* __restrict__ w, const float* __restrict__ scales,
+         void* __restrict__ out, void* __restrict__ part, int M, int K, int N,
+         int g, int out_bf16, int k_per_split, const __grid_constant__ CUtensorMap x_map) {
+  using C = Cfg<KIND, kCol, XT, BM>;
+  using Acc = typename std::conditional<C::kS8, int, float>::type;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t s_base = fatt::smem_u32(smem);
+  const uint32_t ring = (s_base + 1023) & ~1023u;
+  const uint32_t parts = ring + C::kStages * C::kStage;
+  const uint32_t xbar = parts + C::kPartsBytes;  // x's tile landed, a barrier a stage
+  unsigned char* ring_p = smem + (ring - s_base);
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, warp = (tid >> 5) & 3, wg = tid >> 7;
   const int gid = lane >> 2, tq = lane & 3;
-  const int wm0 = (warp / TL::kWarpsN) * TL::kWM;
-  const int wn0 = (warp % TL::kWarpsN) * TL::kWN;
-  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * BM;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * kBN;
   const int kbeg = blockIdx.z * k_per_split;
-  const int kend = min(K, kbeg + k_per_split);
+  const int n_tiles = (min(K, kbeg + k_per_split) - kbeg) / kBK;
+  const int wchunk = 4 * wg + warp;          // this warp's 16 columns of a row
+  const int cl = 16 * wchunk + 2 * gid;      // this thread's columns cl, cl + 1
+  const int lg = kCol ? 7 : __ffs(g) - 1;  // log2 of k-rows a fold (a tile for kCol)
 
-  float acc[TL::kMT][TL::kNT][4];
-  float prt[TL::kMT][TL::kNT][4];
-  float xsum[TL::kMT][2];
-#pragma unroll
-  for (int i = 0; i < TL::kMT; ++i) {
-    xsum[i][0] = xsum[i][1] = 0.f;
-#pragma unroll
-    for (int j = 0; j < TL::kNT; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = prt[i][j][r] = 0.f;
-  }
+  // A thread's x chunks (cp.async: decode, fp32 x) lie at one chunk column
+  // pc, every kXRows-th row from r0: their places, and their rows' swizzle,
+  // are the same in every tile.  So are its weight chunks (column wc, every
+  // 32nd row from wr0).
+  constexpr int kRowChunks = kBK * (int)sizeof(XT) / 16;
+  constexpr int kXRows = kThreads / kRowChunks;
+  const int pc = tid % kRowChunks, r0 = tid / kRowChunks;
+  const uint32_t x_dst = C::kF32 ? r0 * kBK * 4 + pc * 16 : fatt::sw128<BM>(r0, pc);
+  constexpr int kXStride = C::kF32 ? kXRows * kBK * 4 : kXRows * 128;
+  const XT* x_src = x + (int64_t)(m0 + r0) * K + pc * (16 / (int)sizeof(XT));
+  const int wc = tid & 7, wr0 = tid >> 3;
+  const uint32_t w_dst = w_off(wr0, wc);
+  const bool w_in = n0 + wc * 16 < N;
+  const uint8_t* w_src = w + (int64_t)wr0 * N + (w_in ? n0 + wc * 16 : 0);
 
-  WFrag<KIND> wf;
-  XFrag<XT, BM> xf;
-  if constexpr (kAhead) {
-    fetch_w<KIND>(wf, w, kbeg, n0, N);
-    fetch_x<XT, BM>(xf, x, m0, kbeg, M, K);
-  }
-  for (int k0 = kbeg; k0 < kend; k0 += kBK) {
-    if constexpr (!kAhead) {
-      fetch_w<KIND>(wf, w, k0, n0, N);
-      fetch_x<XT, BM>(xf, x, m0, k0, M, K);
-    }
-    if constexpr (kParts == 1)
-      stash_x<XT, BM, LD>(xs, xf);
-    else
-      stash_x_parts<BM, LD>(xs, xf);
-    stash_w<KIND, __nv_bfloat16>(ws, wf, g);
-    __syncthreads();
-    if (kAhead && k0 + kBK < kend) {
-      fetch_w<KIND>(wf, w, k0 + kBK, n0, N);
-      fetch_x<XT, BM>(xf, x, m0, k0 + kBK, M, K);
-    }
+  auto load_tile = [&](int st, int k0) {
+    const uint32_t xs = ring + st * C::kStage, ws = xs + C::kXBytes, ss = ws + C::kWBytes;
+    if constexpr (!C::kTmaX) {
 #pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t a[kParts][TL::kMT][4];
-#pragma unroll
-      for (int p = 0; p < kParts; ++p)
-#pragma unroll
-        for (int i = 0; i < TL::kMT; ++i) {
-          const __nv_bfloat16* xr = xs + p * BM * LD + (wm0 + i * 16 + gid) * LD + kk + tq * 2;
-          a[p][i][0] = lds32(xr);
-          a[p][i][1] = lds32(xr + 8 * LD);
-          a[p][i][2] = lds32(xr + 8);
-          a[p][i][3] = lds32(xr + 8 * LD + 8);
-          if constexpr (KIND == kW4) {
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const uint32_t u = a[p][i][h], v = a[p][i][h + 2];
-              xsum[i][h] += (__uint_as_float(u << 16) + __uint_as_float(u & 0xFFFF0000u)) +
-                            (__uint_as_float(v << 16) + __uint_as_float(v & 0xFFFF0000u));
-            }
-          }
-        }
-#pragma unroll
-      for (int j = 0; j < TL::kNT; ++j) {
-        const uint32_t* wr = ws + (kk / 2 + tq) * kLDW + wn0 + j * 8 + gid;
-        const uint32_t b0 = wr[0], b1 = wr[4 * kLDW];
-#pragma unroll
-        for (int p = 0; p < kParts; ++p)
-#pragma unroll
-          for (int i = 0; i < TL::kMT; ++i) mma_bf16(prt[i][j], a[p][i], b0, b1);
+      for (int j = 0; j * kXRows < BM; ++j) {
+        if (r0 + j * kXRows >= BM) break;
+        const bool in = m0 + r0 + j * kXRows < M;
+        fatt::cp_async16(xs + x_dst + j * kXStride,
+                         in ? x_src + (int64_t)j * kXRows * K + k0 : x, in ? 16 : 0);
       }
-      // a group ends: fold its partial into acc times its scale row.  With
-      // per-column scales every tile folds unscaled and the scale
-      // multiplies the finished sum, so no chain of the tensor cores' fp32
-      // accumulation (which truncates) is longer than one tile
-      if (kCol ? kk + 16 == kBK : ((k0 + kk + 16) & (g - 1)) == 0) {
-        const int grp = kCol ? 0 : (k0 + kk) / g;
-        float xg[TL::kMT][2];
+    } else if (tid == 0) {
+      bar_expect(xbar + st * 8, C::kXBytes);
 #pragma unroll
-        for (int i = 0; i < TL::kMT; ++i)
+      for (int h = 0; h < C::kXBytes / (BM * 128); ++h)
+        tma_load_2d(xs + h * BM * 128, &x_map, k0 + h * (128 / (int)sizeof(XT)), m0,
+                    xbar + st * 8);
+    }
+    const int64_t wk = (int64_t)(KIND == kW4 ? k0 / 2 : k0) * N;
+    if (N % 16 == 0) {
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            float v = xsum[i][h];
-            v += __shfl_xor_sync(0xffffffffu, v, 1);
-            v += __shfl_xor_sync(0xffffffffu, v, 2);
-            xg[i][h] = v;
-            xsum[i][h] = 0.f;
-          }
+      for (int j = 0; j < C::kWRows / 32; ++j)
+        fatt::cp_async16(ws + w_dst + j * 32 * kBN, w_src + wk + (int64_t)j * 32 * N,
+                         w_in ? 16 : 0);
+    } else {  // rows are 4-byte aligned only
+      for (int i = tid; i < C::kWRows * 32; i += kThreads) {
+        const int r = i >> 5, q = i & 31, n = n0 + q * 4;
+        fatt::cp_async4(ws + w_off(r, q >> 2) + (q & 3) * 4,
+                        w + wk + (int64_t)r * N + (n < N ? n : 0), n < N ? 4 : 0);
+      }
+    }
+    if constexpr (!kCol) {
+      if (tid < (32 << (7 - lg))) {  // the tile's 128 / g scale rows
+        const int r = tid >> 5, c = tid & 31, n = n0 + c * 4;
+        fatt::cp_async16(ss + r * kBN * 4 + c * 16,
+                         scales + (int64_t)((k0 >> lg) + r) * N + (n < N ? n : 0),
+                         n < N ? 16 : 0);
+      }
+    }
+  };
+  if constexpr (C::kTmaX) {
+    if (tid == 0) {
+      for (int i = 0; i < C::kStages; ++i) bar_init(xbar + i * 8, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+  }
 #pragma unroll
-        for (int j = 0; j < TL::kNT; ++j) {
-          const int col = n0 + wn0 + j * 8 + tq * 2;
+  for (int i = 0; i < C::kStages - 1; ++i) {
+    if (i < n_tiles) load_tile(i, kbeg + i * kBK);
+    fatt::cp_async_commit();
+  }
+
+  float acc[C::kAcc];  // fp32 total (all but K7)
+  Acc prt[C::kAcc];    // the group's partial (K7: the whole int32 sum)
+  zero(acc);
+  zero(prt);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    fatt::cp_async_wait<C::kStages - 2>();
+    if constexpr (!C::kTmaX) fatt::fence_proxy_async();  // cp.async -> wgmma
+    __syncthreads();  // tile t's cp.async data is in; every thread is done with t - 1
+    const int st = t % C::kStages;
+    if constexpr (C::kTmaX) bar_wait(xbar + st * 8, (t / C::kStages) & 1);
+    const uint32_t xs = ring + st * C::kStage, ws = xs + C::kXBytes, ss = ws + C::kWBytes;
+    // the next tile into the stage of t - 1, issued once this tile's
+    // products are under way
+    auto refill = [&]() {
+      if (t + C::kStages - 1 < n_tiles)
+        load_tile((t + C::kStages - 1) % C::kStages, kbeg + (t + C::kStages - 1) * kBK);
+      fatt::cp_async_commit();
+    };
+
+    if constexpr (C::kF32) {
+      // fp32 x -> three bf16 operand tiles whose sum is x exactly: each part
+      // is the bf16 rounding of what the earlier parts left, and that
+      // remainder is exact in fp32
+      const unsigned char* raw = ring_p + (xs - ring);
+      unsigned char* pt = ring_p + (parts - ring);
+      for (int i = tid; i < BM * (kBK / 4); i += kThreads) {
+        const int r = i / (kBK / 4), q = i % (kBK / 4);  // k 4q .. 4q + 3
+        float v[4];
+        *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(raw + r * kBK * 4 + q * 16);
+        const uint32_t o = fatt::sw128<BM>(r, q >> 1) + (q & 1) * 8;
+#pragma unroll
+        for (int p = 0; p < 3; ++p) {
+          const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+          const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+          v[0] -= __low2float(lo);
+          v[1] -= __high2float(lo);
+          v[2] -= __low2float(hi);
+          v[3] -= __high2float(hi);
+          *reinterpret_cast<uint2*>(pt + p * C::kPartTile + o) =
+              make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                         *reinterpret_cast<const uint32_t*>(&hi));
+        }
+      }
+      fatt::fence_proxy_async();
+      __syncthreads();
+    }
+    const uint32_t xop = C::kF32 ? parts : xs;
+
+    // this thread's pairs of raw weight bytes of the tile
+    uint32_t r[C::kMats];
+#pragma unroll
+    for (int h = 0; h < C::kMats / 4; ++h) {
+      const int row = mat_row<C::kS8>(4 * h + (lane >> 3), lane & 7);
+      ldsm_x4_t(reinterpret_cast<uint32_t(&)[4]>(r[4 * h]), ws + w_off(row, wchunk));
+    }
+
+    // Product step s reads x's k-rows s*kStepK .. of the tile; a group
+    // (LG = log2 g; a tile for K3) is kSpg consecutive steps, whose partial
+    // is folded into acc times its scale row when they are done.
+    auto products = [&](auto lg_c) {
+      constexpr int LG = decltype(lg_c)::value;
+      constexpr int kSpg = C::kWhole ? C::kSteps : 1 << (LG - (C::kS8 ? 5 : 4));
+      uint32_t a[C::kSteps][4];
+#pragma unroll
+      for (int s = 0; s < C::kSteps; ++s) {
+        decode_a<KIND, C::kS8, LG, C::kMats>(a[s], r, s);
+        fatt::pin(prt);
+        fatt::wg_fence();
+#pragma unroll
+        for (int p = 0; p < C::kParts; ++p) {
+          const uint64_t desc = fatt::wg_desc(fatt::kmajor<BM>(xop + p * C::kPartTile, s));
+          const int scale_d = C::kWhole ? (t > 0 || s > 0) : (p > 0 || s % kSpg != 0);
+          if constexpr (C::kS8)
+            fatt::wgmma_rs_s8(prt, a[s], desc, scale_d);
+          else
+            fatt::wgmma_rs<0>(prt, a[s], desc, scale_d);
+        }
+        if (s % kSpg != kSpg - 1) continue;
+        fatt::wg_commit();
+        if (s == C::kSteps - 1) refill();
+        fatt::wg_wait_all();
+        fatt::pin(prt);
+        if constexpr (!C::kWhole) {
           float s0 = 1.f, s1 = 1.f;
-          if (!kCol && col < N) {
-            s0 = __ldg(scales + (int64_t)grp * N + col);
-            s1 = __ldg(scales + (int64_t)grp * N + col + 1);
+          if constexpr (!kCol) {
+            const float2 sc = *reinterpret_cast<const float2*>(
+                ring_p + (ss - ring) + (s / kSpg) * kBN * 4 + cl * 4);
+            s0 = sc.x;
+            s1 = sc.y;
           }
 #pragma unroll
-          for (int i = 0; i < TL::kMT; ++i)
-#pragma unroll
-            for (int r = 0; r < 4; ++r) {
-              float p = prt[i][j][r];
-              if constexpr (KIND == kW4) p -= 8.f * xg[i][r >> 1];
-              acc[i][j][r] += p * ((r & 1) ? s1 : s0);
-              prt[i][j][r] = 0.f;
+          for (int j = 0; j < C::kAcc; j += 4) {
+            if constexpr (C::kS8) {
+              acc[j] = fmaf(i2f_small(prt[j]), s0, acc[j]);
+              acc[j + 1] = fmaf(i2f_small(prt[j + 1]), s0, acc[j + 1]);
+              acc[j + 2] = fmaf(i2f_small(prt[j + 2]), s1, acc[j + 2]);
+              acc[j + 3] = fmaf(i2f_small(prt[j + 3]), s1, acc[j + 3]);
+            } else {
+              acc[j] = fmaf(prt[j], s0, acc[j]);
+              acc[j + 1] = fmaf(prt[j + 1], s0, acc[j + 1]);
+              acc[j + 2] = fmaf(prt[j + 2], s1, acc[j + 2]);
+              acc[j + 3] = fmaf(prt[j + 3], s1, acc[j + 3]);
             }
+          }
         }
       }
+    };
+    if constexpr (kCol) {
+      products(std::integral_constant<int, 7>());
+    } else {
+      if (lg == 7)
+        products(std::integral_constant<int, 7>());
+      else if (lg == 6)
+        products(std::integral_constant<int, 6>());
+      else
+        products(std::integral_constant<int, 5>());
     }
-    __syncthreads();
   }
+  fatt::cp_async_wait<0>();
 
+  // Accumulator entry 4j + e (e = 0, 1) is column cl, 4j + 2 + e column
+  // cl + 1, both of x row 8j + 2 tq + e.
+  const int col = n0 + cl;
+  if (col >= N) return;
   const bool split = gridDim.z > 1;
-#pragma unroll
-  for (int i = 0; i < TL::kMT; ++i)
-#pragma unroll
-    for (int j = 0; j < TL::kNT; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int row = m0 + wm0 + i * 16 + gid + (r >> 1) * 8;
-        const int col = n0 + wn0 + j * 8 + tq * 2 + (r & 1);
-        if (row >= M || col >= N) continue;
-        const int64_t o = (int64_t)row * N + col;
-        const float v = kCol ? acc[i][j][r] * __ldg(scales + col) : acc[i][j][r];
-        if (split)
-          part[(int64_t)blockIdx.z * M * N + o] = v;
-        else if (out_bf16)
-          static_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16(v);
-        else
-          static_cast<float*>(out)[o] = v;
-      }
-}
-
-// ---------------------------------------------------------------------------
-// int8 activations: K5 (KIND = kW4, grouped scales) and K7 (KIND = kW8,
-// per-column scales after the whole int32 sum)
-// ---------------------------------------------------------------------------
-
-template <int KIND, int BM, int WARPS_M>
-__global__ void __launch_bounds__(kThreads)
-s8_q_kernel(const int8_t* __restrict__ x, const float* __restrict__ sx,
-            const uint8_t* __restrict__ w, const float* __restrict__ scales,
-            void* __restrict__ out, void* __restrict__ part, int M, int K,
-            int N, int g, int out_bf16, int k_per_split) {
-  using TL = Tile<BM, WARPS_M>;
-  constexpr int LD = kBK + 16;  // byte row stride of the x tile
-  constexpr bool kAhead = BM <= 16;  // fetch the next tile during the mma
-  extern __shared__ __align__(16) unsigned char smem[];
-  auto xs = reinterpret_cast<int8_t*>(smem);
-  auto ws = reinterpret_cast<uint32_t*>(xs + BM * LD);
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int gid = lane >> 2, tq = lane & 3;
-  const int wm0 = (warp / TL::kWarpsN) * TL::kWM;
-  const int wn0 = (warp % TL::kWarpsN) * TL::kWN;
-  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * BM;
-  const int kbeg = blockIdx.z * k_per_split;
-  const int kend = min(K, kbeg + k_per_split);
-
-  int iacc[TL::kMT][TL::kNT][4];
-  float facc[TL::kMT][TL::kNT][4];
-#pragma unroll
-  for (int i = 0; i < TL::kMT; ++i)
-#pragma unroll
-    for (int j = 0; j < TL::kNT; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        iacc[i][j][r] = 0;
-        facc[i][j][r] = 0.f;
-      }
-
-  WFrag<KIND> wf;
-  XFrag<int8_t, BM> xf;
-  if constexpr (kAhead) {
-    fetch_w<KIND>(wf, w, kbeg, n0, N);
-    fetch_x<int8_t, BM>(xf, x, m0, kbeg, M, K);
+  float cs0 = 1.f, cs1 = 1.f;  // per-column scales (K3, K7)
+  if constexpr (kCol) {
+    cs0 = __ldg(scales + col);
+    cs1 = __ldg(scales + col + 1);
   }
-  for (int k0 = kbeg; k0 < kend; k0 += kBK) {
-    if constexpr (!kAhead) {
-      fetch_w<KIND>(wf, w, k0, n0, N);
-      fetch_x<int8_t, BM>(xf, x, m0, k0, M, K);
-    }
-    stash_x<int8_t, BM, LD>(xs, xf);
-    stash_w<KIND, int8_t>(ws, wf, g);
-    __syncthreads();
-    if (kAhead && k0 + kBK < kend) {
-      fetch_w<KIND>(wf, w, k0 + kBK, n0, N);
-      fetch_x<int8_t, BM>(xf, x, m0, k0 + kBK, M, K);
-    }
 #pragma unroll
-    for (int kk = 0; kk < kBK; kk += 32) {
-      uint32_t a[TL::kMT][4];
+  for (int j = 0; j < C::kAcc / 4; ++j)
 #pragma unroll
-      for (int i = 0; i < TL::kMT; ++i) {
-        const int8_t* xr = xs + (wm0 + i * 16 + gid) * LD + kk + tq * 4;
-        a[i][0] = lds32(xr);
-        a[i][1] = lds32(xr + 8 * LD);
-        a[i][2] = lds32(xr + 16);
-        a[i][3] = lds32(xr + 8 * LD + 16);
-      }
-#pragma unroll
-      for (int j = 0; j < TL::kNT; ++j) {
-        const uint32_t* wr = ws + (kk / 4 + tq) * kLDW + wn0 + j * 8 + gid;
-        const uint32_t b0 = wr[0], b1 = wr[4 * kLDW];
-#pragma unroll
-        for (int i = 0; i < TL::kMT; ++i) mma_s8(iacc[i][j], a[i], b0, b1);
-      }
-      if (KIND == kW4 && ((k0 + kk + 32) & (g - 1)) == 0) {  // fold the group
-        const int grp = (k0 + kk) / g;
-#pragma unroll
-        for (int j = 0; j < TL::kNT; ++j) {
-          const int col = n0 + wn0 + j * 8 + tq * 2;
-          float s0 = 0.f, s1 = 0.f;
-          if (col < N) {
-            s0 = __ldg(scales + (int64_t)grp * N + col);
-            s1 = __ldg(scales + (int64_t)grp * N + col + 1);
-          }
-#pragma unroll
-          for (int i = 0; i < TL::kMT; ++i)
-#pragma unroll
-            for (int r = 0; r < 4; ++r) {
-              facc[i][j][r] += (float)iacc[i][j][r] * ((r & 1) ? s1 : s0);
-              iacc[i][j][r] = 0;
-            }
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  const bool split = gridDim.z > 1;
-#pragma unroll
-  for (int i = 0; i < TL::kMT; ++i)
-#pragma unroll
-    for (int j = 0; j < TL::kNT; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int row = m0 + wm0 + i * 16 + gid + (r >> 1) * 8;
-        const int col = n0 + wn0 + j * 8 + tq * 2 + (r & 1);
-        if (row >= M || col >= N) continue;
-        const int64_t o = (int64_t)row * N + col;
-        float v;
-        if constexpr (KIND == kW8) {
-          if (split) {
-            static_cast<int*>(part)[(int64_t)blockIdx.z * M * N + o] = iacc[i][j][r];
-            continue;
-          }
-          v = __fmul_rn(__fmul_rn(__int2float_rn(iacc[i][j][r]), sx[row]), scales[col]);
+    for (int e = 0; e < 2; ++e) {
+      const int row = m0 + 8 * j + 2 * tq + e;
+      if (row >= M) continue;
+      const int64_t o = (int64_t)row * N + col;
+      const int64_t po = (int64_t)blockIdx.z * M * N + o;
+      if constexpr (C::kWhole) {  // K7
+        const int i0 = prt[4 * j + e], i1 = prt[4 * j + 2 + e];
+        if (split) {
+          store_pair(part, po, i0, i1);
         } else {
-          if (split) {
-            static_cast<float*>(part)[(int64_t)blockIdx.z * M * N + o] = facc[i][j][r];
-            continue;
-          }
-          v = __fmul_rn(facc[i][j][r], sx[row]);
+          const float r0 = sx[row];
+          store_pair(out, o, __fmul_rn(__fmul_rn(__int2float_rn(i0), r0), cs0),
+                            __fmul_rn(__fmul_rn(__int2float_rn(i1), r0), cs1), out_bf16);
         }
-        if (out_bf16)
-          static_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16(v);
-        else
-          static_cast<float*>(out)[o] = v;
+      } else {
+        float v0 = acc[4 * j + e], v1 = acc[4 * j + 2 + e];
+        if constexpr (kCol) {  // K3
+          v0 *= cs0;
+          v1 *= cs1;
+        }
+        if (split) {
+          store_pair(part, po, v0, v1, 0);
+        } else {
+          if constexpr (C::kS8) {  // K5
+            v0 = __fmul_rn(v0, sx[row]);
+            v1 = __fmul_rn(v1, sx[row]);
+          }
+          store_pair(out, o, v0, v1, out_bf16);
+        }
       }
+    }
 }
 
 // Sum of the K splits.  fp32 partials (K3, K3g, K6: sx null; K5: times sx) or
@@ -580,67 +557,83 @@ __global__ void reduce_s32_kernel(const int* __restrict__ part,
     static_cast<float*>(out)[i] = v;
 }
 
-// k-rows per split: whole tiles (so whole groups); returns the split count.
-int plan_splits(int K, int splits, int* k_per_split) {
-  int kps = (K + splits - 1) / splits;
-  kps = (kps + kBK - 1) / kBK * kBK;
-  *k_per_split = kps;
-  return (K + kps - 1) / kps;
+// The driver's cuTensorMapEncodeTiled, found once through the runtime (the
+// library links no libcuda).
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
+            cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }();
+  return fn;
 }
 
-template <typename Kern>
-cudaError_t allow_smem(Kern kern, int bytes) {
-  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+// x [M, K] (bf16 or int8) as boxes of 128 bytes x BM rows, 128-byte
+// swizzle, rows past M read as zero.
+template <typename XT, int BM>
+cudaError_t x_tensor_map(CUtensorMap* map, const void* x, int M, int K) {
+  const auto encode = tensor_map_encoder();
+  if (!encode) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
+  const cuuint64_t strides[1] = {(cuuint64_t)K * sizeof(XT)};
+  const cuuint32_t box[2] = {128 / (cuuint32_t)sizeof(XT), (cuuint32_t)BM};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(
+      map, sizeof(XT) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+      const_cast<void*>(x), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int KIND, bool kCol, typename XT, int BM, int WARPS_M>
-cudaError_t launch_float(const void* x, const void* w, const void* scales, void* out,
-                         void* part, int M, int K, int N, int g, int out_bf16,
-                         int splits, int kps, cudaStream_t st) {
-  constexpr int kParts = sizeof(XT) == 4 ? 3 : 1;
-  constexpr int smem = kParts * BM * (kBK + 8) * 2 + (kBK / 2) * kLDW * 4;
-  auto kern = float_q_kernel<KIND, kCol, XT, BM, WARPS_M>;
-  static const cudaError_t attr = allow_smem(kern, smem);
-  if (attr != cudaSuccess) return attr;
-  dim3 grid((N + kBN - 1) / kBN, (M + BM - 1) / BM, splits);
-  kern<<<grid, kThreads, smem, st>>>(
-      static_cast<const XT*>(x), static_cast<const uint8_t*>(w),
-      static_cast<const float*>(scales), out, static_cast<float*>(part), M, K, N,
-      g, out_bf16, kps);
+template <int KIND, bool kCol, typename XT, int BM>
+cudaError_t launch(const void* x, const void* sx, const void* w, const void* scales, void* out,
+                   void* part, int M, int K, int N, int g, int out_bf16, int kps, int splits,
+                   cudaStream_t st) {
+  using C = Cfg<KIND, kCol, XT, BM>;
+  auto kern = q_kernel<KIND, kCol, XT, BM>;
+  static fatt::SmemLimitSet smem_set;
+  cudaError_t e = fatt::smem_limit_once(kern, C::kSmem, smem_set);
+  if (e != cudaSuccess) return e;
+  CUtensorMap x_map{};
+  if constexpr (C::kTmaX) {
+    e = x_tensor_map<XT, BM>(&x_map, x, M, K);
+    if (e != cudaSuccess) return e;
+  }
+  dim3 grid((M + BM - 1) / BM, (N + kBN - 1) / kBN, splits);
+  kern<<<grid, kThreads, C::kSmem, st>>>(
+      static_cast<const XT*>(x), static_cast<const float*>(sx), static_cast<const uint8_t*>(w),
+      static_cast<const float*>(scales), out, part, M, K, N, g, out_bf16, kps, x_map);
   return cudaSuccess;
 }
 
-// M <= 16: 16-row tiles and the K splits; else 64-row tiles, one split.
+// x rows a block: 16 at decode, else 64 up to M = 64 (and for fp32 x,
+// whose three bf16 parts take shared memory), else 128.
 template <int KIND, bool kCol, typename XT>
-cudaError_t launch_float_m(const void* x, const void* w, const void* scales, void* out,
-                           void* part, int M, int K, int N, int g, int out_bf16,
-                           int splits, int kps, cudaStream_t st) {
+cudaError_t launch_m(const void* x, const void* sx, const void* w, const void* scales, void* out,
+                     void* part, int M, int K, int N, int g, int out_bf16, int kps, int splits,
+                     cudaStream_t st) {
   if (M <= 16)
-    return launch_float<KIND, kCol, XT, 16, 1>(x, w, scales, out, part, M, K, N, g, out_bf16,
-                                         splits, kps, st);
-  return launch_float<KIND, kCol, XT, 64, 2>(x, w, scales, out, part, M, K, N, g, out_bf16, 1,
-                                       K, st);
+    return launch<KIND, kCol, XT, 16>(x, sx, w, scales, out, part, M, K, N, g, out_bf16, kps,
+                                      splits, st);
+  if constexpr (sizeof(XT) != 4) {
+    if (M > 64)
+      return launch<KIND, kCol, XT, 128>(x, sx, w, scales, out, part, M, K, N, g, out_bf16, kps,
+                                         splits, st);
+  }
+  return launch<KIND, kCol, XT, 64>(x, sx, w, scales, out, part, M, K, N, g, out_bf16, kps,
+                                    splits, st);
 }
 
-template <int KIND, int BM, int WARPS_M>
-cudaError_t launch_s8(const void* x, const void* sx, const void* w, const void* scales,
-                      void* out, void* part, int M, int K, int N, int g,
-                      int out_bf16, int splits, int kps, cudaStream_t st) {
-  constexpr int smem = BM * (kBK + 16) + (kBK / 4) * kLDW * 4;
-  auto kern = s8_q_kernel<KIND, BM, WARPS_M>;
-  static const cudaError_t attr = allow_smem(kern, smem);
-  if (attr != cudaSuccess) return attr;
-  dim3 grid((N + kBN - 1) / kBN, (M + BM - 1) / BM, splits);
-  kern<<<grid, kThreads, smem, st>>>(
-      static_cast<const int8_t*>(x), static_cast<const float*>(sx),
-      static_cast<const uint8_t*>(w), static_cast<const float*>(scales), out,
-      part, M, K, N, g, out_bf16, kps);
-  return cudaSuccess;
-}
-
-bool bad_shape(int M, int K, int N, int splits, const void* part) {
-  return M < 1 || K % kBK != 0 || N % 4 != 0 || splits < 1 ||
-         (splits > 1 && (!part || M > 16));
+// The split count of k_per_split, or 0 for a shape the kernels do not take.
+int splits_of(int M, int K, int N, int kps, const void* part) {
+  if (M < 1 || K % kBK != 0 || N % 4 != 0 || kps < kBK || kps % kBK != 0) return 0;
+  const int splits = (K + kps - 1) / kps;
+  return splits > 1 && !part ? 0 : splits;
 }
 
 }  // namespace
@@ -648,24 +641,23 @@ bool bad_shape(int M, int K, int N, int splits, const void* part) {
 // K6 (int4 = 1: packed halves [K/2, N] uint8, g in {32, 64, 128}), K3
 // grouped (int4 = 0: int8 [K, N], same g) or K3 (int4 = 0, g = 0: scales
 // [N]); x [M, K] bf16 (x_f32 = 0) or fp32; fp32 scales [K/g, N]; out
-// [M, N] bf16 (out_bf16 = 1) or fp32.  splits > 1 (M <= 16 only) needs
-// part: fp32 scratch of splits * M * N.
+// [M, N] bf16 (out_bf16 = 1) or fp32.  k_per_split: k-rows a split, a
+// multiple of 128; more than one split needs part: fp32 scratch of
+// splits * M * N.
 extern "C" int fatt_matmul_float_q(const void* x, const void* w, const void* scales,
                                    void* out, void* part, int M, int K, int N,
                                    int g, int int4, int x_f32, int out_bf16,
-                                   int splits, void* stream) {
-  if (bad_shape(M, K, N, splits, part) ||
-      (g != 32 && g != 64 && g != 128 && !(g == 0 && !int4)))
+                                   int k_per_split, void* stream) {
+  const int splits = splits_of(M, K, N, k_per_split, part);
+  if (!splits || (g != 32 && g != 64 && g != 128 && !(g == 0 && !int4)))
     return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  int kps;
-  splits = plan_splits(K, splits, &kps);
   cudaError_t e;
-#define FATT_FLOAT_Q(KIND, COL)                                                        \
-  (x_f32 ? launch_float_m<KIND, COL, float>(x, w, scales, out, part, M, K, N, g, out_bf16, \
-                                            splits, kps, st)                              \
-         : launch_float_m<KIND, COL, __nv_bfloat16>(x, w, scales, out, part, M, K, N, g,  \
-                                                    out_bf16, splits, kps, st))
+#define FATT_FLOAT_Q(KIND, COL)                                                             \
+  (x_f32 ? launch_m<KIND, COL, float>(x, nullptr, w, scales, out, part, M, K, N, g,          \
+                                      out_bf16, k_per_split, splits, st)                     \
+         : launch_m<KIND, COL, __nv_bfloat16>(x, nullptr, w, scales, out, part, M, K, N, g,  \
+                                              out_bf16, k_per_split, splits, st))
   if (int4)
     e = FATT_FLOAT_Q(kW4, false);
   else if (g)
@@ -684,27 +676,21 @@ extern "C" int fatt_matmul_float_q(const void* x, const void* w, const void* sca
 
 // K5 (int4 = 1: packed halves, fp32 scales [K/g, N]) or K7 (int4 = 0: int8
 // [K, N], fp32 scales [N]); int8 x [M, K] with fp32 sx [M]; out [M, N] fp32
-// or bf16.  splits > 1 (M <= 16 only) needs part: splits * M * N of fp32
-// (K5) or int32 (K7).
+// or bf16.  k_per_split as above; more than one split needs part: splits *
+// M * N of fp32 (K5) or int32 (K7).
 extern "C" int fatt_matmul_s8_q(const void* x, const void* sx, const void* w,
                                 const void* scales, void* out, void* part, int M,
                                 int K, int N, int g, int int4, int out_bf16,
-                                int splits, void* stream) {
-  if (bad_shape(M, K, N, splits, part) ||
-      (int4 && g != 32 && g != 64 && g != 128))
+                                int k_per_split, void* stream) {
+  const int splits = splits_of(M, K, N, k_per_split, part);
+  if (!splits || (int4 && g != 32 && g != 64 && g != 128))
     return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  int kps;
-  splits = plan_splits(K, splits, &kps);
-  cudaError_t e;
-  if (M <= 16) {
-    e = int4 ? launch_s8<kW4, 16, 1>(x, sx, w, scales, out, part, M, K, N, g, out_bf16, splits, kps, st)
-             : launch_s8<kW8, 16, 1>(x, sx, w, scales, out, part, M, K, N, g, out_bf16, splits, kps, st);
-  } else {
-    e = int4 ? launch_s8<kW4, 64, 2>(x, sx, w, scales, out, part, M, K, N, g, out_bf16, 1, K, st)
-             : launch_s8<kW8, 64, 2>(x, sx, w, scales, out, part, M, K, N, g, out_bf16, 1, K, st);
-    splits = 1;
-  }
+  const cudaError_t e =
+      int4 ? launch_m<kW4, false, int8_t>(x, sx, w, scales, out, part, M, K, N, g, out_bf16,
+                                          k_per_split, splits, st)
+           : launch_m<kW8, true, int8_t>(x, sx, w, scales, out, part, M, K, N, 0, out_bf16,
+                                         k_per_split, splits, st);
   if (e != cudaSuccess) return (int)e;
   if (splits > 1) {
     const int64_t total = (int64_t)M * N;

@@ -35,15 +35,20 @@ from flash_attn_tpu_torch.ops.quant import (
     unpack_int4,
 )
 
-# blocks that fill the H100's 132 SMs twice over
-_TARGET_BLOCKS = 264
-# the largest M that takes the small-M (split-K) path
+# the largest M that takes the decode (bytes-bound) instances
 _SMALL_M = 16
-# matmul_q.cu: k-rows per tile (every split holds whole tiles and groups),
-# columns per block, and the group sizes the kernels take
+# matmul_q.cu: k-rows per tile (every split holds whole tiles, so whole
+# groups), columns per block, and the group sizes the kernels take
 _Q_BK = 128
 _Q_BN = 128
 _Q_GROUPS = (32, 64, 128)
+# blocks a matmul_q.cu launch should reach before K is split: at decode four
+# for each of the H100's 132 SMs (two resident an SM; shorter blocks shrink
+# the last wave's tail: chip_tools/gemm_probe.py --decode-targets); at a
+# prompt bucket (one block an SM) half the card, so the splits stay within
+# one wave
+_Q_DECODE_BLOCKS = 528
+_Q_PROMPT_BLOCKS = 66
 # at and above this M the int4 matmuls dequantize and take a float dot
 # (flash_attn_tpu/ops/matmul.py:_PREFILL_M)
 _PREFILL_M = 512
@@ -102,13 +107,25 @@ def _check_cuda(name, *tensors):
             raise ValueError(f"{name} takes contiguous, 16-byte aligned CUDA tensors")
 
 
-def _q_splits(M: int, K: int, N: int) -> int:
-    """K splits for matmul_q.cu: one unless M is a decode batch (<= 16)
-    whose column blocks alone cannot fill the card."""
-    if M > _SMALL_M:
-        return 1
-    col_blocks = -(-N // _Q_BN)
-    return max(1, min(-(-_TARGET_BLOCKS // col_blocks), K // (2 * _Q_BK)))
+def _q_rows(M: int, x_f32: bool = False) -> int:
+    """x rows a block of matmul_q.cu takes (its launch_m): 16 at decode,
+    64 up to M = 64 and for fp32 x, else 128."""
+    if M <= _SMALL_M:
+        return 16
+    return 64 if M <= 64 or x_f32 else 128
+
+
+def _q_plan(M: int, K: int, N: int, x_f32: bool = False):
+    """(splits, k_per_split) for matmul_q.cu.  K is split when the output
+    tiles alone do not reach the block target (``_Q_DECODE_BLOCKS`` at
+    decode, ``_Q_PROMPT_BLOCKS`` at a prompt bucket); a split holds whole
+    128-row tiles, at least two."""
+    tiles = -(-M // _q_rows(M, x_f32)) * -(-N // _Q_BN)
+    want = -(-(_Q_DECODE_BLOCKS if M <= _SMALL_M else _Q_PROMPT_BLOCKS) // tiles)
+    if want <= 1:
+        return 1, K
+    kps = max(2 * _Q_BK, K // want // _Q_BK * _Q_BK)
+    return -(-K // kps), kps
 
 
 def _check_q_shape(name, M, K, N, group_size=None):
@@ -196,14 +213,14 @@ def _float_q(name, x, w, scales, group_size, int4, out_dtype):
         raise ValueError(f"{name}: scales {tuple(scales.shape)} do not fit K={K}, N={N}")
     _check_q_shape(name, M, K, N, group_size or None)
     _check_cuda(name, x, w, scales)
-    splits = _q_splits(M, K, N)
+    x_f32 = x.dtype == torch.float32
+    splits, kps = _q_plan(M, K, N, x_f32)
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     part = _scratch(splits, M, N, torch.float32, x.device)
     p = _build.ptr
     rc = _build.lib().fatt_matmul_float_q(
         p(x), p(w), p(scales), p(out), p(part), M, K, N, group_size, int(int4),
-        int(x.dtype == torch.float32), int(out_dtype == torch.bfloat16), splits,
-        _build.stream())
+        int(x_f32), int(out_dtype == torch.bfloat16), kps, _build.stream())
     _build.check(rc, "fatt_matmul_float_q")
     return out
 
@@ -339,13 +356,13 @@ def matmul_w8a8_cuda(xq, sx, w, sw, out_dtype):
         raise ValueError("K7 returns fp32 or bf16")
     _check_q_shape("K7", M, K, N)
     _check_cuda("K7", xq, sx, w, sw)
-    splits = _q_splits(M, K, N)
+    splits, kps = _q_plan(M, K, N)
     out = torch.empty((M, N), dtype=out_dtype, device=xq.device)
     part = _scratch(splits, M, N, torch.int32, xq.device)
     p = _build.ptr
     rc = _build.lib().fatt_matmul_s8_q(
         p(xq), p(sx), p(w), p(sw), p(out), p(part), M, K, N, 0, 0,
-        int(out_dtype == torch.bfloat16), splits, _build.stream())
+        int(out_dtype == torch.bfloat16), kps, _build.stream())
     _build.check(rc, "fatt_matmul_s8_q")
     matmul_w8a8_cuda.launches += 1
     return out
@@ -400,14 +417,13 @@ def matmul_w4a8_cuda(xq, sx, packed, scales, group_size, out_dtype):
         raise ValueError("K5 returns fp32 or bf16")
     _check_q_shape("K5", M, K, N, group_size)
     _check_cuda("K5", xq, sx, packed, scales)
-    splits = _q_splits(M, K, N)
+    splits, kps = _q_plan(M, K, N)
     out = torch.empty((M, N), dtype=out_dtype, device=xq.device)
     part = _scratch(splits, M, N, torch.float32, xq.device)
     p = _build.ptr
     rc = _build.lib().fatt_matmul_s8_q(
         p(xq), p(sx), p(packed), p(scales), p(out), p(part), M, K, N,
-        group_size, 1, int(out_dtype == torch.bfloat16), splits,
-        _build.stream())
+        group_size, 1, int(out_dtype == torch.bfloat16), kps, _build.stream())
     _build.check(rc, "fatt_matmul_s8_q")
     matmul_w4a8_cuda.launches += 1
     return out

@@ -88,11 +88,12 @@ def test_bridge_int4_planes_become_halves(g):
 
 
 # ---------------------------------------------------------------------------
-# the matmuls, at decode M and on the M >= 512 route
+# the matmuls, at decode M, at a prompt bucket below 512 (M = 100: not a
+# multiple of the kernels' 64- or 128-row blocks) and on the M >= 512 route
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("M", [8, 520])
+@pytest.mark.parametrize("M", [8, 100, 520])
 @pytest.mark.parametrize("g", [32, 128])
 def test_matmul_int4_matches_jax(M, g):
     jw = jquant.quantize_int4(jnp.asarray(_weights(4)), group_size=g)
@@ -103,9 +104,9 @@ def test_matmul_int4_matches_jax(M, g):
     _close_bf16(to, jo)
 
 
-@pytest.mark.parametrize("M", [8, 520])
+@pytest.mark.parametrize("M", [8, 100, 520])
 def test_matmul_w4a8_matches_jax(M):
-    """At M = 8 both quantize x per token (IEEE amax / 127 in the port; XLA
+    """Below 512 (M = 8, 100) both quantize x per token (IEEE amax / 127 in the port; XLA
     may multiply by 1/127, a 1-ulp scale that can flip one rounding of x),
     then sum exact int8 products; at M = 520 both dequantize and take a
     float dot with no activation quantization."""
@@ -164,6 +165,36 @@ def test_matmul_int8_grouped_matches_jax(g):
     _close_bf16(to, jo)
     np.testing.assert_array_equal(_np(mm.quantized_matmul(bridge.to_torch(jx, "cpu"), (tv, ts))),
                                   _np(to))
+
+
+# ---------------------------------------------------------------------------
+# matmul_q.cu's split plan
+# ---------------------------------------------------------------------------
+
+# (K, N) of the fused projections (wqkv, wo, w_gate_up, w_down) of
+# Llama-3-8B, then of Llama-3-70B
+PLAN_SHAPES = [(4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096),
+               (8192, 10240), (8192, 8192), (8192, 57344), (28672, 8192)]
+
+
+@pytest.mark.parametrize("M", [8, 100, 256])
+@pytest.mark.parametrize("K,N", PLAN_SHAPES)
+def test_q_plan_whole_tiles_reach_the_target(K, N, M):
+    """Every split of K holds whole 128-row tiles (so whole groups of every
+    size the kernels take), the splits cover K exactly, and splits x output
+    tiles reach the block target of the regime (decode at M <= 16, else a
+    prompt bucket), unless K has run out of two-tile splits.  A split
+    prompt bucket stays within one wave of the 132 SMs."""
+    splits, kps = mm._q_plan(M, K, N)
+    assert kps % mm._Q_BK == 0 and all(kps % g == 0 for g in mm._Q_GROUPS)
+    assert splits == -(-K // kps) and kps * (splits - 1) < K <= kps * splits
+    tiles = -(-M // mm._q_rows(M)) * -(-N // mm._Q_BN)
+    target = mm._Q_DECODE_BLOCKS if M <= mm._SMALL_M else mm._Q_PROMPT_BLOCKS
+    assert splits * tiles >= target or kps == 2 * mm._Q_BK
+    if splits > 1:
+        assert kps >= 2 * mm._Q_BK and tiles < target
+        if M > mm._SMALL_M:
+            assert splits * tiles <= 132
 
 
 # ---------------------------------------------------------------------------
