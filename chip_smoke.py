@@ -9,13 +9,17 @@ Phases, one line each with its seconds:
      at its main-path shapes, with its time (CUDA events), its bound and
      the time of one PyTorch library call for the same function: K1 decode,
      K1m (the split-KV combine: bf16 and fp32 out, splits at -1e30 and
-     -inf, an idle slot), K1 in chunk mode (T=5 at H=32 and 64) and over a
-     BSHD cache (through flash_attn_tpu_torch.flash_decode, JAX's default
-     layout), K1 and K4 at the draft's H=24, K2 kv-append, K3 int8 matmul
+     -inf, an idle slot), K1c, the chunk kernel over a contiguous cache
+     (T=5 at H=32 and 64, at the verify step's lengths at H=32 and 24, and a
+     decode at G=16), K1 over a BSHD cache (through
+     flash_attn_tpu_torch.flash_decode, JAX's default layout), K1 and K4 at
+     the draft's H=24, K2 kv-append, K3 int8 matmul
      (8B shapes, M = 8 and 512, and 17 and 100), K4 flash forward (both softmax modes, also at S=891, a
      shifted Sq=1000 Sk=1500, B=2 with per-sequence rope and H=24), K8 paged
      decode (decode mode at pages of 128 and 512, also against K1 on the
-     same content, and chunk mode), K3 grouped, K6 int4 matmul (70B
+     same content), K8c, the chunk kernel over pages (T=128 at kv_len 640
+     and 1024, a ragged T=123, T=4 in both softmax modes), K3 grouped, K6
+     int4 matmul (70B
      shapes) and K5 W4A8 matmul (8B shapes), both at M = 8 and 256, at
      17-128 on w_gate_up and on an N tail (4096 x 6148), K7 W8A8 matmul
      (70B head, M = 8, 100, 1024, bit-exact), K9 and K10 flash backward (dq and dk/dv passes, at the
@@ -636,70 +640,102 @@ def check_k1m(torch, checks, rows):
     del q, k, v, ks, vs, outs, lses
 
 
+def _chunk_times(torch, kernel, call, lib, nbytes, flops):
+    """A chunk point's times: the kernel alone by events and as a replayed
+    CUDA graph, the call as a user makes it (reorder, kernel, K1m) as a
+    graph, the library call (SDPA) by events, and the bound."""
+    b_ms, b_by = bound(nbytes, flops)
+    return dict(ms=cuda_ms(torch, kernel), graph_ms=graph_ms(torch, kernel),
+                call_graph_ms=graph_ms(torch, call), library_ms=cuda_ms(torch, lib),
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def _say_times(label, t):
+    say(f"    {label}: {t['ms']:.4f} ms (graph {t['graph_ms']:.4f}; as called, graph "
+        f"{t['call_graph_ms']:.4f}), library (SDPA on the dequantized cache, the chunk's "
+        f"causal mask) {t['library_ms']:.4f}, bound {t['bound_ms']:.4f} ({t['bound_by']})")
+
+
 def check_k1c(torch, checks, rows):
-    """K1 in chunk mode, the verify step's attention, at T=5, B=8, Hk=8,
-    S=4096, D=128: H=32 (8B, 20 rows per KV head in three row tiles) with
-    bf16, int8 and fp8 caches, and H=64 (70B, 40 rows) with fp8, each in
-    its default softmax mode.  Lengths include the chunk: random, with S,
-    T and an idle slot's S + 7 among them.  Against the plain version on
-    the same inputs, each output row to two bf16 ulps of its largest value,
-    and its LSE."""
+    """K1c, the chunk kernel over a contiguous cache (the verify step's
+    attention), at T=5, B=8, Hk=8, S=4096, D=128: H=32 (8B, 20 rows per KV
+    head, one warpgroup) with bf16, int8 and fp8 caches and H=64 (70B, 40
+    rows) with fp8, lengths random with S, T and an idle slot's S + 7 among
+    them; fp8 at the verify step's own lengths (142-923 in the capacity
+    4096, as phase 9 calls it) at H=32 and at the draft's H=24 (G=3); and a
+    BHSD decode at G=16 (more heads per KV head than K1 holds).  Each in its
+    default softmax mode, against the plain version with the same splits,
+    each output row to two bf16 ulps of its largest value, and its LSE.  The
+    fp8 H=32 points carry their times at both length sets."""
     import torch.nn.functional as F
 
     from flash_attn_tpu_torch.ops import decode as dec
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 15)
-    T, B, Hk, S, D = 5, 8, 8, 4096, 128
+    B, Hk, S, D = 8, 8, 4096, 128
     worst = 0.0
-    for H, kv in ((32, "bf16"), (32, "int8"), (32, "fp8"), (64, "fp8")):
+    times = {}
+    for H, kv, T, lens_kind in ((32, "bf16", 5, "random"), (32, "int8", 5, "random"),
+                                (32, "fp8", 5, "random"), (64, "fp8", 5, "random"),
+                                (32, "fp8", 5, "verify"), (24, "fp8", 5, "verify"),
+                                (128, "fp8", 1, "random")):
         _, k, v, ks, vs, _ = _decode_inputs(torch, kv, g, H=H)
         q = torch.randn((B, T, H, D), generator=g, device="cuda", dtype=torch.bfloat16)
-        lens = torch.randint(T, S + 1, (B,), generator=g, device="cuda", dtype=torch.int32)
-        lens[0], lens[1], lens[2] = S, T, S + 7
+        if lens_kind == "verify":
+            lens = torch.randint(142, 924, (B,), generator=g, device="cuda", dtype=torch.int32)
+        else:
+            lens = torch.randint(T, S + 1, (B,), generator=g, device="cuda", dtype=torch.int32)
+            lens[0], lens[1], lens[2] = S, T, S + 7
         G = H // Hk
         clamped, clamp2 = _mode_args(dec, k.dtype)
         q2 = q.reshape(B, T, Hk, G, D).transpose(1, 2).reshape(B, Hk * T * G, D).contiguous()
-        nsplit, split_len = dec._splits(B * -(-(T * G) // dec.ROWS), Hk, S, None)
-        args = (q2, k, v, ks, vs, lens, D ** -0.5, clamped, clamp2, nsplit, split_len, T)
-        got, glse = dec.flash_decode_chunk(q, k, v, k_scale=ks, v_scale=vs, kv_length=lens,
-                                           return_lse=True)
+        nsplit = dec._chunk_splits(B, Hk, T * G, S, None)
+        args = (q2, k, v, ks, vs, lens, D ** -0.5, clamped, clamp2, nsplit, None, T)
+        if T > 1:
+            got, glse = dec.flash_decode_chunk(q, k, v, k_scale=ks, v_scale=vs, kv_length=lens,
+                                               return_lse=True)
+        else:
+            got, glse = dec.flash_decode(q[:, 0], k, v, k_scale=ks, v_scale=vs, kv_length=lens,
+                                         return_lse=True, kv_layout="bhsd")
         ref2, rlse2 = plain_merge(*dec.flash_decode_plain(*args), torch.bfloat16)
         torch.cuda.synchronize()
-        ref = ref2.reshape(B, Hk, T, G, D).transpose(1, 2).reshape(B, T, H, D)
-        rlse = rlse2.reshape(B, Hk, T, G).transpose(1, 2).reshape(B, T, H)
+        ref = ref2.reshape(B, Hk, T, G, D).transpose(1, 2).reshape(got.shape)
+        rlse = rlse2.reshape(B, Hk, T, G).transpose(1, 2).reshape(glse.shape)
         err, share = row_err(got, ref)
         # fp32 sums of at most 4096 terms in another order, as for K1
         lerr = float((glse - rlse).abs().max())
-        label = f"K1c {kv} H={H} T={T} ({'clamped' if clamped else 'online'}, {nsplit} splits)"
+        what = f"T={T}" if T > 1 else "decode"
+        label = (f"K1c {kv} H={H} {what}, {lens_kind} lengths ({'clamped' if clamped else 'online'}, "
+                 f"{nsplit} splits)")
         ok = checks.check(f"{label} out", share, 1.0) & checks.check(f"{label} lse", lerr, 1e-3)
         worst = max(worst, err)
         ms = cuda_ms(torch, lambda: dec.flash_decode_cuda(*args))
         say(f"  {label}: max_abs_err {err:.3e} ({share:.3f} of its row's tol), lse err "
             f"{lerr:.3e} (tol 1e-3) {'ok' if ok else 'FAIL'} | {ms:.4f} ms")
         if (H, kv) == (32, "fp8"):
-            call_ms = cuda_ms(torch, lambda: dec.flash_decode_chunk(
-                q, k, v, k_scale=ks, v_scale=vs, kv_length=lens))
-            plain_ms = cuda_ms(torch, lambda: dec.flash_decode_plain(*args), iters=3)
             kd, vd = _dequant(k, ks), _dequant(v, vs)
             limit = torch.clamp(lens.long()[:, None] - (T - 1)
                                 + torch.arange(T, device="cuda")[None], max=S)  # [B, T]
             mask = (torch.arange(S, device="cuda")[None, None, :] < limit[:, :, None])[:, None]
             qt = q.transpose(1, 2)
-            lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                qt, kd, vd, attn_mask=mask, enable_gqa=True))
             nbytes = k1_bytes(k, lens, ks) + 2 * q.numel() * 2 + lens.numel() * 4
-            b_ms, b_by = bound(nbytes, 4 * H * D * int(limit.sum()))
-            say(f"    K1c fp8 H=32: {ms:.4f} ms ({call_ms:.4f} with the reorder and K1m merge), "
-                f"plain {plain_ms:.4f}, library (SDPA on the dequantized cache, the chunk's "
-                f"causal mask) {lib_ms:.4f}, bound {b_ms:.4f} ({b_by})")
-            rows["K1c"] = dict(name="decode_bhsd, chunk mode (B=8, T=5, H=32, Hk=8, S=4096, fp8 KV)",
-                               source="flash_attn_tpu_torch/csrc/decode.cu",
-                               replaces="flash_attn_tpu/ops/decode.py:747",
-                               ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                               bound_ms=b_ms, bound_by=b_by)
+            times[lens_kind] = _chunk_times(
+                torch, lambda: dec.flash_decode_cuda(*args),
+                lambda: dec.flash_decode_chunk(q, k, v, k_scale=ks, v_scale=vs, kv_length=lens),
+                lambda: F.scaled_dot_product_attention(qt, kd, vd, attn_mask=mask,
+                                                       enable_gqa=True),
+                nbytes, 4 * H * D * int(limit.sum()))
+            _say_times(f"K1c fp8 H=32, {lens_kind} lengths", times[lens_kind])
+            if lens_kind == "random":
+                plain_ms = cuda_ms(torch, lambda: dec.flash_decode_plain(*args), iters=3)
+                say(f"    plain {plain_ms:.4f}")
             del kd, vd
         del q, k, v, ks, vs
-    rows["K1c"]["max_abs_err"] = worst
+    rows["K1c"] = dict(name="decode_bhsd, chunk mode (B=8, T=5, H=32, Hk=8, S=4096, fp8 KV)",
+                       source="flash_attn_tpu_torch/csrc/chunk_attn.cu",
+                       replaces="flash_attn_tpu/ops/decode.py:747",
+                       plain_ms=plain_ms, max_abs_err=worst, **times["random"],
+                       also=dict(label="the verify step's lengths, 142-923", **times["verify"]))
 
 
 def check_k1b(torch, checks, rows):
@@ -1135,8 +1171,9 @@ def _mode_args(dec, kv_dtype):
 def check_k8(torch, checks, rows):
     """K8 in decode mode at B=8, H=32, Hk=8, D=128, 32 pages of 128 (then 8
     of 512) per sequence, bf16/int8/fp8, against its plain version and
-    against K1 on the same content copied into a contiguous cache; then in
-    chunk mode at B=1, T=128, kv_len 640 (512 resident + the chunk)."""
+    against K1 on the same content copied into a contiguous cache; then
+    K8c (chunk mode) at B=1 over pages of 128, against the plain version
+    with the same splits; the fp8 points at T=128 carry their times."""
     import torch.nn.functional as F
 
     from flash_attn_tpu_torch.ops import decode as dec
@@ -1205,58 +1242,69 @@ def check_k8(torch, checks, rows):
                                   bound_ms=b_ms, bound_by=b_by, k1_ms=k1_ms)
                 del kd, vd
             del q, k, v, ks, vs, kc, vc, kcs, vcs
-    # chunk mode: one sequence, 512 tokens resident + a 128-token chunk
-    T, kv_len = 128, 640
-    for kv in ("bf16", "int8", "fp8"):
+    # chunk mode (K8c): one sequence over pages of 128; T=128 at 640 (512
+    # resident + the chunk) and at 1024 (the last piece of phase 7's longest
+    # suffix), a ragged T=123 and T=4 (16 rows)
+    Hk, H, D = 8, 32, 128
+    times = {}
+    for kv, T, kv_len, mode in (("bf16", 128, 640, None), ("int8", 128, 640, None),
+                                ("fp8", 128, 640, None), ("fp8", 128, 1024, None),
+                                ("fp8", 123, 1019, None), ("int8", 4, 700, "online"),
+                                ("int8", 4, 700, "clamped")):
         _, k, v, ks, vs, table, _ = _paged_inputs(torch, kv, g, 128, B=1)
-        H, D = 32, 128
-        Hk = k.shape[1]
         S = table.shape[1] * 128
         qc = torch.randn((1, T, H, D), generator=g, device="cuda", dtype=torch.bfloat16)
         lens = torch.tensor([kv_len], dtype=torch.int32, device="cuda")
-        clamped, clamp2 = _mode_args(dec, k.dtype)
+        mode = mode or dec._default_softmax_mode(k.dtype)
+        clamped, clamp2 = mode == "clamped", dec._clamp2(k.dtype)
         q2 = qc.reshape(1, T, Hk, H // Hk, D).transpose(1, 2).reshape(1, Hk * T * (H // Hk), D).contiguous()
-        nsplit, split_len = dec._splits(pd._row_tiles(T * H // Hk), Hk, S, None,
-                                        pd._CHUNK_TARGET_BLOCKS)
-        args = (q2, k, v, ks, vs, table, lens, D ** -0.5, clamped, clamp2, T, nsplit, split_len)
+        nsplit = dec._chunk_splits(1, Hk, T * H // Hk, S, None)
+        args = (q2, k, v, ks, vs, table, lens, D ** -0.5, clamped, clamp2, T, nsplit, None)
         got, glse = pd.paged_flash_decode_chunk(qc, k, v, table, lens, k_scale=ks,
-                                                v_scale=vs, return_lse=True)
+                                                v_scale=vs, return_lse=True, softmax_mode=mode)
         ref2, rlse2 = plain_merge(*pd.paged_flash_decode_plain(*args), torch.bfloat16)
         torch.cuda.synchronize()
         ref = ref2.reshape(1, Hk, T, H // Hk, D).transpose(1, 2).reshape(1, T, H, D)
         rlse = rlse2.reshape(1, Hk, T, H // Hk).transpose(1, 2).reshape(1, T, H)
         err, share = row_err(got, ref)
         lerr = float((glse - rlse).abs().max())
-        label = f"K8 chunk {kv} T={T} kv_len={kv_len}"
+        label = f"K8c {kv} T={T} kv_len={kv_len} ({mode}, {nsplit} splits)"
         ok = checks.check(f"{label} out", share, 1.0) & checks.check(f"{label} lse", lerr, 1e-3)
         worst_c = max(worst_c, err)
         ms = cuda_ms(torch, lambda: pd.paged_flash_decode_cuda(*args))
-        say(f"  {label} ({nsplit} splits): max_abs_err {err:.3e} ({share:.3f} of its row's "
-            f"tol), lse err {lerr:.3e} (tol 1e-3) {'ok' if ok else 'FAIL'} | {ms:.4f} ms")
-        if kv == "fp8":
-            plain_ms = cuda_ms(torch, lambda: pd.paged_flash_decode_plain(*args), iters=3)
+        say(f"  {label}: max_abs_err {err:.3e} ({share:.3f} of its row's tol), lse err "
+            f"{lerr:.3e} (tol 1e-3) {'ok' if ok else 'FAIL'} | {ms:.4f} ms")
+        if kv == "fp8" and T == 128:
             kd = (pd._gather(k, table).float() * pd._gather(ks, table)[..., None])[:, :, :kv_len].bfloat16()
             vd = (pd._gather(v, table).float() * pd._gather(vs, table)[..., None])[:, :, :kv_len].bfloat16()
             qt = qc.transpose(1, 2)
             cmask = (torch.arange(kv_len, device="cuda")[None, :]
                      <= torch.arange(T, device="cuda")[:, None] + kv_len - T)
-            lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                qt, kd, vd, attn_mask=cmask, enable_gqa=True))
             pairs = sum(kv_len - (T - 1) + t for t in range(T))
             nbytes = (2 * Hk * kv_len * (D + 4) + 2 * qc.numel() * 2 + glse.numel() * 4
                       + table.numel() * 4 + 4)
-            b_ms, b_by = bound(nbytes, 4 * H * D * pairs)
-            say(f"    K8 chunk fp8: {ms:.4f} ms ({4 * H * D * pairs / ms / 1e9:.1f} TFLOP/s), "
-                f"plain {plain_ms:.4f}, library (SDPA on the gathered, dequantized cache, "
-                f"causal mask) {lib_ms:.4f}, bound {b_ms:.4f} ({b_by})")
-            rows["K8c"] = dict(name="paged_decode, chunk mode (B=1, T=128, H=32, Hk=8, "
-                                    "kv_len=640, page=128, fp8 KV)",
-                               source="flash_attn_tpu_torch/csrc/paged_decode.cu",
-                               replaces="flash_attn_tpu/ops/paged_decode.py:47",
-                               ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                               bound_ms=b_ms, bound_by=b_by)
+            times[kv_len] = _chunk_times(
+                torch, lambda: pd.paged_flash_decode_cuda(*args),
+                lambda: pd.paged_flash_decode_chunk(qc, k, v, table, lens, k_scale=ks,
+                                                    v_scale=vs),
+                lambda: F.scaled_dot_product_attention(qt, kd, vd, attn_mask=cmask,
+                                                       enable_gqa=True),
+                nbytes, 4 * H * D * pairs)
+            _say_times(f"K8c fp8 T=128 kv_len={kv_len} "
+                       f"({4 * H * D * pairs / times[kv_len]['ms'] / 1e9:.1f} TFLOP/s)",
+                       times[kv_len])
+            if kv_len == 640:
+                plain_ms = cuda_ms(torch, lambda: pd.paged_flash_decode_plain(*args), iters=3)
+                say(f"    plain {plain_ms:.4f}")
             del kd, vd
         del k, v, ks, vs
+    rows["K8c"] = dict(name="paged_decode, chunk mode (B=1, T=128, H=32, Hk=8, "
+                            "kv_len=640, page=128, fp8 KV)",
+                       source="flash_attn_tpu_torch/csrc/chunk_attn.cu",
+                       replaces="flash_attn_tpu/ops/paged_decode.py:47",
+                       plain_ms=plain_ms, **times[640],
+                       also=dict(label="kv_len=1024, the last piece of a 512-token suffix",
+                                 **times[1024]))
     rows["K8"]["max_abs_err"] = worst
     rows["K8c"]["max_abs_err"] = worst_c
 
@@ -1992,7 +2040,8 @@ def main() -> int:
                     max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                     library_ms=r["library_ms"],
-                    **({"prompt": r["prompt"]} if "prompt" in r else {}))
+                    **{k: r[k] for k in ("graph_ms", "call_graph_ms", "prompt", "also")
+                       if k in r})
                for r in (rows[k] for k in KERNEL_ROWS)]
     print(json.dumps({"kernels": kernels}))
     print(smi)

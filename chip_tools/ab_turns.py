@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time this tree against another checkout on one card, in turns.
 
-    python3 chip_tools/ab_turns.py --other DIR [--order OTTO] [--models all|serve|train|none]
+    python3 chip_tools/ab_turns.py --other DIR [--order OTTO]
+                                   [--models all|serve|train|chunk|none]
 
 DIR is another checkout of the repository (for example the parent commit
 unpacked with ``git archive`` into a directory that .gitignore lists).
@@ -30,7 +31,13 @@ prompts of chip_smoke.py): Llama-3-8B int8 weights, fp8 KV, 8 requests x
 layers + W8A8 head, fused; Llama-3-70B int4 g=128 + W8A8 head, fused, fp8
 KV, 8 x 16 tokens (the serving runs: ``--models serve``, or all; left out
 with ``--models train``); training Llama-3-8B (32 layers, bf16, B=1,
-S=2048, remat, 5 AdamW steps: median ms of steps 2-5; all or train).
+S=2048, remat, 5 AdamW steps: median ms of steps 2-5; all or train); the
+chunk kernel's paths on Llama-3-8B int8, as chip_smoke.py phases 9a, 9b
+and 7 run them (all or chunk): n-gram speculation with fp8 KV and a
+self-draft with bf16 KV (4 drafts; ms per verify round, and the
+self-draft's acceptance), and the paged engine with prefix caching, fp8
+KV (the second wave's 8 prefix hits: seconds and tokens/s of their suffix
+prefills).
 
 Prints one "turn" JSON line per turn and a table: each metric's value in
 every turn.  The card's name and power limit head the output.
@@ -105,7 +112,10 @@ def kernels(torch, res):
     qc = torch.randn((B, T, H, D), generator=g, device="cuda", dtype=torch.bfloat16)
     lens_c = torch.clamp(lens, min=T)
     q2 = qc.reshape(B, T, Hk, H // Hk, D).transpose(1, 2).reshape(B, -1, D).contiguous()
-    nsplit_c, split_len_c = dec._splits(B * -(-(T * H // Hk) // dec.ROWS), Hk, S, None)
+    if hasattr(dec, "_chunk_splits"):  # the chunk kernel: splits of the live walk
+        nsplit_c, split_len_c = dec._chunk_splits(B, Hk, T * H // Hk, S, None), None
+    else:
+        nsplit_c, split_len_c = dec._splits(B * -(-(T * H // Hk) // dec.ROWS), Hk, S, None)
     args_c = (q2, k, v, ks, vs, lens_c, D ** -0.5, clamped, clamp2, nsplit_c, split_len_c, T)
     both("K1c alone", lambda: dec.flash_decode_cuda(*args_c))
     both("flash_decode_chunk as called", lambda: dec.flash_decode_chunk(
@@ -128,7 +138,7 @@ def kernels(torch, res):
     kp, vp = torch.cat([kp[:1], kp]).contiguous(), torch.cat([vp[:1], vp]).contiguous()
     ksp, vsp = torch.cat([ksp[:1], ksp]).contiguous(), torch.cat([vsp[:1], vsp]).contiguous()
     table = (1 + torch.arange(B * S // page, device="cuda", dtype=torch.int32)).reshape(B, -1)
-    nsplit_p, split_len_p = dec._splits(B * pd._row_tiles(H // Hk), Hk, S, None)
+    nsplit_p, split_len_p = dec._splits(B, Hk, S, None)
     args_p = (q, kp, vp, ksp, vsp, table, lens, D ** -0.5, clamped, clamp2, 1, nsplit_p,
               split_len_p)
     both("K8 alone", lambda: pd.paged_flash_decode_cuda(*args_p))
@@ -141,8 +151,11 @@ def kernels(torch, res):
     qc = torch.randn((1, T, H, D), generator=g, device="cuda", dtype=torch.bfloat16)
     lens_1 = torch.tensor([kv_len], dtype=torch.int32, device="cuda")
     q2 = qc.reshape(1, T, Hk, H // Hk, D).transpose(1, 2).reshape(1, -1, D).contiguous()
-    target = [pd._CHUNK_TARGET_BLOCKS] if hasattr(pd, "_CHUNK_TARGET_BLOCKS") else []
-    nsplit_pc, split_len_pc = dec._splits(pd._row_tiles(T * H // Hk), Hk, S, None, *target)
+    if hasattr(dec, "_chunk_splits"):
+        nsplit_pc, split_len_pc = dec._chunk_splits(1, Hk, T * H // Hk, S, None), None
+    else:
+        target = [pd._CHUNK_TARGET_BLOCKS] if hasattr(pd, "_CHUNK_TARGET_BLOCKS") else []
+        nsplit_pc, split_len_pc = dec._splits(pd._row_tiles(T * H // Hk), Hk, S, None, *target)
     res["K8c splits"] = nsplit_pc
     args_pc = (q2, kp, vp, ksp, vsp, table[:1], lens_1, D ** -0.5, clamped, clamp2, T,
                nsplit_pc, split_len_pc)
@@ -165,6 +178,51 @@ def serve(torch, res, label, cfg, max_tokens, **quant):
     snap = eng.metrics.snapshot()
     res[f"{label} ms/step"] = snap["decode_step_ms"]
     res[f"{label} prefill tok/s"] = snap["prefill_tokens_per_s"]
+    del eng, params
+    torch.cuda.empty_cache()
+
+
+def chunk_paths(torch, res):
+    import numpy as np
+
+    from flash_attn_tpu_torch.engine.engine import (InferenceEngine, PagedInferenceEngine,
+                                                    SpecConfig)
+    from flash_attn_tpu_torch.models import llama
+
+    cfg = llama.LLAMA3_8B
+    params = llama.init_params(cfg, seed=SEED, device="cuda", quantize="int8")
+    adapter = llama.make_adapter(cfg)
+    for label, kv_mode, spec in (
+            ("n-gram", "fp8", SpecConfig(num_draft=4, ngram=2)),
+            ("self-draft", "none", SpecConfig(num_draft=4, draft_params=params,
+                                              draft_adapter=adapter))):
+        eng = InferenceEngine(params, adapter, max_batch=8, capacity=4096, kv_mode=kv_mode,
+                              spec=spec, device="cuda")
+        for p in _prompts(cfg.vocab_size)[1]:
+            eng.submit(p, max_tokens=32)
+        eng.run()
+        torch.cuda.synchronize()
+        m = eng.metrics
+        res[f"8B {label} spec ms/round"] = 1e3 * m.decode_seconds / max(m.steps, 1)
+        if label == "self-draft":
+            res["8B self-draft acceptance"] = m.snapshot()["spec_draft_acceptance"]
+        del eng
+    rng = np.random.default_rng(SEED + 7)  # chip_smoke.py's phase-7 traffic
+    prefix = rng.integers(0, cfg.vocab_size, 512).tolist()
+    suffix_lens = rng.integers(64, 513, 16)
+    prompts = [prefix + rng.integers(0, cfg.vocab_size, int(n)).tolist() for n in suffix_lens]
+    eng = PagedInferenceEngine(params, adapter, max_batch=8, capacity=4096, page_size=128,
+                               kv_mode="fp8", prefix_cache=True, device="cuda")
+    m = eng.metrics
+    for wave in (prompts[:8], prompts[8:]):
+        tokens, secs = m.prefill_tokens, m.prefill_seconds
+        for p in wave:
+            eng.submit(p, max_tokens=32)
+        eng.run()
+        torch.cuda.synchronize()
+    res["8B paged prefix-hit prefill s"] = m.prefill_seconds - secs
+    res["8B paged prefix-hit prefill tok/s"] = (m.prefill_tokens - tokens) / (m.prefill_seconds
+                                                                             - secs)
     del eng, params
     torch.cuda.empty_cache()
 
@@ -217,6 +275,8 @@ def measure(tree: Path, models: str) -> None:
                   group_size=128, head_mode="w8a8", fuse=True)
         if models in ("all", "train"):
             train(torch, res)
+        if models in ("all", "chunk"):
+            chunk_paths(torch, res)
     res["seconds"] = time.perf_counter() - t0
     print("turn " + json.dumps(res), flush=True)
 
@@ -225,7 +285,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--other", type=Path, help="another checkout of the repository")
     ap.add_argument("--order", default="OTTO")
-    ap.add_argument("--models", choices=("all", "serve", "train", "none"), default="all",
+    ap.add_argument("--models", choices=("all", "serve", "train", "chunk", "none"), default="all",
                     help="models measured after the kernels")
     ap.add_argument("--measure", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()

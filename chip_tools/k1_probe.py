@@ -4,10 +4,12 @@
     python3 chip_tools/k1_probe.py --old NAME=DIR [--old NAME=DIR ...]
 
 Each DIR holds a ``decode.cu`` (and the ``common.cuh`` it includes) from
-an earlier tree; the sources' entry points are told apart by name:
-``fatt_decode_bhsd`` (the one-layout kernel of slice 1-4) or
-``fatt_decode`` (the template since slice 5).  Part 1 builds each of them
-and this tree's ``csrc/decode.cu`` with nvcc and ``-Xptxas -v`` into its
+an earlier tree; the sources' entry points are told apart by name and
+arguments: ``fatt_decode_bhsd`` (the first, one-layout kernel),
+``fatt_decode`` with a chunk argument (the template that also held chunk
+mode) or without one (decode mode only, chunk mode on csrc/chunk_attn.cu).
+Part 1 builds each of them and this tree's ``csrc/decode.cu`` with nvcc
+and ``-Xptxas -v`` into its
 own library, prints the registers, shared memory and spills of the fp8
 decode instance and the size of its SASS (``cuobjdump -sass``: all
 instructions, global and shared loads), then launches each through ctypes
@@ -42,7 +44,8 @@ B, H, HK, S, D = 8, 32, 8, 4096, 128
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGS = {
     "fatt_decode_bhsd": [P] * 9 + [I] * 8 + [F, I, F, P],
-    "fatt_decode": [P] * 9 + [I] * 10 + [F, F, I, F, P],
+    "fatt_decode+chunk": [P] * 9 + [I] * 10 + [F, F, I, F, P],
+    "fatt_decode": [P] * 9 + [I] * 9 + [F, F, I, F, P],
 }
 
 
@@ -58,8 +61,9 @@ def build(name, src_dir, out_dir, sass_dir=None):
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"{name}: nvcc failed\n{res.stdout}{res.stderr}")
-    # the fp8 (kv type 2) decode-mode BHSD instance: template <2> or <2, false, false>
-    want = re.compile(r"decode_bhsd_kernelILi2EE|decode_kernelILi2ELb0ELb0E")
+    # the fp8 (kv type 2) decode-mode BHSD instance: template <2>, <2, false,
+    # false> or <2, false>
+    want = re.compile(r"decode_bhsd_kernelILi2EE|decode_kernelILi2ELb0E(Lb0E)?E")
     lines, keep = [], False
     for line in res.stderr.splitlines():
         if "Compiling entry function" in line:
@@ -86,6 +90,11 @@ def build(name, src_dir, out_dir, sass_dir=None):
     so = ctypes.CDLL(str(lib))
     entry = "fatt_decode" if hasattr(so, "fatt_decode") else "fatt_decode_bhsd"
     fn = getattr(so, entry)
+    if entry == "fatt_decode":
+        text = (src_dir / "decode.cu").read_text()
+        head = text[text.index('extern "C" int fatt_decode('):]
+        if "int chunk" in head[:head.index(")")]:
+            entry = "fatt_decode+chunk"
     fn.argtypes = SIGS[entry]
     fn.restype = ctypes.c_int
     return entry, fn, lines, sass
@@ -123,8 +132,9 @@ def part1(torch, olds, sass_dir):
             args = (*p, None, part.data_ptr(), lse.data_ptr(), B, H, HK, S, D, 2, nsplit,
                     split_len, qscale, 1, 40.0)
         else:
-            args = (*p, None, part.data_ptr(), lse.data_ptr(), B, HK, H // HK, 1, S, D, 0, 2,
-                    nsplit, split_len, qscale, 1.0, 1, 40.0)
+            chunk = (1,) if entry == "fatt_decode+chunk" else ()
+            args = (*p, None, part.data_ptr(), lse.data_ptr(), B, HK, H // HK, *chunk, S, D, 0,
+                    2, nsplit, split_len, qscale, 1.0, 1, 40.0)
         libs[name] = (fn, args)
     ref = None
     for name, (fn, args) in libs.items():

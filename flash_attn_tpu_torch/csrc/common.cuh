@@ -240,6 +240,67 @@ __device__ __forceinline__ void wgmma_rs_s8(int (&d)[64], const uint32_t (&a)[4]
 
 #undef FATT_D8
 
+// Attention on wgmma over 64-key tiles at head dim 128, shared by K4 and the
+// chunk kernel (K1c/K8c).  A warpgroup holds 64 query rows; warp w of it rows
+// 16w.. , and this thread rows lane/4 and lane/4 + 8 of those.  A K or V
+// tile is 64 keys x 128 bf16 columns as two 64-column halves in the 128-byte
+// swizzle (sw128<64>), 8 KB each.
+
+// S (64 x 64 fp32: s[j][e] is key 8j + 2(lane%4) + (e&1) of row lane/4 +
+// 8(e>>1)) = Q K^T, Q as A fragments (qf[kk]: columns 16kk..16kk+15), K
+// read by descriptor from the tile at shared address kt.
+__device__ __forceinline__ void attn_qk(float (&s)[8][4], const uint32_t (&qf)[8][4],
+                                        uint32_t kt) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+  auto& sd = reinterpret_cast<float(&)[32]>(s);
+  pin(sd);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) wgmma_rs<0>(sd, qf[kk], wg_desc(kmajor<64>(kt, kk)), kk > 0);
+  wg_commit();
+  wg_wait_all();
+  pin(sd);
+}
+
+// The four values of score block j (as attn_qk lays them out) into P's A
+// fragments: pf[c] covers keys 16c..16c+15.
+__device__ __forceinline__ void put_p(uint32_t (&pf)[4][4], int j, const float (&p)[4]) {
+  pf[j / 2][(j & 1) * 2] = pack_bf16(p[0], p[1]);
+  pf[j / 2][(j & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+}
+
+// O (64 x 128 fp32: o[j] columns 8j.., rows as s) += P V, V read N-major by
+// descriptor from the tile at shared address vt.
+__device__ __forceinline__ void attn_pv(float (&o)[16][4], const uint32_t (&pf)[4][4],
+                                        uint32_t vt) {
+  auto& o0 = reinterpret_cast<float(&)[32]>(o[0]);
+  auto& o1 = reinterpret_cast<float(&)[32]>(o[8]);
+  pin(o0);
+  pin(o1);
+  wg_fence();
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc) {
+    wgmma_rs<1>(o0, pf[kc], wg_desc(vt + kc * 16 * 128), 1);
+    wgmma_rs<1>(o1, pf[kc], wg_desc(vt + 64 * 128 + kc * 16 * 128), 1);
+  }
+  wg_commit();
+  wg_wait_all();
+  pin(o0);
+  pin(o1);
+}
+
+// Reductions over the four threads (a quad) that hold one accumulator row.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
 // Host side.  A kernel's dynamic shared-memory limit is raised once on each
 // device, not before every launch: a launcher keeps one SmemLimitSet (a
 // function-local static, so one for each kernel instance) and calls

@@ -1,35 +1,34 @@
 // K1: decode attention over a contiguous KV cache (bf16, int8 or fp8-e4m3
-// with per-(position, head) fp32 scales), in decode mode (one query token
-// per sequence) and chunk mode (T causal query tokens per sequence riding
-// as virtual heads), over a BHSD or a BSHD cache.
+// with per-(position, head) fp32 scales): one query token per sequence and
+// at most 8 query heads per KV head, over a BHSD or a BSHD cache.  Chunk
+// mode (T query tokens per sequence) and decode calls with more heads per
+// KV head run on the chunk kernel, K1c (csrc/chunk_attn.cu).
 //
-// Replaces flash_attn_tpu/ops/decode.py:_decode_kernel_bhsd (decode and
-// chunk mode, B1) and _decode_kernel (the BSHD-layout decode, B12).  One
-// kernel template serves both layouts: a K/V row (D elements) of position
-// t of KV head hk in sequence b is row (b*Hk + hk)*S + t for BHSD and
+// Replaces flash_attn_tpu/ops/decode.py:_decode_kernel_bhsd in decode mode
+// (B1) and _decode_kernel (the BSHD-layout decode, B12).  One kernel
+// template serves both layouts: a K/V row (D elements) of position t of KV
+// head hk in sequence b is row (b*Hk + hk)*S + t for BHSD and
 // (b*S + t)*Hk + hk for BSHD; scales sit at the same row index ([B, Hk, S]
-// or [B, S, Hk] fp32).  Decode mode and BHSD are template parameters, so
-// the decode step's instance carries no per-row limits, row tiles or
-// strides: as runtime values they made it 1.3x slower.
+// or [B, S, Hk] fp32).  The layout is a template parameter, so the decode
+// step's instance carries no strides: as runtime values they made it 1.3x
+// slower.
 //
 // Bound on the H100: bytes.  Each step reads every live K/V row once
 // (B*Hk*kv_len*D*2 elements) and does 4 flops per element and query row;
 // at 1-2 bytes per element and at most 8 rows per block that is far below
 // the 295 flop/byte ridge.  The design therefore only has to read each
 // byte once per block and keep enough loads in flight:
-//   * one block serves up to 8 query rows of one KV head (its GQA group in
-//     decode mode; in chunk mode a tile of the T*G virtual rows in (t, g)
-//     order, a grid axis over the tiles), so each K/V tile is read from
-//     device memory once per tile of rows, not once per row;
+//   * one block serves the up to 8 query rows of one KV head (its GQA
+//     group), so each K/V tile is read from device memory once per KV
+//     head, not once per row;
 //   * 64-row K and V tiles and their scales stream through a ring of three
 //     stages (two for bf16) in shared memory, filled by cp.async (16 bytes
 //     a copy, rows past the walk zero-filled), so later tiles are in flight
 //     while the scores and PV of the current one run; stored values are converted to fp32
 //     in registers as they are read from the ring: scores by two threads
 //     per key, PV by one thread per head-dim column;
-//   * each query row has its own causal limit (kv_len in decode mode,
-//     kv_len - (T-1) + t in chunk mode, never past S); tiles at or beyond
-//     the block's highest limit are never read;
+//   * every row sees kv_len positions, never past S; tiles at or beyond it
+//     are never read;
 //   * a split-KV grid axis (blockIdx.y) cuts the sequence so that B*Hk
 //     blocks (64 at batch 8) become enough to fill 132 SMs; each split
 //     writes an fp32 (out, lse) partial that the wrapper merges with the
@@ -86,18 +85,15 @@ __device__ __forceinline__ void load8(const unsigned char* p, float* out) {
   }
 }
 
-// kChunk: query rows in tiles of 8 with a causal limit each, T > 1 tokens
-// or more than 8 heads per KV head (else one tile of R <= 8 rows, one limit
-// kv_len); kBshd: the BSHD layout (else BHSD).
-template <int KV, bool kChunk, bool kBshd>
+// kBshd: the BSHD layout (else BHSD).
+template <int KV, bool kBshd>
 __global__ void __launch_bounds__(kThreads) decode_kernel(
     const __nv_bfloat16* __restrict__ q, const void* __restrict__ k,
     const void* __restrict__ v, const float* __restrict__ ks,
     const float* __restrict__ vs, const int* __restrict__ kv_len,
     __nv_bfloat16* __restrict__ out, float* __restrict__ part_out,
-    float* __restrict__ part_lse, int B, int Hk, int R, int chunk, int S,
-    int D, int split_len, float qscale, float sscale, int clamped,
-    float clamp2) {
+    float* __restrict__ part_lse, int B, int Hk, int R, int S, int D,
+    int split_len, float qscale, float sscale, int clamped, float clamp2) {
   using L = Ring<KV>;
   constexpr int kElem = L::kElem;
   constexpr int kRowBytes = L::kRowBytes;
@@ -105,13 +101,10 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
   const int hk = blockIdx.x % Hk;
   const int split = blockIdx.y;
   const int nsplit = gridDim.y;
-  const int r0 = kChunk ? blockIdx.z * kMaxRows : 0;
-  const int G = R / chunk;  // query heads per KV head and token
-  const int nrows = kChunk ? min(kMaxRows, R - r0) : R;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int64_t qrow0 = ((int64_t)b * Hk + hk) * R + r0;  // this block's row 0
+  const int64_t qrow0 = ((int64_t)b * Hk + hk) * R;  // this block's row 0
 
   extern __shared__ __align__(16) unsigned char ring[];
   __shared__ float q_s[kMaxRows][kMaxD];
@@ -121,7 +114,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
   // q pre-scaled in bf16, as the TPU kernel folds the softmax scale into
   // its bf16 q block (qscale is already rounded to bf16 by the wrapper;
   // it is 1 when the scale rides on the scores).
-  for (int i = tid; i < nrows * D; i += kThreads) {
+  for (int i = tid; i < R * D; i += kThreads) {
     const int g = i / D, d = i % D;
     const float x = __bfloat162float(q[(qrow0 + g) * D + d]);
     q_s[g][d] = fatt::bf16_round(x * qscale);
@@ -135,18 +128,9 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
 #pragma unroll
   for (int g = 0; g < kMaxRows; ++g) acc[g] = 0.f;
 
-  // Row g sees positions < lim[g]: kv_len - (T-1) + its token, never past
-  // S (an idle slot's length runs past the capacity).  The limits grow
-  // with g, so the last row's bounds the walk.  In decode mode every row
-  // sees kv_len.
-  const int len = kv_len[b];
-  int lim[kMaxRows];
-  if constexpr (kChunk) {
-#pragma unroll
-    for (int g = 0; g < kMaxRows; ++g)
-      lim[g] = g < nrows ? min(len - (chunk - 1) + (r0 + g) / G, S) : 0;
-  }
-  const int walk_end = kChunk ? min(len - (chunk - 1) + (r0 + nrows - 1) / G, S) : min(len, S);
+  // Every row sees positions < kv_len, never past S (an idle slot's length
+  // runs past the capacity).
+  const int walk_end = min(kv_len[b], S);
   const int lo = split * split_len;
   const int hi = min(lo + split_len, walk_end);
   // row index of position t: row0 + t * t_stride
@@ -213,7 +197,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
         load8<KV>(k_s + j * kRowBytes + cc * 8 * kElem, kf);
 #pragma unroll
         for (int g = 0; g < kMaxRows; ++g) {
-          if (g < nrows) {
+          if (g < R) {
 #pragma unroll
             for (int e = 0; e < 8; ++e) dots[g] += q_s[g][cc * 8 + e] * kf[e];
           }
@@ -225,9 +209,8 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
       if (h == 0) {
 #pragma unroll
         for (int g = 0; g < kMaxRows; ++g)
-          if (g < nrows) {
-            bool keep = j < nvalid;
-            if constexpr (kChunk) keep = keep && t0 + j < lim[g];
+          if (g < R) {
+            const bool keep = j < nvalid;
             float s = KV != fatt::kBf16 ? dots[g] * ks_s[j] : dots[g];
             if constexpr (kBshd) s *= sscale;
             s_s[g][j] = keep ? s : kNegInf;
@@ -238,7 +221,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
 
     // Phase 2: softmax statistics, one warp per query row; p * v_scale is
     // rounded to bf16 as the TPU kernel feeds it to the PV product.
-    for (int g = warp; g < nrows; g += kWarps) {
+    for (int g = warp; g < R; g += kWarps) {
       const float s0 = s_s[g][lane], s1 = s_s[g][lane + 32];
       float p0, p1, alpha = 1.f;
       if (clamped) {
@@ -269,12 +252,12 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
     if (tid < D) {
 #pragma unroll
       for (int g = 0; g < kMaxRows; ++g)
-        if (g < nrows) acc[g] *= a_s[g];
+        if (g < R) acc[g] *= a_s[g];
       for (int j = 0; j < nvalid; ++j) {
         const float vv = fatt::load_kv<KV>(v_s + j * kRowBytes, tid);
 #pragma unroll
         for (int g = 0; g < kMaxRows; ++g)
-          if (g < nrows) acc[g] += s_s[g][j] * vv;
+          if (g < R) acc[g] += s_s[g][j] * vv;
       }
     }
   }
@@ -286,7 +269,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
   if (tid < D) {
 #pragma unroll
     for (int g = 0; g < kMaxRows; ++g) {
-      if (g >= nrows) continue;
+      if (g >= R) continue;
       const float l = l_s[g];
       const bool valid = l > 0.f && (clamped || m_s[g] > kNegInf / 2);
       const float o = valid ? acc[g] / l : 0.f;
@@ -298,7 +281,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
       }
     }
   }
-  if (tid < nrows) {
+  if (tid < R) {
     const float l = l_s[tid];
     const bool valid = l > 0.f && (clamped || m_s[tid] > kNegInf / 2);
     const float lse = valid ? (clamped ? logf(l) : m_s[tid] + logf(l)) : kNegInf;
@@ -306,78 +289,71 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
   }
 }
 
-template <int KV, bool kChunk, bool kBshd>
+template <int KV, bool kBshd>
 int launch(const void* q, const void* k, const void* v, const void* ks,
            const void* vs, const void* kv_len, void* out, void* part_out,
-           void* part_lse, int B, int Hk, int R, int chunk, int S, int D,
-           int num_splits, int split_len, float qscale, float sscale,
-           int clamped, float clamp2, cudaStream_t st) {
-  auto kernel = decode_kernel<KV, kChunk, kBshd>;
+           void* part_lse, int B, int Hk, int R, int S, int D, int num_splits,
+           int split_len, float qscale, float sscale, int clamped,
+           float clamp2, cudaStream_t st) {
+  auto kernel = decode_kernel<KV, kBshd>;
   static fatt::SmemLimitSet smem_set;  // one for each instance
   cudaError_t e = fatt::smem_limit_once(kernel, Ring<KV>::kBytes, smem_set);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid(B * Hk, num_splits, (R + kMaxRows - 1) / kMaxRows);
+  dim3 grid(B * Hk, num_splits);
   kernel<<<grid, kThreads, Ring<KV>::kBytes, st>>>(
       static_cast<const __nv_bfloat16*>(q), k, v, static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const int*>(kv_len),
       static_cast<__nv_bfloat16*>(out), static_cast<float*>(part_out),
-      static_cast<float*>(part_lse), B, Hk, R, chunk, S, D, split_len, qscale,
-      sscale, clamped, clamp2);
+      static_cast<float*>(part_lse), B, Hk, R, S, D, split_len, qscale, sscale,
+      clamped, clamp2);
   return (int)cudaGetLastError();
 }
 
-// The instances launched: BHSD in decode and chunk mode, BSHD in decode
-// mode (no caller needs a BSHD chunk on the card).  Decode mode with more
-// than 8 heads per KV head runs as a chunk of one token.
 template <int KV>
-int launch_mode(const void* q, const void* k, const void* v, const void* ks,
-                const void* vs, const void* kv_len, void* out, void* part_out,
-                void* part_lse, int B, int Hk, int R, int chunk, int S, int D,
-                int bshd, int num_splits, int split_len, float qscale,
-                float sscale, int clamped, float clamp2, cudaStream_t st) {
-  const bool tiled = chunk > 1 || R > kMaxRows;
-  if (bshd && tiled) return (int)cudaErrorInvalidValue;
-  auto fn = bshd ? launch<KV, false, true>
-                 : tiled ? launch<KV, true, false> : launch<KV, false, false>;
-  return fn(q, k, v, ks, vs, kv_len, out, part_out, part_lse, B, Hk, R, chunk,
-            S, D, num_splits, split_len, qscale, sscale, clamped, clamp2, st);
+int launch_layout(const void* q, const void* k, const void* v, const void* ks,
+                  const void* vs, const void* kv_len, void* out, void* part_out,
+                  void* part_lse, int B, int Hk, int R, int S, int D, int bshd,
+                  int num_splits, int split_len, float qscale, float sscale,
+                  int clamped, float clamp2, cudaStream_t st) {
+  auto fn = bshd ? launch<KV, true> : launch<KV, false>;
+  return fn(q, k, v, ks, vs, kv_len, out, part_out, part_lse, B, Hk, R, S, D,
+            num_splits, split_len, qscale, sscale, clamped, clamp2, st);
 }
 
 }  // namespace
 
-// q: [B, Hk * R, D] bf16 rows, R = chunk * (H / Hk) per KV head in (t, g)
-// order (R = H / Hk in decode mode); k, v: BHSD [B, Hk, S, D] (bshd 0) or
-// BSHD [B, S, Hk, D] (bshd 1, decode mode only); scales fp32 at the rows'
+// q: [B, Hk * R, D] bf16 rows, R = H / Hk <= 8; k, v: BHSD [B, Hk, S, D]
+// (bshd 0) or BSHD [B, S, Hk, D] (bshd 1); scales fp32 at the rows'
 // indices (null for bf16); kv_len [B] int32.  One split writes out
 // [B, Hk * R, D] bf16, several write fp32 partials part_out
 // [n, B, Hk * R, D]; part_lse [n, B, Hk * R] always.
 extern "C" int fatt_decode(const void* q, const void* k, const void* v,
                            const void* ks, const void* vs, const void* kv_len,
                            void* out, void* part_out, void* part_lse, int B,
-                           int Hk, int R, int chunk, int S, int D, int bshd,
-                           int kv_type, int num_splits, int split_len,
-                           float qscale, float sscale, int clamped,
-                           float clamp2, void* stream) {
-  if (R < 1 || chunk < 1 || R % chunk != 0 || D > kMaxD || D % 32 != 0 ||
-      num_splits < 1 || split_len % kTile != 0)
+                           int Hk, int R, int S, int D, int bshd, int kv_type,
+                           int num_splits, int split_len, float qscale,
+                           float sscale, int clamped, float clamp2,
+                           void* stream) {
+  if (R < 1 || R > kMaxRows || D > kMaxD || D % 32 != 0 || num_splits < 1 ||
+      split_len % kTile != 0)
     return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   switch (kv_type) {
     case fatt::kBf16:
-      return launch_mode<fatt::kBf16>(q, k, v, ks, vs, kv_len, out, part_out,
-                                      part_lse, B, Hk, R, chunk, S, D, bshd,
-                                      num_splits, split_len, qscale, sscale,
-                                      clamped, clamp2, st);
+      return launch_layout<fatt::kBf16>(q, k, v, ks, vs, kv_len, out, part_out,
+                                        part_lse, B, Hk, R, S, D, bshd, num_splits,
+                                        split_len, qscale, sscale, clamped, clamp2,
+                                        st);
     case fatt::kInt8:
-      return launch_mode<fatt::kInt8>(q, k, v, ks, vs, kv_len, out, part_out,
-                                      part_lse, B, Hk, R, chunk, S, D, bshd,
-                                      num_splits, split_len, qscale, sscale,
-                                      clamped, clamp2, st);
+      return launch_layout<fatt::kInt8>(q, k, v, ks, vs, kv_len, out, part_out,
+                                        part_lse, B, Hk, R, S, D, bshd, num_splits,
+                                        split_len, qscale, sscale, clamped, clamp2,
+                                        st);
     case fatt::kFp8:
-      return launch_mode<fatt::kFp8>(q, k, v, ks, vs, kv_len, out, part_out,
-                                     part_lse, B, Hk, R, chunk, S, D, bshd,
-                                     num_splits, split_len, qscale, sscale,
-                                     clamped, clamp2, st);
+      return launch_layout<fatt::kFp8>(q, k, v, ks, vs, kv_len, out, part_out,
+                                        part_lse, B, Hk, R, S, D, bshd, num_splits,
+                                        split_len, qscale, sscale, clamped, clamp2,
+                                        st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -49,7 +49,6 @@ constexpr int kStages = 2;
 constexpr int kRowBytes = kD * 2;
 constexpr int kChunks = kRowBytes / 16;  // 16-byte chunks per row
 constexpr int kTileBytes = kBK * kRowBytes;
-constexpr int kHalfBytes = kBK * 128;  // 64 columns of a K/V tile (wgmma layout)
 // + 1024: the ring starts at the next 1024-byte boundary (the swizzle atom)
 constexpr int kSmemBytes = kStages * 2 * kTileBytes + 1024;
 constexpr float kClamp2 = 80.f;
@@ -61,14 +60,9 @@ __device__ __forceinline__ uint32_t swz(int r, int c) {
 }
 
 // A K/V ring tile is two 64-column halves of kBK rows in the 128-byte
-// swizzle (fatt::sw128): every operand K4's products read from it spans one
-// swizzle atom (K: 16 of 64 columns; V: 64 of 64).
-using fatt::pin;
-using fatt::wg_commit;
-using fatt::wg_desc;
-using fatt::wg_fence;
-using fatt::wg_wait_all;
-using fatt::wgmma_rs;
+// swizzle (fatt::sw128): every operand K4's products (fatt::attn_qk,
+// fatt::attn_pv) read from it spans one swizzle atom (K: 16 of 64 columns;
+// V: 64 of 64).
 
 __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
@@ -175,19 +169,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
 
     // S = Q K^T: 16 rows x 64 keys as eight n8 tiles.
     float s[kBK / 8][4];
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    {
-      auto& sd = reinterpret_cast<float(&)[32]>(s);
-      pin(sd);
-      wg_fence();
-#pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk)
-        wgmma_rs<0>(sd, qf[kk], wg_desc(fatt::kmajor<kBK>(ks, kk)), kk > 0);
-      wg_commit();
-      wg_wait_all();
-      pin(sd);
-    }
+    fatt::attn_qk(s, qf, ks);
 
     // Mask only where this warp's diagonal or Sk's edge crosses the tile.
     const bool edge = k0 + kBK > Sk || (causal && k0 + kBK - 1 > wrow0 + shift);
@@ -211,9 +193,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
         float mx = kNegInf;
 #pragma unroll
         for (int j = 0; j < kBK / 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * hf], s[j][2 * hf + 1]));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float m_new = fmaxf(m_run[hf], mx);
+        const float m_new = fmaxf(m_run[hf], fatt::quad_max(mx));
         alpha[hf] = exp2f(m_run[hf] - m_new);
         m_run[hf] = m_new;
       }
@@ -227,8 +207,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
         p[e] = clamped ? exp2f(fminf(s[j][e], kClamp2)) : exp2f(s[j][e] - m_run[e >> 1]);
         psum[e >> 1] += p[e];
       }
-      pf[j / 2][(j & 1) * 2] = fatt::pack_bf16(p[0], p[1]);
-      pf[j / 2][(j & 1) * 2 + 1] = fatt::pack_bf16(p[2], p[3]);
+      fatt::put_p(pf, j, p);
     }
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) l_run[hf] = l_run[hf] * alpha[hf] + psum[hf];
@@ -243,22 +222,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
     }
 
     // O += P V.
-    {
-      auto& o0 = reinterpret_cast<float(&)[32]>(o[0]);
-      auto& o1 = reinterpret_cast<float(&)[32]>(o[kD / 16]);
-      pin(o0);
-      pin(o1);
-      wg_fence();
-#pragma unroll
-      for (int kc = 0; kc < kBK / 16; ++kc) {
-        wgmma_rs<1>(o0, pf[kc], wg_desc(vs + kc * 16 * 128), 1);
-        wgmma_rs<1>(o1, pf[kc], wg_desc(vs + kHalfBytes + kc * 16 * 128), 1);
-      }
-      wg_commit();
-      wg_wait_all();
-      pin(o0);
-      pin(o1);
-    }
+    fatt::attn_pv(o, pf, vs);
     __syncthreads();  // the stage is consumed before the ring refills it
   }
   fatt::cp_async_wait<0>();
@@ -269,9 +233,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
   bool valid[2];
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
-    float l = l_run[hf];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float l = fatt::quad_sum(l_run[hf]);
     valid[hf] = l > 0.f && (clamped || m_run[hf] > kNegInf / 2);
     inv[hf] = valid[hf] ? 1.f / l : 0.f;
     const int row = my_row + hf * 8;

@@ -2,8 +2,8 @@
 // [n, rows] fp32 over disjoint key sets merge by the LSE rule
 //     lse = logsumexp_i(lse_i),  out = sum_i exp(lse_i - lse) * out_i
 // into out [rows, D] (bf16 or fp32) and lse [rows] fp32, in one launch.
-// Every split-KV caller (K1 in decode and chunk mode and over a BSHD
-// cache, K8 in both modes) merges through it.
+// Every split-KV caller (K1 over a BHSD or BSHD cache, K8, and the chunk
+// kernel as K1c and K8c) merges through it.
 //
 // Replaces the eager flash_attn_tpu_torch/ops/lse.py:lse_merge on CUDA
 // tensors; the JAX package leaves the same merge to XLA

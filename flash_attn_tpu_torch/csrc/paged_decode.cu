@@ -1,36 +1,30 @@
 // K8: attention over a paged KV pool (bf16, int8 or fp8-e4m3 pages with
-// per-(page row, head) fp32 scales) through a block table, in decode mode
-// (one query token per sequence) and chunk mode (T causal query tokens per
-// sequence riding as virtual heads).
+// per-(page row, head) fp32 scales) through a block table, in decode mode:
+// one query token per sequence, at most 16 query heads per KV head.  Chunk
+// mode (T query tokens per sequence) and decode calls with more heads per
+// KV head run on the chunk kernel, K8c (csrc/chunk_attn.cu).
 //
-// Replaces flash_attn_tpu/ops/paged_decode.py:_paged_decode_kernel, both
-// modes (paged_flash_decode and paged_flash_decode_chunk).
+// Replaces flash_attn_tpu/ops/paged_decode.py:_paged_decode_kernel in
+// decode mode (paged_flash_decode).
 //
-// Bound on the H100:
-//   * decode mode (H/Hk <= 8 query rows per KV head) by bytes, like K1:
-//     every live page row of K and V is needed once, for 4 flops per
-//     element per query row;
-//   * chunk mode at T = 128 (512 rows per KV head) by operations: each
-//     page row serves hundreds of query rows, far above the ridge.
-// One design serves both:
-//   * one block per (sequence, KV head, tile of up to 64 virtual rows,
-//     KV split).  All query rows of a KV head that fit the tile share each
-//     K/V tile, so a page row is read from device memory once per tile of
-//     rows (once in decode mode);
+// Bound on the H100: bytes, like K1: every live page row of K and V is
+// needed once, for 4 flops per element per query row.  The design:
+//   * one block per (sequence, KV head, KV split).  All query rows of a KV
+//     head share each K/V tile, so a page row is read from device memory
+//     once;
 //   * the block reads its sequence's page ids from the block table (the
 //     counterpart of the TPU's scalar prefetch) and walks 64-key tiles,
-//     which never straddle a page, up to the highest causal limit of its
-//     rows and never past the table's reach (max_pages * page), so an idle
-//     slot whose length ran past its capacity reads only its own entries;
+//     which never straddle a page, up to kv_len and never past the table's
+//     reach (max_pages * page), so an idle slot whose length ran past its
+//     capacity reads only its own entries;
 //   * int8 and e4m3 K/V convert exactly to bf16 while they are staged in
 //     shared memory; scores are scaled by the K scale per column after
 //     QK^T and p by the V scale (then rounded to bf16) before PV, as on
 //     the TPU;
 //   * QK^T and PV run on the tensor cores (WMMA bf16, fp32 accumulate).
-//     Decode mode pads its rows to one 16-row tile and its four warps
-//     split the keys (QK^T) and the head dim (PV); chunk mode gives each
-//     warp 16 rows, as K4 does.  The softmax runs on fp32 scores in
-//     shared memory, each row's statistics held by the threads that own
+//     The rows are padded to one 16-row tile and the four warps split the
+//     keys (QK^T) and the head dim (PV).  The softmax runs on fp32 scores
+//     in shared memory, each row's statistics held by the threads that own
 //     its columns;
 //   * a split-KV grid axis cuts the walk so that 64 (sequence, KV head)
 //     blocks at batch 8 become enough to fill 132 SMs; each split writes
@@ -56,14 +50,13 @@ constexpr int kSLd = kBK + 4;  // fp32 stride of the scores
 constexpr int kPLd = kBK + 8;  // bf16 stride of p
 constexpr int kOLd = kD + 4;   // fp32 stride of the accumulator
 
-// RW: 16-row groups per block (1 in decode mode, 4 in chunk mode).
-template <int RW>
+// One 16-row group per block.
 struct Tile {
-  static constexpr int kRows = 16 * RW;
-  static constexpr int kCW = kWarps / RW;        // warps per row group
+  static constexpr int kRows = 16;
+  static constexpr int kCW = kWarps;             // warps per row group
   static constexpr int kJPW = kBK / 16 / kCW;    // 16-key blocks per warp
   static constexpr int kNPW = kD / 16 / kCW;     // 16-column blocks per warp
-  static constexpr int kTPR = kThreads / kRows;  // threads per row (8 or 2)
+  static constexpr int kTPR = kThreads / kRows;  // threads per row
   static constexpr int kCPT = kBK / kTPR;        // score columns per thread
   static constexpr int kDPT = kD / kTPR;         // output columns per thread
   static constexpr size_t kQ = 0;
@@ -92,16 +85,16 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-template <int KV, int RW>
+template <int KV>
 __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     const __nv_bfloat16* __restrict__ q, const void* __restrict__ k_pages,
     const void* __restrict__ v_pages, const float* __restrict__ k_scale,
     const float* __restrict__ v_scale, const int* __restrict__ block_table,
     const int* __restrict__ kv_len, __nv_bfloat16* __restrict__ out,
     float* __restrict__ part_out, float* __restrict__ part_lse, int B, int Hk,
-    int R, int chunk, int page, int max_pages, int split_len, float qscale,
-    int clamped, float clamp2) {
-  using L = Tile<RW>;
+    int R, int page, int max_pages, int split_len, float qscale, int clamped,
+    float clamp2) {
+  using L = Tile;
   extern __shared__ __align__(128) unsigned char smem[];
   auto Qs = reinterpret_cast<__nv_bfloat16*>(smem + L::kQ);
   auto Ks = reinterpret_cast<__nv_bfloat16*>(smem + L::kK);
@@ -113,35 +106,28 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   auto vs_s = ks_s + kBK;
 
   const int b = blockIdx.x / Hk, hk = blockIdx.x % Hk;
-  const int r0 = blockIdx.y * L::kRows;
-  const int split = blockIdx.z, nsplit = gridDim.z;
+  const int split = blockIdx.y, nsplit = gridDim.y;
   const int tid = threadIdx.x, warp = tid >> 5;
-  const int rw = warp / L::kCW, cw = warp % L::kCW;
-  const int G = R / chunk;  // query heads per KV head and token
+  const int cw = warp;
   const int len = kv_len[b];
-  const int64_t qrow0 = ((int64_t)b * Hk + hk) * R;  // virtual head of row 0
+  const int64_t qrow0 = ((int64_t)b * Hk + hk) * R;  // query head of row 0
 
   // q pre-scaled in bf16, as the TPU kernel folds the softmax scale into
   // its q block (qscale is already rounded to bf16); rows past R are 0.
   for (int i = tid; i < L::kRows * kD; i += kThreads) {
     const int r = i / kD, d = i % kD;
     float x = 0.f;
-    if (r0 + r < R)
-      x = fatt::bf16_round(__bfloat162float(q[(qrow0 + r0 + r) * kD + d]) * qscale);
+    if (r < R) x = fatt::bf16_round(__bfloat162float(q[(qrow0 + r) * kD + d]) * qscale);
     Qs[r * kLd + d] = __float2bfloat16(x);
     Os[r * kOLd + d] = 0.f;
   }
 
   // This thread's row and its slice of the score and output columns.
   const int my_row = tid / L::kTPR, part = tid % L::kTPR;
-  const int gr = r0 + my_row;
-  // the row's causal limit: kv_len in decode mode, kv_len - (T-1) + t in
-  // chunk mode; padding rows see nothing
-  const int limit = gr < R ? len - (chunk - 1) + gr / G : 0;
-  // the walk ends at the highest limit of the block's rows, and at the
-  // table's reach
-  const int last = min(r0 + L::kRows, R) - 1;
-  const int walk_end = min(len - (chunk - 1) + last / G, max_pages * page);
+  // every row sees kv_len positions; padding rows see nothing
+  const int limit = my_row < R ? len : 0;
+  // the walk ends at kv_len, and at the table's reach
+  const int walk_end = min(len, max_pages * page);
   const int lo = split * split_len;
   const int hi = min(lo + split_len, walk_end);
   float m_run = kNegInf, l_run = 0.f;
@@ -197,7 +183,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     }
     __syncthreads();
 
-    // S = Q K^T: warp (rw, cw) takes rows rw*16.. and its 16-key blocks.
+    // S = Q K^T: warp cw takes its 16-key blocks.
 #pragma unroll
     for (int jj = 0; jj < L::kJPW; ++jj) {
       const int j = cw * L::kJPW + jj;
@@ -207,11 +193,11 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
       for (int kk = 0; kk < kD; kk += 16) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
         wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> bt;
-        wmma::load_matrix_sync(a, Qs + rw * 16 * kLd + kk, kLd);
+        wmma::load_matrix_sync(a, Qs + kk, kLd);
         wmma::load_matrix_sync(bt, Ks + j * 16 * kLd + kk, kLd);
         wmma::mma_sync(sf, a, bt, sf);
       }
-      wmma::store_matrix_sync(Ss + rw * 16 * kSLd + j * 16, sf, kSLd, wmma::mem_row_major);
+      wmma::store_matrix_sync(Ss + j * 16, sf, kSLd, wmma::mem_row_major);
     }
     __syncthreads();
 
@@ -250,19 +236,19 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     }
     __syncthreads();
 
-    // O += P V: warp (rw, cw) takes rows rw*16.. and its 16-column blocks,
-    // accumulated through shared memory.
+    // O += P V: warp cw takes its 16-column blocks, accumulated through
+    // shared memory.
 #pragma unroll
     for (int nn = 0; nn < L::kNPW; ++nn) {
       const int n = cw * L::kNPW + nn;
       wmma::fragment<wmma::accumulator, 16, 16, 16, float> of;
-      float* optr = Os + rw * 16 * kOLd + n * 16;
+      float* optr = Os + n * 16;
       wmma::load_matrix_sync(of, optr, kOLd, wmma::mem_row_major);
 #pragma unroll
       for (int kk = 0; kk < kBK; kk += 16) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
         wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bv;
-        wmma::load_matrix_sync(a, Ps + rw * 16 * kPLd + kk, kPLd);
+        wmma::load_matrix_sync(a, Ps + kk, kPLd);
         wmma::load_matrix_sync(bv, Vs + kk * kLd + n * 16, kLd);
         wmma::mma_sync(of, a, bv, of);
       }
@@ -272,9 +258,9 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   __syncthreads();
 
   // Finalize: a row is valid iff some unmasked score was seen.
-  if (gr < R) {
+  if (my_row < R) {
     const bool valid = l_run > 0.f && (clamped || m_run > kNegInf / 2);
-    const int64_t h = qrow0 + gr;
+    const int64_t h = qrow0 + my_row;
     const float* orow = Os + my_row * kOLd + part * L::kDPT;
     const int64_t rows = (int64_t)B * Hk * R;
     for (int c = 0; c < L::kDPT; ++c) {
@@ -293,46 +279,30 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   }
 }
 
-template <int KV, int RW>
+template <int KV>
 int launch(const void* q, const void* k, const void* v, const void* ks,
            const void* vs, const void* table, const void* kv_len, void* out,
-           void* part_out, void* part_lse, int B, int Hk, int R, int chunk,
-           int page, int max_pages, int num_splits, int split_len,
-           float qscale, int clamped, float clamp2, cudaStream_t st) {
-  const size_t bytes = Tile<RW>::kBytes;
+           void* part_out, void* part_lse, int B, int Hk, int R, int page,
+           int max_pages, int num_splits, int split_len, float qscale,
+           int clamped, float clamp2, cudaStream_t st) {
+  const size_t bytes = Tile::kBytes;
   cudaError_t e = cudaFuncSetAttribute(
-      paged_decode_kernel<KV, RW>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      paged_decode_kernel<KV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid(B * Hk, (R + Tile<RW>::kRows - 1) / Tile<RW>::kRows, num_splits);
-  paged_decode_kernel<KV, RW><<<grid, kThreads, bytes, st>>>(
+  dim3 grid(B * Hk, num_splits);
+  paged_decode_kernel<KV><<<grid, kThreads, bytes, st>>>(
       static_cast<const __nv_bfloat16*>(q), k, v, static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const int*>(table),
       static_cast<const int*>(kv_len), static_cast<__nv_bfloat16*>(out),
       static_cast<float*>(part_out), static_cast<float*>(part_lse), B, Hk, R,
-      chunk, page, max_pages, split_len, qscale, clamped, clamp2);
+      page, max_pages, split_len, qscale, clamped, clamp2);
   return (int)cudaGetLastError();
-}
-
-template <int KV>
-int launch_rows(const void* q, const void* k, const void* v, const void* ks,
-                const void* vs, const void* table, const void* kv_len,
-                void* out, void* part_out, void* part_lse, int B, int Hk, int R,
-                int chunk, int page, int max_pages, int num_splits,
-                int split_len, float qscale, int clamped, float clamp2,
-                cudaStream_t st) {
-  if (R <= 16)
-    return launch<KV, 1>(q, k, v, ks, vs, table, kv_len, out, part_out,
-                         part_lse, B, Hk, R, chunk, page, max_pages,
-                         num_splits, split_len, qscale, clamped, clamp2, st);
-  return launch<KV, 4>(q, k, v, ks, vs, table, kv_len, out, part_out,
-                       part_lse, B, Hk, R, chunk, page, max_pages, num_splits,
-                       split_len, qscale, clamped, clamp2, st);
 }
 
 }  // namespace
 
-// q: [B, Hk * R, D] bf16 virtual heads, R = chunk * (H / Hk) rows per KV
-// head in (t, g) order; pages [P, Hk, page, D]; scales [P, Hk, page] fp32
+// q: [B, Hk * R, D] bf16, R = H / Hk <= 16 rows per KV head; pages
+// [P, Hk, page, D]; scales [P, Hk, page] fp32
 // (null for bf16 pages); block_table [B, max_pages] int32; kv_len [B]
 // int32.  One split writes out [B, Hk * R, D] bf16, several write fp32
 // partials part_out [n, B, Hk * R, D]; part_lse [n, B, Hk * R] always.
@@ -340,30 +310,27 @@ extern "C" int fatt_paged_decode(const void* q, const void* k, const void* v,
                                  const void* ks, const void* vs,
                                  const void* table, const void* kv_len,
                                  void* out, void* part_out, void* part_lse,
-                                 int B, int Hk, int R, int chunk, int page,
-                                 int max_pages, int D, int kv_type,
-                                 int num_splits, int split_len, float qscale,
-                                 int clamped, float clamp2, void* stream) {
-  if (D != kD || R < 1 || chunk < 1 || R % chunk != 0 || page % kBK != 0 ||
-      num_splits < 1 || split_len % kBK != 0)
+                                 int B, int Hk, int R, int page, int max_pages,
+                                 int D, int kv_type, int num_splits,
+                                 int split_len, float qscale, int clamped,
+                                 float clamp2, void* stream) {
+  if (D != kD || R < 1 || R > Tile::kRows || page % kBK != 0 || num_splits < 1 ||
+      split_len % kBK != 0)
     return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   switch (kv_type) {
     case fatt::kBf16:
-      return launch_rows<fatt::kBf16>(q, k, v, ks, vs, table, kv_len, out,
-                                      part_out, part_lse, B, Hk, R, chunk,
-                                      page, max_pages, num_splits, split_len,
-                                      qscale, clamped, clamp2, st);
+      return launch<fatt::kBf16>(q, k, v, ks, vs, table, kv_len, out, part_out,
+                                  part_lse, B, Hk, R, page, max_pages, num_splits,
+                                  split_len, qscale, clamped, clamp2, st);
     case fatt::kInt8:
-      return launch_rows<fatt::kInt8>(q, k, v, ks, vs, table, kv_len, out,
-                                      part_out, part_lse, B, Hk, R, chunk,
-                                      page, max_pages, num_splits, split_len,
-                                      qscale, clamped, clamp2, st);
+      return launch<fatt::kInt8>(q, k, v, ks, vs, table, kv_len, out, part_out,
+                                  part_lse, B, Hk, R, page, max_pages, num_splits,
+                                  split_len, qscale, clamped, clamp2, st);
     case fatt::kFp8:
-      return launch_rows<fatt::kFp8>(q, k, v, ks, vs, table, kv_len, out,
-                                     part_out, part_lse, B, Hk, R, chunk,
-                                     page, max_pages, num_splits, split_len,
-                                     qscale, clamped, clamp2, st);
+      return launch<fatt::kFp8>(q, k, v, ks, vs, table, kv_len, out, part_out,
+                                  part_lse, B, Hk, R, page, max_pages, num_splits,
+                                  split_len, qscale, clamped, clamp2, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,6 +1,7 @@
 """Llama-3 in PyTorch: RMSNorm + RoPE + GQA + SwiGLU over the port's
-kernels (prefill K4, decode K1 + K2, the speculative verify step K1 in
-chunk mode, paged decode and suffix prefill K8,
+kernels (prefill K4, decode K1 + K2, the speculative verify step K1c,
+paged decode K8, the paged suffix prefill K8c (K1c and K8c: one chunk
+kernel),
 projections and quantized heads K3, K5, K6, K7; the training forward's
 attention K4 with its backward K9 + K10).
 
@@ -347,9 +348,9 @@ def decode_multi(params, tokens, cfg: LlamaConfig, cache: KVCache):
     """T cached decode tokens per sequence in one pass, the speculative
     verify step: tokens [B, T] -> (logits [B, T, V] fp32, cache).  Per
     layer the chunk's K/V is appended at ``length`` first, then its T
-    queries attend to the cache through K1's chunk mode (one cache sweep,
-    causal within the chunk); ``length`` advances by T after the last
-    layer.  The cache is updated in place."""
+    queries attend to the cache through K1c, the chunk kernel (one cache
+    sweep, causal within the chunk); ``length`` advances by T after the
+    last layer.  The cache is updated in place."""
     b, t = tokens.shape
     x = params["tok_emb"][tokens]  # [B, T, hidden]
     pos = cache.length[:, None] + torch.arange(t, device=tokens.device)[None]
@@ -402,8 +403,8 @@ def prefill_suffix_paged(params, tokens, cfg: LlamaConfig, pool: PagedKVPool,
     start + C) of ``slot``, whose positions [0, start) are already in its
     pages.  Each ``sub_chunk``-token piece goes through every layer before
     the next: per layer its K/V is appended to the pool, then its queries
-    attend to the slot's pages through K8's chunk mode, so the prefix KV
-    streams from its pages and is never recomputed.  The pieces set M in
+    attend to the slot's pages through K8c, the chunk kernel, so the prefix
+    KV streams from its pages and is never recomputed.  The pieces set M in
     every projection, as in the JAX model.  Returns (logits [1, C, V]
     fp32, pool)."""
     b, c = tokens.shape

@@ -1,7 +1,8 @@
-"""Flash-decode (kernel K1, ``csrc/decode.cu``): attention of one query
-token per sequence (``flash_decode``) or of T causal query tokens per
-sequence (``flash_decode_chunk``, the speculative verify step) over a
-contiguous KV cache, split-KV partials merged by the LSE rule.
+"""Flash-decode over a contiguous KV cache: attention of one query token
+per sequence (``flash_decode``, kernel K1, ``csrc/decode.cu``) or of T
+causal query tokens per sequence (``flash_decode_chunk``, the speculative
+verify step, on the chunk kernel K1c, ``csrc/chunk_attn.cu``), split-KV
+partials merged by the LSE rule.
 
 Port of flash_attn_tpu/ops/decode.py with a bf16, int8 or fp8 cache in
 either layout:
@@ -15,9 +16,11 @@ either layout:
       ``_decode_kernel_bhsd``: online or clamped softmax, the softmax scale
       folded into a bf16 q.
 
-One kernel serves both layouts through a head stride and a token stride.
-Chunk mode reorders the T tokens' query heads into (hk, t, g) virtual
-heads; row t of a KV head sees positions < kv_length - (T - 1) + t.  The
+K1 serves both layouts through a head stride and a token stride.  Chunk
+mode reorders the T tokens' query heads into (hk, t, g) virtual rows; row
+t of a KV head sees positions < kv_length - (T - 1) + t.  K1c takes those
+rows on a BHSD cache, and decode calls with more than ``ROWS`` heads per
+KV head; it splits the live walk, not the capacity (``split_bounds``).  The
 TPU's packed e4m3 bit-decode (E4M3_FIX, P_SHIFT*) and its scale-lane
 permutation exist only because of Mosaic and are not ported: Hopper
 converts e4m3 natively.  Sliding windows and logit softcaps are not on the
@@ -39,12 +42,22 @@ CLAMP2_DEC = 80.0
 CLAMP2_DEC_FP8 = 40.0
 # K1's key tile; split lengths are multiples of it.
 TILE = 64
-# K1 takes the query rows of a KV head in tiles of this many.
+# K1 takes at most this many query rows per KV head; more go to K1c.
 ROWS = 8
+# K1c's rows per warpgroup, and its warpgroups a block above that many rows
+# (kWgRows and kWideW of csrc/chunk_attn.cu).
+CHUNK_ROWS = 64
+CHUNK_WIDE = 2
 # Split-KV blocks to aim at: six per SM of the H100's 132.  Measured best
 # of 132-1056 for the decode step at batch 8 (G=4 and G=8) and for K8, now
 # that a merge is one K1m launch (chip_tools/k1_probe.py, PERF.md).
 _TARGET_BLOCKS = 792
+# Warpgroups that K1c's and K8c's (sequence, KV head, row block, split)
+# blocks aim at: two per SM of the H100's 132, as many as its registers
+# hold (206-226 a thread).  Measured best of 66-792 at T=5 (one warpgroup
+# a block) and near best at T=128 (two), where 9 splits cost 10-35 % more
+# than 5 (chip_tools/chunk_probe.py, PERF.md).
+_CHUNK_TARGET_WARPGROUPS = 264
 
 _KV_TYPES = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
 _LAYOUTS = ("bshd", "bhsd")
@@ -77,6 +90,35 @@ def _splits(batch: int, num_heads_k: int, seqlen: int, num_splits,
     num_splits = max(1, min(int(num_splits), -(-seqlen // TILE)))
     split_len = -(-(-(-seqlen // num_splits)) // TILE) * TILE
     return -(-seqlen // split_len), split_len
+
+
+def _chunk_splits(batch: int, num_heads_k: int, rows: int, reach: int, num_splits,
+                  target: int | None = None) -> int:
+    """K1c's and K8c's split count: enough (sequence, KV head, row block,
+    split) blocks to reach ``target`` warpgroups (default
+    ``_CHUNK_TARGET_WARPGROUPS``) unless the caller fixed the count; at most
+    one split per key tile of ``reach``.  The kernel cuts each sequence's
+    live walk into that many splits (``split_bounds``), so the host needs
+    no lengths."""
+    if num_splits is None:
+        wide = 1 if rows <= CHUNK_ROWS else CHUNK_WIDE
+        warpgroups = batch * num_heads_k * -(-rows // (CHUNK_ROWS * wide)) * wide
+        num_splits = -(-(target or _CHUNK_TARGET_WARPGROUPS) // warpgroups)
+    return max(1, min(int(num_splits), -(-reach // TILE)))
+
+
+def split_bounds(nsplit: int, split_len, S: int, kv_length=None):
+    """Each split's key range [lo, hi) over S positions.  With ``split_len``
+    (K1, K8) split i is [i * split_len, (i + 1) * split_len), the same for
+    every sequence.  With ``split_len`` None (K1c, K8c) it follows each
+    sequence's live walk, as the chunk kernel cuts it: n = ceil(min(
+    kv_length, S) / TILE) live tiles, c = ceil(n / nsplit) a split, split i
+    the tiles [i * c, (i + 1) * c); lo and hi are then [B] tensors."""
+    if split_len is not None:
+        return [(i * split_len, min(S, (i + 1) * split_len)) for i in range(nsplit)]
+    n = -(-torch.clamp(kv_length.long(), 0, S) // TILE)
+    per = -(-n // nsplit) * TILE
+    return [(i * per, (i + 1) * per) for i in range(nsplit)]
 
 
 def _heads_len(k, kv_layout):
@@ -214,14 +256,19 @@ def _restore_fp16(res, dtype, return_lse):
 def _attend(q, k, v, k_scale, v_scale, kv_length, scale, clamped, chunk,
             layout, num_splits):
     """(out in q.dtype, lse) of q [B, Hk * R, D] rows, R = chunk * G per KV
-    head in (t, g) order, through K1 on the card or its plain version."""
+    head in (t, g) order, through K1 or K1c on the card or their plain
+    version."""
     B, rows, D = q.shape
     Hk, S = _heads_len(k, layout)
     if scale is None:
         scale = D ** -0.5
     if kv_length is None:
         kv_length = torch.full((B,), S, dtype=torch.int32, device=q.device)
-    nsplit, split_len = _splits(B * -(-(rows // Hk) // ROWS), Hk, S, num_splits)
+    R = rows // Hk
+    if layout == "bhsd" and (chunk > 1 or R > ROWS):  # K1c
+        nsplit, split_len = _chunk_splits(B, Hk, R, S, num_splits), None
+    else:
+        nsplit, split_len = _splits(B * -(-R // ROWS), Hk, S, num_splits)
     args = (q, k, v, k_scale, v_scale, kv_length, scale, clamped, _clamp2(k.dtype),
             nsplit, split_len, chunk, layout)
     if q.is_cuda:
@@ -251,11 +298,12 @@ def _qscale(scale, clamped, dtype):
 
 def flash_decode_plain(q, k, v, k_scale, v_scale, kv_length, scale, clamped,
                        clamp2, nsplit, split_len, chunk=1, layout="bhsd"):
-    """Plain PyTorch version of K1: returns per-split (out [n, B, rows, D]
-    fp32, lse [n, B, rows]) for q [B, rows, D] (``chunk`` tokens per KV
-    head in (t, g) order), with the kernel's roundings: on BHSD the bf16
-    q pre-scale, on BSHD the scale applied to the fp32 scores; bf16
-    p * v_scale before PV; fp32 throughout for fp32 q."""
+    """Plain PyTorch version of K1 and K1c: returns per-split (out [n, B,
+    rows, D] fp32, lse [n, B, rows]) for q [B, rows, D] (``chunk`` tokens
+    per KV head in (t, g) order), with the kernels' roundings: on BHSD the
+    bf16 q pre-scale, on BSHD the scale applied to the fp32 scores; bf16
+    p * v_scale before PV; fp32 throughout for fp32 q.  ``split_len`` None
+    splits the live walk as K1c does (``split_bounds``)."""
     B, rows, D = q.shape
     if layout == "bshd":
         k, v = k.transpose(1, 2), v.transpose(1, 2)
@@ -276,22 +324,27 @@ def flash_decode_plain(q, k, v, k_scale, v_scale, kv_length, scale, clamped,
     limit = kv_length.to(q.device).long()[:, None] - (chunk - 1) + t[None, :]
     valid = torch.arange(S, device=q.device)[None, None, :] < limit[:, :, None]
     s = torch.where(valid[:, None], s, torch.full_like(s, NEG_INF))
-    outs, lses = split_partials(s, v, v_scale, clamped, clamp2, nsplit,
-                                split_len, cdt)
+    bounds = split_bounds(nsplit, split_len, S, kv_length.to(q.device))
+    outs, lses = split_partials(s, v, v_scale, clamped, clamp2, bounds, cdt)
     return outs.reshape(nsplit, B, rows, D), lses.reshape(nsplit, B, rows)
 
 
-def split_partials(s, v, v_scale, clamped, clamp2, nsplit, split_len, cdt):
+def split_partials(s, v, v_scale, clamped, clamp2, bounds, cdt):
     """Softmax and PV of masked scores s [B, Hk, R, S] (fp32, NEG_INF where
     masked) against v [B, Hk, S, D] (v_scale [B, Hk, S] or None), one
-    partial per ``split_len`` keys: (out [n, B, Hk, R, D] fp32, lse
-    [n, B, Hk, R]).  p * v_scale is rounded to ``cdt`` before PV, as the
-    kernels round it."""
-    S = s.shape[-1]
+    partial per key range of ``bounds`` (``split_bounds``): (out [n, B, Hk,
+    R, D] fp32, lse [n, B, Hk, R]).  p * v_scale is rounded to ``cdt``
+    before PV, as the kernels round it."""
     outs, lses = [], []
-    for i in range(nsplit):
-        lo, hi = i * split_len, min(S, (i + 1) * split_len)
-        sl = s[..., lo:hi]
+    pos = torch.arange(s.shape[-1], device=s.device)
+    for lo, hi in bounds:
+        if isinstance(lo, int):
+            sl, vl = s[..., lo:hi], v[:, :, lo:hi]
+            vsl = None if v_scale is None else v_scale[..., lo:hi]
+        else:  # per-sequence ranges: mask the keys outside
+            inside = (pos >= lo[:, None]) & (pos < hi[:, None])
+            sl = torch.where(inside[:, None, None], s, torch.full_like(s, NEG_INF))
+            vl, vsl = v, v_scale
         if clamped:
             p = torch.exp2(torch.clamp(sl, max=clamp2))
             m = None
@@ -299,9 +352,8 @@ def split_partials(s, v, v_scale, clamped, clamp2, nsplit, split_len, cdt):
             m = sl.amax(dim=-1, keepdim=True)
             p = torch.exp(sl - m)
         l = p.sum(dim=-1)  # [B, Hk, G]
-        pv = p if v_scale is None else p * v_scale[:, :, None, lo:hi]
-        o = torch.einsum("bhgs,bhsd->bhgd", pv.to(cdt).float(),
-                         v[:, :, lo:hi].to(cdt).float())
+        pv = p if vsl is None else p * vsl[:, :, None]
+        o = torch.einsum("bhgs,bhsd->bhgd", pv.to(cdt).float(), vl.to(cdt).float())
         ok = l > 0
         lse = torch.log(torch.where(ok, l, torch.ones_like(l)))
         if m is not None:
@@ -315,11 +367,14 @@ def split_partials(s, v, v_scale, clamped, clamp2, nsplit, split_len, cdt):
 
 def flash_decode_cuda(q, k, v, k_scale, v_scale, kv_length, scale, clamped,
                       clamp2, nsplit, split_len, chunk=1, layout="bhsd"):
-    """Launch K1.  Replaces flash_attn_tpu/ops/decode.py:_decode_kernel_bhsd
-    (decode and chunk mode) and, on a BSHD cache, _decode_kernel; bound by
-    bytes (see the source note in csrc/decode.cu).  Returns (out, lse):
-    with one split out is [1, B, rows, D] bf16 written by the kernel, else
-    fp32 partials [n, B, rows, D]."""
+    """Launch K1 or, for ``split_len`` None, K1c.  K1 replaces
+    flash_attn_tpu/ops/decode.py:_decode_kernel_bhsd in decode mode and, on
+    a BSHD cache, _decode_kernel; bound by bytes (see the source note in
+    csrc/decode.cu).  K1c replaces _decode_kernel_bhsd in chunk mode and
+    takes BHSD decode calls with more than ``ROWS`` heads per KV head;
+    bound by bytes at the verify step (csrc/chunk_attn.cu).  Returns (out,
+    lse): with one split out is [1, B, rows, D] bf16 written by the kernel,
+    else fp32 partials [n, B, rows, D]."""
     B, rows, D = q.shape
     Hk, S = _heads_len(k, layout)
     if q.dtype != torch.bfloat16:
@@ -329,9 +384,14 @@ def flash_decode_cuda(q, k, v, k_scale, v_scale, kv_length, scale, clamped,
     if rows % Hk or (rows // Hk) % chunk or D > 128 or D % 32:
         raise ValueError(f"K1 needs rows a multiple of Hk * chunk, D % 32 == 0 and "
                          f"D <= 128; got rows={rows}, Hk={Hk}, chunk={chunk}, D={D}")
-    if layout == "bshd" and (chunk > 1 or rows // Hk > ROWS):
+    R = rows // Hk
+    tiled = chunk > 1 or R > ROWS
+    if layout == "bshd" and tiled:
         raise NotImplementedError(f"K1 takes a BSHD cache in decode mode, at most "
                                   f"{ROWS} heads per KV head")
+    if tiled != (split_len is None) or (tiled and D != 128):
+        raise ValueError("K1c (chunk > 1 or more than ROWS heads per KV head) takes "
+                         "split_len None and D = 128; K1 a split_len")
     if kv_length.dtype != torch.int32 or kv_length.shape != (B,):
         raise ValueError("kv_length must be [B] int32")
     tensors = [q, k, v, kv_length]
@@ -356,21 +416,27 @@ def flash_decode_cuda(q, k, v, k_scale, v_scale, kv_length, scale, clamped,
     else:  # B12: scale applied to the scores
         qscale, sscale = 1.0, float(scale)
     p = _build.ptr
-    rc = _build.lib().fatt_decode(
-        p(q), p(k), p(v), p(k_scale), p(v_scale), p(kv_length), p(out),
-        p(part), p(lse), B, Hk, rows // Hk, chunk, S, D, int(layout == "bshd"),
-        _KV_TYPES[k.dtype], nsplit, split_len, qscale, sscale, int(clamped),
-        float(clamp2), _build.stream())
-    _build.check(rc, "fatt_decode")
-    flash_decode_cuda.launches += 1
-    if chunk > 1:
+    if tiled:
+        rc = _build.lib().fatt_chunk_attn(
+            p(q), p(k), p(v), p(k_scale), p(v_scale), None, p(kv_length), p(out),
+            p(part), p(lse), B, Hk, R, chunk, S, 0, 0, D, _KV_TYPES[k.dtype], nsplit,
+            qscale, int(clamped), float(clamp2), _build.stream())
+        _build.check(rc, "fatt_chunk_attn")
         flash_decode_cuda.chunk_launches += 1
+    else:
+        rc = _build.lib().fatt_decode(
+            p(q), p(k), p(v), p(k_scale), p(v_scale), p(kv_length), p(out),
+            p(part), p(lse), B, Hk, R, S, D, int(layout == "bshd"),
+            _KV_TYPES[k.dtype], nsplit, split_len, qscale, sscale, int(clamped),
+            float(clamp2), _build.stream())
+        _build.check(rc, "fatt_decode")
+    flash_decode_cuda.launches += 1
     if layout == "bshd":
         flash_decode_cuda.bshd_launches += 1
     return (out if nsplit == 1 else part), lse
 
 
-# every launch, and those of them in chunk mode and on a BSHD cache
+# every launch (K1 and K1c), and those of them on K1c and on a BSHD cache
 flash_decode_cuda.launches = 0
 flash_decode_cuda.chunk_launches = 0
 flash_decode_cuda.bshd_launches = 0

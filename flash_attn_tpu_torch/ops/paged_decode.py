@@ -1,6 +1,7 @@
-"""Paged flash-decode (kernel K8, ``csrc/paged_decode.cu``): attention of
-one query token (decode mode) or of T causal query tokens (chunk mode) per
-sequence over a pool of KV pages addressed through a block table.
+"""Paged flash-decode: attention of one query token (decode mode, kernel
+K8, ``csrc/paged_decode.cu``) or of T causal query tokens (chunk mode, the
+chunk kernel K8c, ``csrc/chunk_attn.cu``) per sequence over a pool of KV
+pages addressed through a block table.
 
 Port of flash_attn_tpu/ops/paged_decode.py (``paged_flash_decode`` and
 ``paged_flash_decode_chunk``).  Layouts:
@@ -17,11 +18,13 @@ the G-pages-per-grid-step grouping exist only for Mosaic and are not
 ported.  Sliding windows and logit softcaps are not on the Llama-3 path
 and raise for now.
 
-Chunk mode runs the decode kernel on virtual heads: the T tokens' query
-heads in (hk, t, g) order, row t of a KV head seeing positions
-< kv_length - (T - 1) + t.  Pages are walked up to the table's reach
-(max_pages * page) at most, so an idle slot whose length has run past
-its capacity reads only its own (null) table entries.
+Chunk mode hands K8c the T tokens' query heads as virtual rows in (hk, t,
+g) order, row t of a KV head seeing positions < kv_length - (T - 1) + t;
+K8c also takes decode calls with more than 16 heads per KV head, and
+splits the live walk, not the reach (ops/decode.py ``split_bounds``).
+Pages are walked up to the table's reach (max_pages * page) at most, so an
+idle slot whose length has run past its capacity reads only its own
+(null) table entries.
 """
 
 from __future__ import annotations
@@ -32,30 +35,21 @@ from flash_attn_tpu_torch import _build
 from flash_attn_tpu_torch.ops.decode import (
     _KV_TYPES,
     NEG_INF,
+    _chunk_splits,
     _clamp2,
     _default_softmax_mode,
     _qscale,
     _splits,
     merge_splits,
+    split_bounds,
     split_partials,
 )
 
 # K8's key tile: a page holds a whole number of them.
 TILE = 64
-# K8 takes query rows per KV head in tiles of 16 (decode) or 64 (chunk).
+# K8 takes at most this many query rows per KV head; more go to K8c.
 _MAX_GROUP = 16
 _HEAD_DIM = 128
-
-
-# Split-KV blocks that K8's chunk mode aims at: fewer than decode mode's
-# _TARGET_BLOCKS, since its 64-row tiles already make many blocks and the
-# splits past kv_length only write empty partials (at T=128 over 640
-# positions, 0.1343 ms at 792 blocks against 0.1246 at 264; PERF.md).
-_CHUNK_TARGET_BLOCKS = 264
-
-
-def _row_tiles(rows: int) -> int:
-    return -(-rows // (16 if rows <= 16 else 64))
 
 
 def paged_flash_decode(q, k_pages, v_pages, block_table, kv_length, *,
@@ -70,8 +64,8 @@ def paged_flash_decode(q, k_pages, v_pages, block_table, kv_length, *,
     softmax_mode: "online" or "clamped"; None follows the port's
       _default_softmax_mode (clamped for fp8 pages).
     chunk: internal (use paged_flash_decode_chunk): q rows are virtual
-      heads, ``chunk`` tokens per KV head in (t, g) order.
-    num_splits: split-KV blocks per (sequence, KV head, row tile); None
+      rows, ``chunk`` tokens per KV head in (t, g) order, for K8c.
+    num_splits: split-KV blocks per (sequence, KV head, row block); None
       picks enough to fill the card.  Partials merge by the LSE rule
       (ops/decode.py merge_splits).
     Returns out [B, H, D] in q.dtype; with return_lse also lse [B, H] fp32.
@@ -93,8 +87,11 @@ def paged_flash_decode(q, k_pages, v_pages, block_table, kv_length, *,
         raise ValueError(f"unknown softmax_mode {softmax_mode!r}")
     clamped = softmax_mode == "clamped"
     clamp2 = _clamp2(k_pages.dtype)
-    nsplit, split_len = _splits(B * _row_tiles(H // Hk), Hk, max_pages * page,
-                                num_splits, None if chunk == 1 else _CHUNK_TARGET_BLOCKS)
+    R = H // Hk
+    if chunk > 1 or R > _MAX_GROUP:  # K8c
+        nsplit, split_len = _chunk_splits(B, Hk, R, max_pages * page, num_splits), None
+    else:
+        nsplit, split_len = _splits(B, Hk, max_pages * page, num_splits)
     args = (q, k_pages, v_pages, k_scale, v_scale, block_table, kv_length,
             scale, clamped, clamp2, chunk, nsplit, split_len)
     if q.is_cuda:
@@ -112,14 +109,16 @@ def paged_flash_decode_chunk(q, k_pages, v_pages, block_table, kv_length, *,
                              scale: float | None = None,
                              return_lse: bool = False,
                              softmax_mode: str | None = None,
+                             num_splits: int | None = None,
                              window: int | None = None,
                              logit_softcap: float | None = None):
     """T query tokens per sequence, causal within the chunk, over a paged
     pool that already holds the chunk's own KV at positions
     kv_length - T .. kv_length - 1 (append first, then score).
 
-    q: [B, T, H, D]; kv_length INCLUDES the chunk's T tokens.  Returns out
-    [B, T, H, D] (+ lse [B, T, H] with return_lse)."""
+    q: [B, T, H, D]; kv_length INCLUDES the chunk's T tokens; num_splits as
+    paged_flash_decode's.  Returns out [B, T, H, D] (+ lse [B, T, H] with
+    return_lse)."""
     B, T, H, D = q.shape
     Hk = k_pages.shape[1]
     G = H // Hk
@@ -129,7 +128,7 @@ def paged_flash_decode_chunk(q, k_pages, v_pages, block_table, kv_length, *,
     res = paged_flash_decode(
         q2, k_pages, v_pages, block_table, kv_length, k_scale=k_scale,
         v_scale=v_scale, scale=scale, return_lse=return_lse,
-        softmax_mode=softmax_mode, chunk=T, window=window,
+        softmax_mode=softmax_mode, chunk=T, num_splits=num_splits, window=window,
         logit_softcap=logit_softcap)
 
     def unshuffle(x):
@@ -156,10 +155,11 @@ def _gather(pages, block_table):
 def paged_flash_decode_plain(q, k_pages, v_pages, k_scale, v_scale,
                              block_table, kv_length, scale, clamped, clamp2,
                              chunk, nsplit, split_len):
-    """Plain PyTorch version of K8: the sequences' pages gathered into
-    contiguous [B, Hk, max_pages * page, D] views, then K1's arithmetic
-    with a causal limit per virtual row.  Returns per-split (out [n, B, H,
-    D] fp32, lse [n, B, H])."""
+    """Plain PyTorch version of K8 and K8c: the sequences' pages gathered
+    into contiguous [B, Hk, max_pages * page, D] views, then K1's
+    arithmetic with a causal limit per virtual row; ``split_len`` None
+    splits the live walk as K8c does.  Returns per-split (out [n, B, H, D]
+    fp32, lse [n, B, H])."""
     B, H, D = q.shape
     Hk = k_pages.shape[1]
     R = H // Hk
@@ -178,18 +178,20 @@ def paged_flash_decode_plain(q, k_pages, v_pages, k_scale, v_scale,
     limit = kv_length.to(q.device).long()[:, None] - (chunk - 1) + t[None, :]
     valid = torch.arange(S, device=q.device)[None, None, :] < limit[:, :, None]
     s = torch.where(valid[:, None], s, torch.full_like(s, NEG_INF))
-    outs, lses = split_partials(s, v, vs, clamped, clamp2, nsplit, split_len, cdt)
+    bounds = split_bounds(nsplit, split_len, S, kv_length.to(q.device))
+    outs, lses = split_partials(s, v, vs, clamped, clamp2, bounds, cdt)
     return outs.reshape(nsplit, B, H, D), lses.reshape(nsplit, B, H)
 
 
 def paged_flash_decode_cuda(q, k_pages, v_pages, k_scale, v_scale,
                             block_table, kv_length, scale, clamped, clamp2,
                             chunk, nsplit, split_len):
-    """Launch K8.  Replaces flash_attn_tpu/ops/paged_decode.py:
-    _paged_decode_kernel in decode and chunk mode; bound by bytes in decode
-    mode and by operations in chunk mode (see the source note in
-    csrc/paged_decode.cu).  Returns (out, lse): with one split out is
-    [1, B, H, D] bf16 written by the kernel, else fp32 partials
+    """Launch K8 or, for ``split_len`` None, K8c.  Both replace
+    flash_attn_tpu/ops/paged_decode.py:_paged_decode_kernel: K8 in decode
+    mode, bound by bytes (csrc/paged_decode.cu); K8c in chunk mode, bound
+    by operations at T = 128, and decode calls with more than 16 heads per
+    KV head (csrc/chunk_attn.cu).  Returns (out, lse): with one split out
+    is [1, B, H, D] bf16 written by the kernel, else fp32 partials
     [n, B, H, D]."""
     B, H, D = q.shape
     P, Hk, page, _ = k_pages.shape
@@ -199,9 +201,11 @@ def paged_flash_decode_cuda(q, k_pages, v_pages, k_scale, v_scale,
         raise ValueError("K8 takes a bf16 query")
     if k_pages.dtype not in _KV_TYPES or v_pages.dtype != k_pages.dtype:
         raise ValueError(f"K8 takes bf16, int8 or fp8 pages, got {k_pages.dtype}")
-    if D != _HEAD_DIM or R // chunk > _MAX_GROUP:
-        raise ValueError(f"K8 needs head_dim {_HEAD_DIM} and H/Hk <= {_MAX_GROUP}; "
-                         f"got D={D}, H/Hk={R // chunk}")
+    tiled = chunk > 1 or R > _MAX_GROUP
+    if D != _HEAD_DIM or tiled != (split_len is None):
+        raise ValueError(f"K8 needs head_dim {_HEAD_DIM} and a split_len, K8c (chunk > 1 "
+                         f"or H/Hk > {_MAX_GROUP}) split_len None; got D={D}, H/Hk={R}, "
+                         f"chunk={chunk}")
     if page % TILE:
         raise ValueError(f"K8 takes pages of a multiple of {TILE} tokens, got {page}")
     if block_table.dtype != torch.int32 or kv_length.dtype != torch.int32:
@@ -226,18 +230,25 @@ def paged_flash_decode_cuda(q, k_pages, v_pages, k_scale, v_scale,
     lse = torch.empty((nsplit, B, H), dtype=torch.float32, device=q.device)
     qscale = float(_qscale(scale, clamped, torch.bfloat16))
     p = _build.ptr
-    rc = _build.lib().fatt_paged_decode(
-        p(q), p(k_pages), p(v_pages), p(k_scale), p(v_scale), p(block_table),
-        p(kv_length), p(out), p(part), p(lse), B, Hk, R, chunk, page,
-        max_pages, D, _KV_TYPES[k_pages.dtype], nsplit, split_len, qscale,
-        int(clamped), float(clamp2), _build.stream())
-    _build.check(rc, "fatt_paged_decode")
-    paged_flash_decode_cuda.launches += 1
-    if chunk > 1:
+    if tiled:
+        rc = _build.lib().fatt_chunk_attn(
+            p(q), p(k_pages), p(v_pages), p(k_scale), p(v_scale), p(block_table),
+            p(kv_length), p(out), p(part), p(lse), B, Hk, R, chunk, 0, page,
+            max_pages, D, _KV_TYPES[k_pages.dtype], nsplit, qscale, int(clamped),
+            float(clamp2), _build.stream())
+        _build.check(rc, "fatt_chunk_attn")
         paged_flash_decode_cuda.chunk_launches += 1
+    else:
+        rc = _build.lib().fatt_paged_decode(
+            p(q), p(k_pages), p(v_pages), p(k_scale), p(v_scale), p(block_table),
+            p(kv_length), p(out), p(part), p(lse), B, Hk, R, page, max_pages, D,
+            _KV_TYPES[k_pages.dtype], nsplit, split_len, qscale, int(clamped),
+            float(clamp2), _build.stream())
+        _build.check(rc, "fatt_paged_decode")
+    paged_flash_decode_cuda.launches += 1
     return (out if nsplit == 1 else part), lse
 
 
-# every launch, and those of them in chunk mode
+# every launch (K8 and K8c), and those of them on K8c
 paged_flash_decode_cuda.launches = 0
 paged_flash_decode_cuda.chunk_launches = 0

@@ -28,7 +28,7 @@ from flash_attn_tpu_torch.engine.engine import PagedInferenceEngine
 from flash_attn_tpu_torch.engine.paged import PagedKVPool
 from flash_attn_tpu_torch.engine.prefix_cache import PrefixCache
 from flash_attn_tpu_torch.models import llama
-from flash_attn_tpu_torch.ops.decode import flash_decode
+from flash_attn_tpu_torch.ops.decode import flash_decode, flash_decode_chunk
 from flash_attn_tpu_torch.ops.paged_decode import (
     paged_flash_decode,
     paged_flash_decode_chunk,
@@ -67,16 +67,17 @@ def to_torch(x):
     return bridge.to_torch(x, device="cpu")
 
 
-def _filled_pools(mode, lens, seed=0, L=1):
-    """The same tokens appended to a JAX pool and to the port's: slot 0 by
-    one prefill append, the others token by token; then the lengths.
-    Returns (jax pool, port pool, k, v) with k, v [T, B, Hk, D]."""
+def _filled_pools(mode, lens, seed=0, L=1, page=PAGE):
+    """The same tokens appended to a JAX pool and to the port's (pages of
+    ``page``): slot 0 by one prefill append, the others token by token;
+    then the lengths.  Returns (jax pool, port pool, k, v) with k, v
+    [T, B, Hk, D]."""
     r = np.random.default_rng(seed)
     B, T = len(lens), max(lens)
     k = r.standard_normal((T, B, HK, D)).astype(np.float32)
     v = r.standard_normal((T, B, HK, D)).astype(np.float32)
-    jp = JPool.create(L, NPAGES, PAGE, B, MAXP, HK, D, dtype=jnp.float32, mode=mode)
-    tp = PagedKVPool.create(L, NPAGES, PAGE, B, MAXP, HK, D, dtype=torch.float32,
+    jp = JPool.create(L, NPAGES, page, B, MAXP, HK, D, dtype=jnp.float32, mode=mode)
+    tp = PagedKVPool.create(L, NPAGES, page, B, MAXP, HK, D, dtype=torch.float32,
                             mode=mode, device="cpu")
     for b in range(B):
         jp = jp.assign_pages(b, TABLE[b])
@@ -139,8 +140,8 @@ def test_append_token_past_capacity_lands_on_the_last_table_entry():
     assert tp.k_pages[0][0].abs().sum() > 0  # the null page took the write
 
 
-def _decode_inputs(mode, lens, seed, H=4):
-    jp, tp, _, _ = _filled_pools(mode, lens, seed=seed)
+def _decode_inputs(mode, lens, seed, H=4, page=PAGE):
+    jp, tp, _, _ = _filled_pools(mode, lens, seed=seed, page=page)
     q = np.random.default_rng(seed + 100).standard_normal((len(lens), H, D)).astype(np.float32)
     ks = None if jp.k_scale is None else jp.k_scale[0]
     vs = None if jp.v_scale is None else jp.v_scale[0]
@@ -166,15 +167,30 @@ def test_paged_decode_matches_jax(mode, softmax_mode):
     assert np.all(to[2].numpy() == 0) and np.all(tl[2].numpy() <= -1e29)
 
 
-@pytest.mark.parametrize("mode", ["none", "int8"])
-def test_paged_chunk_matches_jax(mode):
-    """Chunk mode: T = 4 query tokens per sequence, causal within the chunk
-    (the suffix-prefill primitive), lengths 22 and 13 including the chunk."""
-    jargs, jkw, targs, tkw = _decode_inputs(mode, [22, 13], seed=4)
-    q = np.random.default_rng(5).standard_normal((2, 4, 4, D)).astype(np.float32)
-    jo, jl = j_paged_chunk(jnp.asarray(q), *jargs[1:], **jkw, interpret=True, return_lse=True)
-    to, tl = paged_flash_decode_chunk(torch.from_numpy(q), *targs[1:], **tkw, return_lse=True)
-    assert to.shape == (2, 4, 4, D) and tl.shape == (2, 4, 4)
+@pytest.mark.parametrize("mode,softmax_mode,T,lens,page", [
+    pytest.param("none", None, 4, [22, 13], PAGE, id="none"),
+    pytest.param("int8", None, 4, [22, 13], PAGE, id="int8"),
+    pytest.param("fp8", None, 4, [22, 13], PAGE, id="fp8"),
+    pytest.param("int8", "clamped", 4, [22, 13], PAGE, id="int8-clamped"),
+    pytest.param("fp8", "online", 4, [22, 13], PAGE, id="fp8-online"),
+    pytest.param("int8", None, 36, [50, 40], 16, id="int8-T36"),
+    pytest.param("fp8", None, 36, [50, 40], 16, id="fp8-T36"),
+])
+def test_paged_chunk_matches_jax(mode, softmax_mode, T, lens, page):
+    """Chunk mode (K8c's plain version): T query tokens per sequence,
+    causal within the chunk (the suffix-prefill primitive), lengths
+    including the chunk, in both softmax modes (fp8 defaults to clamped).
+    At T = 36 the 72 rows per KV head cross one 64-row warpgroup, in a pool
+    of pages of 16 whose reach (64) holds the chunk.  The scores, base 2,
+    stay far below fp8's clamped ceiling (80 in JAX's interpret mode, 40 in
+    the port)."""
+    jargs, jkw, targs, tkw = _decode_inputs(mode, lens, seed=4, page=page)
+    q = np.random.default_rng(5).standard_normal((2, T, 4, D)).astype(np.float32)
+    jo, jl = j_paged_chunk(jnp.asarray(q), *jargs[1:], **jkw, interpret=True, return_lse=True,
+                           softmax_mode=softmax_mode)
+    to, tl = paged_flash_decode_chunk(torch.from_numpy(q), *targs[1:], **tkw, return_lse=True,
+                                      softmax_mode=softmax_mode)
+    assert to.shape == (2, T, 4, D) and tl.shape == (2, T, 4)
     np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=TOL, rtol=TOL)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=TOL, rtol=TOL)
 
@@ -194,6 +210,52 @@ def test_paged_decode_matches_contiguous_decode(mode, num_splits):
                         v_scale=vs[..., 0].transpose(1, 2).contiguous(),
                         kv_length=lens, num_splits=num_splits, kv_layout="bhsd")
     got = paged_flash_decode(q, kp, vp, table, lens, **tkw, num_splits=num_splits)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("T,H", [pytest.param(3, 4, id="chunk"),
+                                 pytest.param(1, 2 * HK * 17, id="decode-G34")])
+def test_paged_chunk_splits_agree(T, H):
+    """K8c's split rule (plain version): ceil(n / nsplit) of a sequence's n
+    live tiles a split, so 1, 3 and 7 splits partition the same keys, also
+    for a sequence far below the table's reach (5 of 32) and for a decode
+    call with more than 16 heads per KV head (K8c's too).  fp32 q and int8
+    pages compute in fp32, so the merged results differ only by summation
+    order."""
+    _, _, targs, tkw = _decode_inputs("int8", [30, 5], seed=7, H=H)
+    q, kp, vp, table, lens = targs
+    qc = torch.from_numpy(np.random.default_rng(8).standard_normal((2, T, H, D))).float()
+
+    def run(n):
+        if T == 1:
+            return paged_flash_decode(q, kp, vp, table, lens, **tkw, num_splits=n,
+                                      return_lse=True)
+        return paged_flash_decode_chunk(qc, kp, vp, table, lens, **tkw, return_lse=True,
+                                        num_splits=n)
+
+    want, want_lse = run(1)
+    for n in (3, 7):
+        got, got_lse = run(n)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6, rtol=1e-6)
+        np.testing.assert_allclose(got_lse.numpy(), want_lse.numpy(), atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("num_splits", [1, 3])
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+def test_paged_chunk_matches_contiguous_chunk(mode, num_splits):
+    """K8c's plain version against K1c's on the same content, copied into a
+    contiguous [B, Hk, S, D] cache (S = the table's reach), with the same
+    splits: the paged walk adds no arithmetic of its own in chunk mode."""
+    _, _, targs, tkw = _decode_inputs(mode, [29, 6], seed=9, H=8)
+    _, kp, vp, table, lens = targs
+    q = torch.from_numpy(np.random.default_rng(10).standard_normal((2, 5, 8, D))).float()
+    pool = PagedKVPool([kp], [vp], [tkw["k_scale"]], [tkw["v_scale"]], table, lens, mode)
+    k, v, ks, vs = pool.gather_layer(0)
+    want = flash_decode_chunk(q, k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous(),
+                              k_scale=ks[..., 0].transpose(1, 2).contiguous(),
+                              v_scale=vs[..., 0].transpose(1, 2).contiguous(),
+                              kv_length=lens, num_splits=num_splits)
+    got = paged_flash_decode_chunk(q, kp, vp, table, lens, **tkw, num_splits=num_splits)
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6, rtol=1e-6)
 
 

@@ -102,17 +102,19 @@ def test_flash_decode_bshd_broadcast_scales_and_explicit_layout():
     np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=F32_TOL, rtol=F32_TOL)
 
 
-@pytest.mark.parametrize("T", [1, 3])
+@pytest.mark.parametrize("T,G", [pytest.param(1, 4, id="1"), pytest.param(3, 4, id="3"),
+                                 pytest.param(5, 8, id="5-G8")])
 @pytest.mark.parametrize("kv", ["bf16", "int8", "fp8"])
 @pytest.mark.parametrize("softmax_mode", ["online", "clamped"])
-def test_flash_decode_chunk_matches_jax(T, kv, softmax_mode):
-    """K1's chunk mode (plain version, split-KV on) against JAX's
-    flash_decode_chunk on a BHSD cache: T tokens per sequence, GQA 4:1,
-    lengths including the chunk.  The logits stay below 27 natural units,
-    so fp8's clamped ceiling (80 in JAX's interpret mode, 40 in the port)
-    never bites."""
+def test_flash_decode_chunk_matches_jax(T, G, kv, softmax_mode):
+    """The chunk path (K1c's plain version, split-KV on) against JAX's
+    flash_decode_chunk on a BHSD cache: T tokens per sequence, GQA G:1
+    (G = 8 at T = 5: the 70B verify step's 40 rows per KV head), lengths
+    including the chunk.  The logits stay below 27 natural units, so fp8's
+    clamped ceiling (80 in JAX's interpret mode, 40 in the port) never
+    bites."""
     k, v, ks, vs = _cache(kv, "bhsd", seed=5)
-    q = jnp.asarray(np.random.default_rng(6).standard_normal((2, T, 8, 64)), jnp.bfloat16)
+    q = jnp.asarray(np.random.default_rng(6).standard_normal((2, T, 2 * G, 64)), jnp.bfloat16)
     kv_length = np.array([200, 37], np.int32)
     jo, jl = j_flash_decode_chunk(q, k, v, k_scale=ks, v_scale=vs,
                                   kv_length=jnp.asarray(kv_length), softmax_mode=softmax_mode,
@@ -121,9 +123,37 @@ def test_flash_decode_chunk_matches_jax(T, kv, softmax_mode):
     to, tl = flash_decode_chunk(to_torch(q), to_torch(k), to_torch(v), k_scale=sc(ks),
                                 v_scale=sc(vs), kv_length=torch.from_numpy(kv_length),
                                 softmax_mode=softmax_mode, return_lse=True)
-    assert to.shape == (2, T, 8, 64) and tl.shape == (2, T, 8)
+    assert to.shape == (2, T, 2 * G, 64) and tl.shape == (2, T, 2 * G)
     np.testing.assert_allclose(_np(to), _np(to_torch(jo)), atol=BF16_TOL, rtol=BF16_TOL)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("T,H", [pytest.param(3, 8, id="chunk"),
+                                 pytest.param(1, 32, id="decode-G16")])
+def test_flash_decode_chunk_splits_agree(T, H):
+    """The chunk kernel's split rule (K1c's plain version): each split takes
+    ceil(n / nsplit) of a sequence's n live tiles, so 1, 3 and 7 splits
+    partition the same keys, also for a sequence far below the capacity
+    (9 of 256: one live tile, six empty splits) and for a decode call with
+    16 heads per KV head (K1c's too).  fp32 q and an int8 cache compute in
+    fp32 throughout, so the merged results differ only by summation order."""
+    k, v, ks, vs = (to_torch(x) for x in _cache("int8", "bhsd", seed=11))
+    ks, vs = ks[..., 0].contiguous(), vs[..., 0].contiguous()
+    q = torch.from_numpy(np.random.default_rng(12).standard_normal((2, T, H, 64))).float()
+    lens = torch.tensor([200, 9], dtype=torch.int32)
+
+    def run(n):
+        if T == 1:
+            return flash_decode(q[:, 0], k, v, k_scale=ks, v_scale=vs, kv_length=lens,
+                                num_splits=n, return_lse=True, kv_layout="bhsd")
+        return flash_decode_chunk(q, k, v, k_scale=ks, v_scale=vs, kv_length=lens,
+                                  num_splits=n, return_lse=True)
+
+    want, want_lse = run(1)
+    for n in (3, 7):
+        got, got_lse = run(n)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6, rtol=1e-6)
+        np.testing.assert_allclose(got_lse.numpy(), want_lse.numpy(), atol=1e-6, rtol=1e-6)
 
 
 def test_flash_decode_chunk_bshd_matches_jax():
