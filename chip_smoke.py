@@ -13,11 +13,14 @@ Phases, one line each with its seconds:
      (T=5 at H=32 and 64, at the verify step's lengths at H=32 and 24, and a
      decode at G=16), K1 over a BSHD cache (through
      flash_attn_tpu_torch.flash_decode, JAX's default layout), K1 and K4 at
-     the draft's H=24, K2 kv-append, K3 int8 matmul
+     the draft's H=24, K2 kv-append (bit for bit; its CUDA-graph time
+     beside an empty kernel on its grid), K3 int8 matmul
      (8B shapes, M = 8 and 512, and 17 and 100), K4 flash forward (both softmax modes, also at S=891, a
      shifted Sq=1000 Sk=1500, B=2 with per-sequence rope and H=24), K8 paged
-     decode (decode mode at pages of 128 and 512, also against K1 on the
-     same content), K8c, the chunk kernel over pages (T=128 at kv_len 640
+     decode (decode mode at pages of 128 and 512, with the live splits it
+     plans, one launch that merges them in the kernel, also against K1 on
+     the same content; graph and as-called times at phase 2's lengths and
+     at the paged engine's), K8c, the chunk kernel over pages (T=128 at kv_len 640
      and 1024, a ragged T=123, T=4 in both softmax modes), K3 grouped, K6
      int4 matmul (70B
      shapes) and K5 W4A8 matmul (8B shapes), both at M = 8 and 256, at
@@ -51,6 +54,8 @@ Phases, one line each with its seconds:
      served by the paged engine with prefix caching, fp8 KV, pages of
      128: two waves of 8 requests sharing a 512-token prefix, the first
      all misses, the second all hits that prefill only their suffixes;
+     each decode-mode K8 call must be one launch that merges its own
+     splits (K1m serves only K8c);
   9. (run right after phase 7, on phase 4's params) speculative decoding,
      4 drafts per round, the same 8 prompts and 32 tokens: (a) n-gram
      drafts, fp8 KV; (b) a self-draft with bf16 KV, whose acceptance must
@@ -842,6 +847,13 @@ def check_g3(torch, checks):
 
 
 def check_k2(torch, checks, rows):
+    """K2 in int8 and fp8 at B=8, Hk=8, S=4096, D=128, bit for bit against
+    its plain version (an idle slot past the capacity writes nothing); the
+    fp8 point carries its times: a loop of wrapper calls by events, the
+    kernel as a replayed CUDA graph, and beside it the graph time of an
+    empty kernel on K2's grid, launched the same way (the floor of a kernel
+    this small)."""
+    from flash_attn_tpu_torch import _build
     from flash_attn_tpu_torch.ops import kv_append as ka
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
@@ -869,17 +881,27 @@ def check_k2(torch, checks, rows):
         # the same IEEE division and round-to-nearest-even: bit-exact
         ok = checks.check(f"K2 {mode}", err, 0.0)
         worst = max(worst, err)
-        ms = cuda_ms(torch, lambda: ka.kv_append_cuda(kc, vc, ks, vs, nk, nv, lens, mode), iters=100)
+        def k2():
+            ka.kv_append_cuda(kc, vc, ks, vs, nk, nv, lens, mode)
+
+        def empty():
+            _build.check(_build.lib().fatt_empty(B, Hk, _build.stream()), "fatt_empty")
+
+        ms = cuda_ms(torch, k2, iters=100)
+        g_ms, empty_ms = graph_ms(torch, k2), graph_ms(torch, empty)
         plain_ms = cuda_ms(torch, lambda: ka.kv_append_plain(kc, vc, ks, vs, nk, nv, lens, mode))
         nbytes = 2 * B * Hk * D * 2 + 2 * B * Hk * D * 1 + 2 * B * Hk * 4 + B * 4
         b_ms, b_by = bound(nbytes, 0)
         say(f"  K2 {mode}: max_abs_err {err:.3e} (tol 0) {'ok' if ok else 'FAIL'} | "
-            f"{ms:.4f} ms, plain {plain_ms:.4f}, library none, bound {b_ms:.6f} ({b_by})")
+            f"{ms:.4f} ms (a loop of wrapper calls; graph {g_ms:.4f}, an empty kernel on its "
+            f"grid {empty_ms:.4f}), plain {plain_ms:.4f}, library none, bound {b_ms:.6f} "
+            f"({b_by})")
         if mode == "fp8":
             rows["K2"] = dict(name="kv_append (B=8, Hk=8, S=4096, D=128, fp8)",
                               source="flash_attn_tpu_torch/csrc/kv_append.cu",
                               replaces="flash_attn_tpu/ops/kv_append.py:57",
-                              ms=ms, plain_ms=plain_ms, library_ms=None,
+                              ms=ms, graph_ms=g_ms, empty_graph_ms=empty_ms,
+                              plain_ms=plain_ms, library_ms=None,
                               bound_ms=b_ms, bound_by=b_by)
     rows["K2"]["max_abs_err"] = worst
 
@@ -1168,16 +1190,47 @@ def _mode_args(dec, kv_dtype):
     return dec._default_softmax_mode(kv_dtype) == "clamped", dec._clamp2(kv_dtype)
 
 
+def _k8_times(torch, pd, F, q, k, v, ks, vs, table, lens, args):
+    """K8's times at one set of lengths (fp8, pages of 128): the kernel by
+    events and as a replayed CUDA graph (one launch: the walk and the
+    in-kernel merge), paged_flash_decode as called as a graph, the library
+    call (SDPA on the gathered, dequantized cache) by events, and the
+    bound."""
+    S = table.shape[1] * k.shape[2]
+    B, H, D = q.shape
+    kc, vc = pd._gather(k, table), pd._gather(v, table)
+    kcs, vcs = pd._gather(ks, table), pd._gather(vs, table)
+    kd, vd = _dequant(kc, kcs), _dequant(vc, vcs)
+    mask = (torch.arange(S, device="cuda")[None, :] < lens[:, None].long())[:, None, None, :]
+    nbytes = k1_bytes(kc, lens, kcs) + 2 * q.numel() * 2 + lens.numel() * 4 + table.numel() * 4
+    live_rows = int(lens.long().clamp(0, S).sum())
+    b_ms, b_by = bound(nbytes, 4 * H * D * live_rows)
+    res = dict(ms=cuda_ms(torch, lambda: pd.paged_flash_decode_cuda(*args)),
+               graph_ms=graph_ms(torch, lambda: pd.paged_flash_decode_cuda(*args)),
+               call_graph_ms=graph_ms(torch, lambda: pd.paged_flash_decode(
+                   q, k, v, table, lens, k_scale=ks, v_scale=vs)),
+               library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                   q[:, :, None, :], kd, vd, attn_mask=mask, enable_gqa=True)),
+               bound_ms=b_ms, bound_by=b_by)
+    del kc, vc, kcs, vcs, kd, vd
+    return res
+
+
 def check_k8(torch, checks, rows):
     """K8 in decode mode at B=8, H=32, Hk=8, D=128, 32 pages of 128 (then 8
-    of 512) per sequence, bf16/int8/fp8, against its plain version and
-    against K1 on the same content copied into a contiguous cache; then
-    K8c (chunk mode) at B=1 over pages of 128, against the plain version
-    with the same splits; the fp8 points at T=128 carry their times."""
+    of 512) per sequence, bf16/int8/fp8, with the live splits it plans (one
+    launch, merged in the kernel), against its plain version and against K1
+    on the same content copied into a contiguous cache; the fp8 point at
+    pages of 128 carries its times, also at the paged engine's lengths
+    (576-1056: a 512-token prefix, a 64-512 suffix and up to 32 generated
+    tokens).  Then K8c (chunk mode) at B=1 over pages of 128, against the
+    plain version with the same splits; the fp8 points at T=128 carry their
+    times."""
     import torch.nn.functional as F
 
     from flash_attn_tpu_torch.ops import decode as dec
     from flash_attn_tpu_torch.ops import paged_decode as pd
+    from flash_attn_tpu_torch.ops.lse import lse_merge_cuda
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 10)
     worst = worst_c = 0.0
@@ -1185,19 +1238,25 @@ def check_k8(torch, checks, rows):
         for kv in ("bf16", "int8", "fp8"):
             q, k, v, ks, vs, table, lens = _paged_inputs(torch, kv, g, page)
             B, H, D = q.shape
+            Hk = k.shape[1]
             S = table.shape[1] * page
             clamped, clamp2 = _mode_args(dec, k.dtype)
-            nsplit, split_len = dec._splits(B, k.shape[1], S, None)
+            nsplit, split_len = pd._plan(B, Hk, H // Hk, 1, S, None)
             args = (q, k, v, ks, vs, table, lens, D ** -0.5, clamped, clamp2, 1,
                     nsplit, split_len)
+            before = (pd.paged_flash_decode_cuda.launches, lse_merge_cuda.launches)
             got, glse = pd.paged_flash_decode(q, k, v, table, lens, k_scale=ks,
                                               v_scale=vs, return_lse=True)
+            # one launch of K8 and none of K1m: the splits merged in the kernel
+            one_launch = (pd.paged_flash_decode_cuda.launches - before[0],
+                          lse_merge_cuda.launches - before[1]) == (1, 0)
             ref, rlse = plain_merge(*pd.paged_flash_decode_plain(*args), torch.bfloat16)
             # K1 on the same content in a contiguous [B, Hk, S, D] cache
             kc, vc = pd._gather(k, table), pd._gather(v, table)
             kcs = None if ks is None else pd._gather(ks, table)
             vcs = None if vs is None else pd._gather(vs, table)
-            k1_args = (q, kc, vc, kcs, vcs, lens, D ** -0.5, clamped, clamp2, nsplit, split_len)
+            k1_split = dec._splits(B, Hk, S, None)
+            k1_args = (q, kc, vc, kcs, vcs, lens, D ** -0.5, clamped, clamp2, *k1_split)
             k1 = dec.flash_decode(q, kc, vc, k_scale=kcs, v_scale=vcs, kv_length=lens,
                                   kv_layout="bhsd")
             torch.cuda.synchronize()
@@ -1213,34 +1272,46 @@ def check_k8(torch, checks, rows):
                   & checks.check(f"{label} vs K1 on the same content", share_k1, 1.0))
             if not empty:
                 checks.failed.append(f"{label}: the empty sequence is not out 0, lse <= -1e29")
+            if not one_launch:
+                checks.failed.append(f"{label}: paged_flash_decode was not one launch of K8 "
+                                     "and none of K1m")
             worst = max(worst, err)
             ms = cuda_ms(torch, lambda: pd.paged_flash_decode_cuda(*args))
             k1_ms = cuda_ms(torch, lambda: dec.flash_decode_cuda(*k1_args))
-            say(f"  {label} ({nsplit} splits): max_abs_err {err:.3e} ({share:.3f} of its "
-                f"row's tol; vs K1 {share_k1:.3f}), lse err {lerr:.3e} (tol 1e-3), empty "
-                f"sequence {'ok' if empty else 'FAIL'} {'ok' if ok and empty else 'FAIL'} | "
-                f"{ms:.4f} ms, K1 on the same content {k1_ms:.4f}")
+            say(f"  {label} ({nsplit} live splits, merged in the kernel): max_abs_err "
+                f"{err:.3e} ({share:.3f} of its row's tol; vs K1 {share_k1:.3f}), lse err "
+                f"{lerr:.3e} (tol 1e-3), empty sequence {'ok' if empty else 'FAIL'}, one "
+                f"launch {'ok' if one_launch else 'FAIL'} "
+                f"{'ok' if ok and empty and one_launch else 'FAIL'} | {ms:.4f} ms, K1 on the "
+                f"same content {k1_ms:.4f} (without its K1m merge)")
             if page == 128 and kv == "fp8":
-                call_ms = cuda_ms(torch, lambda: pd.paged_flash_decode(
-                    q, k, v, table, lens, k_scale=ks, v_scale=vs))
-                plain_ms = cuda_ms(torch, lambda: pd.paged_flash_decode_plain(*args), iters=3)
-                kd, vd = _dequant(kc, kcs), _dequant(vc, vcs)
-                mask = (torch.arange(S, device="cuda")[None, :] < lens[:, None].long())[:, None, None, :]
-                lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                    q[:, :, None, :], kd, vd, attn_mask=mask, enable_gqa=True))
-                nbytes = k1_bytes(kc, lens, kcs) + 2 * q.numel() * 2 + lens.numel() * 4 + table.numel() * 4
-                live_rows = int(lens.long().clamp(max=S).sum())
-                b_ms, b_by = bound(nbytes, 4 * H * D * live_rows)
-                say(f"    K8 decode fp8 page=128: {ms:.4f} ms ({call_ms:.4f} with the K1m "
-                    f"merge), K1 {k1_ms:.4f}, plain {plain_ms:.4f}, library (SDPA on the "
-                    f"gathered, dequantized cache) {lib_ms:.4f}, bound {b_ms:.4f} ({b_by})")
+                t = _k8_times(torch, pd, F, q, k, v, ks, vs, table, lens, args)
+                t["plain_ms"] = cuda_ms(torch, lambda: pd.paged_flash_decode_plain(*args),
+                                        iters=3)
+                say(f"    K8 decode fp8 page=128, lengths {lens.tolist()}: {t['ms']:.4f} ms "
+                    f"(graph {t['graph_ms']:.4f}; as called, graph {t['call_graph_ms']:.4f}), "
+                    f"plain {t['plain_ms']:.4f}, library (SDPA on the gathered, dequantized "
+                    f"cache) {t['library_ms']:.4f}, bound {t['bound_ms']:.4f} ({t['bound_by']})")
+                lens_e = torch.randint(576, 1057, (B,), generator=g, device="cuda",
+                                       dtype=torch.int32)
+                args_e = (*args[:6], lens_e, *args[7:])
+                got_e = pd.paged_flash_decode(q, k, v, table, lens_e, k_scale=ks, v_scale=vs)
+                ref_e, _ = plain_merge(*pd.paged_flash_decode_plain(*args_e), torch.bfloat16)
+                torch.cuda.synchronize()
+                _, share_e = row_err(got_e, ref_e)
+                checks.check(f"{label} at the engine's lengths out", share_e, 1.0)
+                te = _k8_times(torch, pd, F, q, k, v, ks, vs, table, lens_e, args_e)
+                say(f"    K8 decode fp8 page=128 at the engine's lengths {lens_e.tolist()}: "
+                    f"{share_e:.3f} of its row's tol | {te['ms']:.4f} ms (graph "
+                    f"{te['graph_ms']:.4f}; as called, graph {te['call_graph_ms']:.4f}), "
+                    f"library {te['library_ms']:.4f}, bound {te['bound_ms']:.4f} "
+                    f"({te['bound_by']})")
                 rows["K8"] = dict(name="paged_decode, decode mode (B=8, H=32, Hk=8, page=128, "
-                                       "32 pages/seq, fp8 KV)",
+                                       f"32 pages/seq, fp8 KV, {nsplit} live splits)",
                                   source="flash_attn_tpu_torch/csrc/paged_decode.cu",
                                   replaces="flash_attn_tpu/ops/paged_decode.py:47",
-                                  ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                  bound_ms=b_ms, bound_by=b_by, k1_ms=k1_ms)
-                del kd, vd
+                                  k1_ms=k1_ms, **t,
+                                  also=dict(label="the paged engine's lengths 576-1056", **te))
             del q, k, v, ks, vs, kc, vc, kcs, vcs
     # chunk mode (K8c): one sequence over pages of 128; T=128 at 640 (512
     # resident + the chunk) and at 1024 (the last piece of phase 7's longest
@@ -1632,13 +1703,14 @@ def _reset_counts():
     wrappers, k8 = _counters()
     for fn in (*wrappers.values(), k8):
         fn.launches = 0
-    k8.chunk_launches = 0
+    k8.chunk_launches = k8.merges = 0
     wrappers["K1"].chunk_launches = wrappers["K1"].bshd_launches = 0
 
 
 def _read_counts() -> dict:
     """Each kernel's launches; K1 split into decode mode (BHSD), chunk mode
-    and BSHD, K8 into decode mode and chunk mode."""
+    and BSHD, K8 into decode mode and chunk mode, and K8's launches that
+    merged their splits in the kernel ("K8 merges")."""
     wrappers, k8 = _counters()
     counts = {k: fn.launches for k, fn in wrappers.items()}
     k1 = wrappers["K1"]
@@ -1647,6 +1719,7 @@ def _read_counts() -> dict:
     counts["K1b"] = k1.bshd_launches
     counts["K8"] = k8.launches - k8.chunk_launches
     counts["K8c"] = k8.chunk_launches
+    counts["K8 merges"] = k8.merges
     return counts
 
 
@@ -1756,6 +1829,12 @@ def serve_paged(torch, checks, params):
     for key in ("K8", "K8c", "K1m", "K3", "K4"):
         if total[key] <= 0:
             checks.failed.append(f"{RUN_PAGED}: kernel {key} was not launched: {total}")
+    # each decode-mode call is one launch of K8 that merges its own splits:
+    # K1m serves only K8c's calls (at most one each)
+    if total["K8 merges"] != total["K8"] or total["K1m"] > total["K8c"]:
+        checks.failed.append(f"{RUN_PAGED}: decode-mode K8 calls are not one launch each "
+                             f"(K8 {total['K8']}, merged in the kernel {total['K8 merges']}, "
+                             f"K1m {total['K1m']}, K8c {total['K8c']})")
     peak = torch.cuda.max_memory_allocated() / 2**30
     say(f"[{RUN_PAGED}] 16 requests in two waves, {n_tok} tokens each: hits "
         f"{eng.prefix.hits}, misses {eng.prefix.misses}, resident pages {resident}, free "
@@ -2040,8 +2119,8 @@ def main() -> int:
                     max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                     library_ms=r["library_ms"],
-                    **{k: r[k] for k in ("graph_ms", "call_graph_ms", "prompt", "also")
-                       if k in r})
+                    **{k: r[k] for k in ("graph_ms", "call_graph_ms", "empty_graph_ms",
+                                         "prompt", "also") if k in r})
                for r in (rows[k] for k in KERNEL_ROWS)]
     print(json.dumps({"kernels": kernels}))
     print(smi)

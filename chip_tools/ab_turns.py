@@ -138,7 +138,10 @@ def kernels(torch, res):
     kp, vp = torch.cat([kp[:1], kp]).contiguous(), torch.cat([vp[:1], vp]).contiguous()
     ksp, vsp = torch.cat([ksp[:1], ksp]).contiguous(), torch.cat([vsp[:1], vsp]).contiguous()
     table = (1 + torch.arange(B * S // page, device="cuda", dtype=torch.int32)).reshape(B, -1)
-    nsplit_p, split_len_p = dec._splits(B, Hk, S, None)
+    if hasattr(pd, "_plan"):  # K8 splits the live walk and merges in the kernel
+        nsplit_p, split_len_p = pd._plan(B, Hk, H // Hk, 1, S, None)
+    else:
+        nsplit_p, split_len_p = dec._splits(B, Hk, S, None)
     args_p = (q, kp, vp, ksp, vsp, table, lens, D ** -0.5, clamped, clamp2, 1, nsplit_p,
               split_len_p)
     both("K8 alone", lambda: pd.paged_flash_decode_cuda(*args_p))

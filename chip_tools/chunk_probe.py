@@ -37,8 +37,9 @@ ctypes:
     (the self-draft's case: bf16 cache, online softmax, T=5 at the verify
     step's lengths; row t against a one-token decode at kv_len - 4 + t,
     both merged by K1m): reported, not checked;
-  * K1 decode (BHSD and BSHD), K8 decode and K4 (both softmax modes) of
-    every version against this tree's, bit for bit.
+  * K1 decode (BHSD and BSHD) and K4 (both softmax modes) of every
+    version against this tree's, bit for bit (K8 decode, redesigned since,
+    is held by chip_tools/k8_probe.py).
 
 Every line goes to ``chiprun_out/chunk_probe.txt`` and to stdout; the
 card's name and power limit head it.  Exits nonzero if a check, the
@@ -338,9 +339,9 @@ def verify_vs_decode(torch, libs, fh):
 
 
 def bitwise(torch, libs, fh):
-    """K1 decode (BHSD, BSHD), K8 decode and K4 of every version against
-    this tree's, bit for bit."""
-    from chip_smoke import _decode_inputs, _paged_inputs
+    """K1 decode (BHSD, BSHD) and K4 of every version against this tree's,
+    bit for bit."""
+    from chip_smoke import _decode_inputs
     from flash_attn_tpu_torch.ops import decode as dec
     from flash_attn_tpu_torch.ops import flash_fwd as ff
     from flash_attn_tpu_torch.ops.rope import rope_cos_sin
@@ -354,7 +355,6 @@ def bitwise(torch, libs, fh):
     ksb, vsb = ks.transpose(1, 2).contiguous(), vs.transpose(1, 2).contiguous()
     nsplit, split_len = dec._splits(B, Hk, S, None)
     qs_c = float(dec._qscale(D ** -0.5, True, torch.bfloat16))
-    _, kp, vp, ksp, vsp, table, plens = _paged_inputs(torch, "fp8", g, 128)
     cos, sin = rope_cos_sin(torch.arange(2048, device="cuda")[None], D, 500000.0)
     qf = torch.randn((1, 2048, H, D), generator=g, device="cuda", dtype=torch.bfloat16)
     kf = torch.randn((1, 2048, Hk, D), generator=g, device="cuda", dtype=torch.bfloat16)
@@ -372,12 +372,6 @@ def bitwise(torch, libs, fh):
                     *((1,) if chunk else ()), S, D, int(bshd), 2, nsplit, split_len,
                     1.0 if bshd else qs_c, D ** -0.5 if bshd else 1.0, int(not bshd), 40.0, st())
             res = (part, lse)
-        elif what == "K8":
-            fn, chunk = lib.fn["fatt_paged_decode"]
-            rc = fn(p(q), p(kp), p(vp), p(ksp), p(vsp), p(table), p(plens), None, p(part), p(lse),
-                    B, Hk, H // Hk, *((1,) if chunk else ()), 128, table.shape[1], D, 2, nsplit,
-                    split_len, qs_c, 1, 40.0, st())
-            res = (part, lse)
         else:
             fn, _ = lib.fn["fatt_flash_fwd"]
             out = torch.empty_like(qf)
@@ -392,7 +386,7 @@ def bitwise(torch, libs, fh):
         return res
 
     ok = True
-    for what in ("K1 BHSD", "K1 BSHD", "K8", "K4 clamped", "K4 online"):
+    for what in ("K1 BHSD", "K1 BSHD", "K4 clamped", "K4 online"):
         want = run(libs["this"], what)
         line = []
         for name, lib in libs.items():

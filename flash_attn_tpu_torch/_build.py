@@ -39,12 +39,13 @@ _SIGNATURES = {
     "fatt_chunk_attn": [P, P, P, P, P, P, P, P, P, P,
                         I, I, I, I, I, I, I, I, I, I, F, I, F, P],
     "fatt_kv_append": [P, P, P, P, P, P, P, I, I, I, I, I, P],
+    "fatt_empty": [I, I, P],
     "fatt_matmul_float_q": [P, P, P, P, P, I, I, I, I, I, I, I, I, P],
     "fatt_matmul_s8_q": [P, P, P, P, P, P, I, I, I, I, I, I, I, P],
     "fatt_flash_fwd": [P, P, P, P, P, P, P,
                        I, I, I, I, I, I, I, F, I, I, P],
-    "fatt_paged_decode": [P, P, P, P, P, P, P, P, P, P,
-                          I, I, I, I, I, I, I, I, I, F, I, F, P],
+    "fatt_paged_decode": [P, P, P, P, P, P, P, P, P, P, P, P,
+                          I, I, I, I, I, I, I, I, F, I, F, P],
     "fatt_flash_bwd_dq": [P, P, P, P, P, P, P, P, P, P,
                           I, I, I, I, I, I, I, F, I, P],
     "fatt_flash_bwd_dkv": [P, P, P, P, P, P, P, P,

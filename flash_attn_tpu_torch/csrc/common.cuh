@@ -4,6 +4,7 @@
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <stdint.h>
 
 #include <atomic>
@@ -299,6 +300,109 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// The split-KV combine of one row by one warp (K1m's arithmetic, also the
+// merge at the end of K8): partials out_i [n, rows, D] fp32 and lse_i
+// [n, rows] fp32 over disjoint key sets give
+//     lse = logsumexp_i(lse_i),  out = sum_i exp(lse_i - lse) * out_i
+// for row r, as ops/lse.py:lse_merge forms them: partials at -inf or at the
+// kernels' finite -1e30 weigh exp(lse_i - lse) (0 beside a live partial; a
+// row whose partials are all -1e30 sums them with weight 1, all zeros); a
+// row whose partials are all -inf gives lse -inf and out 0.  The lanes
+// read the row's LSE values together and pass them round by shuffles, then
+// each lane merges 4 consecutive columns per 128 with 16-byte loads, eight
+// partials in flight.  The loads go through L2 (ld.global.cg), so a block
+// that merges partials other blocks of its grid wrote never reads a stale
+// L1 line.  All 32 lanes of the warp call it for one row; D % 4 == 0.
+template <typename T>
+__device__ __forceinline__ void store4(T* dst, float4 x);
+
+template <>
+__device__ __forceinline__ void store4<float>(float* dst, float4 x) {
+  *reinterpret_cast<float4*>(dst) = x;
+}
+
+template <>
+__device__ __forceinline__ void store4<__nv_bfloat16>(__nv_bfloat16* dst, float4 x) {
+  uint2 w;
+  w.x = pack_bf16(x.x, x.y);
+  w.y = pack_bf16(x.z, x.w);
+  *reinterpret_cast<uint2*>(dst) = w;
+}
+
+template <typename T>
+__device__ __forceinline__ void merge_row(const float* part_out, const float* part_lse, T* out,
+                                          float* lse, int n, int64_t rows, int64_t r, int D,
+                                          int lane) {
+  // lse_i sits in lane i % 32 of the chunk of 32 from i - i % 32 (all
+  // loads of a chunk in flight at once); the sums below still run i = 0,
+  // 1, ... n - 1 in order.
+  auto chunk = [&](int i0) {
+    const int i = i0 + lane;
+    return i < n ? __ldcg(part_lse + i * rows + r) : -CUDART_INF_F;
+  };
+  const float first = chunk(0);
+  // the first eight partials' columns load beside the LSE values
+  float4 x0[8];
+#pragma unroll
+  for (int u = 0; u < 8; ++u)
+    x0[u] = u < n && lane * 4 < D
+                ? __ldcg(reinterpret_cast<const float4*>(part_out + (u * rows + r) * D + lane * 4))
+                : make_float4(0.f, 0.f, 0.f, 0.f);
+  // logsumexp as torch forms it: the max, then log of the shifted sum; an
+  // all -inf row stays -inf.
+  float m = -CUDART_INF_F;
+  for (int i0 = 0; i0 < n; i0 += 32) {
+    const float mine = i0 == 0 ? first : chunk(i0);
+    for (int j = 0; j < min(32, n - i0); ++j) m = fmaxf(m, __shfl_sync(0xffffffffu, mine, j));
+  }
+  float total = -CUDART_INF_F;
+  if (m != -CUDART_INF_F) {
+    float s = 0.f;
+    for (int i0 = 0; i0 < n; i0 += 32) {
+      const float mine = i0 == 0 ? first : chunk(i0);
+      for (int j = 0; j < min(32, n - i0); ++j) s += expf(__shfl_sync(0xffffffffu, mine, j) - m);
+    }
+    total = m + logf(s);
+  }
+  const float safe = isfinite(total) ? total : 0.f;
+  for (int c0 = 0; c0 < D; c0 += 128) {
+    const int c = c0 + lane * 4;
+    const bool in = c < D;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int i0 = 0; i0 < n; i0 += 32) {
+      const float mine = i0 == 0 ? first : chunk(i0);
+      const float w_mine = isfinite(mine) ? expf(mine - safe) : 0.f;
+      const int cnt = min(32, n - i0);
+      // eight partials' loads in flight, then their sums in order
+      for (int j0 = 0; j0 < cnt; j0 += 8) {
+        float4 x[8];
+        float w[8];
+        const bool loaded = c0 == 0 && i0 == 0 && j0 == 0;
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int j = j0 + u;
+          w[u] = __shfl_sync(0xffffffffu, w_mine, j & 31);
+          x[u] = loaded ? x0[u]
+                 : in && j < cnt ? __ldcg(reinterpret_cast<const float4*>(
+                                       part_out + ((i0 + j) * rows + r) * D + c))
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          if (j0 + u < cnt) {
+            acc.x += x[u].x * w[u];
+            acc.y += x[u].y * w[u];
+            acc.z += x[u].z * w[u];
+            acc.w += x[u].w * w[u];
+          }
+        }
+      }
+    }
+    if (in) store4<T>(out + r * D + c, acc);
+  }
+  if (lane == 0) lse[r] = total;
 }
 
 // Host side.  A kernel's dynamic shared-memory limit is raised once on each

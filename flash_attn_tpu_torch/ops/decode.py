@@ -49,8 +49,9 @@ ROWS = 8
 CHUNK_ROWS = 64
 CHUNK_WIDE = 2
 # Split-KV blocks to aim at: six per SM of the H100's 132.  Measured best
-# of 132-1056 for the decode step at batch 8 (G=4 and G=8) and for K8, now
-# that a merge is one K1m launch (chip_tools/k1_probe.py, PERF.md).
+# of 132-1056 for the decode step at batch 8 (G=4 and G=8), now that a
+# merge is one K1m launch (chip_tools/k1_probe.py, PERF.md).  K8 has its
+# own target (ops/paged_decode.py).
 _TARGET_BLOCKS = 792
 # Warpgroups that K1c's and K8c's (sequence, KV head, row block, split)
 # blocks aim at: two per SM of the H100's 132, as many as its registers
@@ -109,9 +110,9 @@ def _chunk_splits(batch: int, num_heads_k: int, rows: int, reach: int, num_split
 
 def split_bounds(nsplit: int, split_len, S: int, kv_length=None):
     """Each split's key range [lo, hi) over S positions.  With ``split_len``
-    (K1, K8) split i is [i * split_len, (i + 1) * split_len), the same for
-    every sequence.  With ``split_len`` None (K1c, K8c) it follows each
-    sequence's live walk, as the chunk kernel cuts it: n = ceil(min(
+    (K1) split i is [i * split_len, (i + 1) * split_len), the same for
+    every sequence.  With ``split_len`` None (K8, K1c, K8c) it follows each
+    sequence's live walk, as K8 and the chunk kernel cut it: n = ceil(min(
     kv_length, S) / TILE) live tiles, c = ceil(n / nsplit) a split, split i
     the tiles [i * c, (i + 1) * c); lo and hi are then [B] tensors."""
     if split_len is not None:

@@ -91,6 +91,9 @@ def kv_append_cuda(k_cache, v_cache, k_scale, v_scale, new_k, new_v,
     for t in tensors:
         if not t.is_cuda or not t.is_contiguous():
             raise ValueError("K2 takes contiguous CUDA tensors")
+    if D % 4 or any(t.data_ptr() % 8 for t in (k_cache, v_cache, new_k, new_v)):
+        raise ValueError(f"K2 takes D % 4 == 0 (got {D}) and 8-byte aligned caches and "
+                         "new K/V")
     p = _build.ptr
     rc = _build.lib().fatt_kv_append(
         p(k_cache), p(v_cache), p(k_scale), p(v_scale), p(new_k), p(new_v),

@@ -20,11 +20,12 @@ and raise for now.
 
 Chunk mode hands K8c the T tokens' query heads as virtual rows in (hk, t,
 g) order, row t of a KV head seeing positions < kv_length - (T - 1) + t;
-K8c also takes decode calls with more than 16 heads per KV head, and
-splits the live walk, not the reach (ops/decode.py ``split_bounds``).
-Pages are walked up to the table's reach (max_pages * page) at most, so an
-idle slot whose length has run past its capacity reads only its own
-(null) table entries.
+K8c also takes decode calls with more than 16 heads per KV head.  Both
+kernels split each sequence's live walk, not the table's reach
+(ops/decode.py ``split_bounds``); K8 merges its splits in the kernel, K8c's
+merge in one launch of K1m.  Pages are walked up to the table's reach
+(max_pages * page) at most, so an idle slot whose length has run past its
+capacity reads only its own (null) table entries.
 """
 
 from __future__ import annotations
@@ -39,7 +40,6 @@ from flash_attn_tpu_torch.ops.decode import (
     _clamp2,
     _default_softmax_mode,
     _qscale,
-    _splits,
     merge_splits,
     split_bounds,
     split_partials,
@@ -50,6 +50,27 @@ TILE = 64
 # K8 takes at most this many query rows per KV head; more go to K8c.
 _MAX_GROUP = 16
 _HEAD_DIM = 128
+# K8's (sequence, KV head, split) blocks to aim at: three per SM of the
+# H100's 132, as many as its registers hold (157-168 a thread).  Measured
+# best of 132-792 over both of chip_smoke.py's sets of lengths: more blocks
+# add waves and longer merges, fewer lengthen the longest walks
+# (chip_tools/k8_probe.py, PERF.md).
+_TARGET_BLOCKS = 396
+
+
+def _plan(batch: int, num_heads_k: int, rows: int, chunk: int, reach: int, num_splits):
+    """(num_splits, split_len) of a call with ``rows`` query rows per KV
+    head over a table whose reach is ``reach`` positions.  Both kernels cut
+    each sequence's live walk into the splits (split_len None, ops/decode.py
+    ``split_bounds``), so the host needs no lengths.  K8 (decode mode, at
+    most ``_MAX_GROUP`` rows) aims at ``_TARGET_BLOCKS`` blocks, K8c at
+    ops/decode.py's warpgroup target; at most one split per key tile of
+    ``reach``, and the caller may fix the count."""
+    if chunk > 1 or rows > _MAX_GROUP:  # K8c
+        return _chunk_splits(batch, num_heads_k, rows, reach, num_splits), None
+    if num_splits is None:
+        num_splits = -(-_TARGET_BLOCKS // (batch * num_heads_k))
+    return max(1, min(int(num_splits), -(-reach // TILE))), None
 
 
 def paged_flash_decode(q, k_pages, v_pages, block_table, kv_length, *,
@@ -65,9 +86,10 @@ def paged_flash_decode(q, k_pages, v_pages, block_table, kv_length, *,
       _default_softmax_mode (clamped for fp8 pages).
     chunk: internal (use paged_flash_decode_chunk): q rows are virtual
       rows, ``chunk`` tokens per KV head in (t, g) order, for K8c.
-    num_splits: split-KV blocks per (sequence, KV head, row block); None
-      picks enough to fill the card.  Partials merge by the LSE rule
-      (ops/decode.py merge_splits).
+    num_splits: split-KV blocks per (sequence, KV head, row block), each
+      taking a share of the sequence's live walk; None picks enough to fill
+      the card.  Partials merge by the LSE rule: in K8 on the card,
+      otherwise through ops/decode.py merge_splits.
     Returns out [B, H, D] in q.dtype; with return_lse also lse [B, H] fp32.
     """
     if window is not None or logit_softcap is not None:
@@ -87,11 +109,7 @@ def paged_flash_decode(q, k_pages, v_pages, block_table, kv_length, *,
         raise ValueError(f"unknown softmax_mode {softmax_mode!r}")
     clamped = softmax_mode == "clamped"
     clamp2 = _clamp2(k_pages.dtype)
-    R = H // Hk
-    if chunk > 1 or R > _MAX_GROUP:  # K8c
-        nsplit, split_len = _chunk_splits(B, Hk, R, max_pages * page, num_splits), None
-    else:
-        nsplit, split_len = _splits(B, Hk, max_pages * page, num_splits)
+    nsplit, split_len = _plan(B, Hk, H // Hk, chunk, max_pages * page, num_splits)
     args = (q, k_pages, v_pages, k_scale, v_scale, block_table, kv_length,
             scale, clamped, clamp2, chunk, nsplit, split_len)
     if q.is_cuda:
@@ -158,8 +176,8 @@ def paged_flash_decode_plain(q, k_pages, v_pages, k_scale, v_scale,
     """Plain PyTorch version of K8 and K8c: the sequences' pages gathered
     into contiguous [B, Hk, max_pages * page, D] views, then K1's
     arithmetic with a causal limit per virtual row; ``split_len`` None
-    splits the live walk as K8c does.  Returns per-split (out [n, B, H, D]
-    fp32, lse [n, B, H])."""
+    splits the live walk as both kernels do.  Returns per-split (out
+    [n, B, H, D] fp32, lse [n, B, H])."""
     B, H, D = q.shape
     Hk = k_pages.shape[1]
     R = H // Hk
@@ -183,16 +201,36 @@ def paged_flash_decode_plain(q, k_pages, v_pages, k_scale, v_scale,
     return outs.reshape(nsplit, B, H, D), lses.reshape(nsplit, B, H)
 
 
+def _arrivals(device, batch: int, num_heads_k: int):
+    """K8's per-(sequence, KV head) arrival counters: int32 zeros, made once
+    per device and shape and reset by the kernel's last split, so that a
+    captured CUDA graph replays against the same buffer.  The first call of
+    a shape must come before any capture."""
+    key = (device, batch, num_heads_k)
+    buf = _ARRIVALS.get(key)
+    if buf is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("K8's first call at this shape must come before CUDA graph "
+                               "capture (its arrival counters are made then)")
+        buf = _ARRIVALS[key] = torch.zeros((batch, num_heads_k), dtype=torch.int32,
+                                           device=device)
+    return buf
+
+
+_ARRIVALS = {}
+
+
 def paged_flash_decode_cuda(q, k_pages, v_pages, k_scale, v_scale,
                             block_table, kv_length, scale, clamped, clamp2,
                             chunk, nsplit, split_len):
-    """Launch K8 or, for ``split_len`` None, K8c.  Both replace
-    flash_attn_tpu/ops/paged_decode.py:_paged_decode_kernel: K8 in decode
-    mode, bound by bytes (csrc/paged_decode.cu); K8c in chunk mode, bound
-    by operations at T = 128, and decode calls with more than 16 heads per
-    KV head (csrc/chunk_attn.cu).  Returns (out, lse): with one split out
-    is [1, B, H, D] bf16 written by the kernel, else fp32 partials
-    [n, B, H, D]."""
+    """Launch K8 (decode mode, at most 16 heads per KV head) or K8c.  Both
+    replace flash_attn_tpu/ops/paged_decode.py:_paged_decode_kernel: K8 in
+    decode mode, bound by bytes (csrc/paged_decode.cu); K8c in chunk mode,
+    bound by operations at T = 128, and decode calls with more than 16
+    heads per KV head (csrc/chunk_attn.cu).  Both split the live walk
+    (``split_len`` None).  Returns (out, lse): K8 merges its splits in the
+    kernel, so out is [1, B, H, D] bf16; K8c writes that with one split,
+    else fp32 partials [n, B, H, D] for K1m."""
     B, H, D = q.shape
     P, Hk, page, _ = k_pages.shape
     max_pages = block_table.shape[1]
@@ -201,11 +239,9 @@ def paged_flash_decode_cuda(q, k_pages, v_pages, k_scale, v_scale,
         raise ValueError("K8 takes a bf16 query")
     if k_pages.dtype not in _KV_TYPES or v_pages.dtype != k_pages.dtype:
         raise ValueError(f"K8 takes bf16, int8 or fp8 pages, got {k_pages.dtype}")
-    tiled = chunk > 1 or R > _MAX_GROUP
-    if D != _HEAD_DIM or tiled != (split_len is None):
-        raise ValueError(f"K8 needs head_dim {_HEAD_DIM} and a split_len, K8c (chunk > 1 "
-                         f"or H/Hk > {_MAX_GROUP}) split_len None; got D={D}, H/Hk={R}, "
-                         f"chunk={chunk}")
+    if D != _HEAD_DIM or split_len is not None:
+        raise ValueError(f"K8 and K8c need head_dim {_HEAD_DIM} and split the live walk "
+                         f"(split_len None); got D={D}, split_len={split_len}")
     if page % TILE:
         raise ValueError(f"K8 takes pages of a multiple of {TILE} tokens, got {page}")
     if block_table.dtype != torch.int32 or kv_length.dtype != torch.int32:
@@ -221,16 +257,17 @@ def paged_flash_decode_cuda(q, k_pages, v_pages, k_scale, v_scale,
     for t in tensors:
         if not t.is_cuda or not t.is_contiguous():
             raise ValueError("K8 takes contiguous CUDA tensors")
-    if nsplit == 1:
-        out = torch.empty((1, B, H, D), dtype=torch.bfloat16, device=q.device)
-        part = None
-    else:
-        out = None
+    tiled = chunk > 1 or R > _MAX_GROUP
+    part = None
+    if nsplit > 1:
         part = torch.empty((nsplit, B, H, D), dtype=torch.float32, device=q.device)
-    lse = torch.empty((nsplit, B, H), dtype=torch.float32, device=q.device)
     qscale = float(_qscale(scale, clamped, torch.bfloat16))
     p = _build.ptr
     if tiled:
+        out = None
+        if nsplit == 1:
+            out = torch.empty((1, B, H, D), dtype=torch.bfloat16, device=q.device)
+        lse = torch.empty((nsplit, B, H), dtype=torch.float32, device=q.device)
         rc = _build.lib().fatt_chunk_attn(
             p(q), p(k_pages), p(v_pages), p(k_scale), p(v_scale), p(block_table),
             p(kv_length), p(out), p(part), p(lse), B, Hk, R, chunk, 0, page,
@@ -238,17 +275,27 @@ def paged_flash_decode_cuda(q, k_pages, v_pages, k_scale, v_scale,
             float(clamp2), _build.stream())
         _build.check(rc, "fatt_chunk_attn")
         paged_flash_decode_cuda.chunk_launches += 1
-    else:
-        rc = _build.lib().fatt_paged_decode(
-            p(q), p(k_pages), p(v_pages), p(k_scale), p(v_scale), p(block_table),
-            p(kv_length), p(out), p(part), p(lse), B, Hk, R, page, max_pages, D,
-            _KV_TYPES[k_pages.dtype], nsplit, split_len, qscale, int(clamped),
-            float(clamp2), _build.stream())
-        _build.check(rc, "fatt_paged_decode")
+        paged_flash_decode_cuda.launches += 1
+        return (out if nsplit == 1 else part), lse
+    out = torch.empty((1, B, H, D), dtype=torch.bfloat16, device=q.device)
+    lse = torch.empty((1, B, H), dtype=torch.float32, device=q.device)
+    part_lse = arrivals = None
+    if nsplit > 1:
+        part_lse = torch.empty((nsplit, B, H), dtype=torch.float32, device=q.device)
+        arrivals = _arrivals(q.device, B, Hk)
+    rc = _build.lib().fatt_paged_decode(
+        p(q), p(k_pages), p(v_pages), p(k_scale), p(v_scale), p(block_table),
+        p(kv_length), p(out), p(lse), p(part), p(part_lse), p(arrivals), B, Hk, R, page,
+        max_pages, D, _KV_TYPES[k_pages.dtype], nsplit, qscale, int(clamped), float(clamp2),
+        _build.stream())
+    _build.check(rc, "fatt_paged_decode")
     paged_flash_decode_cuda.launches += 1
-    return (out if nsplit == 1 else part), lse
+    if nsplit > 1:
+        paged_flash_decode_cuda.merges += 1
+    return out, lse
 
 
-# every launch (K8 and K8c), and those of them on K8c
+# every launch (K8 and K8c), those of them on K8c, and K8's in-kernel merges
 paged_flash_decode_cuda.launches = 0
 paged_flash_decode_cuda.chunk_launches = 0
+paged_flash_decode_cuda.merges = 0

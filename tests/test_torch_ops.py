@@ -11,6 +11,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from flash_attn_tpu.ops import quant as jquant
 from flash_attn_tpu.ops.attention import flash_attention as j_flash_attention
@@ -24,7 +26,7 @@ from flash_attn_tpu.ops.rope import rope_rotate as j_rope_rotate
 from flash_attn_tpu_torch import bridge
 from flash_attn_tpu_torch.ops import quant as tquant
 from flash_attn_tpu_torch.ops.attention import flash_attention
-from flash_attn_tpu_torch.ops.decode import flash_decode
+from flash_attn_tpu_torch.ops.decode import TILE, flash_decode, split_bounds
 from flash_attn_tpu_torch.ops.kv_append import kv_append_token
 from flash_attn_tpu_torch.ops.lse import lse_merge
 from flash_attn_tpu_torch.ops.matmul import matmul_int8, quantized_matmul
@@ -242,6 +244,88 @@ def test_kv_append_past_capacity_writes_nothing(mode):
         np.testing.assert_array_equal(tks[:2].numpy(), ks[:2])
     changed = (_np(tkc[2]) != _np(before_k[2])).any(axis=-1)  # [Hk, S]
     assert changed[:, 5].all() and not changed[:, :5].any() and not changed[:, 6:].any()
+
+
+def _edge_rows(mode, S=64, seed=9):
+    """K2's edge cases, one sequence each: an all-zero row (scale 1), rows
+    whose absmax is exactly 127 and exactly 448 (bf16-exact, so 127 and 448
+    reach the quantizer as they are), a random row, and the two lengths
+    JAX's kernel does not take: negative and == S."""
+    kc, vc, ks, vs, nk, nv = _kv_inputs(mode, B=6, S=S, seed=seed)
+    for x in (nk, nv):
+        x[0] = 0.0
+        x[1] = np.clip(x[1], -100, 100)
+        x[1, :, 3] = 127.0
+        x[2] = np.clip(x[2], -400, 400)
+        x[2, :, 5] = -448.0
+    return kc, vc, ks, vs, nk, nv, np.array([3, 10, 63, 0, -1, S], np.int32)
+
+
+@pytest.mark.parametrize("mode", ["none", "int8", "fp8"])
+def test_kv_append_edge_cases_match_jax(mode):
+    """K2's plain version (bitwise K2 on the card) against JAX's
+    kv_append_token on the edge cases of _edge_rows.  Rows in range: caches
+    bit-exact (identical arithmetic on identical bf16 inputs; the zero row
+    keeps scale 1, the 127 and 448 rows scale 1 in their own mode), scales
+    within 1 ulp (XLA may turn amax / qmax into a reciprocal multiply).
+    JAX's kernel takes only lengths in [0, S) (its block index clamps, so it
+    writes elsewhere); the port writes nothing there, as K2 does for the
+    engine's idle slots: those sequences keep their cache and scales."""
+    kc, vc, ks, vs, nk, nv, length = _edge_rows(mode)
+    jdt = {"none": jnp.bfloat16, "int8": jnp.int8, "fp8": jnp.float8_e4m3fn}[mode]
+    jkc, jvc = jnp.asarray(kc).astype(jdt), jnp.asarray(vc).astype(jdt)
+    jks = None if mode == "none" else jnp.asarray(ks)[:, :, None, :]
+    jvs = None if mode == "none" else jnp.asarray(vs)[:, :, None, :]
+    jnk = jnp.asarray(nk).astype(jnp.bfloat16)
+    jnv = jnp.asarray(nv).astype(jnp.bfloat16)
+    out = j_kv_append(jkc, jvc, jks, jvs, jnk, jnv, jnp.asarray(length), mode=mode,
+                      interpret=True)
+    tkc, tvc = to_torch(jkc), to_torch(jvc)
+    before = [_np(tkc), _np(tvc)]
+    tks = None if mode == "none" else torch.from_numpy(ks.copy())
+    tvs = None if mode == "none" else torch.from_numpy(vs.copy())
+    kv_append_token(tkc, tvc, tks, tvs, to_torch(jnk), to_torch(jnv),
+                    torch.from_numpy(length), mode=mode)
+    live = slice(0, 4)
+    np.testing.assert_array_equal(_np(tkc)[live], _np(to_torch(out[0]))[live])
+    np.testing.assert_array_equal(_np(tvc)[live], _np(to_torch(out[1]))[live])
+    np.testing.assert_array_equal(_np(tkc)[4:], before[0][4:])
+    np.testing.assert_array_equal(_np(tvc)[4:], before[1][4:])
+    if mode != "none":
+        for mine, theirs, orig in ((tks, out[2], ks), (tvs, out[3], vs)):
+            np.testing.assert_allclose(mine.numpy()[live], np.asarray(theirs)[live, :, 0],
+                                       rtol=2.4e-7)
+            np.testing.assert_array_equal(mine.numpy()[4:], orig[4:])
+        qmax = 127.0 if mode == "int8" else 448.0
+        pos = length[:3]
+        got = tks.numpy()[np.arange(3), :, pos]  # [3, Hk]
+        np.testing.assert_array_equal(got[0], 1.0)  # the all-zero row
+        np.testing.assert_array_equal(got[1], np.float32(127.0) / np.float32(qmax))
+        np.testing.assert_array_equal(got[2], np.float32(448.0) / np.float32(qmax))
+
+
+@settings(max_examples=200, deadline=None, database=None)
+@given(nsplit=st.integers(1, 40), tiles=st.integers(1, 64),
+       lens=st.lists(st.integers(-70, 64 * 64 + 100), min_size=1, max_size=8))
+def test_split_bounds_cover_each_live_tile_once(nsplit, tiles, lens):
+    """split_bounds(nsplit, None, S, kv_length), the live split rule of K8,
+    K8c, K1c and their plain versions: for every sequence the splits' key
+    ranges, cut to the live walk min(kv_length, S) rounded up to whole
+    tiles, are disjoint and cover each live tile exactly once, whatever the
+    lengths (negative, 0, past S) and the split count."""
+    S = tiles * TILE
+    kv_length = torch.tensor(lens, dtype=torch.int32)
+    bounds = split_bounds(nsplit, None, S, kv_length)
+    assert len(bounds) == nsplit
+    for b, n in enumerate(lens):
+        n_live = -(-min(max(n, 0), S) // TILE)
+        count = np.zeros(n_live, np.int64)
+        for lo, hi in bounds:
+            lo, hi = int(lo[b]), int(hi[b])
+            assert lo % TILE == 0 and hi % TILE == 0 and lo <= hi
+            for t in range(lo // TILE, min(hi // TILE, n_live)):
+                count[t] += 1
+        np.testing.assert_array_equal(count, 1)
 
 
 def _decode_case(kv, seed=8, B=2, H=8, Hk=2, S=256, D=64):

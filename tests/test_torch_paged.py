@@ -8,6 +8,7 @@ are carried over by the bridge.  The port runs the plain PyTorch versions
 of its kernels (CPU tensors).  Each tolerance is stated with its reason.
 """
 
+import functools
 import time
 
 import jax
@@ -20,6 +21,7 @@ from flash_attn_tpu.engine.engine import PagedInferenceEngine as JPagedEngine
 from flash_attn_tpu.engine.paged import PagedKVPool as JPool
 from flash_attn_tpu.engine.prefix_cache import PrefixCache as JPrefixCache
 from flash_attn_tpu.models import llama as jllama
+from flash_attn_tpu.ops import quant as jquant
 from flash_attn_tpu.ops.paged_decode import paged_flash_decode as j_paged_decode
 from flash_attn_tpu.ops.paged_decode import paged_flash_decode_chunk as j_paged_chunk
 from flash_attn_tpu.runtime import abi as jabi
@@ -29,6 +31,8 @@ from flash_attn_tpu_torch.engine.paged import PagedKVPool
 from flash_attn_tpu_torch.engine.prefix_cache import PrefixCache
 from flash_attn_tpu_torch.models import llama
 from flash_attn_tpu_torch.ops.decode import flash_decode, flash_decode_chunk
+from flash_attn_tpu_torch.ops import decode as tdec
+from flash_attn_tpu_torch.ops import paged_decode as tpd
 from flash_attn_tpu_torch.ops.paged_decode import (
     paged_flash_decode,
     paged_flash_decode_chunk,
@@ -238,6 +242,100 @@ def test_paged_chunk_splits_agree(T, H):
         got, got_lse = run(n)
         np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6, rtol=1e-6)
         np.testing.assert_allclose(got_lse.numpy(), want_lse.numpy(), atol=1e-6, rtol=1e-6)
+
+
+# K8's decode mode at a reach of 16 key tiles: pages of 128 (two tiles
+# each, K8's smallest ratio of page to tile but one) in a shuffled table of
+# 8 pages; lengths 0, 1, 63, 64, 65 (around the first tile), a page
+# boundary, the reach and past it
+LIVE_PAGE, LIVE_MAXP, LIVE_LENS = 128, 8, [0, 1, 63, 64, 65, 256, 1024, 1100]
+
+
+@functools.lru_cache(maxsize=None)
+def _live_case(kv, softmax_mode):
+    """(JAX out, JAX lse, port args, port kwargs) of one decode-mode call
+    over a pool whose pages hold random values, quantized by JAX's
+    quantize_kv for int8/fp8 (bf16 pages as they are); q fp32."""
+    r = np.random.default_rng(11)
+    P, Hk, H = LIVE_MAXP * len(LIVE_LENS) + 1, HK, 2 * HK
+    k = r.standard_normal((P, Hk, LIVE_PAGE, D)).astype(np.float32)
+    v = r.standard_normal((P, Hk, LIVE_PAGE, D)).astype(np.float32)
+    q = r.standard_normal((len(LIVE_LENS), H, D)).astype(np.float32)
+    table = (1 + r.permutation(P - 1)).reshape(len(LIVE_LENS), LIVE_MAXP).astype(np.int32)
+    lens = np.array(LIVE_LENS, np.int32)
+    if kv == "bf16":
+        jk, jv = jnp.asarray(k).astype(jnp.bfloat16), jnp.asarray(v).astype(jnp.bfloat16)
+        jks = jvs = None
+    else:  # scales [P, Hk, page, 1]
+        jk, jks, jv, jvs = jquant.quantize_kv(jnp.asarray(k), jnp.asarray(v), kv)
+    jkw = {} if jks is None else dict(k_scale=jnp.swapaxes(jks, -1, -2),
+                                      v_scale=jnp.swapaxes(jvs, -1, -2), scales_permuted=False)
+    jo, jl = j_paged_decode(jnp.asarray(q), jk, jv, jnp.asarray(table), jnp.asarray(lens),
+                            **jkw, interpret=True, return_lse=True, softmax_mode=softmax_mode)
+    targs = (torch.from_numpy(q), to_torch(jk), to_torch(jv), torch.from_numpy(table),
+             torch.from_numpy(lens))
+    tkw = {} if jks is None else dict(k_scale=to_torch(jks)[..., 0].contiguous(),
+                                      v_scale=to_torch(jvs)[..., 0].contiguous())
+    return np.asarray(jo), np.asarray(jl), targs, tkw
+
+
+@pytest.mark.parametrize("num_splits", [1, 3, 13])
+@pytest.mark.parametrize("softmax_mode", ["online", "clamped"])
+@pytest.mark.parametrize("kv", ["bf16", "int8", "fp8"])
+def test_paged_decode_live_splits_match_jax(kv, softmax_mode, num_splits):
+    """Decode mode (K8's plain version) now cuts each sequence's live walk
+    into the splits, as K8 does on the card: 1, 3 and 13 splits of a
+    16-tile reach against JAX's paged decode in interpret mode, at lengths
+    0, 1, 63, 64, 65, a page boundary (256), the reach (1024) and past it
+    (1100, seen as the reach).  fp32 q on both sides; the scores, base 2,
+    stay far below fp8's clamped ceiling (80 in JAX's interpret mode, 40 in
+    the port).  The two differ by fp32 sums in another order and the
+    merge, well inside TOL; the empty sequence is out 0, lse <= -1e29."""
+    jo, jl, targs, tkw = _live_case(kv, softmax_mode)
+    to, tl = paged_flash_decode(*targs, **tkw, return_lse=True, softmax_mode=softmax_mode,
+                                num_splits=num_splits)
+    np.testing.assert_allclose(to.numpy(), jo, atol=TOL, rtol=TOL)
+    np.testing.assert_allclose(tl[1:].numpy(), jl[1:], atol=TOL, rtol=TOL)
+    assert np.all(to[0].numpy() == 0) and np.all(tl[0].numpy() <= -1e29)
+
+
+@pytest.mark.parametrize("chunk,rows", [pytest.param(1, 4, id="decode-G4"),
+                                        pytest.param(1, 16, id="decode-G16"),
+                                        pytest.param(1, 17, id="decode-G17"),
+                                        pytest.param(5, 20, id="chunk-T5"),
+                                        pytest.param(128, 512, id="chunk-T128")])
+@pytest.mark.parametrize("num_splits", [None, 3])
+def test_paged_decode_plans_live_splits(monkeypatch, chunk, rows, num_splits):
+    """The routing: a decode-mode call with at most 16 query rows per KV
+    head (K8) plans the live splits (split_len None) at K8's block target;
+    more rows, and chunk mode, go to K8c and plan as before
+    (ops/decode.py _chunk_splits).  The plan reaches the plain version as
+    planned."""
+    B, Hk, page, mp = 8, 8, 128, 32
+    nsplit, split_len = tpd._plan(B, Hk, rows, chunk, mp * page, num_splits)
+    assert split_len is None
+    if chunk == 1 and rows <= tpd._MAX_GROUP:
+        want = num_splits or -(-tpd._TARGET_BLOCKS // (B * Hk))
+        assert nsplit == min(want, mp * page // tpd.TILE)
+    else:
+        assert nsplit == tdec._chunk_splits(B, Hk, rows, mp * page, num_splits)
+    real, seen = tpd.paged_flash_decode_plain, []
+
+    def spy(*args):
+        seen.append(args[-2:])  # (nsplit, split_len)
+        return real(*args)
+
+    monkeypatch.setattr(tpd, "paged_flash_decode_plain", spy)
+    Hk, D2, H = 2, 32, 2 * rows // chunk
+    kp = torch.randn((5, Hk, page, D2))
+    table = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32)
+    lens = torch.tensor([200, 70], dtype=torch.int32)
+    if chunk == 1:
+        paged_flash_decode(torch.randn((2, H, D2)), kp, kp, table, lens, num_splits=num_splits)
+    else:
+        paged_flash_decode_chunk(torch.randn((2, chunk, H, D2)), kp, kp, table, lens + chunk,
+                                 num_splits=num_splits)
+    assert len(seen) == 1 and seen[0] == tpd._plan(2, Hk, rows, chunk, 2 * page, num_splits)
 
 
 @pytest.mark.parametrize("num_splits", [1, 3])
