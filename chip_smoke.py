@@ -45,24 +45,39 @@ Phases, one line each with its seconds:
      bf16, B=1, S=128, remat);
   4-6. the main paths, each model alone on the card, served by the
      continuous-batching engine (8 greedy requests, prompts of 128-1024
-     tokens from the seed), with the launch count of every kernel in each
-     run: 4. Llama-3-8B int8 weights, fp8 then int8 KV (32 tokens);
+     tokens from the seed) with its decode bodies replayed from CUDA
+     graphs, with the launch count of every kernel in each run (replays
+     counted): 4. Llama-3-8B int8 weights, fp8 KV three ways, eager
+     (disable_graphs()), captured, and captured at decode_burst 4, whose
+     tokens must be equal (64 tokens), then int8 KV (32 tokens); each with
+     its ms a decode position after the warm-up and capture, decode
+     tokens/s, the card's ms a position (the captured graph replayed back
+     to back) and the host's (the rest), and the card's idle share in a
+     torch.profiler window of 8 steady steps (eager and captured: 1 - the
+     union of the card's activity intervals over the window) with the top
+     5 kernels; then a captured stochastic run (temperature 0.8, top_k 50,
+     8 tokens, two seeds twice each: valid tokens, equal for one seed),
+     and one engine whose head changes in place between two waves (2
+     layers): it must re-capture and match a fresh eager engine;
      5. Llama-3-8B W4A8 layers + W8A8 head, fused, fp8 KV (32 tokens);
      6. Llama-3-70B (80 layers, random weights from the seed) int4 g=128
-     layers + W8A8 head, fused, fp8 KV (16 tokens), with its peak memory;
+     layers + W8A8 head, fused, fp8 KV, three ways as phase 4 (32 tokens;
+     the captured window only), with its peak memory;
   7. (run right after phase 4, on its params) Llama-3-8B int8 weights
      served by the paged engine with prefix caching, fp8 KV, pages of
-     128: two waves of 8 requests sharing a 512-token prefix, the first
-     all misses, the second all hits that prefill only their suffixes;
-     each decode-mode K8 call must be one launch that merges its own
-     splits (K1m serves only K8c);
+     128, captured: two waves of 8 requests sharing a 512-token prefix,
+     the first all misses, the second all hits that prefill only their
+     suffixes; each decode-mode K8 call must be one launch that merges its
+     own splits (K1m serves only K8c); then again at decode_burst 4, whose
+     tokens must equal decode_burst 1's;
   9. (run right after phase 7, on phase 4's params) speculative decoding,
-     4 drafts per round, the same 8 prompts and 32 tokens: (a) n-gram
-     drafts, fp8 KV; (b) a self-draft with bf16 KV, whose acceptance must
-     reach 0.5; (c) a draft at Llama-3.2-3B widths (bf16, random from the
-     seed), fp8 KV; each with tokens/s, ms per round, tokens per verify
-     step, acceptance, the launches (K1's chunk mode 32 per verify round)
-     and its tokens against phase 4's plain run;
+     4 drafts per round, draft scans and verify steps captured, the same 8
+     prompts and 32 tokens: (a) n-gram drafts, fp8 KV; (b) a self-draft
+     with bf16 KV, whose acceptance must reach 0.5; (c) a draft at
+     Llama-3.2-3B widths (bf16, random from the seed), fp8 KV; each with
+     tokens/s, ms per round, tokens per verify step, acceptance, the
+     launches (K1's chunk mode 32 per verify round) and its tokens against
+     phase 4's captured run;
   8. training: Llama-3-8B at full widths and depth (bf16 params, AdamW
      moments in bf16), B=1, S=2048, the default TrainConfig (remat on), 5
      AdamW steps on one seeded batch: losses, ms per step, tokens/s, peak
@@ -79,6 +94,7 @@ directory without the rest of the repository.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -1731,24 +1747,77 @@ def _prompts(vocab):
     return lens, [rng.integers(0, vocab, int(n)).tolist() for n in lens]
 
 
-def serve(torch, checks, label, cfg, params, kv_mode, max_tokens, path):
-    """One engine run of 8 greedy requests (max_batch 8, capacity 4096).
-    Every counter is set to 0 just before and read just after; each kernel
-    in ``path`` must have launched.  Returns the counts, the peak memory
-    and the generated tokens."""
+# decode dispatches left out of a run's step times (the first call of a
+# body runs eagerly, the second on a side stream, the third captures it),
+# and the steady steps of a profiled window
+WARM_STEPS, WINDOW_STEPS = 4, 8
+
+
+def _free(torch):
+    """Return a dropped engine's memory: an engine and its captured bodies
+    refer to each other, so only the cycle collector frees them."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _decode_window(torch, eng):
+    """WINDOW_STEPS steady decode steps of ``eng`` (burst 1) inside a
+    torch.profiler window that records the card's activity alone, the card
+    idle before and after: returns (wall ms, card busy ms, top 5 device
+    activities).  Busy is the union of the card's activity intervals
+    (utils/profiling.device_busy); the idle share is 1 - busy / wall.  The
+    tracing itself lengthens the gaps between kernels, so the window's wall
+    time exceeds the unprofiled steps'."""
+    from flash_attn_tpu_torch.utils import profiling
+
+    torch.cuda.synchronize()
+    with profiling.trace(host=False) as prof:
+        t0 = time.perf_counter()
+        eng.run(max_steps=WINDOW_STEPS)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    busy, _ = profiling.device_busy(prof)
+    return wall, busy / 1e3, profiling.top_kernels(prof, 5)
+
+
+def serve(torch, checks, label, cfg, params, kv_mode, max_tokens, path, burst=1,
+          window=False):
+    """One engine run of 8 greedy requests (max_batch 8, capacity 4096) at
+    ``burst``.  Every counter is set to 0 just before and read just after;
+    each kernel in ``path`` must have launched.  The step times leave out
+    the first WARM_STEPS dispatches (warm-up and capture) and, with
+    ``window`` (burst 1), the next WINDOW_STEPS, which run inside a profiler
+    window.  Captured runs also time their decode graph replayed back to
+    back (CUDA events): the card's time a decode position.  Returns a dict
+    of the run's counts, peak memory, tokens, ms and device ms a decode
+    position, decode tokens/s and the window's numbers."""
+    import numpy as np
+
+    from flash_attn_tpu_torch.engine import _graph
     from flash_attn_tpu_torch.engine.engine import InferenceEngine
     from flash_attn_tpu_torch.models import llama
 
     t1 = time.perf_counter()
     lens, prompts = _prompts(cfg.vocab_size)
     eng = InferenceEngine(params, llama.make_adapter(cfg), max_batch=8,
-                          capacity=4096, kv_mode=kv_mode, device="cuda")
+                          capacity=4096, kv_mode=kv_mode, device="cuda", decode_burst=burst)
     _reset_counts()
     reqs = [eng.submit(p, max_tokens=max_tokens) for p in prompts]
+    m = eng.metrics
+
+    def now():
+        return np.array([m.decode_tokens, m.decode_seconds, m.steps])
+
+    win = None
+    eng.run(max_steps=WARM_STEPS)
+    if window:
+        win = _decode_window(torch, eng)
+    skip = now()
     eng.run()
     torch.cuda.synchronize()
     counts = _read_counts()
-    snap = eng.metrics.snapshot()
+    tokens, secs, steps = now() - skip
+    tokens, steps = int(tokens), int(steps)
     good = all(r.done and len(r.generated) == max_tokens
                and all(0 <= t < cfg.vocab_size for t in r.generated) for r in reqs)
     if not good:
@@ -1756,37 +1825,172 @@ def serve(torch, checks, label, cfg, params, kv_mode, max_tokens, path):
     idle = [k for k in path if counts[k] <= 0]
     if idle:
         checks.failed.append(f"{label}: kernels {idle} were not launched: {counts}")
+    body = eng._burst_jit if burst > 1 else eng._decode_jit
+    dev_ms = None
+    if _graph._enabled:
+        if body.graph is None:
+            checks.failed.append(f"{label}: the decode body was not captured")
+        else:
+            dev_ms = cuda_ms(torch, body.graph.replay, iters=10, warmup=2) / burst
     peak = torch.cuda.max_memory_allocated() / 2**30
-    m = eng.metrics
+    pos_ms = 1e3 * secs / max(steps * burst, 1)
     say(f"[{label}] 8 requests, prompts {lens.tolist()}, {max_tokens} tokens each: "
         f"{'ok' if good else 'FAIL'} | prefill "
         f"{m.prefill_tokens / max(m.prefill_seconds, 1e-9):.1f} tok/s | decode "
-        f"{m.decode_tokens / max(m.decode_seconds, 1e-9):.1f} tok/s "
-        f"({snap['decode_step_ms']} ms/step) | max_memory_allocated {peak:.2f} GiB | "
-        f"{time.perf_counter() - t1:.2f}s")
+        f"{tokens / max(secs, 1e-9):.1f} tok/s, {pos_ms:.3f} ms a decode position "
+        f"({steps} dispatches of {burst} after {WARM_STEPS}"
+        + (f" and {WINDOW_STEPS} profiled steps" if window else "") + ")"
+        + (f", the card {dev_ms:.3f} ms a position (graph replays)" if dev_ms else "")
+        + f" | max_memory_allocated {peak:.2f} GiB | {time.perf_counter() - t1:.2f}s")
     say("kernels " + json.dumps({"run": label, **counts}))
-    del eng
+    del eng, body
+    _free(torch)
+    return dict(counts=counts, peak=peak, tokens=[r.generated for r in reqs], pos_ms=pos_ms,
+                tok_s=tokens / max(secs, 1e-9), dev_ms=dev_ms, window=win)
+
+
+def serve_ways(torch, checks, smi, label, cfg, params, max_tokens, path, eager_window):
+    """The same 8 prompts three ways, fp8 KV: eager (``disable_graphs()``)
+    and captured at decode_burst 1, and captured at decode_burst 4.  All
+    three must give equal tokens.  Prints each one's ms a decode position,
+    decode tokens/s, host ms a position (wall time less the card's time of
+    the captured step's graph, which runs the same kernels) and the idle
+    share that those two give (1 - card / wall), and the idle share of the
+    profiled windows (the eager one with ``eager_window``).  Returns the captured burst-1 run's counts, peak
+    and tokens."""
+    from flash_attn_tpu_torch.engine._graph import disable_graphs
+
+    with disable_graphs():
+        eager = serve(torch, checks, f"{label}, eager", cfg, params, "fp8", max_tokens, path,
+                      window=eager_window)
+    graph = serve(torch, checks, label, cfg, params, "fp8", max_tokens, path, window=True)
+    burst = serve(torch, checks, f"{label}, burst 4", cfg, params, "fp8", max_tokens, path,
+                  burst=4)
+    for name, run in (("eager", eager), ("burst 4", burst)):
+        bad = [i for i, (a, b) in enumerate(zip(run["tokens"], graph["tokens"])) if a != b]
+        if bad:
+            checks.failed.append(f"{label}: {name} tokens differ from the captured run's in "
+                                 f"requests {bad}")
+    ways = (("eager", eager, graph["dev_ms"]), ("captured", graph, graph["dev_ms"]),
+            ("captured burst 4", burst, burst["dev_ms"]))
+    parts = []
+    for name, run, dev in ways:
+        host = (f", host {run['pos_ms'] - dev:.3f} ms, idle share unprofiled "
+                f"{1 - dev / run['pos_ms']:.4f}") if dev else ""
+        parts.append(f"{name} {run['pos_ms']:.3f} ms a position, {run['tok_s']:.1f} tok/s{host}")
+    same = all(a == b for run in (eager, burst) for a, b in zip(run["tokens"], graph["tokens"]))
+    say(f"[{label}: eager / captured / burst 4] {smi} | " + "; ".join(parts)
+        + f" | tokens equal in all three: {same}")
+    for name, run in (("eager", eager), ("captured", graph)):
+        if run["window"] is None:
+            continue
+        wall, busy, top = run["window"]
+        say(f"  {name} window of {WINDOW_STEPS} steps ({smi}), torch.profiler: wall {wall:.3f} "
+            f"ms, card busy {busy:.3f} ms, idle share {1 - busy / wall:.4f}; top 5: "
+            + ", ".join(f"{n[:60]} {ms:.3f} ms x{c}" for n, ms, c in top))
+    return graph
+
+
+def serve_recapture(torch, checks, smi):
+    """A head changed in place between two waves of one engine (as a
+    training step changes it) must bring the decode body back to its eager
+    calls and a new capture: Llama-3 at 8B widths, 2 layers, int8 weights,
+    fp8 KV, the 8 prompts, 8 tokens.  Wave 2 runs on the negated head and
+    must give the tokens of a fresh eager engine on it, and other tokens
+    than wave 1."""
+    from flash_attn_tpu_torch.engine._graph import disable_graphs
+    from flash_attn_tpu_torch.engine.engine import InferenceEngine
+    from flash_attn_tpu_torch.models import llama
+
+    t1 = time.perf_counter()
+    cfg = dataclasses.replace(llama.LLAMA3_8B, num_layers=2)
+    params = llama.init_params(cfg, seed=SEED + 23, device="cuda", quantize="int8")
+    _, prompts = _prompts(cfg.vocab_size)
+
+    def wave(eng):
+        reqs = [eng.submit(p, max_tokens=8) for p in prompts]
+        eng.run()
+        return [r.generated for r in reqs]
+
+    def engine():
+        return InferenceEngine(params, llama.make_adapter(cfg), max_batch=8, capacity=4096,
+                               kv_mode="fp8", device="cuda")
+
+    eng = engine()
+    first = wave(eng)
+    graph = eng._decode_jit.graph
+    params["lm_head"].neg_()
+    second = wave(eng)
+    recaptured = eng._decode_jit.graph is not None and eng._decode_jit.graph is not graph
+    with disable_graphs():
+        want = wave(engine())
+    if not (recaptured and second == want and second != first):
+        checks.failed.append(f"{RUN_RECAPTURE}: recaptured {recaptured}, tokens equal to a "
+                             f"fresh eager engine's {second == want}, other than wave 1's "
+                             f"{second != first}")
+    del eng, graph, params
+    _free(torch)
+    say(f"[{RUN_RECAPTURE}] {smi} | re-captured after the head changed in place: "
+        f"{recaptured}, wave 2 equal to a fresh eager engine {second == want}, differs from "
+        f"wave 1 {second != first} | {time.perf_counter() - t1:.2f}s")
+
+
+def serve_sampled(torch, checks, smi, params):
+    """A short captured run at temperature 0.8, top_k 50 (Llama-3-8B int8,
+    fp8 KV, the 8 prompts, 8 tokens): two seeds, each twice.  Every token
+    must be valid and both runs of one seed equal (the engine's generator is
+    registered with each captured graph)."""
+    from flash_attn_tpu_torch.engine.engine import InferenceEngine
+    from flash_attn_tpu_torch.engine.sampler import SamplingParams
+    from flash_attn_tpu_torch.models import llama
+
+    t1 = time.perf_counter()
+    cfg, n_tok = llama.LLAMA3_8B, 8
+    _, prompts = _prompts(cfg.vocab_size)
+    runs = {}
+    for seed in (0, 1):
+        for rep in range(2):
+            eng = InferenceEngine(params, llama.make_adapter(cfg), max_batch=8, capacity=4096,
+                                  kv_mode="fp8", rng_seed=seed, device="cuda",
+                                  sampling=SamplingParams(temperature=0.8, top_k=50))
+            reqs = [eng.submit(p, max_tokens=n_tok) for p in prompts]
+            eng.run()
+            runs[seed, rep] = [r.generated for r in reqs]
+            if eng._decode_jit.graph is None:
+                checks.failed.append(f"{RUN_SAMPLED}: the decode body was not captured")
+            if not all(len(t) == n_tok and all(0 <= x < cfg.vocab_size for x in t)
+                       for t in runs[seed, rep]):
+                checks.failed.append(f"{RUN_SAMPLED}: seed {seed}: invalid tokens")
+            del eng
+            _free(torch)
+    repeat = [runs[s, 0] == runs[s, 1] for s in (0, 1)]
+    if not all(repeat):
+        checks.failed.append(f"{RUN_SAMPLED}: two runs of one seed differ: {repeat}")
     torch.cuda.empty_cache()
-    return counts, peak, [r.generated for r in reqs]
+    say(f"[{RUN_SAMPLED}] {smi} | 8 requests, {n_tok} tokens, seeds 0 and 1 twice each: "
+        f"valid, each seed's two runs equal {repeat}, the seeds' tokens differ "
+        f"{runs[0, 0] != runs[1, 0]} | {time.perf_counter() - t1:.2f}s")
 
 
-def serve_paged(torch, checks, params):
+def serve_paged(torch, checks, params, burst=1):
     """Phase 7: Llama-3-8B (phase 4's int8 params) through
     PagedInferenceEngine with prefix caching, fp8 KV, pages of 128,
-    max_batch 8, capacity 4096, 32 greedy tokens per request.  Traffic: a
+    max_batch 8, capacity 4096, 32 greedy tokens per request, decode
+    bodies captured, at ``burst``.  Traffic: a
     512-token shared prefix (4 full pages) and 16 distinct suffixes of
     64-512 tokens, all from the seed, in two waves of 8.  Wave 1 is
     admitted in one round before any prefill, so all 8 miss and the first
     to prefill donates the prefix pages; wave 2, submitted after wave 1
     completes, must hit 8 times and prefill only its suffixes (K8 chunk
     mode, no K4).  Counters are set to 0 before each wave and read after
-    it; returns the two waves' counts summed."""
+    it; returns the two waves' counts summed and the tokens."""
     import numpy as np
 
     from flash_attn_tpu_torch.engine.engine import PagedInferenceEngine
     from flash_attn_tpu_torch.models import llama
 
     t1 = time.perf_counter()
+    label = RUN_PAGED if burst == 1 else f"{RUN_PAGED}, burst {burst}"
     cfg, n_tok = llama.LLAMA3_8B, 32
     rng = np.random.default_rng(SEED + 7)
     prefix = rng.integers(0, cfg.vocab_size, 512).tolist()
@@ -1794,9 +1998,10 @@ def serve_paged(torch, checks, params):
     prompts = [prefix + rng.integers(0, cfg.vocab_size, int(n)).tolist() for n in suffix_lens]
     torch.cuda.reset_peak_memory_stats()
     eng = PagedInferenceEngine(params, llama.make_adapter(cfg), max_batch=8, capacity=4096,
-                               page_size=128, kv_mode="fp8", prefix_cache=True, device="cuda")
+                               page_size=128, kv_mode="fp8", prefix_cache=True, device="cuda",
+                               decode_burst=burst)
     m = eng.metrics
-    waves, total = [], {}
+    waves, total, tokens = [], {}, []
     for w in range(2):
         before = (m.prefill_tokens, m.prefill_seconds, m.decode_tokens, m.decode_seconds, m.steps)
         _reset_counts()
@@ -1805,10 +2010,11 @@ def serve_paged(torch, checks, params):
         torch.cuda.synchronize()
         counts = _read_counts()
         total = {k: total.get(k, 0) + n for k, n in counts.items()}
+        tokens += [r.generated for r in reqs]
         good = all(r.done and len(r.generated) == n_tok
                    and all(0 <= t < cfg.vocab_size for t in r.generated) for r in reqs)
         if not good:
-            checks.failed.append(f"{RUN_PAGED} wave {w + 1}: a request did not finish "
+            checks.failed.append(f"{label} wave {w + 1}: a request did not finish "
                                  f"with {n_tok} valid tokens")
         after = (m.prefill_tokens, m.prefill_seconds, m.decode_tokens, m.decode_seconds, m.steps)
         d = [x - y for x, y in zip(after, before)]
@@ -1816,7 +2022,7 @@ def serve_paged(torch, checks, params):
         say(f"  wave {w + 1}: suffixes {suffix_lens[8 * w:8 * (w + 1)].tolist()} | prefix "
             f"hits {eng.prefix.hits}, misses {eng.prefix.misses} so far | prefill "
             f"{d[0] / max(d[1], 1e-9):.1f} tok/s ({d[0]} tokens in {d[1]:.3f}s) | decode "
-            f"{d[2] / max(d[3], 1e-9):.1f} tok/s ({1e3 * d[3] / max(d[4], 1):.3f} ms/step) | "
+            f"{d[2] / max(d[3], 1e-9):.1f} tok/s ({1e3 * d[3] / max(d[4] * burst, 1):.3f} ms a position) | "
             f"{'ok' if good else 'FAIL'} | kernels {json.dumps(counts)}")
     free, resident = eng.alloc.free_count, eng.prefix.resident_pages
     num_pages = eng.pool.num_pages
@@ -1825,26 +2031,29 @@ def serve_paged(torch, checks, params):
                             ("K4 launches in wave 2", waves[1]["K4"], 0),
                             ("free pages after both waves", free, num_pages - 1 - resident)):
         if got != want:
-            checks.failed.append(f"{RUN_PAGED}: {name} {got}, expected {want}")
+            checks.failed.append(f"{label}: {name} {got}, expected {want}")
     for key in ("K8", "K8c", "K1m", "K3", "K4"):
         if total[key] <= 0:
-            checks.failed.append(f"{RUN_PAGED}: kernel {key} was not launched: {total}")
+            checks.failed.append(f"{label}: kernel {key} was not launched: {total}")
+    body = eng._burst_jit if burst > 1 else eng._decode_jit
+    if body.graph is None:
+        checks.failed.append(f"{label}: the decode body was not captured")
     # each decode-mode call is one launch of K8 that merges its own splits:
     # K1m serves only K8c's calls (at most one each)
     if total["K8 merges"] != total["K8"] or total["K1m"] > total["K8c"]:
-        checks.failed.append(f"{RUN_PAGED}: decode-mode K8 calls are not one launch each "
+        checks.failed.append(f"{label}: decode-mode K8 calls are not one launch each "
                              f"(K8 {total['K8']}, merged in the kernel {total['K8 merges']}, "
                              f"K1m {total['K1m']}, K8c {total['K8c']})")
     peak = torch.cuda.max_memory_allocated() / 2**30
-    say(f"[{RUN_PAGED}] 16 requests in two waves, {n_tok} tokens each: hits "
+    say(f"[{label}] 16 requests in two waves, {n_tok} tokens each: hits "
         f"{eng.prefix.hits}, misses {eng.prefix.misses}, resident pages {resident}, free "
         f"{free} of {num_pages - 1} | decode {m.decode_tokens / max(m.decode_seconds, 1e-9):.1f} "
-        f"tok/s ({1e3 * m.decode_seconds / max(m.steps, 1):.3f} ms/step) | "
+        f"tok/s ({1e3 * m.decode_seconds / max(m.steps * burst, 1):.3f} ms a decode position) | "
         f"max_memory_allocated {peak:.2f} GiB | {time.perf_counter() - t1:.2f}s")
-    say("kernels " + json.dumps({"run": RUN_PAGED, **total}))
-    del eng
-    torch.cuda.empty_cache()
-    return total
+    say("kernels " + json.dumps({"run": label, **total}))
+    del eng, body
+    _free(torch)
+    return total, tokens
 
 
 def _draft_3b(torch):
@@ -1865,9 +2074,10 @@ def serve_spec(torch, checks, params, plain_tokens):
     capacity 4096: (a) n-gram drafts (ngram 2), fp8 KV; (b) a self-draft
     (the draft is the target) with the target's KV unquantized, so both
     caches hold the same values and every draft should be accepted up to
-    rounding; (c) a draft at Llama-3.2-3B widths, fp8 KV.  Every counter is
-    set to 0 just before each run and read just after; the verify rounds
-    are counted at the adapter.  Returns {run label: counts}."""
+    rounding; (c) a draft at Llama-3.2-3B widths, fp8 KV.  The draft scans
+    and verify steps replay from CUDA graphs.  Every counter is set to 0
+    just before each run and read just after; the verify rounds are the
+    calls of the engine's verify body.  Returns {run label: counts}."""
     from flash_attn_tpu_torch.engine.engine import InferenceEngine, SpecConfig
     from flash_attn_tpu_torch.models import llama
 
@@ -1888,14 +2098,8 @@ def serve_spec(torch, checks, params, plain_tokens):
             dcfg, dparams = _draft_3b(torch)
             spec = SpecConfig(num_draft=K, draft_params=dparams,
                               draft_adapter=llama.make_adapter(dcfg))
-        rounds = []
-
-        def verify(p, toks, cache):
-            rounds.append(1)
-            return adapter.decode_multi(p, toks, cache)
-
-        eng = InferenceEngine(params, dataclasses.replace(adapter, decode_multi=verify),
-                              max_batch=8, capacity=4096, kv_mode=kv_mode, spec=spec, device="cuda")
+        eng = InferenceEngine(params, adapter, max_batch=8, capacity=4096, kv_mode=kv_mode,
+                              spec=spec, device="cuda")
         _reset_counts()
         reqs = [eng.submit(p, max_tokens=n_tok) for p in prompts]
         eng.run()
@@ -1903,15 +2107,19 @@ def serve_spec(torch, checks, params, plain_tokens):
         counts = _read_counts()
         runs[label] = counts
         m, snap = eng.metrics, eng.metrics.snapshot()
+        rounds = eng._verify_jit.calls
+        if eng._verify_jit.graph is None or (
+                spec.draft_adapter is not None and eng._draft_scan_jit.graph is None):
+            checks.failed.append(f"{label}: the verify step or draft scan was not captured")
         good = all(r.done and len(r.generated) == n_tok
                    and all(0 <= t < cfg.vocab_size for t in r.generated) for r in reqs)
         if not good:
             checks.failed.append(f"{label}: a request did not finish with {n_tok} valid tokens")
         if m.spec_steps <= 0:
             checks.failed.append(f"{label}: no verify step")
-        if counts["K1c"] != cfg.num_layers * len(rounds):
+        if counts["K1c"] != cfg.num_layers * rounds:
             checks.failed.append(f"{label}: K1c launched {counts['K1c']} times in "
-                                 f"{len(rounds)} verify rounds, expected {cfg.num_layers} each")
+                                 f"{rounds} verify rounds, expected {cfg.num_layers} each")
         idle = [k for k in path if counts[k] <= 0]
         if idle:
             checks.failed.append(f"{label}: kernels {idle} were not launched: {counts}")
@@ -1925,14 +2133,14 @@ def serve_spec(torch, checks, params, plain_tokens):
         emitted = sum(len(r.generated) - 1 for r in reqs)  # the first token is the prefill's
         say(f"[{label}] 8 requests, {n_tok} tokens each: {'ok' if good else 'FAIL'} | decode "
             f"{emitted / max(m.decode_seconds, 1e-9):.1f} tok/s, "
-            f"{1e3 * m.decode_seconds / max(m.steps, 1):.3f} ms per round ({len(rounds)} verify "
+            f"{1e3 * m.decode_seconds / max(m.steps, 1):.3f} ms per round ({rounds} verify "
             f"rounds of {m.steps}) | spec_tokens_per_step {snap['spec_tokens_per_step']}, draft "
             f"acceptance {accept} | tokens equal to phase 4's plain run {sum(same)}/{8 * n_tok}, "
             f"first divergence per request {diverge} | max_memory_allocated "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | {time.perf_counter() - t1:.2f}s")
         say("kernels " + json.dumps({"run": label, **counts}))
         del eng, spec
-        torch.cuda.empty_cache()
+        _free(torch)
     return runs
 
 
@@ -1949,31 +2157,37 @@ def _fresh_model(torch, cfg, **quant):
     return params, time.perf_counter() - t0
 
 
-def phase_serve(torch, checks):
-    """The main paths through the engine, one model on the card at a time:
-    4. Llama-3-8B, int8 weights, fp8 then int8 KV, 32 tokens;
+def phase_serve(torch, checks, smi):
+    """The main paths through the engine, one model on the card at a time,
+    the decode bodies captured in CUDA graphs:
+    4. Llama-3-8B, int8 weights, fp8 KV three ways (eager, captured,
+       captured burst 4) with profiled windows, then int8 KV; 32 tokens;
+       then a short stochastic run (serve_sampled);
     5. Llama-3-8B, W4A8 layers + W8A8 head, fused, fp8 KV, 32 tokens;
-    6. Llama-3-70B, int4 g=128 layers + W8A8 head, fused, fp8 KV, 16 tokens.
+    6. Llama-3-70B, int4 g=128 layers + W8A8 head, fused, fp8 KV three
+       ways, 16 tokens.
     Returns {run label: that run's launch counts}."""
     from flash_attn_tpu_torch.models import llama
 
     runs = {}
     base = ("K1", "K1m", "K2", "K4")
 
-    def add(label, counts):
-        runs[label] = counts
-
     params, secs = _fresh_model(torch, llama.LLAMA3_8B, quantize="int8")
     say(f"  8B params (int8 weights, bf16 embeddings and head) on the card in "
         f"{secs:.2f}s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    plain_tokens = None
-    for kv_mode in ("fp8", "int8"):
-        label = f"phase 4 serve Llama-3-8B int8, {kv_mode} KV"
-        counts, _, tokens = serve(torch, checks, label, llama.LLAMA3_8B, params, kv_mode, 32,
-                                  base + ("K3",))
-        add(label, counts)
-        plain_tokens = plain_tokens or tokens
-    add(RUN_PAGED, serve_paged(torch, checks, params))
+    run = serve_ways(torch, checks, smi, RUN_8B_INT8, llama.LLAMA3_8B, params, 64,
+                     base + ("K3",), eager_window=True)
+    runs[RUN_8B_INT8], plain_tokens = run["counts"], run["tokens"]
+    label = "phase 4 serve Llama-3-8B int8, int8 KV"
+    runs[label] = serve(torch, checks, label, llama.LLAMA3_8B, params, "int8", 32,
+                        base + ("K3",))["counts"]
+    serve_sampled(torch, checks, smi, params)
+    serve_recapture(torch, checks, smi)
+    runs[RUN_PAGED], paged_tokens = serve_paged(torch, checks, params)
+    _, burst_tokens = serve_paged(torch, checks, params, burst=4)
+    if burst_tokens != paged_tokens:
+        checks.failed.append(f"{RUN_PAGED}: burst 4 tokens differ from burst 1's")
+    say(f"[{RUN_PAGED}: burst 4 against burst 1] tokens equal: {burst_tokens == paged_tokens}")
     runs.update(serve_spec(torch, checks, params, plain_tokens))
     del params
 
@@ -1981,17 +2195,18 @@ def phase_serve(torch, checks):
                                 group_size=128, head_mode="w8a8", fuse=True)
     say(f"  8B params (W4A8 g=128 fused layers, W8A8 head) on the card in "
         f"{secs:.2f}s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    add(RUN_8B_W4A8, serve(torch, checks, RUN_8B_W4A8, llama.LLAMA3_8B, params, "fp8", 32,
-                           base + ("K5", "K7"))[0])
+    runs[RUN_8B_W4A8] = serve(torch, checks, RUN_8B_W4A8, llama.LLAMA3_8B, params, "fp8", 32,
+                              base + ("K5", "K7"))["counts"]
     del params
 
     params, secs = _fresh_model(torch, llama.LLAMA3_70B, quantize="int4",
                                 group_size=128, head_mode="w8a8", fuse=True)
     say(f"  70B params (int4 g=128 fused layers, W8A8 head, bf16 embeddings) on the "
         f"card in {secs:.2f}s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    counts, peak, _ = serve(torch, checks, RUN_70B, llama.LLAMA3_70B, params, "fp8", 16,
-                            base + ("K6", "K7"))
-    add(RUN_70B, counts)
+    run = serve_ways(torch, checks, smi, RUN_70B, llama.LLAMA3_70B, params, 32,
+                     base + ("K6", "K7"), eager_window=False)
+    runs[RUN_70B] = run["counts"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
     if peak > MAX_70B_GIB:
         checks.failed.append(f"70B serve peak {peak:.2f} GiB > {MAX_70B_GIB} GiB")
     del params
@@ -2064,6 +2279,8 @@ RUN_PAGED = "phase 7 serve Llama-3-8B int8, fp8 KV, paged + prefix cache"
 RUN_SPEC_NGRAM = "phase 9a serve Llama-3-8B int8, fp8 KV, n-gram speculation"
 RUN_SPEC_SELF = "phase 9b serve Llama-3-8B int8, bf16 KV, self-draft speculation"
 RUN_SPEC_3B = "phase 9c serve Llama-3-8B int8, fp8 KV, Llama-3.2-3B-width draft"
+RUN_SAMPLED = "phase 4s serve Llama-3-8B int8, fp8 KV, temperature 0.8, top_k 50"
+RUN_RECAPTURE = "phase 4r serve 2 layers at 8B widths, int8, fp8 KV, head changed between waves"
 RUN_TRAIN = (f"phase 8 train Llama-3 8B widths, {TRAIN_LAYERS} layers, B=1 S={TRAIN_SEQ}, "
              f"{TRAIN_STEPS} AdamW steps")
 KERNEL_ROWS = ("K1", "K1m", "K1c", "K1b", "K2", "K3", "K3g", "K4", "K5", "K6", "K7", "K8", "K8c",
@@ -2103,7 +2320,7 @@ def main() -> int:
     paged_card_vs_cpu(torch, checks)
     multi_card_vs_cpu(torch, checks)
     train_card_vs_cpu(torch, checks)
-    runs = phase_serve(torch, checks)
+    runs = phase_serve(torch, checks, smi)
     runs[RUN_TRAIN] = phase_train(torch, checks)
     for key, row in rows.items():
         row["launches_run"] = ROW_RUN[key]

@@ -1,31 +1,37 @@
 """Inference engines: continuous batching over a one-prompt prefill and a
-batched decode step.
+batched decode step, or bursts of decode steps.
 
-Port of flash_attn_tpu/engine/engine.py for the plain paths and greedy
-speculative decoding: ``InferenceEngine`` (a contiguous KV cache, with
-n-gram or draft-model speculation through the model's ``decode_multi``)
-and ``PagedInferenceEngine`` (a paged KV pool, admission gated by the
-native page allocator, optional automatic prefix caching).  Both prefill
-one prompt per call, padded to its bucket, and decode one token (or one
-verify round) for every slot per step (idle slots are masked by kv_length
-and ignored by the scheduler).  Chunked and packed prefill, decode bursts,
-LoRA banks and meshes are still to port and raise
-``NotImplementedError``.  PyTorch runs eagerly, so there is no jit; the KV
-caches and pool are updated in place.  The host's token buffer is copied
-before a step takes it, so the host never overwrites tokens that a step
-still reads.
+Port of flash_attn_tpu/engine/engine.py for the plain paths, decode
+bursts and greedy speculative decoding: ``InferenceEngine`` (a contiguous
+KV cache, with n-gram or draft-model speculation through the model's
+``decode_multi``) and ``PagedInferenceEngine`` (a paged KV pool,
+admission gated by the native page allocator, optional automatic prefix
+caching).  Both prefill one prompt per call, padded to its bucket, and
+decode one token (or one verify round) for every slot per step, or
+``decode_burst`` tokens per dispatch (idle slots are masked by kv_length
+and ignored by the scheduler).  A burst chains the next one off its last
+tokens on the card before the host reads it back, as JAX chains off its
+device-resident carry.  Chunked and packed prefill, LoRA banks and meshes
+are still to port and raise ``NotImplementedError``.
+
+The bodies JAX jits (the decode step, the burst, the draft scan, the
+verify step) are ``GraphBody``s (engine/_graph.py): replayed from CUDA
+graphs on the card, plain calls on the CPU and under ``disable_graphs()``.
+The KV caches and pool are updated in place, so every replay finds them
+where it was captured.  Prefill runs eagerly.
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
 from flash_attn_tpu_torch._device import resolve_device
+from flash_attn_tpu_torch.engine._graph import GraphBody, tensor_versions
 from flash_attn_tpu_torch.engine.kv_cache import KVCache
 from flash_attn_tpu_torch.engine.paged import PagedKVPool
 from flash_attn_tpu_torch.engine.prefix_cache import PrefixCache
@@ -107,18 +113,24 @@ class InferenceEngine:
                  spec=None, mesh=None, lora_bank=None, decode_burst: int = 1):
         """device: where the caches live and the steps run (default: the
         card); it must be where ``params`` (and a draft's params) are.
-        spec: a SpecConfig; it speculates when sampling is greedy."""
+        spec: a SpecConfig; it speculates when sampling is greedy.
+        decode_burst: decode up to this many tokens per slot in one
+        dispatch (flash_attn_tpu/engine/engine.py:137-147): a burst fires
+        only when nothing waits and every active slot has one burst of KV
+        headroom; a slot that ends mid-burst discards its tail."""
         if spec is not None:
             _check_spec(spec, adapter, mesh, prefill_chunk_size)
         unported = {
             "prefill_chunk_size": prefill_chunk_size is not None,
             "mesh": mesh is not None,
             "lora_bank": lora_bank is not None,
-            "decode_burst": decode_burst != 1,
         }
         for name, used in unported.items():
             if used:
                 raise NotImplementedError(f"{name} is not ported yet")
+        self.decode_burst = max(1, int(decode_burst))
+        if self.decode_burst > 1 and spec is not None:
+            raise ValueError("decode_burst does not compose with speculative decoding")
         self.device = resolve_device(device)
         self.params = params
         self.adapter = adapter
@@ -145,6 +157,66 @@ class InferenceEngine:
         # slot), so the loop never reads the lengths back from the device
         self._host_lens = np.zeros((max_batch,), np.int64)
         self.metrics = EngineMetrics(kv_capacity=max_batch * capacity)
+        # one chained in-flight burst: (its tokens, slot -> request at dispatch)
+        self._inflight = None
+        self._readback = _BurstReadback((self.decode_burst, max_batch), self.device)
+        draft_params = self.spec.draft_params if self.draft_cache is not None else None
+
+        def body(fn, stochastic=True):
+            return GraphBody(
+                fn, self.device,
+                buffers=lambda: _cache_buffers(self.cache) + _cache_buffers(self.draft_cache),
+                watch=lambda: tensor_versions(self.params, draft_params),
+                generator=self.generator if stochastic and self.sampling.temperature > 0 else None)
+
+        self._decode_jit = body(self._decode_batch)
+        self._burst_jit = body(self._decode_burst_body)
+        self._draft_scan_jit = body(self._draft_scan, stochastic=False)
+        self._verify_jit = body(self._verify, stochastic=False)
+
+    # --- the bodies JAX jits, captured on the card ---
+
+    def _decode_batch(self, tokens):
+        """One decode step for every slot: tokens [B] -> sampled [B].  With
+        a draft model under greedy sampling (speculation fell back to a
+        plain step) the draft cache takes the same tokens, so both caches
+        stay in lockstep (JAX's ``_draft_sync_jit``)."""
+        logits, self.cache = self.adapter.decode_step(self.params, tokens, self.cache)
+        if self.draft_cache is not None and self.sampling.temperature == 0.0:
+            _, self.draft_cache = self.spec.draft_adapter.decode_step(
+                self.spec.draft_params, tokens, self.draft_cache)
+        return sample(logits, self.generator, self.sampling)
+
+    def _decode_burst_body(self, tokens):
+        """decode_burst steps, each feeding its sampled tokens to the next
+        (JAX's lax.scan): tokens [B] -> sampled [burst, B]."""
+        toks = []
+        for _ in range(self.decode_burst):
+            logits, self.cache = self.adapter.decode_step(self.params, tokens, self.cache)
+            tokens = sample(logits, self.generator, self.sampling)
+            toks.append(tokens)
+        return torch.stack(toks)
+
+    def _draft_scan(self, tokens):
+        """num_draft + 1 greedy draft decode steps from ``tokens`` [B]:
+        returns the drafts [B, K].  The last step's logits are discarded;
+        it appends the last draft's KV, so the draft cache holds the same
+        K + 1 new entries as the verified target cache."""
+        drafts = []
+        for _ in range(self.spec.num_draft + 1):
+            logits, self.draft_cache = self.spec.draft_adapter.decode_step(
+                self.spec.draft_params, tokens, self.draft_cache)
+            tokens = torch.argmax(logits, dim=-1)
+            drafts.append(tokens)
+        return torch.stack(drafts[:-1], dim=1)
+
+    def _verify(self, tok_in):
+        """The verify step: [current, drafts] [B, K+1] through one
+        decode_multi -> the greedy tokens [B, K+1]."""
+        logits, self.cache = self.adapter.decode_multi(self.params, tok_in, self.cache)
+        return torch.argmax(logits, dim=-1)
+
+    # --- host loop ---
 
     def submit(self, prompt, max_tokens=64) -> Request:
         return self.sched.submit(prompt, max_tokens, self.adapter.eos_token)
@@ -157,6 +229,11 @@ class InferenceEngine:
         steps = 0
         while self.sched.has_work and steps < max_steps:
             steps += 1
+            if self._inflight is not None and not self.sched.active:
+                # every request of the in-flight burst has completed or
+                # been cancelled: its tokens are dead (its appends are
+                # already booked in _host_lens)
+                self._inflight = None
             for req in self.sched.admit():
                 self._do_prefill(req)
             if self.sched.active:
@@ -207,6 +284,19 @@ class InferenceEngine:
     def _do_decode_step(self):
         t0 = time.perf_counter()
         slots = self.sched.active_slots()
+        if self._inflight is not None:
+            # a chained burst is already on the card: chain the next one
+            # off its last tokens when that cannot hurt, then read this one
+            # back.  Its tokens hold for every slot whose request is the
+            # one it was dispatched for (snapshot guard); others discard.
+            toks, snap = self._inflight
+            self._inflight = None
+            if self._can_speculate():
+                self._speculate(toks)
+            self._process_burst(toks, snap, t0)
+            return
+        if not slots:
+            return
         if self.spec is not None and self.sampling.temperature == 0.0:
             # verify appends K+1 KV entries before acceptance is known: fall
             # back to plain decode when any slot lacks the headroom (the
@@ -215,14 +305,17 @@ class InferenceEngine:
                    for s in slots):
                 self._do_spec_decode_step(slots, t0)
                 return
-        tokens = _device_tokens(self.next_token, self.device)
-        logits, self.cache = self.adapter.decode_step(self.params, tokens, self.cache)
-        if self.draft_cache is not None and self.sampling.temperature == 0.0:
-            # spec fell back to plain decode this round: the draft cache
-            # takes the same tokens, so both caches stay in lockstep
-            _, self.draft_cache = self.spec.draft_adapter.decode_step(
-                self.spec.draft_params, tokens, self.draft_cache)
-        toks = sample(logits, self.generator, self.sampling).cpu().numpy()
+        if self.decode_burst > 1 and self._burst_ok(slots):
+            toks = self._dispatch_burst(_host_tokens(self.next_token))
+            snap = {s: self.sched.active[s] for s in slots}
+            if self._can_speculate():
+                # dispatch burst i+1 before reading burst i back: its last
+                # tokens continue every slot that stays active, so the card
+                # computes while the host books burst i
+                self._speculate(toks)
+            self._process_burst(toks, snap, t0)
+            return
+        toks = self._decode_jit(_host_tokens(self.next_token)).cpu().numpy()
         self._host_lens += 1  # decode appends for every batch slot
         self.metrics.record_decode(len(slots), time.perf_counter() - t0)
         self._update_kv_metric()
@@ -233,18 +326,63 @@ class InferenceEngine:
                 continue
             self.metrics.completed_requests += 1
 
-    def _draft_scan(self, tokens):
-        """num_draft + 1 greedy draft decode steps from ``tokens`` [B]:
-        returns the drafts [B, K] on the host.  The last step's logits are
-        discarded; it appends the last draft's KV, so the draft cache holds
-        the same K + 1 new entries as the verified target cache."""
-        tok, drafts = tokens, []
-        for _ in range(self.spec.num_draft + 1):
-            logits, self.draft_cache = self.spec.draft_adapter.decode_step(
-                self.spec.draft_params, tok, self.draft_cache)
-            tok = torch.argmax(logits, dim=-1)
-            drafts.append(tok)
-        return torch.stack(drafts[:-1], dim=1).cpu().numpy()
+    def _dispatch_burst(self, tokens):
+        """Enqueue one burst and the copy of its tokens to the host; the
+        host length mirror advances at once (the burst appends for every
+        batch slot)."""
+        toks = self._readback.start(self._burst_jit(tokens))
+        self._host_lens += self.decode_burst
+        return toks
+
+    def _speculate(self, toks):
+        snap = {s: self.sched.active[s] for s in self.sched.active_slots()}
+        # chain off the burst's last tokens on the card: no host round trip
+        self._inflight = (self._dispatch_burst(toks.dev[-1]), snap)
+
+    def _can_speculate(self) -> bool:
+        """Chain another burst only when it cannot hurt: nothing waits for
+        a slot, some slot still has token budget, and every active slot
+        has one more burst of KV headroom.  A burst chained for slots that
+        then complete costs discarded tokens and masked KV: at most one
+        burst of device time."""
+        if self.decode_burst <= 1 or self.sched.waiting:
+            return False
+        slots = self.sched.active_slots()
+        if not slots:
+            return False
+        if not any(len(self.sched.active[s].generated) < self.sched.active[s].max_tokens
+                   for s in slots):
+            return False
+        return all(int(self._host_lens[s]) + self.decode_burst <= self.capacity
+                   for s in slots)
+
+    def _process_burst(self, toks, snap, t0):
+        toks = self._readback.wait(toks)  # [burst, B]: waits for this burst alone
+        consumed = 0
+        for slot, req in snap.items():
+            if self.sched.active.get(slot) is not req:
+                continue  # the slot was released or reassigned since dispatch
+            for i in range(self.decode_burst):
+                tok = int(toks[i, slot])
+                consumed += 1
+                if self.sched.step_done(slot, tok):
+                    # EOS or max_tokens mid-burst: the tail is discarded (its
+                    # KV is masked by length once the slot is reused)
+                    self.metrics.completed_requests += 1
+                    break
+                self.next_token[slot] = tok
+        self.metrics.record_decode(consumed, time.perf_counter() - t0)
+        self._update_kv_metric()
+
+    def _burst_ok(self, slots) -> bool:
+        """Burst only when it cannot hurt latency or correctness: nothing
+        waits (admission is not delayed) and every active slot has one
+        burst of KV headroom.  A slot whose budget runs out mid-burst
+        discards its tail."""
+        if self.sched.waiting:
+            return False
+        return all(int(self._host_lens[s]) + self.decode_burst <= self.capacity
+                   for s in slots)
 
     def _do_spec_decode_step(self, slots, t0):
         """One speculative round: K drafts per slot, ONE decode_multi over
@@ -256,7 +394,7 @@ class InferenceEngine:
         tok_in = np.zeros((max_b, K + 1), np.int64)
         tok_in[:, 0] = self.next_token
         if self.draft_cache is not None:
-            drafts = self._draft_scan(_device_tokens(self.next_token, self.device))
+            drafts = self._draft_scan_jit(_host_tokens(self.next_token)).cpu().numpy()
         else:
             drafts = np.zeros((max_b, K), np.int64)
             for s in slots:
@@ -264,9 +402,7 @@ class InferenceEngine:
                 drafts[s] = _ngram_draft(req.prompt + req.generated, self.spec.ngram, K)
         tok_in[:, 1:] = drafts
         lens_before = self._host_lens.copy()
-        logits, self.cache = self.adapter.decode_multi(
-            self.params, _device_tokens(tok_in, self.device), self.cache)
-        greedy = torch.argmax(logits, dim=-1).cpu().numpy()  # [B, K+1]
+        greedy = self._verify_jit(_host_tokens(tok_in)).cpu().numpy()  # [B, K+1]
         self._host_lens += K + 1  # decode_multi advanced every slot
         self.metrics.record_decode(len(slots), time.perf_counter() - t0)
         self._update_kv_metric()
@@ -318,9 +454,10 @@ class PagedInferenceEngine:
                  device=None):
         """device: where the pool lives and the steps run (default: the
         card); it must be where ``params`` are.  num_pages defaults to
-        max_batch full sequences plus the null page."""
-        if decode_burst != 1:
-            raise NotImplementedError("decode_burst is not ported yet")
+        max_batch full sequences plus the null page.  decode_burst: as
+        InferenceEngine's; admission acquires pages for the prompt plus
+        max_tokens rounded up to whole bursts, so every burst, the
+        request's last included, stays inside the slot's own pages."""
         if adapter.decode_step_paged is None:
             raise ValueError("adapter has no decode_step_paged")
         if prefix_cache and adapter.prefill_suffix_paged is None:
@@ -340,10 +477,24 @@ class PagedInferenceEngine:
         self.sched = ContinuousBatchingScheduler(max_batch)
         self.generator = torch.Generator(device=self.device).manual_seed(rng_seed)
         self.next_token = np.zeros((max_batch,), np.int64)
-        # host mirror of pool.length (no device reads on the hot path)
+        # host mirrors (no device reads on the hot path): pool.length, and
+        # each slot's allocated token capacity (pages * page_size)
         self._host_lens = np.zeros((max_batch,), np.int64)
+        self._slot_cap = np.zeros((max_batch,), np.int64)
         self.metrics = EngineMetrics(kv_capacity=(num_pages - 1) * page_size)
         self._pending_pages: dict[int, list[int]] = {}
+        self.decode_burst = max(1, int(decode_burst))
+        self._inflight = None
+        self._readback = _BurstReadback((self.decode_burst, max_batch), self.device)
+
+        def body(fn):
+            return GraphBody(
+                fn, self.device, buffers=lambda: _pool_buffers(self.pool),
+                watch=lambda: tensor_versions(self.params),
+                generator=self.generator if self.sampling.temperature > 0 else None)
+
+        self._decode_jit = body(self._decode_batch)
+        self._burst_jit = body(self._decode_burst_body)
         self.prefix = None
         if prefix_cache:
             self.prefix = PrefixCache(page_size)
@@ -352,6 +503,24 @@ class PagedInferenceEngine:
             self._slot_prefix: dict[int, tuple] = {}
             self._slot_pages: dict[int, list[int]] = {}
             self._slot_refs: dict[int, tuple] = {}
+
+    # --- the bodies JAX jits, captured on the card ---
+
+    def _decode_batch(self, tokens):
+        """One paged decode step for every slot: tokens [B] -> sampled [B]."""
+        logits, self.pool = self.adapter.decode_step_paged(self.params, tokens, self.pool)
+        return sample(logits, self.generator, self.sampling)
+
+    def _decode_burst_body(self, tokens):
+        """decode_burst paged steps: tokens [B] -> sampled [burst, B]."""
+        toks = []
+        for _ in range(self.decode_burst):
+            logits, self.pool = self.adapter.decode_step_paged(self.params, tokens, self.pool)
+            tokens = sample(logits, self.generator, self.sampling)
+            toks.append(tokens)
+        return torch.stack(toks)
+
+    # --- host loop ---
 
     def submit(self, prompt, max_tokens=64) -> Request:
         return self.sched.submit(prompt, max_tokens, self.adapter.eos_token)
@@ -364,6 +533,8 @@ class PagedInferenceEngine:
         steps = 0
         while self.sched.has_work and steps < max_steps:
             steps += 1
+            if self._inflight is not None and not self.sched.active:
+                self._inflight = None  # all its requests are gone
             for req in self.sched.admit(self._can_admit):
                 self._admit_pages(req)
                 self._do_prefill(req)
@@ -371,7 +542,14 @@ class PagedInferenceEngine:
                 self._do_decode_step()
 
     def _pages_needed(self, req: Request) -> int:
-        return -(-(len(req.prompt) + req.max_tokens) // self.page_size)
+        total = len(req.prompt) + req.max_tokens
+        if self.decode_burst > 1:
+            # the decode budget rounded up to whole bursts: the last burst
+            # overshoots max_tokens (its tail discarded) but must still land
+            # inside the slot's own pages
+            gen = -(-req.max_tokens // self.decode_burst) * self.decode_burst
+            total = len(req.prompt) + gen
+        return -(-total // self.page_size)
 
     def _can_admit(self, req: Request) -> bool:
         """Acquire the request's pages now, against the slot the scheduler
@@ -404,6 +582,7 @@ class PagedInferenceEngine:
     def _admit_pages(self, req: Request):
         pages = self._pending_pages.pop(req.uid)
         self.pool.assign_pages(req.slot, pages)
+        self._slot_cap[req.slot] = len(pages) * self.page_size
         if self.prefix is not None:
             self._slot_prefix[req.slot] = self._pending_prefix.pop(req.uid)
             self._slot_pages[req.slot] = pages
@@ -420,6 +599,7 @@ class PagedInferenceEngine:
         self.pool.assign_pages(slot, [0] * self.max_pages)
         self.pool.set_length(slot, 0)
         self._host_lens[slot] = 0
+        self._slot_cap[slot] = 0
 
     def _prefill_tokens(self, tokens, bucket: int):
         toks = np.zeros((1, bucket), np.int64)
@@ -478,13 +658,28 @@ class PagedInferenceEngine:
     def _do_decode_step(self):
         t0 = time.perf_counter()
         slots = self.sched.active_slots()
-        logits, self.pool = self.adapter.decode_step_paged(
-            self.params, _device_tokens(self.next_token, self.device), self.pool)
-        toks = sample(logits, self.generator, self.sampling).cpu().numpy()
+        if self._inflight is not None:
+            toks, snap = self._inflight
+            self._inflight = None
+            if self._can_speculate():
+                self._speculate(toks)
+            # a release in here lands, on the card's one stream, after the
+            # burst just chained, as JAX's functional table update does
+            self._process_burst(toks, snap, t0)
+            return
+        if not slots:
+            return
+        if self.decode_burst > 1 and self._burst_ok(slots):
+            toks = self._dispatch_burst(_host_tokens(self.next_token))
+            snap = {s: self.sched.active[s] for s in slots}
+            if self._can_speculate():
+                self._speculate(toks)
+            self._process_burst(toks, snap, t0)
+            return
+        toks = self._decode_jit(_host_tokens(self.next_token)).cpu().numpy()
         self._host_lens += 1  # decode appends for every batch slot
         self.metrics.record_decode(len(slots), time.perf_counter() - t0)
-        self.metrics.kv_tokens_in_use = int(
-            sum(self._host_lens[s] for s in self.sched.active_slots()))
+        self._update_kv_metric()
         for slot in slots:
             tok = int(toks[slot])
             if not self.sched.step_done(slot, tok):
@@ -493,11 +688,115 @@ class PagedInferenceEngine:
             self._release(slot)
             self.metrics.completed_requests += 1
 
+    def _dispatch_burst(self, tokens):
+        toks = self._readback.start(self._burst_jit(tokens))
+        self._host_lens += self.decode_burst
+        return toks
 
-def _device_tokens(toks: np.ndarray, device) -> torch.Tensor:
-    """A copy of host tokens on ``device``: on the CPU ``torch.from_numpy``
-    would share the buffer that the host overwrites after the step."""
-    return torch.tensor(toks, dtype=torch.int64, device=device)
+    def _speculate(self, toks):
+        snap = dict(self.sched.active)
+        self._inflight = (self._dispatch_burst(toks.dev[-1]), snap)
+
+    def _can_speculate(self) -> bool:
+        """Chain a burst off the last one's tokens on the card only when
+        nothing waits for a slot, some slot still has budget, and every
+        active slot's pages cover one more burst."""
+        if self.decode_burst <= 1 or self.sched.waiting:
+            return False
+        slots = self.sched.active_slots()
+        if not slots:
+            return False
+        if not any(len(self.sched.active[s].generated) < self.sched.active[s].max_tokens
+                   for s in slots):
+            return False
+        return all(int(self._host_lens[s]) + self.decode_burst <= int(self._slot_cap[s])
+                   for s in slots)
+
+    def _process_burst(self, toks, snap, t0):
+        toks = self._readback.wait(toks)  # [burst, B]
+        consumed = 0
+        for slot, req in snap.items():
+            if self.sched.active.get(slot) is not req:
+                continue
+            for i in range(self.decode_burst):
+                tok = int(toks[i, slot])
+                consumed += 1
+                if self.sched.step_done(slot, tok):
+                    self._release(slot)
+                    self.metrics.completed_requests += 1
+                    break
+                self.next_token[slot] = tok
+        self.metrics.record_decode(consumed, time.perf_counter() - t0)
+        self._update_kv_metric()
+
+    def _update_kv_metric(self):
+        self.metrics.kv_tokens_in_use = int(
+            sum(self._host_lens[s] for s in self.sched.active_slots()))
+
+    def _burst_ok(self, slots) -> bool:
+        """Burst whenever nothing waits and every active slot's pages cover
+        one more burst (see _pages_needed for why they always cover the
+        last one)."""
+        if self.sched.waiting:
+            return False
+        return all(int(self._host_lens[s]) + self.decode_burst <= int(self._slot_cap[s])
+                   for s in slots)
+
+
+class _BurstTokens(NamedTuple):
+    dev: torch.Tensor  # [burst, B] on the device (a graph's static output)
+    host: torch.Tensor | None  # its pinned host copy (the card only)
+    event: object  # recorded after that copy
+
+
+class _BurstReadback:
+    """Two pinned host buffers for burst tokens.  Each burst's tokens are
+    copied to one without a sync, behind an event, so reading burst i back
+    waits for burst i alone, not for burst i+1 queued behind it; the copy
+    is queued before the next replay overwrites the graph's output."""
+
+    def __init__(self, shape, device):
+        self.bufs = None
+        if device.type == "cuda":
+            self.bufs = [torch.empty(shape, dtype=torch.int64, pin_memory=True)
+                         for _ in range(2)]
+        self.turn = 0
+
+    def start(self, dev: torch.Tensor) -> _BurstTokens:
+        if self.bufs is None:
+            return _BurstTokens(dev, None, None)
+        host = self.bufs[self.turn]
+        self.turn ^= 1
+        host.copy_(dev, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return _BurstTokens(dev, host, event)
+
+    @staticmethod
+    def wait(toks: _BurstTokens) -> np.ndarray:
+        if toks.host is None:
+            return toks.dev.numpy()
+        toks.event.synchronize()
+        return toks.host.numpy()
+
+
+def _host_tokens(toks: np.ndarray) -> torch.Tensor:
+    """A copy of host tokens (the host overwrites its array after the
+    step), which a body moves to its device without a sync."""
+    return torch.tensor(toks, dtype=torch.int64)
+
+
+def _cache_buffers(cache) -> list:
+    """The tensors a decode body updates in place in a KVCache."""
+    if cache is None:
+        return []
+    return [*cache.k, *cache.v, *(cache.k_scale or ()), *(cache.v_scale or ()), cache.length]
+
+
+def _pool_buffers(pool) -> list:
+    """The tensors a decode body updates in place in a PagedKVPool."""
+    return [*pool.k_pages, *pool.v_pages, *(pool.k_scale or ()), *(pool.v_scale or ()),
+            pool.block_table, pool.length]
 
 
 def _check_spec(spec: SpecConfig, adapter: ModelAdapter, mesh, prefill_chunk_size):

@@ -84,9 +84,14 @@ class PagedKVPool:
     # -- host-side bookkeeping (the engine's allocator owns the free list) --
 
     def assign_pages(self, slot: int, page_ids) -> "PagedKVPool":
-        """Install page ids at the start of ``slot``'s table row."""
+        """Install page ids at the start of ``slot``'s table row.  On the
+        card the ids go from pinned memory without a sync, so a release
+        does not wait for the decode burst in flight (on one stream the
+        write lands after it)."""
         ids = torch.as_tensor(list(page_ids), dtype=torch.int32)
-        self.block_table[slot, :len(ids)] = ids.to(self.block_table.device)
+        if self.block_table.is_cuda:
+            ids = ids.pin_memory()
+        self.block_table[slot, :len(ids)] = ids.to(self.block_table.device, non_blocking=True)
         return self
 
     def set_lengths(self, lengths) -> "PagedKVPool":

@@ -3,7 +3,8 @@
 Port of flash_attn_tpu/engine/sampler.py.  Greedy is an argmax and
 matches the JAX sampler exactly; the stochastic modes draw from a
 ``torch.Generator`` and so give other tokens than ``jax.random`` for the
-same seed.
+same seed.  Nothing is read back to the host, so the engine's captured
+decode bodies sample inside their CUDA graphs.
 """
 
 from __future__ import annotations
@@ -41,4 +42,8 @@ def sample(logits: torch.Tensor, generator: torch.Generator | None,
         logits = logits.masked_fill(logits < cutoff.amin(-1, keepdim=True),
                                     float("-inf"))
     probs = torch.softmax(logits, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    # torch.multinomial's own one-sample path (argmax of p / q, q ~ Exp(1)),
+    # without its checks that read the probabilities back to the host: the
+    # same tokens from the same generator, and capturable in a CUDA graph
+    q = torch.empty_like(probs).exponential_(1, generator=generator)
+    return torch.argmax(probs / q, dim=-1)

@@ -155,8 +155,7 @@ def test_kv_cache_append_matches_jax(kv_mode):
 def test_engine_rejects_unported_options(both_params):
     _, tp = both_params
     adapter = llama.make_adapter(CFG)
-    for kw in ({"prefill_chunk_size": 16}, {"decode_burst": 4}, {"mesh": object()},
-               {"lora_bank": object()}):
+    for kw in ({"prefill_chunk_size": 16}, {"mesh": object()}, {"lora_bank": object()}):
         with pytest.raises(NotImplementedError):
             InferenceEngine(tp, adapter, max_batch=1, capacity=32, device="cpu", **kw)
 
@@ -194,7 +193,8 @@ def test_port_imports_no_jax():
     assert len(files) > 10 and (ROOT / "chip_smoke.py").exists()
     names = {p.relative_to(ROOT).as_posix() for p in files}
     for module in ("engine/paged.py", "engine/prefix_cache.py", "ops/paged_decode.py",
-                   "runtime/abi.py", "ops/flash_bwd.py", "utils/train.py"):
+                   "runtime/abi.py", "ops/flash_bwd.py", "utils/train.py",
+                   "utils/profiling.py", "engine/_graph.py"):
         assert f"flash_attn_tpu_torch/{module}" in names
     from flash_attn_tpu_torch.runtime import abi
 
