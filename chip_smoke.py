@@ -15,8 +15,16 @@ Phases, one line each with its seconds:
      flash_attn_tpu_torch.flash_decode, JAX's default layout), K1 and K4 at
      the draft's H=24, K2 kv-append (bit for bit; its CUDA-graph time
      beside an empty kernel on its grid), K3 int8 matmul
-     (8B shapes, M = 8 and 512, and 17 and 100), K4 flash forward (both softmax modes, also at S=891, a
-     shifted Sq=1000 Sk=1500, B=2 with per-sequence rope and H=24), K8 paged
+     (8B shapes, M = 8 and 512, and 17, 100 and 4096), K4 flash forward
+     (both softmax modes, also at S=891, a shifted Sq=1000 Sk=1500, B=2
+     with per-sequence rope and H=24; with segment ids and positions at
+     the packed prefill's shape, phase 4's eight prompts in 4096, and
+     positions alone at a chunk's, Sq=512 at start 1024 over 4096, each
+     timed alone and as called beside SDPA with the boolean mask and the
+     bound on live pairs; and where the masks compose: segments + causal,
+     random unsorted segments + positions, rows and blocks with no live
+     key; each masked case's tile lists as the kernel counts them, held to
+     the tile test), K8 paged
      decode (decode mode at pages of 128 and 512, with the live splits it
      plans, one launch that merges them in the kernel, also against K1 on
      the same content; graph and as-called times at phase 2's lengths and
@@ -24,8 +32,9 @@ Phases, one line each with its seconds:
      and 1024, a ragged T=123, T=4 in both softmax modes), K3 grouped, K6
      int4 matmul (70B
      shapes) and K5 W4A8 matmul (8B shapes), both at M = 8 and 256, at
-     17-128 on w_gate_up and on an N tail (4096 x 6148), K7 W8A8 matmul
-     (70B head, M = 8, 100, 1024, bit-exact), K9 and K10 flash backward (dq and dk/dv passes, at the
+     17-128 on w_gate_up, at 4096 (the packed bucket) on one shape and on
+     an N tail (4096 x 6148), K7 W8A8 matmul (70B head, M = 8, 100, 1024,
+     4096, bit-exact), K9 and K10 flash backward (dq and dk/dv passes, at the
      training shape, at a shifted causal Sq=1000, Sk=1500, non-causal at
      B=2, at group sizes 1 and 8 and non-causal at S=2048, each also
      launched twice and held bitwise equal, beside the device time of
@@ -40,16 +49,24 @@ Phases, one line each with its seconds:
      path (int8 weights): a prompt, a prompt sharing its first two pages
      through the suffix prefill, and four paged decode steps; the verify
      step (int8 weights): two prompts, then decode_multi of 5 tokens
-     against the CPU and against five decode steps on the card; then one
+     against the CPU and against five decode steps on the card; the
+     prefill paths (int8 weights): prefill_packed of three prompts in the
+     1024 bucket, and prefill_chunk of a 700-token prompt in chunks of 256
+     into an fp8 cache (logits and the cache); then one
      training loss and every parameter's gradient (2 layers at 8B widths,
      bf16, B=1, S=128, remat);
   4-6. the main paths, each model alone on the card, served by the
      continuous-batching engine (8 greedy requests, prompts of 128-1024
      tokens from the seed) with its decode bodies replayed from CUDA
      graphs, with the launch count of every kernel in each run (replays
-     counted): 4. Llama-3-8B int8 weights, fp8 KV three ways, eager
-     (disable_graphs()), captured, and captured at decode_burst 4, whose
-     tokens must be equal (64 tokens), then int8 KV (32 tokens); each with
+     counted; the 8 prompts go through one packed prefill, whose K4 calls
+     carry segment ids, one a layer): 4. Llama-3-8B int8 weights, fp8 KV
+     three ways, eager (disable_graphs()), captured, and captured at
+     decode_burst 4, whose tokens must be equal (64 tokens), then the same
+     prompts one prompt a prefill call (16 tokens) and with
+     prefill_chunk_size 512 (4c, 32 tokens: K4 with positions one a layer
+     and chunk), with the prefill tokens/s of the three, then int8 KV (32
+     tokens); each with
      its ms a decode position after the warm-up and capture, decode
      tokens/s, the card's ms a position (the captured graph replayed back
      to back) and the host's (the rest), and the card's idle share in a
@@ -62,7 +79,7 @@ Phases, one line each with its seconds:
      5. Llama-3-8B W4A8 layers + W8A8 head, fused, fp8 KV (32 tokens);
      6. Llama-3-70B (80 layers, random weights from the seed) int4 g=128
      layers + W8A8 head, fused, fp8 KV, three ways as phase 4 (32 tokens;
-     the captured window only), with its peak memory;
+     the captured window only), with its peak memory against 75 GiB;
   7. (run right after phase 4, on its params) Llama-3-8B int8 weights
      served by the paged engine with prefix caching, fp8 KV, pages of
      128, captured: two waves of 8 requests sharing a 512-token prefix,
@@ -85,7 +102,8 @@ Phases, one line each with its seconds:
 
 Before the last line come the kernels' JSON record (each row's launches
 are those of the run named in its "launches_run"; the quantized matmuls'
-rows also carry their prompt bucket's numbers under "prompt") and the
+rows also carry their prompt bucket's numbers under "prompt", K4's its
+packed and chunk points under "packed" and "chunk") and the
 card; the last line is {"ok": true, "device": {...}}.  Any failed check
 exits nonzero without that line; so does a machine without CUDA or a
 directory without the rest of the repository.
@@ -284,9 +302,9 @@ def _q_row(name, replaces, points, main, prompt):
 
 
 def check_k3(torch, checks, rows):
-    """K3 at the 8B shapes, M = 8 (decode) and 512 (the 8B int8 prefill,
-    which has no M >= 512 route), and at M = 17 and 100 (rows that fill
-    no whole 64- or 128-row block) on 4096 x 14336."""
+    """K3 at the 8B shapes, M = 8 (decode) and 512, and at M = 17 and 100
+    (rows that fill no whole 64- or 128-row block) and PACKED_M (the
+    packed prefill's bucket) on 4096 x 14336."""
     from flash_attn_tpu_torch.ops import matmul as mm
     from flash_attn_tpu_torch.ops.quant import quantize_int8
 
@@ -298,7 +316,7 @@ def check_k3(torch, checks, rows):
         wq, s = wq.contiguous(), s[0].contiguous()
         del wf
         wbf = wq.bfloat16()
-        for M in (8, 512) + ((17, 100) if (K, N) == (4096, 14336) else ()):
+        for M in (8, 512) + ((17, 100, PACKED_M) if (K, N) == (4096, 14336) else ()):
             x = torch.randn((M, K), generator=g, device="cuda", dtype=torch.bfloat16)
             timed = M in (8, 512)
             points[(M, K, N)] = _q_point(
@@ -339,12 +357,16 @@ def _int8_grouped_weight(torch, g, K, N, gs):
 _EXTRA_M = (17, 32, 64, 100, 128)
 # an N that is not a multiple of the kernels' 128 columns (nor of 16)
 _TAIL = (4096, 6148)
+# the packed prefill's bucket: phase 4's eight prompts (3450 tokens) in 4096
+PACKED_M = 4096
 
 
 def check_k6(torch, checks, rows):
     """K6 at the 70B fused shapes (wqkv, wo, w_gate_up, w_down), g = 128,
     at decode (M = 8) and the largest prompt bucket that reaches it (256),
-    at _EXTRA_M on w_gate_up, and on the N tail at M = 8, 17, 100, 256."""
+    at _EXTRA_M on w_gate_up, at PACKED_M on wo (the plain version's
+    per-group partials at w_gate_up would take 60 GB), and on the N tail
+    at M = 8, 17, 100, 256."""
     from flash_attn_tpu_torch.ops import matmul as mm
     from flash_attn_tpu_torch.ops.quant import dequantize_int4
 
@@ -354,7 +376,8 @@ def check_k6(torch, checks, rows):
         w = _int4_weight(torch, g, K, N)
         wdq = dequantize_int4(w, torch.bfloat16)
         ms = (8, 17, 100, 256) if (K, N) == _TAIL else (8, 256)
-        for M in ms + (_EXTRA_M if (K, N) == (8192, 57344) else ()):
+        ms += _EXTRA_M if (K, N) == (8192, 57344) else ()
+        for M in ms + ((PACKED_M,) if (K, N) == (8192, 8192) else ()):
             x = torch.randn((M, K), generator=g, device="cuda", dtype=torch.bfloat16)
             args = (x, w.packed, w.scales, 128, torch.bfloat16)
             timed = M in (8, 256) and (K, N) != _TAIL
@@ -372,8 +395,9 @@ def check_k6(torch, checks, rows):
 
 def check_k5(torch, checks, rows):
     """K5 at the 8B fused shapes, g = 128, M = 8 and 256, at _EXTRA_M on
-    w_gate_up, and on the N tail at M = 8, 17, 100, 256; x is quantized per
-    token by the port's plain quantize_activations first."""
+    w_gate_up, at PACKED_M on wqkv, and on the N tail at M = 8, 17, 100,
+    256; x is quantized per token by the port's plain
+    quantize_activations first."""
     from flash_attn_tpu_torch.ops import matmul as mm
     from flash_attn_tpu_torch.ops.quant import dequantize_int4
 
@@ -383,7 +407,8 @@ def check_k5(torch, checks, rows):
         w = _int4_weight(torch, g, K, N)
         wdq = dequantize_int4(w, torch.bfloat16)
         ms = (8, 17, 100, 256) if (K, N) == _TAIL else (8, 256)
-        for M in ms + (_EXTRA_M if (K, N) == (4096, 28672) else ()):
+        ms += _EXTRA_M if (K, N) == (4096, 28672) else ()
+        for M in ms + ((PACKED_M,) if (K, N) == (4096, 6144) else ()):
             x = torch.randn((M, K), generator=g, device="cuda", dtype=torch.bfloat16)
             xq, sx = mm.quantize_activations(x)
             args = (xq, sx, w.packed, w.scales, 128, torch.bfloat16)
@@ -403,8 +428,9 @@ def check_k5(torch, checks, rows):
 
 def check_k7(torch, checks, rows):
     """K7 at the 70B head (8192 x 128256) on fp32 activations, M = 8
-    (decode), 100 and 1024 (the largest prefill bucket): bit-exact against
-    the plain version, whose int32 dot is exact in float64."""
+    (decode), 100, 1024 and PACKED_M (the packed prefill's bucket):
+    bit-exact against the plain version, whose int32 dot is exact in
+    float64."""
     from flash_attn_tpu_torch.ops import matmul as mm
     from flash_attn_tpu_torch.ops.quant import quantize_int8
 
@@ -416,7 +442,7 @@ def check_k7(torch, checks, rows):
     del wf
     wbf = w.to(torch.bfloat16)
     points = {}
-    for M in (8, 100, 1024):
+    for M in (8, 100, 1024, PACKED_M):
         x = torch.randn((M, K), generator=g, device="cuda", dtype=torch.float32)
         xq, sx = mm.quantize_activations(x)
         args = (xq, sx, w, sw, torch.float32)
@@ -427,7 +453,7 @@ def check_k7(torch, checks, rows):
             lib_name, lib_fn = "bf16 matmul on the int8 values", lambda: torch.matmul(xb, wbf)
         points[(M, K, N)] = _q_point(
             torch, checks, f"K7 M={M} K={K} N={N}", lambda: mm.matmul_w8a8_cuda(*args),
-            lambda: mm.matmul_w8a8_plain(*args), lib_fn if M != 100 else None, lib_name,
+            lambda: mm.matmul_w8a8_plain(*args), lib_fn if M in (8, 1024) else None, lib_name,
             M * K + M * 4 + K * N + N * 4 + M * N * 4, 2 * M * K * N, INT8_OPS_PER_S, exact=True)
     del w, wbf
     rows["K7"] = _q_row("w8a8_matmul (M=8, K=8192, N=128256, fp32 out)",
@@ -1011,6 +1037,235 @@ def check_k4_shapes(torch, checks):
         del q, k, v
 
 
+def _packed_positions(torch, lens, S):
+    """Segment ids (1, 2, ... a prompt; 0 padding) and positions
+    (restarting at 0 a prompt; 0 padding) of prompts of ``lens`` packed in
+    order into one [1, S] row, as the engine packs them (CPU tensors)."""
+    seg = torch.zeros((1, S), dtype=torch.int32)
+    pos = torch.zeros((1, S), dtype=torch.int32)
+    off = 0
+    for i, n in enumerate(lens):
+        seg[0, off:off + n] = i + 1
+        pos[0, off:off + n] = torch.arange(n)
+        off += n
+    return seg, pos
+
+
+def tile_test(q_ranges, k_ranges, causal: bool, Sq: int, Sk: int):
+    """The test K4 runs when it lists a block's key tiles, in plain
+    PyTorch, on ``ops/flash_fwd.py:tile_meta``'s ranges: (live, full), each
+    [B, nq, nk] bool.  A (q tile, k tile) pair is skipped unless its ranges
+    of segment ids overlap, the k tile's least position is at most the q
+    tile's greatest, and (with ``causal``) the tile starts at or before the
+    q tile's last row's diagonal; ``full`` marks a listed pair that needs
+    no segment or position mask (one segment on both sides, greatest kv
+    position <= least q position).  The reference that the kernel's own
+    counts (``k4_tile_counts``) are held to."""
+    import torch
+
+    tile = 64
+    nq, nk = q_ranges.shape[1], k_ranges.shape[1]
+    qr, kr = q_ranges[:, :, None], k_ranges[:, None]
+    live = (kr[..., 2] >= qr[..., 0]) & (kr[..., 0] <= qr[..., 2]) & (kr[..., 1] <= qr[..., 3])
+    if causal:
+        row_last = torch.clamp(torch.arange(nq) * tile + tile - 1, max=Sq - 1) + (Sk - Sq)
+        kv_end = torch.clamp(row_last + 1, max=Sk)
+        live = live & (torch.arange(nk)[None, :] * tile < kv_end[:, None]).to(live.device)
+    one = (qr[..., 0] == qr[..., 2]) & (kr[..., 0] == kr[..., 2]) & (kr[..., 0] == qr[..., 0])
+    full = live & one & (kr[..., 3] <= qr[..., 1])
+    return live, full
+
+
+def k4_tile_counts(torch, checks, label, q, k, v, cos, sin, causal, masks):
+    """One launch of K4's C entry with its tile count on (not through the
+    wrapper, so not a launch of the main path): the key tiles that head
+    0's blocks listed and of those the ones walked unmasked, summed over
+    the batch, as the kernel counted them.  Fails the check unless they
+    equal ``tile_test``'s counts on the same ranges.  Returns (live,
+    unmasked, all tile pairs)."""
+    from flash_attn_tpu_torch import _build
+    from flash_attn_tpu_torch.ops import flash_fwd as ff
+
+    B, Sq, H, D = q.shape
+    Sk, Hk = k.shape[1], k.shape[2]
+    qmeta, qr = ff.tile_meta(masks.q_segment_ids, masks.q_positions, B, Sq)
+    kmeta, kr = ff.tile_meta(masks.kv_segment_ids, masks.kv_positions, B, Sk)
+    counts = torch.zeros(2, dtype=torch.int32, device="cuda")
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device="cuda")
+    p = _build.ptr
+    _build.check(_build.lib().fatt_flash_fwd(
+        p(q), p(k), p(v), p(cos), p(sin), p(out), p(lse), p(qmeta), p(kmeta), p(qr), p(kr),
+        p(counts), B, Sq, Sk, H, Hk, D, 0, float(D ** -0.5 * ff.LOG2E), int(causal), 1,
+        _build.stream()), "fatt_flash_fwd")
+    live, full = tile_test(qr, kr, causal, Sq, Sk)
+    got, want = counts.tolist(), [int(live.sum()), int(full.sum())]
+    if got != want:
+        checks.failed.append(f"{label}: K4 listed (live, unmasked) tiles {got}, the tile "
+                             f"test {want}")
+    return got[0], got[1], int(live.numel())
+
+
+def check_k4_masked(torch, checks, rows):
+    """K4 with masks, no causal flag, both softmax modes, against its plain
+    version as check_k4 holds it (a skipped live tile fails the row and
+    LSE checks): segment ids and positions at the packed prefill's shape
+    (phase 4's eight prompts in the 4096 bucket, 646 padding tokens, B=1
+    H=32 Hk=8), and positions alone at a chunk's (Sq=512 at start 1024 over
+    a 4096-position cache).  For each (clamped): the kernel's time alone
+    (its tile metadata made once; events and a CUDA graph) and as called
+    (the wrapper's tile metadata held from the call before, and made anew
+    each call), the plain version's, the library's
+    (SDPA on rotated q with the boolean mask, enable_gqa) and the bound on
+    the pairs the masks leave live; and the key tiles K4 listed and walked
+    unmasked, as it counted them, held equal to ``tile_test``'s.  Adds them
+    to K4's row."""
+    import torch.nn.functional as F
+
+    from flash_attn_tpu_torch import _build
+    from flash_attn_tpu_torch.ops import flash_fwd as ff
+    from flash_attn_tpu_torch.ops.rope import rope_cos_sin, rope_rotate
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    H, Hk, D = 32, 8, 128
+    lens, _ = _prompts(128256)
+    seg, pos = (x.cuda() for x in _packed_positions(torch, [int(n) for n in lens], 4096))
+    cpos = torch.arange(1024, 1536, device="cuda", dtype=torch.int32)[None]
+    kpos = torch.arange(4096, device="cuda", dtype=torch.int32)[None]
+    cases = {"packed": (4096, 4096, ff.Masks(seg, seg, pos, pos), pos),
+             "chunk": (512, 4096, ff.Masks(None, None, cpos, kpos), cpos)}
+    worst = rows["K4"]["max_abs_err"]
+    for name, (Sq, Sk, masks, qpos) in cases.items():
+        q = torch.randn((1, Sq, H, D), generator=g, device="cuda", dtype=torch.bfloat16)
+        k = torch.randn((1, Sk, Hk, D), generator=g, device="cuda", dtype=torch.bfloat16)
+        v = torch.randn((1, Sk, Hk, D), generator=g, device="cuda", dtype=torch.bfloat16)
+        cos, sin = rope_cos_sin(qpos, D, 500000.0)
+        live = ff.live_pairs(masks, False, Sq, Sk, "cuda")
+        n_live = int(live.sum())
+        qmeta, qr = ff.tile_meta(masks.q_segment_ids, masks.q_positions, 1, Sq)
+        kmeta, kr = ff.tile_meta(masks.kv_segment_ids, masks.kv_positions, 1, Sk)
+        label = f"K4 {name} Sq={Sq} Sk={Sk} H={H} Hk={Hk}"
+        n_tiles, n_full, n_all = k4_tile_counts(torch, checks, label, q, k, v, cos, sin,
+                                                False, masks)
+        for mode in ("clamped", "online"):
+            clamped = mode == "clamped"
+            out, lse = ff.flash_fwd(q, k, v, rope_cos=cos, rope_sin=sin, softmax_mode=mode,
+                                    **masks._asdict())
+            rout, rlse = ff.flash_fwd_plain(q, k, v, False, D ** -0.5, cos, sin, clamped, masks)
+            torch.cuda.synchronize()
+            err, share = row_err(out, rout)
+            lerr = float((lse - rlse).abs().max())
+            ok = (checks.check(f"{label} {mode} out", share, 1.0)
+                  & checks.check(f"{label} {mode} lse", lerr, 1e-3))
+            worst = max(worst, err)
+            line = (f"  {label} {mode}: max_abs_err {err:.3e} ({share:.3f} of its row's tol), "
+                    f"lse err {lerr:.3e} (tol 1e-3) {'ok' if ok else 'FAIL'}")
+            if not clamped:
+                say(line)
+                continue
+            o2, l2 = torch.empty_like(q), torch.empty_like(lse)
+            p, lib = _build.ptr, _build.lib()
+
+            def kernel():
+                _build.check(lib.fatt_flash_fwd(
+                    p(q), p(k), p(v), p(cos), p(sin), p(o2), p(l2), p(qmeta), p(kmeta), p(qr),
+                    p(kr), None, 1, Sq, Sk, H, Hk, D, 0, float(D ** -0.5 * ff.LOG2E), 0, 1,
+                    _build.stream()), "fatt_flash_fwd")
+
+            kernel()
+            torch.cuda.synchronize()
+            if not (torch.equal(o2, out) and torch.equal(l2, lse)):
+                checks.failed.append(f"{label}: the kernel alone differs from the wrapper's call")
+            res = dict(Sq=Sq, Sk=Sk, live_pairs=n_live, live_tiles=n_tiles,
+                       unmasked_tiles=n_full, ms=cuda_ms(torch, kernel),
+                       graph_ms=graph_ms(torch, kernel),
+                       call_ms=cuda_ms(torch, lambda: ff.flash_fwd_cuda(
+                           q, k, v, False, D ** -0.5, cos, sin, True, masks)),
+                       first_call_ms=cuda_ms(torch, lambda: (
+                           setattr(ff._tiles, "last", None),
+                           ff.flash_fwd_cuda(q, k, v, False, D ** -0.5, cos, sin, True, masks))),
+                       plain_ms=cuda_ms(torch, lambda: ff.flash_fwd_plain(
+                           q, k, v, False, D ** -0.5, cos, sin, True, masks), iters=3))
+            qr_ = rope_rotate(q, cos, sin).transpose(1, 2).contiguous()
+            kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+            res["library_ms"] = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                qr_, kt, vt, attn_mask=live[:, None], enable_gqa=True))
+            flops = 4 * H * D * n_live
+            nbytes = (q.numel() * 2 * 2 + k.numel() * 2 * 2 + cos.numel() * 4 * 2
+                      + lse.numel() * 4 + (Sq + Sk) * 8)
+            res["bound_ms"], res["bound_by"] = bound(nbytes, flops)
+            rows["K4"][name] = res
+            say(f"{line} | {res['ms']:.4f} ms alone (graph {res['graph_ms']:.4f}, "
+                f"{flops / res['graph_ms'] / 1e9:.1f} TFLOP/s on live pairs), as called "
+                f"{res['call_ms']:.4f} (tile metadata held, as in a prefill's later layers; "
+                f"made anew, as in its first: {res['first_call_ms']:.4f}), plain {res['plain_ms']:.4f}, library (SDPA, boolean "
+                f"mask) {res['library_ms']:.4f}, bound {res['bound_ms']:.4f} ({res['bound_by']}) | "
+                f"live pairs {n_live} of {Sq * Sk}, K4 listed {n_tiles} of {n_all} tiles "
+                f"({n_full} unmasked; the tile test's counts alike)")
+        del q, k, v, live
+    rows["K4"]["max_abs_err"] = worst
+    check_k4_mask_mix(torch, checks)
+
+
+def check_k4_mask_mix(torch, checks):
+    """K4 against its plain version, both softmax modes, where the masks
+    compose and the tile lists are irregular: segments with the causal
+    flag at B=2 (varlen-like, ragged 300), random unsorted segment ids with
+    positions (tiles of many segments, rows with no live key: out 0, lse
+    -1e30) at Sq=77 Sk=200, segments alone at B=2 S=130, positions with a
+    shifted causal flag at Sq=100 Sk=250, and blocks with one live tile or
+    none (segment ids a tile, one k tile's changed; positions).  Each
+    case's tile lists are counted by the kernel and held to
+    ``tile_test``'s."""
+    from flash_attn_tpu_torch.ops import flash_fwd as ff
+    from flash_attn_tpu_torch.ops.rope import rope_cos_sin
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    D = 128
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g, device="cuda", dtype=torch.int32)
+
+    def runs(B, S, n):
+        return torch.sort(ints(1, n + 1, (B, S)), dim=1).values
+
+    pos300 = torch.arange(300, device="cuda", dtype=torch.int32)[None].expand(2, 300)
+    tile_ids = (pos300[:1, :256] // 64 + 1).contiguous()  # q tile t (k tile t): segment t+1
+    cases = (  # (label, B, Sq, Sk, H, Hk, causal, q_seg, kv_seg, q_pos, kv_pos)
+        ("segments + causal", 2, 300, 300, 8, 2, True, *(2 * (runs(2, 300, 3),)), None, None),
+        ("random segments + positions", 1, 77, 200, 8, 8, False, ints(0, 4, (1, 77)),
+         ints(0, 4, (1, 200)), ints(0, 200, (1, 77)), ints(0, 200, (1, 200))),
+        ("segments", 2, 130, 130, 4, 1, False, *(2 * (runs(2, 130, 4),)), None, None),
+        ("positions + causal", 1, 100, 250, 8, 2, True, None, None,
+         torch.arange(150, 250, device="cuda", dtype=torch.int32)[None],
+         ints(0, 300, (1, 250))),
+        ("one live tile or none a block", 1, 256, 256, 4, 2, False, tile_ids,
+         torch.where(tile_ids == 3, 9, tile_ids), pos300[:1, :256], pos300[:1, :256]),
+    )
+    for label, B, Sq, Sk, H, Hk, causal, qs, ks, qp, kp in cases:
+        masks = ff.Masks(qs, ks, qp, kp)
+        q = torch.randn((B, Sq, H, D), generator=g, device="cuda", dtype=torch.bfloat16)
+        k = torch.randn((B, Sk, Hk, D), generator=g, device="cuda", dtype=torch.bfloat16)
+        v = torch.randn((B, Sk, Hk, D), generator=g, device="cuda", dtype=torch.bfloat16)
+        cos, sin = rope_cos_sin(torch.arange(Sq, device="cuda")[None], D, 500000.0)
+        n_tiles, n_full, n_all = k4_tile_counts(torch, checks, f"K4 {label}", q, k, v, cos,
+                                                sin, causal, masks)
+        for mode in ("clamped", "online"):
+            clamped = mode == "clamped"
+            out, lse = ff.flash_fwd(q, k, v, causal=causal, rope_cos=cos, rope_sin=sin,
+                                    softmax_mode=mode, **masks._asdict())
+            rout, rlse = ff.flash_fwd_plain(q, k, v, causal, D ** -0.5, cos, sin, clamped, masks)
+            torch.cuda.synchronize()
+            err, share = row_err(out, rout)
+            lerr = float((lse - rlse).abs().max())
+            name = f"K4 {label} B={B} Sq={Sq} Sk={Sk} {mode}"
+            ok = checks.check(f"{name} out", share, 1.0) & checks.check(f"{name} lse", lerr, 1e-3)
+            dead = int((rlse <= ff.NEG_INF / 2).sum())
+            say(f"  {name}: max_abs_err {err:.3e} ({share:.3f} of its row's tol), lse err "
+                f"{lerr:.3e} (tol 1e-3), {dead} rows with no live key, K4 listed {n_tiles} of "
+                f"{n_all} tiles ({n_full} unmasked) {'ok' if ok else 'FAIL'}")
+
+
 def _bwd_inputs(torch, g, B, Sq, Sk, causal, rope, H=32, Hk=8, D=128):
     """Random bf16 q, k, v, dout; out and lse from K4 (online); delta as
     flash_bwd forms it; RoPE tables (each sequence its own positions) or
@@ -1409,6 +1664,7 @@ def phase_kernels(torch, checks):
     check_k2(torch, checks, rows)
     check_k4(torch, checks, rows)
     check_k4_shapes(torch, checks)
+    check_k4_masked(torch, checks, rows)
     torch.cuda.empty_cache()
     check_k9_k10(torch, checks, rows)
     torch.cuda.empty_cache()
@@ -1500,6 +1756,90 @@ def card_vs_cpu(torch, checks, label, quantize, head_mode, fuse):
         f"{tuple(got.shape)} finite={finite} max_abs_err {err:.3e} (tol {tol:.3e}, "
         f"max |logit| {float(ref.abs().max()):.3f}) {'ok' if ok else 'FAIL'} | greedy "
         f"agreement {agree}/{ref.shape[0]} | {time.perf_counter() - t0:.2f}s")
+    del sides, caches, card
+    torch.cuda.empty_cache()
+
+
+def prefill_card_vs_cpu(torch, checks):
+    """2 layers at full 8B widths, int8 weights, the prefill paths on the
+    card against the CPU: prefill_packed of three prompts (300 + 200 + 57
+    tokens in the 1024 bucket), the logits of every real row; prefill_chunk
+    of a 700-token prompt in chunks of 256 into slot 1 of an fp8 cache of
+    1024 positions, every chunk's real logits and the slot's cache after
+    the last chunk (dequantized values and scales; the share of equal bytes
+    is printed).  Each within the phase's 5 % of its largest reference; a
+    cached value also within one e4m3 step of itself (1/8 of its
+    magnitude), the rounding flip that a value summed in another order
+    can take."""
+    import numpy as np
+
+    from flash_attn_tpu_torch.models import llama
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(llama.LLAMA3_8B, num_layers=2)
+    card = llama.init_params(cfg, seed=SEED + 24, device="cuda", quantize="int8")
+    sides = {"cpu": _to(card, "cpu"), "cuda": card}
+    rng = np.random.default_rng(SEED + 24)
+    lens = (300, 200, 57)
+    off = sum(lens)
+    toks = torch.zeros((1, 1024), dtype=torch.long)
+    toks[0, :off] = torch.from_numpy(rng.integers(0, cfg.vocab_size, off))
+    seg, pos = _packed_positions(torch, lens, 1024)
+    got = {}
+    for d, params in sides.items():
+        logits, _ = llama.prefill_packed(params, toks.to(d), pos.to(d), seg.to(d), cfg)
+        got[d] = logits[0, :off].float().cpu()
+        del logits
+    results = [("prefill_packed logits", got["cuda"], got["cpu"], False)]
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, 700))
+    caches = {d: llama.make_cache(cfg, 2, 1024, mode="fp8", device=d) for d in sides}
+    got = {d: [] for d in sides}
+    for start in range(0, 700, 256):
+        chunk = torch.zeros((1, 256), dtype=torch.long)
+        n = min(256, 700 - start)
+        chunk[0, :n] = prompt[start:start + n]
+        for d, params in sides.items():
+            logits, _ = llama.prefill_chunk(params, chunk.to(d), cfg, caches[d], 1, start)
+            got[d].append(logits[0, :n].float().cpu())
+            del logits
+    results.append(("prefill_chunk logits", torch.cat(got["cuda"]), torch.cat(got["cpu"]),
+                    False))
+    same_bytes = []
+    for layer in range(cfg.num_layers):
+        for name, which in (("k", 0), ("v", 1)):
+            ref = caches["cpu"].slot_kv_float(layer, 1, torch.float32)[which]
+            mine = caches["cuda"].slot_kv_float(layer, 1, torch.float32)[which].cpu()
+            results.append((f"prefill_chunk cache {name} layer {layer}", mine, ref, True))
+            scales = caches["cpu"].k_scale if which == 0 else caches["cpu"].v_scale
+            scales_card = caches["cuda"].k_scale if which == 0 else caches["cuda"].v_scale
+            results.append((f"prefill_chunk cache {name}_scale layer {layer}",
+                            scales_card[layer][1].cpu(), scales[layer][1], False))
+            buf = caches["cpu"].k if which == 0 else caches["cpu"].v
+            buf_card = caches["cuda"].k if which == 0 else caches["cuda"].v
+            same_bytes.append(float((buf_card[layer][1].cpu().view(torch.uint8)
+                                      == buf[layer][1].view(torch.uint8)).float().mean()))
+    parts = []
+    for name, mine, ref, fp8 in results:
+        finite = bool(torch.isfinite(mine).all())
+        diff = (mine - ref).abs()
+        # as card_vs_cpu: the sides round at the same points and sum in
+        # another order, which can flip a bf16, int8-activation or fp8-KV
+        # rounding that two layers carry on
+        tol = 5e-2 * float(ref.abs().max())
+        if fp8:
+            share = float((diff / (torch.maximum(mine.abs(), ref.abs()) / 8 + tol)).max())
+            ok = checks.check(f"card vs cpu {name}", share, 1.0)
+            what = f"{share:.3f} of its tol (an e4m3 step + {tol:.3e})"
+        else:
+            ok = checks.check(f"card vs cpu {name}", float(diff.max()), tol)
+            what = f"tol {tol:.3e}"
+        if not finite:
+            checks.failed.append(f"card {name} not finite")
+        parts.append(f"{name} {tuple(mine.shape)} max_abs_err {float(diff.max()):.3e} ({what}) "
+                     f"{'ok' if ok and finite else 'FAIL'}")
+    say(f"[phase 3 card vs cpu, prefill paths: 2 layers at 8B widths, int8 weights] "
+        + "; ".join(parts) + f" | fp8 cache bytes equal {min(same_bytes):.4f}-"
+        f"{max(same_bytes):.4f} | {time.perf_counter() - t0:.2f}s")
     del sides, caches, card
     torch.cuda.empty_cache()
 
@@ -1721,12 +2061,15 @@ def _reset_counts():
         fn.launches = 0
     k8.chunk_launches = k8.merges = 0
     wrappers["K1"].chunk_launches = wrappers["K1"].bshd_launches = 0
+    wrappers["K4"].seg_launches = wrappers["K4"].pos_launches = 0
 
 
 def _read_counts() -> dict:
     """Each kernel's launches; K1 split into decode mode (BHSD), chunk mode
-    and BSHD, K8 into decode mode and chunk mode, and K8's launches that
-    merged their splits in the kernel ("K8 merges")."""
+    and BSHD, K8 into decode mode and chunk mode, K8's launches that
+    merged their splits in the kernel ("K8 merges"), and K4's launches
+    with segment ids ("K4 seg") and with positions ("K4 pos"), which are
+    also counted in "K4"."""
     wrappers, k8 = _counters()
     counts = {k: fn.launches for k, fn in wrappers.items()}
     k1 = wrappers["K1"]
@@ -1736,6 +2079,8 @@ def _read_counts() -> dict:
     counts["K8"] = k8.launches - k8.chunk_launches
     counts["K8c"] = k8.chunk_launches
     counts["K8 merges"] = k8.merges
+    counts["K4 seg"] = wrappers["K4"].seg_launches
+    counts["K4 pos"] = wrappers["K4"].pos_launches
     return counts
 
 
@@ -1781,16 +2126,22 @@ def _decode_window(torch, eng):
 
 
 def serve(torch, checks, label, cfg, params, kv_mode, max_tokens, path, burst=1,
-          window=False):
+          window=False, packed=True, chunk=None):
     """One engine run of 8 greedy requests (max_batch 8, capacity 4096) at
     ``burst``.  Every counter is set to 0 just before and read just after;
-    each kernel in ``path`` must have launched.  The step times leave out
-    the first WARM_STEPS dispatches (warm-up and capture) and, with
-    ``window`` (burst 1), the next WINDOW_STEPS, which run inside a profiler
-    window.  Captured runs also time their decode graph replayed back to
-    back (CUDA events): the card's time a decode position.  Returns a dict
-    of the run's counts, peak memory, tokens, ms and device ms a decode
-    position, decode tokens/s and the window's numbers."""
+    each kernel in ``path`` must have launched.  The 8 prompts (3450
+    tokens) go through one packed prefill, whose K4 calls carry segment
+    ids (one a layer); with ``packed`` False the adapter has no
+    prefill_packed and each prompt is prefilled alone; with ``chunk`` the
+    engine has that prefill_chunk_size (so it does not pack), and K4's
+    calls with positions must be one a layer and chunk.  The step times
+    leave out the first WARM_STEPS dispatches (warm-up and capture) and,
+    with ``window`` (burst 1), the next WINDOW_STEPS, which run inside a
+    profiler window.  Captured runs also time their decode graph replayed
+    back to back (CUDA events): the card's time a decode position.
+    Returns a dict of the run's counts, peak memory, tokens, ms and device
+    ms a decode position, decode and prefill tokens/s, the window's
+    numbers and the decode steps that ran between chunks."""
     import numpy as np
 
     from flash_attn_tpu_torch.engine import _graph
@@ -1799,8 +2150,19 @@ def serve(torch, checks, label, cfg, params, kv_mode, max_tokens, path, burst=1,
 
     t1 = time.perf_counter()
     lens, prompts = _prompts(cfg.vocab_size)
-    eng = InferenceEngine(params, llama.make_adapter(cfg), max_batch=8,
-                          capacity=4096, kv_mode=kv_mode, device="cuda", decode_burst=burst)
+    adapter = llama.make_adapter(cfg)
+    if not packed:
+        adapter = dataclasses.replace(adapter, prefill_packed=None)
+    eng = InferenceEngine(params, adapter, max_batch=8, capacity=4096, kv_mode=kv_mode,
+                          device="cuda", decode_burst=burst, prefill_chunk_size=chunk)
+    between = [0]  # decode steps run while a prompt is mid-way through its chunks
+    step = eng._do_decode_step
+
+    def counted_step():
+        between[0] += bool(eng._prefilling)
+        step()
+
+    eng._do_decode_step = counted_step
     _reset_counts()
     reqs = [eng.submit(p, max_tokens=max_tokens) for p in prompts]
     m = eng.metrics
@@ -1825,6 +2187,14 @@ def serve(torch, checks, label, cfg, params, kv_mode, max_tokens, path, burst=1,
     idle = [k for k in path if counts[k] <= 0]
     if idle:
         checks.failed.append(f"{label}: kernels {idle} were not launched: {counts}")
+    n_chunks = sum(-(-len(p) // chunk) for p in prompts if len(p) > chunk) if chunk else 0
+    want = {"packed prefills": int(packed and not chunk),
+            "K4 seg": cfg.num_layers * int(packed and not chunk),
+            "K4 pos": cfg.num_layers * (n_chunks if chunk else int(packed))}
+    got = {"packed prefills": eng.packed_prefills, "K4 seg": counts["K4 seg"],
+           "K4 pos": counts["K4 pos"]}
+    if got != want:
+        checks.failed.append(f"{label}: prefill paths {got}, expected {want}")
     body = eng._burst_jit if burst > 1 else eng._decode_jit
     dev_ms = None
     if _graph._enabled:
@@ -1834,19 +2204,24 @@ def serve(torch, checks, label, cfg, params, kv_mode, max_tokens, path, burst=1,
             dev_ms = cuda_ms(torch, body.graph.replay, iters=10, warmup=2) / burst
     peak = torch.cuda.max_memory_allocated() / 2**30
     pos_ms = 1e3 * secs / max(steps * burst, 1)
+    prefill_tok_s = m.prefill_tokens / max(m.prefill_seconds, 1e-9)
+    how = (f"{n_chunks} chunks of {chunk}, {between[0]} decode steps between them"
+           if chunk else "one packed call" if packed else "one prompt a call")
     say(f"[{label}] 8 requests, prompts {lens.tolist()}, {max_tokens} tokens each: "
-        f"{'ok' if good else 'FAIL'} | prefill "
-        f"{m.prefill_tokens / max(m.prefill_seconds, 1e-9):.1f} tok/s | decode "
+        f"{'ok' if good else 'FAIL'} | prefill {prefill_tok_s:.1f} tok/s ({how}) | decode "
         f"{tokens / max(secs, 1e-9):.1f} tok/s, {pos_ms:.3f} ms a decode position "
         f"({steps} dispatches of {burst} after {WARM_STEPS}"
         + (f" and {WINDOW_STEPS} profiled steps" if window else "") + ")"
         + (f", the card {dev_ms:.3f} ms a position (graph replays)" if dev_ms else "")
         + f" | max_memory_allocated {peak:.2f} GiB | {time.perf_counter() - t1:.2f}s")
     say("kernels " + json.dumps({"run": label, **counts}))
-    del eng, body
+    # the engine is held by its bodies and by counted_step's cells: drop
+    # them all before collecting
+    del eng, body, step, counted_step
     _free(torch)
     return dict(counts=counts, peak=peak, tokens=[r.generated for r in reqs], pos_ms=pos_ms,
-                tok_s=tokens / max(secs, 1e-9), dev_ms=dev_ms, window=win)
+                tok_s=tokens / max(secs, 1e-9), dev_ms=dev_ms, window=win,
+                prefill_tok_s=prefill_tok_s)
 
 
 def serve_ways(torch, checks, smi, label, cfg, params, max_tokens, path, eager_window):
@@ -1889,6 +2264,28 @@ def serve_ways(torch, checks, smi, label, cfg, params, max_tokens, path, eager_w
             f"ms, card busy {busy:.3f} ms, idle share {1 - busy / wall:.4f}; top 5: "
             + ", ".join(f"{n[:60]} {ms:.3f} ms x{c}" for n, ms, c in top))
     return graph
+
+
+def serve_prefill_ways(torch, checks, smi, params, packed_run, runs):
+    """Phase 4's prefill paths beside its packed run (``packed_run``, the
+    captured fp8 one): the same prompts with one prompt a prefill call (an
+    adapter without prefill_packed; 16 tokens), and with
+    prefill_chunk_size 512 (32 tokens; its counts go into ``runs``).
+    Prints each one's prefill tokens/s and the share of greedy tokens the
+    one-prompt run has in common with the packed one (their arithmetic
+    differs, so equality is not required)."""
+    from flash_attn_tpu_torch.models import llama
+
+    cfg, base = llama.LLAMA3_8B, ("K1", "K1m", "K2", "K3", "K4")
+    one = serve(torch, checks, RUN_8B_ONE, cfg, params, "fp8", 16, base, packed=False)
+    chunked = serve(torch, checks, RUN_CHUNK, cfg, params, "fp8", 32, base, chunk=512)
+    runs[RUN_CHUNK] = chunked["counts"]
+    same = sum(a == b for r, want in zip(one["tokens"], packed_run["tokens"])
+               for a, b in zip(r, want))
+    say(f"[phase 4 prefill: packed / one prompt a call / chunks of 512] {smi} | prefill "
+        f"{packed_run['prefill_tok_s']:.1f} / {one['prefill_tok_s']:.1f} / "
+        f"{chunked['prefill_tok_s']:.1f} tok/s | greedy tokens of the one-prompt run equal to "
+        f"the packed run's {same}/{8 * 16}")
 
 
 def serve_recapture(torch, checks, smi):
@@ -2117,6 +2514,10 @@ def serve_spec(torch, checks, params, plain_tokens):
             checks.failed.append(f"{label}: a request did not finish with {n_tok} valid tokens")
         if m.spec_steps <= 0:
             checks.failed.append(f"{label}: no verify step")
+        if eng.packed_prefills != 1 or counts["K4 seg"] != cfg.num_layers:
+            checks.failed.append(f"{label}: {eng.packed_prefills} packed prefills, K4 with "
+                                 f"segment ids {counts['K4 seg']}, expected 1 and "
+                                 f"{cfg.num_layers}")
         if counts["K1c"] != cfg.num_layers * rounds:
             checks.failed.append(f"{label}: K1c launched {counts['K1c']} times in "
                                  f"{rounds} verify rounds, expected {cfg.num_layers} each")
@@ -2161,8 +2562,10 @@ def phase_serve(torch, checks, smi):
     """The main paths through the engine, one model on the card at a time,
     the decode bodies captured in CUDA graphs:
     4. Llama-3-8B, int8 weights, fp8 KV three ways (eager, captured,
-       captured burst 4) with profiled windows, then int8 KV; 32 tokens;
-       then a short stochastic run (serve_sampled);
+       captured burst 4) with profiled windows, each with one packed
+       prefill; one prompt a prefill call and chunks of 512
+       (serve_prefill_ways); then int8 KV; 32 tokens; then a short
+       stochastic run (serve_sampled);
     5. Llama-3-8B, W4A8 layers + W8A8 head, fused, fp8 KV, 32 tokens;
     6. Llama-3-70B, int4 g=128 layers + W8A8 head, fused, fp8 KV three
        ways, 16 tokens.
@@ -2178,6 +2581,7 @@ def phase_serve(torch, checks, smi):
     run = serve_ways(torch, checks, smi, RUN_8B_INT8, llama.LLAMA3_8B, params, 64,
                      base + ("K3",), eager_window=True)
     runs[RUN_8B_INT8], plain_tokens = run["counts"], run["tokens"]
+    serve_prefill_ways(torch, checks, smi, params, run, runs)
     label = "phase 4 serve Llama-3-8B int8, int8 KV"
     runs[label] = serve(torch, checks, label, llama.LLAMA3_8B, params, "int8", 32,
                         base + ("K3",))["counts"]
@@ -2209,8 +2613,10 @@ def phase_serve(torch, checks, smi):
     peak = torch.cuda.max_memory_allocated() / 2**30
     if peak > MAX_70B_GIB:
         checks.failed.append(f"70B serve peak {peak:.2f} GiB > {MAX_70B_GIB} GiB")
+    say(f"[{RUN_70B}] peak {peak:.2f} GiB against the {MAX_70B_GIB} GiB limit (a packed 4096 "
+        f"prefill: all 80 layers' K/V and the [4096, 128256] fp32 logits)")
     del params
-    torch.cuda.empty_cache()
+    _free(torch)
     return runs
 
 
@@ -2273,6 +2679,8 @@ def phase_train(torch, checks):
 
 
 RUN_8B_INT8 = "phase 4 serve Llama-3-8B int8, fp8 KV"
+RUN_8B_ONE = "phase 4 serve Llama-3-8B int8, fp8 KV, one prompt a prefill call"
+RUN_CHUNK = "phase 4c serve Llama-3-8B int8, fp8 KV, prefill_chunk_size 512"
 RUN_8B_W4A8 = "phase 5 serve Llama-3-8B W4A8 + W8A8 head, fused, fp8 KV"
 RUN_70B = "phase 6 serve Llama-3-70B int4 + W8A8 head, fused, fp8 KV"
 RUN_PAGED = "phase 7 serve Llama-3-8B int8, fp8 KV, paged + prefix cache"
@@ -2317,6 +2725,7 @@ def main() -> int:
     rows = phase_kernels(torch, checks)
     for case in CARD_VS_CPU:
         card_vs_cpu(torch, checks, *case)
+    prefill_card_vs_cpu(torch, checks)
     paged_card_vs_cpu(torch, checks)
     multi_card_vs_cpu(torch, checks)
     train_card_vs_cpu(torch, checks)
@@ -2337,7 +2746,7 @@ def main() -> int:
                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                     library_ms=r["library_ms"],
                     **{k: r[k] for k in ("graph_ms", "call_graph_ms", "empty_graph_ms",
-                                         "prompt", "also") if k in r})
+                                         "prompt", "also", "packed", "chunk") if k in r})
                for r in (rows[k] for k in KERNEL_ROWS)]
     print(json.dumps({"kernels": kernels}))
     print(smi)

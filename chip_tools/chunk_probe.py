@@ -68,6 +68,7 @@ SIGS = {
     "fatt_paged_decode+chunk": [P] * 10 + [I] * 10 + [F, I, F, P],
     "fatt_chunk_attn": [P] * 10 + [I] * 10 + [F, I, F, P],
     "fatt_flash_fwd": [P] * 7 + [I] * 7 + [F, I, I, P],
+    "fatt_flash_fwd+masks": [P] * 12 + [I] * 7 + [F, I, I, P],  # tile metadata and count
 }
 SOURCES = ("chunk_attn.cu", "decode.cu", "paged_decode.cu", "flash_fwd.cu")
 # the mutant: split 1 walks no tiles, so its keys drop out of the merge
@@ -106,11 +107,12 @@ def start_build(name, src_dir: Path, out_dir: Path):
     return name, src_dir, lib, proc
 
 
-def takes_chunk(src: Path, entry: str) -> bool:
-    """Whether the C entry point ``entry`` of ``src`` has a chunk argument."""
+def takes_chunk(src: Path, entry: str, arg: str = "int chunk") -> bool:
+    """Whether the C entry point ``entry`` of ``src`` has a chunk argument
+    (or another ``arg``)."""
     text = src.read_text()
     head = text[text.index(f'extern "C" int {entry}('):]
-    return "int chunk" in head[:head.index(")")]
+    return arg in head[:head.index(")")]
 
 
 class Lib:
@@ -136,12 +138,15 @@ class Lib:
                            ("fatt_chunk_attn", "chunk_attn.cu"), ("fatt_flash_fwd", "flash_fwd.cu")):
             if not hasattr(self.so, entry):
                 continue
-            sig = entry + ("+chunk" if entry != "fatt_chunk_attn" and entry != "fatt_flash_fwd"
-                           and takes_chunk(src_dir / src, entry) else "")
+            if entry == "fatt_flash_fwd":
+                sig = entry + ("+masks" if takes_chunk(src_dir / src, entry, "qmeta") else "")
+            else:
+                sig = entry + ("+chunk" if entry != "fatt_chunk_attn"
+                               and takes_chunk(src_dir / src, entry) else "")
             fn = getattr(self.so, entry)
             fn.argtypes = SIGS[sig]
             fn.restype = ctypes.c_int
-            self.fn[entry] = (fn, sig.endswith("+chunk"))
+            self.fn[entry] = (fn, sig.endswith(("+chunk", "+masks")))
 
     def plan(self, case):
         """(nsplit, split_len) this version's wrapper would pick."""
@@ -373,12 +378,12 @@ def bitwise(torch, libs, fh):
                     1.0 if bshd else qs_c, D ** -0.5 if bshd else 1.0, int(not bshd), 40.0, st())
             res = (part, lse)
         else:
-            fn, _ = lib.fn["fatt_flash_fwd"]
+            fn, masks = lib.fn["fatt_flash_fwd"]
             out = torch.empty_like(qf)
             flse = torch.empty((1, H, 2048), dtype=torch.float32, device="cuda")
             clamped = what == "K4 clamped"
-            rc = fn(p(qf), p(kf), p(vf), p(cos), p(sin), p(out), p(flse), 1, 2048, 2048, H, Hk,
-                    D, 0, eff, 1, int(clamped), st())
+            rc = fn(p(qf), p(kf), p(vf), p(cos), p(sin), p(out), p(flse), *(None,) * (5 * masks),
+                    1, 2048, 2048, H, Hk, D, 0, eff, 1, int(clamped), st())
             res = (out, flse)
         torch.cuda.synchronize()
         if rc != 0:

@@ -6,7 +6,9 @@
 Each DIR holds a ``flash_fwd.cu`` (and the ``common.cuh`` it includes),
 for example an earlier tree's ``flash_attn_tpu_torch/csrc`` or a copy of
 this one with a design change to try; every version exports
-``fatt_flash_fwd`` with one signature.  Each, and this tree's
+``fatt_flash_fwd``, with or without the four tile-metadata pointers and
+the tile count of segment ids and positions (read from the source's
+declaration).  Each, and this tree's
 ``csrc/flash_fwd.cu``, compiles (``-Xptxas -v``, the flags of
 ``_build.py``) into its own library under
 ``flash_attn_tpu_torch/_build/k4_probe/`` and launches through ctypes at
@@ -15,8 +17,11 @@ rope) in both softmax modes: the largest output error as a share of its
 row's tolerance (2^-6 of the row's largest |ref|, as chip_smoke.py holds
 K4), the LSE error, whether output and LSE are bitwise those of the first
 version, and the time (CUDA events over 20 launches, after warm-up), in
-turns (old..., this, this, ...old reversed).  The card's name
-and power limit head the output.
+turns (old..., this, this, ...old reversed).  Versions that take segment
+ids and positions are held the same way, clamped, at the packed
+prefill's shape (phase 4's eight prompts in 4096) and a chunk's (Sq=512
+at start 1024 over 4096, positions alone).
+The card's name and power limit head the output.
 """
 
 from __future__ import annotations
@@ -34,6 +39,14 @@ sys.path.insert(0, str(ROOT))
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIG = [P] * 7 + [I] * 7 + [F, I, I, P]
+SIG_MASKED = [P] * 12 + [I] * 7 + [F, I, I, P]  # + the tile metadata and count
+
+
+def takes_masks(src: Path) -> bool:
+    """Whether ``fatt_flash_fwd`` of ``src`` takes the tile metadata."""
+    text = src.read_text()
+    head = text[text.index('extern "C" int fatt_flash_fwd('):]
+    return "qmeta" in head[:head.index(")")]
 
 
 def build(name, src_dir, out_dir):
@@ -47,10 +60,11 @@ def build(name, src_dir, out_dir):
         raise RuntimeError(f"{name}: nvcc failed\n{res.stdout}{res.stderr}")
     info = " | ".join(x.replace("ptxas info    :", "").strip() for x in res.stderr.splitlines()
                       if re.search(r"Used \d+ registers|spill|wgmma|arning", x))
+    masked = takes_masks(src_dir / "flash_fwd.cu")
     fn = ctypes.CDLL(str(lib)).fatt_flash_fwd
-    fn.argtypes = SIG
+    fn.argtypes = SIG_MASKED if masked else SIG
     fn.restype = ctypes.c_int
-    return fn, info
+    return (fn, masked), info
 
 
 def main() -> int:
@@ -83,6 +97,7 @@ def main() -> int:
     eff = float(D ** -0.5 * ff.LOG2E)
     flops = k4_flops(B, S, S, H, D)
     refs = {c: ff.flash_fwd_plain(q, k, v, True, D ** -0.5, cos, sin, c) for c in (True, False)}
+    masked_cases = _masked_cases(torch, ff)
     olds = [tuple(o.split("=", 1)) for o in args.old]
     fns = {}
     for name, src in [*olds, ("this", ROOT / "flash_attn_tpu_torch" / "csrc")]:
@@ -91,11 +106,11 @@ def main() -> int:
     order = [n for n, _ in olds] + ["this", "this"] + [n for n, _ in reversed(olds)]
     first = {}  # softmax mode -> the first version's (out, lse)
     for name in order:
-        fn = fns[name]
+        fn, masked = fns[name]
         line = []
         for clamped in (True, False):
-            def call(fn=fn, clamped=clamped):
-                return fn(*ptrs, B, S, S, H, Hk, D, 0, eff, 1, int(clamped),
+            def call(fn=fn, clamped=clamped, none=(None,) * (5 * masked)):
+                return fn(*ptrs, *none, B, S, S, H, Hk, D, 0, eff, 1, int(clamped),
                           torch.cuda.current_stream().cuda_stream)
             assert call() == 0
             torch.cuda.synchronize()
@@ -109,8 +124,65 @@ def main() -> int:
                         f"({flops / ms / 1e9:.1f} TFLOP/s), share {share:.3f}, lse err {lerr:.2e}, "
                         f"bitwise {order[0]}'s {same}")
         print(f"[turn] {name}: " + "; ".join(line), flush=True)
+        if masked:
+            print(f"[turn] {name} masked: " + "; ".join(
+                _masked_turn(torch, fn, case, first, name) for case in masked_cases),
+                flush=True)
     shutil.rmtree(out_dir, ignore_errors=True)
     return 0
+
+
+def _masked_cases(torch, ff):
+    """(label, args of the C entry with masks but the stream, out, lse, plain
+    (out, lse), live pairs) at the packed and chunk shapes, clamped."""
+    from chip_smoke import _packed_positions, _prompts
+    from flash_attn_tpu_torch.ops.rope import rope_cos_sin
+
+    g = torch.Generator(device="cuda").manual_seed(22)
+    H, Hk, D = 32, 8, 128
+    lens, _ = _prompts(128256)
+    seg, pos = (x.cuda() for x in _packed_positions(torch, [int(n) for n in lens], 4096))
+    cpos = torch.arange(1024, 1536, device="cuda", dtype=torch.int32)[None]
+    kpos = torch.arange(4096, device="cuda", dtype=torch.int32)[None]
+    cases = []
+    for label, Sq, Sk, masks, qpos in (
+            ("packed", 4096, 4096, ff.Masks(seg, seg, pos, pos), pos),
+            ("chunk", 512, 4096, ff.Masks(None, None, cpos, kpos), cpos)):
+        q = torch.randn((1, Sq, H, D), generator=g, device="cuda", dtype=torch.bfloat16)
+        k = torch.randn((1, Sk, Hk, D), generator=g, device="cuda", dtype=torch.bfloat16)
+        v = torch.randn((1, Sk, Hk, D), generator=g, device="cuda", dtype=torch.bfloat16)
+        cos, sin = rope_cos_sin(qpos, D, 500000.0)
+        qm, qr = ff.tile_meta(masks.q_segment_ids, masks.q_positions, 1, Sq)
+        km, kr = ff.tile_meta(masks.kv_segment_ids, masks.kv_positions, 1, Sk)
+        out = torch.empty_like(q)
+        lse = torch.empty((1, H, Sq), dtype=torch.float32, device="cuda")
+        args = [t.data_ptr() for t in (q, k, v, cos, sin, out, lse, qm, km, qr, kr)]
+        args += [None, 1, Sq, Sk, H, Hk, D, 0, float(D ** -0.5 * ff.LOG2E), 0, 1]
+        ref = ff.flash_fwd_plain(q, k, v, False, D ** -0.5, cos, sin, True, masks)
+        n_live = int(ff.live_pairs(masks, False, Sq, Sk, "cuda").sum())
+        cases.append((label, args, out, lse, ref, n_live, (q, k, v, cos, sin, qm, km, qr, kr)))
+    return cases
+
+
+def _masked_turn(torch, fn, case, first, name):
+    """One masked case's errors, time, and whether its outputs are bitwise
+    those of the first version that took masks (``first`` keeps them)."""
+    from chip_smoke import cuda_ms, row_err
+
+    label, args, out, lse, (rout, rlse), n_live, _ = case
+
+    def call():
+        return fn(*args, torch.cuda.current_stream().cuda_stream)
+
+    assert call() == 0
+    torch.cuda.synchronize()
+    _, share = row_err(out, rout)
+    lerr = float((lse - rlse).abs().max())
+    f_out, f_lse, f_name = first.setdefault(label, (out.clone(), lse.clone(), name))
+    same = torch.equal(out, f_out) and torch.equal(lse, f_lse)
+    ms = cuda_ms(torch, call)
+    return (f"{label} {ms:.4f} ms ({4 * 32 * 128 * n_live / ms / 1e9:.1f} TFLOP/s on live "
+            f"pairs), share {share:.3f}, lse err {lerr:.2e}, bitwise {f_name}'s {same}")
 
 
 if __name__ == "__main__":

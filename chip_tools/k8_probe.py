@@ -72,6 +72,7 @@ SIGS = {
     "fatt_decode": [P] * 9 + [I] * 9 + [F, F, I, F, P],
     "fatt_chunk_attn": [P] * 10 + [I] * 10 + [F, I, F, P],
     "fatt_flash_fwd": [P] * 7 + [I] * 7 + [F, I, I, P],
+    "fatt_flash_fwd+masks": [P] * 12 + [I] * 7 + [F, I, I, P],  # tile metadata and count
     "fatt_lse_merge": [P, P, P, P, I, L, I, I, P],
     "fatt_kv_append": [P] * 7 + [I] * 5 + [P],
     "fatt_empty": [I, I, P],
@@ -199,12 +200,17 @@ class Lib:
         text = (src_dir / "paged_decode.cu").read_text()
         head = text[text.index('extern "C" int fatt_paged_decode('):]
         self.live = "arrivals" in head[:head.index(")")]
+        text = (src_dir / "flash_fwd.cu").read_text()
+        head = text[text.index('extern "C" int fatt_flash_fwd('):]
+        self.k4_masks = "qmeta" in head[:head.index(")")]
         self.fn = {}
         for entry in SIGS:
             base = entry.split("+")[0]
             if entry == "fatt_paged_decode" and self.live:
                 continue
             if entry == "fatt_paged_decode+live" and not self.live:
+                continue
+            if entry.startswith("fatt_flash_fwd") and entry.endswith("+masks") != self.k4_masks:
                 continue
             if not hasattr(self.so, base):
                 continue
@@ -500,9 +506,9 @@ def bitwise(torch, libs, fh):
         else:
             out = torch.empty_like(qf)
             flse = torch.empty((1, H, 2048), dtype=torch.float32, device="cuda")
-            rc = fn["fatt_flash_fwd"](p(qf), p(kf), p(vf), p(cos), p(sin), p(out), p(flse), 1,
-                                      2048, 2048, H, HK, D, 0, eff, 1, int(what == "K4 clamped"),
-                                      st())
+            rc = fn["fatt_flash_fwd"](p(qf), p(kf), p(vf), p(cos), p(sin), p(out), p(flse),
+                                      *(None,) * (5 * lib.k4_masks), 1, 2048, 2048, H, HK, D,
+                                      0, eff, 1, int(what == "K4 clamped"), st())
             res = (out, flse)
         torch.cuda.synchronize()
         if rc != 0:

@@ -12,6 +12,43 @@ reaches the plain version.
 """
 
 from flash_attn_tpu_torch._device import resolve_device
+from flash_attn_tpu_torch.ops.attention import flash_attention, flash_attention_varlen
 from flash_attn_tpu_torch.ops.decode import flash_decode, flash_decode_chunk
+from flash_attn_tpu_torch.ops.lse import lse_merge
+from flash_attn_tpu_torch.ops.matmul import (
+    W4A8Weight,
+    W8A8Weight,
+    matmul_int4,
+    matmul_int8,
+    matmul_w4a8,
+    matmul_w8a8,
+    quantized_matmul,
+)
+from flash_attn_tpu_torch.ops.quant import (
+    quantize_fp8,
+    quantize_int4,
+    quantize_int8,
+    quantize_kv,
+)
+from flash_attn_tpu_torch.ops.reference import mha_reference
 
-__all__ = ["flash_decode", "flash_decode_chunk", "resolve_device"]
+__all__ = [
+    "flash_attention",
+    "flash_attention_varlen",
+    "flash_decode",
+    "flash_decode_chunk",
+    "lse_merge",
+    "W4A8Weight",
+    "W8A8Weight",
+    "matmul_int4",
+    "matmul_int8",
+    "matmul_w4a8",
+    "matmul_w8a8",
+    "mha_reference",
+    "quantize_fp8",
+    "quantize_int4",
+    "quantize_int8",
+    "quantize_kv",
+    "quantized_matmul",
+    "resolve_device",
+]

@@ -42,7 +42,7 @@ _SIGNATURES = {
     "fatt_empty": [I, I, P],
     "fatt_matmul_float_q": [P, P, P, P, P, I, I, I, I, I, I, I, I, P],
     "fatt_matmul_s8_q": [P, P, P, P, P, P, I, I, I, I, I, I, I, P],
-    "fatt_flash_fwd": [P, P, P, P, P, P, P,
+    "fatt_flash_fwd": [P, P, P, P, P, P, P, P, P, P, P, P,
                        I, I, I, I, I, I, I, F, I, I, P],
     "fatt_paged_decode": [P, P, P, P, P, P, P, P, P, P, P, P,
                           I, I, I, I, I, I, I, I, F, I, F, P],

@@ -1,9 +1,10 @@
 // K4: FlashAttention-2 forward, BSHD bf16, causal (bottom-right) GQA
 // prefill with q-side RoPE applied in the kernel, "clamped" or "online"
-// softmax, fp32 LSE.
+// softmax, fp32 LSE, and optional segment ids and positions (the packed and
+// chunked prefill's masks).
 //
-// Replaces flash_attn_tpu/ops/flash_fwd.py:_fwd_kernel on the subset the
-// Llama prefill and the training forward use (models/llama.py).
+// Replaces flash_attn_tpu/ops/flash_fwd.py:_fwd_kernel (B7) on the subset
+// the Llama prefill paths and the training forward use (models/llama.py).
 //
 // Bound on the H100: operations.  At S = 2048, D = 128 the causal half of
 // QK^T and PV is ~4*S^2*D/2 flops per head against ~4*S*D bytes, far above
@@ -28,12 +29,43 @@
 //     swizzle that wgmma reads, which also keeps the cp.async writes free
 //     of bank conflicts.  65 KB and 167 registers a block: three blocks an
 //     SM;
-//   * only tiles that a warp's diagonal (or Sk's ragged edge) crosses are
+//   * only tiles that a warp's diagonal (or Sk's edge) crosses are
 //     masked element by element; tiles above the diagonal are never
 //     loaded; the heavy (last) query tiles are scheduled first;
 //   * the KV head is h / (H / Hk): GQA without a materialised broadcast.
 // Scores are in base-2 units (log2(e) folded into the q pre-scale).
 // Clamped mode drops the running max: p = 2^min(s, 80), no rescale.
+//
+// Segment ids and positions (the kMeta instance): a pair is live only where
+// every mask given holds, as _apply_mask composes them (flash_fwd.py:
+// 296-347): causal by index, q segment == kv segment, kv position <= q
+// position.  A packed prefill's live pairs are a few percent of the square
+// (8.5 % at phase 4's eight prompts in 4096), so the design skips what it
+// can prove dead and masks only where it must:
+//   * the wrapper passes each side's (segment, position) per token, padded
+//     to whole tiles ([B, n*64] int2), and each tile's least and greatest
+//     segment and position ([B, n] int4), plain torch reductions made once
+//     for the mask tensors that a prefill's layers share;
+//   * each block first lists its live key tiles in shared memory, 128 at a
+//     time by ballot and a prefix count (in order): a k tile is dead when
+//     its segment range misses the q tile's, or its least position exceeds
+//     the q tile's greatest, or (causal) the index test drops it.  Ranges
+//     only have to be conservative, so the test holds whatever the order of
+//     the ids, padding (id 0, position 0) included.  The list entry also
+//     says whether the pair is live throughout (one segment on both sides
+//     and greatest kv position <= least q position); every other listed
+//     tile is masked element by element.  On request (tile_count) head 0's
+//     blocks add up their lists, so a check can read back what was walked;
+//   * the cp.async ring walks the list, so it prefetches the next live
+//     tile, and each tile's 64 (segment, position) pairs ride beside its
+//     K/V in a small ring of their own; each thread holds its two rows'
+//     segment and position in registers;
+//   * a dead tile adds exactly 0 in both softmax modes, so skipping it
+//     changes nothing.  A row with no live key gives 0 and lse -1e30;
+//     padding rows (segment 0, position 0) see every padding key, as in
+//     JAX;
+//   * the q tiles keep the causal order (last first): in a chunk over a
+//     cache and within a packed prompt the later tiles see the most keys.
 #include "common.cuh"
 
 namespace {
@@ -51,6 +83,11 @@ constexpr int kChunks = kRowBytes / 16;  // 16-byte chunks per row
 constexpr int kTileBytes = kBK * kRowBytes;
 // + 1024: the ring starts at the next 1024-byte boundary (the swizzle atom)
 constexpr int kSmemBytes = kStages * 2 * kTileBytes + 1024;
+// With masks: a stage's 64 (segment, position) pairs after the K/V ring,
+// then the block's list of live key tiles (at most kMaxListTiles).
+constexpr int kMetaBytes = kBK * 8;
+constexpr int kMaxListTiles = 4096;
+constexpr int kFullBit = 1 << 30;  // list entry: live throughout, no mask
 constexpr float kClamp2 = 80.f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -64,30 +101,81 @@ __device__ __forceinline__ uint32_t swz(int r, int c) {
 // fatt::attn_pv) read from it spans one swizzle atom (K: 16 of 64 columns;
 // V: 64 of 64).
 
+// qmeta/kmeta: [B, nq*64] / [B, nk*64] (segment, position) per token;
+// qrange/krange: [B, nq] / [B, nk] (least segment, least position, greatest
+// segment, greatest position) per tile.  Read only by the kMeta instance.
+template <bool kMeta>
 __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const float* __restrict__ cosv,
     const float* __restrict__ sinv, __nv_bfloat16* __restrict__ out,
-    float* __restrict__ lse, int Sq, int Sk, int H, int Hk,
-    int rope_bstride, float eff_scale, int causal, int clamped) {
+    float* __restrict__ lse, const int2* __restrict__ qmeta,
+    const int2* __restrict__ kmeta, const int4* __restrict__ qrange,
+    const int4* __restrict__ krange, int* __restrict__ tile_count, int Sq, int Sk,
+    int H, int Hk, int rope_bstride, float eff_scale, int causal, int clamped) {
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t s_base = fatt::smem_u32(smem);
   const uint32_t kv_base = (s_base + 1023) & ~1023u;
   // The ring's first stage holds O on its way out once the ring is drained.
   unsigned char* Os = smem + (kv_base - s_base);
+  // kMeta: the tiles' (segment, position) ring, then the live-tile list.
+  const uint32_t meta_base = kv_base + kStages * 2 * kTileBytes;
+  const unsigned char* meta_s = smem + (meta_base - s_base);
+  int* list = reinterpret_cast<int*>(smem + (meta_base - s_base) + kStages * kMetaBytes);
 
   const int h = blockIdx.x, b = blockIdx.y;
-  const int qt = gridDim.z - 1 - blockIdx.z;  // heavy causal tiles first
+  const int qt = gridDim.z - 1 - blockIdx.z;  // heavy (last) tiles first
   const int kvh = h / (H / Hk);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int row0 = qt * kBQ;
   const int shift = Sk - Sq;  // bottom-right causal alignment
+  const int nk = (Sk + kBK - 1) / kBK;
 
   int kv_end = Sk;
   if (causal) kv_end = min(Sk, min(row0 + kBQ - 1, Sq - 1) + shift + 1);
   const int n_tiles = kv_end > 0 ? (kv_end + kBK - 1) / kBK : 0;
 
-  // K and V of the tile at key k0 into ring stage st.
+  // The block's live key tiles, in order, each with its kFullBit.
+  int n_live = n_tiles;
+  if constexpr (kMeta) {
+    __shared__ int warp_live[kWarps];
+    const int4 qr = qrange[(int64_t)b * gridDim.z + qt];
+    int n = 0;
+    for (int base = 0; base < n_tiles; base += kThreads) {
+      const int t = base + tid;
+      bool live = false;
+      int entry = t;
+      if (t < n_tiles) {
+        const int4 kr = krange[(int64_t)b * nk + t];
+        live = kr.z >= qr.x && kr.x <= qr.z && kr.y <= qr.w;
+        if (qr.x == qr.z && kr.x == kr.z && kr.x == qr.x && kr.w <= qr.y) entry |= kFullBit;
+      }
+      const unsigned m = __ballot_sync(0xffffffffu, live);
+      if (lane == 0) warp_live[warp] = __popc(m);
+      __syncthreads();
+      int off = n;
+      for (int w = 0; w < warp; ++w) off += warp_live[w];
+      if (live) list[off + __popc(m & ((1u << lane) - 1u))] = entry;
+      for (int w = 0; w < kWarps; ++w) n += warp_live[w];
+      __syncthreads();  // the list is complete; warp_live is free again
+    }
+    n_live = n;
+    // On request, head 0's blocks add their list's length and its tiles
+    // live throughout (tile_count[0], [1]): the count of what the walk
+    // visits, read back by the card's checks.
+    if (tile_count != nullptr && h == 0 && tid == 0) {
+      int n_full = 0;
+      for (int i = 0; i < n; ++i) n_full += (list[i] & kFullBit) != 0;
+      atomicAdd(tile_count, n);
+      atomicAdd(tile_count + 1, n_full);
+    }
+  }
+  // Key tile of the walk's step i, and whether it needs no segment or
+  // position mask.
+  auto tile_of = [&](int i) { return kMeta ? list[i] & (kFullBit - 1) : i; };
+
+  // K and V of the tile at key k0 into ring stage st (with masks, also its
+  // 64 (segment, position) pairs).
   auto load_tile = [&](int st, int k0) {
     const uint32_t ks = kv_base + st * 2 * kTileBytes;
     const uint32_t vs = ks + kTileBytes;
@@ -98,10 +186,15 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
       fatt::cp_async16(ks + fatt::sw128<kBK>(r, c), k + g, in ? 16 : 0);
       fatt::cp_async16(vs + fatt::sw128<kBK>(r, c), v + g, in ? 16 : 0);
     }
+    if constexpr (kMeta) {
+      if (tid < kMetaBytes / 16)
+        fatt::cp_async16(meta_base + st * kMetaBytes + tid * 16,
+                         kmeta + (int64_t)b * nk * kBK + k0 + tid * 2, 16);
+    }
   };
 #pragma unroll
   for (int i = 0; i < kStages - 1; ++i) {
-    if (i < n_tiles) load_tile(i, i * kBK);
+    if (i < n_live) load_tile(i, tile_of(i) * kBK);
     fatt::cp_async_commit();
   }
 
@@ -156,32 +249,55 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
   const int wrow0 = row0 + warp * 16;
   const int my_row = wrow0 + (lane >> 2);
   float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+  // kMeta: the (segment, position) of this thread's two rows (padded, so
+  // rows past Sq read the last row's).
+  int2 qm[2] = {make_int2(0, 0), make_int2(0, 0)};
+  if constexpr (kMeta) {
+    const int2* qrow = qmeta + (int64_t)b * gridDim.z * kBQ;
+    qm[0] = qrow[my_row];
+    qm[1] = qrow[my_row + 8];
+  }
 
-  for (int t = 0; t < n_tiles; ++t) {
-    if (t + kStages - 1 < n_tiles) load_tile((t + kStages - 1) % kStages, (t + kStages - 1) * kBK);
+  for (int t = 0; t < n_live; ++t) {
+    if (t + kStages - 1 < n_live)
+      load_tile((t + kStages - 1) % kStages, tile_of(t + kStages - 1) * kBK);
     fatt::cp_async_commit();
     fatt::cp_async_wait<kStages - 1>();
     fatt::fence_proxy_async();  // cp.async -> wgmma
     __syncthreads();
-    const uint32_t ks = kv_base + (t % kStages) * 2 * kTileBytes;
+    const int st = t % kStages;
+    const uint32_t ks = kv_base + st * 2 * kTileBytes;
     const uint32_t vs = ks + kTileBytes;
-    const int k0 = t * kBK;
+    const int k0 = tile_of(t) * kBK;
 
     // S = Q K^T: 16 rows x 64 keys as eight n8 tiles.
     float s[kBK / 8][4];
     fatt::attn_qk(s, qf, ks);
 
-    // Mask only where this warp's diagonal or Sk's edge crosses the tile.
-    const bool edge = k0 + kBK > Sk || (causal && k0 + kBK - 1 > wrow0 + shift);
+    // Mask only where this warp's diagonal or Sk's edge crosses the tile,
+    // or, with masks, where the list does not say the tile is live throughout.
+    bool edge = k0 + kBK > Sk || (causal && k0 + kBK - 1 > wrow0 + shift);
+    if constexpr (kMeta) edge = edge || !(list[t] & kFullBit);
     if (edge) {
 #pragma unroll
-      for (int j = 0; j < kBK / 8; ++j)
+      for (int j = 0; j < kBK / 8; ++j) {
+        // keys c and c + 1 of the tile: (segment, position, segment, position)
+        int4 km = make_int4(0, 0, 0, 0);
+        if constexpr (kMeta)
+          km = *reinterpret_cast<const int4*>(meta_s + st * kMetaBytes +
+                                              (j * 8 + (lane & 3) * 2) * 8);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int col = k0 + j * 8 + (lane & 3) * 2 + (e & 1);
           const int row = my_row + (e >> 1) * 8;
-          if (col >= Sk || (causal && col > row + shift)) s[j][e] = kNegInf;
+          bool dead = col >= Sk || (causal && col > row + shift);
+          if constexpr (kMeta) {
+            const int kseg = (e & 1) ? km.z : km.x, kpos = (e & 1) ? km.w : km.y;
+            dead = dead || kseg != qm[e >> 1].x || kpos > qm[e >> 1].y;
+          }
+          if (dead) s[j][e] = kNegInf;
         }
+      }
     }
 
     // Softmax in registers; P to bf16 A fragments (keys 16c..16c+15).
@@ -266,35 +382,66 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
   }
 }
 
+template <bool kMeta>
 int launch(const void* q, const void* k, const void* v, const void* cosv,
-           const void* sinv, void* out, void* lse, int B, int Sq, int Sk, int H,
-           int Hk, int rope_bstride, float eff_scale, int causal, int clamped,
-           cudaStream_t st) {
+           const void* sinv, void* out, void* lse, const void* qmeta,
+           const void* kmeta, const void* qrange, const void* krange, int* tile_count,
+           int B, int Sq, int Sk, int H, int Hk, int rope_bstride, float eff_scale,
+           int causal, int clamped, cudaStream_t st) {
   static fatt::SmemLimitSet smem_set;
-  cudaError_t e = fatt::smem_limit_once(flash_fwd_kernel, kSmemBytes, smem_set);
+  constexpr int kMaxSmem =
+      kSmemBytes + (kMeta ? kStages * kMetaBytes + kMaxListTiles * 4 : 0);
+  cudaError_t e = fatt::smem_limit_once(flash_fwd_kernel<kMeta>, kMaxSmem, smem_set);
   if (e != cudaSuccess) return (int)e;
+  const int nk = (Sk + kBK - 1) / kBK;
+  const int smem = kSmemBytes + (kMeta ? kStages * kMetaBytes + nk * 4 : 0);
   dim3 grid(H, B, (Sq + kBQ - 1) / kBQ);
-  flash_fwd_kernel<<<grid, kThreads, kSmemBytes, st>>>(
+  flash_fwd_kernel<kMeta><<<grid, kThreads, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(cosv),
       static_cast<const float*>(sinv), static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(lse), Sq, Sk, H, Hk, rope_bstride, eff_scale, causal,
-      clamped);
+      static_cast<float*>(lse), static_cast<const int2*>(qmeta),
+      static_cast<const int2*>(kmeta), static_cast<const int4*>(qrange),
+      static_cast<const int4*>(krange), tile_count, Sq, Sk, H, Hk, rope_bstride,
+      eff_scale, causal, clamped);
   return (int)cudaGetLastError();
+}
+
+bool bad_shape(int B, int Sq, int H, int Hk, int D) {
+  // Only head_dim 128 (Llama-3) is built.
+  return H % Hk != 0 || D != kD || B > 65535 || (Sq + kBQ - 1) / kBQ > 65535;
 }
 
 }  // namespace
 
 // cos/sin: [B or 1, Sq, D/2] fp32 with batch stride rope_bstride (0 when
 // shared across the batch), or both null for no rotation.
+// Segment ids and positions: qmeta [B, ceil(Sq/64)*64] and kmeta [B,
+// ceil(Sk/64)*64] int32 pairs (segment, position), padded by repeating the
+// last token; qrange [B, ceil(Sq/64)] and krange [B, ceil(Sk/64)] int32
+// quads (least segment, least position, greatest segment, greatest
+// position); a mask not given is 0 throughout.  All four null: no masks
+// (the instance without them).  tile_count: null, or with masks int32[2]
+// that head 0's blocks add their live and unmasked key tiles to.
 extern "C" int fatt_flash_fwd(const void* q, const void* k, const void* v,
                               const void* cosv, const void* sinv, void* out,
-                              void* lse, int B, int Sq, int Sk, int H, int Hk,
-                              int D, int rope_bstride, float eff_scale,
-                              int causal, int clamped, void* stream) {
-  // Only head_dim 128 (Llama-3) is built.
-  if (H % Hk != 0 || D != kD || B > 65535 || (Sq + kBQ - 1) / kBQ > 65535)
+                              void* lse, const void* qmeta, const void* kmeta,
+                              const void* qrange, const void* krange, int* tile_count,
+                              int B, int Sq, int Sk, int H, int Hk, int D,
+                              int rope_bstride, float eff_scale, int causal,
+                              int clamped, void* stream) {
+  const int given = (qmeta != nullptr) + (kmeta != nullptr) + (qrange != nullptr) +
+                    (krange != nullptr);
+  // With masks a block lists at most kMaxListTiles key tiles.
+  if (bad_shape(B, Sq, H, Hk, D) ||
+      (given != 0 && (given != 4 || (Sk + kBK - 1) / kBK > kMaxListTiles)))
     return (int)cudaErrorInvalidValue;
-  return launch(q, k, v, cosv, sinv, out, lse, B, Sq, Sk, H, Hk, rope_bstride,
-                eff_scale, causal, clamped, static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (given == 0)
+    return launch<false>(q, k, v, cosv, sinv, out, lse, nullptr, nullptr, nullptr,
+                         nullptr, nullptr, B, Sq, Sk, H, Hk, rope_bstride, eff_scale,
+                         causal, clamped, st);
+  return launch<true>(q, k, v, cosv, sinv, out, lse, qmeta, kmeta, qrange, krange,
+                      tile_count, B, Sq, Sk, H, Hk, rope_bstride, eff_scale, causal,
+                      clamped, st);
 }

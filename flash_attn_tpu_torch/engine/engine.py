@@ -1,18 +1,25 @@
-"""Inference engines: continuous batching over a one-prompt prefill and a
-batched decode step, or bursts of decode steps.
+"""Inference engines: continuous batching over prefill (one prompt, a
+packed batch of prompts, or chunks) and a batched decode step, or bursts
+of decode steps.
 
-Port of flash_attn_tpu/engine/engine.py for the plain paths, decode
-bursts and greedy speculative decoding: ``InferenceEngine`` (a contiguous
-KV cache, with n-gram or draft-model speculation through the model's
-``decode_multi``) and ``PagedInferenceEngine`` (a paged KV pool,
-admission gated by the native page allocator, optional automatic prefix
-caching).  Both prefill one prompt per call, padded to its bucket, and
-decode one token (or one verify round) for every slot per step, or
-``decode_burst`` tokens per dispatch (idle slots are masked by kv_length
-and ignored by the scheduler).  A burst chains the next one off its last
-tokens on the card before the host reads it back, as JAX chains off its
-device-resident carry.  Chunked and packed prefill, LoRA banks and meshes
-are still to port and raise ``NotImplementedError``.
+Port of flash_attn_tpu/engine/engine.py for the plain paths, packed and
+chunked prefill, decode bursts and greedy speculative decoding:
+``InferenceEngine`` (a contiguous KV cache, with n-gram or draft-model
+speculation through the model's ``decode_multi``) and
+``PagedInferenceEngine`` (a paged KV pool, admission gated by the native
+page allocator, optional automatic prefix caching).  ``InferenceEngine``
+packs the prompts it admits in one step into one varlen prefill (the
+model's ``prefill_packed``) when there are two or more and they fit the
+capacity, and with ``prefill_chunk_size`` feeds a long prompt through
+``prefill_chunk`` in pieces with decode steps for the other slots in
+between; otherwise, and always in ``PagedInferenceEngine``, it prefills
+one prompt per call, padded to its bucket.  Both decode one token (or one
+verify round) for every slot per step, or ``decode_burst`` tokens per
+dispatch (idle slots are masked by kv_length and ignored by the
+scheduler).  A burst chains the next one off its last tokens on the card
+before the host reads it back, as JAX chains off its device-resident
+carry.  LoRA banks and meshes are still to port and raise
+``NotImplementedError``.
 
 The bodies JAX jits (the decode step, the burst, the draft scan, the
 verify step) are ``GraphBody``s (engine/_graph.py): replayed from CUDA
@@ -41,6 +48,7 @@ from flash_attn_tpu_torch.engine.scheduler import (
     Request,
     bucket_length,
 )
+from flash_attn_tpu_torch.ops.quant import quantize_kv
 from flash_attn_tpu_torch.runtime.abi import PagePool
 from flash_attn_tpu_torch.utils.metrics import EngineMetrics
 
@@ -96,6 +104,12 @@ class ModelAdapter:
     # speculative verify step: (params, tokens [B, T], cache) -> (logits
     # [B, T, V], cache); appends all T tokens' KV and advances by T
     decode_multi: Callable | None = None
+    # chunked prefill: (params, tokens [1, C], cache, slot, start) ->
+    # (logits [1, C, V], cache), the chunk's KV written at [start, start+C)
+    prefill_chunk: Callable | None = None
+    # packed prefill: (params, tokens [1, T], positions [1, T], segment_ids
+    # [1, T]) -> (logits [1, T, V], kvs: list of (k, v) [1, T, Hk, D])
+    prefill_packed: Callable | None = None
     # paged decode: (params, token [B], pool: PagedKVPool) -> (logits
     # [B, V], pool), used by PagedInferenceEngine
     decode_step_paged: Callable | None = None
@@ -117,14 +131,14 @@ class InferenceEngine:
         decode_burst: decode up to this many tokens per slot in one
         dispatch (flash_attn_tpu/engine/engine.py:137-147): a burst fires
         only when nothing waits and every active slot has one burst of KV
-        headroom; a slot that ends mid-burst discards its tail."""
+        headroom; a slot that ends mid-burst discards its tail.
+        prefill_chunk_size: feed prompts longer than this through the
+        model's ``prefill_chunk`` in pieces of this size, a decode step for
+        the other slots between pieces (JAX's fix for head-of-line
+        blocking); None unless the adapter has ``prefill_chunk``."""
         if spec is not None:
             _check_spec(spec, adapter, mesh, prefill_chunk_size)
-        unported = {
-            "prefill_chunk_size": prefill_chunk_size is not None,
-            "mesh": mesh is not None,
-            "lora_bank": lora_bank is not None,
-        }
+        unported = {"mesh": mesh is not None, "lora_bank": lora_bank is not None}
         for name, used in unported.items():
             if used:
                 raise NotImplementedError(f"{name} is not ported yet")
@@ -160,6 +174,12 @@ class InferenceEngine:
         # one chained in-flight burst: (its tokens, slot -> request at dispatch)
         self._inflight = None
         self._readback = _BurstReadback((self.decode_burst, max_batch), self.device)
+        # chunked prefill bounds how long a prompt stalls the decode batch;
+        # slots mid-way through it take no decode tokens
+        self.prefill_chunk_size = (
+            prefill_chunk_size if adapter.prefill_chunk is not None else None)
+        self._prefilling: set[int] = set()
+        self.packed_prefills = 0  # calls of the packed prefill
         draft_params = self.spec.draft_params if self.draft_cache is not None else None
 
         def body(fn, stochastic=True):
@@ -234,40 +254,64 @@ class InferenceEngine:
                 # been cancelled: its tokens are dead (its appends are
                 # already booked in _host_lens)
                 self._inflight = None
-            for req in self.sched.admit():
-                self._do_prefill(req)
+            admitted = self.sched.admit()
+            if (len(admitted) >= 2 and self.adapter.prefill_packed is not None
+                    and self.prefill_chunk_size is None
+                    and sum(len(r.prompt) for r in admitted) <= self.capacity):
+                # several prompts through one varlen prefill
+                self._do_prefill_packed(admitted)
+            else:
+                for req in admitted:
+                    self._do_prefill(req)
             if self.sched.active:
                 self._do_decode_step()
 
     def _prefill_one(self, tokens, slot: int, true_len: int):
         """Run the model on one padded prompt, write its KV into ``slot``
         and return the logits at its last real token.  With a draft model
-        its cache gets the prompt's KV and length too (its first proposal
-        comes from its decode step, seeded by the target's first token)."""
+        its cache gets the prompt's KV and length too."""
         positions = torch.arange(tokens.shape[1], device=self.device)[None]
         logits_all, kvs = self.adapter.prefill_with_kv(
             self.params, tokens, positions)
         for layer, (k, v) in enumerate(kvs):
             _insert_slot_kv(self.cache, layer, slot, k[0], v[0])
         self.cache.set_length(slot, true_len)
-        if self.draft_cache is not None:
-            _, kvs = self.spec.draft_adapter.prefill_with_kv(
-                self.spec.draft_params, tokens, positions)
-            for layer, (k, v) in enumerate(kvs):
-                _insert_slot_kv(self.draft_cache, layer, slot, k[0], v[0])
-            self.draft_cache.set_length(slot, true_len)
+        self._draft_prefill(tokens, slot, true_len)
         return logits_all[0, true_len - 1]
+
+    def _draft_prefill(self, tokens, slot: int, true_len: int):
+        """With a draft model: its cache gets the padded prompt's KV and
+        length (its first proposal comes from its decode step, seeded by
+        the target's first token)."""
+        if self.draft_cache is None:
+            return
+        positions = torch.arange(tokens.shape[1], device=self.device)[None]
+        _, kvs = self.spec.draft_adapter.prefill_with_kv(
+            self.spec.draft_params, tokens, positions)
+        for layer, (k, v) in enumerate(kvs):
+            _insert_slot_kv(self.draft_cache, layer, slot, k[0], v[0])
+        self.draft_cache.set_length(slot, true_len)
+
+    def _padded(self, tokens, bucket: int) -> torch.Tensor:
+        toks = np.zeros((1, bucket), np.int64)
+        toks[0, :len(tokens)] = tokens
+        return torch.from_numpy(toks).to(self.device)
 
     def _do_prefill(self, req: Request):
         t0 = time.perf_counter()
-        bucket = min(bucket_length(len(req.prompt)), self.capacity)
-        toks = np.zeros((1, bucket), np.int64)
-        toks[0, : len(req.prompt)] = req.prompt
-        logits = self._prefill_one(
-            torch.from_numpy(toks).to(self.device), req.slot, len(req.prompt))
+        if self.prefill_chunk_size is not None and len(req.prompt) > self.prefill_chunk_size:
+            logits = self._chunked_prefill(req)
+        else:
+            bucket = min(bucket_length(len(req.prompt)), self.capacity)
+            logits = self._prefill_one(self._padded(req.prompt, bucket), req.slot,
+                                       len(req.prompt))
         tok = int(sample(logits[None], self.generator, self.sampling)[0])
         self._host_lens[req.slot] = len(req.prompt)
         self.metrics.record_prefill(len(req.prompt), time.perf_counter() - t0)
+        self._first_token(req, tok)
+
+    def _first_token(self, req: Request, tok: int):
+        """Record a request's first generated token (from its prefill)."""
         req.generated.append(tok)
         if len(req.generated) >= req.max_tokens or (
             req.eos_token is not None and tok == req.eos_token
@@ -277,13 +321,102 @@ class InferenceEngine:
         else:
             self.next_token[req.slot] = tok
 
+    def _do_prefill_packed(self, reqs):
+        """Pack the prompts of ``reqs`` into one varlen prefill call: one
+        [1, bucket] row, segment ids 1, 2, ... a prompt and positions
+        restarting at 0 a prompt (0 for padding).  The draft cache, if any,
+        is still filled one request per call."""
+        t0 = time.perf_counter()
+        self.packed_prefills += 1
+        total = sum(len(r.prompt) for r in reqs)
+        bucket = min(bucket_length(total), self.capacity)
+        tokens = np.zeros((1, bucket), np.int64)
+        segids = np.zeros((1, bucket), np.int32)
+        positions = np.zeros((1, bucket), np.int32)
+        slot_map = np.zeros((total,), np.int64)  # (slot, position) of each real row
+        ends = np.zeros((self.next_token.shape[0],), np.int64)
+        off = 0
+        for i, r in enumerate(reqs):
+            n = len(r.prompt)
+            tokens[0, off:off + n] = r.prompt
+            segids[0, off:off + n] = i + 1
+            positions[0, off:off + n] = np.arange(n)
+            slot_map[off:off + n] = r.slot
+            ends[i] = off + n
+            off += n
+        last = self._prefill_packed_body(tokens, positions, segids, slot_map, ends)
+        for r in reqs:
+            self.cache.set_length(r.slot, len(r.prompt))
+            self._draft_prefill(
+                self._padded(r.prompt, min(bucket_length(len(r.prompt)), self.capacity)),
+                r.slot, len(r.prompt))
+        toks = [int(sample(last[i][None], self.generator, self.sampling)[0])
+                for i in range(len(reqs))]
+        self.metrics.record_prefill(total, time.perf_counter() - t0)
+        for req, tok in zip(reqs, toks):
+            self._host_lens[req.slot] = len(req.prompt)
+            self._first_token(req, tok)
+
+    def _prefill_packed_body(self, tokens, positions, segids, slot_map, ends):
+        """The model on the packed row; each layer's K/V quantized once and
+        its real rows (the first len(slot_map)) written to (slot_map,
+        position); the padding rows are dropped, as JAX's ``mode="drop"``
+        drops them.  Returns the logits at each request's last row,
+        [max_b, V] (entries past the requests read row 0, as JAX's
+        ``max(ends - 1, 0)``)."""
+        dev = self.device
+        logits_all, kvs = self.adapter.prefill_packed(
+            self.params, torch.from_numpy(tokens).to(dev),
+            torch.from_numpy(positions).to(dev), torch.from_numpy(segids).to(dev))
+        n = len(slot_map)
+        slots = torch.from_numpy(slot_map).to(dev)
+        pos = torch.from_numpy(positions[0, :n].astype(np.int64)).to(dev)
+        for layer, (k, v) in enumerate(kvs):
+            kq, ks, vq, vs = quantize_kv(k[0, :n], v[0, :n], self.cache.mode)
+            self.cache.scatter_rows(layer, slots, pos, kq, vq, ks, vs)
+        return logits_all[0, torch.from_numpy(np.maximum(ends - 1, 0)).to(dev)]
+
+    def _chunked_prefill(self, req: Request):
+        """Feed the prompt through ``prefill_chunk`` in pieces of
+        prefill_chunk_size, a decode step for the other active slots
+        between pieces, so a long prompt does not block decoding.
+
+        The device length stays at the chunk frontier, so a decode step in
+        between appends its token for this slot inside the range the next
+        chunk rewrites (every chunk writes its whole padded [start, start +
+        C)), and the final set_length masks the tail."""
+        C = self.prefill_chunk_size
+        prompt, slot = req.prompt, req.slot
+        self._prefilling.add(slot)
+        pos = 0
+        logits = None
+        while pos < len(prompt):
+            chunk = prompt[pos:pos + C]
+            logits_all, self.cache = self.adapter.prefill_chunk(
+                self.params, self._padded(chunk, C), self.cache, slot, pos)
+            logits = logits_all[0, len(chunk) - 1]
+            self.cache.set_length(slot, pos + len(chunk))
+            self._host_lens[slot] = pos + len(chunk)
+            pos += len(chunk)
+            if pos < len(prompt):
+                self._do_decode_step()
+        self.cache.set_length(slot, len(prompt))
+        self._host_lens[slot] = len(prompt)
+        self._prefilling.discard(slot)
+        return logits
+
     def _update_kv_metric(self):
         self.metrics.kv_tokens_in_use = int(
             sum(self._host_lens[s] for s in self.sched.active_slots()))
 
+    def _decode_slots(self) -> list[int]:
+        """The active slots that take decode tokens: not those mid-way
+        through a chunked prefill (their KV is not complete)."""
+        return [s for s in self.sched.active_slots() if s not in self._prefilling]
+
     def _do_decode_step(self):
         t0 = time.perf_counter()
-        slots = self.sched.active_slots()
+        slots = self._decode_slots()
         if self._inflight is not None:
             # a chained burst is already on the card: chain the next one
             # off its last tokens when that cannot hurt, then read this one
@@ -335,17 +468,17 @@ class InferenceEngine:
         return toks
 
     def _speculate(self, toks):
-        snap = {s: self.sched.active[s] for s in self.sched.active_slots()}
+        snap = {s: self.sched.active[s] for s in self._decode_slots()}
         # chain off the burst's last tokens on the card: no host round trip
         self._inflight = (self._dispatch_burst(toks.dev[-1]), snap)
 
     def _can_speculate(self) -> bool:
         """Chain another burst only when it cannot hurt: nothing waits for
-        a slot, some slot still has token budget, and every active slot
-        has one more burst of KV headroom.  A burst chained for slots that
-        then complete costs discarded tokens and masked KV: at most one
-        burst of device time."""
-        if self.decode_burst <= 1 or self.sched.waiting:
+        a slot, no chunked prefill is mid-way, some slot still has token
+        budget, and every active slot has one more burst of KV headroom.
+        A burst chained for slots that then complete costs discarded tokens
+        and masked KV: at most one burst of device time."""
+        if self.decode_burst <= 1 or self.sched.waiting or self._prefilling:
             return False
         slots = self.sched.active_slots()
         if not slots:
@@ -376,10 +509,10 @@ class InferenceEngine:
 
     def _burst_ok(self, slots) -> bool:
         """Burst only when it cannot hurt latency or correctness: nothing
-        waits (admission is not delayed) and every active slot has one
-        burst of KV headroom.  A slot whose budget runs out mid-burst
-        discards its tail."""
-        if self.sched.waiting:
+        waits (admission is not delayed), no chunked prefill is mid-way,
+        and every active slot has one burst of KV headroom.  A slot whose
+        budget runs out mid-burst discards its tail."""
+        if self.sched.waiting or self._prefilling:
             return False
         return all(int(self._host_lens[s]) + self.decode_burst <= self.capacity
                    for s in slots)

@@ -2,9 +2,9 @@
 quantize-on-append.
 
 Port of flash_attn_tpu/engine/kv_cache.py:KVCache.  The JAX cache is a
-functional pytree; this one is updated IN PLACE: ``append``, ``advance``
-and ``set_length`` mutate the buffers and return ``self`` so that call
-sites read like the JAX ones.
+functional pytree; this one is updated IN PLACE: ``append``,
+``insert_at``, ``advance`` and ``set_length`` mutate the buffers and
+return ``self`` so that call sites read like the JAX ones.
 
   k, v:             L lists of [B, Hk, S, D] (int8 / float8_e4m3fn / model dtype)
   k_scale, v_scale: L lists of [B, Hk, S] fp32 in natural position order
@@ -116,15 +116,17 @@ class KVCache:
 
     def _put(self, layer, slot, start, kq, vq, ks, vs):
         """Write one sequence's quantized [T, Hk, D] entries (and [T, Hk, 1]
-        scales) at ``start``."""
-        t = kq.shape[0]
+        scales) at ``start``; either pair may be None."""
         for buf, new in ((self.k[layer], kq), (self.v[layer], vq)):
-            dst = buf[slot, :, start:start + t]
+            if new is None:
+                continue
+            dst = buf[slot, :, start:start + new.shape[0]]
             if buf.dtype == torch.float8_e4m3fn:
                 dst.view(torch.uint8).copy_(new.transpose(0, 1).view(torch.uint8))
             else:
                 dst.copy_(new.transpose(0, 1))
         if ks is not None:
+            t = ks.shape[0]
             self.k_scale[layer][slot, :, start:start + t] = ks[..., 0].transpose(0, 1)
             self.v_scale[layer][slot, :, start:start + t] = vs[..., 0].transpose(0, 1)
 
@@ -135,6 +137,50 @@ class KVCache:
         kq, ks, vq, vs = quantize_kv(k, v, self.mode)
         self._put(layer, slot, 0, kq, vq, ks, vs)
         return self
+
+    def insert_at(self, layer: int, slot: int, k: torch.Tensor, v: torch.Tensor,
+                  start: int) -> "KVCache":
+        """Quantize one sequence's [T, Hk, D] K/V and write it at ``start``
+        of ``slot`` (the chunked prefill's write), in place; ``length`` is
+        left to the caller.  As JAX's ``dynamic_update_slice`` does, values
+        that do not fit land at a start clamped to capacity - T, while each
+        scale goes to its own position and is dropped past the capacity."""
+        kq, ks, vq, vs = quantize_kv(k, v, self.mode)
+        t, cap = kq.shape[0], self.capacity
+        self._put(layer, slot, min(max(start, 0), cap - t), kq, vq, None, None)
+        if ks is not None:
+            n = max(0, min(t, cap - start))
+            self._put(layer, slot, start, None, None, ks[:n], vs[:n])
+        return self
+
+    def scatter_rows(self, layer: int, slots: torch.Tensor, positions: torch.Tensor,
+                     kq, vq, ks, vs) -> "KVCache":
+        """Write quantized rows [N, Hk, D] (scales [N, Hk, 1]) to (slots[i],
+        positions[i]), in place: the packed prefill's write of its real
+        rows."""
+        for buf, new in ((self.k[layer], kq), (self.v[layer], vq)):
+            if buf.dtype == torch.float8_e4m3fn:
+                buf.view(torch.uint8)[slots, :, positions] = new.view(torch.uint8)
+            else:
+                buf[slots, :, positions] = new.to(buf.dtype)
+        if ks is not None:
+            self.k_scale[layer][slots, :, positions] = ks[..., 0]
+            self.v_scale[layer][slots, :, positions] = vs[..., 0]
+        return self
+
+    def slot_kv_float(self, layer: int, slot: int, dtype=torch.bfloat16):
+        """Dequantized [1, S_cap, Hk, D] copies of one slot's K and V (the
+        chunked prefill's read): the fp32 product of values and scales,
+        then a cast to ``dtype``, as JAX forms them."""
+        def get(buf, scale):
+            x = buf[slot:slot + 1].float()
+            if scale is not None:
+                x = x * scale[slot:slot + 1, :, :, None]
+            return x.to(dtype).transpose(1, 2).contiguous()
+
+        ks = None if self.k_scale is None else self.k_scale[layer]
+        vs = None if self.v_scale is None else self.v_scale[layer]
+        return get(self.k[layer], ks), get(self.v[layer], vs)
 
     def advance(self, t: int = 1) -> "KVCache":
         self.length += t

@@ -1,5 +1,6 @@
 """Llama-3 in PyTorch: RMSNorm + RoPE + GQA + SwiGLU over the port's
-kernels (prefill K4, decode K1 + K2, the speculative verify step K1c,
+kernels (prefill K4, also with positions (chunked) and segment ids
+(packed), decode K1 + K2, the speculative verify step K1c,
 paged decode K8, the paged suffix prefill K8c (K1c and K8c: one chunk
 kernel),
 projections and quantized heads K3, K5, K6, K7; the training forward's
@@ -9,9 +10,9 @@ Port of flash_attn_tpu/models/llama.py for the serving and training
 paths: the configs, ``init_params`` (from a ``torch.Generator``),
 ``quantize_weights`` (int8, int4, w8a8, w4a8, with a separate
 ``head_mode``), ``fuse_projections``, ``forward`` (training),
-``prefill_with_kv``, ``decode_step``, ``decode_multi``,
-``decode_step_paged``, ``prefill_suffix_paged``, ``make_cache`` and
-``make_adapter``.
+``prefill_with_kv``, ``prefill_chunk``, ``prefill_packed``,
+``decode_step``, ``decode_multi``, ``decode_step_paged``,
+``prefill_suffix_paged``, ``make_cache`` and ``make_adapter``.
 Params are a plain dict like the JAX pytree: per block wq/wk/wv (or the
 fused wqkv), wo, w_gate/w_up (or w_gate_up), w_down, attn_norm/mlp_norm;
 top level tok_emb, final_norm, lm_head.  A weight is any kind that
@@ -319,6 +320,62 @@ def prefill_with_kv(params, tokens, positions, cfg: LlamaConfig):
     return _logits(params, x, cfg), kvs
 
 
+def prefill_chunk(params, tokens, cfg: LlamaConfig, cache: KVCache, slot: int,
+                  start: int):
+    """Chunked prefill: tokens [1, C] at positions [start, start + C) of
+    ``slot``.  Per layer the chunk's K/V is written into the cache at
+    ``start`` (``insert_at``), then its queries attend to the slot's whole
+    dequantized cache through K4 with positions (q at start + i, the cache
+    at its index; no causal flag), clamped, q rotated in the kernel: K4
+    skips the key tiles past the chunk, so the cache is not sliced.
+    Returns (logits [1, C, V] fp32, cache), the cache updated in place."""
+    b, c = tokens.shape
+    dev = tokens.device
+    x = params["tok_emb"][tokens]
+    qpos = (start + torch.arange(c, device=dev))[None]
+    kvpos = torch.arange(cache.capacity, device=dev)[None]
+    cos, sin = rope_cos_sin(qpos, cfg.head_dim, cfg.rope_theta)
+    for i, blk in enumerate(params["blocks"]):
+        h = _rms_norm(x, blk["attn_norm"], cfg.rms_eps)
+        q, k, v = _qkv(h, blk, cfg, b, c)
+        k = rope_rotate(k, cos, sin)  # the cache stores rotated K
+        cache.insert_at(i, slot, k[0], v[0], start)
+        kc, vc = cache.slot_kv_float(i, slot, dtype=x.dtype)
+        attn = flash_attention(q.contiguous(), kc, vc, q_positions=qpos,
+                               kv_positions=kvpos, rope_cos=cos, rope_sin=sin,
+                               softmax_mode="clamped")
+        x = x + _proj(attn.reshape(b, c, cfg.num_heads * cfg.head_dim), blk["wo"])
+        x = _block_mlp(x, blk, cfg)
+    x = _rms_norm(x, params["final_norm"], cfg.rms_eps)
+    return _logits(params, x, cfg), cache
+
+
+def prefill_packed(params, tokens, positions, segment_ids, cfg: LlamaConfig):
+    """Packed multi-prompt prefill: several prompts concatenated in one
+    [1, T] row, ``positions`` restarting at 0 a prompt (RoPE's positions
+    too) and ``segment_ids`` 1, 2, ... a prompt (0 padding).  Attention is
+    K4 with segment ids and positions (per-prompt causality; no causal
+    flag), clamped, q rotated in the kernel.  Returns (logits [1, T, V]
+    fp32, per-layer list of rotated (k, v) [1, T, Hk, D])."""
+    b, t = tokens.shape
+    x = params["tok_emb"][tokens]
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    kvs = []
+    for blk in params["blocks"]:
+        h = _rms_norm(x, blk["attn_norm"], cfg.rms_eps)
+        q, k, v = _qkv(h, blk, cfg, b, t)
+        k = rope_rotate(k, cos, sin)
+        kvs.append((k, v))
+        attn = flash_attention(q.contiguous(), k, v.contiguous(),
+                               q_segment_ids=segment_ids, kv_segment_ids=segment_ids,
+                               q_positions=positions, kv_positions=positions,
+                               rope_cos=cos, rope_sin=sin, softmax_mode="clamped")
+        x = x + _proj(attn.reshape(b, t, cfg.num_heads * cfg.head_dim), blk["wo"])
+        x = _block_mlp(x, blk, cfg)
+    x = _rms_norm(x, params["final_norm"], cfg.rms_eps)
+    return _logits(params, x, cfg), kvs
+
+
 def decode_step(params, token, cfg: LlamaConfig, cache: KVCache):
     """One cached decode step for every slot: token [B] -> (logits [B, V]
     fp32, cache).  The cache is updated in place (K2 appends each layer's
@@ -444,15 +501,18 @@ def make_cache(cfg: LlamaConfig, batch, capacity, mode="none", dtype=None,
 
 
 def make_adapter(cfg: LlamaConfig, *, eos_token=None):
-    """Engine adapter: one-prompt prefill, the batched decode step, the
-    speculative verify step, and the paged counterparts (decode step,
-    prefix-cache suffix prefill)."""
+    """Engine adapter: one-prompt, chunked and packed prefill, the batched
+    decode step, the speculative verify step, and the paged counterparts
+    (decode step, prefix-cache suffix prefill)."""
     from flash_attn_tpu_torch.engine.engine import ModelAdapter
 
     return ModelAdapter(
         prefill_with_kv=lambda p, t, pos: prefill_with_kv(p, t, pos, cfg),
         decode_step=lambda p, tok, cache: decode_step(p, tok, cfg, cache),
         decode_multi=lambda p, toks, cache: decode_multi(p, toks, cfg, cache),
+        prefill_chunk=lambda p, t, cache, slot, start: prefill_chunk(
+            p, t, cfg, cache, slot, start),
+        prefill_packed=lambda p, t, pos, seg: prefill_packed(p, t, pos, seg, cfg),
         decode_step_paged=lambda p, tok, pool: decode_step_paged(p, tok, cfg, pool),
         prefill_suffix_paged=lambda p, t, pool, slot, start: prefill_suffix_paged(
             p, t, cfg, pool, slot, start),

@@ -1,17 +1,23 @@
 """FlashAttention-2 forward (kernel K4, ``csrc/flash_fwd.cu``).
 
 Port of flash_attn_tpu/ops/flash_fwd.py:flash_fwd for the subset the
-Llama prefill uses: BSHD layout, GQA, bottom-right causal mask, q-side
-RoPE inside the kernel, softmax_mode "clamped" or "online", fp32 LSE.
-Bias, segment ids, positions, windows, softcap, ALiBi, dropout and
-return_softmax are still to port and raise ``NotImplementedError``.
+Llama prefill paths use: BSHD layout, GQA, bottom-right causal mask,
+segment ids and positions (the packed and chunked prefill's masks),
+q-side RoPE inside the kernel, softmax_mode "clamped" or "online", fp32
+LSE.  Bias, windows, softcap, ALiBi, dropout and return_softmax are
+still to port and raise ``NotImplementedError``.
 
 As on the TPU, the softmax scale and log2(e) are folded into q (rounded
 to the input dtype), q is rotated in fp32 and rounded again before QK^T,
-scores are base-2, and p is rounded to the V dtype before PV.
+scores are base-2, and p is rounded to the V dtype before PV.  A (query,
+key) pair is live only where every mask given holds, as ``_apply_mask``
+composes them: causal by index, equal segment ids, kv position <= q
+position.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -23,16 +29,51 @@ LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 # Clamped-softmax score ceiling, base-2 units (flash_fwd.py:42).
 CLAMP2 = 80.0
+TILE = 64  # K4's query rows a block and keys a tile
+# K4 builds each block's list of live key tiles in shared memory
+MAX_LIST_TILES = 4096
+
+
+class Masks(NamedTuple):
+    """Segment ids ([B, Sq] / [B, Sk]) and positions, each pair or None."""
+
+    q_segment_ids: torch.Tensor | None
+    kv_segment_ids: torch.Tensor | None
+    q_positions: torch.Tensor | None
+    kv_positions: torch.Tensor | None
+
+
+def _masks(q_segment_ids, kv_segment_ids, q_positions, kv_positions, B, Sq, Sk):
+    """The masks given, checked (each with its partner, [B, Sq] / [B, Sk]),
+    or None when none is."""
+    pairs = (("q_segment_ids", q_segment_ids, "kv_segment_ids", kv_segment_ids),
+             ("q_positions", q_positions, "kv_positions", kv_positions))
+    for qn, qv, kn, kv in pairs:
+        if (qv is None) != (kv is None):
+            given, missing = (qn, kn) if kv is None else (kn, qn)
+            raise ValueError(f"{given} given without {missing}")
+        if qv is not None and (tuple(qv.shape) != (B, Sq) or tuple(kv.shape) != (B, Sk)):
+            raise ValueError(f"{qn} / {kn} must be [{B}, {Sq}] / [{B}, {Sk}], got "
+                             f"{tuple(qv.shape)} / {tuple(kv.shape)}")
+    if q_segment_ids is None and q_positions is None:
+        return None
+    return Masks(q_segment_ids, kv_segment_ids, q_positions, kv_positions)
 
 
 def flash_fwd(q, k, v, *, causal: bool = False, scale: float | None = None,
               rope_cos=None, rope_sin=None, softmax_mode: str = "online",
-              **unported):
+              q_segment_ids=None, kv_segment_ids=None, q_positions=None,
+              kv_positions=None, **unported):
     """q: [B, Sq, H, D]; k, v: [B, Sk, Hk, D].  Returns (out [B, Sq, H, D]
     in q.dtype, lse [B, H, Sq] fp32).
 
     rope_cos/rope_sin ([B, Sq, D/2] or [Sq, D/2] fp32): rotate the
-    un-rotated q inside the kernel (K must come rotated)."""
+    un-rotated q inside the kernel (K must come rotated).
+    q_segment_ids/kv_segment_ids ([B, Sq] / [B, Sk] int): a query sees
+    only keys of its own segment.  q_positions/kv_positions: a key is live
+    only where kv_pos <= q_pos (per-sequence causality on a packed batch,
+    or a chunk over a cache).  A row with no live key gives 0 and lse
+    -1e30."""
     for name, val in unported.items():
         if val is None or val is False or (isinstance(val, float) and val == 0.0):
             continue
@@ -47,15 +88,31 @@ def flash_fwd(q, k, v, *, causal: bool = False, scale: float | None = None,
         raise ValueError("rope_cos and rope_sin go together")
     if rope_cos is not None and rope_cos.shape[-2:] != (Sq, D // 2):
         raise ValueError(f"rope tables must be [B, {Sq}, {D // 2}] or [{Sq}, {D // 2}]")
+    masks = _masks(q_segment_ids, kv_segment_ids, q_positions, kv_positions, B, Sq, Sk)
     if scale is None:
         scale = D ** -0.5
     clamped = softmax_mode == "clamped"
     if q.is_cuda:
-        return flash_fwd_cuda(q, k, v, causal, scale, rope_cos, rope_sin, clamped)
-    return flash_fwd_plain(q, k, v, causal, scale, rope_cos, rope_sin, clamped)
+        return flash_fwd_cuda(q, k, v, causal, scale, rope_cos, rope_sin, clamped, masks)
+    return flash_fwd_plain(q, k, v, causal, scale, rope_cos, rope_sin, clamped, masks)
 
 
-def flash_fwd_plain(q, k, v, causal, scale, rope_cos, rope_sin, clamped):
+def live_pairs(masks: Masks | None, causal: bool, Sq: int, Sk: int, device):
+    """[B or 1, Sq, Sk] bool: the (query, key) pairs every mask leaves live."""
+    live = torch.ones((1, Sq, Sk), dtype=torch.bool, device=device)
+    if causal:
+        rows = torch.arange(Sq, device=device)[:, None] + (Sk - Sq)
+        live = live & (torch.arange(Sk, device=device)[None, :] <= rows)
+    if masks is not None:
+        qs, ks, qp, kp = masks
+        if qs is not None:
+            live = live & (qs[:, :, None] == ks[:, None, :])
+        if qp is not None:
+            live = live & (kp[:, None, :] <= qp[:, :, None])
+    return live
+
+
+def flash_fwd_plain(q, k, v, causal, scale, rope_cos, rope_sin, clamped, masks=None):
     """Plain PyTorch version of K4 (whole rows at once, same roundings)."""
     B, Sq, H, D = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
@@ -65,10 +122,8 @@ def flash_fwd_plain(q, k, v, causal, scale, rope_cos, rope_sin, clamped):
     kf = k.float().repeat_interleave(H // Hk, dim=2)
     vf = v.repeat_interleave(H // Hk, dim=2).float()
     s = torch.einsum("bqhd,bkhd->bhqk", qs.float(), kf)
-    if causal:
-        rows = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
-        cols = torch.arange(Sk, device=q.device)[None, :]
-        s = s.masked_fill(cols > rows, NEG_INF)
+    if causal or masks is not None:
+        s = s.masked_fill(~live_pairs(masks, causal, Sq, Sk, q.device)[:, None], NEG_INF)
     if clamped:
         p = torch.exp2(torch.clamp(s, max=CLAMP2))
         m = None
@@ -88,9 +143,52 @@ def flash_fwd_plain(q, k, v, causal, scale, rope_cos, rope_sin, clamped):
     return out.to(q.dtype), lse
 
 
-def flash_fwd_cuda(q, k, v, causal, scale, rope_cos, rope_sin, clamped):
+def tile_meta(segment_ids, positions, B: int, S: int):
+    """K4's view of one side's masks: ``meta`` [B, n*64, 2] int32 (segment
+    id, position) a token, padded to whole 64-token tiles by repeating the
+    last token, and ``ranges`` [B, n, 4] int32 a tile (least segment, least
+    position, greatest segment, greatest position).  A mask not given is
+    0 throughout, which every tile test passes."""
+    dev = (segment_ids if segment_ids is not None else positions).device
+    zero = torch.zeros((B, S), dtype=torch.int32, device=dev)
+    meta = torch.stack([zero if x is None else x.to(torch.int32)
+                        for x in (segment_ids, positions)], dim=-1)
+    n = -(-S // TILE)
+    if n * TILE > S:
+        meta = torch.cat([meta, meta[:, -1:].expand(B, n * TILE - S, 2)], dim=1)
+    lo, hi = torch.aminmax(meta.view(B, n, TILE, 2), dim=2)
+    return meta.contiguous(), torch.cat([lo, hi], dim=-1).contiguous()
+
+
+def _tiles(masks: Masks, B: int, Sq: int, Sk: int):
+    """(qmeta, kmeta, qranges, kranges) of ``masks`` for K4, made once for
+    the same mask tensors: a prefill's layers pass the same ones, so only
+    its first layer pays for the reductions.  The last call's tensors are
+    held; another tensor, shape, or an in-place change to one (its
+    version) makes them anew, and so does every call on inference tensors,
+    which keep no version."""
+    given = [x for x in masks if x is not None]
+    key = None
+    if not any(x.is_inference() for x in given):
+        key = (B, Sq, Sk, tuple(x._version for x in given))
+    last = _tiles.last
+    if key is None or last is None or last[0] != key or not all(
+            a is b for a, b in zip(last[1], masks)):
+        qmeta, qranges = tile_meta(masks.q_segment_ids, masks.q_positions, B, Sq)
+        kmeta, kranges = tile_meta(masks.kv_segment_ids, masks.kv_positions, B, Sk)
+        last = (key, tuple(masks), (qmeta, kmeta, qranges, kranges))
+        _tiles.last = last if key is not None else None
+    return last[2]
+
+
+_tiles.last = None
+
+
+def flash_fwd_cuda(q, k, v, causal, scale, rope_cos, rope_sin, clamped, masks=None):
     """Launch K4.  Replaces flash_attn_tpu/ops/flash_fwd.py:_fwd_kernel;
-    bound by operations (see the source note in csrc/flash_fwd.cu)."""
+    bound by operations (see the source note in csrc/flash_fwd.cu).  With
+    masks it counts its launches also in ``.seg_launches`` (segment ids
+    given) and ``.pos_launches`` (positions given)."""
     B, Sq, H, D = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
@@ -108,16 +206,27 @@ def flash_fwd_cuda(q, k, v, causal, scale, rope_cos, rope_sin, clamped):
     for t in tensors:
         if not t.is_cuda or not t.is_contiguous():
             raise ValueError("K4 takes contiguous CUDA tensors")
+    if masks is not None:
+        if not all(x.is_cuda for x in masks if x is not None):
+            raise ValueError("K4 takes CUDA segment ids and positions")
+        if -(-Sk // TILE) > MAX_LIST_TILES:
+            raise ValueError(f"K4 with masks takes Sk <= {MAX_LIST_TILES * TILE}, got {Sk}")
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     p = _build.ptr
+    tiles = (None,) * 4 if masks is None else _tiles(masks, B, Sq, Sk)
     rc = _build.lib().fatt_flash_fwd(
-        p(q), p(k), p(v), p(rope_cos), p(rope_sin), p(out), p(lse),
-        B, Sq, Sk, H, Hk, D, bstride, float(scale * LOG2E), int(causal),
-        int(clamped), _build.stream())
+        p(q), p(k), p(v), p(rope_cos), p(rope_sin), p(out), p(lse), *(p(t) for t in tiles),
+        None, B, Sq, Sk, H, Hk, D, bstride, float(scale * LOG2E), int(causal), int(clamped),
+        _build.stream())
     _build.check(rc, "fatt_flash_fwd")
     flash_fwd_cuda.launches += 1
+    if masks is not None:
+        flash_fwd_cuda.seg_launches += masks.q_segment_ids is not None
+        flash_fwd_cuda.pos_launches += masks.q_positions is not None
     return out, lse
 
 
 flash_fwd_cuda.launches = 0
+flash_fwd_cuda.seg_launches = 0
+flash_fwd_cuda.pos_launches = 0

@@ -4,12 +4,11 @@ the body wrapper (engine/_graph.py) as a plain call off the card, and
 utils/profiling against the JAX package's.
 
 Greedy tokens must equal the JAX engine's token for token, at the same
-burst.  The JAX adapters get ``prefill_packed=None`` so that both sides
-prefill one prompt per call, as the port does, and run their kernels in
+burst.  Both engines run their default paths (the prompts admitted in
+one step go through one packed prefill); the JAX ones run their kernels in
 interpret mode.
 """
 
-import dataclasses
 import json
 import time
 from types import SimpleNamespace
@@ -77,9 +76,7 @@ def jax_allocator():
 
 
 def _jax_adapter(eos=None):
-    return dataclasses.replace(
-        jllama.make_adapter(jllama.LLAMA_TINY, interpret=True, eos_token=eos),
-        prefill_packed=None)
+    return jllama.make_adapter(jllama.LLAMA_TINY, interpret=True, eos_token=eos)
 
 
 def _run_waves(eng, waves):
@@ -128,6 +125,7 @@ def test_engine_burst_tokens_equal_jax(both_params, kv_mode):
     assert teng.metrics.steps == jeng.metrics.steps
     np.testing.assert_array_equal(teng._host_lens, jeng._host_lens)
     assert teng._inflight is None or not teng.sched.active
+    assert teng.packed_prefills >= 1
 
 
 def test_paged_engine_burst_matches_jax(jax_allocator, both_params):

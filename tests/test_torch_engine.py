@@ -1,13 +1,13 @@
 """The port's continuous-batching engine against the JAX engine at
 LLAMA_TINY with int8 weights, plus the port's package rules, on the CPU.
 
-Greedy tokens must equal the JAX engine's token for token.  The JAX
-adapter gets ``prefill_packed=None`` so that both sides prefill one
-prompt per call, as the port does.
+Greedy tokens must equal the JAX engine's token for token.  Both engines
+run their default paths: the prompts admitted in one step (two or more,
+within the capacity) go through one packed prefill, the others one per
+call.
 """
 
 import ast
-import dataclasses
 from pathlib import Path
 
 import jax
@@ -53,8 +53,7 @@ def test_engine_greedy_tokens_equal_jax(both_params, kv_mode):
     """Four requests through two slots (slot reuse, idle slots decoding
     alongside): every generated token equals the JAX engine's."""
     jp, tp = both_params
-    jadapter = dataclasses.replace(
-        jllama.make_adapter(jllama.LLAMA_TINY, interpret=True), prefill_packed=None)
+    jadapter = jllama.make_adapter(jllama.LLAMA_TINY, interpret=True)
     jeng = JEngine(jp, jadapter, max_batch=2, capacity=64, kv_mode=kv_mode,
                    cache_dtype=jnp.float32)
     teng = InferenceEngine(tp, llama.make_adapter(CFG), max_batch=2, capacity=64,
@@ -68,6 +67,8 @@ def test_engine_greedy_tokens_equal_jax(both_params, kv_mode):
         assert tr.generated == jr.generated
     assert teng.metrics.completed_requests == len(PROMPTS)
     assert teng.metrics.decode_tokens == jeng.metrics.decode_tokens
+    # the first admission (two prompts, two slots) took the packed prefill
+    assert teng.packed_prefills >= 1
 
 
 @pytest.mark.parametrize("mode", ["int4", "w4a8"])
@@ -82,8 +83,7 @@ def test_engine_greedy_tokens_equal_jax_int4_w8a8_head(mode):
         group_size=g, skip=("tok_emb",), head_mode="w8a8"))
     tp = params_from_jax(jp)
     assert "wqkv" in tp["blocks"][0] and type(tp["lm_head"]).__name__ == "W8A8Weight"
-    jadapter = dataclasses.replace(
-        jllama.make_adapter(jllama.LLAMA_TINY, interpret=True), prefill_packed=None)
+    jadapter = jllama.make_adapter(jllama.LLAMA_TINY, interpret=True)
     jeng = JEngine(jp, jadapter, max_batch=2, capacity=64, kv_mode="fp8",
                    cache_dtype=jnp.float32)
     teng = InferenceEngine(tp, llama.make_adapter(CFG), max_batch=2, capacity=64,
@@ -95,6 +95,7 @@ def test_engine_greedy_tokens_equal_jax_int4_w8a8_head(mode):
     for jr, tr, n in zip(jreqs, treqs, MAX_TOKENS):
         assert tr.done and len(tr.generated) == n
         assert tr.generated == jr.generated
+    assert teng.packed_prefills >= 1
 
 
 def test_engine_matches_direct_greedy_decode(both_params):
@@ -155,7 +156,7 @@ def test_kv_cache_append_matches_jax(kv_mode):
 def test_engine_rejects_unported_options(both_params):
     _, tp = both_params
     adapter = llama.make_adapter(CFG)
-    for kw in ({"prefill_chunk_size": 16}, {"mesh": object()}, {"lora_bank": object()}):
+    for kw in ({"mesh": object()}, {"lora_bank": object()}):
         with pytest.raises(NotImplementedError):
             InferenceEngine(tp, adapter, max_batch=1, capacity=32, device="cpu", **kw)
 

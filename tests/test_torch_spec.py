@@ -6,8 +6,9 @@ and the engine's n-gram and draft-model speculation.
 
 Inputs are made with numpy from a seed and handed to both sides.  JAX runs
 its Pallas kernels in interpret mode; the port runs the plain versions of
-its kernels.  The JAX engines get ``prefill_packed=None`` so that both
-sides prefill one prompt per call, as the port does.
+its kernels.  Both engines run their default paths (the prompts admitted
+in one step go through one packed prefill; a draft cache is filled one
+prompt per call).
 """
 
 import dataclasses
@@ -268,7 +269,7 @@ def tiny():
 
 
 def _jax_adapter(cfg):
-    return dataclasses.replace(jllama.make_adapter(cfg, interpret=True), prefill_packed=None)
+    return jllama.make_adapter(cfg, interpret=True)
 
 
 def _run(engine, requests):
@@ -310,6 +311,7 @@ def test_engine_spec_tokens_equal_jax(tiny, spec_kind):
     jtoks, jm = _run(jeng, requests)
     ttoks, tm = _run(teng, requests)
     assert ttoks == jtoks
+    assert teng.packed_prefills == 1  # both prompts in one packed prefill
     assert tm.spec_steps > 0 and tm.spec_steps == jm.spec_steps
     assert tm.spec_emitted == jm.spec_emitted and tm.decode_tokens == jm.decode_tokens
     if spec_kind == "self":
