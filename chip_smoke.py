@@ -38,7 +38,15 @@ Phases, one line each with its seconds:
      training shape, at a shifted causal Sq=1000, Sk=1500, non-causal at
      B=2, at group sizes 1 and 8 and non-causal at S=2048, each also
      launched twice and held bitwise equal, beside the device time of
-     SDPA's backward); then once
+     SDPA's backward); Gemma-2-9B's points: K4 at head_dim 256 (S=8192,
+     H=16, Hk=8, causal, clamped, softcap 50, scale 1/16) with the sliding
+     window (4095, -1) and without, timed, beside SDPA without the cap (no
+     single PyTorch call applies the softcap), and at S=891 and a shifted
+     Sq=1000 Sk=1500 in both modes, with a window of 300 and without; K1
+     at head_dim 256 (B=8, H=16, Hk=8, capacity 8192, int8 and fp8,
+     online, softcap 50, lengths up to 8000) with window 4096 and without,
+     timed; K2 bit for bit and K1m at head_dim 256; K3 at Gemma-2-9B's five
+     projection widths at M = 8; then once
      each what the main paths do not run: group sizes 32 and 64, K7's
      bf16 output, and the int8, int4 and W4A8 LM heads' fp32 activations
      or output;
@@ -49,7 +57,10 @@ Phases, one line each with its seconds:
      path (int8 weights): a prompt, a prompt sharing its first two pages
      through the suffix prefill, and four paged decode steps; the verify
      step (int8 weights): two prompts, then decode_multi of 5 tokens
-     against the CPU and against five decode steps on the card; the
+     against the CPU and against five decode steps on the card; Gemma-2
+     (2 layers at 9B widths, layer 0 sliding, layer 1 global, int8
+     weights, fp8 KV, the window cut to 512): a 1000-token prompt and four
+     decode steps against the CPU; the
      prefill paths (int8 weights): prefill_packed of three prompts in the
      1024 bucket, and prefill_chunk of a 700-token prompt in chunks of 256
      into an fp8 cache (logits and the cache); then one
@@ -95,6 +106,15 @@ Phases, one line each with its seconds:
      tokens/s, ms per round, tokens per verify step, acceptance, the
      launches (K1's chunk mode 32 per verify round) and its tokens against
      phase 4's captured run;
+  10. (run after phase 6) Gemma-2-9B (42 layers, random weights from the
+     seed), int8 weights, fp8 KV, capacity 8192: 8 greedy requests (seven
+     prompts of 128-1024 tokens and one of 6000, so the 4096 window cuts in
+     prefill and decode), 32 tokens, one prompt a prefill call, eager and
+     captured (equal tokens): decode ms a position and tokens/s, the
+     card's ms a position, prefill tokens/s, peak memory against 75 GiB,
+     and the launches (K4 at head_dim 256 42 a prefill call, 21 of them
+     windowed; K1 at 256, K2 and K1m 42 a decode step); then int8 KV (16
+     tokens);
   8. training: Llama-3-8B at full widths and depth (bf16 params, AdamW
      moments in bf16), B=1, S=2048, the default TrainConfig (remat on), 5
      AdamW steps on one seeded batch: losses, ms per step, tokens/s, peak
@@ -103,7 +123,10 @@ Phases, one line each with its seconds:
 Before the last line come the kernels' JSON record (each row's launches
 are those of the run named in its "launches_run"; the quantized matmuls'
 rows also carry their prompt bucket's numbers under "prompt", K4's its
-packed and chunk points under "packed" and "chunk") and the
+packed and chunk points under "packed" and "chunk", K3's Gemma-2-9B
+widths under "gemma"; the head_dim 256 rows "K4 d256" and "K1 d256"
+carry the unwindowed call under "no_window" and SDPA without the softcap
+under "sdpa_nocap_ms") and the
 card; the last line is {"ok": true, "device": {...}}.  Any failed check
 exits nonzero without that line; so does a machine without CUDA or a
 directory without the rest of the repository.
@@ -889,9 +912,10 @@ def check_g3(torch, checks):
 
 
 def check_k2(torch, checks, rows):
-    """K2 in int8 and fp8 at B=8, Hk=8, S=4096, D=128, bit for bit against
-    its plain version (an idle slot past the capacity writes nothing); the
-    fp8 point carries its times: a loop of wrapper calls by events, the
+    """K2 in int8 and fp8 at B=8, Hk=8, S=4096, D=128 and at Gemma-2-9B's
+    S=8192, D=256, bit for bit against its plain version (an idle slot past
+    the capacity writes nothing); the fp8 points carry their times
+    (the "K2" and "K2 d256" rows): a loop of wrapper calls by events, the
     kernel as a replayed CUDA graph, and beside it the graph time of an
     empty kernel on K2's grid, launched the same way (the floor of a kernel
     this small)."""
@@ -899,9 +923,11 @@ def check_k2(torch, checks, rows):
     from flash_attn_tpu_torch.ops import kv_append as ka
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    B, Hk, S, D = 8, 8, 4096, 128
+    B, Hk = 8, 8
     worst = 0.0
-    for mode, dt in (("int8", torch.int8), ("fp8", torch.float8_e4m3fn)):
+    for mode, dt, S, D in (("int8", torch.int8, 4096, 128), ("fp8", torch.float8_e4m3fn, 4096, 128),
+                           ("int8", torch.int8, 8192, 256),
+                           ("fp8", torch.float8_e4m3fn, 8192, 256)):
         if mode == "int8":
             kc = torch.randint(-127, 128, (B, Hk, S, D), generator=g, device="cuda",
                                dtype=torch.int8)
@@ -921,7 +947,7 @@ def check_k2(torch, checks, rows):
         err = max(float((a.float() - b.float()).abs().max())
                   for a, b in zip((kc, vc, ks, vs), bufs))
         # the same IEEE division and round-to-nearest-even: bit-exact
-        ok = checks.check(f"K2 {mode}", err, 0.0)
+        ok = checks.check(f"K2 {mode} D={D}", err, 0.0)
         worst = max(worst, err)
         def k2():
             ka.kv_append_cuda(kc, vc, ks, vs, nk, nv, lens, mode)
@@ -934,17 +960,18 @@ def check_k2(torch, checks, rows):
         plain_ms = cuda_ms(torch, lambda: ka.kv_append_plain(kc, vc, ks, vs, nk, nv, lens, mode))
         nbytes = 2 * B * Hk * D * 2 + 2 * B * Hk * D * 1 + 2 * B * Hk * 4 + B * 4
         b_ms, b_by = bound(nbytes, 0)
-        say(f"  K2 {mode}: max_abs_err {err:.3e} (tol 0) {'ok' if ok else 'FAIL'} | "
+        say(f"  K2 {mode} D={D}: max_abs_err {err:.3e} (tol 0) {'ok' if ok else 'FAIL'} | "
             f"{ms:.4f} ms (a loop of wrapper calls; graph {g_ms:.4f}, an empty kernel on its "
             f"grid {empty_ms:.4f}), plain {plain_ms:.4f}, library none, bound {b_ms:.6f} "
             f"({b_by})")
         if mode == "fp8":
-            rows["K2"] = dict(name="kv_append (B=8, Hk=8, S=4096, D=128, fp8)",
-                              source="flash_attn_tpu_torch/csrc/kv_append.cu",
-                              replaces="flash_attn_tpu/ops/kv_append.py:57",
-                              ms=ms, graph_ms=g_ms, empty_graph_ms=empty_ms,
-                              plain_ms=plain_ms, library_ms=None,
-                              bound_ms=b_ms, bound_by=b_by)
+            rows["K2" if D == 128 else "K2 d256"] = dict(
+                name=f"kv_append (B=8, Hk=8, S={S}, D={D}, fp8)",
+                source="flash_attn_tpu_torch/csrc/kv_append.cu",
+                replaces="flash_attn_tpu/ops/kv_append.py:57",
+                ms=ms, graph_ms=g_ms, empty_graph_ms=empty_ms,
+                plain_ms=plain_ms, library_ms=None,
+                bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
     rows["K2"]["max_abs_err"] = worst
 
 
@@ -1097,7 +1124,7 @@ def k4_tile_counts(torch, checks, label, q, k, v, cos, sin, causal, masks):
     _build.check(_build.lib().fatt_flash_fwd(
         p(q), p(k), p(v), p(cos), p(sin), p(out), p(lse), p(qmeta), p(kmeta), p(qr), p(kr),
         p(counts), B, Sq, Sk, H, Hk, D, 0, float(D ** -0.5 * ff.LOG2E), int(causal), 1,
-        _build.stream()), "fatt_flash_fwd")
+        -1, -1, 0.0, _build.stream()), "fatt_flash_fwd")
     live, full = tile_test(qr, kr, causal, Sq, Sk)
     got, want = counts.tolist(), [int(live.sum()), int(full.sum())]
     if got != want:
@@ -1170,7 +1197,7 @@ def check_k4_masked(torch, checks, rows):
                 _build.check(lib.fatt_flash_fwd(
                     p(q), p(k), p(v), p(cos), p(sin), p(o2), p(l2), p(qmeta), p(kmeta), p(qr),
                     p(kr), None, 1, Sq, Sk, H, Hk, D, 0, float(D ** -0.5 * ff.LOG2E), 0, 1,
-                    _build.stream()), "fatt_flash_fwd")
+                    -1, -1, 0.0, _build.stream()), "fatt_flash_fwd")
 
             kernel()
             torch.cuda.synchronize()
@@ -1651,6 +1678,261 @@ def check_k8(torch, checks, rows):
     rows["K8c"]["max_abs_err"] = worst_c
 
 
+# --- Gemma-2-9B's shapes: head_dim 256, the sliding window, the softcap ----
+
+GEMMA_CAP, GEMMA_SCALE, GEMMA_WINDOW = 50.0, 256.0 ** -0.5, 4096
+
+
+def _k4_case(torch, checks, label, q, k, v, cos, sin, clamped, window, timed=False):
+    """K4 at head_dim 256 with the Gemma softcap against its plain version
+    (each row to two bf16 ulps of its largest, the LSE to 1e-3, as check_k4
+    holds it); with ``timed`` also the kernel's time, the plain version's,
+    SDPA's without the cap (a different function: no single PyTorch call
+    applies the softcap; the window as a boolean mask) and the bound on
+    the live pairs.  Returns (max |err|, the times or None)."""
+    import torch.nn.functional as F
+
+    from flash_attn_tpu_torch.ops import flash_fwd as ff
+    from flash_attn_tpu_torch.ops.rope import rope_rotate
+
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    args = (q, k, v, True, GEMMA_SCALE, cos, sin, clamped, None, window, GEMMA_CAP)
+    out, lse = ff.flash_fwd(q, k, v, causal=True, scale=GEMMA_SCALE, window=window,
+                            logit_softcap=GEMMA_CAP, rope_cos=cos, rope_sin=sin,
+                            softmax_mode="clamped" if clamped else "online")
+    rout, rlse = ff.flash_fwd_plain(*args)
+    torch.cuda.synchronize()
+    err, share = row_err(out, rout)
+    lerr = float((lse - rlse).abs().max())
+    ok = checks.check(f"{label} out", share, 1.0) & checks.check(f"{label} lse", lerr, 1e-3)
+    line = (f"  {label}: max_abs_err {err:.3e} ({share:.3f} of its row's tol), lse err "
+            f"{lerr:.3e} (tol 1e-3) {'ok' if ok else 'FAIL'}")
+    del out, lse, rout, rlse
+    times = None
+    pairs = int(ff.live_pairs(None, True, Sq, Sk, "cuda", window).sum())
+    flops = 4 * B * H * D * pairs
+    if timed:
+        ms = cuda_ms(torch, lambda: ff.flash_fwd_cuda(*args))
+        plain_ms = cuda_ms(torch, lambda: ff.flash_fwd_plain(*args), iters=1, warmup=1)
+        qr = rope_rotate(q, cos, sin).transpose(1, 2).contiguous()
+        kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+        if window is None:
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qr, kt, vt, is_causal=True, scale=GEMMA_SCALE, enable_gqa=True)
+        else:
+            mask = ff.live_pairs(None, True, Sq, Sk, "cuda", window)[0]
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qr, kt, vt, attn_mask=mask, scale=GEMMA_SCALE, enable_gqa=True)
+        sdpa_ms = cuda_ms(torch, sdpa, iters=5)
+        del qr, kt, vt
+        nbytes = q.numel() * 2 * 2 + k.numel() * 2 * 2 + cos.numel() * 4 * 2 + B * H * Sq * 4
+        b_ms, b_by = bound(nbytes, flops)
+        times = dict(ms=ms, plain_ms=plain_ms, sdpa_nocap_ms=sdpa_ms, bound_ms=b_ms,
+                     bound_by=b_by, live_pairs=pairs)
+        line += (f" | {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s on {pairs} live pairs), plain "
+                 f"{plain_ms:.4f}, library none (no single PyTorch call applies the softcap; "
+                 f"SDPA without it, a different function: {sdpa_ms:.4f}), bound {b_ms:.4f} "
+                 f"({b_by})")
+    say(line)
+    return err, times
+
+
+def check_k4_gemma(torch, checks, rows):
+    """K4 at Gemma-2-9B's prefill shape: D=256, H=16, Hk=8, S=8192, causal,
+    clamped, softcap 50, scale 1/16, q rotated in the kernel, with the
+    sliding window (4095, -1) and without (the "K4 d256" row; the windowed
+    call should take near the share of live pairs, ~0.75, of the causal
+    one: the tiles below the window are skipped, not masked); then at small
+    odd shapes (S=891, a shifted Sq=1000 Sk=1500) in both softmax modes,
+    with a window of 300 and without."""
+    from flash_attn_tpu_torch.ops.rope import rope_cos_sin
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    H, Hk, D = 16, 8, 256
+    worst, times = 0.0, {}
+    for Sq, Sk, timed in ((8192, 8192, True), (891, 891, False), (1000, 1500, False)):
+        q = torch.randn((1, Sq, H, D), generator=g, device="cuda", dtype=torch.bfloat16)
+        k = torch.randn((1, Sk, Hk, D), generator=g, device="cuda", dtype=torch.bfloat16)
+        v = torch.randn((1, Sk, Hk, D), generator=g, device="cuda", dtype=torch.bfloat16)
+        cos, sin = rope_cos_sin(torch.arange(Sq, device="cuda")[None] + (Sk - Sq), D, 10000.0)
+        wide = (GEMMA_WINDOW - 1, -1) if timed else (299, -1)
+        cases = ((True, wide), (True, None)) if timed else (
+            (True, wide), (False, wide), (True, None), (False, None))
+        for clamped, window in cases:
+            label = (f"K4 D=256 {'clamped' if clamped else 'online'} S={Sq}"
+                     + (f" Sk={Sk}" if Sk != Sq else "") + f" H={H} Hk={Hk} softcap 50 "
+                     + (f"window {window}" if window else "no window"))
+            err, t = _k4_case(torch, checks, label, q, k, v, cos, sin, clamped, window, timed)
+            worst = max(worst, err)
+            if t:
+                times[window is not None] = t
+        del q, k, v
+        torch.cuda.empty_cache()
+    w, nw = times[True], times[False]
+    say(f"  K4 D=256 S=8192: windowed / causal time {w['ms'] / nw['ms']:.3f} (live pairs "
+        f"{w['live_pairs'] / nw['live_pairs']:.3f})")
+    rows["K4 d256"] = dict(
+        name="flash_fwd (B=1, S=8192, H=16, Hk=8, D=256, causal, rope, clamped, softcap 50, "
+             "window (4095, -1))",
+        source="flash_attn_tpu_torch/csrc/flash_fwd.cu",
+        replaces="flash_attn_tpu/ops/flash_fwd.py:221", max_abs_err=worst,
+        ms=w["ms"], plain_ms=w["plain_ms"], library_ms=None, bound_ms=w["bound_ms"],
+        bound_by=w["bound_by"], sdpa_nocap_ms=w["sdpa_nocap_ms"],
+        no_window=dict(ms=nw["ms"], plain_ms=nw["plain_ms"], sdpa_nocap_ms=nw["sdpa_nocap_ms"],
+                       bound_ms=nw["bound_ms"], bound_by=nw["bound_by"]))
+
+
+def _gemma_decode_inputs(torch, kv, g, B=8, H=16, Hk=8, S=8192, D=256):
+    """Gemma-2-9B's decode step: q and a quantized BHSD cache, lengths
+    up to ~8000 (one full past the window, one of 1, one of 4096)."""
+    q, k, v, ks, vs, lens = _decode_inputs(torch, kv, g, B=B, H=H, Hk=Hk, S=S, D=D)
+    lens.copy_(torch.randint(1, 8001, (B,), generator=g, device="cuda", dtype=torch.int32))
+    lens[0], lens[1], lens[2] = 8000, 1, GEMMA_WINDOW
+    return q, k, v, ks, vs, lens
+
+
+def check_k1_gemma(torch, checks, rows):
+    """K1 at Gemma-2-9B's decode step: D=256, B=8, H=16, Hk=8, capacity
+    8192, int8 and fp8 KV (online: the cap reaches the fp8 ceiling),
+    softcap 50, scale 1/16, lengths up to 8000, with window 4096 (splits
+    over each sequence's live walk) and without (splits over the
+    capacity), each against its plain version as check_k1 holds it (the
+    "K1 d256" row: fp8, windowed; the windowed call should take about half
+    the unwindowed one); then K1m at D=256 on the windowed fp8 partials
+    against lse_merge (the "K1m d256" row)."""
+    import torch.nn.functional as F
+
+    from flash_attn_tpu_torch.ops import decode as dec
+    from flash_attn_tpu_torch.ops.lse import lse_merge, lse_merge_cuda
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    worst = 0.0
+    for kv in ("int8", "fp8"):
+        q, k, v, ks, vs, lens = _gemma_decode_inputs(torch, kv, g)
+        B, H, D = q.shape
+        Hk, S = k.shape[1], k.shape[2]
+        clamped = dec._default_softmax_mode(k.dtype, GEMMA_CAP) == "clamped"
+        clamp2 = dec._clamp2(k.dtype)
+        times = {}
+        for window in (GEMMA_WINDOW, None):
+            reach = S if window is None else min(window, S)
+            nsplit, split_len = dec._splits(B, Hk, reach, None)
+            if window is not None:
+                split_len = None
+            args = (q, k, v, ks, vs, lens, GEMMA_SCALE, clamped, clamp2, nsplit, split_len,
+                    1, "bhsd", window, GEMMA_CAP)
+            call = lambda: dec.flash_decode(  # noqa: E731
+                q, k, v, k_scale=ks, v_scale=vs, kv_length=lens, scale=GEMMA_SCALE,
+                window=window, logit_softcap=GEMMA_CAP, kv_layout="bhsd", return_lse=True)
+            got, glse = call()
+            po, pl = dec.flash_decode_plain(*args)
+            ref, rlse = plain_merge(po, pl, torch.bfloat16)
+            torch.cuda.synchronize()
+            err, share = row_err(got, ref)
+            lerr = float((glse - rlse).abs().max())
+            label = f"K1 D=256 {kv} {'window 4096' if window else 'no window'}"
+            ok = checks.check(f"{label} out", share, 1.0) & checks.check(f"{label} lse", lerr, 1e-3)
+            worst = max(worst, err)
+            ms = cuda_ms(torch, lambda: dec.flash_decode_cuda(*args))
+            call_ms = graph_ms(torch, call)
+            plain_ms = cuda_ms(torch, lambda: dec.flash_decode_plain(*args), iters=3)
+            kd, vd = _dequant(k, ks), _dequant(v, vs)
+            pos = torch.arange(S, device="cuda")[None, :]
+            live = pos < lens[:, None].long()
+            if window is not None:
+                live = live & (pos >= lens[:, None].long() - window)
+            sdpa_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                q[:, :, None, :], kd, vd, attn_mask=live[:, None, None, :], scale=GEMMA_SCALE,
+                enable_gqa=True))
+            del kd, vd
+            n_live = int(live.sum())
+            nbytes = (2 * Hk * n_live * (D * k.element_size() + 4) + 2 * q.numel() * 2
+                      + lens.numel() * 4)
+            b_ms, b_by = bound(nbytes, 4 * H * D * n_live)
+            times[window is not None] = dict(ms=ms, call_graph_ms=call_ms, plain_ms=plain_ms,
+                                             sdpa_nocap_ms=sdpa_ms, bound_ms=b_ms, bound_by=b_by)
+            say(f"  {label} ({'clamped' if clamped else 'online'}, {nsplit} splits"
+                f"{' over the live walk' if window else ''}): max_abs_err {err:.3e} ({share:.3f} "
+                f"of its row's tol), lse err {lerr:.3e} (tol 1e-3) {'ok' if ok else 'FAIL'} | "
+                f"{ms:.4f} ms (as called with the K1m merge, graph {call_ms:.4f}), plain "
+                f"{plain_ms:.4f}, library none (no single PyTorch call applies the softcap; "
+                f"SDPA without it on the dequantized cache, a different function: "
+                f"{sdpa_ms:.4f}), bound {b_ms:.4f} ({b_by}) on {n_live} live positions")
+        w, nw = times[True], times[False]
+        say(f"  K1 D=256 {kv}: windowed / unwindowed time {w['ms'] / nw['ms']:.3f}, as called "
+            f"{w['call_graph_ms'] / nw['call_graph_ms']:.3f}")
+        if kv == "fp8":
+            rows["K1 d256"] = dict(
+                name="decode_bhsd (B=8, H=16, Hk=8, S=8192, D=256, fp8 KV, online, softcap 50, "
+                     "window 4096)",
+                source="flash_attn_tpu_torch/csrc/decode.cu",
+                replaces="flash_attn_tpu/ops/decode.py:747", library_ms=None,
+                **{key: w[key] for key in ("ms", "call_graph_ms", "plain_ms", "sdpa_nocap_ms",
+                                           "bound_ms", "bound_by")},
+                no_window={key: nw[key] for key in ("ms", "call_graph_ms", "plain_ms",
+                                                    "sdpa_nocap_ms", "bound_ms", "bound_by")})
+            nsplit = dec._splits(B, Hk, GEMMA_WINDOW, None)[0]
+            outs, lses = dec.flash_decode_cuda(q, k, v, ks, vs, lens, GEMMA_SCALE, clamped,
+                                               clamp2, nsplit, None, 1, "bhsd", GEMMA_WINDOW,
+                                               GEMMA_CAP)
+            m_out, m_lse = lse_merge_cuda(outs, lses, torch.bfloat16)
+            r_out, r_lse = lse_merge(outs, lses, dim=0)
+            torch.cuda.synchronize()
+            merr, mshare = row_err(m_out, r_out.to(torch.bfloat16))
+            mlerr = float((m_lse - r_lse).abs().max())
+            ok = (checks.check("K1m D=256 out", mshare, 1.0)
+                  & checks.check("K1m D=256 lse", mlerr, 1e-3))
+            m_ms = graph_ms(torch, lambda: lse_merge_cuda(outs, lses, torch.bfloat16))
+            m_plain = cuda_ms(torch, lambda: lse_merge(outs, lses, dim=0)[0].to(torch.bfloat16))
+            nbytes = outs.numel() * 4 + lses.numel() * 4 + outs[0].numel() * 2 + lses[0].numel() * 4
+            mb_ms, mb_by = bound(nbytes, 2 * outs.numel())
+            say(f"  K1m D=256 ({nsplit} splits of B=8, H=16 -> bf16): max_abs_err {merr:.3e} "
+                f"({mshare:.3f} of its row's tol), lse err {mlerr:.3e} (tol 1e-3) "
+                f"{'ok' if ok else 'FAIL'} | {m_ms:.4f} ms (CUDA graph), plain {m_plain:.4f}, "
+                f"library none, bound {mb_ms:.4f} ({mb_by})")
+            rows["K1m d256"] = dict(
+                name=f"lse_merge ({nsplit} splits of B=8, H=16, D=256 fp32 partials -> bf16)",
+                source="flash_attn_tpu_torch/csrc/lse_merge.cu",
+                replaces="flash_attn_tpu/ops/lse.py:23", max_abs_err=merr, ms=m_ms,
+                plain_ms=m_plain, library_ms=None, bound_ms=mb_ms, bound_by=mb_by)
+            del outs, lses
+        del q, k, v, ks, vs
+        torch.cuda.empty_cache()
+    rows["K1 d256"]["max_abs_err"] = worst
+
+
+# Gemma-2-9B's projections (K, N): wq, wk / wv, wo, w_gate / w_up, w_down
+GEMMA_GEMMS = ((3584, 4096), (3584, 2048), (4096, 3584), (3584, 14336), (14336, 3584))
+
+
+def check_k3_gemma(torch, checks, rows):
+    """K3 at Gemma-2-9B's widths, M = 8 (the decode step), against its
+    plain version as check_k3 holds it; the K3 row carries them under
+    "gemma"."""
+    from flash_attn_tpu_torch.ops import matmul as mm
+    from flash_attn_tpu_torch.ops.quant import quantize_int8
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 32)
+    points = {}
+    M = 8
+    for K, N in GEMMA_GEMMS:
+        wf = torch.randn((K, N), generator=g, device="cuda", dtype=torch.bfloat16) * 0.02
+        wq, s = quantize_int8(wf, dims=(0,))
+        wq, s = wq.contiguous(), s[0].contiguous()
+        wbf = wq.bfloat16()
+        del wf
+        x = torch.randn((M, K), generator=g, device="cuda", dtype=torch.bfloat16)
+        points[f"{K}x{N}"] = _q_point(
+            torch, checks, f"K3 Gemma-2-9B M={M} K={K} N={N}",
+            lambda: mm.matmul_int8_cuda(x, wq, s, torch.bfloat16),
+            lambda: mm.matmul_int8_plain(x, wq, s, torch.bfloat16),
+            lambda: torch.matmul(x, wbf) * s, "matmul, then the scales",
+            M * K * 2 + K * N + N * 4 + M * N * 2, 2 * M * K * N)
+        del wq, s, wbf
+    rows["K3"]["gemma"] = dict(M=M, **points)
+
+
 def phase_kernels(torch, checks):
     t0 = time.perf_counter()
     rows = {}
@@ -1665,6 +1947,10 @@ def phase_kernels(torch, checks):
     check_k4(torch, checks, rows)
     check_k4_shapes(torch, checks)
     check_k4_masked(torch, checks, rows)
+    torch.cuda.empty_cache()
+    check_k4_gemma(torch, checks, rows)
+    check_k1_gemma(torch, checks, rows)
+    check_k3_gemma(torch, checks, rows)
     torch.cuda.empty_cache()
     check_k9_k10(torch, checks, rows)
     torch.cuda.empty_cache()
@@ -2036,6 +2322,69 @@ def train_card_vs_cpu(torch, checks):
     torch.cuda.empty_cache()
 
 
+# Gemma-2 at 2 layers on the card against the CPU: the window is cut to 512
+# so that a 1000-token prompt crosses it (on the CPU too)
+GEMMA_CVC_WINDOW, GEMMA_CVC_PROMPT = 512, 1000
+
+
+def gemma_card_vs_cpu(torch, checks):
+    """2 layers of Gemma-2 at full 9B widths (layer 0 slides, layer 1 is
+    global), int8 weights, fp8 KV, the window cut to GEMMA_CVC_WINDOW: a
+    1000-token prompt (the 1024 bucket) and four decode steps in lockstep
+    on the card (K4 and K1 at head_dim 256 with window and softcap) and on
+    the CPU (their plain versions), fed the CPU's greedy tokens; logits
+    within 5 % of the largest, as card_vs_cpu holds them."""
+    import numpy as np
+
+    from flash_attn_tpu_torch.models import gemma2
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(gemma2.GEMMA2_9B, num_layers=2, sliding_window=GEMMA_CVC_WINDOW)
+    card = gemma2.init_params(cfg, seed=SEED + 5, device="cuda", quantize="int8")
+    sides = {"cpu": _to(card, "cpu"), "cuda": card}
+    caches = {d: gemma2.make_cache(cfg, 1, 1280, mode="fp8", device=d) for d in sides}
+    prompt = np.random.default_rng(SEED + 5).integers(0, cfg.vocab_size, GEMMA_CVC_PROMPT)
+    toks = torch.zeros((1, 1024), dtype=torch.long)
+    toks[0, :len(prompt)] = torch.from_numpy(prompt)
+    logits = {d: [] for d in sides}
+    for d, params in sides.items():
+        out, kvs = gemma2.prefill_with_kv(params, toks.to(d), torch.arange(1024, device=d)[None],
+                                          cfg)
+        for layer, (k, v) in enumerate(kvs):
+            caches[d].insert_prompt(layer, 0, k[0], v[0])
+        caches[d].set_length(0, len(prompt))
+        logits[d].append(out[0, len(prompt) - 1].float().cpu())
+        del out, kvs
+    nxt = logits["cpu"][0].argmax()[None]
+    for _ in range(4):
+        for d, params in sides.items():
+            out, _ = gemma2.decode_step(params, nxt.to(d), cfg, caches[d])
+            logits[d].append(out[0].float().cpu())
+        nxt = logits["cpu"][-1].argmax()[None]
+    torch.cuda.synchronize()
+    ref = torch.stack(logits["cpu"])
+    got = torch.stack(logits["cuda"])
+    finite = bool(torch.isfinite(got).all())
+    err = float((got - ref).abs().max())
+    # as card_vs_cpu: the sides round at the same points and sum in another
+    # order, which can flip a bf16, int8-activation or fp8-KV rounding that
+    # two layers carry into the (capped) logits
+    tol = 5e-2 * float(ref.abs().max())
+    ok = checks.check("card vs cpu logits, Gemma-2", err, tol) and finite
+    if not finite:
+        checks.failed.append("card logits not finite, Gemma-2")
+    agree = int((got.argmax(-1) == ref.argmax(-1)).sum())
+    say(f"[phase 3 card vs cpu, Gemma-2: 2 layers at 9B widths (layer 0 slides, layer 1 "
+        f"global), int8 weights, fp8 KV, the window cut to {GEMMA_CVC_WINDOW} so the "
+        f"{GEMMA_CVC_PROMPT}-token prompt crosses it] logits {tuple(got.shape)} finite={finite} "
+        f"max_abs_err {err:.3e} (tol {tol:.3e}, max |logit| {float(ref.abs().max()):.3f}) "
+        f"{'ok' if ok else 'FAIL'} | greedy agreement {agree}/{ref.shape[0]} | "
+        f"{time.perf_counter() - t0:.2f}s")
+    del sides, caches, card
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def _counters():
     """(name -> kernel wrapper, the K8 wrapper): K8 also counts its
     chunk-mode launches apart."""
@@ -2061,15 +2410,18 @@ def _reset_counts():
         fn.launches = 0
     k8.chunk_launches = k8.merges = 0
     wrappers["K1"].chunk_launches = wrappers["K1"].bshd_launches = 0
+    wrappers["K1"].window_launches = wrappers["K1"].d256_launches = 0
     wrappers["K4"].seg_launches = wrappers["K4"].pos_launches = 0
+    wrappers["K4"].window_launches = wrappers["K4"].d256_launches = 0
 
 
 def _read_counts() -> dict:
     """Each kernel's launches; K1 split into decode mode (BHSD), chunk mode
     and BSHD, K8 into decode mode and chunk mode, K8's launches that
-    merged their splits in the kernel ("K8 merges"), and K4's launches
-    with segment ids ("K4 seg") and with positions ("K4 pos"), which are
-    also counted in "K4"."""
+    merged their splits in the kernel ("K8 merges"), K4's launches with
+    segment ids ("K4 seg"), with positions ("K4 pos"), with a window ("K4
+    window") and at head_dim 256 ("K4 d256"), which are also counted in
+    "K4", and K1's (decode mode) with a window and at head_dim 256."""
     wrappers, k8 = _counters()
     counts = {k: fn.launches for k, fn in wrappers.items()}
     k1 = wrappers["K1"]
@@ -2081,6 +2433,10 @@ def _read_counts() -> dict:
     counts["K8 merges"] = k8.merges
     counts["K4 seg"] = wrappers["K4"].seg_launches
     counts["K4 pos"] = wrappers["K4"].pos_launches
+    counts["K4 window"] = wrappers["K4"].window_launches
+    counts["K4 d256"] = wrappers["K4"].d256_launches
+    counts["K1 window"] = k1.window_launches
+    counts["K1 d256"] = k1.d256_launches
     return counts
 
 
@@ -2126,9 +2482,10 @@ def _decode_window(torch, eng):
 
 
 def serve(torch, checks, label, cfg, params, kv_mode, max_tokens, path, burst=1,
-          window=False, packed=True, chunk=None):
-    """One engine run of 8 greedy requests (max_batch 8, capacity 4096) at
-    ``burst``.  Every counter is set to 0 just before and read just after;
+          window=False, packed=True, chunk=None, adapter=None, capacity=4096, prompts=None):
+    """One engine run of 8 greedy requests (max_batch 8, ``capacity``) at
+    ``burst``, through ``adapter`` (default: Llama's for ``cfg``) on
+    ``prompts`` ((lengths, token lists); default ``_prompts``).  Every counter is set to 0 just before and read just after;
     each kernel in ``path`` must have launched.  The 8 prompts (3450
     tokens) go through one packed prefill, whose K4 calls carry segment
     ids (one a layer); with ``packed`` False the adapter has no
@@ -2141,7 +2498,8 @@ def serve(torch, checks, label, cfg, params, kv_mode, max_tokens, path, burst=1,
     back to back (CUDA events): the card's time a decode position.
     Returns a dict of the run's counts, peak memory, tokens, ms and device
     ms a decode position, decode and prefill tokens/s, the window's
-    numbers and the decode steps that ran between chunks."""
+    numbers, the decode steps that ran between chunks and the run's decode
+    dispatches."""
     import numpy as np
 
     from flash_attn_tpu_torch.engine import _graph
@@ -2149,11 +2507,11 @@ def serve(torch, checks, label, cfg, params, kv_mode, max_tokens, path, burst=1,
     from flash_attn_tpu_torch.models import llama
 
     t1 = time.perf_counter()
-    lens, prompts = _prompts(cfg.vocab_size)
-    adapter = llama.make_adapter(cfg)
+    lens, prompts = prompts or _prompts(cfg.vocab_size)
+    adapter = adapter or llama.make_adapter(cfg)
     if not packed:
         adapter = dataclasses.replace(adapter, prefill_packed=None)
-    eng = InferenceEngine(params, adapter, max_batch=8, capacity=4096, kv_mode=kv_mode,
+    eng = InferenceEngine(params, adapter, max_batch=8, capacity=capacity, kv_mode=kv_mode,
                           device="cuda", decode_burst=burst, prefill_chunk_size=chunk)
     between = [0]  # decode steps run while a prompt is mid-way through its chunks
     step = eng._do_decode_step
@@ -2178,6 +2536,7 @@ def serve(torch, checks, label, cfg, params, kv_mode, max_tokens, path, burst=1,
     eng.run()
     torch.cuda.synchronize()
     counts = _read_counts()
+    dispatches = m.steps
     tokens, secs, steps = now() - skip
     tokens, steps = int(tokens), int(steps)
     good = all(r.done and len(r.generated) == max_tokens
@@ -2221,7 +2580,7 @@ def serve(torch, checks, label, cfg, params, kv_mode, max_tokens, path, burst=1,
     _free(torch)
     return dict(counts=counts, peak=peak, tokens=[r.generated for r in reqs], pos_ms=pos_ms,
                 tok_s=tokens / max(secs, 1e-9), dev_ms=dev_ms, window=win,
-                prefill_tok_s=prefill_tok_s)
+                prefill_tok_s=prefill_tok_s, dispatches=dispatches)
 
 
 def serve_ways(torch, checks, smi, label, cfg, params, max_tokens, path, eager_window):
@@ -2620,6 +2979,88 @@ def phase_serve(torch, checks, smi):
     return runs
 
 
+MAX_GEMMA_GIB = 75.0            # the Gemma-2-9B serve fails above this peak
+GEMMA_LONG = 6000                # the long prompt: the window cuts in prefill and decode
+
+
+def _gemma_prompts(vocab):
+    """Seven prompts of 128-1024 tokens and one of GEMMA_LONG, from the seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 40)
+    lens = np.append(rng.integers(128, 1025, 7), GEMMA_LONG)
+    return lens, [rng.integers(0, vocab, int(n)).tolist() for n in lens]
+
+
+def phase_gemma(torch, checks, smi):
+    """Phase 10: Gemma-2-9B (42 layers, random weights from the seed), int8
+    weights, fp8 KV, max_batch 8, capacity 8192: 8 greedy requests (seven
+    prompts of 128-1024 tokens and one of GEMMA_LONG, so the 4096 window
+    cuts in prefill and in decode), 32 tokens each, one prompt a prefill
+    call (the adapter has no packed prefill, as in JAX), eager
+    (``disable_graphs()``) and captured: equal tokens, decode ms a position
+    and tokens/s, the card's ms a position (the captured run also the idle
+    share and top 5 kernels of a torch.profiler window of WINDOW_STEPS
+    steps), prefill tokens/s, peak memory
+    against MAX_GEMMA_GIB, and the launches (K4 at head_dim 256 42 a
+    prefill call, half of them windowed; K1 at 256, K2 and K1m 42 a decode
+    step, half of K1's windowed).  Then int8 KV, 16 tokens.  Returns
+    {run label: that run's launch counts}."""
+    from flash_attn_tpu_torch.engine._graph import disable_graphs
+    from flash_attn_tpu_torch.models import gemma2
+
+    cfg = gemma2.GEMMA2_9B
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = gemma2.init_params(cfg, seed=SEED, device="cuda", quantize="int8")
+    torch.cuda.synchronize()
+    say(f"  Gemma-2-9B params (int8 weights, bf16 embeddings = the tied head) on the card in "
+        f"{time.perf_counter() - t0:.2f}s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    prompts = _gemma_prompts(cfg.vocab_size)
+    adapter = gemma2.make_adapter(cfg)
+    path = ("K1", "K1m", "K2", "K3", "K4", "K4 d256", "K4 window", "K1 d256", "K1 window")
+    kw = dict(packed=False, adapter=adapter, capacity=8192, prompts=prompts)
+    with disable_graphs():
+        eager = serve(torch, checks, f"{RUN_GEMMA}, eager", cfg, params, "fp8", 32, path, **kw)
+    graph = serve(torch, checks, RUN_GEMMA, cfg, params, "fp8", 32, path, window=True, **kw)
+    same = eager["tokens"] == graph["tokens"]
+    if not same:
+        checks.failed.append(f"{RUN_GEMMA}: eager tokens differ from the captured run's")
+    L, n_req = cfg.num_layers, len(prompts[0])
+    for name, run in (("eager", eager), ("captured", graph)):
+        c, steps = run["counts"], run["dispatches"]
+        want = {"K4": L * n_req, "K4 d256": L * n_req, "K4 window": L // 2 * n_req,
+                "K1": L * steps, "K1 d256": L * steps, "K1 window": L // 2 * steps,
+                "K2": L * steps, "K1m": L * steps}
+        got = {key: c[key] for key in want}
+        if got != want:
+            checks.failed.append(f"{RUN_GEMMA}, {name}: launches {got}, expected {want}")
+    peak = graph["peak"]
+    if peak > MAX_GEMMA_GIB:
+        checks.failed.append(f"{RUN_GEMMA}: peak {peak:.2f} GiB > {MAX_GEMMA_GIB} GiB")
+    c, dev = graph["counts"], graph["dev_ms"]
+    say(f"[{RUN_GEMMA}: eager / captured] {smi} | decode eager {eager['pos_ms']:.3f} ms a "
+        f"position ({eager['tok_s']:.1f} tok/s), captured {graph['pos_ms']:.3f} ms a position "
+        f"({graph['tok_s']:.1f} tok/s), the card {dev:.3f} ms a position (graph replays) | "
+        f"prefill {graph['prefill_tok_s']:.1f} tok/s (one prompt a call, prompts "
+        f"{prompts[0].tolist()}) | peak {peak:.2f} GiB (limit {MAX_GEMMA_GIB}: the 8192-bucket "
+        f"prefill's fp32 [1, 8192, 256128] logits take 7.8 GiB) | launches (captured): K4 "
+        f"{c['K4']} = {L} x {n_req} prefill calls ({c['K4 window']} windowed), K1 {c['K1']} = "
+        f"{L} x {graph['dispatches']} steps ({c['K1 window']} windowed), K2 {c['K2']}, K1m "
+        f"{c['K1m']}, K3 {c['K3']} | tokens equal eager / captured: {same}")
+    wall, busy, top = graph["window"]
+    say(f"  captured window of {WINDOW_STEPS} steps ({smi}), torch.profiler: wall {wall:.3f} ms, "
+        f"card busy {busy:.3f} ms, idle share {1 - busy / wall:.4f}; top 5: "
+        + ", ".join(f"{n[:60]} {ms:.3f} ms x{cnt}" for n, ms, cnt in top))
+    runs = {RUN_GEMMA: c}
+    label = "phase 10 serve Gemma-2-9B int8, int8 KV"
+    runs[label] = serve(torch, checks, label, cfg, params, "int8", 16, path, **kw)["counts"]
+    del params
+    _free(torch)
+    return runs
+
+
 def phase_train(torch, checks):
     """Phase 8: TRAIN_STEPS AdamW steps of Llama-3 at 8B widths and
     TRAIN_LAYERS layers (bf16 params from the seed; at 32 layers the bf16
@@ -2691,16 +3132,23 @@ RUN_SAMPLED = "phase 4s serve Llama-3-8B int8, fp8 KV, temperature 0.8, top_k 50
 RUN_RECAPTURE = "phase 4r serve 2 layers at 8B widths, int8, fp8 KV, head changed between waves"
 RUN_TRAIN = (f"phase 8 train Llama-3 8B widths, {TRAIN_LAYERS} layers, B=1 S={TRAIN_SEQ}, "
              f"{TRAIN_STEPS} AdamW steps")
+RUN_GEMMA = "phase 10 serve Gemma-2-9B int8, fp8 KV"
 KERNEL_ROWS = ("K1", "K1m", "K1c", "K1b", "K2", "K3", "K3g", "K4", "K5", "K6", "K7", "K8", "K8c",
-               "K9", "K10")
-# the run whose launches a kernel's row reports: the main path that the
-# kernel serves (the 70B serve for the shared K1, K1m, K2 and K4, the n-gram
-# speculative serve for K1's chunk mode, the paged serve for K8 in both
-# modes, the training run for K9 and K10); K3 grouped and K1 over a BSHD
-# cache have no model path, so their rows report none
+               "K9", "K10", "K4 d256", "K1 d256", "K2 d256", "K1m d256")
+# the run whose launches a kernel's row reports, and the count it reads:
+# the main path that the kernel serves (the 70B serve for the shared K1,
+# K1m, K2 and K4, the n-gram speculative serve for K1's chunk mode, the
+# paged serve for K8 in both modes, the training run for K9 and K10, the
+# captured Gemma-2-9B serve for the head_dim 256 points); K3 grouped and K1
+# over a BSHD cache have no model path, so their rows report none
 ROW_RUN = {"K1": RUN_70B, "K1m": RUN_70B, "K1c": RUN_SPEC_NGRAM, "K1b": None, "K2": RUN_70B,
            "K3": RUN_8B_INT8, "K3g": None, "K4": RUN_70B, "K5": RUN_8B_W4A8, "K6": RUN_70B,
-           "K7": RUN_70B, "K8": RUN_PAGED, "K8c": RUN_PAGED, "K9": RUN_TRAIN, "K10": RUN_TRAIN}
+           "K7": RUN_70B, "K8": RUN_PAGED, "K8c": RUN_PAGED, "K9": RUN_TRAIN, "K10": RUN_TRAIN,
+           "K4 d256": RUN_GEMMA, "K1 d256": RUN_GEMMA, "K2 d256": RUN_GEMMA,
+           "K1m d256": RUN_GEMMA}
+# a row's count where it is not the row's own key: every K2 and K1m launch
+# of the Gemma-2-9B serve is at head_dim 256
+ROW_COUNT = {"K2 d256": "K2", "K1m d256": "K1m"}
 
 
 def main() -> int:
@@ -2729,11 +3177,13 @@ def main() -> int:
     paged_card_vs_cpu(torch, checks)
     multi_card_vs_cpu(torch, checks)
     train_card_vs_cpu(torch, checks)
+    gemma_card_vs_cpu(torch, checks)
     runs = phase_serve(torch, checks, smi)
+    runs.update(phase_gemma(torch, checks, smi))
     runs[RUN_TRAIN] = phase_train(torch, checks)
     for key, row in rows.items():
         row["launches_run"] = ROW_RUN[key]
-        row["launches"] = runs[ROW_RUN[key]][key] if ROW_RUN[key] else 0
+        row["launches"] = runs[ROW_RUN[key]][ROW_COUNT.get(key, key)] if ROW_RUN[key] else 0
     say(f"[total] {time.perf_counter() - t_start:.2f}s")
     if checks.failed:
         for f in checks.failed:
@@ -2746,7 +3196,8 @@ def main() -> int:
                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                     library_ms=r["library_ms"],
                     **{k: r[k] for k in ("graph_ms", "call_graph_ms", "empty_graph_ms",
-                                         "prompt", "also", "packed", "chunk") if k in r})
+                                         "prompt", "also", "packed", "chunk", "gemma",
+                                         "sdpa_nocap_ms", "no_window") if k in r})
                for r in (rows[k] for k in KERNEL_ROWS)]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -60,6 +60,8 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "chip_tools"))
 
+import entry_args  # noqa: E402
+
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGS = {
     "fatt_decode": [P] * 9 + [I] * 9 + [F, F, I, F, P],
@@ -143,9 +145,7 @@ class Lib:
             else:
                 sig = entry + ("+chunk" if entry != "fatt_chunk_attn"
                                and takes_chunk(src_dir / src, entry) else "")
-            fn = getattr(self.so, entry)
-            fn.argtypes = SIGS[sig]
-            fn.restype = ctypes.c_int
+            fn = entry_args.bind(getattr(self.so, entry), src_dir / src, entry, SIGS[sig])
             self.fn[entry] = (fn, sig.endswith(("+chunk", "+masks")))
 
     def plan(self, case):

@@ -1,0 +1,45 @@
+"""The window and softcap arguments of K1's and K4's C entries, for the
+probes that call several versions of a source through ctypes.
+
+``fatt_decode`` takes ``int window, float softcap`` and ``fatt_flash_fwd``
+``int window_left, int window_right, float softcap2`` just before the
+stream; earlier versions take neither.  ``bind`` sets an entry's argument
+types from the older list and returns a callable that takes that older
+list, passing no window and no softcap where the source has them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+I, F = ctypes.c_int, ctypes.c_float
+# entry -> (argument types, the values for no window and no softcap)
+WINDOW_ARGS = {"fatt_decode": ([I, F], (0, 0.0)),
+               "fatt_flash_fwd": ([I, I, F], (-1, -1, 0.0))}
+
+
+def takes_window(src: Path, entry: str) -> bool:
+    """Whether the C entry point ``entry`` of ``src`` takes a window."""
+    text = src.read_text()
+    head = text[text.index(f'extern "C" int {entry}('):]
+    return "window" in head[:head.index(")")]
+
+
+def bind(fn, src: Path, entry: str, argtypes):
+    """``fn`` (entry ``entry`` of a library built from ``src``) with its
+    argument types set; when the source takes a window, a callable over
+    the older argument list (``argtypes``, stream last) that passes none,
+    with the entry itself as ``.raw``."""
+    fn.restype = ctypes.c_int
+    if entry not in WINDOW_ARGS or not takes_window(src, entry):
+        fn.argtypes = argtypes
+        return fn
+    types, extra = WINDOW_ARGS[entry]
+    fn.argtypes = argtypes[:-1] + types + argtypes[-1:]
+
+    def call(*args):
+        return fn(*args[:-1], *extra, args[-1])
+
+    call.raw = fn
+    return call

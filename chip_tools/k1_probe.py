@@ -38,6 +38,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
+import entry_args  # noqa: E402
 from chip_smoke import cuda_ms, graph_ms  # noqa: E402
 
 B, H, HK, S, D = 8, 32, 8, 4096, 128
@@ -62,8 +63,8 @@ def build(name, src_dir, out_dir, sass_dir=None):
     if res.returncode != 0:
         raise RuntimeError(f"{name}: nvcc failed\n{res.stdout}{res.stderr}")
     # the fp8 (kv type 2) decode-mode BHSD instance: template <2>, <2, false,
-    # false> or <2, false>
-    want = re.compile(r"decode_bhsd_kernelILi2EE|decode_kernelILi2ELb0E(Lb0E)?E")
+    # false>, <2, false> or <2, false, 128>
+    want = re.compile(r"decode_bhsd_kernelILi2EE|decode_kernelILi2ELb0E(Lb0E|Li128E)?E")
     lines, keep = [], False
     for line in res.stderr.splitlines():
         if "Compiling entry function" in line:
@@ -95,8 +96,11 @@ def build(name, src_dir, out_dir, sass_dir=None):
         head = text[text.index('extern "C" int fatt_decode('):]
         if "int chunk" in head[:head.index(")")]:
             entry = "fatt_decode+chunk"
-    fn.argtypes = SIGS[entry]
-    fn.restype = ctypes.c_int
+    if entry == "fatt_decode_bhsd":
+        fn.argtypes = SIGS[entry]
+        fn.restype = ctypes.c_int
+    else:
+        fn = entry_args.bind(fn, src_dir / "decode.cu", "fatt_decode", SIGS[entry])
     return entry, fn, lines, sass
 
 

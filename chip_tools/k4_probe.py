@@ -20,7 +20,13 @@ version, and the time (CUDA events over 20 launches, after warm-up), in
 turns (old..., this, this, ...old reversed).  Versions that take segment
 ids and positions are held the same way, clamped, at the packed
 prefill's shape (phase 4's eight prompts in 4096) and a chunk's (Sq=512
-at start 1024 over 4096, positions alone).
+at start 1024 over 4096, positions alone).  Versions whose entry takes a
+window (and a softcap) are also held at head_dim 256, phase 2's Gemma-2-9B
+shape (B=1, S=8192, H=16, Hk=8, causal, clamped, softcap 50, scale 1/16,
+rope), with the sliding window (4095, -1), without, and without the
+softcap too (what the softcap costs): the same errors and bitwise checks,
+and the time with its TFLOP/s on the live pairs.  Each
+build prints every K4 instance's registers, stack and spills.
 The card's name and power limit head the output.
 """
 
@@ -36,6 +42,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
+
+import entry_args  # noqa: E402
+import ptxas_report  # noqa: E402
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIG = [P] * 7 + [I] * 7 + [F, I, I, P]
@@ -58,12 +67,17 @@ def build(name, src_dir, out_dir):
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"{name}: nvcc failed\n{res.stdout}{res.stderr}")
-    info = " | ".join(x.replace("ptxas info    :", "").strip() for x in res.stderr.splitlines()
-                      if re.search(r"Used \d+ registers|spill|wgmma|arning", x))
-    masked = takes_masks(src_dir / "flash_fwd.cu")
-    fn = ctypes.CDLL(str(lib)).fatt_flash_fwd
-    fn.argtypes = SIG_MASKED if masked else SIG
-    fn.restype = ctypes.c_int
+    rows = ptxas_report.parse(res.stderr)
+    names = ptxas_report.demangle([r["name"] for r in rows])
+    info = " | ".join(f"{n[n.find('flash_fwd_kernel'):n.find('>(') + 1]}: {r['regs']} registers, "
+                      f"stack {r.get('stack', 0)}, spill st/ld {r.get('spill_st', 0)}/"
+                      f"{r.get('spill_ld', 0)}" for r, n in zip(rows, names))
+    info += "".join(" | " + x.strip() for x in res.stderr.splitlines()
+                    if re.search(r"wgmma|arning", x))
+    src = src_dir / "flash_fwd.cu"
+    masked = takes_masks(src)
+    fn = entry_args.bind(ctypes.CDLL(str(lib)).fatt_flash_fwd, src, "fatt_flash_fwd",
+                         SIG_MASKED if masked else SIG)
     return (fn, masked), info
 
 
@@ -98,6 +112,7 @@ def main() -> int:
     flops = k4_flops(B, S, S, H, D)
     refs = {c: ff.flash_fwd_plain(q, k, v, True, D ** -0.5, cos, sin, c) for c in (True, False)}
     masked_cases = _masked_cases(torch, ff)
+    d256_cases = _d256_cases(torch, ff)
     olds = [tuple(o.split("=", 1)) for o in args.old]
     fns = {}
     for name, src in [*olds, ("this", ROOT / "flash_attn_tpu_torch" / "csrc")]:
@@ -128,8 +143,60 @@ def main() -> int:
             print(f"[turn] {name} masked: " + "; ".join(
                 _masked_turn(torch, fn, case, first, name) for case in masked_cases),
                 flush=True)
+        if hasattr(fn, "raw"):
+            print(f"[turn] {name} D=256: " + "; ".join(
+                _d256_turn(torch, fn.raw, case, first, name) for case in d256_cases),
+                flush=True)
     shutil.rmtree(out_dir, ignore_errors=True)
     return 0
+
+
+def _d256_cases(torch, ff):
+    """(label, args of the C entry with window and softcap but the stream,
+    out, lse, plain (out, lse), live pairs) at phase 2's Gemma-2-9B shape:
+    with the sliding window (4095, -1) and without."""
+    from flash_attn_tpu_torch.ops.rope import rope_cos_sin
+
+    g = torch.Generator(device="cuda").manual_seed(23)
+    S, H, Hk, D, cap, scale = 8192, 16, 8, 256, 50.0, 1 / 16
+    q = torch.randn((1, S, H, D), generator=g, device="cuda", dtype=torch.bfloat16)
+    k = torch.randn((1, S, Hk, D), generator=g, device="cuda", dtype=torch.bfloat16)
+    v = torch.randn((1, S, Hk, D), generator=g, device="cuda", dtype=torch.bfloat16)
+    cos, sin = rope_cos_sin(torch.arange(S, device="cuda")[None], D, 10000.0)
+    cases = []
+    for label, window, c in (("window (4095, -1)", (4095, -1), cap), ("no window", None, cap),
+                             ("no window, no cap", None, None)):
+        out = torch.empty_like(q)
+        lse = torch.empty((1, H, S), dtype=torch.float32, device="cuda")
+        args = [t.data_ptr() for t in (q, k, v, cos, sin, out, lse)] + [None] * 5
+        args += [1, S, S, H, Hk, D, 0, float(scale * ff.LOG2E), 1, 1, *(window or (-1, -1)),
+                 float(c * ff.LOG2E) if c else 0.0]
+        ref = ff.flash_fwd_plain(q, k, v, True, scale, cos, sin, True, None, window, c)
+        n_live = int(ff.live_pairs(None, True, S, S, "cuda", window).sum())
+        cases.append((label, args, out, lse, ref, n_live, (q, k, v, cos, sin)))
+    return cases
+
+
+def _d256_turn(torch, fn, case, first, name):
+    """One D=256 case's errors, time, TFLOP/s on live pairs, and whether its
+    outputs are bitwise those of the first version that took a window."""
+    from chip_smoke import cuda_ms, row_err
+
+    label, args, out, lse, (rout, rlse), n_live, _ = case
+
+    def call():
+        return fn(*args, torch.cuda.current_stream().cuda_stream)
+
+    assert call() == 0
+    torch.cuda.synchronize()
+    _, share = row_err(out, rout)
+    lerr = float((lse - rlse).abs().max())
+    f_out, f_lse, f_name = first.setdefault(label, (out.clone(), lse.clone(), name))
+    same = torch.equal(out, f_out) and torch.equal(lse, f_lse)
+    ms = cuda_ms(torch, call)
+    return (f"{label} {ms:.4f} ms ({4 * 16 * 256 * n_live / ms / 1e9:.1f} TFLOP/s on "
+            f"{n_live} live pairs), share {share:.3f}, lse err {lerr:.2e}, bitwise "
+            f"{f_name}'s {same}")
 
 
 def _masked_cases(torch, ff):

@@ -65,6 +65,8 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "chip_tools"))
 
+import entry_args  # noqa: E402
+
 P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int64
 SIGS = {
     "fatt_paged_decode": [P] * 10 + [I] * 9 + [F, I, F, P],  # with split_len
@@ -214,10 +216,8 @@ class Lib:
                 continue
             if not hasattr(self.so, base):
                 continue
-            fn = getattr(self.so, base)
-            fn.argtypes = SIGS[entry]
-            fn.restype = ctypes.c_int
-            self.fn[base] = fn
+            src = src_dir / ("flash_fwd.cu" if base == "fatt_flash_fwd" else "decode.cu")
+            self.fn[base] = entry_args.bind(getattr(self.so, base), src, base, SIGS[entry])
 
     def plan(self, case, target=None):
         """(nsplit, split_len) this version's wrapper would pick."""

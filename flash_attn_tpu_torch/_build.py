@@ -35,7 +35,7 @@ L = ctypes.c_int64
 # C entry point -> argument types (every pointer and the stream as c_void_p)
 _SIGNATURES = {
     "fatt_decode": [P, P, P, P, P, P, P, P, P,
-                    I, I, I, I, I, I, I, I, I, F, F, I, F, P],
+                    I, I, I, I, I, I, I, I, I, F, F, I, F, I, F, P],
     "fatt_chunk_attn": [P, P, P, P, P, P, P, P, P, P,
                         I, I, I, I, I, I, I, I, I, I, F, I, F, P],
     "fatt_kv_append": [P, P, P, P, P, P, P, I, I, I, I, I, P],
@@ -43,7 +43,7 @@ _SIGNATURES = {
     "fatt_matmul_float_q": [P, P, P, P, P, I, I, I, I, I, I, I, I, P],
     "fatt_matmul_s8_q": [P, P, P, P, P, P, I, I, I, I, I, I, I, P],
     "fatt_flash_fwd": [P, P, P, P, P, P, P, P, P, P, P, P,
-                       I, I, I, I, I, I, I, F, I, I, P],
+                       I, I, I, I, I, I, I, F, I, I, I, I, F, P],
     "fatt_paged_decode": [P, P, P, P, P, P, P, P, P, P, P, P,
                           I, I, I, I, I, I, I, I, F, I, F, P],
     "fatt_flash_bwd_dq": [P, P, P, P, P, P, P, P, P, P,

@@ -192,6 +192,22 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d), "n"(kTransB));
 }
 
+// d (64 x 64 fp32, this thread's 32) = A (64 x 16, K-major in shared
+// memory) * B (16 x 64, K-major in shared memory) + (scale_d ? d : 0).
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : FATT_D8("+f", 0), FATT_D8("+f", 8), FATT_D8("+f", 16), FATT_D8("+f", 24)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // d (64 x N int32) = a (64 x 32 int8 from registers, the mma.sync m16n8k32
 // A layout per warp) * B (32 x N int8, K-major in shared memory) +
 // (scale_d ? d : 0); exact.
@@ -241,8 +257,8 @@ __device__ __forceinline__ void wgmma_rs_s8(int (&d)[64], const uint32_t (&a)[4]
 
 #undef FATT_D8
 
-// Attention on wgmma over 64-key tiles at head dim 128, shared by K4 and the
-// chunk kernel (K1c/K8c).  A warpgroup holds 64 query rows; warp w of it rows
+// Attention on wgmma over 64-key tiles at head dim 128 (K4 also 256), shared
+// by K4 and the chunk kernel (K1c/K8c).  A warpgroup holds 64 query rows; warp w of it rows
 // 16w.. , and this thread rows lane/4 and lane/4 + 8 of those.  A K or V
 // tile is 64 keys x 128 bf16 columns as two 64-column halves in the 128-byte
 // swizzle (sw128<64>), 8 KB each.
@@ -271,24 +287,27 @@ __device__ __forceinline__ void put_p(uint32_t (&pf)[4][4], int j, const float (
   pf[j / 2][(j & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
 }
 
-// O (64 x 128 fp32: o[j] columns 8j.., rows as s) += P V, V read N-major by
-// descriptor from the tile at shared address vt.
-__device__ __forceinline__ void attn_pv(float (&o)[16][4], const uint32_t (&pf)[4][4],
+// O (64 x 8kN fp32: o[j] columns 8j.., rows as s) += P V, V (a tile of
+// kN / 8 64-column parts) read N-major by descriptor from the tile at
+// shared address vt.  kN = 16 (head dim 128) or 32 (256).
+template <int kN>
+__device__ __forceinline__ void attn_pv(float (&o)[kN][4], const uint32_t (&pf)[4][4],
                                         uint32_t vt) {
-  auto& o0 = reinterpret_cast<float(&)[32]>(o[0]);
-  auto& o1 = reinterpret_cast<float(&)[32]>(o[8]);
-  pin(o0);
-  pin(o1);
+  constexpr int kParts = kN / 8;
+#pragma unroll
+  for (int p = 0; p < kParts; ++p) pin(reinterpret_cast<float(&)[32]>(o[8 * p]));
   wg_fence();
 #pragma unroll
   for (int kc = 0; kc < 4; ++kc) {
-    wgmma_rs<1>(o0, pf[kc], wg_desc(vt + kc * 16 * 128), 1);
-    wgmma_rs<1>(o1, pf[kc], wg_desc(vt + 64 * 128 + kc * 16 * 128), 1);
+#pragma unroll
+    for (int p = 0; p < kParts; ++p)
+      wgmma_rs<1>(reinterpret_cast<float(&)[32]>(o[8 * p]), pf[kc],
+                  wg_desc(vt + p * 64 * 128 + kc * 16 * 128), 1);
   }
   wg_commit();
   wg_wait_all();
-  pin(o0);
-  pin(o1);
+#pragma unroll
+  for (int p = 0; p < kParts; ++p) pin(reinterpret_cast<float(&)[32]>(o[8 * p]));
 }
 
 // Reductions over the four threads (a quad) that hold one accumulator row.

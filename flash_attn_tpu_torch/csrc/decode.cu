@@ -1,8 +1,9 @@
 // K1: decode attention over a contiguous KV cache (bf16, int8 or fp8-e4m3
 // with per-(position, head) fp32 scales): one query token per sequence and
-// at most 8 query heads per KV head, over a BHSD or a BSHD cache.  Chunk
-// mode (T query tokens per sequence) and decode calls with more heads per
-// KV head run on the chunk kernel, K1c (csrc/chunk_attn.cu).
+// at most 8 query heads per KV head, head_dim up to 256, over a BHSD or a
+// BSHD cache, with an optional sliding window and logit softcap (Gemma-2).
+// Chunk mode (T query tokens per sequence) and decode calls with more heads
+// per KV head run on the chunk kernel, K1c (csrc/chunk_attn.cu).
 //
 // Replaces flash_attn_tpu/ops/decode.py:_decode_kernel_bhsd in decode mode
 // (B1) and _decode_kernel (the BSHD-layout decode, B12).  One kernel
@@ -28,12 +29,25 @@
 //     in registers as they are read from the ring: scores by two threads
 //     per key, PV by one thread per head-dim column;
 //   * every row sees kv_len positions, never past S; tiles at or beyond it
-//     are never read;
+//     are never read.  With a window (decode.py:858-862, 931-940) it sees
+//     the last `window` of them, [max(0, kv_len - window), kv_len): the
+//     walk starts there, so the keys below the window are never read
+//     either;
 //   * a split-KV grid axis (blockIdx.y) cuts the sequence so that B*Hk
 //     blocks (64 at batch 8) become enough to fill 132 SMs; each split
 //     writes an fp32 (out, lse) partial that the wrapper merges with the
 //     LSE rule in one launch of K1m (csrc/lse_merge.cu); since a merge is
 //     one launch, the wrapper aims at six blocks an SM (ops/decode.py).
+//     Splits are fixed runs of split_len positions, or (split_len 0, the
+//     windowed calls) each sequence's live walk cut in gridDim.y runs of
+//     whole tiles, so the count stays fixed by the shapes (one captured
+//     grid for every length) and no split walks dead positions.
+// Head dim 256 (Gemma-2-9B) is a second instance of every KV type and
+// layout: the ring rows and q widen to 256 and each thread takes two
+// head-dim columns in PV; the ring keeps two stages at that width (71 KB
+// for 1-byte tiles: two blocks an SM).  The softcap, s = c * tanh(s / c)
+// in the scores' units after the K scale (decode.py:835-838), uses the
+// accurate tanhf.
 // Dequantization is fused: scores are scaled by the K scale of their
 // position and p by the V scale before the PV product, as on the TPU.  The
 // softmax scale rides on q (qscale, rounded to bf16 as B1 folds it) or on
@@ -48,16 +62,16 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 64;
 constexpr int kMaxRows = 8;  // query rows per block
-constexpr int kMaxD = 128;
 
-// Ring layout of one KV type: per stage a K tile, a V tile (rows padded so
-// that the two threads of a key and the keys of a quarter warp hit distinct
-// banks), then the K and V scales of the tile's positions.  Three stages of
-// 1-byte tiles (63 KB a block with q and the scores, three blocks an SM),
-// two of bf16 tiles (81 KB, two blocks an SM).
-template <int KV>
+// Ring layout of one KV type at head dims up to kMaxD: per stage a K tile,
+// a V tile (rows padded so that the two threads of a key and the keys of a
+// quarter warp hit distinct banks), then the K and V scales of the tile's
+// positions.  At kMaxD 128 three stages of 1-byte tiles (63 KB a block with
+// q and the scores, three blocks an SM), two of bf16 tiles (81 KB, two
+// blocks an SM); at 256 two stages of either.
+template <int KV, int kMaxD>
 struct Ring {
-  static constexpr int kStages = KV == fatt::kBf16 ? 2 : 3;
+  static constexpr int kStages = KV == fatt::kBf16 || kMaxD > 128 ? 2 : 3;
   static constexpr int kElem = KV == fatt::kBf16 ? 2 : 1;
   static constexpr int kRowBytes = kMaxD * kElem + (KV == fatt::kBf16 ? 32 : 16);
   static constexpr int kTileBytes = kTile * kRowBytes;
@@ -85,16 +99,20 @@ __device__ __forceinline__ void load8(const unsigned char* p, float* out) {
   }
 }
 
-// kBshd: the BSHD layout (else BHSD).
-template <int KV, bool kBshd>
+// kBshd: the BSHD layout (else BHSD); kMaxD: the widest head dim served.
+// window: 0, or the positions below kv_len a row sees; softcap: the cap in
+// the scores' units, 0 for none; split_len 0: splits cut the live walk.
+template <int KV, bool kBshd, int kMaxD>
 __global__ void __launch_bounds__(kThreads) decode_kernel(
     const __nv_bfloat16* __restrict__ q, const void* __restrict__ k,
     const void* __restrict__ v, const float* __restrict__ ks,
     const float* __restrict__ vs, const int* __restrict__ kv_len,
     __nv_bfloat16* __restrict__ out, float* __restrict__ part_out,
     float* __restrict__ part_lse, int B, int Hk, int R, int S, int D,
-    int split_len, float qscale, float sscale, int clamped, float clamp2) {
-  using L = Ring<KV>;
+    int split_len, float qscale, float sscale, int clamped, float clamp2, int window,
+    float softcap) {
+  using L = Ring<KV, kMaxD>;
+  constexpr int kCols = kMaxD / kThreads;  // head-dim columns a thread in PV
   constexpr int kElem = L::kElem;
   constexpr int kRowBytes = L::kRowBytes;
   const int b = blockIdx.x / Hk;
@@ -124,15 +142,27 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
     l_s[tid] = 0.f;
     a_s[tid] = 1.f;
   }
-  float acc[kMaxRows];
+  float acc[kCols][kMaxRows];
 #pragma unroll
-  for (int g = 0; g < kMaxRows; ++g) acc[g] = 0.f;
+  for (int c = 0; c < kCols; ++c)
+#pragma unroll
+    for (int g = 0; g < kMaxRows; ++g) acc[c][g] = 0.f;
 
   // Every row sees positions < kv_len, never past S (an idle slot's length
-  // runs past the capacity).
-  const int walk_end = min(kv_len[b], S);
-  const int lo = split * split_len;
-  const int hi = min(lo + split_len, walk_end);
+  // runs past the capacity), and with a window none below kv_len - window.
+  const int len = kv_len[b];
+  const int walk_end = min(len, S);
+  const int walk_lo = window > 0 ? max(0, len - window) : 0;
+  int lo, hi;
+  if (split_len > 0) {
+    lo = max(split * split_len, walk_lo);
+    hi = min(split * split_len + split_len, walk_end);
+  } else {  // the live walk in nsplit runs of whole tiles
+    const int n = walk_end > walk_lo ? (walk_end - walk_lo + kTile - 1) / kTile : 0;
+    const int per = (n + nsplit - 1) / nsplit * kTile;
+    lo = walk_lo + split * per;
+    hi = min(lo + per, walk_end);
+  }
   // row index of position t: row0 + t * t_stride
   const int64_t row0 = kBshd ? (int64_t)b * S * Hk + hk : ((int64_t)b * Hk + hk) * S;
   const int t_stride = kBshd ? Hk : 1;
@@ -213,6 +243,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
             const bool keep = j < nvalid;
             float s = KV != fatt::kBf16 ? dots[g] * ks_s[j] : dots[g];
             if constexpr (kBshd) s *= sscale;
+            if (softcap > 0.f) s = softcap * tanhf(s / softcap);
             s_s[g][j] = keep ? s : kNegInf;
           }
       }
@@ -248,16 +279,28 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
     }
     __syncthreads();
 
-    // Phase 3: acc[g] (column d = tid) = acc * alpha + sum_j p[g][j] v[j][d].
+    // Phase 3: acc[c][g] (column d = tid + 128c) = acc * alpha +
+    // sum_j p[g][j] v[j][d].
     if (tid < D) {
 #pragma unroll
-      for (int g = 0; g < kMaxRows; ++g)
-        if (g < R) acc[g] *= a_s[g];
-      for (int j = 0; j < nvalid; ++j) {
-        const float vv = fatt::load_kv<KV>(v_s + j * kRowBytes, tid);
+      for (int c = 0; c < kCols; ++c)
 #pragma unroll
         for (int g = 0; g < kMaxRows; ++g)
-          if (g < R) acc[g] += s_s[g][j] * vv;
+          if (g < R) acc[c][g] *= a_s[g];
+      for (int j = 0; j < nvalid; ++j) {
+        float vv[kCols];
+#pragma unroll
+        for (int c = 0; c < kCols; ++c)
+          vv[c] = tid + c * kThreads < D
+                      ? fatt::load_kv<KV>(v_s + j * kRowBytes, tid + c * kThreads)
+                      : 0.f;
+#pragma unroll
+        for (int g = 0; g < kMaxRows; ++g)
+          if (g < R) {
+            const float pg = s_s[g][j];
+#pragma unroll
+            for (int c = 0; c < kCols; ++c) acc[c][g] += pg * vv[c];
+          }
       }
     }
   }
@@ -266,18 +309,21 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
 
   // Finalize: a row is valid iff some unmasked score was seen.
   const int64_t rows = (int64_t)B * Hk * R;
-  if (tid < D) {
+#pragma unroll
+  for (int c = 0; c < kCols; ++c) {
+    const int d = tid + c * kThreads;
+    if (d >= D) continue;
 #pragma unroll
     for (int g = 0; g < kMaxRows; ++g) {
       if (g >= R) continue;
       const float l = l_s[g];
       const bool valid = l > 0.f && (clamped || m_s[g] > kNegInf / 2);
-      const float o = valid ? acc[g] / l : 0.f;
+      const float o = valid ? acc[c][g] / l : 0.f;
       const int64_t h = qrow0 + g;
       if (nsplit == 1) {
-        out[h * D + tid] = __float2bfloat16(o);
+        out[h * D + d] = __float2bfloat16(o);
       } else {
-        part_out[(split * rows + h) * D + tid] = o;
+        part_out[(split * rows + h) * D + d] = o;
       }
     }
   }
@@ -289,23 +335,24 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
   }
 }
 
-template <int KV, bool kBshd>
+template <int KV, bool kBshd, int kMaxD>
 int launch(const void* q, const void* k, const void* v, const void* ks,
            const void* vs, const void* kv_len, void* out, void* part_out,
            void* part_lse, int B, int Hk, int R, int S, int D, int num_splits,
            int split_len, float qscale, float sscale, int clamped,
-           float clamp2, cudaStream_t st) {
-  auto kernel = decode_kernel<KV, kBshd>;
+           float clamp2, int window, float softcap, cudaStream_t st) {
+  auto kernel = decode_kernel<KV, kBshd, kMaxD>;
+  constexpr int kBytes = Ring<KV, kMaxD>::kBytes;
   static fatt::SmemLimitSet smem_set;  // one for each instance
-  cudaError_t e = fatt::smem_limit_once(kernel, Ring<KV>::kBytes, smem_set);
+  cudaError_t e = fatt::smem_limit_once(kernel, kBytes, smem_set);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(B * Hk, num_splits);
-  kernel<<<grid, kThreads, Ring<KV>::kBytes, st>>>(
+  kernel<<<grid, kThreads, kBytes, st>>>(
       static_cast<const __nv_bfloat16*>(q), k, v, static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const int*>(kv_len),
       static_cast<__nv_bfloat16*>(out), static_cast<float*>(part_out),
       static_cast<float*>(part_lse), B, Hk, R, S, D, split_len, qscale, sscale,
-      clamped, clamp2);
+      clamped, clamp2, window, softcap);
   return (int)cudaGetLastError();
 }
 
@@ -314,28 +361,32 @@ int launch_layout(const void* q, const void* k, const void* v, const void* ks,
                   const void* vs, const void* kv_len, void* out, void* part_out,
                   void* part_lse, int B, int Hk, int R, int S, int D, int bshd,
                   int num_splits, int split_len, float qscale, float sscale,
-                  int clamped, float clamp2, cudaStream_t st) {
-  auto fn = bshd ? launch<KV, true> : launch<KV, false>;
+                  int clamped, float clamp2, int window, float softcap, cudaStream_t st) {
+  auto fn = D > 128 ? (bshd ? launch<KV, true, 256> : launch<KV, false, 256>)
+                    : (bshd ? launch<KV, true, 128> : launch<KV, false, 128>);
   return fn(q, k, v, ks, vs, kv_len, out, part_out, part_lse, B, Hk, R, S, D,
-            num_splits, split_len, qscale, sscale, clamped, clamp2, st);
+            num_splits, split_len, qscale, sscale, clamped, clamp2, window, softcap, st);
 }
 
 }  // namespace
 
-// q: [B, Hk * R, D] bf16 rows, R = H / Hk <= 8; k, v: BHSD [B, Hk, S, D]
-// (bshd 0) or BSHD [B, S, Hk, D] (bshd 1); scales fp32 at the rows'
-// indices (null for bf16); kv_len [B] int32.  One split writes out
+// q: [B, Hk * R, D] bf16 rows, R = H / Hk <= 8, D <= 256; k, v: BHSD
+// [B, Hk, S, D] (bshd 0) or BSHD [B, S, Hk, D] (bshd 1); scales fp32 at the
+// rows' indices (null for bf16); kv_len [B] int32.  One split writes out
 // [B, Hk * R, D] bf16, several write fp32 partials part_out
-// [n, B, Hk * R, D]; part_lse [n, B, Hk * R] always.
+// [n, B, Hk * R, D]; part_lse [n, B, Hk * R] always.  split_len: positions
+// a split, or 0 to cut each sequence's live walk in num_splits runs of
+// whole tiles.  window: 0 or the positions below kv_len each row sees;
+// softcap: 0 or the cap in the scores' units (base 2 when clamped).
 extern "C" int fatt_decode(const void* q, const void* k, const void* v,
                            const void* ks, const void* vs, const void* kv_len,
                            void* out, void* part_out, void* part_lse, int B,
                            int Hk, int R, int S, int D, int bshd, int kv_type,
                            int num_splits, int split_len, float qscale,
-                           float sscale, int clamped, float clamp2,
-                           void* stream) {
-  if (R < 1 || R > kMaxRows || D > kMaxD || D % 32 != 0 || num_splits < 1 ||
-      split_len % kTile != 0)
+                           float sscale, int clamped, float clamp2, int window,
+                           float softcap, void* stream) {
+  if (R < 1 || R > kMaxRows || D > 256 || D % 32 != 0 || num_splits < 1 ||
+      split_len < 0 || split_len % kTile != 0 || window < 0 || !(softcap >= 0.f))
     return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   switch (kv_type) {
@@ -343,17 +394,17 @@ extern "C" int fatt_decode(const void* q, const void* k, const void* v,
       return launch_layout<fatt::kBf16>(q, k, v, ks, vs, kv_len, out, part_out,
                                         part_lse, B, Hk, R, S, D, bshd, num_splits,
                                         split_len, qscale, sscale, clamped, clamp2,
-                                        st);
+                                        window, softcap, st);
     case fatt::kInt8:
       return launch_layout<fatt::kInt8>(q, k, v, ks, vs, kv_len, out, part_out,
                                         part_lse, B, Hk, R, S, D, bshd, num_splits,
                                         split_len, qscale, sscale, clamped, clamp2,
-                                        st);
+                                        window, softcap, st);
     case fatt::kFp8:
       return launch_layout<fatt::kFp8>(q, k, v, ks, vs, kv_len, out, part_out,
                                         part_lse, B, Hk, R, S, D, bshd, num_splits,
                                         split_len, qscale, sscale, clamped, clamp2,
-                                        st);
+                                        window, softcap, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,10 +1,12 @@
-// K4: FlashAttention-2 forward, BSHD bf16, causal (bottom-right) GQA
-// prefill with q-side RoPE applied in the kernel, "clamped" or "online"
-// softmax, fp32 LSE, and optional segment ids and positions (the packed and
-// chunked prefill's masks).
+// K4: FlashAttention-2 forward, BSHD bf16, head_dim 128 or 256, causal
+// (bottom-right) GQA prefill with q-side RoPE applied in the kernel,
+// "clamped" or "online" softmax, fp32 LSE, an optional sliding window and
+// logit softcap (Gemma-2), and optional segment ids and positions (the
+// packed and chunked prefill's masks; head_dim 128, no window).
 //
 // Replaces flash_attn_tpu/ops/flash_fwd.py:_fwd_kernel (B7) on the subset
-// the Llama prefill paths and the training forward use (models/llama.py).
+// the Llama and Gemma-2 prefill paths and the training forward use
+// (models/llama.py, models/gemma2.py).
 //
 // Bound on the H100: operations.  At S = 2048, D = 128 the causal half of
 // QK^T and PV is ~4*S^2*D/2 flops per head against ~4*S*D bytes, far above
@@ -35,6 +37,32 @@
 //   * the KV head is h / (H / Hk): GQA without a materialised broadcast.
 // Scores are in base-2 units (log2(e) folded into the q pre-scale).
 // Clamped mode drops the running max: p = 2^min(s, 80), no rescale.
+//
+// Head dim 256 (Gemma-2-9B; the kD = 256 instance): the O accumulator
+// alone takes 128 fp32 registers a thread, so Q leaves the registers: the
+// prologue writes the scaled, rotated, rounded Q tile (64 x 256 bf16,
+// 32 KB) into shared memory in the same swizzle as K, and QK^T reads it
+// by descriptor as wgmma's A operand.  The K/V ring's two stages take
+// 128 KB: one block an SM.  PV runs on four 64-column parts of V.
+//
+// The window and the softcap are built into the head_dim 256 instance
+// only (kLocal): compiled into the Llama instance at run time they took it
+// from 167 registers to 190 and from three blocks an SM to two, 17 %
+// slower at S = 2048.
+// Window (left, right; -1 open), bottom-right aligned as causal is
+// (flash_fwd.py:320-333): a block walks only the key tiles that some of
+// its rows' windows reach, from max(0, row0 + shift - left) to its last
+// row's right edge, so the tiles below a sliding window are never loaded
+// (JAX's block liveness, not a mask); tiles that a warp's window edge
+// crosses are masked element by element.
+// Softcap (flash_fwd.py:363-367, 757-761): s = c * tanh(s / c) on the
+// base-2 scores before the masks, c = cap * log2(e) passed by the wrapper.
+// tanh is 1 - 2 / (2^(2x log2 e) + 1) on two MUFU operations (tanh_exp2):
+// the library tanhf took half of the D = 256 kernel's time (3.86 ms
+// against 1.90 without the cap at S = 8192), and tanh.approx.f32 errs
+// ~2^-11 relative, ~0.035 base-2 units at c = 72; this form errs ~1e-7
+// absolute in tanh, ~1e-5 units in s.  At cap 50 (c = 72.1 < 80) clamped
+// mode stays exact.
 //
 // Segment ids and positions (the kMeta instance): a pair is live only where
 // every mask given holds, as _apply_mask composes them (flash_fwd.py:
@@ -72,17 +100,11 @@ namespace {
 
 using fatt::kNegInf;
 
-constexpr int kD = 128;
 constexpr int kBQ = 64;  // query rows per block: one warpgroup
 constexpr int kBK = 64;  // keys per tile
 constexpr int kWarps = kBQ / 16;
 constexpr int kThreads = kWarps * 32;
 constexpr int kStages = 2;
-constexpr int kRowBytes = kD * 2;
-constexpr int kChunks = kRowBytes / 16;  // 16-byte chunks per row
-constexpr int kTileBytes = kBK * kRowBytes;
-// + 1024: the ring starts at the next 1024-byte boundary (the swizzle atom)
-constexpr int kSmemBytes = kStages * 2 * kTileBytes + 1024;
 // With masks: a stage's 64 (segment, position) pairs after the K/V ring,
 // then the block's list of live key tiles (at most kMaxListTiles).
 constexpr int kMetaBytes = kBK * 8;
@@ -91,9 +113,47 @@ constexpr int kFullBit = 1 << 30;  // list entry: live throughout, no mask
 constexpr float kClamp2 = 80.f;
 constexpr float kLn2 = 0.6931471805599453f;
 
+// The tile geometry of head dim kD (128 or 256).
+template <int kD>
+struct Dims {
+  static constexpr int kRowBytes = kD * 2;
+  static constexpr int kChunks = kRowBytes / 16;  // 16-byte chunks per row
+  static constexpr int kTileBytes = kBK * kRowBytes;
+  // Q in shared memory (after the ring) above 128; in registers at 128
+  static constexpr bool kQSmem = kD > 128;
+  // + 1024: the ring starts at the next 1024-byte boundary (the swizzle atom)
+  static constexpr int kSmemBytes = kStages * 2 * kTileBytes + (kQSmem ? kTileBytes : 0) + 1024;
+};
+
 // Byte offset of 16-byte chunk c of row r in a swizzled [rows][kD] tile.
+template <int kD>
 __device__ __forceinline__ uint32_t swz(int r, int c) {
-  return r * kRowBytes + ((c ^ (r & 7)) << 4);
+  return r * Dims<kD>::kRowBytes + ((c ^ (r & 7)) << 4);
+}
+
+// tanh(x) as 1 - 2 / (2^(2x log2 e) + 1): exp2f and a fast reciprocal.
+// |x| is clamped to 9, where tanh rounds to +-1 in fp32, so 2^(...) stays
+// finite.
+__device__ __forceinline__ float tanh_exp2(float x) {
+  const float e = exp2f(fminf(fmaxf(x, -9.f), 9.f) * 2.8853900817779268f);
+  return 1.f - __fdividef(2.f, e + 1.f);
+}
+
+// S (64 x 64 fp32, laid out as fatt::attn_qk lays it) = Q K^T with both
+// operands read by descriptor: Q the tile at qt, K the tile at kt (kD / 64
+// parts of 64 columns in the 128-byte swizzle).
+template <int kD>
+__device__ __forceinline__ void attn_qk_smem(float (&s)[8][4], uint32_t qt, uint32_t kt) {
+  auto& sd = reinterpret_cast<float(&)[32]>(s);
+  fatt::pin(sd);
+  fatt::wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk)
+    fatt::wgmma_ss(sd, fatt::wg_desc(fatt::kmajor<kBQ>(qt, kk)),
+                   fatt::wg_desc(fatt::kmajor<kBK>(kt, kk)), kk > 0);
+  fatt::wg_commit();
+  fatt::wg_wait_all();
+  fatt::pin(sd);
 }
 
 // A K/V ring tile is two 64-column halves of kBK rows in the 128-byte
@@ -104,15 +164,23 @@ __device__ __forceinline__ uint32_t swz(int r, int c) {
 // qmeta/kmeta: [B, nq*64] / [B, nk*64] (segment, position) per token;
 // qrange/krange: [B, nq] / [B, nk] (least segment, least position, greatest
 // segment, greatest position) per tile.  Read only by the kMeta instance.
-template <bool kMeta>
-__global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
+// The head_dim 256 instance (kLocal) applies the window (wleft, wright; -1
+// open) and the softcap (softcap2, the cap in base-2 units; 0 for none);
+// the others ignore all three.
+template <int kD, bool kMeta>
+__global__ void __launch_bounds__(kThreads, kD == 128 ? 2 : 1) flash_fwd_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const float* __restrict__ cosv,
     const float* __restrict__ sinv, __nv_bfloat16* __restrict__ out,
     float* __restrict__ lse, const int2* __restrict__ qmeta,
     const int2* __restrict__ kmeta, const int4* __restrict__ qrange,
     const int4* __restrict__ krange, int* __restrict__ tile_count, int Sq, int Sk,
-    int H, int Hk, int rope_bstride, float eff_scale, int causal, int clamped) {
+    int H, int Hk, int rope_bstride, float eff_scale, int causal, int clamped, int wleft,
+    int wright, float softcap2) {
+  using G = Dims<kD>;
+  constexpr bool kLocal = kD == 256;
+  constexpr int kChunks = G::kChunks;
+  constexpr int kTileBytes = G::kTileBytes;
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t s_base = fatt::smem_u32(smem);
   const uint32_t kv_base = (s_base + 1023) & ~1023u;
@@ -131,9 +199,19 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
   const int shift = Sk - Sq;  // bottom-right causal alignment
   const int nk = (Sk + kBK - 1) / kBK;
 
+  // The key range some row of the block sees: causal and the window's
+  // right edge bound it above (at the block's last row), the window's left
+  // edge below (at its first row).
+  const int row_last = min(row0 + kBQ - 1, Sq - 1);
   int kv_end = Sk;
-  if (causal) kv_end = min(Sk, min(row0 + kBQ - 1, Sq - 1) + shift + 1);
-  const int n_tiles = kv_end > 0 ? (kv_end + kBK - 1) / kBK : 0;
+  if (causal) kv_end = min(kv_end, row_last + shift + 1);
+  int kv_begin = 0;
+  if constexpr (kLocal) {
+    if (wright >= 0) kv_end = min(kv_end, row_last + shift + wright + 1);
+    if (wleft >= 0) kv_begin = max(0, row0 + shift - wleft);
+  }
+  const int t_first = kv_begin / kBK;
+  const int n_tiles = kv_end > kv_begin ? (kv_end + kBK - 1) / kBK - t_first : 0;
 
   // The block's live key tiles, in order, each with its kFullBit.
   int n_live = n_tiles;
@@ -172,7 +250,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
   }
   // Key tile of the walk's step i, and whether it needs no segment or
   // position mask.
-  auto tile_of = [&](int i) { return kMeta ? list[i] & (kFullBit - 1) : i; };
+  auto tile_of = [&](int i) { return kMeta ? list[i] & (kFullBit - 1) : t_first + i; };
 
   // K and V of the tile at key k0 into ring stage st (with masks, also its
   // 64 (segment, position) pairs).
@@ -200,12 +278,67 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
 
   // Q: scale in fp32, round to bf16, rotate (rotate-half) in fp32 with the
   // row's cos/sin, round to bf16.  Rows >= Sq are zero.
-  uint32_t qf[kD / 16][4];  // this warp's 16 rows as A fragments, 16 columns each
-  // Straight into the fragments: this thread holds columns 16kk + 2(lane%4)
-  // + {0, 1} (+ 8) of rows lane/4 and lane/4 + 8; column c < 64 and its
-  // rotation partner c + 64 sit in fragments kk and kk + 4 of one thread.
+  // kD = 256: into the Q tile after the ring, each thread 8 columns and
+  // their rotation partners kD/2 away at a time (16-byte loads and stores).
+  const uint32_t q_tile = kv_base + kStages * 2 * kTileBytes;
+  if constexpr (G::kQSmem) {
+    constexpr int kHalf = kChunks / 2;
+    unsigned char* qs = smem + (q_tile - s_base);
+    for (int i = tid; i < kBQ * kHalf; i += kThreads) {
+      const int r = i / kHalf, c = i % kHalf;
+      const int gq = row0 + r;
+      float a[8], e[8];
+      if (gq < Sq) {
+        const __nv_bfloat16* src = q + (((int64_t)b * Sq + gq) * H + h) * kD + c * 8;
+        const uint4 ra = *reinterpret_cast<const uint4*>(src);
+        const uint4 re = *reinterpret_cast<const uint4*>(src + kD / 2);
+        const __nv_bfloat162* pa = reinterpret_cast<const __nv_bfloat162*>(&ra);
+        const __nv_bfloat162* pe = reinterpret_cast<const __nv_bfloat162*>(&re);
 #pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
+        for (int u = 0; u < 4; ++u) {
+          const float2 fa = __bfloat1622float2(pa[u]), fe = __bfloat1622float2(pe[u]);
+          a[2 * u] = fatt::bf16_round(fa.x * eff_scale);
+          a[2 * u + 1] = fatt::bf16_round(fa.y * eff_scale);
+          e[2 * u] = fatt::bf16_round(fe.x * eff_scale);
+          e[2 * u + 1] = fatt::bf16_round(fe.y * eff_scale);
+        }
+        if (cosv != nullptr) {
+          const int64_t t = (int64_t)b * rope_bstride + (int64_t)gq * (kD / 2) + c * 8;
+#pragma unroll
+          for (int u = 0; u < 8; ++u) {
+            const float cv = cosv[t + u], sv = sinv[t + u];
+            const float o1 = __fsub_rn(__fmul_rn(a[u], cv), __fmul_rn(e[u], sv));
+            const float o2 = __fadd_rn(__fmul_rn(e[u], cv), __fmul_rn(a[u], sv));
+            a[u] = o1;
+            e[u] = o2;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int u = 0; u < 8; ++u) a[u] = e[u] = 0.f;
+      }
+      uint4 wa, we;
+      wa.x = fatt::pack_bf16(a[0], a[1]);
+      wa.y = fatt::pack_bf16(a[2], a[3]);
+      wa.z = fatt::pack_bf16(a[4], a[5]);
+      wa.w = fatt::pack_bf16(a[6], a[7]);
+      we.x = fatt::pack_bf16(e[0], e[1]);
+      we.y = fatt::pack_bf16(e[2], e[3]);
+      we.z = fatt::pack_bf16(e[4], e[5]);
+      we.w = fatt::pack_bf16(e[6], e[7]);
+      *reinterpret_cast<uint4*>(qs + fatt::sw128<kBQ>(r, c)) = wa;
+      *reinterpret_cast<uint4*>(qs + fatt::sw128<kBQ>(r, c + kHalf)) = we;
+    }
+    // the loop's fence and barrier order these stores before the first
+    // product reads them
+  }
+  // kD = 128: straight into the fragments: this thread holds columns 16kk +
+  // 2(lane%4) + {0, 1} (+ 8) of rows lane/4 and lane/4 + 8; column c < 64
+  // and its rotation partner c + 64 sit in fragments kk and kk + 4 of one
+  // thread.
+  uint32_t qf[G::kQSmem ? 1 : kD / 16][4];  // this warp's 16 rows as A fragments
+#pragma unroll
+  for (int hf = 0; hf < 2 && !G::kQSmem; ++hf) {
     const int gq = row0 + warp * 16 + (lane >> 2) + hf * 8;
     const bool in = gq < Sq;
     const __nv_bfloat16* src = q + (((int64_t)b * Sq + (in ? gq : 0)) * H + h) * kD;
@@ -234,8 +367,10 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
             e[u] = o2;
           }
         }
-        qf[kk][hf + 2 * h8] = fatt::pack_bf16(a[0], a[1]);
-        qf[kk + kD / 32][hf + 2 * h8] = fatt::pack_bf16(e[0], e[1]);
+        if constexpr (!G::kQSmem) {
+          qf[kk][hf + 2 * h8] = fatt::pack_bf16(a[0], a[1]);
+          qf[kk + kD / 32][hf + 2 * h8] = fatt::pack_bf16(e[0], e[1]);
+        }
       }
     }
   }
@@ -272,11 +407,27 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
 
     // S = Q K^T: 16 rows x 64 keys as eight n8 tiles.
     float s[kBK / 8][4];
-    fatt::attn_qk(s, qf, ks);
+    if constexpr (G::kQSmem) {
+      attn_qk_smem<kD>(s, q_tile, ks);
+    } else {
+      fatt::attn_qk(s, qf, ks);
+    }
+    if (kLocal && softcap2 > 0.f) {
+      const float inv_cap = 1.f / softcap2;
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = softcap2 * tanh_exp2(s[j][e] * inv_cap);
+    }
 
-    // Mask only where this warp's diagonal or Sk's edge crosses the tile,
-    // or, with masks, where the list does not say the tile is live throughout.
+    // Mask only where this warp's diagonal, a window edge of its rows or
+    // Sk's edge crosses the tile, or, with masks, where the list does not
+    // say the tile is live throughout.
     bool edge = k0 + kBK > Sk || (causal && k0 + kBK - 1 > wrow0 + shift);
+    if constexpr (kLocal) {
+      if (wright >= 0) edge = edge || k0 + kBK - 1 > wrow0 + shift + wright;
+      if (wleft >= 0) edge = edge || k0 < wrow0 + 15 + shift - wleft;
+    }
     if constexpr (kMeta) edge = edge || !(list[t] & kFullBit);
     if (edge) {
 #pragma unroll
@@ -291,6 +442,9 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
           const int col = k0 + j * 8 + (lane & 3) * 2 + (e & 1);
           const int row = my_row + (e >> 1) * 8;
           bool dead = col >= Sk || (causal && col > row + shift);
+          if constexpr (kLocal)
+            dead = dead || (wleft >= 0 && col < row + shift - wleft) ||
+                   (wright >= 0 && col > row + shift + wright);
           if constexpr (kMeta) {
             const int kseg = (e & 1) ? km.z : km.x, kpos = (e & 1) ? km.w : km.y;
             dead = dead || kseg != qm[e >> 1].x || kpos > qm[e >> 1].y;
@@ -366,7 +520,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
     for (int hf = 0; hf < 2; ++hf) {
       const float x0 = valid[hf] ? o[j][2 * hf] * inv[hf] : 0.f;
       const float x1 = valid[hf] ? o[j][2 * hf + 1] * inv[hf] : 0.f;
-      *reinterpret_cast<uint32_t*>(Os + swz(lr + hf * 8, j) + (lane & 3) * 4) =
+      *reinterpret_cast<uint32_t*>(Os + swz<kD>(lr + hf * 8, j) + (lane & 3) * 4) =
           fatt::pack_bf16(x0, x1);
     }
   }
@@ -378,38 +532,39 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
     const int grow = row0 + r;
     if (grow < Sq)
       *reinterpret_cast<uint4*>(out + (((int64_t)b * Sq + grow) * H + h) * kD + c * 8) =
-          *reinterpret_cast<const uint4*>(Os + swz(r, c));
+          *reinterpret_cast<const uint4*>(Os + swz<kD>(r, c));
   }
 }
 
-template <bool kMeta>
+template <int kD, bool kMeta>
 int launch(const void* q, const void* k, const void* v, const void* cosv,
            const void* sinv, void* out, void* lse, const void* qmeta,
            const void* kmeta, const void* qrange, const void* krange, int* tile_count,
            int B, int Sq, int Sk, int H, int Hk, int rope_bstride, float eff_scale,
-           int causal, int clamped, cudaStream_t st) {
+           int causal, int clamped, int wleft, int wright, float softcap2, cudaStream_t st) {
   static fatt::SmemLimitSet smem_set;
+  constexpr int kSmemBytes = Dims<kD>::kSmemBytes;
   constexpr int kMaxSmem =
       kSmemBytes + (kMeta ? kStages * kMetaBytes + kMaxListTiles * 4 : 0);
-  cudaError_t e = fatt::smem_limit_once(flash_fwd_kernel<kMeta>, kMaxSmem, smem_set);
+  cudaError_t e = fatt::smem_limit_once(flash_fwd_kernel<kD, kMeta>, kMaxSmem, smem_set);
   if (e != cudaSuccess) return (int)e;
   const int nk = (Sk + kBK - 1) / kBK;
   const int smem = kSmemBytes + (kMeta ? kStages * kMetaBytes + nk * 4 : 0);
   dim3 grid(H, B, (Sq + kBQ - 1) / kBQ);
-  flash_fwd_kernel<kMeta><<<grid, kThreads, smem, st>>>(
+  flash_fwd_kernel<kD, kMeta><<<grid, kThreads, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(cosv),
       static_cast<const float*>(sinv), static_cast<__nv_bfloat16*>(out),
       static_cast<float*>(lse), static_cast<const int2*>(qmeta),
       static_cast<const int2*>(kmeta), static_cast<const int4*>(qrange),
       static_cast<const int4*>(krange), tile_count, Sq, Sk, H, Hk, rope_bstride,
-      eff_scale, causal, clamped);
+      eff_scale, causal, clamped, wleft, wright, softcap2);
   return (int)cudaGetLastError();
 }
 
 bool bad_shape(int B, int Sq, int H, int Hk, int D) {
-  // Only head_dim 128 (Llama-3) is built.
-  return H % Hk != 0 || D != kD || B > 65535 || (Sq + kBQ - 1) / kBQ > 65535;
+  // Head dims 128 (Llama-3) and 256 (Gemma-2-9B) are built.
+  return H % Hk != 0 || (D != 128 && D != 256) || B > 65535 || (Sq + kBQ - 1) / kBQ > 65535;
 }
 
 }  // namespace
@@ -423,25 +578,28 @@ bool bad_shape(int B, int Sq, int H, int Hk, int D) {
 // position); a mask not given is 0 throughout.  All four null: no masks
 // (the instance without them).  tile_count: null, or with masks int32[2]
 // that head 0's blocks add their live and unmasked key tiles to.
+// window_left / window_right: the window's sides (-1 open); softcap2: the
+// logit softcap in base-2 units (cap * log2 e), 0 for none; both at
+// head_dim 256 only.  Masks at head_dim 128 only.
 extern "C" int fatt_flash_fwd(const void* q, const void* k, const void* v,
                               const void* cosv, const void* sinv, void* out,
                               void* lse, const void* qmeta, const void* kmeta,
                               const void* qrange, const void* krange, int* tile_count,
                               int B, int Sq, int Sk, int H, int Hk, int D,
                               int rope_bstride, float eff_scale, int causal,
-                              int clamped, void* stream) {
+                              int clamped, int window_left, int window_right,
+                              float softcap2, void* stream) {
   const int given = (qmeta != nullptr) + (kmeta != nullptr) + (qrange != nullptr) +
                     (krange != nullptr);
+  const bool local = window_left >= 0 || window_right >= 0 || softcap2 > 0.f;
   // With masks a block lists at most kMaxListTiles key tiles.
-  if (bad_shape(B, Sq, H, Hk, D) ||
-      (given != 0 && (given != 4 || (Sk + kBK - 1) / kBK > kMaxListTiles)))
+  if (bad_shape(B, Sq, H, Hk, D) || window_left < -1 || window_right < -1 ||
+      !(softcap2 >= 0.f) || (local && D != 256) ||
+      (given != 0 && (given != 4 || D != 128 || (Sk + kBK - 1) / kBK > kMaxListTiles)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (given == 0)
-    return launch<false>(q, k, v, cosv, sinv, out, lse, nullptr, nullptr, nullptr,
-                         nullptr, nullptr, B, Sq, Sk, H, Hk, rope_bstride, eff_scale,
-                         causal, clamped, st);
-  return launch<true>(q, k, v, cosv, sinv, out, lse, qmeta, kmeta, qrange, krange,
-                      tile_count, B, Sq, Sk, H, Hk, rope_bstride, eff_scale, causal,
-                      clamped, st);
+  auto fn = D == 256 ? launch<256, false> : given != 0 ? launch<128, true> : launch<128, false>;
+  return fn(q, k, v, cosv, sinv, out, lse, qmeta, kmeta, qrange, krange, tile_count, B, Sq,
+            Sk, H, Hk, rope_bstride, eff_scale, causal, clamped, window_left, window_right,
+            softcap2, st);
 }

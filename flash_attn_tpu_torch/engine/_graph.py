@@ -44,11 +44,12 @@ from flash_attn_tpu_torch.ops.paged_decode import paged_flash_decode_cuda
 
 # every launch counter of the wrappers a body may reach
 _COUNTERS = (
-    (flash_decode_cuda, ("launches", "chunk_launches", "bshd_launches")),
+    (flash_decode_cuda, ("launches", "chunk_launches", "bshd_launches", "window_launches",
+                         "d256_launches")),
     (paged_flash_decode_cuda, ("launches", "chunk_launches", "merges")),
     (kv_append_cuda, ("launches",)),
     (lse_merge_cuda, ("launches",)),
-    (flash_fwd_cuda, ("launches",)),
+    (flash_fwd_cuda, ("launches", "d256_launches", "window_launches")),
     (_mm.matmul_int8_cuda, ("launches",)),
     (_mm.matmul_int8_grouped_cuda, ("launches",)),
     (_mm.matmul_int4_cuda, ("launches",)),

@@ -239,12 +239,20 @@ def _logits(params, x, cfg):
     src = params["tok_emb"] if cfg.tie_embeddings else params["lm_head"]
     if not isinstance(src, torch.Tensor):
         return _proj(x.float(), src)
+    return _proj(x.float(), f32_head(params, src, cfg.tie_embeddings))
+
+
+def f32_head(params, src, tied: bool):
+    """The fp32 [hidden, vocab] copy of a float head ``src`` (the
+    embedding transposed when ``tied``), kept in ``params`` under
+    ``"_lm_head_f32"`` with ``src`` and its version, made anew once either
+    changes."""
     cached = params.get("_lm_head_f32")
     if cached is None or cached[0] is not src or cached[1] != src._version:
-        w = src.T if cfg.tie_embeddings else src
+        w = src.T if tied else src
         cached = (src, src._version, w.float().contiguous())
         params["_lm_head_f32"] = cached
-    return _proj(x.float(), cached[2])
+    return cached[2]
 
 
 def _qkv(h, blk, cfg, b, s):

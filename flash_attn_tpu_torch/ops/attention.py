@@ -4,10 +4,10 @@ Port of flash_attn_tpu/ops/attention.py:flash_attention,
 flash_attention_varlen and varlen_segments: the forward is ``flash_fwd``
 (K4 on the card) and, where autograd needs it, the backward is
 ``flash_bwd`` (K9 + K10), joined by a ``torch.autograd.Function`` in
-place of the ``jax.custom_vjp``.  Segment ids and positions are
-forward-only (K9/K10 take none yet) and raise ``NotImplementedError``
-when autograd would need a gradient; so do the options that
-ops/flash_fwd.py and ops/flash_bwd.py do not port yet.
+place of the ``jax.custom_vjp``.  Segment ids, positions, a window and
+the logit softcap are forward-only (K9/K10 take none yet) and raise
+``NotImplementedError`` when autograd would need a gradient; so do the
+options that ops/flash_fwd.py and ops/flash_bwd.py do not port yet.
 """
 
 from __future__ import annotations
@@ -63,28 +63,30 @@ def flash_attention(q, k, v, *, causal: bool = False, mask=None,
     rope_cos/rope_sin ([B, Sq, D/2] fp32): rotate q inside the kernel.
     q_segment_ids/kv_segment_ids ([B, Sq] / [B, Sk]): attention only
     within equal ids; q_positions/kv_positions: a key is live only where
-    kv_pos <= q_pos.  Both are forward-only.
-    Returns out [B, Sq, H, D], differentiable w.r.t. q, k and v when no
-    segment ids or positions are given; with ``return_lse`` (out, lse
-    [B, H, Sq]) from the forward alone, as in the reference.  Forward-only
-    calls raise when autograd would need a gradient of q, k or v.
+    kv_pos <= q_pos.  window (left, right; -1 open): the sliding window,
+    bottom-right aligned; logit_softcap: Gemma-2's cap * tanh(s / cap) on
+    the scaled scores.  These four are forward-only.
+    Returns out [B, Sq, H, D], differentiable w.r.t. q, k and v when none
+    of them is given; with ``return_lse`` (out, lse [B, H, Sq]) from the
+    forward alone, as in the reference.  Forward-only calls raise when
+    autograd would need a gradient of q, k or v.
     """
-    unported = dict(bias=mask, dropout_rate=dropout_rate, window=window,
-                    logit_softcap=logit_softcap, alibi_slopes=alibi_slopes,
+    unported = dict(bias=mask, dropout_rate=dropout_rate, alibi_slopes=alibi_slopes,
                     return_softmax=return_softmax)
-    masks = dict(q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
-                 q_positions=q_positions, kv_positions=kv_positions)
-    has_masks = any(x is not None for x in masks.values())
+    fwd_only = dict(q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+                    q_positions=q_positions, kv_positions=kv_positions,
+                    window=window, logit_softcap=logit_softcap)
+    given = [name for name, x in fwd_only.items() if x is not None]
     mode = softmax_mode or "online"
-    if not return_lse and not has_masks:
+    if not return_lse and not given:
         return _FlashAttention.apply(q, k, v, rope_cos, rope_sin, causal, scale, mode,
                                      unported)
     if _needs_grad(q, k, v):
-        what = ("segment ids and positions are forward-only (K9/K10 take none yet)"
-                if has_masks else "return_lse is forward-only")
+        what = (f"{', '.join(given)} are forward-only (K9/K10 take none yet)"
+                if given else "return_lse is forward-only")
         raise NotImplementedError(f"flash_attention: {what}; call it under torch.no_grad()")
     out, lse = flash_fwd(q, k, v, causal=causal, scale=scale, rope_cos=rope_cos,
-                         rope_sin=rope_sin, softmax_mode=mode, **masks, **unported)
+                         rope_sin=rope_sin, softmax_mode=mode, **fwd_only, **unported)
     return (out, lse) if return_lse else out
 
 

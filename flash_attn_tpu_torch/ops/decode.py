@@ -23,9 +23,13 @@ rows on a BHSD cache, and decode calls with more than ``ROWS`` heads per
 KV head; it splits the live walk, not the capacity (``split_bounds``).  The
 TPU's packed e4m3 bit-decode (E4M3_FIX, P_SHIFT*) and its scale-lane
 permutation exist only because of Mosaic and are not ported: Hopper
-converts e4m3 natively.  Sliding windows and logit softcaps are not on the
-Llama-3 path and raise for now, in both layouts.  fp16 computes as bf16,
-as in JAX.
+converts e4m3 natively.  A sliding window (the last ``window`` positions
+below kv_length) and the Gemma-2 logit softcap (cap * tanh(s / cap) on
+the scaled scores, base 2 when clamped) run on K1 in decode mode over a
+BHSD cache, as JAX's ``_decode_kernel_bhsd`` does (decode.py:835-862); a
+windowed call splits the live walk [max(0, len - window), len), so it
+never reads the keys below the window.  The BSHD layout and chunk mode
+raise on both.  fp16 computes as bf16, as in JAX.
 """
 
 from __future__ import annotations
@@ -108,18 +112,22 @@ def _chunk_splits(batch: int, num_heads_k: int, rows: int, reach: int, num_split
     return max(1, min(int(num_splits), -(-reach // TILE)))
 
 
-def split_bounds(nsplit: int, split_len, S: int, kv_length=None):
+def split_bounds(nsplit: int, split_len, S: int, kv_length=None, window=None):
     """Each split's key range [lo, hi) over S positions.  With ``split_len``
     (K1) split i is [i * split_len, (i + 1) * split_len), the same for
-    every sequence.  With ``split_len`` None (K8, K1c, K8c) it follows each
-    sequence's live walk, as K8 and the chunk kernel cut it: n = ceil(min(
-    kv_length, S) / TILE) live tiles, c = ceil(n / nsplit) a split, split i
-    the tiles [i * c, (i + 1) * c); lo and hi are then [B] tensors."""
+    every sequence.  With ``split_len`` None (K8, K1c, K8c, and K1 with a
+    window) it follows each sequence's live walk [w, min(kv_length, S)),
+    w = max(0, kv_length - window) (0 without a window), as the kernels cut
+    it: n = ceil(walk / TILE) tiles from w, c = ceil(n / nsplit) a split,
+    split i the tiles [i * c, (i + 1) * c); lo and hi are then [B]
+    tensors."""
     if split_len is not None:
         return [(i * split_len, min(S, (i + 1) * split_len)) for i in range(nsplit)]
-    n = -(-torch.clamp(kv_length.long(), 0, S) // TILE)
+    kv = kv_length.long()
+    start = torch.zeros_like(kv) if window is None else torch.clamp(kv - window, 0, S)
+    n = -(-torch.clamp(torch.clamp(kv, 0, S) - start, min=0) // TILE)
     per = -(-n // nsplit) * TILE
-    return [(i * per, (i + 1) * per) for i in range(nsplit)]
+    return [(start + i * per, start + (i + 1) * per) for i in range(nsplit)]
 
 
 def _heads_len(k, kv_layout):
@@ -133,21 +141,28 @@ def _as_bf16(x):
     return x.to(torch.bfloat16) if x is not None and x.dtype == torch.float16 else x
 
 
-def _check(k, k_scale, H, Hk, window, logit_softcap):
-    if window is not None or logit_softcap is not None:
-        raise NotImplementedError("window and logit_softcap are not ported yet")
+def _check(k, k_scale, H, Hk, window, logit_softcap, kv_layout, chunk):
+    if (window is not None or logit_softcap is not None) and (kv_layout != "bhsd" or chunk):
+        raise NotImplementedError("window and logit_softcap are ported for single-token "
+                                  "decode over a BHSD cache (K1) only, not for the BSHD "
+                                  "layout or chunk mode")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if logit_softcap is not None and not logit_softcap > 0:
+        raise ValueError(f"logit_softcap must be > 0, got {logit_softcap}")
     if H % Hk:
         raise ValueError(f"num_heads {H} not divisible by num_heads_k {Hk}")
     if (k_scale is None) != (k.dtype not in (torch.int8, torch.float8_e4m3fn)):
         raise ValueError("int8/fp8 caches need scales, float caches none")
 
 
-def _mode(softmax_mode, kv_dtype, kv_layout) -> bool:
-    """Whether the softmax is clamped: the default follows the KV type on
-    BHSD; BSHD always runs online, as JAX's BSHD paths do (decode.py:
-    248-249), whatever the mode asked."""
+def _mode(softmax_mode, kv_dtype, kv_layout, logit_softcap=None) -> bool:
+    """Whether the softmax is clamped: the default follows the KV type and
+    the softcap on BHSD (``_default_softmax_mode``); BSHD always runs
+    online, as JAX's BSHD paths do (decode.py:248-249), whatever the mode
+    asked."""
     if softmax_mode is None:
-        softmax_mode = _default_softmax_mode(kv_dtype)
+        softmax_mode = _default_softmax_mode(kv_dtype, logit_softcap)
     if softmax_mode not in ("online", "clamped"):
         raise ValueError(f"unknown softmax_mode {softmax_mode!r}")
     return softmax_mode == "clamped" and kv_layout == "bhsd"
@@ -178,7 +193,11 @@ def flash_decode(q, k, v, *, kv_length=None, scale: float | None = None,
     num_splits: split-KV blocks per (sequence, KV head); None picks enough
       to fill the card.  Partials merge by the LSE rule (merge_splits).
     softmax_mode: "online" or "clamped"; None follows
-      _default_softmax_mode (clamped for fp8 KV).  BSHD runs online.
+      _default_softmax_mode (clamped for fp8 KV, online when a softcap
+      reaches the fp8 ceiling).  BSHD runs online.
+    window: attend only to the last ``window`` positions below kv_length
+      (BHSD); logit_softcap: cap * tanh(s / cap) on the scaled scores
+      (BHSD).
     Returns out [B, H, D] in q.dtype; with return_lse also lse [B, H] fp32.
     """
     if torch.float16 in (q.dtype, k.dtype):
@@ -191,12 +210,12 @@ def flash_decode(q, k, v, *, kv_length=None, scale: float | None = None,
         return _restore_fp16(res, q.dtype, return_lse)
     B, H, D = q.shape
     Hk, S = _heads_len(k, kv_layout)
-    _check(k, k_scale, H, Hk, window, logit_softcap)
-    clamped = _mode(softmax_mode, k.dtype, kv_layout)
+    _check(k, k_scale, H, Hk, window, logit_softcap, kv_layout, False)
+    clamped = _mode(softmax_mode, k.dtype, kv_layout, logit_softcap)
     if kv_layout == "bshd":
         k_scale, v_scale = _bshd_scales(k_scale, B, S, Hk), _bshd_scales(v_scale, B, S, Hk)
     out, lse = _attend(q, k, v, k_scale, v_scale, kv_length, scale, clamped,
-                       1, kv_layout, num_splits)
+                       1, kv_layout, num_splits, window, logit_softcap)
     return (out, lse) if return_lse else out
 
 
@@ -228,8 +247,8 @@ def flash_decode_chunk(q, k, v, *, kv_length, scale: float | None = None,
         return _restore_fp16(res, q.dtype, return_lse)
     B, T, H, D = q.shape
     Hk, S = _heads_len(k, kv_layout)
-    _check(k, k_scale, H, Hk, window, logit_softcap)
-    clamped = _mode(softmax_mode, k.dtype, kv_layout)
+    _check(k, k_scale, H, Hk, window, logit_softcap, kv_layout, True)
+    clamped = _mode(softmax_mode, k.dtype, kv_layout, logit_softcap)
     if kv_layout == "bshd":
         k_scale, v_scale = _bshd_scales(k_scale, B, S, Hk), _bshd_scales(v_scale, B, S, Hk)
     G = H // Hk
@@ -255,10 +274,12 @@ def _restore_fp16(res, dtype, return_lse):
 
 
 def _attend(q, k, v, k_scale, v_scale, kv_length, scale, clamped, chunk,
-            layout, num_splits):
+            layout, num_splits, window=None, softcap=None):
     """(out in q.dtype, lse) of q [B, Hk * R, D] rows, R = chunk * G per KV
     head in (t, g) order, through K1 or K1c on the card or their plain
-    version."""
+    version.  A windowed K1 call plans its splits on min(window, S), a
+    count fixed by the shapes, and cuts them over each sequence's live
+    walk."""
     B, rows, D = q.shape
     Hk, S = _heads_len(k, layout)
     if scale is None:
@@ -268,10 +289,12 @@ def _attend(q, k, v, k_scale, v_scale, kv_length, scale, clamped, chunk,
     R = rows // Hk
     if layout == "bhsd" and (chunk > 1 or R > ROWS):  # K1c
         nsplit, split_len = _chunk_splits(B, Hk, R, S, num_splits), None
+    elif window is not None:  # K1 over the live walk
+        nsplit, split_len = _splits(B * -(-R // ROWS), Hk, min(window, S), num_splits)[0], None
     else:
         nsplit, split_len = _splits(B * -(-R // ROWS), Hk, S, num_splits)
     args = (q, k, v, k_scale, v_scale, kv_length, scale, clamped, _clamp2(k.dtype),
-            nsplit, split_len, chunk, layout)
+            nsplit, split_len, chunk, layout, window, softcap)
     if q.is_cuda:
         outs, lses = flash_decode_cuda(*args)
     else:
@@ -298,13 +321,17 @@ def _qscale(scale, clamped, dtype):
 
 
 def flash_decode_plain(q, k, v, k_scale, v_scale, kv_length, scale, clamped,
-                       clamp2, nsplit, split_len, chunk=1, layout="bhsd"):
+                       clamp2, nsplit, split_len, chunk=1, layout="bhsd", window=None,
+                       softcap=None):
     """Plain PyTorch version of K1 and K1c: returns per-split (out [n, B,
     rows, D] fp32, lse [n, B, rows]) for q [B, rows, D] (``chunk`` tokens
     per KV head in (t, g) order), with the kernels' roundings: on BHSD the
     bf16 q pre-scale, on BSHD the scale applied to the fp32 scores; bf16
     p * v_scale before PV; fp32 throughout for fp32 q.  ``split_len`` None
-    splits the live walk as K1c does (``split_bounds``)."""
+    splits the live walk as K1c and a windowed K1 do (``split_bounds``).
+    ``softcap`` caps the scores after the K scale, in the softmax's units
+    (base 2 when clamped); ``window`` keeps the last ``window`` positions
+    below each row's limit."""
     B, rows, D = q.shape
     if layout == "bshd":
         k, v = k.transpose(1, 2), v.transpose(1, 2)
@@ -320,12 +347,18 @@ def flash_decode_plain(q, k, v, k_scale, v_scale, kv_length, scale, clamped,
         s = s * k_scale[:, :, None, :]
     if not fold:
         s = s * scale
+    if softcap is not None:
+        c = softcap * (LOG2E if clamped else 1.0)
+        s = c * torch.tanh(s / c)
     # row r = t * G + g sees positions < kv_length - (chunk - 1) + t
     t = torch.arange(R, device=q.device) // (R // chunk)
     limit = kv_length.to(q.device).long()[:, None] - (chunk - 1) + t[None, :]
-    valid = torch.arange(S, device=q.device)[None, None, :] < limit[:, :, None]
+    pos = torch.arange(S, device=q.device)[None, None, :]
+    valid = pos < limit[:, :, None]
+    if window is not None:
+        valid = valid & (pos >= limit[:, :, None] - window)
     s = torch.where(valid[:, None], s, torch.full_like(s, NEG_INF))
-    bounds = split_bounds(nsplit, split_len, S, kv_length.to(q.device))
+    bounds = split_bounds(nsplit, split_len, S, kv_length.to(q.device), window)
     outs, lses = split_partials(s, v, v_scale, clamped, clamp2, bounds, cdt)
     return outs.reshape(nsplit, B, rows, D), lses.reshape(nsplit, B, rows)
 
@@ -367,32 +400,41 @@ def split_partials(s, v, v_scale, clamped, clamp2, bounds, cdt):
 
 
 def flash_decode_cuda(q, k, v, k_scale, v_scale, kv_length, scale, clamped,
-                      clamp2, nsplit, split_len, chunk=1, layout="bhsd"):
-    """Launch K1 or, for ``split_len`` None, K1c.  K1 replaces
-    flash_attn_tpu/ops/decode.py:_decode_kernel_bhsd in decode mode and, on
-    a BSHD cache, _decode_kernel; bound by bytes (see the source note in
-    csrc/decode.cu).  K1c replaces _decode_kernel_bhsd in chunk mode and
-    takes BHSD decode calls with more than ``ROWS`` heads per KV head;
-    bound by bytes at the verify step (csrc/chunk_attn.cu).  Returns (out,
-    lse): with one split out is [1, B, rows, D] bf16 written by the kernel,
-    else fp32 partials [n, B, rows, D]."""
+                      clamp2, nsplit, split_len, chunk=1, layout="bhsd", window=None,
+                      softcap=None):
+    """Launch K1 or, for ``split_len`` None without a window, K1c.  K1
+    replaces flash_attn_tpu/ops/decode.py:_decode_kernel_bhsd in decode
+    mode (with its window and softcap; head_dim up to 256) and, on a BSHD
+    cache, _decode_kernel; bound by bytes (see the source note in
+    csrc/decode.cu).  A windowed K1 call takes ``split_len`` None and cuts
+    each sequence's live walk in the kernel.  K1c replaces
+    _decode_kernel_bhsd in chunk mode and takes BHSD decode calls with more
+    than ``ROWS`` heads per KV head; bound by bytes at the verify step
+    (csrc/chunk_attn.cu).  Returns (out, lse): with one split out is [1,
+    B, rows, D] bf16 written by the kernel, else fp32 partials [n, B,
+    rows, D].  Besides ``.launches`` it counts K1's windowed launches in
+    ``.window_launches`` and those at head_dim 256 in ``.d256_launches``."""
     B, rows, D = q.shape
     Hk, S = _heads_len(k, layout)
     if q.dtype != torch.bfloat16:
         raise ValueError("K1 takes a bf16 query")
     if k.dtype not in _KV_TYPES or v.dtype != k.dtype or v.shape != k.shape:
         raise ValueError(f"K1 takes a bf16, int8 or fp8 cache, got {k.dtype}")
-    if rows % Hk or (rows // Hk) % chunk or D > 128 or D % 32:
+    if rows % Hk or (rows // Hk) % chunk or D > 256 or D % 32:
         raise ValueError(f"K1 needs rows a multiple of Hk * chunk, D % 32 == 0 and "
-                         f"D <= 128; got rows={rows}, Hk={Hk}, chunk={chunk}, D={D}")
+                         f"D <= 256; got rows={rows}, Hk={Hk}, chunk={chunk}, D={D}")
     R = rows // Hk
     tiled = chunk > 1 or R > ROWS
     if layout == "bshd" and tiled:
         raise NotImplementedError(f"K1 takes a BSHD cache in decode mode, at most "
                                   f"{ROWS} heads per KV head")
-    if tiled != (split_len is None) or (tiled and D != 128):
-        raise ValueError("K1c (chunk > 1 or more than ROWS heads per KV head) takes "
-                         "split_len None and D = 128; K1 a split_len")
+    if (window is not None or softcap is not None) and (tiled or layout == "bshd"):
+        raise NotImplementedError("K1 takes a window and a softcap in decode mode over a "
+                                  "BHSD cache only")
+    live_walk = window is not None
+    if (tiled or live_walk) != (split_len is None) or (tiled and D != 128):
+        raise ValueError("K1c (chunk > 1 or more than ROWS heads per KV head) and a "
+                         "windowed K1 take split_len None, K1c D = 128; K1 a split_len")
     if kv_length.dtype != torch.int32 or kv_length.shape != (B,):
         raise ValueError("kv_length must be [B] int32")
     tensors = [q, k, v, kv_length]
@@ -425,19 +467,26 @@ def flash_decode_cuda(q, k, v, k_scale, v_scale, kv_length, scale, clamped,
         _build.check(rc, "fatt_chunk_attn")
         flash_decode_cuda.chunk_launches += 1
     else:
+        # the softcap in the scores' units: base 2 when clamped
+        cap = 0.0 if softcap is None else float(softcap * (LOG2E if clamped else 1.0))
         rc = _build.lib().fatt_decode(
             p(q), p(k), p(v), p(k_scale), p(v_scale), p(kv_length), p(out),
             p(part), p(lse), B, Hk, R, S, D, int(layout == "bshd"),
-            _KV_TYPES[k.dtype], nsplit, split_len, qscale, sscale, int(clamped),
-            float(clamp2), _build.stream())
+            _KV_TYPES[k.dtype], nsplit, split_len or 0, qscale, sscale, int(clamped),
+            float(clamp2), window or 0, cap, _build.stream())
         _build.check(rc, "fatt_decode")
+        flash_decode_cuda.window_launches += live_walk
+        flash_decode_cuda.d256_launches += D == 256
     flash_decode_cuda.launches += 1
     if layout == "bshd":
         flash_decode_cuda.bshd_launches += 1
     return (out if nsplit == 1 else part), lse
 
 
-# every launch (K1 and K1c), and those of them on K1c and on a BSHD cache
+# every launch (K1 and K1c), those of them on K1c and on a BSHD cache, and
+# K1's with a window and at head_dim 256
 flash_decode_cuda.launches = 0
 flash_decode_cuda.chunk_launches = 0
 flash_decode_cuda.bshd_launches = 0
+flash_decode_cuda.window_launches = 0
+flash_decode_cuda.d256_launches = 0

@@ -1,18 +1,22 @@
 """FlashAttention-2 forward (kernel K4, ``csrc/flash_fwd.cu``).
 
 Port of flash_attn_tpu/ops/flash_fwd.py:flash_fwd for the subset the
-Llama prefill paths use: BSHD layout, GQA, bottom-right causal mask,
-segment ids and positions (the packed and chunked prefill's masks),
-q-side RoPE inside the kernel, softmax_mode "clamped" or "online", fp32
-LSE.  Bias, windows, softcap, ALiBi, dropout and return_softmax are
-still to port and raise ``NotImplementedError``.
+Llama and Gemma-2 prefill paths use: BSHD layout, GQA, head_dim 128 or
+256 on the card (any in the plain version), bottom-right causal mask,
+segment ids and positions (the packed and chunked prefill's masks), a
+sliding window, the Gemma-2 logit softcap, q-side RoPE inside the
+kernel, softmax_mode "clamped" or "online", fp32 LSE.  A window or a
+softcap with segment ids or positions, bias, ALiBi, dropout and
+return_softmax are still to port and raise ``NotImplementedError``.
 
 As on the TPU, the softmax scale and log2(e) are folded into q (rounded
 to the input dtype), q is rotated in fp32 and rounded again before QK^T,
 scores are base-2, and p is rounded to the V dtype before PV.  A (query,
 key) pair is live only where every mask given holds, as ``_apply_mask``
-composes them: causal by index, equal segment ids, kv position <= q
-position.
+composes them: causal by index, the window by index, equal segment ids,
+kv position <= q position.  The softcap is ``c * tanh(s / c)`` on the
+scaled base-2 scores with c = cap * log2(e), before the mask
+(flash_fwd.py:363-367, 757-761).
 """
 
 from __future__ import annotations
@@ -60,10 +64,22 @@ def _masks(q_segment_ids, kv_segment_ids, q_positions, kv_positions, B, Sq, Sk):
     return Masks(q_segment_ids, kv_segment_ids, q_positions, kv_positions)
 
 
+def _window(window):
+    """``window`` as a (left, right) pair of ints (-1: open), or None when
+    both sides are open."""
+    if window is None:
+        return None
+    left, right = (int(x) for x in window)
+    if left < -1 or right < -1:
+        raise ValueError(f"window sides must be >= -1, got {window}")
+    return None if left == right == -1 else (left, right)
+
+
 def flash_fwd(q, k, v, *, causal: bool = False, scale: float | None = None,
               rope_cos=None, rope_sin=None, softmax_mode: str = "online",
               q_segment_ids=None, kv_segment_ids=None, q_positions=None,
-              kv_positions=None, **unported):
+              kv_positions=None, window=None, logit_softcap: float | None = None,
+              **unported):
     """q: [B, Sq, H, D]; k, v: [B, Sk, Hk, D].  Returns (out [B, Sq, H, D]
     in q.dtype, lse [B, H, Sq] fp32).
 
@@ -72,8 +88,11 @@ def flash_fwd(q, k, v, *, causal: bool = False, scale: float | None = None,
     q_segment_ids/kv_segment_ids ([B, Sq] / [B, Sk] int): a query sees
     only keys of its own segment.  q_positions/kv_positions: a key is live
     only where kv_pos <= q_pos (per-sequence causality on a packed batch,
-    or a chunk over a cache).  A row with no live key gives 0 and lse
-    -1e30."""
+    or a chunk over a cache).  window (left, right): query i sees key j
+    only where i + Sk - Sq - left <= j <= i + Sk - Sq + right, -1 leaving
+    a side open (bottom-right aligned, as causal is).  logit_softcap:
+    scores become cap * tanh(s / cap) before the masks.  A row with no
+    live key gives 0 and lse -1e30."""
     for name, val in unported.items():
         if val is None or val is False or (isinstance(val, float) and val == 0.0):
             continue
@@ -89,20 +108,34 @@ def flash_fwd(q, k, v, *, causal: bool = False, scale: float | None = None,
     if rope_cos is not None and rope_cos.shape[-2:] != (Sq, D // 2):
         raise ValueError(f"rope tables must be [B, {Sq}, {D // 2}] or [{Sq}, {D // 2}]")
     masks = _masks(q_segment_ids, kv_segment_ids, q_positions, kv_positions, B, Sq, Sk)
+    window = _window(window)
+    if (window is not None or logit_softcap is not None) and masks is not None:
+        raise NotImplementedError("flash_fwd: a window or a softcap with segment ids or "
+                                  "positions is not ported yet")
+    if logit_softcap is not None and not logit_softcap > 0:
+        raise ValueError(f"logit_softcap must be > 0, got {logit_softcap}")
     if scale is None:
         scale = D ** -0.5
     clamped = softmax_mode == "clamped"
+    args = (q, k, v, causal, scale, rope_cos, rope_sin, clamped, masks, window, logit_softcap)
     if q.is_cuda:
-        return flash_fwd_cuda(q, k, v, causal, scale, rope_cos, rope_sin, clamped, masks)
-    return flash_fwd_plain(q, k, v, causal, scale, rope_cos, rope_sin, clamped, masks)
+        return flash_fwd_cuda(*args)
+    return flash_fwd_plain(*args)
 
 
-def live_pairs(masks: Masks | None, causal: bool, Sq: int, Sk: int, device):
+def live_pairs(masks: Masks | None, causal: bool, Sq: int, Sk: int, device, window=None):
     """[B or 1, Sq, Sk] bool: the (query, key) pairs every mask leaves live."""
     live = torch.ones((1, Sq, Sk), dtype=torch.bool, device=device)
+    rows = torch.arange(Sq, device=device)[:, None] + (Sk - Sq)
+    cols = torch.arange(Sk, device=device)[None, :]
     if causal:
-        rows = torch.arange(Sq, device=device)[:, None] + (Sk - Sq)
-        live = live & (torch.arange(Sk, device=device)[None, :] <= rows)
+        live = live & (cols <= rows)
+    if window is not None:
+        left, right = window
+        if left >= 0:
+            live = live & (cols >= rows - left)
+        if right >= 0:
+            live = live & (cols <= rows + right)
     if masks is not None:
         qs, ks, qp, kp = masks
         if qs is not None:
@@ -112,7 +145,8 @@ def live_pairs(masks: Masks | None, causal: bool, Sq: int, Sk: int, device):
     return live
 
 
-def flash_fwd_plain(q, k, v, causal, scale, rope_cos, rope_sin, clamped, masks=None):
+def flash_fwd_plain(q, k, v, causal, scale, rope_cos, rope_sin, clamped, masks=None,
+                    window=None, softcap=None):
     """Plain PyTorch version of K4 (whole rows at once, same roundings)."""
     B, Sq, H, D = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
@@ -122,8 +156,12 @@ def flash_fwd_plain(q, k, v, causal, scale, rope_cos, rope_sin, clamped, masks=N
     kf = k.float().repeat_interleave(H // Hk, dim=2)
     vf = v.repeat_interleave(H // Hk, dim=2).float()
     s = torch.einsum("bqhd,bkhd->bhqk", qs.float(), kf)
-    if causal or masks is not None:
-        s = s.masked_fill(~live_pairs(masks, causal, Sq, Sk, q.device)[:, None], NEG_INF)
+    if softcap is not None:
+        c2 = softcap * LOG2E  # the cap in base-2 units, as the scores
+        s = c2 * torch.tanh(s / c2)
+    if causal or masks is not None or window is not None:
+        live = live_pairs(masks, causal, Sq, Sk, q.device, window)
+        s = s.masked_fill(~live[:, None], NEG_INF)
     if clamped:
         p = torch.exp2(torch.clamp(s, max=CLAMP2))
         m = None
@@ -184,17 +222,23 @@ def _tiles(masks: Masks, B: int, Sq: int, Sk: int):
 _tiles.last = None
 
 
-def flash_fwd_cuda(q, k, v, causal, scale, rope_cos, rope_sin, clamped, masks=None):
+def flash_fwd_cuda(q, k, v, causal, scale, rope_cos, rope_sin, clamped, masks=None,
+                   window=None, softcap=None):
     """Launch K4.  Replaces flash_attn_tpu/ops/flash_fwd.py:_fwd_kernel;
     bound by operations (see the source note in csrc/flash_fwd.cu).  With
     masks it counts its launches also in ``.seg_launches`` (segment ids
-    given) and ``.pos_launches`` (positions given)."""
+    given) and ``.pos_launches`` (positions given); at head_dim 256 also
+    in ``.d256_launches``, with a window in ``.window_launches``."""
     B, Sq, H, D = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
         raise ValueError("K4 takes bf16 q, k, v")
-    if D != 128:
-        raise ValueError(f"K4 takes head_dim 128 (Llama-3), got {D}")
+    if D not in (128, 256):
+        raise ValueError(f"K4 takes head_dim 128 (Llama-3) or 256 (Gemma-2-9B), got {D}")
+    local = window is not None or softcap is not None
+    if (D == 256 and masks is not None) or (D == 128 and local):
+        raise NotImplementedError("K4 takes segment ids and positions at head_dim 128, a "
+                                  "window and a softcap at head_dim 256")
     tensors = [q, k, v]
     bstride = 0
     if rope_cos is not None:
@@ -218,15 +262,20 @@ def flash_fwd_cuda(q, k, v, causal, scale, rope_cos, rope_sin, clamped, masks=No
     rc = _build.lib().fatt_flash_fwd(
         p(q), p(k), p(v), p(rope_cos), p(rope_sin), p(out), p(lse), *(p(t) for t in tiles),
         None, B, Sq, Sk, H, Hk, D, bstride, float(scale * LOG2E), int(causal), int(clamped),
+        *(window or (-1, -1)), 0.0 if softcap is None else float(softcap * LOG2E),
         _build.stream())
     _build.check(rc, "fatt_flash_fwd")
     flash_fwd_cuda.launches += 1
     if masks is not None:
         flash_fwd_cuda.seg_launches += masks.q_segment_ids is not None
         flash_fwd_cuda.pos_launches += masks.q_positions is not None
+    flash_fwd_cuda.d256_launches += D == 256
+    flash_fwd_cuda.window_launches += window is not None
     return out, lse
 
 
 flash_fwd_cuda.launches = 0
 flash_fwd_cuda.seg_launches = 0
 flash_fwd_cuda.pos_launches = 0
+flash_fwd_cuda.d256_launches = 0
+flash_fwd_cuda.window_launches = 0

@@ -26,7 +26,7 @@ from flash_attn_tpu.ops.rope import rope_rotate as j_rope_rotate
 from flash_attn_tpu_torch import bridge
 from flash_attn_tpu_torch.ops import quant as tquant
 from flash_attn_tpu_torch.ops.attention import flash_attention
-from flash_attn_tpu_torch.ops.decode import TILE, flash_decode, split_bounds
+from flash_attn_tpu_torch.ops.decode import TILE, flash_decode, flash_decode_chunk, split_bounds
 from flash_attn_tpu_torch.ops.kv_append import kv_append_token
 from flash_attn_tpu_torch.ops.lse import lse_merge
 from flash_attn_tpu_torch.ops.matmul import matmul_int8, quantized_matmul
@@ -389,12 +389,18 @@ def test_flash_decode_matches_oracle_fp32():
 
 
 def test_flash_decode_rejects_unported_options():
+    """Window and softcap run in decode mode over a BHSD cache only; the
+    BSHD layout and chunk mode still raise on them."""
     q = torch.zeros(1, 2, 32)
     k = torch.zeros(1, 1, 64, 32)
     with pytest.raises(NotImplementedError):
-        flash_decode(q, k, k, window=16, kv_layout="bhsd")
+        flash_decode(q, k.transpose(1, 2), k.transpose(1, 2), window=16, kv_layout="bshd")
     with pytest.raises(NotImplementedError):
-        flash_decode(q, k, k, logit_softcap=30.0, kv_layout="bhsd")
+        flash_decode(q, k.transpose(1, 2), k.transpose(1, 2), logit_softcap=30.0,
+                     kv_layout="bshd")
+    with pytest.raises(NotImplementedError):
+        flash_decode_chunk(q[:, None], k, k, kv_length=torch.tensor([64], dtype=torch.int32),
+                           window=16)
 
 
 @pytest.mark.parametrize("M", [5, 40])
@@ -499,8 +505,9 @@ def test_flash_fwd_plain_matches_reference(case, softmax_mode):
 
 def test_flash_attention_rejects_unported_options():
     q = torch.zeros(1, 8, 2, 32, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError):
-        flash_attention(q, q, q, window=(4, 0))
+    ids = torch.zeros(1, 8, dtype=torch.int32)
+    with pytest.raises(NotImplementedError):  # a window with positions
+        flash_attention(q, q, q, window=(4, 0), q_positions=ids, kv_positions=ids)
     with pytest.raises(NotImplementedError):
         flash_attention(q, q, q, mask=torch.zeros(8, 8))
     with pytest.raises(NotImplementedError):
