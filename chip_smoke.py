@@ -46,7 +46,13 @@ Phases, one line each with its seconds:
      at head_dim 256 (B=8, H=16, Hk=8, capacity 8192, int8 and fp8,
      online, softcap 50, lengths up to 8000) with window 4096 and without,
      timed; K2 bit for bit and K1m at head_dim 256; K3 at Gemma-2-9B's five
-     projection widths at M = 8; then once
+     projection widths at M = 8; K9 and K10 at head_dim 256 (S=8192, H=16,
+     Hk=8, causal, rope, softcap 50) with the window (4095, -1) and
+     without, timed beside SDPA's backward without the cap, and at a
+     ragged shifted Sq=1000 Sk=1500 and S=4200, just past the window,
+     and at S=2048 where the cap bends (cap 5, windowed and causal),
+     so that a kernel without the cap's 1 - t^2 factor or the cap fails;
+     then once
      each what the main paths do not run: group sizes 32 and 64, K7's
      bf16 output, and the int8, int4 and W4A8 LM heads' fp32 activations
      or output;
@@ -60,7 +66,8 @@ Phases, one line each with its seconds:
      against the CPU and against five decode steps on the card; Gemma-2
      (2 layers at 9B widths, layer 0 sliding, layer 1 global, int8
      weights, fp8 KV, the window cut to 512): a 1000-token prompt and four
-     decode steps against the CPU; the
+     decode steps against the CPU, and one training loss and every
+     gradient (bf16, B=1, S=1024, remat) against the CPU; the
      prefill paths (int8 weights): prefill_packed of three prompts in the
      1024 bucket, and prefill_chunk of a 700-token prompt in chunks of 256
      into an fp8 cache (logits and the cache); then one
@@ -118,7 +125,10 @@ Phases, one line each with its seconds:
   8. training: Llama-3-8B at full widths and depth (bf16 params, AdamW
      moments in bf16), B=1, S=2048, the default TrainConfig (remat on), 5
      AdamW steps on one seeded batch: losses, ms per step, tokens/s, peak
-     memory, and the launches of K4, K9 and K10.
+     memory, and the launches of K4, K9 and K10;
+  11. training: Gemma-2 at full 9B widths, 8 layers (4 sliding, 4
+     global), B=1, S=8192, as phase 8: K9 = K10 = 8 a step, 4 of them
+     windowed, K4 16 (remat reruns it), peak under 75 GiB.
 
 Before the last line come the kernels' JSON record (each row's launches
 are those of the run named in its "launches_run"; the quantized matmuls'
@@ -126,7 +136,7 @@ rows also carry their prompt bucket's numbers under "prompt", K4's its
 packed and chunk points under "packed" and "chunk", K3's Gemma-2-9B
 widths under "gemma"; the head_dim 256 rows "K4 d256" and "K1 d256"
 carry the unwindowed call under "no_window" and SDPA without the softcap
-under "sdpa_nocap_ms") and the
+under "sdpa_nocap_ms", as do "K9 d256" and "K10 d256") and the
 card; the last line is {"ok": true, "device": {...}}.  Any failed check
 exits nonzero without that line; so does a machine without CUDA or a
 directory without the rest of the repository.
@@ -141,6 +151,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
@@ -1293,22 +1304,24 @@ def check_k4_mask_mix(torch, checks):
                 f"{n_all} tiles ({n_full} unmasked) {'ok' if ok else 'FAIL'}")
 
 
-def _bwd_inputs(torch, g, B, Sq, Sk, causal, rope, H=32, Hk=8, D=128):
-    """Random bf16 q, k, v, dout; out and lse from K4 (online); delta as
-    flash_bwd forms it; RoPE tables (each sequence its own positions) or
-    None."""
+def _bwd_inputs(torch, g, B, Sq, Sk, causal, rope, H=32, Hk=8, D=128, window=None,
+                softcap=None, scale=None, theta=500000.0, q_mult=1.0):
+    """Random bf16 q (times ``q_mult``), k, v, dout; out and lse from K4
+    (online, with the window and the softcap given); delta as flash_bwd
+    forms it; RoPE tables (each sequence its own positions) or None."""
     from flash_attn_tpu_torch.ops import flash_fwd as ff
     from flash_attn_tpu_torch.ops.rope import rope_cos_sin
 
-    q = torch.randn((B, Sq, H, D), generator=g, device="cuda", dtype=torch.bfloat16)
+    q = torch.randn((B, Sq, H, D), generator=g, device="cuda", dtype=torch.bfloat16) * q_mult
     k = torch.randn((B, Sk, Hk, D), generator=g, device="cuda", dtype=torch.bfloat16)
     v = torch.randn((B, Sk, Hk, D), generator=g, device="cuda", dtype=torch.bfloat16)
     dout = torch.randn((B, Sq, H, D), generator=g, device="cuda", dtype=torch.bfloat16)
     cos = sin = None
     if rope:
         pos = torch.arange(Sq, device="cuda")[None] + 7 * torch.arange(B, device="cuda")[:, None]
-        cos, sin = rope_cos_sin(pos, D, 500000.0)
-    out, lse = ff.flash_fwd(q, k, v, causal=causal, rope_cos=cos, rope_sin=sin)
+        cos, sin = rope_cos_sin(pos, D, theta)
+    out, lse = ff.flash_fwd(q, k, v, causal=causal, rope_cos=cos, rope_sin=sin, scale=scale,
+                            window=window, logit_softcap=softcap)
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     return q, k, v, dout, lse, delta, cos, sin
 
@@ -1349,117 +1362,218 @@ def sdpa_bwd_device_ms(torch, fn, calls=10):
     return (us / calls / 1e3 if us > 0 else None), backend, names
 
 
-# K9/K10 shapes (B, Sq, Sk, H, Hk, causal, rope): the training shape first
-# (the kernels' rows), the bottom-right shift with ragged tiles on both
-# sides (Sq and Sk not multiples of the kernels' 128-row blocks or 64-row
-# tiles), non-causal at B=2 with per-sequence rope, group sizes 1 and 8
-# (the 70B widths), and non-causal at the training shape (every tile live)
-BWD_SHAPES = ((1, 2048, 2048, 32, 8, True, True), (1, 1000, 1500, 32, 8, True, False),
-              (2, 1000, 1500, 32, 8, False, True), (1, 2048, 2048, 8, 8, True, True),
-              (1, 2048, 2048, 64, 8, True, True), (1, 2048, 2048, 32, 8, False, True))
+def _bwd_case(torch, checks, worst, label, args, tail, causal):
+    """K9 and K10 each launched twice, on ``args`` and on K9's R(q) with
+    ``tail``, against flash_bwd_plain: every output row within its tolerance
+    (``row_err``; dq rows of queries that see one key with
+    ``one_key_floor``), R(q) bitwise rope_rotate's, the second launch
+    bitwise the first.  Adds each kernel's max |err| into ``worst``;
+    returns (dq, rq, dk, dv, {kernel: its result text})."""
+    from flash_attn_tpu_torch.ops import flash_bwd as fb
+    from flash_attn_tpu_torch.ops.rope import rope_rotate
+
+    q, k, cos, sin = args[0], args[1], args[8], args[9]
+    (dq, rq), (dq2, rq2) = fb.flash_bwd_dq_cuda(*args), fb.flash_bwd_dq_cuda(*args)
+    (dk, dv), (dk2, dv2) = fb.flash_bwd_dkv_cuda(rq, *tail), fb.flash_bwd_dkv_cuda(rq, *tail)
+    rdq, rdk, rdv = fb.flash_bwd_plain(*args)
+    rq_ok = torch.equal(rq, q if cos is None else rope_rotate(q, cos, sin))
+    torch.cuda.synchronize()
+    same = {"K9": torch.equal(dq, dq2) and torch.equal(rq, rq2),
+            "K10": torch.equal(dk, dk2) and torch.equal(dv, dv2)}
+    if not rq_ok:
+        checks.failed.append(f"K9 {label}: R(q) differs from rope_rotate")
+    res = {}
+    floors = {"dq": one_key_floor(torch, rdq, k.shape[1], causal)}
+    for key, outs in (("K9", ((dq, rdq, "dq"),)), ("K10", ((dk, rdk, "dk"), (dv, rdv, "dv")))):
+        parts = []
+        for got, ref, name in outs:
+            err, share = row_err(got, ref, floor=floors.get(name, 1e-6))
+            checks.check(f"{key} {name} {label}", share, 1.0)
+            worst[key] = max(worst[key], err)
+            parts.append(f"{name} max_abs_err {err:.3e} ({share:.3f} of its row's tol)")
+        if not same[key]:
+            checks.failed.append(f"{key} {label}: two launches differ")
+        res[key] = "; ".join(parts) + f", bitwise repeat {'ok' if same[key] else 'FAIL'}"
+    res["K9"] += f", R(q) {'bitwise ok' if rq_ok else 'FAIL'}"
+    return dq, rq, dk, dv, res
+
+
+class BwdCase(NamedTuple):
+    """One K9/K10 case of check_k9_k10: shape, options (scale D^-0.5, rope
+    theta Llama-3's at D=128 and Gemma-2's at D=256), ``q_mult`` scales q
+    so that the scores reach the cap, and ``row`` says where this case's
+    times go in the kernels' rows of its head dim (K9 and K10 at 128, K9
+    d256 and K10 d256 at 256): None nowhere, "" the rows themselves, else
+    the name of a sub-dict of them."""
+    B: int
+    Sq: int
+    Sk: int
+    H: int
+    Hk: int
+    D: int
+    causal: bool
+    rope: bool
+    window: tuple | None = None
+    cap: float | None = None
+    q_mult: float = 1.0
+    row: str | None = None
+
+    @property
+    def bends(self) -> bool:
+        """The scores (~N(0, q_mult^2)) reach where tanh(s / cap) is far
+        from linear."""
+        return self.cap is not None and self.q_mult / self.cap >= 0.1
+
+
+# K9/K10 cases.  At D=128 (Llama widths): the training shape first (the
+# rows K9 and K10), the bottom-right shift with ragged tiles on both sides
+# (Sq and Sk not multiples of the kernels' 128-row blocks or 64-row tiles),
+# non-causal at B=2 with per-sequence rope, group sizes 1 and 8 (the 70B
+# widths), and non-causal at the training shape (every tile live).  At
+# Gemma-2-9B's D=256 (causal, rope, softcap 50): the training shape
+# windowed and causal (the rows K9 d256 and K10 d256, the causal one as
+# their no_window), a ragged shifted case (Sq not a multiple of 64,
+# Sq < Sk) with and without a window, and S just past the window.  Scores
+# of ~N(0, 1) leave tanh(s / 50) nearly linear (the capped score differs
+# from s by ~s^3 / 7500), so a kernel without the cap's 1 - t^2 factor, or
+# without the cap, would pass those: the last two cases bend it with cap 5
+# (t to ~0.8), windowed and causal.  (Bending it with q x8 at cap 50 makes
+# the softmax of the first queries one-hot, whose dq is then fp32 noise on
+# both sides, as for a query that sees one key; chip_tools/k9_probe.py
+# reports that case.)
+BWD_CASES = (
+    BwdCase(1, 2048, 2048, 32, 8, 128, True, True, row=""),
+    BwdCase(1, 1000, 1500, 32, 8, 128, True, False),
+    BwdCase(2, 1000, 1500, 32, 8, 128, False, True),
+    BwdCase(1, 2048, 2048, 8, 8, 128, True, True),
+    BwdCase(1, 2048, 2048, 64, 8, 128, True, True),
+    BwdCase(1, 2048, 2048, 32, 8, 128, False, True),
+    BwdCase(1, 8192, 8192, 16, 8, 256, True, True, (4095, -1), 50.0, row=""),
+    BwdCase(1, 8192, 8192, 16, 8, 256, True, True, None, 50.0, row="no_window"),
+    BwdCase(1, 1000, 1500, 16, 8, 256, True, True, (299, -1), 50.0),
+    BwdCase(1, 1000, 1500, 16, 8, 256, True, True, None, 50.0),
+    BwdCase(1, 4200, 4200, 16, 8, 256, True, True, (4095, -1), 50.0),
+    BwdCase(1, 2048, 2048, 16, 8, 256, True, True, (1023, -1), 5.0),
+    BwdCase(1, 2048, 2048, 16, 8, 256, True, True, None, 5.0),
+)
+
+
+def _bwd_case_label(c: BwdCase) -> str:
+    return (f"B={c.B}, " + (f"S={c.Sq}" if c.Sk == c.Sq else f"Sq={c.Sq}, Sk={c.Sk}")
+            + f", H={c.H}, Hk={c.Hk}, D={c.D}, {'causal' if c.causal else 'not causal'}"
+            + f"{', rope' if c.rope else ''}" + (f", softcap {c.cap:g}" if c.cap else "")
+            + (f", q x{c.q_mult:g}" if c.q_mult != 1.0 else "")
+            + (f", window {c.window}" if c.window else ""))
+
+
+def _bwd_case_inputs(torch, g, c: BwdCase):
+    """_bwd_inputs for case ``c``: (q, k, v, dout, lse, delta, cos, sin)."""
+    return _bwd_inputs(torch, g, c.B, c.Sq, c.Sk, c.causal, c.rope, c.H, c.Hk, c.D,
+                       window=c.window, softcap=c.cap, theta=500000.0 if c.D == 128 else 10000.0,
+                       q_mult=c.q_mult)
 
 
 def check_k9_k10(torch, checks, rows):
     """K9 (dq, and R(q) for K10) and K10 (dk, dv per query head, fp32, from
-    K9's R(q)) against the plain version on the same inputs at BWD_SHAPES;
-    each output row held to 2^-6 of its largest value plus the other
-    kernels' floor of 1e-6, R(q) bitwise equal to rope_rotate, and a second
-    launch of each bitwise equal to the first (no atomics).  A dq row of a
-    query that sees one key (query 0 under the causal mask without shift)
-    has a true gradient of 0: its ds = p (dp - delta) with dp = delta up to
-    fp32 summation order, so both sides give rounding noise there (0.988 of
-    the 1e-6 floor on an NVIDIA H100 80GB HBM3 at 700 W); those rows alone
-    get a floor of 2^-12 of dq's largest value (``one_key_floor``).  Times:
-    CUDA events over 20 launches, and CUDA-graph replays (``graph_ms``).
-    Bounds: dq 3 GEMMs and dk/dv 4 of 2*D flops per (query, key) pair the
-    causal mask keeps (every pair when not causal)."""
+    K9's R(q)) against the plain version on the same inputs (out and lse
+    from K4 with the same window and cap) at BWD_CASES; each output row
+    held to 2^-6 of its largest value plus the other kernels' floor of
+    1e-6, R(q) bitwise equal to rope_rotate, and a second launch of each
+    bitwise equal to the first (no atomics).  A dq row of a query that sees
+    one key (query 0 under the causal mask without shift) has a true
+    gradient of 0: its ds = p (dp - delta) with dp = delta up to fp32
+    summation order, so both sides give rounding noise there (0.988 of the
+    1e-6 floor on an NVIDIA H100 80GB HBM3 at 700 W); those rows alone get a
+    floor of 2^-12 of dq's largest value (``one_key_floor``).  Times: CUDA
+    events over 20 launches, and CUDA-graph replays (``graph_ms``).  Bounds:
+    dq 3 GEMMs and dk/dv 4 of 2*D flops per (query, key) pair the masks
+    keep.  A row's case also times the plain version and SDPA's backward
+    (device time by torch.profiler; the window as a boolean mask): the
+    library call without a cap, and beside a capped row as
+    ``sdpa_nocap_ms`` (a different function: no single PyTorch call
+    applies the softcap)."""
     import torch.nn.functional as F
 
     from flash_attn_tpu_torch.ops import flash_bwd as fb
+    from flash_attn_tpu_torch.ops import flash_fwd as ff
     from flash_attn_tpu_torch.ops.rope import rope_rotate
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 12)
-    worst = {"K9": 0.0, "K10": 0.0}
-    for B, Sq, Sk, H, Hk, causal, rope in BWD_SHAPES:
-        q, k, v, dout, lse, delta, cos, sin = _bwd_inputs(torch, g, B, Sq, Sk, causal, rope,
-                                                          H, Hk)
-        D = q.shape[3]
-        args = (q, k, v, dout, lse, delta, causal, D ** -0.5, cos, sin)
-        (dq, rq), (dq2, rq2) = fb.flash_bwd_dq_cuda(*args), fb.flash_bwd_dq_cuda(*args)
-        kargs = (rq, k, v, dout, lse, delta, causal, D ** -0.5)
-        (dk, dv), (dk2, dv2) = fb.flash_bwd_dkv_cuda(*kargs), fb.flash_bwd_dkv_cuda(*kargs)
-        rdq, rdk, rdv = fb.flash_bwd_plain(*args)
-        rq_ok = torch.equal(rq, q if cos is None else rope_rotate(q, cos, sin))
-        torch.cuda.synchronize()
-        label = (f"B={B} Sq={Sq} Sk={Sk} H={H} Hk={Hk}{'' if causal else ', not causal'}"
-                 f"{', rope' if rope else ''}")
-        same = {"K9": torch.equal(dq, dq2) and torch.equal(rq, rq2),
-                "K10": torch.equal(dk, dk2) and torch.equal(dv, dv2)}
-        if not rq_ok:
-            checks.failed.append(f"K9 {label}: R(q) differs from rope_rotate")
-        res = {}
-        floors = {"dq": one_key_floor(torch, rdq, Sk, causal)}
-        for key, outs in (("K9", ((dq, rdq, "dq"),)),
-                          ("K10", ((dk, rdk, "dk"), (dv, rdv, "dv")))):
-            parts = []
-            for got, ref, name in outs:
-                err, share = row_err(got, ref, floor=floors.get(name, 1e-6))
-                checks.check(f"{key} {name} {label}", share, 1.0)
-                worst[key] = max(worst[key], err)
-                parts.append(f"{name} max_abs_err {err:.3e} ({share:.3f} of its row's tol)")
-            if not same[key]:
-                checks.failed.append(f"{key} {label}: two launches differ")
-            res[key] = "; ".join(parts) + f", bitwise repeat {'ok' if same[key] else 'FAIL'}"
-        res["K9"] += f", R(q) {'bitwise ok' if rq_ok else 'FAIL'}"
-        # one product over the kept pairs
-        gemm = k4_flops(B, Sq, Sk, H, D) // 2 if causal else 2 * B * H * Sq * Sk * D
+    worst = {}
+    for c in BWD_CASES:
+        q, k, v, dout, lse, delta, cos, sin = _bwd_case_inputs(torch, g, c)
+        D, scale = c.D, c.D ** -0.5
+        args = (q, k, v, dout, lse, delta, c.causal, scale, cos, sin, c.window, c.cap)
+        tail = (k, v, dout, lse, delta, c.causal, scale, c.window, c.cap)
+        label = _bwd_case_label(c)
+        suffix = "" if D == 128 else f" d{D}"
+        case_worst = {"K9": 0.0, "K10": 0.0}
+        dq, rq, dk, dv, res = _bwd_case(torch, checks, case_worst, label, args, tail, c.causal)
+        for key, err in case_worst.items():
+            worst[key + suffix] = max(worst.get(key + suffix, 0.0), err)
+        kargs = (rq, *tail)
+        live = ff.live_pairs(None, c.causal, c.Sq, c.Sk, "cuda", c.window)
+        pairs = int(live.sum())
+        gemm = 2 * D * c.B * c.H * pairs  # one product over the live pairs
         ins = (q.numel() + dout.numel() + k.numel() + v.numel()) * 2 + (lse.numel() + delta.numel()) * 4
-        if rope:
+        if c.rope:
             ins += 2 * cos.numel() * 4
         ms9 = cuda_ms(torch, lambda: fb.flash_bwd_dq_cuda(*args))
         ms10 = cuda_ms(torch, lambda: fb.flash_bwd_dkv_cuda(*kargs))
         g9 = graph_ms(torch, lambda: fb.flash_bwd_dq_cuda(*args))
         g10 = graph_ms(torch, lambda: fb.flash_bwd_dkv_cuda(*kargs))
         b9 = bound(ins + dq.numel() * 4, 3 * gemm)
-        b10 = bound(ins + 2 * B * H * Sk * D * 4, 4 * gemm)
+        b10 = bound(ins + 2 * c.B * c.H * c.Sk * D * 4, 4 * gemm)
         say(f"  K9 {label}: {res['K9']} | {ms9:.4f} ms, graph {g9:.4f} "
-            f"({3 * gemm / g9 / 1e9:.1f} TFLOP/s), bound {b9[0]:.4f} ({b9[1]})")
+            f"({3 * gemm / g9 / 1e9:.1f} TFLOP/s on {pairs} live pairs a head), bound "
+            f"{b9[0]:.4f} ({b9[1]})")
         say(f"  K10 {label}: {res['K10']} | {ms10:.4f} ms, graph {g10:.4f} "
             f"({4 * gemm / g10 / 1e9:.1f} TFLOP/s), bound {b10[0]:.4f} ({b10[1]})")
-        if (B, Sq, H, causal) == (1, 2048, 32, True):  # the training shape: the kernels' rows
-            plain_ms = cuda_ms(torch, lambda: fb.flash_bwd_plain(*args), iters=3, warmup=1)
-            qt = rope_rotate(q, cos, sin).transpose(1, 2).contiguous().requires_grad_(True)
+        if c.row is not None:
+            plain_ms = cuda_ms(torch, lambda: fb.flash_bwd_plain(*args), iters=2, warmup=1)
+            qt = (q if cos is None else rope_rotate(q, cos, sin)).transpose(1, 2).contiguous()
+            qt.requires_grad_(True)
             kt = k.transpose(1, 2).contiguous().requires_grad_(True)
             vt = v.transpose(1, 2).contiguous().requires_grad_(True)
-            o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+            mask = dict(is_causal=c.causal) if c.window is None else dict(attn_mask=live[0])
+            o = F.scaled_dot_product_attention(qt, kt, vt, scale=scale, enable_gqa=True, **mask)
             do_t = dout.transpose(1, 2).contiguous()
 
             def lib_call():
                 return torch.autograd.grad(o, (qt, kt, vt), do_t, retain_graph=True)
-            lib_events = cuda_ms(torch, lib_call)
+            lib_events = cuda_ms(torch, lib_call, iters=5, warmup=1)
             # device time only: the event time takes autograd's host work in
-            lib_ms, backend, names = sdpa_bwd_device_ms(torch, lib_call)
-            say(f"    K9 + K10 together {ms9 + ms10:.4f} ms, graph {g9 + g10:.4f}; plain (both "
-                f"passes, one call) {plain_ms:.4f}; library (the backward of SDPA on rotated "
-                f"q, is_causal, enable_gqa: dq, dk, dv in one call, one number for both rows) "
-                f"device time {'not measured' if lib_ms is None else f'{lib_ms:.4f}'} "
-                f"(torch.profiler), events {lib_events:.4f}; backend {backend}: "
-                f"{', '.join(names)[:300]}")
-            shape = "B=1, S=2048, H=32, Hk=8, D=128, causal, rope"
-            rows["K9"] = dict(name=f"flash_bwd dq pass ({shape})",
-                              source="flash_attn_tpu_torch/csrc/flash_bwd.cu",
-                              replaces="flash_attn_tpu/ops/flash_bwd.py:127",
-                              ms=ms9, plain_ms=plain_ms, library_ms=lib_ms,
-                              bound_ms=b9[0], bound_by=b9[1])
-            rows["K10"] = dict(name=f"flash_bwd dk/dv pass ({shape})",
-                               source="flash_attn_tpu_torch/csrc/flash_bwd.cu",
-                               replaces="flash_attn_tpu/ops/flash_bwd.py:194",
-                               ms=ms10, plain_ms=plain_ms, library_ms=lib_ms,
-                               bound_ms=b10[0], bound_by=b10[1])
+            sdpa_ms, backend, names = sdpa_bwd_device_ms(torch, lib_call, calls=5)
             del qt, kt, vt, o
-        del q, k, v, dout, lse, delta, dq, dq2, rq, rq2, dk, dv, dk2, dv2, rdq, rdk, rdv
-    rows["K9"]["max_abs_err"] = worst["K9"]
-    rows["K10"]["max_abs_err"] = worst["K10"]
+            sdpa = "not measured" if sdpa_ms is None else f"{sdpa_ms:.4f}"
+            lib = ("library none (no single PyTorch call applies the softcap); SDPA's backward "
+                   "without it, a different function," if c.cap else
+                   "library (the backward of SDPA on rotated q: dq, dk, dv in one call, one "
+                   "number for both rows)")
+            say(f"    K9 + K10 {ms9 + ms10:.4f} ms, graph {g9 + g10:.4f}; plain (both passes, "
+                f"one call) {plain_ms:.4f}; {lib} device time {sdpa} by torch.profiler, events "
+                f"{lib_events:.4f}; backend {backend}: {', '.join(names)[:300]}")
+            for key, name, ms, gms, b, line in (("K9", "dq", ms9, g9, b9, 127),
+                                                 ("K10", "dk/dv", ms10, g10, b10, 194)):
+                entry = dict(ms=ms, graph_ms=gms, plain_ms=plain_ms, bound_ms=b[0],
+                             bound_by=b[1])
+                entry.update(dict(library_ms=None, sdpa_nocap_ms=sdpa_ms) if c.cap
+                             else dict(library_ms=sdpa_ms))
+                if not c.row:
+                    rows[key + suffix] = dict(
+                        name=f"flash_bwd {name} pass ({label})",
+                        source="flash_attn_tpu_torch/csrc/flash_bwd.cu",
+                        replaces=f"flash_attn_tpu/ops/flash_bwd.py:{line}", **entry)
+                else:
+                    rows[key + suffix][c.row] = entry
+            if c.row:
+                main = rows["K9" + suffix], rows["K10" + suffix]
+                say(f"  K9/K10{suffix}: {c.row} / the row's time K9 "
+                    f"{ms9 / main[0]['ms']:.3f}, K10 {ms10 / main[1]['ms']:.3f}")
+        del q, k, v, dout, lse, delta, dq, rq, dk, dv, live
+        torch.cuda.empty_cache()
+    for key, err in worst.items():
+        rows[key]["max_abs_err"] = err
 
 
 def _paged_inputs(torch, kv, g, page, B=8, H=32, Hk=8, S=4096, D=128):
@@ -2271,55 +2385,64 @@ def _train_fwd(cfg):
     return lambda p, tokens, remat: llama.forward(p, tokens, cfg, remat=remat)
 
 
-def train_card_vs_cpu(torch, checks):
+def _train_card_vs_cpu(torch, checks, label, tag, card, fwd, vocab, seq, seed, t0):
     """One training loss and every parameter's gradient (the train step's
-    forward and backward, remat on), 2 layers at full 8B widths, bf16
-    params made on the card and copied to the CPU, B=1, S=128, on the card
-    (K4, K9, K10) against the CPU (plain versions)."""
+    forward and backward, remat on) of ``card`` (bf16 params on the card,
+    copied to the CPU), B=1, S=``seq`` from ``seed``: on the card (K4, K9,
+    K10) against the CPU (plain versions)."""
     import numpy as np
 
-    from flash_attn_tpu_torch.models import llama
     from flash_attn_tpu_torch.utils import train
 
-    t0 = time.perf_counter()
-    cfg = dataclasses.replace(llama.LLAMA3_8B, num_layers=2)
-    card = llama.init_params(cfg, seed=SEED + 13, device="cuda")
     sides = {"cpu": _to(card, "cpu"), "cuda": card}
-    batch = np.random.default_rng(SEED + 13).integers(0, cfg.vocab_size, (1, 129))
+    batch = np.random.default_rng(seed).integers(0, vocab, (1, seq + 1))
     res = {}
     for d, params in sides.items():
-        leaves = train.param_leaves(params)
-        for p in leaves:
+        for p in train.param_leaves(params):
             p.requires_grad_(True)
         toks = torch.from_numpy(batch).to(d)
-        loss, grads = train.loss_and_grads(_train_fwd(cfg), params, toks[:, :-1], toks[:, 1:])
+        loss, grads = train.loss_and_grads(fwd, params, toks[:, :-1], toks[:, 1:])
         res[d] = (float(loss), [gr.float().cpu() for gr in grads])
     torch.cuda.synchronize()
     names = [name for name, _ in train.named_leaves(card)]
-    (lc, gc), (lg, gg) = res["cpu"], res["cuda"]
+    (lc, g_cpu), (lg, gg) = res["cpu"], res["cuda"]
     finite = all(bool(torch.isfinite(x).all()) for x in gg) and np.isfinite(lg)
     # bf16 activations and gradients: the card (cuBLAS, K4/K9/K10) and the
     # CPU (the plain versions) round at the same points and sum in another
     # order, which can flip a bf16 rounding (2^-8) that two layers and the
-    # backward carry on; measured on an NVIDIA H100 80GB HBM3 at 700 W: loss
-    # 9.3e-05, worst gradient 1.8e-02 of its norm (wk, through the softmax)
+    # backward carry on; measured on an NVIDIA H100 80GB HBM3 at 700 W
+    # (Llama, S=128): loss 9.3e-05, worst gradient 1.8e-02 of its norm (wk,
+    # through the softmax)
     lerr = abs(lg - lc) / abs(lc)
-    ok = checks.check("train card vs cpu loss (relative)", lerr, TRAIN_LOSS_TOL) and finite
+    ok = checks.check(f"{tag}train card vs cpu loss (relative)", lerr, TRAIN_LOSS_TOL) and finite
     worst, worst_name = 0.0, ""
-    for name, a, b in zip(names, gg, gc):
+    for name, a, b in zip(names, gg, g_cpu):
         e = float((a - b).norm() / b.norm().clamp(min=1e-30))
-        ok = checks.check(f"train card vs cpu grad {name} (relative norm)", e, TRAIN_GRAD_TOL) and ok
+        ok = checks.check(f"{tag}train card vs cpu grad {name} (relative norm)", e,
+                          TRAIN_GRAD_TOL) and ok
         if e > worst:
             worst, worst_name = e, name
     if not finite:
-        checks.failed.append("train card loss or gradients not finite")
-    say(f"[phase 3 card vs cpu, training: 2 layers at 8B widths, bf16, B=1 S=128, remat] "
+        checks.failed.append(f"{tag}train card loss or gradients not finite")
+    say(f"[phase 3 card vs cpu, {label}, bf16, B=1 S={seq}, remat] "
         f"loss {lg:.6f} (cpu {lc:.6f}, relative err {lerr:.3e}, tol {TRAIN_LOSS_TOL:g}) | "
         f"{len(gg)} gradients finite={finite}, worst relative norm err {worst:.3e} "
         f"({worst_name}; tol {TRAIN_GRAD_TOL:g}) {'ok' if ok else 'FAIL'} | "
         f"{time.perf_counter() - t0:.2f}s")
-    del sides, card, res
+    del sides, res
+    gc.collect()
     torch.cuda.empty_cache()
+
+
+def train_card_vs_cpu(torch, checks):
+    """The training check at 2 layers of full 8B widths, S=128."""
+    from flash_attn_tpu_torch.models import llama
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(llama.LLAMA3_8B, num_layers=2)
+    card = llama.init_params(cfg, seed=SEED + 13, device="cuda")
+    _train_card_vs_cpu(torch, checks, "training: 2 layers at 8B widths", "", card,
+                       _train_fwd(cfg), cfg.vocab_size, 128, SEED + 13, t0)
 
 
 # Gemma-2 at 2 layers on the card against the CPU: the window is cut to 512
@@ -2385,6 +2508,21 @@ def gemma_card_vs_cpu(torch, checks):
     torch.cuda.empty_cache()
 
 
+def gemma_train_card_vs_cpu(torch, checks):
+    """The training check for Gemma-2: 2 layers at full 9B widths (layer 0
+    slides, layer 1 is global), the window cut to GEMMA_CVC_WINDOW, S=1024
+    (K4, K9, K10 at head_dim 256 with window and softcap)."""
+    from flash_attn_tpu_torch.models import gemma2
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(gemma2.GEMMA2_9B, num_layers=2, sliding_window=GEMMA_CVC_WINDOW)
+    card = gemma2.init_params(cfg, seed=SEED + 15, device="cuda")
+    fwd = lambda p, tokens, remat: gemma2.forward(p, tokens, cfg, remat=remat)  # noqa: E731
+    _train_card_vs_cpu(torch, checks, "Gemma-2 training: 2 layers at 9B widths (layer 0 slides, "
+                       f"layer 1 global), the window cut to {GEMMA_CVC_WINDOW}", "Gemma-2 ",
+                       card, fwd, cfg.vocab_size, 1024, SEED + 15, t0)
+
+
 def _counters():
     """(name -> kernel wrapper, the K8 wrapper): K8 also counts its
     chunk-mode launches apart."""
@@ -2413,6 +2551,8 @@ def _reset_counts():
     wrappers["K1"].window_launches = wrappers["K1"].d256_launches = 0
     wrappers["K4"].seg_launches = wrappers["K4"].pos_launches = 0
     wrappers["K4"].window_launches = wrappers["K4"].d256_launches = 0
+    for key in ("K9", "K10"):
+        wrappers[key].window_launches = wrappers[key].d256_launches = 0
 
 
 def _read_counts() -> dict:
@@ -2421,7 +2561,8 @@ def _read_counts() -> dict:
     merged their splits in the kernel ("K8 merges"), K4's launches with
     segment ids ("K4 seg"), with positions ("K4 pos"), with a window ("K4
     window") and at head_dim 256 ("K4 d256"), which are also counted in
-    "K4", and K1's (decode mode) with a window and at head_dim 256."""
+    "K4", and K1's (decode mode), K9's and K10's with a window and at
+    head_dim 256."""
     wrappers, k8 = _counters()
     counts = {k: fn.launches for k, fn in wrappers.items()}
     k1 = wrappers["K1"]
@@ -2437,6 +2578,9 @@ def _read_counts() -> dict:
     counts["K4 d256"] = wrappers["K4"].d256_launches
     counts["K1 window"] = k1.window_launches
     counts["K1 d256"] = k1.d256_launches
+    for key in ("K9", "K10"):
+        counts[f"{key} window"] = wrappers[key].window_launches
+        counts[f"{key} d256"] = wrappers[key].d256_launches
     return counts
 
 
@@ -3061,31 +3205,26 @@ def phase_gemma(torch, checks, smi):
     return runs
 
 
-def phase_train(torch, checks):
-    """Phase 8: TRAIN_STEPS AdamW steps of Llama-3 at 8B widths and
-    TRAIN_LAYERS layers (bf16 params from the seed; at 32 layers the bf16
-    params, gradients and two moments take 64.2 GB), B=1,
-    S=TRAIN_SEQ, the default TrainConfig (lr 3e-4, weight decay 0.1, clip
-    1.0, remat on), on one seeded batch whose targets are its tokens
-    shifted by one.  The counters are set to 0 just before the steps and
-    read just after.  Returns the counts."""
+def _train_run(torch, checks, smi, run, params, fwd, vocab, seq, seed, want, t1):
+    """TRAIN_STEPS AdamW steps (the default TrainConfig: lr 3e-4, weight
+    decay 0.1, clip 1.0, remat on) of ``params`` on one batch of B=1,
+    S=``seq`` from ``seed`` whose targets are its tokens shifted by one:
+    losses finite and falling, peak under MAX_TRAIN_GIB, and each count of
+    ``want``.  The counters are set to 0 just before the steps and read
+    just after.  Returns the counts."""
     import numpy as np
 
-    from flash_attn_tpu_torch.models import llama
     from flash_attn_tpu_torch.utils import train
 
-    t1 = time.perf_counter()
-    cfg = dataclasses.replace(llama.LLAMA3_8B, num_layers=TRAIN_LAYERS)
-    params, secs = _fresh_model(torch, cfg)
     n_params = sum(p.numel() for p in train.param_leaves(params))
-    init_fn, step_fn = train.make_train_step(_train_fwd(cfg), train.TrainConfig())
+    init_fn, step_fn = train.make_train_step(fwd, train.TrainConfig())
     state = init_fn(params)
-    batch = np.random.default_rng(SEED + 14).integers(0, cfg.vocab_size, (1, TRAIN_SEQ + 1))
+    batch = np.random.default_rng(seed).integers(0, vocab, (1, seq + 1))
     batch = torch.from_numpy(batch).to("cuda")
     tok, tgt = batch[:, :-1], batch[:, 1:]
-    say(f"  {TRAIN_LAYERS}-layer 8B-width params ({n_params / 1e9:.3f} B, bf16) and AdamW "
-        f"state on the card in {secs:.2f}s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     torch.cuda.synchronize()
+    say(f"  params ({n_params / 1e9:.3f} B, bf16) and AdamW state on the card in "
+        f"{time.perf_counter() - t1:.2f}s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     _reset_counts()
     losses, norms, secs_per_step = [], [], []
     for _ in range(TRAIN_STEPS):
@@ -3098,25 +3237,65 @@ def phase_train(torch, checks):
     counts = _read_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     step_ms = 1e3 * float(np.median(secs_per_step[1:]))
-    want = {"K9": TRAIN_LAYERS * TRAIN_STEPS, "K10": TRAIN_LAYERS * TRAIN_STEPS,
-            "K4": 2 * TRAIN_LAYERS * TRAIN_STEPS}  # remat reruns each K4 once
     for key, n in want.items():
         if counts[key] != n:
-            checks.failed.append(f"{RUN_TRAIN}: {key} launched {counts[key]} times, expected {n}")
+            checks.failed.append(f"{run}: {key} launched {counts[key]} times, expected {n}")
     good = all(np.isfinite(losses)) and losses[-1] < losses[0]
     if not good:
-        checks.failed.append(f"{RUN_TRAIN}: losses not finite and falling: {losses}")
+        checks.failed.append(f"{run}: losses not finite and falling: {losses}")
     if peak > MAX_TRAIN_GIB:
-        checks.failed.append(f"{RUN_TRAIN}: peak {peak:.2f} GiB > {MAX_TRAIN_GIB} GiB")
-    say(f"[{RUN_TRAIN}] losses {[round(x, 6) for x in losses]} grad_norm "
+        checks.failed.append(f"{run}: peak {peak:.2f} GiB > {MAX_TRAIN_GIB} GiB")
+    say(f"[{run}] {smi} | losses {[round(x, 6) for x in losses]} grad_norm "
         f"{[round(x, 4) for x in norms]} {'ok' if good else 'FAIL'} | step ms "
         f"{[round(1e3 * x, 3) for x in secs_per_step]}, median of steps 2-{TRAIN_STEPS} "
-        f"{step_ms:.3f} ms, {TRAIN_SEQ / step_ms * 1e3:.1f} tokens/s | max_memory_allocated "
-        f"{peak:.2f} GiB (limit {MAX_TRAIN_GIB}) | {time.perf_counter() - t1:.2f}s")
-    say("kernels " + json.dumps({"run": RUN_TRAIN, **counts}))
+        f"{step_ms:.3f} ms, {seq / step_ms * 1e3:.1f} tokens/s | max_memory_allocated "
+        f"{peak:.2f} GiB (limit {MAX_TRAIN_GIB}) | launches " + ", ".join(
+            f"{key} {counts[key]}" for key in want) + f" | {time.perf_counter() - t1:.2f}s")
+    say("kernels " + json.dumps({"run": run, **counts}))
     del params, state, m
+    gc.collect()
     torch.cuda.empty_cache()
     return counts
+
+
+def phase_train(torch, checks, smi):
+    """Phase 8: Llama-3 at 8B widths and TRAIN_LAYERS layers (bf16 params
+    from the seed; at 32 layers the bf16 params, gradients and two moments
+    take 64.2 GB), B=1, S=TRAIN_SEQ; K9 and K10 launch once a layer a
+    step, K4 twice (remat reruns it)."""
+    from flash_attn_tpu_torch.models import llama
+
+    t1 = time.perf_counter()
+    cfg = dataclasses.replace(llama.LLAMA3_8B, num_layers=TRAIN_LAYERS)
+    params, _ = _fresh_model(torch, cfg)
+    n = TRAIN_LAYERS * TRAIN_STEPS
+    return _train_run(torch, checks, smi, RUN_TRAIN, params, _train_fwd(cfg), cfg.vocab_size,
+                      TRAIN_SEQ, SEED + 14, {"K9": n, "K10": n, "K4": 2 * n}, t1)
+
+
+GEMMA_TRAIN_LAYERS, GEMMA_TRAIN_SEQ = 8, 8192
+
+
+def phase_gemma_train(torch, checks, smi):
+    """Phase 11: Gemma-2 at 9B widths and GEMMA_TRAIN_LAYERS layers (half
+    sliding, half global; bf16 params and moments from the seed: 2.504 B
+    parameters, 20.0 GB with gradients and moments), B=1,
+    S=GEMMA_TRAIN_SEQ (past the 4096 window); K9 and K10 launch once a
+    layer a step, half of them windowed, all at head_dim 256, and K4 twice
+    (remat reruns it)."""
+    from flash_attn_tpu_torch.models import gemma2
+
+    t1 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(gemma2.GEMMA2_9B, num_layers=GEMMA_TRAIN_LAYERS)
+    params = gemma2.init_params(cfg, seed=SEED, device="cuda")
+    fwd = lambda p, tokens, remat: gemma2.forward(p, tokens, cfg, remat=remat)  # noqa: E731
+    n = GEMMA_TRAIN_LAYERS * TRAIN_STEPS
+    want = {"K9": n, "K9 d256": n, "K9 window": n // 2, "K10": n, "K10 d256": n,
+            "K10 window": n // 2, "K4": 2 * n, "K4 d256": 2 * n, "K4 window": n}
+    return _train_run(torch, checks, smi, RUN_GEMMA_TRAIN, params, fwd, cfg.vocab_size,
+                      GEMMA_TRAIN_SEQ, SEED + 16, want, t1)
 
 
 RUN_8B_INT8 = "phase 4 serve Llama-3-8B int8, fp8 KV"
@@ -3133,19 +3312,22 @@ RUN_RECAPTURE = "phase 4r serve 2 layers at 8B widths, int8, fp8 KV, head change
 RUN_TRAIN = (f"phase 8 train Llama-3 8B widths, {TRAIN_LAYERS} layers, B=1 S={TRAIN_SEQ}, "
              f"{TRAIN_STEPS} AdamW steps")
 RUN_GEMMA = "phase 10 serve Gemma-2-9B int8, fp8 KV"
+RUN_GEMMA_TRAIN = (f"phase 11 train Gemma-2 9B widths, {GEMMA_TRAIN_LAYERS} layers, B=1 "
+                   f"S={GEMMA_TRAIN_SEQ}, {TRAIN_STEPS} AdamW steps")
 KERNEL_ROWS = ("K1", "K1m", "K1c", "K1b", "K2", "K3", "K3g", "K4", "K5", "K6", "K7", "K8", "K8c",
-               "K9", "K10", "K4 d256", "K1 d256", "K2 d256", "K1m d256")
+               "K9", "K10", "K4 d256", "K1 d256", "K2 d256", "K1m d256", "K9 d256", "K10 d256")
 # the run whose launches a kernel's row reports, and the count it reads:
 # the main path that the kernel serves (the 70B serve for the shared K1,
 # K1m, K2 and K4, the n-gram speculative serve for K1's chunk mode, the
 # paged serve for K8 in both modes, the training run for K9 and K10, the
-# captured Gemma-2-9B serve for the head_dim 256 points); K3 grouped and K1
+# captured Gemma-2-9B serve for the head_dim 256 points of K4, K1, K2 and
+# K1m, the Gemma-2 training run for K9's and K10's); K3 grouped and K1
 # over a BSHD cache have no model path, so their rows report none
 ROW_RUN = {"K1": RUN_70B, "K1m": RUN_70B, "K1c": RUN_SPEC_NGRAM, "K1b": None, "K2": RUN_70B,
            "K3": RUN_8B_INT8, "K3g": None, "K4": RUN_70B, "K5": RUN_8B_W4A8, "K6": RUN_70B,
            "K7": RUN_70B, "K8": RUN_PAGED, "K8c": RUN_PAGED, "K9": RUN_TRAIN, "K10": RUN_TRAIN,
            "K4 d256": RUN_GEMMA, "K1 d256": RUN_GEMMA, "K2 d256": RUN_GEMMA,
-           "K1m d256": RUN_GEMMA}
+           "K1m d256": RUN_GEMMA, "K9 d256": RUN_GEMMA_TRAIN, "K10 d256": RUN_GEMMA_TRAIN}
 # a row's count where it is not the row's own key: every K2 and K1m launch
 # of the Gemma-2-9B serve is at head_dim 256
 ROW_COUNT = {"K2 d256": "K2", "K1m d256": "K1m"}
@@ -3178,9 +3360,11 @@ def main() -> int:
     multi_card_vs_cpu(torch, checks)
     train_card_vs_cpu(torch, checks)
     gemma_card_vs_cpu(torch, checks)
+    gemma_train_card_vs_cpu(torch, checks)
     runs = phase_serve(torch, checks, smi)
     runs.update(phase_gemma(torch, checks, smi))
-    runs[RUN_TRAIN] = phase_train(torch, checks)
+    runs[RUN_TRAIN] = phase_train(torch, checks, smi)
+    runs[RUN_GEMMA_TRAIN] = phase_gemma_train(torch, checks, smi)
     for key, row in rows.items():
         row["launches_run"] = ROW_RUN[key]
         row["launches"] = runs[ROW_RUN[key]][ROW_COUNT.get(key, key)] if ROW_RUN[key] else 0

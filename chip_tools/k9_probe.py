@@ -6,30 +6,47 @@ times, and a mutant that must fail.
 
 Each DIR holds a ``flash_bwd.cu`` (and the ``common.cuh`` it includes),
 for example the parent tree's ``flash_attn_tpu_torch/csrc`` unpacked by
-``git archive``.  Two C interfaces are known: this tree's (K9 also writes
-R(q), which K10 reads) and the earlier one in which both passes rotate q
-themselves.  Each version,
-this tree's ``csrc/flash_bwd.cu``, a build of it with one warpgroup a
-block ("wg1": 64 query rows in K9, 64 keys in K10) and a mutant of it
-(K9 skips its second K/V tile, K10 its second query tile) compile
-(``-Xptxas -v``, the flags of ``_build.py``) into their own libraries under
-``flash_attn_tpu_torch/_build/k9_probe/`` and launch through ctypes at the
-training shape (B=1, S=2048, H=32, Hk=8, D=128, causal, rope).  Each is
-held to ``flash_bwd_plain`` as chip_smoke.py holds K9 and K10: dq, and dk
-and dv summed over each GQA group, every row within 2^-6 of its largest
-|ref| (plus the floors); the worst share of that tolerance is printed, and
-the mutant must exceed it.  Times: CUDA events over 20 launches and
-CUDA-graph replays, in turns (old..., this, wg1, wg1, this, ...old
-reversed), and K10 followed by the reduction ``flash_bwd`` makes of its
-outputs (the sum over each GQA group, then dk and dv in bf16 as
-[B, Sk, Hk, D]).  Each check line also says whether dq, dk and dv are
-bitwise those of the first version.
+``git archive``.  Three C interfaces are known: this tree's (K9 also
+writes R(q), which K10 reads, and both take a window and a softcap), the
+one before it without window and softcap, and the earlier one in which
+both passes rotate q themselves.  Each version, this tree's
+``csrc/flash_bwd.cu`` and three mutants of it compile together
+(``-Xptxas -v``, the flags of ``_build.py``) into their own libraries
+under ``flash_attn_tpu_torch/_build/k9_probe/``; each kernel instance's
+registers and spills are printed.  The mutants: ``mutant`` (K9 skips its
+second K/V tile, K10 its second query tile, in every instance),
+``no_dt`` (dS is not multiplied by the cap's 1 - t^2) and ``no_tanh``
+(the scores are not capped: P from the raw scores).  Each version
+launches through ctypes at chip_smoke.py's K9/K10 cases (``BWD_CASES``)
+that fill the kernels' rows: the Llama training shape (B=1, S=2048, H=32,
+Hk=8, D=128, causal, rope) and, where the source takes them, Gemma-2-9B's
+(B=1, S=8192, H=16, Hk=8, D=256, causal, rope, softcap 50, scale 1/16)
+with the window (4095, -1) and without; and, checked only, at the cases
+whose scores bend the cap (S=2048 at D=256, cap 5, with the window
+(1023, -1) and without).  Each is held to ``flash_bwd_plain``
+as chip_smoke.py holds K9 and K10: dq, and dk and dv summed over each
+GQA group, every row within 2^-6 of its largest |ref| (plus the floors);
+the worst share of that tolerance is printed.  The tile mutant must
+exceed it everywhere, the cap's mutants where the cap bends (elsewhere
+their reading is printed: scores of ~N(0, 1) under cap 50 do not show
+them); the probe exits 1 otherwise, or when a version misses its
+tolerance.  PEAKY, a case held to nothing, is reported after them: q x8
+at cap 50 makes the first queries' softmax one-hot, so their dq is fp32
+noise on both sides.  Where a version that is not a mutant misses, its
+worst dq rows are printed against an fp64 reference.  Times: CUDA
+events over 20 launches and CUDA-graph replays, in turns (old..., this,
+this, ...old reversed; at D=256 only the versions that take a window),
+and K10 followed by the reduction ``flash_bwd`` makes of its outputs
+(the sum over each GQA group, then dk and dv in bf16 as [B, Sk, Hk, D]).
+Each check line also says whether dq, dk and dv are bitwise those of the
+first version.
 The card's name and power limit head the output.
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import ctypes
 import re
 import shutil
@@ -42,22 +59,48 @@ sys.path.insert(0, str(ROOT))
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # (dq entry, dkv entry) argument types of each interface
-SIGS = {"rq": ([P] * 10 + [I] * 7 + [F, I, P], [P] * 8 + [I] * 6 + [F, I, P]),
+SIGS = {"local": ([P] * 10 + [I] * 7 + [F, I, I, I, F, P], [P] * 8 + [I] * 6 + [F, I, I, I, F, P]),
+        "rq": ([P] * 10 + [I] * 7 + [F, I, P], [P] * 8 + [I] * 6 + [F, I, P]),
         "rotate": ([P] * 9 + [I] * 7 + [F, I, P], [P] * 10 + [I] * 7 + [F, I, P])}
-# edits of this tree's source, each (anchor, replacement) matching once:
-# the mutant adds a `continue` after the tile's offset in each loop; "wg1"
-# gives each block one warpgroup (64 query rows in K9, 64 keys in K10)
-K9 = "    const int k0 = t * kRows;\n"
+# edits of this tree's source, each (anchor, replacement, times it
+# matches): the mutant adds a `continue` after the tile's offset in each
+# loop; no_dt drops dS's factor 1 - t^2 in both passes; no_tanh caps
+# nothing (t = s / cap, so P is the uncapped one)
+K9 = "    const int k0 = (t_first + t) * kRows;\n"
 K10 = "    float st[32], dpt[32];\n"
-EDITS = {"mutant": ((K9, K9 + "if (t == 1) { __syncthreads(); continue; }\n"),
-                    (K10, "if (it == 1) { __syncthreads(); continue; }\n" + K10)),
-         "wg1": (("constexpr int kWarpgroups = 2;", "constexpr int kWarpgroups = 1;"),)}
+EDITS = {"mutant": ((K9, K9 + "if (t == 1) { __syncthreads(); continue; }\n", 1),
+                    (K10, "if (it == 1) { __syncthreads(); continue; }\n" + K10, 1)),
+         "no_dt": (("        if (capped) x[e] *= dt;\n", "", 2),),
+         "no_tanh": (("fatt::tanh_exp2(s[4 * j + e] * cap_in)", "(s[4 * j + e] * cap_in)", 1),
+                     ("fatt::tanh_exp2(st[4 * j + e] * cap_in)", "(st[4 * j + e] * cap_in)", 1))}
+CAP_MUTANTS = ("no_dt", "no_tanh")
+# reported, held to nothing (B, Sq, Sk, H, Hk, D, causal, rope, window, cap, q_mult)
+PEAKY = (1, 2048, 2048, 16, 8, 256, True, True, (1023, -1), 50.0, 8.0)
 
 
 def interface(src: Path) -> str:
     text = src.read_text()
     head = text[text.index('extern "C" int fatt_flash_bwd_dq('):]
-    return "rq" if "void* rq" in head[:head.index(")")] else "rotate"
+    head = head[:head.index(")")]
+    return "local" if "window" in head else "rq" if "void* rq" in head else "rotate"
+
+
+def registers(ptxas: str) -> str:
+    """'dq_kernel<128> 167 registers, spill 0/0 bytes; ...' from -Xptxas -v."""
+    out, name = [], None
+    for line in ptxas.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"(dkv_kernel|dq_kernel)(?:ILi(\d+)E)?", m.group(1))
+            name = None if k is None else f"{k.group(1)}<{k.group(2) or 128}>"
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spill = f"spill {m.group(1)}/{m.group(2)} bytes"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append(f"{name} {m.group(1)} registers, {spill}")
+            name = None
+    return "; ".join(out)
 
 
 def edited(src_dir: Path, out_dir: Path, name: str) -> Path:
@@ -66,25 +109,29 @@ def edited(src_dir: Path, out_dir: Path, name: str) -> Path:
     dst.mkdir(parents=True, exist_ok=True)
     shutil.copy(src_dir / "common.cuh", dst)
     text = (src_dir / "flash_bwd.cu").read_text()
-    for anchor, new in EDITS[name]:
-        if text.count(anchor) != 1:
-            raise RuntimeError(f"{name}: anchor not found once: {anchor!r}")
+    for anchor, new, times in EDITS[name]:
+        if text.count(anchor) != times:
+            raise RuntimeError(f"{name}: anchor not found {times} times: {anchor!r}")
         text = text.replace(anchor, new)
     (dst / "flash_bwd.cu").write_text(text)
     return dst
 
 
-def build(name, src_dir, out_dir):
+def compile_lib(name, src_dir, out_dir):
+    """nvcc of src_dir's flash_bwd.cu: (library, the completed process)."""
     from flash_attn_tpu_torch import _build
 
     lib = out_dir / f"lib{name}.so"
     cmd = [_build.nvcc_path(), *_build._ARCH, *_build._FLAGS, "-Xptxas", "-v", "-shared",
            "-I", str(src_dir), "-o", str(lib), str(src_dir / "flash_bwd.cu")]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    return lib, subprocess.run(cmd, capture_output=True, text=True)
+
+
+def load(name, src_dir, lib, res):
     if res.returncode != 0:
         raise RuntimeError(f"{name}: nvcc failed\n{res.stdout}{res.stderr}")
-    info = " | ".join(x.replace("ptxas info    :", "").strip() for x in res.stderr.splitlines()
-                      if re.search(r"Compiling entry|Used \d+ registers|spill|wgmma|arning", x))
+    warn = [x.strip() for x in res.stderr.splitlines() if re.search(r"wgmma|arning", x)]
+    info = registers(res.stderr) + "".join(f" | {x}" for x in warn)
     so = ctypes.CDLL(str(lib))
     abi = interface(src_dir / "flash_bwd.cu")
     fns = []
@@ -93,6 +140,67 @@ def build(name, src_dir, out_dir):
         fn.restype = ctypes.c_int
         fns.append(fn)
     return abi, fns, info
+
+
+class Case:
+    """One of chip_smoke.py's BWD_CASES (B=1, Sq = Sk, causal, rope): its
+    inputs, references and operation count."""
+
+    def __init__(self, torch, c):
+        from chip_smoke import _bwd_case_label, _bwd_case_inputs, one_key_floor
+        from flash_attn_tpu_torch.ops import flash_bwd as fb
+        from flash_attn_tpu_torch.ops import flash_fwd as ff
+        from flash_attn_tpu_torch.ops.rope import rope_rotate
+
+        assert c.B == 1 and c.Sq == c.Sk and c.causal and c.rope, c
+        self.name, self.S, self.H, self.Hk, self.D = _bwd_case_label(c), c.Sq, c.H, c.Hk, c.D
+        self.window, self.cap, self.bends = c.window, c.cap, c.bends
+        self.scale = c.D ** -0.5
+        g = torch.Generator(device="cuda").manual_seed(5)
+        (self.q, self.k, self.v, self.dout, self.lse, self.delta, self.cos,
+         self.sin) = _bwd_case_inputs(torch, g, c)
+        rdq, rdk, rdv = fb.flash_bwd_plain(self.q, self.k, self.v, self.dout, self.lse,
+                                           self.delta, True, self.scale, self.cos, self.sin,
+                                           c.window, c.cap)
+        S, H, Hk, D = self.S, self.H, self.Hk, self.D
+        self.ref = (rdq, *(x.reshape(1, Hk, H // Hk, S, D).sum(2) for x in (rdk, rdv)))
+        self.floor = one_key_floor(torch, rdq, S, True)
+        self.rq_ref = rope_rotate(self.q, self.cos, self.sin)
+        pairs = int(ff.live_pairs(None, True, S, S, "cuda", c.window).sum())
+        self.gemm = 2 * D * H * pairs  # one product over the live pairs
+        self.timed = c.row is not None
+
+
+def worst_rows(torch, c, dq, n=4) -> str:
+    """The ``n`` dq rows furthest outside their tolerance, each against an
+    fp64 reference from the same inputs (R(q), k, v, dout, lse, delta; dS
+    rounded to bf16, as the kernel and the plain version round it):
+    its query, head, live keys, largest p, largest |fp64 value|, and the
+    kernel's and the plain version's largest |error| against fp64."""
+    from flash_attn_tpu_torch.ops.flash_fwd import live_pairs
+    from flash_attn_tpu_torch.ops.rope import rope_unrotate
+
+    ref = c.ref[0]
+    tol = 2.0 ** -6 * ref.abs().amax(-1) + c.floor
+    share = ((dq - ref).abs().amax(-1) / tol).reshape(-1)
+    live = live_pairs(None, True, c.S, c.S, dq.device, c.window)[0]
+    out = []
+    for i in torch.argsort(share, descending=True)[:n].tolist():
+        row, h = divmod(i, c.H)
+        kk, vv = (x[0, :, h // (c.H // c.Hk)].double() for x in (c.k, c.v))
+        s = kk @ c.rq_ref[0, row, h].double() * c.scale
+        t = torch.tanh(s / c.cap) if c.cap else torch.zeros_like(s)
+        s = c.cap * t if c.cap else s
+        p = torch.where(live[row], torch.exp(s - c.lse[0, h, row].double()), 0.0)
+        ds = p * (vv @ c.dout[0, row, h].double() - c.delta[0, h, row].double()) * (1 - t * t)
+        ds = ds.to(torch.bfloat16).double()  # as both sides round it
+        g = rope_unrotate((ds @ kk * c.scale)[None, None, None].float(),
+                          c.cos[..., row:row + 1, :], c.sin[..., row:row + 1, :])[0, 0, 0]
+        out.append(f"q {row} head {h}: share {share[i]:.3f}, {int(live[row].sum())} live keys, "
+                   f"largest p {float(p.max()):.6f}, largest |fp64| {float(g.abs().max()):.4e}, "
+                   f"|kernel - fp64| {float((dq[0, row, h] - g).abs().max()):.4e}, "
+                   f"|plain - fp64| {float((ref[0, row, h] - g).abs().max()):.4e}")
+    return "; ".join(out)
 
 
 def main() -> int:
@@ -104,55 +212,52 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("k9_probe: no CUDA device", file=sys.stderr)
         return 1
-    from chip_smoke import _bwd_inputs, cuda_ms, graph_ms, k4_flops, one_key_floor, row_err
-    from flash_attn_tpu_torch.ops import flash_bwd as fb
-    from flash_attn_tpu_torch.ops.rope import rope_rotate
+    from chip_smoke import BWD_CASES, BwdCase, cuda_ms, graph_ms, row_err
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(f"card: {smi}", flush=True)
     out_dir = ROOT / "flash_attn_tpu_torch" / "_build" / "k9_probe"
     out_dir.mkdir(parents=True, exist_ok=True)
-    B, S, H, Hk, D = 1, 2048, 32, 8, 128
-    G = H // Hk
-    g = torch.Generator(device="cuda").manual_seed(5)
-    q, k, v, dout, lse, delta, cos, sin = _bwd_inputs(torch, g, B, S, S, True, True, H, Hk, D)
-    scale = D ** -0.5
-    rdq, rdk, rdv = fb.flash_bwd_plain(q, k, v, dout, lse, delta, True, scale, cos, sin)
-    rdk, rdv = (x.reshape(B, Hk, G, S, D).sum(2) for x in (rdk, rdv))
-    floor = one_key_floor(torch, rdq, S, True)
-    rq_ref = rope_rotate(q, cos, sin)
-    gemm = k4_flops(B, S, S, H, D) // 2
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
 
     olds = [tuple(o.split("=", 1)) for o in args.old]
     this = ROOT / "flash_attn_tpu_torch" / "csrc"
     srcs = [*olds, ("this", this), *((n, edited(this, out_dir, n)) for n in EDITS)]
     libs = {}
-    for name, src in srcs:
-        libs[name] = build(name, Path(src), out_dir)
-        print(f"[build] {name} ({libs[name][0]}): {libs[name][2]}", flush=True)
+    with concurrent.futures.ThreadPoolExecutor(len(srcs)) as pool:
+        built = [(name, src, pool.submit(compile_lib, name, Path(src), out_dir))
+                 for name, src in srcs]
+        for name, src, job in built:
+            libs[name] = load(name, Path(src), *job.result())
+            print(f"[build] {name} ({libs[name][0]}): {libs[name][2]}", flush=True)
 
-    def runner(name):
+    def runner(name, c):
         """(K9 call, K10 call, K10 then the GQA reduction flash_bwd makes of
-        its outputs, outputs -> (dq, dk, dv) group-summed)."""
+        its outputs, outputs -> (dq, dk, dv) group-summed) of version
+        ``name`` on case ``c``."""
         abi, (f9, f10), _ = libs[name]
+        B, S, H, Hk, D, G = 1, c.S, c.H, c.Hk, c.D, c.H // c.Hk
         sk_pad = -(-S // 64) * 64
         dq = torch.empty((B, S, H, D), dtype=torch.float32, device="cuda")
-        rq = torch.empty_like(q)
+        rq = torch.empty_like(c.q)
         dk = torch.empty((B, H, sk_pad, D), dtype=torch.float32, device="cuda")
         dv = torch.empty_like(dk)
         ptr = lambda t: t.data_ptr()  # noqa: E731
-        common = [ptr(t) for t in (q, k, v, dout, lse, delta, cos, sin)]
-        if abi == "rq":
-            c9 = lambda: f9(*common, ptr(dq), ptr(rq), B, S, S, H, Hk, D, 0, scale, 1,  # noqa
-                            stream())
+        common = [ptr(t) for t in (c.q, c.k, c.v, c.dout, c.lse, c.delta, c.cos, c.sin)]
+        local = ()
+        if abi == "local":
+            local = (*(c.window or (-1, -1)), 0.0 if c.cap is None else c.cap * 1.4426950408889634)
+        if abi in ("local", "rq"):
+            c9 = lambda: f9(*common, ptr(dq), ptr(rq), B, S, S, H, Hk, D, 0, c.scale, 1,  # noqa
+                            *local, stream())
             c10 = lambda: f10(ptr(rq), *common[1:6], ptr(dk), ptr(dv), B, S, S, H, Hk, D,  # noqa
-                              scale, 1, stream())
+                              c.scale, 1, *local, stream())
         else:
-            c9 = lambda: f9(*common, ptr(dq), B, S, S, H, Hk, D, 0, scale, 1, stream())  # noqa
-            c10 = lambda: f10(*common, ptr(dk), ptr(dv), B, S, S, H, Hk, D, 0, scale, 1,  # noqa
-                              stream())
+            c9 = lambda: f9(*common, ptr(dq), B, S, S, H, Hk, D, 0, c.scale, 1,  # noqa
+                            stream())
+            c10 = lambda: f10(*common, ptr(dk), ptr(dv), B, S, S, H, Hk, D, 0, c.scale,  # noqa
+                              1, stream())
 
         def group_sum():
             return [x[:, :, :S].reshape(B, Hk, G, S, D).sum(2) for x in (dk, dv)]
@@ -162,35 +267,55 @@ def main() -> int:
             return [x.transpose(1, 2).to(torch.bfloat16) for x in group_sum()]
 
         def outs():
-            return (dq, *group_sum(), torch.equal(rq, rq_ref) if abi == "rq" else None)
+            return (dq, *group_sum(), torch.equal(rq, c.rq_ref) if abi != "rotate" else None)
         return c9, c10, c10_reduced, outs
 
-    labels = [n for n, _ in olds] + ["this", *EDITS]
-    first = None
-    for label in labels:
-        c9, c10, _, outs = runner(label)
-        assert c9() == 0 and c10() == 0, label
-        torch.cuda.synchronize()
-        dq, dk, dv, rq_ok = outs()
-        first = first or (dq.clone(), dk.clone(), dv.clone())
-        same = all(torch.equal(a, b) for a, b in zip((dq, dk, dv), first))
-        shares = [row_err(dq, rdq, floor=floor)[1], row_err(dk, rdk)[1], row_err(dv, rdv)[1]]
-        print(f"[check] {label}: share of the row tolerance dq {shares[0]:.3f}, dk "
-              f"{shares[1]:.3f}, dv {shares[2]:.3f}"
-              f"{'' if rq_ok is None else f'; R(q) bitwise {rq_ok}'}; bitwise {labels[0]}'s "
-              f"{same}", flush=True)
-
-    order = [n for n, _ in olds] + ["this", "wg1", "wg1", "this"] + [n for n, _ in reversed(olds)]
-    for label in order:
-        c9, c10, c10r, _ = runner(label)
-        ms9, ms10 = cuda_ms(torch, c9), cuda_ms(torch, c10)
-        g9, g10, g10r = graph_ms(torch, c9), graph_ms(torch, c10), graph_ms(torch, c10r)
-        print(f"[turn] {label}: K9 {ms9:.4f} ms (graph {g9:.4f}, {3 * gemm / g9 / 1e9:.1f} "
-              f"TFLOP/s); K10 {ms10:.4f} ms (graph {g10:.4f}, {4 * gemm / g10 / 1e9:.1f} "
-              f"TFLOP/s); K9 + K10 graph {g9 + g10:.4f} ms; K10 and the GQA reduction "
-              f"(graph) {g10r:.4f} ms", flush=True)
+    ok = True
+    cases = [(x, True) for x in BWD_CASES if x.row is not None or x.bends]
+    for bc, bound in cases + [(BwdCase(*PEAKY), False)]:
+        c = Case(torch, bc)
+        labels = [n for n, _ in srcs if (c.D == 128 or libs[n][0] == "local")
+                  and (n not in CAP_MUTANTS or c.cap is not None)]
+        first = None
+        for label in labels:
+            c9, c10, _, outs = runner(label, c)
+            assert c9() == 0 and c10() == 0, label
+            torch.cuda.synchronize()
+            dq, dk, dv, rq_ok = outs()
+            first = first or (dq.clone(), dk.clone(), dv.clone())
+            same = all(torch.equal(a, b) for a, b in zip((dq, dk, dv), first))
+            shares = [row_err(dq, c.ref[0], floor=c.floor)[1], row_err(dk, c.ref[1])[1],
+                      row_err(dv, c.ref[2])[1]]
+            held = max(shares) <= 1.0 and rq_ok is not False
+            must_miss = label == "mutant" or (label in CAP_MUTANTS and c.bends)
+            if bound and (label not in CAP_MUTANTS or c.bends):
+                ok = ok and (not held if must_miss else held)
+            note = (" (reported, held to nothing)" if not bound else " (must miss)" if must_miss
+                    else " (not bound to miss: the cap does not bend here)" if label in EDITS
+                    else "")
+            print(f"[check] {c.name}, {label}: share of the row tolerance dq {shares[0]:.3f}, "
+                  f"dk {shares[1]:.3f}, dv {shares[2]:.3f}"
+                  f"{'' if rq_ok is None else f'; R(q) bitwise {rq_ok}'}; bitwise {labels[0]}'s "
+                  f"{same}; {'held' if held else 'missed'}{note}", flush=True)
+            if not held and label not in EDITS:
+                print(f"[rows] {c.name}, {label}: {worst_rows(torch, c, dq)}", flush=True)
+        if not c.timed:
+            continue
+        turns = [n for n in labels if n not in EDITS and n != "this"]
+        order = turns + ["this", "this"] + turns[::-1]
+        for label in order:
+            c9, c10, c10r, _ = runner(label, c)
+            ms9, ms10 = cuda_ms(torch, c9), cuda_ms(torch, c10)
+            g9, g10, g10r = graph_ms(torch, c9), graph_ms(torch, c10), graph_ms(torch, c10r)
+            print(f"[turn] {c.name}, {label}: K9 {ms9:.4f} ms (graph {g9:.4f}, "
+                  f"{3 * c.gemm / g9 / 1e9:.1f} TFLOP/s); K10 {ms10:.4f} ms (graph {g10:.4f}, "
+                  f"{4 * c.gemm / g10 / 1e9:.1f} TFLOP/s); K9 + K10 graph {g9 + g10:.4f} ms; "
+                  f"K10 and the GQA reduction (graph) {g10r:.4f} ms", flush=True)
+        del c
+        torch.cuda.empty_cache()
     shutil.rmtree(out_dir, ignore_errors=True)
-    return 0
+    print(f"[probe] {'ok' if ok else 'FAIL'}", flush=True)
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

@@ -47,9 +47,9 @@ _SIGNATURES = {
     "fatt_paged_decode": [P, P, P, P, P, P, P, P, P, P, P, P,
                           I, I, I, I, I, I, I, I, F, I, F, P],
     "fatt_flash_bwd_dq": [P, P, P, P, P, P, P, P, P, P,
-                          I, I, I, I, I, I, I, F, I, P],
+                          I, I, I, I, I, I, I, F, I, I, I, F, P],
     "fatt_flash_bwd_dkv": [P, P, P, P, P, P, P, P,
-                           I, I, I, I, I, I, F, I, P],
+                           I, I, I, I, I, I, F, I, I, I, F, P],
     "fatt_lse_merge": [P, P, P, P, I, L, I, I, P],
 }
 

@@ -310,6 +310,16 @@ __device__ __forceinline__ void attn_pv(float (&o)[kN][4], const uint32_t (&pf)[
   for (int p = 0; p < kParts; ++p) pin(reinterpret_cast<float(&)[32]>(o[8 * p]));
 }
 
+// tanh(x) as 1 - 2 / (2^(2x log2 e) + 1): exp2f and a fast reciprocal, the
+// Gemma-2 logit softcap of K4 and its recompute in K9/K10 (one tanh for
+// both, so the backward's P rows sum to 1 against the forward's lse).
+// |x| is clamped to 9, where tanh rounds to +-1 in fp32, so 2^(...) stays
+// finite.
+__device__ __forceinline__ float tanh_exp2(float x) {
+  const float e = exp2f(fminf(fmaxf(x, -9.f), 9.f) * 2.8853900817779268f);
+  return 1.f - __fdividef(2.f, e + 1.f);
+}
+
 // Reductions over the four threads (a quad) that hold one accumulator row.
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));

@@ -1,11 +1,13 @@
-// K9 and K10: FlashAttention-2 backward, BSHD bf16, D = 128, bottom-right
-// causal GQA with q-side RoPE.  Two passes, each deterministic by
-// construction (no atomics), as on the TPU:
+// K9 and K10: FlashAttention-2 backward, BSHD bf16, bottom-right causal GQA
+// with q-side RoPE, at head_dim 128 (Llama-3) and 256 (Gemma-2-9B, with
+// the sliding window and the logit softcap).  Two passes, each
+// deterministic by construction (no atomics), as on the TPU:
 //   K9  (dq pass)    replaces flash_attn_tpu/ops/flash_bwd.py:_dq_kernel;
 //   K10 (dk/dv pass) replaces flash_attn_tpu/ops/flash_bwd.py:_dkv_kernel
-// on the subset the Llama training step uses (no bias/dbias, segments,
-// positions, window, softcap, ALiBi or dropout).  K9 runs first: it rotates
-// q once and writes R(q), which K10 streams as it is.
+// on the subset the Llama and Gemma-2 training steps use (no bias/dbias,
+// segments, positions, ALiBi or dropout; the window and the softcap at
+// head_dim 256 only).  K9 runs first: it rotates q once and writes R(q),
+// which K10 streams as it is.
 //
 // Bound on the H100: operations.  At S = 2048, D = 128 the causal half of
 // the five products (QK^T, dO V^T, dS K in K9; QK^T, dO V^T, P^T dO,
@@ -13,38 +15,63 @@
 // above the ridge against ~4*S*D*2 bytes of inputs per head.  The design
 // keeps scores, P and dS in registers and the tensor cores fed:
 //   * every product is a warpgroup wgmma m64n64k16 (bf16 in, fp32
-//     accumulate).  A block is two warpgroups, each owning 64 of its 128
-//     rows and sharing its streamed tiles.  Operands read from shared
-//     memory sit in the 128-byte swizzle that wgmma reads, as two
-//     64-column halves of 64 rows (fatt::sw128), each tile 1024-byte aligned;
-//   * K9: one block per (128-query tile, head, batch), heavy causal tiles
+//     accumulate).  Operands read from shared memory sit in the 128-byte
+//     swizzle that wgmma reads, as 64-column parts of 64 rows
+//     (fatt::sw128), each tile 1024-byte aligned;
+//   * K9: one block per (query tile, head, batch), heavy causal tiles
 //     first.  R(q) (rotated in fp32 from the bf16 q, rounded to bf16, also
 //     written to device memory for K10) and dO stay in shared memory as
 //     each warpgroup's A operands; K/V tiles of 64 keys arrive by cp.async
-//     into a two-stage ring up to the causal limit.  S = R(q) K^T and
-//     dP = dO V^T go to register accumulators; dS = P (dP - delta) is
+//     into a two-stage ring over the block's live key tiles.  S = R(q) K^T
+//     and dP = dO V^T go to register accumulators; dS = P (dP - delta) is
 //     packed to bf16 A fragments straight from them (the accumulator
 //     layout is the A layout); dq += dS K reads K as a transposed (N-major)
 //     operand.  dq stays in registers for the whole loop, then is scaled,
 //     pulled back through the rotation in fp32 (a column and its partner
-//     64 away sit in one thread) and written as fp32;
-//   * K10: one block per (128-key tile, query head, batch), key tile 0
-//     (the most live query tiles) first.  K and V stay in shared memory as
-//     each warpgroup's A operands; R(q), dO and the tile's lse and delta
-//     stream through a two-stage cp.async ring from the first live query
-//     tile of 64.  S^T = K R(q)^T and dP^T = V dO^T go to registers; P^T
-//     and dS^T are packed to bf16 A fragments there; dv += P^T dO and
-//     dk += dS^T R(q) read dO and R(q) as transposed operands.  Each query
-//     head writes its own fp32 dk/dv and the wrapper sums a GQA group (one
-//     block walking a group's query heads in order and writing their sum
-//     measured slower);
-//   * only tiles that a warp's diagonal or a ragged edge crosses are
-//     masked element by element; dead causal tiles are never loaded;
-//   * ~129 KB of shared memory and 256 threads a block, one block an SM
-//     (two blocks of one warpgroup each measured 2-4 % slower).
+//     D/2 away sit in one thread) and written as fp32;
+//   * K10: one block per (key tile, query head, batch), key tile 0 (the
+//     most live query tiles) first.  K and V stay in shared memory as A
+//     operands; R(q), dO and the tile's lse and delta stream through a
+//     two-stage cp.async ring over the live query tiles of 64.  S^T =
+//     K R(q)^T and dP^T = V dO^T go to registers; P^T and dS^T are packed
+//     to bf16 A fragments there; dv += P^T dO and dk += dS^T R(q) read dO
+//     and R(q) as transposed operands.  Each query head writes its own
+//     fp32 dk/dv and the wrapper sums a GQA group (one block walking a
+//     group's query heads in order and writing their sum measured slower);
+//   * only tiles that a warp's diagonal, a window edge or a ragged edge
+//     crosses are masked element by element; dead tiles are never loaded.
+// Head dim 128: a block is two warpgroups, each owning 64 of its 128 rows
+// (query rows in K9, keys in K10) and sharing its streamed tiles; ~129 KB
+// of shared memory and 256 threads, one block an SM (two blocks of one
+// warpgroup each measured 2-4 % slower); 167 (K9) and 236 (K10) registers.
+// Head dim 256 (the kLocal instances; compiled into the 128 instances at
+// run time, the window and the cap cost K4 its third block an SM):
+//   * K9: one warpgroup of 64 query rows a block.  Its dq accumulator is
+//     64 x 256 fp32, 128 registers a thread, as O is in K4's 256 instance;
+//     R(q), dO and a two-stage K/V ring of 64-row, 32 KB tiles take
+//     193 KB (two warpgroups would need 257 KB);
+//   * K10: dk and dv of 64 keys x 256 columns are 256 fp32 registers a
+//     thread in one warpgroup, which cannot fit.  So two warpgroups share
+//     the block's 64 keys and each owns half of the columns of dk and dv
+//     (128 registers, the 128 instance's budget).  Each recomputes S^T and
+//     dP^T over the full D itself (1.5x the products of one pass, but no
+//     exchange of P^T or dS^T through shared memory and no barrier
+//     between the warpgroups beyond the ring's); 194 KB;
+//   * the window (left, right; -1 open), bottom-right aligned as causal
+//     is, skips tiles: K9 walks key tiles from its first row's left edge
+//     (row + shift - left) to its last row's causal or right edge; K10
+//     walks query tiles from the first causal-live one to the last whose
+//     first row lies within the block's last key + left.  JAX masks the
+//     window element by element (flash_bwd.py:87-95) and skips only
+//     causal tiles (:178-180, 253-256); the values agree either way;
+//   * the softcap (flash_bwd.py:66-70, 122-123): s = c tanh(s / c) before
+//     P, with the forward's tanh (fatt::tanh_exp2; a different tanh would
+//     make P's rows sum away from 1 against the forward's lse), and
+//     dS = P (dP - delta) (1 - tanh^2) for dq and dk; dv takes P.
 // Roundings as the reference: R(q) rounded to bf16 before the products
 // (flash_fwd.py:146-160); s = (R(q) k^T) * scale in natural units;
-// p = exp(s - lse), evaluated as 2^(s * scale * log2 e - lse * log2 e),
+// p = exp(s - lse), evaluated as 2^(s * scale * log2 e - lse * log2 e)
+// (with the cap, 2^(c log2 e * t - lse log2 e), t = tanh(s * scale / c)),
 // masked elementwise (padded and fully masked rows carry lse = NEG_INF and
 // give 0); ds = p (dp - delta); P cast to bf16 before dv, dS before dq and
 // dk; dq pulled back through the rotation in fp32.
@@ -54,30 +81,41 @@ namespace {
 
 using fatt::kNegInf;
 
-constexpr int kD = 128;
-constexpr int kRows = 64;  // rows a warpgroup owns, and a streamed tile's rows
-// Warpgroups a block: each owns 64 rows of the block's (query rows in K9,
-// keys in K10), all share the block's streamed tiles.
-constexpr int kWarpgroups = 2;
-constexpr int kThreads = 128 * kWarpgroups;
-constexpr int kBlockRows = kRows * kWarpgroups;
-constexpr int kRowBytes = kD * 2;
-constexpr int kChunks = kRowBytes / 16;  // 16-byte chunks per row
-constexpr int kTileBytes = kRows * kRowBytes;
-constexpr int kHalfBytes = kRows * 128;  // 64 columns of a tile
+constexpr int kRows = 64;        // rows a warpgroup owns, and a streamed tile's rows
+constexpr int kPartBytes = kRows * 128;  // 64 columns of a tile
 constexpr float kLog2e = 1.4426950408889634f;
-// K9: R(q) and dO of each warpgroup, then two stages of (K, V); K10: K and
-// V of each warpgroup, then two stages of (R(q), dO) and two of (lse,
-// delta).  + 1024: tiles start at the next 1024-byte boundary (the swizzle
-// atom).
-constexpr int kDqSmem = (2 * kWarpgroups + 4) * kTileBytes + 1024;
 constexpr int kStatBytes = 2 * kRows * 4;
-constexpr int kDkvSmem = (2 * kWarpgroups + 4) * kTileBytes + 2 * kStatBytes + 1024;
 
-// 64 rows from row0 of head hx of a [B, S, Hx, D] bf16 tensor into the
+// The geometry of head dim kD (128 or 256).
+template <int kD>
+struct Geo {
+  static constexpr bool kLocal = kD == 256;  // the window and the softcap
+  static constexpr int kChunks = kD * 2 / 16;  // 16-byte chunks per row
+  static constexpr int kTileBytes = kRows * kD * 2;
+  static constexpr int kParts = kD / 64;  // 64-column parts of a tile
+  // K9: warpgroups a block, each owning 64 query rows of the block
+  static constexpr int kDqWarpgroups = kD == 128 ? 2 : 1;
+  static constexpr int kDqThreads = 128 * kDqWarpgroups;
+  static constexpr int kDqRows = kRows * kDqWarpgroups;
+  // K10: two warpgroups a block; at 128 each owns 64 keys of the block's
+  // 128, at 256 both own the block's 64 keys, each half of the columns
+  static constexpr int kKeyWarpgroups = kD == 128 ? 2 : 1;
+  static constexpr int kDkvThreads = 256;
+  static constexpr int kDkvRows = kRows * kKeyWarpgroups;
+  // K9: R(q) and dO of each warpgroup, then two stages of (K, V); K10: K and
+  // V of each key warpgroup, then two stages of (R(q), dO) and two of (lse,
+  // delta).  + 1024: tiles start at the next 1024-byte boundary (the swizzle
+  // atom).
+  static constexpr int kDqSmem = (2 * kDqWarpgroups + 4) * kTileBytes + 1024;
+  static constexpr int kDkvSmem = (2 * kKeyWarpgroups + 4) * kTileBytes + 2 * kStatBytes + 1024;
+};
+
+// 64 rows from row0 of head hx of a [B, S, Hx, kD] bf16 tensor into the
 // tile at dst by cp.async; rows past S are zero-filled (src-size 0).
+template <int kD, int kThreads>
 __device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src, int b,
                                           int row0, int S, int Hx, int hx) {
+  constexpr int kChunks = Geo<kD>::kChunks;
   for (int i = threadIdx.x; i < kRows * kChunks; i += kThreads) {
     const int r = i / kChunks, c = i % kChunks;
     const bool in = row0 + r < S;
@@ -89,7 +127,7 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src
 // Warpgroup products (sm_90a) on the 128-byte-swizzled tiles of
 // fatt::sw128.  A K-major operand of depth step kk starts at
 // fatt::kmajor<kRows>(tile, kk); an N-major one of depth step kc at
-// tile + half * kHalfBytes + kc * 16 * 128.
+// tile + part * kPartBytes + kc * 16 * 128.
 using fatt::pin;
 using fatt::wg_commit;
 using fatt::wg_desc;
@@ -97,7 +135,8 @@ using fatt::wg_fence;
 using fatt::wg_wait_all;
 using fatt::wgmma_ss;
 
-// acc (64 x 64) = A (64 x 128) * B (64 x 128)^T, both K-major tiles.
+// acc (64 x 64) = A (64 x kD) * B (64 x kD)^T, both K-major tiles.
+template <int kD>
 __device__ __forceinline__ void product_abt(float (&acc)[32], uint32_t a, uint32_t b) {
 #pragma unroll
   for (int kk = 0; kk < kD / 16; ++kk)
@@ -105,15 +144,31 @@ __device__ __forceinline__ void product_abt(float (&acc)[32], uint32_t a, uint32
              wg_desc(fatt::kmajor<kRows>(b, kk)), kk > 0);
 }
 
-// acc (64 x 128, as two 64-column halves) += frag (64 x 64 from registers)
-// * tile (64 rows x 128), the tile read N-major.
-__device__ __forceinline__ void product_acc(float (&lo)[32], float (&hi)[32],
-                                            const uint32_t (&frag)[4][4], uint32_t tile) {
+// acc (64 x 64 kN, as kN 64-column parts) += frag (64 x 64 from registers)
+// * the first kN parts of tile (64 rows), the tile read N-major.
+template <int kN>
+__device__ __forceinline__ void product_acc(float (&acc)[kN][32], const uint32_t (&frag)[4][4],
+                                            uint32_t tile) {
 #pragma unroll
   for (int kc = 0; kc < kRows / 16; ++kc) {
-    fatt::wgmma_rs<1>(lo, frag[kc], wg_desc(tile + kc * 16 * 128), 1);
-    fatt::wgmma_rs<1>(hi, frag[kc], wg_desc(tile + kHalfBytes + kc * 16 * 128), 1);
+#pragma unroll
+    for (int p = 0; p < kN; ++p)
+      fatt::wgmma_rs<1>(acc[p], frag[kc], wg_desc(tile + p * kPartBytes + kc * 16 * 128), 1);
   }
+}
+
+template <int kN>
+__device__ __forceinline__ void pin_parts(float (&acc)[kN][32]) {
+#pragma unroll
+  for (int p = 0; p < kN; ++p) pin(acc[p]);
+}
+
+template <int kN>
+__device__ __forceinline__ void zero(float (&d)[kN][32]) {
+#pragma unroll
+  for (int p = 0; p < kN; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) d[p][i] = 0.f;
 }
 
 __device__ __forceinline__ void zero(float (&d)[32]) {
@@ -127,13 +182,21 @@ __device__ __forceinline__ float lse_base2(float lse) {
   return lse > kNegInf / 2 ? lse * kLog2e : __int_as_float(0x7f800000);
 }
 
-__global__ void __launch_bounds__(kThreads, 2 / kWarpgroups) dq_kernel(
+// The kLocal instances apply the window (wleft, wright; -1 open) and the
+// softcap (softcap2, the cap in base-2 units; 0 for none); the others
+// ignore all three.
+template <int kD>
+__global__ void __launch_bounds__(Geo<kD>::kDqThreads, 1) dq_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
     const float* __restrict__ cosv, const float* __restrict__ sinv,
     float* __restrict__ dq, __nv_bfloat16* __restrict__ rq, int Sq, int Sk, int H, int Hk,
-    int rope_bstride, float scale, int causal) {
+    int rope_bstride, float scale, int causal, int wleft, int wright, float softcap2) {
+  using G = Geo<kD>;
+  constexpr int kWarpgroups = G::kDqWarpgroups, kThreads = G::kDqThreads;
+  constexpr int kBlockRows = G::kDqRows, kChunks = G::kChunks, kTileBytes = G::kTileBytes;
+  constexpr int kParts = G::kParts;
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t s_base = fatt::smem_u32(smem);
   const uint32_t qs0 = (s_base + 1023) & ~1023u;  // R(q) of warpgroup w at qs0 + w tiles
@@ -149,27 +212,40 @@ __global__ void __launch_bounds__(kThreads, 2 / kWarpgroups) dq_kernel(
   const int row0 = qt * kBlockRows;
   const int shift = Sk - Sq;  // bottom-right causal alignment
 
+  // The key tiles some row of the block sees: causal and the window's
+  // right edge bound them above (at the block's last row), the window's
+  // left edge below (at its first row).
   int kv_end = Sk;
   if (causal) kv_end = min(Sk, min(row0 + kBlockRows - 1, Sq - 1) + shift + 1);
-  const int n_tiles = kv_end > 0 ? (kv_end + kRows - 1) / kRows : 0;
+  int t_first = 0;
+  int n_tiles = kv_end > 0 ? (kv_end + kRows - 1) / kRows : 0;
+  if constexpr (G::kLocal) {
+    const int row_last = min(row0 + kBlockRows - 1, Sq - 1);
+    if (wright >= 0) kv_end = min(kv_end, row_last + shift + wright + 1);
+    const int kv_begin = wleft >= 0 ? max(0, row0 + shift - wleft) : 0;
+    t_first = kv_begin / kRows;
+    n_tiles = kv_end > kv_begin ? (kv_end + kRows - 1) / kRows - t_first : 0;
+  }
 
   auto load_kv = [&](int st, int k0) {
     const uint32_t ks = ring + st * 2 * kTileBytes;
-    load_tile(ks, k, b, k0, Sk, Hk, kvh);
-    load_tile(ks + kTileBytes, v, b, k0, Sk, Hk, kvh);
+    load_tile<kD, kThreads>(ks, k, b, k0, Sk, Hk, kvh);
+    load_tile<kD, kThreads>(ks + kTileBytes, v, b, k0, Sk, Hk, kvh);
   };
 #pragma unroll
   for (int w = 0; w < kWarpgroups; ++w) {
-    load_tile(dos0 + w * kTileBytes, dout, b, row0 + w * kRows, Sq, H, h);
-    if (cosv == nullptr) load_tile(qs0 + w * kTileBytes, q, b, row0 + w * kRows, Sq, H, h);
+    load_tile<kD, kThreads>(dos0 + w * kTileBytes, dout, b, row0 + w * kRows, Sq, H, h);
+    if (cosv == nullptr)
+      load_tile<kD, kThreads>(qs0 + w * kTileBytes, q, b, row0 + w * kRows, Sq, H, h);
   }
-  if (n_tiles > 0) load_kv(0, 0);
+  if (n_tiles > 0) load_kv(0, t_first * kRows);
   fatt::cp_async_commit();
 
   // R(q): rotate-half in fp32 with each row's cos/sin, products rounded
   // apart (no fused multiply-add) as PyTorch's elementwise ops round them,
-  // then bf16.  Chunk c (columns 8c..8c+7) and its partner c + 8 go to the
-  // tiles and, when rq is given, to device memory; rows >= Sq are zero.
+  // then bf16.  Chunk c (columns 8c..8c+7) and its partner c + kChunks/2
+  // go to the tiles and, when rq is given, to device memory; rows >= Sq
+  // are zero.
   if (cosv != nullptr) {
     for (int i = tid; i < kBlockRows * (kChunks / 2); i += kThreads) {
       const int r = i / (kChunks / 2), c = i % (kChunks / 2);
@@ -216,6 +292,9 @@ __global__ void __launch_bounds__(kThreads, 2 / kWarpgroups) dq_kernel(
   const int wrow0 = row0 + wg * kRows + warp * 16;
   const int my_row = wrow0 + (lane >> 2);
   const float sl2 = scale * kLog2e;
+  // with the cap: t = tanh(s * scale / cap) = tanh(s * cap_in)
+  const bool capped = G::kLocal && softcap2 > 0.f;
+  const float cap_in = capped ? sl2 / softcap2 : 0.f;
   float l2[2], dl[2];
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
@@ -225,11 +304,10 @@ __global__ void __launch_bounds__(kThreads, 2 / kWarpgroups) dq_kernel(
     dl[hf] = row < Sq ? delta[r] : 0.f;
   }
 
-  float acc_lo[32], acc_hi[32];  // dq, columns 0-63 and 64-127
-  zero(acc_lo);
-  zero(acc_hi);
+  float acc[kParts][32];  // dq, 64-column parts
+  zero(acc);
   for (int t = 0; t < n_tiles; ++t) {
-    if (t + 1 < n_tiles) load_kv((t + 1) & 1, (t + 1) * kRows);
+    if (t + 1 < n_tiles) load_kv((t + 1) & 1, (t_first + t + 1) * kRows);
     fatt::cp_async_commit();
     fatt::cp_async_wait<1>();
     // cp.async and the R(q) stores -> wgmma's reads
@@ -237,7 +315,7 @@ __global__ void __launch_bounds__(kThreads, 2 / kWarpgroups) dq_kernel(
     __syncthreads();
     const uint32_t ks = ring + (t & 1) * 2 * kTileBytes;
     const uint32_t vs = ks + kTileBytes;
-    const int k0 = t * kRows;
+    const int k0 = (t_first + t) * kRows;
 
     float s[32], dp[32];
     zero(s);
@@ -245,48 +323,64 @@ __global__ void __launch_bounds__(kThreads, 2 / kWarpgroups) dq_kernel(
     pin(s);
     pin(dp);
     wg_fence();
-    product_abt(s, qs, ks);    // S = R(q) K^T
-    product_abt(dp, dos, vs);  // dP = dO V^T
+    product_abt<kD>(s, qs, ks);    // S = R(q) K^T
+    product_abt<kD>(dp, dos, vs);  // dP = dO V^T
     wg_commit();
     wg_wait_all();
     pin(s);
     pin(dp);
 
-    // dS = P (dP - delta), masked only where this warp's diagonal or Sk's
-    // edge crosses the tile, packed to bf16 A fragments (keys 16c..16c+15).
-    const bool edge = k0 + kRows > Sk || (causal && k0 + kRows - 1 > wrow0 + shift);
+    // dS = P (dP - delta) (with the cap, times 1 - t^2), masked only where
+    // this warp's diagonal, a window edge of its rows or Sk's edge crosses
+    // the tile, packed to bf16 A fragments (keys 16c..16c+15).
+    bool edge = k0 + kRows > Sk || (causal && k0 + kRows - 1 > wrow0 + shift);
+    if constexpr (G::kLocal) {
+      if (wright >= 0) edge = edge || k0 + kRows - 1 > wrow0 + shift + wright;
+      if (wleft >= 0) edge = edge || k0 < wrow0 + 15 + shift - wleft;
+    }
     uint32_t dsf[4][4];
 #pragma unroll
     for (int j = 0; j < kRows / 8; ++j) {
       float x[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float p = exp2f(fmaf(s[4 * j + e], sl2, -l2[e >> 1]));
+        float p, dt = 1.f;
+        if (capped) {
+          const float tc = fatt::tanh_exp2(s[4 * j + e] * cap_in);
+          p = exp2f(fmaf(tc, softcap2, -l2[e >> 1]));
+          dt = 1.f - tc * tc;
+        } else {
+          p = exp2f(fmaf(s[4 * j + e], sl2, -l2[e >> 1]));
+        }
         if (edge) {
           const int col = k0 + j * 8 + (lane & 3) * 2 + (e & 1);
           const int row = my_row + (e >> 1) * 8;
-          if (col >= Sk || (causal && col > row + shift)) p = 0.f;
+          bool dead = col >= Sk || (causal && col > row + shift);
+          if constexpr (G::kLocal)
+            dead = dead || (wleft >= 0 && col < row + shift - wleft) ||
+                   (wright >= 0 && col > row + shift + wright);
+          if (dead) p = 0.f;
         }
         x[e] = p * (dp[4 * j + e] - dl[e >> 1]);
+        if (capped) x[e] *= dt;
       }
       dsf[j / 2][(j & 1) * 2] = fatt::pack_bf16(x[0], x[1]);
       dsf[j / 2][(j & 1) * 2 + 1] = fatt::pack_bf16(x[2], x[3]);
     }
 
-    pin(acc_lo);
-    pin(acc_hi);
+    pin_parts(acc);
     wg_fence();
-    product_acc(acc_lo, acc_hi, dsf, ks);  // dq += dS K
+    product_acc(acc, dsf, ks);  // dq += dS K
     wg_commit();
     wg_wait_all();
-    pin(acc_lo);
-    pin(acc_hi);
+    pin_parts(acc);
     __syncthreads();  // the stage is consumed before the ring refills it
   }
   fatt::cp_async_wait<0>();
 
   // dq = scale * acc, pulled back through the rotation (R^-1 = R(-angle))
-  // in fp32: column c < 64 (acc_lo) and its partner c + 64 (acc_hi).
+  // in fp32: column c < kD/2 (part p) and its partner c + kD/2 (part p +
+  // kParts/2).
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     const int row = my_row + hf * 8;
@@ -294,40 +388,48 @@ __global__ void __launch_bounds__(kThreads, 2 / kWarpgroups) dq_kernel(
     float* dst = dq + (((int64_t)b * Sq + row) * H + h) * kD;
     const int64_t t = (int64_t)b * rope_bstride + (int64_t)row * (kD / 2);
 #pragma unroll
-    for (int j = 0; j < kRows / 8; ++j) {
-      const int c = j * 8 + (lane & 3) * 2;
-      float x1[2] = {acc_lo[4 * j + 2 * hf] * scale, acc_lo[4 * j + 2 * hf + 1] * scale};
-      float x2[2] = {acc_hi[4 * j + 2 * hf] * scale, acc_hi[4 * j + 2 * hf + 1] * scale};
-      if (cosv != nullptr) {
-        const float2 cs = *reinterpret_cast<const float2*>(cosv + t + c);
-        const float2 sn = *reinterpret_cast<const float2*>(sinv + t + c);
-        const float cv[2] = {cs.x, cs.y}, sv[2] = {sn.x, sn.y};
+    for (int p = 0; p < kParts / 2; ++p) {
+      constexpr int kHi = kParts / 2;
 #pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const float o1 = __fadd_rn(__fmul_rn(x1[u], cv[u]), __fmul_rn(x2[u], sv[u]));
-          const float o2 = __fsub_rn(__fmul_rn(x2[u], cv[u]), __fmul_rn(x1[u], sv[u]));
-          x1[u] = o1;
-          x2[u] = o2;
+      for (int j = 0; j < kRows / 8; ++j) {
+        const int c = p * 64 + j * 8 + (lane & 3) * 2, e = 4 * j + 2 * hf;
+        float x1[2] = {acc[p][e] * scale, acc[p][e + 1] * scale};
+        float x2[2] = {acc[p + kHi][e] * scale, acc[p + kHi][e + 1] * scale};
+        if (cosv != nullptr) {
+          const float2 cs = *reinterpret_cast<const float2*>(cosv + t + c);
+          const float2 sn = *reinterpret_cast<const float2*>(sinv + t + c);
+          const float cv[2] = {cs.x, cs.y}, sv[2] = {sn.x, sn.y};
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const float o1 = __fadd_rn(__fmul_rn(x1[u], cv[u]), __fmul_rn(x2[u], sv[u]));
+            const float o2 = __fsub_rn(__fmul_rn(x2[u], cv[u]), __fmul_rn(x1[u], sv[u]));
+            x1[u] = o1;
+            x2[u] = o2;
+          }
         }
+        *reinterpret_cast<float2*>(dst + c) = make_float2(x1[0], x1[1]);
+        *reinterpret_cast<float2*>(dst + c + kD / 2) = make_float2(x2[0], x2[1]);
       }
-      *reinterpret_cast<float2*>(dst + c) = make_float2(x1[0], x1[1]);
-      *reinterpret_cast<float2*>(dst + c + kD / 2) = make_float2(x2[0], x2[1]);
     }
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 2 / kWarpgroups) dkv_kernel(
+template <int kD>
+__global__ void __launch_bounds__(Geo<kD>::kDkvThreads, 1) dkv_kernel(
     const __nv_bfloat16* __restrict__ rq, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
     float* __restrict__ dk, float* __restrict__ dv, int Sq, int Sk, int H, int Hk,
-    float scale, int causal) {
+    float scale, int causal, int wleft, int wright, float softcap2) {
+  using G = Geo<kD>;
+  constexpr int kKeyWgs = G::kKeyWarpgroups, kThreads = G::kDkvThreads;
+  constexpr int kBlockRows = G::kDkvRows, kTileBytes = G::kTileBytes;
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t s_base = fatt::smem_u32(smem);
-  const uint32_t ks0 = (s_base + 1023) & ~1023u;  // K of warpgroup w at ks0 + w tiles
-  const uint32_t vs0 = ks0 + kWarpgroups * kTileBytes;  // V likewise
+  const uint32_t ks0 = (s_base + 1023) & ~1023u;  // K of key warpgroup w at ks0 + w tiles
+  const uint32_t vs0 = ks0 + kKeyWgs * kTileBytes;  // V likewise
   // ring stage st: R(q) at ring + 2 st tiles, dO after it
-  const uint32_t ring = vs0 + kWarpgroups * kTileBytes;
+  const uint32_t ring = vs0 + kKeyWgs * kTileBytes;
   const uint32_t stats = ring + 4 * kTileBytes;  // stage st: lse then delta, 64 each
   const float* stats_ptr = reinterpret_cast<const float*>(smem + (stats - s_base));
 
@@ -343,14 +445,29 @@ __global__ void __launch_bounds__(kThreads, 2 / kWarpgroups) dkv_kernel(
     const int t = k0 - shift - (kRows - 1);
     qt0 = t > 0 ? (t + kRows - 1) / kRows : 0;
   }
-  const int n_iter = max((Sq + kRows - 1) / kRows - qt0, 0);
+  int n_iter = max((Sq + kRows - 1) / kRows - qt0, 0);
+  if constexpr (G::kLocal) {
+    // the window's right edge bounds the first live query tile as causal
+    // does; its left edge the last: the last tile whose first row lies
+    // within the block's last key + left
+    if (wright >= 0) {
+      const int t = k0 - shift - wright - (kRows - 1);
+      qt0 = max(qt0, t > 0 ? (t + kRows - 1) / kRows : 0);
+    }
+    int qt_end = (Sq + kRows - 1) / kRows;
+    if (wleft >= 0) {
+      const int q_hi = min(k0 + kBlockRows - 1, Sk - 1) - shift + wleft;
+      qt_end = min(qt_end, q_hi >= 0 ? q_hi / kRows + 1 : 0);
+    }
+    n_iter = max(qt_end - qt0, 0);
+  }
 
   // R(q), dO, lse and delta of query tile qt0 + it into ring stage st.
   auto load_q = [&](int st, int it) {
     const int q0 = (qt0 + it) * kRows;
     const uint32_t rs = ring + st * 2 * kTileBytes;
-    load_tile(rs, rq, b, q0, Sq, H, h);
-    load_tile(rs + kTileBytes, dout, b, q0, Sq, H, h);
+    load_tile<kD, kThreads>(rs, rq, b, q0, Sq, H, h);
+    load_tile<kD, kThreads>(rs + kTileBytes, dout, b, q0, Sq, H, h);
     if (tid < 2 * kRows) {
       const int gq = q0 + (tid % kRows);
       const bool in = gq < Sq;
@@ -359,25 +476,26 @@ __global__ void __launch_bounds__(kThreads, 2 / kWarpgroups) dkv_kernel(
     }
   };
 #pragma unroll
-  for (int w = 0; w < kWarpgroups; ++w) {
-    load_tile(ks0 + w * kTileBytes, k, b, k0 + w * kRows, Sk, Hk, kvh);
-    load_tile(vs0 + w * kTileBytes, v, b, k0 + w * kRows, Sk, Hk, kvh);
+  for (int w = 0; w < kKeyWgs; ++w) {
+    load_tile<kD, kThreads>(ks0 + w * kTileBytes, k, b, k0 + w * kRows, Sk, Hk, kvh);
+    load_tile<kD, kThreads>(vs0 + w * kTileBytes, v, b, k0 + w * kRows, Sk, Hk, kvh);
   }
   if (n_iter > 0) load_q(0, 0);
   fatt::cp_async_commit();
 
-  // This warpgroup's K and V; this thread's keys: wkey0 + lane/4
-  // (accumulator entries 0, 1) and 8 below it (entries 2, 3); its queries
-  // 8j + 2 (lane % 4) + {0, 1}.
-  const uint32_t ks = ks0 + wg * kTileBytes, vs = vs0 + wg * kTileBytes;
-  const int wkey0 = k0 + wg * kRows + warp * 16;
+  // This warpgroup's keys (kw) and its 128 columns of dk and dv (cw); this
+  // thread's keys: wkey0 + lane/4 (accumulator entries 0, 1) and 8 below
+  // it (entries 2, 3); its queries 8j + 2 (lane % 4) + {0, 1}.
+  const int kw = kKeyWgs == 2 ? wg : 0, cw = kKeyWgs == 2 ? 0 : wg;
+  const uint32_t ks = ks0 + kw * kTileBytes, vs = vs0 + kw * kTileBytes;
+  const int wkey0 = k0 + kw * kRows + warp * 16;
   const int my_key = wkey0 + (lane >> 2);
   const float sl2 = scale * kLog2e;
-  float dk_lo[32], dk_hi[32], dv_lo[32], dv_hi[32];
-  zero(dk_lo);
-  zero(dk_hi);
-  zero(dv_lo);
-  zero(dv_hi);
+  const bool capped = G::kLocal && softcap2 > 0.f;
+  const float cap_in = capped ? sl2 / softcap2 : 0.f;
+  float dk_acc[2][32], dv_acc[2][32];  // 64-column parts of this warpgroup's 128
+  zero(dk_acc);
+  zero(dv_acc);
   for (int it = 0; it < n_iter; ++it) {
     if (it + 1 < n_iter) load_q((it + 1) & 1, it + 1);
     fatt::cp_async_commit();
@@ -396,17 +514,22 @@ __global__ void __launch_bounds__(kThreads, 2 / kWarpgroups) dkv_kernel(
     pin(st);
     pin(dpt);
     wg_fence();
-    product_abt(st, ks, rs);   // S^T = K R(q)^T
-    product_abt(dpt, vs, ds);  // dP^T = V dO^T
+    product_abt<kD>(st, ks, rs);   // S^T = K R(q)^T
+    product_abt<kD>(dpt, vs, ds);  // dP^T = V dO^T
     wg_commit();
     wg_wait_all();
     pin(st);
     pin(dpt);
 
-    // P^T and dS^T = P^T (dP^T - delta), masked only where this warp's
-    // diagonal or a ragged edge crosses the tile, packed to bf16 A
-    // fragments (queries 16c..16c+15).
-    const bool edge = wkey0 + 16 > Sk || q0 + kRows > Sq || (causal && wkey0 + 15 > q0 + shift);
+    // P^T and dS^T = P^T (dP^T - delta) (with the cap, times 1 - t^2),
+    // masked only where this warp's diagonal, a window edge or a ragged
+    // edge crosses the tile, packed to bf16 A fragments (queries
+    // 16c..16c+15).
+    bool edge = wkey0 + 16 > Sk || q0 + kRows > Sq || (causal && wkey0 + 15 > q0 + shift);
+    if constexpr (G::kLocal) {
+      if (wleft >= 0) edge = edge || wkey0 < q0 + kRows - 1 + shift - wleft;
+      if (wright >= 0) edge = edge || wkey0 + 15 > q0 + shift + wright;
+    }
     uint32_t pf[4][4], dsf[4][4];
 #pragma unroll
     for (int j = 0; j < kRows / 8; ++j) {
@@ -417,12 +540,24 @@ __global__ void __launch_bounds__(kThreads, 2 / kWarpgroups) dkv_kernel(
       float p[4], x[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        p[e] = exp2f(fmaf(st[4 * j + e], sl2, -l2[e & 1]));
+        float dt = 1.f;
+        if (capped) {
+          const float tc = fatt::tanh_exp2(st[4 * j + e] * cap_in);
+          p[e] = exp2f(fmaf(tc, softcap2, -l2[e & 1]));
+          dt = 1.f - tc * tc;
+        } else {
+          p[e] = exp2f(fmaf(st[4 * j + e], sl2, -l2[e & 1]));
+        }
         if (edge) {
           const int key = my_key + (e >> 1) * 8, col = q0 + c + (e & 1);
-          if (key >= Sk || col >= Sq || (causal && key > col + shift)) p[e] = 0.f;
+          bool dead = key >= Sk || col >= Sq || (causal && key > col + shift);
+          if constexpr (G::kLocal)
+            dead = dead || (wleft >= 0 && key < col + shift - wleft) ||
+                   (wright >= 0 && key > col + shift + wright);
+          if (dead) p[e] = 0.f;
         }
         x[e] = p[e] * (dpt[4 * j + e] - dl[e & 1]);
+        if (capped) x[e] *= dt;
       }
       pf[j / 2][(j & 1) * 2] = fatt::pack_bf16(p[0], p[1]);
       pf[j / 2][(j & 1) * 2 + 1] = fatt::pack_bf16(p[2], p[3]);
@@ -430,46 +565,90 @@ __global__ void __launch_bounds__(kThreads, 2 / kWarpgroups) dkv_kernel(
       dsf[j / 2][(j & 1) * 2 + 1] = fatt::pack_bf16(x[2], x[3]);
     }
 
-    pin(dv_lo);
-    pin(dv_hi);
-    pin(dk_lo);
-    pin(dk_hi);
+    pin_parts(dv_acc);
+    pin_parts(dk_acc);
     wg_fence();
-    product_acc(dv_lo, dv_hi, pf, ds);   // dv += P^T dO
-    product_acc(dk_lo, dk_hi, dsf, rs);  // dk += dS^T R(q)
+    product_acc(dv_acc, pf, ds + cw * 2 * kPartBytes);   // dv += P^T dO
+    product_acc(dk_acc, dsf, rs + cw * 2 * kPartBytes);  // dk += dS^T R(q)
     wg_commit();
     wg_wait_all();
-    pin(dv_lo);
-    pin(dv_hi);
-    pin(dk_lo);
-    pin(dk_hi);
+    pin_parts(dv_acc);
+    pin_parts(dk_acc);
     __syncthreads();  // the stage is consumed before the ring refills it
   }
   fatt::cp_async_wait<0>();
 
-  // fp32 [B, H, Sk, D] rows of this thread's keys.
+  // fp32 [B, H, Sk, D] rows of this thread's keys, this warpgroup's columns.
   const int64_t base = ((int64_t)b * H + h) * Sk;
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     const int key = my_key + hf * 8;
     if (key >= Sk) continue;
-    float* dkr = dk + (base + key) * kD;
-    float* dvr = dv + (base + key) * kD;
+    float* dkr = dk + (base + key) * kD + cw * 128;
+    float* dvr = dv + (base + key) * kD + cw * 128;
 #pragma unroll
     for (int j = 0; j < kRows / 8; ++j) {
       const int c = j * 8 + (lane & 3) * 2, e = 4 * j + 2 * hf;
-      *reinterpret_cast<float2*>(dkr + c) = make_float2(dk_lo[e] * scale, dk_lo[e + 1] * scale);
-      *reinterpret_cast<float2*>(dkr + c + 64) =
-          make_float2(dk_hi[e] * scale, dk_hi[e + 1] * scale);
-      *reinterpret_cast<float2*>(dvr + c) = make_float2(dv_lo[e], dv_lo[e + 1]);
-      *reinterpret_cast<float2*>(dvr + c + 64) = make_float2(dv_hi[e], dv_hi[e + 1]);
+#pragma unroll
+      for (int p = 0; p < 2; ++p)
+        *reinterpret_cast<float2*>(dkr + c + p * 64) =
+            make_float2(dk_acc[p][e] * scale, dk_acc[p][e + 1] * scale);
+#pragma unroll
+      for (int p = 0; p < 2; ++p)
+        *reinterpret_cast<float2*>(dvr + c + p * 64) = make_float2(dv_acc[p][e], dv_acc[p][e + 1]);
     }
   }
 }
 
-bool shape_ok(int B, int Sq, int Sk, int H, int Hk, int D) {
-  return Sq > 0 && Sk > 0 && Hk > 0 && H % Hk == 0 && D == kD && B <= 65535 &&
-         (Sq + kBlockRows - 1) / kBlockRows <= 65535 && (Sk + kBlockRows - 1) / kBlockRows <= 65535;
+// Head dims 128 (Llama-3) and 256 (Gemma-2-9B; causal only) are built; a
+// window or a softcap at head_dim 256 only.
+bool shape_ok(int B, int Sq, int Sk, int H, int Hk, int D, int causal, int wleft, int wright,
+              float softcap2) {
+  const bool local = wleft >= 0 || wright >= 0 || softcap2 > 0.f;
+  const int rows = D == 128 ? Geo<128>::kDqRows : kRows;  // the smaller of K9's and K10's
+  return Sq > 0 && Sk > 0 && Hk > 0 && H % Hk == 0 && (D == 128 || D == 256) &&
+         B <= 65535 && (Sq + rows - 1) / rows <= 65535 && (Sk + rows - 1) / rows <= 65535 &&
+         wleft >= -1 && wright >= -1 && softcap2 >= 0.f && !(local && D != 256) &&
+         !(D == 256 && !causal);
+}
+
+template <int kD>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+              const void* delta, const void* cosv, const void* sinv, void* dq, void* rq,
+              int B, int Sq, int Sk, int H, int Hk, int rope_bstride, float scale, int causal,
+              int wleft, int wright, float softcap2, cudaStream_t st) {
+  using G = Geo<kD>;
+  static fatt::SmemLimitSet smem_set;
+  cudaError_t e = fatt::smem_limit_once(dq_kernel<kD>, G::kDqSmem, smem_set);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(H, B, (Sq + G::kDqRows - 1) / G::kDqRows);
+  dq_kernel<kD><<<grid, G::kDqThreads, G::kDqSmem, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const float*>(cosv), static_cast<const float*>(sinv),
+      static_cast<float*>(dq), static_cast<__nv_bfloat16*>(rq), Sq, Sk, H, Hk, rope_bstride,
+      scale, causal, wleft, wright, softcap2);
+  return (int)cudaGetLastError();
+}
+
+template <int kD>
+int launch_dkv(const void* rq, const void* k, const void* v, const void* dout,
+               const void* lse, const void* delta, void* dk, void* dv, int B, int Sq, int Sk,
+               int H, int Hk, float scale, int causal, int wleft, int wright, float softcap2,
+               cudaStream_t st) {
+  using G = Geo<kD>;
+  static fatt::SmemLimitSet smem_set;
+  cudaError_t e = fatt::smem_limit_once(dkv_kernel<kD>, G::kDkvSmem, smem_set);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(H, B, (Sk + G::kDkvRows - 1) / G::kDkvRows);
+  dkv_kernel<kD><<<grid, G::kDkvThreads, G::kDkvSmem, st>>>(
+      static_cast<const __nv_bfloat16*>(rq), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dk), static_cast<float*>(dv), Sq, Sk, H, Hk, scale, causal, wleft,
+      wright, softcap2);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -478,25 +657,21 @@ bool shape_ok(int B, int Sq, int Sk, int H, int Hk, int D) {
 // fp32; cos/sin [B or 1, Sq, D/2] fp32 with batch stride rope_bstride (0
 // when shared), or both null.  dq: [B, Sq, H, D] fp32, w.r.t. un-rotated q.
 // rq (with the tables, else unused): [B, Sq, H, D] bf16, R(q) for K10.
+// window_left / window_right: the window's sides (-1 open); softcap2: the
+// logit softcap in base-2 units (cap * log2 e), 0 for none; both at
+// head_dim 256 only, which is causal only.
 extern "C" int fatt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse, const void* delta,
                                  const void* cosv, const void* sinv, void* dq, void* rq,
                                  int B, int Sq, int Sk, int H, int Hk, int D,
-                                 int rope_bstride, float scale, int causal, void* stream) {
-  // Only head_dim 128 (Llama-3) is built; another D needs a card check.
-  if (!shape_ok(B, Sq, Sk, H, Hk, D)) return (int)cudaErrorInvalidValue;
-  static fatt::SmemLimitSet smem_set;
-  cudaError_t e = fatt::smem_limit_once(dq_kernel, kDqSmem, smem_set);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid(H, B, (Sq + kBlockRows - 1) / kBlockRows);
-  dq_kernel<<<grid, kThreads, kDqSmem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const float*>(cosv), static_cast<const float*>(sinv),
-      static_cast<float*>(dq), static_cast<__nv_bfloat16*>(rq), Sq, Sk, H, Hk, rope_bstride,
-      scale, causal);
-  return (int)cudaGetLastError();
+                                 int rope_bstride, float scale, int causal, int window_left,
+                                 int window_right, float softcap2, void* stream) {
+  if (!shape_ok(B, Sq, Sk, H, Hk, D, causal, window_left, window_right, softcap2))
+    return (int)cudaErrorInvalidValue;
+  auto fn = D == 256 ? launch_dq<256> : launch_dq<128>;
+  return fn(q, k, v, dout, lse, delta, cosv, sinv, dq, rq, B, Sq, Sk, H, Hk, rope_bstride,
+            scale, causal, window_left, window_right, softcap2,
+            static_cast<cudaStream_t>(stream));
 }
 
 // rq: R(q) [B, Sq, H, D] bf16 (q itself without rope); the rest as
@@ -504,16 +679,11 @@ extern "C" int fatt_flash_bwd_dq(const void* q, const void* k, const void* v,
 extern "C" int fatt_flash_bwd_dkv(const void* rq, const void* k, const void* v,
                                   const void* dout, const void* lse, const void* delta,
                                   void* dk, void* dv, int B, int Sq, int Sk, int H, int Hk,
-                                  int D, float scale, int causal, void* stream) {
-  if (!shape_ok(B, Sq, Sk, H, Hk, D)) return (int)cudaErrorInvalidValue;
-  static fatt::SmemLimitSet smem_set;
-  cudaError_t e = fatt::smem_limit_once(dkv_kernel, kDkvSmem, smem_set);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid(H, B, (Sk + kBlockRows - 1) / kBlockRows);
-  dkv_kernel<<<grid, kThreads, kDkvSmem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(rq), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<float*>(dk), static_cast<float*>(dv), Sq, Sk, H, Hk, scale, causal);
-  return (int)cudaGetLastError();
+                                  int D, float scale, int causal, int window_left,
+                                  int window_right, float softcap2, void* stream) {
+  if (!shape_ok(B, Sq, Sk, H, Hk, D, causal, window_left, window_right, softcap2))
+    return (int)cudaErrorInvalidValue;
+  auto fn = D == 256 ? launch_dkv<256> : launch_dkv<128>;
+  return fn(rq, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, Hk, scale, causal, window_left,
+            window_right, softcap2, static_cast<cudaStream_t>(stream));
 }

@@ -57,7 +57,7 @@
 // crosses are masked element by element.
 // Softcap (flash_fwd.py:363-367, 757-761): s = c * tanh(s / c) on the
 // base-2 scores before the masks, c = cap * log2(e) passed by the wrapper.
-// tanh is 1 - 2 / (2^(2x log2 e) + 1) on two MUFU operations (tanh_exp2):
+// tanh is 1 - 2 / (2^(2x log2 e) + 1) on two MUFU operations (fatt::tanh_exp2):
 // the library tanhf took half of the D = 256 kernel's time (3.86 ms
 // against 1.90 without the cap at S = 8192), and tanh.approx.f32 errs
 // ~2^-11 relative, ~0.035 base-2 units at c = 72; this form errs ~1e-7
@@ -129,14 +129,6 @@ struct Dims {
 template <int kD>
 __device__ __forceinline__ uint32_t swz(int r, int c) {
   return r * Dims<kD>::kRowBytes + ((c ^ (r & 7)) << 4);
-}
-
-// tanh(x) as 1 - 2 / (2^(2x log2 e) + 1): exp2f and a fast reciprocal.
-// |x| is clamped to 9, where tanh rounds to +-1 in fp32, so 2^(...) stays
-// finite.
-__device__ __forceinline__ float tanh_exp2(float x) {
-  const float e = exp2f(fminf(fmaxf(x, -9.f), 9.f) * 2.8853900817779268f);
-  return 1.f - __fdividef(2.f, e + 1.f);
 }
 
 // S (64 x 64 fp32, laid out as fatt::attn_qk lays it) = Q K^T with both
@@ -417,7 +409,7 @@ __global__ void __launch_bounds__(kThreads, kD == 128 ? 2 : 1) flash_fwd_kernel(
 #pragma unroll
       for (int j = 0; j < kBK / 8; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = softcap2 * tanh_exp2(s[j][e] * inv_cap);
+        for (int e = 0; e < 4; ++e) s[j][e] = softcap2 * fatt::tanh_exp2(s[j][e] * inv_cap);
     }
 
     // Mask only where this warp's diagonal, a window edge of its rows or

@@ -1,13 +1,14 @@
-"""Gemma-2 in PyTorch for serving: sandwich RMSNorms with a (1 + g) gain,
-GeGLU MLPs, GQA with head_dim 256 at 9B, the attention logit softcap,
-sliding-window attention on the even layers, ``query_pre_attn_scalar``
-and a tied, softcapped fp32 head, over the port's kernels (prefill K4
-with window and softcap, decode K1 with window and softcap + K2, the
-projections K3 and the other quantized GEMMs).
+"""Gemma-2 in PyTorch for serving and training: sandwich RMSNorms with a
+(1 + g) gain, GeGLU MLPs, GQA with head_dim 256 at 9B, the attention logit
+softcap, sliding-window attention on the even layers,
+``query_pre_attn_scalar`` and a tied, softcapped fp32 head, over the
+port's kernels (prefill and the training forward K4 with window and
+softcap, its backward K9 + K10 with both, decode K1 with window and
+softcap + K2, the projections K3 and the other quantized GEMMs).
 
-Port of flash_attn_tpu/models/gemma2.py for the serving paths: the
-configs, ``init_params`` (from a ``torch.Generator``), ``quantize_weights``,
-``forward`` (no gradient: K9/K10 take no window or softcap yet),
+Port of flash_attn_tpu/models/gemma2.py: the configs, ``init_params``
+(from a ``torch.Generator``), ``quantize_weights``, ``forward`` (the
+training forward, differentiable, with per-block checkpointing),
 ``prefill_with_kv``, ``decode_step``, ``make_cache``, ``make_adapter``
 and ``convert_hf_state_dict``.  Conventions follow HF
 ``Gemma2ForCausalLM``, as the JAX module's do:
@@ -15,9 +16,10 @@ and ``convert_hf_state_dict``.  Conventions follow HF
 - RMSNorm multiplies by ``(1 + weight)`` in fp32 before the downcast;
 - ``x + post_norm(attn(pre_norm(x)))``, and the same around the MLP;
 - embeddings scaled by sqrt(hidden) rounded to the embedding dtype; the
-  head is the embedding, transposed, in fp32 (the copy is kept in the
-  params dict under ``"_lm_head_f32"``, 3.67 GB at 9B, as
-  ``models/llama.py`` keeps its head's);
+  head is the embedding, transposed, in fp32 (serving keeps the copy in
+  the params dict under ``"_lm_head_f32"``, 3.67 GB at 9B, as
+  ``models/llama.py`` keeps its head's; the training forward reads the
+  embedding itself, so it takes both gradients);
 - attention scale ``query_pre_attn_scalar ** -0.5``, attention logits
   capped at ``attn_logit_softcap``, final logits at
   ``final_logit_softcap``;
@@ -33,6 +35,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from flash_attn_tpu_torch._device import resolve_device
 from flash_attn_tpu_torch.engine.kv_cache import KVCache
@@ -156,11 +159,17 @@ def _embed(params, tokens, cfg):
     return (x.float() * normalizer).to(x.dtype)
 
 
-def _final_logits(params, x, cfg):
-    """The final norm, then the tied head in fp32 and the final softcap."""
+def _final_logits(params, x, cfg, train: bool):
+    """The final norm, then the tied head in fp32 and the final softcap.
+    Serving (``train`` false) uses the cached fp32 head and caps in place;
+    training's head is the live embedding and its cap is out of place,
+    which autograd can differentiate."""
     x = _rms_norm(x, params["final_norm"], cfg.rms_eps)
-    logits = _proj(x.float(), llama.f32_head(params, params["tok_emb"], True))
     cap = cfg.final_logit_softcap
+    if train:
+        logits = _proj(x.float(), params["tok_emb"].T)
+        return logits if cap is None else cap * torch.tanh(logits / cap)
+    logits = _proj(x.float(), llama.f32_head(params, params["tok_emb"], True))
     if cap is not None:
         # in place: a prefill's fp32 logits are 8.4 GB at [1, 8192, 256128]
         logits.div_(cap).tanh_().mul_(cap)
@@ -183,38 +192,47 @@ def _attn_out(x, attn, blk, cfg):
     return x + _rms_norm(o, blk["post_attn_norm"], cfg.rms_eps)
 
 
-def _prefill(params, tokens, positions, cfg, softmax_mode):
-    """The layers over a prompt, each on K4 with its window and the
-    softcap, q rotated in the kernel: (x [B, S, hidden], per-layer rotated
-    (k, v))."""
-    b, s = tokens.shape
+def _layer(x, blk, cfg, window, cos, sin, softmax_mode):
+    """One layer on K4 with its window and the softcap, q rotated in the
+    kernel: (x, the layer's rotated k, v)."""
+    b, s, _ = x.shape
+    h = _rms_norm(x, blk["attn_norm"], cfg.rms_eps)
+    q, k, v = _qkv(h, blk, cfg, b, s)
+    k = rope_rotate(k, cos, sin)  # q rotates in the kernel
+    v = v.contiguous()
+    attn = flash_attention(q.contiguous(), k, v, causal=True,
+                           scale=cfg.query_pre_attn_scalar ** -0.5, window=window,
+                           logit_softcap=cfg.attn_logit_softcap, rope_cos=cos, rope_sin=sin,
+                           softmax_mode=softmax_mode)
+    x = _attn_out(x, attn, blk, cfg)
+    return _block_mlp(x, blk, cfg), k, v
+
+
+def _prefill(params, tokens, positions, cfg, softmax_mode, remat=False):
+    """The layers over a prompt: (x [B, S, hidden], per-layer rotated
+    (k, v)); ``remat`` checkpoints each layer."""
     x = _embed(params, tokens, cfg)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
-    scale = cfg.query_pre_attn_scalar ** -0.5
     kvs = []
     for i, blk in enumerate(params["blocks"]):
-        h = _rms_norm(x, blk["attn_norm"], cfg.rms_eps)
-        q, k, v = _qkv(h, blk, cfg, b, s)
-        k = rope_rotate(k, cos, sin)  # q rotates in the kernel
+        args = (x, blk, cfg, _wnd(cfg, i), cos, sin, softmax_mode)
+        x, k, v = checkpoint(_layer, *args, use_reentrant=False) if remat else _layer(*args)
         kvs.append((k, v))
-        attn = flash_attention(q.contiguous(), k, v.contiguous(), causal=True, scale=scale,
-                               window=_wnd(cfg, i), logit_softcap=cfg.attn_logit_softcap,
-                               rope_cos=cos, rope_sin=sin, softmax_mode=softmax_mode)
-        x = _attn_out(x, attn, blk, cfg)
-        x = _block_mlp(x, blk, cfg)
     return x, kvs
 
 
-@torch.no_grad()
-def forward(params, tokens, cfg: Gemma2Config, *, positions=None):
-    """tokens [B, S] -> logits [B, S, V] fp32 (causal; final logits
-    capped; online softmax).  No gradient: the backward takes no window
-    or softcap yet."""
+def forward(params, tokens, cfg: Gemma2Config, *, positions=None, remat: bool = False):
+    """tokens [B, S] -> logits [B, S, V] fp32 (training, causal; final
+    logits capped; online softmax), differentiable w.r.t. every float
+    param; the tied embedding takes the gradients of both its uses.
+    ``remat`` checkpoints each block (``torch.utils.checkpoint``): the
+    backward reruns its forward, K4 included.  ``jax.checkpoint`` of the
+    whole forward, as the JAX train step does it, gives the same values."""
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
-    x, _ = _prefill(params, tokens, positions, cfg, "online")
-    return _final_logits(params, x, cfg)
+    x, _ = _prefill(params, tokens, positions, cfg, "online", remat)
+    return _final_logits(params, x, cfg, train=True)
 
 
 @torch.no_grad()
@@ -224,7 +242,7 @@ def prefill_with_kv(params, tokens, positions, cfg: Gemma2Config):
     causal and clamped (exact: the softcap keeps every score below 50 nats,
     under the clamp's 55)."""
     x, kvs = _prefill(params, tokens, positions, cfg, "clamped")
-    return _final_logits(params, x, cfg), kvs
+    return _final_logits(params, x, cfg, train=False), kvs
 
 
 @torch.no_grad()
@@ -252,7 +270,7 @@ def decode_step(params, token, cfg: Gemma2Config, cache: KVCache):
         x = _attn_out(x, attn[:, None], blk, cfg)
         x = _block_mlp(x, blk, cfg)
     cache.advance(1)
-    return _final_logits(params, x[:, 0], cfg), cache
+    return _final_logits(params, x[:, 0], cfg, train=False), cache
 
 
 def make_cache(cfg: Gemma2Config, batch, capacity, mode="none", dtype=None,

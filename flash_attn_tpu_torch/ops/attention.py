@@ -4,10 +4,11 @@ Port of flash_attn_tpu/ops/attention.py:flash_attention,
 flash_attention_varlen and varlen_segments: the forward is ``flash_fwd``
 (K4 on the card) and, where autograd needs it, the backward is
 ``flash_bwd`` (K9 + K10), joined by a ``torch.autograd.Function`` in
-place of the ``jax.custom_vjp``.  Segment ids, positions, a window and
-the logit softcap are forward-only (K9/K10 take none yet) and raise
-``NotImplementedError`` when autograd would need a gradient; so do the
-options that ops/flash_fwd.py and ops/flash_bwd.py do not port yet.
+place of the ``jax.custom_vjp``.  A sliding window and the logit softcap
+go through both (Gemma-2's training path); segment ids and positions are
+forward-only (K9/K10 take neither yet) and raise ``NotImplementedError``
+when autograd would need a gradient; so do the options that
+ops/flash_fwd.py and ops/flash_bwd.py do not port yet.
 """
 
 from __future__ import annotations
@@ -25,23 +26,29 @@ from flash_attn_tpu_torch.ops.varlen import (
 class _FlashAttention(torch.autograd.Function):
     """Residuals as the reference saves them (q, k, v, out, lse and the
     rope tables), through ``save_for_backward`` so that a checkpointed
-    block that reruns the forward gets them again."""
+    block that reruns the forward gets them again; the window and the
+    softcap go to both passes."""
 
     @staticmethod
-    def forward(ctx, q, k, v, rope_cos, rope_sin, causal, scale, softmax_mode, unported):
+    def forward(ctx, q, k, v, rope_cos, rope_sin, causal, scale, window, logit_softcap,
+                softmax_mode, unported):
         out, lse = flash_fwd(q, k, v, causal=causal, scale=scale, rope_cos=rope_cos,
-                             rope_sin=rope_sin, softmax_mode=softmax_mode, **unported)
+                             rope_sin=rope_sin, window=window, logit_softcap=logit_softcap,
+                             softmax_mode=softmax_mode, **unported)
         ctx.save_for_backward(q, k, v, out, lse, rope_cos, rope_sin)
         ctx.causal, ctx.scale = causal, scale
+        ctx.window, ctx.logit_softcap = window, logit_softcap
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse, rope_cos, rope_sin = ctx.saved_tensors
         dq, dk, dv = flash_bwd(q, k, v, out, lse, dout.contiguous(), causal=ctx.causal,
-                               scale=ctx.scale, rope_cos=rope_cos, rope_sin=rope_sin)
-        # the rope tables are constants: no gradient (JAX returns zeros)
-        return dq, dk, dv, None, None, None, None, None, None
+                               scale=ctx.scale, rope_cos=rope_cos, rope_sin=rope_sin,
+                               window=ctx.window, logit_softcap=ctx.logit_softcap)
+        # the rope tables are constants: no gradient (JAX returns zeros);
+        # the other arguments are options
+        return dq, dk, dv, None, None, None, None, None, None, None, None
 
 
 def _needs_grad(*ts) -> bool:
@@ -63,30 +70,30 @@ def flash_attention(q, k, v, *, causal: bool = False, mask=None,
     rope_cos/rope_sin ([B, Sq, D/2] fp32): rotate q inside the kernel.
     q_segment_ids/kv_segment_ids ([B, Sq] / [B, Sk]): attention only
     within equal ids; q_positions/kv_positions: a key is live only where
-    kv_pos <= q_pos.  window (left, right; -1 open): the sliding window,
-    bottom-right aligned; logit_softcap: Gemma-2's cap * tanh(s / cap) on
-    the scaled scores.  These four are forward-only.
-    Returns out [B, Sq, H, D], differentiable w.r.t. q, k and v when none
-    of them is given; with ``return_lse`` (out, lse [B, H, Sq]) from the
-    forward alone, as in the reference.  Forward-only calls raise when
-    autograd would need a gradient of q, k or v.
+    kv_pos <= q_pos; these two are forward-only.  window (left, right;
+    -1 open): the sliding window, bottom-right aligned; logit_softcap:
+    Gemma-2's cap * tanh(s / cap) on the scaled scores.
+    Returns out [B, Sq, H, D], differentiable w.r.t. q, k and v when no
+    segment ids or positions are given; with ``return_lse`` (out, lse
+    [B, H, Sq]) from the forward alone, as in the reference.  Forward-only
+    calls raise when autograd would need a gradient of q, k or v.
     """
     unported = dict(bias=mask, dropout_rate=dropout_rate, alibi_slopes=alibi_slopes,
                     return_softmax=return_softmax)
     fwd_only = dict(q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
-                    q_positions=q_positions, kv_positions=kv_positions,
-                    window=window, logit_softcap=logit_softcap)
+                    q_positions=q_positions, kv_positions=kv_positions)
     given = [name for name, x in fwd_only.items() if x is not None]
     mode = softmax_mode or "online"
     if not return_lse and not given:
-        return _FlashAttention.apply(q, k, v, rope_cos, rope_sin, causal, scale, mode,
-                                     unported)
+        return _FlashAttention.apply(q, k, v, rope_cos, rope_sin, causal, scale, window,
+                                     logit_softcap, mode, unported)
     if _needs_grad(q, k, v):
         what = (f"{', '.join(given)} are forward-only (K9/K10 take none yet)"
                 if given else "return_lse is forward-only")
         raise NotImplementedError(f"flash_attention: {what}; call it under torch.no_grad()")
     out, lse = flash_fwd(q, k, v, causal=causal, scale=scale, rope_cos=rope_cos,
-                         rope_sin=rope_sin, softmax_mode=mode, **fwd_only, **unported)
+                         rope_sin=rope_sin, window=window, logit_softcap=logit_softcap,
+                         softmax_mode=mode, **fwd_only, **unported)
     return (out, lse) if return_lse else out
 
 

@@ -1,10 +1,12 @@
 """FlashAttention-2 backward (kernels K9 and K10, ``csrc/flash_bwd.cu``).
 
-Port of flash_attn_tpu/ops/flash_bwd.py:flash_bwd for the subset the Llama
-training step uses: BSHD layout, GQA, bottom-right causal mask, q-side
-RoPE, ``scale``.  Bias and dbias, segment ids, positions, windows,
-softcap, ALiBi, dropout and fp16 are still to port and raise
-``NotImplementedError``.
+Port of flash_attn_tpu/ops/flash_bwd.py:flash_bwd for the subset the
+Llama and Gemma-2 training steps use: BSHD layout, GQA, bottom-right
+causal mask, q-side RoPE, ``scale``, a sliding window and the logit
+softcap (``_recompute_p_ds``, flash_bwd.py:48-131).  On the card: head_dim
+128 without window and softcap, or 256 (Gemma-2-9B) causal with or
+without them.  Bias and dbias, segment ids, positions, ALiBi, dropout and
+fp16 are still to port and raise ``NotImplementedError``.
 
 As on the TPU: ``delta = rowsum(dout * out)`` is plain fp32 arithmetic
 outside the kernels; the dq pass (K9) and the dk/dv pass (K10) each
@@ -13,7 +15,10 @@ runs first: it rotates q once and also writes R(q) in bf16, which K10
 reads as it is.  K10 writes dk/dv per query head in fp32 and the GQA group
 is summed here.  The recompute works in natural units, s = (R(q) k^T) *
 scale, unlike the forward's base-2 scores, so P differs from the
-forward's by rounding, as in the reference.
+forward's by rounding, as in the reference.  With the softcap, s becomes
+cap * tanh(s / cap) before P, and dS = P (dP - delta) (1 - tanh^2) feeds
+dq and dk while dv takes P.  The window (left, right; -1 open) keeps key
+j for query i only where i + Sk - Sq - left <= j <= i + Sk - Sq + right.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from flash_attn_tpu_torch import _build
+from flash_attn_tpu_torch.ops.flash_fwd import _window, live_pairs, local_args
 from flash_attn_tpu_torch.ops.rope import rope_rotate, rope_unrotate
 
 NEG_INF = -1e30
@@ -32,12 +38,14 @@ def _unset(val) -> bool:
 
 def flash_bwd(q, k, v, out, lse, dout, *, causal: bool = False,
               scale: float | None = None, rope_cos=None, rope_sin=None,
-              **unported):
+              window=None, logit_softcap: float | None = None, **unported):
     """q, out, dout: [B, Sq, H, D]; k, v: [B, Sk, Hk, D]; lse [B, H, Sq]
     fp32.  Returns (dq, dk, dv) in the dtypes of q, k, v.
 
     rope_cos/rope_sin ([B, Sq, D/2] or [Sq, D/2] fp32): q arrives
-    un-rotated, as in the forward; dq is w.r.t. the un-rotated q."""
+    un-rotated, as in the forward; dq is w.r.t. the un-rotated q.
+    window (left, right; -1 open) and logit_softcap as the forward took
+    them (``flash_fwd``)."""
     for name, val in unported.items():
         if not _unset(val):
             raise NotImplementedError(f"flash_bwd option {name!r} is not ported yet")
@@ -51,16 +59,16 @@ def flash_bwd(q, k, v, out, lse, dout, *, causal: bool = False,
         raise ValueError("rope_cos and rope_sin go together")
     if rope_cos is not None and rope_cos.shape[-2:] != (Sq, D // 2):
         raise ValueError(f"rope tables must be [B, {Sq}, {D // 2}] or [{Sq}, {D // 2}]")
+    window = _window(window)
+    if logit_softcap is not None and not logit_softcap > 0:
+        raise ValueError(f"logit_softcap must be > 0, got {logit_softcap}")
     if scale is None:
         scale = D ** -0.5
     # softmax_d (flash_attn.h:73): fp32 elementwise product and row sum
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-    if q.is_cuda:
-        dq, dk, dv = flash_bwd_cuda(q, k, v, dout, lse, delta, causal, scale,
-                                    rope_cos, rope_sin)
-    else:
-        dq, dk, dv = flash_bwd_plain(q, k, v, dout, lse, delta, causal, scale,
-                                     rope_cos, rope_sin)
+    args = (q, k, v, dout, lse, delta, causal, scale, rope_cos, rope_sin, window,
+            logit_softcap)
+    dq, dk, dv = flash_bwd_cuda(*args) if q.is_cuda else flash_bwd_plain(*args)
     group = H // Hk
 
     def reduce(g, like):  # [B, H, Sk, D] per query head -> [B, Sk, Hk, D]
@@ -70,7 +78,8 @@ def flash_bwd(q, k, v, out, lse, dout, *, causal: bool = False,
     return dq.to(q.dtype), reduce(dk, k), reduce(dv, v)
 
 
-def flash_bwd_plain(q, k, v, dout, lse, delta, causal, scale, rope_cos, rope_sin):
+def flash_bwd_plain(q, k, v, dout, lse, delta, causal, scale, rope_cos, rope_sin,
+                    window=None, softcap=None):
     """Plain PyTorch version of K9 + K10 (whole rows at once, the kernels'
     roundings: R(q) in q's dtype, P in dout's and dS in k's/q's dtype
     before their products, fp32 accumulation).  Returns dq [B, Sq, H, D]
@@ -81,14 +90,18 @@ def flash_bwd_plain(q, k, v, dout, lse, delta, causal, scale, rope_cos, rope_sin
     kf = k.float().repeat_interleave(H // Hk, dim=2)
     vf = v.float().repeat_interleave(H // Hk, dim=2)
     s = torch.einsum("bqhd,bkhd->bhqk", qr.float(), kf) * scale
+    if softcap is not None:
+        t = torch.tanh(s / softcap)
+        s = softcap * t
     live = (lse > NEG_INF / 2)[..., None]
-    if causal:
-        rows = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
-        live = live & (torch.arange(Sk, device=q.device)[None, :] <= rows)
+    if causal or window is not None:
+        live = live & live_pairs(None, causal, Sq, Sk, q.device, window)[:, None]
     lse_safe = torch.clamp(lse, min=NEG_INF / 2)[..., None]
     p = torch.where(live, torch.exp(s - lse_safe), torch.zeros_like(s))
     dp = torch.einsum("bqhd,bkhd->bhqk", dout.float(), vf)
     ds = p * (dp - delta[..., None])
+    if softcap is not None:
+        ds = ds * (1.0 - t * t)  # through cap * tanh(s / cap)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), kf) * scale
     if rope_cos is not None:
         dq = rope_unrotate(dq, rope_cos.float(), rope_sin.float())
@@ -97,14 +110,19 @@ def flash_bwd_plain(q, k, v, dout, lse, delta, causal, scale, rope_cos, rope_sin
     return dq, dk, dv
 
 
-def _check_cuda(q, k, v, dout, lse, delta, rope_cos, rope_sin, name):
+def _check_cuda(q, k, v, dout, lse, delta, rope_cos, rope_sin, name, causal=True,
+                window=None, softcap=None):
     """Raise on anything the kernels do not take; returns the rope tables'
     batch stride (0 when shared across the batch or absent)."""
     B, Sq, H, D = q.shape
+    if D == 128 and (window is not None or softcap is not None):
+        raise NotImplementedError(f"{name} takes a window and a softcap at head_dim 256 only")
+    if D == 256 and not causal:
+        raise NotImplementedError(f"{name} at head_dim 256 is causal only")
     if not (q.dtype == k.dtype == v.dtype == dout.dtype == torch.bfloat16):
         raise ValueError(f"{name} takes bf16 q, k, v, dout")
-    if D != 128:
-        raise ValueError(f"{name} takes head_dim 128 (Llama-3), got {D}")
+    if D not in (128, 256):
+        raise ValueError(f"{name} takes head_dim 128 (Llama-3) or 256 (Gemma-2-9B), got {D}")
     if lse.dtype != torch.float32 or delta.dtype != torch.float32:
         raise ValueError(f"{name} takes fp32 lse and delta")
     tensors = [q, k, v, dout, lse, delta]
@@ -121,12 +139,21 @@ def _check_cuda(q, k, v, dout, lse, delta, rope_cos, rope_sin, name):
     return bstride
 
 
-def flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal, scale, rope_cos, rope_sin):
+def _count(fn, D, window):
+    fn.launches += 1
+    fn.d256_launches += D == 256
+    fn.window_launches += window is not None
+
+
+def flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal, scale, rope_cos, rope_sin,
+                      window=None, softcap=None):
     """Launch K9 (replaces flash_attn_tpu/ops/flash_bwd.py:_dq_kernel;
     bound by operations, see csrc/flash_bwd.cu).  Returns dq [B, Sq, H, D]
     fp32 and R(q) [B, Sq, H, D] bf16, the rotated q that K9 writes for
-    K10 (q itself without rope tables)."""
-    bstride = _check_cuda(q, k, v, dout, lse, delta, rope_cos, rope_sin, "K9")
+    K10 (q itself without rope tables).  Counts its launches also in
+    ``.d256_launches`` (head_dim 256) and ``.window_launches``."""
+    bstride = _check_cuda(q, k, v, dout, lse, delta, rope_cos, rope_sin, "K9", causal,
+                          window, softcap)
     B, Sq, H, D = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
     dq = torch.empty((B, Sq, H, D), dtype=torch.float32, device=q.device)
@@ -135,17 +162,17 @@ def flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal, scale, rope_cos, rope_s
     rc = _build.lib().fatt_flash_bwd_dq(
         p(q), p(k), p(v), p(dout), p(lse), p(delta), p(rope_cos), p(rope_sin),
         p(dq), p(rq), B, Sq, Sk, H, Hk, D, bstride, float(scale), int(causal),
-        _build.stream())
+        *local_args(window, softcap), _build.stream())
     _build.check(rc, "fatt_flash_bwd_dq")
-    flash_bwd_dq_cuda.launches += 1
+    _count(flash_bwd_dq_cuda, D, window)
     return dq, rq
 
 
-def flash_bwd_dkv_cuda(rq, k, v, dout, lse, delta, causal, scale):
+def flash_bwd_dkv_cuda(rq, k, v, dout, lse, delta, causal, scale, window=None, softcap=None):
     """Launch K10 (replaces flash_attn_tpu/ops/flash_bwd.py:_dkv_kernel;
     bound by operations) on R(q) from K9.  Returns dk, dv [B, H, Sk, D]
-    fp32 per query head."""
-    _check_cuda(rq, k, v, dout, lse, delta, None, None, "K10")
+    fp32 per query head.  Counts its launches as K9 does."""
+    _check_cuda(rq, k, v, dout, lse, delta, None, None, "K10", causal, window, softcap)
     B, Sq, H, D = rq.shape
     Sk, Hk = k.shape[1], k.shape[2]
     dk = torch.empty((B, H, Sk, D), dtype=torch.float32, device=rq.device)
@@ -153,20 +180,24 @@ def flash_bwd_dkv_cuda(rq, k, v, dout, lse, delta, causal, scale):
     p = _build.ptr
     rc = _build.lib().fatt_flash_bwd_dkv(
         p(rq), p(k), p(v), p(dout), p(lse), p(delta), p(dk), p(dv),
-        B, Sq, Sk, H, Hk, D, float(scale), int(causal), _build.stream())
+        B, Sq, Sk, H, Hk, D, float(scale), int(causal), *local_args(window, softcap),
+        _build.stream())
     _build.check(rc, "fatt_flash_bwd_dkv")
-    flash_bwd_dkv_cuda.launches += 1
+    _count(flash_bwd_dkv_cuda, D, window)
     return dk, dv
 
 
-def flash_bwd_cuda(q, k, v, dout, lse, delta, causal, scale, rope_cos, rope_sin):
+def flash_bwd_cuda(q, k, v, dout, lse, delta, causal, scale, rope_cos, rope_sin,
+                   window=None, softcap=None):
     """K9, then K10 on K9's R(q); each wrapper counts its own launches.
     Returns what flash_bwd_plain returns."""
     dq, rq = flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal, scale,
-                               rope_cos, rope_sin)
-    dk, dv = flash_bwd_dkv_cuda(rq, k, v, dout, lse, delta, causal, scale)
+                               rope_cos, rope_sin, window, softcap)
+    dk, dv = flash_bwd_dkv_cuda(rq, k, v, dout, lse, delta, causal, scale, window, softcap)
     return dq, dk, dv
 
 
-flash_bwd_dq_cuda.launches = 0
-flash_bwd_dkv_cuda.launches = 0
+flash_bwd_dq_cuda.launches = flash_bwd_dq_cuda.d256_launches = 0
+flash_bwd_dq_cuda.window_launches = 0
+flash_bwd_dkv_cuda.launches = flash_bwd_dkv_cuda.d256_launches = 0
+flash_bwd_dkv_cuda.window_launches = 0

@@ -75,6 +75,12 @@ def _window(window):
     return None if left == right == -1 else (left, right)
 
 
+def local_args(window, softcap):
+    """K4's, K9's and K10's window sides (-1 open) and softcap in base-2
+    units (0 for none), as their C entries take them."""
+    return (*(window or (-1, -1)), 0.0 if softcap is None else float(softcap * LOG2E))
+
+
 def flash_fwd(q, k, v, *, causal: bool = False, scale: float | None = None,
               rope_cos=None, rope_sin=None, softmax_mode: str = "online",
               q_segment_ids=None, kv_segment_ids=None, q_positions=None,
@@ -262,8 +268,7 @@ def flash_fwd_cuda(q, k, v, causal, scale, rope_cos, rope_sin, clamped, masks=No
     rc = _build.lib().fatt_flash_fwd(
         p(q), p(k), p(v), p(rope_cos), p(rope_sin), p(out), p(lse), *(p(t) for t in tiles),
         None, B, Sq, Sk, H, Hk, D, bstride, float(scale * LOG2E), int(causal), int(clamped),
-        *(window or (-1, -1)), 0.0 if softcap is None else float(softcap * LOG2E),
-        _build.stream())
+        *local_args(window, softcap), _build.stream())
     _build.check(rc, "fatt_flash_fwd")
     flash_fwd_cuda.launches += 1
     if masks is not None:

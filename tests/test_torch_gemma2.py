@@ -111,15 +111,17 @@ def test_flash_fwd_window_softcap_matches_jax_flash_attention():
 
 
 def test_flash_fwd_window_and_softcap_arguments():
-    """Window and softcap are forward-only; a window does not compose
-    with positions yet; the wrappers refuse what K4 does not take (raised
-    before any build)."""
+    """Window and softcap go through the backward too (segment ids stay
+    forward-only); a window does not compose with positions yet; the
+    wrappers refuse what K4 does not take (raised before any build)."""
     q = torch.zeros(1, 8, 2, 32)
     ids = torch.zeros(1, 8, dtype=torch.int32)
+    out = flash_attention(q.clone().requires_grad_(True), q, q, causal=True, window=(4, -1),
+                          logit_softcap=30.0)
+    assert out.requires_grad
     with pytest.raises(NotImplementedError, match="forward-only"):
-        flash_attention(q.clone().requires_grad_(True), q, q, window=(4, -1))
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        flash_attention(q.clone().requires_grad_(True), q, q, logit_softcap=30.0)
+        flash_attention(q.clone().requires_grad_(True), q, q, q_segment_ids=ids,
+                        kv_segment_ids=ids)
     with pytest.raises(NotImplementedError, match="window"):
         ff.flash_fwd(q, q, q, window=(4, -1), q_positions=ids, kv_positions=ids)
     with pytest.raises(ValueError, match="window"):

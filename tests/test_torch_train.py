@@ -417,7 +417,8 @@ def test_serve_train_serve_reads_the_trained_head(dtype):
 
 @pytest.mark.parametrize("option", [
     {"bias": np.zeros((1, 1, SQ, SK), np.float32)}, {"q_segment_ids": np.zeros((B, SQ))},
-    {"window": (8, 0)}, {"logit_softcap": 30.0}, {"alibi_slopes": np.ones(H)},
+    {"q_positions": np.zeros((B, SQ))}, {"kv_segment_ids": np.zeros((B, SK))},
+    {"alibi_slopes": np.ones(H)},
     {"dropout_rate": 0.1}, {"want_dbias": True}])
 def test_flash_bwd_refuses_unported_options(option):
     q, k, v, dout, _, _ = (T(x) for x in attn_inputs(9, "float32"))
@@ -427,9 +428,11 @@ def test_flash_bwd_refuses_unported_options(option):
 
 
 def test_training_wrappers_refuse():
-    """fp16, what K9/K10 do not take (CPU tensors, fp32, D != 128, fp32
-    lse, fp32 rope tables; raised before any build), and the unported
-    model and attention options.  K10 takes R(q) from K9 and no tables."""
+    """fp16, what K9/K10 do not take (CPU tensors, fp32, D other than 128
+    and 256, fp32 lse, fp32 rope tables, head_dim 256 without causal, a
+    window or a softcap at head_dim 128; raised before any build), and the
+    unported model and attention options.  K10 takes R(q) from K9 and no
+    tables."""
     q, k, v, dout, _, _ = (T(x) for x in attn_inputs(10, "float32"))
     lse = torch.zeros((B, H, SQ))
     with pytest.raises(NotImplementedError):
@@ -453,9 +456,21 @@ def test_training_wrappers_refuse():
     tables = torch.zeros((8, 64), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="fp32"):
         fb.flash_bwd_dq_cuda(*big, stats, stats, True, 1.0, tables, tables)
+    wide = [torch.zeros(s, dtype=torch.bfloat16) for s in
+            ((1, 8, 2, 256), (1, 8, 1, 256), (1, 8, 1, 256), (1, 8, 2, 256))]
+    with pytest.raises(NotImplementedError, match="causal"):
+        fb.flash_bwd_dq_cuda(*wide, stats, stats, False, 1.0, None, None)
+    with pytest.raises(NotImplementedError, match="causal"):
+        fb.flash_bwd_dkv_cuda(*wide, stats, stats, False, 1.0, (4, -1), 50.0)
+    with pytest.raises(NotImplementedError, match="head_dim 256"):
+        fb.flash_bwd_dq_cuda(*big, stats, stats, True, 1.0, None, None, (4, -1), None)
+    with pytest.raises(NotImplementedError, match="head_dim 256"):
+        fb.flash_bwd_dkv_cuda(*big, stats, stats, True, 1.0, None, 50.0)
     assert fb.flash_bwd_dq_cuda.launches == 0 and fb.flash_bwd_dkv_cuda.launches == 0
     toks = torch.zeros((1, 4), dtype=torch.long)
     with pytest.raises(NotImplementedError):
         llama.forward({}, toks, CFG, segment_ids=toks)
-    with pytest.raises(NotImplementedError):
-        flash_attention(q.requires_grad_(True), k, v, window=(4, 0))
+    ids = torch.zeros((B, SQ), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        flash_attention(q.requires_grad_(True), k, v, q_segment_ids=ids,
+                        kv_segment_ids=torch.zeros((B, SK), dtype=torch.int32))
