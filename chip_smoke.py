@@ -52,7 +52,16 @@ Phases, one line each with its seconds:
      ragged shifted Sq=1000 Sk=1500 and S=4200, just past the window,
      and at S=2048 where the cap bends (cap 5, windowed and causal),
      so that a kernel without the cap's 1 - t^2 factor or the cap fails;
-     then once
+     GPT-2 124M's points, head_dim 64, H = Hk = 12: K4 causal at B=1 and
+     B=8, S=1024 (timed beside SDPA), a shifted Sq=300 Sk=1000 and q
+     rotated in the kernel, in both modes; K4 with segment ids and
+     positions at phase 12's prompts packed in their bucket and with
+     positions at a chunk of 256 at 512 over 1024 (timed beside SDPA with
+     the boolean mask; its tile counts held to the tile test's); K1 at B=8
+     (bf16, int8, fp8) and B=1 over 1024 positions, K1m on its partials,
+     K1c at T=5 (int8, fp8), one K8c point (T=128 over pages of 128), K2
+     bit for bit, and K8 at pages of 128 (bf16, int8, fp8, against K1 on
+     the same content); then once
      each what the main paths do not run: group sizes 32 and 64, K7's
      bf16 output, and the int8, int4 and W4A8 LM heads' fp32 activations
      or output;
@@ -72,7 +81,11 @@ Phases, one line each with its seconds:
      1024 bucket, and prefill_chunk of a 700-token prompt in chunks of 256
      into an fp8 cache (logits and the cache); then one
      training loss and every parameter's gradient (2 layers at 8B widths,
-     bf16, B=1, S=128, remat);
+     bf16, B=1, S=128, remat); GPT-2 (2 layers at 124M widths, bf16, int8
+     KV): two prompts, four decode steps with an idle slot past
+     max_position, decode_multi of 5 tokens, prefill_packed of three
+     prompts, prefill_chunk in chunks of 256 and four paged decode steps
+     against the CPU, and an fp32 model on the card must raise;
   4-6. the main paths, each model alone on the card, served by the
      continuous-batching engine (8 greedy requests, prompts of 128-1024
      tokens from the seed) with its decode bodies replayed from CUDA
@@ -128,7 +141,16 @@ Phases, one line each with its seconds:
      memory, and the launches of K4, K9 and K10;
   11. training: Gemma-2 at full 9B widths, 8 layers (4 sliding, 4
      global), B=1, S=8192, as phase 8: K9 = K10 = 8 a step, 4 of them
-     windowed, K4 16 (remat reruns it), peak under 75 GiB.
+     windowed, K4 16 (remat reruns it), peak under 75 GiB;
+  12. GPT-2 124M (12 layers, 12 heads of 64, bf16 weights from the seed),
+     capacity 1024, 8 greedy prompts of 64-512 tokens, 64 tokens each, one
+     prompt a prefill call: int8 KV eager, captured and at burst 4 (equal
+     tokens), fp8 KV eager and captured (equal tokens), chunks of 256,
+     packed (capacity 4096), paged and n-gram speculation (first tokens
+     equal to the captured run's, agreement printed), each with the
+     launches at head_dim 64 (K4 12 a prefill call; K1, K2, K1m 12 a
+     decode step; K1c 12 a verify round; K8 12 a paged step); then
+     BASELINE config 0: batch 1, int8 KV, 960 + 64 = 1024 positions.
 
 Before the last line come the kernels' JSON record (each row's launches
 are those of the run named in its "launches_run"; the quantized matmuls'
@@ -136,7 +158,9 @@ rows also carry their prompt bucket's numbers under "prompt", K4's its
 packed and chunk points under "packed" and "chunk", K3's Gemma-2-9B
 widths under "gemma"; the head_dim 256 rows "K4 d256" and "K1 d256"
 carry the unwindowed call under "no_window" and SDPA without the softcap
-under "sdpa_nocap_ms", as do "K9 d256" and "K10 d256") and the
+under "sdpa_nocap_ms", as do "K9 d256" and "K10 d256"; "K4 d64" its
+masked points under "packed" and "chunk", "K1c d64" a K8c point under
+"k8c") and the
 card; the last line is {"ok": true, "device": {...}}.  Any failed check
 exits nonzero without that line; so does a machine without CUDA or a
 directory without the rest of the repository.
@@ -922,11 +946,19 @@ def check_g3(torch, checks):
         f"tol), lse err {lerr:.3e} {'ok' if ok else 'FAIL'} | {ms:.4f} ms")
 
 
+# (mode, Hk, S, D, the row its times fill): K2 at B=8 at each decode step's
+# shape; GPT-2's row is int8, BASELINE config 0's KV type
+K2_POINTS = (("int8", 8, 4096, 128, None), ("fp8", 8, 4096, 128, "K2"),
+             ("int8", 8, 8192, 256, None), ("fp8", 8, 8192, 256, "K2 d256"),
+             ("int8", 12, 1024, 64, "K2 d64"), ("fp8", 12, 1024, 64, None))
+
+
 def check_k2(torch, checks, rows):
-    """K2 in int8 and fp8 at B=8, Hk=8, S=4096, D=128 and at Gemma-2-9B's
-    S=8192, D=256, bit for bit against its plain version (an idle slot past
-    the capacity writes nothing); the fp8 points carry their times
-    (the "K2" and "K2 d256" rows): a loop of wrapper calls by events, the
+    """K2 in int8 and fp8 at B=8 at K2_POINTS (Llama-3's, Gemma-2-9B's and
+    GPT-2 124M's decode step), bit for bit against its plain version (an
+    idle slot past the capacity writes nothing); the points named there
+    carry their times (the "K2", "K2 d256" and "K2 d64" rows): a loop of
+    wrapper calls by events, the
     kernel as a replayed CUDA graph, and beside it the graph time of an
     empty kernel on K2's grid, launched the same way (the floor of a kernel
     this small)."""
@@ -934,16 +966,14 @@ def check_k2(torch, checks, rows):
     from flash_attn_tpu_torch.ops import kv_append as ka
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    B, Hk = 8, 8
+    B = 8
     worst = 0.0
-    for mode, dt, S, D in (("int8", torch.int8, 4096, 128), ("fp8", torch.float8_e4m3fn, 4096, 128),
-                           ("int8", torch.int8, 8192, 256),
-                           ("fp8", torch.float8_e4m3fn, 8192, 256)):
+    for mode, Hk, S, D, row in K2_POINTS:
         if mode == "int8":
             kc = torch.randint(-127, 128, (B, Hk, S, D), generator=g, device="cuda",
                                dtype=torch.int8)
         else:
-            kc = torch.randn((B, Hk, S, D), generator=g, device="cuda").to(dt)
+            kc = torch.randn((B, Hk, S, D), generator=g, device="cuda").to(torch.float8_e4m3fn)
         vc = kc.clone()
         ks = torch.rand((B, Hk, S), generator=g, device="cuda")
         vs = ks.clone()
@@ -971,13 +1001,13 @@ def check_k2(torch, checks, rows):
         plain_ms = cuda_ms(torch, lambda: ka.kv_append_plain(kc, vc, ks, vs, nk, nv, lens, mode))
         nbytes = 2 * B * Hk * D * 2 + 2 * B * Hk * D * 1 + 2 * B * Hk * 4 + B * 4
         b_ms, b_by = bound(nbytes, 0)
-        say(f"  K2 {mode} D={D}: max_abs_err {err:.3e} (tol 0) {'ok' if ok else 'FAIL'} | "
-            f"{ms:.4f} ms (a loop of wrapper calls; graph {g_ms:.4f}, an empty kernel on its "
+        say(f"  K2 {mode} Hk={Hk} S={S} D={D}: max_abs_err {err:.3e} (tol 0) "
+            f"{'ok' if ok else 'FAIL'} | {ms:.4f} ms (a loop of wrapper calls; graph {g_ms:.4f}, an empty kernel on its "
             f"grid {empty_ms:.4f}), plain {plain_ms:.4f}, library none, bound {b_ms:.6f} "
             f"({b_by})")
-        if mode == "fp8":
-            rows["K2" if D == 128 else "K2 d256"] = dict(
-                name=f"kv_append (B=8, Hk=8, S={S}, D={D}, fp8)",
+        if row:
+            rows[row] = dict(
+                name=f"kv_append (B=8, Hk={Hk}, S={S}, D={D}, {mode})",
                 source="flash_attn_tpu_torch/csrc/kv_append.cu",
                 replaces="flash_attn_tpu/ops/kv_append.py:57",
                 ms=ms, graph_ms=g_ms, empty_graph_ms=empty_ms,
@@ -1628,6 +1658,58 @@ def _k8_times(torch, pd, F, q, k, v, ks, vs, table, lens, args):
     return res
 
 
+def _k8_decode_case(torch, checks, label, q, k, v, ks, vs, table, lens):
+    """K8 in decode mode with the live splits it plans against its plain
+    version (each row to two bf16 ulps of its largest, the LSE to 1e-3)
+    and against K1 on the same content copied into a contiguous cache; an
+    empty sequence must give out 0 and lse <= -1e29, and the call must be
+    one launch of K8 and none of K1m (the splits merged in the kernel).
+    Returns (max |err|, K8's args, its splits, K1's args)."""
+    from flash_attn_tpu_torch.ops import decode as dec
+    from flash_attn_tpu_torch.ops import paged_decode as pd
+    from flash_attn_tpu_torch.ops.lse import lse_merge_cuda
+
+    B, H, D = q.shape
+    Hk, page = k.shape[1], k.shape[2]
+    S = table.shape[1] * page
+    clamped, clamp2 = _mode_args(dec, k.dtype)
+    nsplit, split_len = pd._plan(B, Hk, H // Hk, 1, S, None)
+    args = (q, k, v, ks, vs, table, lens, D ** -0.5, clamped, clamp2, 1, nsplit, split_len)
+    before = (pd.paged_flash_decode_cuda.launches, lse_merge_cuda.launches)
+    got, glse = pd.paged_flash_decode(q, k, v, table, lens, k_scale=ks, v_scale=vs,
+                                      return_lse=True)
+    one_launch = (pd.paged_flash_decode_cuda.launches - before[0],
+                  lse_merge_cuda.launches - before[1]) == (1, 0)
+    ref, rlse = plain_merge(*pd.paged_flash_decode_plain(*args), torch.bfloat16)
+    kc, vc = pd._gather(k, table), pd._gather(v, table)
+    kcs = None if ks is None else pd._gather(ks, table)
+    vcs = None if vs is None else pd._gather(vs, table)
+    k1_args = (q, kc, vc, kcs, vcs, lens, D ** -0.5, clamped, clamp2,
+               *dec._splits(B, Hk, S, None))
+    k1 = dec.flash_decode(q, kc, vc, k_scale=kcs, v_scale=vcs, kv_length=lens,
+                          kv_layout="bhsd")
+    torch.cuda.synchronize()
+    err, share = row_err(got, ref)
+    _, share_k1 = row_err(got, k1)
+    live = lens > 0
+    # fp32 sums of at most S terms in another order: far below 1e-3
+    lerr = float((glse - rlse)[live].abs().max())
+    empty = bool((got[~live] == 0).all() and (glse[~live] <= -1e29).all())
+    ok = (checks.check(f"{label} out", share, 1.0)
+          & checks.check(f"{label} lse", lerr, 1e-3)
+          & checks.check(f"{label} vs K1 on the same content", share_k1, 1.0))
+    if not empty:
+        checks.failed.append(f"{label}: the empty sequence is not out 0, lse <= -1e29")
+    if not one_launch:
+        checks.failed.append(f"{label}: paged_flash_decode was not one launch of K8 and none "
+                             "of K1m")
+    say(f"  {label} ({nsplit} live splits, merged in the kernel): max_abs_err {err:.3e} "
+        f"({share:.3f} of its row's tol; vs K1 {share_k1:.3f}), lse err {lerr:.3e} (tol "
+        f"1e-3), empty sequence {'ok' if empty else 'FAIL'}, one launch "
+        f"{'ok' if one_launch else 'FAIL'} {'ok' if ok and empty and one_launch else 'FAIL'}")
+    return err, args, nsplit, k1_args
+
+
 def check_k8(torch, checks, rows):
     """K8 in decode mode at B=8, H=32, Hk=8, D=128, 32 pages of 128 (then 8
     of 512) per sequence, bf16/int8/fp8, with the live splits it plans (one
@@ -1642,60 +1724,20 @@ def check_k8(torch, checks, rows):
 
     from flash_attn_tpu_torch.ops import decode as dec
     from flash_attn_tpu_torch.ops import paged_decode as pd
-    from flash_attn_tpu_torch.ops.lse import lse_merge_cuda
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 10)
     worst = worst_c = 0.0
     for page in (128, 512):
         for kv in ("bf16", "int8", "fp8"):
             q, k, v, ks, vs, table, lens = _paged_inputs(torch, kv, g, page)
-            B, H, D = q.shape
-            Hk = k.shape[1]
-            S = table.shape[1] * page
-            clamped, clamp2 = _mode_args(dec, k.dtype)
-            nsplit, split_len = pd._plan(B, Hk, H // Hk, 1, S, None)
-            args = (q, k, v, ks, vs, table, lens, D ** -0.5, clamped, clamp2, 1,
-                    nsplit, split_len)
-            before = (pd.paged_flash_decode_cuda.launches, lse_merge_cuda.launches)
-            got, glse = pd.paged_flash_decode(q, k, v, table, lens, k_scale=ks,
-                                              v_scale=vs, return_lse=True)
-            # one launch of K8 and none of K1m: the splits merged in the kernel
-            one_launch = (pd.paged_flash_decode_cuda.launches - before[0],
-                          lse_merge_cuda.launches - before[1]) == (1, 0)
-            ref, rlse = plain_merge(*pd.paged_flash_decode_plain(*args), torch.bfloat16)
-            # K1 on the same content in a contiguous [B, Hk, S, D] cache
-            kc, vc = pd._gather(k, table), pd._gather(v, table)
-            kcs = None if ks is None else pd._gather(ks, table)
-            vcs = None if vs is None else pd._gather(vs, table)
-            k1_split = dec._splits(B, Hk, S, None)
-            k1_args = (q, kc, vc, kcs, vcs, lens, D ** -0.5, clamped, clamp2, *k1_split)
-            k1 = dec.flash_decode(q, kc, vc, k_scale=kcs, v_scale=vcs, kv_length=lens,
-                                  kv_layout="bhsd")
-            torch.cuda.synchronize()
-            err, share = row_err(got, ref)
-            _, share_k1 = row_err(got, k1)
-            live = lens > 0
-            # fp32 sums of at most S terms in another order: far below 1e-3
-            lerr = float((glse - rlse)[live].abs().max())
-            empty = bool((got[~live] == 0).all() and (glse[~live] <= -1e29).all())
             label = f"K8 decode {kv} page={page}"
-            ok = (checks.check(f"{label} out", share, 1.0)
-                  & checks.check(f"{label} lse", lerr, 1e-3)
-                  & checks.check(f"{label} vs K1 on the same content", share_k1, 1.0))
-            if not empty:
-                checks.failed.append(f"{label}: the empty sequence is not out 0, lse <= -1e29")
-            if not one_launch:
-                checks.failed.append(f"{label}: paged_flash_decode was not one launch of K8 "
-                                     "and none of K1m")
+            err, args, nsplit, k1_args = _k8_decode_case(torch, checks, label, q, k, v, ks,
+                                                         vs, table, lens)
             worst = max(worst, err)
             ms = cuda_ms(torch, lambda: pd.paged_flash_decode_cuda(*args))
             k1_ms = cuda_ms(torch, lambda: dec.flash_decode_cuda(*k1_args))
-            say(f"  {label} ({nsplit} live splits, merged in the kernel): max_abs_err "
-                f"{err:.3e} ({share:.3f} of its row's tol; vs K1 {share_k1:.3f}), lse err "
-                f"{lerr:.3e} (tol 1e-3), empty sequence {'ok' if empty else 'FAIL'}, one "
-                f"launch {'ok' if one_launch else 'FAIL'} "
-                f"{'ok' if ok and empty and one_launch else 'FAIL'} | {ms:.4f} ms, K1 on the "
-                f"same content {k1_ms:.4f} (without its K1m merge)")
+            say(f"    {label}: {ms:.4f} ms, K1 on the same content {k1_ms:.4f} (without its "
+                f"K1m merge)")
             if page == 128 and kv == "fp8":
                 t = _k8_times(torch, pd, F, q, k, v, ks, vs, table, lens, args)
                 t["plain_ms"] = cuda_ms(torch, lambda: pd.paged_flash_decode_plain(*args),
@@ -1704,7 +1746,7 @@ def check_k8(torch, checks, rows):
                     f"(graph {t['graph_ms']:.4f}; as called, graph {t['call_graph_ms']:.4f}), "
                     f"plain {t['plain_ms']:.4f}, library (SDPA on the gathered, dequantized "
                     f"cache) {t['library_ms']:.4f}, bound {t['bound_ms']:.4f} ({t['bound_by']})")
-                lens_e = torch.randint(576, 1057, (B,), generator=g, device="cuda",
+                lens_e = torch.randint(576, 1057, (q.shape[0],), generator=g, device="cuda",
                                        dtype=torch.int32)
                 args_e = (*args[:6], lens_e, *args[7:])
                 got_e = pd.paged_flash_decode(q, k, v, table, lens_e, k_scale=ks, v_scale=vs)
@@ -1724,7 +1766,7 @@ def check_k8(torch, checks, rows):
                                   replaces="flash_attn_tpu/ops/paged_decode.py:47",
                                   k1_ms=k1_ms, **t,
                                   also=dict(label="the paged engine's lengths 576-1056", **te))
-            del q, k, v, ks, vs, kc, vc, kcs, vcs
+            del q, k, v, ks, vs
     # chunk mode (K8c): one sequence over pages of 128; T=128 at 640 (512
     # resident + the chunk) and at 1024 (the last piece of phase 7's longest
     # suffix), a ragged T=123 and T=4 (16 rows)
@@ -1906,6 +1948,38 @@ def _gemma_decode_inputs(torch, kv, g, B=8, H=16, Hk=8, S=8192, D=256):
     return q, k, v, ks, vs, lens
 
 
+def _k1m_row(torch, checks, shape, outs, lses, idle=None):
+    """K1m on split partials (outs [n, B, rows, D], lses [n, B, rows]) into
+    bf16 against lse_merge (each row to two bf16 ulps of its largest, the
+    LSE to 1e-3; slot ``idle``, if given, must give out 0 and lse <=
+    -1e29), timed as a replayed CUDA graph beside the plain merge and the
+    bound: a kernel row."""
+    from flash_attn_tpu_torch.ops.lse import lse_merge, lse_merge_cuda
+
+    got, glse = lse_merge_cuda(outs, lses, torch.bfloat16)
+    ref, rlse = lse_merge(outs, lses, dim=0)
+    torch.cuda.synchronize()
+    err, share = row_err(got, ref.to(torch.bfloat16))
+    lerr = float((glse - rlse).abs().max())
+    label = f"K1m {shape}"
+    ok = checks.check(f"{label} out", share, 1.0) & checks.check(f"{label} lse", lerr, 1e-3)
+    if idle is not None and not bool((got[idle] == 0).all() and (glse[idle] <= -1e29).all()):
+        checks.failed.append(f"{label}: the idle slot is not out 0, lse <= -1e29")
+        ok = False
+    ms = graph_ms(torch, lambda: lse_merge_cuda(outs, lses, torch.bfloat16))
+    plain_ms = cuda_ms(torch, lambda: lse_merge(outs, lses, dim=0)[0].to(torch.bfloat16))
+    nbytes = outs.numel() * 4 + lses.numel() * 4 + outs[0].numel() * 2 + lses[0].numel() * 4
+    b_ms, b_by = bound(nbytes, 2 * outs.numel())
+    n = outs.shape[0]
+    say(f"  {label} ({n} splits -> bf16): max_abs_err {err:.3e} ({share:.3f} of its row's "
+        f"tol), lse err {lerr:.3e} (tol 1e-3) {'ok' if ok else 'FAIL'} | {ms:.4f} ms (CUDA "
+        f"graph), plain {plain_ms:.4f}, library none, bound {b_ms:.4f} ({b_by})")
+    return dict(name=f"lse_merge ({n} splits of {shape} fp32 partials -> bf16)",
+                source="flash_attn_tpu_torch/csrc/lse_merge.cu",
+                replaces="flash_attn_tpu/ops/lse.py:23", max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+
 def check_k1_gemma(torch, checks, rows):
     """K1 at Gemma-2-9B's decode step: D=256, B=8, H=16, Hk=8, capacity
     8192, int8 and fp8 KV (online: the cap reaches the fp8 ceiling),
@@ -1918,7 +1992,6 @@ def check_k1_gemma(torch, checks, rows):
     import torch.nn.functional as F
 
     from flash_attn_tpu_torch.ops import decode as dec
-    from flash_attn_tpu_torch.ops.lse import lse_merge, lse_merge_cuda
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 31)
     worst = 0.0
@@ -1990,26 +2063,7 @@ def check_k1_gemma(torch, checks, rows):
             outs, lses = dec.flash_decode_cuda(q, k, v, ks, vs, lens, GEMMA_SCALE, clamped,
                                                clamp2, nsplit, None, 1, "bhsd", GEMMA_WINDOW,
                                                GEMMA_CAP)
-            m_out, m_lse = lse_merge_cuda(outs, lses, torch.bfloat16)
-            r_out, r_lse = lse_merge(outs, lses, dim=0)
-            torch.cuda.synchronize()
-            merr, mshare = row_err(m_out, r_out.to(torch.bfloat16))
-            mlerr = float((m_lse - r_lse).abs().max())
-            ok = (checks.check("K1m D=256 out", mshare, 1.0)
-                  & checks.check("K1m D=256 lse", mlerr, 1e-3))
-            m_ms = graph_ms(torch, lambda: lse_merge_cuda(outs, lses, torch.bfloat16))
-            m_plain = cuda_ms(torch, lambda: lse_merge(outs, lses, dim=0)[0].to(torch.bfloat16))
-            nbytes = outs.numel() * 4 + lses.numel() * 4 + outs[0].numel() * 2 + lses[0].numel() * 4
-            mb_ms, mb_by = bound(nbytes, 2 * outs.numel())
-            say(f"  K1m D=256 ({nsplit} splits of B=8, H=16 -> bf16): max_abs_err {merr:.3e} "
-                f"({mshare:.3f} of its row's tol), lse err {mlerr:.3e} (tol 1e-3) "
-                f"{'ok' if ok else 'FAIL'} | {m_ms:.4f} ms (CUDA graph), plain {m_plain:.4f}, "
-                f"library none, bound {mb_ms:.4f} ({mb_by})")
-            rows["K1m d256"] = dict(
-                name=f"lse_merge ({nsplit} splits of B=8, H=16, D=256 fp32 partials -> bf16)",
-                source="flash_attn_tpu_torch/csrc/lse_merge.cu",
-                replaces="flash_attn_tpu/ops/lse.py:23", max_abs_err=merr, ms=m_ms,
-                plain_ms=m_plain, library_ms=None, bound_ms=mb_ms, bound_by=mb_by)
+            rows["K1m d256"] = _k1m_row(torch, checks, "B=8, H=16, D=256", outs, lses)
             del outs, lses
         del q, k, v, ks, vs
         torch.cuda.empty_cache()
@@ -2047,6 +2101,343 @@ def check_k3_gemma(torch, checks, rows):
     rows["K3"]["gemma"] = dict(M=M, **points)
 
 
+# --- GPT-2 124M's shapes (BASELINE config 0): head_dim 64 -------------------
+
+GPT2_H, GPT2_D, GPT2_S = 12, 64, 1024   # heads (= KV heads), head_dim, positions
+
+
+def _gpt2_prompts(vocab):
+    """Phase 12's 8 prompts of 64-512 tokens, from the seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 50)
+    lens = rng.integers(64, 513, 8)
+    return lens, [rng.integers(0, vocab, int(n)).tolist() for n in lens]
+
+
+def _k4_d64(torch, checks, label, q, k, v, causal, clamped, masks=None, cos=None, sin=None,
+            timed=False, lib=None):
+    """K4 at head_dim 64 against its plain version (each row to two bf16
+    ulps of its largest, the LSE to 1e-3, as check_k4 holds it); with
+    ``timed`` also the kernel's time, the plain version's, ``lib``'s (one
+    SDPA call of the same function, or None) and the bound on the live
+    pairs.  Returns (max |err|, the times or None)."""
+    from flash_attn_tpu_torch.ops import flash_fwd as ff
+
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    args = (q, k, v, causal, D ** -0.5, cos, sin, clamped, masks)
+    kw = masks._asdict() if masks is not None else {}
+    out, lse = ff.flash_fwd(q, k, v, causal=causal, rope_cos=cos, rope_sin=sin,
+                            softmax_mode="clamped" if clamped else "online", **kw)
+    rout, rlse = ff.flash_fwd_plain(*args)
+    torch.cuda.synchronize()
+    err, share = row_err(out, rout)
+    lerr = float((lse - rlse).abs().max())
+    ok = checks.check(f"{label} out", share, 1.0) & checks.check(f"{label} lse", lerr, 1e-3)
+    line = (f"  {label}: max_abs_err {err:.3e} ({share:.3f} of its row's tol), lse err "
+            f"{lerr:.3e} (tol 1e-3) {'ok' if ok else 'FAIL'}")
+    del out, lse, rout, rlse
+    times = None
+    if timed:
+        pairs = int(ff.live_pairs(masks, causal, Sq, Sk, "cuda").sum())
+        pairs *= B if masks is None else 1
+        flops = 4 * H * D * pairs
+        ms = cuda_ms(torch, lambda: ff.flash_fwd_cuda(*args))
+        plain_ms = cuda_ms(torch, lambda: ff.flash_fwd_plain(*args), iters=3, warmup=1)
+        lib_ms = cuda_ms(torch, lib) if lib is not None else None
+        nbytes = (q.numel() * 2 * 2 + k.numel() * 2 * 2 + B * H * Sq * 4
+                  + (0 if masks is None else (Sq + Sk) * 8))
+        b_ms, b_by = bound(nbytes, flops)
+        times = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                     live_pairs=pairs)
+        line += (f" | {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s on {pairs} live pairs), plain "
+                 f"{plain_ms:.4f}, library (SDPA) "
+                 + ("none" if lib_ms is None else f"{lib_ms:.4f}")
+                 + f", bound {b_ms:.4f} ({b_by})")
+    say(line)
+    return err, times
+
+
+def check_k4_gpt2(torch, checks, rows):
+    """K4 at head_dim 64 (GPT-2 124M: H = Hk = 12, no rope), both softmax
+    modes: causal at B=1 and B=8, S=1024 (the "K4 d64" row: B=1, clamped,
+    BASELINE config 0's prefill; B=8 under "also"), a shifted Sq=300
+    Sk=1000, q rotated in the kernel at S=1024 (the kernel takes rope at 64;
+    GPT-2 passes none); with segment ids and positions at phase 12's eight
+    prompts packed in their bucket (the kernel's tile counts held to
+    ``tile_test``'s), and with positions alone at a chunk of 256 at start
+    512 over 1024 positions.  The timed points run beside SDPA on the same
+    function (is_causal, or the boolean mask)."""
+    import torch.nn.functional as F
+
+    from flash_attn_tpu_torch.engine.scheduler import bucket_length
+    from flash_attn_tpu_torch.ops import flash_fwd as ff
+    from flash_attn_tpu_torch.ops.rope import rope_cos_sin
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 51)
+    H, D = GPT2_H, GPT2_D
+    worst, times = 0.0, {}
+
+    def qkv(B, Sq, Sk):
+        return tuple(torch.randn((B, S, H, D), generator=g, device="cuda", dtype=torch.bfloat16)
+                     for S in (Sq, Sk, Sk))
+
+    for B, Sq, Sk in ((1, GPT2_S, GPT2_S), (8, GPT2_S, GPT2_S), (1, 300, 1000)):
+        q, k, v = qkv(B, Sq, Sk)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        lib = None if Sq != Sk else (lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True))
+        for clamped in (True, False):
+            label = (f"K4 D=64 {'clamped' if clamped else 'online'} B={B} Sq={Sq} Sk={Sk} "
+                     f"H={H}")
+            timed = clamped and Sq == Sk
+            err, t = _k4_d64(torch, checks, label, q, k, v, True, clamped, timed=timed, lib=lib)
+            worst = max(worst, err)
+            if t:
+                times[B] = t
+        del q, k, v, qt, kt, vt
+    q, k, v = qkv(1, GPT2_S, GPT2_S)
+    cos, sin = rope_cos_sin(torch.arange(GPT2_S, device="cuda")[None], D, 10000.0)
+    err, _ = _k4_d64(torch, checks, "K4 D=64 clamped B=1 S=1024, q rotated in the kernel", q, k,
+                     v, True, True, cos=cos, sin=sin)
+    worst = max(worst, err)
+    # the masked instance: phase 12's prompts packed; a chunk over a cache
+    lens, _ = _gpt2_prompts(50257)
+    T = bucket_length(int(lens.sum()))
+    seg, pos = (x.cuda() for x in _packed_positions(torch, [int(n) for n in lens], T))
+    cpos = torch.arange(512, 768, device="cuda", dtype=torch.int32)[None]
+    kpos = torch.arange(GPT2_S, device="cuda", dtype=torch.int32)[None]
+    masked = {}
+    for name, Sq, Sk, masks in (("packed", T, T, ff.Masks(seg, seg, pos, pos)),
+                                ("chunk", 256, GPT2_S, ff.Masks(None, None, cpos, kpos))):
+        q, k, v = qkv(1, Sq, Sk)
+        live = ff.live_pairs(masks, False, Sq, Sk, "cuda")
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        label = f"K4 D=64 {name} Sq={Sq} Sk={Sk} H={H}"
+        n_tiles, n_full, n_all = k4_tile_counts(torch, checks, label, q, k, v, None, None,
+                                                False, masks)
+        for clamped in (True, False):
+            err, t = _k4_d64(
+                torch, checks, f"{label} {'clamped' if clamped else 'online'}", q, k, v, False,
+                clamped, masks=masks, timed=clamped,
+                lib=lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=live[:, None]))
+            worst = max(worst, err)
+            if t:
+                masked[name] = dict(Sq=Sq, Sk=Sk, live_tiles=n_tiles, unmasked_tiles=n_full,
+                                    **t)
+        say(f"    {label}: K4 listed {n_tiles} of {n_all} tiles ({n_full} unmasked; the tile "
+            f"test's counts alike)")
+        del q, k, v, qt, kt, vt, live
+    t1, t8 = times[1], times[8]
+    rows["K4 d64"] = dict(
+        name="flash_fwd (B=1, S=1024, H=Hk=12, D=64, causal, clamped: GPT-2 124M's prefill)",
+        source="flash_attn_tpu_torch/csrc/flash_fwd.cu",
+        replaces="flash_attn_tpu/ops/flash_fwd.py:221", max_abs_err=worst,
+        **{key: t1[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+        also=dict(label="B=8", **{key: t8[key] for key in ("ms", "plain_ms", "library_ms",
+                                                           "bound_ms", "bound_by")}),
+        **masked)
+
+
+def _decode_d64_case(torch, checks, dec, label, q, k, v, ks, vs, lens, T=1):
+    """K1 (T=1) or K1c (T>1) at head_dim 64 through flash_decode /
+    flash_decode_chunk against the plain version with the same splits, as
+    check_k1 and check_k1c hold them.  Returns (max |err|, the plain
+    version's args)."""
+    B, Hk, S, D = k.shape
+    H = q.shape[-2]
+    G = H // Hk
+    clamped, clamp2 = _mode_args(dec, k.dtype)
+    if T == 1:
+        nsplit, split_len = dec._splits(B, Hk, S, None)
+        q2 = q
+        got, glse = dec.flash_decode(q, k, v, k_scale=ks, v_scale=vs, kv_length=lens,
+                                     return_lse=True, kv_layout="bhsd")
+    else:
+        nsplit, split_len = dec._chunk_splits(B, Hk, T * G, S, None), None
+        q2 = q.reshape(B, T, Hk, G, D).transpose(1, 2).reshape(B, Hk * T * G, D).contiguous()
+        got, glse = dec.flash_decode_chunk(q, k, v, k_scale=ks, v_scale=vs, kv_length=lens,
+                                           return_lse=True)
+    args = (q2, k, v, ks, vs, lens, D ** -0.5, clamped, clamp2, nsplit, split_len, T)
+    ref2, rlse2 = plain_merge(*dec.flash_decode_plain(*args), torch.bfloat16)
+    torch.cuda.synchronize()
+    ref = ref2.reshape(B, Hk, T, G, D).transpose(1, 2).reshape(got.shape)
+    rlse = rlse2.reshape(B, Hk, T, G).transpose(1, 2).reshape(glse.shape)
+    err, share = row_err(got, ref)
+    lerr = float((glse - rlse).abs().max())
+    label = f"{label} ({'clamped' if clamped else 'online'}, {nsplit} splits)"
+    ok = checks.check(f"{label} out", share, 1.0) & checks.check(f"{label} lse", lerr, 1e-3)
+    say(f"  {label}: max_abs_err {err:.3e} ({share:.3f} of its row's tol), lse err {lerr:.3e} "
+        f"(tol 1e-3) {'ok' if ok else 'FAIL'}")
+    return err, args
+
+
+def _decode_d64_times(torch, dec, F, args, q, k, v, ks, vs, lens, T=1):
+    """K1's or K1c's times at head_dim 64: the kernel by events, the call
+    as a user makes it (with K1m) as a CUDA graph, the plain version's,
+    SDPA's on the dequantized cache and the bound."""
+    B, Hk, S, D = k.shape
+    H = q.shape[-2]
+    kd, vd = _dequant(k, ks), _dequant(v, vs)
+    limit = torch.clamp(lens.long()[:, None] - (T - 1)
+                        + torch.arange(T, device="cuda")[None], max=S)  # [B, T]
+    mask = (torch.arange(S, device="cuda")[None, None, :] < limit[:, :, None])[:, None]
+    if T == 1:
+        qt = q[:, :, None, :]
+        call = lambda: dec.flash_decode(q, k, v, k_scale=ks, v_scale=vs,  # noqa: E731
+                                        kv_length=lens, kv_layout="bhsd")
+    else:
+        qt = q.transpose(1, 2)
+        call = lambda: dec.flash_decode_chunk(q, k, v, k_scale=ks,  # noqa: E731
+                                              v_scale=vs, kv_length=lens)
+    nbytes = k1_bytes(k, lens, ks) + 2 * q.numel() * 2 + lens.numel() * 4
+    b_ms, b_by = bound(nbytes, 4 * H * D * int(limit.sum()))
+    res = dict(ms=cuda_ms(torch, lambda: dec.flash_decode_cuda(*args)),
+               call_graph_ms=graph_ms(torch, call),
+               plain_ms=cuda_ms(torch, lambda: dec.flash_decode_plain(*args), iters=3),
+               library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                   qt, kd, vd, attn_mask=mask)),
+               bound_ms=b_ms, bound_by=b_by)
+    del kd, vd
+    return res
+
+
+def _say_d64(label, t):
+    say(f"    {label}: {t['ms']:.4f} ms (as called, graph {t['call_graph_ms']:.4f}), plain "
+        f"{t['plain_ms']:.4f}, library (SDPA on the dequantized cache) {t['library_ms']:.4f}, "
+        f"bound {t['bound_ms']:.4f} ({t['bound_by']})")
+
+
+def check_decode_gpt2(torch, checks, rows):
+    """The decode kernels at head_dim 64, GPT-2 124M's step (H = Hk = 12,
+    capacity 1024): K1 at B=8 over bf16, int8 and fp8 caches and at B=1
+    (BASELINE config 0), int8; K1m on K1's int8 partials at B=8 (bf16
+    out, an idle slot); K1c (the verify step, T=5: 5 rows a KV head) at
+    B=8, int8 and fp8, lengths with S, T and an idle slot's S + 7; one K8c
+    point (T=128 at kv_len 640 over pages of 128, int8).  The int8 points
+    carry the times of the "K1 d64", "K1m d64" and "K1c d64" rows (K2 at
+    64: check_k2)."""
+    import torch.nn.functional as F
+
+    from flash_attn_tpu_torch.ops import decode as dec
+    from flash_attn_tpu_torch.ops import paged_decode as pd
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 52)
+    H, D, S = GPT2_H, GPT2_D, GPT2_S
+    shape = dict(H=H, Hk=H, S=S, D=D)
+    worst = 0.0
+    for kv, B in (("bf16", 8), ("int8", 8), ("fp8", 8), ("int8", 1)):
+        q, k, v, ks, vs, lens = _decode_inputs(torch, kv, g, B=max(B, 2), **shape)
+        if B == 1:  # the sequence at the full capacity
+            q, k, v, ks, vs, lens = (None if x is None else x[:1].contiguous()
+                                     for x in (q, k, v, ks, vs, lens))
+        err, args = _decode_d64_case(torch, checks, dec, f"K1 D=64 {kv} B={B}", q, k, v, ks,
+                                     vs, lens)
+        worst = max(worst, err)
+        if kv == "int8":
+            t = _decode_d64_times(torch, dec, F, args[:11], q, k, v, ks, vs, lens)
+            _say_d64(f"K1 D=64 int8 B={B}", t)
+            if B == 8:
+                rows["K1 d64"] = dict(
+                    name="decode_bhsd (B=8, H=Hk=12, S=1024, D=64, int8 KV: GPT-2 124M)",
+                    source="flash_attn_tpu_torch/csrc/decode.cu",
+                    replaces="flash_attn_tpu/ops/decode.py:747", **t)
+                # K1m on these partials, an idle slot among them
+                lens[2] = 0
+                outs, lses = dec.flash_decode_cuda(*args[:11])
+                rows["K1m d64"] = _k1m_row(torch, checks, "B=8, H=12, D=64", outs, lses, idle=2)
+                del outs, lses
+            else:
+                rows["K1 d64"]["also"] = dict(label="B=1 (BASELINE config 0)", **t)
+        del q, k, v, ks, vs
+    rows["K1 d64"]["max_abs_err"] = worst
+    # K1c, the verify step: T=5 tokens, G=1
+    T, B = 5, 8
+    worst = 0.0
+    for kv in ("int8", "fp8"):
+        _, k, v, ks, vs, _ = _decode_inputs(torch, kv, g, B=B, **shape)
+        q = torch.randn((B, T, H, D), generator=g, device="cuda", dtype=torch.bfloat16)
+        lens = torch.randint(T, S + 1, (B,), generator=g, device="cuda", dtype=torch.int32)
+        lens[0], lens[1], lens[2] = S, T, S + 7
+        err, args = _decode_d64_case(torch, checks, dec, f"K1c D=64 {kv} T={T} B={B}", q, k, v,
+                                     ks, vs, lens, T=T)
+        worst = max(worst, err)
+        if kv == "int8":
+            t = _decode_d64_times(torch, dec, F, (*args[:10], None, T), q, k, v, ks, vs, lens,
+                                  T=T)
+            _say_d64(f"K1c D=64 int8 T={T}", t)
+            rows["K1c d64"] = dict(
+                name="decode_bhsd, chunk mode (B=8, T=5, H=Hk=12, S=1024, D=64, int8 KV: "
+                     "GPT-2 124M's verify step)",
+                source="flash_attn_tpu_torch/csrc/chunk_attn.cu",
+                replaces="flash_attn_tpu/ops/decode.py:747", **t)
+        del q, k, v, ks, vs
+    # one K8c point: the chunk kernel over pages at head_dim 64
+    _, k, v, ks, vs, table, _ = _paged_inputs(torch, "int8", g, 128, B=1, **shape)
+    T, kv_len = 128, 640
+    qc = torch.randn((1, T, H, D), generator=g, device="cuda", dtype=torch.bfloat16)
+    lens = torch.tensor([kv_len], dtype=torch.int32, device="cuda")
+    clamped, clamp2 = _mode_args(dec, k.dtype)
+    nsplit = dec._chunk_splits(1, H, T, S, None)
+    args = (qc.transpose(1, 2).reshape(1, H * T, D).contiguous(), k, v, ks, vs, table, lens,
+            D ** -0.5, clamped, clamp2, T, nsplit, None)
+    got, glse = pd.paged_flash_decode_chunk(qc, k, v, table, lens, k_scale=ks, v_scale=vs,
+                                            return_lse=True)
+    ref2, rlse2 = plain_merge(*pd.paged_flash_decode_plain(*args), torch.bfloat16)
+    torch.cuda.synchronize()
+    ref = ref2.reshape(1, H, T, D).transpose(1, 2)
+    rlse = rlse2.reshape(1, H, T).transpose(1, 2)
+    err, share = row_err(got, ref)
+    lerr = float((glse - rlse).abs().max())
+    label = f"K8c D=64 int8 T={T} kv_len={kv_len} ({nsplit} splits)"
+    ok = checks.check(f"{label} out", share, 1.0) & checks.check(f"{label} lse", lerr, 1e-3)
+    worst = max(worst, err)
+    k8c_ms = cuda_ms(torch, lambda: pd.paged_flash_decode_cuda(*args))
+    pairs = sum(kv_len - (T - 1) + t for t in range(T))
+    kb_ms, kb_by = bound(2 * H * kv_len * (D + 4) + 2 * qc.numel() * 2 + glse.numel() * 4,
+                         4 * H * D * pairs)
+    say(f"  {label}: max_abs_err {err:.3e} ({share:.3f} of its row's tol), lse err {lerr:.3e} "
+        f"(tol 1e-3) {'ok' if ok else 'FAIL'} | {k8c_ms:.4f} ms, bound {kb_ms:.4f} ({kb_by})")
+    rows["K1c d64"]["k8c"] = dict(label=f"K8c T={T} kv_len={kv_len} page=128 int8", ms=k8c_ms,
+                                  bound_ms=kb_ms, bound_by=kb_by)
+    rows["K1c d64"]["max_abs_err"] = worst
+    del k, v, ks, vs, qc
+
+
+def check_k8_gpt2(torch, checks, rows):
+    """K8 in decode mode at head_dim 64, GPT-2 124M's paged step: B=8,
+    H = Hk = 12, pages of 128, 8 a sequence (1024 positions), bf16, int8
+    and fp8 pages, as check_k8 holds it (``_k8_decode_case``); the int8
+    point carries the "K8 d64" row's times."""
+    import torch.nn.functional as F
+
+    from flash_attn_tpu_torch.ops import paged_decode as pd
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 53)
+    worst = 0.0
+    for kv in ("bf16", "int8", "fp8"):
+        q, k, v, ks, vs, table, lens = _paged_inputs(torch, kv, g, 128, H=GPT2_H, Hk=GPT2_H,
+                                                     S=GPT2_S, D=GPT2_D)
+        err, args, nsplit, _ = _k8_decode_case(torch, checks, f"K8 D=64 decode {kv} page=128",
+                                               q, k, v, ks, vs, table, lens)
+        worst = max(worst, err)
+        if kv == "int8":
+            t = _k8_times(torch, pd, F, q, k, v, ks, vs, table, lens, args)
+            t["plain_ms"] = cuda_ms(torch, lambda: pd.paged_flash_decode_plain(*args), iters=3)
+            say(f"    K8 D=64 int8 page=128, lengths {lens.tolist()}: {t['ms']:.4f} ms (graph "
+                f"{t['graph_ms']:.4f}; as called, graph {t['call_graph_ms']:.4f}), plain "
+                f"{t['plain_ms']:.4f}, library (SDPA on the gathered, dequantized cache) "
+                f"{t['library_ms']:.4f}, bound {t['bound_ms']:.4f} ({t['bound_by']})")
+            rows["K8 d64"] = dict(
+                name=f"paged_decode, decode mode (B=8, H=Hk=12, D=64, page=128, 8 pages/seq, "
+                     f"int8 KV, {nsplit} live splits: GPT-2 124M)",
+                source="flash_attn_tpu_torch/csrc/paged_decode.cu",
+                replaces="flash_attn_tpu/ops/paged_decode.py:47", **t)
+        del q, k, v, ks, vs
+    rows["K8 d64"]["max_abs_err"] = worst
+
+
 def phase_kernels(torch, checks):
     t0 = time.perf_counter()
     rows = {}
@@ -2065,6 +2456,10 @@ def phase_kernels(torch, checks):
     check_k4_gemma(torch, checks, rows)
     check_k1_gemma(torch, checks, rows)
     check_k3_gemma(torch, checks, rows)
+    torch.cuda.empty_cache()
+    check_k4_gpt2(torch, checks, rows)
+    check_decode_gpt2(torch, checks, rows)
+    check_k8_gpt2(torch, checks, rows)
     torch.cuda.empty_cache()
     check_k9_k10(torch, checks, rows)
     torch.cuda.empty_cache()
@@ -2523,6 +2918,154 @@ def gemma_train_card_vs_cpu(torch, checks):
                        card, fwd, cfg.vocab_size, 1024, SEED + 15, t0)
 
 
+def _gpt2_cfg(**kw):
+    """GPT-2 124M's config in bf16 (BASELINE config 0's "BF16 weights"),
+    with ``kw`` replaced."""
+    from flash_attn_tpu_torch.models import gpt2
+
+    return dataclasses.replace(gpt2.GPT2_124M, dtype="bfloat16", **kw)
+
+
+def gpt2_card_vs_cpu(torch, checks):
+    """2 layers of GPT-2 at 124M widths, bf16, int8 KV, on the card (K4,
+    K1, K2, K1m, K1c and K8 at head_dim 64) and on the CPU (their plain
+    versions), fed the CPU's greedy tokens, the logits compared within 5 %
+    of the largest, as card_vs_cpu holds them: a 300- and a 37-token
+    prompt (prefill_with_kv, the 512 and 64 buckets) into slots 0 and 1 of
+    a cache of 1024 positions whose slot 2 is idle at 1030, past
+    max_position (its position index is clamped; both sides skip its
+    appends), then four decode steps, then decode_multi of 5 tokens; the
+    same two prompts packed (prefill_packed, 337 tokens in the 512 bucket)
+    beside a third of 57 (394 in 512); a 700-token prompt through
+    prefill_chunk in chunks of 256; the two prompts into a paged pool of
+    pages of 128 and four decode_step_paged steps.  An fp32 model on the
+    card must raise from the kernels' dtype checks, not be cast quietly."""
+    import numpy as np
+
+    from flash_attn_tpu_torch.engine.paged import PagedKVPool
+    from flash_attn_tpu_torch.models import gpt2
+
+    t0 = time.perf_counter()
+    cfg = _gpt2_cfg(num_layers=2)
+    card = gpt2.init_params(cfg, seed=SEED + 54, device="cuda")
+    sides = {"cpu": _to(card, "cpu"), "cuda": card}
+    rng = np.random.default_rng(SEED + 54)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (300, 37, 57)]
+    results = []
+
+    def compare(name, logits):
+        results.append((name, torch.stack(logits["cuda"]), torch.stack(logits["cpu"])))
+
+    # a prompt a call into a contiguous cache, an idle slot past max_position
+    caches = {d: gpt2.make_cache(cfg, 3, 1024, mode="int8", device=d) for d in sides}
+    logits = {d: [] for d in sides}
+    for slot, prompt in enumerate(prompts[:2]):
+        n = len(prompt)
+        bucket = 512 if n > 64 else 64
+        toks = torch.zeros((1, bucket), dtype=torch.long)
+        toks[0, :n] = torch.tensor(prompt)
+        for d, params in sides.items():
+            out, kvs = gpt2.prefill_with_kv(params, toks.to(d),
+                                            torch.arange(bucket, device=d)[None], cfg)
+            for layer, (k, v) in enumerate(kvs):
+                caches[d].insert_at(layer, slot, k[0, :n], v[0, :n], 0)
+            caches[d].set_length(slot, n)
+            logits[d].append(out[0, n - 1].float().cpu())
+    for d in sides:
+        caches[d].set_length(2, 1030)
+    compare("prefill_with_kv", logits)
+    nxt = torch.stack(logits["cpu"]).argmax(-1).tolist() + [0]
+    logits = {d: [] for d in sides}
+    for _ in range(4):
+        for d, params in sides.items():
+            out, _ = gpt2.decode_step(params, torch.tensor(nxt, device=d), cfg, caches[d])
+            logits[d].extend(out.float().cpu())
+        nxt = torch.stack(logits["cpu"][-3:]).argmax(-1).tolist()
+    compare("decode_step x4 (slot 2 idle past max_position)", logits)
+    lengths_ok = [int(x) for x in caches["cuda"].length] == [304, 41, 1034]
+    multi = torch.tensor([nxt[:1] + rng.integers(0, cfg.vocab_size, 4).tolist()
+                          for _ in range(3)])
+    logits = {d: list(gpt2.decode_multi(params, multi.to(d), cfg, caches[d])[0].float().cpu())
+              for d, params in sides.items()}
+    compare("decode_multi T=5", logits)
+    # packed: three prompts in the 512 bucket
+    toks = torch.zeros((1, 512), dtype=torch.long)
+    off = sum(len(p) for p in prompts)
+    toks[0, :off] = torch.tensor(sum(prompts, []))
+    seg, pos = _packed_positions(torch, [len(p) for p in prompts], 512)
+    logits = {d: list(gpt2.prefill_packed(params, toks.to(d), pos.to(d), seg.to(d), cfg)[0][
+        0, :off].float().cpu()) for d, params in sides.items()}
+    compare("prefill_packed", logits)
+    # chunks of 256 of a 700-token prompt
+    long = torch.from_numpy(rng.integers(0, cfg.vocab_size, 700))
+    ccache = {d: gpt2.make_cache(cfg, 2, 1024, mode="int8", device=d) for d in sides}
+    logits = {d: [] for d in sides}
+    for start in range(0, 700, 256):
+        n = min(256, 700 - start)
+        chunk = torch.zeros((1, 256), dtype=torch.long)
+        chunk[0, :n] = long[start:start + n]
+        for d, params in sides.items():
+            out, _ = gpt2.prefill_chunk(params, chunk.to(d), cfg, ccache[d], 1, start)
+            logits[d].extend(out[0, :n].float().cpu())
+    compare("prefill_chunk 3 x 256", logits)
+    # paged: the two prompts, then four steps
+    pools = {}
+    logits = {d: [] for d in sides}
+    for d, params in sides.items():
+        pool = PagedKVPool.create(2, 9, 128, 2, 4, cfg.num_heads, cfg.head_dim, mode="int8",
+                                  device=d, dtype=torch.bfloat16)
+        pool.assign_pages(0, [5, 1, 7]).assign_pages(1, [3, 8])
+        for slot, prompt in enumerate(prompts[:2]):
+            out, kvs = gpt2.prefill_with_kv(params, torch.tensor([prompt], device=d),
+                                            torch.arange(len(prompt), device=d)[None], cfg)
+            for layer, (k, v) in enumerate(kvs):
+                pool.append_prefill(layer, slot, k[0], v[0], 0)
+        pools[d] = pool.set_lengths([len(p) for p in prompts[:2]])
+    nxt = multi[:2, 0].clone()
+    for _ in range(4):
+        for d, params in sides.items():
+            out, _ = gpt2.decode_step_paged(params, nxt.to(d), cfg, pools[d])
+            logits[d].extend(out.float().cpu())
+        nxt = torch.stack(logits["cpu"][-2:]).argmax(-1)
+    compare("decode_step_paged x4", logits)
+    torch.cuda.synchronize()
+    parts = []
+    for name, got, ref in results:
+        finite = bool(torch.isfinite(got).all())
+        err = float((got - ref).abs().max())
+        # as card_vs_cpu: the sides round at the same points and sum in
+        # another order, which can flip a bf16 or int8-KV rounding that two
+        # layers carry on
+        tol = 5e-2 * float(ref.abs().max())
+        ok = checks.check(f"GPT-2 card vs cpu {name}", err, tol) and finite
+        if not finite:
+            checks.failed.append(f"GPT-2 card {name} not finite")
+        same = got.argmax(-1) == ref.argmax(-1)
+        parts.append(f"{name} {tuple(got.shape)} max_abs_err {err:.3e} (tol {tol:.3e}) greedy "
+                     f"agreement {int(same.sum())}/{same.numel()} {'ok' if ok else 'FAIL'}")
+    if not lengths_ok:
+        checks.failed.append(f"GPT-2 card vs cpu: lengths {caches['cuda'].length.tolist()}, "
+                             "expected [304, 41, 1034]")
+    # an fp32 model on the card: the kernels take bf16 only
+    f32 = gpt2.init_params(dataclasses.replace(cfg, dtype="float32", num_layers=1),
+                           seed=SEED + 55, device="cuda")
+    try:
+        gpt2.prefill_with_kv(f32, torch.zeros((1, 64), dtype=torch.long, device="cuda"),
+                             torch.arange(64, device="cuda")[None],
+                             dataclasses.replace(cfg, dtype="float32", num_layers=1))
+        raised = False
+    except ValueError:
+        raised = True
+    if not raised:
+        checks.failed.append("GPT-2 fp32 on the card did not raise from the kernels' dtype check")
+    say(f"[phase 3 card vs cpu, GPT-2: 2 layers at 124M widths, bf16, int8 KV] "
+        + "; ".join(parts) + f" | lengths after the decode steps "
+        f"{'ok' if lengths_ok else 'FAIL'} | fp32 on the card raises: {raised} | "
+        f"{time.perf_counter() - t0:.2f}s")
+    del sides, caches, ccache, pools, card, f32
+    torch.cuda.empty_cache()
+
+
 def _counters():
     """(name -> kernel wrapper, the K8 wrapper): K8 also counts its
     chunk-mode launches apart."""
@@ -2551,6 +3094,7 @@ def _reset_counts():
     wrappers["K1"].window_launches = wrappers["K1"].d256_launches = 0
     wrappers["K4"].seg_launches = wrappers["K4"].pos_launches = 0
     wrappers["K4"].window_launches = wrappers["K4"].d256_launches = 0
+    wrappers["K4"].d64_launches = wrappers["K1"].d64_launches = k8.d64_launches = 0
     for key in ("K9", "K10"):
         wrappers[key].window_launches = wrappers[key].d256_launches = 0
 
@@ -2560,9 +3104,10 @@ def _read_counts() -> dict:
     and BSHD, K8 into decode mode and chunk mode, K8's launches that
     merged their splits in the kernel ("K8 merges"), K4's launches with
     segment ids ("K4 seg"), with positions ("K4 pos"), with a window ("K4
-    window") and at head_dim 256 ("K4 d256"), which are also counted in
-    "K4", and K1's (decode mode), K9's and K10's with a window and at
-    head_dim 256."""
+    window") and at head_dim 256 ("K4 d256") or 64 ("K4 d64"), which are
+    also counted in "K4", K1's (decode mode), K9's and K10's with a window
+    and at head_dim 256, and K1's and K1c's together ("K1 d64") and K8's
+    and K8c's together ("K8 d64") at head_dim 64."""
     wrappers, k8 = _counters()
     counts = {k: fn.launches for k, fn in wrappers.items()}
     k1 = wrappers["K1"]
@@ -2578,6 +3123,9 @@ def _read_counts() -> dict:
     counts["K4 d256"] = wrappers["K4"].d256_launches
     counts["K1 window"] = k1.window_launches
     counts["K1 d256"] = k1.d256_launches
+    counts["K4 d64"] = wrappers["K4"].d64_launches
+    counts["K1 d64"] = k1.d64_launches
+    counts["K8 d64"] = k8.d64_launches
     for key in ("K9", "K10"):
         counts[f"{key} window"] = wrappers[key].window_launches
         counts[f"{key} d256"] = wrappers[key].d256_launches
@@ -2626,10 +3174,13 @@ def _decode_window(torch, eng):
 
 
 def serve(torch, checks, label, cfg, params, kv_mode, max_tokens, path, burst=1,
-          window=False, packed=True, chunk=None, adapter=None, capacity=4096, prompts=None):
-    """One engine run of 8 greedy requests (max_batch 8, ``capacity``) at
+          window=False, packed=True, chunk=None, adapter=None, capacity=4096, prompts=None,
+          max_batch=8, paged=False, spec=None):
+    """One engine run of greedy requests (``max_batch``, ``capacity``) at
     ``burst``, through ``adapter`` (default: Llama's for ``cfg``) on
-    ``prompts`` ((lengths, token lists); default ``_prompts``).  Every counter is set to 0 just before and read just after;
+    ``prompts`` ((lengths, token lists); default ``_prompts``), in
+    InferenceEngine (with ``spec``, its SpecConfig) or, with ``paged``,
+    PagedInferenceEngine (pages of 128, no prefix cache).  Every counter is set to 0 just before and read just after;
     each kernel in ``path`` must have launched.  The 8 prompts (3450
     tokens) go through one packed prefill, whose K4 calls carry segment
     ids (one a layer); with ``packed`` False the adapter has no
@@ -2647,7 +3198,7 @@ def serve(torch, checks, label, cfg, params, kv_mode, max_tokens, path, burst=1,
     import numpy as np
 
     from flash_attn_tpu_torch.engine import _graph
-    from flash_attn_tpu_torch.engine.engine import InferenceEngine
+    from flash_attn_tpu_torch.engine.engine import InferenceEngine, PagedInferenceEngine
     from flash_attn_tpu_torch.models import llama
 
     t1 = time.perf_counter()
@@ -2655,13 +3206,19 @@ def serve(torch, checks, label, cfg, params, kv_mode, max_tokens, path, burst=1,
     adapter = adapter or llama.make_adapter(cfg)
     if not packed:
         adapter = dataclasses.replace(adapter, prefill_packed=None)
-    eng = InferenceEngine(params, adapter, max_batch=8, capacity=capacity, kv_mode=kv_mode,
-                          device="cuda", decode_burst=burst, prefill_chunk_size=chunk)
+    if paged:
+        eng = PagedInferenceEngine(params, adapter, max_batch=max_batch, capacity=capacity,
+                                   page_size=128, kv_mode=kv_mode, device="cuda",
+                                   decode_burst=burst)
+    else:
+        eng = InferenceEngine(params, adapter, max_batch=max_batch, capacity=capacity,
+                              kv_mode=kv_mode, device="cuda", decode_burst=burst,
+                              prefill_chunk_size=chunk, spec=spec)
     between = [0]  # decode steps run while a prompt is mid-way through its chunks
     step = eng._do_decode_step
 
     def counted_step():
-        between[0] += bool(eng._prefilling)
+        between[0] += bool(getattr(eng, "_prefilling", ()))
         step()
 
     eng._do_decode_step = counted_step
@@ -2694,11 +3251,12 @@ def serve(torch, checks, label, cfg, params, kv_mode, max_tokens, path, burst=1,
     want = {"packed prefills": int(packed and not chunk),
             "K4 seg": cfg.num_layers * int(packed and not chunk),
             "K4 pos": cfg.num_layers * (n_chunks if chunk else int(packed))}
-    got = {"packed prefills": eng.packed_prefills, "K4 seg": counts["K4 seg"],
+    got = {"packed prefills": getattr(eng, "packed_prefills", 0), "K4 seg": counts["K4 seg"],
            "K4 pos": counts["K4 pos"]}
     if got != want:
         checks.failed.append(f"{label}: prefill paths {got}, expected {want}")
-    body = eng._burst_jit if burst > 1 else eng._decode_jit
+    body = eng._verify_jit if spec else eng._burst_jit if burst > 1 else eng._decode_jit
+    rounds = eng._verify_jit.calls if spec else 0
     dev_ms = None
     if _graph._enabled:
         if body.graph is None:
@@ -2710,7 +3268,7 @@ def serve(torch, checks, label, cfg, params, kv_mode, max_tokens, path, burst=1,
     prefill_tok_s = m.prefill_tokens / max(m.prefill_seconds, 1e-9)
     how = (f"{n_chunks} chunks of {chunk}, {between[0]} decode steps between them"
            if chunk else "one packed call" if packed else "one prompt a call")
-    say(f"[{label}] 8 requests, prompts {lens.tolist()}, {max_tokens} tokens each: "
+    say(f"[{label}] {len(prompts)} requests, prompts {lens.tolist()}, {max_tokens} tokens each: "
         f"{'ok' if good else 'FAIL'} | prefill {prefill_tok_s:.1f} tok/s ({how}) | decode "
         f"{tokens / max(secs, 1e-9):.1f} tok/s, {pos_ms:.3f} ms a decode position "
         f"({steps} dispatches of {burst} after {WARM_STEPS}"
@@ -2724,7 +3282,7 @@ def serve(torch, checks, label, cfg, params, kv_mode, max_tokens, path, burst=1,
     _free(torch)
     return dict(counts=counts, peak=peak, tokens=[r.generated for r in reqs], pos_ms=pos_ms,
                 tok_s=tokens / max(secs, 1e-9), dev_ms=dev_ms, window=win,
-                prefill_tok_s=prefill_tok_s, dispatches=dispatches)
+                prefill_tok_s=prefill_tok_s, dispatches=dispatches, rounds=rounds)
 
 
 def serve_ways(torch, checks, smi, label, cfg, params, max_tokens, path, eager_window):
@@ -3298,6 +3856,168 @@ def phase_gemma_train(torch, checks, smi):
                       GEMMA_TRAIN_SEQ, SEED + 16, want, t1)
 
 
+GPT2_TOKENS = 64             # greedy tokens a request in phase 12
+GPT2_BASELINE_PROMPT = 960   # BASELINE config 0: the prompt and its 64 tokens fill 1024
+
+
+def _same_tokens(run, want):
+    """(tokens equal, of all; each request's first divergence or None)."""
+    same = sum(a == b for r, w in zip(run["tokens"], want["tokens"]) for a, b in zip(r, w))
+    first = [next((i for i, (a, b) in enumerate(zip(r, w)) if a != b), None)
+             for r, w in zip(run["tokens"], want["tokens"])]
+    return same, sum(len(r) for r in want["tokens"]), first
+
+
+def phase_gpt2(torch, checks, smi):
+    """Phase 12: GPT-2 124M (BASELINE config 0's model: 12 layers, 12
+    heads of 64, hidden 768, vocab 50257, 1024 positions), bf16 weights
+    from the seed, max_batch 8, capacity 1024, 8 greedy prompts of 64-512
+    tokens from the seed (_gpt2_prompts), GPT2_TOKENS tokens each, one
+    prompt a prefill call (the prompts' total passes the capacity, so the
+    engine packs none): int8 KV eager (``disable_graphs()``), captured
+    (with a profiled window) and captured at decode_burst 4; fp8 KV eager
+    and captured; int8 KV with prefill_chunk_size 256, packed (capacity
+    4096, so the prompts fit one packed call), through
+    PagedInferenceEngine (pages of 128), and with n-gram speculation
+    (num_draft 4).  Eager, captured and burst 4 run the same kernels on
+    the same shapes, so their tokens must be equal (and fp8's two); the
+    paged and speculative runs share the captured run's prefill, so their
+    first tokens must equal its; the chunked and packed runs change the
+    prefill's arithmetic, and the paged and speculative decode run other
+    kernels (K8, K1c), whose sums in another order flip near-tied greedy
+    choices of random weights: their agreement with the captured run is
+    printed, with each request's first divergence.  The launches must show
+    the head_dim 64 kernels on every path: K4 12 a prefill call, K1, K2
+    and K1m 12 a decode step, K1c 12 a verify round, K8 12 a paged step.
+    Then BASELINE config 0 itself: batch 1, int8 KV, a
+    GPT2_BASELINE_PROMPT-token prompt whose GPT2_TOKENS tokens take the
+    sequence to 1024 positions, captured.  Returns {run label: counts}."""
+    import numpy as np
+
+    from flash_attn_tpu_torch.engine._graph import disable_graphs
+    from flash_attn_tpu_torch.engine.engine import SpecConfig
+    from flash_attn_tpu_torch.models import gpt2
+    from flash_attn_tpu_torch.utils import train
+
+    cfg = _gpt2_cfg()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = gpt2.init_params(cfg, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in train.param_leaves(params))
+    say(f"  GPT-2 124M params (bf16, {n_params} parameters, the tied head fp32 at first use) "
+        f"on the card in {time.perf_counter() - t0:.2f}s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    prompts = _gpt2_prompts(cfg.vocab_size)
+    L, n_tok = cfg.num_layers, GPT2_TOKENS
+    base = ("K1", "K1m", "K2", "K4", "K4 d64", "K1 d64")
+    kw = dict(adapter=gpt2.make_adapter(cfg), capacity=cfg.max_position, prompts=prompts,
+              packed=False)
+    with disable_graphs():
+        eager = serve(torch, checks, f"{RUN_GPT2}, eager", cfg, params, "int8", n_tok, base, **kw)
+    graph = serve(torch, checks, RUN_GPT2, cfg, params, "int8", n_tok, base, window=True, **kw)
+    burst = serve(torch, checks, f"{RUN_GPT2}, burst 4", cfg, params, "int8", n_tok, base,
+                  burst=4, **kw)
+    with disable_graphs():
+        f8e = serve(torch, checks, f"{RUN_GPT2_FP8}, eager", cfg, params, "fp8", n_tok, base,
+                    **kw)
+    f8 = serve(torch, checks, RUN_GPT2_FP8, cfg, params, "fp8", n_tok, base, **kw)
+    chunked = serve(torch, checks, RUN_GPT2_CHUNK, cfg, params, "int8", n_tok, base, chunk=256,
+                    **kw)
+    packed = serve(torch, checks, RUN_GPT2_PACKED, cfg, params, "int8", n_tok, base,
+                   **dict(kw, capacity=4096, packed=True))
+    paged = serve(torch, checks, RUN_GPT2_PAGED, cfg, params, "int8", n_tok,
+                  ("K4", "K8", "K8 d64"), paged=True, **kw)
+    spec = serve(torch, checks, RUN_GPT2_SPEC, cfg, params, "int8", n_tok,
+                 ("K1c", "K1m", "K4", "K1 d64"), spec=SpecConfig(num_draft=4, ngram=2), **kw)
+    for name, run, want in (("eager", eager, graph), ("burst 4", burst, graph),
+                            ("fp8 eager", f8e, f8)):
+        if run["tokens"] != want["tokens"]:
+            checks.failed.append(f"{RUN_GPT2}: {name} tokens differ from the captured run's")
+    for name, run in (("paged", paged), ("n-gram", spec)):
+        if [r[:1] for r in run["tokens"]] != [r[:1] for r in graph["tokens"]]:
+            checks.failed.append(f"{RUN_GPT2}: the {name} run's first tokens (the same "
+                                 "prefill) differ from the captured run's")
+    # the launches: every path at head_dim 64
+    n_req = len(prompts[1])
+    n_chunks = sum(-(-len(p) // 256) if len(p) > 256 else 1 for p in prompts[1])
+    expect = []
+    for name, run in (("eager", eager), ("captured", graph), ("fp8 eager", f8e), ("fp8", f8)):
+        steps = run["dispatches"]
+        expect.append((name, run, {"K4": L * n_req, "K4 d64": L * n_req, "K1": L * steps,
+                                   "K1 d64": L * steps, "K2": L * steps, "K1m": L * steps}))
+    expect.append(("prefill_chunk_size 256", chunked, {"K4": L * n_chunks,
+                                                       "K4 d64": L * n_chunks}))
+    expect.append(("packed", packed, {"K4": L, "K4 seg": L, "K4 d64": L}))
+    expect.append(("paged", paged, {"K4": L * n_req, "K8": L * paged["dispatches"],
+                                    "K8 d64": L * paged["dispatches"], "K1": 0}))
+    expect.append(("n-gram", spec, {"K1c": L * spec["rounds"],
+                                    "K1 d64": spec["counts"]["K1"] + L * spec["rounds"]}))
+    for name, run, want in expect:
+        got = {key: run["counts"][key] for key in want}
+        if got != want:
+            checks.failed.append(f"{RUN_GPT2}, {name}: launches {got}, expected {want}")
+    parts = []
+    for name, run in (("prefill_chunk_size 256", chunked), ("packed", packed),
+                      ("paged", paged), ("n-gram", spec)):
+        same, total, first = _same_tokens(run, graph)
+        parts.append(f"{name} {same}/{total} (first divergence {first})")
+    c, dev = graph["counts"], graph["dev_ms"]
+    say(f"[{RUN_GPT2}: eager / captured / burst 4 / fp8] {smi} | decode eager "
+        f"{eager['pos_ms']:.3f} ms a position ({eager['tok_s']:.1f} tok/s), captured "
+        f"{graph['pos_ms']:.3f} ms ({graph['tok_s']:.1f} tok/s), the card {dev:.3f} ms a position "
+        f"(graph replays; idle share unprofiled {1 - dev / graph['pos_ms']:.4f}), burst 4 "
+        f"{burst['pos_ms']:.3f} ms ({burst['tok_s']:.1f} tok/s, the card {burst['dev_ms']:.3f}), "
+        f"fp8 captured {f8['pos_ms']:.3f} ms ({f8['tok_s']:.1f} tok/s, the card "
+        f"{f8['dev_ms']:.3f}) | prefill {graph['prefill_tok_s']:.1f} tok/s (one prompt a call), "
+        f"chunks of 256 {chunked['prefill_tok_s']:.1f}, packed {packed['prefill_tok_s']:.1f} | "
+        f"paged {paged['pos_ms']:.3f} ms a position ({paged['tok_s']:.1f} tok/s), n-gram "
+        f"{spec['pos_ms']:.3f} ms a verify round ({spec['rounds']} rounds) | peak "
+        f"{graph['peak']:.3f} GiB | launches (captured): K4 {c['K4']} = {L} x {n_req} prefill "
+        f"calls, K1 {c['K1']} = K2 {c['K2']} = K1m {c['K1m']} = {L} x {graph['dispatches']} "
+        f"steps, all at head_dim 64 (K4 d64 {c['K4 d64']}, K1 d64 {c['K1 d64']}); K1c "
+        f"{spec['counts']['K1c']} = {L} x {spec['rounds']} verify rounds; K8 "
+        f"{paged['counts']['K8']} = {L} x {paged['dispatches']} paged steps | tokens equal to "
+        f"the captured run: eager {eager['tokens'] == graph['tokens']}, burst 4 "
+        f"{burst['tokens'] == graph['tokens']}, fp8 eager / captured "
+        f"{f8e['tokens'] == f8['tokens']}; " + "; ".join(parts))
+    wall, busy, top = graph["window"]
+    say(f"  captured window of {WINDOW_STEPS} steps ({smi}), torch.profiler: wall {wall:.3f} ms, "
+        f"card busy {busy:.3f} ms, idle share {1 - busy / wall:.4f}; top 5: "
+        + ", ".join(f"{n[:60]} {ms:.3f} ms x{cnt}" for n, ms, cnt in top))
+    # BASELINE config 0: batch 1, int8 KV, 1024 positions
+    rng = np.random.default_rng(SEED + 56)
+    one = (np.array([GPT2_BASELINE_PROMPT]),
+           [rng.integers(0, cfg.vocab_size, GPT2_BASELINE_PROMPT).tolist()])
+    with disable_graphs():
+        b_eager = serve(torch, checks, f"{RUN_GPT2_BASE}, eager", cfg, params, "int8", n_tok,
+                        base, max_batch=1, **dict(kw, prompts=one))
+    b = serve(torch, checks, RUN_GPT2_BASE, cfg, params, "int8", n_tok, base, max_batch=1,
+              **dict(kw, prompts=one))
+    if b["tokens"] != b_eager["tokens"]:
+        checks.failed.append(f"{RUN_GPT2_BASE}: eager tokens differ from the captured run's")
+    want = {"K4": L, "K1": L * b["dispatches"], "K2": L * b["dispatches"],
+            "K1m": L * b["dispatches"]}
+    got = {key: b["counts"][key] for key in want}
+    if got != want:
+        checks.failed.append(f"{RUN_GPT2_BASE}: launches {got}, expected {want}")
+    say(f"[{RUN_GPT2_BASE}] {smi} | decode captured {b['pos_ms']:.3f} ms a position "
+        f"({b['tok_s']:.1f} tok/s), eager {b_eager['pos_ms']:.3f} ms, the card "
+        f"{b['dev_ms']:.3f} ms a position (graph replays; idle share unprofiled "
+        f"{1 - b['dev_ms'] / b['pos_ms']:.4f}) | prefill {b['prefill_tok_s']:.1f} tok/s (the "
+        f"1024 bucket) | {GPT2_BASELINE_PROMPT} + {n_tok} = 1024 positions | peak "
+        f"{b['peak']:.3f} GiB | launches {got} | tokens equal eager / captured "
+        f"{b['tokens'] == b_eager['tokens']}")
+    runs = {label: run["counts"] for label, run in (
+        (RUN_GPT2, graph), (RUN_GPT2_FP8, f8), (RUN_GPT2_CHUNK, chunked),
+        (RUN_GPT2_PACKED, packed), (RUN_GPT2_PAGED, paged), (RUN_GPT2_SPEC, spec),
+        (RUN_GPT2_BASE, b))}
+    del params
+    _free(torch)
+    return runs
+
+
 RUN_8B_INT8 = "phase 4 serve Llama-3-8B int8, fp8 KV"
 RUN_8B_ONE = "phase 4 serve Llama-3-8B int8, fp8 KV, one prompt a prefill call"
 RUN_CHUNK = "phase 4c serve Llama-3-8B int8, fp8 KV, prefill_chunk_size 512"
@@ -3314,8 +4034,17 @@ RUN_TRAIN = (f"phase 8 train Llama-3 8B widths, {TRAIN_LAYERS} layers, B=1 S={TR
 RUN_GEMMA = "phase 10 serve Gemma-2-9B int8, fp8 KV"
 RUN_GEMMA_TRAIN = (f"phase 11 train Gemma-2 9B widths, {GEMMA_TRAIN_LAYERS} layers, B=1 "
                    f"S={GEMMA_TRAIN_SEQ}, {TRAIN_STEPS} AdamW steps")
+RUN_GPT2 = "phase 12 serve GPT-2 124M bf16, int8 KV"
+RUN_GPT2_FP8 = "phase 12 serve GPT-2 124M bf16, fp8 KV"
+RUN_GPT2_CHUNK = "phase 12 serve GPT-2 124M bf16, int8 KV, prefill_chunk_size 256"
+RUN_GPT2_PACKED = "phase 12 serve GPT-2 124M bf16, int8 KV, packed prefill (capacity 4096)"
+RUN_GPT2_PAGED = "phase 12 serve GPT-2 124M bf16, int8 KV, paged"
+RUN_GPT2_SPEC = "phase 12 serve GPT-2 124M bf16, int8 KV, n-gram speculation"
+RUN_GPT2_BASE = ("phase 12 BASELINE config 0: GPT-2 124M bf16, int8 KV, batch 1, "
+                 "1024 positions")
 KERNEL_ROWS = ("K1", "K1m", "K1c", "K1b", "K2", "K3", "K3g", "K4", "K5", "K6", "K7", "K8", "K8c",
-               "K9", "K10", "K4 d256", "K1 d256", "K2 d256", "K1m d256", "K9 d256", "K10 d256")
+               "K9", "K10", "K4 d256", "K1 d256", "K2 d256", "K1m d256", "K9 d256", "K10 d256",
+               "K4 d64", "K1 d64", "K1c d64", "K8 d64", "K2 d64", "K1m d64")
 # the run whose launches a kernel's row reports, and the count it reads:
 # the main path that the kernel serves (the 70B serve for the shared K1,
 # K1m, K2 and K4, the n-gram speculative serve for K1's chunk mode, the
@@ -3327,10 +4056,14 @@ ROW_RUN = {"K1": RUN_70B, "K1m": RUN_70B, "K1c": RUN_SPEC_NGRAM, "K1b": None, "K
            "K3": RUN_8B_INT8, "K3g": None, "K4": RUN_70B, "K5": RUN_8B_W4A8, "K6": RUN_70B,
            "K7": RUN_70B, "K8": RUN_PAGED, "K8c": RUN_PAGED, "K9": RUN_TRAIN, "K10": RUN_TRAIN,
            "K4 d256": RUN_GEMMA, "K1 d256": RUN_GEMMA, "K2 d256": RUN_GEMMA,
-           "K1m d256": RUN_GEMMA, "K9 d256": RUN_GEMMA_TRAIN, "K10 d256": RUN_GEMMA_TRAIN}
+           "K1m d256": RUN_GEMMA, "K9 d256": RUN_GEMMA_TRAIN, "K10 d256": RUN_GEMMA_TRAIN,
+           "K4 d64": RUN_GPT2, "K1 d64": RUN_GPT2, "K1c d64": RUN_GPT2_SPEC,
+           "K8 d64": RUN_GPT2_PAGED, "K2 d64": RUN_GPT2, "K1m d64": RUN_GPT2}
 # a row's count where it is not the row's own key: every K2 and K1m launch
-# of the Gemma-2-9B serve is at head_dim 256
-ROW_COUNT = {"K2 d256": "K2", "K1m d256": "K1m"}
+# of the Gemma-2-9B serve is at head_dim 256, and every launch of the GPT-2
+# serves at head_dim 64 (phase 12 holds the d64 counts equal)
+ROW_COUNT = {"K2 d256": "K2", "K1m d256": "K1m", "K4 d64": "K4", "K1 d64": "K1",
+             "K1c d64": "K1c", "K8 d64": "K8", "K2 d64": "K2", "K1m d64": "K1m"}
 
 
 def main() -> int:
@@ -3361,10 +4094,12 @@ def main() -> int:
     train_card_vs_cpu(torch, checks)
     gemma_card_vs_cpu(torch, checks)
     gemma_train_card_vs_cpu(torch, checks)
+    gpt2_card_vs_cpu(torch, checks)
     runs = phase_serve(torch, checks, smi)
     runs.update(phase_gemma(torch, checks, smi))
     runs[RUN_TRAIN] = phase_train(torch, checks, smi)
     runs[RUN_GEMMA_TRAIN] = phase_gemma_train(torch, checks, smi)
+    runs.update(phase_gpt2(torch, checks, smi))
     for key, row in rows.items():
         row["launches_run"] = ROW_RUN[key]
         row["launches"] = runs[ROW_RUN[key]][ROW_COUNT.get(key, key)] if ROW_RUN[key] else 0
@@ -3381,7 +4116,7 @@ def main() -> int:
                     library_ms=r["library_ms"],
                     **{k: r[k] for k in ("graph_ms", "call_graph_ms", "empty_graph_ms",
                                          "prompt", "also", "packed", "chunk", "gemma",
-                                         "sdpa_nocap_ms", "no_window") if k in r})
+                                         "sdpa_nocap_ms", "no_window", "k8c") if k in r})
                for r in (rows[k] for k in KERNEL_ROWS)]
     print(json.dumps({"kernels": kernels}))
     print(smi)

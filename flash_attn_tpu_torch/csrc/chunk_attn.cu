@@ -29,7 +29,7 @@
 //     tiles (16-byte copies, rows past the walk zero-filled); a tile never
 //     straddles a page, since a page is a multiple of 64;
 //   * once per block, all threads convert a landed int8 or e4m3 tile to bf16
-//     (exact) into K4's layout, two swizzled 64-column halves, then fence the
+//     (exact) into K4's layout, D / 64 swizzled 64-column parts, then fence the
 //     async proxy and meet at one barrier: every warpgroup reads the one copy.
 //     bf16 tiles land in that layout directly;
 //   * S = Q K^T and O += P V run on wgmma m64n64k16 (fatt::attn_qk,
@@ -50,26 +50,30 @@
 // Clamped mode: p = 2^min(s, clamp2) with log2(e) in the q pre-scale, no
 // running max; online mode keeps a running max in natural units.  A row
 // with no visible key writes out 0 and lse -1e30.
+//
+// Head dim 64 (GPT-2) or 128, a template parameter: at 64 a bf16 tile is
+// one swizzled 64-column part (8 KB a K or V tile of 64 keys), a raw
+// 1-byte row is 64 bytes (4 chunks, swizzled by raw_pos), QK^T takes 4
+// depth steps and PV one n64 product.
 #include "common.cuh"
 
 namespace {
 
 using fatt::kNegInf;
 
-constexpr int kD = 128;
 constexpr int kBK = 64;                   // keys per tile
 constexpr int kWgRows = 64;               // query rows per warpgroup
 constexpr int kWideW = 2;                 // warpgroups a block when R > 64
-constexpr int kTileBytes = kBK * kD * 2;  // a bf16 K or V tile
-constexpr int kRawBytes = kBK * kD;       // a 1-byte K or V tile
 
 // Shared memory from a 1024-byte boundary.  1-byte KV: the converted K and
-// V tiles, then a ring of three stages of raw K, raw V (128-byte rows,
-// chunk c of row r at chunk c ^ (r & 7)) and their 64 + 64 scales; 82.5 KB,
-// two blocks an SM.  bf16 KV: a ring of two stages of K and V tiles in the
-// operand layout; 65 KB.
-template <int KV>
+// V tiles, then a ring of three stages of raw K, raw V (kD-byte rows,
+// swizzled by raw_pos) and their 64 + 64 scales; 82.5 KB at kD = 128, two
+// blocks an SM.  bf16 KV: a ring of two stages of K and V tiles in the
+// operand layout; 65 KB at kD = 128.
+template <int KV, int kD>
 struct Layout {
+  static constexpr int kTileBytes = kBK * kD * 2;  // a bf16 K or V tile
+  static constexpr int kRawBytes = kBK * kD;       // a 1-byte K or V tile
   static constexpr bool kRaw = KV != fatt::kBf16;
   static constexpr int kStages = kRaw ? 3 : 2;
   static constexpr int kStageBytes = kRaw ? 2 * kRawBytes + 2 * kBK * 4 : 2 * kTileBytes;
@@ -115,9 +119,21 @@ __device__ __forceinline__ void to_bf16(const uint4& raw, uint4& lo, uint4& hi) 
   hi = make_uint4(w[4], w[5], w[6], w[7]);
 }
 
-template <int KV, int W, bool kPaged>
-__global__ void __launch_bounds__(128 * W, W == 1 ? 2 : 1) chunk_attn_kernel(const Params p) {
-  using L = Layout<KV>;
+// Byte offset of 16-byte chunk c of row r in a raw 1-byte tile of kD-byte
+// rows: eight consecutive rows at one chunk hit eight distinct bank groups
+// (at kD = 64 two rows share a 128-byte line, so the XOR takes r / 2).
+template <int kD>
+__device__ __forceinline__ int raw_pos(int r, int c) {
+  if constexpr (kD == 128) return r * 128 + ((c ^ (r & 7)) << 4);
+  return r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
+}
+
+template <int KV, int W, bool kPaged, int kD>
+__global__ void __launch_bounds__(128 * W, W == 1 ? (kD == 64 ? 3 : 2) : 1)
+    chunk_attn_kernel(const Params p) {
+  using L = Layout<KV, kD>;
+  constexpr int kTileBytes = L::kTileBytes;
+  constexpr int kRawBytes = L::kRawBytes;
   constexpr int kThreads = 128 * W;
   constexpr int kElem = L::kRaw ? 1 : 2;
   constexpr int kChunks = kD * kElem / 16;  // 16-byte chunks of a K/V row
@@ -168,7 +184,7 @@ __global__ void __launch_bounds__(128 * W, W == 1 ? 2 : 1) chunk_attn_kernel(con
       const int64_t off = (row0 + (in ? r : 0)) * (kD * kElem) + c * 16;
       uint32_t dst;
       if constexpr (L::kRaw) {
-        dst = st + r * 128 + ((c ^ (r & 7)) << 4);
+        dst = st + raw_pos<kD>(r, c);
       } else {
         dst = st + fatt::sw128<kBK>(r, c);
       }
@@ -235,12 +251,13 @@ __global__ void __launch_bounds__(128 * W, W == 1 ? 2 : 1) chunk_attn_kernel(con
       // Convert once for the block: 16-byte chunk c of raw row r into bf16
       // chunks 2c, 2c + 1; eight consecutive threads take eight rows, so
       // both the raw reads and the swizzled writes are free of conflicts.
+      constexpr int kRawChunks = kD / 16;
       const unsigned char* raw = sm + (st - base);
 #pragma unroll
-      for (int e = tid; e < 2 * kBK * 8; e += kThreads) {
-        const int half = e / (kBK * 8), r = e % kBK, c = (e / kBK) % 8;
+      for (int e = tid; e < 2 * kBK * kRawChunks; e += kThreads) {
+        const int half = e / (kBK * kRawChunks), r = e % kBK, c = (e / kBK) % kRawChunks;
         const uint4 x =
-            *reinterpret_cast<const uint4*>(raw + half * kRawBytes + r * 128 + ((c ^ (r & 7)) << 4));
+            *reinterpret_cast<const uint4*>(raw + half * kRawBytes + raw_pos<kD>(r, c));
         uint4 lo, hi;
         to_bf16<KV>(x, lo, hi);
         unsigned char* dst = sm + half * kTileBytes;
@@ -346,28 +363,36 @@ __global__ void __launch_bounds__(128 * W, W == 1 ? 2 : 1) chunk_attn_kernel(con
   }
 }
 
-template <int KV, int W, bool kPaged>
+template <int KV, int W, bool kPaged, int kD>
 int launch(const Params& p, int nsplit, cudaStream_t st) {
-  auto kernel = chunk_attn_kernel<KV, W, kPaged>;
+  auto kernel = chunk_attn_kernel<KV, W, kPaged, kD>;
   static fatt::SmemLimitSet smem_set;  // one for each instance
-  cudaError_t e = fatt::smem_limit_once(kernel, Layout<KV>::kBytes, smem_set);
+  constexpr int kBytes = Layout<KV, kD>::kBytes;
+  cudaError_t e = fatt::smem_limit_once(kernel, kBytes, smem_set);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((p.R + kWgRows * W - 1) / (kWgRows * W), p.B * p.Hk, nsplit);
-  kernel<<<grid, 128 * W, Layout<KV>::kBytes, st>>>(p);
+  kernel<<<grid, 128 * W, kBytes, st>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <int KV>
-int launch_kv(const Params& p, int nsplit, cudaStream_t st) {
+template <int KV, int kD>
+int launch_d(const Params& p, int nsplit, cudaStream_t st) {
   const bool wide = p.R > kWgRows;
   if (p.table != nullptr)
-    return wide ? launch<KV, kWideW, true>(p, nsplit, st) : launch<KV, 1, true>(p, nsplit, st);
-  return wide ? launch<KV, kWideW, false>(p, nsplit, st) : launch<KV, 1, false>(p, nsplit, st);
+    return wide ? launch<KV, kWideW, true, kD>(p, nsplit, st)
+                : launch<KV, 1, true, kD>(p, nsplit, st);
+  return wide ? launch<KV, kWideW, false, kD>(p, nsplit, st)
+              : launch<KV, 1, false, kD>(p, nsplit, st);
+}
+
+template <int KV>
+int launch_kv(const Params& p, int D, int nsplit, cudaStream_t st) {
+  return D == 64 ? launch_d<KV, 64>(p, nsplit, st) : launch_d<KV, 128>(p, nsplit, st);
 }
 
 }  // namespace
 
-// q: [B, Hk * R, D] bf16 rows, R = chunk * (H / Hk) per KV head in (t, g)
+// D: 64 or 128.  q: [B, Hk * R, D] bf16 rows, R = chunk * (H / Hk) per KV head in (t, g)
 // order.  table null: k, v a contiguous [B, Hk, S, D] cache (scales
 // [B, Hk, S]); else a pool [P, Hk, page, D] (scales [P, Hk, page]) through
 // table [B, max_pages] int32, page a multiple of 64.  Scales fp32, null for
@@ -381,7 +406,7 @@ extern "C" int fatt_chunk_attn(const void* q, const void* k, const void* v, cons
                                int kv_type, int num_splits, float qscale, int clamped,
                                float clamp2, void* stream) {
   const bool paged = table != nullptr;
-  if (D != kD || R < 1 || chunk < 1 || R % chunk != 0 || num_splits < 1 ||
+  if ((D != 64 && D != 128) || R < 1 || chunk < 1 || R % chunk != 0 || num_splits < 1 ||
       num_splits > 65535 || B < 1 || Hk < 1 || (int64_t)B * Hk > 65535 ||
       (paged ? (page < kBK || page % kBK != 0 || max_pages < 1) : S < 1) ||
       (kv_type != fatt::kBf16 && (ks == nullptr || vs == nullptr)))
@@ -400,11 +425,11 @@ extern "C" int fatt_chunk_attn(const void* q, const void* k, const void* v, cons
   auto st = static_cast<cudaStream_t>(stream);
   switch (kv_type) {
     case fatt::kBf16:
-      return launch_kv<fatt::kBf16>(p, num_splits, st);
+      return launch_kv<fatt::kBf16>(p, D, num_splits, st);
     case fatt::kInt8:
-      return launch_kv<fatt::kInt8>(p, num_splits, st);
+      return launch_kv<fatt::kInt8>(p, D, num_splits, st);
     case fatt::kFp8:
-      return launch_kv<fatt::kFp8>(p, num_splits, st);
+      return launch_kv<fatt::kFp8>(p, D, num_splits, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

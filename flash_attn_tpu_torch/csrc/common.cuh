@@ -257,16 +257,17 @@ __device__ __forceinline__ void wgmma_rs_s8(int (&d)[64], const uint32_t (&a)[4]
 
 #undef FATT_D8
 
-// Attention on wgmma over 64-key tiles at head dim 128 (K4 also 256), shared
-// by K4 and the chunk kernel (K1c/K8c).  A warpgroup holds 64 query rows; warp w of it rows
-// 16w.. , and this thread rows lane/4 and lane/4 + 8 of those.  A K or V
-// tile is 64 keys x 128 bf16 columns as two 64-column halves in the 128-byte
-// swizzle (sw128<64>), 8 KB each.
+// Attention on wgmma over 64-key tiles at head dim 64 or 128 (K4 also 256),
+// shared by K4 and the chunk kernel (K1c/K8c).  A warpgroup holds 64 query
+// rows; warp w of it rows 16w.. , and this thread rows lane/4 and lane/4 + 8
+// of those.  A K or V tile is 64 keys x D bf16 columns as D / 64 64-column
+// parts in the 128-byte swizzle (sw128<64>), 8 KB each.
 
 // S (64 x 64 fp32: s[j][e] is key 8j + 2(lane%4) + (e&1) of row lane/4 +
-// 8(e>>1)) = Q K^T, Q as A fragments (qf[kk]: columns 16kk..16kk+15), K
-// read by descriptor from the tile at shared address kt.
-__device__ __forceinline__ void attn_qk(float (&s)[8][4], const uint32_t (&qf)[8][4],
+// 8(e>>1)) = Q K^T, Q as A fragments (qf[kk]: columns 16kk..16kk+15, kK =
+// D / 16 of them), K read by descriptor from the tile at shared address kt.
+template <int kK>
+__device__ __forceinline__ void attn_qk(float (&s)[8][4], const uint32_t (&qf)[kK][4],
                                         uint32_t kt) {
 #pragma unroll
   for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
@@ -274,7 +275,7 @@ __device__ __forceinline__ void attn_qk(float (&s)[8][4], const uint32_t (&qf)[8
   pin(sd);
   wg_fence();
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) wgmma_rs<0>(sd, qf[kk], wg_desc(kmajor<64>(kt, kk)), kk > 0);
+  for (int kk = 0; kk < kK; ++kk) wgmma_rs<0>(sd, qf[kk], wg_desc(kmajor<64>(kt, kk)), kk > 0);
   wg_commit();
   wg_wait_all();
   pin(sd);
@@ -289,7 +290,7 @@ __device__ __forceinline__ void put_p(uint32_t (&pf)[4][4], int j, const float (
 
 // O (64 x 8kN fp32: o[j] columns 8j.., rows as s) += P V, V (a tile of
 // kN / 8 64-column parts) read N-major by descriptor from the tile at
-// shared address vt.  kN = 16 (head dim 128) or 32 (256).
+// shared address vt.  kN = 8 (head dim 64), 16 (128) or 32 (256).
 template <int kN>
 __device__ __forceinline__ void attn_pv(float (&o)[kN][4], const uint32_t (&pf)[4][4],
                                         uint32_t vt) {

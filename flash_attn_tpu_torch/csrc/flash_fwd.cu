@@ -1,12 +1,12 @@
-// K4: FlashAttention-2 forward, BSHD bf16, head_dim 128 or 256, causal
+// K4: FlashAttention-2 forward, BSHD bf16, head_dim 64, 128 or 256, causal
 // (bottom-right) GQA prefill with q-side RoPE applied in the kernel,
 // "clamped" or "online" softmax, fp32 LSE, an optional sliding window and
 // logit softcap (Gemma-2), and optional segment ids and positions (the
-// packed and chunked prefill's masks; head_dim 128, no window).
+// packed and chunked prefill's masks; head_dim 64 or 128, no window).
 //
 // Replaces flash_attn_tpu/ops/flash_fwd.py:_fwd_kernel (B7) on the subset
-// the Llama and Gemma-2 prefill paths and the training forward use
-// (models/llama.py, models/gemma2.py).
+// the Llama, Gemma-2 and GPT-2 prefill paths and the training forward use
+// (models/llama.py, models/gemma2.py, models/gpt2.py).
 //
 // Bound on the H100: operations.  At S = 2048, D = 128 the causal half of
 // QK^T and PV is ~4*S^2*D/2 flops per head against ~4*S*D bytes, far above
@@ -94,6 +94,12 @@
 //     JAX;
 //   * the q tiles keep the causal order (last first): in a chunk over a
 //     cache and within a packed prompt the later tiles see the most keys.
+//
+// Head dim 64 (GPT-2; the kD = 64 instances, with and without masks): a
+// bf16 row is 128 bytes, one swizzle atom, so a K/V tile is one 64-column
+// part (8 KB): QK^T takes 4 depth steps, PV one n64 product.  The O
+// accumulator (32 fp32 registers) and the ring (two stages of 16 KB) are
+// half of D = 128's, so ptxas is asked for four blocks an SM.
 #include "common.cuh"
 
 namespace {
@@ -113,7 +119,7 @@ constexpr int kFullBit = 1 << 30;  // list entry: live throughout, no mask
 constexpr float kClamp2 = 80.f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// The tile geometry of head dim kD (128 or 256).
+// The tile geometry of head dim kD (64, 128 or 256).
 template <int kD>
 struct Dims {
   static constexpr int kRowBytes = kD * 2;
@@ -148,7 +154,7 @@ __device__ __forceinline__ void attn_qk_smem(float (&s)[8][4], uint32_t qt, uint
   fatt::pin(sd);
 }
 
-// A K/V ring tile is two 64-column halves of kBK rows in the 128-byte
+// A K/V ring tile is kD / 64 64-column parts of kBK rows in the 128-byte
 // swizzle (fatt::sw128): every operand K4's products (fatt::attn_qk,
 // fatt::attn_pv) read from it spans one swizzle atom (K: 16 of 64 columns;
 // V: 64 of 64).
@@ -160,7 +166,7 @@ __device__ __forceinline__ void attn_qk_smem(float (&s)[8][4], uint32_t qt, uint
 // open) and the softcap (softcap2, the cap in base-2 units; 0 for none);
 // the others ignore all three.
 template <int kD, bool kMeta>
-__global__ void __launch_bounds__(kThreads, kD == 128 ? 2 : 1) flash_fwd_kernel(
+__global__ void __launch_bounds__(kThreads, kD == 64 ? 4 : kD == 128 ? 2 : 1) flash_fwd_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const float* __restrict__ cosv,
     const float* __restrict__ sinv, __nv_bfloat16* __restrict__ out,
@@ -324,10 +330,10 @@ __global__ void __launch_bounds__(kThreads, kD == 128 ? 2 : 1) flash_fwd_kernel(
     // the loop's fence and barrier order these stores before the first
     // product reads them
   }
-  // kD = 128: straight into the fragments: this thread holds columns 16kk +
-  // 2(lane%4) + {0, 1} (+ 8) of rows lane/4 and lane/4 + 8; column c < 64
-  // and its rotation partner c + 64 sit in fragments kk and kk + 4 of one
-  // thread.
+  // kD = 64, 128: straight into the fragments: this thread holds columns
+  // 16kk + 2(lane%4) + {0, 1} (+ 8) of rows lane/4 and lane/4 + 8; column
+  // c < kD/2 and its rotation partner c + kD/2 sit in fragments kk and
+  // kk + kD/32 of one thread.
   uint32_t qf[G::kQSmem ? 1 : kD / 16][4];  // this warp's 16 rows as A fragments
 #pragma unroll
   for (int hf = 0; hf < 2 && !G::kQSmem; ++hf) {
@@ -555,8 +561,9 @@ int launch(const void* q, const void* k, const void* v, const void* cosv,
 }
 
 bool bad_shape(int B, int Sq, int H, int Hk, int D) {
-  // Head dims 128 (Llama-3) and 256 (Gemma-2-9B) are built.
-  return H % Hk != 0 || (D != 128 && D != 256) || B > 65535 || (Sq + kBQ - 1) / kBQ > 65535;
+  // Head dims 64 (GPT-2), 128 (Llama-3) and 256 (Gemma-2-9B) are built.
+  return H % Hk != 0 || (D != 64 && D != 128 && D != 256) || B > 65535 ||
+         (Sq + kBQ - 1) / kBQ > 65535;
 }
 
 }  // namespace
@@ -572,7 +579,7 @@ bool bad_shape(int B, int Sq, int H, int Hk, int D) {
 // that head 0's blocks add their live and unmasked key tiles to.
 // window_left / window_right: the window's sides (-1 open); softcap2: the
 // logit softcap in base-2 units (cap * log2 e), 0 for none; both at
-// head_dim 256 only.  Masks at head_dim 128 only.
+// head_dim 256 only.  Masks at head_dim 64 and 128.
 extern "C" int fatt_flash_fwd(const void* q, const void* k, const void* v,
                               const void* cosv, const void* sinv, void* out,
                               void* lse, const void* qmeta, const void* kmeta,
@@ -587,10 +594,12 @@ extern "C" int fatt_flash_fwd(const void* q, const void* k, const void* v,
   // With masks a block lists at most kMaxListTiles key tiles.
   if (bad_shape(B, Sq, H, Hk, D) || window_left < -1 || window_right < -1 ||
       !(softcap2 >= 0.f) || (local && D != 256) ||
-      (given != 0 && (given != 4 || D != 128 || (Sk + kBK - 1) / kBK > kMaxListTiles)))
+      (given != 0 && (given != 4 || D == 256 || (Sk + kBK - 1) / kBK > kMaxListTiles)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto fn = D == 256 ? launch<256, false> : given != 0 ? launch<128, true> : launch<128, false>;
+  auto fn = D == 256  ? launch<256, false>
+            : D == 64 ? (given != 0 ? launch<64, true> : launch<64, false>)
+                      : (given != 0 ? launch<128, true> : launch<128, false>);
   return fn(q, k, v, cosv, sinv, out, lse, qmeta, kmeta, qrange, krange, tile_count, B, Sq,
             Sk, H, Hk, rope_bstride, eff_scale, causal, clamped, window_left, window_right,
             softcap2, st);

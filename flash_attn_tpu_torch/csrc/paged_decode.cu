@@ -51,6 +51,12 @@
 // Clamped mode drops the running max (p = 2^min(s, clamp2), base-2 scores
 // with log2(e) folded into the q pre-scale); online mode keeps natural
 // units.  A row with no visible key writes out 0 and lse -1e30.
+//
+// Head dim 64 (GPT-2) or 128, a template parameter.  At 64 a thread's K
+// fragments are one 16-byte chunk of its key row (1-byte pages) and V's
+// pairing reads 8 columns of four key rows, so logical column 8n + c is
+// column 8c + n (kD / 8 c + n in general); 64 of the 128 threads merge
+// the four warps' columns.
 #include "common.cuh"
 
 namespace {
@@ -61,16 +67,15 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBK = 64;            // keys per tile
 constexpr int kWK = kBK / kWarps;  // keys of a tile per warp
-constexpr int kD = 128;            // head dim
 constexpr int kRows = 16;          // query rows a block (R <= 16, padded)
-constexpr int kOLd = kD + 8;       // fp32 stride of a warp's O rows in the merge
 
 // Per warp: kStages stages of its 16 K rows, 16 V rows (in 16-byte chunks,
 // swizzled by chunk_pos) and, for 1-byte pages, their 16 + 16 scales.  The
 // warps' O, max and sum reuse the rings at the end.  49.5 KB (1-byte) or
-// 64 KB (bf16) a block.
-template <int KV>
+// 64 KB (bf16) a block at head dim kD = 128.
+template <int KV, int kD>
 struct Ring {
+  static constexpr int kOLd = kD + 8;  // fp32 stride of a warp's O rows in the merge
   static constexpr bool kRaw = KV != fatt::kBf16;
   static constexpr int kStages = kRaw ? 3 : 2;
   static constexpr int kChunks = kD * (kRaw ? 1 : 2) / 16;  // 16-byte chunks a row
@@ -103,11 +108,12 @@ struct Params {
 
 // Stored position of 16-byte chunk c of ring row r: the K reads (a quarter
 // warp takes two consecutive rows at four chunks) and the V reads (four
-// rows of one parity at two chunks) both hit eight distinct bank groups.
-template <int KV>
+// rows of one parity at two chunks) both hit eight distinct bank groups
+// (at kD = 64 1-byte rows are 64 bytes, and the V reads are two-way).
+template <int KV, int kD>
 __device__ __forceinline__ int chunk_pos(int r, int c) {
   if constexpr (KV != fatt::kBf16) {
-    return c ^ (r & 7);
+    return kD == 128 ? c ^ (r & 7) : c ^ ((r >> 1) & 3);
   } else {
     return c ^ (((r >> 1) & 1) | ((((r >> 2) ^ r) & 1) << 2));
   }
@@ -116,10 +122,10 @@ __device__ __forceinline__ int chunk_pos(int r, int c) {
 // The first of the four head-dim columns that depth step kk of this
 // thread's fragments holds (a0/b0: +0, +1; a2/b1: +2, +3): the thread's K
 // fragments are then consecutive bytes of its key row.
-template <int KV>
+template <int KV, int kD>
 __device__ __forceinline__ int kdim(int q4, int kk) {
   if constexpr (KV != fatt::kBf16) {
-    return 32 * q4 + 4 * kk;  // chunks 2 q4, 2 q4 + 1 of a 128-byte row
+    return kD / 4 * q4 + 4 * kk;  // chunks kD/64 q4 .. of a kD-byte row
   } else {
     return 32 * (kk >> 1) + 8 * q4 + 4 * (kk & 1);  // chunks q4, q4 + 4, ...
   }
@@ -156,9 +162,10 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <int KV>
+template <int KV, int kD>
 __global__ void __launch_bounds__(kThreads) paged_decode_kernel(const Params p) {
-  using L = Ring<KV>;
+  using L = Ring<KV, kD>;
+  constexpr int kOLd = L::kOLd;
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ int last;
   const int bh = blockIdx.x, b = bh / p.Hk, hk = bh % p.Hk;
@@ -204,7 +211,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(const Params p) 
       const int e = lane + 32 * u, r = e / L::kChunks, c = e % L::kChunks;
       const bool in = r < nvalid;
       const int64_t off = (row0 + (in ? r : 0)) * L::kRowBytes + c * 16;
-      const uint32_t dst = st + r * L::kRowBytes + chunk_pos<KV>(r, c) * 16;
+      const uint32_t dst = st + r * L::kRowBytes + chunk_pos<KV, kD>(r, c) * 16;
       fatt::cp_async16(dst, p.k + off, in ? 16 : 0);
       fatt::cp_async16(dst + L::kSliceBytes, p.v + off, in ? 16 : 0);
     }
@@ -237,7 +244,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(const Params p) 
         float2 x = make_float2(0.f, 0.f);
         if (in)
           x = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(src + kdim<KV>(q4, kk) + 2 * h2));
+              *reinterpret_cast<const __nv_bfloat162*>(src + kdim<KV, kD>(q4, kk) + 2 * h2));
         qf[kk][hf + 2 * h2] = fatt::pack_bf16(x.x * p.qscale, x.y * p.qscale);
       }
     }
@@ -259,7 +266,8 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(const Params p) 
     const unsigned char* st = ring + (t % L::kStages) * L::kStageBytes;
     const unsigned char* vt = st + L::kSliceBytes;
     auto chunk = [&](const unsigned char* tile, int r, int c) {
-      return *reinterpret_cast<const uint4*>(tile + r * L::kRowBytes + chunk_pos<KV>(r, c) * 16);
+      return *reinterpret_cast<const uint4*>(tile + r * L::kRowBytes +
+                                             chunk_pos<KV, kD>(r, c) * 16);
     };
 
     // S = Q K^T: s[j] holds keys 8j + 2 q4 + {0, 1} of the warp's 16.
@@ -269,7 +277,9 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(const Params p) 
       s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
       const int r = 8 * j + g;  // the key whose B fragment this thread holds
       if constexpr (L::kRaw) {
-        const uint4 x[2] = {chunk(st, r, 2 * q4), chunk(st, r, 2 * q4 + 1)};
+        uint4 x[kD / 64];
+#pragma unroll
+        for (int i = 0; i < kD / 64; ++i) x[i] = chunk(st, r, kD / 64 * q4 + i);
         const uint32_t* w = reinterpret_cast<const uint32_t*>(x);
 #pragma unroll
         for (int kk = 0; kk < kD / 16; ++kk)
@@ -277,7 +287,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(const Params p) 
                    pair_bf16<KV, 2, 3>(w[kk], w[kk]));
       } else {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < kD / 32; ++i) {
           const uint4 x = chunk(st, r, 4 * i + q4);
           mma16816(s[j], qf[2 * i], x.x, x.y);
           mma16816(s[j], qf[2 * i + 1], x.z, x.w);
@@ -346,16 +356,27 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(const Params p) 
     }
 
     // O += P V: B fragment n pairs keys (2 q4, 2 q4 + 1) and (2 q4 + 8,
-    // 2 q4 + 9) at column 16 g + n.
+    // 2 q4 + 9) at column kD / 8 g + n.
     if constexpr (L::kRaw) {
-      const uint4 va = chunk(vt, 2 * q4, g), vb = chunk(vt, 2 * q4 + 1, g);
-      const uint4 vc = chunk(vt, 2 * q4 + 8, g), vd = chunk(vt, 2 * q4 + 9, g);
-      const uint32_t* a = reinterpret_cast<const uint32_t*>(&va);
-      const uint32_t* bb = reinterpret_cast<const uint32_t*>(&vb);
-      const uint32_t* c = reinterpret_cast<const uint32_t*>(&vc);
-      const uint32_t* d = reinterpret_cast<const uint32_t*>(&vd);
+      // this thread's kD / 8 bytes of V row r: columns kD / 8 g ..
+      constexpr int kVW = kD / 32;
+      auto vrow = [&](int r, uint32_t (&w)[kVW]) {
+        if constexpr (kD == 128) {
+          const uint4 x = chunk(vt, r, g);
+          w[0] = x.x, w[1] = x.y, w[2] = x.z, w[3] = x.w;
+        } else {
+          const uint2 x = *reinterpret_cast<const uint2*>(
+              vt + r * L::kRowBytes + chunk_pos<KV, kD>(r, g >> 1) * 16 + (g & 1) * 8);
+          w[0] = x.x, w[1] = x.y;
+        }
+      };
+      uint32_t a[kVW], bb[kVW], c[kVW], d[kVW];
+      vrow(2 * q4, a);
+      vrow(2 * q4 + 1, bb);
+      vrow(2 * q4 + 8, c);
+      vrow(2 * q4 + 9, d);
 #pragma unroll
-      for (int w = 0; w < 4; ++w) {
+      for (int w = 0; w < kVW; ++w) {
         mma16816(o[4 * w], pf, pair_bf16<KV, 0, 0>(a[w], bb[w]), pair_bf16<KV, 0, 0>(c[w], d[w]));
         mma16816(o[4 * w + 1], pf, pair_bf16<KV, 1, 1>(a[w], bb[w]),
                  pair_bf16<KV, 1, 1>(c[w], d[w]));
@@ -366,9 +387,10 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(const Params p) 
       }
     } else {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const uint4 va = chunk(vt, 2 * q4, 2 * g + h), vb = chunk(vt, 2 * q4 + 1, 2 * g + h);
-        const uint4 vc = chunk(vt, 2 * q4 + 8, 2 * g + h), vd = chunk(vt, 2 * q4 + 9, 2 * g + h);
+      for (int h = 0; h < kD / 64; ++h) {
+        const int cv = kD / 64 * g + h;
+        const uint4 va = chunk(vt, 2 * q4, cv), vb = chunk(vt, 2 * q4 + 1, cv);
+        const uint4 vc = chunk(vt, 2 * q4 + 8, cv), vd = chunk(vt, 2 * q4 + 9, cv);
         const uint32_t* a = reinterpret_cast<const uint32_t*>(&va);
         const uint32_t* bb = reinterpret_cast<const uint32_t*>(&vb);
         const uint32_t* c = reinterpret_cast<const uint32_t*>(&vc);
@@ -404,11 +426,12 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(const Params p) 
   }
   __syncthreads();
 
-  // Thread tid merges logical column tid (head-dim column 16 (tid % 8) +
-  // tid / 8) of every row; a row is valid iff some unmasked score was seen.
+  // Thread tid < kD merges logical column tid (head-dim column kD / 8
+  // (tid % 8) + tid / 8) of every row; a row is valid iff some unmasked
+  // score was seen.
   const int64_t rows = (int64_t)p.B * p.Hk * R;
-  const int col = 16 * (tid % 8) + tid / 8;
-  for (int r = 0; r < R; ++r) {
+  const int col = kD / 8 * (tid % 8) + tid / 8;
+  for (int r = 0; r < R && tid < kD; ++r) {
     float m = kNegInf;
     if (!p.clamped) {
 #pragma unroll
@@ -456,20 +479,26 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(const Params p) 
   if (tid == 0) p.arrivals[bh] = 0;
 }
 
-template <int KV>
-int launch(const Params& p, int nsplit, cudaStream_t st) {
-  auto kernel = paged_decode_kernel<KV>;
+template <int KV, int kD>
+int launch_d(const Params& p, int nsplit, cudaStream_t st) {
+  auto kernel = paged_decode_kernel<KV, kD>;
   static fatt::SmemLimitSet smem_set;  // one for each instance
-  cudaError_t e = fatt::smem_limit_once(kernel, Ring<KV>::kBytes, smem_set);
+  constexpr int kBytes = Ring<KV, kD>::kBytes;
+  cudaError_t e = fatt::smem_limit_once(kernel, kBytes, smem_set);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(p.B * p.Hk, nsplit);
-  kernel<<<grid, kThreads, Ring<KV>::kBytes, st>>>(p);
+  kernel<<<grid, kThreads, kBytes, st>>>(p);
   return (int)cudaGetLastError();
+}
+
+template <int KV>
+int launch(const Params& p, int D, int nsplit, cudaStream_t st) {
+  return D == 64 ? launch_d<KV, 64>(p, nsplit, st) : launch_d<KV, 128>(p, nsplit, st);
 }
 
 }  // namespace
 
-// q: [B, Hk * R, D] bf16, R = H / Hk <= 16 rows per KV head; pages
+// q: [B, Hk * R, D] bf16 (D 64 or 128), R = H / Hk <= 16 rows per KV head; pages
 // [P, Hk, page, D], page a multiple of 64; scales [P, Hk, page] fp32 (null
 // for bf16 pages); block_table [B, max_pages] int32; kv_len [B] int32.
 // Writes out [B, Hk * R, D] bf16 and lse [B, Hk * R] fp32.  With
@@ -482,7 +511,7 @@ extern "C" int fatt_paged_decode(const void* q, const void* k, const void* v,
                                  void* part_lse, void* arrivals, int B, int Hk, int R,
                                  int page, int max_pages, int D, int kv_type, int num_splits,
                                  float qscale, int clamped, float clamp2, void* stream) {
-  if (D != kD || R < 1 || R > kRows || page < kBK || page % kBK != 0 || max_pages < 1 ||
+  if ((D != 64 && D != 128) || R < 1 || R > kRows || page < kBK || page % kBK != 0 || max_pages < 1 ||
       B < 1 || Hk < 1 || (int64_t)B * Hk > 0x7fffffff || num_splits < 1 ||
       num_splits > 65535 ||
       (num_splits > 1 && (part_out == nullptr || part_lse == nullptr || arrivals == nullptr)) ||
@@ -504,11 +533,11 @@ extern "C" int fatt_paged_decode(const void* q, const void* k, const void* v,
   auto st = static_cast<cudaStream_t>(stream);
   switch (kv_type) {
     case fatt::kBf16:
-      return launch<fatt::kBf16>(p, num_splits, st);
+      return launch<fatt::kBf16>(p, D, num_splits, st);
     case fatt::kInt8:
-      return launch<fatt::kInt8>(p, num_splits, st);
+      return launch<fatt::kInt8>(p, D, num_splits, st);
     case fatt::kFp8:
-      return launch<fatt::kFp8>(p, num_splits, st);
+      return launch<fatt::kFp8>(p, D, num_splits, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

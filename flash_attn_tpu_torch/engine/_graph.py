@@ -45,11 +45,11 @@ from flash_attn_tpu_torch.ops.paged_decode import paged_flash_decode_cuda
 # every launch counter of the wrappers a body may reach
 _COUNTERS = (
     (flash_decode_cuda, ("launches", "chunk_launches", "bshd_launches", "window_launches",
-                         "d256_launches")),
-    (paged_flash_decode_cuda, ("launches", "chunk_launches", "merges")),
+                         "d256_launches", "d64_launches")),
+    (paged_flash_decode_cuda, ("launches", "chunk_launches", "merges", "d64_launches")),
     (kv_append_cuda, ("launches",)),
     (lse_merge_cuda, ("launches",)),
-    (flash_fwd_cuda, ("launches", "d256_launches", "window_launches")),
+    (flash_fwd_cuda, ("launches", "d256_launches", "d64_launches", "window_launches")),
     (_mm.matmul_int8_cuda, ("launches",)),
     (_mm.matmul_int8_grouped_cuda, ("launches",)),
     (_mm.matmul_int4_cuda, ("launches",)),

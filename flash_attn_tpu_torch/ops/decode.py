@@ -413,7 +413,8 @@ def flash_decode_cuda(q, k, v, k_scale, v_scale, kv_length, scale, clamped,
     (csrc/chunk_attn.cu).  Returns (out, lse): with one split out is [1,
     B, rows, D] bf16 written by the kernel, else fp32 partials [n, B,
     rows, D].  Besides ``.launches`` it counts K1's windowed launches in
-    ``.window_launches`` and those at head_dim 256 in ``.d256_launches``."""
+    ``.window_launches``, those at head_dim 256 in ``.d256_launches``, and
+    K1's and K1c's at head_dim 64 in ``.d64_launches``."""
     B, rows, D = q.shape
     Hk, S = _heads_len(k, layout)
     if q.dtype != torch.bfloat16:
@@ -432,9 +433,9 @@ def flash_decode_cuda(q, k, v, k_scale, v_scale, kv_length, scale, clamped,
         raise NotImplementedError("K1 takes a window and a softcap in decode mode over a "
                                   "BHSD cache only")
     live_walk = window is not None
-    if (tiled or live_walk) != (split_len is None) or (tiled and D != 128):
+    if (tiled or live_walk) != (split_len is None) or (tiled and D not in (64, 128)):
         raise ValueError("K1c (chunk > 1 or more than ROWS heads per KV head) and a "
-                         "windowed K1 take split_len None, K1c D = 128; K1 a split_len")
+                         "windowed K1 take split_len None, K1c D = 64 or 128; K1 a split_len")
     if kv_length.dtype != torch.int32 or kv_length.shape != (B,):
         raise ValueError("kv_length must be [B] int32")
     tensors = [q, k, v, kv_length]
@@ -478,15 +479,17 @@ def flash_decode_cuda(q, k, v, k_scale, v_scale, kv_length, scale, clamped,
         flash_decode_cuda.window_launches += live_walk
         flash_decode_cuda.d256_launches += D == 256
     flash_decode_cuda.launches += 1
+    flash_decode_cuda.d64_launches += D == 64
     if layout == "bshd":
         flash_decode_cuda.bshd_launches += 1
     return (out if nsplit == 1 else part), lse
 
 
-# every launch (K1 and K1c), those of them on K1c and on a BSHD cache, and
-# K1's with a window and at head_dim 256
+# every launch (K1 and K1c), those of them on K1c and on a BSHD cache,
+# K1's with a window and at head_dim 256, and K1's and K1c's at head_dim 64
 flash_decode_cuda.launches = 0
 flash_decode_cuda.chunk_launches = 0
 flash_decode_cuda.bshd_launches = 0
 flash_decode_cuda.window_launches = 0
 flash_decode_cuda.d256_launches = 0
+flash_decode_cuda.d64_launches = 0

@@ -1,8 +1,8 @@
 """FlashAttention-2 forward (kernel K4, ``csrc/flash_fwd.cu``).
 
 Port of flash_attn_tpu/ops/flash_fwd.py:flash_fwd for the subset the
-Llama and Gemma-2 prefill paths use: BSHD layout, GQA, head_dim 128 or
-256 on the card (any in the plain version), bottom-right causal mask,
+Llama, Gemma-2 and GPT-2 prefill paths use: BSHD layout, GQA, head_dim
+64, 128 or 256 on the card (any in the plain version), bottom-right causal mask,
 segment ids and positions (the packed and chunked prefill's masks), a
 sliding window, the Gemma-2 logit softcap, q-side RoPE inside the
 kernel, softmax_mode "clamped" or "online", fp32 LSE.  A window or a
@@ -234,17 +234,19 @@ def flash_fwd_cuda(q, k, v, causal, scale, rope_cos, rope_sin, clamped, masks=No
     bound by operations (see the source note in csrc/flash_fwd.cu).  With
     masks it counts its launches also in ``.seg_launches`` (segment ids
     given) and ``.pos_launches`` (positions given); at head_dim 256 also
-    in ``.d256_launches``, with a window in ``.window_launches``."""
+    in ``.d256_launches``, at 64 in ``.d64_launches``, with a window in
+    ``.window_launches``."""
     B, Sq, H, D = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
         raise ValueError("K4 takes bf16 q, k, v")
-    if D not in (128, 256):
-        raise ValueError(f"K4 takes head_dim 128 (Llama-3) or 256 (Gemma-2-9B), got {D}")
+    if D not in (64, 128, 256):
+        raise ValueError(f"K4 takes head_dim 64 (GPT-2), 128 (Llama-3) or 256 (Gemma-2-9B), "
+                         f"got {D}")
     local = window is not None or softcap is not None
-    if (D == 256 and masks is not None) or (D == 128 and local):
-        raise NotImplementedError("K4 takes segment ids and positions at head_dim 128, a "
-                                  "window and a softcap at head_dim 256")
+    if (D == 256 and masks is not None) or (D != 256 and local):
+        raise NotImplementedError("K4 takes segment ids and positions at head_dim 64 and "
+                                  "128, a window and a softcap at head_dim 256")
     tensors = [q, k, v]
     bstride = 0
     if rope_cos is not None:
@@ -275,6 +277,7 @@ def flash_fwd_cuda(q, k, v, causal, scale, rope_cos, rope_sin, clamped, masks=No
         flash_fwd_cuda.seg_launches += masks.q_segment_ids is not None
         flash_fwd_cuda.pos_launches += masks.q_positions is not None
     flash_fwd_cuda.d256_launches += D == 256
+    flash_fwd_cuda.d64_launches += D == 64
     flash_fwd_cuda.window_launches += window is not None
     return out, lse
 
@@ -283,4 +286,5 @@ flash_fwd_cuda.launches = 0
 flash_fwd_cuda.seg_launches = 0
 flash_fwd_cuda.pos_launches = 0
 flash_fwd_cuda.d256_launches = 0
+flash_fwd_cuda.d64_launches = 0
 flash_fwd_cuda.window_launches = 0

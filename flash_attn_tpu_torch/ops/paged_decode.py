@@ -49,7 +49,7 @@ from flash_attn_tpu_torch.ops.decode import (
 TILE = 64
 # K8 takes at most this many query rows per KV head; more go to K8c.
 _MAX_GROUP = 16
-_HEAD_DIM = 128
+_HEAD_DIMS = (64, 128)
 # K8's (sequence, KV head, split) blocks to aim at: three per SM of the
 # H100's 132, as many as its registers hold (157-168 a thread).  Measured
 # best of 132-792 over both of chip_smoke.py's sets of lengths: more blocks
@@ -227,10 +227,10 @@ def paged_flash_decode_cuda(q, k_pages, v_pages, k_scale, v_scale,
     replace flash_attn_tpu/ops/paged_decode.py:_paged_decode_kernel: K8 in
     decode mode, bound by bytes (csrc/paged_decode.cu); K8c in chunk mode,
     bound by operations at T = 128, and decode calls with more than 16
-    heads per KV head (csrc/chunk_attn.cu).  Both split the live walk
-    (``split_len`` None).  Returns (out, lse): K8 merges its splits in the
-    kernel, so out is [1, B, H, D] bf16; K8c writes that with one split,
-    else fp32 partials [n, B, H, D] for K1m."""
+    heads per KV head (csrc/chunk_attn.cu).  Both take head_dim 64 or 128
+    and split the live walk (``split_len`` None).  Returns (out, lse): K8
+    merges its splits in the kernel, so out is [1, B, H, D] bf16; K8c
+    writes that with one split, else fp32 partials [n, B, H, D] for K1m."""
     B, H, D = q.shape
     P, Hk, page, _ = k_pages.shape
     max_pages = block_table.shape[1]
@@ -239,8 +239,8 @@ def paged_flash_decode_cuda(q, k_pages, v_pages, k_scale, v_scale,
         raise ValueError("K8 takes a bf16 query")
     if k_pages.dtype not in _KV_TYPES or v_pages.dtype != k_pages.dtype:
         raise ValueError(f"K8 takes bf16, int8 or fp8 pages, got {k_pages.dtype}")
-    if D != _HEAD_DIM or split_len is not None:
-        raise ValueError(f"K8 and K8c need head_dim {_HEAD_DIM} and split the live walk "
+    if D not in _HEAD_DIMS or split_len is not None:
+        raise ValueError(f"K8 and K8c need head_dim 64 or 128 and split the live walk "
                          f"(split_len None); got D={D}, split_len={split_len}")
     if page % TILE:
         raise ValueError(f"K8 takes pages of a multiple of {TILE} tokens, got {page}")
@@ -276,6 +276,7 @@ def paged_flash_decode_cuda(q, k_pages, v_pages, k_scale, v_scale,
         _build.check(rc, "fatt_chunk_attn")
         paged_flash_decode_cuda.chunk_launches += 1
         paged_flash_decode_cuda.launches += 1
+        paged_flash_decode_cuda.d64_launches += D == 64
         return (out if nsplit == 1 else part), lse
     out = torch.empty((1, B, H, D), dtype=torch.bfloat16, device=q.device)
     lse = torch.empty((1, B, H), dtype=torch.float32, device=q.device)
@@ -290,12 +291,15 @@ def paged_flash_decode_cuda(q, k_pages, v_pages, k_scale, v_scale,
         _build.stream())
     _build.check(rc, "fatt_paged_decode")
     paged_flash_decode_cuda.launches += 1
+    paged_flash_decode_cuda.d64_launches += D == 64
     if nsplit > 1:
         paged_flash_decode_cuda.merges += 1
     return out, lse
 
 
-# every launch (K8 and K8c), those of them on K8c, and K8's in-kernel merges
+# every launch (K8 and K8c), those of them on K8c, K8's in-kernel merges,
+# and the launches (K8 and K8c) at head_dim 64
 paged_flash_decode_cuda.launches = 0
 paged_flash_decode_cuda.chunk_launches = 0
+paged_flash_decode_cuda.d64_launches = 0
 paged_flash_decode_cuda.merges = 0

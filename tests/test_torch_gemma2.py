@@ -130,14 +130,14 @@ def test_flash_fwd_window_and_softcap_arguments():
     a, _ = ff.flash_fwd(q + 1, q, q, causal=True, window=(-1, -1))
     b, _ = ff.flash_fwd(q + 1, q, q, causal=True)
     assert torch.equal(a, b)
-    bf = torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16)
+    bf = torch.zeros(1, 8, 2, 32, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
         ff.flash_fwd_cuda(bf, bf, bf, True, 1.0, None, None, True)
-    # the window and the softcap at head_dim 256, masks at 128
+    # the window and the softcap at head_dim 256, masks at 64 and 128
     b128, b256 = (torch.zeros(1, 8, 2, d, dtype=torch.bfloat16) for d in (128, 256))
     with pytest.raises(NotImplementedError, match="head_dim 256"):
         ff.flash_fwd_cuda(b128, b128, b128, True, 1.0, None, None, True, None, (4, -1))
-    with pytest.raises(NotImplementedError, match="head_dim 128"):
+    with pytest.raises(NotImplementedError, match="head_dim 64 and 128"):
         ff.flash_fwd_cuda(b256, b256, b256, False, 1.0, None, None, True,
                           ff.Masks(None, None, ids, ids))
     assert ff.flash_fwd_cuda.launches == 0
