@@ -61,7 +61,9 @@ Phases, one line each with its seconds:
      (bf16, int8, fp8) and B=1 over 1024 positions, K1m on its partials,
      K1c at T=5 (int8, fp8), one K8c point (T=128 over pages of 128), K2
      bit for bit, and K8 at pages of 128 (bf16, int8, fp8, against K1 on
-     the same content); then once
+     the same content); K9 and K10 at head_dim 64 (B=8, S=1024, H=Hk=12,
+     causal, timed beside SDPA's backward; a ragged shifted Sq=1000
+     Sk=1500 with GQA 12/4 and rope; non-causal at B=2 with rope); then once
      each what the main paths do not run: group sizes 32 and 64, K7's
      bf16 output, and the int8, int4 and W4A8 LM heads' fp32 activations
      or output;
@@ -85,7 +87,9 @@ Phases, one line each with its seconds:
      KV): two prompts, four decode steps with an idle slot past
      max_position, decode_multi of 5 tokens, prefill_packed of three
      prompts, prefill_chunk in chunks of 256 and four paged decode steps
-     against the CPU, and an fp32 model on the card must raise;
+     against the CPU, and an fp32 model on the card must raise; one GPT-2
+     training loss and every gradient (2 layers at 124M widths, bf16, B=1,
+     S=1024, remat) against the CPU;
   4-6. the main paths, each model alone on the card, served by the
      continuous-batching engine (8 greedy requests, prompts of 128-1024
      tokens from the seed) with its decode bodies replayed from CUDA
@@ -150,7 +154,15 @@ Phases, one line each with its seconds:
      equal to the captured run's, agreement printed), each with the
      launches at head_dim 64 (K4 12 a prefill call; K1, K2, K1m 12 a
      decode step; K1c 12 a verify round; K8 12 a paged step); then
-     BASELINE config 0: batch 1, int8 KV, 960 + 64 = 1024 positions.
+     BASELINE config 0: batch 1, int8 KV, 960 + 64 = 1024 positions; then
+     the perplexity line: utils/ppl.kv_ppl_delta on the same params, the
+     960-token prompt and 64 tokens from the seed, bf16, int8 and fp8 KV
+     (each |delta ppl| under 5 % of the bf16 cache's);
+  13. (run right after phase 12) training: GPT-2 124M at full depth (bf16
+     params and moments from the seed), B=8, S=1024, 5 AdamW steps (remat
+     on): losses finite and falling, ms per step beside its bound (the
+     fp32 products at 67 TFLOP/s and attention at 989), tokens/s, peak
+     memory, and K9 = K10 = 12 a step, K4 24, all at head_dim 64.
 
 Before the last line come the kernels' JSON record (each row's launches
 are those of the run named in its "launches_run"; the quantized matmuls'
@@ -180,6 +192,7 @@ from typing import NamedTuple
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor cores
+F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8 tensor cores
 MAX_70B_GIB = 75.0             # the 70B serve fails above this peak
 MAX_TRAIN_GIB = 75.0           # the training run fails above this peak
@@ -1430,11 +1443,11 @@ def _bwd_case(torch, checks, worst, label, args, tail, causal):
 
 class BwdCase(NamedTuple):
     """One K9/K10 case of check_k9_k10: shape, options (scale D^-0.5, rope
-    theta Llama-3's at D=128 and Gemma-2's at D=256), ``q_mult`` scales q
-    so that the scores reach the cap, and ``row`` says where this case's
-    times go in the kernels' rows of its head dim (K9 and K10 at 128, K9
-    d256 and K10 d256 at 256): None nowhere, "" the rows themselves, else
-    the name of a sub-dict of them."""
+    theta Llama-3's at D=128, else 10000), ``q_mult`` scales q so that the
+    scores reach the cap, and ``row`` says where this case's times go in
+    the kernels' rows of its head dim (K9 and K10 at 128, K9 d256 and K10
+    d256 at 256, K9 d64 and K10 d64 at 64): None nowhere, "" the rows
+    themselves, else the name of a sub-dict of them."""
     B: int
     Sq: int
     Sk: int
@@ -1470,7 +1483,12 @@ class BwdCase(NamedTuple):
 # (t to ~0.8), windowed and causal.  (Bending it with q x8 at cap 50 makes
 # the softmax of the first queries one-hot, whose dq is then fp32 noise on
 # both sides, as for a query that sees one key; chip_tools/k9_probe.py
-# reports that case.)
+# reports that case.)  At GPT-2's D=64 (H = Hk = 12, no rope in the model):
+# the training shape B=8 S=1024 causal (the rows K9 d64 and K10 d64), a
+# ragged shifted case with GQA 12/4 and rope (K9's rope pull-back at 64
+# pairs a column with the one 32 away, inside the one 64-column part: a
+# missed pull-back fails here), and non-causal at B=2 with per-sequence
+# rope.
 BWD_CASES = (
     BwdCase(1, 2048, 2048, 32, 8, 128, True, True, row=""),
     BwdCase(1, 1000, 1500, 32, 8, 128, True, False),
@@ -1485,6 +1503,9 @@ BWD_CASES = (
     BwdCase(1, 4200, 4200, 16, 8, 256, True, True, (4095, -1), 50.0),
     BwdCase(1, 2048, 2048, 16, 8, 256, True, True, (1023, -1), 5.0),
     BwdCase(1, 2048, 2048, 16, 8, 256, True, True, None, 5.0),
+    BwdCase(8, 1024, 1024, 12, 12, 64, True, False, row=""),
+    BwdCase(1, 1000, 1500, 12, 4, 64, True, True),
+    BwdCase(2, 1024, 1024, 12, 12, 64, False, True),
 )
 
 
@@ -2926,6 +2947,20 @@ def _gpt2_cfg(**kw):
     return dataclasses.replace(gpt2.GPT2_124M, dtype="bfloat16", **kw)
 
 
+def gpt2_train_card_vs_cpu(torch, checks):
+    """The training check for GPT-2: 2 layers at 124M widths, bf16, B=1,
+    S=1024 (K4, K9 and K10 at head_dim 64; the tied wte through the
+    gather and the head)."""
+    from flash_attn_tpu_torch.models import gpt2
+
+    t0 = time.perf_counter()
+    cfg = _gpt2_cfg(num_layers=2)
+    card = gpt2.init_params(cfg, seed=SEED + 17, device="cuda")
+    fwd = lambda p, tokens, remat: gpt2.forward(p, tokens, cfg, remat=remat)  # noqa: E731
+    _train_card_vs_cpu(torch, checks, "GPT-2 training: 2 layers at 124M widths", "GPT-2 ", card,
+                       fwd, cfg.vocab_size, 1024, SEED + 17, t0)
+
+
 def gpt2_card_vs_cpu(torch, checks):
     """2 layers of GPT-2 at 124M widths, bf16, int8 KV, on the card (K4,
     K1, K2, K1m, K1c and K8 at head_dim 64) and on the CPU (their plain
@@ -3097,6 +3132,7 @@ def _reset_counts():
     wrappers["K4"].d64_launches = wrappers["K1"].d64_launches = k8.d64_launches = 0
     for key in ("K9", "K10"):
         wrappers[key].window_launches = wrappers[key].d256_launches = 0
+        wrappers[key].d64_launches = 0
 
 
 def _read_counts() -> dict:
@@ -3107,7 +3143,8 @@ def _read_counts() -> dict:
     window") and at head_dim 256 ("K4 d256") or 64 ("K4 d64"), which are
     also counted in "K4", K1's (decode mode), K9's and K10's with a window
     and at head_dim 256, and K1's and K1c's together ("K1 d64") and K8's
-    and K8c's together ("K8 d64") at head_dim 64."""
+    and K8c's together ("K8 d64") at head_dim 64, and K9's and K10's at
+    head_dim 64."""
     wrappers, k8 = _counters()
     counts = {k: fn.launches for k, fn in wrappers.items()}
     k1 = wrappers["K1"]
@@ -3129,6 +3166,7 @@ def _read_counts() -> dict:
     for key in ("K9", "K10"):
         counts[f"{key} window"] = wrappers[key].window_launches
         counts[f"{key} d256"] = wrappers[key].d256_launches
+        counts[f"{key} d64"] = wrappers[key].d64_launches
     return counts
 
 
@@ -3763,13 +3801,15 @@ def phase_gemma(torch, checks, smi):
     return runs
 
 
-def _train_run(torch, checks, smi, run, params, fwd, vocab, seq, seed, want, t1):
+def _train_run(torch, checks, smi, run, params, fwd, vocab, seq, seed, want, t1, batch=1,
+               bound_ms=None):
     """TRAIN_STEPS AdamW steps (the default TrainConfig: lr 3e-4, weight
-    decay 0.1, clip 1.0, remat on) of ``params`` on one batch of B=1,
+    decay 0.1, clip 1.0, remat on) of ``params`` on one batch of B=``batch``,
     S=``seq`` from ``seed`` whose targets are its tokens shifted by one:
     losses finite and falling, peak under MAX_TRAIN_GIB, and each count of
     ``want``.  The counters are set to 0 just before the steps and read
-    just after.  Returns the counts."""
+    just after.  ``bound_ms`` (a step's least time, worked out by the
+    caller) is printed beside the median step.  Returns the counts."""
     import numpy as np
 
     from flash_attn_tpu_torch.utils import train
@@ -3777,9 +3817,9 @@ def _train_run(torch, checks, smi, run, params, fwd, vocab, seq, seed, want, t1)
     n_params = sum(p.numel() for p in train.param_leaves(params))
     init_fn, step_fn = train.make_train_step(fwd, train.TrainConfig())
     state = init_fn(params)
-    batch = np.random.default_rng(seed).integers(0, vocab, (1, seq + 1))
-    batch = torch.from_numpy(batch).to("cuda")
-    tok, tgt = batch[:, :-1], batch[:, 1:]
+    data = np.random.default_rng(seed).integers(0, vocab, (batch, seq + 1))
+    data = torch.from_numpy(data).to("cuda")
+    tok, tgt = data[:, :-1], data[:, 1:]
     torch.cuda.synchronize()
     say(f"  params ({n_params / 1e9:.3f} B, bf16) and AdamW state on the card in "
         f"{time.perf_counter() - t1:.2f}s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
@@ -3806,7 +3846,9 @@ def _train_run(torch, checks, smi, run, params, fwd, vocab, seq, seed, want, t1)
     say(f"[{run}] {smi} | losses {[round(x, 6) for x in losses]} grad_norm "
         f"{[round(x, 4) for x in norms]} {'ok' if good else 'FAIL'} | step ms "
         f"{[round(1e3 * x, 3) for x in secs_per_step]}, median of steps 2-{TRAIN_STEPS} "
-        f"{step_ms:.3f} ms, {seq / step_ms * 1e3:.1f} tokens/s | max_memory_allocated "
+        f"{step_ms:.3f} ms, {batch * seq / step_ms * 1e3:.1f} tokens/s"
+        + ("" if bound_ms is None else f" (bound {bound_ms:.3f} ms, {bound_ms / step_ms:.3f} of "
+           "the step)") + f" | max_memory_allocated "
         f"{peak:.2f} GiB (limit {MAX_TRAIN_GIB}) | launches " + ", ".join(
             f"{key} {counts[key]}" for key in want) + f" | {time.perf_counter() - t1:.2f}s")
     say("kernels " + json.dumps({"run": run, **counts}))
@@ -4009,6 +4051,8 @@ def phase_gpt2(torch, checks, smi):
         f"1024 bucket) | {GPT2_BASELINE_PROMPT} + {n_tok} = 1024 positions | peak "
         f"{b['peak']:.3f} GiB | launches {got} | tokens equal eager / captured "
         f"{b['tokens'] == b_eager['tokens']}")
+    gpt2_ppl(torch, checks, smi, cfg, params, one[1][0],
+             rng.integers(0, cfg.vocab_size, GPT2_TOKENS))
     runs = {label: run["counts"] for label, run in (
         (RUN_GPT2, graph), (RUN_GPT2_FP8, f8), (RUN_GPT2_CHUNK, chunked),
         (RUN_GPT2_PACKED, packed), (RUN_GPT2_PAGED, paged), (RUN_GPT2_SPEC, spec),
@@ -4016,6 +4060,75 @@ def phase_gpt2(torch, checks, smi):
     del params
     _free(torch)
     return runs
+
+
+PPL_BOUND = 0.05  # |delta ppl| / ppl of the float cache (tests/test_hf_parity.py:88-103)
+
+
+def gpt2_ppl(torch, checks, smi, cfg, params, prompt, continuation):
+    """The perplexity line, BASELINE's "perplexity delta at same KV bit
+    width": utils/ppl.kv_ppl_delta on phase 12's GPT-2 124M params, the
+    BASELINE prompt (GPT2_BASELINE_PROMPT tokens) and a continuation of
+    GPT2_TOKENS tokens from the seed, teacher-forced through prefill (K4)
+    and decode steps (K1, K2, K1m) with the cache in bf16, int8 and fp8.
+    Fails unless every value is finite and each quantized cache's |delta|
+    is under PPL_BOUND of the bf16 cache's perplexity."""
+    import math
+
+    from flash_attn_tpu_torch.utils import ppl
+
+    t0 = time.perf_counter()
+    res = ppl.kv_ppl_delta(params, cfg, prompt, continuation, modes=("int8", "fp8"))
+    base = res["none"]["ppl"]
+    ok = all(math.isfinite(v) for r in res.values() for v in r.values())
+    if not ok:
+        checks.failed.append(f"phase 12 perplexity: a value is not finite: {res}")
+    for mode in ("int8", "fp8"):
+        ok = checks.check(f"phase 12 perplexity delta {mode} (relative)",
+                          abs(res[mode]["delta_ppl"]) / base, PPL_BOUND) and ok
+    say(f"[phase 12 perplexity, GPT-2 124M bf16, a {len(prompt)}-token prompt and "
+        f"{len(continuation)} tokens teacher-forced] {smi} | " + "; ".join(
+            f"{mode} KV nll {r['nll']:.6f} ppl {r['ppl']:.3f} delta {r['delta_ppl']:+.4f} "
+            f"({abs(r['delta_ppl']) / base:.2e} of the bf16 cache's, bound {PPL_BOUND})"
+            for mode, r in (("bf16", res["none"]), ("int8", res["int8"]), ("fp8", res["fp8"])))
+        + f" {'ok' if ok else 'FAIL'} | {time.perf_counter() - t0:.2f}s")
+
+
+GPT2_TRAIN_BATCH = 8  # phase 13: B=8 sequences of GPT-2's 1024-token context
+
+
+def phase_gpt2_train(torch, checks, smi):
+    """Phase 13: GPT-2 124M at full depth (12 layers, 12 heads of 64,
+    bf16 params and AdamW moments from the seed), B=GPT2_TRAIN_BATCH,
+    S=1024 (its context), TRAIN_STEPS AdamW steps through _train_run; K9
+    and K10 launch once a layer a step, K4 twice (remat reruns it), all at
+    head_dim 64.  The step's bound: its fp32 products (each layer's four
+    dense layers and the tied head: the forward, the backward's two
+    products a product, and remat's rerun of the blocks) at
+    F32_FLOPS_PER_S, as JAX computes them in fp32, plus the attention
+    products (K4's two a pass, twice; K9's three; K10's four, 2*D flops a
+    live pair each) at BF16_FLOPS_PER_S."""
+    from flash_attn_tpu_torch.models import gpt2
+
+    t1 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = _gpt2_cfg()
+    params = gpt2.init_params(cfg, seed=SEED + 18, device="cuda")
+    fwd = lambda p, tokens, remat: gpt2.forward(p, tokens, cfg, remat=remat)  # noqa: E731
+    L, h, V, S, B = cfg.num_layers, cfg.hidden, cfg.vocab_size, cfg.max_position, GPT2_TRAIN_BATCH
+    dense = 2 * h * (3 * h + h + 4 * h + 4 * h)  # a token's flops in one layer's dense layers
+    f32 = B * S * (3 * (L * dense + 2 * h * V) + L * dense)
+    attn = 11 * 2 * cfg.head_dim * B * cfg.num_heads * L * (S * (S + 1) // 2)
+    bound_ms = (f32 / F32_FLOPS_PER_S + attn / BF16_FLOPS_PER_S) * 1e3
+    say(f"  phase 13 bound: fp32 products {f32 / 1e12:.3f} TFLOP a step "
+        f"({f32 / F32_FLOPS_PER_S * 1e3:.3f} ms at {F32_FLOPS_PER_S / 1e12:g} TFLOP/s), attention "
+        f"{attn / 1e12:.3f} TFLOP ({attn / BF16_FLOPS_PER_S * 1e3:.3f} ms at "
+        f"{BF16_FLOPS_PER_S / 1e12:g} TFLOP/s)")
+    n = L * TRAIN_STEPS
+    want = {"K9": n, "K9 d64": n, "K10": n, "K10 d64": n, "K4": 2 * n, "K4 d64": 2 * n}
+    return _train_run(torch, checks, smi, RUN_GPT2_TRAIN, params, fwd, V, S, SEED + 19, want,
+                      t1, batch=B, bound_ms=bound_ms)
 
 
 RUN_8B_INT8 = "phase 4 serve Llama-3-8B int8, fp8 KV"
@@ -4042,15 +4155,18 @@ RUN_GPT2_PAGED = "phase 12 serve GPT-2 124M bf16, int8 KV, paged"
 RUN_GPT2_SPEC = "phase 12 serve GPT-2 124M bf16, int8 KV, n-gram speculation"
 RUN_GPT2_BASE = ("phase 12 BASELINE config 0: GPT-2 124M bf16, int8 KV, batch 1, "
                  "1024 positions")
+RUN_GPT2_TRAIN = (f"phase 13 train GPT-2 124M bf16, 12 layers, B=8 S=1024, {TRAIN_STEPS} AdamW "
+                  "steps")
 KERNEL_ROWS = ("K1", "K1m", "K1c", "K1b", "K2", "K3", "K3g", "K4", "K5", "K6", "K7", "K8", "K8c",
                "K9", "K10", "K4 d256", "K1 d256", "K2 d256", "K1m d256", "K9 d256", "K10 d256",
-               "K4 d64", "K1 d64", "K1c d64", "K8 d64", "K2 d64", "K1m d64")
+               "K4 d64", "K1 d64", "K1c d64", "K8 d64", "K2 d64", "K1m d64", "K9 d64", "K10 d64")
 # the run whose launches a kernel's row reports, and the count it reads:
 # the main path that the kernel serves (the 70B serve for the shared K1,
 # K1m, K2 and K4, the n-gram speculative serve for K1's chunk mode, the
 # paged serve for K8 in both modes, the training run for K9 and K10, the
 # captured Gemma-2-9B serve for the head_dim 256 points of K4, K1, K2 and
-# K1m, the Gemma-2 training run for K9's and K10's); K3 grouped and K1
+# K1m, the Gemma-2 training run for K9's and K10's, the GPT-2 training run
+# for their head_dim 64 points); K3 grouped and K1
 # over a BSHD cache have no model path, so their rows report none
 ROW_RUN = {"K1": RUN_70B, "K1m": RUN_70B, "K1c": RUN_SPEC_NGRAM, "K1b": None, "K2": RUN_70B,
            "K3": RUN_8B_INT8, "K3g": None, "K4": RUN_70B, "K5": RUN_8B_W4A8, "K6": RUN_70B,
@@ -4058,7 +4174,8 @@ ROW_RUN = {"K1": RUN_70B, "K1m": RUN_70B, "K1c": RUN_SPEC_NGRAM, "K1b": None, "K
            "K4 d256": RUN_GEMMA, "K1 d256": RUN_GEMMA, "K2 d256": RUN_GEMMA,
            "K1m d256": RUN_GEMMA, "K9 d256": RUN_GEMMA_TRAIN, "K10 d256": RUN_GEMMA_TRAIN,
            "K4 d64": RUN_GPT2, "K1 d64": RUN_GPT2, "K1c d64": RUN_GPT2_SPEC,
-           "K8 d64": RUN_GPT2_PAGED, "K2 d64": RUN_GPT2, "K1m d64": RUN_GPT2}
+           "K8 d64": RUN_GPT2_PAGED, "K2 d64": RUN_GPT2, "K1m d64": RUN_GPT2,
+           "K9 d64": RUN_GPT2_TRAIN, "K10 d64": RUN_GPT2_TRAIN}
 # a row's count where it is not the row's own key: every K2 and K1m launch
 # of the Gemma-2-9B serve is at head_dim 256, and every launch of the GPT-2
 # serves at head_dim 64 (phase 12 holds the d64 counts equal)
@@ -4095,11 +4212,13 @@ def main() -> int:
     gemma_card_vs_cpu(torch, checks)
     gemma_train_card_vs_cpu(torch, checks)
     gpt2_card_vs_cpu(torch, checks)
+    gpt2_train_card_vs_cpu(torch, checks)
     runs = phase_serve(torch, checks, smi)
     runs.update(phase_gemma(torch, checks, smi))
     runs[RUN_TRAIN] = phase_train(torch, checks, smi)
     runs[RUN_GEMMA_TRAIN] = phase_gemma_train(torch, checks, smi)
     runs.update(phase_gpt2(torch, checks, smi))
+    runs[RUN_GPT2_TRAIN] = phase_gpt2_train(torch, checks, smi)
     for key, row in rows.items():
         row["launches_run"] = ROW_RUN[key]
         row["launches"] = runs[ROW_RUN[key]][ROW_COUNT.get(key, key)] if ROW_RUN[key] else 0

@@ -21,7 +21,8 @@ launches through ctypes at chip_smoke.py's K9/K10 cases (``BWD_CASES``)
 that fill the kernels' rows: the Llama training shape (B=1, S=2048, H=32,
 Hk=8, D=128, causal, rope) and, where the source takes them, Gemma-2-9B's
 (B=1, S=8192, H=16, Hk=8, D=256, causal, rope, softcap 50, scale 1/16)
-with the window (4095, -1) and without; and, checked only, at the cases
+with the window (4095, -1) and without, and GPT-2's (B=8, S=1024,
+H=Hk=12, D=64, causal, no rope); and, checked only, at the cases
 whose scores bend the cap (S=2048 at D=256, cap 5, with the window
 (1023, -1) and without).  Each is held to ``flash_bwd_plain``
 as chip_smoke.py holds K9 and K10: dq, and dk and dv summed over each
@@ -35,7 +36,8 @@ at cap 50 makes the first queries' softmax one-hot, so their dq is fp32
 noise on both sides.  Where a version that is not a mutant misses, its
 worst dq rows are printed against an fp64 reference.  Times: CUDA
 events over 20 launches and CUDA-graph replays, in turns (old..., this,
-this, ...old reversed; at D=256 only the versions that take a window),
+this, ...old reversed; at D=256 only the versions that take a window, at
+D=64 only those that take head_dim 64),
 and K10 followed by the reduction ``flash_bwd`` makes of its outputs
 (the sum over each GQA group, then dk and dv in bf16 as [B, Sk, Hk, D]).
 Each check line also says whether dq, dk and dv are bitwise those of the
@@ -76,6 +78,11 @@ EDITS = {"mutant": ((K9, K9 + "if (t == 1) { __syncthreads(); continue; }\n", 1)
 CAP_MUTANTS = ("no_dt", "no_tanh")
 # reported, held to nothing (B, Sq, Sk, H, Hk, D, causal, rope, window, cap, q_mult)
 PEAKY = (1, 2048, 2048, 16, 8, 256, True, True, (1023, -1), 50.0, 8.0)
+
+
+def takes(src: Path, D: int) -> bool:
+    """Whether the flash_bwd.cu in ``src`` builds head dim ``D``."""
+    return D == 128 or f"launch_dq<{D}>" in (src / "flash_bwd.cu").read_text()
 
 
 def interface(src: Path) -> str:
@@ -143,8 +150,8 @@ def load(name, src_dir, lib, res):
 
 
 class Case:
-    """One of chip_smoke.py's BWD_CASES (B=1, Sq = Sk, causal, rope): its
-    inputs, references and operation count."""
+    """One of chip_smoke.py's BWD_CASES (Sq = Sk, causal): its inputs,
+    references and operation count."""
 
     def __init__(self, torch, c):
         from chip_smoke import _bwd_case_label, _bwd_case_inputs, one_key_floor
@@ -152,8 +159,9 @@ class Case:
         from flash_attn_tpu_torch.ops import flash_fwd as ff
         from flash_attn_tpu_torch.ops.rope import rope_rotate
 
-        assert c.B == 1 and c.Sq == c.Sk and c.causal and c.rope, c
+        assert c.Sq == c.Sk and c.causal, c
         self.name, self.S, self.H, self.Hk, self.D = _bwd_case_label(c), c.Sq, c.H, c.Hk, c.D
+        self.B = c.B
         self.window, self.cap, self.bends = c.window, c.cap, c.bends
         self.scale = c.D ** -0.5
         g = torch.Generator(device="cuda").manual_seed(5)
@@ -162,12 +170,12 @@ class Case:
         rdq, rdk, rdv = fb.flash_bwd_plain(self.q, self.k, self.v, self.dout, self.lse,
                                            self.delta, True, self.scale, self.cos, self.sin,
                                            c.window, c.cap)
-        S, H, Hk, D = self.S, self.H, self.Hk, self.D
-        self.ref = (rdq, *(x.reshape(1, Hk, H // Hk, S, D).sum(2) for x in (rdk, rdv)))
+        B, S, H, Hk, D = self.B, self.S, self.H, self.Hk, self.D
+        self.ref = (rdq, *(x.reshape(B, Hk, H // Hk, S, D).sum(2) for x in (rdk, rdv)))
         self.floor = one_key_floor(torch, rdq, S, True)
-        self.rq_ref = rope_rotate(self.q, self.cos, self.sin)
+        self.rq_ref = self.q if self.cos is None else rope_rotate(self.q, self.cos, self.sin)
         pairs = int(ff.live_pairs(None, True, S, S, "cuda", c.window).sum())
-        self.gemm = 2 * D * H * pairs  # one product over the live pairs
+        self.gemm = 2 * D * B * H * pairs  # one product over the live pairs
         self.timed = c.row is not None
 
 
@@ -176,13 +184,14 @@ def worst_rows(torch, c, dq, n=4) -> str:
     fp64 reference from the same inputs (R(q), k, v, dout, lse, delta; dS
     rounded to bf16, as the kernel and the plain version round it):
     its query, head, live keys, largest p, largest |fp64 value|, and the
-    kernel's and the plain version's largest |error| against fp64."""
+    kernel's and the plain version's largest |error| against fp64 (of
+    the first sequence)."""
     from flash_attn_tpu_torch.ops.flash_fwd import live_pairs
     from flash_attn_tpu_torch.ops.rope import rope_unrotate
 
     ref = c.ref[0]
     tol = 2.0 ** -6 * ref.abs().amax(-1) + c.floor
-    share = ((dq - ref).abs().amax(-1) / tol).reshape(-1)
+    share = ((dq - ref).abs().amax(-1) / tol)[0].reshape(-1)
     live = live_pairs(None, True, c.S, c.S, dq.device, c.window)[0]
     out = []
     for i in torch.argsort(share, descending=True)[:n].tolist():
@@ -194,8 +203,10 @@ def worst_rows(torch, c, dq, n=4) -> str:
         p = torch.where(live[row], torch.exp(s - c.lse[0, h, row].double()), 0.0)
         ds = p * (vv @ c.dout[0, row, h].double() - c.delta[0, h, row].double()) * (1 - t * t)
         ds = ds.to(torch.bfloat16).double()  # as both sides round it
-        g = rope_unrotate((ds @ kk * c.scale)[None, None, None].float(),
-                          c.cos[..., row:row + 1, :], c.sin[..., row:row + 1, :])[0, 0, 0]
+        g = (ds @ kk * c.scale).float()
+        if c.cos is not None:
+            g = rope_unrotate(g[None, None, None], c.cos[..., row:row + 1, :],
+                              c.sin[..., row:row + 1, :])[0, 0, 0]
         out.append(f"q {row} head {h}: share {share[i]:.3f}, {int(live[row].sum())} live keys, "
                    f"largest p {float(p.max()):.6f}, largest |fp64| {float(g.abs().max()):.4e}, "
                    f"|kernel - fp64| {float((dq[0, row, h] - g).abs().max()):.4e}, "
@@ -237,13 +248,13 @@ def main() -> int:
         its outputs, outputs -> (dq, dk, dv) group-summed) of version
         ``name`` on case ``c``."""
         abi, (f9, f10), _ = libs[name]
-        B, S, H, Hk, D, G = 1, c.S, c.H, c.Hk, c.D, c.H // c.Hk
+        B, S, H, Hk, D, G = c.B, c.S, c.H, c.Hk, c.D, c.H // c.Hk
         sk_pad = -(-S // 64) * 64
         dq = torch.empty((B, S, H, D), dtype=torch.float32, device="cuda")
-        rq = torch.empty_like(c.q)
+        rq = c.q if c.cos is None else torch.empty_like(c.q)  # K9 writes R(q) with rope
         dk = torch.empty((B, H, sk_pad, D), dtype=torch.float32, device="cuda")
         dv = torch.empty_like(dk)
-        ptr = lambda t: t.data_ptr()  # noqa: E731
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
         common = [ptr(t) for t in (c.q, c.k, c.v, c.dout, c.lse, c.delta, c.cos, c.sin)]
         local = ()
         if abi == "local":
@@ -274,8 +285,8 @@ def main() -> int:
     cases = [(x, True) for x in BWD_CASES if x.row is not None or x.bends]
     for bc, bound in cases + [(BwdCase(*PEAKY), False)]:
         c = Case(torch, bc)
-        labels = [n for n, _ in srcs if (c.D == 128 or libs[n][0] == "local")
-                  and (n not in CAP_MUTANTS or c.cap is not None)]
+        labels = [n for n, src in srcs if (c.D == 128 or libs[n][0] == "local")
+                  and takes(Path(src), c.D) and (n not in CAP_MUTANTS or c.cap is not None)]
         first = None
         for label in labels:
             c9, c10, _, outs = runner(label, c)

@@ -1,19 +1,22 @@
 // K9 and K10: FlashAttention-2 backward, BSHD bf16, bottom-right causal GQA
-// with q-side RoPE, at head_dim 128 (Llama-3) and 256 (Gemma-2-9B, with
-// the sliding window and the logit softcap).  Two passes, each
+// with q-side RoPE, at head_dim 64 (GPT-2), 128 (Llama-3) and 256
+// (Gemma-2-9B, with the sliding window and the logit softcap).  Two passes, each
 // deterministic by construction (no atomics), as on the TPU:
 //   K9  (dq pass)    replaces flash_attn_tpu/ops/flash_bwd.py:_dq_kernel;
 //   K10 (dk/dv pass) replaces flash_attn_tpu/ops/flash_bwd.py:_dkv_kernel
-// on the subset the Llama and Gemma-2 training steps use (no bias/dbias,
+// on the subset the GPT-2, Llama and Gemma-2 training steps use (no bias/dbias,
 // segments, positions, ALiBi or dropout; the window and the softcap at
 // head_dim 256 only).  K9 runs first: it rotates q once and writes R(q),
 // which K10 streams as it is.
 //
-// Bound on the H100: operations.  At S = 2048, D = 128 the causal half of
-// the five products (QK^T, dO V^T, dS K in K9; QK^T, dO V^T, P^T dO,
-// dS^T R(q) in K10, each 2*D flops per live (query, key) pair) is far
-// above the ridge against ~4*S*D*2 bytes of inputs per head.  The design
-// keeps scores, P and dS in registers and the tensor cores fed:
+// Bound on the H100: operations at D = 128 and 256, bytes at D = 64.  At
+// S = 2048, D = 128 the causal half of the five products (QK^T, dO V^T,
+// dS K in K9; QK^T, dO V^T, P^T dO, dS^T R(q) in K10, each 2*D flops per
+// live (query, key) pair) is far above the ridge against ~4*S*D*2 bytes
+// of inputs per head.  At GPT-2's S = 1024, D = 64 the products halve
+// twice over while the fp32 outputs (dq; dk and dv per query head) stay
+// as large as the bf16 inputs, so the bytes bound both passes.  The
+// design keeps scores, P and dS in registers and the tensor cores fed:
 //   * every product is a warpgroup wgmma m64n64k16 (bf16 in, fp32
 //     accumulate).  Operands read from shared memory sit in the 128-byte
 //     swizzle that wgmma reads, as 64-column parts of 64 rows
@@ -40,6 +43,13 @@
 //     group's query heads in order and writing their sum measured slower);
 //   * only tiles that a warp's diagonal, a window edge or a ragged edge
 //     crosses are masked element by element; dead tiles are never loaded.
+// Head dim 64 (GPT-2): a bf16 row of 64 is one 128-byte swizzle atom, so a
+// tile is one 64-column part (8 KB) and the products serve it as they
+// are.  The blocks are the 128 instance's (two warpgroups of 64 rows
+// each, K10's each owning all 64 columns of its keys' dk and dv), with
+// ~66 KB of shared memory; K9's dq accumulator is 32 registers a thread,
+// so K9 asks for two blocks an SM.  The rope partner of a column sits 32
+// columns away, in the same part, in this thread's fragment block + 4.
 // Head dim 128: a block is two warpgroups, each owning 64 of its 128 rows
 // (query rows in K9, keys in K10) and sharing its streamed tiles; ~129 KB
 // of shared memory and 256 threads, one block an SM (two blocks of one
@@ -86,7 +96,7 @@ constexpr int kPartBytes = kRows * 128;  // 64 columns of a tile
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kStatBytes = 2 * kRows * 4;
 
-// The geometry of head dim kD (128 or 256).
+// The geometry of head dim kD (64, 128 or 256).
 template <int kD>
 struct Geo {
   static constexpr bool kLocal = kD == 256;  // the window and the softcap
@@ -94,14 +104,17 @@ struct Geo {
   static constexpr int kTileBytes = kRows * kD * 2;
   static constexpr int kParts = kD / 64;  // 64-column parts of a tile
   // K9: warpgroups a block, each owning 64 query rows of the block
-  static constexpr int kDqWarpgroups = kD == 128 ? 2 : 1;
+  static constexpr int kDqWarpgroups = kD == 256 ? 1 : 2;
   static constexpr int kDqThreads = 128 * kDqWarpgroups;
   static constexpr int kDqRows = kRows * kDqWarpgroups;
-  // K10: two warpgroups a block; at 128 each owns 64 keys of the block's
-  // 128, at 256 both own the block's 64 keys, each half of the columns
-  static constexpr int kKeyWarpgroups = kD == 128 ? 2 : 1;
+  static constexpr int kDqMinBlocks = kD == 64 ? 2 : 1;  // blocks an SM
+  // K10: two warpgroups a block; at 64 and 128 each owns 64 keys of the
+  // block's 128 and all their columns, at 256 both own the block's 64
+  // keys, each half of the columns
+  static constexpr int kKeyWarpgroups = kD == 256 ? 1 : 2;
   static constexpr int kDkvThreads = 256;
   static constexpr int kDkvRows = kRows * kKeyWarpgroups;
+  static constexpr int kOwnParts = kD == 64 ? 1 : 2;  // a warpgroup's parts of dk, dv
   // K9: R(q) and dO of each warpgroup, then two stages of (K, V); K10: K and
   // V of each key warpgroup, then two stages of (R(q), dO) and two of (lse,
   // delta).  + 1024: tiles start at the next 1024-byte boundary (the swizzle
@@ -186,7 +199,7 @@ __device__ __forceinline__ float lse_base2(float lse) {
 // softcap (softcap2, the cap in base-2 units; 0 for none); the others
 // ignore all three.
 template <int kD>
-__global__ void __launch_bounds__(Geo<kD>::kDqThreads, 1) dq_kernel(
+__global__ void __launch_bounds__(Geo<kD>::kDqThreads, Geo<kD>::kDqMinBlocks) dq_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
@@ -379,8 +392,9 @@ __global__ void __launch_bounds__(Geo<kD>::kDqThreads, 1) dq_kernel(
   fatt::cp_async_wait<0>();
 
   // dq = scale * acc, pulled back through the rotation (R^-1 = R(-angle))
-  // in fp32: column c < kD/2 (part p) and its partner c + kD/2 (part p +
-  // kParts/2).
+  // in fp32: column c < kD/2, in 8-column block jj of the row, and its
+  // partner c + kD/2 in block jj + kD/16; block n is fragment block n % 8
+  // of part n / 8 (at head_dim 64 both lie in the one part).
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     const int row = my_row + hf * 8;
@@ -388,28 +402,27 @@ __global__ void __launch_bounds__(Geo<kD>::kDqThreads, 1) dq_kernel(
     float* dst = dq + (((int64_t)b * Sq + row) * H + h) * kD;
     const int64_t t = (int64_t)b * rope_bstride + (int64_t)row * (kD / 2);
 #pragma unroll
-    for (int p = 0; p < kParts / 2; ++p) {
-      constexpr int kHi = kParts / 2;
+    for (int jj = 0; jj < kD / 16; ++jj) {
+      constexpr int kHalf = kD / 16;
+      const int p1 = jj / 8, e1 = 4 * (jj % 8) + 2 * hf;
+      const int p2 = (jj + kHalf) / 8, e2 = 4 * ((jj + kHalf) % 8) + 2 * hf;
+      const int c = jj * 8 + (lane & 3) * 2;
+      float x1[2] = {acc[p1][e1] * scale, acc[p1][e1 + 1] * scale};
+      float x2[2] = {acc[p2][e2] * scale, acc[p2][e2 + 1] * scale};
+      if (cosv != nullptr) {
+        const float2 cs = *reinterpret_cast<const float2*>(cosv + t + c);
+        const float2 sn = *reinterpret_cast<const float2*>(sinv + t + c);
+        const float cv[2] = {cs.x, cs.y}, sv[2] = {sn.x, sn.y};
 #pragma unroll
-      for (int j = 0; j < kRows / 8; ++j) {
-        const int c = p * 64 + j * 8 + (lane & 3) * 2, e = 4 * j + 2 * hf;
-        float x1[2] = {acc[p][e] * scale, acc[p][e + 1] * scale};
-        float x2[2] = {acc[p + kHi][e] * scale, acc[p + kHi][e + 1] * scale};
-        if (cosv != nullptr) {
-          const float2 cs = *reinterpret_cast<const float2*>(cosv + t + c);
-          const float2 sn = *reinterpret_cast<const float2*>(sinv + t + c);
-          const float cv[2] = {cs.x, cs.y}, sv[2] = {sn.x, sn.y};
-#pragma unroll
-          for (int u = 0; u < 2; ++u) {
-            const float o1 = __fadd_rn(__fmul_rn(x1[u], cv[u]), __fmul_rn(x2[u], sv[u]));
-            const float o2 = __fsub_rn(__fmul_rn(x2[u], cv[u]), __fmul_rn(x1[u], sv[u]));
-            x1[u] = o1;
-            x2[u] = o2;
-          }
+        for (int u = 0; u < 2; ++u) {
+          const float o1 = __fadd_rn(__fmul_rn(x1[u], cv[u]), __fmul_rn(x2[u], sv[u]));
+          const float o2 = __fsub_rn(__fmul_rn(x2[u], cv[u]), __fmul_rn(x1[u], sv[u]));
+          x1[u] = o1;
+          x2[u] = o2;
         }
-        *reinterpret_cast<float2*>(dst + c) = make_float2(x1[0], x1[1]);
-        *reinterpret_cast<float2*>(dst + c + kD / 2) = make_float2(x2[0], x2[1]);
       }
+      *reinterpret_cast<float2*>(dst + c) = make_float2(x1[0], x1[1]);
+      *reinterpret_cast<float2*>(dst + c + kD / 2) = make_float2(x2[0], x2[1]);
     }
   }
 }
@@ -483,9 +496,10 @@ __global__ void __launch_bounds__(Geo<kD>::kDkvThreads, 1) dkv_kernel(
   if (n_iter > 0) load_q(0, 0);
   fatt::cp_async_commit();
 
-  // This warpgroup's keys (kw) and its 128 columns of dk and dv (cw); this
+  // This warpgroup's keys (kw) and its columns of dk and dv (cw); this
   // thread's keys: wkey0 + lane/4 (accumulator entries 0, 1) and 8 below
   // it (entries 2, 3); its queries 8j + 2 (lane % 4) + {0, 1}.
+  constexpr int kOwn = G::kOwnParts;
   const int kw = kKeyWgs == 2 ? wg : 0, cw = kKeyWgs == 2 ? 0 : wg;
   const uint32_t ks = ks0 + kw * kTileBytes, vs = vs0 + kw * kTileBytes;
   const int wkey0 = k0 + kw * kRows + warp * 16;
@@ -493,7 +507,7 @@ __global__ void __launch_bounds__(Geo<kD>::kDkvThreads, 1) dkv_kernel(
   const float sl2 = scale * kLog2e;
   const bool capped = G::kLocal && softcap2 > 0.f;
   const float cap_in = capped ? sl2 / softcap2 : 0.f;
-  float dk_acc[2][32], dv_acc[2][32];  // 64-column parts of this warpgroup's 128
+  float dk_acc[kOwn][32], dv_acc[kOwn][32];  // 64-column parts of this warpgroup's
   zero(dk_acc);
   zero(dv_acc);
   for (int it = 0; it < n_iter; ++it) {
@@ -568,8 +582,8 @@ __global__ void __launch_bounds__(Geo<kD>::kDkvThreads, 1) dkv_kernel(
     pin_parts(dv_acc);
     pin_parts(dk_acc);
     wg_fence();
-    product_acc(dv_acc, pf, ds + cw * 2 * kPartBytes);   // dv += P^T dO
-    product_acc(dk_acc, dsf, rs + cw * 2 * kPartBytes);  // dk += dS^T R(q)
+    product_acc(dv_acc, pf, ds + cw * kOwn * kPartBytes);   // dv += P^T dO
+    product_acc(dk_acc, dsf, rs + cw * kOwn * kPartBytes);  // dk += dS^T R(q)
     wg_commit();
     wg_wait_all();
     pin_parts(dv_acc);
@@ -584,29 +598,30 @@ __global__ void __launch_bounds__(Geo<kD>::kDkvThreads, 1) dkv_kernel(
   for (int hf = 0; hf < 2; ++hf) {
     const int key = my_key + hf * 8;
     if (key >= Sk) continue;
-    float* dkr = dk + (base + key) * kD + cw * 128;
-    float* dvr = dv + (base + key) * kD + cw * 128;
+    float* dkr = dk + (base + key) * kD + cw * kOwn * 64;
+    float* dvr = dv + (base + key) * kD + cw * kOwn * 64;
 #pragma unroll
     for (int j = 0; j < kRows / 8; ++j) {
       const int c = j * 8 + (lane & 3) * 2, e = 4 * j + 2 * hf;
 #pragma unroll
-      for (int p = 0; p < 2; ++p)
+      for (int p = 0; p < kOwn; ++p)
         *reinterpret_cast<float2*>(dkr + c + p * 64) =
             make_float2(dk_acc[p][e] * scale, dk_acc[p][e + 1] * scale);
 #pragma unroll
-      for (int p = 0; p < 2; ++p)
+      for (int p = 0; p < kOwn; ++p)
         *reinterpret_cast<float2*>(dvr + c + p * 64) = make_float2(dv_acc[p][e], dv_acc[p][e + 1]);
     }
   }
 }
 
-// Head dims 128 (Llama-3) and 256 (Gemma-2-9B; causal only) are built; a
-// window or a softcap at head_dim 256 only.
+// Head dims 64 (GPT-2), 128 (Llama-3) and 256 (Gemma-2-9B; causal only)
+// are built; a window or a softcap at head_dim 256 only.
 bool shape_ok(int B, int Sq, int Sk, int H, int Hk, int D, int causal, int wleft, int wright,
               float softcap2) {
   const bool local = wleft >= 0 || wright >= 0 || softcap2 > 0.f;
-  const int rows = D == 128 ? Geo<128>::kDqRows : kRows;  // the smaller of K9's and K10's
-  return Sq > 0 && Sk > 0 && Hk > 0 && H % Hk == 0 && (D == 128 || D == 256) &&
+  // the smaller of K9's and K10's block rows (at 64 and 128 both 128)
+  const int rows = D == 256 ? kRows : Geo<128>::kDqRows;
+  return Sq > 0 && Sk > 0 && Hk > 0 && H % Hk == 0 && (D == 64 || D == 128 || D == 256) &&
          B <= 65535 && (Sq + rows - 1) / rows <= 65535 && (Sk + rows - 1) / rows <= 65535 &&
          wleft >= -1 && wright >= -1 && softcap2 >= 0.f && !(local && D != 256) &&
          !(D == 256 && !causal);
@@ -659,7 +674,7 @@ int launch_dkv(const void* rq, const void* k, const void* v, const void* dout,
 // rq (with the tables, else unused): [B, Sq, H, D] bf16, R(q) for K10.
 // window_left / window_right: the window's sides (-1 open); softcap2: the
 // logit softcap in base-2 units (cap * log2 e), 0 for none; both at
-// head_dim 256 only, which is causal only.
+// head_dim 256 only, which is causal only.  head_dim 64, 128 or 256.
 extern "C" int fatt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse, const void* delta,
                                  const void* cosv, const void* sinv, void* dq, void* rq,
@@ -668,7 +683,7 @@ extern "C" int fatt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  int window_right, float softcap2, void* stream) {
   if (!shape_ok(B, Sq, Sk, H, Hk, D, causal, window_left, window_right, softcap2))
     return (int)cudaErrorInvalidValue;
-  auto fn = D == 256 ? launch_dq<256> : launch_dq<128>;
+  auto fn = D == 256 ? launch_dq<256> : D == 64 ? launch_dq<64> : launch_dq<128>;
   return fn(q, k, v, dout, lse, delta, cosv, sinv, dq, rq, B, Sq, Sk, H, Hk, rope_bstride,
             scale, causal, window_left, window_right, softcap2,
             static_cast<cudaStream_t>(stream));
@@ -683,7 +698,7 @@ extern "C" int fatt_flash_bwd_dkv(const void* rq, const void* k, const void* v,
                                   int window_right, float softcap2, void* stream) {
   if (!shape_ok(B, Sq, Sk, H, Hk, D, causal, window_left, window_right, softcap2))
     return (int)cudaErrorInvalidValue;
-  auto fn = D == 256 ? launch_dkv<256> : launch_dkv<128>;
+  auto fn = D == 256 ? launch_dkv<256> : D == 64 ? launch_dkv<64> : launch_dkv<128>;
   return fn(rq, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, Hk, scale, causal, window_left,
             window_right, softcap2, static_cast<cudaStream_t>(stream));
 }

@@ -1,10 +1,10 @@
-"""GPT-2 in PyTorch for serving: learned position embeddings, pre-norm
-LayerNorm blocks, fused QKV and MLP projections with biases, tanh GELU,
-multi-head attention at head_dim 64 (124M: 12 heads of 64, hidden 768)
-without rope, and the tied embedding as an fp32 head, over the port's
-kernels (prefill K4, also with segment ids (packed) and positions
-(chunked); decode K1 + K2; the speculative verify step K1c; paged decode
-K8), all at head_dim 64.
+"""GPT-2 in PyTorch for serving and training: learned position
+embeddings, pre-norm LayerNorm blocks, fused QKV and MLP projections with
+biases, tanh GELU, multi-head attention at head_dim 64 (124M: 12 heads of
+64, hidden 768) without rope, and the tied embedding as an fp32 head,
+over the port's kernels (prefill K4, also with segment ids (packed) and
+positions (chunked); decode K1 + K2; the speculative verify step K1c;
+paged decode K8; the training backward K9 + K10), all at head_dim 64.
 
 Port of flash_attn_tpu/models/gpt2.py: ``GPT2Config``, ``GPT2_124M``,
 ``GPT2_TINY``, ``init_params`` (from a ``torch.Generator``), ``forward``,
@@ -18,8 +18,9 @@ plain dict: ``wte``, ``wpe``, ``ln_f`` and per block ``ln_1``, ``attn``
 
 As in JAX, LayerNorm and every dense layer compute in fp32 and round back
 to the activation dtype, and the head is the embedding, transposed, in
-fp32 (kept in the params dict under ``"_lm_head_f32"``, as
-``models/llama.py`` keeps its head's).  A position past the table's end
+fp32 (the serving paths keep it in the params dict under
+``"_lm_head_f32"``, as ``models/llama.py`` keeps its head's; ``forward``
+reads the live embedding and caches nothing).  A position past the table's end
 reads its last row, as JAX's clamped gather does: an idle slot's length
 runs past the capacity, and so past ``max_position`` when the two are
 equal.
@@ -27,9 +28,11 @@ equal.
 ``GPT2_124M`` is float32, as in JAX; on the card the kernels take bf16
 only, so BASELINE config 0 ("BF16 weights + INT8 KV-cache") runs
 ``dataclasses.replace(GPT2_124M, dtype="bfloat16")``, and an fp32 model
-on the card raises from the kernels' dtype checks.  ``forward`` runs
-under ``torch.no_grad()``: K9 and K10, the backward kernels, take no
-head_dim 64 yet.
+on the card raises from the kernels' dtype checks.  ``forward`` is the
+training forward, differentiable w.r.t. every float param (the tied
+``wte`` takes the gradients of the gather and of the head), with
+per-block checkpointing under ``remat``; the serving paths run under
+``torch.no_grad()``.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from flash_attn_tpu_torch._device import resolve_device
 from flash_attn_tpu_torch.engine.kv_cache import KVCache
@@ -142,21 +146,33 @@ def _finish(x, attn, blk, cfg):
 
 
 def _logits(params, x):
-    """The final LayerNorm, then the tied head in fp32."""
+    """The final LayerNorm, then the tied head in fp32 (serving: the
+    cached fp32 copy of ``wte``)."""
     x = _layer_norm(x, params["ln_f"])
     return llama._proj(x.float(), llama.f32_head(params, params["wte"], True))
 
 
-@torch.no_grad()
-def forward(params, tokens, cfg: GPT2Config):
-    """Full-sequence forward: tokens [B, S] -> logits [B, S, V] fp32, K4
-    causal with the online softmax."""
+def _block(x, blk, cfg):
+    """One block of the training forward: K4 causal with the online
+    softmax; its backward K9 + K10."""
+    q, k, v = _qkv(x, blk, cfg)
+    return _finish(x, flash_attention(q, k, v, causal=True), blk, cfg)
+
+
+def forward(params, tokens, cfg: GPT2Config, *, remat: bool = False):
+    """Full-sequence forward (training): tokens [B, S] -> logits [B, S, V]
+    fp32, differentiable w.r.t. every float param; the tied ``wte`` takes
+    the gradients of both its uses.  ``remat`` checkpoints each block
+    (``torch.utils.checkpoint``): the backward reruns its forward, K4
+    included.  ``jax.checkpoint`` of the whole forward, as the JAX train
+    step does it, gives the same values.  The head is the live ``wte`` in
+    fp32, never the serving paths' cached copy."""
     b, s = tokens.shape
     x = _embed(params, tokens, torch.arange(s, device=tokens.device)[None])
     for blk in params["blocks"]:
-        q, k, v = _qkv(x, blk, cfg)
-        x = _finish(x, flash_attention(q, k, v, causal=True), blk, cfg)
-    return _logits(params, x)
+        x = checkpoint(_block, x, blk, cfg, use_reentrant=False) if remat else _block(x, blk, cfg)
+    x = _layer_norm(x, params["ln_f"])
+    return torch.matmul(x.float(), params["wte"].float().T)
 
 
 @torch.no_grad()

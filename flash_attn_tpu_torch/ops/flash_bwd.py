@@ -1,11 +1,11 @@
 """FlashAttention-2 backward (kernels K9 and K10, ``csrc/flash_bwd.cu``).
 
 Port of flash_attn_tpu/ops/flash_bwd.py:flash_bwd for the subset the
-Llama and Gemma-2 training steps use: BSHD layout, GQA, bottom-right
-causal mask, q-side RoPE, ``scale``, a sliding window and the logit
-softcap (``_recompute_p_ds``, flash_bwd.py:48-131).  On the card: head_dim
-128 without window and softcap, or 256 (Gemma-2-9B) causal with or
-without them.  Bias and dbias, segment ids, positions, ALiBi, dropout and
+GPT-2, Llama and Gemma-2 training steps use: BSHD layout, GQA,
+bottom-right causal mask, q-side RoPE, ``scale``, a sliding window and
+the logit softcap (``_recompute_p_ds``, flash_bwd.py:48-131).  On the
+card: head_dim 64 (GPT-2) or 128 without window and softcap, or 256
+(Gemma-2-9B) causal with or without them.  Bias and dbias, segment ids, positions, ALiBi, dropout and
 fp16 are still to port and raise ``NotImplementedError``.
 
 As on the TPU: ``delta = rowsum(dout * out)`` is plain fp32 arithmetic
@@ -115,14 +115,15 @@ def _check_cuda(q, k, v, dout, lse, delta, rope_cos, rope_sin, name, causal=True
     """Raise on anything the kernels do not take; returns the rope tables'
     batch stride (0 when shared across the batch or absent)."""
     B, Sq, H, D = q.shape
-    if D == 128 and (window is not None or softcap is not None):
+    if D in (64, 128) and (window is not None or softcap is not None):
         raise NotImplementedError(f"{name} takes a window and a softcap at head_dim 256 only")
     if D == 256 and not causal:
         raise NotImplementedError(f"{name} at head_dim 256 is causal only")
     if not (q.dtype == k.dtype == v.dtype == dout.dtype == torch.bfloat16):
         raise ValueError(f"{name} takes bf16 q, k, v, dout")
-    if D not in (128, 256):
-        raise ValueError(f"{name} takes head_dim 128 (Llama-3) or 256 (Gemma-2-9B), got {D}")
+    if D not in (64, 128, 256):
+        raise ValueError(f"{name} takes head_dim 64 (GPT-2), 128 (Llama-3) or 256 "
+                         f"(Gemma-2-9B), got {D}")
     if lse.dtype != torch.float32 or delta.dtype != torch.float32:
         raise ValueError(f"{name} takes fp32 lse and delta")
     tensors = [q, k, v, dout, lse, delta]
@@ -142,16 +143,19 @@ def _check_cuda(q, k, v, dout, lse, delta, rope_cos, rope_sin, name, causal=True
 def _count(fn, D, window):
     fn.launches += 1
     fn.d256_launches += D == 256
+    fn.d64_launches += D == 64
     fn.window_launches += window is not None
 
 
 def flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal, scale, rope_cos, rope_sin,
                       window=None, softcap=None):
     """Launch K9 (replaces flash_attn_tpu/ops/flash_bwd.py:_dq_kernel;
-    bound by operations, see csrc/flash_bwd.cu).  Returns dq [B, Sq, H, D]
-    fp32 and R(q) [B, Sq, H, D] bf16, the rotated q that K9 writes for
-    K10 (q itself without rope tables).  Counts its launches also in
-    ``.d256_launches`` (head_dim 256) and ``.window_launches``."""
+    bound by operations at head_dim 128 and 256, by bytes at 64, see
+    csrc/flash_bwd.cu).  Returns dq [B, Sq, H, D] fp32 and R(q)
+    [B, Sq, H, D] bf16, the rotated q that K9 writes for K10 (q itself
+    without rope tables).  Counts its launches also in ``.d256_launches``
+    (head_dim 256), ``.d64_launches`` (head_dim 64) and
+    ``.window_launches``."""
     bstride = _check_cuda(q, k, v, dout, lse, delta, rope_cos, rope_sin, "K9", causal,
                           window, softcap)
     B, Sq, H, D = q.shape
@@ -170,7 +174,7 @@ def flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal, scale, rope_cos, rope_s
 
 def flash_bwd_dkv_cuda(rq, k, v, dout, lse, delta, causal, scale, window=None, softcap=None):
     """Launch K10 (replaces flash_attn_tpu/ops/flash_bwd.py:_dkv_kernel;
-    bound by operations) on R(q) from K9.  Returns dk, dv [B, H, Sk, D]
+    bound as K9) on R(q) from K9.  Returns dk, dv [B, H, Sk, D]
     fp32 per query head.  Counts its launches as K9 does."""
     _check_cuda(rq, k, v, dout, lse, delta, None, None, "K10", causal, window, softcap)
     B, Sq, H, D = rq.shape
@@ -197,7 +201,5 @@ def flash_bwd_cuda(q, k, v, dout, lse, delta, causal, scale, rope_cos, rope_sin,
     return dq, dk, dv
 
 
-flash_bwd_dq_cuda.launches = flash_bwd_dq_cuda.d256_launches = 0
-flash_bwd_dq_cuda.window_launches = 0
-flash_bwd_dkv_cuda.launches = flash_bwd_dkv_cuda.d256_launches = 0
-flash_bwd_dkv_cuda.window_launches = 0
+for _fn in (flash_bwd_dq_cuda, flash_bwd_dkv_cuda):
+    _fn.launches = _fn.d256_launches = _fn.d64_launches = _fn.window_launches = 0
