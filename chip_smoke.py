@@ -63,7 +63,18 @@ Phases, one line each with its seconds:
      bit for bit, and K8 at pages of 128 (bf16, int8, fp8, against K1 on
      the same content); K9 and K10 at head_dim 64 (B=8, S=1024, H=Hk=12,
      causal, timed beside SDPA's backward; a ragged shifted Sq=1000
-     Sk=1500 with GQA 12/4 and rope; non-causal at B=2 with rope); then once
+     Sk=1500 with GQA 12/4 and rope; non-causal at B=2 with rope);
+     Gemma-2-27B's points, head_dim 128 (K4's, K9's and K10's kLocal
+     instances beside Llama's), H=32, Hk=16, softcap 50, scale 1/12: K4
+     at S=8192 causal and clamped with the window (4095, -1) and without
+     (timed beside SDPA without the cap) and at S=891 and a shifted
+     Sq=1000 Sk=1500 in both modes, with a window of 300 and without; K1
+     fp8 at B=8, capacity 8192 with window 4096 and without; K3 at its
+     five projection widths at M = 8; K9 and K10 at S=8192 with the window
+     and without (timed), a ragged shifted windowed case, the cap-5 pair at
+     S=2048 and non-causal with a two-sided window (8, 2); the plain
+     versions of K4, K9 and K10 run over groups of heads where their score
+     tensors would pass 4 GiB; then once
      each what the main paths do not run: group sizes 32 and 64, K7's
      bf16 output, and the int8, int4 and W4A8 LM heads' fp32 activations
      or output;
@@ -78,7 +89,9 @@ Phases, one line each with its seconds:
      (2 layers at 9B widths, layer 0 sliding, layer 1 global, int8
      weights, fp8 KV, the window cut to 512): a 1000-token prompt and four
      decode steps against the CPU, and one training loss and every
-     gradient (bf16, B=1, S=1024, remat) against the CPU; the
+     gradient (bf16, B=1, S=1024, remat) against the CPU; the same two at
+     2 layers of Gemma-2-27B's widths (head_dim 128, q_dim 4096 against
+     hidden 4608, scale 1/12); the
      prefill paths (int8 weights): prefill_packed of three prompts in the
      1024 bucket, and prefill_chunk of a 700-token prompt in chunks of 256
      into an fp8 cache (logits and the cache); then one
@@ -139,6 +152,11 @@ Phases, one line each with its seconds:
      and the launches (K4 at head_dim 256 42 a prefill call, 21 of them
      windowed; K1 at 256, K2 and K1m 42 a decode step); then int8 KV (16
      tokens);
+  14. (run right after phase 10) Gemma-2-27B (46 layers, head_dim 128,
+     random weights from the seed), int8 weights, fp8 KV, as phase 10
+     without the int8 KV run: K4 46 a prefill call, all on its head_dim 128
+     kLocal instance, 23 windowed; K1, K2 and K1m 46 a step, 23 of K1's
+     windowed; peak under 75 GiB;
   8. training: Llama-3-8B at full widths and depth (bf16 params, AdamW
      moments in bf16), B=1, S=2048, the default TrainConfig (remat on), 5
      AdamW steps on one seeded batch: losses, ms per step, tokens/s, peak
@@ -146,6 +164,10 @@ Phases, one line each with its seconds:
   11. training: Gemma-2 at full 9B widths, 8 layers (4 sliding, 4
      global), B=1, S=8192, as phase 8: K9 = K10 = 8 a step, 4 of them
      windowed, K4 16 (remat reruns it), peak under 75 GiB;
+  15. (run right after phase 11) training: Gemma-2 at full 27B widths, 4
+     layers (2 sliding, 2 global), B=1, S=8192: K9 = K10 = 4 a step and K4
+     8, all on the head_dim 128 kLocal instances, half windowed; the
+     median step beside its bound; peak under 75 GiB;
   12. GPT-2 124M (12 layers, 12 heads of 64, bf16 weights from the seed),
      capacity 1024, 8 greedy prompts of 64-512 tokens, 64 tokens each, one
      prompt a prefill call: int8 KV eager, captured and at burst 4 (equal
@@ -170,7 +192,9 @@ rows also carry their prompt bucket's numbers under "prompt", K4's its
 packed and chunk points under "packed" and "chunk", K3's Gemma-2-9B
 widths under "gemma"; the head_dim 256 rows "K4 d256" and "K1 d256"
 carry the unwindowed call under "no_window" and SDPA without the softcap
-under "sdpa_nocap_ms", as do "K9 d256" and "K10 d256"; "K4 d64" its
+under "sdpa_nocap_ms", as do "K9 d256" and "K10 d256" and Gemma-2-27B's
+rows "K4 27B", "K1 27B", "K9 27B" and "K10 27B"; K3's 27B widths under
+"gemma27b"; "K4 d64" its
 masked points under "packed" and "chunk", "K1c d64" a K8c point under
 "k8c") and the
 card; the last line is {"ok": true, "device": {...}}.  Any failed check
@@ -200,6 +224,10 @@ TRAIN_LAYERS, TRAIN_SEQ, TRAIN_STEPS = 32, 2048, 5
 TRAIN_LOSS_TOL = 1e-3          # phase 3 training, card vs CPU (see there)
 TRAIN_GRAD_TOL = 5e-2
 SEED = 0
+# Gemma-2's attention softcap, 9B's scale (256^-1/2) and window; 27B's
+# scale (query_pre_attn_scalar 144 at head_dim 128)
+GEMMA_CAP, GEMMA_SCALE, GEMMA_WINDOW = 50.0, 256.0 ** -0.5, 4096
+GEMMA27_SCALE = 144.0 ** -0.5
 
 
 def say(msg: str) -> None:
@@ -1407,9 +1435,9 @@ def sdpa_bwd_device_ms(torch, fn, calls=10):
 
 def _bwd_case(torch, checks, worst, label, args, tail, causal):
     """K9 and K10 each launched twice, on ``args`` and on K9's R(q) with
-    ``tail``, against flash_bwd_plain: every output row within its tolerance
-    (``row_err``; dq rows of queries that see one key with
-    ``one_key_floor``), R(q) bitwise rope_rotate's, the second launch
+    ``tail``, against flash_bwd_plain (through bwd_plain): every output row
+    within its tolerance (``row_err``; dq rows of queries that see one key
+    with ``one_key_floor``), R(q) bitwise rope_rotate's, the second launch
     bitwise the first.  Adds each kernel's max |err| into ``worst``;
     returns (dq, rq, dk, dv, {kernel: its result text})."""
     from flash_attn_tpu_torch.ops import flash_bwd as fb
@@ -1418,7 +1446,7 @@ def _bwd_case(torch, checks, worst, label, args, tail, causal):
     q, k, cos, sin = args[0], args[1], args[8], args[9]
     (dq, rq), (dq2, rq2) = fb.flash_bwd_dq_cuda(*args), fb.flash_bwd_dq_cuda(*args)
     (dk, dv), (dk2, dv2) = fb.flash_bwd_dkv_cuda(rq, *tail), fb.flash_bwd_dkv_cuda(rq, *tail)
-    rdq, rdk, rdv = fb.flash_bwd_plain(*args)
+    rdq, rdk, rdv = bwd_plain(args)
     rq_ok = torch.equal(rq, q if cos is None else rope_rotate(q, cos, sin))
     torch.cuda.synchronize()
     same = {"K9": torch.equal(dq, dq2) and torch.equal(rq, rq2),
@@ -1442,12 +1470,14 @@ def _bwd_case(torch, checks, worst, label, args, tail, causal):
 
 
 class BwdCase(NamedTuple):
-    """One K9/K10 case of check_k9_k10: shape, options (scale D^-0.5, rope
-    theta Llama-3's at D=128, else 10000), ``q_mult`` scales q so that the
-    scores reach the cap, and ``row`` says where this case's times go in
-    the kernels' rows of its head dim (K9 and K10 at 128, K9 d256 and K10
-    d256 at 256, K9 d64 and K10 d64 at 64): None nowhere, "" the rows
-    themselves, else the name of a sub-dict of them."""
+    """One K9/K10 case of check_k9_k10: shape, options (``scale``, default
+    D^-0.5; rope theta Llama-3's at D=128 without ``tag``, else 10000),
+    ``q_mult`` scales q so that the scores reach the cap, ``tag`` names the
+    kernels' rows the case belongs to (default by head dim: K9 and K10 at
+    128, K9 d256 and K10 d256 at 256, K9 d64 and K10 d64 at 64; " 27B":
+    K9 27B and K10 27B, Gemma-2-27B's head_dim 128 kLocal instances), and
+    ``row`` says where this case's times go in them: None nowhere, "" the
+    rows themselves, else the name of a sub-dict of them."""
     B: int
     Sq: int
     Sk: int
@@ -1460,6 +1490,19 @@ class BwdCase(NamedTuple):
     cap: float | None = None
     q_mult: float = 1.0
     row: str | None = None
+    scale: float | None = None
+    tag: str | None = None
+
+    @property
+    def softmax_scale(self) -> float:
+        return self.D ** -0.5 if self.scale is None else self.scale
+
+    @property
+    def suffix(self) -> str:
+        """The suffix of the kernels' rows this case belongs to."""
+        if self.tag is not None:
+            return self.tag
+        return "" if self.D == 128 else f" d{self.D}"
 
     @property
     def bends(self) -> bool:
@@ -1488,7 +1531,11 @@ class BwdCase(NamedTuple):
 # ragged shifted case with GQA 12/4 and rope (K9's rope pull-back at 64
 # pairs a column with the one 32 away, inside the one 64-column part: a
 # missed pull-back fails here), and non-causal at B=2 with per-sequence
-# rope.
+# rope.  At Gemma-2-27B's D=128 (H=32, Hk=16, scale 1/12, rope, softcap
+# 50; the kLocal instances beside Llama's): as at 256, the training shape
+# windowed and causal (the rows K9 27B and K10 27B), a ragged shifted
+# windowed case and the cap-5 pair, and non-causal with a two-sided window
+# (8, 2), Sq < Sk (JAX takes it; no Gemma-2 path does).
 BWD_CASES = (
     BwdCase(1, 2048, 2048, 32, 8, 128, True, True, row=""),
     BwdCase(1, 1000, 1500, 32, 8, 128, True, False),
@@ -1506,6 +1553,18 @@ BWD_CASES = (
     BwdCase(8, 1024, 1024, 12, 12, 64, True, False, row=""),
     BwdCase(1, 1000, 1500, 12, 4, 64, True, True),
     BwdCase(2, 1024, 1024, 12, 12, 64, False, True),
+    BwdCase(1, 8192, 8192, 32, 16, 128, True, True, (4095, -1), 50.0, row="",
+            scale=GEMMA27_SCALE, tag=" 27B"),
+    BwdCase(1, 8192, 8192, 32, 16, 128, True, True, None, 50.0, row="no_window",
+            scale=GEMMA27_SCALE, tag=" 27B"),
+    BwdCase(1, 1000, 1500, 32, 16, 128, True, True, (299, -1), 50.0, scale=GEMMA27_SCALE,
+            tag=" 27B"),
+    BwdCase(1, 2048, 2048, 32, 16, 128, True, True, (1023, -1), 5.0, scale=GEMMA27_SCALE,
+            tag=" 27B"),
+    BwdCase(1, 2048, 2048, 32, 16, 128, True, True, None, 5.0, scale=GEMMA27_SCALE,
+            tag=" 27B"),
+    BwdCase(1, 1000, 1500, 32, 16, 128, False, True, (8, 2), 50.0, scale=GEMMA27_SCALE,
+            tag=" 27B"),
 )
 
 
@@ -1514,14 +1573,16 @@ def _bwd_case_label(c: BwdCase) -> str:
             + f", H={c.H}, Hk={c.Hk}, D={c.D}, {'causal' if c.causal else 'not causal'}"
             + f"{', rope' if c.rope else ''}" + (f", softcap {c.cap:g}" if c.cap else "")
             + (f", q x{c.q_mult:g}" if c.q_mult != 1.0 else "")
+            + (f", scale {c.scale:.4g}" if c.scale is not None else "")
             + (f", window {c.window}" if c.window else ""))
 
 
 def _bwd_case_inputs(torch, g, c: BwdCase):
     """_bwd_inputs for case ``c``: (q, k, v, dout, lse, delta, cos, sin)."""
+    llama = c.D == 128 and c.tag is None
     return _bwd_inputs(torch, g, c.B, c.Sq, c.Sk, c.causal, c.rope, c.H, c.Hk, c.D,
-                       window=c.window, softcap=c.cap, theta=500000.0 if c.D == 128 else 10000.0,
-                       q_mult=c.q_mult)
+                       window=c.window, softcap=c.cap, scale=c.scale,
+                       theta=500000.0 if llama else 10000.0, q_mult=c.q_mult)
 
 
 def check_k9_k10(torch, checks, rows):
@@ -1553,11 +1614,11 @@ def check_k9_k10(torch, checks, rows):
     worst = {}
     for c in BWD_CASES:
         q, k, v, dout, lse, delta, cos, sin = _bwd_case_inputs(torch, g, c)
-        D, scale = c.D, c.D ** -0.5
+        D, scale = c.D, c.softmax_scale
         args = (q, k, v, dout, lse, delta, c.causal, scale, cos, sin, c.window, c.cap)
         tail = (k, v, dout, lse, delta, c.causal, scale, c.window, c.cap)
         label = _bwd_case_label(c)
-        suffix = "" if D == 128 else f" d{D}"
+        suffix = c.suffix
         case_worst = {"K9": 0.0, "K10": 0.0}
         dq, rq, dk, dv, res = _bwd_case(torch, checks, case_worst, label, args, tail, c.causal)
         for key, err in case_worst.items():
@@ -1581,7 +1642,7 @@ def check_k9_k10(torch, checks, rows):
         say(f"  K10 {label}: {res['K10']} | {ms10:.4f} ms, graph {g10:.4f} "
             f"({4 * gemm / g10 / 1e9:.1f} TFLOP/s), bound {b10[0]:.4f} ({b10[1]})")
         if c.row is not None:
-            plain_ms = cuda_ms(torch, lambda: fb.flash_bwd_plain(*args), iters=2, warmup=1)
+            plain_ms = cuda_ms(torch, lambda: bwd_plain(args), iters=2, warmup=1)
             qt = (q if cos is None else rope_rotate(q, cos, sin)).transpose(1, 2).contiguous()
             qt.requires_grad_(True)
             kt = k.transpose(1, 2).contiguous().requires_grad_(True)
@@ -1856,14 +1917,69 @@ def check_k8(torch, checks, rows):
 
 
 # --- Gemma-2-9B's shapes: head_dim 256, the sliding window, the softcap ----
+# --- and Gemma-2-27B's: head_dim 128, the scale 144^-1/2 ---------------------
 
-GEMMA_CAP, GEMMA_SCALE, GEMMA_WINDOW = 50.0, 256.0 ** -0.5, 4096
+# the plain versions' score tensors ([B, heads, Sq, Sk] fp32) at most this
+# large: a larger call runs them over groups of heads (whole GQA groups)
+PLAIN_SCORE_BYTES = 2 ** 32
 
 
-def _k4_case(torch, checks, label, q, k, v, cos, sin, clamped, window, timed=False):
-    """K4 at head_dim 256 with the Gemma softcap against its plain version
+def _head_groups(B, Sq, Sk, H, Hk):
+    """Query-head slices of whole GQA groups whose scores fit
+    PLAIN_SCORE_BYTES (one slice, all H heads, when they do)."""
+    G = H // Hk
+    per = max(1, PLAIN_SCORE_BYTES // (B * G * Sq * Sk * 4)) * G
+    return [slice(h, min(h + per, H)) for h in range(0, H, per)]
+
+
+def fwd_plain(args):
+    """flash_fwd_plain on ``args`` (flash_fwd_cuda's), over groups of
+    whole GQA groups of query heads (_head_groups): each head's values are
+    the one call's, in a fraction of the memory."""
+    import torch
+
+    from flash_attn_tpu_torch.ops import flash_fwd as ff
+
+    q, k, v = args[:3]
+    B, Sq, H, _ = q.shape
+    Sk, Hk = k.shape[1], k.shape[2]
+    parts = _head_groups(B, Sq, Sk, H, Hk)
+    if len(parts) == 1:
+        return ff.flash_fwd_plain(*args)
+    G = H // Hk
+    outs = [ff.flash_fwd_plain(q[:, :, hs], k[:, :, hs.start // G:hs.stop // G],
+                               v[:, :, hs.start // G:hs.stop // G], *args[3:]) for hs in parts]
+    return torch.cat([o for o, _ in outs], dim=2), torch.cat([x for _, x in outs], dim=1)
+
+
+def bwd_plain(args):
+    """flash_bwd_plain on ``args`` (flash_bwd_dq_cuda's), as fwd_plain
+    splits flash_fwd_plain."""
+    import torch
+
+    from flash_attn_tpu_torch.ops import flash_bwd as fb
+
+    q, k, v, dout, lse, delta = args[:6]
+    B, Sq, H, _ = q.shape
+    Sk, Hk = k.shape[1], k.shape[2]
+    parts = _head_groups(B, Sq, Sk, H, Hk)
+    if len(parts) == 1:
+        return fb.flash_bwd_plain(*args)
+    G = H // Hk
+    outs = []
+    for hs in parts:
+        ks = slice(hs.start // G, hs.stop // G)
+        outs.append(fb.flash_bwd_plain(q[:, :, hs], k[:, :, ks], v[:, :, ks], dout[:, :, hs],
+                                       lse[:, hs], delta[:, hs], *args[6:]))
+    return (torch.cat([x[0] for x in outs], dim=2), torch.cat([x[1] for x in outs], dim=1),
+            torch.cat([x[2] for x in outs], dim=1))
+
+
+def _k4_case(torch, checks, label, q, k, v, cos, sin, clamped, window, timed=False,
+             scale=GEMMA_SCALE):
+    """K4 with the Gemma softcap and ``scale`` against its plain version
     (each row to two bf16 ulps of its largest, the LSE to 1e-3, as check_k4
-    holds it); with ``timed`` also the kernel's time, the plain version's,
+    holds it; fwd_plain); with ``timed`` also the kernel's time, the plain version's,
     SDPA's without the cap (a different function: no single PyTorch call
     applies the softcap; the window as a boolean mask) and the bound on
     the live pairs.  Returns (max |err|, the times or None)."""
@@ -1874,11 +1990,11 @@ def _k4_case(torch, checks, label, q, k, v, cos, sin, clamped, window, timed=Fal
 
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
-    args = (q, k, v, True, GEMMA_SCALE, cos, sin, clamped, None, window, GEMMA_CAP)
-    out, lse = ff.flash_fwd(q, k, v, causal=True, scale=GEMMA_SCALE, window=window,
+    args = (q, k, v, True, scale, cos, sin, clamped, None, window, GEMMA_CAP)
+    out, lse = ff.flash_fwd(q, k, v, causal=True, scale=scale, window=window,
                             logit_softcap=GEMMA_CAP, rope_cos=cos, rope_sin=sin,
                             softmax_mode="clamped" if clamped else "online")
-    rout, rlse = ff.flash_fwd_plain(*args)
+    rout, rlse = fwd_plain(args)
     torch.cuda.synchronize()
     err, share = row_err(out, rout)
     lerr = float((lse - rlse).abs().max())
@@ -1891,16 +2007,16 @@ def _k4_case(torch, checks, label, q, k, v, cos, sin, clamped, window, timed=Fal
     flops = 4 * B * H * D * pairs
     if timed:
         ms = cuda_ms(torch, lambda: ff.flash_fwd_cuda(*args))
-        plain_ms = cuda_ms(torch, lambda: ff.flash_fwd_plain(*args), iters=1, warmup=1)
+        plain_ms = cuda_ms(torch, lambda: fwd_plain(args), iters=1, warmup=1)
         qr = rope_rotate(q, cos, sin).transpose(1, 2).contiguous()
         kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
         if window is None:
             sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                qr, kt, vt, is_causal=True, scale=GEMMA_SCALE, enable_gqa=True)
+                qr, kt, vt, is_causal=True, scale=scale, enable_gqa=True)
         else:
             mask = ff.live_pairs(None, True, Sq, Sk, "cuda", window)[0]
             sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                qr, kt, vt, attn_mask=mask, scale=GEMMA_SCALE, enable_gqa=True)
+                qr, kt, vt, attn_mask=mask, scale=scale, enable_gqa=True)
         sdpa_ms = cuda_ms(torch, sdpa, iters=5)
         del qr, kt, vt
         nbytes = q.numel() * 2 * 2 + k.numel() * 2 * 2 + cos.numel() * 4 * 2 + B * H * Sq * 4
@@ -1915,18 +2031,20 @@ def _k4_case(torch, checks, label, q, k, v, cos, sin, clamped, window, timed=Fal
     return err, times
 
 
-def check_k4_gemma(torch, checks, rows):
-    """K4 at Gemma-2-9B's prefill shape: D=256, H=16, Hk=8, S=8192, causal,
-    clamped, softcap 50, scale 1/16, q rotated in the kernel, with the
-    sliding window (4095, -1) and without (the "K4 d256" row; the windowed
-    call should take near the share of live pairs, ~0.75, of the causal
-    one: the tiles below the window are skipped, not masked); then at small
-    odd shapes (S=891, a shifted Sq=1000 Sk=1500) in both softmax modes,
-    with a window of 300 and without."""
+def check_k4_gemma(torch, checks, rows, key="K4 d256", H=16, Hk=8, D=256, scale=GEMMA_SCALE,
+                   seed=SEED + 30):
+    """K4 at Gemma-2-9B's prefill shape (the defaults): D=256, H=16, Hk=8,
+    S=8192, causal, clamped, softcap 50, scale 1/16, q rotated in the
+    kernel, with the sliding window (4095, -1) and without (the "K4 d256"
+    row; the windowed call should take near the share of live pairs,
+    ~0.75, of the causal one: the tiles below the window are skipped, not
+    masked); then at small odd shapes (S=891, a shifted Sq=1000 Sk=1500)
+    in both softmax modes, with a window of 300 and without.  Gemma-2-27B
+    passes D=128, H=32, Hk=16, scale 1/12 and its row, "K4 27B" (K4's
+    head_dim 128 kLocal instance)."""
     from flash_attn_tpu_torch.ops.rope import rope_cos_sin
 
-    g = torch.Generator(device="cuda").manual_seed(SEED + 30)
-    H, Hk, D = 16, 8, 256
+    g = torch.Generator(device="cuda").manual_seed(seed)
     worst, times = 0.0, {}
     for Sq, Sk, timed in ((8192, 8192, True), (891, 891, False), (1000, 1500, False)):
         q = torch.randn((1, Sq, H, D), generator=g, device="cuda", dtype=torch.bfloat16)
@@ -1937,21 +2055,22 @@ def check_k4_gemma(torch, checks, rows):
         cases = ((True, wide), (True, None)) if timed else (
             (True, wide), (False, wide), (True, None), (False, None))
         for clamped, window in cases:
-            label = (f"K4 D=256 {'clamped' if clamped else 'online'} S={Sq}"
+            label = (f"K4 D={D} {'clamped' if clamped else 'online'} S={Sq}"
                      + (f" Sk={Sk}" if Sk != Sq else "") + f" H={H} Hk={Hk} softcap 50 "
-                     + (f"window {window}" if window else "no window"))
-            err, t = _k4_case(torch, checks, label, q, k, v, cos, sin, clamped, window, timed)
+                     + f"scale {scale:.4g} " + (f"window {window}" if window else "no window"))
+            err, t = _k4_case(torch, checks, label, q, k, v, cos, sin, clamped, window, timed,
+                              scale)
             worst = max(worst, err)
             if t:
                 times[window is not None] = t
         del q, k, v
         torch.cuda.empty_cache()
     w, nw = times[True], times[False]
-    say(f"  K4 D=256 S=8192: windowed / causal time {w['ms'] / nw['ms']:.3f} (live pairs "
+    say(f"  K4 D={D} S=8192: windowed / causal time {w['ms'] / nw['ms']:.3f} (live pairs "
         f"{w['live_pairs'] / nw['live_pairs']:.3f})")
-    rows["K4 d256"] = dict(
-        name="flash_fwd (B=1, S=8192, H=16, Hk=8, D=256, causal, rope, clamped, softcap 50, "
-             "window (4095, -1))",
+    rows[key] = dict(
+        name=f"flash_fwd (B=1, S=8192, H={H}, Hk={Hk}, D={D}, causal, rope, clamped, softcap 50, "
+             f"scale {scale:.4g}, window (4095, -1))",
         source="flash_attn_tpu_torch/csrc/flash_fwd.cu",
         replaces="flash_attn_tpu/ops/flash_fwd.py:221", max_abs_err=worst,
         ms=w["ms"], plain_ms=w["plain_ms"], library_ms=None, bound_ms=w["bound_ms"],
@@ -2001,23 +2120,26 @@ def _k1m_row(torch, checks, shape, outs, lses, idle=None):
                 plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
 
-def check_k1_gemma(torch, checks, rows):
-    """K1 at Gemma-2-9B's decode step: D=256, B=8, H=16, Hk=8, capacity
-    8192, int8 and fp8 KV (online: the cap reaches the fp8 ceiling),
-    softcap 50, scale 1/16, lengths up to 8000, with window 4096 (splits
-    over each sequence's live walk) and without (splits over the
+def check_k1_gemma(torch, checks, rows, key="K1 d256", H=16, Hk=8, D=256, scale=GEMMA_SCALE,
+                   kvs=("int8", "fp8"), k1m_key="K1m d256", seed=SEED + 31):
+    """K1 at Gemma-2-9B's decode step (the defaults): D=256, B=8, H=16,
+    Hk=8, capacity 8192, int8 and fp8 KV (online: the cap reaches the fp8
+    ceiling), softcap 50, scale 1/16, lengths up to 8000, with window 4096
+    (splits over each sequence's live walk) and without (splits over the
     capacity), each against its plain version as check_k1 holds it (the
     "K1 d256" row: fp8, windowed; the windowed call should take about half
     the unwindowed one); then K1m at D=256 on the windowed fp8 partials
-    against lse_merge (the "K1m d256" row)."""
+    against lse_merge (the "K1m d256" row).  Gemma-2-27B passes D=128,
+    H=32, Hk=16, scale 1/12, fp8 alone, no K1m row and its row, "K1 27B"
+    (K1's window at head_dim 128)."""
     import torch.nn.functional as F
 
     from flash_attn_tpu_torch.ops import decode as dec
 
-    g = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     worst = 0.0
-    for kv in ("int8", "fp8"):
-        q, k, v, ks, vs, lens = _gemma_decode_inputs(torch, kv, g)
+    for kv in kvs:
+        q, k, v, ks, vs, lens = _gemma_decode_inputs(torch, kv, g, H=H, Hk=Hk, D=D)
         B, H, D = q.shape
         Hk, S = k.shape[1], k.shape[2]
         clamped = dec._default_softmax_mode(k.dtype, GEMMA_CAP) == "clamped"
@@ -2028,10 +2150,10 @@ def check_k1_gemma(torch, checks, rows):
             nsplit, split_len = dec._splits(B, Hk, reach, None)
             if window is not None:
                 split_len = None
-            args = (q, k, v, ks, vs, lens, GEMMA_SCALE, clamped, clamp2, nsplit, split_len,
+            args = (q, k, v, ks, vs, lens, scale, clamped, clamp2, nsplit, split_len,
                     1, "bhsd", window, GEMMA_CAP)
             call = lambda: dec.flash_decode(  # noqa: E731
-                q, k, v, k_scale=ks, v_scale=vs, kv_length=lens, scale=GEMMA_SCALE,
+                q, k, v, k_scale=ks, v_scale=vs, kv_length=lens, scale=scale,
                 window=window, logit_softcap=GEMMA_CAP, kv_layout="bhsd", return_lse=True)
             got, glse = call()
             po, pl = dec.flash_decode_plain(*args)
@@ -2039,7 +2161,7 @@ def check_k1_gemma(torch, checks, rows):
             torch.cuda.synchronize()
             err, share = row_err(got, ref)
             lerr = float((glse - rlse).abs().max())
-            label = f"K1 D=256 {kv} {'window 4096' if window else 'no window'}"
+            label = f"K1 D={D} H={H} Hk={Hk} {kv} {'window 4096' if window else 'no window'}"
             ok = checks.check(f"{label} out", share, 1.0) & checks.check(f"{label} lse", lerr, 1e-3)
             worst = max(worst, err)
             ms = cuda_ms(torch, lambda: dec.flash_decode_cuda(*args))
@@ -2051,7 +2173,7 @@ def check_k1_gemma(torch, checks, rows):
             if window is not None:
                 live = live & (pos >= lens[:, None].long() - window)
             sdpa_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                q[:, :, None, :], kd, vd, attn_mask=live[:, None, None, :], scale=GEMMA_SCALE,
+                q[:, :, None, :], kd, vd, attn_mask=live[:, None, None, :], scale=scale,
                 enable_gqa=True))
             del kd, vd
             n_live = int(live.sum())
@@ -2068,44 +2190,48 @@ def check_k1_gemma(torch, checks, rows):
                 f"SDPA without it on the dequantized cache, a different function: "
                 f"{sdpa_ms:.4f}), bound {b_ms:.4f} ({b_by}) on {n_live} live positions")
         w, nw = times[True], times[False]
-        say(f"  K1 D=256 {kv}: windowed / unwindowed time {w['ms'] / nw['ms']:.3f}, as called "
-            f"{w['call_graph_ms'] / nw['call_graph_ms']:.3f}")
+        say(f"  K1 D={D} H={H} {kv}: windowed / unwindowed time {w['ms'] / nw['ms']:.3f}, as "
+            f"called {w['call_graph_ms'] / nw['call_graph_ms']:.3f}")
         if kv == "fp8":
-            rows["K1 d256"] = dict(
-                name="decode_bhsd (B=8, H=16, Hk=8, S=8192, D=256, fp8 KV, online, softcap 50, "
-                     "window 4096)",
+            rows[key] = dict(
+                name=f"decode_bhsd (B=8, H={H}, Hk={Hk}, S=8192, D={D}, fp8 KV, online, softcap "
+                     f"50, scale {scale:.4g}, window 4096)",
                 source="flash_attn_tpu_torch/csrc/decode.cu",
                 replaces="flash_attn_tpu/ops/decode.py:747", library_ms=None,
-                **{key: w[key] for key in ("ms", "call_graph_ms", "plain_ms", "sdpa_nocap_ms",
-                                           "bound_ms", "bound_by")},
-                no_window={key: nw[key] for key in ("ms", "call_graph_ms", "plain_ms",
-                                                    "sdpa_nocap_ms", "bound_ms", "bound_by")})
+                **{x: w[x] for x in ("ms", "call_graph_ms", "plain_ms", "sdpa_nocap_ms",
+                                     "bound_ms", "bound_by")},
+                no_window={x: nw[x] for x in ("ms", "call_graph_ms", "plain_ms",
+                                              "sdpa_nocap_ms", "bound_ms", "bound_by")})
+        if kv == "fp8" and k1m_key:
             nsplit = dec._splits(B, Hk, GEMMA_WINDOW, None)[0]
-            outs, lses = dec.flash_decode_cuda(q, k, v, ks, vs, lens, GEMMA_SCALE, clamped,
+            outs, lses = dec.flash_decode_cuda(q, k, v, ks, vs, lens, scale, clamped,
                                                clamp2, nsplit, None, 1, "bhsd", GEMMA_WINDOW,
                                                GEMMA_CAP)
-            rows["K1m d256"] = _k1m_row(torch, checks, "B=8, H=16, D=256", outs, lses)
+            rows[k1m_key] = _k1m_row(torch, checks, f"B=8, H={H}, D={D}", outs, lses)
             del outs, lses
         del q, k, v, ks, vs
         torch.cuda.empty_cache()
-    rows["K1 d256"]["max_abs_err"] = worst
+    rows[key]["max_abs_err"] = worst
 
 
-# Gemma-2-9B's projections (K, N): wq, wk / wv, wo, w_gate / w_up, w_down
+# Gemma-2-9B's and -27B's projections (K, N): wq, wk / wv, wo, w_gate /
+# w_up, w_down
 GEMMA_GEMMS = ((3584, 4096), (3584, 2048), (4096, 3584), (3584, 14336), (14336, 3584))
+GEMMA27_GEMMS = ((4608, 4096), (4608, 2048), (4096, 4608), (4608, 36864), (36864, 4608))
 
 
-def check_k3_gemma(torch, checks, rows):
-    """K3 at Gemma-2-9B's widths, M = 8 (the decode step), against its
-    plain version as check_k3 holds it; the K3 row carries them under
-    "gemma"."""
+def check_k3_gemma(torch, checks, rows, gemms=GEMMA_GEMMS, key="gemma", model="Gemma-2-9B",
+                   seed=SEED + 32):
+    """K3 at a Gemma-2's widths (``gemms``), M = 8 (the decode step),
+    against its plain version as check_k3 holds it; the K3 row carries
+    them under ``key``."""
     from flash_attn_tpu_torch.ops import matmul as mm
     from flash_attn_tpu_torch.ops.quant import quantize_int8
 
-    g = torch.Generator(device="cuda").manual_seed(SEED + 32)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     points = {}
     M = 8
-    for K, N in GEMMA_GEMMS:
+    for K, N in gemms:
         wf = torch.randn((K, N), generator=g, device="cuda", dtype=torch.bfloat16) * 0.02
         wq, s = quantize_int8(wf, dims=(0,))
         wq, s = wq.contiguous(), s[0].contiguous()
@@ -2113,13 +2239,13 @@ def check_k3_gemma(torch, checks, rows):
         del wf
         x = torch.randn((M, K), generator=g, device="cuda", dtype=torch.bfloat16)
         points[f"{K}x{N}"] = _q_point(
-            torch, checks, f"K3 Gemma-2-9B M={M} K={K} N={N}",
+            torch, checks, f"K3 {model} M={M} K={K} N={N}",
             lambda: mm.matmul_int8_cuda(x, wq, s, torch.bfloat16),
             lambda: mm.matmul_int8_plain(x, wq, s, torch.bfloat16),
             lambda: torch.matmul(x, wbf) * s, "matmul, then the scales",
             M * K * 2 + K * N + N * 4 + M * N * 2, 2 * M * K * N)
         del wq, s, wbf
-    rows["K3"]["gemma"] = dict(M=M, **points)
+    rows["K3"][key] = dict(M=M, **points)
 
 
 # --- GPT-2 124M's shapes (BASELINE config 0): head_dim 64 -------------------
@@ -2477,6 +2603,12 @@ def phase_kernels(torch, checks):
     check_k4_gemma(torch, checks, rows)
     check_k1_gemma(torch, checks, rows)
     check_k3_gemma(torch, checks, rows)
+    torch.cuda.empty_cache()
+    check_k4_gemma(torch, checks, rows, "K4 27B", H=32, Hk=16, D=128, scale=GEMMA27_SCALE,
+                   seed=SEED + 33)
+    check_k1_gemma(torch, checks, rows, "K1 27B", H=32, Hk=16, D=128, scale=GEMMA27_SCALE,
+                   kvs=("fp8",), k1m_key=None, seed=SEED + 34)
+    check_k3_gemma(torch, checks, rows, GEMMA27_GEMMS, "gemma27b", "Gemma-2-27B", SEED + 35)
     torch.cuda.empty_cache()
     check_k4_gpt2(torch, checks, rows)
     check_decode_gpt2(torch, checks, rows)
@@ -2866,11 +2998,12 @@ def train_card_vs_cpu(torch, checks):
 GEMMA_CVC_WINDOW, GEMMA_CVC_PROMPT = 512, 1000
 
 
-def gemma_card_vs_cpu(torch, checks):
-    """2 layers of Gemma-2 at full 9B widths (layer 0 slides, layer 1 is
-    global), int8 weights, fp8 KV, the window cut to GEMMA_CVC_WINDOW: a
-    1000-token prompt (the 1024 bucket) and four decode steps in lockstep
-    on the card (K4 and K1 at head_dim 256 with window and softcap) and on
+def gemma_card_vs_cpu(torch, checks, size="9B", seed=SEED + 5):
+    """2 layers of Gemma-2 at full 9B (or ``size`` "27B") widths (layer 0
+    slides, layer 1 is global), int8 weights, fp8 KV, the window cut to
+    GEMMA_CVC_WINDOW: a 1000-token prompt (the 1024 bucket) and four decode
+    steps in lockstep on the card (K4 and K1 with window and softcap, at
+    head_dim 256; at 27B's 128 K4's kLocal instance beside Llama's) and on
     the CPU (their plain versions), fed the CPU's greedy tokens; logits
     within 5 % of the largest, as card_vs_cpu holds them."""
     import numpy as np
@@ -2878,11 +3011,12 @@ def gemma_card_vs_cpu(torch, checks):
     from flash_attn_tpu_torch.models import gemma2
 
     t0 = time.perf_counter()
-    cfg = dataclasses.replace(gemma2.GEMMA2_9B, num_layers=2, sliding_window=GEMMA_CVC_WINDOW)
-    card = gemma2.init_params(cfg, seed=SEED + 5, device="cuda", quantize="int8")
+    base = gemma2.GEMMA2_27B if size == "27B" else gemma2.GEMMA2_9B
+    cfg = dataclasses.replace(base, num_layers=2, sliding_window=GEMMA_CVC_WINDOW)
+    card = gemma2.init_params(cfg, seed=seed, device="cuda", quantize="int8")
     sides = {"cpu": _to(card, "cpu"), "cuda": card}
     caches = {d: gemma2.make_cache(cfg, 1, 1280, mode="fp8", device=d) for d in sides}
-    prompt = np.random.default_rng(SEED + 5).integers(0, cfg.vocab_size, GEMMA_CVC_PROMPT)
+    prompt = np.random.default_rng(seed).integers(0, cfg.vocab_size, GEMMA_CVC_PROMPT)
     toks = torch.zeros((1, 1024), dtype=torch.long)
     toks[0, :len(prompt)] = torch.from_numpy(prompt)
     logits = {d: [] for d in sides}
@@ -2909,11 +3043,11 @@ def gemma_card_vs_cpu(torch, checks):
     # order, which can flip a bf16, int8-activation or fp8-KV rounding that
     # two layers carry into the (capped) logits
     tol = 5e-2 * float(ref.abs().max())
-    ok = checks.check("card vs cpu logits, Gemma-2", err, tol) and finite
+    ok = checks.check(f"card vs cpu logits, Gemma-2 {size}", err, tol) and finite
     if not finite:
-        checks.failed.append("card logits not finite, Gemma-2")
+        checks.failed.append(f"card logits not finite, Gemma-2 {size}")
     agree = int((got.argmax(-1) == ref.argmax(-1)).sum())
-    say(f"[phase 3 card vs cpu, Gemma-2: 2 layers at 9B widths (layer 0 slides, layer 1 "
+    say(f"[phase 3 card vs cpu, Gemma-2: 2 layers at {size} widths (layer 0 slides, layer 1 "
         f"global), int8 weights, fp8 KV, the window cut to {GEMMA_CVC_WINDOW} so the "
         f"{GEMMA_CVC_PROMPT}-token prompt crosses it] logits {tuple(got.shape)} finite={finite} "
         f"max_abs_err {err:.3e} (tol {tol:.3e}, max |logit| {float(ref.abs().max()):.3f}) "
@@ -2924,19 +3058,21 @@ def gemma_card_vs_cpu(torch, checks):
     torch.cuda.empty_cache()
 
 
-def gemma_train_card_vs_cpu(torch, checks):
-    """The training check for Gemma-2: 2 layers at full 9B widths (layer 0
-    slides, layer 1 is global), the window cut to GEMMA_CVC_WINDOW, S=1024
-    (K4, K9, K10 at head_dim 256 with window and softcap)."""
+def gemma_train_card_vs_cpu(torch, checks, size="9B", seed=SEED + 15):
+    """The training check for Gemma-2: 2 layers at full 9B (or ``size``
+    "27B") widths (layer 0 slides, layer 1 is global), the window cut to
+    GEMMA_CVC_WINDOW, S=1024 (K4, K9, K10 with window and softcap: at
+    head_dim 256, or at 27B's 128 their kLocal instances beside Llama's)."""
     from flash_attn_tpu_torch.models import gemma2
 
     t0 = time.perf_counter()
-    cfg = dataclasses.replace(gemma2.GEMMA2_9B, num_layers=2, sliding_window=GEMMA_CVC_WINDOW)
-    card = gemma2.init_params(cfg, seed=SEED + 15, device="cuda")
+    base = gemma2.GEMMA2_27B if size == "27B" else gemma2.GEMMA2_9B
+    cfg = dataclasses.replace(base, num_layers=2, sliding_window=GEMMA_CVC_WINDOW)
+    card = gemma2.init_params(cfg, seed=seed, device="cuda")
     fwd = lambda p, tokens, remat: gemma2.forward(p, tokens, cfg, remat=remat)  # noqa: E731
-    _train_card_vs_cpu(torch, checks, "Gemma-2 training: 2 layers at 9B widths (layer 0 slides, "
-                       f"layer 1 global), the window cut to {GEMMA_CVC_WINDOW}", "Gemma-2 ",
-                       card, fwd, cfg.vocab_size, 1024, SEED + 15, t0)
+    _train_card_vs_cpu(torch, checks, f"Gemma-2 training: 2 layers at {size} widths (layer 0 "
+                       f"slides, layer 1 global), the window cut to {GEMMA_CVC_WINDOW}",
+                       f"Gemma-2 {size} ", card, fwd, cfg.vocab_size, 1024, seed, t0)
 
 
 def _gpt2_cfg(**kw):
@@ -3130,6 +3266,8 @@ def _reset_counts():
     wrappers["K4"].seg_launches = wrappers["K4"].pos_launches = 0
     wrappers["K4"].window_launches = wrappers["K4"].d256_launches = 0
     wrappers["K4"].d64_launches = wrappers["K1"].d64_launches = k8.d64_launches = 0
+    for key in ("K4", "K9", "K10"):
+        wrappers[key].local_launches = 0
     for key in ("K9", "K10"):
         wrappers[key].window_launches = wrappers[key].d256_launches = 0
         wrappers[key].d64_launches = 0
@@ -3140,11 +3278,12 @@ def _read_counts() -> dict:
     and BSHD, K8 into decode mode and chunk mode, K8's launches that
     merged their splits in the kernel ("K8 merges"), K4's launches with
     segment ids ("K4 seg"), with positions ("K4 pos"), with a window ("K4
-    window") and at head_dim 256 ("K4 d256") or 64 ("K4 d64"), which are
-    also counted in "K4", K1's (decode mode), K9's and K10's with a window
-    and at head_dim 256, and K1's and K1c's together ("K1 d64") and K8's
-    and K8c's together ("K8 d64") at head_dim 64, and K9's and K10's at
-    head_dim 64."""
+    window"), at head_dim 256 ("K4 d256") or 64 ("K4 d64") and of a kLocal
+    instance (window and softcap, "K4 local"), which are also counted in
+    "K4", K1's (decode mode), K9's and K10's with a window, at head_dim
+    256 and of a kLocal instance, and K1's and K1c's together ("K1 d64")
+    and K8's and K8c's together ("K8 d64") at head_dim 64, and K9's and
+    K10's at head_dim 64."""
     wrappers, k8 = _counters()
     counts = {k: fn.launches for k, fn in wrappers.items()}
     k1 = wrappers["K1"]
@@ -3163,7 +3302,9 @@ def _read_counts() -> dict:
     counts["K4 d64"] = wrappers["K4"].d64_launches
     counts["K1 d64"] = k1.d64_launches
     counts["K8 d64"] = k8.d64_launches
+    counts["K4 local"] = wrappers["K4"].local_launches
     for key in ("K9", "K10"):
+        counts[f"{key} local"] = wrappers[key].local_launches
         counts[f"{key} window"] = wrappers[key].window_launches
         counts[f"{key} d256"] = wrappers[key].d256_launches
         counts[f"{key} d64"] = wrappers[key].d64_launches
@@ -3732,7 +3873,7 @@ def _gemma_prompts(vocab):
     return lens, [rng.integers(0, vocab, int(n)).tolist() for n in lens]
 
 
-def phase_gemma(torch, checks, smi):
+def phase_gemma(torch, checks, smi, size="9B"):
     """Phase 10: Gemma-2-9B (42 layers, random weights from the seed), int8
     weights, fp8 KV, max_batch 8, capacity 8192: 8 greedy requests (seven
     prompts of 128-1024 tokens and one of GEMMA_LONG, so the 4096 window
@@ -3742,60 +3883,68 @@ def phase_gemma(torch, checks, smi):
     and tokens/s, the card's ms a position (the captured run also the idle
     share and top 5 kernels of a torch.profiler window of WINDOW_STEPS
     steps), prefill tokens/s, peak memory
-    against MAX_GEMMA_GIB, and the launches (K4 at head_dim 256 42 a
-    prefill call, half of them windowed; K1 at 256, K2 and K1m 42 a decode
-    step, half of K1's windowed).  Then int8 KV, 16 tokens.  Returns
-    {run label: that run's launch counts}."""
+    against MAX_GEMMA_GIB, and the launches (K4 42 a prefill call, all
+    kLocal at head_dim 256, half of them windowed; K1 at 256, K2 and K1m
+    42 a decode step, half of K1's windowed).  Then int8 KV, 16 tokens.
+    Phase 14 (``size`` "27B"): the same for Gemma-2-27B (46 layers, head_dim
+    128: K4's kLocal instance beside Llama's, 46 a prefill call, 23
+    windowed, none at 256; K1 at 128, 23 of 46 a step windowed), without
+    the int8 KV run.  Returns {run label: that run's launch counts}."""
     from flash_attn_tpu_torch.engine._graph import disable_graphs
     from flash_attn_tpu_torch.models import gemma2
 
-    cfg = gemma2.GEMMA2_9B
+    cfg, run = (gemma2.GEMMA2_27B, RUN_GEMMA27) if size == "27B" else (gemma2.GEMMA2_9B,
+                                                                       RUN_GEMMA)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = gemma2.init_params(cfg, seed=SEED, device="cuda", quantize="int8")
     torch.cuda.synchronize()
-    say(f"  Gemma-2-9B params (int8 weights, bf16 embeddings = the tied head) on the card in "
+    say(f"  Gemma-2-{size} params (int8 weights, bf16 embeddings = the tied head) on the card in "
         f"{time.perf_counter() - t0:.2f}s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     prompts = _gemma_prompts(cfg.vocab_size)
     adapter = gemma2.make_adapter(cfg)
-    path = ("K1", "K1m", "K2", "K3", "K4", "K4 d256", "K4 window", "K1 d256", "K1 window")
+    d256 = cfg.head_dim == 256
+    path = ("K1", "K1m", "K2", "K3", "K4", "K4 local", "K4 window", "K1 window") + (
+        ("K4 d256", "K1 d256") if d256 else ())
     kw = dict(packed=False, adapter=adapter, capacity=8192, prompts=prompts)
     with disable_graphs():
-        eager = serve(torch, checks, f"{RUN_GEMMA}, eager", cfg, params, "fp8", 32, path, **kw)
-    graph = serve(torch, checks, RUN_GEMMA, cfg, params, "fp8", 32, path, window=True, **kw)
+        eager = serve(torch, checks, f"{run}, eager", cfg, params, "fp8", 32, path, **kw)
+    graph = serve(torch, checks, run, cfg, params, "fp8", 32, path, window=True, **kw)
     same = eager["tokens"] == graph["tokens"]
     if not same:
-        checks.failed.append(f"{RUN_GEMMA}: eager tokens differ from the captured run's")
+        checks.failed.append(f"{run}: eager tokens differ from the captured run's")
     L, n_req = cfg.num_layers, len(prompts[0])
-    for name, run in (("eager", eager), ("captured", graph)):
-        c, steps = run["counts"], run["dispatches"]
-        want = {"K4": L * n_req, "K4 d256": L * n_req, "K4 window": L // 2 * n_req,
-                "K1": L * steps, "K1 d256": L * steps, "K1 window": L // 2 * steps,
-                "K2": L * steps, "K1m": L * steps}
+    for name, one in (("eager", eager), ("captured", graph)):
+        c, steps = one["counts"], one["dispatches"]
+        want = {"K4": L * n_req, "K4 local": L * n_req, "K4 d256": L * n_req * d256,
+                "K4 window": L // 2 * n_req, "K1": L * steps, "K1 d256": L * steps * d256,
+                "K1 window": L // 2 * steps, "K2": L * steps, "K1m": L * steps}
         got = {key: c[key] for key in want}
         if got != want:
-            checks.failed.append(f"{RUN_GEMMA}, {name}: launches {got}, expected {want}")
+            checks.failed.append(f"{run}, {name}: launches {got}, expected {want}")
     peak = graph["peak"]
     if peak > MAX_GEMMA_GIB:
-        checks.failed.append(f"{RUN_GEMMA}: peak {peak:.2f} GiB > {MAX_GEMMA_GIB} GiB")
+        checks.failed.append(f"{run}: peak {peak:.2f} GiB > {MAX_GEMMA_GIB} GiB")
     c, dev = graph["counts"], graph["dev_ms"]
-    say(f"[{RUN_GEMMA}: eager / captured] {smi} | decode eager {eager['pos_ms']:.3f} ms a "
+    say(f"[{run}: eager / captured] {smi} | decode eager {eager['pos_ms']:.3f} ms a "
         f"position ({eager['tok_s']:.1f} tok/s), captured {graph['pos_ms']:.3f} ms a position "
         f"({graph['tok_s']:.1f} tok/s), the card {dev:.3f} ms a position (graph replays) | "
         f"prefill {graph['prefill_tok_s']:.1f} tok/s (one prompt a call, prompts "
         f"{prompts[0].tolist()}) | peak {peak:.2f} GiB (limit {MAX_GEMMA_GIB}: the 8192-bucket "
         f"prefill's fp32 [1, 8192, 256128] logits take 7.8 GiB) | launches (captured): K4 "
-        f"{c['K4']} = {L} x {n_req} prefill calls ({c['K4 window']} windowed), K1 {c['K1']} = "
-        f"{L} x {graph['dispatches']} steps ({c['K1 window']} windowed), K2 {c['K2']}, K1m "
-        f"{c['K1m']}, K3 {c['K3']} | tokens equal eager / captured: {same}")
+        f"{c['K4']} = {L} x {n_req} prefill calls ({c['K4 local']} kLocal, {c['K4 window']} "
+        f"windowed, {c['K4 d256']} at head_dim 256), K1 {c['K1']} = {L} x {graph['dispatches']} "
+        f"steps ({c['K1 window']} windowed), K2 {c['K2']}, K1m {c['K1m']}, K3 {c['K3']} | "
+        f"tokens equal eager / captured: {same}")
     wall, busy, top = graph["window"]
     say(f"  captured window of {WINDOW_STEPS} steps ({smi}), torch.profiler: wall {wall:.3f} ms, "
         f"card busy {busy:.3f} ms, idle share {1 - busy / wall:.4f}; top 5: "
         + ", ".join(f"{n[:60]} {ms:.3f} ms x{cnt}" for n, ms, cnt in top))
-    runs = {RUN_GEMMA: c}
-    label = "phase 10 serve Gemma-2-9B int8, int8 KV"
-    runs[label] = serve(torch, checks, label, cfg, params, "int8", 16, path, **kw)["counts"]
+    runs = {run: c}
+    if size == "9B":
+        label = "phase 10 serve Gemma-2-9B int8, int8 KV"
+        runs[label] = serve(torch, checks, label, cfg, params, "int8", 16, path, **kw)["counts"]
     del params
     _free(torch)
     return runs
@@ -3874,28 +4023,65 @@ def phase_train(torch, checks, smi):
 
 
 GEMMA_TRAIN_LAYERS, GEMMA_TRAIN_SEQ = 8, 8192
+GEMMA27_TRAIN_LAYERS = 4
 
 
-def phase_gemma_train(torch, checks, smi):
+def phase_gemma_train(torch, checks, smi, size="9B"):
     """Phase 11: Gemma-2 at 9B widths and GEMMA_TRAIN_LAYERS layers (half
     sliding, half global; bf16 params and moments from the seed: 2.504 B
     parameters, 20.0 GB with gradients and moments), B=1,
     S=GEMMA_TRAIN_SEQ (past the 4096 window); K9 and K10 launch once a
-    layer a step, half of them windowed, all at head_dim 256, and K4 twice
-    (remat reruns it)."""
+    layer a step, half of them windowed, all at head_dim 256 (kLocal), and
+    K4 twice (remat reruns it).  Phase 15 (``size`` "27B"): Gemma-2 at 27B
+    widths and GEMMA27_TRAIN_LAYERS layers (3.445 B parameters), the same
+    counts on the head_dim 128 kLocal instances, and the median step
+    beside its bound: the fp32 tied head's three products at
+    F32_FLOPS_PER_S, the layers' bf16 GEMMs (the forward, the backward's
+    two products, remat's rerun) and the attention products (K4's two a
+    pass, twice; K9's three; K10's four, 2*D flops a live pair each) at
+    BF16_FLOPS_PER_S, and AdamW's bytes (each bf16 param, gradient and two
+    moments read once, the param and moments written once) at
+    HBM_BYTES_PER_S."""
     from flash_attn_tpu_torch.models import gemma2
+    from flash_attn_tpu_torch.ops.flash_fwd import live_pairs
+    from flash_attn_tpu_torch.utils import train
 
     t1 = time.perf_counter()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = dataclasses.replace(gemma2.GEMMA2_9B, num_layers=GEMMA_TRAIN_LAYERS)
+    big = size == "27B"
+    base, layers, run = ((gemma2.GEMMA2_27B, GEMMA27_TRAIN_LAYERS, RUN_GEMMA27_TRAIN) if big
+                         else (gemma2.GEMMA2_9B, GEMMA_TRAIN_LAYERS, RUN_GEMMA_TRAIN))
+    cfg = dataclasses.replace(base, num_layers=layers)
     params = gemma2.init_params(cfg, seed=SEED, device="cuda")
     fwd = lambda p, tokens, remat: gemma2.forward(p, tokens, cfg, remat=remat)  # noqa: E731
-    n = GEMMA_TRAIN_LAYERS * TRAIN_STEPS
-    want = {"K9": n, "K9 d256": n, "K9 window": n // 2, "K10": n, "K10 d256": n,
-            "K10 window": n // 2, "K4": 2 * n, "K4 d256": 2 * n, "K4 window": n}
-    return _train_run(torch, checks, smi, RUN_GEMMA_TRAIN, params, fwd, cfg.vocab_size,
-                      GEMMA_TRAIN_SEQ, SEED + 16, want, t1)
+    n = layers * TRAIN_STEPS
+    d256 = n * (cfg.head_dim == 256)
+    want = {"K9": n, "K9 local": n, "K9 d256": d256, "K9 window": n // 2, "K10": n,
+            "K10 local": n, "K10 d256": d256, "K10 window": n // 2, "K4": 2 * n,
+            "K4 local": 2 * n, "K4 d256": 2 * d256, "K4 window": n}
+    bound_ms = None
+    if big:
+        S, h, V = GEMMA_TRAIN_SEQ, cfg.hidden, cfg.vocab_size
+        qd, kvd = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+        dense = 2 * (2 * h * qd + 2 * h * kvd + 3 * h * cfg.intermediate)  # a token, a layer
+        head = 3 * 2 * S * h * V
+        gemms = 4 * layers * S * dense
+        pairs = sum(int(live_pairs(None, True, S, S, "cuda",
+                                   gemma2._wnd(cfg, i)).sum()) for i in range(layers))
+        attn = 11 * 2 * cfg.head_dim * cfg.num_heads * pairs
+        n_params = sum(p.numel() for p in train.param_leaves(params))
+        adam = 7 * 2 * n_params
+        parts = (head / F32_FLOPS_PER_S, (gemms + attn) / BF16_FLOPS_PER_S,
+                 adam / HBM_BYTES_PER_S)
+        bound_ms = 1e3 * sum(parts)
+        say(f"  phase 15 bound: the fp32 head {head / 1e12:.3f} TFLOP ({1e3 * parts[0]:.3f} ms "
+            f"at {F32_FLOPS_PER_S / 1e12:g} TFLOP/s), bf16 GEMMs {gemms / 1e12:.3f} TFLOP and "
+            f"attention {attn / 1e12:.3f} TFLOP on {pairs} live pairs a head "
+            f"({1e3 * parts[1]:.3f} ms at {BF16_FLOPS_PER_S / 1e12:g} TFLOP/s), AdamW "
+            f"{adam / 1e9:.3f} GB ({1e3 * parts[2]:.3f} ms at {HBM_BYTES_PER_S / 1e12:g} TB/s)")
+    return _train_run(torch, checks, smi, run, params, fwd, cfg.vocab_size, GEMMA_TRAIN_SEQ,
+                      SEED + (20 if big else 16), want, t1, bound_ms=bound_ms)
 
 
 GPT2_TOKENS = 64             # greedy tokens a request in phase 12
@@ -4147,6 +4333,9 @@ RUN_TRAIN = (f"phase 8 train Llama-3 8B widths, {TRAIN_LAYERS} layers, B=1 S={TR
 RUN_GEMMA = "phase 10 serve Gemma-2-9B int8, fp8 KV"
 RUN_GEMMA_TRAIN = (f"phase 11 train Gemma-2 9B widths, {GEMMA_TRAIN_LAYERS} layers, B=1 "
                    f"S={GEMMA_TRAIN_SEQ}, {TRAIN_STEPS} AdamW steps")
+RUN_GEMMA27 = "phase 14 serve Gemma-2-27B int8, fp8 KV"
+RUN_GEMMA27_TRAIN = (f"phase 15 train Gemma-2 27B widths, {GEMMA27_TRAIN_LAYERS} layers, B=1 "
+                     f"S={GEMMA_TRAIN_SEQ}, {TRAIN_STEPS} AdamW steps")
 RUN_GPT2 = "phase 12 serve GPT-2 124M bf16, int8 KV"
 RUN_GPT2_FP8 = "phase 12 serve GPT-2 124M bf16, fp8 KV"
 RUN_GPT2_CHUNK = "phase 12 serve GPT-2 124M bf16, int8 KV, prefill_chunk_size 256"
@@ -4159,14 +4348,16 @@ RUN_GPT2_TRAIN = (f"phase 13 train GPT-2 124M bf16, 12 layers, B=8 S=1024, {TRAI
                   "steps")
 KERNEL_ROWS = ("K1", "K1m", "K1c", "K1b", "K2", "K3", "K3g", "K4", "K5", "K6", "K7", "K8", "K8c",
                "K9", "K10", "K4 d256", "K1 d256", "K2 d256", "K1m d256", "K9 d256", "K10 d256",
-               "K4 d64", "K1 d64", "K1c d64", "K8 d64", "K2 d64", "K1m d64", "K9 d64", "K10 d64")
+               "K4 d64", "K1 d64", "K1c d64", "K8 d64", "K2 d64", "K1m d64", "K9 d64", "K10 d64",
+               "K4 27B", "K1 27B", "K9 27B", "K10 27B")
 # the run whose launches a kernel's row reports, and the count it reads:
 # the main path that the kernel serves (the 70B serve for the shared K1,
 # K1m, K2 and K4, the n-gram speculative serve for K1's chunk mode, the
 # paged serve for K8 in both modes, the training run for K9 and K10, the
 # captured Gemma-2-9B serve for the head_dim 256 points of K4, K1, K2 and
 # K1m, the Gemma-2 training run for K9's and K10's, the GPT-2 training run
-# for their head_dim 64 points); K3 grouped and K1
+# for their head_dim 64 points, the captured Gemma-2-27B serve and its
+# training run for the head_dim 128 kLocal points); K3 grouped and K1
 # over a BSHD cache have no model path, so their rows report none
 ROW_RUN = {"K1": RUN_70B, "K1m": RUN_70B, "K1c": RUN_SPEC_NGRAM, "K1b": None, "K2": RUN_70B,
            "K3": RUN_8B_INT8, "K3g": None, "K4": RUN_70B, "K5": RUN_8B_W4A8, "K6": RUN_70B,
@@ -4175,12 +4366,15 @@ ROW_RUN = {"K1": RUN_70B, "K1m": RUN_70B, "K1c": RUN_SPEC_NGRAM, "K1b": None, "K
            "K1m d256": RUN_GEMMA, "K9 d256": RUN_GEMMA_TRAIN, "K10 d256": RUN_GEMMA_TRAIN,
            "K4 d64": RUN_GPT2, "K1 d64": RUN_GPT2, "K1c d64": RUN_GPT2_SPEC,
            "K8 d64": RUN_GPT2_PAGED, "K2 d64": RUN_GPT2, "K1m d64": RUN_GPT2,
-           "K9 d64": RUN_GPT2_TRAIN, "K10 d64": RUN_GPT2_TRAIN}
+           "K9 d64": RUN_GPT2_TRAIN, "K10 d64": RUN_GPT2_TRAIN, "K4 27B": RUN_GEMMA27,
+           "K1 27B": RUN_GEMMA27, "K9 27B": RUN_GEMMA27_TRAIN, "K10 27B": RUN_GEMMA27_TRAIN}
 # a row's count where it is not the row's own key: every K2 and K1m launch
 # of the Gemma-2-9B serve is at head_dim 256, and every launch of the GPT-2
-# serves at head_dim 64 (phase 12 holds the d64 counts equal)
+# serves at head_dim 64 (phase 12 holds the d64 counts equal); the 27B
+# rows read their runs' kLocal counts (K1's: all of phase 14's)
 ROW_COUNT = {"K2 d256": "K2", "K1m d256": "K1m", "K4 d64": "K4", "K1 d64": "K1",
-             "K1c d64": "K1c", "K8 d64": "K8", "K2 d64": "K2", "K1m d64": "K1m"}
+             "K1c d64": "K1c", "K8 d64": "K8", "K2 d64": "K2", "K1m d64": "K1m",
+             "K4 27B": "K4 local", "K1 27B": "K1", "K9 27B": "K9 local", "K10 27B": "K10 local"}
 
 
 def main() -> int:
@@ -4211,12 +4405,16 @@ def main() -> int:
     train_card_vs_cpu(torch, checks)
     gemma_card_vs_cpu(torch, checks)
     gemma_train_card_vs_cpu(torch, checks)
+    gemma_card_vs_cpu(torch, checks, "27B", SEED + 21)
+    gemma_train_card_vs_cpu(torch, checks, "27B", SEED + 22)
     gpt2_card_vs_cpu(torch, checks)
     gpt2_train_card_vs_cpu(torch, checks)
     runs = phase_serve(torch, checks, smi)
     runs.update(phase_gemma(torch, checks, smi))
+    runs.update(phase_gemma(torch, checks, smi, "27B"))
     runs[RUN_TRAIN] = phase_train(torch, checks, smi)
     runs[RUN_GEMMA_TRAIN] = phase_gemma_train(torch, checks, smi)
+    runs[RUN_GEMMA27_TRAIN] = phase_gemma_train(torch, checks, smi, "27B")
     runs.update(phase_gpt2(torch, checks, smi))
     runs[RUN_GPT2_TRAIN] = phase_gpt2_train(torch, checks, smi)
     for key, row in rows.items():
@@ -4235,6 +4433,7 @@ def main() -> int:
                     library_ms=r["library_ms"],
                     **{k: r[k] for k in ("graph_ms", "call_graph_ms", "empty_graph_ms",
                                          "prompt", "also", "packed", "chunk", "gemma",
+                                         "gemma27b",
                                          "sdpa_nocap_ms", "no_window", "k8c") if k in r})
                for r in (rows[k] for k in KERNEL_ROWS)]
     print(json.dumps({"kernels": kernels}))

@@ -21,11 +21,14 @@ turns (old..., this, this, ...old reversed).  Versions that take segment
 ids and positions are held the same way, clamped, at the packed
 prefill's shape (phase 4's eight prompts in 4096) and a chunk's (Sq=512
 at start 1024 over 4096, positions alone).  Versions whose entry takes a
-window (and a softcap) are also held at head_dim 256, phase 2's Gemma-2-9B
-shape (B=1, S=8192, H=16, Hk=8, causal, clamped, softcap 50, scale 1/16,
-rope), with the sliding window (4095, -1), without, and without the
-softcap too (what the softcap costs): the same errors and bitwise checks,
-and the time with its TFLOP/s on the live pairs.  Each
+window (and a softcap) are also held at LOCAL_CASES: head_dim 256, phase
+2's Gemma-2-9B shape (B=1, S=8192, H=16, Hk=8, causal, clamped, softcap
+50, scale 1/16, rope), with the sliding window (4095, -1), without, and
+without the softcap too (what the softcap costs); GPT-2's head_dim 64
+(B=8, S=1024, H=Hk=12, causal, clamped); and, for versions that build
+K4's head_dim 128 kLocal instance, Gemma-2-27B's (H=32, Hk=16, scale
+1/12, softcap 50) with the window and without: the same errors and
+bitwise checks, and the time with its TFLOP/s on the live pairs.  Each
 build prints every K4 instance's registers, stack and spills.
 The card's name and power limit head the output.
 """
@@ -78,7 +81,7 @@ def build(name, src_dir, out_dir):
     masked = takes_masks(src)
     fn = entry_args.bind(ctypes.CDLL(str(lib)).fatt_flash_fwd, src, "fatt_flash_fwd",
                          SIG_MASKED if masked else SIG)
-    return (fn, masked), info
+    return (fn, masked, "launch<128, false, true>" in src.read_text()), info
 
 
 def main() -> int:
@@ -112,7 +115,7 @@ def main() -> int:
     flops = k4_flops(B, S, S, H, D)
     refs = {c: ff.flash_fwd_plain(q, k, v, True, D ** -0.5, cos, sin, c) for c in (True, False)}
     masked_cases = _masked_cases(torch, ff)
-    d256_cases = _d256_cases(torch, ff)
+    local_cases = _local_cases(torch, ff)
     olds = [tuple(o.split("=", 1)) for o in args.old]
     fns = {}
     for name, src in [*olds, ("this", ROOT / "flash_attn_tpu_torch" / "csrc")]:
@@ -121,7 +124,7 @@ def main() -> int:
     order = [n for n, _ in olds] + ["this", "this"] + [n for n, _ in reversed(olds)]
     first = {}  # softmax mode -> the first version's (out, lse)
     for name in order:
-        fn, masked = fns[name]
+        fn, masked, local128 = fns[name]
         line = []
         for clamped in (True, False):
             def call(fn=fn, clamped=clamped, none=(None,) * (5 * masked)):
@@ -144,45 +147,66 @@ def main() -> int:
                 _masked_turn(torch, fn, case, first, name) for case in masked_cases),
                 flush=True)
         if hasattr(fn, "raw"):
-            print(f"[turn] {name} D=256: " + "; ".join(
-                _d256_turn(torch, fn.raw, case, first, name) for case in d256_cases),
-                flush=True)
+            print(f"[turn] {name} with window and softcap args: " + "; ".join(
+                _local_turn(torch, fn.raw, case, first, name) for case in local_cases
+                if local128 or not case[7]), flush=True)
     shutil.rmtree(out_dir, ignore_errors=True)
     return 0
 
 
-def _d256_cases(torch, ff):
+# (label, B, S, H, Hk, D, scale, rope theta, window, cap, needs K4's
+# head_dim 128 kLocal instance) of the cases run through the entry with
+# window and softcap: phase 2's Gemma-2-9B shape (with the window, without,
+# and without the cap too: what the softcap costs), GPT-2's (head_dim 64,
+# no window, no cap, no rope) and Gemma-2-27B's (head_dim 128 kLocal)
+LOCAL_CASES = (
+    ("D=256 window (4095, -1)", 1, 8192, 16, 8, 256, 1 / 16, 10000.0, (4095, -1), 50.0, False),
+    ("D=256 no window", 1, 8192, 16, 8, 256, 1 / 16, 10000.0, None, 50.0, False),
+    ("D=256 no window, no cap", 1, 8192, 16, 8, 256, 1 / 16, 10000.0, None, None, False),
+    ("D=64 B=8 S=1024 H=Hk=12", 8, 1024, 12, 12, 64, 1 / 8, None, None, None, False),
+    ("D=128 H=32 Hk=16 window (4095, -1)", 1, 8192, 32, 16, 128, 1 / 12, 10000.0, (4095, -1),
+     50.0, True),
+    ("D=128 H=32 Hk=16 no window", 1, 8192, 32, 16, 128, 1 / 12, 10000.0, None, 50.0, True),
+)
+
+
+def _local_cases(torch, ff):
     """(label, args of the C entry with window and softcap but the stream,
-    out, lse, plain (out, lse), live pairs) at phase 2's Gemma-2-9B shape:
-    with the sliding window (4095, -1) and without."""
+    out, lse, plain (out, lse), live pairs, (H, D), needs the 128 kLocal
+    instance, the input tensors) of each LOCAL_CASES row (causal,
+    clamped)."""
+    from chip_smoke import fwd_plain
     from flash_attn_tpu_torch.ops.rope import rope_cos_sin
 
     g = torch.Generator(device="cuda").manual_seed(23)
-    S, H, Hk, D, cap, scale = 8192, 16, 8, 256, 50.0, 1 / 16
-    q = torch.randn((1, S, H, D), generator=g, device="cuda", dtype=torch.bfloat16)
-    k = torch.randn((1, S, Hk, D), generator=g, device="cuda", dtype=torch.bfloat16)
-    v = torch.randn((1, S, Hk, D), generator=g, device="cuda", dtype=torch.bfloat16)
-    cos, sin = rope_cos_sin(torch.arange(S, device="cuda")[None], D, 10000.0)
     cases = []
-    for label, window, c in (("window (4095, -1)", (4095, -1), cap), ("no window", None, cap),
-                             ("no window, no cap", None, None)):
+    for label, B, S, H, Hk, D, scale, theta, window, cap, local128 in LOCAL_CASES:
+        q = torch.randn((B, S, H, D), generator=g, device="cuda", dtype=torch.bfloat16)
+        k = torch.randn((B, S, Hk, D), generator=g, device="cuda", dtype=torch.bfloat16)
+        v = torch.randn((B, S, Hk, D), generator=g, device="cuda", dtype=torch.bfloat16)
+        cos = sin = None
+        if theta is not None:
+            cos, sin = rope_cos_sin(torch.arange(S, device="cuda")[None], D, theta)
         out = torch.empty_like(q)
-        lse = torch.empty((1, H, S), dtype=torch.float32, device="cuda")
-        args = [t.data_ptr() for t in (q, k, v, cos, sin, out, lse)] + [None] * 5
-        args += [1, S, S, H, Hk, D, 0, float(scale * ff.LOG2E), 1, 1, *(window or (-1, -1)),
-                 float(c * ff.LOG2E) if c else 0.0]
-        ref = ff.flash_fwd_plain(q, k, v, True, scale, cos, sin, True, None, window, c)
-        n_live = int(ff.live_pairs(None, True, S, S, "cuda", window).sum())
-        cases.append((label, args, out, lse, ref, n_live, (q, k, v, cos, sin)))
+        lse = torch.empty((B, H, S), dtype=torch.float32, device="cuda")
+        args = [None if t is None else t.data_ptr() for t in (q, k, v, cos, sin, out, lse)]
+        args += [None] * 5 + [B, S, S, H, Hk, D, 0, float(scale * ff.LOG2E), 1, 1,
+                              *(window or (-1, -1)), float(cap * ff.LOG2E) if cap else 0.0]
+        ref = fwd_plain((q, k, v, True, scale, cos, sin, True, None, window, cap))
+        n_live = B * int(ff.live_pairs(None, True, S, S, "cuda", window).sum())
+        # the tensors ride along: the C entry holds only their addresses
+        cases.append((label, args, out, lse, ref, n_live, (H, D), local128,
+                      (q, k, v, cos, sin)))
     return cases
 
 
-def _d256_turn(torch, fn, case, first, name):
-    """One D=256 case's errors, time, TFLOP/s on live pairs, and whether its
-    outputs are bitwise those of the first version that took a window."""
+def _local_turn(torch, fn, case, first, name):
+    """One LOCAL_CASES case's errors, time, TFLOP/s on live pairs, and
+    whether its outputs are bitwise those of the first version that ran
+    it."""
     from chip_smoke import cuda_ms, row_err
 
-    label, args, out, lse, (rout, rlse), n_live, _ = case
+    label, args, out, lse, (rout, rlse), n_live, (H, D), _, _ = case
 
     def call():
         return fn(*args, torch.cuda.current_stream().cuda_stream)
@@ -194,7 +218,7 @@ def _d256_turn(torch, fn, case, first, name):
     f_out, f_lse, f_name = first.setdefault(label, (out.clone(), lse.clone(), name))
     same = torch.equal(out, f_out) and torch.equal(lse, f_lse)
     ms = cuda_ms(torch, call)
-    return (f"{label} {ms:.4f} ms ({4 * 16 * 256 * n_live / ms / 1e9:.1f} TFLOP/s on "
+    return (f"{label} {ms:.4f} ms ({4 * H * D * n_live / ms / 1e9:.1f} TFLOP/s on "
             f"{n_live} live pairs), share {share:.3f}, lse err {lerr:.2e}, bitwise "
             f"{f_name}'s {same}")
 

@@ -21,10 +21,12 @@ launches through ctypes at chip_smoke.py's K9/K10 cases (``BWD_CASES``)
 that fill the kernels' rows: the Llama training shape (B=1, S=2048, H=32,
 Hk=8, D=128, causal, rope) and, where the source takes them, Gemma-2-9B's
 (B=1, S=8192, H=16, Hk=8, D=256, causal, rope, softcap 50, scale 1/16)
-with the window (4095, -1) and without, and GPT-2's (B=8, S=1024,
-H=Hk=12, D=64, causal, no rope); and, checked only, at the cases
-whose scores bend the cap (S=2048 at D=256, cap 5, with the window
-(1023, -1) and without).  Each is held to ``flash_bwd_plain``
+with the window (4095, -1) and without, GPT-2's (B=8, S=1024,
+H=Hk=12, D=64, causal, no rope) and, where the source builds the head_dim
+128 kLocal instances, Gemma-2-27B's (B=1, S=8192, H=32, Hk=16, D=128,
+causal, rope, softcap 50, scale 1/12) with the window and without; and,
+checked only, at the cases whose scores bend the cap (S=2048 at D=256 and
+at 27B's D=128, cap 5, with the window (1023, -1) and without).  Each is held to ``flash_bwd_plain``
 as chip_smoke.py holds K9 and K10: dq, and dk and dv summed over each
 GQA group, every row within 2^-6 of its largest |ref| (plus the floors);
 the worst share of that tolerance is printed.  The tile mutant must
@@ -37,7 +39,8 @@ noise on both sides.  Where a version that is not a mutant misses, its
 worst dq rows are printed against an fp64 reference.  Times: CUDA
 events over 20 launches and CUDA-graph replays, in turns (old..., this,
 this, ...old reversed; at D=256 only the versions that take a window, at
-D=64 only those that take head_dim 64),
+D=64 only those that take head_dim 64, at 27B's only those that build its
+instances),
 and K10 followed by the reduction ``flash_bwd`` makes of its outputs
 (the sum over each GQA group, then dk and dv in bf16 as [B, Sk, Hk, D]).
 Each check line also says whether dq, dk and dv are bitwise those of the
@@ -80,9 +83,13 @@ CAP_MUTANTS = ("no_dt", "no_tanh")
 PEAKY = (1, 2048, 2048, 16, 8, 256, True, True, (1023, -1), 50.0, 8.0)
 
 
-def takes(src: Path, D: int) -> bool:
-    """Whether the flash_bwd.cu in ``src`` builds head dim ``D``."""
-    return D == 128 or f"launch_dq<{D}>" in (src / "flash_bwd.cu").read_text()
+def takes(src: Path, c) -> bool:
+    """Whether the flash_bwd.cu in ``src`` builds case ``c``'s instance:
+    its head dim, and at 128 with a window or a softcap the kLocal one."""
+    text = (src / "flash_bwd.cu").read_text()
+    if c.D == 128 and (c.window is not None or c.cap is not None):
+        return "launch_dq<128, true>" in text
+    return c.D == 128 or f"launch_dq<{c.D}" in text
 
 
 def interface(src: Path) -> str:
@@ -98,8 +105,9 @@ def registers(ptxas: str) -> str:
     for line in ptxas.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"(dkv_kernel|dq_kernel)(?:ILi(\d+)E)?", m.group(1))
-            name = None if k is None else f"{k.group(1)}<{k.group(2) or 128}>"
+            k = re.search(r"(dkv_kernel|dq_kernel)(?:ILi(\d+)E(?:Lb([01])E)?)?", m.group(1))
+            name = None if k is None else (f"{k.group(1)}<{k.group(2) or 128}"
+                                           f"{', local' if k.group(3) == '1' else ''}>")
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
             spill = f"spill {m.group(1)}/{m.group(2)} bytes"
@@ -154,8 +162,7 @@ class Case:
     references and operation count."""
 
     def __init__(self, torch, c):
-        from chip_smoke import _bwd_case_label, _bwd_case_inputs, one_key_floor
-        from flash_attn_tpu_torch.ops import flash_bwd as fb
+        from chip_smoke import _bwd_case_inputs, _bwd_case_label, bwd_plain, one_key_floor
         from flash_attn_tpu_torch.ops import flash_fwd as ff
         from flash_attn_tpu_torch.ops.rope import rope_rotate
 
@@ -163,13 +170,12 @@ class Case:
         self.name, self.S, self.H, self.Hk, self.D = _bwd_case_label(c), c.Sq, c.H, c.Hk, c.D
         self.B = c.B
         self.window, self.cap, self.bends = c.window, c.cap, c.bends
-        self.scale = c.D ** -0.5
+        self.scale = c.softmax_scale
         g = torch.Generator(device="cuda").manual_seed(5)
         (self.q, self.k, self.v, self.dout, self.lse, self.delta, self.cos,
          self.sin) = _bwd_case_inputs(torch, g, c)
-        rdq, rdk, rdv = fb.flash_bwd_plain(self.q, self.k, self.v, self.dout, self.lse,
-                                           self.delta, True, self.scale, self.cos, self.sin,
-                                           c.window, c.cap)
+        rdq, rdk, rdv = bwd_plain((self.q, self.k, self.v, self.dout, self.lse, self.delta,
+                                   True, self.scale, self.cos, self.sin, c.window, c.cap))
         B, S, H, Hk, D = self.B, self.S, self.H, self.Hk, self.D
         self.ref = (rdq, *(x.reshape(B, Hk, H // Hk, S, D).sum(2) for x in (rdk, rdv)))
         self.floor = one_key_floor(torch, rdq, S, True)
@@ -286,7 +292,7 @@ def main() -> int:
     for bc, bound in cases + [(BwdCase(*PEAKY), False)]:
         c = Case(torch, bc)
         labels = [n for n, src in srcs if (c.D == 128 or libs[n][0] == "local")
-                  and takes(Path(src), c.D) and (n not in CAP_MUTANTS or c.cap is not None)]
+                  and takes(Path(src), c) and (n not in CAP_MUTANTS or c.cap is not None)]
         first = None
         for label in labels:
             c9, c10, _, outs = runner(label, c)

@@ -1,12 +1,13 @@
 // K9 and K10: FlashAttention-2 backward, BSHD bf16, bottom-right causal GQA
-// with q-side RoPE, at head_dim 64 (GPT-2), 128 (Llama-3) and 256
-// (Gemma-2-9B, with the sliding window and the logit softcap).  Two passes, each
+// with q-side RoPE, at head_dim 64 (GPT-2), 128 (Llama-3; Gemma-2-27B with
+// the sliding window and the logit softcap) and 256 (Gemma-2-9B, with
+// both).  Two passes, each
 // deterministic by construction (no atomics), as on the TPU:
 //   K9  (dq pass)    replaces flash_attn_tpu/ops/flash_bwd.py:_dq_kernel;
 //   K10 (dk/dv pass) replaces flash_attn_tpu/ops/flash_bwd.py:_dkv_kernel
 // on the subset the GPT-2, Llama and Gemma-2 training steps use (no bias/dbias,
 // segments, positions, ALiBi or dropout; the window and the softcap at
-// head_dim 256 only).  K9 runs first: it rotates q once and writes R(q),
+// head_dim 128 and 256).  K9 runs first: it rotates q once and writes R(q),
 // which K10 streams as it is.
 //
 // Bound on the H100: operations at D = 128 and 256, bytes at D = 64.  At
@@ -54,8 +55,11 @@
 // (query rows in K9, keys in K10) and sharing its streamed tiles; ~129 KB
 // of shared memory and 256 threads, one block an SM (two blocks of one
 // warpgroup each measured 2-4 % slower); 167 (K9) and 236 (K10) registers.
-// Head dim 256 (the kLocal instances; compiled into the 128 instances at
-// run time, the window and the cap cost K4 its third block an SM):
+// The window and the softcap live in instances of their own (kLocal), at
+// head_dim 256 and beside the 128 instances (Gemma-2-27B: the same blocks
+// of two warpgroups, causal or not), as in K4, where compiled into the
+// Llama instance at run time they cost it its third block an SM.
+// Head dim 256 (kLocal only):
 //   * K9: one warpgroup of 64 query rows a block.  Its dq accumulator is
 //     64 x 256 fp32, 128 registers a thread, as O is in K4's 256 instance;
 //     R(q), dO and a two-stage K/V ring of 64-row, 32 KB tiles take
@@ -66,7 +70,8 @@
 //     (128 registers, the 128 instance's budget).  Each recomputes S^T and
 //     dP^T over the full D itself (1.5x the products of one pass, but no
 //     exchange of P^T or dS^T through shared memory and no barrier
-//     between the warpgroups beyond the ring's); 194 KB;
+//     between the warpgroups beyond the ring's); 194 KB.
+// Every kLocal instance:
 //   * the window (left, right; -1 open), bottom-right aligned as causal
 //     is, skips tiles: K9 walks key tiles from its first row's left edge
 //     (row + shift - left) to its last row's causal or right edge; K10
@@ -96,10 +101,11 @@ constexpr int kPartBytes = kRows * 128;  // 64 columns of a tile
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kStatBytes = 2 * kRows * 4;
 
-// The geometry of head dim kD (64, 128 or 256).
-template <int kD>
+// The geometry of head dim kD (64, 128 or 256); kLocalT: the window and
+// the softcap.
+template <int kD, bool kLocalT>
 struct Geo {
-  static constexpr bool kLocal = kD == 256;  // the window and the softcap
+  static constexpr bool kLocal = kLocalT;
   static constexpr int kChunks = kD * 2 / 16;  // 16-byte chunks per row
   static constexpr int kTileBytes = kRows * kD * 2;
   static constexpr int kParts = kD / 64;  // 64-column parts of a tile
@@ -128,7 +134,7 @@ struct Geo {
 template <int kD, int kThreads>
 __device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src, int b,
                                           int row0, int S, int Hx, int hx) {
-  constexpr int kChunks = Geo<kD>::kChunks;
+  constexpr int kChunks = kD * 2 / 16;
   for (int i = threadIdx.x; i < kRows * kChunks; i += kThreads) {
     const int r = i / kChunks, c = i % kChunks;
     const bool in = row0 + r < S;
@@ -198,15 +204,16 @@ __device__ __forceinline__ float lse_base2(float lse) {
 // The kLocal instances apply the window (wleft, wright; -1 open) and the
 // softcap (softcap2, the cap in base-2 units; 0 for none); the others
 // ignore all three.
-template <int kD>
-__global__ void __launch_bounds__(Geo<kD>::kDqThreads, Geo<kD>::kDqMinBlocks) dq_kernel(
+template <int kD, bool kLocal>
+__global__ void __launch_bounds__(Geo<kD, kLocal>::kDqThreads,
+                                  Geo<kD, kLocal>::kDqMinBlocks) dq_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
     const float* __restrict__ cosv, const float* __restrict__ sinv,
     float* __restrict__ dq, __nv_bfloat16* __restrict__ rq, int Sq, int Sk, int H, int Hk,
     int rope_bstride, float scale, int causal, int wleft, int wright, float softcap2) {
-  using G = Geo<kD>;
+  using G = Geo<kD, kLocal>;
   constexpr int kWarpgroups = G::kDqWarpgroups, kThreads = G::kDqThreads;
   constexpr int kBlockRows = G::kDqRows, kChunks = G::kChunks, kTileBytes = G::kTileBytes;
   constexpr int kParts = G::kParts;
@@ -427,14 +434,14 @@ __global__ void __launch_bounds__(Geo<kD>::kDqThreads, Geo<kD>::kDqMinBlocks) dq
   }
 }
 
-template <int kD>
-__global__ void __launch_bounds__(Geo<kD>::kDkvThreads, 1) dkv_kernel(
+template <int kD, bool kLocal>
+__global__ void __launch_bounds__(Geo<kD, kLocal>::kDkvThreads, 1) dkv_kernel(
     const __nv_bfloat16* __restrict__ rq, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
     float* __restrict__ dk, float* __restrict__ dv, int Sq, int Sk, int H, int Hk,
     float scale, int causal, int wleft, int wright, float softcap2) {
-  using G = Geo<kD>;
+  using G = Geo<kD, kLocal>;
   constexpr int kKeyWgs = G::kKeyWarpgroups, kThreads = G::kDkvThreads;
   constexpr int kBlockRows = G::kDkvRows, kTileBytes = G::kTileBytes;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -614,30 +621,30 @@ __global__ void __launch_bounds__(Geo<kD>::kDkvThreads, 1) dkv_kernel(
   }
 }
 
-// Head dims 64 (GPT-2), 128 (Llama-3) and 256 (Gemma-2-9B; causal only)
-// are built; a window or a softcap at head_dim 256 only.
+// Head dims 64 (GPT-2), 128 (Llama-3, Gemma-2-27B) and 256 (Gemma-2-9B;
+// causal only) are built; a window or a softcap at head_dim 128 and 256.
 bool shape_ok(int B, int Sq, int Sk, int H, int Hk, int D, int causal, int wleft, int wright,
               float softcap2) {
   const bool local = wleft >= 0 || wright >= 0 || softcap2 > 0.f;
   // the smaller of K9's and K10's block rows (at 64 and 128 both 128)
-  const int rows = D == 256 ? kRows : Geo<128>::kDqRows;
+  const int rows = D == 256 ? kRows : Geo<128, false>::kDqRows;
   return Sq > 0 && Sk > 0 && Hk > 0 && H % Hk == 0 && (D == 64 || D == 128 || D == 256) &&
          B <= 65535 && (Sq + rows - 1) / rows <= 65535 && (Sk + rows - 1) / rows <= 65535 &&
-         wleft >= -1 && wright >= -1 && softcap2 >= 0.f && !(local && D != 256) &&
+         wleft >= -1 && wright >= -1 && softcap2 >= 0.f && !(local && D == 64) &&
          !(D == 256 && !causal);
 }
 
-template <int kD>
+template <int kD, bool kLocal>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
               const void* delta, const void* cosv, const void* sinv, void* dq, void* rq,
               int B, int Sq, int Sk, int H, int Hk, int rope_bstride, float scale, int causal,
               int wleft, int wright, float softcap2, cudaStream_t st) {
-  using G = Geo<kD>;
+  using G = Geo<kD, kLocal>;
   static fatt::SmemLimitSet smem_set;
-  cudaError_t e = fatt::smem_limit_once(dq_kernel<kD>, G::kDqSmem, smem_set);
+  cudaError_t e = fatt::smem_limit_once(dq_kernel<kD, kLocal>, G::kDqSmem, smem_set);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(H, B, (Sq + G::kDqRows - 1) / G::kDqRows);
-  dq_kernel<kD><<<grid, G::kDqThreads, G::kDqSmem, st>>>(
+  dq_kernel<kD, kLocal><<<grid, G::kDqThreads, G::kDqSmem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -647,17 +654,17 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
   return (int)cudaGetLastError();
 }
 
-template <int kD>
+template <int kD, bool kLocal>
 int launch_dkv(const void* rq, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv, int B, int Sq, int Sk,
                int H, int Hk, float scale, int causal, int wleft, int wright, float softcap2,
                cudaStream_t st) {
-  using G = Geo<kD>;
+  using G = Geo<kD, kLocal>;
   static fatt::SmemLimitSet smem_set;
-  cudaError_t e = fatt::smem_limit_once(dkv_kernel<kD>, G::kDkvSmem, smem_set);
+  cudaError_t e = fatt::smem_limit_once(dkv_kernel<kD, kLocal>, G::kDkvSmem, smem_set);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(H, B, (Sk + G::kDkvRows - 1) / G::kDkvRows);
-  dkv_kernel<kD><<<grid, G::kDkvThreads, G::kDkvSmem, st>>>(
+  dkv_kernel<kD, kLocal><<<grid, G::kDkvThreads, G::kDkvSmem, st>>>(
       static_cast<const __nv_bfloat16*>(rq), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -674,7 +681,7 @@ int launch_dkv(const void* rq, const void* k, const void* v, const void* dout,
 // rq (with the tables, else unused): [B, Sq, H, D] bf16, R(q) for K10.
 // window_left / window_right: the window's sides (-1 open); softcap2: the
 // logit softcap in base-2 units (cap * log2 e), 0 for none; both at
-// head_dim 256 only, which is causal only.  head_dim 64, 128 or 256.
+// head_dim 128 and 256.  head_dim 64, 128 or 256 (256 causal only).
 extern "C" int fatt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse, const void* delta,
                                  const void* cosv, const void* sinv, void* dq, void* rq,
@@ -683,7 +690,11 @@ extern "C" int fatt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  int window_right, float softcap2, void* stream) {
   if (!shape_ok(B, Sq, Sk, H, Hk, D, causal, window_left, window_right, softcap2))
     return (int)cudaErrorInvalidValue;
-  auto fn = D == 256 ? launch_dq<256> : D == 64 ? launch_dq<64> : launch_dq<128>;
+  const bool local = window_left >= 0 || window_right >= 0 || softcap2 > 0.f;
+  auto fn = D == 256 ? launch_dq<256, true>
+            : D == 64 ? launch_dq<64, false>
+            : local   ? launch_dq<128, true>
+                      : launch_dq<128, false>;
   return fn(q, k, v, dout, lse, delta, cosv, sinv, dq, rq, B, Sq, Sk, H, Hk, rope_bstride,
             scale, causal, window_left, window_right, softcap2,
             static_cast<cudaStream_t>(stream));
@@ -698,7 +709,11 @@ extern "C" int fatt_flash_bwd_dkv(const void* rq, const void* k, const void* v,
                                   int window_right, float softcap2, void* stream) {
   if (!shape_ok(B, Sq, Sk, H, Hk, D, causal, window_left, window_right, softcap2))
     return (int)cudaErrorInvalidValue;
-  auto fn = D == 256 ? launch_dkv<256> : D == 64 ? launch_dkv<64> : launch_dkv<128>;
+  const bool local = window_left >= 0 || window_right >= 0 || softcap2 > 0.f;
+  auto fn = D == 256 ? launch_dkv<256, true>
+            : D == 64 ? launch_dkv<64, false>
+            : local   ? launch_dkv<128, true>
+                      : launch_dkv<128, false>;
   return fn(rq, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, Hk, scale, causal, window_left,
             window_right, softcap2, static_cast<cudaStream_t>(stream));
 }

@@ -45,10 +45,12 @@
 // by descriptor as wgmma's A operand.  The K/V ring's two stages take
 // 128 KB: one block an SM.  PV runs on four 64-column parts of V.
 //
-// The window and the softcap are built into the head_dim 256 instance
-// only (kLocal): compiled into the Llama instance at run time they took it
-// from 167 registers to 190 and from three blocks an SM to two, 17 %
-// slower at S = 2048.
+// The window and the softcap are built into instances of their own
+// (kLocal): head_dim 256 (Gemma-2-9B) and a head_dim 128 one beside the
+// Llama instance (Gemma-2-27B), which keeps Q in registers as the Llama
+// instance does.  Compiled into the Llama instance at run time they took
+// it from 167 registers to 190 and from three blocks an SM to two, 17 %
+// slower at S = 2048, so the instances without them keep their code.
 // Window (left, right; -1 open), bottom-right aligned as causal is
 // (flash_fwd.py:320-333): a block walks only the key tiles that some of
 // its rows' windows reach, from max(0, row0 + shift - left) to its last
@@ -162,10 +164,10 @@ __device__ __forceinline__ void attn_qk_smem(float (&s)[8][4], uint32_t qt, uint
 // qmeta/kmeta: [B, nq*64] / [B, nk*64] (segment, position) per token;
 // qrange/krange: [B, nq] / [B, nk] (least segment, least position, greatest
 // segment, greatest position) per tile.  Read only by the kMeta instance.
-// The head_dim 256 instance (kLocal) applies the window (wleft, wright; -1
-// open) and the softcap (softcap2, the cap in base-2 units; 0 for none);
-// the others ignore all three.
-template <int kD, bool kMeta>
+// The kLocal instances apply the window (wleft, wright; -1 open) and the
+// softcap (softcap2, the cap in base-2 units; 0 for none); the others
+// ignore all three.
+template <int kD, bool kMeta, bool kLocal>
 __global__ void __launch_bounds__(kThreads, kD == 64 ? 4 : kD == 128 ? 2 : 1) flash_fwd_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const float* __restrict__ cosv,
@@ -176,7 +178,6 @@ __global__ void __launch_bounds__(kThreads, kD == 64 ? 4 : kD == 128 ? 2 : 1) fl
     int H, int Hk, int rope_bstride, float eff_scale, int causal, int clamped, int wleft,
     int wright, float softcap2) {
   using G = Dims<kD>;
-  constexpr bool kLocal = kD == 256;
   constexpr int kChunks = G::kChunks;
   constexpr int kTileBytes = G::kTileBytes;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -534,7 +535,7 @@ __global__ void __launch_bounds__(kThreads, kD == 64 ? 4 : kD == 128 ? 2 : 1) fl
   }
 }
 
-template <int kD, bool kMeta>
+template <int kD, bool kMeta, bool kLocal>
 int launch(const void* q, const void* k, const void* v, const void* cosv,
            const void* sinv, void* out, void* lse, const void* qmeta,
            const void* kmeta, const void* qrange, const void* krange, int* tile_count,
@@ -544,12 +545,13 @@ int launch(const void* q, const void* k, const void* v, const void* cosv,
   constexpr int kSmemBytes = Dims<kD>::kSmemBytes;
   constexpr int kMaxSmem =
       kSmemBytes + (kMeta ? kStages * kMetaBytes + kMaxListTiles * 4 : 0);
-  cudaError_t e = fatt::smem_limit_once(flash_fwd_kernel<kD, kMeta>, kMaxSmem, smem_set);
+  cudaError_t e =
+      fatt::smem_limit_once(flash_fwd_kernel<kD, kMeta, kLocal>, kMaxSmem, smem_set);
   if (e != cudaSuccess) return (int)e;
   const int nk = (Sk + kBK - 1) / kBK;
   const int smem = kSmemBytes + (kMeta ? kStages * kMetaBytes + nk * 4 : 0);
   dim3 grid(H, B, (Sq + kBQ - 1) / kBQ);
-  flash_fwd_kernel<kD, kMeta><<<grid, kThreads, smem, st>>>(
+  flash_fwd_kernel<kD, kMeta, kLocal><<<grid, kThreads, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(cosv),
       static_cast<const float*>(sinv), static_cast<__nv_bfloat16*>(out),
@@ -561,7 +563,7 @@ int launch(const void* q, const void* k, const void* v, const void* cosv,
 }
 
 bool bad_shape(int B, int Sq, int H, int Hk, int D) {
-  // Head dims 64 (GPT-2), 128 (Llama-3) and 256 (Gemma-2-9B) are built.
+  // Head dims 64 (GPT-2), 128 (Llama-3, Gemma-2-27B) and 256 (Gemma-2-9B) are built.
   return H % Hk != 0 || (D != 64 && D != 128 && D != 256) || B > 65535 ||
          (Sq + kBQ - 1) / kBQ > 65535;
 }
@@ -579,7 +581,7 @@ bool bad_shape(int B, int Sq, int H, int Hk, int D) {
 // that head 0's blocks add their live and unmasked key tiles to.
 // window_left / window_right: the window's sides (-1 open); softcap2: the
 // logit softcap in base-2 units (cap * log2 e), 0 for none; both at
-// head_dim 256 only.  Masks at head_dim 64 and 128.
+// head_dim 128 and 256, without masks.  Masks at head_dim 64 and 128.
 extern "C" int fatt_flash_fwd(const void* q, const void* k, const void* v,
                               const void* cosv, const void* sinv, void* out,
                               void* lse, const void* qmeta, const void* kmeta,
@@ -593,13 +595,15 @@ extern "C" int fatt_flash_fwd(const void* q, const void* k, const void* v,
   const bool local = window_left >= 0 || window_right >= 0 || softcap2 > 0.f;
   // With masks a block lists at most kMaxListTiles key tiles.
   if (bad_shape(B, Sq, H, Hk, D) || window_left < -1 || window_right < -1 ||
-      !(softcap2 >= 0.f) || (local && D != 256) ||
+      !(softcap2 >= 0.f) || (local && (D == 64 || given != 0)) ||
       (given != 0 && (given != 4 || D == 256 || (Sk + kBK - 1) / kBK > kMaxListTiles)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto fn = D == 256  ? launch<256, false>
-            : D == 64 ? (given != 0 ? launch<64, true> : launch<64, false>)
-                      : (given != 0 ? launch<128, true> : launch<128, false>);
+  auto fn = D == 256  ? launch<256, false, true>
+            : D == 64 ? (given != 0 ? launch<64, true, false> : launch<64, false, false>)
+            : given != 0 ? launch<128, true, false>
+            : local      ? launch<128, false, true>
+                         : launch<128, false, false>;
   return fn(q, k, v, cosv, sinv, out, lse, qmeta, kmeta, qrange, krange, tile_count, B, Sq,
             Sk, H, Hk, rope_bstride, eff_scale, causal, clamped, window_left, window_right,
             softcap2, st);

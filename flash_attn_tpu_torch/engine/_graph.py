@@ -49,7 +49,8 @@ _COUNTERS = (
     (paged_flash_decode_cuda, ("launches", "chunk_launches", "merges", "d64_launches")),
     (kv_append_cuda, ("launches",)),
     (lse_merge_cuda, ("launches",)),
-    (flash_fwd_cuda, ("launches", "d256_launches", "d64_launches", "window_launches")),
+    (flash_fwd_cuda, ("launches", "d256_launches", "d64_launches", "window_launches",
+                      "local_launches")),
     (_mm.matmul_int8_cuda, ("launches",)),
     (_mm.matmul_int8_grouped_cuda, ("launches",)),
     (_mm.matmul_int4_cuda, ("launches",)),

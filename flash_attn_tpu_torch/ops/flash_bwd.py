@@ -4,8 +4,9 @@ Port of flash_attn_tpu/ops/flash_bwd.py:flash_bwd for the subset the
 GPT-2, Llama and Gemma-2 training steps use: BSHD layout, GQA,
 bottom-right causal mask, q-side RoPE, ``scale``, a sliding window and
 the logit softcap (``_recompute_p_ds``, flash_bwd.py:48-131).  On the
-card: head_dim 64 (GPT-2) or 128 without window and softcap, or 256
-(Gemma-2-9B) causal with or without them.  Bias and dbias, segment ids, positions, ALiBi, dropout and
+card: head_dim 64 (GPT-2) without window and softcap, 128 (Llama-3;
+Gemma-2-27B with them) causal or not, or 256 (Gemma-2-9B) causal with or
+without them.  Bias and dbias, segment ids, positions, ALiBi, dropout and
 fp16 are still to port and raise ``NotImplementedError``.
 
 As on the TPU: ``delta = rowsum(dout * out)`` is plain fp32 arithmetic
@@ -115,8 +116,8 @@ def _check_cuda(q, k, v, dout, lse, delta, rope_cos, rope_sin, name, causal=True
     """Raise on anything the kernels do not take; returns the rope tables'
     batch stride (0 when shared across the batch or absent)."""
     B, Sq, H, D = q.shape
-    if D in (64, 128) and (window is not None or softcap is not None):
-        raise NotImplementedError(f"{name} takes a window and a softcap at head_dim 256 only")
+    if D == 64 and (window is not None or softcap is not None):
+        raise NotImplementedError(f"{name} takes a window and a softcap at head_dim 128 and 256")
     if D == 256 and not causal:
         raise NotImplementedError(f"{name} at head_dim 256 is causal only")
     if not (q.dtype == k.dtype == v.dtype == dout.dtype == torch.bfloat16):
@@ -140,11 +141,13 @@ def _check_cuda(q, k, v, dout, lse, delta, rope_cos, rope_sin, name, causal=True
     return bstride
 
 
-def _count(fn, D, window):
+def _count(fn, D, window, softcap):
     fn.launches += 1
     fn.d256_launches += D == 256
     fn.d64_launches += D == 64
     fn.window_launches += window is not None
+    # a kLocal instance: a window or a softcap, or head_dim 256 (built so only)
+    fn.local_launches += window is not None or softcap is not None or D == 256
 
 
 def flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal, scale, rope_cos, rope_sin,
@@ -154,8 +157,9 @@ def flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal, scale, rope_cos, rope_s
     csrc/flash_bwd.cu).  Returns dq [B, Sq, H, D] fp32 and R(q)
     [B, Sq, H, D] bf16, the rotated q that K9 writes for K10 (q itself
     without rope tables).  Counts its launches also in ``.d256_launches``
-    (head_dim 256), ``.d64_launches`` (head_dim 64) and
-    ``.window_launches``."""
+    (head_dim 256), ``.d64_launches`` (head_dim 64), ``.window_launches``
+    and ``.local_launches`` (an instance with the window and the softcap:
+    either given, or head_dim 256)."""
     bstride = _check_cuda(q, k, v, dout, lse, delta, rope_cos, rope_sin, "K9", causal,
                           window, softcap)
     B, Sq, H, D = q.shape
@@ -168,7 +172,7 @@ def flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal, scale, rope_cos, rope_s
         p(dq), p(rq), B, Sq, Sk, H, Hk, D, bstride, float(scale), int(causal),
         *local_args(window, softcap), _build.stream())
     _build.check(rc, "fatt_flash_bwd_dq")
-    _count(flash_bwd_dq_cuda, D, window)
+    _count(flash_bwd_dq_cuda, D, window, softcap)
     return dq, rq
 
 
@@ -187,7 +191,7 @@ def flash_bwd_dkv_cuda(rq, k, v, dout, lse, delta, causal, scale, window=None, s
         B, Sq, Sk, H, Hk, D, float(scale), int(causal), *local_args(window, softcap),
         _build.stream())
     _build.check(rc, "fatt_flash_bwd_dkv")
-    _count(flash_bwd_dkv_cuda, D, window)
+    _count(flash_bwd_dkv_cuda, D, window, softcap)
     return dk, dv
 
 
@@ -203,3 +207,4 @@ def flash_bwd_cuda(q, k, v, dout, lse, delta, causal, scale, rope_cos, rope_sin,
 
 for _fn in (flash_bwd_dq_cuda, flash_bwd_dkv_cuda):
     _fn.launches = _fn.d256_launches = _fn.d64_launches = _fn.window_launches = 0
+    _fn.local_launches = 0

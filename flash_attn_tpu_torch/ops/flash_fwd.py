@@ -3,8 +3,9 @@
 Port of flash_attn_tpu/ops/flash_fwd.py:flash_fwd for the subset the
 Llama, Gemma-2 and GPT-2 prefill paths use: BSHD layout, GQA, head_dim
 64, 128 or 256 on the card (any in the plain version), bottom-right causal mask,
-segment ids and positions (the packed and chunked prefill's masks), a
-sliding window, the Gemma-2 logit softcap, q-side RoPE inside the
+segment ids and positions (the packed and chunked prefill's masks; at
+head_dim 64 and 128 on the card), a sliding window and the Gemma-2 logit
+softcap (at head_dim 128 and 256 on the card), q-side RoPE inside the
 kernel, softmax_mode "clamped" or "online", fp32 LSE.  A window or a
 softcap with segment ids or positions, bias, ALiBi, dropout and
 return_softmax are still to port and raise ``NotImplementedError``.
@@ -231,11 +232,15 @@ _tiles.last = None
 def flash_fwd_cuda(q, k, v, causal, scale, rope_cos, rope_sin, clamped, masks=None,
                    window=None, softcap=None):
     """Launch K4.  Replaces flash_attn_tpu/ops/flash_fwd.py:_fwd_kernel;
-    bound by operations (see the source note in csrc/flash_fwd.cu).  With
-    masks it counts its launches also in ``.seg_launches`` (segment ids
-    given) and ``.pos_launches`` (positions given); at head_dim 256 also
-    in ``.d256_launches``, at 64 in ``.d64_launches``, with a window in
-    ``.window_launches``."""
+    bound by operations (see the source note in csrc/flash_fwd.cu).  A
+    window or a softcap runs an instance of its own (kLocal) at head_dim
+    128 or 256; at 64, or with masks, it raises.  With masks it counts its
+    launches also in ``.seg_launches`` (segment ids given) and
+    ``.pos_launches`` (positions given); at head_dim 256 also in
+    ``.d256_launches``, at 64 in ``.d64_launches``, with a window in
+    ``.window_launches``, and every launch of a kLocal instance (a window
+    or a softcap, at any head dim: D = 256 always) in
+    ``.local_launches``."""
     B, Sq, H, D = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
@@ -244,9 +249,11 @@ def flash_fwd_cuda(q, k, v, causal, scale, rope_cos, rope_sin, clamped, masks=No
         raise ValueError(f"K4 takes head_dim 64 (GPT-2), 128 (Llama-3) or 256 (Gemma-2-9B), "
                          f"got {D}")
     local = window is not None or softcap is not None
-    if (D == 256 and masks is not None) or (D != 256 and local):
-        raise NotImplementedError("K4 takes segment ids and positions at head_dim 64 and "
-                                  "128, a window and a softcap at head_dim 256")
+    if D == 256 and masks is not None:
+        raise NotImplementedError("K4 takes segment ids and positions at head_dim 64 and 128")
+    if local and (D == 64 or masks is not None):
+        raise NotImplementedError("K4 takes a window and a softcap at head_dim 128 and 256, "
+                                  "without segment ids or positions")
     tensors = [q, k, v]
     bstride = 0
     if rope_cos is not None:
@@ -279,6 +286,7 @@ def flash_fwd_cuda(q, k, v, causal, scale, rope_cos, rope_sin, clamped, masks=No
     flash_fwd_cuda.d256_launches += D == 256
     flash_fwd_cuda.d64_launches += D == 64
     flash_fwd_cuda.window_launches += window is not None
+    flash_fwd_cuda.local_launches += local or D == 256
     return out, lse
 
 
@@ -288,3 +296,4 @@ flash_fwd_cuda.pos_launches = 0
 flash_fwd_cuda.d256_launches = 0
 flash_fwd_cuda.d64_launches = 0
 flash_fwd_cuda.window_launches = 0
+flash_fwd_cuda.local_launches = 0

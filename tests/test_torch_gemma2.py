@@ -113,7 +113,9 @@ def test_flash_fwd_window_softcap_matches_jax_flash_attention():
 def test_flash_fwd_window_and_softcap_arguments():
     """Window and softcap go through the backward too (segment ids stay
     forward-only); a window does not compose with positions yet; the
-    wrappers refuse what K4 does not take (raised before any build)."""
+    wrappers refuse what K4 does not take (a window or a softcap at
+    head_dim 64 or with masks, masks at 256; raised before any build) and
+    pass a window and a softcap at head_dim 128 on to the CUDA check."""
     q = torch.zeros(1, 8, 2, 32)
     ids = torch.zeros(1, 8, dtype=torch.int32)
     out = flash_attention(q.clone().requires_grad_(True), q, q, causal=True, window=(4, -1),
@@ -133,14 +135,26 @@ def test_flash_fwd_window_and_softcap_arguments():
     bf = torch.zeros(1, 8, 2, 32, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
         ff.flash_fwd_cuda(bf, bf, bf, True, 1.0, None, None, True)
-    # the window and the softcap at head_dim 256, masks at 64 and 128
-    b128, b256 = (torch.zeros(1, 8, 2, d, dtype=torch.bfloat16) for d in (128, 256))
-    with pytest.raises(NotImplementedError, match="head_dim 256"):
-        ff.flash_fwd_cuda(b128, b128, b128, True, 1.0, None, None, True, None, (4, -1))
+    # the window and the softcap at head_dim 128 and 256 without masks,
+    # masks at 64 and 128
+    b64, b128, b256 = (torch.zeros(1, 8, 2, d, dtype=torch.bfloat16) for d in (64, 128, 256))
+    with pytest.raises(NotImplementedError, match="head_dim 128 and 256"):
+        ff.flash_fwd_cuda(b64, b64, b64, True, 1.0, None, None, True, None, (4, -1))
+    with pytest.raises(NotImplementedError, match="head_dim 128 and 256"):
+        ff.flash_fwd_cuda(b64, b64, b64, True, 1.0, None, None, True, None, None, 50.0)
+    with pytest.raises(NotImplementedError, match="without segment ids"):
+        ff.flash_fwd_cuda(b128, b128, b128, True, 1.0, None, None, True,
+                          ff.Masks(None, None, ids, ids), (4, -1))
     with pytest.raises(NotImplementedError, match="head_dim 64 and 128"):
         ff.flash_fwd_cuda(b256, b256, b256, False, 1.0, None, None, True,
                           ff.Masks(None, None, ids, ids))
-    assert ff.flash_fwd_cuda.launches == 0
+    # at head_dim 128 the window and the softcap pass on to the tensors'
+    # check (Gemma-2-27B's K4 instance): CPU tensors raise before any build
+    with pytest.raises(ValueError, match="CUDA"):
+        ff.flash_fwd_cuda(b128, b128, b128, True, 1.0, None, None, True, None, (4, -1), 50.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        ff.flash_fwd_cuda(b128, b128, b128, False, 1.0, None, None, False, None, (3, 3))
+    assert ff.flash_fwd_cuda.launches == 0 and ff.flash_fwd_cuda.local_launches == 0
     # K1 takes head dims up to 256, and the window in decode mode only
     qd = torch.zeros(1, 2, 512, dtype=torch.bfloat16)
     kd = torch.zeros(1, 1, 64, 512, dtype=torch.bfloat16)

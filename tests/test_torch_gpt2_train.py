@@ -243,14 +243,15 @@ def test_serve_train_serve_reads_the_trained_head(dtype):
 
 
 def test_flash_bwd_d64_wrappers_refuse():
-    """K9 and K10 at head_dim 64 refuse what the 128 instance refuses (a
-    window, a softcap; raised before any build) and CPU tensors."""
+    """K9 and K10 at head_dim 64 refuse a window and a softcap (which only
+    the 128 and 256 instances take; raised before any build) and CPU
+    tensors."""
     bf = [torch.zeros(s, dtype=torch.bfloat16) for s in
           ((1, 8, 2, D), (1, 8, 1, D), (1, 8, 1, D), (1, 8, 2, D))]
     stats = torch.zeros((1, 2, 8))
-    with pytest.raises(NotImplementedError, match="head_dim 256"):
+    with pytest.raises(NotImplementedError, match="head_dim 128 and 256"):
         fb.flash_bwd_dq_cuda(*bf, stats, stats, True, 1.0, None, None, (4, -1), None)
-    with pytest.raises(NotImplementedError, match="head_dim 256"):
+    with pytest.raises(NotImplementedError, match="head_dim 128 and 256"):
         fb.flash_bwd_dkv_cuda(*bf, stats, stats, True, 1.0, None, 50.0)
     with pytest.raises(ValueError, match="CUDA"):
         fb.flash_bwd_dq_cuda(*bf, stats, stats, True, 1.0, None, None)
