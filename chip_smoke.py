@@ -74,7 +74,14 @@ Phases, one line each with its seconds:
      and without (timed), a ragged shifted windowed case, the cap-5 pair at
      S=2048 and non-causal with a two-sided window (8, 2); the plain
      versions of K4, K9 and K10 run over groups of heads where their score
-     tensors would pass 4 GiB; then once
+     tensors would pass 4 GiB; Qwen-2-7B's 7 query heads a KV head (H=28,
+     Hk=4, D=128), where a power-of-two group would show: K4 causal at
+     S=2048 in both modes and packed with segment ids at phase 16's
+     prompts in 4096 (its tile counts held), K1 (7 rows in its 8-row tile)
+     at B=8, S=4096, int8 and fp8, K1c at T=5 (35 virtual rows), K8 in
+     decode mode (R=7) and K8c at T=128 (896 rows), K2 at Hk=4 bit for
+     bit, and K3 at Qwen-2-7B's widths at M = 8 and 512 with the qkv bias
+     through quantized_matmul at the wq and wk/wv widths; then once
      each what the main paths do not run: group sizes 32 and 64, K7's
      bf16 output, and the int8, int4 and W4A8 LM heads' fp32 activations
      or output;
@@ -102,7 +109,15 @@ Phases, one line each with its seconds:
      prompts, prefill_chunk in chunks of 256 and four paged decode steps
      against the CPU, and an fp32 model on the card must raise; one GPT-2
      training loss and every gradient (2 layers at 124M widths, bf16, B=1,
-     S=1024, remat) against the CPU;
+     S=1024, remat) against the CPU; the 8B runs with int8 weights (the
+     prompts and decode steps, the prefill paths, the paged path, the
+     verify step) again at 2 layers of Qwen-2-7B's widths (G = 7, the
+     qkv bias); Mixtral at 2 layers of 8x7B's widths, int8 and int4
+     g=128 experts and attention: two 256-token prompts and three decode
+     steps, and each layer alone on the card fed the CPU's hidden state:
+     per layer at most 1 % of tokens may choose another top-2 expert set,
+     and the layer's output (the logits for the last) on the agreeing
+     tokens within 5 %; the end-to-end flips and logits printed;
   4-6. the main paths, each model alone on the card, served by the
      continuous-batching engine (8 greedy requests, prompts of 128-1024
      tokens from the seed) with its decode bodies replayed from CUDA
@@ -184,7 +199,22 @@ Phases, one line each with its seconds:
      params and moments from the seed), B=8, S=1024, 5 AdamW steps (remat
      on): losses finite and falling, ms per step beside its bound (the
      fp32 products at 67 TFLOP/s and attention at 989), tokens/s, peak
-     memory, and K9 = K10 = 12 a step, K4 24, all at head_dim 64.
+     memory, and K9 = K10 = 12 a step, K4 24, all at head_dim 64;
+  16. Qwen-2-7B (28 layers, 28 query heads over 4 KV heads, the qkv
+     bias; random weights from the seed), int8 weights, fp8 KV, capacity
+     4096, phase 4's prompts: eager, captured and burst 4 (equal tokens),
+     one prompt a prefill call and chunks of 512 beside the packed call,
+     the paged engine with prefix caching (two waves), n-gram
+     speculation; launches exact (K4 28 a packed call, K1 = K2 = K1m 28
+     a step, K1c 28 a verify round, K8 28 a paged step), peak printed;
+  17. Mixtral-8x7B (32 layers, 8 experts, top 2; random weights drawn
+     and quantized one projection at a time), int8 experts and
+     attention, fp8 KV, capacity 4096, phase 4's prompts in one packed
+     call: eager and captured (equal tokens) with the card's share and
+     the profiler window's idle share, n-gram speculation, the paged
+     engine without prefix caching; launches exact (K3 = 32 x (4 + 3 x
+     8) = 896 a step, K1 = K2 = K1m 32 a step, K4 32 a packed call, K1c
+     32 a verify round, K8 32 a paged step), peak under 75 GiB.
 
 Before the last line come the kernels' JSON record (each row's launches
 are those of the run named in its "launches_run"; the quantized matmuls'
@@ -196,7 +226,10 @@ under "sdpa_nocap_ms", as do "K9 d256" and "K10 d256" and Gemma-2-27B's
 rows "K4 27B", "K1 27B", "K9 27B" and "K10 27B"; K3's 27B widths under
 "gemma27b"; "K4 d64" its
 masked points under "packed" and "chunk", "K1c d64" a K8c point under
-"k8c") and the
+"k8c"; the G = 7 rows "K4 G7" (its packed point under "packed"), "K1
+G7", "K1c G7", "K8 G7" (a K8c point under "k8c") and "K2 G7", K3's
+Qwen-2-7B widths under "qwen2", and "K3 Mixtral", whose launches are
+phase 17's) and the
 card; the last line is {"ok": true, "device": {...}}.  Any failed check
 exits nonzero without that line; so does a machine without CUDA or a
 directory without the rest of the repository.
@@ -403,7 +436,8 @@ def _q_row(name, replaces, points, main, prompt):
 def check_k3(torch, checks, rows):
     """K3 at the 8B shapes, M = 8 (decode) and 512, and at M = 17 and 100
     (rows that fill no whole 64- or 128-row block) and PACKED_M (the
-    packed prefill's bucket) on 4096 x 14336."""
+    packed prefill's bucket, timed: Mixtral-8x7B's packed prefill runs its
+    experts there) on 4096 x 14336."""
     from flash_attn_tpu_torch.ops import matmul as mm
     from flash_attn_tpu_torch.ops.quant import quantize_int8
 
@@ -417,7 +451,7 @@ def check_k3(torch, checks, rows):
         wbf = wq.bfloat16()
         for M in (8, 512) + ((17, 100, PACKED_M) if (K, N) == (4096, 14336) else ()):
             x = torch.randn((M, K), generator=g, device="cuda", dtype=torch.bfloat16)
-            timed = M in (8, 512)
+            timed = M in (8, 512, PACKED_M)
             points[(M, K, N)] = _q_point(
                 torch, checks, f"K3 M={M} K={K} N={N}",
                 lambda: mm.matmul_int8_cuda(x, wq, s, torch.bfloat16),
@@ -427,6 +461,12 @@ def check_k3(torch, checks, rows):
         del wq, s, wbf
     rows["K3"] = _q_row("int8_matmul (M=8, K=4096, N=14336)", "flash_attn_tpu/ops/matmul.py:60",
                         points, (8, 4096, 14336), (512, 4096, 14336))
+    # Mixtral-8x7B's experts (4096 x 14336, 14336 x 4096) and attention
+    # (4096 x 4096, 4096 x 1024) have the 8B's widths: the same points, its
+    # prompt the packed prefill's bucket
+    rows["K3 Mixtral"] = _q_row("int8_matmul (M=8, K=4096, N=14336: a Mixtral-8x7B expert's "
+                                "w_gate / w_up)", "flash_attn_tpu/ops/matmul.py:60", points,
+                                (8, 4096, 14336), (PACKED_M, 4096, 14336))
 
 
 def _int4_weight(torch, g, K, N, gs=128):
@@ -991,14 +1031,16 @@ def check_g3(torch, checks):
 # shape; GPT-2's row is int8, BASELINE config 0's KV type
 K2_POINTS = (("int8", 8, 4096, 128, None), ("fp8", 8, 4096, 128, "K2"),
              ("int8", 8, 8192, 256, None), ("fp8", 8, 8192, 256, "K2 d256"),
-             ("int8", 12, 1024, 64, "K2 d64"), ("fp8", 12, 1024, 64, None))
+             ("int8", 12, 1024, 64, "K2 d64"), ("fp8", 12, 1024, 64, None),
+             ("int8", 4, 4096, 128, None), ("fp8", 4, 4096, 128, "K2 G7"))
 
 
 def check_k2(torch, checks, rows):
-    """K2 in int8 and fp8 at B=8 at K2_POINTS (Llama-3's, Gemma-2-9B's and
-    GPT-2 124M's decode step), bit for bit against its plain version (an
-    idle slot past the capacity writes nothing); the points named there
-    carry their times (the "K2", "K2 d256" and "K2 d64" rows): a loop of
+    """K2 in int8 and fp8 at B=8 at K2_POINTS (Llama-3's, Gemma-2-9B's,
+    GPT-2 124M's and Qwen-2-7B's decode step), bit for bit against its
+    plain version (an idle slot past the capacity writes nothing); the
+    points named there carry their times (the "K2", "K2 d256", "K2 d64" and
+    "K2 G7" rows): a loop of
     wrapper calls by events, the
     kernel as a replayed CUDA graph, and beside it the graph time of an
     empty kernel on K2's grid, launched the same way (the floor of a kernel
@@ -2221,31 +2263,45 @@ GEMMA27_GEMMS = ((4608, 4096), (4608, 2048), (4096, 4608), (4608, 36864), (36864
 
 
 def check_k3_gemma(torch, checks, rows, gemms=GEMMA_GEMMS, key="gemma", model="Gemma-2-9B",
-                   seed=SEED + 32):
-    """K3 at a Gemma-2's widths (``gemms``), M = 8 (the decode step),
-    against its plain version as check_k3 holds it; the K3 row carries
-    them under ``key``."""
+                   seed=SEED + 32, ms=(8,), biased=()):
+    """K3 at a model's widths (``gemms``; the defaults: Gemma-2-9B's) at
+    each M of ``ms`` (8: the decode step), against its plain version as
+    check_k3 holds it; the K3 row carries them under ``key`` (M=8's points
+    as "KxN", the others' as "KxN M=m").  At the widths in ``biased`` the
+    weight is also called as a ``BiasedWeight`` through quantized_matmul
+    (Qwen-2's qkv bias, added after K3) and held to the plain product plus
+    the bias by the same row rule."""
     from flash_attn_tpu_torch.ops import matmul as mm
     from flash_attn_tpu_torch.ops.quant import quantize_int8
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     points = {}
-    M = 8
     for K, N in gemms:
         wf = torch.randn((K, N), generator=g, device="cuda", dtype=torch.bfloat16) * 0.02
         wq, s = quantize_int8(wf, dims=(0,))
         wq, s = wq.contiguous(), s[0].contiguous()
         wbf = wq.bfloat16()
         del wf
-        x = torch.randn((M, K), generator=g, device="cuda", dtype=torch.bfloat16)
-        points[f"{K}x{N}"] = _q_point(
-            torch, checks, f"K3 {model} M={M} K={K} N={N}",
-            lambda: mm.matmul_int8_cuda(x, wq, s, torch.bfloat16),
-            lambda: mm.matmul_int8_plain(x, wq, s, torch.bfloat16),
-            lambda: torch.matmul(x, wbf) * s, "matmul, then the scales",
-            M * K * 2 + K * N + N * 4 + M * N * 2, 2 * M * K * N)
+        for M in ms:
+            x = torch.randn((M, K), generator=g, device="cuda", dtype=torch.bfloat16)
+            points[f"{K}x{N}" + ("" if M == 8 else f" M={M}")] = _q_point(
+                torch, checks, f"K3 {model} M={M} K={K} N={N}",
+                lambda: mm.matmul_int8_cuda(x, wq, s, torch.bfloat16),
+                lambda: mm.matmul_int8_plain(x, wq, s, torch.bfloat16),
+                lambda: torch.matmul(x, wbf) * s, "matmul, then the scales",
+                M * K * 2 + K * N + N * 4 + M * N * 2, 2 * M * K * N)
+            if (K, N) in biased:
+                bias = torch.randn((N,), generator=g, device="cuda", dtype=torch.bfloat16) * 0.02
+                got = mm.quantized_matmul(x, mm.BiasedWeight((wq, s), bias))
+                ref = (mm.matmul_int8_plain(x, wq, s, torch.bfloat16).float()
+                       + bias.float()).bfloat16()
+                err, share = row_err(got, ref)
+                ok = checks.check(f"K3 {model} M={M} K={K} N={N} + qkv bias", share, 1.0)
+                say(f"  K3 {model} M={M} K={K} N={N} + qkv bias (quantized_matmul of a "
+                    f"BiasedWeight): max_abs_err {err:.3e} ({share:.3f} of its row's tol) "
+                    f"{'ok' if ok else 'FAIL'}")
         del wq, s, wbf
-    rows["K3"][key] = dict(M=M, **points)
+    rows["K3"][key] = dict(M=ms[0], **points)
 
 
 # --- GPT-2 124M's shapes (BASELINE config 0): head_dim 64 -------------------
@@ -2262,10 +2318,11 @@ def _gpt2_prompts(vocab):
     return lens, [rng.integers(0, vocab, int(n)).tolist() for n in lens]
 
 
-def _k4_d64(torch, checks, label, q, k, v, causal, clamped, masks=None, cos=None, sin=None,
-            timed=False, lib=None):
-    """K4 at head_dim 64 against its plain version (each row to two bf16
-    ulps of its largest, the LSE to 1e-3, as check_k4 holds it); with
+def _k4_point(torch, checks, label, q, k, v, causal, clamped, masks=None, cos=None, sin=None,
+              timed=False, lib=None):
+    """K4 (GPT-2's head_dim 64, Qwen-2's 7 heads a KV head) against its
+    plain version (each row to two bf16 ulps of its largest, the LSE to
+    1e-3, as check_k4 holds it); with
     ``timed`` also the kernel's time, the plain version's, ``lib``'s (one
     SDPA call of the same function, or None) and the bound on the live
     pairs.  Returns (max |err|, the times or None)."""
@@ -2339,14 +2396,14 @@ def check_k4_gpt2(torch, checks, rows):
             label = (f"K4 D=64 {'clamped' if clamped else 'online'} B={B} Sq={Sq} Sk={Sk} "
                      f"H={H}")
             timed = clamped and Sq == Sk
-            err, t = _k4_d64(torch, checks, label, q, k, v, True, clamped, timed=timed, lib=lib)
+            err, t = _k4_point(torch, checks, label, q, k, v, True, clamped, timed=timed, lib=lib)
             worst = max(worst, err)
             if t:
                 times[B] = t
         del q, k, v, qt, kt, vt
     q, k, v = qkv(1, GPT2_S, GPT2_S)
     cos, sin = rope_cos_sin(torch.arange(GPT2_S, device="cuda")[None], D, 10000.0)
-    err, _ = _k4_d64(torch, checks, "K4 D=64 clamped B=1 S=1024, q rotated in the kernel", q, k,
+    err, _ = _k4_point(torch, checks, "K4 D=64 clamped B=1 S=1024, q rotated in the kernel", q, k,
                      v, True, True, cos=cos, sin=sin)
     worst = max(worst, err)
     # the masked instance: phase 12's prompts packed; a chunk over a cache
@@ -2365,7 +2422,7 @@ def check_k4_gpt2(torch, checks, rows):
         n_tiles, n_full, n_all = k4_tile_counts(torch, checks, label, q, k, v, None, None,
                                                 False, masks)
         for clamped in (True, False):
-            err, t = _k4_d64(
+            err, t = _k4_point(
                 torch, checks, f"{label} {'clamped' if clamped else 'online'}", q, k, v, False,
                 clamped, masks=masks, timed=clamped,
                 lib=lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=live[:, None]))
@@ -2387,8 +2444,8 @@ def check_k4_gpt2(torch, checks, rows):
         **masked)
 
 
-def _decode_d64_case(torch, checks, dec, label, q, k, v, ks, vs, lens, T=1):
-    """K1 (T=1) or K1c (T>1) at head_dim 64 through flash_decode /
+def _decode_case(torch, checks, dec, label, q, k, v, ks, vs, lens, T=1):
+    """K1 (T=1) or K1c (T>1) at GPT-2's or Qwen-2's shapes through flash_decode /
     flash_decode_chunk against the plain version with the same splits, as
     check_k1 and check_k1c hold them.  Returns (max |err|, the plain
     version's args)."""
@@ -2420,8 +2477,8 @@ def _decode_d64_case(torch, checks, dec, label, q, k, v, ks, vs, lens, T=1):
     return err, args
 
 
-def _decode_d64_times(torch, dec, F, args, q, k, v, ks, vs, lens, T=1):
-    """K1's or K1c's times at head_dim 64: the kernel by events, the call
+def _decode_times(torch, dec, F, args, q, k, v, ks, vs, lens, T=1):
+    """K1's or K1c's times at GPT-2's or Qwen-2's shapes: the kernel by events, the call
     as a user makes it (with K1m) as a CUDA graph, the plain version's,
     SDPA's on the dequantized cache and the bound."""
     B, Hk, S, D = k.shape
@@ -2444,13 +2501,13 @@ def _decode_d64_times(torch, dec, F, args, q, k, v, ks, vs, lens, T=1):
                call_graph_ms=graph_ms(torch, call),
                plain_ms=cuda_ms(torch, lambda: dec.flash_decode_plain(*args), iters=3),
                library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                   qt, kd, vd, attn_mask=mask)),
+                   qt, kd, vd, attn_mask=mask, enable_gqa=True)),
                bound_ms=b_ms, bound_by=b_by)
     del kd, vd
     return res
 
 
-def _say_d64(label, t):
+def _say_decode(label, t):
     say(f"    {label}: {t['ms']:.4f} ms (as called, graph {t['call_graph_ms']:.4f}), plain "
         f"{t['plain_ms']:.4f}, library (SDPA on the dequantized cache) {t['library_ms']:.4f}, "
         f"bound {t['bound_ms']:.4f} ({t['bound_by']})")
@@ -2479,12 +2536,12 @@ def check_decode_gpt2(torch, checks, rows):
         if B == 1:  # the sequence at the full capacity
             q, k, v, ks, vs, lens = (None if x is None else x[:1].contiguous()
                                      for x in (q, k, v, ks, vs, lens))
-        err, args = _decode_d64_case(torch, checks, dec, f"K1 D=64 {kv} B={B}", q, k, v, ks,
+        err, args = _decode_case(torch, checks, dec, f"K1 D=64 {kv} B={B}", q, k, v, ks,
                                      vs, lens)
         worst = max(worst, err)
         if kv == "int8":
-            t = _decode_d64_times(torch, dec, F, args[:11], q, k, v, ks, vs, lens)
-            _say_d64(f"K1 D=64 int8 B={B}", t)
+            t = _decode_times(torch, dec, F, args[:11], q, k, v, ks, vs, lens)
+            _say_decode(f"K1 D=64 int8 B={B}", t)
             if B == 8:
                 rows["K1 d64"] = dict(
                     name="decode_bhsd (B=8, H=Hk=12, S=1024, D=64, int8 KV: GPT-2 124M)",
@@ -2507,13 +2564,13 @@ def check_decode_gpt2(torch, checks, rows):
         q = torch.randn((B, T, H, D), generator=g, device="cuda", dtype=torch.bfloat16)
         lens = torch.randint(T, S + 1, (B,), generator=g, device="cuda", dtype=torch.int32)
         lens[0], lens[1], lens[2] = S, T, S + 7
-        err, args = _decode_d64_case(torch, checks, dec, f"K1c D=64 {kv} T={T} B={B}", q, k, v,
+        err, args = _decode_case(torch, checks, dec, f"K1c D=64 {kv} T={T} B={B}", q, k, v,
                                      ks, vs, lens, T=T)
         worst = max(worst, err)
         if kv == "int8":
-            t = _decode_d64_times(torch, dec, F, (*args[:10], None, T), q, k, v, ks, vs, lens,
+            t = _decode_times(torch, dec, F, (*args[:10], None, T), q, k, v, ks, vs, lens,
                                   T=T)
-            _say_d64(f"K1c D=64 int8 T={T}", t)
+            _say_decode(f"K1c D=64 int8 T={T}", t)
             rows["K1c d64"] = dict(
                 name="decode_bhsd, chunk mode (B=8, T=5, H=Hk=12, S=1024, D=64, int8 KV: "
                      "GPT-2 124M's verify step)",
@@ -2585,6 +2642,170 @@ def check_k8_gpt2(torch, checks, rows):
     rows["K8 d64"]["max_abs_err"] = worst
 
 
+# --- Qwen-2-7B's shapes: 7 query heads a KV head (H=28, Hk=4, D=128) -------
+
+QWEN_H, QWEN_HK, QWEN_THETA = 28, 4, 1000000.0
+QWEN_GEMMS = ((3584, 3584), (3584, 512), (3584, 18944), (18944, 3584))
+
+
+def check_qwen2(torch, checks, rows):
+    """The attention kernels at Qwen-2-7B's 7 query heads a KV head, where a
+    power-of-two assumption on the group would show (H=28, Hk=4, D=128),
+    each against its plain version by the row rules above: K4 causal at
+    B=1, S=2048, q rotated in the kernel, both softmax modes (clamped timed
+    beside SDPA), and with segment ids and positions at phase 16's prompts
+    packed in the 4096 bucket (its tile counts held to the tile test's); K1
+    (7 rows in its 8-row tile) at B=8, S=4096, int8 and fp8; K1c at T=5 (35
+    virtual rows in one 64-row warpgroup), int8 and fp8; K8 in decode mode
+    (R=7) at pages of 128, int8 and fp8, also against K1 on the same
+    content; K8c at T=128 over pages (896 rows), fp8.  The fp8 points carry
+    the "K4 G7", "K1 G7", "K1c G7" and "K8 G7" rows' times (K2 at Hk=4:
+    check_k2's "K2 G7").  Then K3 at Qwen-2-7B's widths, M = 8 and 512, its
+    qkv bias at the wq and wk/wv widths (the K3 row's "qwen2" entry)."""
+    import torch.nn.functional as F
+
+    from flash_attn_tpu_torch.ops import decode as dec
+    from flash_attn_tpu_torch.ops import flash_fwd as ff
+    from flash_attn_tpu_torch.ops import paged_decode as pd
+    from flash_attn_tpu_torch.ops.rope import rope_cos_sin, rope_rotate
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 60)
+    H, Hk, D, G = QWEN_H, QWEN_HK, 128, QWEN_H // QWEN_HK
+    shape = dict(H=H, Hk=Hk, D=D)
+
+    def qkv(Sq, Sk):
+        return (torch.randn((1, Sq, H, D), generator=g, device="cuda", dtype=torch.bfloat16),
+                *(torch.randn((1, Sk, Hk, D), generator=g, device="cuda",
+                              dtype=torch.bfloat16) for _ in range(2)))
+
+    # K4: causal with rope, then packed with segment ids and positions
+    worst, times = 0.0, {}
+    S = 2048
+    q, k, v = qkv(S, S)
+    cos, sin = rope_cos_sin(torch.arange(S, device="cuda")[None], D, QWEN_THETA)
+    qr = rope_rotate(q, cos, sin).transpose(1, 2).contiguous()
+    kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    for clamped in (True, False):
+        err, t = _k4_point(
+            torch, checks, f"K4 G=7 {'clamped' if clamped else 'online'} S={S} H={H} Hk={Hk}",
+            q, k, v, True, clamped, cos=cos, sin=sin, timed=clamped,
+            lib=lambda: F.scaled_dot_product_attention(qr, kt, vt, is_causal=True,
+                                                       enable_gqa=True))
+        worst = max(worst, err)
+        times[clamped] = t
+    del q, k, v, qr, kt, vt
+    lens, _ = _prompts(152064)
+    seg, pos = (x.cuda() for x in _packed_positions(torch, [int(n) for n in lens], PACKED_M))
+    masks = ff.Masks(seg, seg, pos, pos)
+    q, k, v = qkv(PACKED_M, PACKED_M)
+    cos, sin = rope_cos_sin(pos, D, QWEN_THETA)
+    live = ff.live_pairs(masks, False, PACKED_M, PACKED_M, "cuda")
+    qr = rope_rotate(q, cos, sin).transpose(1, 2).contiguous()
+    kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    label = f"K4 G=7 packed Sq=Sk={PACKED_M} H={H} Hk={Hk}"
+    n_tiles, n_full, n_all = k4_tile_counts(torch, checks, label, q, k, v, cos, sin, False,
+                                            masks)
+    for clamped in (True, False):
+        err, t = _k4_point(
+            torch, checks, f"{label} {'clamped' if clamped else 'online'}", q, k, v, False,
+            clamped, masks=masks, cos=cos, sin=sin, timed=clamped,
+            lib=lambda: F.scaled_dot_product_attention(qr, kt, vt, attn_mask=live[:, None],
+                                                       enable_gqa=True))
+        worst = max(worst, err)
+        if t:
+            packed = dict(Sq=PACKED_M, Sk=PACKED_M, live_tiles=n_tiles, unmasked_tiles=n_full,
+                          **t)
+    say(f"    {label}: K4 listed {n_tiles} of {n_all} tiles ({n_full} unmasked; the tile "
+        f"test's counts alike)")
+    del q, k, v, qr, kt, vt, live
+    t = times[True]
+    rows["K4 G7"] = dict(
+        name=f"flash_fwd (B=1, S={S}, H={H}, Hk={Hk}, D=128, causal, rope, clamped: Qwen-2-7B)",
+        source="flash_attn_tpu_torch/csrc/flash_fwd.cu",
+        replaces="flash_attn_tpu/ops/flash_fwd.py:221", max_abs_err=worst, packed=packed,
+        **{key: t[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+
+    # K1 (T=1) and K1c (T=5), int8 and fp8, B=8 over 4096 positions
+    for T, key, source in ((1, "K1 G7", "decode.cu"), (5, "K1c G7", "chunk_attn.cu")):
+        worst = 0.0
+        for kv in ("int8", "fp8"):
+            _, k, v, ks, vs, lens = _decode_inputs(torch, kv, g, B=8, S=4096, **shape)
+            if T == 1:
+                q = torch.randn((8, H, D), generator=g, device="cuda", dtype=torch.bfloat16)
+            else:
+                q = torch.randn((8, T, H, D), generator=g, device="cuda", dtype=torch.bfloat16)
+                lens = torch.randint(T, 4097, (8,), generator=g, device="cuda",
+                                     dtype=torch.int32)
+                lens[0], lens[1], lens[2] = 4096, T, 4096 + 7
+            name = f"K1 G=7 {kv} B=8" if T == 1 else f"K1c G=7 {kv} T={T} B=8"
+            err, args = _decode_case(torch, checks, dec, name, q, k, v, ks, vs, lens, T=T)
+            worst = max(worst, err)
+            if kv == "fp8":
+                targs = args[:11] if T == 1 else (*args[:10], None, T)
+                t = _decode_times(torch, dec, F, targs, q, k, v, ks, vs, lens, T=T)
+                _say_decode(name, t)
+                what = ("decode_bhsd" if T == 1 else f"decode_bhsd, chunk mode (T={T}, "
+                        f"{T * G} virtual rows a KV head)")
+                rows[key] = dict(
+                    name=f"{what} (B=8, H={H}, Hk={Hk}, S=4096, D=128, fp8 KV: Qwen-2-7B)",
+                    source=f"flash_attn_tpu_torch/csrc/{source}",
+                    replaces="flash_attn_tpu/ops/decode.py:747", **t)
+            del q, k, v, ks, vs
+        rows[key]["max_abs_err"] = worst
+
+    # K8 in decode mode (R=7), then K8c at T=128 (896 rows)
+    worst = 0.0
+    for kv in ("int8", "fp8"):
+        q, k, v, ks, vs, table, lens = _paged_inputs(torch, kv, g, 128, **shape)
+        err, args, nsplit, _ = _k8_decode_case(torch, checks, f"K8 G=7 decode {kv} page=128",
+                                               q, k, v, ks, vs, table, lens)
+        worst = max(worst, err)
+        if kv == "fp8":
+            t = _k8_times(torch, pd, F, q, k, v, ks, vs, table, lens, args)
+            t["plain_ms"] = cuda_ms(torch, lambda: pd.paged_flash_decode_plain(*args), iters=3)
+            say(f"    K8 G=7 fp8 page=128, lengths {lens.tolist()}: {t['ms']:.4f} ms (graph "
+                f"{t['graph_ms']:.4f}; as called, graph {t['call_graph_ms']:.4f}), plain "
+                f"{t['plain_ms']:.4f}, library (SDPA on the gathered, dequantized cache) "
+                f"{t['library_ms']:.4f}, bound {t['bound_ms']:.4f} ({t['bound_by']})")
+            rows["K8 G7"] = dict(
+                name=f"paged_decode, decode mode (B=8, H={H}, Hk={Hk}, D=128, page=128, 32 "
+                     f"pages/seq, fp8 KV, {nsplit} live splits: Qwen-2-7B)",
+                source="flash_attn_tpu_torch/csrc/paged_decode.cu",
+                replaces="flash_attn_tpu/ops/paged_decode.py:47", **t)
+        del q, k, v, ks, vs
+    _, k, v, ks, vs, table, _ = _paged_inputs(torch, "fp8", g, 128, B=1, **shape)
+    T, kv_len = 128, 640
+    qc = torch.randn((1, T, H, D), generator=g, device="cuda", dtype=torch.bfloat16)
+    lens = torch.tensor([kv_len], dtype=torch.int32, device="cuda")
+    clamped, clamp2 = _mode_args(dec, k.dtype)
+    nsplit = dec._chunk_splits(1, Hk, T * G, 4096, None)
+    q2 = qc.reshape(1, T, Hk, G, D).transpose(1, 2).reshape(1, Hk * T * G, D).contiguous()
+    args = (q2, k, v, ks, vs, table, lens, D ** -0.5, clamped, clamp2, T, nsplit, None)
+    got, glse = pd.paged_flash_decode_chunk(qc, k, v, table, lens, k_scale=ks, v_scale=vs,
+                                            return_lse=True)
+    ref2, rlse2 = plain_merge(*pd.paged_flash_decode_plain(*args), torch.bfloat16)
+    torch.cuda.synchronize()
+    ref = ref2.reshape(1, Hk, T, G, D).transpose(1, 2).reshape(1, T, H, D)
+    rlse = rlse2.reshape(1, Hk, T, G).transpose(1, 2).reshape(1, T, H)
+    err, share = row_err(got, ref)
+    lerr = float((glse - rlse).abs().max())
+    label = f"K8c G=7 fp8 T={T} kv_len={kv_len} ({nsplit} splits)"
+    ok = checks.check(f"{label} out", share, 1.0) & checks.check(f"{label} lse", lerr, 1e-3)
+    worst = max(worst, err)
+    k8c_ms = cuda_ms(torch, lambda: pd.paged_flash_decode_cuda(*args))
+    pairs = sum(kv_len - (T - 1) + t for t in range(T))
+    kb_ms, kb_by = bound(2 * Hk * kv_len * (D + 4) + 2 * qc.numel() * 2 + glse.numel() * 4,
+                         4 * H * D * pairs)
+    say(f"  {label}: max_abs_err {err:.3e} ({share:.3f} of its row's tol), lse err {lerr:.3e} "
+        f"(tol 1e-3) {'ok' if ok else 'FAIL'} | {k8c_ms:.4f} ms, bound {kb_ms:.4f} ({kb_by})")
+    rows["K8 G7"]["k8c"] = dict(label=f"K8c T={T} kv_len={kv_len} page=128 fp8", ms=k8c_ms,
+                                bound_ms=kb_ms, bound_by=kb_by)
+    rows["K8 G7"]["max_abs_err"] = worst
+    del k, v, ks, vs, qc
+    check_k3_gemma(torch, checks, rows, QWEN_GEMMS, "qwen2", "Qwen-2-7B", SEED + 61,
+                   ms=(8, 512), biased=QWEN_GEMMS[:2])
+
+
 def phase_kernels(torch, checks):
     t0 = time.perf_counter()
     rows = {}
@@ -2613,6 +2834,8 @@ def phase_kernels(torch, checks):
     check_k4_gpt2(torch, checks, rows)
     check_decode_gpt2(torch, checks, rows)
     check_k8_gpt2(torch, checks, rows)
+    torch.cuda.empty_cache()
+    check_qwen2(torch, checks, rows)
     torch.cuda.empty_cache()
     check_k9_k10(torch, checks, rows)
     torch.cuda.empty_cache()
@@ -2653,22 +2876,23 @@ CARD_VS_CPU = (
 )
 
 
-def card_vs_cpu(torch, checks, label, quantize, head_mode, fuse):
-    """2 layers at full 8B widths, fp8 KV: two prompts and four decode
-    steps in lockstep on the card and on the CPU, fed the same tokens (the
-    CPU's greedy choices).  The weights are made and quantized on the card
-    and copied to the CPU."""
+def card_vs_cpu(torch, checks, label, quantize, head_mode, fuse, base=None, width="8B",
+                seed=SEED + 4):
+    """2 layers at full 8B widths (or ``base``'s, named ``width``), fp8 KV:
+    two prompts and four decode steps in lockstep on the card and on the
+    CPU, fed the same tokens (the CPU's greedy choices).  The weights are
+    made and quantized on the card and copied to the CPU."""
     import numpy as np
 
     from flash_attn_tpu_torch.models import llama
 
     t0 = time.perf_counter()
-    cfg = dataclasses.replace(llama.LLAMA3_8B, num_layers=2)
-    card = llama.init_params(cfg, seed=SEED + 4, device="cuda", quantize=quantize,
+    cfg = dataclasses.replace(base or llama.LLAMA3_8B, num_layers=2)
+    card = llama.init_params(cfg, seed=seed, device="cuda", quantize=quantize,
                              head_mode=head_mode, fuse=fuse)
     sides = {"cpu": _to(card, "cpu"), "cuda": card}
     caches = {d: llama.make_cache(cfg, 2, 256, mode="fp8", device=d) for d in sides}
-    rng = np.random.default_rng(SEED + 4)
+    rng = np.random.default_rng(seed)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (100, 37)]
     logits = {d: [] for d in sides}
     for slot, prompt in enumerate(prompts):
@@ -2700,7 +2924,7 @@ def card_vs_cpu(torch, checks, label, quantize, head_mode, fuse):
     if not finite:
         checks.failed.append(f"card logits not finite, {label}")
     agree = int((got.argmax(-1) == ref.argmax(-1)).sum())
-    say(f"[phase 3 card vs cpu, 2 layers at 8B widths, {label}, fp8 KV] logits "
+    say(f"[phase 3 card vs cpu, 2 layers at {width} widths, {label}, fp8 KV] logits "
         f"{tuple(got.shape)} finite={finite} max_abs_err {err:.3e} (tol {tol:.3e}, "
         f"max |logit| {float(ref.abs().max()):.3f}) {'ok' if ok else 'FAIL'} | greedy "
         f"agreement {agree}/{ref.shape[0]} | {time.perf_counter() - t0:.2f}s")
@@ -2708,8 +2932,9 @@ def card_vs_cpu(torch, checks, label, quantize, head_mode, fuse):
     torch.cuda.empty_cache()
 
 
-def prefill_card_vs_cpu(torch, checks):
-    """2 layers at full 8B widths, int8 weights, the prefill paths on the
+def prefill_card_vs_cpu(torch, checks, base=None, width="8B", seed=SEED + 24):
+    """2 layers at full 8B widths (or ``base``'s, named ``width``), int8
+    weights, the prefill paths on the
     card against the CPU: prefill_packed of three prompts (300 + 200 + 57
     tokens in the 1024 bucket), the logits of every real row; prefill_chunk
     of a 700-token prompt in chunks of 256 into slot 1 of an fp8 cache of
@@ -2724,10 +2949,10 @@ def prefill_card_vs_cpu(torch, checks):
     from flash_attn_tpu_torch.models import llama
 
     t0 = time.perf_counter()
-    cfg = dataclasses.replace(llama.LLAMA3_8B, num_layers=2)
-    card = llama.init_params(cfg, seed=SEED + 24, device="cuda", quantize="int8")
+    cfg = dataclasses.replace(base or llama.LLAMA3_8B, num_layers=2)
+    card = llama.init_params(cfg, seed=seed, device="cuda", quantize="int8")
     sides = {"cpu": _to(card, "cpu"), "cuda": card}
-    rng = np.random.default_rng(SEED + 24)
+    rng = np.random.default_rng(seed)
     lens = (300, 200, 57)
     off = sum(lens)
     toks = torch.zeros((1, 1024), dtype=torch.long)
@@ -2785,15 +3010,16 @@ def prefill_card_vs_cpu(torch, checks):
             checks.failed.append(f"card {name} not finite")
         parts.append(f"{name} {tuple(mine.shape)} max_abs_err {float(diff.max()):.3e} ({what}) "
                      f"{'ok' if ok and finite else 'FAIL'}")
-    say(f"[phase 3 card vs cpu, prefill paths: 2 layers at 8B widths, int8 weights] "
+    say(f"[phase 3 card vs cpu, prefill paths: 2 layers at {width} widths, int8 weights] "
         + "; ".join(parts) + f" | fp8 cache bytes equal {min(same_bytes):.4f}-"
         f"{max(same_bytes):.4f} | {time.perf_counter() - t0:.2f}s")
     del sides, caches, card
     torch.cuda.empty_cache()
 
 
-def paged_card_vs_cpu(torch, checks):
-    """The paged path, 2 layers at full 8B widths, int8 weights, fp8 KV,
+def paged_card_vs_cpu(torch, checks, base=None, width="8B", seed=SEED + 11):
+    """The paged path, 2 layers at full 8B widths (or ``base``'s, named
+    ``width``), int8 weights, fp8 KV,
     pages of 128: prompt A (300 tokens) prefilled into slot 0; prompt B,
     sharing A's first 256 tokens (slot 1's table starts with A's two
     pages), through prefill_suffix_paged from 256 (K8 chunk mode); then
@@ -2805,10 +3031,10 @@ def paged_card_vs_cpu(torch, checks):
     from flash_attn_tpu_torch.models import llama
 
     t0 = time.perf_counter()
-    cfg = dataclasses.replace(llama.LLAMA3_8B, num_layers=2)
-    card = llama.init_params(cfg, seed=SEED + 11, device="cuda", quantize="int8")
+    cfg = dataclasses.replace(base or llama.LLAMA3_8B, num_layers=2)
+    card = llama.init_params(cfg, seed=seed, device="cuda", quantize="int8")
     sides = {"cpu": _to(card, "cpu"), "cuda": card}
-    rng = np.random.default_rng(SEED + 11)
+    rng = np.random.default_rng(seed)
     a = rng.integers(0, cfg.vocab_size, 300).tolist()
     b = a[:256] + rng.integers(0, cfg.vocab_size, 100).tolist()
     pages = (rng.permutation(8) + 1).tolist()  # of a pool of 9 (page 0 null)
@@ -2845,7 +3071,7 @@ def paged_card_vs_cpu(torch, checks):
     if not finite:
         checks.failed.append("paged card logits not finite")
     agree = int((got.argmax(-1) == ref.argmax(-1)).sum())
-    say(f"[phase 3 card vs cpu, paged: 2 layers at 8B widths, int8 weights, fp8 KV, "
+    say(f"[phase 3 card vs cpu, paged: 2 layers at {width} widths, int8 weights, fp8 KV, "
         f"page 128, suffix prefill from 256 + 4 decode steps] logits {tuple(got.shape)} "
         f"finite={finite} max_abs_err {err:.3e} (tol {tol:.3e}) {'ok' if ok else 'FAIL'} | "
         f"greedy agreement {agree}/{ref.shape[0]} | {time.perf_counter() - t0:.2f}s")
@@ -2862,8 +3088,9 @@ def _clone_cache(cache):
                    cache.length.clone(), cache.mode)
 
 
-def multi_card_vs_cpu(torch, checks):
-    """The verify step, 2 layers at full 8B widths, int8 weights, fp8 KV:
+def multi_card_vs_cpu(torch, checks, base=None, width="8B", seed=SEED + 18):
+    """The verify step, 2 layers at full 8B widths (or ``base``'s, named
+    ``width``), int8 weights, fp8 KV:
     two prompts (100 and 37 tokens), then decode_multi of T=5 tokens per
     sequence (the CPU's greedy first token and four from the seed) on the
     card (K1 in chunk mode) against the CPU (plain versions), and against
@@ -2876,11 +3103,11 @@ def multi_card_vs_cpu(torch, checks):
 
     t0 = time.perf_counter()
     T = 5
-    cfg = dataclasses.replace(llama.LLAMA3_8B, num_layers=2)
-    card = llama.init_params(cfg, seed=SEED + 18, device="cuda", quantize="int8")
+    cfg = dataclasses.replace(base or llama.LLAMA3_8B, num_layers=2)
+    card = llama.init_params(cfg, seed=seed, device="cuda", quantize="int8")
     sides = {"cpu": _to(card, "cpu"), "cuda": card}
     caches = {d: llama.make_cache(cfg, 2, 256, mode="fp8", device=d) for d in sides}
-    rng = np.random.default_rng(SEED + 18)
+    rng = np.random.default_rng(seed)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (100, 37)]
     first = []
     for slot, prompt in enumerate(prompts):
@@ -2918,12 +3145,186 @@ def multi_card_vs_cpu(torch, checks):
     if not lengths_ok:
         checks.failed.append("verify step lengths differ from five decode steps'")
     agree = int((got.argmax(-1) == ref.argmax(-1)).sum())
-    say(f"[phase 3 card vs cpu, verify step: 2 layers at 8B widths, int8 weights, fp8 KV, "
+    say(f"[phase 3 card vs cpu, verify step: 2 layers at {width} widths, int8 weights, fp8 KV, "
         f"decode_multi T={T}] logits {tuple(got.shape)} finite={finite} max_abs_err {err:.3e} vs "
         f"cpu, {err_steps:.3e} vs {T} decode steps (tol {tol:.3e}) "
         f"{'ok' if ok and lengths_ok else 'FAIL'} | greedy agreement {agree}/{2 * T} | "
         f"{time.perf_counter() - t0:.2f}s")
     del sides, caches, steps_cache, card
+    torch.cuda.empty_cache()
+
+
+def qwen_card_vs_cpu(torch, checks):
+    """Phase 3's Llama runs at 2 layers of Qwen-2-7B's widths (28 query
+    heads over 4 KV heads, the qkv bias; int8 weights, the bias bf16), held
+    as the Llama rows are: prompts and decode steps, the prefill paths, the
+    paged path and the verify step."""
+    from flash_attn_tpu_torch.models import llama
+
+    qwen = dict(base=llama.QWEN2_7B, width="Qwen-2-7B")
+    card_vs_cpu(torch, checks, "int8 weights, qkv bias", "int8", None, False, seed=SEED + 62,
+                **qwen)
+    prefill_card_vs_cpu(torch, checks, seed=SEED + 63, **qwen)
+    paged_card_vs_cpu(torch, checks, seed=SEED + 64, **qwen)
+    multi_card_vs_cpu(torch, checks, seed=SEED + 65, **qwen)
+
+
+# the share of tokens whose top-2 expert set may differ between the card and
+# the CPU in any one layer of phase 3's Mixtral runs, both routing the same
+# input (see there)
+MOE_FLIP_SHARE = 0.01
+
+
+def mixtral_card_vs_cpu(torch, checks, quantize, seed):
+    """2 layers at Mixtral-8x7B's widths (8 experts of 4096 x 14336, top 2;
+    ``quantize``: int8, or int4 at g=128) with fp8 KV: two 256-token
+    prompts in one prefill_with_kv call (B=2), then three decode steps fed
+    the CPU's greedy tokens, on the card and on the CPU.
+
+    MoE routing is discontinuous: a near tie between a token's 2nd and 3rd
+    router logits can flip its top-2 set between the two sides, and that
+    token's output with it, however small the rounding that caused it.  A
+    flipped token's K/V then differ in the layers above, so every later row
+    of its sequence sees another context, and the next layer's routers see
+    inputs that differ by more than rounding: flips cascade, and the router
+    (logits of std ~6 on a unit input) amplifies the rounding of the layers
+    below it.  End to end, the logits of tokens that agree everywhere come
+    within the order of the 5 % tolerance.  So each layer is held on the
+    same input: the card runs each layer alone, fed the CPU's hidden state
+    entering it (the prompts' 512 tokens, passed as the embedding table,
+    one row a token), and
+    - the share of tokens whose top-2 set (the nonzeros of router_topk,
+      wrapped for the phase) differs from the CPU's must be at most
+      MOE_FLIP_SHARE (1 %) in every layer;
+    - on the tokens whose sets agree at that layer, the layer's output
+      (its hidden state; for the last layer, the logits) must be within
+      card_vs_cpu's 5 % of the CPU's largest value.
+    The end-to-end run's flips and logit errors (the rows that agree and
+    that no lower layer's flip reaches; the rows after such a flip) are
+    printed beside them."""
+    import numpy as np
+
+    from flash_attn_tpu_torch.models import mixtral as mx
+    from flash_attn_tpu_torch.parallel.moe import router_topk
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(mx.MIXTRAL_8X7B, num_layers=2)
+    L, H, S = cfg.num_layers, cfg.hidden, 256
+    card = mx.init_params(cfg, seed=seed, device="cuda", quantize=quantize)
+    sides = {"cpu": _to(card, "cpu"), "cuda": card}
+    caches = {d: mx.make_cache(cfg, 2, 512, mode="fp8", device=d) for d in sides}
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(0, cfg.vocab_size, (2, S)))
+    sets = {d: [] for d in (*sides, "forced")}
+    logits = {d: [] for d in sides}
+    hidden = {"cpu": [], "forced": []}  # prefill hidden states after each layer
+    moe_mlp = mx._moe_mlp
+
+    def recording(side):
+        def route(x, k):
+            w = router_topk(x, k)
+            sets[side].append((w > 0).cpu())
+            return w
+        return route
+
+    def keeping(side):
+        def mlp(x, blk, c):
+            out = moe_mlp(x, blk, c)
+            hidden[side].append(out.float().cpu())
+            return out
+        return mlp
+
+    try:
+        for d, params in sides.items():
+            mx.router_topk = recording(d)
+            mx._moe_mlp = keeping("cpu") if d == "cpu" else moe_mlp
+            out, kvs = mx.prefill_with_kv(params, toks.to(d),
+                                          torch.arange(S, device=d)[None].expand(2, S), cfg)
+            mx._moe_mlp = moe_mlp
+            for layer, (k, v) in enumerate(kvs):
+                caches[d].append(layer, k, v)
+            caches[d].advance(S)
+            logits[d].append(out.reshape(-1, cfg.vocab_size).float().cpu())
+            del out, kvs
+        nxt = logits["cpu"][0].reshape(2, S, -1)[:, -1].argmax(-1)
+        for _ in range(3):
+            for d, params in sides.items():
+                mx.router_topk = recording(d)
+                out, _ = mx.decode_step(params, nxt.to(d), cfg, caches[d])
+                logits[d].append(out.float().cpu())
+            nxt = logits["cpu"][-1].argmax(-1)
+        # each layer alone on the card, fed the CPU's hidden state entering it
+        mx.router_topk, mx._moe_mlp = recording("forced"), keeping("forced")
+        one = dataclasses.replace(cfg, num_layers=1)
+        for layer in range(L):
+            x = (card["tok_emb"][toks.cuda()] if layer == 0
+                 else hidden["cpu"][layer - 1].cuda().to(card["tok_emb"].dtype))
+            alone = dict(card, tok_emb=x.reshape(-1, H), blocks=[card["blocks"][layer]])
+            alone.pop("_lm_head_f32", None)
+            out, _ = mx.prefill_with_kv(alone, torch.arange(2 * S, device="cuda").reshape(2, S),
+                                        torch.arange(S, device="cuda")[None].expand(2, S), one)
+            del alone, x
+        forced_logits = out.reshape(-1, cfg.vocab_size).float().cpu()
+        del out
+    finally:
+        mx.router_topk, mx._moe_mlp = router_topk, moe_mlp
+    torch.cuda.synchronize()
+    # per layer, on the same input: the sets and the layer's output
+    ok, parts = True, []
+    for layer in range(L):
+        cpu_sets = torch.cat(sets["cpu"][layer::L])[:2 * S]
+        agree = ~(sets["forced"][layer] != cpu_sets).any(-1)
+        share = 1 - float(agree.float().mean())
+        if layer == L - 1:
+            ref, got, what = logits["cpu"][0], forced_logits, "logits"
+        else:
+            ref = hidden["cpu"][layer].reshape(2 * S, H)
+            got, what = hidden["forced"][layer].reshape(2 * S, H), "hidden state"
+        err = float((got[agree] - ref[agree]).abs().max())
+        # as card_vs_cpu: the sides round at the same points and sum in
+        # another order, which can flip a bf16, int8-activation or fp8-KV
+        # rounding
+        tol = 5e-2 * float(ref.abs().max())
+        ok &= checks.check(f"Mixtral {quantize} layer {layer} top-2 sets differing on the same "
+                           "input", share, MOE_FLIP_SHARE)
+        ok &= checks.check(f"Mixtral {quantize} layer {layer} {what} on the same input", err, tol)
+        if not bool(torch.isfinite(got).all()):
+            checks.failed.append(f"Mixtral {quantize} layer {layer} {what} not finite")
+            ok = False
+        parts.append(f"layer {layer}: sets differing {share:.5f} of {2 * S} tokens (limit "
+                     f"{MOE_FLIP_SHARE}), {what} max_abs_err {err:.3e} (tol {tol:.3e})")
+    # end to end (printed): a flip below the last layer changes the token's
+    # K/V in the layers above it, which every later row of its sequence
+    # attends to
+    differ = torch.stack([
+        (torch.cat(sets["cuda"][layer::L]) != torch.cat(sets["cpu"][layer::L])).any(-1)
+        for layer in range(L)])  # [L, tokens]
+    ref, got = torch.cat(logits["cpu"]), torch.cat(logits["cuda"])
+    rowerr = (got - ref).abs().amax(-1)
+    agree = ~differ.any(0)
+    seq = torch.cat([torch.zeros(S), torch.ones(S), torch.tensor([0.0, 1.0] * 3)]).long()
+    reach = differ[:L - 1].any(0)
+    clean = agree.clone()
+    for b in (0, 1):
+        idx = (seq == b).nonzero()[:, 0]
+        clean[idx] &= ~torch.cummax(reach[idx].int(), 0).values.bool()
+    after = agree & ~clean
+    e2e = (f"end to end: sets differing {[round(x, 5) for x in differ.float().mean(-1).tolist()]}"
+           f" of {differ.shape[1]} tokens, flipped "
+           f"{[differ[i].nonzero()[:, 0].tolist() for i in range(L)]}; logits max_abs_err "
+           f"{float(rowerr[clean].max()):.3e} on the {int(clean.sum())} rows that agree and "
+           f"that no lower layer's flip reaches, "
+           f"{float(rowerr[after].max()) if bool(after.any()) else 0.0:.3e} on the "
+           f"{int(after.sum())} after such a flip (5 % of the max logit: "
+           f"{5e-2 * float(ref.abs().max()):.3e}); greedy agreement "
+           f"{int((got.argmax(-1) == ref.argmax(-1)).sum())}/{ref.shape[0]}")
+    if not bool(torch.isfinite(got).all()):
+        checks.failed.append(f"Mixtral {quantize} card logits not finite")
+        ok = False
+    say(f"[phase 3 card vs cpu, Mixtral: 2 layers at 8x7B widths, {quantize} experts and "
+        f"attention, fp8 KV, 2 x {S} prompt tokens + 3 decode steps] each layer on the card fed "
+        f"the CPU's input: " + "; ".join(parts) + f" {'ok' if ok else 'FAIL'} | (not held) "
+        f"{e2e} | {time.perf_counter() - t0:.2f}s")
+    del sides, caches, card, hidden
     torch.cuda.empty_cache()
 
 
@@ -3609,8 +4010,9 @@ def serve_sampled(torch, checks, smi, params):
         f"{runs[0, 0] != runs[1, 0]} | {time.perf_counter() - t1:.2f}s")
 
 
-def serve_paged(torch, checks, params, burst=1):
-    """Phase 7: Llama-3-8B (phase 4's int8 params) through
+def serve_paged(torch, checks, params, burst=1, cfg=None, run=None):
+    """Phase 7: Llama-3-8B (phase 4's int8 params; or ``cfg``, a Llama
+    config, as the run ``run``) through
     PagedInferenceEngine with prefix caching, fp8 KV, pages of 128,
     max_batch 8, capacity 4096, 32 greedy tokens per request, decode
     bodies captured, at ``burst``.  Traffic: a
@@ -3627,8 +4029,9 @@ def serve_paged(torch, checks, params, burst=1):
     from flash_attn_tpu_torch.models import llama
 
     t1 = time.perf_counter()
-    label = RUN_PAGED if burst == 1 else f"{RUN_PAGED}, burst {burst}"
-    cfg, n_tok = llama.LLAMA3_8B, 32
+    run = run or RUN_PAGED
+    label = run if burst == 1 else f"{run}, burst {burst}"
+    cfg, n_tok = cfg or llama.LLAMA3_8B, 32
     rng = np.random.default_rng(SEED + 7)
     prefix = rng.integers(0, cfg.vocab_size, 512).tolist()
     suffix_lens = rng.integers(64, 513, 16)
@@ -3638,7 +4041,7 @@ def serve_paged(torch, checks, params, burst=1):
                                page_size=128, kv_mode="fp8", prefix_cache=True, device="cuda",
                                decode_burst=burst)
     m = eng.metrics
-    waves, total, tokens = [], {}, []
+    waves, total, tokens, steps = [], {}, [], 0
     for w in range(2):
         before = (m.prefill_tokens, m.prefill_seconds, m.decode_tokens, m.decode_seconds, m.steps)
         _reset_counts()
@@ -3655,6 +4058,7 @@ def serve_paged(torch, checks, params, burst=1):
                                  f"with {n_tok} valid tokens")
         after = (m.prefill_tokens, m.prefill_seconds, m.decode_tokens, m.decode_seconds, m.steps)
         d = [x - y for x, y in zip(after, before)]
+        steps += d[4]
         waves.append(counts)
         say(f"  wave {w + 1}: suffixes {suffix_lens[8 * w:8 * (w + 1)].tolist()} | prefix "
             f"hits {eng.prefix.hits}, misses {eng.prefix.misses} so far | prefill "
@@ -3677,6 +4081,9 @@ def serve_paged(torch, checks, params, burst=1):
         checks.failed.append(f"{label}: the decode body was not captured")
     # each decode-mode call is one launch of K8 that merges its own splits:
     # K1m serves only K8c's calls (at most one each)
+    if burst == 1 and total["K8"] != cfg.num_layers * steps:
+        checks.failed.append(f"{label}: K8 launched {total['K8']} times in {steps} decode "
+                             f"steps, expected {cfg.num_layers} a step")
     if total["K8 merges"] != total["K8"] or total["K1m"] > total["K8c"]:
         checks.failed.append(f"{label}: decode-mode K8 calls are not one launch each "
                              f"(K8 {total['K8']}, merged in the kernel {total['K8 merges']}, "
@@ -3945,6 +4352,144 @@ def phase_gemma(torch, checks, smi, size="9B"):
     if size == "9B":
         label = "phase 10 serve Gemma-2-9B int8, int8 KV"
         runs[label] = serve(torch, checks, label, cfg, params, "int8", 16, path, **kw)["counts"]
+    del params
+    _free(torch)
+    return runs
+
+
+def _launches_exact(checks, label, got, want):
+    """Fail unless each count of ``want`` is ``got``'s."""
+    have = {key: got[key] for key in want}
+    if have != want:
+        checks.failed.append(f"{label}: launches {have}, expected {want}")
+    return have == want
+
+
+def phase_qwen(torch, checks, smi):
+    """Phase 16: Qwen-2-7B (28 layers, 28 query heads over 4 KV heads, the
+    qkv bias; random weights from the seed), int8 weights, fp8 KV, capacity
+    4096, phase 4's 8 prompts (of its vocabulary): eager, captured and
+    captured at burst 4 (equal tokens; serve_ways, 32 tokens); one prompt
+    a prefill call (16 tokens) and chunks of 512 (32), their prefill
+    tokens/s beside the packed call's; the paged engine with prefix caching
+    (serve_paged: two waves of 8 sharing a 512-token prefix, hits and
+    misses printed); n-gram speculation (4 drafts, 32 tokens).  Launches
+    exact: K4 28 a packed prefill call, K1 = K2 = K1m 28 a decode step, K1c
+    28 a verify round, K8 28 a paged step.  Peak memory printed (the fp32
+    head copy alone is 2.03 GiB).  Returns {run label: counts}."""
+    from flash_attn_tpu_torch.engine.engine import SpecConfig
+    from flash_attn_tpu_torch.models import llama
+
+    cfg = llama.QWEN2_7B
+    L = cfg.num_layers
+    params, secs = _fresh_model(torch, cfg, quantize="int8")
+    say(f"  Qwen-2-7B params (int8 weights with bf16 qkv biases, bf16 embeddings and head) "
+        f"on the card in {secs:.2f}s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    base = ("K1", "K1m", "K2", "K3", "K4")
+    runs = {}
+    graph = serve_ways(torch, checks, smi, RUN_QWEN, cfg, params, 32, base, eager_window=False)
+    steps = graph["dispatches"]
+    _launches_exact(checks, RUN_QWEN, graph["counts"], {
+        "K4": L, "K4 seg": L, "K1": L * steps, "K2": L * steps, "K1m": L * steps})
+    runs[RUN_QWEN] = graph["counts"]
+    one = serve(torch, checks, RUN_QWEN_ONE, cfg, params, "fp8", 16, base, packed=False)
+    chunked = serve(torch, checks, RUN_QWEN_CHUNK, cfg, params, "fp8", 32, base, chunk=512)
+    say(f"[phase 16 prefill: packed / one prompt a call / chunks of 512] {smi} | prefill "
+        f"{graph['prefill_tok_s']:.1f} / {one['prefill_tok_s']:.1f} / "
+        f"{chunked['prefill_tok_s']:.1f} tok/s")
+    runs[RUN_QWEN_PAGED], _ = serve_paged(torch, checks, params, cfg=cfg, run=RUN_QWEN_PAGED)
+    spec = serve(torch, checks, RUN_QWEN_SPEC, cfg, params, "fp8", 32,
+                 ("K1c", "K1m", "K3", "K4"), spec=SpecConfig(num_draft=4, ngram=2))
+    _launches_exact(checks, RUN_QWEN_SPEC, spec["counts"], {"K1c": L * spec["rounds"]})
+    runs[RUN_QWEN_SPEC] = spec["counts"]
+    say(f"[{RUN_QWEN}] {smi} | launches: K4 {graph['counts']['K4']} = {L} x 1 packed call, K1 "
+        f"{graph['counts']['K1']} = K2 = K1m = {L} x {steps} steps, K1c {spec['counts']['K1c']} "
+        f"= {L} x {spec['rounds']} verify rounds, K8 {runs[RUN_QWEN_PAGED]['K8']} (= {L} a "
+        f"paged step) | peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del params
+    _free(torch)
+    return runs
+
+
+MAX_MIXTRAL_GIB = 75.0          # the Mixtral-8x7B serve fails above this peak
+
+
+def phase_mixtral(torch, checks, smi):
+    """Phase 17: Mixtral-8x7B (32 layers, 8 experts of 4096 x 14336, top 2;
+    random weights from the seed, drawn and quantized one projection at a
+    time: the bf16 model does not fit the card), int8 experts and
+    attention, fp8 KV, capacity 4096, phase 4's 8 prompts in one packed
+    prefill call: eager and captured (equal tokens, 32 tokens), with ms a
+    decode position, the card's ms a position (the captured graph replayed)
+    and its share of the wall time, and the idle share in a torch.profiler
+    window of 8 captured steps; n-gram speculation through decode_multi (4
+    drafts, 32 tokens); the paged engine without prefix caching (the
+    adapter has no suffix prefill, as in JAX).  Every expert runs for every
+    token (JAX's exact form), so launches are exact: K3 = 32 x (4 + 3 x 8)
+    = 896 a decode step or packed call, K1 = K2 = K1m 32 a step, K4 32 a
+    packed call, K1c 32 a verify round, K8 32 a paged step.  Peak under
+    MAX_MIXTRAL_GIB.  Returns {run label: counts}."""
+    from flash_attn_tpu_torch.engine._graph import disable_graphs
+    from flash_attn_tpu_torch.engine.engine import SpecConfig
+    from flash_attn_tpu_torch.models import mixtral as mx
+
+    cfg = mx.MIXTRAL_8X7B
+    L, per_layer = cfg.num_layers, 4 + 3 * cfg.num_experts
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = mx.init_params(cfg, seed=SEED, device="cuda", quantize="int8")
+    torch.cuda.synchronize()
+    weight_bytes = sum(x.numel() * x.element_size() for blk in params["blocks"]
+                       for w in [blk[n] for n in ("wq", "wk", "wv", "wo")]
+                       + [ex[n] for ex in blk["experts"] for n in ex] for x in w)
+    say(f"  Mixtral-8x7B params (int8 experts and attention, bf16 router, embeddings and head) "
+        f"drawn and quantized on the card in {time.perf_counter() - t0:.2f}s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB ({weight_bytes / 2**30:.2f} GiB of "
+        f"int8 projections and their scales, all read by every decode step)")
+    kw = dict(adapter=mx.make_adapter(cfg))
+    path = ("K1", "K1m", "K2", "K3", "K4")
+    with disable_graphs():
+        eager = serve(torch, checks, f"{RUN_MIXTRAL}, eager", cfg, params, "fp8", 32, path, **kw)
+    graph = serve(torch, checks, RUN_MIXTRAL, cfg, params, "fp8", 32, path, window=True, **kw)
+    same = eager["tokens"] == graph["tokens"]
+    if not same:
+        checks.failed.append(f"{RUN_MIXTRAL}: eager tokens differ from the captured run's")
+    for name, run in (("eager", eager), ("captured", graph)):
+        steps = run["dispatches"]
+        _launches_exact(checks, f"{RUN_MIXTRAL}, {name}", run["counts"], {
+            "K3": L * per_layer * (steps + 1), "K4": L, "K4 seg": L, "K1": L * steps,
+            "K2": L * steps, "K1m": L * steps})
+    spec = serve(torch, checks, RUN_MIXTRAL_SPEC, cfg, params, "fp8", 32,
+                 ("K1c", "K1m", "K3", "K4"), spec=SpecConfig(num_draft=4, ngram=2), **kw)
+    _launches_exact(checks, RUN_MIXTRAL_SPEC, spec["counts"], {"K1c": L * spec["rounds"]})
+    paged = serve(torch, checks, RUN_MIXTRAL_PAGED, cfg, params, "fp8", 32, ("K3", "K4", "K8"),
+                  paged=True, packed=False, **kw)
+    n_req = len(paged["tokens"])
+    _launches_exact(checks, RUN_MIXTRAL_PAGED, paged["counts"], {
+        "K8": L * paged["dispatches"], "K4": L * n_req})
+    peak = max(run["peak"] for run in (eager, graph, spec, paged))
+    if peak > MAX_MIXTRAL_GIB:
+        checks.failed.append(f"{RUN_MIXTRAL}: peak {peak:.2f} GiB > {MAX_MIXTRAL_GIB} GiB")
+    c, dev, steps = graph["counts"], graph["dev_ms"], graph["dispatches"]
+    wall, busy, top = graph["window"]
+    say(f"[{RUN_MIXTRAL}: eager / captured] {smi} | decode eager {eager['pos_ms']:.3f} ms a "
+        f"position ({eager['tok_s']:.1f} tok/s), captured {graph['pos_ms']:.3f} ms a position "
+        f"({graph['tok_s']:.1f} tok/s), the card {dev:.3f} ms a position (graph replays; "
+        f"{dev / graph['pos_ms']:.4f} of the wall, its weights at "
+        f"{weight_bytes / (dev * 1e-3) / 1e12:.3f} TB/s), idle share in the profiled window "
+        f"{1 - busy / wall:.4f} | prefill {graph['prefill_tok_s']:.1f} tok/s (one packed call) "
+        f"| n-gram {spec['tok_s']:.1f} tok/s, paged {paged['pos_ms']:.3f} ms a position | peak "
+        f"{peak:.2f} GiB (limit {MAX_MIXTRAL_GIB}) | launches (captured): K3 {c['K3']} = {L} x "
+        f"{per_layer} x ({steps} steps + 1 packed call), K4 {c['K4']}, K1 {c['K1']} = K2 = K1m "
+        f"= {L} x {steps}; K1c {spec['counts']['K1c']} = {L} x {spec['rounds']} verify rounds; "
+        f"K8 {paged['counts']['K8']} = {L} x {paged['dispatches']} paged steps | tokens equal "
+        f"eager / captured: {same}")
+    say(f"  captured window of {WINDOW_STEPS} steps ({smi}), torch.profiler: wall {wall:.3f} ms, "
+        f"card busy {busy:.3f} ms, idle share {1 - busy / wall:.4f}; top 5: "
+        + ", ".join(f"{n[:60]} {ms:.3f} ms x{cnt}" for n, ms, cnt in top))
+    runs = {RUN_MIXTRAL: c, RUN_MIXTRAL_SPEC: spec["counts"],
+            RUN_MIXTRAL_PAGED: paged["counts"]}
     del params
     _free(torch)
     return runs
@@ -4346,10 +4891,19 @@ RUN_GPT2_BASE = ("phase 12 BASELINE config 0: GPT-2 124M bf16, int8 KV, batch 1,
                  "1024 positions")
 RUN_GPT2_TRAIN = (f"phase 13 train GPT-2 124M bf16, 12 layers, B=8 S=1024, {TRAIN_STEPS} AdamW "
                   "steps")
+RUN_QWEN = "phase 16 serve Qwen-2-7B int8, fp8 KV"
+RUN_QWEN_ONE = "phase 16 serve Qwen-2-7B int8, fp8 KV, one prompt a prefill call"
+RUN_QWEN_CHUNK = "phase 16 serve Qwen-2-7B int8, fp8 KV, prefill_chunk_size 512"
+RUN_QWEN_PAGED = "phase 16 serve Qwen-2-7B int8, fp8 KV, paged + prefix cache"
+RUN_QWEN_SPEC = "phase 16 serve Qwen-2-7B int8, fp8 KV, n-gram speculation"
+RUN_MIXTRAL = "phase 17 serve Mixtral-8x7B int8, fp8 KV"
+RUN_MIXTRAL_SPEC = "phase 17 serve Mixtral-8x7B int8, fp8 KV, n-gram speculation"
+RUN_MIXTRAL_PAGED = "phase 17 serve Mixtral-8x7B int8, fp8 KV, paged"
 KERNEL_ROWS = ("K1", "K1m", "K1c", "K1b", "K2", "K3", "K3g", "K4", "K5", "K6", "K7", "K8", "K8c",
                "K9", "K10", "K4 d256", "K1 d256", "K2 d256", "K1m d256", "K9 d256", "K10 d256",
                "K4 d64", "K1 d64", "K1c d64", "K8 d64", "K2 d64", "K1m d64", "K9 d64", "K10 d64",
-               "K4 27B", "K1 27B", "K9 27B", "K10 27B")
+               "K4 27B", "K1 27B", "K9 27B", "K10 27B", "K4 G7", "K1 G7", "K1c G7", "K8 G7",
+               "K2 G7", "K3 Mixtral")
 # the run whose launches a kernel's row reports, and the count it reads:
 # the main path that the kernel serves (the 70B serve for the shared K1,
 # K1m, K2 and K4, the n-gram speculative serve for K1's chunk mode, the
@@ -4357,8 +4911,10 @@ KERNEL_ROWS = ("K1", "K1m", "K1c", "K1b", "K2", "K3", "K3g", "K4", "K5", "K6", "
 # captured Gemma-2-9B serve for the head_dim 256 points of K4, K1, K2 and
 # K1m, the Gemma-2 training run for K9's and K10's, the GPT-2 training run
 # for their head_dim 64 points, the captured Gemma-2-27B serve and its
-# training run for the head_dim 128 kLocal points); K3 grouped and K1
-# over a BSHD cache have no model path, so their rows report none
+# training run for the head_dim 128 kLocal points, the Qwen-2-7B serve's
+# runs for the 7-heads-a-KV-head points, the captured Mixtral-8x7B serve for
+# K3 at its experts' widths); K3 grouped and K1 over a BSHD cache have no
+# model path, so their rows report none
 ROW_RUN = {"K1": RUN_70B, "K1m": RUN_70B, "K1c": RUN_SPEC_NGRAM, "K1b": None, "K2": RUN_70B,
            "K3": RUN_8B_INT8, "K3g": None, "K4": RUN_70B, "K5": RUN_8B_W4A8, "K6": RUN_70B,
            "K7": RUN_70B, "K8": RUN_PAGED, "K8c": RUN_PAGED, "K9": RUN_TRAIN, "K10": RUN_TRAIN,
@@ -4367,14 +4923,18 @@ ROW_RUN = {"K1": RUN_70B, "K1m": RUN_70B, "K1c": RUN_SPEC_NGRAM, "K1b": None, "K
            "K4 d64": RUN_GPT2, "K1 d64": RUN_GPT2, "K1c d64": RUN_GPT2_SPEC,
            "K8 d64": RUN_GPT2_PAGED, "K2 d64": RUN_GPT2, "K1m d64": RUN_GPT2,
            "K9 d64": RUN_GPT2_TRAIN, "K10 d64": RUN_GPT2_TRAIN, "K4 27B": RUN_GEMMA27,
-           "K1 27B": RUN_GEMMA27, "K9 27B": RUN_GEMMA27_TRAIN, "K10 27B": RUN_GEMMA27_TRAIN}
+           "K1 27B": RUN_GEMMA27, "K9 27B": RUN_GEMMA27_TRAIN, "K10 27B": RUN_GEMMA27_TRAIN,
+           "K4 G7": RUN_QWEN, "K1 G7": RUN_QWEN, "K1c G7": RUN_QWEN_SPEC,
+           "K8 G7": RUN_QWEN_PAGED, "K2 G7": RUN_QWEN, "K3 Mixtral": RUN_MIXTRAL}
 # a row's count where it is not the row's own key: every K2 and K1m launch
 # of the Gemma-2-9B serve is at head_dim 256, and every launch of the GPT-2
 # serves at head_dim 64 (phase 12 holds the d64 counts equal); the 27B
 # rows read their runs' kLocal counts (K1's: all of phase 14's)
 ROW_COUNT = {"K2 d256": "K2", "K1m d256": "K1m", "K4 d64": "K4", "K1 d64": "K1",
              "K1c d64": "K1c", "K8 d64": "K8", "K2 d64": "K2", "K1m d64": "K1m",
-             "K4 27B": "K4 local", "K1 27B": "K1", "K9 27B": "K9 local", "K10 27B": "K10 local"}
+             "K4 27B": "K4 local", "K1 27B": "K1", "K9 27B": "K9 local", "K10 27B": "K10 local",
+             "K4 G7": "K4", "K1 G7": "K1", "K1c G7": "K1c", "K8 G7": "K8", "K2 G7": "K2",
+             "K3 Mixtral": "K3"}
 
 
 def main() -> int:
@@ -4409,6 +4969,9 @@ def main() -> int:
     gemma_train_card_vs_cpu(torch, checks, "27B", SEED + 22)
     gpt2_card_vs_cpu(torch, checks)
     gpt2_train_card_vs_cpu(torch, checks)
+    qwen_card_vs_cpu(torch, checks)
+    mixtral_card_vs_cpu(torch, checks, "int8", SEED + 66)
+    mixtral_card_vs_cpu(torch, checks, "int4", SEED + 67)
     runs = phase_serve(torch, checks, smi)
     runs.update(phase_gemma(torch, checks, smi))
     runs.update(phase_gemma(torch, checks, smi, "27B"))
@@ -4417,6 +4980,8 @@ def main() -> int:
     runs[RUN_GEMMA27_TRAIN] = phase_gemma_train(torch, checks, smi, "27B")
     runs.update(phase_gpt2(torch, checks, smi))
     runs[RUN_GPT2_TRAIN] = phase_gpt2_train(torch, checks, smi)
+    runs.update(phase_qwen(torch, checks, smi))
+    runs.update(phase_mixtral(torch, checks, smi))
     for key, row in rows.items():
         row["launches_run"] = ROW_RUN[key]
         row["launches"] = runs[ROW_RUN[key]][ROW_COUNT.get(key, key)] if ROW_RUN[key] else 0
@@ -4433,7 +4998,7 @@ def main() -> int:
                     library_ms=r["library_ms"],
                     **{k: r[k] for k in ("graph_ms", "call_graph_ms", "empty_graph_ms",
                                          "prompt", "also", "packed", "chunk", "gemma",
-                                         "gemma27b",
+                                         "gemma27b", "qwen2",
                                          "sdpa_nocap_ms", "no_window", "k8c") if k in r})
                for r in (rows[k] for k in KERNEL_ROWS)]
     print(json.dumps({"kernels": kernels}))

@@ -7,16 +7,28 @@ projections and quantized heads K3, K5, K6, K7; the training forward's
 attention K4 with its backward K9 + K10).
 
 Port of flash_attn_tpu/models/llama.py for the serving and training
-paths: the configs, ``init_params`` (from a ``torch.Generator``),
-``quantize_weights`` (int8, int4, w8a8, w4a8, with a separate
-``head_mode``), ``fuse_projections``, ``forward`` (training),
-``prefill_with_kv``, ``prefill_chunk``, ``prefill_packed``,
+paths: the configs (Llama-3 8B and 70B, Qwen-2-7B), ``init_params``
+(from a ``torch.Generator``), ``quantize_weights`` (int8, int4, w8a8,
+w4a8, with a separate ``head_mode``), ``fuse_projections``, ``forward``
+(training), ``prefill_with_kv``, ``prefill_chunk``, ``prefill_packed``,
 ``decode_step``, ``decode_multi``, ``decode_step_paged``,
-``prefill_suffix_paged``, ``make_cache`` and ``make_adapter``.
+``prefill_suffix_paged``, ``make_cache``, ``make_adapter`` and
+``convert_hf_model`` (a HF Llama-family model: Llama, Qwen-2).
 Params are a plain dict like the JAX pytree: per block wq/wk/wv (or the
 fused wqkv), wo, w_gate/w_up (or w_gate_up), w_down, attn_norm/mlp_norm;
 top level tok_emb, final_norm, lm_head.  A weight is any kind that
-``ops/matmul.quantized_matmul`` takes.
+``ops/matmul.quantized_matmul`` takes; with ``qkv_bias`` (Qwen-2) wq, wk
+and wv are ``BiasedWeight``s whose bias stays float.
+
+``sliding_window`` and ``attn_logit_softcap`` are honored where the
+kernels take them: ``forward`` and ``prefill_with_kv`` (K4, and K9 + K10
+in the backward) and ``decode_step`` (K1 in decode mode).  The packed,
+chunked, verify and paged paths raise ``NotImplementedError`` on either
+before any launch: their kernels (K4 with masks, K1c, K8, K8c) take
+neither.
+
+The serving paths also take ``mlp``, the layer's MLP (default the SwiGLU
+``_block_mlp``): ``models/mixtral.py`` runs them with its routed experts.
 
 The LM head takes fp32 activations as in the JAX model.  A float head
 runs as an fp32 matmul: the first call that needs it stores an fp32 copy
@@ -72,6 +84,14 @@ class LlamaConfig:
     max_position: int = 8192
     dtype: str = "bfloat16"
     tie_embeddings: bool = False
+    # Mistral-style sliding window (the last ``sliding_window`` positions,
+    # self included; None = global) and Gemma-2-style logit softcap
+    # (cap * tanh(s / cap); None = off): see the module docstring for the
+    # paths that honor them
+    sliding_window: int | None = None
+    attn_logit_softcap: float | None = None
+    # Qwen-2's bias on the q/k/v projections (wq/wk/wv become BiasedWeight)
+    qkv_bias: bool = False
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -81,6 +101,11 @@ class LlamaConfig:
 LLAMA3_8B = LlamaConfig()
 LLAMA3_70B = LlamaConfig(
     hidden=8192, intermediate=28672, num_layers=80, num_heads=64, num_kv_heads=8
+)
+QWEN2_7B = LlamaConfig(
+    vocab_size=152064, hidden=3584, intermediate=18944, num_layers=28,
+    num_heads=28, num_kv_heads=4, head_dim=128, rope_theta=1000000.0,
+    rms_eps=1e-6, max_position=32768, qkv_bias=True,
 )
 LLAMA_TINY = LlamaConfig(
     vocab_size=512, hidden=128, intermediate=256, num_layers=2,
@@ -136,20 +161,22 @@ def init_params(cfg: LlamaConfig, seed: int = 0, *, device=None,
     dtype = cfg.torch_dtype
     gen = torch.Generator(device=dev).manual_seed(seed)
 
-    def w(kin, kout):
-        return torch.randn((kin, kout), generator=gen, device=dev,
-                           dtype=dtype) * 0.02
+    def w(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=dtype) * 0.02
 
     q_dim = cfg.num_heads * cfg.head_dim
     kv_dim = cfg.num_kv_heads * cfg.head_dim
     blocks = []
     for _ in range(cfg.num_layers):
         blk = {"attn_norm": torch.ones(cfg.hidden, dtype=dtype, device=dev)}
-        # one projection at a time: quantized before the next is drawn
+        # one projection at a time: quantized before the next is drawn; a
+        # qkv bias is drawn right after its weight
         for name, kin, kout in (
                 ("wq", cfg.hidden, q_dim), ("wk", cfg.hidden, kv_dim),
                 ("wv", cfg.hidden, kv_dim), ("wo", q_dim, cfg.hidden)):
             blk[name] = w(kin, kout)
+            if cfg.qkv_bias and name != "wo":
+                blk[name] = BiasedWeight(blk[name], w(kout))
             if quantize:
                 blk[name] = _quant(blk[name], quantize, group_size)
         blk["mlp_norm"] = torch.ones(cfg.hidden, dtype=dtype, device=dev)
@@ -268,7 +295,20 @@ def _qkv(h, blk, cfg, b, s):
             v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim))
 
 
-def _block_train(x, blk, cfg, cos, sin):
+def _wnd(cfg):
+    """K4's (left, right) window for ``cfg.sliding_window``, or None."""
+    return None if cfg.sliding_window is None else (cfg.sliding_window - 1, -1)
+
+
+def _refuse_local(cfg, path: str):
+    """Raise before any launch when ``path``'s kernels cannot honor the
+    window or the softcap (``ROADMAP.md`` queue B item 3)."""
+    for name in ("sliding_window", "attn_logit_softcap"):
+        if getattr(cfg, name) is not None:
+            raise NotImplementedError(f"{path} with {name} is not ported yet")
+
+
+def _block_train(x, blk, cfg, cos, sin, mlp):
     """One layer of the training forward: causal attention with q rotated
     inside the kernel (online softmax), then the MLP."""
     b, s, _ = x.shape
@@ -276,13 +316,14 @@ def _block_train(x, blk, cfg, cos, sin):
     q, k, v = _qkv(h, blk, cfg, b, s)
     k = rope_rotate(k, cos, sin)
     attn = flash_attention(q.contiguous(), k, v.contiguous(), causal=True,
+                           window=_wnd(cfg), logit_softcap=cfg.attn_logit_softcap,
                            rope_cos=cos, rope_sin=sin)
     x = x + _proj(attn.reshape(b, s, cfg.num_heads * cfg.head_dim), blk["wo"])
-    return _block_mlp(x, blk, cfg)
+    return mlp(x, blk, cfg)
 
 
 def forward(params, tokens, cfg: LlamaConfig, *, positions=None,
-            segment_ids=None, remat: bool = False):
+            segment_ids=None, remat: bool = False, mlp=_block_mlp):
     """tokens [B, S] -> logits [B, S, V] fp32 (training, causal), and
     differentiable w.r.t. every float param.  ``remat`` checkpoints each
     block (``torch.utils.checkpoint``): the backward reruns its forward,
@@ -297,18 +338,18 @@ def forward(params, tokens, cfg: LlamaConfig, *, positions=None,
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     for blk in params["blocks"]:
         if remat:
-            x = checkpoint(_block_train, x, blk, cfg, cos, sin, use_reentrant=False)
+            x = checkpoint(_block_train, x, blk, cfg, cos, sin, mlp, use_reentrant=False)
         else:
-            x = _block_train(x, blk, cfg, cos, sin)
+            x = _block_train(x, blk, cfg, cos, sin, mlp)
     x = _rms_norm(x, params["final_norm"], cfg.rms_eps)
     head = params["tok_emb"].T if cfg.tie_embeddings else params["lm_head"]
     return _proj(x.float(), head)
 
 
-def prefill_with_kv(params, tokens, positions, cfg: LlamaConfig):
+def prefill_with_kv(params, tokens, positions, cfg: LlamaConfig, *, mlp=_block_mlp):
     """tokens, positions [B, S] -> (logits [B, S, V] fp32, per-layer list
     of rotated (k, v) [B, S, Hk, D]).  Attention is K4, causal and clamped,
-    with q rotated inside the kernel."""
+    with q rotated inside the kernel, the window and the softcap."""
     b, s = tokens.shape
     x = params["tok_emb"][tokens]
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
@@ -319,11 +360,11 @@ def prefill_with_kv(params, tokens, positions, cfg: LlamaConfig):
         k = rope_rotate(k, cos, sin)
         kvs.append((k, v))
         attn = flash_attention(q.contiguous(), k, v.contiguous(), causal=True,
-                               rope_cos=cos, rope_sin=sin,
-                               softmax_mode="clamped")
+                               window=_wnd(cfg), logit_softcap=cfg.attn_logit_softcap,
+                               rope_cos=cos, rope_sin=sin, softmax_mode="clamped")
         x = x + _proj(attn.reshape(b, s, cfg.num_heads * cfg.head_dim),
                       blk["wo"])
-        x = _block_mlp(x, blk, cfg)
+        x = mlp(x, blk, cfg)
     x = _rms_norm(x, params["final_norm"], cfg.rms_eps)
     return _logits(params, x, cfg), kvs
 
@@ -337,6 +378,7 @@ def prefill_chunk(params, tokens, cfg: LlamaConfig, cache: KVCache, slot: int,
     at its index; no causal flag), clamped, q rotated in the kernel: K4
     skips the key tiles past the chunk, so the cache is not sliced.
     Returns (logits [1, C, V] fp32, cache), the cache updated in place."""
+    _refuse_local(cfg, "prefill_chunk")
     b, c = tokens.shape
     dev = tokens.device
     x = params["tok_emb"][tokens]
@@ -358,13 +400,15 @@ def prefill_chunk(params, tokens, cfg: LlamaConfig, cache: KVCache, slot: int,
     return _logits(params, x, cfg), cache
 
 
-def prefill_packed(params, tokens, positions, segment_ids, cfg: LlamaConfig):
+def prefill_packed(params, tokens, positions, segment_ids, cfg: LlamaConfig, *,
+                   mlp=_block_mlp):
     """Packed multi-prompt prefill: several prompts concatenated in one
     [1, T] row, ``positions`` restarting at 0 a prompt (RoPE's positions
     too) and ``segment_ids`` 1, 2, ... a prompt (0 padding).  Attention is
     K4 with segment ids and positions (per-prompt causality; no causal
     flag), clamped, q rotated in the kernel.  Returns (logits [1, T, V]
     fp32, per-layer list of rotated (k, v) [1, T, Hk, D])."""
+    _refuse_local(cfg, "prefill_packed")
     b, t = tokens.shape
     x = params["tok_emb"][tokens]
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
@@ -379,15 +423,16 @@ def prefill_packed(params, tokens, positions, segment_ids, cfg: LlamaConfig):
                                q_positions=positions, kv_positions=positions,
                                rope_cos=cos, rope_sin=sin, softmax_mode="clamped")
         x = x + _proj(attn.reshape(b, t, cfg.num_heads * cfg.head_dim), blk["wo"])
-        x = _block_mlp(x, blk, cfg)
+        x = mlp(x, blk, cfg)
     x = _rms_norm(x, params["final_norm"], cfg.rms_eps)
     return _logits(params, x, cfg), kvs
 
 
-def decode_step(params, token, cfg: LlamaConfig, cache: KVCache):
+def decode_step(params, token, cfg: LlamaConfig, cache: KVCache, *, mlp=_block_mlp):
     """One cached decode step for every slot: token [B] -> (logits [B, V]
     fp32, cache).  The cache is updated in place (K2 appends each layer's
-    K/V at ``length``, then ``length`` advances by one)."""
+    K/V at ``length``, then ``length`` advances by one); K1 attends with
+    the window and the softcap."""
     b = token.shape[0]
     x = params["tok_emb"][token][:, None, :]  # [B, 1, hidden]
     cos, sin = rope_cos_sin(cache.length[:, None], cfg.head_dim, cfg.rope_theta)
@@ -400,22 +445,25 @@ def decode_step(params, token, cfg: LlamaConfig, cache: KVCache):
         cache.append(i, k, v)
         kc, vc, ks, vs = cache.layer(i)
         attn = flash_decode(q[:, 0], kc, vc, k_scale=ks, v_scale=vs,
-                            kv_length=kv_length, kv_layout="bhsd")
+                            kv_length=kv_length, kv_layout="bhsd",
+                            window=cfg.sliding_window,
+                            logit_softcap=cfg.attn_logit_softcap)
         x = x + _proj(attn.reshape(b, 1, cfg.num_heads * cfg.head_dim),
                       blk["wo"])
-        x = _block_mlp(x, blk, cfg)
+        x = mlp(x, blk, cfg)
     cache.advance(1)
     x = _rms_norm(x[:, 0], params["final_norm"], cfg.rms_eps)
     return _logits(params, x, cfg), cache
 
 
-def decode_multi(params, tokens, cfg: LlamaConfig, cache: KVCache):
+def decode_multi(params, tokens, cfg: LlamaConfig, cache: KVCache, *, mlp=_block_mlp):
     """T cached decode tokens per sequence in one pass, the speculative
     verify step: tokens [B, T] -> (logits [B, T, V] fp32, cache).  Per
     layer the chunk's K/V is appended at ``length`` first, then its T
     queries attend to the cache through K1c, the chunk kernel (one cache
     sweep, causal within the chunk); ``length`` advances by T after the
     last layer.  The cache is updated in place."""
+    _refuse_local(cfg, "decode_multi")
     b, t = tokens.shape
     x = params["tok_emb"][tokens]  # [B, T, hidden]
     pos = cache.length[:, None] + torch.arange(t, device=tokens.device)[None]
@@ -431,18 +479,20 @@ def decode_multi(params, tokens, cfg: LlamaConfig, cache: KVCache):
         attn = flash_decode_chunk(q, kc, vc, k_scale=ks, v_scale=vs,
                                   kv_length=kv_length, kv_layout="bhsd")
         x = x + _proj(attn.reshape(b, t, cfg.num_heads * cfg.head_dim), blk["wo"])
-        x = _block_mlp(x, blk, cfg)
+        x = mlp(x, blk, cfg)
     cache.advance(t)
     x = _rms_norm(x, params["final_norm"], cfg.rms_eps)
     return _logits(params, x, cfg), cache
 
 
-def decode_step_paged(params, token, cfg: LlamaConfig, pool: PagedKVPool):
+def decode_step_paged(params, token, cfg: LlamaConfig, pool: PagedKVPool, *,
+                      mlp=_block_mlp):
     """One decode step for every slot against a paged pool: token [B] ->
     (logits [B, V] fp32, pool).  Per layer the token's K/V is appended at
     ``length``, then attention (K8, decode mode) sees ``length + 1``
     positions; ``length`` advances once after the last layer.  The pool
     is updated in place."""
+    _refuse_local(cfg, "decode_step_paged")
     b = token.shape[0]
     x = params["tok_emb"][token][:, None, :]
     cos, sin = rope_cos_sin(pool.length[:, None], cfg.head_dim, cfg.rope_theta)
@@ -456,7 +506,7 @@ def decode_step_paged(params, token, cfg: LlamaConfig, pool: PagedKVPool):
         attn = paged_decode_attention(pool, i, q[:, 0].contiguous(),
                                       kv_length=kv_length)
         x = x + _proj(attn.reshape(b, 1, cfg.num_heads * cfg.head_dim), blk["wo"])
-        x = _block_mlp(x, blk, cfg)
+        x = mlp(x, blk, cfg)
     pool.advance(1)
     x = _rms_norm(x[:, 0], params["final_norm"], cfg.rms_eps)
     return _logits(params, x, cfg), pool
@@ -472,6 +522,7 @@ def prefill_suffix_paged(params, tokens, cfg: LlamaConfig, pool: PagedKVPool,
     KV streams from its pages and is never recomputed.  The pieces set M in
     every projection, as in the JAX model.  Returns (logits [1, C, V]
     fp32, pool)."""
+    _refuse_local(cfg, "prefill_suffix_paged")
     b, c = tokens.shape
     table = pool.block_table[slot:slot + 1]
     parts = []
@@ -529,3 +580,82 @@ def make_adapter(cfg: LlamaConfig, *, eos_token=None):
         head_dim=cfg.head_dim,
         eos_token=eos_token,
     )
+
+
+def _hf_reader(model, dtype: str, device):
+    """(HF config, state-dict names, getter) for a torch HF model: the
+    getter returns the named entry as ``dtype`` on ``device``, transposed
+    ([out, in] -> [in, out]) unless ``transpose`` is false."""
+    sd = model.state_dict()
+    dev = resolve_device(device)
+    dt = _DTYPES[dtype]
+
+    def arr(name, transpose=True):
+        t = sd[name].detach().to(device=dev, dtype=dt)
+        return (t.T if transpose else t).contiguous()
+
+    return model.config, set(sd), arr
+
+
+def convert_hf_model(model, dtype="bfloat16", device=None):
+    """A torch HF ``LlamaForCausalLM`` or ``Qwen2ForCausalLM`` (its config
+    and state dict) -> (params, LlamaConfig) on ``device`` (default: the
+    card), as flash_attn_tpu/models/llama.py:convert_hf_model maps it:
+    ``qkv_bias`` from the presence of q_proj's bias, and a tied head
+    (``tie_word_embeddings``) as the embedding transposed.  Imports no
+    ``transformers``: it reads the model it is given."""
+    hf, names, arr = _hf_reader(model, dtype, device)
+    cfg = LlamaConfig(
+        vocab_size=hf.vocab_size,
+        hidden=hf.hidden_size,
+        intermediate=hf.intermediate_size,
+        num_layers=hf.num_hidden_layers,
+        num_heads=hf.num_attention_heads,
+        num_kv_heads=hf.num_key_value_heads,
+        head_dim=hf.hidden_size // hf.num_attention_heads,
+        rope_theta=float(getattr(hf, "rope_theta", 500000.0)),
+        rms_eps=float(hf.rms_norm_eps),
+        max_position=hf.max_position_embeddings,
+        dtype=dtype,
+        tie_embeddings=bool(getattr(hf, "tie_word_embeddings", False)),
+        qkv_bias="model.layers.0.self_attn.q_proj.bias" in names,
+    )
+
+    def proj(name):
+        w = arr(name + ".weight")
+        if cfg.qkv_bias and name + ".bias" in names:
+            return BiasedWeight(w, arr(name + ".bias", transpose=False))
+        return w
+
+    blocks = []
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}."
+        blocks.append({
+            "attn_norm": arr(p + "input_layernorm.weight", transpose=False),
+            "wq": proj(p + "self_attn.q_proj"),
+            "wk": proj(p + "self_attn.k_proj"),
+            "wv": proj(p + "self_attn.v_proj"),
+            "wo": arr(p + "self_attn.o_proj.weight"),
+            "mlp_norm": arr(p + "post_attention_layernorm.weight", transpose=False),
+            "w_gate": arr(p + "mlp.gate_proj.weight"),
+            "w_up": arr(p + "mlp.up_proj.weight"),
+            "w_down": arr(p + "mlp.down_proj.weight"),
+        })
+    emb = arr("model.embed_tokens.weight", transpose=False)
+    params = {
+        "tok_emb": emb,
+        "blocks": blocks,
+        "final_norm": arr("model.norm.weight", transpose=False),
+        "lm_head": emb.T if cfg.tie_embeddings else arr("lm_head.weight"),
+    }
+    return params, cfg
+
+
+def load_hf(model_name: str, dtype="bfloat16", device=None):
+    """Download a HF Llama-family checkpoint and convert it
+    (``convert_hf_model``).  Needs ``transformers`` and the network."""
+    from transformers import AutoModelForCausalLM
+
+    model = AutoModelForCausalLM.from_pretrained(
+        model_name, torch_dtype=torch.float32, low_cpu_mem_usage=True)
+    return convert_hf_model(model, dtype=dtype, device=device)
