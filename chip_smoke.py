@@ -1248,7 +1248,7 @@ def k4_tile_counts(torch, checks, label, q, k, v, cos, sin, causal, masks):
     _build.check(_build.lib().fatt_flash_fwd(
         p(q), p(k), p(v), p(cos), p(sin), p(out), p(lse), p(qmeta), p(kmeta), p(qr), p(kr),
         p(counts), B, Sq, Sk, H, Hk, D, 0, float(D ** -0.5 * ff.LOG2E), int(causal), 1,
-        -1, -1, 0.0, _build.stream()), "fatt_flash_fwd")
+        -1, -1, 0.0, *ff.extra_args(None, None), _build.stream()), "fatt_flash_fwd")
     live, full = tile_test(qr, kr, causal, Sq, Sk)
     got, want = counts.tolist(), [int(live.sum()), int(full.sum())]
     if got != want:
@@ -1321,7 +1321,7 @@ def check_k4_masked(torch, checks, rows):
                 _build.check(lib.fatt_flash_fwd(
                     p(q), p(k), p(v), p(cos), p(sin), p(o2), p(l2), p(qmeta), p(kmeta), p(qr),
                     p(kr), None, 1, Sq, Sk, H, Hk, D, 0, float(D ** -0.5 * ff.LOG2E), 0, 1,
-                    -1, -1, 0.0, _build.stream()), "fatt_flash_fwd")
+                    -1, -1, 0.0, *ff.extra_args(None, None), _build.stream()), "fatt_flash_fwd")
 
             kernel()
             torch.cuda.synchronize()
@@ -1475,13 +1475,14 @@ def sdpa_bwd_device_ms(torch, fn, calls=10):
     return (us / calls / 1e3 if us > 0 else None), backend, names
 
 
-def _bwd_case(torch, checks, worst, label, args, tail, causal):
+def _bwd_case(torch, checks, worst, label, args, tail, causal, dq_floor=None):
     """K9 and K10 each launched twice, on ``args`` and on K9's R(q) with
     ``tail``, against flash_bwd_plain (through bwd_plain): every output row
     within its tolerance (``row_err``; dq rows of queries that see one key
-    with ``one_key_floor``), R(q) bitwise rope_rotate's, the second launch
-    bitwise the first.  Adds each kernel's max |err| into ``worst``;
-    returns (dq, rq, dk, dv, {kernel: its result text})."""
+    with ``one_key_floor``, or ``dq_floor(reference dq)`` where given), R(q) bitwise
+    rope_rotate's, the second launch bitwise the first.  Adds each
+    kernel's max |err| into ``worst``; returns (dq, rq, dk, dv, {kernel:
+    its result text})."""
     from flash_attn_tpu_torch.ops import flash_bwd as fb
     from flash_attn_tpu_torch.ops.rope import rope_rotate
 
@@ -1496,7 +1497,8 @@ def _bwd_case(torch, checks, worst, label, args, tail, causal):
     if not rq_ok:
         checks.failed.append(f"K9 {label}: R(q) differs from rope_rotate")
     res = {}
-    floors = {"dq": one_key_floor(torch, rdq, k.shape[1], causal)}
+    floors = {"dq": one_key_floor(torch, rdq, k.shape[1], causal) if dq_floor is None
+              else dq_floor(rdq)}
     for key, outs in (("K9", ((dq, rdq, "dq"),)), ("K10", ((dk, rdk, "dk"), (dv, rdv, "dv")))):
         parts = []
         for got, ref, name in outs:
@@ -1974,10 +1976,21 @@ def _head_groups(B, Sq, Sk, H, Hk):
     return [slice(h, min(h + per, H)) for h in range(0, H, per)]
 
 
+def _group_tail(tail, hs, bias_at):
+    """``tail`` (the arguments after the tensors split by heads) for query
+    heads ``hs``: the bias ([B, H, Sq, Sk] view, at ``bias_at``) sliced
+    alike."""
+    tail = list(tail)
+    if len(tail) > bias_at and tail[bias_at] is not None:
+        tail[bias_at] = tail[bias_at][:, hs]
+    return tail
+
+
 def fwd_plain(args):
     """flash_fwd_plain on ``args`` (flash_fwd_cuda's), over groups of
     whole GQA groups of query heads (_head_groups): each head's values are
-    the one call's, in a fraction of the memory."""
+    the one call's, in a fraction of the memory (a bias sliced by heads,
+    dropout keyed on each head's own index)."""
     import torch
 
     from flash_attn_tpu_torch.ops import flash_fwd as ff
@@ -1990,7 +2003,9 @@ def fwd_plain(args):
         return ff.flash_fwd_plain(*args)
     G = H // Hk
     outs = [ff.flash_fwd_plain(q[:, :, hs], k[:, :, hs.start // G:hs.stop // G],
-                               v[:, :, hs.start // G:hs.stop // G], *args[3:]) for hs in parts]
+                               v[:, :, hs.start // G:hs.stop // G], *_group_tail(args[3:], hs, 8),
+                               head0=hs.start)
+            for hs in parts]
     return torch.cat([o for o, _ in outs], dim=2), torch.cat([x for _, x in outs], dim=1)
 
 
@@ -2012,7 +2027,8 @@ def bwd_plain(args):
     for hs in parts:
         ks = slice(hs.start // G, hs.stop // G)
         outs.append(fb.flash_bwd_plain(q[:, :, hs], k[:, :, ks], v[:, :, ks], dout[:, :, hs],
-                                       lse[:, hs], delta[:, hs], *args[6:]))
+                                       lse[:, hs], delta[:, hs], *_group_tail(args[6:], hs, 7),
+                                       head0=hs.start))
     return (torch.cat([x[0] for x in outs], dim=2), torch.cat([x[1] for x in outs], dim=1),
             torch.cat([x[2] for x in outs], dim=1))
 
@@ -2806,6 +2822,457 @@ def check_qwen2(torch, checks, rows):
                    ms=(8, 512), biased=QWEN_GEMMS[:2])
 
 
+# --- the FA2 options of the C ABI: an additive bias, dropout, segment ids ---
+# --- and positions in K4, K9 and K10 (the kExtra and kOpt instances) -------
+
+# phase 18's varlen calls: 8 sequences packed in 8192 tokens; phase 19's
+# documents packed in one 2048-token row; the dropout of both phases
+ABI_LENS = (2048, 1536, 1280, 1024, 896, 640, 512, 256)
+# varlen at GPT-2's widths: 8 sequences of at most its 1024 positions
+GPT2_LENS = (1024, 896, 640, 512, 512, 256, 192, 64)
+PACKED_DOCS = (1024, 512, 320, 192)
+DROP_RATE, DROP_SEED = 0.1, 1234
+
+
+def _cu(torch, lens):
+    """[len + 1] int32 prefix sums of ``lens`` on the card."""
+    import itertools
+
+    return torch.tensor([0, *itertools.accumulate(lens)], dtype=torch.int32, device="cuda")
+
+
+def _varlen_masks(torch, lens):
+    """The masks the varlen entry points give K4, K9 and K10 for sequences
+    ``lens`` packed in one row, causal in each (``varlen_segments``:
+    segment ids and positions, no causal flag)."""
+    from flash_attn_tpu_torch.ops import flash_fwd as ff
+    from flash_attn_tpu_torch.ops.attention import varlen_segments
+
+    cu = _cu(torch, lens)
+    qs, ks, qp, kp, _ = varlen_segments(cu, cu, sum(lens), sum(lens), True)
+    return ff.Masks(qs, ks, qp, kp)
+
+
+def _packed_docs(torch, docs, device="cuda"):
+    """([1, S] segment ids 1, 2, ... a document, [1, S] positions
+    restarting at 0 a document) of documents ``docs`` packed in one row."""
+    seg = torch.cat([torch.full((n,), i + 1, dtype=torch.int32) for i, n in enumerate(docs)])
+    pos = torch.cat([torch.arange(n) for n in docs])
+    return seg[None].to(device), pos[None].to(device)
+
+
+def _rand_bias(torch, g, shape, dead_row=3):
+    """An fp32 bias N(0, 1) of ``shape``, a sixteenth of its entries -inf
+    and, where it has rows, the whole row ``dead_row``."""
+    b = torch.randn(shape, generator=g, device="cuda")
+    b = b.masked_fill(torch.rand(shape, generator=g, device="cuda") < 1 / 16, float("-inf"))
+    if len(shape) >= 2 and dead_row is not None:
+        b[..., dead_row, :] = float("-inf")
+    return b
+
+
+def _live_keys(torch, masks, causal, Sq, Sk, bias, H):
+    """[B, Sq, H] live keys a query: the masks' pairs whose bias is
+    finite."""
+    from flash_attn_tpu_torch.ops import flash_fwd as ff
+
+    live = ff.live_pairs(masks, causal, Sq, Sk, "cuda")
+    if bias is None:
+        return live.sum(-1)[..., None].expand(-1, -1, H)
+    if bias.stride(1) == 0:
+        return (live & torch.isfinite(bias[:, 0])).sum(-1)[..., None].expand(-1, -1, H)
+    return torch.stack([(live & torch.isfinite(bias[:, h])).sum(-1) for h in range(H)], -1)
+
+
+def _bias_bytes(torch, b4, live):
+    """(once, per_head): the bytes of the fp32 bias ``b4`` ([B, H, Sq, Sk]
+    view) at the pairs ``live`` ([B or 1, Sq, Sk]) keeps, each distinct
+    entry once, and once for every (batch, query head) that reads it."""
+    if b4 is None:
+        return 0, 0
+    B, H = b4.shape[:2]
+    live = live.expand(B, -1, -1)
+    per_head = 4 * H * int(live.sum())
+    once = live
+    for axis, dim in ((0, 0), (2, 1), (3, 2)):
+        if b4.stride(axis) == 0:
+            once = once.any(dim, keepdim=True)
+    return 4 * int(once.sum()) * (1 if b4.stride(1) == 0 else H), per_head
+
+
+def _opt_label(B, Sq, Sk, H, Hk, D, causal, masks, bias, dropout, what=""):
+    return (f"B={B}, " + (f"S={Sq}" if Sq == Sk else f"Sq={Sq}, Sk={Sk}") + f", H={H}, Hk={Hk}, "
+            f"D={D}, {'causal' if causal else 'not causal'}"
+            + (f", {what}" if what else "")
+            + (f", bias {list(bias.shape) if bias.dim() < 4 else 'view'}"
+               if bias is not None else "")
+            + (f", dropout {dropout.rate} seed {dropout.seed}" if dropout is not None else ""))
+
+
+def _k4_opt_case(torch, checks, label, q, k, v, causal, masks, bias, dropout):
+    """K4's kExtra instance (its masked twin with masks) launched twice on
+    these options against its plain version (fwd_plain): each out row
+    within two bf16 ulps of its largest, the LSE of live rows to 1e-3,
+    rows with no live key (every key masked or -inf) out 0 and lse -1e30,
+    the second launch bitwise the first.  ``bias``: as flash_fwd takes it
+    (any shape that broadcasts).  Returns (max |err|, K4's arguments)."""
+    from flash_attn_tpu_torch.ops import flash_fwd as ff
+
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    args = (q, k, v, causal, D ** -0.5, None, None, False, masks, None, None,
+            ff.bias4(bias, B, H, Sq, Sk), dropout)
+    (out, lse), (out2, lse2) = ff.flash_fwd_cuda(*args), ff.flash_fwd_cuda(*args)
+    rout, rlse = fwd_plain(args)
+    torch.cuda.synchronize()
+    err, share = row_err(out, rout)
+    live = rlse > -1e29
+    lerr = float((lse - rlse).abs()[live].max())
+    dead = ~live
+    dead_ok = bool((lse[dead] == -1e30).all() and (out.transpose(1, 2)[dead] == 0).all())
+    same = torch.equal(out, out2) and torch.equal(lse, lse2)
+    ok = checks.check(f"K4 {label} out", share, 1.0) & checks.check(f"K4 {label} lse", lerr, 1e-3)
+    if not dead_ok:
+        checks.failed.append(f"K4 {label}: a row with no live key is not out 0 / lse -1e30")
+    if not same:
+        checks.failed.append(f"K4 {label}: two launches differ")
+    say(f"  K4 {label}: max_abs_err {err:.3e} ({share:.3f} of its row's tol), lse err "
+        f"{lerr:.3e} (tol 1e-3), {int(dead.sum())} dead rows out 0 and lse -1e30 {dead_ok}, "
+        f"bitwise repeat {same} {'ok' if ok and dead_ok and same else 'FAIL'}")
+    del out, lse, out2, lse2, rout, rlse
+    return err, args
+
+
+def _sdpa_mask(torch, masks, causal, Sq, Sk, bias):
+    """SDPA's float attn_mask for these options: the bias ([B or 1, H or 1,
+    Sq, Sk]; 0 without one) plus -inf where the masks kill a pair."""
+    from flash_attn_tpu_torch.ops import flash_fwd as ff
+
+    live = ff.live_pairs(masks, causal, Sq, Sk, "cuda")[:, None]
+    if bias is None:
+        return torch.zeros(live.shape, device="cuda").masked_fill(~live, float("-inf"))
+    b = bias[:, :1] if bias.stride(1) == 0 else bias
+    b = b[:1] if b.stride(0) == 0 else b
+    return b.masked_fill(~live, float("-inf")).contiguous()
+
+
+def _k4_opt_times(torch, args, masks, causal):
+    """The kernel's time (CUDA events), the plain version's, SDPA's with the
+    same float attn_mask and no dropout (SDPA's dropout draws another
+    mask: the same function only where dropout is off), and the bound:
+    q, k, v and out in bf16, the LSE, the masks' metadata and the bias at
+    the pairs the masks keep, read once (also read once a head:
+    ``bound_per_head``), against 4 D flops a pair the masks keep."""
+    import torch.nn.functional as F
+
+    from flash_attn_tpu_torch.ops import flash_fwd as ff
+
+    q, k, v = args[:3]
+    bias = args[11]
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    ms = cuda_ms(torch, lambda: ff.flash_fwd_cuda(*args))
+    plain_ms = cuda_ms(torch, lambda: fwd_plain(args), iters=1, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    fm = _sdpa_mask(torch, masks, causal, Sq, Sk, bias)
+    sdpa_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=fm, scale=D ** -0.5, enable_gqa=True), iters=5)
+    del qt, kt, vt, fm
+    live = ff.live_pairs(masks, causal, Sq, Sk, "cuda")
+    pairs = int(live.sum()) * (1 if masks is not None else B)
+    flops = 4 * D * H * pairs
+    bias_bytes, per_head = _bias_bytes(torch, bias, live)
+    del live
+    meta = 0 if masks is None else (Sq + Sk) * B * 8
+    nbytes = (q.numel() * 2 + k.numel() * 2) * 2 + B * H * Sq * 4 + meta
+    b_ms, b_by = bound(nbytes + bias_bytes, flops)
+    bh_ms, bh_by = bound(nbytes + per_head, flops)
+    return dict(ms=ms, plain_ms=plain_ms, sdpa_mask_ms=sdpa_ms, bound_ms=b_ms, bound_by=b_by,
+                bound_per_head_ms=bh_ms, bound_per_head_by=bh_by, live_pairs=pairs,
+                bias_bytes=bias_bytes)
+
+
+def _say_opt_times(kernel, t):
+    say(f"    {kernel} {t['ms']:.4f} ms ({t.get('tflops', 0.0):.1f} TFLOP/s on "
+        f"{t['live_pairs']} live pairs), plain {t['plain_ms']:.4f}, SDPA with the float mask "
+        f"and no dropout {t['sdpa_mask_ms']:.4f}, bound {t['bound_ms']:.4f} ({t['bound_by']}; "
+        f"the bias read once), {t['bound_per_head_ms']:.4f} ({t['bound_per_head_by']}) with the "
+        f"bias read once a head")
+
+
+def _bwd_opt_case(torch, checks, worst, label, q, k, v, dout, causal, masks, bias, dropout,
+                  cos=None, sin=None, timed=False):
+    """K9's and K10's kOpt instances on these options (out and lse from K4
+    with the same ones) through _bwd_case: each launched twice, against
+    flash_bwd_plain over head groups, dq rows of queries with fewer than
+    two live keys (the masks' pairs with a finite bias) held to the noise
+    floor of one_key_floor.  With ``timed`` the kernels' times (CUDA
+    events), the plain version's, SDPA's backward with the same float
+    attn_mask and no dropout (device time by torch.profiler) and the
+    bounds (3 and 4 products of 2 D flops a live pair; q, k, v, dout in
+    bf16, lse and delta, the bias at the live pairs once, dq or dk and dv
+    per query head in fp32).  Returns the times or None."""
+    import torch.nn.functional as F
+
+    from flash_attn_tpu_torch.ops import flash_bwd as fb
+    from flash_attn_tpu_torch.ops import flash_fwd as ff
+    from flash_attn_tpu_torch.ops.rope import rope_rotate
+
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    scale = D ** -0.5
+    b4 = ff.bias4(bias, B, H, Sq, Sk)
+    out, lse = ff.flash_fwd_cuda(q, k, v, causal, scale, cos, sin, False, masks, None, None, b4,
+                                 dropout)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    del out
+    args = (q, k, v, dout, lse, delta, causal, scale, cos, sin, None, None, masks, b4, dropout)
+    tail = (k, v, dout, lse, delta, causal, scale, None, None, masks, b4, dropout)
+    counts = _live_keys(torch, masks, causal, Sq, Sk, b4, H)
+
+    def floor(rdq):
+        return torch.where(counts < 2, 2.0 ** -12 * float(rdq.abs().max()), 1e-6)
+
+    dq, rq, dk, dv, res = _bwd_case(torch, checks, worst, label, args, tail, causal, floor)
+    say(f"  K9 {label}: {res['K9']}")
+    say(f"  K10 {label}: {res['K10']}")
+    del dq, dk, dv
+    if not timed:
+        return None
+    kargs = (rq, *tail)
+    ms9 = cuda_ms(torch, lambda: fb.flash_bwd_dq_cuda(*args))
+    ms10 = cuda_ms(torch, lambda: fb.flash_bwd_dkv_cuda(*kargs))
+    plain_ms = cuda_ms(torch, lambda: bwd_plain(args), iters=1, warmup=1)
+    qt = (q if cos is None else rope_rotate(q, cos, sin)).transpose(1, 2).contiguous()
+    qt.requires_grad_(True)
+    kt = k.transpose(1, 2).contiguous().requires_grad_(True)
+    vt = v.transpose(1, 2).contiguous().requires_grad_(True)
+    fm = _sdpa_mask(torch, masks, causal, Sq, Sk, b4)
+    o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=fm, scale=scale, enable_gqa=True)
+    do_t = dout.transpose(1, 2).contiguous()
+
+    def lib_call():
+        return torch.autograd.grad(o, (qt, kt, vt), do_t, retain_graph=True)
+    sdpa_ms, backend, names = sdpa_bwd_device_ms(torch, lib_call, calls=3)
+    del qt, kt, vt, o, fm
+    live = ff.live_pairs(masks, causal, Sq, Sk, "cuda")
+    pairs = int(live.sum()) * (1 if masks is not None else B)
+    gemm = 2 * D * H * pairs
+    bias_bytes = _bias_bytes(torch, b4, live)[0]
+    del live
+    meta = 0 if masks is None else (Sq + Sk) * B * 8
+    ins = (q.numel() + dout.numel() + k.numel() + v.numel()) * 2 + lse.numel() * 8 + bias_bytes
+    b9 = bound(ins + meta + q.numel() * 4, 3 * gemm)
+    b10 = bound(ins + meta + 2 * B * H * Sk * D * 4, 4 * gemm)
+    sdpa = "not measured" if sdpa_ms is None else f"{sdpa_ms:.4f}"
+    say(f"    K9 {ms9:.4f} ms ({3 * gemm / ms9 / 1e9:.1f} TFLOP/s on {pairs} live pairs), bound "
+        f"{b9[0]:.4f} ({b9[1]}); K10 {ms10:.4f} ms ({4 * gemm / ms10 / 1e9:.1f} TFLOP/s), bound "
+        f"{b10[0]:.4f} ({b10[1]}); plain (both passes) {plain_ms:.4f}; SDPA's backward with the "
+        f"float mask and no dropout, device time {sdpa} (backend {backend}: "
+        f"{', '.join(names)[:200]})")
+    return {"K9": dict(ms=ms9, plain_ms=plain_ms, bound_ms=b9[0], bound_by=b9[1],
+                       sdpa_mask_ms=sdpa_ms),
+            "K10": dict(ms=ms10, plain_ms=plain_ms, bound_ms=b10[0], bound_by=b10[1],
+                        sdpa_mask_ms=sdpa_ms)}
+
+
+def check_dropout_readout(torch, checks):
+    """K4's and K10's dropout read out bit for bit.  q = k = 0, so P is
+    uniform over the live keys; a bias keeps the D keys from c0 (-inf on
+    the others); V is one-hot on those keys, so K4's out[i, j] = keep(i,
+    c0 + j) / (D (1 - rate)): nonzero exactly where dropout_keep_mask
+    keeps (i, c0 + j).  K10, with dout one-hot on the D query rows from
+    r0, writes dv[c0 + kk, j] = keep(r0 + j, c0 + kk) / (D (1 - rate)) per
+    query head.  B=2, S=8192, H=4, Hk=2, D=128, not causal, rate 0.1,
+    three (c0, r0), every (b, h): the mismatches must be 0."""
+    from flash_attn_tpu_torch.ops import flash_bwd as fb
+    from flash_attn_tpu_torch.ops import flash_fwd as ff
+
+    B, S, H, Hk, D = 2, 8192, 4, 2, 128
+    drop = ff.Dropout(DROP_RATE, DROP_SEED)
+    q = torch.zeros((B, S, H, D), device="cuda", dtype=torch.bfloat16)
+    k = torch.zeros((B, S, Hk, D), device="cuda", dtype=torch.bfloat16)
+    eye = torch.eye(D, device="cuda", dtype=torch.bfloat16)
+    bad4 = bad10 = n4 = n10 = 0
+    for c0, r0 in ((0, 0), (1000, 4000), (S - D - 5, S - D)):
+        bias = torch.full((S,), float("-inf"), device="cuda")
+        bias[c0:c0 + D] = 0.0
+        b4 = ff.bias4(bias, B, H, S, S)
+        v = torch.zeros((B, S, Hk, D), device="cuda", dtype=torch.bfloat16)
+        v[:, c0:c0 + D] = eye[:, None, :]
+        out, lse = ff.flash_fwd_cuda(q, k, v, False, D ** -0.5, None, None, False, None, None,
+                                     None, b4, drop)
+        dout = torch.zeros_like(q)
+        dout[:, r0:r0 + D] = eye[:, None, :]
+        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        _, dv = fb.flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, False, D ** -0.5, None, None,
+                                      None, b4, drop)
+        for b in range(B):
+            for h in range(H):
+                want = ff.dropout_keep_mask(DROP_SEED, b, h, 0, c0, S, D, DROP_RATE, "cuda")
+                bad4 += int(((out[b, :, h] != 0) != want).sum())
+                n4 += want.numel()
+                want = ff.dropout_keep_mask(DROP_SEED, b, h, r0, c0, D, D, DROP_RATE, "cuda")
+                bad10 += int(((dv[b, h, c0:c0 + D] != 0).T != want).sum())
+                n10 += want.numel()
+        del out, lse, dout, delta, dv, v
+    ok = checks.check("K4 dropout readout mismatches", bad4, 0) & checks.check(
+        "K10 dropout readout mismatches", bad10, 0)
+    say(f"  dropout readout (B={B}, S={S}, H={H}, Hk={Hk}, D={D}, rate {DROP_RATE}, seed "
+        f"{DROP_SEED}; c0 0, 1000, {S - D - 5}): K4 out != 0 against dropout_keep_mask, "
+        f"{bad4} of {n4} elements differ; K10 dv (dout one-hot on rows 0, 4000, {S - D}), "
+        f"{bad10} of {n10} differ {'ok' if ok else 'FAIL'}")
+    return dict(k4_elements=n4, k4_mismatches=bad4, k10_elements=n10, k10_mismatches=bad10)
+
+
+def check_extra_neutral(torch, checks):
+    """The new instances with neutral options against the instances they
+    sit beside, at the Llama training shape (B=1, S=2048, H=32, Hk=8,
+    causal): K4's kExtra instance with a zero bias against the plain K4
+    instance, K9's and K10's kOpt instances with a zero bias against
+    theirs.  Adding 0 and clamping at -1e30 changes no score, so the
+    outputs must be bitwise equal."""
+    from flash_attn_tpu_torch.ops import flash_bwd as fb
+    from flash_attn_tpu_torch.ops import flash_fwd as ff
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 70)
+    B, S, H, Hk, D = 1, 2048, 32, 8, 128
+    q = torch.randn((B, S, H, D), generator=g, device="cuda", dtype=torch.bfloat16)
+    k = torch.randn((B, S, Hk, D), generator=g, device="cuda", dtype=torch.bfloat16)
+    v = torch.randn((B, S, Hk, D), generator=g, device="cuda", dtype=torch.bfloat16)
+    dout = torch.randn((B, S, H, D), generator=g, device="cuda", dtype=torch.bfloat16)
+    zero = ff.bias4(torch.zeros((S, S), device="cuda"), B, H, S, S)
+    base = (q, k, v, True, D ** -0.5, None, None, False)
+    o1, l1 = ff.flash_fwd_cuda(*base)
+    o2, l2 = ff.flash_fwd_cuda(*base, None, None, None, zero)
+    delta = (dout.float() * o1.float()).sum(-1).transpose(1, 2).contiguous()
+    bargs = (q, k, v, dout, l1, delta, True, D ** -0.5, None, None)
+    g1 = fb.flash_bwd_cuda(*bargs)
+    g2 = fb.flash_bwd_cuda(*bargs, None, None, None, zero)
+    same = {"K4": torch.equal(o1, o2) and torch.equal(l1, l2),
+            "K9": torch.equal(g1[0], g2[0]),
+            "K10": torch.equal(g1[1], g2[1]) and torch.equal(g1[2], g2[2])}
+    for key, eq in same.items():
+        if not eq:
+            checks.failed.append(f"{key}: the new instance with a zero bias differs from the "
+                                 "instance beside it")
+    say(f"  new instances with a zero bias against the ones beside them (B={B}, S={S}, H={H}, "
+        f"Hk={Hk}, D={D}, causal): bitwise " + ", ".join(f"{k_} {v_}" for k_, v_ in same.items()))
+
+
+def check_fa2_options(torch, checks, rows):
+    """K4's kExtra instances (bias, dropout; with and without segment ids
+    and positions) and K9's and K10's kOpt instances (segment ids,
+    positions, bias, dropout) at head_dim 128 and 64 against their plain
+    versions (rows "K4 opt", "K9 opt", "K10 opt": phase 18's varlen call,
+    8 sequences in 8192 tokens at Llama-3-8B's attention widths, causal in
+    each, a [8192, 8192] mask and dropout 0.1; sub-points: the same
+    without the mask, with the segments alone, the dense call (B=2, S=2048, a [2, 1, 2048, 2048]
+    mask, dropout), the bias alone (where SDPA computes the same function),
+    GPT-2's widths dense (B=4, S=1024, H=Hk=12, D=64) and varlen (8
+    sequences in 4096 tokens, GPT2_LENS, with a [4096, 4096] mask and
+    dropout, and with the segments alone)), the backward also
+    at phase 19's packed documents with rope and at a ragged non-causal
+    Sq=1000 Sk=1500 with a per-head bias; the dropout read out bit for bit
+    (check_dropout_readout); and the new instances with neutral options
+    bitwise the instances beside them (check_extra_neutral)."""
+    from flash_attn_tpu_torch.ops import flash_fwd as ff
+    from flash_attn_tpu_torch.ops.rope import rope_cos_sin
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 71)
+    drop = ff.Dropout(DROP_RATE, DROP_SEED)
+    total = sum(ABI_LENS)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda", dtype=torch.bfloat16)
+
+    vmask = _varlen_masks(torch, ABI_LENS)
+    vmask64, total64 = _varlen_masks(torch, GPT2_LENS), sum(GPT2_LENS)
+    # (key, B, Sq, Sk, H, Hk, D, causal, masks, bias shape, dropout, timed)
+    cases = (
+        ("", 1, total, total, 32, 8, 128, False, vmask, (total, total), drop, True),
+        ("no_mask", 1, total, total, 32, 8, 128, False, vmask, None, drop, True),
+        # the masks alone: K4's masked instance, K9's and K10's kOpt ones
+        # without bias and dropout (what the bias and the hash cost, beside
+        # the two rows above)
+        ("segments", 1, total, total, 32, 8, 128, False, vmask, None, None, True),
+        ("dense", 2, 2048, 2048, 32, 8, 128, True, None, (2, 1, 2048, 2048), drop, True),
+        ("bias", 2, 2048, 2048, 32, 8, 128, True, None, (2, 1, 2048, 2048), None, True),
+        ("d64", 4, 1024, 1024, 12, 12, 64, True, None, (4, 1, 1024, 1024), drop, True),
+        # head_dim 64 with segment ids and positions: K4's kExtra masked
+        # instance, then K4's masked one; K9's and K10's kOpt tile lists
+        ("d64_varlen", 1, total64, total64, 12, 12, 64, False, vmask64, (total64, total64),
+         drop, True),
+        ("d64_segments", 1, total64, total64, 12, 12, 64, False, vmask64, None, None, True),
+        (None, 1, 1000, 1500, 32, 8, 128, False, None, (1, 32, 1000, 1500), drop, False),
+        (None, 2, 1000, 1500, 12, 4, 64, True, None, (1000, 1500), None, False),
+        (None, 1, 891, 891, 32, 8, 128, True, None, None, drop, False),
+    )
+    worst = {"K4 opt": 0.0, "K9 opt": 0.0, "K10 opt": 0.0}
+    k4_rows, bwd_rows = {}, {}
+    for key, B, Sq, Sk, H, Hk, D, causal, masks, bshape, dropout, timed in cases:
+        q, k, v, dout = rnd(B, Sq, H, D), rnd(B, Sk, Hk, D), rnd(B, Sk, Hk, D), rnd(B, Sq, H, D)
+        bias = None if bshape is None else _rand_bias(torch, g, bshape)
+        label = _opt_label(B, Sq, Sk, H, Hk, D, causal, masks, bias, dropout,
+                           "varlen, 8 sequences" if masks is not None else "")
+        err, args = _k4_opt_case(torch, checks, label, q, k, v, causal, masks, bias, dropout)
+        worst["K4 opt"] = max(worst["K4 opt"], err)
+        if timed:
+            t = _k4_opt_times(torch, args, masks, causal)
+            t["tflops"] = 4 * D * H * t["live_pairs"] / t["ms"] / 1e9
+            _say_opt_times("K4", t)
+            k4_rows[key] = t
+        del args
+        bw = {"K9": 0.0, "K10": 0.0}
+        t = _bwd_opt_case(torch, checks, bw, label, q, k, v, dout, causal, masks, bias, dropout,
+                          timed=timed)
+        worst["K9 opt"] = max(worst["K9 opt"], bw["K9"])
+        worst["K10 opt"] = max(worst["K10 opt"], bw["K10"])
+        if timed:
+            bwd_rows[key] = t
+        del q, k, v, dout, bias
+        torch.cuda.empty_cache()
+    # phase 19's packed documents: causal with segment ids and rope (K4's
+    # masked instance, K9's and K10's kOpt instances)
+    S = sum(PACKED_DOCS)
+    seg, pos = _packed_docs(torch, PACKED_DOCS)
+    cos, sin = rope_cos_sin(pos, 128, 500000.0)
+    masks = ff.Masks(seg, seg, None, None)
+    bw = {"K9": 0.0, "K10": 0.0}
+    _bwd_opt_case(torch, checks, bw, f"B=1, S={S}, H=32, Hk=8, D=128, causal, segment ids "
+                  f"(documents {PACKED_DOCS}), rope", rnd(1, S, 32, 128), rnd(1, S, 8, 128),
+                  rnd(1, S, 8, 128), rnd(1, S, 32, 128), True, masks, None, None, cos, sin)
+    worst["K9 opt"] = max(worst["K9 opt"], bw["K9"])
+    worst["K10 opt"] = max(worst["K10 opt"], bw["K10"])
+    readout = check_dropout_readout(torch, checks)
+    check_extra_neutral(torch, checks)
+    torch.cuda.empty_cache()
+    main = f"varlen, 8 sequences in {total} tokens, H=32, Hk=8, D=128, causal in each, a " \
+           f"[{total}, {total}] fp32 mask, dropout {DROP_RATE}"
+    for key, name, ref, parts in (
+            ("K4 opt", "flash_fwd with a bias, dropout, segment ids and positions",
+             "flash_fwd.py:221", k4_rows),
+            ("K9 opt", "flash_bwd dq pass with segment ids, positions, a bias and dropout",
+             "flash_bwd.py:127", {n: t["K9"] for n, t in bwd_rows.items()}),
+            ("K10 opt", "flash_bwd dk/dv pass with segment ids, positions, a bias and dropout",
+             "flash_bwd.py:194", {n: t["K10"] for n, t in bwd_rows.items()})):
+        top = parts[""]
+        rows[key] = dict(
+            name=f"{name} ({main})",
+            source=f"flash_attn_tpu_torch/csrc/{ref.split('.')[0]}.cu",
+            replaces=f"flash_attn_tpu/ops/{ref}", max_abs_err=worst[key], ms=top["ms"],
+            plain_ms=top["plain_ms"], bound_ms=top["bound_ms"], bound_by=top["bound_by"],
+            # SDPA's dropout draws another mask: no library call computes this
+            library_ms=None, sdpa_mask_ms=top["sdpa_mask_ms"],
+            # the bias alone is SDPA's function with the same float mask
+            **{n: dict(t, library_ms=t["sdpa_mask_ms"] if n == "bias" else None)
+               for n, t in parts.items() if n})
+    rows["K4 opt"]["bound_per_head_ms"] = k4_rows[""]["bound_per_head_ms"]
+    rows["K4 opt"]["readout"] = readout
+    say(f"  FA2 options: {time.perf_counter() - t0:.2f}s")
+
+
 def phase_kernels(torch, checks):
     t0 = time.perf_counter()
     rows = {}
@@ -2838,6 +3305,8 @@ def phase_kernels(torch, checks):
     check_qwen2(torch, checks, rows)
     torch.cuda.empty_cache()
     check_k9_k10(torch, checks, rows)
+    torch.cuda.empty_cache()
+    check_fa2_options(torch, checks, rows)
     torch.cuda.empty_cache()
     check_k8(torch, checks, rows)
     torch.cuda.empty_cache()
@@ -3334,6 +3803,21 @@ def _train_fwd(cfg):
     return lambda p, tokens, remat: llama.forward(p, tokens, cfg, remat=remat)
 
 
+def _packed_train_fwd(torch, cfg, docs):
+    """The training forward of documents ``docs`` packed in each row:
+    segment ids 1, 2, ... a document and RoPE positions restarting at 0
+    a document, on the tokens' device."""
+    from flash_attn_tpu_torch.models import llama
+
+    seg, pos = _packed_docs(torch, docs, device="cpu")
+
+    def fwd(p, tokens, remat):
+        b, dev = tokens.shape[0], tokens.device
+        return llama.forward(p, tokens, cfg, positions=pos.expand(b, -1).to(dev),
+                             segment_ids=seg.expand(b, -1).to(dev), remat=remat)
+    return fwd
+
+
 def _train_card_vs_cpu(torch, checks, label, tag, card, fwd, vocab, seq, seed, t0):
     """One training loss and every parameter's gradient (the train step's
     forward and backward, remat on) of ``card`` (bf16 params on the card,
@@ -3384,7 +3868,10 @@ def _train_card_vs_cpu(torch, checks, label, tag, card, fwd, vocab, seq, seed, t
 
 
 def train_card_vs_cpu(torch, checks):
-    """The training check at 2 layers of full 8B widths, S=128."""
+    """The training check at 2 layers of full 8B widths, S=128; then the
+    same with packed documents (phase 19's proportions in 128 tokens:
+    64, 32, 20 and 12, segment ids 1-4, positions restarting a document):
+    K4's masked instance forward, K9's and K10's kOpt instances backward."""
     from flash_attn_tpu_torch.models import llama
 
     t0 = time.perf_counter()
@@ -3392,6 +3879,12 @@ def train_card_vs_cpu(torch, checks):
     card = llama.init_params(cfg, seed=SEED + 13, device="cuda")
     _train_card_vs_cpu(torch, checks, "training: 2 layers at 8B widths", "", card,
                        _train_fwd(cfg), cfg.vocab_size, 128, SEED + 13, t0)
+    t0 = time.perf_counter()
+    card = llama.init_params(cfg, seed=SEED + 72, device="cuda")
+    _train_card_vs_cpu(torch, checks, "packed training: 2 layers at 8B widths, documents "
+                       "(64, 32, 20, 12)", "packed ", card,
+                       _packed_train_fwd(torch, cfg, (64, 32, 20, 12)), cfg.vocab_size, 128,
+                       SEED + 72, t0)
 
 
 # Gemma-2 at 2 layers on the card against the CPU: the window is cut to 512
@@ -3669,9 +4162,11 @@ def _reset_counts():
     wrappers["K4"].d64_launches = wrappers["K1"].d64_launches = k8.d64_launches = 0
     for key in ("K4", "K9", "K10"):
         wrappers[key].local_launches = 0
+    wrappers["K4"].extra_launches = wrappers["K4"].dropout_launches = 0
     for key in ("K9", "K10"):
         wrappers[key].window_launches = wrappers[key].d256_launches = 0
         wrappers[key].d64_launches = 0
+        wrappers[key].opt_launches = wrappers[key].seg_launches = 0
 
 
 def _read_counts() -> dict:
@@ -3684,7 +4179,10 @@ def _read_counts() -> dict:
     "K4", K1's (decode mode), K9's and K10's with a window, at head_dim
     256 and of a kLocal instance, and K1's and K1c's together ("K1 d64")
     and K8's and K8c's together ("K8 d64") at head_dim 64, and K9's and
-    K10's at head_dim 64."""
+    K10's at head_dim 64; K4's launches of a kExtra instance ("K4 extra"),
+    K9's and K10's of a kOpt instance ("K9 opt", "K10 opt") and their
+    segment-id launches ("K9 seg", "K10 seg"), and K4's launches with
+    dropout ("K4 dropout")."""
     wrappers, k8 = _counters()
     counts = {k: fn.launches for k, fn in wrappers.items()}
     k1 = wrappers["K1"]
@@ -3704,11 +4202,15 @@ def _read_counts() -> dict:
     counts["K1 d64"] = k1.d64_launches
     counts["K8 d64"] = k8.d64_launches
     counts["K4 local"] = wrappers["K4"].local_launches
+    counts["K4 extra"] = wrappers["K4"].extra_launches
+    counts["K4 dropout"] = wrappers["K4"].dropout_launches
     for key in ("K9", "K10"):
         counts[f"{key} local"] = wrappers[key].local_launches
         counts[f"{key} window"] = wrappers[key].window_launches
         counts[f"{key} d256"] = wrappers[key].d256_launches
         counts[f"{key} d64"] = wrappers[key].d64_launches
+        counts[f"{key} opt"] = wrappers[key].opt_launches
+        counts[f"{key} seg"] = wrappers[key].seg_launches
     return counts
 
 
@@ -4495,6 +4997,10 @@ def phase_mixtral(torch, checks, smi):
     return runs
 
 
+# each training run's median step (ms), by run label
+STEP_MS = {}
+
+
 def _train_run(torch, checks, smi, run, params, fwd, vocab, seq, seed, want, t1, batch=1,
                bound_ms=None):
     """TRAIN_STEPS AdamW steps (the default TrainConfig: lr 3e-4, weight
@@ -4529,6 +5035,7 @@ def _train_run(torch, checks, smi, run, params, fwd, vocab, seq, seed, want, t1,
     counts = _read_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     step_ms = 1e3 * float(np.median(secs_per_step[1:]))
+    STEP_MS[run] = step_ms
     for key, n in want.items():
         if counts[key] != n:
             checks.failed.append(f"{run}: {key} launched {counts[key]} times, expected {n}")
@@ -4565,6 +5072,282 @@ def phase_train(torch, checks, smi):
     n = TRAIN_LAYERS * TRAIN_STEPS
     return _train_run(torch, checks, smi, RUN_TRAIN, params, _train_fwd(cfg), cfg.vocab_size,
                       TRAIN_SEQ, SEED + 14, {"K9": n, "K10": n, "K4": 2 * n}, t1)
+
+
+# --- phase 18: the C entry points at full width ----------------------------
+
+ABI_REPEATS = 3  # calls of each entry point a case (the first warms; all counted)
+
+
+class _AbiCall:
+    """One case of the C entry points: random host buffers (numpy; bf16 as
+    its int16 bits), an fp32 mask from _rand_bias, and the struct that
+    points at them.  ``lens``: varlen sequences (else dense B x S)."""
+
+    def __init__(self, torch, g, abi, *, lens=None, B=1, S=0, H=32, Hk=8, D=128, code=1,
+                 mask=None, causal=True, rate=DROP_RATE, seed=DROP_SEED):
+        import ctypes
+
+        import numpy as np
+
+        self.torch, self.abi = torch, abi
+        self.code, self.lens, self.causal = code, lens, causal
+        self.dtype = {0: torch.float32, 1: torch.bfloat16, 2: torch.float16}[code]
+        self.H, self.Hk, self.D = H, Hk, D
+        if lens is not None:
+            total = sum(lens)
+            qs, ks, self.lse_shape = (total, H, D), (total, Hk, D), (H, total)
+        else:
+            qs, ks, self.lse_shape = (B, S, H, D), (B, S, Hk, D), (B, H, S)
+
+        def host(shape):
+            x = torch.randn(shape, generator=g, device="cuda").to(self.dtype).cpu()
+            return (x.view(torch.int16) if code == 1 else x).numpy()
+        self.q, self.k, self.v, self.dout = host(qs), host(ks), host(ks), host(qs)
+        self.out, self.dq = np.zeros_like(self.q), np.zeros_like(self.q)
+        self.dk, self.dv = np.zeros_like(self.k), np.zeros_like(self.v)
+        self.lse = np.zeros(self.lse_shape, np.float32)
+        self.mask = None if mask is None else _rand_bias(torch, g, mask).cpu().numpy()
+        c = abi.FattAttnCall()
+        c.struct_size = ctypes.sizeof(abi.FattAttnCall)
+        c.q, c.k, c.v = self.q.ctypes.data, self.k.ctypes.data, self.v.ctypes.data
+        c.out = self.out.ctypes.data
+        c.lse = self.lse.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+        c.num_heads, c.num_heads_k, c.head_dim, c.dtype = H, Hk, D, code
+        c.dropout_rate, c.dropout_seed, c.is_causal = rate, seed, causal
+        if self.mask is not None:
+            self.dims = (ctypes.c_int64 * self.mask.ndim)(*self.mask.shape)
+            c.attn_mask, c.mask_dims, c.mask_ndim = self.mask.ctypes.data, self.dims, self.mask.ndim
+        if lens is not None:
+            self.cu = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+            c.cu_seqlens_q = c.cu_seqlens_k = self.cu.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+            c.batch, c.total_q, c.total_k = len(lens), total, total
+            c.seqlen_q = c.seqlen_k = max(lens)
+        else:
+            c.batch, c.seqlen_q, c.seqlen_k = B, S, S
+        c.dout, c.lse_in = self.dout.ctypes.data, c.lse
+        c.dq, c.dk, c.dv = self.dq.ctypes.data, self.dk.ctypes.data, self.dv.ctypes.data
+        self.call = c
+        self.rate, self.seed = rate, seed
+
+    def run(self, lib, backward):
+        """One call of the forward or backward entry point, host to host:
+        (ok, seconds)."""
+        import ctypes
+
+        name = f"fatt_attn_{'varlen_' if self.lens else ''}{'bwd' if backward else 'fwd'}"
+        t0 = time.perf_counter()
+        ok = getattr(lib, name)(ctypes.byref(self.call))
+        return ok, time.perf_counter() - t0
+
+    def tensor(self, x):
+        """A host buffer as the tensor the executor makes of it on the card
+        (fp16 computed as bf16)."""
+        t = self.torch.from_numpy(x).view(self.dtype).cuda()
+        return t.to(self.torch.bfloat16) if self.code == 2 else t
+
+    def args(self):
+        """(q, k, v, causal, masks, bias as a [B, H, Sq, Sk] view, dropout)
+        as the executor hands them to K4, K9 and K10."""
+        from flash_attn_tpu_torch.ops import flash_fwd as ff
+
+        torch = self.torch
+        q, k, v = (self.tensor(x) for x in (self.q, self.k, self.v))
+        masks, causal = None, self.causal
+        mask = None if self.mask is None else torch.from_numpy(self.mask).cuda()
+        if self.lens is not None:
+            q, k, v = q[None], k[None], v[None]
+            masks, causal = _varlen_masks(torch, self.lens), False
+        B, Sq, H, _ = q.shape
+        bias = None if mask is None else ff.bias4(mask, B, H, Sq, k.shape[1])
+        return q, k, v, causal, masks, bias, ff.Dropout(self.rate, self.seed)
+
+    def label(self):
+        kind = {1: "bf16", 2: "fp16", 0: "fp32"}[self.code]
+        shape = (f"varlen {len(self.lens)} sequences in {sum(self.lens)}" if self.lens
+                 else f"B={self.q.shape[0]} S={self.q.shape[1]}")
+        return (f"{shape}, H={self.H}, Hk={self.Hk}, D={self.D}, {kind}, causal, "
+                + ("no mask" if self.mask is None else f"mask {list(self.mask.shape)}")
+                + f", dropout {self.rate}")
+
+
+def _abi_check(torch, checks, case):
+    """The case's outputs (host buffers) against the plain versions on the
+    same inputs over head groups: out rows within two bf16 ulps of their
+    largest, live LSE rows to 1e-3, rows with no live key out 0 and lse
+    -1e30; dq, and dk and dv summed over each GQA group, as check_k9_k10
+    holds them (dq rows of queries with fewer than two live keys to the
+    noise floor).  Returns the worst share of a tolerance."""
+    q, k, v, causal, masks, bias, drop = case.args()
+    B, Sq, H, D = q.shape
+    Sk, Hk = k.shape[1], k.shape[2]
+    scale = D ** -0.5
+    vl = case.lens is not None
+
+    def host(x):
+        t = case.tensor(x)
+        return t[None] if vl else t
+    out = host(case.out)
+    lse = torch.from_numpy(case.lse).cuda()
+    lse = lse[None] if vl else lse
+    rout, rlse = fwd_plain((q, k, v, causal, scale, None, None, False, masks, None, None, bias,
+                            drop))
+    _, s_out = row_err(out, rout)
+    live = rlse > -1e29
+    lerr = float((lse - rlse).abs()[live].max())
+    dead_ok = bool((lse[~live] == -1e30).all() and (out.transpose(1, 2)[~live] == 0).all())
+    del rout, rlse
+    dout = host(case.dout)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    rdq, rdk, rdv = bwd_plain((q, k, v, dout, lse, delta, causal, scale, None, None, None, None,
+                               masks, bias, drop))
+    counts = _live_keys(torch, masks, causal, Sq, Sk, bias, H)
+    floor = torch.where(counts < 2, 2.0 ** -12 * float(rdq.abs().max()), 1e-6)
+    G = H // Hk
+    shares = [row_err(host(case.dq), rdq, floor=floor)[1]]
+    for got, ref in ((case.dk, rdk), (case.dv, rdv)):
+        ref = ref.reshape(B, Hk, G, Sk, D).sum(2).transpose(1, 2)
+        shares.append(row_err(host(got), ref)[1])
+    del rdq, rdk, rdv
+    label = f"phase 18 {case.label()}"
+    ok = checks.check(f"{label} out", s_out, 1.0) & checks.check(f"{label} lse", lerr, 1e-3)
+    for name, sh in zip(("dq", "dk", "dv"), shares):
+        ok = checks.check(f"{label} {name}", sh, 1.0) & ok
+    if not dead_ok:
+        checks.failed.append(f"{label}: a row with no live key is not out 0 / lse -1e30")
+    say(f"  {label}: against the plain versions: out {s_out:.3f} of its row's tol, lse err "
+        f"{lerr:.3e} (tol 1e-3), dead rows out 0 / lse -1e30 {dead_ok}; dq {shares[0]:.3f}, "
+        f"dk {shares[1]:.3f}, dv {shares[2]:.3f} of their rows' tol "
+        f"{'ok' if ok and dead_ok else 'FAIL'}")
+    return max(s_out, *shares)
+
+
+def _abi_kernel_ms(torch, case):
+    """The kernels alone on the case's inputs on the card, as the executor
+    calls them (CUDA events): (K4 ms, K9 + K10 ms)."""
+    from flash_attn_tpu_torch.ops import flash_bwd as fb
+    from flash_attn_tpu_torch.ops import flash_fwd as ff
+
+    q, k, v, causal, masks, bias, drop = case.args()
+    scale = q.shape[-1] ** -0.5
+    fargs = (q, k, v, causal, scale, None, None, False, masks, None, None, bias, drop)
+    out, lse = ff.flash_fwd_cuda(*fargs)
+    dout = case.tensor(case.dout)
+    dout = dout[None] if case.lens else dout
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    bargs = (q, k, v, dout, lse, delta, causal, scale, None, None, None, None, masks, bias, drop)
+    return (cuda_ms(torch, lambda: ff.flash_fwd_cuda(*fargs), iters=10),
+            cuda_ms(torch, lambda: fb.flash_bwd_cuda(*bargs), iters=10))
+
+
+def phase_abi(torch, checks, smi):
+    """Phase 18: the C entry points (runtime/abi.py, runtime/native/
+    fatt_abi.cc) called through ctypes from host numpy buffers, the torch
+    executor on the card: at Llama-3-8B's attention widths (H=32, Hk=8,
+    D=128, bf16) varlen 8 sequences in 8192 tokens (ABI_LENS), causal,
+    dropout 0.1, with a [8192, 8192] fp32 mask and without; dense B=2,
+    S=2048, causal, a [2, 1, 2048, 2048] mask and dropout, in bf16 and in
+    fp16; at GPT-2's (H=Hk=12, D=64) dense B=4, S=1024 likewise; each
+    forward then backward, ABI_REPEATS calls each (the repeats bitwise
+    equal).  An fp32 call must return false with a message naming fp32.
+    The counters are set to 0 before the calls and read after them: every
+    forward is one launch of K4's kExtra instance, every backward one of
+    K9's and K10's kOpt instances.  Then, outside the count, the outputs
+    against the plain versions over head groups, and each call's ms host
+    to host beside the kernels' own time (CUDA events) and their share."""
+    import numpy as np
+
+    from flash_attn_tpu_torch.runtime import abi
+
+    t0 = time.perf_counter()
+    lib = abi.register_torch_executor()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 74)
+    total = sum(ABI_LENS)
+    cases = [
+        _AbiCall(torch, g, abi, lens=ABI_LENS, mask=(total, total)),
+        _AbiCall(torch, g, abi, lens=ABI_LENS),
+        _AbiCall(torch, g, abi, B=2, S=2048, mask=(2, 1, 2048, 2048)),
+        _AbiCall(torch, g, abi, B=2, S=2048, mask=(2, 1, 2048, 2048), code=2),
+        _AbiCall(torch, g, abi, B=4, S=1024, H=12, Hk=12, D=64, mask=(4, 1, 1024, 1024)),
+    ]
+    f32 = _AbiCall(torch, g, abi, B=1, S=256, code=0)
+    torch.cuda.synchronize()
+    _reset_counts()
+    secs = {}
+    for i, case in enumerate(cases):
+        for backward in (False, True):
+            outs, times = [], []
+            for _ in range(ABI_REPEATS):
+                ok, sec = case.run(lib, backward)
+                if not ok:
+                    checks.failed.append(f"phase 18 {case.label()}: "
+                                         f"{lib.fatt_last_error().decode()}")
+                    break
+                times.append(sec)
+                bufs = (case.dq, case.dk, case.dv) if backward else (case.out, case.lse)
+                outs.append([b.copy() for b in bufs])
+            same = len(outs) == ABI_REPEATS and all(
+                np.array_equal(a, b) for o in outs[1:] for a, b in zip(outs[0], o))
+            if not same:
+                checks.failed.append(f"phase 18 {case.label()}: repeated calls differ")
+            secs[i, backward] = (times, same)
+    refused, _ = f32.run(lib, False)
+    msg = lib.fatt_last_error().decode()
+    counts = _read_counts()
+    if refused or "fp32" not in msg:
+        checks.failed.append(f"phase 18: an fp32 call on the card gave {refused}, {msg!r}")
+    n = len(cases) * ABI_REPEATS
+    _launches_exact(checks, RUN_ABI, counts, {"K4": n, "K4 extra": n, "K4 dropout": n,
+                                              "K9": n, "K9 opt": n, "K10": n, "K10 opt": n})
+    say(f"[{RUN_ABI}] {smi} | the fp32 call refused: {not refused} ({msg!r}) | launches "
+        + ", ".join(f"{key} {counts[key]}" for key in (
+            "K4", "K4 extra", "K4 seg", "K4 dropout", "K9 opt", "K9 seg", "K10 opt",
+            "K10 seg")))
+    say("kernels " + json.dumps({"run": RUN_ABI, **counts}))
+    worst = 0.0
+    for i, case in enumerate(cases):
+        worst = max(worst, _abi_check(torch, checks, case))
+        k4_ms, bwd_ms = _abi_kernel_ms(torch, case)
+        for backward, kernel_ms, kname in ((False, k4_ms, "K4"), (True, bwd_ms, "K9 + K10")):
+            times, same = secs[i, backward]
+            host_ms = 1e3 * float(np.median(times[1:] if len(times) > 1 else times))
+            say(f"  phase 18 {case.label()}, {'backward' if backward else 'forward'}: "
+                f"{host_ms:.3f} ms a call host to host (median of calls 2-{ABI_REPEATS}; "
+                f"{', '.join(f'{1e3 * x:.3f}' for x in times)}), {kname} alone "
+                f"{kernel_ms:.4f} ms, {kernel_ms / host_ms:.4f} of the call; repeats "
+                f"bitwise equal {same}")
+        torch.cuda.empty_cache()
+    say(f"[{RUN_ABI}] worst share of a tolerance {worst:.3f} | {time.perf_counter() - t0:.2f}s")
+    del cases, f32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_packed_train(torch, checks, smi):
+    """Phase 19: packed-document training of Llama-3 at 8B widths and
+    TRAIN_LAYERS layers, B=1, S=TRAIN_SEQ as phase 8, the row packing
+    PACKED_DOCS (segment ids 1-4, RoPE positions restarting a document):
+    K4's masked instance forward (twice a layer: remat reruns it), K9's
+    and K10's kOpt instances with segment ids backward, once a layer.  The
+    median step beside phase 8's."""
+    from flash_attn_tpu_torch.models import llama
+
+    t1 = time.perf_counter()
+    cfg = dataclasses.replace(llama.LLAMA3_8B, num_layers=TRAIN_LAYERS)
+    params, _ = _fresh_model(torch, cfg)
+    n = TRAIN_LAYERS * TRAIN_STEPS
+    want = {"K9": n, "K10": n, "K9 opt": n, "K10 opt": n, "K9 seg": n, "K10 seg": n,
+            "K4": 2 * n, "K4 seg": 2 * n}
+    counts = _train_run(torch, checks, smi, RUN_PACKED_TRAIN, params,
+                        _packed_train_fwd(torch, cfg, PACKED_DOCS), cfg.vocab_size, TRAIN_SEQ,
+                        SEED + 73, want, t1)
+    live = sum(d * (d + 1) // 2 for d in PACKED_DOCS)
+    full = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+    say(f"  phase 19 step {STEP_MS[RUN_PACKED_TRAIN]:.3f} ms beside phase 8's unpacked "
+        f"{STEP_MS[RUN_TRAIN]:.3f} ms ({STEP_MS[RUN_PACKED_TRAIN] / STEP_MS[RUN_TRAIN]:.4f}); "
+        f"attention's live pairs {live} of the causal {full} ({live / full:.4f})")
+    return counts
 
 
 GEMMA_TRAIN_LAYERS, GEMMA_TRAIN_SEQ = 8, 8192
@@ -4899,11 +5682,15 @@ RUN_QWEN_SPEC = "phase 16 serve Qwen-2-7B int8, fp8 KV, n-gram speculation"
 RUN_MIXTRAL = "phase 17 serve Mixtral-8x7B int8, fp8 KV"
 RUN_MIXTRAL_SPEC = "phase 17 serve Mixtral-8x7B int8, fp8 KV, n-gram speculation"
 RUN_MIXTRAL_PAGED = "phase 17 serve Mixtral-8x7B int8, fp8 KV, paged"
+RUN_ABI = ("phase 18 the C entry points, Llama-3-8B attention widths (varlen 8 sequences in "
+           "8192, dense B=2 S=2048) and GPT-2's (B=4 S=1024)")
+RUN_PACKED_TRAIN = (f"phase 19 packed training Llama-3 8B widths, {TRAIN_LAYERS} layers, B=1 "
+                    f"S={TRAIN_SEQ}, documents (1024, 512, 320, 192), {TRAIN_STEPS} AdamW steps")
 KERNEL_ROWS = ("K1", "K1m", "K1c", "K1b", "K2", "K3", "K3g", "K4", "K5", "K6", "K7", "K8", "K8c",
                "K9", "K10", "K4 d256", "K1 d256", "K2 d256", "K1m d256", "K9 d256", "K10 d256",
                "K4 d64", "K1 d64", "K1c d64", "K8 d64", "K2 d64", "K1m d64", "K9 d64", "K10 d64",
                "K4 27B", "K1 27B", "K9 27B", "K10 27B", "K4 G7", "K1 G7", "K1c G7", "K8 G7",
-               "K2 G7", "K3 Mixtral")
+               "K2 G7", "K3 Mixtral", "K4 opt", "K9 opt", "K10 opt")
 # the run whose launches a kernel's row reports, and the count it reads:
 # the main path that the kernel serves (the 70B serve for the shared K1,
 # K1m, K2 and K4, the n-gram speculative serve for K1's chunk mode, the
@@ -4925,7 +5712,8 @@ ROW_RUN = {"K1": RUN_70B, "K1m": RUN_70B, "K1c": RUN_SPEC_NGRAM, "K1b": None, "K
            "K9 d64": RUN_GPT2_TRAIN, "K10 d64": RUN_GPT2_TRAIN, "K4 27B": RUN_GEMMA27,
            "K1 27B": RUN_GEMMA27, "K9 27B": RUN_GEMMA27_TRAIN, "K10 27B": RUN_GEMMA27_TRAIN,
            "K4 G7": RUN_QWEN, "K1 G7": RUN_QWEN, "K1c G7": RUN_QWEN_SPEC,
-           "K8 G7": RUN_QWEN_PAGED, "K2 G7": RUN_QWEN, "K3 Mixtral": RUN_MIXTRAL}
+           "K8 G7": RUN_QWEN_PAGED, "K2 G7": RUN_QWEN, "K3 Mixtral": RUN_MIXTRAL,
+           "K4 opt": RUN_ABI, "K9 opt": RUN_ABI, "K10 opt": RUN_ABI}
 # a row's count where it is not the row's own key: every K2 and K1m launch
 # of the Gemma-2-9B serve is at head_dim 256, and every launch of the GPT-2
 # serves at head_dim 64 (phase 12 holds the d64 counts equal); the 27B
@@ -4934,7 +5722,7 @@ ROW_COUNT = {"K2 d256": "K2", "K1m d256": "K1m", "K4 d64": "K4", "K1 d64": "K1",
              "K1c d64": "K1c", "K8 d64": "K8", "K2 d64": "K2", "K1m d64": "K1m",
              "K4 27B": "K4 local", "K1 27B": "K1", "K9 27B": "K9 local", "K10 27B": "K10 local",
              "K4 G7": "K4", "K1 G7": "K1", "K1c G7": "K1c", "K8 G7": "K8", "K2 G7": "K2",
-             "K3 Mixtral": "K3"}
+             "K3 Mixtral": "K3", "K4 opt": "K4 extra"}
 
 
 def main() -> int:
@@ -4972,10 +5760,12 @@ def main() -> int:
     qwen_card_vs_cpu(torch, checks)
     mixtral_card_vs_cpu(torch, checks, "int8", SEED + 66)
     mixtral_card_vs_cpu(torch, checks, "int4", SEED + 67)
-    runs = phase_serve(torch, checks, smi)
+    runs = {RUN_ABI: phase_abi(torch, checks, smi)}
+    runs.update(phase_serve(torch, checks, smi))
     runs.update(phase_gemma(torch, checks, smi))
     runs.update(phase_gemma(torch, checks, smi, "27B"))
     runs[RUN_TRAIN] = phase_train(torch, checks, smi)
+    runs[RUN_PACKED_TRAIN] = phase_packed_train(torch, checks, smi)
     runs[RUN_GEMMA_TRAIN] = phase_gemma_train(torch, checks, smi)
     runs[RUN_GEMMA27_TRAIN] = phase_gemma_train(torch, checks, smi, "27B")
     runs.update(phase_gpt2(torch, checks, smi))
@@ -4999,7 +5789,10 @@ def main() -> int:
                     **{k: r[k] for k in ("graph_ms", "call_graph_ms", "empty_graph_ms",
                                          "prompt", "also", "packed", "chunk", "gemma",
                                          "gemma27b", "qwen2",
-                                         "sdpa_nocap_ms", "no_window", "k8c") if k in r})
+                                         "sdpa_nocap_ms", "no_window", "k8c", "sdpa_mask_ms",
+                                         "bound_per_head_ms", "no_mask", "segments", "dense",
+                                         "bias", "d64", "d64_varlen", "d64_segments",
+                                         "readout") if k in r})
                for r in (rows[k] for k in KERNEL_ROWS)]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -3,9 +3,12 @@ probes that call several versions of a source through ctypes.
 
 ``fatt_decode`` takes ``int window, float softcap`` and ``fatt_flash_fwd``
 ``int window_left, int window_right, float softcap2`` just before the
-stream; earlier versions take neither.  ``bind`` sets an entry's argument
-types from the older list and returns a callable that takes that older
-list, passing no window and no softcap where the source has them.
+stream; earlier versions take neither.  Later versions of
+``fatt_flash_fwd`` also take a bias (its pointer and four strides) and
+dropout (flag, seed, threshold, keep_div) after the softcap.  ``bind``
+sets an entry's argument types from the older list and returns a callable
+that takes that older list, passing no window, no softcap, no bias and no
+dropout where the source has them.
 """
 
 from __future__ import annotations
@@ -14,9 +17,12 @@ import ctypes
 from pathlib import Path
 
 I, F = ctypes.c_int, ctypes.c_float
+P, L, U = ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32
 # entry -> (argument types, the values for no window and no softcap)
 WINDOW_ARGS = {"fatt_decode": ([I, F], (0, 0.0)),
                "fatt_flash_fwd": ([I, I, F], (-1, -1, 0.0))}
+# fatt_flash_fwd's bias and dropout arguments and their values for none
+EXTRA_ARGS = ([P, L, L, L, L, I, U, U, F], (None, 0, 0, 0, 0, 0, 0, 0, 1.0))
 
 
 def takes_window(src: Path, entry: str) -> bool:
@@ -30,16 +36,23 @@ def bind(fn, src: Path, entry: str, argtypes):
     """``fn`` (entry ``entry`` of a library built from ``src``) with its
     argument types set; when the source takes a window, a callable over
     the older argument list (``argtypes``, stream last) that passes none,
-    with the entry itself as ``.raw``."""
+    with ``.raw`` a callable over the list with the window arguments (the
+    entry itself when the source takes no bias and dropout)."""
     fn.restype = ctypes.c_int
     if entry not in WINDOW_ARGS or not takes_window(src, entry):
         fn.argtypes = argtypes
         return fn
     types, extra = WINDOW_ARGS[entry]
-    fn.argtypes = argtypes[:-1] + types + argtypes[-1:]
+    text = src.read_text()
+    head = text[text.index(f'extern "C" int {entry}('):]
+    more_types, more = EXTRA_ARGS if "keep_div" in head[:head.index(")")] else ([], ())
+    fn.argtypes = argtypes[:-1] + types + more_types + argtypes[-1:]
 
     def call(*args):
-        return fn(*args[:-1], *extra, args[-1])
+        return fn(*args[:-1], *extra, *more, args[-1])
 
-    call.raw = fn
+    def raw(*args):
+        return fn(*args[:-1], *more, args[-1])
+
+    call.raw = raw if more else fn
     return call

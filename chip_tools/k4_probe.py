@@ -81,7 +81,7 @@ def build(name, src_dir, out_dir):
     masked = takes_masks(src)
     fn = entry_args.bind(ctypes.CDLL(str(lib)).fatt_flash_fwd, src, "fatt_flash_fwd",
                          SIG_MASKED if masked else SIG)
-    return (fn, masked, "launch<128, false, true>" in src.read_text()), info
+    return (fn, masked, "launch<128, false, true" in src.read_text()), info
 
 
 def main() -> int:

@@ -6,10 +6,12 @@ times, and a mutant that must fail.
 
 Each DIR holds a ``flash_bwd.cu`` (and the ``common.cuh`` it includes),
 for example the parent tree's ``flash_attn_tpu_torch/csrc`` unpacked by
-``git archive``.  Three C interfaces are known: this tree's (K9 also
-writes R(q), which K10 reads, and both take a window and a softcap), the
-one before it without window and softcap, and the earlier one in which
-both passes rotate q themselves.  Each version, this tree's
+``git archive``.  Four C interfaces are known: this tree's (as the next,
+and both also take segment ids and positions, a bias and dropout, passed
+as none here), the one before it (K9 also writes R(q), which K10 reads,
+and both take a window and a softcap), the one before that without
+window and softcap, and the earlier one in which both passes rotate q
+themselves.  Each version, this tree's
 ``csrc/flash_bwd.cu`` and three mutants of it compile together
 (``-Xptxas -v``, the flags of ``_build.py``) into their own libraries
 under ``flash_attn_tpu_torch/_build/k9_probe/``; each kernel instance's
@@ -63,15 +65,22 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+L, U = ctypes.c_int64, ctypes.c_uint32
+# the options (tile metadata, bias, dropout) of the "opt" interface and
+# their values for none
+OPT = [P] * 4 + [P, L, L, L, L, I, U, U, F]
+NO_OPT = (None,) * 4 + (None, 0, 0, 0, 0, 0, 0, 0, 1.0)
 # (dq entry, dkv entry) argument types of each interface
-SIGS = {"local": ([P] * 10 + [I] * 7 + [F, I, I, I, F, P], [P] * 8 + [I] * 6 + [F, I, I, I, F, P]),
+SIGS = {"opt": ([P] * 10 + [I] * 7 + [F, I, I, I, F] + OPT + [P],
+                [P] * 8 + [I] * 6 + [F, I, I, I, F] + OPT + [P]),
+        "local": ([P] * 10 + [I] * 7 + [F, I, I, I, F, P], [P] * 8 + [I] * 6 + [F, I, I, I, F, P]),
         "rq": ([P] * 10 + [I] * 7 + [F, I, P], [P] * 8 + [I] * 6 + [F, I, P]),
         "rotate": ([P] * 9 + [I] * 7 + [F, I, P], [P] * 10 + [I] * 7 + [F, I, P])}
 # edits of this tree's source, each (anchor, replacement, times it
 # matches): the mutant adds a `continue` after the tile's offset in each
 # loop; no_dt drops dS's factor 1 - t^2 in both passes; no_tanh caps
 # nothing (t = s / cap, so P is the uncapped one)
-K9 = "    const int k0 = (t_first + t) * kRows;\n"
+K9 = "    const int k0 = tile_of(t) * kRows;\n"
 K10 = "    float st[32], dpt[32];\n"
 EDITS = {"mutant": ((K9, K9 + "if (t == 1) { __syncthreads(); continue; }\n", 1),
                     (K10, "if (it == 1) { __syncthreads(); continue; }\n" + K10, 1)),
@@ -88,7 +97,7 @@ def takes(src: Path, c) -> bool:
     its head dim, and at 128 with a window or a softcap the kLocal one."""
     text = (src / "flash_bwd.cu").read_text()
     if c.D == 128 and (c.window is not None or c.cap is not None):
-        return "launch_dq<128, true>" in text
+        return "launch_dq<128, true" in text
     return c.D == 128 or f"launch_dq<{c.D}" in text
 
 
@@ -96,6 +105,8 @@ def interface(src: Path) -> str:
     text = src.read_text()
     head = text[text.index('extern "C" int fatt_flash_bwd_dq('):]
     head = head[:head.index(")")]
+    if "inv_keep" in head:
+        return "opt"
     return "local" if "window" in head else "rq" if "void* rq" in head else "rotate"
 
 
@@ -105,9 +116,11 @@ def registers(ptxas: str) -> str:
     for line in ptxas.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"(dkv_kernel|dq_kernel)(?:ILi(\d+)E(?:Lb([01])E)?)?", m.group(1))
+            k = re.search(r"(dkv_kernel|dq_kernel)(?:ILi(\d+)E(?:Lb([01])E)?(?:Lb([01])E)?)?",
+                          m.group(1))
             name = None if k is None else (f"{k.group(1)}<{k.group(2) or 128}"
-                                           f"{', local' if k.group(3) == '1' else ''}>")
+                                           f"{', local' if k.group(3) == '1' else ''}"
+                                           f"{', opt' if k.group(4) == '1' else ''}>")
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
             spill = f"spill {m.group(1)}/{m.group(2)} bytes"
@@ -263,9 +276,11 @@ def main() -> int:
         ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
         common = [ptr(t) for t in (c.q, c.k, c.v, c.dout, c.lse, c.delta, c.cos, c.sin)]
         local = ()
-        if abi == "local":
+        if abi in ("local", "opt"):
             local = (*(c.window or (-1, -1)), 0.0 if c.cap is None else c.cap * 1.4426950408889634)
-        if abi in ("local", "rq"):
+        if abi == "opt":
+            local += NO_OPT
+        if abi in ("local", "rq", "opt"):
             c9 = lambda: f9(*common, ptr(dq), ptr(rq), B, S, S, H, Hk, D, 0, c.scale, 1,  # noqa
                             *local, stream())
             c10 = lambda: f10(ptr(rq), *common[1:6], ptr(dk), ptr(dv), B, S, S, H, Hk, D,  # noqa
@@ -291,7 +306,7 @@ def main() -> int:
     cases = [(x, True) for x in BWD_CASES if x.row is not None or x.bends]
     for bc, bound in cases + [(BwdCase(*PEAKY), False)]:
         c = Case(torch, bc)
-        labels = [n for n, src in srcs if (c.D == 128 or libs[n][0] == "local")
+        labels = [n for n, src in srcs if (c.D == 128 or libs[n][0] in ("local", "opt"))
                   and takes(Path(src), c) and (n not in CAP_MUTANTS or c.cap is not None)]
         first = None
         for label in labels:

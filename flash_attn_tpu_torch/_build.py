@@ -31,6 +31,11 @@ P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
 L = ctypes.c_int64
+U = ctypes.c_uint32
+# K4's, K9's and K10's bias and dropout arguments: the bias and its four
+# strides, the dropout flag, the seed's bits and the keep threshold, and
+# f32(1 - rate) (K4) or 1 / (1 - rate) (K9, K10)
+_EXTRA = [P, L, L, L, L, I, U, U, F]
 
 # C entry point -> argument types (every pointer and the stream as c_void_p)
 _SIGNATURES = {
@@ -43,13 +48,13 @@ _SIGNATURES = {
     "fatt_matmul_float_q": [P, P, P, P, P, I, I, I, I, I, I, I, I, P],
     "fatt_matmul_s8_q": [P, P, P, P, P, P, I, I, I, I, I, I, I, P],
     "fatt_flash_fwd": [P, P, P, P, P, P, P, P, P, P, P, P,
-                       I, I, I, I, I, I, I, F, I, I, I, I, F, P],
+                       I, I, I, I, I, I, I, F, I, I, I, I, F, *_EXTRA, P],
     "fatt_paged_decode": [P, P, P, P, P, P, P, P, P, P, P, P,
                           I, I, I, I, I, I, I, I, F, I, F, P],
     "fatt_flash_bwd_dq": [P, P, P, P, P, P, P, P, P, P,
-                          I, I, I, I, I, I, I, F, I, I, I, F, P],
+                          I, I, I, I, I, I, I, F, I, I, I, F, P, P, P, P, *_EXTRA, P],
     "fatt_flash_bwd_dkv": [P, P, P, P, P, P, P, P,
-                           I, I, I, I, I, I, F, I, I, I, F, P],
+                           I, I, I, I, I, I, F, I, I, I, F, P, P, P, P, *_EXTRA, P],
     "fatt_lse_merge": [P, P, P, P, I, L, I, I, P],
 }
 

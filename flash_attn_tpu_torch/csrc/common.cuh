@@ -321,6 +321,32 @@ __device__ __forceinline__ float tanh_exp2(float x) {
   return 1.f - __fdividef(2.f, e + 1.f);
 }
 
+// Dropout: the JAX package's counter-based keep mask (flash_attn_tpu/ops/
+// flash_fwd.py:_mix_seed, dropout_keep_mask), an integer hash of the seed,
+// the batch index b, the query head h and the element's absolute (row,
+// column), kept where its 32 bits are >= threshold = min(rate 2^32,
+// 2^32 - 1).  JAX computes it in int32 with wraparound and logical shifts,
+// which are these uint32 operations bit for bit, so K4, K9 and K10 replay
+// one mask whatever their tiles.  About 10 integer operations an element.
+__device__ __forceinline__ uint32_t drop_mix(uint32_t seed, int b, int h) {
+  return seed ^ ((uint32_t)b * 0x9E3779B1u) ^ ((uint32_t)h * 0x85EBCA77u);
+}
+
+// The row's part of the hash's sum: mix + row * m1.
+__device__ __forceinline__ uint32_t drop_row(uint32_t mix, int row) {
+  return mix + (uint32_t)row * 0x9E3779B9u;
+}
+
+__device__ __forceinline__ bool drop_keep(uint32_t row_part, int col, uint32_t threshold) {
+  uint32_t x = row_part + (uint32_t)col * 0x7FEB352Du;
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  return x >= threshold;
+}
+
 // Reductions over the four threads (a quad) that hold one accumulator row.
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));

@@ -5,10 +5,11 @@
 // deterministic by construction (no atomics), as on the TPU:
 //   K9  (dq pass)    replaces flash_attn_tpu/ops/flash_bwd.py:_dq_kernel;
 //   K10 (dk/dv pass) replaces flash_attn_tpu/ops/flash_bwd.py:_dkv_kernel
-// on the subset the GPT-2, Llama and Gemma-2 training steps use (no bias/dbias,
-// segments, positions, ALiBi or dropout; the window and the softcap at
-// head_dim 128 and 256).  K9 runs first: it rotates q once and writes R(q),
-// which K10 streams as it is.
+// on the subset the GPT-2, Llama and Gemma-2 training steps and the C ABI's
+// backward entry points use (no dbias or ALiBi; the window and the softcap
+// at head_dim 128 and 256; segment ids, positions, an additive bias and
+// dropout at head_dim 64 and 128).  K9 runs first: it rotates q once and
+// writes R(q), which K10 streams as it is.
 //
 // Bound on the H100: operations at D = 128 and 256, bytes at D = 64.  At
 // S = 2048, D = 128 the causal half of the five products (QK^T, dO V^T,
@@ -90,6 +91,23 @@
 // masked elementwise (padded and fully masked rows carry lse = NEG_INF and
 // give 0); ds = p (dp - delta); P cast to bf16 before dv, dS before dq and
 // dk; dq pulled back through the rotation in fp32.
+//
+// Segment ids, positions, a bias and dropout (the kOpt instances, at head
+// dims 64 and 128 beside the instances without them, which keep their code;
+// _recompute_p_ds, flash_bwd.py:48-124):
+//   * segment ids and positions come as K4 takes them (ops/flash_fwd.py:
+//     tile_meta): a (segment, position) pair a token and each 64-token
+//     tile's least and greatest of both.  Each block first lists the tiles
+//     it walks (K9: key tiles, K10: query tiles) whose ranges can meet its
+//     own, in order, in shared memory, and marks those live throughout;
+//     the ring walks the list, so a packed batch's dead tiles are never
+//     loaded.  Elsewhere a pair is live where qs == ks and kp <= qp;
+//   * the bias goes on the natural-unit scores: p = exp(s scale + bias -
+//     lse), as 2^(s scale log2 e + (bias log2 e - lse log2 e));
+//   * dropout replays the forward's mask (fatt::drop_keep on the query
+//     head h and the absolute row and column): dp becomes keep ? dp / (1 -
+//     rate) : 0 before ds = p (dp - delta), and K10's dv takes P dropped
+//     alike; ds keeps the undropped P.
 #include "common.cuh"
 
 namespace {
@@ -100,12 +118,83 @@ constexpr int kRows = 64;        // rows a warpgroup owns, and a streamed tile's
 constexpr int kPartBytes = kRows * 128;  // 64 columns of a tile
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kStatBytes = 2 * kRows * 4;
+// kOpt: a block lists at most kMaxListTiles tiles, each entry a tile index
+// with kFullBit where no segment or position masks it
+constexpr int kMaxListTiles = 4096;
+constexpr int kFullBit = 1 << 30;
+
+// The kOpt instances' arguments (segment ids and positions as tile
+// metadata, the bias, dropout); the other instances take them and ignore
+// them.  qmeta/kmeta: [B, nq*64] / [B, nk*64] (segment, position) per
+// token; qrange/krange: [B, nq] / [B, nk] (least segment, least position,
+// greatest segment, greatest position) per 64-token tile; all null for
+// none.  bias: null, or element (b, h, i, j) at b bs_b + h bs_h + i bs_q +
+// j bs_k.  dropout: 0, or 1 with the seed's bits, the threshold and
+// inv_keep = f32(1 / (1 - rate)).
+struct Opt {
+  const int2* qmeta;
+  const int2* kmeta;
+  const int4* qrange;
+  const int4* krange;
+  const float* bias;
+  int64_t bs_b, bs_h, bs_q, bs_k;
+  int dropout;
+  uint32_t seed, threshold;
+  float inv_keep;
+};
+
+// Lists in shared memory, in order, the tiles t_first + i (i < n) that
+// live(t, full) keeps, each with kFullBit where it sets full; returns how
+// many.  Every thread of the block calls it (kThreads of them); 128-thread
+// chunks at a time by ballot and a prefix count, as K4 does.
+template <int kThreads, typename Live>
+__device__ __forceinline__ int build_list(int* list, int* warp_live, int t_first, int n,
+                                          Live live) {
+  constexpr int kWarps = kThreads / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int count = 0;
+  for (int base = 0; base < n; base += kThreads) {
+    const int i = base + threadIdx.x;
+    bool keep = false, full = false;
+    if (i < n) keep = live(t_first + i, full);
+    const unsigned m = __ballot_sync(0xffffffffu, keep);
+    if (lane == 0) warp_live[warp] = __popc(m);
+    __syncthreads();
+    int off = count;
+    for (int w = 0; w < warp; ++w) off += warp_live[w];
+    if (keep) list[off + __popc(m & ((1u << lane) - 1u))] = (t_first + i) | (full ? kFullBit : 0);
+    for (int w = 0; w < kWarps; ++w) count += warp_live[w];
+    __syncthreads();  // the list is complete; warp_live is free again
+  }
+  return count;
+}
+
+// The (least seg, least pos, greatest seg, greatest pos) of n consecutive
+// 64-token tiles from t0 (those below nt).
+__device__ __forceinline__ int4 tile_range(const int4* ranges, int t0, int n, int nt) {
+  int4 r = ranges[t0];
+  for (int i = 1; i < n; ++i) {
+    if (t0 + i >= nt) break;
+    const int4 o = ranges[t0 + i];
+    r = make_int4(min(r.x, o.x), min(r.y, o.y), max(r.z, o.z), max(r.w, o.w));
+  }
+  return r;
+}
+
+// Can a pair of a query range qr and a key range kr be live (segments
+// meet, some kv position <= some q position); is every pair (one segment
+// on both sides, every kv position <= every q position)?
+__device__ __forceinline__ bool ranges_live(int4 qr, int4 kr, bool& full) {
+  full = qr.x == qr.z && kr.x == kr.z && kr.x == qr.x && kr.w <= qr.y;
+  return kr.z >= qr.x && kr.x <= qr.z && kr.y <= qr.w;
+}
 
 // The geometry of head dim kD (64, 128 or 256); kLocalT: the window and
-// the softcap.
-template <int kD, bool kLocalT>
+// the softcap; kOptT: segment ids, positions, a bias and dropout.
+template <int kD, bool kLocalT, bool kOptT = false>
 struct Geo {
   static constexpr bool kLocal = kLocalT;
+  static constexpr bool kOpt = kOptT;
   static constexpr int kChunks = kD * 2 / 16;  // 16-byte chunks per row
   static constexpr int kTileBytes = kRows * kD * 2;
   static constexpr int kParts = kD / 64;  // 64-column parts of a tile
@@ -113,7 +202,7 @@ struct Geo {
   static constexpr int kDqWarpgroups = kD == 256 ? 1 : 2;
   static constexpr int kDqThreads = 128 * kDqWarpgroups;
   static constexpr int kDqRows = kRows * kDqWarpgroups;
-  static constexpr int kDqMinBlocks = kD == 64 ? 2 : 1;  // blocks an SM
+  static constexpr int kDqMinBlocks = kD == 64 && !kOptT ? 2 : 1;  // blocks an SM
   // K10: two warpgroups a block; at 64 and 128 each owns 64 keys of the
   // block's 128 and all their columns, at 256 both own the block's 64
   // keys, each half of the columns
@@ -127,6 +216,8 @@ struct Geo {
   // atom).
   static constexpr int kDqSmem = (2 * kDqWarpgroups + 4) * kTileBytes + 1024;
   static constexpr int kDkvSmem = (2 * kKeyWarpgroups + 4) * kTileBytes + 2 * kStatBytes + 1024;
+  // kOpt: the tile list after those
+  static constexpr int kListBytes = kOptT ? kMaxListTiles * 4 : 0;
 };
 
 // 64 rows from row0 of head hx of a [B, S, Hx, kD] bf16 tensor into the
@@ -203,17 +294,19 @@ __device__ __forceinline__ float lse_base2(float lse) {
 
 // The kLocal instances apply the window (wleft, wright; -1 open) and the
 // softcap (softcap2, the cap in base-2 units; 0 for none); the others
-// ignore all three.
-template <int kD, bool kLocal>
-__global__ void __launch_bounds__(Geo<kD, kLocal>::kDqThreads,
-                                  Geo<kD, kLocal>::kDqMinBlocks) dq_kernel(
+// ignore all three.  The kOpt instances apply o (segment ids, positions,
+// the bias, dropout); the others ignore it.
+template <int kD, bool kLocal, bool kOpt>
+__global__ void __launch_bounds__(Geo<kD, kLocal, kOpt>::kDqThreads,
+                                  Geo<kD, kLocal, kOpt>::kDqMinBlocks) dq_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
     const float* __restrict__ cosv, const float* __restrict__ sinv,
     float* __restrict__ dq, __nv_bfloat16* __restrict__ rq, int Sq, int Sk, int H, int Hk,
-    int rope_bstride, float scale, int causal, int wleft, int wright, float softcap2) {
-  using G = Geo<kD, kLocal>;
+    int rope_bstride, float scale, int causal, int wleft, int wright, float softcap2,
+    const Opt o) {
+  using G = Geo<kD, kLocal, kOpt>;
   constexpr int kWarpgroups = G::kDqWarpgroups, kThreads = G::kDqThreads;
   constexpr int kBlockRows = G::kDqRows, kChunks = G::kChunks, kTileBytes = G::kTileBytes;
   constexpr int kParts = G::kParts;
@@ -247,6 +340,26 @@ __global__ void __launch_bounds__(Geo<kD, kLocal>::kDqThreads,
     n_tiles = kv_end > kv_begin ? (kv_end + kRows - 1) / kRows - t_first : 0;
   }
 
+  // kOpt with segment ids or positions: the live key tiles, listed.
+  const bool meta = G::kOpt && o.qrange != nullptr;
+  const int nq64 = (Sq + kRows - 1) / kRows, nk64 = (Sk + kRows - 1) / kRows;
+  int* list = reinterpret_cast<int*>(smem + G::kDqSmem);
+  int n_live = n_tiles;
+  if constexpr (G::kOpt) {
+    __shared__ int warp_live[kThreads / 32];
+    if (meta) {
+      const int4 qr = tile_range(o.qrange + (int64_t)b * nq64, row0 / kRows,
+                                 kBlockRows / kRows, nq64);
+      const int4* kr = o.krange + (int64_t)b * nk64;
+      n_live = build_list<kThreads>(list, warp_live, t_first, n_tiles,
+                                    [&](int t, bool& full) { return ranges_live(qr, kr[t], full); });
+    }
+  }
+  // key tile of the walk's step i, and whether no segment or position
+  // masks it
+  auto tile_of = [&](int i) { return meta ? list[i] & (kFullBit - 1) : t_first + i; };
+  auto full_at = [&](int i) { return !meta || (list[i] & kFullBit) != 0; };
+
   auto load_kv = [&](int st, int k0) {
     const uint32_t ks = ring + st * 2 * kTileBytes;
     load_tile<kD, kThreads>(ks, k, b, k0, Sk, Hk, kvh);
@@ -258,7 +371,7 @@ __global__ void __launch_bounds__(Geo<kD, kLocal>::kDqThreads,
     if (cosv == nullptr)
       load_tile<kD, kThreads>(qs0 + w * kTileBytes, q, b, row0 + w * kRows, Sq, H, h);
   }
-  if (n_tiles > 0) load_kv(0, t_first * kRows);
+  if (n_live > 0) load_kv(0, tile_of(0) * kRows);
   fatt::cp_async_commit();
 
   // R(q): rotate-half in fp32 with each row's cos/sin, products rounded
@@ -323,11 +436,28 @@ __global__ void __launch_bounds__(Geo<kD, kLocal>::kDqThreads,
     l2[hf] = lse_base2(row < Sq ? lse[r] : kNegInf);
     dl[hf] = row < Sq ? delta[r] : 0.f;
   }
+  // kOpt: this thread's rows' (segment, position), this (batch, head)'s
+  // bias plane and its rows' part of the dropout hash
+  int2 qm[2] = {make_int2(0, 0), make_int2(0, 0)};
+  const float* bias_bh = nullptr;
+  uint32_t drop_rows[2] = {0u, 0u};
+  if constexpr (G::kOpt) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int row = my_row + hf * 8;
+      if (meta && row < nq64 * kRows) qm[hf] = o.qmeta[(int64_t)b * nq64 * kRows + row];
+    }
+    if (o.bias != nullptr) bias_bh = o.bias + b * o.bs_b + h * o.bs_h;
+    const uint32_t mix = fatt::drop_mix(o.seed, b, h);
+    drop_rows[0] = fatt::drop_row(mix, my_row);
+    drop_rows[1] = fatt::drop_row(mix, my_row + 8);
+  }
+  const int2* kmeta_b = G::kOpt && meta ? o.kmeta + (int64_t)b * nk64 * kRows : nullptr;
 
   float acc[kParts][32];  // dq, 64-column parts
   zero(acc);
-  for (int t = 0; t < n_tiles; ++t) {
-    if (t + 1 < n_tiles) load_kv((t + 1) & 1, (t_first + t + 1) * kRows);
+  for (int t = 0; t < n_live; ++t) {
+    if (t + 1 < n_live) load_kv((t + 1) & 1, tile_of(t + 1) * kRows);
     fatt::cp_async_commit();
     fatt::cp_async_wait<1>();
     // cp.async and the R(q) stores -> wgmma's reads
@@ -335,7 +465,7 @@ __global__ void __launch_bounds__(Geo<kD, kLocal>::kDqThreads,
     __syncthreads();
     const uint32_t ks = ring + (t & 1) * 2 * kTileBytes;
     const uint32_t vs = ks + kTileBytes;
-    const int k0 = (t_first + t) * kRows;
+    const int k0 = tile_of(t) * kRows;
 
     float s[32], dp[32];
     zero(s);
@@ -359,33 +489,72 @@ __global__ void __launch_bounds__(Geo<kD, kLocal>::kDqThreads,
       if (wleft >= 0) edge = edge || k0 < wrow0 + 15 + shift - wleft;
     }
     uint32_t dsf[4][4];
+    if constexpr (!G::kOpt) {
 #pragma unroll
-    for (int j = 0; j < kRows / 8; ++j) {
-      float x[4];
+      for (int j = 0; j < kRows / 8; ++j) {
+        float x[4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float p, dt = 1.f;
-        if (capped) {
-          const float tc = fatt::tanh_exp2(s[4 * j + e] * cap_in);
-          p = exp2f(fmaf(tc, softcap2, -l2[e >> 1]));
-          dt = 1.f - tc * tc;
-        } else {
-          p = exp2f(fmaf(s[4 * j + e], sl2, -l2[e >> 1]));
+        for (int e = 0; e < 4; ++e) {
+          float p, dt = 1.f;
+          if (capped) {
+            const float tc = fatt::tanh_exp2(s[4 * j + e] * cap_in);
+            p = exp2f(fmaf(tc, softcap2, -l2[e >> 1]));
+            dt = 1.f - tc * tc;
+          } else {
+            p = exp2f(fmaf(s[4 * j + e], sl2, -l2[e >> 1]));
+          }
+          if (edge) {
+            const int col = k0 + j * 8 + (lane & 3) * 2 + (e & 1);
+            const int row = my_row + (e >> 1) * 8;
+            bool dead = col >= Sk || (causal && col > row + shift);
+            if constexpr (G::kLocal)
+              dead = dead || (wleft >= 0 && col < row + shift - wleft) ||
+                     (wright >= 0 && col > row + shift + wright);
+            if (dead) p = 0.f;
+          }
+          x[e] = p * (dp[4 * j + e] - dl[e >> 1]);
+          if (capped) x[e] *= dt;
         }
-        if (edge) {
+        dsf[j / 2][(j & 1) * 2] = fatt::pack_bf16(x[0], x[1]);
+        dsf[j / 2][(j & 1) * 2 + 1] = fatt::pack_bf16(x[2], x[3]);
+      }
+    } else {
+      // kOpt (no window, no cap): the bias on the scores, the segment and
+      // position masks where the list does not say the tile is live
+      // throughout, and the dropout's replay on dP
+      const bool seg_mask = !full_at(t);
+      edge = edge || seg_mask;
+#pragma unroll
+      for (int j = 0; j < kRows / 8; ++j) {
+        float x[4];
+        // keys c and c + 1 of the tile: (segment, position) each
+        int4 km = make_int4(0, 0, 0, 0);
+        if (seg_mask)
+          km = __ldg(reinterpret_cast<const int4*>(kmeta_b + k0 + j * 8 + (lane & 3) * 2));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
           const int col = k0 + j * 8 + (lane & 3) * 2 + (e & 1);
           const int row = my_row + (e >> 1) * 8;
-          bool dead = col >= Sk || (causal && col > row + shift);
-          if constexpr (G::kLocal)
-            dead = dead || (wleft >= 0 && col < row + shift - wleft) ||
-                   (wright >= 0 && col > row + shift + wright);
-          if (dead) p = 0.f;
+          float a = -l2[e >> 1];
+          if (bias_bh != nullptr && row < Sq && col < Sk)
+            a = fmaf(__ldg(bias_bh + row * o.bs_q + col * o.bs_k), kLog2e, a);
+          float p = exp2f(fmaf(s[4 * j + e], sl2, a));
+          if (edge) {
+            bool dead = col >= Sk || (causal && col > row + shift);
+            if (seg_mask) {
+              const int kseg = (e & 1) ? km.z : km.x, kpos = (e & 1) ? km.w : km.y;
+              dead = dead || kseg != qm[e >> 1].x || kpos > qm[e >> 1].y;
+            }
+            if (dead) p = 0.f;
+          }
+          float dpv = dp[4 * j + e];
+          if (o.dropout)
+            dpv = fatt::drop_keep(drop_rows[e >> 1], col, o.threshold) ? dpv * o.inv_keep : 0.f;
+          x[e] = p * (dpv - dl[e >> 1]);
         }
-        x[e] = p * (dp[4 * j + e] - dl[e >> 1]);
-        if (capped) x[e] *= dt;
+        dsf[j / 2][(j & 1) * 2] = fatt::pack_bf16(x[0], x[1]);
+        dsf[j / 2][(j & 1) * 2 + 1] = fatt::pack_bf16(x[2], x[3]);
       }
-      dsf[j / 2][(j & 1) * 2] = fatt::pack_bf16(x[0], x[1]);
-      dsf[j / 2][(j & 1) * 2 + 1] = fatt::pack_bf16(x[2], x[3]);
     }
 
     pin_parts(acc);
@@ -434,14 +603,14 @@ __global__ void __launch_bounds__(Geo<kD, kLocal>::kDqThreads,
   }
 }
 
-template <int kD, bool kLocal>
-__global__ void __launch_bounds__(Geo<kD, kLocal>::kDkvThreads, 1) dkv_kernel(
+template <int kD, bool kLocal, bool kOpt>
+__global__ void __launch_bounds__(Geo<kD, kLocal, kOpt>::kDkvThreads, 1) dkv_kernel(
     const __nv_bfloat16* __restrict__ rq, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
     float* __restrict__ dk, float* __restrict__ dv, int Sq, int Sk, int H, int Hk,
-    float scale, int causal, int wleft, int wright, float softcap2) {
-  using G = Geo<kD, kLocal>;
+    float scale, int causal, int wleft, int wright, float softcap2, const Opt o) {
+  using G = Geo<kD, kLocal, kOpt>;
   constexpr int kKeyWgs = G::kKeyWarpgroups, kThreads = G::kDkvThreads;
   constexpr int kBlockRows = G::kDkvRows, kTileBytes = G::kTileBytes;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -482,9 +651,28 @@ __global__ void __launch_bounds__(Geo<kD, kLocal>::kDkvThreads, 1) dkv_kernel(
     n_iter = max(qt_end - qt0, 0);
   }
 
-  // R(q), dO, lse and delta of query tile qt0 + it into ring stage st.
+  // kOpt with segment ids or positions: the live query tiles, listed.
+  const bool meta = G::kOpt && o.qrange != nullptr;
+  const int nq64 = (Sq + kRows - 1) / kRows, nk64 = (Sk + kRows - 1) / kRows;
+  int* list = reinterpret_cast<int*>(smem + G::kDkvSmem);
+  if constexpr (G::kOpt) {
+    __shared__ int warp_live[kThreads / 32];
+    if (meta) {
+      const int4 kr = tile_range(o.krange + (int64_t)b * nk64, k0 / kRows,
+                                 kBlockRows / kRows, nk64);
+      const int4* qr = o.qrange + (int64_t)b * nq64;
+      n_iter = build_list<kThreads>(list, warp_live, qt0, n_iter,
+                                    [&](int t, bool& full) { return ranges_live(qr[t], kr, full); });
+    }
+  }
+  // query tile of the walk's step it, and whether no segment or position
+  // masks it
+  auto tile_of = [&](int it) { return meta ? list[it] & (kFullBit - 1) : qt0 + it; };
+  auto full_at = [&](int it) { return !meta || (list[it] & kFullBit) != 0; };
+
+  // R(q), dO, lse and delta of query tile tile_of(it) into ring stage st.
   auto load_q = [&](int st, int it) {
-    const int q0 = (qt0 + it) * kRows;
+    const int q0 = tile_of(it) * kRows;
     const uint32_t rs = ring + st * 2 * kTileBytes;
     load_tile<kD, kThreads>(rs, rq, b, q0, Sq, H, h);
     load_tile<kD, kThreads>(rs + kTileBytes, dout, b, q0, Sq, H, h);
@@ -514,6 +702,21 @@ __global__ void __launch_bounds__(Geo<kD, kLocal>::kDkvThreads, 1) dkv_kernel(
   const float sl2 = scale * kLog2e;
   const bool capped = G::kLocal && softcap2 > 0.f;
   const float cap_in = capped ? sl2 / softcap2 : 0.f;
+  // kOpt: this thread's keys' (segment, position), this (batch, head)'s
+  // bias plane and the dropout hash's mix
+  int2 km[2] = {make_int2(0, 0), make_int2(0, 0)};
+  const float* bias_bh = nullptr;
+  uint32_t mix = 0u;
+  if constexpr (G::kOpt) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int key = my_key + hf * 8;
+      if (meta && key < nk64 * kRows) km[hf] = o.kmeta[(int64_t)b * nk64 * kRows + key];
+    }
+    if (o.bias != nullptr) bias_bh = o.bias + b * o.bs_b + h * o.bs_h;
+    mix = fatt::drop_mix(o.seed, b, h);
+  }
+  const int2* qmeta_b = G::kOpt && meta ? o.qmeta + (int64_t)b * nq64 * kRows : nullptr;
   float dk_acc[kOwn][32], dv_acc[kOwn][32];  // 64-column parts of this warpgroup's
   zero(dk_acc);
   zero(dv_acc);
@@ -527,7 +730,7 @@ __global__ void __launch_bounds__(Geo<kD, kLocal>::kDkvThreads, 1) dkv_kernel(
     const uint32_t ds = rs + kTileBytes;
     const float* lse_s = stats_ptr + (it & 1) * 2 * kRows;
     const float* delta_s = lse_s + kRows;
-    const int q0 = (qt0 + it) * kRows;
+    const int q0 = tile_of(it) * kRows;
 
     float st[32], dpt[32];
     zero(st);
@@ -552,38 +755,85 @@ __global__ void __launch_bounds__(Geo<kD, kLocal>::kDkvThreads, 1) dkv_kernel(
       if (wright >= 0) edge = edge || wkey0 + 15 > q0 + shift + wright;
     }
     uint32_t pf[4][4], dsf[4][4];
+    if constexpr (!G::kOpt) {
 #pragma unroll
-    for (int j = 0; j < kRows / 8; ++j) {
-      const int c = j * 8 + (lane & 3) * 2;
-      const float2 l = *reinterpret_cast<const float2*>(lse_s + c);
-      const float2 d = *reinterpret_cast<const float2*>(delta_s + c);
-      const float l2[2] = {lse_base2(l.x), lse_base2(l.y)}, dl[2] = {d.x, d.y};
-      float p[4], x[4];
+      for (int j = 0; j < kRows / 8; ++j) {
+        const int c = j * 8 + (lane & 3) * 2;
+        const float2 l = *reinterpret_cast<const float2*>(lse_s + c);
+        const float2 d = *reinterpret_cast<const float2*>(delta_s + c);
+        const float l2[2] = {lse_base2(l.x), lse_base2(l.y)}, dl[2] = {d.x, d.y};
+        float p[4], x[4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float dt = 1.f;
-        if (capped) {
-          const float tc = fatt::tanh_exp2(st[4 * j + e] * cap_in);
-          p[e] = exp2f(fmaf(tc, softcap2, -l2[e & 1]));
-          dt = 1.f - tc * tc;
-        } else {
-          p[e] = exp2f(fmaf(st[4 * j + e], sl2, -l2[e & 1]));
+        for (int e = 0; e < 4; ++e) {
+          float dt = 1.f;
+          if (capped) {
+            const float tc = fatt::tanh_exp2(st[4 * j + e] * cap_in);
+            p[e] = exp2f(fmaf(tc, softcap2, -l2[e & 1]));
+            dt = 1.f - tc * tc;
+          } else {
+            p[e] = exp2f(fmaf(st[4 * j + e], sl2, -l2[e & 1]));
+          }
+          if (edge) {
+            const int key = my_key + (e >> 1) * 8, col = q0 + c + (e & 1);
+            bool dead = key >= Sk || col >= Sq || (causal && key > col + shift);
+            if constexpr (G::kLocal)
+              dead = dead || (wleft >= 0 && key < col + shift - wleft) ||
+                     (wright >= 0 && key > col + shift + wright);
+            if (dead) p[e] = 0.f;
+          }
+          x[e] = p[e] * (dpt[4 * j + e] - dl[e & 1]);
+          if (capped) x[e] *= dt;
         }
-        if (edge) {
-          const int key = my_key + (e >> 1) * 8, col = q0 + c + (e & 1);
-          bool dead = key >= Sk || col >= Sq || (causal && key > col + shift);
-          if constexpr (G::kLocal)
-            dead = dead || (wleft >= 0 && key < col + shift - wleft) ||
-                   (wright >= 0 && key > col + shift + wright);
-          if (dead) p[e] = 0.f;
-        }
-        x[e] = p[e] * (dpt[4 * j + e] - dl[e & 1]);
-        if (capped) x[e] *= dt;
+        pf[j / 2][(j & 1) * 2] = fatt::pack_bf16(p[0], p[1]);
+        pf[j / 2][(j & 1) * 2 + 1] = fatt::pack_bf16(p[2], p[3]);
+        dsf[j / 2][(j & 1) * 2] = fatt::pack_bf16(x[0], x[1]);
+        dsf[j / 2][(j & 1) * 2 + 1] = fatt::pack_bf16(x[2], x[3]);
       }
-      pf[j / 2][(j & 1) * 2] = fatt::pack_bf16(p[0], p[1]);
-      pf[j / 2][(j & 1) * 2 + 1] = fatt::pack_bf16(p[2], p[3]);
-      dsf[j / 2][(j & 1) * 2] = fatt::pack_bf16(x[0], x[1]);
-      dsf[j / 2][(j & 1) * 2 + 1] = fatt::pack_bf16(x[2], x[3]);
+    } else {
+      // kOpt (no window, no cap): the bias on the scores, the segment and
+      // position masks where the list does not say the tile is live
+      // throughout, and the dropout's replay on P (for dv) and dP
+      const bool seg_mask = !full_at(it);
+      edge = edge || seg_mask;
+#pragma unroll
+      for (int j = 0; j < kRows / 8; ++j) {
+        const int c = j * 8 + (lane & 3) * 2;
+        const float2 l = *reinterpret_cast<const float2*>(lse_s + c);
+        const float2 d = *reinterpret_cast<const float2*>(delta_s + c);
+        const float l2[2] = {lse_base2(l.x), lse_base2(l.y)}, dl[2] = {d.x, d.y};
+        // queries c and c + 1 of the tile: (segment, position) each
+        int4 qm = make_int4(0, 0, 0, 0);
+        if (seg_mask) qm = __ldg(reinterpret_cast<const int4*>(qmeta_b + q0 + c));
+        float pd[4], x[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = my_key + (e >> 1) * 8, col = q0 + c + (e & 1);
+          float a = -l2[e & 1];
+          if (bias_bh != nullptr && key < Sk && col < Sq)
+            a = fmaf(__ldg(bias_bh + col * o.bs_q + key * o.bs_k), kLog2e, a);
+          float p = exp2f(fmaf(st[4 * j + e], sl2, a));
+          if (edge) {
+            bool dead = key >= Sk || col >= Sq || (causal && key > col + shift);
+            if (seg_mask) {
+              const int qseg = (e & 1) ? qm.z : qm.x, qpos = (e & 1) ? qm.w : qm.y;
+              dead = dead || km[e >> 1].x != qseg || km[e >> 1].y > qpos;
+            }
+            if (dead) p = 0.f;
+          }
+          float dpv = dpt[4 * j + e];
+          pd[e] = p;
+          if (o.dropout) {
+            const bool keep = fatt::drop_keep(fatt::drop_row(mix, col), key, o.threshold);
+            dpv = keep ? dpv * o.inv_keep : 0.f;
+            pd[e] = keep ? p * o.inv_keep : 0.f;
+          }
+          x[e] = p * (dpv - dl[e & 1]);
+        }
+        pf[j / 2][(j & 1) * 2] = fatt::pack_bf16(pd[0], pd[1]);
+        pf[j / 2][(j & 1) * 2 + 1] = fatt::pack_bf16(pd[2], pd[3]);
+        dsf[j / 2][(j & 1) * 2] = fatt::pack_bf16(x[0], x[1]);
+        dsf[j / 2][(j & 1) * 2 + 1] = fatt::pack_bf16(x[2], x[3]);
+      }
     }
 
     pin_parts(dv_acc);
@@ -634,43 +884,59 @@ bool shape_ok(int B, int Sq, int Sk, int H, int Hk, int D, int causal, int wleft
          !(D == 256 && !causal);
 }
 
-template <int kD, bool kLocal>
+template <int kD, bool kLocal, bool kOpt>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
               const void* delta, const void* cosv, const void* sinv, void* dq, void* rq,
               int B, int Sq, int Sk, int H, int Hk, int rope_bstride, float scale, int causal,
-              int wleft, int wright, float softcap2, cudaStream_t st) {
-  using G = Geo<kD, kLocal>;
+              int wleft, int wright, float softcap2, const Opt& o, cudaStream_t st) {
+  using G = Geo<kD, kLocal, kOpt>;
+  constexpr int kSmem = G::kDqSmem + G::kListBytes;
   static fatt::SmemLimitSet smem_set;
-  cudaError_t e = fatt::smem_limit_once(dq_kernel<kD, kLocal>, G::kDqSmem, smem_set);
+  cudaError_t e = fatt::smem_limit_once(dq_kernel<kD, kLocal, kOpt>, kSmem, smem_set);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(H, B, (Sq + G::kDqRows - 1) / G::kDqRows);
-  dq_kernel<kD, kLocal><<<grid, G::kDqThreads, G::kDqSmem, st>>>(
+  dq_kernel<kD, kLocal, kOpt><<<grid, G::kDqThreads, kSmem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<const float*>(cosv), static_cast<const float*>(sinv),
       static_cast<float*>(dq), static_cast<__nv_bfloat16*>(rq), Sq, Sk, H, Hk, rope_bstride,
-      scale, causal, wleft, wright, softcap2);
+      scale, causal, wleft, wright, softcap2, o);
   return (int)cudaGetLastError();
 }
 
-template <int kD, bool kLocal>
+template <int kD, bool kLocal, bool kOpt>
 int launch_dkv(const void* rq, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv, int B, int Sq, int Sk,
                int H, int Hk, float scale, int causal, int wleft, int wright, float softcap2,
-               cudaStream_t st) {
-  using G = Geo<kD, kLocal>;
+               const Opt& o, cudaStream_t st) {
+  using G = Geo<kD, kLocal, kOpt>;
+  constexpr int kSmem = G::kDkvSmem + G::kListBytes;
   static fatt::SmemLimitSet smem_set;
-  cudaError_t e = fatt::smem_limit_once(dkv_kernel<kD, kLocal>, G::kDkvSmem, smem_set);
+  cudaError_t e = fatt::smem_limit_once(dkv_kernel<kD, kLocal, kOpt>, kSmem, smem_set);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(H, B, (Sk + G::kDkvRows - 1) / G::kDkvRows);
-  dkv_kernel<kD, kLocal><<<grid, G::kDkvThreads, G::kDkvSmem, st>>>(
+  dkv_kernel<kD, kLocal, kOpt><<<grid, G::kDkvThreads, kSmem, st>>>(
       static_cast<const __nv_bfloat16*>(rq), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<float*>(dk), static_cast<float*>(dv), Sq, Sk, H, Hk, scale, causal, wleft,
-      wright, softcap2);
+      wright, softcap2, o);
   return (int)cudaGetLastError();
+}
+
+// The kOpt arguments of a C entry, checked: the four tile-metadata
+// pointers all or none (with at most kMaxListTiles tiles a side), kOpt
+// only at head_dim 64 and 128 without a window or softcap.  Sets opt when
+// any option is given.
+bool opt_ok(const Opt& o, int Sq, int Sk, int D, bool local, bool& opt) {
+  const int given = (o.qmeta != nullptr) + (o.kmeta != nullptr) + (o.qrange != nullptr) +
+                    (o.krange != nullptr);
+  opt = given != 0 || o.bias != nullptr || o.dropout != 0;
+  if (!opt) return true;
+  return (given == 0 || given == 4) && (D == 64 || D == 128) && !local &&
+         (Sq + kRows - 1) / kRows <= kMaxListTiles && (Sk + kRows - 1) / kRows <= kMaxListTiles &&
+         (o.dropout == 0 || o.inv_keep > 0.f);
 }
 
 }  // namespace
@@ -682,38 +948,63 @@ int launch_dkv(const void* rq, const void* k, const void* v, const void* dout,
 // window_left / window_right: the window's sides (-1 open); softcap2: the
 // logit softcap in base-2 units (cap * log2 e), 0 for none; both at
 // head_dim 128 and 256.  head_dim 64, 128 or 256 (256 causal only).
+// qmeta, kmeta, qrange, krange: segment ids and positions as K4 takes them
+// (all four or none); bias: null, or fp32 in natural units, element
+// (b, h, i, j) at b bs_b + h bs_h + i bs_q + j bs_k; dropout: 0, or 1 with
+// the seed's bits, the keep threshold and inv_keep = f32(1 / (1 - rate)).
+// These at head_dim 64 and 128, without a window or softcap.
 extern "C" int fatt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse, const void* delta,
                                  const void* cosv, const void* sinv, void* dq, void* rq,
                                  int B, int Sq, int Sk, int H, int Hk, int D,
                                  int rope_bstride, float scale, int causal, int window_left,
-                                 int window_right, float softcap2, void* stream) {
-  if (!shape_ok(B, Sq, Sk, H, Hk, D, causal, window_left, window_right, softcap2))
-    return (int)cudaErrorInvalidValue;
+                                 int window_right, float softcap2, const void* qmeta,
+                                 const void* kmeta, const void* qrange, const void* krange,
+                                 const float* bias, int64_t bs_b, int64_t bs_h, int64_t bs_q,
+                                 int64_t bs_k, int dropout, uint32_t seed, uint32_t threshold,
+                                 float inv_keep, void* stream) {
+  const Opt o{static_cast<const int2*>(qmeta), static_cast<const int2*>(kmeta),
+              static_cast<const int4*>(qrange), static_cast<const int4*>(krange), bias, bs_b,
+              bs_h, bs_q, bs_k, dropout, seed, threshold, inv_keep};
   const bool local = window_left >= 0 || window_right >= 0 || softcap2 > 0.f;
-  auto fn = D == 256 ? launch_dq<256, true>
-            : D == 64 ? launch_dq<64, false>
-            : local   ? launch_dq<128, true>
-                      : launch_dq<128, false>;
+  bool opt = false;
+  if (!shape_ok(B, Sq, Sk, H, Hk, D, causal, window_left, window_right, softcap2) ||
+      !opt_ok(o, Sq, Sk, D, local, opt))
+    return (int)cudaErrorInvalidValue;
+  auto fn = D == 256 ? launch_dq<256, true, false>
+            : D == 64 ? (opt ? launch_dq<64, false, true> : launch_dq<64, false, false>)
+            : opt     ? launch_dq<128, false, true>
+            : local   ? launch_dq<128, true, false>
+                      : launch_dq<128, false, false>;
   return fn(q, k, v, dout, lse, delta, cosv, sinv, dq, rq, B, Sq, Sk, H, Hk, rope_bstride,
-            scale, causal, window_left, window_right, softcap2,
+            scale, causal, window_left, window_right, softcap2, o,
             static_cast<cudaStream_t>(stream));
 }
 
-// rq: R(q) [B, Sq, H, D] bf16 (q itself without rope); the rest as
-// fatt_flash_bwd_dq.  dk, dv: [B, H, Sk, D] fp32, per query head.
+// rq: R(q) [B, Sq, H, D] bf16 (q itself without rope); the rest, the
+// options included, as fatt_flash_bwd_dq.  dk, dv: [B, H, Sk, D] fp32, per query head.
 extern "C" int fatt_flash_bwd_dkv(const void* rq, const void* k, const void* v,
                                   const void* dout, const void* lse, const void* delta,
                                   void* dk, void* dv, int B, int Sq, int Sk, int H, int Hk,
                                   int D, float scale, int causal, int window_left,
-                                  int window_right, float softcap2, void* stream) {
-  if (!shape_ok(B, Sq, Sk, H, Hk, D, causal, window_left, window_right, softcap2))
-    return (int)cudaErrorInvalidValue;
+                                  int window_right, float softcap2, const void* qmeta,
+                                  const void* kmeta, const void* qrange, const void* krange,
+                                  const float* bias, int64_t bs_b, int64_t bs_h, int64_t bs_q,
+                                  int64_t bs_k, int dropout, uint32_t seed, uint32_t threshold,
+                                  float inv_keep, void* stream) {
+  const Opt o{static_cast<const int2*>(qmeta), static_cast<const int2*>(kmeta),
+              static_cast<const int4*>(qrange), static_cast<const int4*>(krange), bias, bs_b,
+              bs_h, bs_q, bs_k, dropout, seed, threshold, inv_keep};
   const bool local = window_left >= 0 || window_right >= 0 || softcap2 > 0.f;
-  auto fn = D == 256 ? launch_dkv<256, true>
-            : D == 64 ? launch_dkv<64, false>
-            : local   ? launch_dkv<128, true>
-                      : launch_dkv<128, false>;
+  bool opt = false;
+  if (!shape_ok(B, Sq, Sk, H, Hk, D, causal, window_left, window_right, softcap2) ||
+      !opt_ok(o, Sq, Sk, D, local, opt))
+    return (int)cudaErrorInvalidValue;
+  auto fn = D == 256 ? launch_dkv<256, true, false>
+            : D == 64 ? (opt ? launch_dkv<64, false, true> : launch_dkv<64, false, false>)
+            : opt     ? launch_dkv<128, false, true>
+            : local   ? launch_dkv<128, true, false>
+                      : launch_dkv<128, false, false>;
   return fn(rq, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, Hk, scale, causal, window_left,
-            window_right, softcap2, static_cast<cudaStream_t>(stream));
+            window_right, softcap2, o, static_cast<cudaStream_t>(stream));
 }

@@ -1,8 +1,10 @@
 // K4: FlashAttention-2 forward, BSHD bf16, head_dim 64, 128 or 256, causal
 // (bottom-right) GQA prefill with q-side RoPE applied in the kernel,
 // "clamped" or "online" softmax, fp32 LSE, an optional sliding window and
-// logit softcap (Gemma-2), and optional segment ids and positions (the
-// packed and chunked prefill's masks; head_dim 64 or 128, no window).
+// logit softcap (Gemma-2), optional segment ids and positions (the
+// packed and chunked prefill's masks; head_dim 64 or 128, no window), and
+// an optional additive fp32 bias and counter-based dropout (the C ABI's
+// attn_mask and dropout; head_dim 64 or 128, with or without the masks).
 //
 // Replaces flash_attn_tpu/ops/flash_fwd.py:_fwd_kernel (B7) on the subset
 // the Llama, Gemma-2 and GPT-2 prefill paths and the training forward use
@@ -102,6 +104,24 @@
 // part (8 KB): QK^T takes 4 depth steps, PV one n64 product.  The O
 // accumulator (32 fp32 registers) and the ring (two stages of 16 KB) are
 // half of D = 128's, so ptxas is asked for four blocks an SM.
+//
+// Bias and dropout (the kExtra instances, beside each head_dim 64 and 128
+// instance with and without masks; the others keep their code, as kLocal's
+// do): flash_fwd.py:369-372, 451-456, 764-766.
+//   * the bias is fp32, read through four strides (0 on a broadcast axis,
+//     so a [Sq, Sk] or [B, 1, Sq, Sk] mask is never materialised over the
+//     heads): each thread loads its score entries' values straight from
+//     device memory (L1/L2 serve a quad's 32 consecutive bytes a row) and
+//     adds bias * log2(e), both rounded apart as JAX rounds them, then
+//     clamps at -1e30, so a -inf entry is dead and a row of them gives 0
+//     and lse -1e30 as JAX's clamp does.  A broadcast [Sq, Sk] bias is
+//     read again by every head's blocks: at 8192^2 (256 MiB) L2 holds none
+//     of it across heads;
+//   * dropout hashes (seed, b, h, row, column) per live element
+//     (fatt::drop_keep, keyed on the query head h, not the KV head) and
+//     multiplies kept P by 1 / f32(1 - rate) (a division, as JAX's) before
+//     P is packed for PV; the row sums, and so out's normalisation and
+//     the LSE, are the undropped P's.
 #include "common.cuh"
 
 namespace {
@@ -120,6 +140,7 @@ constexpr int kMaxListTiles = 4096;
 constexpr int kFullBit = 1 << 30;  // list entry: live throughout, no mask
 constexpr float kClamp2 = 80.f;
 constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 // The tile geometry of head dim kD (64, 128 or 256).
 template <int kD>
@@ -166,9 +187,13 @@ __device__ __forceinline__ void attn_qk_smem(float (&s)[8][4], uint32_t qt, uint
 // segment, greatest position) per tile.  Read only by the kMeta instance.
 // The kLocal instances apply the window (wleft, wright; -1 open) and the
 // softcap (softcap2, the cap in base-2 units; 0 for none); the others
-// ignore all three.
-template <int kD, bool kMeta, bool kLocal>
-__global__ void __launch_bounds__(kThreads, kD == 64 ? 4 : kD == 128 ? 2 : 1) flash_fwd_kernel(
+// ignore all three.  The kExtra instances apply the bias (null for none;
+// element (b, h, i, j) at b bs_b + h bs_h + i bs_q + j bs_k) and, where
+// dropout != 0, dropout (seed bits, threshold, keep_div = f32(1 - rate));
+// the others ignore them.
+template <int kD, bool kMeta, bool kLocal, bool kExtra>
+__global__ void __launch_bounds__(kThreads, kD == 64 ? (kExtra ? 3 : 4) : kD == 128 ? 2 : 1)
+    flash_fwd_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const float* __restrict__ cosv,
     const float* __restrict__ sinv, __nv_bfloat16* __restrict__ out,
@@ -176,7 +201,9 @@ __global__ void __launch_bounds__(kThreads, kD == 64 ? 4 : kD == 128 ? 2 : 1) fl
     const int2* __restrict__ kmeta, const int4* __restrict__ qrange,
     const int4* __restrict__ krange, int* __restrict__ tile_count, int Sq, int Sk,
     int H, int Hk, int rope_bstride, float eff_scale, int causal, int clamped, int wleft,
-    int wright, float softcap2) {
+    int wright, float softcap2, const float* __restrict__ bias, int64_t bs_b, int64_t bs_h,
+    int64_t bs_q, int64_t bs_k, int dropout, uint32_t seed, uint32_t threshold,
+    float keep_div) {
   using G = Dims<kD>;
   constexpr int kChunks = G::kChunks;
   constexpr int kTileBytes = G::kTileBytes;
@@ -391,6 +418,16 @@ __global__ void __launch_bounds__(kThreads, kD == 64 ? 4 : kD == 128 ? 2 : 1) fl
     qm[0] = qrow[my_row];
     qm[1] = qrow[my_row + 8];
   }
+  // kExtra: this (batch, head)'s bias plane and this thread's rows' part
+  // of the dropout hash.
+  const float* bias_bh = nullptr;
+  uint32_t drop_rows[2] = {0u, 0u};
+  if constexpr (kExtra) {
+    if (bias != nullptr) bias_bh = bias + b * bs_b + h * bs_h;
+    const uint32_t mix = fatt::drop_mix(seed, b, h);
+    drop_rows[0] = fatt::drop_row(mix, my_row);
+    drop_rows[1] = fatt::drop_row(mix, my_row + 8);
+  }
 
   for (int t = 0; t < n_live; ++t) {
     if (t + kStages - 1 < n_live)
@@ -417,6 +454,21 @@ __global__ void __launch_bounds__(kThreads, kD == 64 ? 4 : kD == 128 ? 2 : 1) fl
       for (int j = 0; j < kBK / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] = softcap2 * fatt::tanh_exp2(s[j][e] * inv_cap);
+    }
+    // kExtra: s = max(s + bias log2 e, -1e30) on this thread's in-range entries
+    if (kExtra && bias_bh != nullptr) {
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + j * 8 + (lane & 3) * 2 + (e & 1);
+          const int row = my_row + (e >> 1) * 8;
+          if (row < Sq && col < Sk) {
+            const float bv = __ldg(bias_bh + row * bs_q + col * bs_k);
+            s[j][e] = fmaxf(__fadd_rn(s[j][e], __fmul_rn(bv, kLog2e)), kNegInf);
+          }
+        }
+      }
     }
 
     // Mask only where this warp's diagonal, a window edge of its rows or
@@ -475,6 +527,15 @@ __global__ void __launch_bounds__(kThreads, kD == 64 ? 4 : kD == 128 ? 2 : 1) fl
       for (int e = 0; e < 4; ++e) {
         p[e] = clamped ? exp2f(fminf(s[j][e], kClamp2)) : exp2f(s[j][e] - m_run[e >> 1]);
         psum[e >> 1] += p[e];
+      }
+      // kExtra: dropout after the row sums took the undropped P
+      if (kExtra && dropout) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + j * 8 + (lane & 3) * 2 + (e & 1);
+          p[e] = fatt::drop_keep(drop_rows[e >> 1], col, threshold) ? __fdiv_rn(p[e], keep_div)
+                                                                    : 0.f;
+        }
       }
       fatt::put_p(pf, j, p);
     }
@@ -535,30 +596,41 @@ __global__ void __launch_bounds__(kThreads, kD == 64 ? 4 : kD == 128 ? 2 : 1) fl
   }
 }
 
-template <int kD, bool kMeta, bool kLocal>
+// The bias and dropout arguments of the C entry, as the kernel takes them.
+struct Extra {
+  const float* bias;
+  int64_t bs_b, bs_h, bs_q, bs_k;
+  int dropout;
+  uint32_t seed, threshold;
+  float keep_div;
+};
+
+template <int kD, bool kMeta, bool kLocal, bool kExtra>
 int launch(const void* q, const void* k, const void* v, const void* cosv,
            const void* sinv, void* out, void* lse, const void* qmeta,
            const void* kmeta, const void* qrange, const void* krange, int* tile_count,
            int B, int Sq, int Sk, int H, int Hk, int rope_bstride, float eff_scale,
-           int causal, int clamped, int wleft, int wright, float softcap2, cudaStream_t st) {
+           int causal, int clamped, int wleft, int wright, float softcap2, const Extra& x,
+           cudaStream_t st) {
   static fatt::SmemLimitSet smem_set;
   constexpr int kSmemBytes = Dims<kD>::kSmemBytes;
   constexpr int kMaxSmem =
       kSmemBytes + (kMeta ? kStages * kMetaBytes + kMaxListTiles * 4 : 0);
   cudaError_t e =
-      fatt::smem_limit_once(flash_fwd_kernel<kD, kMeta, kLocal>, kMaxSmem, smem_set);
+      fatt::smem_limit_once(flash_fwd_kernel<kD, kMeta, kLocal, kExtra>, kMaxSmem, smem_set);
   if (e != cudaSuccess) return (int)e;
   const int nk = (Sk + kBK - 1) / kBK;
   const int smem = kSmemBytes + (kMeta ? kStages * kMetaBytes + nk * 4 : 0);
   dim3 grid(H, B, (Sq + kBQ - 1) / kBQ);
-  flash_fwd_kernel<kD, kMeta, kLocal><<<grid, kThreads, smem, st>>>(
+  flash_fwd_kernel<kD, kMeta, kLocal, kExtra><<<grid, kThreads, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(cosv),
       static_cast<const float*>(sinv), static_cast<__nv_bfloat16*>(out),
       static_cast<float*>(lse), static_cast<const int2*>(qmeta),
       static_cast<const int2*>(kmeta), static_cast<const int4*>(qrange),
       static_cast<const int4*>(krange), tile_count, Sq, Sk, H, Hk, rope_bstride,
-      eff_scale, causal, clamped, wleft, wright, softcap2);
+      eff_scale, causal, clamped, wleft, wright, softcap2, x.bias, x.bs_b, x.bs_h, x.bs_q,
+      x.bs_k, x.dropout, x.seed, x.threshold, x.keep_div);
   return (int)cudaGetLastError();
 }
 
@@ -582,6 +654,11 @@ bool bad_shape(int B, int Sq, int H, int Hk, int D) {
 // window_left / window_right: the window's sides (-1 open); softcap2: the
 // logit softcap in base-2 units (cap * log2 e), 0 for none; both at
 // head_dim 128 and 256, without masks.  Masks at head_dim 64 and 128.
+// bias: null, or fp32 in natural units, element (b, h, i, j) at
+// b bs_b + h bs_h + i bs_q + j bs_k (0 on a broadcast axis).  dropout:
+// 0, or 1 with the seed's 32 bits, the keep threshold and keep_div =
+// f32(1 - rate).  Both at head_dim 64 and 128, with or without masks,
+// without a window or softcap.
 extern "C" int fatt_flash_fwd(const void* q, const void* k, const void* v,
                               const void* cosv, const void* sinv, void* out,
                               void* lse, const void* qmeta, const void* kmeta,
@@ -589,22 +666,32 @@ extern "C" int fatt_flash_fwd(const void* q, const void* k, const void* v,
                               int B, int Sq, int Sk, int H, int Hk, int D,
                               int rope_bstride, float eff_scale, int causal,
                               int clamped, int window_left, int window_right,
-                              float softcap2, void* stream) {
+                              float softcap2, const float* bias, int64_t bs_b, int64_t bs_h,
+                              int64_t bs_q, int64_t bs_k, int dropout, uint32_t seed,
+                              uint32_t threshold, float keep_div, void* stream) {
   const int given = (qmeta != nullptr) + (kmeta != nullptr) + (qrange != nullptr) +
                     (krange != nullptr);
   const bool local = window_left >= 0 || window_right >= 0 || softcap2 > 0.f;
+  const bool extra = bias != nullptr || dropout != 0;
   // With masks a block lists at most kMaxListTiles key tiles.
   if (bad_shape(B, Sq, H, Hk, D) || window_left < -1 || window_right < -1 ||
-      !(softcap2 >= 0.f) || (local && (D == 64 || given != 0)) ||
+      !(softcap2 >= 0.f) || (local && (D == 64 || given != 0 || extra)) ||
+      (extra && (D == 256 || !(keep_div > 0.f))) ||
       (given != 0 && (given != 4 || D == 256 || (Sk + kBK - 1) / kBK > kMaxListTiles)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto fn = D == 256  ? launch<256, false, true>
-            : D == 64 ? (given != 0 ? launch<64, true, false> : launch<64, false, false>)
-            : given != 0 ? launch<128, true, false>
-            : local      ? launch<128, false, true>
-                         : launch<128, false, false>;
+  const Extra x{bias, bs_b, bs_h, bs_q, bs_k, dropout, seed, threshold, keep_div};
+  auto fn = D == 256 ? launch<256, false, true, false>
+            : D == 64 ? (extra ? (given != 0 ? launch<64, true, false, true>
+                                             : launch<64, false, false, true>)
+                               : (given != 0 ? launch<64, true, false, false>
+                                             : launch<64, false, false, false>))
+            : extra      ? (given != 0 ? launch<128, true, false, true>
+                                       : launch<128, false, false, true>)
+            : given != 0 ? launch<128, true, false, false>
+            : local      ? launch<128, false, true, false>
+                         : launch<128, false, false, false>;
   return fn(q, k, v, cosv, sinv, out, lse, qmeta, kmeta, qrange, krange, tile_count, B, Sq,
             Sk, H, Hk, rope_bstride, eff_scale, causal, clamped, window_left, window_right,
-            softcap2, st);
+            softcap2, x, st);
 }

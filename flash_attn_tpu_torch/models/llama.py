@@ -308,15 +308,17 @@ def _refuse_local(cfg, path: str):
             raise NotImplementedError(f"{path} with {name} is not ported yet")
 
 
-def _block_train(x, blk, cfg, cos, sin, mlp):
+def _block_train(x, blk, cfg, cos, sin, mlp, segment_ids=None):
     """One layer of the training forward: causal attention with q rotated
-    inside the kernel (online softmax), then the MLP."""
+    inside the kernel (online softmax), within each document where
+    ``segment_ids`` are given, then the MLP."""
     b, s, _ = x.shape
     h = _rms_norm(x, blk["attn_norm"], cfg.rms_eps)
     q, k, v = _qkv(h, blk, cfg, b, s)
     k = rope_rotate(k, cos, sin)
     attn = flash_attention(q.contiguous(), k, v.contiguous(), causal=True,
                            window=_wnd(cfg), logit_softcap=cfg.attn_logit_softcap,
+                           q_segment_ids=segment_ids, kv_segment_ids=segment_ids,
                            rope_cos=cos, rope_sin=sin)
     x = x + _proj(attn.reshape(b, s, cfg.num_heads * cfg.head_dim), blk["wo"])
     return mlp(x, blk, cfg)
@@ -328,9 +330,13 @@ def forward(params, tokens, cfg: LlamaConfig, *, positions=None,
     differentiable w.r.t. every float param.  ``remat`` checkpoints each
     block (``torch.utils.checkpoint``): the backward reruns its forward,
     K4 included.  ``jax.checkpoint`` of the whole forward, as the JAX
-    train step does it, gives the same values."""
+    train step does it, gives the same values.  ``segment_ids`` [B, S]
+    (packed documents, with ``positions`` restarting a document for RoPE)
+    keep each query to its own document's keys, causal within it, as JAX's
+    ``_block_attn`` does: K4 with segment ids forward, K9 and K10 with
+    them backward."""
     if segment_ids is not None:
-        raise NotImplementedError("forward option 'segment_ids' is not ported yet")
+        _refuse_local(cfg, "forward with segment_ids")
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
@@ -338,9 +344,10 @@ def forward(params, tokens, cfg: LlamaConfig, *, positions=None,
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     for blk in params["blocks"]:
         if remat:
-            x = checkpoint(_block_train, x, blk, cfg, cos, sin, mlp, use_reentrant=False)
+            x = checkpoint(_block_train, x, blk, cfg, cos, sin, mlp, segment_ids,
+                           use_reentrant=False)
         else:
-            x = _block_train(x, blk, cfg, cos, sin, mlp)
+            x = _block_train(x, blk, cfg, cos, sin, mlp, segment_ids)
     x = _rms_norm(x, params["final_norm"], cfg.rms_eps)
     head = params["tok_emb"].T if cfg.tie_embeddings else params["lm_head"]
     return _proj(x.float(), head)

@@ -1,13 +1,16 @@
 """FlashAttention-2 backward (kernels K9 and K10, ``csrc/flash_bwd.cu``).
 
 Port of flash_attn_tpu/ops/flash_bwd.py:flash_bwd for the subset the
-GPT-2, Llama and Gemma-2 training steps use: BSHD layout, GQA,
-bottom-right causal mask, q-side RoPE, ``scale``, a sliding window and
-the logit softcap (``_recompute_p_ds``, flash_bwd.py:48-131).  On the
-card: head_dim 64 (GPT-2) without window and softcap, 128 (Llama-3;
-Gemma-2-27B with them) causal or not, or 256 (Gemma-2-9B) causal with or
-without them.  Bias and dbias, segment ids, positions, ALiBi, dropout and
-fp16 are still to port and raise ``NotImplementedError``.
+GPT-2, Llama and Gemma-2 training steps, packed-document training and the
+C ABI's backward entry points use: BSHD layout, GQA, bottom-right causal
+mask, q-side RoPE, ``scale``, a sliding window and the logit softcap,
+segment ids, positions, an additive bias and dropout (``_recompute_p_ds``,
+flash_bwd.py:48-131).  On the card: head_dim 64 (GPT-2) and 128 (Llama-3)
+with segment ids, positions, a bias or dropout and without window and
+softcap, 128 (Gemma-2-27B) with them, causal or not, or 256 (Gemma-2-9B)
+causal with or without them.  fp16 computes as bf16 and the gradients
+are cast back (flash_bwd.py:300-312).  dbias and ALiBi are still to port
+and raise ``NotImplementedError``.
 
 As on the TPU: ``delta = rowsum(dout * out)`` is plain fp32 arithmetic
 outside the kernels; the dq pass (K9) and the dk/dv pass (K10) each
@@ -20,6 +23,10 @@ forward's by rounding, as in the reference.  With the softcap, s becomes
 cap * tanh(s / cap) before P, and dS = P (dP - delta) (1 - tanh^2) feeds
 dq and dk while dv takes P.  The window (left, right; -1 open) keeps key
 j for query i only where i + Sk - Sq - left <= j <= i + Sk - Sq + right.
+The bias is added to the natural-unit scores after the cap; segment ids
+and positions keep a pair where qs == ks and kp <= qp; dropout replays
+the forward's mask: dP becomes keep ? dP / (1 - rate) : 0 before dS and
+dv takes P dropped alike.
 """
 
 from __future__ import annotations
@@ -27,7 +34,19 @@ from __future__ import annotations
 import torch
 
 from flash_attn_tpu_torch import _build
-from flash_attn_tpu_torch.ops.flash_fwd import _window, live_pairs, local_args
+from flash_attn_tpu_torch.ops.flash_fwd import (
+    MAX_LIST_TILES,
+    _M32,
+    _masks,
+    _tiles,
+    _window,
+    bias4,
+    dropout_arg,
+    dropout_threshold,
+    keep_mask,
+    live_pairs,
+    local_args,
+)
 from flash_attn_tpu_torch.ops.rope import rope_rotate, rope_unrotate
 
 NEG_INF = -1e30
@@ -37,21 +56,26 @@ def _unset(val) -> bool:
     return val is None or val is False or (isinstance(val, (int, float)) and val == 0)
 
 
-def flash_bwd(q, k, v, out, lse, dout, *, causal: bool = False,
-              scale: float | None = None, rope_cos=None, rope_sin=None,
-              window=None, logit_softcap: float | None = None, **unported):
+def flash_bwd(q, k, v, out, lse, dout, *, bias=None, q_segment_ids=None,
+              kv_segment_ids=None, q_positions=None, kv_positions=None,
+              causal: bool = False, scale: float | None = None, dropout_rate: float = 0.0,
+              dropout_seed=0, rope_cos=None, rope_sin=None, window=None,
+              logit_softcap: float | None = None, **unported):
     """q, out, dout: [B, Sq, H, D]; k, v: [B, Sk, Hk, D]; lse [B, H, Sq]
     fp32.  Returns (dq, dk, dv) in the dtypes of q, k, v.
 
     rope_cos/rope_sin ([B, Sq, D/2] or [Sq, D/2] fp32): q arrives
     un-rotated, as in the forward; dq is w.r.t. the un-rotated q.
-    window (left, right; -1 open) and logit_softcap as the forward took
-    them (``flash_fwd``)."""
+    bias, segment ids, positions, dropout, window and logit_softcap as
+    the forward took them (``flash_fwd``); the dropout mask is replayed
+    from the same seed."""
     for name, val in unported.items():
         if not _unset(val):
             raise NotImplementedError(f"flash_bwd option {name!r} is not ported yet")
-    if q.dtype == torch.float16:
-        raise NotImplementedError("flash_bwd in fp16 is not ported yet")
+    dtype = q.dtype
+    if dtype == torch.float16:
+        # fp16 computes as bf16 and the gradients are cast back (flash_bwd.py:300-312)
+        q, k, v, out, dout = (x.to(torch.bfloat16) for x in (q, k, v, out, dout))
     B, Sq, H, D = q.shape
     _, Sk, Hk, _ = k.shape
     if H % Hk:
@@ -60,7 +84,14 @@ def flash_bwd(q, k, v, out, lse, dout, *, causal: bool = False,
         raise ValueError("rope_cos and rope_sin go together")
     if rope_cos is not None and rope_cos.shape[-2:] != (Sq, D // 2):
         raise ValueError(f"rope tables must be [B, {Sq}, {D // 2}] or [{Sq}, {D // 2}]")
+    masks = _masks(q_segment_ids, kv_segment_ids, q_positions, kv_positions, B, Sq, Sk)
     window = _window(window)
+    bias = bias4(bias, B, H, Sq, Sk)
+    dropout = dropout_arg(dropout_rate, dropout_seed)
+    if (window is not None or logit_softcap is not None) and (
+            masks is not None or bias is not None or dropout is not None):
+        raise NotImplementedError("flash_bwd: a window or a softcap with segment ids, "
+                                  "positions, a bias or dropout is not ported yet")
     if logit_softcap is not None and not logit_softcap > 0:
         raise ValueError(f"logit_softcap must be > 0, got {logit_softcap}")
     if scale is None:
@@ -68,7 +99,7 @@ def flash_bwd(q, k, v, out, lse, dout, *, causal: bool = False,
     # softmax_d (flash_attn.h:73): fp32 elementwise product and row sum
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     args = (q, k, v, dout, lse, delta, causal, scale, rope_cos, rope_sin, window,
-            logit_softcap)
+            logit_softcap, masks, bias, dropout)
     dq, dk, dv = flash_bwd_cuda(*args) if q.is_cuda else flash_bwd_plain(*args)
     group = H // Hk
 
@@ -76,15 +107,18 @@ def flash_bwd(q, k, v, out, lse, dout, *, causal: bool = False,
         g = g.reshape(B, Hk, group, Sk, D).sum(2) if group > 1 else g
         return g.transpose(1, 2).to(like.dtype)
 
-    return dq.to(q.dtype), reduce(dk, k), reduce(dv, v)
+    return tuple(g.to(dtype) for g in (dq.to(q.dtype), reduce(dk, k), reduce(dv, v)))
 
 
 def flash_bwd_plain(q, k, v, dout, lse, delta, causal, scale, rope_cos, rope_sin,
-                    window=None, softcap=None):
+                    window=None, softcap=None, masks=None, bias=None, dropout=None,
+                    head0=0):
     """Plain PyTorch version of K9 + K10 (whole rows at once, the kernels'
     roundings: R(q) in q's dtype, P in dout's and dS in k's/q's dtype
     before their products, fp32 accumulation).  Returns dq [B, Sq, H, D]
-    and dk, dv [B, H, Sk, D] per query head, all fp32."""
+    and dk, dv [B, H, Sk, D] per query head, all fp32.  ``masks``: as
+    flash_fwd's; ``bias``: fp32 [B, H, Sq, Sk] (a view); ``dropout``: a
+    ``Dropout``; ``head0`` as flash_fwd_plain's."""
     B, Sq, H, D = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
     qr = q if rope_cos is None else rope_rotate(q, rope_cos.float(), rope_sin.float())
@@ -94,34 +128,51 @@ def flash_bwd_plain(q, k, v, dout, lse, delta, causal, scale, rope_cos, rope_sin
     if softcap is not None:
         t = torch.tanh(s / softcap)
         s = softcap * t
+    if bias is not None:
+        s = s + bias
     live = (lse > NEG_INF / 2)[..., None]
-    if causal or window is not None:
-        live = live & live_pairs(None, causal, Sq, Sk, q.device, window)[:, None]
+    if causal or window is not None or masks is not None:
+        live = live & live_pairs(masks, causal, Sq, Sk, q.device, window)[:, None]
     lse_safe = torch.clamp(lse, min=NEG_INF / 2)[..., None]
     p = torch.where(live, torch.exp(s - lse_safe), torch.zeros_like(s))
+    del s, live
     dp = torch.einsum("bqhd,bkhd->bhqk", dout.float(), vf)
+    p_v = p
+    if dropout is not None:
+        keep = keep_mask(dropout, B, H, Sq, Sk, q.device, head0)
+        inv_keep = 1.0 / (1.0 - dropout.rate)
+        zero = torch.zeros((), device=q.device)
+        p_v = torch.where(keep, p * inv_keep, zero)
+        dp = torch.where(keep, dp * inv_keep, zero)
+        del keep
     ds = p * (dp - delta[..., None])
     if softcap is not None:
         ds = ds * (1.0 - t * t)  # through cap * tanh(s / cap)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), kf) * scale
     if rope_cos is not None:
         dq = rope_unrotate(dq, rope_cos.float(), rope_sin.float())
-    dv = torch.einsum("bhqk,bqhd->bhkd", p.to(dout.dtype).float(), dout.float())
+    dv = torch.einsum("bhqk,bqhd->bhkd", p_v.to(dout.dtype).float(), dout.float())
     dk = torch.einsum("bhqk,bqhd->bhkd", ds.to(q.dtype).float(), qr.float()) * scale
     return dq, dk, dv
 
 
 def _check_cuda(q, k, v, dout, lse, delta, rope_cos, rope_sin, name, causal=True,
-                window=None, softcap=None):
+                window=None, softcap=None, masks=None, bias=None, dropout=None):
     """Raise on anything the kernels do not take; returns the rope tables'
     batch stride (0 when shared across the batch or absent)."""
     B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    opt = masks is not None or bias is not None or dropout is not None
     if D == 64 and (window is not None or softcap is not None):
         raise NotImplementedError(f"{name} takes a window and a softcap at head_dim 128 and 256")
     if D == 256 and not causal:
         raise NotImplementedError(f"{name} at head_dim 256 is causal only")
+    if opt and (D == 256 or window is not None or softcap is not None):
+        raise NotImplementedError(f"{name} takes segment ids, positions, a bias and dropout at "
+                                  "head_dim 64 and 128, without a window or softcap")
     if not (q.dtype == k.dtype == v.dtype == dout.dtype == torch.bfloat16):
-        raise ValueError(f"{name} takes bf16 q, k, v, dout")
+        raise ValueError(f"{name} takes bf16 q, k, v, dout (fp16 computes as bf16 in "
+                         "flash_bwd)")
     if D not in (64, 128, 256):
         raise ValueError(f"{name} takes head_dim 64 (GPT-2), 128 (Llama-3) or 256 "
                          f"(Gemma-2-9B), got {D}")
@@ -138,30 +189,54 @@ def _check_cuda(q, k, v, dout, lse, delta, rope_cos, rope_sin, name, causal=True
     for t in tensors:
         if not t.is_cuda or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} takes contiguous, 16-byte aligned CUDA tensors")
+    if masks is not None:
+        if not all(x.is_cuda for x in masks if x is not None):
+            raise ValueError(f"{name} takes CUDA segment ids and positions")
+        if max(-(-Sq // 64), -(-Sk // 64)) > MAX_LIST_TILES:
+            raise ValueError(f"{name} with masks takes Sq, Sk <= {MAX_LIST_TILES * 64}")
+    if bias is not None and (not bias.is_cuda or bias.dtype != torch.float32):
+        raise ValueError(f"{name} takes an fp32 CUDA bias")
     return bstride
 
 
-def _count(fn, D, window, softcap):
+def opt_args(masks, bias, dropout, B, Sq, Sk):
+    """K9's and K10's option arguments: the four tile-metadata tensors (K4's,
+    made once for the same mask tensors), the bias and its strides, and the
+    dropout's flag, seed bits, threshold and 1 / (1 - rate)."""
+    p = _build.ptr
+    tiles = (None,) * 4 if masks is None else _tiles(masks, B, Sq, Sk)
+    strides = (0, 0, 0, 0) if bias is None else bias.stride()
+    drop = (0, 0, 0, 1.0) if dropout is None else (
+        1, dropout.seed & _M32, dropout_threshold(dropout.rate), 1.0 / (1.0 - dropout.rate))
+    return (*(p(t) for t in tiles), p(bias), *strides, *drop)
+
+
+def _count(fn, D, window, softcap, masks=None, bias=None, dropout=None):
     fn.launches += 1
     fn.d256_launches += D == 256
     fn.d64_launches += D == 64
     fn.window_launches += window is not None
     # a kLocal instance: a window or a softcap, or head_dim 256 (built so only)
     fn.local_launches += window is not None or softcap is not None or D == 256
+    # a kOpt instance: segment ids, positions, a bias or dropout
+    fn.opt_launches += masks is not None or bias is not None or dropout is not None
+    fn.seg_launches += masks is not None and masks.q_segment_ids is not None
 
 
 def flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal, scale, rope_cos, rope_sin,
-                      window=None, softcap=None):
+                      window=None, softcap=None, masks=None, bias=None, dropout=None):
     """Launch K9 (replaces flash_attn_tpu/ops/flash_bwd.py:_dq_kernel;
     bound by operations at head_dim 128 and 256, by bytes at 64, see
     csrc/flash_bwd.cu).  Returns dq [B, Sq, H, D] fp32 and R(q)
     [B, Sq, H, D] bf16, the rotated q that K9 writes for K10 (q itself
     without rope tables).  Counts its launches also in ``.d256_launches``
-    (head_dim 256), ``.d64_launches`` (head_dim 64), ``.window_launches``
-    and ``.local_launches`` (an instance with the window and the softcap:
-    either given, or head_dim 256)."""
+    (head_dim 256), ``.d64_launches`` (head_dim 64), ``.window_launches``,
+    ``.local_launches`` (an instance with the window and the softcap:
+    either given, or head_dim 256), ``.opt_launches`` (an instance with
+    segment ids, positions, a bias and dropout: any given), and
+    ``.seg_launches`` (segment ids given)."""
     bstride = _check_cuda(q, k, v, dout, lse, delta, rope_cos, rope_sin, "K9", causal,
-                          window, softcap)
+                          window, softcap, masks, bias, dropout)
     B, Sq, H, D = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
     dq = torch.empty((B, Sq, H, D), dtype=torch.float32, device=q.device)
@@ -170,17 +245,20 @@ def flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal, scale, rope_cos, rope_s
     rc = _build.lib().fatt_flash_bwd_dq(
         p(q), p(k), p(v), p(dout), p(lse), p(delta), p(rope_cos), p(rope_sin),
         p(dq), p(rq), B, Sq, Sk, H, Hk, D, bstride, float(scale), int(causal),
-        *local_args(window, softcap), _build.stream())
+        *local_args(window, softcap), *opt_args(masks, bias, dropout, B, Sq, Sk),
+        _build.stream())
     _build.check(rc, "fatt_flash_bwd_dq")
-    _count(flash_bwd_dq_cuda, D, window, softcap)
+    _count(flash_bwd_dq_cuda, D, window, softcap, masks, bias, dropout)
     return dq, rq
 
 
-def flash_bwd_dkv_cuda(rq, k, v, dout, lse, delta, causal, scale, window=None, softcap=None):
+def flash_bwd_dkv_cuda(rq, k, v, dout, lse, delta, causal, scale, window=None, softcap=None,
+                       masks=None, bias=None, dropout=None):
     """Launch K10 (replaces flash_attn_tpu/ops/flash_bwd.py:_dkv_kernel;
     bound as K9) on R(q) from K9.  Returns dk, dv [B, H, Sk, D]
     fp32 per query head.  Counts its launches as K9 does."""
-    _check_cuda(rq, k, v, dout, lse, delta, None, None, "K10", causal, window, softcap)
+    _check_cuda(rq, k, v, dout, lse, delta, None, None, "K10", causal, window, softcap, masks,
+                bias, dropout)
     B, Sq, H, D = rq.shape
     Sk, Hk = k.shape[1], k.shape[2]
     dk = torch.empty((B, H, Sk, D), dtype=torch.float32, device=rq.device)
@@ -189,22 +267,23 @@ def flash_bwd_dkv_cuda(rq, k, v, dout, lse, delta, causal, scale, window=None, s
     rc = _build.lib().fatt_flash_bwd_dkv(
         p(rq), p(k), p(v), p(dout), p(lse), p(delta), p(dk), p(dv),
         B, Sq, Sk, H, Hk, D, float(scale), int(causal), *local_args(window, softcap),
-        _build.stream())
+        *opt_args(masks, bias, dropout, B, Sq, Sk), _build.stream())
     _build.check(rc, "fatt_flash_bwd_dkv")
-    _count(flash_bwd_dkv_cuda, D, window, softcap)
+    _count(flash_bwd_dkv_cuda, D, window, softcap, masks, bias, dropout)
     return dk, dv
 
 
 def flash_bwd_cuda(q, k, v, dout, lse, delta, causal, scale, rope_cos, rope_sin,
-                   window=None, softcap=None):
+                   window=None, softcap=None, masks=None, bias=None, dropout=None):
     """K9, then K10 on K9's R(q); each wrapper counts its own launches.
     Returns what flash_bwd_plain returns."""
     dq, rq = flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal, scale,
-                               rope_cos, rope_sin, window, softcap)
-    dk, dv = flash_bwd_dkv_cuda(rq, k, v, dout, lse, delta, causal, scale, window, softcap)
+                               rope_cos, rope_sin, window, softcap, masks, bias, dropout)
+    dk, dv = flash_bwd_dkv_cuda(rq, k, v, dout, lse, delta, causal, scale, window, softcap,
+                                masks, bias, dropout)
     return dq, dk, dv
 
 
 for _fn in (flash_bwd_dq_cuda, flash_bwd_dkv_cuda):
     _fn.launches = _fn.d256_launches = _fn.d64_launches = _fn.window_launches = 0
-    _fn.local_launches = 0
+    _fn.local_launches = _fn.opt_launches = _fn.seg_launches = 0

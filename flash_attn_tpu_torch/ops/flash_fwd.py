@@ -4,10 +4,13 @@ Port of flash_attn_tpu/ops/flash_fwd.py:flash_fwd for the subset the
 Llama, Gemma-2 and GPT-2 prefill paths use: BSHD layout, GQA, head_dim
 64, 128 or 256 on the card (any in the plain version), bottom-right causal mask,
 segment ids and positions (the packed and chunked prefill's masks; at
-head_dim 64 and 128 on the card), a sliding window and the Gemma-2 logit
-softcap (at head_dim 128 and 256 on the card), q-side RoPE inside the
-kernel, softmax_mode "clamped" or "online", fp32 LSE.  A window or a
-softcap with segment ids or positions, bias, ALiBi, dropout and
+head_dim 64 and 128 on the card), an additive fp32 bias and reproducible
+dropout (the C ABI's attn_mask and dropout; head_dim 64 and 128 on the
+card, with or without segment ids and positions), a sliding window and the
+Gemma-2 logit softcap (at head_dim 128 and 256 on the card), q-side RoPE
+inside the kernel, softmax_mode "clamped" or "online", fp32 LSE.  fp16
+computes as bf16 and casts the output back, as JAX does.  A window or a
+softcap with segment ids, positions, a bias or dropout, ALiBi and
 return_softmax are still to port and raise ``NotImplementedError``.
 
 As on the TPU, the softmax scale and log2(e) are folded into q (rounded
@@ -17,7 +20,13 @@ key) pair is live only where every mask given holds, as ``_apply_mask``
 composes them: causal by index, the window by index, equal segment ids,
 kv position <= q position.  The softcap is ``c * tanh(s / c)`` on the
 scaled base-2 scores with c = cap * log2(e), before the mask
-(flash_fwd.py:363-367, 757-761).
+(flash_fwd.py:363-367, 757-761).  The bias is added to the base-2
+scores as ``bias * log2(e)`` and clamped, ``max(s + bias, -1e30)``
+(flash_fwd.py:369-372, 764-766).  Dropout keeps an element where
+``dropout_keep_mask`` (the JAX package's integer hash of the seed, the
+batch and query-head index and the absolute row and column) says so and
+scales it by 1 / (1 - rate) before PV; the row sums and the LSE are the
+undropped P's (flash_fwd.py:451-456).
 """
 
 from __future__ import annotations
@@ -37,6 +46,101 @@ CLAMP2 = 80.0
 TILE = 64  # K4's query rows a block and keys a tile
 # K4 builds each block's list of live key tiles in shared memory
 MAX_LIST_TILES = 4096
+
+
+class Dropout(NamedTuple):
+    """Dropout as the kernels take it: ``rate`` in (0, 1), ``seed`` an
+    int32."""
+
+    rate: float
+    seed: int
+
+
+_M32 = 0xFFFFFFFF
+# the hash's constants (flash_fwd.py:182-185, 207-210), as uint32
+_C1, _C2 = 0x9E3779B1, 0x85EBCA77
+_M1, _M2, _F1, _F2 = 0x9E3779B9, 0x7FEB352D, 0x85EBCA6B, 0xC2B2AE35
+
+
+def seed32(seed) -> int:
+    """``seed`` as the int32 JAX makes of it (``jnp.asarray(seed,
+    jnp.int32)``): a Python or numpy integer, or a one-element tensor, in
+    [-2^31, 2^31); outside it raises ``OverflowError`` as JAX does."""
+    if isinstance(seed, torch.Tensor):
+        seed = seed.reshape(-1)[0].item()
+    seed = int(seed)
+    if not -2 ** 31 <= seed < 2 ** 31:
+        raise OverflowError(f"Python integer {seed} out of bounds for int32")
+    return seed
+
+
+def dropout_threshold(rate: float) -> int:
+    """Bits at or above this are kept (flash_fwd.py:216-217)."""
+    return min(int(rate * 4294967296.0), 4294967295)
+
+
+def _mix_seed(seed, b, h) -> int:
+    """Per-(batch, query head) seed, uint32 bits (flash_fwd.py:173-187)."""
+    return (seed32(seed) & _M32) ^ ((int(b) * _C1) & _M32) ^ ((int(h) * _C2) & _M32)
+
+
+def _mul32(x, c: int):
+    """(x * c) mod 2^32 for int64 x in [0, 2^32) and c < 2^32, without
+    leaving int64: c in 16-bit halves."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def dropout_keep_mask(seed, b, h, row0, col0, block_q, block_k, rate, device=None):
+    """Counter-based dropout keep-mask, [block_q, block_k] bool: JAX's
+    ``dropout_keep_mask`` (flash_fwd.py:190-218) bit for bit, for any int32
+    seed, batch index ``b``, query head ``h`` and absolute offsets.  The
+    hash runs in int64 held to 32 bits, which is JAX's int32 arithmetic
+    with wraparound and logical shifts."""
+    row = torch.arange(block_q, dtype=torch.int64, device=device)[:, None] + int(row0)
+    col = torch.arange(block_k, dtype=torch.int64, device=device)[None, :] + int(col0)
+    x = (_mix_seed(seed, b, h) + _mul32(row, _M1) + _mul32(col, _M2)) & _M32
+    x = x ^ (x >> 16)
+    x = _mul32(x, _F1)
+    x = x ^ (x >> 13)
+    x = _mul32(x, _F2)
+    return (x ^ (x >> 16)) >= dropout_threshold(rate)
+
+
+def keep_mask(dropout: Dropout, B: int, H: int, Sq: int, Sk: int, device, head0: int = 0):
+    """[B, H, Sq, Sk] bool: every (batch, query head) plane of
+    ``dropout_keep_mask``, query heads from ``head0``; made a plane at a
+    time, so that the int64 hash needs a plane's memory, not the whole
+    tensor's."""
+    keep = torch.empty((B, H, Sq, Sk), dtype=torch.bool, device=device)
+    for b in range(B):
+        for h in range(H):
+            keep[b, h] = dropout_keep_mask(dropout.seed, b, head0 + h, 0, 0, Sq, Sk,
+                                           dropout.rate, device)
+    return keep
+
+
+def bias4(bias, B: int, H: int, Sq: int, Sk: int):
+    """``bias`` as an fp32 [B, H, Sq, Sk] view (broadcast axes at stride 0;
+    nothing materialised), or None.  Any shape that broadcasts to it is
+    taken (flash_fwd.py:804-808)."""
+    if bias is None:
+        return None
+    bias = bias if bias.dtype == torch.float32 else bias.float()
+    try:
+        return torch.broadcast_to(bias, (B, H, Sq, Sk))
+    except RuntimeError:
+        raise ValueError(f"bias of shape {tuple(bias.shape)} does not broadcast to "
+                         f"[{B}, {H}, {Sq}, {Sk}]") from None
+
+
+def dropout_arg(dropout_rate, dropout_seed):
+    """A ``Dropout`` for a rate above 0, else None.  The seed is checked
+    as an int32 either way, as JAX converts it either way."""
+    seed = seed32(dropout_seed)
+    rate = float(dropout_rate)
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout_rate must be in [0, 1), got {rate}")
+    return Dropout(rate, seed) if rate > 0.0 else None
 
 
 class Masks(NamedTuple):
@@ -82,7 +186,8 @@ def local_args(window, softcap):
     return (*(window or (-1, -1)), 0.0 if softcap is None else float(softcap * LOG2E))
 
 
-def flash_fwd(q, k, v, *, causal: bool = False, scale: float | None = None,
+def flash_fwd(q, k, v, *, bias=None, causal: bool = False, scale: float | None = None,
+              dropout_rate: float = 0.0, dropout_seed=0,
               rope_cos=None, rope_sin=None, softmax_mode: str = "online",
               q_segment_ids=None, kv_segment_ids=None, q_positions=None,
               kv_positions=None, window=None, logit_softcap: float | None = None,
@@ -90,6 +195,9 @@ def flash_fwd(q, k, v, *, causal: bool = False, scale: float | None = None,
     """q: [B, Sq, H, D]; k, v: [B, Sk, Hk, D].  Returns (out [B, Sq, H, D]
     in q.dtype, lse [B, H, Sq] fp32).
 
+    bias: an additive fp32 bias that broadcasts to [B, H, Sq, Sk] (natural
+    units; -inf entries are dead).  dropout_rate / dropout_seed (an int32):
+    counter-based dropout of P before PV, the mask JAX's.
     rope_cos/rope_sin ([B, Sq, D/2] or [Sq, D/2] fp32): rotate the
     un-rotated q inside the kernel (K must come rotated).
     q_segment_ids/kv_segment_ids ([B, Sq] / [B, Sk] int): a query sees
@@ -104,6 +212,10 @@ def flash_fwd(q, k, v, *, causal: bool = False, scale: float | None = None,
         if val is None or val is False or (isinstance(val, float) and val == 0.0):
             continue
         raise NotImplementedError(f"flash_fwd option {name!r} is not ported yet")
+    dtype = q.dtype
+    if dtype == torch.float16:
+        # fp16 computes as bf16 and the output is cast back (flash_fwd.py:636-656)
+        q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
     B, Sq, H, D = q.shape
     _, Sk, Hk, _ = k.shape
     if H % Hk:
@@ -116,18 +228,21 @@ def flash_fwd(q, k, v, *, causal: bool = False, scale: float | None = None,
         raise ValueError(f"rope tables must be [B, {Sq}, {D // 2}] or [{Sq}, {D // 2}]")
     masks = _masks(q_segment_ids, kv_segment_ids, q_positions, kv_positions, B, Sq, Sk)
     window = _window(window)
-    if (window is not None or logit_softcap is not None) and masks is not None:
-        raise NotImplementedError("flash_fwd: a window or a softcap with segment ids or "
-                                  "positions is not ported yet")
+    bias = bias4(bias, B, H, Sq, Sk)
+    dropout = dropout_arg(dropout_rate, dropout_seed)
+    if (window is not None or logit_softcap is not None) and (
+            masks is not None or bias is not None or dropout is not None):
+        raise NotImplementedError("flash_fwd: a window or a softcap with segment ids, "
+                                  "positions, a bias or dropout is not ported yet")
     if logit_softcap is not None and not logit_softcap > 0:
         raise ValueError(f"logit_softcap must be > 0, got {logit_softcap}")
     if scale is None:
         scale = D ** -0.5
     clamped = softmax_mode == "clamped"
-    args = (q, k, v, causal, scale, rope_cos, rope_sin, clamped, masks, window, logit_softcap)
-    if q.is_cuda:
-        return flash_fwd_cuda(*args)
-    return flash_fwd_plain(*args)
+    args = (q, k, v, causal, scale, rope_cos, rope_sin, clamped, masks, window, logit_softcap,
+            bias, dropout)
+    out, lse = flash_fwd_cuda(*args) if q.is_cuda else flash_fwd_plain(*args)
+    return out.to(dtype), lse
 
 
 def live_pairs(masks: Masks | None, causal: bool, Sq: int, Sk: int, device, window=None):
@@ -153,8 +268,11 @@ def live_pairs(masks: Masks | None, causal: bool, Sq: int, Sk: int, device, wind
 
 
 def flash_fwd_plain(q, k, v, causal, scale, rope_cos, rope_sin, clamped, masks=None,
-                    window=None, softcap=None):
-    """Plain PyTorch version of K4 (whole rows at once, same roundings)."""
+                    window=None, softcap=None, bias=None, dropout=None, head0=0):
+    """Plain PyTorch version of K4 (whole rows at once, same roundings).
+    ``bias``: fp32 [B, H, Sq, Sk] (a view); ``dropout``: a ``Dropout``;
+    ``head0``: the index of q's first query head, which keys the dropout
+    (0 but for a run over a slice of the heads)."""
     B, Sq, H, D = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
     qs = (q.float() * (scale * LOG2E)).to(q.dtype)
@@ -166,6 +284,9 @@ def flash_fwd_plain(q, k, v, causal, scale, rope_cos, rope_sin, clamped, masks=N
     if softcap is not None:
         c2 = softcap * LOG2E  # the cap in base-2 units, as the scores
         s = c2 * torch.tanh(s / c2)
+    if bias is not None:
+        # base-2 units, clamped so that -inf entries stay finite
+        s = torch.clamp(s + bias * LOG2E, min=NEG_INF)
     if causal or masks is not None or window is not None:
         live = live_pairs(masks, causal, Sq, Sk, q.device, window)
         s = s.masked_fill(~live[:, None], NEG_INF)
@@ -176,6 +297,11 @@ def flash_fwd_plain(q, k, v, causal, scale, rope_cos, rope_sin, clamped, masks=N
         m = s.amax(dim=-1, keepdim=True)
         p = torch.exp2(s - m)
     l = p.sum(dim=-1)  # [B, H, Sq]
+    if dropout is not None:
+        keep = keep_mask(dropout, B, H, Sq, Sk, q.device, head0)
+        div = torch.full((), 1.0 - dropout.rate, dtype=torch.float32, device=q.device)
+        p = torch.where(keep, p / div, torch.zeros((), device=q.device))
+        del keep
     o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), vf)
     ok = l > 0
     lse = torch.log(torch.where(ok, l, torch.ones_like(l)))
@@ -229,31 +355,47 @@ def _tiles(masks: Masks, B: int, Sq: int, Sk: int):
 _tiles.last = None
 
 
+def extra_args(bias, dropout):
+    """The bias pointer and its four strides, and the dropout's flag,
+    seed bits, threshold and divisor f32(1 - rate), as K4's C entry takes
+    them (K9's and K10's take the multiplier 1 / (1 - rate) instead)."""
+    strides = (0, 0, 0, 0) if bias is None else bias.stride()
+    if dropout is None:
+        return (_build.ptr(bias), *strides, 0, 0, 0, 1.0)
+    return (_build.ptr(bias), *strides, 1, dropout.seed & _M32,
+            dropout_threshold(dropout.rate), 1.0 - dropout.rate)
+
+
 def flash_fwd_cuda(q, k, v, causal, scale, rope_cos, rope_sin, clamped, masks=None,
-                   window=None, softcap=None):
+                   window=None, softcap=None, bias=None, dropout=None):
     """Launch K4.  Replaces flash_attn_tpu/ops/flash_fwd.py:_fwd_kernel;
     bound by operations (see the source note in csrc/flash_fwd.cu).  A
     window or a softcap runs an instance of its own (kLocal) at head_dim
-    128 or 256; at 64, or with masks, it raises.  With masks it counts its
+    128 or 256; at 64, or with masks, it raises.  A bias or dropout runs
+    an instance of its own (kExtra) at head_dim 64 or 128, with or without
+    masks.  With masks it counts its
     launches also in ``.seg_launches`` (segment ids given) and
     ``.pos_launches`` (positions given); at head_dim 256 also in
     ``.d256_launches``, at 64 in ``.d64_launches``, with a window in
-    ``.window_launches``, and every launch of a kLocal instance (a window
+    ``.window_launches``, every launch of a kLocal instance (a window
     or a softcap, at any head dim: D = 256 always) in
-    ``.local_launches``."""
+    ``.local_launches``, and every launch of a kExtra instance in
+    ``.extra_launches`` (with dropout also in ``.dropout_launches``)."""
     B, Sq, H, D = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
-        raise ValueError("K4 takes bf16 q, k, v")
+        raise ValueError("K4 takes bf16 q, k, v (fp16 computes as bf16 in flash_fwd)")
     if D not in (64, 128, 256):
         raise ValueError(f"K4 takes head_dim 64 (GPT-2), 128 (Llama-3) or 256 (Gemma-2-9B), "
                          f"got {D}")
     local = window is not None or softcap is not None
-    if D == 256 and masks is not None:
-        raise NotImplementedError("K4 takes segment ids and positions at head_dim 64 and 128")
-    if local and (D == 64 or masks is not None):
+    extra = bias is not None or dropout is not None
+    if D == 256 and (masks is not None or extra):
+        raise NotImplementedError("K4 takes segment ids, positions, a bias and dropout at "
+                                  "head_dim 64 and 128")
+    if local and (D == 64 or masks is not None or extra):
         raise NotImplementedError("K4 takes a window and a softcap at head_dim 128 and 256, "
-                                  "without segment ids or positions")
+                                  "without segment ids, positions, a bias or dropout")
     tensors = [q, k, v]
     bstride = 0
     if rope_cos is not None:
@@ -270,6 +412,8 @@ def flash_fwd_cuda(q, k, v, causal, scale, rope_cos, rope_sin, clamped, masks=No
             raise ValueError("K4 takes CUDA segment ids and positions")
         if -(-Sk // TILE) > MAX_LIST_TILES:
             raise ValueError(f"K4 with masks takes Sk <= {MAX_LIST_TILES * TILE}, got {Sk}")
+    if bias is not None and (not bias.is_cuda or bias.dtype != torch.float32):
+        raise ValueError("K4 takes an fp32 CUDA bias")
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     p = _build.ptr
@@ -277,7 +421,7 @@ def flash_fwd_cuda(q, k, v, causal, scale, rope_cos, rope_sin, clamped, masks=No
     rc = _build.lib().fatt_flash_fwd(
         p(q), p(k), p(v), p(rope_cos), p(rope_sin), p(out), p(lse), *(p(t) for t in tiles),
         None, B, Sq, Sk, H, Hk, D, bstride, float(scale * LOG2E), int(causal), int(clamped),
-        *local_args(window, softcap), _build.stream())
+        *local_args(window, softcap), *extra_args(bias, dropout), _build.stream())
     _build.check(rc, "fatt_flash_fwd")
     flash_fwd_cuda.launches += 1
     if masks is not None:
@@ -287,6 +431,8 @@ def flash_fwd_cuda(q, k, v, causal, scale, rope_cos, rope_sin, clamped, masks=No
     flash_fwd_cuda.d64_launches += D == 64
     flash_fwd_cuda.window_launches += window is not None
     flash_fwd_cuda.local_launches += local or D == 256
+    flash_fwd_cuda.extra_launches += extra
+    flash_fwd_cuda.dropout_launches += dropout is not None
     return out, lse
 
 
@@ -297,3 +443,5 @@ flash_fwd_cuda.d256_launches = 0
 flash_fwd_cuda.d64_launches = 0
 flash_fwd_cuda.window_launches = 0
 flash_fwd_cuda.local_launches = 0
+flash_fwd_cuda.extra_launches = 0
+flash_fwd_cuda.dropout_launches = 0

@@ -188,8 +188,9 @@ def _port_sources():
 
 def test_port_imports_no_jax():
     """The port and chip_smoke.py import neither jax nor the JAX package,
-    and the page allocator's loader builds the port's own C++ copy, not
-    the JAX package's source or its built library."""
+    and the host library's loader builds the port's own C++ copies (the C
+    ABI shim and the page allocator), not the JAX package's sources or its
+    built library."""
     files = _port_sources()
     assert len(files) > 10 and (ROOT / "chip_smoke.py").exists()
     names = {p.relative_to(ROOT).as_posix() for p in files}
@@ -199,10 +200,11 @@ def test_port_imports_no_jax():
         assert f"flash_attn_tpu_torch/{module}" in names
     from flash_attn_tpu_torch.runtime import abi
 
-    assert abi._SRC == ROOT / "flash_attn_tpu_torch/runtime/native/page_allocator.cc"
-    assert abi._SRC.exists()
+    native = ROOT / "flash_attn_tpu_torch/runtime/native"
+    assert abi._SRCS == [native / "fatt_abi.cc", native / "page_allocator.cc"]
+    assert all(p.exists() for p in abi._SRCS + abi._HDRS)
     loader = (ROOT / "flash_attn_tpu_torch/runtime/abi.py").read_text()
-    assert "libfatpu" not in loader and "native/page_allocator.cc" in loader
+    assert "libfatpu" not in loader and '_NATIVE / "page_allocator.cc"' in loader
     bad = []
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))

@@ -111,8 +111,8 @@ def test_flash_fwd_window_softcap_matches_jax_flash_attention():
 
 
 def test_flash_fwd_window_and_softcap_arguments():
-    """Window and softcap go through the backward too (segment ids stay
-    forward-only); a window does not compose with positions yet; the
+    """Window and softcap go through the backward too (so do segment
+    ids); a window does not compose with positions yet; the
     wrappers refuse what K4 does not take (a window or a softcap at
     head_dim 64 or with masks, masks at 256; raised before any build) and
     pass a window and a softcap at head_dim 128 on to the CUDA check."""
@@ -121,9 +121,10 @@ def test_flash_fwd_window_and_softcap_arguments():
     out = flash_attention(q.clone().requires_grad_(True), q, q, causal=True, window=(4, -1),
                           logit_softcap=30.0)
     assert out.requires_grad
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        flash_attention(q.clone().requires_grad_(True), q, q, q_segment_ids=ids,
-                        kv_segment_ids=ids)
+    # segment ids are differentiable too (K9/K10 take them)
+    out = flash_attention(q.clone().requires_grad_(True), q, q, q_segment_ids=ids,
+                          kv_segment_ids=ids)
+    assert out.requires_grad
     with pytest.raises(NotImplementedError, match="window"):
         ff.flash_fwd(q, q, q, window=(4, -1), q_positions=ids, kv_positions=ids)
     with pytest.raises(ValueError, match="window"):

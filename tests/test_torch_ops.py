@@ -504,11 +504,20 @@ def test_flash_fwd_plain_matches_reference(case, softmax_mode):
 
 
 def test_flash_attention_rejects_unported_options():
+    """A window with positions, a mask, or dropout; ALiBi; return_softmax;
+    a mask that needs a gradient (dbias).  The mask and dropout alone run
+    (tests/test_torch_fa2_options.py)."""
     q = torch.zeros(1, 8, 2, 32, dtype=torch.bfloat16)
     ids = torch.zeros(1, 8, dtype=torch.int32)
     with pytest.raises(NotImplementedError):  # a window with positions
         flash_attention(q, q, q, window=(4, 0), q_positions=ids, kv_positions=ids)
     with pytest.raises(NotImplementedError):
-        flash_attention(q, q, q, mask=torch.zeros(8, 8))
+        flash_attention(q, q, q, window=(4, 0), mask=torch.zeros(8, 8))
     with pytest.raises(NotImplementedError):
-        flash_attention(q, q, q, dropout_rate=0.1)
+        flash_attention(q, q, q, logit_softcap=30.0, dropout_rate=0.1)
+    with pytest.raises(NotImplementedError):
+        flash_attention(q, q, q, alibi_slopes=torch.ones(2))
+    with pytest.raises(NotImplementedError):
+        flash_attention(q, q, q, return_softmax=True)
+    with pytest.raises(NotImplementedError, match="dbias"):
+        flash_attention(q, q, q, mask=torch.zeros(8, 8, requires_grad=True))

@@ -190,8 +190,12 @@ def test_flash_fwd_mask_arguments():
         ff.flash_fwd(q, q, q, kv_positions=ids)
     with pytest.raises(ValueError, match="must be"):
         ff.flash_fwd(q, q, q, q_positions=ids, kv_positions=ids[:, :4])
+    # positions are differentiable (K9/K10 take them); return_lse is not
+    assert flash_attention(q.clone().requires_grad_(True), q, q, q_positions=ids,
+                           kv_positions=ids).requires_grad
     with pytest.raises(NotImplementedError, match="forward-only"):
-        flash_attention(q.requires_grad_(True), q, q, q_positions=ids, kv_positions=ids)
+        flash_attention(q.requires_grad_(True), q, q, q_positions=ids, kv_positions=ids,
+                        return_lse=True)
 
 
 # --- K4's tile test ----------------------------------------------------------
@@ -298,7 +302,7 @@ def test_flash_attention_varlen_matches_jax(causal):
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4, rtol=1e-4)
     with pytest.raises(NotImplementedError):
         flash_attention_varlen(to_torch(q), to_torch(k), to_torch(v), torch.from_numpy(cu_q),
-                               torch.from_numpy(cu_k), mask=torch.zeros(24, 32))
+                               torch.from_numpy(cu_k), return_softmax=True)
 
 
 # --- KVCache.insert_at / slot_kv_float --------------------------------------

@@ -9,6 +9,8 @@ runs its Pallas kernels in interpret mode, as tests/test_flash_bwd.py
 does; the port runs its plain versions.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -416,27 +418,35 @@ def test_serve_train_serve_reads_the_trained_head(dtype):
 
 
 @pytest.mark.parametrize("option", [
-    {"bias": np.zeros((1, 1, SQ, SK), np.float32)}, {"q_segment_ids": np.zeros((B, SQ))},
-    {"q_positions": np.zeros((B, SQ))}, {"kv_segment_ids": np.zeros((B, SK))},
+    {"bias": np.zeros((1, 1, SQ, SK), np.float32), "window": (4, -1)},
+    {"q_segment_ids": np.zeros((B, SQ)), "kv_segment_ids": np.zeros((B, SK)),
+     "logit_softcap": 30.0},
+    {"q_positions": np.zeros((B, SQ)), "kv_positions": np.zeros((B, SK)), "window": (4, -1)},
+    {"q_segment_ids": np.zeros((B, SQ)), "kv_segment_ids": np.zeros((B, SK)),
+     "window": (2, 2)},
     {"alibi_slopes": np.ones(H)},
-    {"dropout_rate": 0.1}, {"want_dbias": True}])
+    {"dropout_rate": 0.1, "logit_softcap": 30.0}, {"want_dbias": True}])
 def test_flash_bwd_refuses_unported_options(option):
+    """ALiBi, dbias, and a bias, segment ids, positions or dropout with a
+    window or a softcap (each of those alone is ported:
+    tests/test_torch_fa2_options.py)."""
     q, k, v, dout, _, _ = (T(x) for x in attn_inputs(9, "float32"))
     out, lse = q.clone(), torch.zeros((B, H, SQ))
+    option = {n: T(x) if isinstance(x, np.ndarray) else x for n, x in option.items()}
     with pytest.raises(NotImplementedError):
         fb.flash_bwd(q, k, v, out, lse, dout, **option)
 
 
 def test_training_wrappers_refuse():
-    """fp16, what K9/K10 do not take (CPU tensors, fp32, D other than 128
-    and 256, fp32 lse, fp32 rope tables, head_dim 256 without causal;
+    """fp16 (computed as bf16, gradients cast back), what K9/K10 do not
+    take (CPU tensors, fp32, D other than 128 and 256, fp32 lse, fp32 rope tables, head_dim 256 without causal;
     raised before any build; a window or a softcap at head_dim 128 reaches
     the CUDA check), and the unported model and attention options.  K10 takes R(q) from K9 and no
     tables."""
     q, k, v, dout, _, _ = (T(x) for x in attn_inputs(10, "float32"))
     lse = torch.zeros((B, H, SQ))
-    with pytest.raises(NotImplementedError):
-        fb.flash_bwd(q.half(), k.half(), v.half(), q.half(), lse, dout.half())
+    grads = fb.flash_bwd(q.half(), k.half(), v.half(), q.half(), lse, dout.half())
+    assert all(g.dtype == torch.float16 for g in grads)
     delta = torch.zeros((B, H, SQ))
     bf = [x.bfloat16() for x in (q, k, v, dout)]
     for args in ((q, k, v, dout), bf):  # fp32; then bf16 on the CPU / D = 32
@@ -471,9 +481,10 @@ def test_training_wrappers_refuse():
     assert fb.flash_bwd_dq_cuda.launches == 0 and fb.flash_bwd_dkv_cuda.launches == 0
     assert fb.flash_bwd_dq_cuda.local_launches == 0 == fb.flash_bwd_dkv_cuda.local_launches
     toks = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError):
-        llama.forward({}, toks, CFG, segment_ids=toks)
+    with pytest.raises(NotImplementedError, match="segment_ids with sliding_window"):
+        llama.forward({}, toks, dataclasses.replace(CFG, sliding_window=4), segment_ids=toks)
     ids = torch.zeros((B, SQ), dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="forward-only"):
         flash_attention(q.requires_grad_(True), k, v, q_segment_ids=ids,
-                        kv_segment_ids=torch.zeros((B, SK), dtype=torch.int32))
+                        kv_segment_ids=torch.zeros((B, SK), dtype=torch.int32),
+                        return_lse=True)
