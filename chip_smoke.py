@@ -84,7 +84,14 @@ Phases, one line each with its seconds:
      through quantized_matmul at the wq and wk/wv widths; then once
      each what the main paths do not run: group sizes 32 and 64, K7's
      bf16 output, and the int8, int4 and W4A8 LM heads' fp32 activations
-     or output;
+     or output; last, K11, the ring run in one cooperative launch, at
+     Llama-3-8B's attention widths (H=32, Hk=8, D=128, B=1) over 4 ranks
+     sharing the card, S_loc 4096 (16384 tokens), causal and not, fp32 and
+     bf16 in, against its plain version and bitwise on repeat, timed beside
+     SDPA's memory-efficient backend on the gathered fp32 sequence with its
+     bound at the fp32 CUDA-core peak and at the bf16 tensor-core peak,
+     and at a ragged S_loc 320 (block_q 64) at B=2, a group of one at
+     head_dim 64, 8 ranks and 1 rank;
   3. a 2-layer model at full 8B widths with fp8 KV: two prompts and four
      decode steps on the card (kernels) against the CPU (plain versions),
      with int8 weights, int4 + W8A8 head fused, W4A8 + W8A8 head fused,
@@ -214,7 +221,18 @@ Phases, one line each with its seconds:
      the profiler window's idle share, n-gram speculation, the paged
      engine without prefix caching; launches exact (K3 = 32 x (4 + 3 x
      8) = 896 a step, K1 = K2 = K1m 32 a step, K4 32 a packed call, K1c
-     32 a verify round, K8 32 a paged step), peak under 75 GiB.
+     32 a verify round, K8 32 a paged step), peak under 75 GiB;
+  20. (run right after phase 18) sequence-parallel attention at
+     Llama-3-8B's attention widths, B=1, 16384 tokens over 4 ranks sharing
+     the card (make_mesh with cuda:0 four times; every rotation a
+     device-local copy, so the times say nothing about NVLink): the ring
+     over K4 / K9 + K10, contiguous and striped, causal, forward and
+     backward through autograd, the rdma ring (K11) forward and Ulysses
+     forward and backward, each against the single-device
+     flash_attention on the whole sequence (rows to two bf16 ulps,
+     gradients to 5e-2 of their norm), the rdma ring also against the
+     ring, with launches a call exact (K4 = K9 = K10 = 10 contiguous, 16
+     striped, 4 Ulysses; K11 1) and ms a call.
 
 Before the last line come the kernels' JSON record (each row's launches
 are those of the run named in its "launches_run"; the quantized matmuls'
@@ -228,9 +246,10 @@ rows "K4 27B", "K1 27B", "K9 27B" and "K10 27B"; K3's 27B widths under
 masked points under "packed" and "chunk", "K1c d64" a K8c point under
 "k8c"; the G = 7 rows "K4 G7" (its packed point under "packed"), "K1
 G7", "K1c G7", "K8 G7" (a K8c point under "k8c") and "K2 G7", K3's
-Qwen-2-7B widths under "qwen2", and "K3 Mixtral", whose launches are
-phase 17's) and the
-card; the last line is {"ok": true, "device": {...}}.  Any failed check
+Qwen-2-7B widths under "qwen2", "K3 Mixtral", whose launches are
+phase 17's, and "K11", its non-causal point under "non_causal", its
+bound at the bf16 peak under "bound_bf16_ms", its launches phase 20's)
+and the card; the last line is {"ok": true, "device": {...}}.  Any failed check
 exits nonzero without that line; so does a machine without CUDA or a
 directory without the rest of the repository.
 """
@@ -3273,6 +3292,123 @@ def check_fa2_options(torch, checks, rows):
     say(f"  FA2 options: {time.perf_counter() - t0:.2f}s")
 
 
+K11_N, K11_B, K11_H, K11_HK, K11_D, K11_SLOC = 4, 1, 32, 8, 128, 4096  # Llama-3-8B widths
+# small K11 cases: (label, ranks, B, H, Hk, D, S_loc, block_q, causal,
+# dtype): a ragged S_loc (not a multiple of block_q 128) at B=2, a group
+# of one at head_dim 64, 8 ranks (slots reused over 8 steps) and 1 rank
+# (no push)
+K11_SMALL = (("ragged S_loc=320 B=2", 4, 2, 32, 8, 128, 320, 64, True, "bfloat16"),
+             ("G=1 d64", 4, 1, 12, 12, 64, 256, 128, False, "float32"),
+             ("8 ranks", 8, 1, 8, 2, 128, 192, 64, True, "float32"),
+             ("1 rank", 1, 1, 8, 8, 128, 256, 128, True, "bfloat16"))
+
+
+def _k11_inputs(torch, g, n, B, S_loc, H, Hk, D, dtype):
+    """Per-rank shards on cuda:0 (the ranks share the card)."""
+    dt = getattr(torch, dtype)
+
+    def one(h):
+        return torch.randn((B, S_loc, h, D), generator=g, device="cuda").to(dt)
+
+    return [one(H) for _ in range(n)], [one(Hk) for _ in range(n)], [one(Hk) for _ in range(n)]
+
+
+def k11_pairs(n, S_loc, causal) -> int:
+    """Live (query, key) pairs of one (batch, head) over the ring: the
+    global causal triangle or the full square."""
+    S = n * S_loc
+    return S * (S + 1) // 2 if causal else S * S
+
+
+def _k11_case(torch, checks, label, qs, ks, vs, causal, block_q=128):
+    """K11 through rdma_ring_attention against its plain version on the
+    card: every output row within its tolerance (bf16 out: two bf16 ulps
+    of the row's largest; fp32 out: 2^-12, the kernel and its plain version
+    summing 16384 keys in another order, in 64-key tiles with an online
+    softmax, and merging by exp and log a step), a second launch bitwise
+    the first.  Returns (max |err|, the outputs)."""
+    from flash_attn_tpu_torch.parallel import rdma_ring as rr
+
+    D = qs[0].shape[-1]
+    out = rr.rdma_ring_attention(qs, ks, vs, causal=causal, block_q=block_q)
+    again = rr.rdma_ring_attention(qs, ks, vs, causal=causal, block_q=block_q)
+    ref = rr.ring_attn_plain(qs, ks, vs, causal, D ** -0.5)
+    torch.cuda.synchronize()
+    rel = 2.0 ** -6 if qs[0].dtype == torch.bfloat16 else 2.0 ** -12
+    err, share = row_err(torch.stack(out), torch.stack(ref), rel=rel)
+    same = all(torch.equal(a, b) for a, b in zip(out, again))
+    ok = checks.check(f"K11 {label}", share, 1.0)
+    if not same:
+        checks.failed.append(f"K11 {label}: two launches differ")
+    say(f"  K11 {label}: max_abs_err {err:.3e} ({share:.3f} of its row's tol, rel {rel:g}), "
+        f"bitwise repeat {'ok' if same else 'FAIL'} {'ok' if ok and same else 'FAIL'} | grid "
+        f"{rr.ring_attn_cuda.grid}")
+    return err
+
+
+def check_k11(torch, checks, rows):
+    """K11, the ring in one cooperative launch, at Llama-3-8B's attention
+    widths over 4 ranks on the one card (S_loc 4096: 16384 tokens), causal
+    and not, bf16 and fp32 in, against its plain version, repeated bitwise,
+    timed (CUDA events, 3 calls: a call takes 0.1-1 s) beside the plain
+    version, SDPA's memory-efficient backend on the gathered fp32 sequence
+    (the same function: fp32 in, causal, KV heads repeated) and two bounds:
+    the operations at the fp32 CUDA-core peak (K11's type; the row's
+    bound) and at the bf16 tensor-core peak; then K11_SMALL."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from flash_attn_tpu_torch.parallel import rdma_ring as rr
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 80)
+    n, B, H, Hk, D, S_loc = K11_N, K11_B, K11_H, K11_HK, K11_D, K11_SLOC
+    worst, row = 0.0, {}
+    for dtype in ("float32", "bfloat16"):
+        qs, ks, vs = _k11_inputs(torch, g, n, B, S_loc, H, Hk, D, dtype)
+        for causal in (True, False):
+            label = f"{dtype} {'causal' if causal else 'non-causal'}"
+            worst = max(worst, _k11_case(torch, checks, label, qs, ks, vs, causal))
+            if dtype != "float32":
+                continue
+            scale = D ** -0.5
+            ms = cuda_ms(torch, lambda: rr.ring_attn_cuda(qs, ks, vs, causal, scale), iters=3,
+                         warmup=1)
+            plain_ms = cuda_ms(torch, lambda: rr.ring_attn_plain(qs, ks, vs, causal, scale),
+                               iters=1, warmup=0)
+            qg = torch.cat(qs, dim=1).transpose(1, 2).contiguous()
+            kg, vg = (torch.cat(x, dim=1).repeat_interleave(H // Hk, dim=2).transpose(1, 2)
+                      .contiguous() for x in (ks, vs))
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                    qg, kg, vg, is_causal=causal), iters=3, warmup=1)
+            del qg, kg, vg
+            flops = 4 * D * B * H * k11_pairs(n, S_loc, causal)
+            nbytes = 4 * n * B * S_loc * D * (2 * H + 2 * Hk)
+            b_ms, b_by = bound(nbytes, flops, F32_FLOPS_PER_S)
+            bf16_ms = flops / BF16_FLOPS_PER_S * 1e3
+            say(f"  K11 {label} time: {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s fp32 on "
+                f"{k11_pairs(n, S_loc, causal)} live pairs a head), plain {plain_ms:.4f}, "
+                f"library (SDPA efficient, fp32, gathered) {lib_ms:.4f}, bound {b_ms:.4f} "
+                f"({b_by} at the fp32 CUDA-core peak {F32_FLOPS_PER_S / 1e12:g} TFLOP/s), "
+                f"{bf16_ms:.4f} at the bf16 tensor-core peak")
+            point = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                         bound_by=b_by, bound_bf16_ms=bf16_ms)
+            if causal:
+                row.update(point)
+            else:
+                row["non_causal"] = point
+        del qs, ks, vs
+        torch.cuda.empty_cache()
+    for label, n2, B2, H2, Hk2, D2, S2, bq, causal, dtype in K11_SMALL:
+        qs, ks, vs = _k11_inputs(torch, g, n2, B2, S2, H2, Hk2, D2, dtype)
+        worst = max(worst, _k11_case(torch, checks, label, qs, ks, vs, causal, bq))
+    rows["K11"] = dict(name=f"ring_attn (n={n} ranks on one card, B={B}, S_loc={S_loc}, H={H}, "
+                            f"Hk={Hk}, D={D}, fp32 in, causal)",
+                       source="flash_attn_tpu_torch/csrc/ring_attn.cu",
+                       replaces="flash_attn_tpu/parallel/rdma_ring.py:51",
+                       max_abs_err=worst, **row)
+
+
 def phase_kernels(torch, checks):
     t0 = time.perf_counter()
     rows = {}
@@ -3307,6 +3443,8 @@ def phase_kernels(torch, checks):
     check_k9_k10(torch, checks, rows)
     torch.cuda.empty_cache()
     check_fa2_options(torch, checks, rows)
+    torch.cuda.empty_cache()
+    check_k11(torch, checks, rows)
     torch.cuda.empty_cache()
     check_k8(torch, checks, rows)
     torch.cuda.empty_cache()
@@ -4141,12 +4279,13 @@ def _counters():
     from flash_attn_tpu_torch.ops.kv_append import kv_append_cuda
     from flash_attn_tpu_torch.ops.lse import lse_merge_cuda
     from flash_attn_tpu_torch.ops.paged_decode import paged_flash_decode_cuda
+    from flash_attn_tpu_torch.parallel.rdma_ring import ring_attn_cuda
 
     return ({"K1": flash_decode_cuda, "K1m": lse_merge_cuda, "K2": kv_append_cuda,
              "K3": mm.matmul_int8_cuda, "K3g": mm.matmul_int8_grouped_cuda,
              "K4": flash_fwd_cuda, "K5": mm.matmul_w4a8_cuda,
              "K6": mm.matmul_int4_cuda, "K7": mm.matmul_w8a8_cuda,
-             "K9": flash_bwd_dq_cuda, "K10": flash_bwd_dkv_cuda},
+             "K9": flash_bwd_dq_cuda, "K10": flash_bwd_dkv_cuda, "K11": ring_attn_cuda},
             paged_flash_decode_cuda)
 
 
@@ -5645,6 +5784,126 @@ def phase_gpt2_train(torch, checks, smi):
                       t1, batch=B, bound_ms=bound_ms)
 
 
+SP_N, SP_S = 4, 16384  # phase 20: ranks, and tokens over them (S_loc 4096)
+
+
+def _rel_norm(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm().clamp(min=1e-30))
+
+
+def _sp_run(torch, checks, label, fn, args, ref, want, dout=None):
+    """One call of ``fn(*args)`` (forward, and backward with ``dout``)
+    with every launch count zeroed just before and read just after, held
+    to ``want`` exactly; its output against ``ref``'s (each row to two bf16
+    ulps of its largest) and, with ``dout``, each gradient to TRAIN_GRAD_TOL
+    of its norm (phase 3's rule).  Then ms a call (CUDA events, 3 calls).
+    Returns (counts, output, gradients)."""
+    _reset_counts()
+    out = fn(*args)
+    grads = torch.autograd.grad(out, args, dout) if dout is not None else ()
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    _launches_exact(checks, label, counts, want)
+    ref_out, ref_grads = ref
+    err, share = row_err(out.detach(), ref_out)
+    ok = checks.check(f"{label} out", share, 1.0)
+    gerrs = [_rel_norm(g, r) for g, r in zip(grads, ref_grads)]
+    for name, e in zip("qkv", gerrs):
+        ok = checks.check(f"{label} d{name} (relative norm)", e, TRAIN_GRAD_TOL) and ok
+
+    def call():
+        o = fn(*args)
+        if dout is not None:
+            torch.autograd.grad(o, args, dout)
+
+    ms = cuda_ms(torch, call, iters=3, warmup=1)
+    say(f"  {label}: out max_abs_err {err:.3e} ({share:.3f} of its row's tol)"
+        + (f", dq dk dv relative norm err {', '.join(f'{e:.3e}' for e in gerrs)} (tol "
+           f"{TRAIN_GRAD_TOL:g})" if gerrs else "")
+        + f" {'ok' if ok else 'FAIL'} | launches {({k: counts[k] for k in want})} | "
+        f"{ms:.3f} ms a call")
+    return counts, out.detach(), grads
+
+
+def phase_sp(torch, checks, smi):
+    """Phase 20: sequence-parallel attention at Llama-3-8B's attention
+    widths (H=32, Hk=8, D=128, bf16), B=1, SP_S tokens over SP_N ranks that
+    share cuda:0 (make_mesh with the card given SP_N times): the ring over
+    K4 / K9 + K10, contiguous and striped, causal, forward and backward
+    through autograd; the one-kernel ring (K11) forward; Ulysses forward and
+    backward.  Each is held to the single-device flash_attention on the
+    whole sequence (K4, K9 + K10), with its launches a call exact: the
+    contiguous ring K4 = K9 = K10 = 10 (ranks 0-3 live on 1-4 steps), the
+    striped 16, K11 1, Ulysses 4 (one a rank)."""
+    from flash_attn_tpu_torch.ops.attention import flash_attention
+    from flash_attn_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from flash_attn_tpu_torch.parallel.rdma_ring import make_rdma_ring_attention
+    from flash_attn_tpu_torch.parallel.ring import (
+        make_ring_attention,
+        stripe_sequence,
+        unstripe_sequence,
+    )
+    from flash_attn_tpu_torch.parallel.ulysses import make_ulysses_attention
+
+    t0 = time.perf_counter()
+    n, S, H, Hk, D = SP_N, SP_S, K11_H, K11_HK, K11_D
+    say(f"[phase 20 sequence-parallel attention] B=1 S={S} H={H} Hk={Hk} D={D} bf16, causal, "
+        f"{n} ranks sharing one card ({smi}): each rotation or push is a device-local copy, so "
+        "these times say nothing about NVLink")
+    mesh = make_mesh(MeshConfig(sp=n), devices=["cuda:0"] * n)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 81)
+
+    def rnd(h):
+        return torch.randn((1, S, h, D), generator=g, device="cuda").to(torch.bfloat16)
+
+    q, k, v, dout = rnd(H), rnd(Hk), rnd(Hk), rnd(H)
+    q.requires_grad_(True)
+    k.requires_grad_(True)
+    v.requires_grad_(True)
+    single = lambda q_, k_, v_: flash_attention(q_, k_, v_, causal=True)  # noqa: E731
+    ref_out = single(q, k, v)
+    ref = (ref_out.detach(), torch.autograd.grad(ref_out, (q, k, v), dout))
+    del ref_out
+    ms1 = cuda_ms(torch, lambda: torch.autograd.grad(single(q, k, v), (q, k, v), dout),
+                  iters=3, warmup=1)
+    say(f"  single-device flash_attention (K4, K9 + K10) on the whole sequence: {ms1:.3f} ms "
+        "a forward + backward call")
+    runs = {}
+    ring = make_ring_attention(mesh, causal=True)
+    want = {"K4": 10, "K9": 10, "K10": 10}
+    runs[RUN_SP_RING], ring_out, _ = _sp_run(torch, checks, "ring contiguous", ring,
+                                             (q, k, v), ref, want, dout)
+    striped = make_ring_attention(mesh, causal=True, layout="striped")
+
+    def striped_call(q_, k_, v_):
+        return unstripe_sequence(striped(*(stripe_sequence(x, n) for x in (q_, k_, v_))), n)
+
+    want = {"K4": 16, "K9": 16, "K10": 16}
+    runs[RUN_SP_STRIPED], _, _ = _sp_run(torch, checks, "ring striped", striped_call,
+                                         (q, k, v), ref, want, dout)
+    rdma = make_rdma_ring_attention(mesh, causal=True)
+    with torch.no_grad():
+        runs[RUN_SP_RDMA], rdma_out, _ = _sp_run(
+            torch, checks, "rdma ring (K11) vs the single call", rdma,
+            (q.detach(), k.detach(), v.detach()), (ref[0], ()), {"K11": 1, "K4": 0})
+    err, share = row_err(rdma_out, ring_out)
+    checks.check("rdma ring vs ring out", share, 1.0)
+    say(f"  rdma ring (K11) vs make_ring_attention (K4): max_abs_err {err:.3e} ({share:.3f} of "
+        f"its row's tol) {'ok' if share <= 1.0 else 'FAIL'}")
+    uly = make_ulysses_attention(mesh, causal=True)
+    want = {"K4": n, "K9": n, "K10": n}
+    runs[RUN_SP_ULYSSES], uly_out, uly_grads = _sp_run(torch, checks, "Ulysses", uly, (q, k, v),
+                                                       ref, want, dout)
+    same = torch.equal(uly_out, ref[0]) and all(
+        torch.equal(a, b) for a, b in zip(uly_grads, ref[1]))
+    say(f"  Ulysses bitwise the single-device call (out, dq, dk, dv): {same}")
+    del q, k, v, dout, ref, ring_out, rdma_out, uly_out, uly_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"[phase 20 sequence-parallel attention] {time.perf_counter() - t0:.2f}s")
+    return runs
+
+
 RUN_8B_INT8 = "phase 4 serve Llama-3-8B int8, fp8 KV"
 RUN_8B_ONE = "phase 4 serve Llama-3-8B int8, fp8 KV, one prompt a prefill call"
 RUN_CHUNK = "phase 4c serve Llama-3-8B int8, fp8 KV, prefill_chunk_size 512"
@@ -5686,11 +5945,18 @@ RUN_ABI = ("phase 18 the C entry points, Llama-3-8B attention widths (varlen 8 s
            "8192, dense B=2 S=2048) and GPT-2's (B=4 S=1024)")
 RUN_PACKED_TRAIN = (f"phase 19 packed training Llama-3 8B widths, {TRAIN_LAYERS} layers, B=1 "
                     f"S={TRAIN_SEQ}, documents (1024, 512, 320, 192), {TRAIN_STEPS} AdamW steps")
+RUN_SP_RING = (f"phase 20 ring attention, contiguous, causal, {SP_N} ranks on one card, "
+               f"S={SP_S}, forward + backward")
+RUN_SP_STRIPED = (f"phase 20 ring attention, striped, causal, {SP_N} ranks on one card, "
+                  f"S={SP_S}, forward + backward")
+RUN_SP_RDMA = f"phase 20 rdma ring attention (K11), causal, {SP_N} ranks on one card, S={SP_S}"
+RUN_SP_ULYSSES = (f"phase 20 Ulysses attention, causal, {SP_N} ranks on one card, S={SP_S}, "
+                  "forward + backward")
 KERNEL_ROWS = ("K1", "K1m", "K1c", "K1b", "K2", "K3", "K3g", "K4", "K5", "K6", "K7", "K8", "K8c",
                "K9", "K10", "K4 d256", "K1 d256", "K2 d256", "K1m d256", "K9 d256", "K10 d256",
                "K4 d64", "K1 d64", "K1c d64", "K8 d64", "K2 d64", "K1m d64", "K9 d64", "K10 d64",
                "K4 27B", "K1 27B", "K9 27B", "K10 27B", "K4 G7", "K1 G7", "K1c G7", "K8 G7",
-               "K2 G7", "K3 Mixtral", "K4 opt", "K9 opt", "K10 opt")
+               "K2 G7", "K3 Mixtral", "K4 opt", "K9 opt", "K10 opt", "K11")
 # the run whose launches a kernel's row reports, and the count it reads:
 # the main path that the kernel serves (the 70B serve for the shared K1,
 # K1m, K2 and K4, the n-gram speculative serve for K1's chunk mode, the
@@ -5713,7 +5979,7 @@ ROW_RUN = {"K1": RUN_70B, "K1m": RUN_70B, "K1c": RUN_SPEC_NGRAM, "K1b": None, "K
            "K1 27B": RUN_GEMMA27, "K9 27B": RUN_GEMMA27_TRAIN, "K10 27B": RUN_GEMMA27_TRAIN,
            "K4 G7": RUN_QWEN, "K1 G7": RUN_QWEN, "K1c G7": RUN_QWEN_SPEC,
            "K8 G7": RUN_QWEN_PAGED, "K2 G7": RUN_QWEN, "K3 Mixtral": RUN_MIXTRAL,
-           "K4 opt": RUN_ABI, "K9 opt": RUN_ABI, "K10 opt": RUN_ABI}
+           "K4 opt": RUN_ABI, "K9 opt": RUN_ABI, "K10 opt": RUN_ABI, "K11": RUN_SP_RDMA}
 # a row's count where it is not the row's own key: every K2 and K1m launch
 # of the Gemma-2-9B serve is at head_dim 256, and every launch of the GPT-2
 # serves at head_dim 64 (phase 12 holds the d64 counts equal); the 27B
@@ -5761,6 +6027,7 @@ def main() -> int:
     mixtral_card_vs_cpu(torch, checks, "int8", SEED + 66)
     mixtral_card_vs_cpu(torch, checks, "int4", SEED + 67)
     runs = {RUN_ABI: phase_abi(torch, checks, smi)}
+    runs.update(phase_sp(torch, checks, smi))
     runs.update(phase_serve(torch, checks, smi))
     runs.update(phase_gemma(torch, checks, smi))
     runs.update(phase_gemma(torch, checks, smi, "27B"))
@@ -5792,7 +6059,8 @@ def main() -> int:
                                          "sdpa_nocap_ms", "no_window", "k8c", "sdpa_mask_ms",
                                          "bound_per_head_ms", "no_mask", "segments", "dense",
                                          "bias", "d64", "d64_varlen", "d64_segments",
-                                         "readout") if k in r})
+                                         "readout", "bound_bf16_ms", "non_causal")
+                       if k in r})
                for r in (rows[k] for k in KERNEL_ROWS)]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -14,7 +14,7 @@ reaches the plain version.
 from flash_attn_tpu_torch._device import resolve_device
 from flash_attn_tpu_torch.ops.attention import flash_attention, flash_attention_varlen
 from flash_attn_tpu_torch.ops.decode import flash_decode, flash_decode_chunk
-from flash_attn_tpu_torch.ops.lse import lse_merge
+from flash_attn_tpu_torch.ops.lse import lse_merge, lse_merge2
 from flash_attn_tpu_torch.ops.matmul import (
     W4A8Weight,
     W8A8Weight,
@@ -38,6 +38,7 @@ __all__ = [
     "flash_decode",
     "flash_decode_chunk",
     "lse_merge",
+    "lse_merge2",
     "W4A8Weight",
     "W8A8Weight",
     "matmul_int4",

@@ -56,6 +56,7 @@ _SIGNATURES = {
     "fatt_flash_bwd_dkv": [P, P, P, P, P, P, P, P,
                            I, I, I, I, I, I, F, I, I, I, F, P, P, P, P, *_EXTRA, P],
     "fatt_lse_merge": [P, P, P, P, I, L, I, I, P],
+    "fatt_ring_attn": [P, P, P, P, P, I, I, I, I, I, I, I, I, F, P, P],
 }
 
 # seconds the last build took in this process (0.0 when it was cached)

@@ -74,6 +74,12 @@ def seed32(seed) -> int:
     return seed
 
 
+def seed_add(seed: int, offset: int) -> int:
+    """seed + offset with int32 wraparound, as JAX adds int32 seeds (the
+    rings' and Ulysses' per-rank seeds)."""
+    return (seed + offset + 2 ** 31) % 2 ** 32 - 2 ** 31
+
+
 def dropout_threshold(rate: float) -> int:
     """Bits at or above this are kept (flash_fwd.py:216-217)."""
     return min(int(rate * 4294967296.0), 4294967295)

@@ -1,7 +1,8 @@
 """LSE-merge algebra: combines partial attentions over disjoint KV sets.
 
 Port of flash_attn_tpu/ops/lse.py:lse_merge (``lse_merge``, the plain
-version), and the split-KV combine kernel K1m (``csrc/lse_merge.cu``,
+version) and lse_merge2 (``lse_merge2``, the ring's pairwise merge), and
+the split-KV combine kernel K1m (``csrc/lse_merge.cu``,
 ``lse_merge_cuda``) that merges the decode kernels' partials on the card.
 
     lse = logsumexp_i(lse_i)
@@ -15,6 +16,9 @@ from __future__ import annotations
 import torch
 
 from flash_attn_tpu_torch import _build
+
+# an LSE at or below this is a dead partial: -inf, or the kernels' -1e30
+DEAD_LSE = -1e30 / 2
 
 
 def lse_merge(outs: torch.Tensor, lses: torch.Tensor, dim: int = 0):
@@ -33,6 +37,28 @@ def lse_merge(outs: torch.Tensor, lses: torch.Tensor, dim: int = 0):
     w = torch.where(torch.isfinite(lses), w, torch.zeros_like(w))
     out = (outs * w[..., None]).sum(dim=dim)
     return out.to(out_dtype), lse
+
+
+def lse_merge2(out1, lse1, out2, lse2):
+    """Pairwise merge, the form the ring's steps use (port of
+    flash_attn_tpu/ops/lse.py:lse_merge2; plain torch, as JAX leaves it
+    to XLA).  out*: [..., D]; lse*: out.shape[:-1].  Returns (out, lse)
+    in fp32.  A partial whose lse is -inf (JAX's dead rows, a ring's
+    skipped step) or at most -1e30 / 2 (the port kernels' dead rows)
+    weighs 0; where both are dead the result is out 0, lse -inf."""
+    out1, out2, lse1, lse2 = (x.float() for x in (out1, out2, lse1, lse2))
+    live1, live2 = lse1 > DEAD_LSE, lse2 > DEAD_LSE
+    zero = torch.zeros((), device=lse1.device)
+    dead = torch.full((), float("-inf"), device=lse1.device)
+    m = torch.maximum(torch.where(live1, lse1, dead), torch.where(live2, lse2, dead))
+    m = torch.where(live1 | live2, m, zero)
+    e1 = torch.where(live1, torch.exp(lse1 - m), zero)
+    e2 = torch.where(live2, torch.exp(lse2 - m), zero)
+    s = e1 + e2
+    lse = torch.where(s > 0.0, m + torch.log(torch.clamp(s, min=1e-37)), dead)
+    denom = torch.clamp(s, min=1e-37)[..., None]
+    out = (out1 * e1[..., None] + out2 * e2[..., None]) / denom
+    return out, lse
 
 
 def lse_merge_cuda(outs: torch.Tensor, lses: torch.Tensor, dtype):
