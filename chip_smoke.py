@@ -347,7 +347,7 @@ def plain_merge(outs, lses, dtype):
 
     if outs.shape[0] == 1:
         return outs[0].to(dtype), lses[0]
-    out, lse = lse_merge(outs, lses, dim=0)
+    out, lse = lse_merge(outs, lses, axis=0)
     return out.to(dtype), lse
 
 
@@ -756,7 +756,7 @@ def check_k1(torch, checks, rows):
         got, glse = dec.flash_decode(q, k, v, k_scale=ks, v_scale=vs, kv_length=lens,
                                      return_lse=True, kv_layout="bhsd")
         po, pl = dec.flash_decode_plain(*args)
-        ref, rlse = dec.lse_merge(po, pl, dim=0)
+        ref, rlse = dec.lse_merge(po, pl, axis=0)
         torch.cuda.synchronize()
         err, share = row_err(got, ref.to(torch.bfloat16))
         # fp32 sums of at most 4096 terms in another order: far below 1e-3,
@@ -815,7 +815,7 @@ def check_k1m(torch, checks, rows):
     ok = True
     for dtype, rel in ((torch.bfloat16, 2.0 ** -6), (torch.float32, 2.0 ** -16)):
         got, glse = lse_merge_cuda(outs, lses, dtype)
-        ref, rlse = lse_merge(outs, lses, dim=0)
+        ref, rlse = lse_merge(outs, lses, axis=0)
         torch.cuda.synchronize()
         err, share = row_err(got, ref.to(dtype), rel=rel)
         lerr = float((glse - rlse).abs().max())
@@ -830,7 +830,7 @@ def check_k1m(torch, checks, rows):
             f"its row's tol), lse err {lerr:.3e} (tol 1e-3), idle slot {'ok' if idle else 'FAIL'}")
     ms = graph_ms(torch, lambda: lse_merge_cuda(outs, lses, torch.bfloat16))
     loop_ms = cuda_ms(torch, lambda: lse_merge_cuda(outs, lses, torch.bfloat16), iters=100)
-    plain_ms = cuda_ms(torch, lambda: lse_merge(outs, lses, dim=0)[0].to(torch.bfloat16))
+    plain_ms = cuda_ms(torch, lambda: lse_merge(outs, lses, axis=0)[0].to(torch.bfloat16))
     nbytes = outs.numel() * 4 + lses.numel() * 4 + outs[0].numel() * 2 + lses[0].numel() * 4
     b_ms, b_by = bound(nbytes, 2 * outs.numel())
     say(f"  K1m {'ok' if ok else 'FAIL'} | {ms:.4f} ms (CUDA graph; {loop_ms:.4f} called from "
@@ -2174,7 +2174,7 @@ def _k1m_row(torch, checks, shape, outs, lses, idle=None):
     from flash_attn_tpu_torch.ops.lse import lse_merge, lse_merge_cuda
 
     got, glse = lse_merge_cuda(outs, lses, torch.bfloat16)
-    ref, rlse = lse_merge(outs, lses, dim=0)
+    ref, rlse = lse_merge(outs, lses, axis=0)
     torch.cuda.synchronize()
     err, share = row_err(got, ref.to(torch.bfloat16))
     lerr = float((glse - rlse).abs().max())
@@ -2184,7 +2184,7 @@ def _k1m_row(torch, checks, shape, outs, lses, idle=None):
         checks.failed.append(f"{label}: the idle slot is not out 0, lse <= -1e29")
         ok = False
     ms = graph_ms(torch, lambda: lse_merge_cuda(outs, lses, torch.bfloat16))
-    plain_ms = cuda_ms(torch, lambda: lse_merge(outs, lses, dim=0)[0].to(torch.bfloat16))
+    plain_ms = cuda_ms(torch, lambda: lse_merge(outs, lses, axis=0)[0].to(torch.bfloat16))
     nbytes = outs.numel() * 4 + lses.numel() * 4 + outs[0].numel() * 2 + lses[0].numel() * 4
     b_ms, b_by = bound(nbytes, 2 * outs.numel())
     n = outs.shape[0]
@@ -2890,6 +2890,38 @@ def _rand_bias(torch, g, shape, dead_row=3):
     return b
 
 
+# the bias forms that K9's and K10's staging (csrc/flash_bwd.cu:load_bias)
+# must take, each at head_dim 128 and 64, causal or not: (B, Sq, Sk, H,
+# Hk, D, causal, kind, dropout).  Kinds (_edge_bias): "keys", a key-padding
+# bias [B, 1, 1, Sk] (query stride 0); "rows", a contiguous [Sq, Sk] whose
+# rows are not 16-byte aligned (Sk odd: 4-byte pieces; Sk = 2 mod 4:
+# 8-byte pieces); "transposed", the transpose of a [B, H, Sk, Sq] tensor
+# (key stride Sq: 4-byte pieces)
+FA2_EDGE_BIAS = (
+    (2, 1000, 1500, 32, 8, 128, True, "keys", False),
+    (2, 1024, 1024, 12, 12, 64, False, "keys", True),
+    (1, 1000, 1501, 32, 8, 128, False, "rows", False),
+    (2, 1000, 1501, 12, 4, 64, True, "rows", True),
+    (1, 1000, 1502, 32, 8, 128, True, "rows", False),
+    (1, 1000, 1500, 32, 8, 128, False, "transposed", True),
+    (2, 1024, 1024, 12, 12, 64, True, "transposed", False),
+)
+
+
+def _edge_bias(torch, g, kind, B, H, Sq, Sk):
+    """A bias of FA2_EDGE_BIAS's ``kind`` as _rand_bias draws it (the
+    transposed one with query row 3 all -inf)."""
+    if kind == "keys":
+        return _rand_bias(torch, g, (B, 1, 1, Sk), dead_row=None)
+    if kind == "rows":
+        return _rand_bias(torch, g, (Sq, Sk))
+    if kind != "transposed":
+        raise ValueError(f"unknown bias kind {kind!r}")
+    bias = _rand_bias(torch, g, (B, H, Sk, Sq), dead_row=None).transpose(-1, -2)
+    bias[..., 3, :] = float("-inf")
+    return bias
+
+
 def _live_keys(torch, masks, causal, Sq, Sk, bias, H):
     """[B, Sq, H] live keys a query: the masks' pairs whose bias is
     finite."""
@@ -3190,7 +3222,9 @@ def check_fa2_options(torch, checks, rows):
     mask, dropout), the bias alone (where SDPA computes the same function),
     GPT-2's widths dense (B=4, S=1024, H=Hk=12, D=64) and varlen (8
     sequences in 4096 tokens, GPT2_LENS, with a [4096, 4096] mask and
-    dropout, and with the segments alone)), the backward also
+    dropout, and with the segments alone)), the bias forms of
+    FA2_EDGE_BIAS (a key-padding bias, rows not 16-byte aligned, a
+    transposed view; each at head_dim 128 and 64), the backward also
     at phase 19's packed documents with rope and at a ragged non-causal
     Sq=1000 Sk=1500 with a per-head bias; the dropout read out bit for bit
     (check_dropout_readout); and the new instances with neutral options
@@ -3227,14 +3261,21 @@ def check_fa2_options(torch, checks, rows):
         (None, 1, 1000, 1500, 32, 8, 128, False, None, (1, 32, 1000, 1500), drop, False),
         (None, 2, 1000, 1500, 12, 4, 64, True, None, (1000, 1500), None, False),
         (None, 1, 891, 891, 32, 8, 128, True, None, None, drop, False),
+        # the bias forms K9's and K10's staging must take (a bias kind)
+        *((None, B_, Sq_, Sk_, H_, Hk_, D_, causal_, None, kind, drop if d else None, False)
+          for B_, Sq_, Sk_, H_, Hk_, D_, causal_, kind, d in FA2_EDGE_BIAS),
     )
     worst = {"K4 opt": 0.0, "K9 opt": 0.0, "K10 opt": 0.0}
     k4_rows, bwd_rows = {}, {}
     for key, B, Sq, Sk, H, Hk, D, causal, masks, bshape, dropout, timed in cases:
         q, k, v, dout = rnd(B, Sq, H, D), rnd(B, Sk, Hk, D), rnd(B, Sk, Hk, D), rnd(B, Sq, H, D)
-        bias = None if bshape is None else _rand_bias(torch, g, bshape)
-        label = _opt_label(B, Sq, Sk, H, Hk, D, causal, masks, bias, dropout,
-                           "varlen, 8 sequences" if masks is not None else "")
+        what = "varlen, 8 sequences" if masks is not None else ""
+        if isinstance(bshape, str):
+            bias = _edge_bias(torch, g, bshape, B, H, Sq, Sk)
+            what = f"a {bshape} bias, strides {tuple(bias.stride())}"
+        else:
+            bias = None if bshape is None else _rand_bias(torch, g, bshape)
+        label = _opt_label(B, Sq, Sk, H, Hk, D, causal, masks, bias, dropout, what)
         err, args = _k4_opt_case(torch, checks, label, q, k, v, causal, masks, bias, dropout)
         worst["K4 opt"] = max(worst["K4 opt"], err)
         if timed:

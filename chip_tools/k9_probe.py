@@ -47,6 +47,24 @@ and K10 followed by the reduction ``flash_bwd`` makes of its outputs
 (the sum over each GQA group, then dk and dv in bf16 as [B, Sk, Hk, D]).
 Each check line also says whether dq, dk and dv are bitwise those of the
 first version.
+Then the kOpt instances (segment ids, positions, the bias, dropout) on
+``OPT_CASES``, in every version whose C entries take them: the bias alone
+at the dense shape of phase 18 (B=2, S=2048, H=32, Hk=8, D=128, causal, a
+[2, 1, 2048, 2048] fp32 mask), phase 18's varlen call (8 sequences in
+8192 tokens, causal in each) with the mask, segment ids and dropout, with
+segment ids and dropout, and with segment ids alone, phase 19's packed
+documents with rope, GPT-2's widths (D=64) dense and varlen with the mask
+and dropout, and chip_smoke.py's ``FA2_EDGE_BIAS`` (a key-padding bias, rows
+not 16-byte aligned, a transposed view; head_dim 128 and 64, causal or
+not).  Each version is held to ``flash_bwd_plain`` by the row rule (dq
+rows of queries with fewer than two live keys to the noise floor), and
+the mutants ``mutant`` (always) and ``bias_stage`` (K9 and K10 read the
+other ring stage's bias; where a bias is given) must miss.  With
+``--require-bitwise`` every version that is not a mutant must give dq, dk
+and dv bitwise the first version's on every case, or the probe exits 1.
+The timed cases run in turns as above; the dense bias-alone case also
+gives cuDNN's backward on the same float mask (device time by
+torch.profiler).
 The card's name and power limit head the output.
 """
 
@@ -86,8 +104,30 @@ EDITS = {"mutant": ((K9, K9 + "if (t == 1) { __syncthreads(); continue; }\n", 1)
                     (K10, "if (it == 1) { __syncthreads(); continue; }\n" + K10, 1)),
          "no_dt": (("        if (capped) x[e] *= dt;\n", "", 2),),
          "no_tanh": (("fatt::tanh_exp2(s[4 * j + e] * cap_in)", "(s[4 * j + e] * cap_in)", 1),
-                     ("fatt::tanh_exp2(st[4 * j + e] * cap_in)", "(st[4 * j + e] * cap_in)", 1))}
+                     ("fatt::tanh_exp2(st[4 * j + e] * cap_in)", "(st[4 * j + e] * cap_in)", 1)),
+         # the staged bias read from the ring's other stage
+         "bias_stage": (("bias_my + (t & 1) *", "bias_my + ((t + 1) & 1) *", 1),
+                        ("bias_my + (it & 1) *", "bias_my + ((it + 1) & 1) *", 1))}
 CAP_MUTANTS = ("no_dt", "no_tanh")
+BIAS_MUTANTS = ("bias_stage",)
+# the kOpt cases: (name, B, Sq, Sk, H, Hk, D, causal, masks, bias, dropout,
+# timed); masks: "varlen" (phase 18's sequences, ABI_LENS), "varlen64"
+# (GPT2_LENS), "docs" (phase 19's packed documents, with rope) or None;
+# bias: a shape for chip_smoke._rand_bias, a kind of chip_smoke._edge_bias
+# or None
+OPT_CASES = (
+    ("bias alone, dense", 2, 2048, 2048, 32, 8, 128, True, None, (2, 1, 2048, 2048), False,
+     True),
+    ("bias, segments, dropout, varlen", 1, 8192, 8192, 32, 8, 128, False, "varlen",
+     (8192, 8192), True, True),
+    ("segments, dropout, varlen", 1, 8192, 8192, 32, 8, 128, False, "varlen", None, True, True),
+    ("segments alone, varlen", 1, 8192, 8192, 32, 8, 128, False, "varlen", None, False, True),
+    ("packed documents, rope", 1, 2048, 2048, 32, 8, 128, True, "docs", None, False, True),
+    ("GPT-2 bias, dropout, dense", 4, 1024, 1024, 12, 12, 64, True, None, (4, 1, 1024, 1024),
+     True, True),
+    ("GPT-2 bias, segments, dropout, varlen", 1, 4096, 4096, 12, 12, 64, False, "varlen64",
+     (4096, 4096), True, True),
+)
 # reported, held to nothing (B, Sq, Sk, H, Hk, D, causal, rope, window, cap, q_mult)
 PEAKY = (1, 2048, 2048, 16, 8, 256, True, True, (1023, -1), 50.0, 8.0)
 
@@ -170,6 +210,79 @@ def load(name, src_dir, lib, res):
     return abi, fns, info
 
 
+class OptCase:
+    """One of OPT_CASES or chip_smoke.py's FA2_EDGE_BIAS: its inputs (out
+    and lse from this tree's K4 with the same options), the kOpt arguments
+    of the C entries, the plain version's outputs and the dq floor."""
+
+    def __init__(self, torch, name, B, Sq, Sk, H, Hk, D, causal, masks, bias, dropout, timed):
+        from chip_smoke import (ABI_LENS, DROP_RATE, DROP_SEED, GPT2_LENS, PACKED_DOCS,
+                                _edge_bias, _live_keys, _packed_docs, _rand_bias,
+                                _varlen_masks, bwd_plain)
+        from flash_attn_tpu_torch.ops import flash_bwd as fb
+        from flash_attn_tpu_torch.ops import flash_fwd as ff
+        from flash_attn_tpu_torch.ops.rope import rope_cos_sin
+
+        self.name, self.B, self.Sq, self.Sk, self.H, self.Hk, self.D = name, B, Sq, Sk, H, Hk, D
+        self.causal, self.timed, self.scale = causal, timed, D ** -0.5
+        g = torch.Generator(device="cuda").manual_seed(7)
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=g, device="cuda", dtype=torch.bfloat16)
+
+        self.q, self.k, self.v = rnd(B, Sq, H, D), rnd(B, Sk, Hk, D), rnd(B, Sk, Hk, D)
+        self.dout = rnd(B, Sq, H, D)
+        self.cos = self.sin = None
+        m = None
+        if masks in ("varlen", "varlen64"):
+            m = _varlen_masks(torch, ABI_LENS if masks == "varlen" else GPT2_LENS)
+        elif masks == "docs":
+            seg, pos = _packed_docs(torch, PACKED_DOCS)
+            m = ff.Masks(seg, seg, None, None)
+            self.cos, self.sin = rope_cos_sin(pos, D, 500000.0)
+        if bias is None:
+            self.bias = None
+        elif isinstance(bias, str):
+            self.bias = _edge_bias(torch, g, bias, B, H, Sq, Sk)
+        else:
+            self.bias = _rand_bias(torch, g, bias)
+        self.has_bias = self.bias is not None
+        b4 = ff.bias4(self.bias, B, H, Sq, Sk)
+        drop = ff.Dropout(DROP_RATE, DROP_SEED) if dropout else None
+        out, self.lse = ff.flash_fwd_cuda(self.q, self.k, self.v, causal, self.scale, self.cos,
+                                          self.sin, False, m, None, None, b4, drop)
+        self.delta = (self.dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        del out
+        self.masks, self.b4, self.drop = m, b4, drop
+        # K4's tile metadata, held here: opt_args takes _tiles' pointers
+        self.tiles = None if m is None else ff._tiles(m, B, Sq, Sk)
+        self.opt = fb.opt_args(m, b4, drop, B, Sq, Sk)
+        args = (self.q, self.k, self.v, self.dout, self.lse, self.delta, causal, self.scale,
+                self.cos, self.sin, None, None, m, b4, drop)
+        self.ref = bwd_plain(args)
+        counts = _live_keys(torch, m, causal, Sq, Sk, b4, H)
+        self.floor = torch.where(counts < 2, 2.0 ** -12 * float(self.ref[0].abs().max()), 1e-6)
+        live = ff.live_pairs(m, causal, Sq, Sk, "cuda")
+        self.gemm = 2 * D * H * int(live.sum()) * (1 if m is not None else B)
+
+    def cudnn_ms(self, torch):
+        """cuDNN's (SDPA's) backward with the same float mask, device time,
+        and its backend."""
+        import torch.nn.functional as F
+
+        from chip_smoke import _sdpa_mask, sdpa_bwd_device_ms
+
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                      for x in (self.q, self.k, self.v))
+        fm = _sdpa_mask(torch, self.masks, self.causal, self.Sq, self.Sk, self.b4)
+        o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=fm, scale=self.scale,
+                                           enable_gqa=True)
+        do_t = self.dout.transpose(1, 2).contiguous()
+        ms, backend, _ = sdpa_bwd_device_ms(
+            torch, lambda: torch.autograd.grad(o, (qt, kt, vt), do_t, retain_graph=True), calls=5)
+        return ms, backend
+
+
 class Case:
     """One of chip_smoke.py's BWD_CASES (Sq = Sk, causal): its inputs,
     references and operation count."""
@@ -236,6 +349,9 @@ def worst_rows(torch, c, dq, n=4) -> str:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--old", action="append", default=[], help="NAME=DIR of another flash_bwd.cu")
+    ap.add_argument("--require-bitwise", action="store_true",
+                    help="fail unless every version that is not a mutant gives the first "
+                         "version's outputs bitwise on every case")
     args = ap.parse_args()
     import torch
 
@@ -307,7 +423,8 @@ def main() -> int:
     for bc, bound in cases + [(BwdCase(*PEAKY), False)]:
         c = Case(torch, bc)
         labels = [n for n, src in srcs if (c.D == 128 or libs[n][0] in ("local", "opt"))
-                  and takes(Path(src), c) and (n not in CAP_MUTANTS or c.cap is not None)]
+                  and takes(Path(src), c) and (n not in CAP_MUTANTS or c.cap is not None)
+                  and n not in BIAS_MUTANTS]
         first = None
         for label in labels:
             c9, c10, _, outs = runner(label, c)
@@ -322,6 +439,8 @@ def main() -> int:
             must_miss = label == "mutant" or (label in CAP_MUTANTS and c.bends)
             if bound and (label not in CAP_MUTANTS or c.bends):
                 ok = ok and (not held if must_miss else held)
+            if args.require_bitwise and label not in EDITS and not same:
+                ok = False
             note = (" (reported, held to nothing)" if not bound else " (must miss)" if must_miss
                     else " (not bound to miss: the cap does not bend here)" if label in EDITS
                     else "")
@@ -345,6 +464,76 @@ def main() -> int:
                   f"K10 and the GQA reduction (graph) {g10r:.4f} ms", flush=True)
         del c
         torch.cuda.empty_cache()
+
+    def opt_runner(name, c):
+        """(K9 call, K10 call, outputs -> (dq, dk, dv) per query head) of
+        version ``name`` on OptCase ``c``."""
+        _, (f9, f10), _ = libs[name]
+        B, Sq, Sk, H, Hk, D = c.B, c.Sq, c.Sk, c.H, c.Hk, c.D
+        dq = torch.empty((B, Sq, H, D), dtype=torch.float32, device="cuda")
+        rq = c.q if c.cos is None else torch.empty_like(c.q)
+        dk = torch.empty((B, H, Sk, D), dtype=torch.float32, device="cuda")
+        dv = torch.empty_like(dk)
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        common = [ptr(t) for t in (c.q, c.k, c.v, c.dout, c.lse, c.delta, c.cos, c.sin)]
+        nolocal = (-1, -1, 0.0)
+        c9 = lambda: f9(*common, ptr(dq), ptr(rq), B, Sq, Sk, H, Hk, D, 0, c.scale,  # noqa
+                        int(c.causal), *nolocal, *c.opt, stream())
+        c10 = lambda: f10(ptr(rq), *common[1:6], ptr(dk), ptr(dv), B, Sq, Sk, H, Hk, D,  # noqa
+                          c.scale, int(c.causal), *nolocal, *c.opt, stream())
+        return c9, c10, lambda: (dq, dk, dv)
+
+    from chip_smoke import FA2_EDGE_BIAS
+
+    edge = tuple((f"{kind} bias", B, Sq, Sk, H, Hk, D, causal, None, kind, drop, False)
+                 for B, Sq, Sk, H, Hk, D, causal, kind, drop in FA2_EDGE_BIAS)
+    all_bitwise = True
+    for spec in OPT_CASES + edge:
+        c = OptCase(torch, *spec)
+        label_of = (f"{c.name} (B={c.B}, Sq={c.Sq}, Sk={c.Sk}, H={c.H}, Hk={c.Hk}, D={c.D}, "
+                    f"{'causal' if c.causal else 'not causal'})")
+        labels = [n for n, _ in srcs if libs[n][0] == "opt" and n not in CAP_MUTANTS
+                  and (n not in BIAS_MUTANTS or c.has_bias)]
+        first = None
+        for label in labels:
+            c9, c10, outs = opt_runner(label, c)
+            assert c9() == 0 and c10() == 0, label
+            torch.cuda.synchronize()
+            got = outs()
+            first = first or tuple(x.clone() for x in got)
+            same = all(torch.equal(a, b) for a, b in zip(got, first))
+            shares = [row_err(got[0], c.ref[0], floor=c.floor)[1], row_err(got[1], c.ref[1])[1],
+                      row_err(got[2], c.ref[2])[1]]
+            held = max(shares) <= 1.0  # NaN (a mutant's stale stage) misses too
+            must_miss = label in ("mutant", *BIAS_MUTANTS)
+            ok = ok and (not held if must_miss else held)
+            if label not in EDITS:
+                all_bitwise = all_bitwise and same
+                if args.require_bitwise and not same:
+                    ok = False
+            print(f"[opt] {label_of}, {label}: share of the row tolerance dq {shares[0]:.3f}, "
+                  f"dk {shares[1]:.3f}, dv {shares[2]:.3f}; bitwise {labels[0]}'s {same}; "
+                  f"{'held' if held else 'missed'}{' (must miss)' if must_miss else ''}",
+                  flush=True)
+        if c.timed:
+            turns = [n for n in labels if n not in EDITS and n != "this"]
+            for label in turns + ["this", "this"] + turns[::-1]:
+                c9, c10, _ = opt_runner(label, c)
+                ms9, ms10 = cuda_ms(torch, c9), cuda_ms(torch, c10)
+                g9, g10 = graph_ms(torch, c9), graph_ms(torch, c10)
+                print(f"[opt turn] {label_of}, {label}: K9 {ms9:.4f} ms (graph {g9:.4f}, "
+                      f"{3 * c.gemm / g9 / 1e9:.1f} TFLOP/s); K10 {ms10:.4f} ms (graph "
+                      f"{g10:.4f}, {4 * c.gemm / g10 / 1e9:.1f} TFLOP/s); K9 + K10 {ms9 + ms10:.4f}"
+                      f" ms (graph {g9 + g10:.4f})", flush=True)
+            if c.name == OPT_CASES[0][0]:
+                lib_ms, backend = c.cudnn_ms(torch)
+                print(f"[opt library] {label_of}: SDPA's backward with the same float mask, "
+                      f"device time {'not measured' if lib_ms is None else f'{lib_ms:.4f}'} ms "
+                      f"(backend {backend})", flush=True)
+        del c
+        torch.cuda.empty_cache()
+    print(f"[opt] every version bitwise {srcs[0][0]}'s on every kOpt case: {all_bitwise}",
+          flush=True)
     shutil.rmtree(out_dir, ignore_errors=True)
     print(f"[probe] {'ok' if ok else 'FAIL'}", flush=True)
     return 0 if ok else 1

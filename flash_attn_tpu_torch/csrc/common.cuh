@@ -49,6 +49,12 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src
                :: "r"(dst), "l"(src), "r"(src_bytes));
 }
 
+// The same for 8 bytes (through L1).
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }

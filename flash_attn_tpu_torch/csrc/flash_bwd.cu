@@ -103,11 +103,28 @@
 //     the ring walks the list, so a packed batch's dead tiles are never
 //     loaded.  Elsewhere a pair is live where qs == ks and kp <= qp;
 //   * the bias goes on the natural-unit scores: p = exp(s scale + bias -
-//     lse), as 2^(s scale log2 e + (bias log2 e - lse log2 e));
+//     lse), as 2^(s scale log2 e + (bias log2 e - lse log2 e)).  It rides
+//     the cp.async ring one stage ahead, in the commit group of the stage's
+//     K/V (K9: the block's 128 query rows x the stage's 64 keys) or R(q)/dO
+//     (K10: the stage's 64 queries x the block's 128 keys), 32 KB of fp32 a
+//     stage, so no global load sits between a tile's two wgmma batches.
+//     Read from a fixed global address per element after S = R(q) K^T, it
+//     cost a full load latency a tile (2.2x cuDNN's backward on a float
+//     mask).  Every stride the wrapper's broadcast views give takes this one
+//     route (load_bias: 16-, 8- or 4-byte pieces as the plane's alignment
+//     and key stride allow); rows and keys past Sq / Sk are zero-filled, and
+//     masked dead.  Staged rows are padded (K9: 72 floats; K10: 132) so that
+//     each warp's fragment reads are free of bank conflicts; the stages are
+//     sized at launch only when a bias is given.  K9 reads its 32 entries
+//     into registers while S and dP run; K10, at 244 registers, reads each
+//     as it needs it (holding them spilled and ran slower);
 //   * dropout replays the forward's mask (fatt::drop_keep on the query
 //     head h and the absolute row and column): dp becomes keep ? dp / (1 -
 //     rate) : 0 before ds = p (dp - delta), and K10's dv takes P dropped
-//     alike; ds keeps the undropped P.
+//     alike; ds keeps the undropped P.  Whether to replay is one branch a
+//     tile between two copies of the element loop, not one an element.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -218,7 +235,71 @@ struct Geo {
   static constexpr int kDkvSmem = (2 * kKeyWarpgroups + 4) * kTileBytes + 2 * kStatBytes + 1024;
   // kOpt: the tile list after those
   static constexpr int kListBytes = kOptT ? kMaxListTiles * 4 : 0;
+  // kOpt with a bias: two stages of it after the list.  K9 stages [query
+  // row][key] of 128 x 64, a thread reading float2 pairs (rows lane/4 and
+  // keys 2 (lane % 4) apart): a pitch of 72 (8 mod 32) puts each half-warp
+  // on 32 distinct banks, the two wavefronts that 256 bytes need.  K10
+  // stages [query][key] of 64 x 128, a thread reading single floats
+  // (queries 2 (lane % 4) and keys lane/4 apart): a pitch of 132 (2 x 132 =
+  // 8 mod 32) puts the warp on 32 distinct banks, one wavefront.
+  static constexpr int kDqBiasPitch = kRows + 8;
+  static constexpr int kDqBiasStage = kDqRows * kDqBiasPitch * 4;
+  static constexpr int kDqBiasBytes = kOptT ? 2 * kDqBiasStage : 0;
+  static constexpr int kDkvBiasPitch = kDkvRows + 4;
+  static constexpr int kDkvBiasStage = kRows * kDkvBiasPitch * 4;
+  static constexpr int kDkvBiasBytes = kOptT ? 2 * kDkvBiasStage : 0;
 };
+
+// kOpt: the widest cp.async piece, in floats, that every staged row of the
+// bias plane at bb takes: 4 (16 bytes) or 2 where the keys are contiguous
+// and each row starts 16- or 8-byte aligned (a stage's rows start at keys
+// that are multiples of 64), else 1.
+__device__ __forceinline__ int bias_piece(const float* bb, int64_t bs_q, int64_t bs_k) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(bb);
+  if (bs_k != 1) return 1;
+  if (a % 16 == 0 && bs_q % 4 == 0) return 4;
+  if (a % 8 == 0 && bs_q % 2 == 0) return 2;
+  return 1;
+}
+
+// kOpt: a kR (queries) x kC (keys) fp32 tile of the bias into shared memory
+// at dst, rows kPitch floats apart, by cp.async in pieces of kVec floats:
+// element (r, c) from src + r bs_q + c bs_k; rows from r_live and keys from
+// c_live on are zero-filled.  A thread keeps one piece's column and walks
+// rows kThreads / (kC / kVec) apart, so a row's address is one add.
+template <int kR, int kC, int kPitch, int kThreads, int kVec>
+__device__ __forceinline__ void load_bias_vec(uint32_t dst, const float* src, int64_t bs_q,
+                                              int64_t bs_k, int r_live, int c_live) {
+  constexpr int kPerRow = kC / kVec, kStep = kThreads / kPerRow;
+  static_assert(kThreads % kPerRow == 0 && kR % kStep == 0, "whole rounds of rows");
+  const int r0 = threadIdx.x / kPerRow, c = threadIdx.x % kPerRow * kVec;
+  const int bytes = 4 * max(0, min(kVec, c_live - c));
+  const float* p = src + r0 * bs_q + c * bs_k;
+  dst += (r0 * kPitch + c) * 4;
+#pragma unroll
+  for (int i = 0; i < kR / kStep; ++i, p += kStep * bs_q) {
+    const int n = r0 + i * kStep < r_live ? bytes : 0;
+    const uint32_t d = dst + i * kStep * kPitch * 4;
+    const void* s = n ? p : src;  // a zero-filled piece reads nothing
+    if constexpr (kVec == 4)
+      fatt::cp_async16(d, s, n);
+    else if constexpr (kVec == 2)
+      fatt::cp_async8(d, s, n);
+    else
+      fatt::cp_async4(d, s, n);
+  }
+}
+
+template <int kR, int kC, int kPitch, int kThreads>
+__device__ __forceinline__ void load_bias(uint32_t dst, const float* src, int64_t bs_q,
+                                          int64_t bs_k, int r_live, int c_live, int vec) {
+  if (vec == 4)
+    load_bias_vec<kR, kC, kPitch, kThreads, 4>(dst, src, bs_q, bs_k, r_live, c_live);
+  else if (vec == 2)
+    load_bias_vec<kR, kC, kPitch, kThreads, 2>(dst, src, bs_q, bs_k, r_live, c_live);
+  else
+    load_bias_vec<kR, kC, kPitch, kThreads, 1>(dst, src, bs_q, bs_k, r_live, c_live);
+}
 
 // 64 rows from row0 of head hx of a [B, S, Hx, kD] bf16 tensor into the
 // tile at dst by cp.async; rows past S are zero-filled (src-size 0).
@@ -360,10 +441,28 @@ __global__ void __launch_bounds__(Geo<kD, kLocal, kOpt>::kDqThreads,
   auto tile_of = [&](int i) { return meta ? list[i] & (kFullBit - 1) : t_first + i; };
   auto full_at = [&](int i) { return !meta || (list[i] & kFullBit) != 0; };
 
+  // kOpt with a bias: this (batch, head)'s plane, staged beside K/V in its
+  // own two-stage ring after the list (bias_vec: its piece, 0 for none)
+  const float* bias_bh = nullptr;
+  int bias_vec = 0;
+  const uint32_t bias_ring = s_base + G::kDqSmem + G::kListBytes;
+  if constexpr (G::kOpt) {
+    if (o.bias != nullptr) {
+      bias_bh = o.bias + b * o.bs_b + h * o.bs_h;
+      bias_vec = bias_piece(bias_bh, o.bs_q, o.bs_k);
+    }
+  }
+
   auto load_kv = [&](int st, int k0) {
     const uint32_t ks = ring + st * 2 * kTileBytes;
     load_tile<kD, kThreads>(ks, k, b, k0, Sk, Hk, kvh);
     load_tile<kD, kThreads>(ks + kTileBytes, v, b, k0, Sk, Hk, kvh);
+    if constexpr (G::kOpt) {
+      if (bias_vec != 0)
+        load_bias<kBlockRows, kRows, G::kDqBiasPitch, kThreads>(
+            bias_ring + st * G::kDqBiasStage, bias_bh + row0 * o.bs_q + k0 * o.bs_k, o.bs_q,
+            o.bs_k, Sq - row0, Sk - k0, bias_vec);
+    }
   };
 #pragma unroll
   for (int w = 0; w < kWarpgroups; ++w) {
@@ -436,10 +535,12 @@ __global__ void __launch_bounds__(Geo<kD, kLocal, kOpt>::kDqThreads,
     l2[hf] = lse_base2(row < Sq ? lse[r] : kNegInf);
     dl[hf] = row < Sq ? delta[r] : 0.f;
   }
-  // kOpt: this thread's rows' (segment, position), this (batch, head)'s
-  // bias plane and its rows' part of the dropout hash
+  // kOpt: this thread's rows' (segment, position), its first staged bias
+  // pair (row my_row, keys 2 (lane % 4) + {0, 1} of stage 0) and its rows'
+  // part of the dropout hash
   int2 qm[2] = {make_int2(0, 0), make_int2(0, 0)};
-  const float* bias_bh = nullptr;
+  const float* bias_my = reinterpret_cast<const float*>(smem + (bias_ring - s_base)) +
+                         (my_row - row0) * G::kDqBiasPitch + 2 * (lane & 3);
   uint32_t drop_rows[2] = {0u, 0u};
   if constexpr (G::kOpt) {
 #pragma unroll
@@ -447,7 +548,6 @@ __global__ void __launch_bounds__(Geo<kD, kLocal, kOpt>::kDqThreads,
       const int row = my_row + hf * 8;
       if (meta && row < nq64 * kRows) qm[hf] = o.qmeta[(int64_t)b * nq64 * kRows + row];
     }
-    if (o.bias != nullptr) bias_bh = o.bias + b * o.bs_b + h * o.bs_h;
     const uint32_t mix = fatt::drop_mix(o.seed, b, h);
     drop_rows[0] = fatt::drop_row(mix, my_row);
     drop_rows[1] = fatt::drop_row(mix, my_row + 8);
@@ -476,6 +576,23 @@ __global__ void __launch_bounds__(Geo<kD, kLocal, kOpt>::kDqThreads,
     product_abt<kD>(s, qs, ks);    // S = R(q) K^T
     product_abt<kD>(dp, dos, vs);  // dP = dO V^T
     wg_commit();
+    // kOpt with a bias: this thread's staged entries (rows my_row + 8 (e >>
+    // 1), keys 8j + 2 (lane % 4) + (e & 1)) read while the products run
+    float bb[G::kOpt ? 32 : 1];
+    if constexpr (G::kOpt) {
+      if (bias_vec != 0) {
+        const float* bias_t = bias_my + (t & 1) * (G::kDqBiasStage / 4);
+#pragma unroll
+        for (int j = 0; j < kRows / 8; ++j)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const float2 z =
+                *reinterpret_cast<const float2*>(bias_t + hf * 8 * G::kDqBiasPitch + j * 8);
+            bb[4 * j + 2 * hf] = z.x;
+            bb[4 * j + 2 * hf + 1] = z.y;
+          }
+      }
+    }
     wg_wait_all();
     pin(s);
     pin(dp);
@@ -524,37 +641,46 @@ __global__ void __launch_bounds__(Geo<kD, kLocal, kOpt>::kDqThreads,
       // throughout, and the dropout's replay on dP
       const bool seg_mask = !full_at(t);
       edge = edge || seg_mask;
+      // the tile's elements with the dropout's replay (kDrop) or without:
+      // one branch a tile (a branch an element, taken or not, kept the loop
+      // from being scheduled as one block and measured slower)
+      auto elements = [&](auto drop) {
+        constexpr bool kDrop = decltype(drop)::value;
 #pragma unroll
-      for (int j = 0; j < kRows / 8; ++j) {
-        float x[4];
-        // keys c and c + 1 of the tile: (segment, position) each
-        int4 km = make_int4(0, 0, 0, 0);
-        if (seg_mask)
-          km = __ldg(reinterpret_cast<const int4*>(kmeta_b + k0 + j * 8 + (lane & 3) * 2));
+        for (int j = 0; j < kRows / 8; ++j) {
+          float x[4];
+          // keys c and c + 1 of the tile: (segment, position) each
+          int4 km = make_int4(0, 0, 0, 0);
+          if (seg_mask)
+            km = __ldg(reinterpret_cast<const int4*>(kmeta_b + k0 + j * 8 + (lane & 3) * 2));
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = k0 + j * 8 + (lane & 3) * 2 + (e & 1);
-          const int row = my_row + (e >> 1) * 8;
-          float a = -l2[e >> 1];
-          if (bias_bh != nullptr && row < Sq && col < Sk)
-            a = fmaf(__ldg(bias_bh + row * o.bs_q + col * o.bs_k), kLog2e, a);
-          float p = exp2f(fmaf(s[4 * j + e], sl2, a));
-          if (edge) {
-            bool dead = col >= Sk || (causal && col > row + shift);
-            if (seg_mask) {
-              const int kseg = (e & 1) ? km.z : km.x, kpos = (e & 1) ? km.w : km.y;
-              dead = dead || kseg != qm[e >> 1].x || kpos > qm[e >> 1].y;
+          for (int e = 0; e < 4; ++e) {
+            const int col = k0 + j * 8 + (lane & 3) * 2 + (e & 1);
+            const int row = my_row + (e >> 1) * 8;
+            float a = -l2[e >> 1];
+            if (bias_vec != 0) a = fmaf(bb[4 * j + e], kLog2e, a);
+            float p = exp2f(fmaf(s[4 * j + e], sl2, a));
+            if (edge) {
+              bool dead = col >= Sk || (causal && col > row + shift);
+              if (seg_mask) {
+                const int kseg = (e & 1) ? km.z : km.x, kpos = (e & 1) ? km.w : km.y;
+                dead = dead || kseg != qm[e >> 1].x || kpos > qm[e >> 1].y;
+              }
+              if (dead) p = 0.f;
             }
-            if (dead) p = 0.f;
+            float dpv = dp[4 * j + e];
+            if constexpr (kDrop)
+              dpv = fatt::drop_keep(drop_rows[e >> 1], col, o.threshold) ? dpv * o.inv_keep : 0.f;
+            x[e] = p * (dpv - dl[e >> 1]);
           }
-          float dpv = dp[4 * j + e];
-          if (o.dropout)
-            dpv = fatt::drop_keep(drop_rows[e >> 1], col, o.threshold) ? dpv * o.inv_keep : 0.f;
-          x[e] = p * (dpv - dl[e >> 1]);
+          dsf[j / 2][(j & 1) * 2] = fatt::pack_bf16(x[0], x[1]);
+          dsf[j / 2][(j & 1) * 2 + 1] = fatt::pack_bf16(x[2], x[3]);
         }
-        dsf[j / 2][(j & 1) * 2] = fatt::pack_bf16(x[0], x[1]);
-        dsf[j / 2][(j & 1) * 2 + 1] = fatt::pack_bf16(x[2], x[3]);
-      }
+      };
+      if (o.dropout)
+        elements(std::true_type{});
+      else
+        elements(std::false_type{});
     }
 
     pin_parts(acc);
@@ -670,7 +796,20 @@ __global__ void __launch_bounds__(Geo<kD, kLocal, kOpt>::kDkvThreads, 1) dkv_ker
   auto tile_of = [&](int it) { return meta ? list[it] & (kFullBit - 1) : qt0 + it; };
   auto full_at = [&](int it) { return !meta || (list[it] & kFullBit) != 0; };
 
-  // R(q), dO, lse and delta of query tile tile_of(it) into ring stage st.
+  // kOpt with a bias: this (batch, head)'s plane, staged beside R(q)/dO in
+  // its own two-stage ring after the list (bias_vec: its piece, 0 for none)
+  const float* bias_bh = nullptr;
+  int bias_vec = 0;
+  const uint32_t bias_ring = s_base + G::kDkvSmem + G::kListBytes;
+  if constexpr (G::kOpt) {
+    if (o.bias != nullptr) {
+      bias_bh = o.bias + b * o.bs_b + h * o.bs_h;
+      bias_vec = bias_piece(bias_bh, o.bs_q, o.bs_k);
+    }
+  }
+
+  // R(q), dO, lse and delta (kOpt: and the bias) of query tile tile_of(it)
+  // into ring stage st.
   auto load_q = [&](int st, int it) {
     const int q0 = tile_of(it) * kRows;
     const uint32_t rs = ring + st * 2 * kTileBytes;
@@ -681,6 +820,12 @@ __global__ void __launch_bounds__(Geo<kD, kLocal, kOpt>::kDkvThreads, 1) dkv_ker
       const bool in = gq < Sq;
       const float* src = (tid < kRows ? lse : delta) + ((int64_t)b * H + h) * Sq + (in ? gq : 0);
       fatt::cp_async4(stats + st * kStatBytes + tid * 4, src, in ? 4 : 0);
+    }
+    if constexpr (G::kOpt) {
+      if (bias_vec != 0)
+        load_bias<kRows, kBlockRows, G::kDkvBiasPitch, kThreads>(
+            bias_ring + st * G::kDkvBiasStage, bias_bh + q0 * o.bs_q + k0 * o.bs_k, o.bs_q,
+            o.bs_k, Sq - q0, Sk - k0, bias_vec);
     }
   };
 #pragma unroll
@@ -702,10 +847,12 @@ __global__ void __launch_bounds__(Geo<kD, kLocal, kOpt>::kDkvThreads, 1) dkv_ker
   const float sl2 = scale * kLog2e;
   const bool capped = G::kLocal && softcap2 > 0.f;
   const float cap_in = capped ? sl2 / softcap2 : 0.f;
-  // kOpt: this thread's keys' (segment, position), this (batch, head)'s
-  // bias plane and the dropout hash's mix
+  // kOpt: this thread's keys' (segment, position), its first staged bias
+  // entry (query 2 (lane % 4), key my_key of stage 0) and the dropout
+  // hash's mix
   int2 km[2] = {make_int2(0, 0), make_int2(0, 0)};
-  const float* bias_bh = nullptr;
+  const float* bias_my = reinterpret_cast<const float*>(smem + (bias_ring - s_base)) +
+                         2 * (lane & 3) * G::kDkvBiasPitch + (my_key - k0);
   uint32_t mix = 0u;
   if constexpr (G::kOpt) {
 #pragma unroll
@@ -713,7 +860,6 @@ __global__ void __launch_bounds__(Geo<kD, kLocal, kOpt>::kDkvThreads, 1) dkv_ker
       const int key = my_key + hf * 8;
       if (meta && key < nk64 * kRows) km[hf] = o.kmeta[(int64_t)b * nk64 * kRows + key];
     }
-    if (o.bias != nullptr) bias_bh = o.bias + b * o.bs_b + h * o.bs_h;
     mix = fatt::drop_mix(o.seed, b, h);
   }
   const int2* qmeta_b = G::kOpt && meta ? o.qmeta + (int64_t)b * nq64 * kRows : nullptr;
@@ -795,45 +941,56 @@ __global__ void __launch_bounds__(Geo<kD, kLocal, kOpt>::kDkvThreads, 1) dkv_ker
       // throughout, and the dropout's replay on P (for dv) and dP
       const bool seg_mask = !full_at(it);
       edge = edge || seg_mask;
+      const float* bias_t = bias_my + (it & 1) * (G::kDkvBiasStage / 4);
+      // the tile's elements with the dropout's replay (kDrop) or without:
+      // one branch a tile, as in K9
+      auto elements = [&](auto drop) {
+        constexpr bool kDrop = decltype(drop)::value;
 #pragma unroll
-      for (int j = 0; j < kRows / 8; ++j) {
-        const int c = j * 8 + (lane & 3) * 2;
-        const float2 l = *reinterpret_cast<const float2*>(lse_s + c);
-        const float2 d = *reinterpret_cast<const float2*>(delta_s + c);
-        const float l2[2] = {lse_base2(l.x), lse_base2(l.y)}, dl[2] = {d.x, d.y};
-        // queries c and c + 1 of the tile: (segment, position) each
-        int4 qm = make_int4(0, 0, 0, 0);
-        if (seg_mask) qm = __ldg(reinterpret_cast<const int4*>(qmeta_b + q0 + c));
-        float pd[4], x[4];
+        for (int j = 0; j < kRows / 8; ++j) {
+          const int c = j * 8 + (lane & 3) * 2;
+          const float2 l = *reinterpret_cast<const float2*>(lse_s + c);
+          const float2 d = *reinterpret_cast<const float2*>(delta_s + c);
+          const float l2[2] = {lse_base2(l.x), lse_base2(l.y)}, dl[2] = {d.x, d.y};
+          // queries c and c + 1 of the tile: (segment, position) each
+          int4 qm = make_int4(0, 0, 0, 0);
+          if (seg_mask) qm = __ldg(reinterpret_cast<const int4*>(qmeta_b + q0 + c));
+          float pd[4], x[4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = my_key + (e >> 1) * 8, col = q0 + c + (e & 1);
-          float a = -l2[e & 1];
-          if (bias_bh != nullptr && key < Sk && col < Sq)
-            a = fmaf(__ldg(bias_bh + col * o.bs_q + key * o.bs_k), kLog2e, a);
-          float p = exp2f(fmaf(st[4 * j + e], sl2, a));
-          if (edge) {
-            bool dead = key >= Sk || col >= Sq || (causal && key > col + shift);
-            if (seg_mask) {
-              const int qseg = (e & 1) ? qm.z : qm.x, qpos = (e & 1) ? qm.w : qm.y;
-              dead = dead || km[e >> 1].x != qseg || km[e >> 1].y > qpos;
+          for (int e = 0; e < 4; ++e) {
+            const int key = my_key + (e >> 1) * 8, col = q0 + c + (e & 1);
+            float a = -l2[e & 1];
+            // the bias at (query c + (e & 1), key my_key + 8 (e >> 1)), staged
+            if (bias_vec != 0)
+              a = fmaf(bias_t[(j * 8 + (e & 1)) * G::kDkvBiasPitch + (e >> 1) * 8], kLog2e, a);
+            float p = exp2f(fmaf(st[4 * j + e], sl2, a));
+            if (edge) {
+              bool dead = key >= Sk || col >= Sq || (causal && key > col + shift);
+              if (seg_mask) {
+                const int qseg = (e & 1) ? qm.z : qm.x, qpos = (e & 1) ? qm.w : qm.y;
+                dead = dead || km[e >> 1].x != qseg || km[e >> 1].y > qpos;
+              }
+              if (dead) p = 0.f;
             }
-            if (dead) p = 0.f;
+            float dpv = dpt[4 * j + e];
+            pd[e] = p;
+            if constexpr (kDrop) {
+              const bool keep = fatt::drop_keep(fatt::drop_row(mix, col), key, o.threshold);
+              dpv = keep ? dpv * o.inv_keep : 0.f;
+              pd[e] = keep ? p * o.inv_keep : 0.f;
+            }
+            x[e] = p * (dpv - dl[e & 1]);
           }
-          float dpv = dpt[4 * j + e];
-          pd[e] = p;
-          if (o.dropout) {
-            const bool keep = fatt::drop_keep(fatt::drop_row(mix, col), key, o.threshold);
-            dpv = keep ? dpv * o.inv_keep : 0.f;
-            pd[e] = keep ? p * o.inv_keep : 0.f;
-          }
-          x[e] = p * (dpv - dl[e & 1]);
+          pf[j / 2][(j & 1) * 2] = fatt::pack_bf16(pd[0], pd[1]);
+          pf[j / 2][(j & 1) * 2 + 1] = fatt::pack_bf16(pd[2], pd[3]);
+          dsf[j / 2][(j & 1) * 2] = fatt::pack_bf16(x[0], x[1]);
+          dsf[j / 2][(j & 1) * 2 + 1] = fatt::pack_bf16(x[2], x[3]);
         }
-        pf[j / 2][(j & 1) * 2] = fatt::pack_bf16(pd[0], pd[1]);
-        pf[j / 2][(j & 1) * 2 + 1] = fatt::pack_bf16(pd[2], pd[3]);
-        dsf[j / 2][(j & 1) * 2] = fatt::pack_bf16(x[0], x[1]);
-        dsf[j / 2][(j & 1) * 2 + 1] = fatt::pack_bf16(x[2], x[3]);
-      }
+      };
+      if (o.dropout)
+        elements(std::true_type{});
+      else
+        elements(std::false_type{});
     }
 
     pin_parts(dv_acc);
@@ -890,12 +1047,15 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
               int B, int Sq, int Sk, int H, int Hk, int rope_bstride, float scale, int causal,
               int wleft, int wright, float softcap2, const Opt& o, cudaStream_t st) {
   using G = Geo<kD, kLocal, kOpt>;
+  // the bias's stages only when a bias is given
   constexpr int kSmem = G::kDqSmem + G::kListBytes;
   static fatt::SmemLimitSet smem_set;
-  cudaError_t e = fatt::smem_limit_once(dq_kernel<kD, kLocal, kOpt>, kSmem, smem_set);
+  cudaError_t e =
+      fatt::smem_limit_once(dq_kernel<kD, kLocal, kOpt>, kSmem + G::kDqBiasBytes, smem_set);
   if (e != cudaSuccess) return (int)e;
+  const int smem = kSmem + (o.bias != nullptr ? G::kDqBiasBytes : 0);
   dim3 grid(H, B, (Sq + G::kDqRows - 1) / G::kDqRows);
-  dq_kernel<kD, kLocal, kOpt><<<grid, G::kDqThreads, kSmem, st>>>(
+  dq_kernel<kD, kLocal, kOpt><<<grid, G::kDqThreads, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -911,12 +1071,15 @@ int launch_dkv(const void* rq, const void* k, const void* v, const void* dout,
                int H, int Hk, float scale, int causal, int wleft, int wright, float softcap2,
                const Opt& o, cudaStream_t st) {
   using G = Geo<kD, kLocal, kOpt>;
+  // the bias's stages only when a bias is given
   constexpr int kSmem = G::kDkvSmem + G::kListBytes;
   static fatt::SmemLimitSet smem_set;
-  cudaError_t e = fatt::smem_limit_once(dkv_kernel<kD, kLocal, kOpt>, kSmem, smem_set);
+  cudaError_t e =
+      fatt::smem_limit_once(dkv_kernel<kD, kLocal, kOpt>, kSmem + G::kDkvBiasBytes, smem_set);
   if (e != cudaSuccess) return (int)e;
+  const int smem = kSmem + (o.bias != nullptr ? G::kDkvBiasBytes : 0);
   dim3 grid(H, B, (Sk + G::kDkvRows - 1) / G::kDkvRows);
-  dkv_kernel<kD, kLocal, kOpt><<<grid, G::kDkvThreads, kSmem, st>>>(
+  dkv_kernel<kD, kLocal, kOpt><<<grid, G::kDkvThreads, smem, st>>>(
       static_cast<const __nv_bfloat16*>(rq), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),

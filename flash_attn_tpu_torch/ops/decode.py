@@ -310,7 +310,7 @@ def merge_splits(outs, lses, dtype):
         return outs[0].to(dtype), lses[0]
     if outs.is_cuda:
         return lse_merge_cuda(outs, lses, dtype)
-    out, lse = lse_merge(outs, lses, dim=0)
+    out, lse = lse_merge(outs, lses, axis=0)
     return out.to(dtype), lse
 
 

@@ -21,8 +21,8 @@ from flash_attn_tpu_torch import _build
 DEAD_LSE = -1e30 / 2
 
 
-def lse_merge(outs: torch.Tensor, lses: torch.Tensor, dim: int = 0):
-    """Merge partial results stacked along ``dim``.
+def lse_merge(outs: torch.Tensor, lses: torch.Tensor, axis: int = 0):
+    """Merge partial results stacked along ``axis`` (JAX's keyword).
 
     outs: [..., D] stack of partial outputs (accumulated in fp32);
     lses: matching stack of LSE values (outs.shape minus the last axis).
@@ -31,11 +31,11 @@ def lse_merge(outs: torch.Tensor, lses: torch.Tensor, dim: int = 0):
     out_dtype = outs.dtype
     outs = outs.float()
     lses = lses.float()
-    lse = torch.logsumexp(lses, dim=dim)
+    lse = torch.logsumexp(lses, dim=axis)
     safe_lse = torch.where(torch.isfinite(lse), lse, torch.zeros_like(lse))
-    w = torch.exp(lses - safe_lse.unsqueeze(dim))
+    w = torch.exp(lses - safe_lse.unsqueeze(axis))
     w = torch.where(torch.isfinite(lses), w, torch.zeros_like(w))
-    out = (outs * w[..., None]).sum(dim=dim)
+    out = (outs * w[..., None]).sum(dim=axis)
     return out.to(out_dtype), lse
 
 

@@ -46,23 +46,23 @@ NEG_INF = -1e30  # the port's dead-row LSE, which K9 and K10 take
 LAYOUTS = ("contiguous", "striped")
 
 
-def stripe_sequence(x, n, dim=1):
+def stripe_sequence(x, n, axis=1):
     """Contiguous -> striped sequence order: after it, an even contiguous
-    split of ``dim`` over n ranks puts global token g on rank g % n at
+    split of ``axis`` over n ranks puts global token g on rank g % n at
     local slot g // n.  Apply it to q, k, v (and to both sequence axes of
     a bias) before a striped ring; RoPE runs before it."""
-    s = x.shape[dim]
+    s = x.shape[axis]
     if s % n:
         raise ValueError(f"sequence {s} not divisible by ring size {n}")
-    parts = list(x.shape[:dim]) + [s // n, n] + list(x.shape[dim + 1:])
-    return x.reshape(parts).movedim(dim + 1, dim).reshape(x.shape)
+    parts = list(x.shape[:axis]) + [s // n, n] + list(x.shape[axis + 1:])
+    return x.reshape(parts).movedim(axis + 1, axis).reshape(x.shape)
 
 
-def unstripe_sequence(x, n, dim=1):
+def unstripe_sequence(x, n, axis=1):
     """Inverse of ``stripe_sequence``."""
-    s = x.shape[dim]
-    parts = list(x.shape[:dim]) + [n, s // n] + list(x.shape[dim + 1:])
-    return x.reshape(parts).movedim(dim, dim + 1).reshape(x.shape)
+    s = x.shape[axis]
+    parts = list(x.shape[:axis]) + [n, s // n] + list(x.shape[axis + 1:])
+    return x.reshape(parts).movedim(axis, axis + 1).reshape(x.shape)
 
 
 def _step_seed(seed: int, my: int, kv_idx: int, n: int) -> int:

@@ -206,6 +206,41 @@ def test_bwd_bias_segments_match_jnp_oracle(causal):
         assert rel_err(g, w) < GRAD_TOL, name
 
 
+def edge_bias(kind, seed, sq, sk):
+    """(numpy bias for JAX, the same values as the torch view the port
+    gets): "keys" a key-padding [B, 1, 1, Sk] (query stride 0 once
+    broadcast), "rows" a contiguous [Sq, Sk] (rows not 16-byte aligned
+    where Sk is odd), "transposed" the transpose of a [B, H, Sk, Sq] tensor
+    (key stride Sq)."""
+    if kind == "keys":
+        b = bias_of(seed, (B, 1, 1, sk))
+        return b, torch.from_numpy(b)
+    if kind == "rows":
+        b = bias_of(seed, (sq, sk), dead_row=3)
+        return b, torch.from_numpy(b)
+    t = torch.from_numpy(bias_of(seed, (B, H, sk, sq))).transpose(-1, -2)
+    assert t.stride(-1) == sq
+    return t.numpy().copy(), t
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("kind", ["keys", "rows", "transposed"])
+def test_bwd_bias_forms_match_jnp_oracle(kind, causal):
+    """The bias forms K9's and K10's staging takes on the card (a
+    key-padding bias, rows not 16-byte aligned at an odd Sk, a transposed
+    view) through flash_bwd against JAX's jnp oracle (``_jnp_backward``) on
+    JAX's forward residuals, Sq = 40 < Sk = 57."""
+    sq, sk = SQ, 57
+    q, k, v, dout = inputs(30, sk=sk)
+    b_np, b_t = edge_bias(kind, 31, sq, sk)
+    out, lse = j_flash_fwd(q, k, v, bias=jnp.asarray(b_np), causal=causal, interpret=True)
+    want = _jnp_backward(q, k, v, out, lse, dout, bias=jnp.asarray(b_np), segs=None,
+                         causal=causal, scale=None, window=None, want_dbias=False)[:3]
+    got = fb.flash_bwd(T(q), T(k), T(v), T(out), T(lse), T(dout), bias=b_t, causal=causal)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert rel_err(g, w) < GRAD_TOL, name
+
+
 # --- the differentiable entry points --------------------------------------------
 
 def test_varlen_autograd_matches_jax():

@@ -99,7 +99,7 @@ def test_lse_merge_matches_jax():
     lses[1, 0, 0] = -np.inf  # a fully masked partial weighs 0
     lses[:, 1, 1] = -np.inf  # all partials masked -> out 0, lse -inf
     jo, jl = j_lse_merge(jnp.asarray(outs), jnp.asarray(lses), axis=0)
-    to, tl = lse_merge(torch.from_numpy(outs), torch.from_numpy(lses), dim=0)
+    to, tl = lse_merge(torch.from_numpy(outs), torch.from_numpy(lses), axis=0)
     np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=1e-6)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-6)
 

@@ -20,13 +20,16 @@ import numpy as np
 import pytest
 import torch
 
+from flash_attn_tpu.ops.lse import lse_merge as j_lse_merge
 from flash_attn_tpu.ops.lse import lse_merge2 as j_lse_merge2
 from flash_attn_tpu.ops.reference import mha_reference as j_mha
 from flash_attn_tpu.parallel import mesh as jmesh
 from flash_attn_tpu.parallel.rdma_ring import make_rdma_ring_attention as j_make_rdma
 from flash_attn_tpu.parallel.ring import make_ring_attention as j_make_ring
+from flash_attn_tpu.parallel import ring as jring
 from flash_attn_tpu.parallel.ring import stripe_sequence as j_stripe
 from flash_attn_tpu.parallel.ulysses import make_ulysses_attention as j_make_ulysses
+import flash_attn_tpu_torch
 from flash_attn_tpu_torch.ops.lse import lse_merge2
 from flash_attn_tpu_torch.parallel import mesh, ring
 from flash_attn_tpu_torch.parallel.rdma_ring import make_rdma_ring_attention, ring_attn_plain
@@ -180,6 +183,33 @@ def test_stripe_round_trip_and_flops_balance():
         stripe_sequence(x[:, :30], n)
 
 
+@pytest.mark.parametrize("name", ["lse_merge", "stripe_sequence", "unstripe_sequence"])
+def test_axis_keyword_as_jax(name):
+    """lse_merge (the package-top export), stripe_sequence and
+    unstripe_sequence take JAX's ``axis`` keyword and give JAX's result on
+    the same numpy inputs, exactly.  lse_merge merges along axis 1
+    partials of which one a row is live (the others -inf; one row all
+    -inf), so that both sides' arithmetic is exact; its rounding on mixed
+    partials is held by tests/test_torch_ops.py."""
+    rng = np.random.default_rng(23)
+    if name == "lse_merge":
+        outs = rng.standard_normal((2, 3, 5, 8)).astype(np.float32)
+        lses = np.full((2, 3, 5), -np.inf, np.float32)
+        for b in range(2):
+            for r in range(5):
+                lses[b, rng.integers(0, 3), r] = rng.standard_normal()
+        lses[1, :, 4] = -np.inf
+        want = j_lse_merge(jnp.asarray(outs), jnp.asarray(lses), axis=1)
+        got = flash_attn_tpu_torch.lse_merge(torch.from_numpy(outs), torch.from_numpy(lses),
+                                             axis=1)
+    else:
+        x = rng.standard_normal((2, 3, 24, 4)).astype(np.float32)
+        want = (getattr(jring, name)(jnp.asarray(x), 4, axis=2),)
+        got = (getattr(ring, name)(torch.from_numpy(x), 4, axis=2),)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
 # ---------------------------------------------------------------- the ring
 
 
@@ -237,7 +267,7 @@ def test_ring_bias(mesh4, layout):
     if layout == "striped":
         call = lambda q_, k_, v_: unstripe_sequence(fn(  # noqa: E731
             *(stripe_sequence(x, N) for x in (q_, k_, v_)),
-            stripe_sequence(stripe_sequence(tb, N, dim=2), N, dim=3)), N)
+            stripe_sequence(stripe_sequence(tb, N, axis=2), N, axis=3)), N)
     else:
         call = lambda q_, k_, v_: fn(q_, k_, v_, tb)  # noqa: E731
     out, grads = port_grads(call, q, k, v, dout)
