@@ -89,9 +89,10 @@ Phases, one line each with its seconds:
      sharing the card, S_loc 4096 (16384 tokens), causal and not, fp32 and
      bf16 in, against its plain version and bitwise on repeat, timed beside
      SDPA's memory-efficient backend on the gathered fp32 sequence with its
-     bound at the fp32 CUDA-core peak and at the bf16 tensor-core peak,
-     and at a ragged S_loc 320 (block_q 64) at B=2, a group of one at
-     head_dim 64, 8 ranks and 1 rank;
+     bound (three TF32 passes at the TF32 tensor-core peak; beside it the
+     fp32 CUDA-core and bf16 tensor-core figures), and at a ragged S_loc
+     320 (block_q 64) at B=2, a group of one at head_dim 64, 8 ranks, 1
+     rank and large logits (q x 8, logits to ~40: one TF32 pass misses);
   3. a 2-layer model at full 8B widths with fp8 KV: two prompts and four
      decode steps on the card (kernels) against the CPU (plain versions),
      with int8 weights, int4 + W8A8 head fused, W4A8 + W8A8 head fused,
@@ -248,7 +249,8 @@ masked points under "packed" and "chunk", "K1c d64" a K8c point under
 G7", "K1c G7", "K8 G7" (a K8c point under "k8c") and "K2 G7", K3's
 Qwen-2-7B widths under "qwen2", "K3 Mixtral", whose launches are
 phase 17's, and "K11", its non-causal point under "non_causal", its
-bound at the bf16 peak under "bound_bf16_ms", its launches phase 20's)
+bound at the fp32 CUDA-core and bf16 peaks under "bound_f32_ms" and
+"bound_bf16_ms", its launches phase 20's)
 and the card; the last line is {"ok": true, "device": {...}}.  Any failed check
 exits nonzero without that line; so does a machine without CUDA or a
 directory without the rest of the repository.
@@ -269,6 +271,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor cores
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12      # H100 SXM dense TF32 tensor cores
 INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8 tensor cores
 MAX_70B_GIB = 75.0             # the 70B serve fails above this peak
 MAX_TRAIN_GIB = 75.0           # the training run fails above this peak
@@ -410,12 +413,14 @@ def phase_env(torch):
 
 
 def _q_point(torch, checks, label, run, plain, lib=None, lib_name="", nbytes=0, flops=0,
-             peak=BF16_FLOPS_PER_S, exact=False):
+             peak=BF16_FLOPS_PER_S, exact=False, graph=False):
     """One quantized matmul against its plain version: every output row
     within its tolerance (``exact``: bit for bit), its time by CUDA events
     and, where ``lib`` is given, the plain version's time (fewer launches:
-    it is slow and only a reference), the library call's and the bound.
-    Returns a row's numbers."""
+    it is slow and only a reference), the library call's and the bound;
+    with ``graph`` also the kernel's and the library call's times from
+    CUDA-graph replays (no host work between launches).  Returns a row's
+    numbers."""
     got = run()
     ref = plain()
     torch.cuda.synchronize()
@@ -436,6 +441,10 @@ def _q_point(torch, checks, label, run, plain, lib=None, lib_name="", nbytes=0, 
         res["bound_ms"], res["bound_by"] = bound(nbytes, flops, peak)
         line += (f", plain {res['plain_ms']:.4f}, library ({lib_name}) {res['library_ms']:.4f}, "
                  f"bound {res['bound_ms']:.4f} ({res['bound_by']})")
+        if graph:
+            res["graph_ms"], res["library_graph_ms"] = graph_ms(torch, run), graph_ms(torch, lib)
+            line += (f"; graph {res['graph_ms']:.4f}, library graph {res['library_graph_ms']:.4f}"
+                     f" (ours / library {res['graph_ms'] / res['library_graph_ms']:.3f})")
     say(line)
     return res
 
@@ -2301,7 +2310,8 @@ def check_k3_gemma(torch, checks, rows, gemms=GEMMA_GEMMS, key="gemma", model="G
                    seed=SEED + 32, ms=(8,), biased=()):
     """K3 at a model's widths (``gemms``; the defaults: Gemma-2-9B's) at
     each M of ``ms`` (8: the decode step), against its plain version as
-    check_k3 holds it; the K3 row carries them under ``key`` (M=8's points
+    check_k3 holds it, M=8 also timed from CUDA-graph replays beside the
+    library's two calls; the K3 row carries them under ``key`` (M=8's points
     as "KxN", the others' as "KxN M=m").  At the widths in ``biased`` the
     weight is also called as a ``BiasedWeight`` through quantized_matmul
     (Qwen-2's qkv bias, added after K3) and held to the plain product plus
@@ -2324,7 +2334,7 @@ def check_k3_gemma(torch, checks, rows, gemms=GEMMA_GEMMS, key="gemma", model="G
                 lambda: mm.matmul_int8_cuda(x, wq, s, torch.bfloat16),
                 lambda: mm.matmul_int8_plain(x, wq, s, torch.bfloat16),
                 lambda: torch.matmul(x, wbf) * s, "matmul, then the scales",
-                M * K * 2 + K * N + N * 4 + M * N * 2, 2 * M * K * N)
+                M * K * 2 + K * N + N * 4 + M * N * 2, 2 * M * K * N, graph=M == 8)
             if (K, N) in biased:
                 bias = torch.randn((N,), generator=g, device="cuda", dtype=torch.bfloat16) * 0.02
                 got = mm.quantized_matmul(x, mm.BiasedWeight((wq, s), bias))
@@ -2354,13 +2364,14 @@ def _gpt2_prompts(vocab):
 
 
 def _k4_point(torch, checks, label, q, k, v, causal, clamped, masks=None, cos=None, sin=None,
-              timed=False, lib=None):
+              timed=False, lib=None, graph=False):
     """K4 (GPT-2's head_dim 64, Qwen-2's 7 heads a KV head) against its
     plain version (each row to two bf16 ulps of its largest, the LSE to
     1e-3, as check_k4 holds it); with
     ``timed`` also the kernel's time, the plain version's, ``lib``'s (one
     SDPA call of the same function, or None) and the bound on the live
-    pairs.  Returns (max |err|, the times or None)."""
+    pairs, and with ``graph`` the kernel's and ``lib``'s times from
+    CUDA-graph replays.  Returns (max |err|, the times or None)."""
     from flash_attn_tpu_torch.ops import flash_fwd as ff
 
     B, Sq, H, D = q.shape
@@ -2394,6 +2405,12 @@ def _k4_point(torch, checks, label, q, k, v, causal, clamped, masks=None, cos=No
                  f"{plain_ms:.4f}, library (SDPA) "
                  + ("none" if lib_ms is None else f"{lib_ms:.4f}")
                  + f", bound {b_ms:.4f} ({b_by})")
+        if graph:
+            times["graph_ms"] = graph_ms(torch, lambda: ff.flash_fwd_cuda(*args))
+            times["library_graph_ms"] = graph_ms(torch, lib)
+            line += (f"; graph {times['graph_ms']:.4f}, library graph "
+                     f"{times['library_graph_ms']:.4f} (ours / library "
+                     f"{times['graph_ms'] / times['library_graph_ms']:.3f})")
     say(line)
     return err, times
 
@@ -2401,7 +2418,8 @@ def _k4_point(torch, checks, label, q, k, v, causal, clamped, masks=None, cos=No
 def check_k4_gpt2(torch, checks, rows):
     """K4 at head_dim 64 (GPT-2 124M: H = Hk = 12, no rope), both softmax
     modes: causal at B=1 and B=8, S=1024 (the "K4 d64" row: B=1, clamped,
-    BASELINE config 0's prefill; B=8 under "also"), a shifted Sq=300
+    BASELINE config 0's prefill, also from CUDA-graph replays beside
+    SDPA's; B=8 under "also"), a shifted Sq=300
     Sk=1000, q rotated in the kernel at S=1024 (the kernel takes rope at 64;
     GPT-2 passes none); with segment ids and positions at phase 12's eight
     prompts packed in their bucket (the kernel's tile counts held to
@@ -2431,7 +2449,8 @@ def check_k4_gpt2(torch, checks, rows):
             label = (f"K4 D=64 {'clamped' if clamped else 'online'} B={B} Sq={Sq} Sk={Sk} "
                      f"H={H}")
             timed = clamped and Sq == Sk
-            err, t = _k4_point(torch, checks, label, q, k, v, True, clamped, timed=timed, lib=lib)
+            err, t = _k4_point(torch, checks, label, q, k, v, True, clamped, timed=timed, lib=lib,
+                               graph=timed and B == 1)
             worst = max(worst, err)
             if t:
                 times[B] = t
@@ -2473,7 +2492,8 @@ def check_k4_gpt2(torch, checks, rows):
         name="flash_fwd (B=1, S=1024, H=Hk=12, D=64, causal, clamped: GPT-2 124M's prefill)",
         source="flash_attn_tpu_torch/csrc/flash_fwd.cu",
         replaces="flash_attn_tpu/ops/flash_fwd.py:221", max_abs_err=worst,
-        **{key: t1[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+        **{key: t1[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                    "graph_ms", "library_graph_ms")},
         also=dict(label="B=8", **{key: t8[key] for key in ("ms", "plain_ms", "library_ms",
                                                            "bound_ms", "bound_by")}),
         **masked)
@@ -3335,23 +3355,28 @@ def check_fa2_options(torch, checks, rows):
 
 K11_N, K11_B, K11_H, K11_HK, K11_D, K11_SLOC = 4, 1, 32, 8, 128, 4096  # Llama-3-8B widths
 # small K11 cases: (label, ranks, B, H, Hk, D, S_loc, block_q, causal,
-# dtype): a ragged S_loc (not a multiple of block_q 128) at B=2, a group
-# of one at head_dim 64, 8 ranks (slots reused over 8 steps) and 1 rank
-# (no push)
-K11_SMALL = (("ragged S_loc=320 B=2", 4, 2, 32, 8, 128, 320, 64, True, "bfloat16"),
-             ("G=1 d64", 4, 1, 12, 12, 64, 256, 128, False, "float32"),
-             ("8 ranks", 8, 1, 8, 2, 128, 192, 64, True, "float32"),
-             ("1 rank", 1, 1, 8, 8, 128, 256, 128, True, "bfloat16"))
+# dtype, q multiplier): a ragged S_loc (not a multiple of block_q 128) at
+# B=2, a group of one at head_dim 64, 8 ranks (slots reused over 8 steps),
+# 1 rank (no push), and large logits: q x 8 puts them at ~+-40, where one
+# TF32 pass (10 mantissa bits) errs ~0.02 in a logit and misses the fp32
+# row rule tenfold; K11's three passes hold it
+K11_SMALL = (("ragged S_loc=320 B=2", 4, 2, 32, 8, 128, 320, 64, True, "bfloat16", 1.0),
+             ("G=1 d64", 4, 1, 12, 12, 64, 256, 128, False, "float32", 1.0),
+             ("8 ranks", 8, 1, 8, 2, 128, 192, 64, True, "float32", 1.0),
+             ("1 rank", 1, 1, 8, 8, 128, 256, 128, True, "bfloat16", 1.0),
+             ("large logits, q x8", 4, 1, 8, 2, 128, 1024, 128, True, "float32", 8.0))
 
 
-def _k11_inputs(torch, g, n, B, S_loc, H, Hk, D, dtype):
-    """Per-rank shards on cuda:0 (the ranks share the card)."""
+def _k11_inputs(torch, g, n, B, S_loc, H, Hk, D, dtype, q_mult=1.0):
+    """Per-rank shards on cuda:0 (the ranks share the card); q times
+    ``q_mult``."""
     dt = getattr(torch, dtype)
 
-    def one(h):
-        return torch.randn((B, S_loc, h, D), generator=g, device="cuda").to(dt)
+    def one(h, mult=1.0):
+        return (torch.randn((B, S_loc, h, D), generator=g, device="cuda") * mult).to(dt)
 
-    return [one(H) for _ in range(n)], [one(Hk) for _ in range(n)], [one(Hk) for _ in range(n)]
+    return ([one(H, q_mult) for _ in range(n)], [one(Hk) for _ in range(n)],
+            [one(Hk) for _ in range(n)])
 
 
 def k11_pairs(n, S_loc, causal) -> int:
@@ -3391,11 +3416,12 @@ def check_k11(torch, checks, rows):
     """K11, the ring in one cooperative launch, at Llama-3-8B's attention
     widths over 4 ranks on the one card (S_loc 4096: 16384 tokens), causal
     and not, bf16 and fp32 in, against its plain version, repeated bitwise,
-    timed (CUDA events, 3 calls: a call takes 0.1-1 s) beside the plain
+    timed (CUDA events, 3 calls: a call takes 0.02-0.2 s) beside the plain
     version, SDPA's memory-efficient backend on the gathered fp32 sequence
-    (the same function: fp32 in, causal, KV heads repeated) and two bounds:
-    the operations at the fp32 CUDA-core peak (K11's type; the row's
-    bound) and at the bf16 tensor-core peak; then K11_SMALL."""
+    (the same function: fp32 in, causal, KV heads repeated) and three
+    bounds: three times the operations at the TF32 tensor-core peak (K11's
+    three passes; the row's bound), the operations at the fp32 CUDA-core
+    peak and at the bf16 tensor-core peak; then K11_SMALL."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -3425,23 +3451,25 @@ def check_k11(torch, checks, rows):
             del qg, kg, vg
             flops = 4 * D * B * H * k11_pairs(n, S_loc, causal)
             nbytes = 4 * n * B * S_loc * D * (2 * H + 2 * Hk)
-            b_ms, b_by = bound(nbytes, flops, F32_FLOPS_PER_S)
+            b_ms, b_by = bound(nbytes, 3 * flops, TF32_FLOPS_PER_S)
+            f32_ms = flops / F32_FLOPS_PER_S * 1e3
             bf16_ms = flops / BF16_FLOPS_PER_S * 1e3
-            say(f"  K11 {label} time: {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s fp32 on "
-                f"{k11_pairs(n, S_loc, causal)} live pairs a head), plain {plain_ms:.4f}, "
-                f"library (SDPA efficient, fp32, gathered) {lib_ms:.4f}, bound {b_ms:.4f} "
-                f"({b_by} at the fp32 CUDA-core peak {F32_FLOPS_PER_S / 1e12:g} TFLOP/s), "
-                f"{bf16_ms:.4f} at the bf16 tensor-core peak")
+            say(f"  K11 {label} time: {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s of fp32 "
+                f"products on {k11_pairs(n, S_loc, causal)} live pairs a head), plain "
+                f"{plain_ms:.4f}, library (SDPA efficient, fp32, gathered) {lib_ms:.4f}, bound "
+                f"{b_ms:.4f} ({b_by}: three TF32 passes at {TF32_FLOPS_PER_S / 1e12:g} "
+                f"TFLOP/s), {f32_ms:.4f} at the fp32 CUDA-core peak, {bf16_ms:.4f} at the bf16 "
+                f"tensor-core peak; ours / library {ms / lib_ms:.3f}")
             point = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                         bound_by=b_by, bound_bf16_ms=bf16_ms)
+                         bound_by=b_by, bound_f32_ms=f32_ms, bound_bf16_ms=bf16_ms)
             if causal:
                 row.update(point)
             else:
                 row["non_causal"] = point
         del qs, ks, vs
         torch.cuda.empty_cache()
-    for label, n2, B2, H2, Hk2, D2, S2, bq, causal, dtype in K11_SMALL:
-        qs, ks, vs = _k11_inputs(torch, g, n2, B2, S2, H2, Hk2, D2, dtype)
+    for label, n2, B2, H2, Hk2, D2, S2, bq, causal, dtype, q_mult in K11_SMALL:
+        qs, ks, vs = _k11_inputs(torch, g, n2, B2, S2, H2, Hk2, D2, dtype, q_mult)
         worst = max(worst, _k11_case(torch, checks, label, qs, ks, vs, causal, bq))
     rows["K11"] = dict(name=f"ring_attn (n={n} ranks on one card, B={B}, S_loc={S_loc}, H={H}, "
                             f"Hk={Hk}, D={D}, fp32 in, causal)",
@@ -6094,13 +6122,15 @@ def main() -> int:
                     max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                     library_ms=r["library_ms"],
-                    **{k: r[k] for k in ("graph_ms", "call_graph_ms", "empty_graph_ms",
+                    **{k: r[k] for k in ("graph_ms", "library_graph_ms", "call_graph_ms",
+                                         "empty_graph_ms",
                                          "prompt", "also", "packed", "chunk", "gemma",
                                          "gemma27b", "qwen2",
                                          "sdpa_nocap_ms", "no_window", "k8c", "sdpa_mask_ms",
                                          "bound_per_head_ms", "no_mask", "segments", "dense",
                                          "bias", "d64", "d64_varlen", "d64_segments",
-                                         "readout", "bound_bf16_ms", "non_causal")
+                                         "readout", "bound_f32_ms", "bound_bf16_ms",
+                                         "non_causal")
                        if k in r})
                for r in (rows[k] for k in KERNEL_ROWS)]
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """K4 against other versions of its source: registers, errors and times.
 
-    python3 chip_tools/k4_probe.py [--old NAME=DIR ...]
+    python3 chip_tools/k4_probe.py [--old NAME=DIR ...] [--require-bitwise]
 
 Each DIR holds a ``flash_fwd.cu`` (and the ``common.cuh`` it includes),
 for example an earlier tree's ``flash_attn_tpu_torch/csrc`` or a copy of
@@ -28,9 +28,22 @@ without the softcap too (what the softcap costs); GPT-2's head_dim 64
 (B=8, S=1024, H=Hk=12, causal, clamped); and, for versions that build
 K4's head_dim 128 kLocal instance, Gemma-2-27B's (H=32, Hk=16, scale
 1/12, softcap 50) with the window and without: the same errors and
-bitwise checks, and the time with its TFLOP/s on the live pairs.  Each
-build prints every K4 instance's registers, stack and spills.
-The card's name and power limit head the output.
+bitwise checks, and the time with its TFLOP/s on the live pairs.  Versions
+whose entry takes a bias and dropout are also held at EXTRA_CASES, the
+kExtra instances (online softmax): the mask alone at phase 18's dense
+shape (B=2, S=2048, H=32, Hk=8, D=128, causal, a [2, 1, 2048, 2048] fp32
+mask), phase 18's varlen call (8 sequences in 8192 tokens, causal in
+each, the [8192, 8192] mask, segment ids, dropout 0.1), GPT-2's widths
+(D=64) dense (B=4, S=1024, mask, dropout) and varlen (8 sequences in 4096,
+mask, segment ids, dropout), and chip_smoke.py's FA2_EDGE_BIAS forms (a
+key-padding bias, rows not 16-byte aligned at Sk 1501 and 1502, a
+transposed view; head_dim 128 and 64): out rows to the row rule, the LSE
+of live rows to 1e-3, and bitwise against the first version; the first
+four timed in turns, the mask alone beside SDPA with the same float mask.
+With ``--require-bitwise`` the probe exits 1 unless every version's out
+and LSE are bitwise the first version's (``--old parent=...``) on every
+case, kExtra or not.  Each build prints every K4 instance's registers,
+stack and spills.  The card's name and power limit head the output.
 """
 
 from __future__ import annotations
@@ -52,6 +65,21 @@ import ptxas_report  # noqa: E402
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIG = [P] * 7 + [I] * 7 + [F, I, I, P]
 SIG_MASKED = [P] * 12 + [I] * 7 + [F, I, I, P]  # + the tile metadata and count
+# whether each comparison with the first version that ran a case was bitwise
+BITWISE = []
+# kExtra cases: (label, B, Sq, Sk, H, Hk, D, causal, masks, bias, dropout,
+# timed); masks: "varlen" (ABI_LENS) or "varlen64" (GPT2_LENS) or None;
+# bias: a shape for chip_smoke._rand_bias or a kind of _edge_bias
+EXTRA_CASES = (
+    ("mask alone, dense", 2, 2048, 2048, 32, 8, 128, True, None, (2, 1, 2048, 2048), False,
+     True),
+    ("varlen, mask, segment ids, dropout", 1, 8192, 8192, 32, 8, 128, False, "varlen",
+     (8192, 8192), True, True),
+    ("GPT-2 dense, mask, dropout", 4, 1024, 1024, 12, 12, 64, True, None, (4, 1, 1024, 1024),
+     True, True),
+    ("GPT-2 varlen, mask, segment ids, dropout", 1, 4096, 4096, 12, 12, 64, False, "varlen64",
+     (4096, 4096), True, True),
+)
 
 
 def takes_masks(src: Path) -> bool:
@@ -79,14 +107,19 @@ def build(name, src_dir, out_dir):
                     if re.search(r"wgmma|arning", x))
     src = src_dir / "flash_fwd.cu"
     masked = takes_masks(src)
-    fn = entry_args.bind(ctypes.CDLL(str(lib)).fatt_flash_fwd, src, "fatt_flash_fwd",
-                         SIG_MASKED if masked else SIG)
-    return (fn, masked, "launch<128, false, true" in src.read_text()), info
+    so = ctypes.CDLL(str(lib))
+    fn = entry_args.bind(so.fatt_flash_fwd, src, "fatt_flash_fwd", SIG_MASKED if masked else SIG)
+    # the entry itself, every argument explicit, where it takes a bias and dropout
+    extra = so.fatt_flash_fwd if "keep_div" in src.read_text() else None
+    return (fn, masked, "launch<128, false, true" in src.read_text(), extra), info
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--old", action="append", default=[], help="NAME=DIR of another flash_fwd.cu")
+    ap.add_argument("--require-bitwise", action="store_true",
+                    help="fail unless every version's out and LSE are bitwise the first "
+                         "version's on every case")
     args = ap.parse_args()
     import torch
 
@@ -124,7 +157,7 @@ def main() -> int:
     order = [n for n, _ in olds] + ["this", "this"] + [n for n, _ in reversed(olds)]
     first = {}  # softmax mode -> the first version's (out, lse)
     for name in order:
-        fn, masked, local128 = fns[name]
+        fn, masked, local128, _ = fns[name]
         line = []
         for clamped in (True, False):
             def call(fn=fn, clamped=clamped, none=(None,) * (5 * masked)):
@@ -137,6 +170,7 @@ def main() -> int:
             lerr = float((lse - rlse).abs().max())
             f_out, f_lse = first.setdefault(clamped, (out.clone(), lse.clone()))
             same = torch.equal(out, f_out) and torch.equal(lse, f_lse)
+            BITWISE.append(same)
             ms = cuda_ms(torch, call)
             line.append(f"{'clamped' if clamped else 'online'} {ms:.4f} ms "
                         f"({flops / ms / 1e9:.1f} TFLOP/s), share {share:.3f}, lse err {lerr:.2e}, "
@@ -150,8 +184,87 @@ def main() -> int:
             print(f"[turn] {name} with window and softcap args: " + "; ".join(
                 _local_turn(torch, fn.raw, case, first, name) for case in local_cases
                 if local128 or not case[7]), flush=True)
+    del masked_cases, local_cases
+    torch.cuda.empty_cache()
+    ok = _extra_cases(torch, fns, [n for n, _ in olds])
     shutil.rmtree(out_dir, ignore_errors=True)
-    return 0
+    bitwise = all(BITWISE)
+    print(f"[probe] every version bitwise {order[0]}'s on every case: {bitwise}; rows held: "
+          f"{ok}", flush=True)
+    return 0 if ok and (bitwise or not args.require_bitwise) else 1
+
+
+def _extra_cases(torch, fns, olds) -> bool:
+    """EXTRA_CASES and FA2_EDGE_BIAS through every version whose entry
+    takes a bias and dropout: held to fwd_plain, bitwise against the first
+    version, the timed ones in turns.  Returns whether every row held."""
+    import torch.nn.functional as F_
+
+    from chip_smoke import (ABI_LENS, DROP_RATE, DROP_SEED, FA2_EDGE_BIAS, GPT2_LENS,
+                            _edge_bias, _rand_bias, _sdpa_mask, _varlen_masks, cuda_ms,
+                            fwd_plain, row_err)
+    from flash_attn_tpu_torch.ops import flash_fwd as ff
+
+    names = [n for n in [*olds, "this"] if fns[n][3] is not None]
+    turns = [n for n in names if n != "this"]
+    turns = turns + ["this", "this"] + turns[::-1]
+    edge = tuple((f"{kind} bias", B, Sq, Sk, H, Hk, D, causal, None, kind, drop, False)
+                 for B, Sq, Sk, H, Hk, D, causal, kind, drop in FA2_EDGE_BIAS)
+    g = torch.Generator(device="cuda").manual_seed(29)
+    ok = True
+    for label, B, Sq, Sk, H, Hk, D, causal, masks, bias, dropout, timed in EXTRA_CASES + edge:
+        q, k, v = (torch.randn((B, S, h, D), generator=g, device="cuda", dtype=torch.bfloat16)
+                   for S, h in ((Sq, H), (Sk, Hk), (Sk, Hk)))
+        m = None if masks is None else _varlen_masks(
+            torch, ABI_LENS if masks == "varlen" else GPT2_LENS)
+        b = (_edge_bias(torch, g, bias, B, H, Sq, Sk) if isinstance(bias, str)
+             else _rand_bias(torch, g, bias))
+        b4 = ff.bias4(b, B, H, Sq, Sk)
+        drop = ff.Dropout(DROP_RATE, DROP_SEED) if dropout else None
+        rout, rlse = fwd_plain((q, k, v, causal, D ** -0.5, None, None, False, m, None, None, b4,
+                                drop))
+        live = rlse > -1e29
+        out = torch.empty_like(q)
+        lse = torch.empty((B, H, Sq), dtype=torch.float32, device="cuda")
+        tiles = (None,) * 4 if m is None else ff._tiles(m, B, Sq, Sk)
+        cargs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), None, None, out.data_ptr(),
+                 lse.data_ptr(), *(None if x is None else x.data_ptr() for x in tiles), None, B,
+                 Sq, Sk, H, Hk, D, 0, float(D ** -0.5 * ff.LOG2E), int(causal), 0, -1, -1, 0.0,
+                 *ff.extra_args(b4, drop)]
+        what = (f"{label} (B={B}, Sq={Sq}, Sk={Sk}, H={H}, Hk={Hk}, D={D}, "
+                f"{'causal' if causal else 'not causal'}, bias strides {tuple(b4.stride())})")
+        first = None
+        for name in names:
+            def call(name=name):
+                return fns[name][3](*cargs, torch.cuda.current_stream().cuda_stream)
+            assert call() == 0, name
+            torch.cuda.synchronize()
+            _, share = row_err(out, rout)
+            lerr = float((lse - rlse).abs()[live].max())
+            first = first or (name, out.clone(), lse.clone())
+            same = torch.equal(out, first[1]) and torch.equal(lse, first[2])
+            BITWISE.append(same)
+            held = share <= 1.0 and lerr <= 1e-3
+            ok = ok and held
+            print(f"[extra] {what}, {name}: share of the row tolerance {share:.3f}, lse err "
+                  f"{lerr:.2e}; bitwise {first[0]}'s {same}; {'held' if held else 'MISSED'}",
+                  flush=True)
+        if timed:
+            for name in turns:
+                ms = cuda_ms(torch, lambda name=name: fns[name][3](
+                    *cargs, torch.cuda.current_stream().cuda_stream))
+                print(f"[extra turn] {what}, {name}: {ms:.4f} ms", flush=True)
+            if dropout is False and masks is None:
+                qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+                fm = _sdpa_mask(torch, None, causal, Sq, Sk, b4)
+                lib = cuda_ms(torch, lambda: F_.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=fm, scale=D ** -0.5, enable_gqa=True))
+                print(f"[extra library] {what}: SDPA with the same float mask {lib:.4f} ms",
+                      flush=True)
+                del qt, kt, vt, fm
+        del q, k, v, b, b4, rout, rlse, out, lse
+        torch.cuda.empty_cache()
+    return ok
 
 
 # (label, B, S, H, Hk, D, scale, rope theta, window, cap, needs K4's
@@ -217,6 +330,7 @@ def _local_turn(torch, fn, case, first, name):
     lerr = float((lse - rlse).abs().max())
     f_out, f_lse, f_name = first.setdefault(label, (out.clone(), lse.clone(), name))
     same = torch.equal(out, f_out) and torch.equal(lse, f_lse)
+    BITWISE.append(same)
     ms = cuda_ms(torch, call)
     return (f"{label} {ms:.4f} ms ({4 * H * D * n_live / ms / 1e9:.1f} TFLOP/s on "
             f"{n_live} live pairs), share {share:.3f}, lse err {lerr:.2e}, bitwise "
@@ -271,6 +385,7 @@ def _masked_turn(torch, fn, case, first, name):
     lerr = float((lse - rlse).abs().max())
     f_out, f_lse, f_name = first.setdefault(label, (out.clone(), lse.clone(), name))
     same = torch.equal(out, f_out) and torch.equal(lse, f_lse)
+    BITWISE.append(same)
     ms = cuda_ms(torch, call)
     return (f"{label} {ms:.4f} ms ({4 * 32 * 128 * n_live / ms / 1e9:.1f} TFLOP/s on live "
             f"pairs), share {share:.3f}, lse err {lerr:.2e}, bitwise {f_name}'s {same}")

@@ -65,6 +65,57 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
+// The widest cp.async piece, in floats, that every staged row of the
+// bias plane at bb takes: 4 (16 bytes) or 2 where the keys are contiguous
+// and each row starts 16- or 8-byte aligned (a stage's rows start at keys
+// that are multiples of 64), else 1.
+__device__ __forceinline__ int bias_piece(const float* bb, int64_t bs_q, int64_t bs_k) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(bb);
+  if (bs_k != 1) return 1;
+  if (a % 16 == 0 && bs_q % 4 == 0) return 4;
+  if (a % 8 == 0 && bs_q % 2 == 0) return 2;
+  return 1;
+}
+
+// A kR (queries) x kC (keys) fp32 tile of the bias into shared memory
+// at dst, rows kPitch floats apart, by cp.async in pieces of kVec floats:
+// element (r, c) from src + r bs_q + c bs_k; rows from r_live and keys from
+// c_live on are zero-filled.  A thread keeps one piece's column and walks
+// rows kThreads / (kC / kVec) apart, so a row's address is one add.
+template <int kR, int kC, int kPitch, int kThreads, int kVec>
+__device__ __forceinline__ void load_bias_vec(uint32_t dst, const float* src, int64_t bs_q,
+                                              int64_t bs_k, int r_live, int c_live) {
+  constexpr int kPerRow = kC / kVec, kStep = kThreads / kPerRow;
+  static_assert(kThreads % kPerRow == 0 && kR % kStep == 0, "whole rounds of rows");
+  const int r0 = threadIdx.x / kPerRow, c = threadIdx.x % kPerRow * kVec;
+  const int bytes = 4 * max(0, min(kVec, c_live - c));
+  const float* p = src + r0 * bs_q + c * bs_k;
+  dst += (r0 * kPitch + c) * 4;
+#pragma unroll
+  for (int i = 0; i < kR / kStep; ++i, p += kStep * bs_q) {
+    const int n = r0 + i * kStep < r_live ? bytes : 0;
+    const uint32_t d = dst + i * kStep * kPitch * 4;
+    const void* s = n ? p : src;  // a zero-filled piece reads nothing
+    if constexpr (kVec == 4)
+      cp_async16(d, s, n);
+    else if constexpr (kVec == 2)
+      cp_async8(d, s, n);
+    else
+      cp_async4(d, s, n);
+  }
+}
+
+template <int kR, int kC, int kPitch, int kThreads>
+__device__ __forceinline__ void load_bias(uint32_t dst, const float* src, int64_t bs_q,
+                                          int64_t bs_k, int r_live, int c_live, int vec) {
+  if (vec == 4)
+    load_bias_vec<kR, kC, kPitch, kThreads, 4>(dst, src, bs_q, bs_k, r_live, c_live);
+  else if (vec == 2)
+    load_bias_vec<kR, kC, kPitch, kThreads, 2>(dst, src, bs_q, bs_k, r_live, c_live);
+  else
+    load_bias_vec<kR, kC, kPitch, kThreads, 1>(dst, src, bs_q, bs_k, r_live, c_live);
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
@@ -124,6 +175,11 @@ __device__ __forceinline__ void wg_commit() {
 }
 __device__ __forceinline__ void wg_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Wait until at most N committed wgmma groups are in flight.
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
 
 // Generic-proxy writes to shared memory (cp.async, st.shared) before the
@@ -259,6 +315,42 @@ __device__ __forceinline__ void wgmma_rs_s8(int (&d)[64], const uint32_t (&a)[4]
       : FATT_D8("+r", 0), FATT_D8("+r", 8), FATT_D8("+r", 16), FATT_D8("+r", 24),
         FATT_D8("+r", 32), FATT_D8("+r", 40), FATT_D8("+r", 48), FATT_D8("+r", 56)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// d (64 x N fp32, this thread's N / 2) += a (64 x 8 tf32 from registers,
+// the mma.sync m16n8k8 A layout per warp) * B (8 x N tf32, K-major in
+// shared memory: TF32 takes no transpose), N = 64 or 128.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4],
+                                           uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : FATT_D8("+f", 0), FATT_D8("+f", 8), FATT_D8("+f", 16), FATT_D8("+f", 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4],
+                                           uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : FATT_D8("+f", 0), FATT_D8("+f", 8), FATT_D8("+f", 16), FATT_D8("+f", 24),
+        FATT_D8("+f", 32), FATT_D8("+f", 40), FATT_D8("+f", 48), FATT_D8("+f", 56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
 #undef FATT_D8

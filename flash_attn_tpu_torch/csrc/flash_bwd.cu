@@ -250,57 +250,6 @@ struct Geo {
   static constexpr int kDkvBiasBytes = kOptT ? 2 * kDkvBiasStage : 0;
 };
 
-// kOpt: the widest cp.async piece, in floats, that every staged row of the
-// bias plane at bb takes: 4 (16 bytes) or 2 where the keys are contiguous
-// and each row starts 16- or 8-byte aligned (a stage's rows start at keys
-// that are multiples of 64), else 1.
-__device__ __forceinline__ int bias_piece(const float* bb, int64_t bs_q, int64_t bs_k) {
-  const uintptr_t a = reinterpret_cast<uintptr_t>(bb);
-  if (bs_k != 1) return 1;
-  if (a % 16 == 0 && bs_q % 4 == 0) return 4;
-  if (a % 8 == 0 && bs_q % 2 == 0) return 2;
-  return 1;
-}
-
-// kOpt: a kR (queries) x kC (keys) fp32 tile of the bias into shared memory
-// at dst, rows kPitch floats apart, by cp.async in pieces of kVec floats:
-// element (r, c) from src + r bs_q + c bs_k; rows from r_live and keys from
-// c_live on are zero-filled.  A thread keeps one piece's column and walks
-// rows kThreads / (kC / kVec) apart, so a row's address is one add.
-template <int kR, int kC, int kPitch, int kThreads, int kVec>
-__device__ __forceinline__ void load_bias_vec(uint32_t dst, const float* src, int64_t bs_q,
-                                              int64_t bs_k, int r_live, int c_live) {
-  constexpr int kPerRow = kC / kVec, kStep = kThreads / kPerRow;
-  static_assert(kThreads % kPerRow == 0 && kR % kStep == 0, "whole rounds of rows");
-  const int r0 = threadIdx.x / kPerRow, c = threadIdx.x % kPerRow * kVec;
-  const int bytes = 4 * max(0, min(kVec, c_live - c));
-  const float* p = src + r0 * bs_q + c * bs_k;
-  dst += (r0 * kPitch + c) * 4;
-#pragma unroll
-  for (int i = 0; i < kR / kStep; ++i, p += kStep * bs_q) {
-    const int n = r0 + i * kStep < r_live ? bytes : 0;
-    const uint32_t d = dst + i * kStep * kPitch * 4;
-    const void* s = n ? p : src;  // a zero-filled piece reads nothing
-    if constexpr (kVec == 4)
-      fatt::cp_async16(d, s, n);
-    else if constexpr (kVec == 2)
-      fatt::cp_async8(d, s, n);
-    else
-      fatt::cp_async4(d, s, n);
-  }
-}
-
-template <int kR, int kC, int kPitch, int kThreads>
-__device__ __forceinline__ void load_bias(uint32_t dst, const float* src, int64_t bs_q,
-                                          int64_t bs_k, int r_live, int c_live, int vec) {
-  if (vec == 4)
-    load_bias_vec<kR, kC, kPitch, kThreads, 4>(dst, src, bs_q, bs_k, r_live, c_live);
-  else if (vec == 2)
-    load_bias_vec<kR, kC, kPitch, kThreads, 2>(dst, src, bs_q, bs_k, r_live, c_live);
-  else
-    load_bias_vec<kR, kC, kPitch, kThreads, 1>(dst, src, bs_q, bs_k, r_live, c_live);
-}
-
 // 64 rows from row0 of head hx of a [B, S, Hx, kD] bf16 tensor into the
 // tile at dst by cp.async; rows past S are zero-filled (src-size 0).
 template <int kD, int kThreads>
@@ -449,7 +398,7 @@ __global__ void __launch_bounds__(Geo<kD, kLocal, kOpt>::kDqThreads,
   if constexpr (G::kOpt) {
     if (o.bias != nullptr) {
       bias_bh = o.bias + b * o.bs_b + h * o.bs_h;
-      bias_vec = bias_piece(bias_bh, o.bs_q, o.bs_k);
+      bias_vec = fatt::bias_piece(bias_bh, o.bs_q, o.bs_k);
     }
   }
 
@@ -459,7 +408,7 @@ __global__ void __launch_bounds__(Geo<kD, kLocal, kOpt>::kDqThreads,
     load_tile<kD, kThreads>(ks + kTileBytes, v, b, k0, Sk, Hk, kvh);
     if constexpr (G::kOpt) {
       if (bias_vec != 0)
-        load_bias<kBlockRows, kRows, G::kDqBiasPitch, kThreads>(
+        fatt::load_bias<kBlockRows, kRows, G::kDqBiasPitch, kThreads>(
             bias_ring + st * G::kDqBiasStage, bias_bh + row0 * o.bs_q + k0 * o.bs_k, o.bs_q,
             o.bs_k, Sq - row0, Sk - k0, bias_vec);
     }
@@ -804,7 +753,7 @@ __global__ void __launch_bounds__(Geo<kD, kLocal, kOpt>::kDkvThreads, 1) dkv_ker
   if constexpr (G::kOpt) {
     if (o.bias != nullptr) {
       bias_bh = o.bias + b * o.bs_b + h * o.bs_h;
-      bias_vec = bias_piece(bias_bh, o.bs_q, o.bs_k);
+      bias_vec = fatt::bias_piece(bias_bh, o.bs_q, o.bs_k);
     }
   }
 
@@ -823,7 +772,7 @@ __global__ void __launch_bounds__(Geo<kD, kLocal, kOpt>::kDkvThreads, 1) dkv_ker
     }
     if constexpr (G::kOpt) {
       if (bias_vec != 0)
-        load_bias<kRows, kBlockRows, G::kDkvBiasPitch, kThreads>(
+        fatt::load_bias<kRows, kBlockRows, G::kDkvBiasPitch, kThreads>(
             bias_ring + st * G::kDkvBiasStage, bias_bh + q0 * o.bs_q + k0 * o.bs_k, o.bs_q,
             o.bs_k, Sq - q0, Sk - k0, bias_vec);
     }

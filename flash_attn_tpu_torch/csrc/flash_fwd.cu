@@ -110,13 +110,24 @@
 // do): flash_fwd.py:369-372, 451-456, 764-766.
 //   * the bias is fp32, read through four strides (0 on a broadcast axis,
 //     so a [Sq, Sk] or [B, 1, Sq, Sk] mask is never materialised over the
-//     heads): each thread loads its score entries' values straight from
-//     device memory (L1/L2 serve a quad's 32 consecutive bytes a row) and
-//     adds bias * log2(e), both rounded apart as JAX rounds them, then
+//     heads).  It rides the cp.async ring: each stage stages the block's 64
+//     query rows x the stage's 64 keys (16 KB of fp32) in the commit group
+//     of the stage's K/V, so the tile's bias has landed when S = Q K^T
+//     does and no device-memory load sits between S and the softmax (read
+//     per element from device memory after S, it cost a full load latency
+//     a tile: 1.63x SDPA on the same float mask).  Every stride the
+//     wrapper's broadcast views give takes this one route
+//     (fatt::load_bias: 16-, 8- or 4-byte pieces as the plane's alignment
+//     and key stride allow, as K9's and K10's); rows and keys past Sq / Sk
+//     are zero-filled and meet only entries masked dead or never written.
+//     A thread reads its entries as float2 pairs (rows lane/4 and 8 below,
+//     keys 2 (lane % 4) apart): rows padded to 72 floats (8 mod 32) put
+//     each half-warp on 32 distinct banks, the two wavefronts 256 bytes
+//     need.  The two stages (36 KB) are sized at launch only when a bias is
+//     given, so head dim 128 keeps two blocks an SM and 64 three.  Each
+//     entry adds bias * log2(e), both rounded apart as JAX rounds them, and
 //     clamps at -1e30, so a -inf entry is dead and a row of them gives 0
-//     and lse -1e30 as JAX's clamp does.  A broadcast [Sq, Sk] bias is
-//     read again by every head's blocks: at 8192^2 (256 MiB) L2 holds none
-//     of it across heads;
+//     and lse -1e30 as JAX's clamp does;
 //   * dropout hashes (seed, b, h, row, column) per live element
 //     (fatt::drop_keep, keyed on the query head h, not the KV head) and
 //     multiplies kept P by 1 / f32(1 - rate) (a division, as JAX's) before
@@ -141,6 +152,11 @@ constexpr int kFullBit = 1 << 30;  // list entry: live throughout, no mask
 constexpr float kClamp2 = 80.f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kLog2e = 1.4426950408889634f;
+// kExtra with a bias: two stages of the block's 64 query rows x 64 keys,
+// rows padded to 72 floats, after the K/V ring.
+constexpr int kBiasPitch = kBK + 8;
+constexpr int kBiasStage = kBQ * kBiasPitch * 4;
+constexpr int kBiasBytes = kStages * kBiasStage;
 
 // The tile geometry of head dim kD (64, 128 or 256).
 template <int kD>
@@ -212,8 +228,11 @@ __global__ void __launch_bounds__(kThreads, kD == 64 ? (kExtra ? 3 : 4) : kD == 
   const uint32_t kv_base = (s_base + 1023) & ~1023u;
   // The ring's first stage holds O on its way out once the ring is drained.
   unsigned char* Os = smem + (kv_base - s_base);
+  // kExtra with a bias: its two stages after the K/V ring.
+  const uint32_t bias_ring = kv_base + kStages * 2 * kTileBytes;
+  const bool has_bias = kExtra && bias != nullptr;
   // kMeta: the tiles' (segment, position) ring, then the live-tile list.
-  const uint32_t meta_base = kv_base + kStages * 2 * kTileBytes;
+  const uint32_t meta_base = bias_ring + (has_bias ? kBiasBytes : 0);
   const unsigned char* meta_s = smem + (meta_base - s_base);
   int* list = reinterpret_cast<int*>(smem + (meta_base - s_base) + kStages * kMetaBytes);
 
@@ -278,8 +297,18 @@ __global__ void __launch_bounds__(kThreads, kD == 64 ? (kExtra ? 3 : 4) : kD == 
   // position mask.
   auto tile_of = [&](int i) { return kMeta ? list[i] & (kFullBit - 1) : t_first + i; };
 
+  // kExtra: this (batch, head)'s bias plane and its cp.async piece.
+  const float* bias_bh = nullptr;
+  int bias_vec = 0;
+  if constexpr (kExtra) {
+    if (has_bias) {
+      bias_bh = bias + b * bs_b + h * bs_h;
+      bias_vec = fatt::bias_piece(bias_bh, bs_q, bs_k);
+    }
+  }
+
   // K and V of the tile at key k0 into ring stage st (with masks, also its
-  // 64 (segment, position) pairs).
+  // 64 (segment, position) pairs; with a bias, its 64 x 64 entries).
   auto load_tile = [&](int st, int k0) {
     const uint32_t ks = kv_base + st * 2 * kTileBytes;
     const uint32_t vs = ks + kTileBytes;
@@ -294,6 +323,12 @@ __global__ void __launch_bounds__(kThreads, kD == 64 ? (kExtra ? 3 : 4) : kD == 
       if (tid < kMetaBytes / 16)
         fatt::cp_async16(meta_base + st * kMetaBytes + tid * 16,
                          kmeta + (int64_t)b * nk * kBK + k0 + tid * 2, 16);
+    }
+    if constexpr (kExtra) {
+      if (has_bias)
+        fatt::load_bias<kBQ, kBK, kBiasPitch, kThreads>(
+            bias_ring + st * kBiasStage, bias_bh + row0 * bs_q + k0 * bs_k, bs_q, bs_k,
+            Sq - row0, Sk - k0, bias_vec);
     }
   };
 #pragma unroll
@@ -418,12 +453,13 @@ __global__ void __launch_bounds__(kThreads, kD == 64 ? (kExtra ? 3 : 4) : kD == 
     qm[0] = qrow[my_row];
     qm[1] = qrow[my_row + 8];
   }
-  // kExtra: this (batch, head)'s bias plane and this thread's rows' part
-  // of the dropout hash.
-  const float* bias_bh = nullptr;
+  // kExtra: this thread's first staged bias pair (row my_row, keys
+  // 2 (lane % 4) + {0, 1} of stage 0) and its rows' part of the dropout
+  // hash.
+  const float* bias_my = reinterpret_cast<const float*>(smem + (bias_ring - s_base)) +
+                         (my_row - row0) * kBiasPitch + 2 * (lane & 3);
   uint32_t drop_rows[2] = {0u, 0u};
   if constexpr (kExtra) {
-    if (bias != nullptr) bias_bh = bias + b * bs_b + h * bs_h;
     const uint32_t mix = fatt::drop_mix(seed, b, h);
     drop_rows[0] = fatt::drop_row(mix, my_row);
     drop_rows[1] = fatt::drop_row(mix, my_row + 8);
@@ -455,18 +491,19 @@ __global__ void __launch_bounds__(kThreads, kD == 64 ? (kExtra ? 3 : 4) : kD == 
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] = softcap2 * fatt::tanh_exp2(s[j][e] * inv_cap);
     }
-    // kExtra: s = max(s + bias log2 e, -1e30) on this thread's in-range entries
-    if (kExtra && bias_bh != nullptr) {
+    // kExtra: s = max(s + bias log2 e, -1e30) from the stage's bias (the
+    // zero-filled entries past Sq / Sk are masked dead below or never
+    // written)
+    if (kExtra && has_bias) {
+      const float* bs = bias_my + st * (kBiasStage / 4);
 #pragma unroll
       for (int j = 0; j < kBK / 8; ++j) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = k0 + j * 8 + (lane & 3) * 2 + (e & 1);
-          const int row = my_row + (e >> 1) * 8;
-          if (row < Sq && col < Sk) {
-            const float bv = __ldg(bias_bh + row * bs_q + col * bs_k);
-            s[j][e] = fmaxf(__fadd_rn(s[j][e], __fmul_rn(bv, kLog2e)), kNegInf);
-          }
+        for (int hf = 0; hf < 2; ++hf) {
+          const float2 bv = *reinterpret_cast<const float2*>(bs + hf * 8 * kBiasPitch + j * 8);
+          s[j][2 * hf] = fmaxf(__fadd_rn(s[j][2 * hf], __fmul_rn(bv.x, kLog2e)), kNegInf);
+          s[j][2 * hf + 1] =
+              fmaxf(__fadd_rn(s[j][2 * hf + 1], __fmul_rn(bv.y, kLog2e)), kNegInf);
         }
       }
     }
@@ -614,13 +651,14 @@ int launch(const void* q, const void* k, const void* v, const void* cosv,
            cudaStream_t st) {
   static fatt::SmemLimitSet smem_set;
   constexpr int kSmemBytes = Dims<kD>::kSmemBytes;
-  constexpr int kMaxSmem =
-      kSmemBytes + (kMeta ? kStages * kMetaBytes + kMaxListTiles * 4 : 0);
+  constexpr int kMaxSmem = kSmemBytes + (kExtra ? kBiasBytes : 0) +
+                           (kMeta ? kStages * kMetaBytes + kMaxListTiles * 4 : 0);
   cudaError_t e =
       fatt::smem_limit_once(flash_fwd_kernel<kD, kMeta, kLocal, kExtra>, kMaxSmem, smem_set);
   if (e != cudaSuccess) return (int)e;
   const int nk = (Sk + kBK - 1) / kBK;
-  const int smem = kSmemBytes + (kMeta ? kStages * kMetaBytes + nk * 4 : 0);
+  const int smem = kSmemBytes + (kExtra && x.bias != nullptr ? kBiasBytes : 0) +
+                   (kMeta ? kStages * kMetaBytes + nk * 4 : 0);
   dim3 grid(H, B, (Sq + kBQ - 1) / kBQ);
   flash_fwd_kernel<kD, kMeta, kLocal, kExtra><<<grid, kThreads, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),

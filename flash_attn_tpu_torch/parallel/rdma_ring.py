@@ -9,12 +9,12 @@ coordinate of its work, each rank's KV double buffer in device memory and
 the push a device-local copy.  Ranks on more than one device raise:
 peer pointers across cards wait for a machine with more than one.
 
-Everything is fp32 (the inputs are taken to fp32, products in full fp32,
-``Precision.HIGHEST`` in JAX), merged by the LSE rule of
-rdma_ring.py:168-201, and the output comes back in q's dtype.  CPU shards
-run the plain version, ``ring_attn_plain``: a loop over ranks and steps in
-fp32 with the same merge, independent of K11; CUDA shards launch K11 or
-raise.
+Everything is fp32 (the inputs are taken to fp32, products at fp32
+accuracy: ``Precision.HIGHEST`` in JAX, three TF32 passes on the card's
+tensor cores in K11), merged by the LSE rule of rdma_ring.py:168-201, and
+the output comes back in q's dtype.  CPU shards run the plain version,
+``ring_attn_plain``: a loop over ranks and steps in fp32 with the same
+merge, independent of K11; CUDA shards launch K11 or raise.
 """
 
 from __future__ import annotations
@@ -27,6 +27,9 @@ from flash_attn_tpu_torch import _build
 from flash_attn_tpu_torch.parallel.mesh import SEQUENCE_AXIS, shard, unshard
 
 NEG_INF = float("-inf")
+# K11's key tile (csrc/ring_attn.cu kKeys): a slot pads each shard's
+# sequence to a multiple of it
+KEY_TILE = 64
 
 
 def ring_attn_plain(qs, ks, vs, causal: bool, scale: float):
@@ -100,8 +103,9 @@ def _check_cuda(qs, ks, vs):
 def ring_attn_cuda(qs, ks, vs, causal: bool, scale: float):
     """Launch K11 once for the whole ring (replaces
     flash_attn_tpu/parallel/rdma_ring.py:_kernel; bound by operations,
-    fp32 on the CUDA cores, see csrc/ring_attn.cu).  Returns n outputs in
-    q's dtype.  ``.grid`` holds the last launch's (blocks, blocks an SM)."""
+    three TF32 passes on the tensor cores, see csrc/ring_attn.cu).
+    Returns n outputs in q's dtype.  ``.grid`` holds the last launch's
+    (blocks, blocks an SM)."""
     _check_cuda(qs, ks, vs)
     n = len(qs)
     B, s_loc, H, D = qs[0].shape
@@ -110,7 +114,10 @@ def ring_attn_cuda(qs, ks, vs, causal: bool, scale: float):
     outs = [torch.empty_like(q) for q in qs]
     ptrs = torch.tensor([t.data_ptr() for t in (*qs, *ks, *vs, *outs)], dtype=torch.int64,
                         device=dev)
-    slots = torch.empty((n, 2, 2, B, s_loc, Hk, D), dtype=torch.float32, device=dev)
+    # each rank's two slots: K and V^T as TF32 hi and lo planes, 4 B Hk s_pad
+    # D floats a slot (csrc/ring_attn.cu, stage)
+    s_pad = -(-s_loc // KEY_TILE) * KEY_TILE
+    slots = torch.empty((n, 2, 4, B, Hk, s_pad, D), dtype=torch.float32, device=dev)
     acc = torch.empty((n, B, H, s_loc, D), dtype=torch.float32, device=dev)
     lse = torch.empty((n, B, H, s_loc), dtype=torch.float32, device=dev)
     counters = torch.empty((2 * n * n,), dtype=torch.int32, device=dev)

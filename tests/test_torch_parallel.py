@@ -325,6 +325,17 @@ def test_rdma_ring_plain_matches_jax(mesh4, jmesh4, causal):
     assert err(got, j_mha(q, k, v, causal=causal)) <= OUT_TOL
 
 
+def test_rdma_ring_plain_large_logits(mesh4):
+    """K11's plain version at the card check's large-logit case (q x 8:
+    logits reach 42.6 here; one TF32 pass would miss it, three hold it)
+    through make_rdma_ring_attention against JAX's jnp oracle
+    mha_reference, both fp32, at OUT_TOL (1.0e-5 measured)."""
+    q, k, v, _ = arrays(42)
+    q = q * 8
+    got = make_rdma_ring_attention(mesh4, causal=True, block_q=64)(T(q), T(k), T(v))
+    assert err(got, j_mha(q, k, v, causal=True)) <= OUT_TOL
+
+
 def test_rdma_ring_block_q_and_bf16(mesh4):
     """S_loc % block_q raises as JAX's does; bf16 shards come back in bf16
     within a bf16 rounding of the fp32 result; the plain version's ranks
