@@ -125,7 +125,11 @@ Phases, one line each with its seconds:
      steps, and each layer alone on the card fed the CPU's hidden state:
      per layer at most 1 % of tokens may choose another top-2 expert set,
      and the layer's output (the logits for the last) on the agreeing
-     tokens within 5 %; the end-to-end flips and logits printed;
+     tokens within 5 %; the end-to-end flips and logits printed; LoRA
+     (2 layers at 8B widths, int8 fused, a bank of 4 rank-16 adapters,
+     fp32): 8 prompts prefilled two a call under lora_id 0-3, then four
+     decode steps with per-slot ids [0, 1, 2, 3, 0, 1, 2, 3], against the
+     CPU;
   4-6. the main paths, each model alone on the card, served by the
      continuous-batching engine (8 greedy requests, prompts of 128-1024
      tokens from the seed) with its decode bodies replayed from CUDA
@@ -233,7 +237,21 @@ Phases, one line each with its seconds:
      flash_attention on the whole sequence (rows to two bf16 ulps,
      gradients to 5e-2 of their norm), the rdma ring also against the
      ring, with launches a call exact (K4 = K9 = K10 = 10 contiguous, 16
-     striped, 4 Ulysses; K11 1) and ms a call.
+     striped, 4 Ulysses; K11 1) and ms a call;
+  21. (run last) multi-adapter LoRA serving: Llama-3-8B int8 fused, fp8
+     KV, capacity 4096, phase 4's prompts one a prefill call, 32 tokens,
+     a bank of 4 rank-16 adapters (alpha 32, all seven linear layers,
+     fp32; adapter 0's B = 0, adapters 1-3 at 10 % of the base projection's
+     rms at layer 0), request i on adapter i % 4: the base without a bank
+     and the bank, each eager and captured (decode ms a position, tokens/s,
+     the card's ms, prefill tokens/s, the bank's bytes, peak), every
+     request on adapter 1, then the same requests over HTTP
+     (serving.serve: 8 concurrent /generate, /stream, one /generate timed
+     beside the engine's own seconds, /health, /submit + /cancel); adapter
+     0 must equal the base, adapters 1-3 change tokens, requests 1 and 5
+     equal across the mixed and all-adapter-1 runs, eager equal captured,
+     HTTP equal direct, and the launches exact (K4 32 a prompt, K1 = K2 =
+     K1m 32 a step, K3 128 a prefill call or step).
 
 Before the last line come the kernels' JSON record (each row's launches
 are those of the run named in its "launches_run"; the quantized matmuls'
@@ -3830,6 +3848,116 @@ def multi_card_vs_cpu(torch, checks, base=None, width="8B", seed=SEED + 18):
     torch.cuda.empty_cache()
 
 
+LORA_RANK = 16         # vLLM's default max_lora_rank
+LORA_ALPHA = 32.0
+LORA_ADAPTERS = 4
+LORA_SHARE = 0.10      # adapters 1-3: the delta's rms over the base projection's at layer 0
+
+
+def lora_bank(torch, params, seed):
+    """LORA_ADAPTERS adapters of rank LORA_RANK (alpha LORA_ALPHA) on all
+    seven linear layers of ``params`` (unfused names, as QLoRA adapts
+    them), stacked into a bank on the card, fp32 as init_lora makes them
+    for a quantized base.  Adapter 0 keeps B = 0; adapters 1-3 draw B from
+    the seed, each target's B scaled so that the delta's rms is LORA_SHARE
+    of the base projection's output rms at layer 0 on a unit-rms bf16
+    input.  Returns (bank, adapter 1's share per target, measured on a
+    second such input)."""
+    from flash_attn_tpu_torch.models import llama, lora
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    adapters = [lora.init_lora(params, LORA_RANK, gen, alpha=LORA_ALPHA)
+                for _ in range(LORA_ADAPTERS)]
+    blk0 = params["blocks"][0]
+    probes = {name: [torch.randn((64, lora.weight_kn(blk0[name])[0]), generator=gen,
+                                 device="cuda").to(torch.bfloat16) for _ in range(2)]
+              for name in lora.LORA_TARGETS}
+
+    def share(name, ab, x):
+        base = llama._proj(x, blk0[name]).float()
+        delta = lora.lora_delta(x, ab, None, adapters[0]["scaling"]).float()
+        return float(delta.pow(2).mean().sqrt() / base.pow(2).mean().sqrt())
+
+    for a in adapters[1:]:
+        for name in lora.LORA_TARGETS:
+            for blk in a["blocks"]:
+                blk[name][1].normal_(generator=gen)
+            f = LORA_SHARE / share(name, a["blocks"][0][name], probes[name][0])
+            for blk in a["blocks"]:
+                blk[name][1].mul_(f)
+    shares = {name: share(name, adapters[1]["blocks"][0][name], probes[name][1])
+              for name in lora.LORA_TARGETS}
+    return lora.stack_adapters(adapters), shares
+
+
+def lora_card_vs_cpu(torch, checks, seed=SEED + 31):
+    """2 layers at full 8B widths, int8 fused weights, fp8 KV, a bank of
+    LORA_ADAPTERS rank-16 adapters (``lora_bank``, adapter 0's B = 0): 8
+    prompts of 8-32 tokens prefilled two a call, slots a and a + 4 under
+    adapter a (``lora_id`` 0-3), then four decode steps with per-slot ids
+    [0, 1, 2, 3, 0, 1, 2, 3], on the card against the CPU, fed the same
+    tokens (the CPU's greedy choices).  Both sides hold the fp32 bank and
+    cast it to bf16 at each call, as JAX does."""
+    import numpy as np
+
+    from flash_attn_tpu_torch.models import llama
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(llama.LLAMA3_8B, num_layers=2)
+    card = llama.init_params(cfg, seed=seed, device="cuda", quantize="int8")
+    bank, _ = lora_bank(torch, card, seed)
+    card = llama.fuse_projections(card)
+    sides = {"cpu": (_to(card, "cpu"), _to(bank, "cpu")), "cuda": (card, bank)}
+    B, S = 2 * LORA_ADAPTERS, 32
+    ids = [i % LORA_ADAPTERS for i in range(B)]
+    caches = {d: llama.make_cache(cfg, B, 256, mode="fp8", device=d) for d in sides}
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist() for n in rng.integers(8, S + 1, B)]
+    first = {d: [None] * B for d in sides}
+    for a in range(LORA_ADAPTERS):
+        slots = [s for s in range(B) if ids[s] == a]
+        toks = torch.zeros((len(slots), S), dtype=torch.long)
+        for r, s in enumerate(slots):
+            toks[r, :len(prompts[s])] = torch.tensor(prompts[s])
+        for d, (params, bk) in sides.items():
+            pos = torch.arange(S, device=d)[None].repeat(len(slots), 1)
+            out, kvs = llama.prefill_with_kv(params, toks.to(d), pos, cfg, lora=bk, lora_id=a)
+            for r, s in enumerate(slots):
+                for layer, (k, v) in enumerate(kvs):
+                    caches[d].insert_prompt(layer, s, k[r], v[r])
+                caches[d].set_length(s, len(prompts[s]))
+                first[d][s] = out[r, len(prompts[s]) - 1].float().cpu()
+    logits = {d: list(first[d]) for d in sides}
+    nxt = torch.stack(first["cpu"]).argmax(-1)
+    for _ in range(4):
+        for d, (params, bk) in sides.items():
+            out, _ = llama.decode_step(params, nxt.to(d), cfg, caches[d], lora=bk,
+                                       lora_ids=torch.tensor(ids, device=d))
+            logits[d].extend(out.float().cpu())
+        nxt = torch.stack(logits["cpu"][-B:]).argmax(-1)
+    torch.cuda.synchronize()
+    ref, got = torch.stack(logits["cpu"]), torch.stack(logits["cuda"])
+    finite = bool(torch.isfinite(got).all())
+    err_pre = float((got[:B] - ref[:B]).abs().max())
+    err_dec = float((got[B:] - ref[B:]).abs().max())
+    # as card_vs_cpu: the sides round at the same points (the deltas' rank-16
+    # products in bf16 on both) and sum in another order
+    tol = 5e-2 * float(ref.abs().max())
+    ok = (checks.check("LoRA card vs cpu prefill logits", err_pre, tol)
+          & checks.check("LoRA card vs cpu decode logits", err_dec, tol) and finite)
+    if not finite:
+        checks.failed.append("LoRA card logits not finite")
+    agree = int((got.argmax(-1) == ref.argmax(-1)).sum())
+    say(f"[phase 3 card vs cpu, LoRA: 2 layers at 8B widths, int8 fused, fp8 KV, a bank of "
+        f"{LORA_ADAPTERS} rank-{LORA_RANK} adapters, fp32] prefill lora_id 0-3 (slots a, a + 4) "
+        f"logits ({B}, {cfg.vocab_size}) max_abs_err {err_pre:.3e}; 4 decode steps, lora_ids "
+        f"{ids}, logits ({4 * B}, {cfg.vocab_size}) max_abs_err {err_dec:.3e} (tol {tol:.3e}, "
+        f"max |logit| {float(ref.abs().max()):.3f}) finite={finite} {'ok' if ok else 'FAIL'} | "
+        f"greedy agreement {agree}/{ref.shape[0]} | {time.perf_counter() - t0:.2f}s")
+    del sides, caches, card, bank
+    torch.cuda.empty_cache()
+
+
 def qwen_card_vs_cpu(torch, checks):
     """Phase 3's Llama runs at 2 layers of Qwen-2-7B's widths (28 query
     heads over 4 KV heads, the qkv bias; int8 weights, the bias bf16), held
@@ -4465,7 +4593,7 @@ def _decode_window(torch, eng):
 
 def serve(torch, checks, label, cfg, params, kv_mode, max_tokens, path, burst=1,
           window=False, packed=True, chunk=None, adapter=None, capacity=4096, prompts=None,
-          max_batch=8, paged=False, spec=None):
+          max_batch=8, paged=False, spec=None, bank=None, adapters=None):
     """One engine run of greedy requests (``max_batch``, ``capacity``) at
     ``burst``, through ``adapter`` (default: Llama's for ``cfg``) on
     ``prompts`` ((lengths, token lists); default ``_prompts``), in
@@ -4474,7 +4602,9 @@ def serve(torch, checks, label, cfg, params, kv_mode, max_tokens, path, burst=1,
     each kernel in ``path`` must have launched.  The 8 prompts (3450
     tokens) go through one packed prefill, whose K4 calls carry segment
     ids (one a layer); with ``packed`` False the adapter has no
-    prefill_packed and each prompt is prefilled alone; with ``chunk`` the
+    prefill_packed and each prompt is prefilled alone (so also with
+    ``bank``, a LoRA bank, request i under adapter ``adapters[i]``, its
+    decode steps the engine's LoRA body); with ``chunk`` the
     engine has that prefill_chunk_size (so it does not pack), and K4's
     calls with positions must be one a layer and chunk.  The step times
     leave out the first WARM_STEPS dispatches (warm-up and capture) and,
@@ -4483,8 +4613,9 @@ def serve(torch, checks, label, cfg, params, kv_mode, max_tokens, path, burst=1,
     back to back (CUDA events): the card's time a decode position.
     Returns a dict of the run's counts, peak memory, tokens, ms and device
     ms a decode position, decode and prefill tokens/s, the window's
-    numbers, the decode steps that ran between chunks and the run's decode
-    dispatches."""
+    numbers, the decode steps that ran between chunks, the run's decode
+    dispatches, its wall seconds from the first submit and the decode
+    body's calls."""
     import numpy as np
 
     from flash_attn_tpu_torch.engine import _graph
@@ -4503,7 +4634,7 @@ def serve(torch, checks, label, cfg, params, kv_mode, max_tokens, path, burst=1,
     else:
         eng = InferenceEngine(params, adapter, max_batch=max_batch, capacity=capacity,
                               kv_mode=kv_mode, device="cuda", decode_burst=burst,
-                              prefill_chunk_size=chunk, spec=spec)
+                              prefill_chunk_size=chunk, spec=spec, lora_bank=bank)
     between = [0]  # decode steps run while a prompt is mid-way through its chunks
     step = eng._do_decode_step
 
@@ -4513,7 +4644,9 @@ def serve(torch, checks, label, cfg, params, kv_mode, max_tokens, path, burst=1,
 
     eng._do_decode_step = counted_step
     _reset_counts()
-    reqs = [eng.submit(p, max_tokens=max_tokens) for p in prompts]
+    t_run = time.perf_counter()
+    reqs = [eng.submit(p, max_tokens=max_tokens, **({"adapter": adapters[i]} if bank else {}))
+            for i, p in enumerate(prompts)]
     m = eng.metrics
 
     def now():
@@ -4526,6 +4659,7 @@ def serve(torch, checks, label, cfg, params, kv_mode, max_tokens, path, burst=1,
     skip = now()
     eng.run()
     torch.cuda.synchronize()
+    wall = time.perf_counter() - t_run
     counts = _read_counts()
     dispatches = m.steps
     tokens, secs, steps = now() - skip
@@ -4538,14 +4672,15 @@ def serve(torch, checks, label, cfg, params, kv_mode, max_tokens, path, burst=1,
     if idle:
         checks.failed.append(f"{label}: kernels {idle} were not launched: {counts}")
     n_chunks = sum(-(-len(p) // chunk) for p in prompts if len(p) > chunk) if chunk else 0
-    want = {"packed prefills": int(packed and not chunk),
-            "K4 seg": cfg.num_layers * int(packed and not chunk),
-            "K4 pos": cfg.num_layers * (n_chunks if chunk else int(packed))}
+    packs = int(packed and not chunk and bank is None)  # a bank never packs
+    want = {"packed prefills": packs, "K4 seg": cfg.num_layers * packs,
+            "K4 pos": cfg.num_layers * (n_chunks if chunk else packs)}
     got = {"packed prefills": getattr(eng, "packed_prefills", 0), "K4 seg": counts["K4 seg"],
            "K4 pos": counts["K4 pos"]}
     if got != want:
         checks.failed.append(f"{label}: prefill paths {got}, expected {want}")
-    body = eng._verify_jit if spec else eng._burst_jit if burst > 1 else eng._decode_jit
+    body = (eng._verify_jit if spec else eng._burst_jit if burst > 1
+            else eng._decode_lora_jit if bank else eng._decode_jit)
     rounds = eng._verify_jit.calls if spec else 0
     dev_ms = None
     if _graph._enabled:
@@ -4557,7 +4692,7 @@ def serve(torch, checks, label, cfg, params, kv_mode, max_tokens, path, burst=1,
     pos_ms = 1e3 * secs / max(steps * burst, 1)
     prefill_tok_s = m.prefill_tokens / max(m.prefill_seconds, 1e-9)
     how = (f"{n_chunks} chunks of {chunk}, {between[0]} decode steps between them"
-           if chunk else "one packed call" if packed else "one prompt a call")
+           if chunk else "one packed call" if packs else "one prompt a call")
     say(f"[{label}] {len(prompts)} requests, prompts {lens.tolist()}, {max_tokens} tokens each: "
         f"{'ok' if good else 'FAIL'} | prefill {prefill_tok_s:.1f} tok/s ({how}) | decode "
         f"{tokens / max(secs, 1e-9):.1f} tok/s, {pos_ms:.3f} ms a decode position "
@@ -4566,13 +4701,15 @@ def serve(torch, checks, label, cfg, params, kv_mode, max_tokens, path, burst=1,
         + (f", the card {dev_ms:.3f} ms a position (graph replays)" if dev_ms else "")
         + f" | max_memory_allocated {peak:.2f} GiB | {time.perf_counter() - t1:.2f}s")
     say("kernels " + json.dumps({"run": label, **counts}))
+    calls = body.calls
     # the engine is held by its bodies and by counted_step's cells: drop
     # them all before collecting
     del eng, body, step, counted_step
     _free(torch)
     return dict(counts=counts, peak=peak, tokens=[r.generated for r in reqs], pos_ms=pos_ms,
                 tok_s=tokens / max(secs, 1e-9), dev_ms=dev_ms, window=win,
-                prefill_tok_s=prefill_tok_s, dispatches=dispatches, rounds=rounds)
+                prefill_tok_s=prefill_tok_s, dispatches=dispatches, rounds=rounds, wall=wall,
+                calls=calls)
 
 
 def serve_ways(torch, checks, smi, label, cfg, params, max_tokens, path, eager_window):
@@ -5973,6 +6110,201 @@ def phase_sp(torch, checks, smi):
     return runs
 
 
+LORA_TOKENS = 32
+
+
+def _lora_launches(checks, label, run, L, prompts):
+    """Phase 21's counts, exact: one prompt a prefill call (K4 L a call,
+    no packed call), K1 = K2 = K1m = L a decode step, K3 4 a layer (wqkv,
+    wo, w_gate_up, w_down) a prefill call or step; the head is float."""
+    steps = run["dispatches"]
+    return _launches_exact(checks, label, run["counts"], {
+        "K4": L * prompts, "K4 seg": 0, "K1": L * steps, "K2": L * steps, "K1m": L * steps,
+        "K3": 4 * L * (prompts + steps)})
+
+
+def lora_http(torch, checks, cfg, params, bank, adapters, mixed):
+    """Phase 21 (e): the same 8 requests over HTTP (serving.serve on port 0,
+    a fresh engine with the bank, its LoRA decode step captured on the
+    worker thread): 8 client threads POST /generate at once, their tokens
+    equal to the mixed run's; a /stream client (request 1 anew) receives
+    the same tokens in more than one line; one /generate alone (request 0)
+    timed beside the engine's own seconds for it; /health reports the
+    engine's metrics; a /submit followed by /cancel frees its slot; the
+    server and worker shut down.  Returns the numbers to print."""
+    import threading
+    import urllib.request
+
+    from flash_attn_tpu_torch.engine.engine import InferenceEngine
+    from flash_attn_tpu_torch.models import llama
+    from flash_attn_tpu_torch.serving import ServingConfig
+    from flash_attn_tpu_torch.serving import serve as http_serve
+
+    _, prompts = _prompts(cfg.vocab_size)
+    eng = InferenceEngine(params, llama.make_adapter(cfg), max_batch=8, capacity=4096,
+                          kv_mode="fp8", device="cuda", lora_bank=bank)
+    srv, worker = http_serve(eng, ServingConfig(port=0), block=False)
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+
+    def post(path, body):
+        req = urllib.request.Request(url + path, data=json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return json.loads(r.read())
+
+    def get(path):
+        with urllib.request.urlopen(url + path, timeout=120) as r:
+            return json.loads(r.read())
+
+    def body(i, max_tokens=LORA_TOKENS):
+        return {"prompt": prompts[i], "max_tokens": max_tokens, "adapter": adapters[i]}
+
+    out = {}
+    try:
+        results = [None] * len(prompts)
+
+        def client(i):
+            results[i] = post("/generate", body(i))["tokens"]
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        out["batch_s"] = time.perf_counter() - t0
+        out["generate"] = [i for i, r in enumerate(results) if r != mixed["tokens"][i]]
+        uid = post("/submit", body(1))["uid"]
+        with urllib.request.urlopen(f"{url}/stream?uid={uid}", timeout=120) as r:
+            lines = [json.loads(raw) for raw in r]
+        out["lines"] = len(lines)
+        out["stream"] = (bool(lines) and lines[-1]["done"] and len(lines) > 1
+                         and [t for ln in lines for t in ln["tokens"]] == mixed["tokens"][1])
+        m = eng.metrics
+        before = m.prefill_seconds + m.decode_seconds
+        t0 = time.perf_counter()
+        one = post("/generate", body(0))["tokens"]
+        out["one_s"] = time.perf_counter() - t0
+        out["engine_s"] = m.prefill_seconds + m.decode_seconds - before
+        out["one"] = one == mixed["tokens"][0]
+        health = get("/health")
+        out["health"] = health["ok"] and health["metrics"]["completed_requests"] >= 10
+        uid = post("/submit", body(2, max_tokens=1024))["uid"]
+        deadline = time.perf_counter() + 60
+        while not get(f"/result?uid={uid}")["tokens"] and time.perf_counter() < deadline:
+            time.sleep(0.005)
+        cancelled = post("/cancel", {"uid": uid})["cancelled"]
+        while (eng.sched.active or eng.sched.waiting) and time.perf_counter() < deadline:
+            time.sleep(0.005)
+        res = get(f"/result?uid={uid}")
+        out["cancel"] = (cancelled and res["done"] and len(res["tokens"]) < 1024
+                         and sorted(eng.sched.free_slots) == list(range(8)))
+        out["calls"] = eng._decode_lora_jit.calls
+        out["captured"] = eng._decode_lora_jit.graph is not None
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        worker.stop_flag.set()
+        worker.join(timeout=60)
+    out["stopped"] = not worker.is_alive() and worker.error is None
+    for key in ("stream", "one", "health", "cancel", "captured", "stopped"):
+        if not out[key]:
+            checks.failed.append(f"{RUN_LORA} over HTTP: {key} failed ({worker.error!r})")
+    if out["generate"]:
+        checks.failed.append(f"{RUN_LORA} over HTTP: /generate tokens differ from the direct "
+                             f"run's in requests {out['generate']}")
+    del eng, worker, srv
+    _free(torch)
+    return out
+
+
+def phase_lora(torch, checks, smi):
+    """Phase 21: multi-adapter LoRA serving.  LLAMA3_8B, int8 fused, fp8
+    KV, capacity 4096, max_batch 8, phase 4's 8 prompts, LORA_TOKENS
+    tokens each, with a bank of LORA_ADAPTERS rank-16 adapters
+    (``lora_bank``: adapter 0 B = 0, 1-3 at LORA_SHARE), request i on
+    adapter i % 4, every prompt prefilled alone (a bank never packs).
+    Runs: the base model without a bank eager and captured, the bank
+    eager and captured (the mixed run), the bank with every request on
+    adapter 1, and the HTTP front end (``lora_http``).  Checks: (a) adapter
+    0's requests equal the base run's tokens; (b) each of adapters 1-3
+    changes a token of its requests; (c) requests 1 and 5 of the
+    all-adapter-1 run equal the mixed run's; (d) eager equals captured;
+    (e) lora_http's; every run's launches exact (``_lora_launches``).
+    Prints decode ms a position and tokens/s, eager and captured, with the
+    bank beside the base; prefill tokens/s; the bank's bytes; peak memory;
+    the LoRA decode body's calls; a /generate's wall time beside the
+    engine's.  Returns {run label: counts}."""
+    from flash_attn_tpu_torch.engine._graph import disable_graphs
+    from flash_attn_tpu_torch.models import llama, lora
+
+    t0 = time.perf_counter()
+    cfg = llama.LLAMA3_8B
+    L = cfg.num_layers
+    params, secs = _fresh_model(torch, cfg, quantize="int8")
+    bank, shares = lora_bank(torch, params, SEED + 21)
+    params = llama.fuse_projections(params)  # init_lora reads the unfused names
+    _free(torch)
+    bank_mib = sum(t.numel() * t.element_size() for t in lora.lora_tensors(bank)) / 2**20
+    say(f"  8B params (int8 fused, bf16 embeddings and head) and a bank of {LORA_ADAPTERS} "
+        f"rank-{LORA_RANK} adapters (alpha {LORA_ALPHA:g}) on the seven linear layers, fp32, "
+        f"{bank_mib:.1f} MiB (the engine's bf16 copy {bank_mib / 2:.1f} MiB), on the card in "
+        f"{time.perf_counter() - t0:.2f}s | adapter 1's delta rms / base rms at layer 0: "
+        + ", ".join(f"{n} {v:.4f}" for n, v in shares.items()))
+    path = ("K1", "K1m", "K2", "K3", "K4")
+    n = len(_prompts(cfg.vocab_size)[1])
+    adapters = [i % LORA_ADAPTERS for i in range(n)]
+    kw = dict(cfg=cfg, params=params, kv_mode="fp8", max_tokens=LORA_TOKENS, path=path)
+    with disable_graphs():
+        base_eager = serve(torch, checks, f"{RUN_LORA_BASE}, eager", packed=False, **kw)
+        eager = serve(torch, checks, f"{RUN_LORA}, eager", bank=bank, adapters=adapters, **kw)
+    base = serve(torch, checks, RUN_LORA_BASE, packed=False, **kw)
+    mixed = serve(torch, checks, RUN_LORA, bank=bank, adapters=adapters, **kw)
+    ones = serve(torch, checks, RUN_LORA_ONES, bank=bank, adapters=[1] * n, **kw)
+    for label, run in ((RUN_LORA_BASE, base), (f"{RUN_LORA_BASE}, eager", base_eager),
+                       (RUN_LORA, mixed), (f"{RUN_LORA}, eager", eager), (RUN_LORA_ONES, ones)):
+        _lora_launches(checks, label, run, L, n)
+    tok, want = mixed["tokens"], base["tokens"]
+    verdict = {
+        "(a) adapter 0 = base": all(tok[i] == want[i] for i in range(n) if adapters[i] == 0),
+        "(b) adapters 1-3 change tokens": all(
+            any(tok[i] != want[i] for i in range(n) if adapters[i] == a)
+            for a in range(1, LORA_ADAPTERS)),
+        "(c) all on adapter 1 = mixed at 1, 5": all(ones["tokens"][i] == tok[i]
+                                                  for i in range(n) if adapters[i] == 1),
+        "(d) eager = captured": eager["tokens"] == tok and base_eager["tokens"] == want,
+    }
+    for name, ok in verdict.items():
+        if not ok:
+            checks.failed.append(f"{RUN_LORA}: check {name} failed")
+    changed = [sum(a != b for a, b in zip(tok[i], want[i])) for i in range(n)]
+    http = lora_http(torch, checks, cfg, params, bank, adapters, mixed)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    say(f"[{RUN_LORA}: base / bank] {smi} | decode eager {base_eager['pos_ms']:.3f} / "
+        f"{eager['pos_ms']:.3f} ms a position ({base_eager['tok_s']:.1f} / {eager['tok_s']:.1f} "
+        f"tok/s), captured {base['pos_ms']:.3f} / {mixed['pos_ms']:.3f} ms a position "
+        f"({base['tok_s']:.1f} / {mixed['tok_s']:.1f} tok/s), the card {base['dev_ms']:.3f} / "
+        f"{mixed['dev_ms']:.3f} ms a position (graph replays) | prefill one prompt a call "
+        f"{base['prefill_tok_s']:.1f} / {mixed['prefill_tok_s']:.1f} tok/s | bank {bank_mib:.1f} "
+        f"MiB fp32 + {bank_mib / 2:.1f} MiB bf16 | peak {peak:.2f} GiB | LoRA decode body "
+        f"{mixed['calls']} calls ({mixed['dispatches']} dispatches, captured) | tokens changed "
+        f"against the base per request (adapters {adapters}): {changed} | "
+        + ", ".join(f"{k}: {v}" for k, v in verdict.items()))
+    say(f"[{RUN_LORA} over HTTP] {smi} | 8 concurrent POST /generate {http['batch_s']:.3f}s "
+        f"wall (the direct captured run of the same requests {mixed['wall']:.3f}s, both from a "
+        f"fresh engine), tokens equal to the direct run's: {not http['generate']} | /stream "
+        f"{http['lines']} lines, equal: {http['stream']} | one /generate alone (request 0, "
+        f"{LORA_TOKENS} tokens) {1e3 * http['one_s']:.3f} ms wall, the engine's own "
+        f"{1e3 * http['engine_s']:.3f} ms | /health {http['health']} | /submit + /cancel frees "
+        f"the slot {http['cancel']} | the worker's LoRA decode body {http['calls']} calls, "
+        f"captured {http['captured']}; server and worker stopped {http['stopped']} | "
+        f"{time.perf_counter() - t0:.2f}s")
+    del params, bank
+    _free(torch)
+    return {label: run["counts"] for label, run in (
+        (RUN_LORA_BASE, base), (RUN_LORA, mixed), (RUN_LORA_ONES, ones))}
+
+
 RUN_8B_INT8 = "phase 4 serve Llama-3-8B int8, fp8 KV"
 RUN_8B_ONE = "phase 4 serve Llama-3-8B int8, fp8 KV, one prompt a prefill call"
 RUN_CHUNK = "phase 4c serve Llama-3-8B int8, fp8 KV, prefill_chunk_size 512"
@@ -6019,6 +6351,11 @@ RUN_SP_RING = (f"phase 20 ring attention, contiguous, causal, {SP_N} ranks on on
 RUN_SP_STRIPED = (f"phase 20 ring attention, striped, causal, {SP_N} ranks on one card, "
                   f"S={SP_S}, forward + backward")
 RUN_SP_RDMA = f"phase 20 rdma ring attention (K11), causal, {SP_N} ranks on one card, S={SP_S}"
+RUN_LORA = (f"phase 21 serve Llama-3-8B int8 fused, fp8 KV, a bank of {LORA_ADAPTERS} "
+            f"rank-{LORA_RANK} LoRA adapters, request i on adapter i % {LORA_ADAPTERS}")
+RUN_LORA_BASE = "phase 21 serve Llama-3-8B int8 fused, fp8 KV, no bank, one prompt a prefill call"
+RUN_LORA_ONES = (f"phase 21 serve Llama-3-8B int8 fused, fp8 KV, a bank of {LORA_ADAPTERS} "
+                 f"rank-{LORA_RANK} LoRA adapters, every request on adapter 1")
 RUN_SP_ULYSSES = (f"phase 20 Ulysses attention, causal, {SP_N} ranks on one card, S={SP_S}, "
                   "forward + backward")
 KERNEL_ROWS = ("K1", "K1m", "K1c", "K1b", "K2", "K3", "K3g", "K4", "K5", "K6", "K7", "K8", "K8c",
@@ -6085,6 +6422,7 @@ def main() -> int:
     prefill_card_vs_cpu(torch, checks)
     paged_card_vs_cpu(torch, checks)
     multi_card_vs_cpu(torch, checks)
+    lora_card_vs_cpu(torch, checks)
     train_card_vs_cpu(torch, checks)
     gemma_card_vs_cpu(torch, checks)
     gemma_train_card_vs_cpu(torch, checks)
@@ -6108,6 +6446,7 @@ def main() -> int:
     runs[RUN_GPT2_TRAIN] = phase_gpt2_train(torch, checks, smi)
     runs.update(phase_qwen(torch, checks, smi))
     runs.update(phase_mixtral(torch, checks, smi))
+    runs.update(phase_lora(torch, checks, smi))
     for key, row in rows.items():
         row["launches_run"] = ROW_RUN[key]
         row["launches"] = runs[ROW_RUN[key]][ROW_COUNT.get(key, key)] if ROW_RUN[key] else 0

@@ -18,6 +18,8 @@ float8_e4m3fn arrays that JAX produces.
   stores [B, Hk, S] in natural order, so the permutation is undone here.
 - ``paged_pool_from_jax``: a JAX ``PagedKVPool`` -> the port's pool, its
   fp8 scales put back in natural order the same way (chunk = page).
+- ``lora_from_jax``: a JAX LoRA tree or stacked bank
+  (flash_attn_tpu/models/lora.py) -> the port's, leaf for leaf.
 """
 
 from __future__ import annotations
@@ -138,3 +140,13 @@ def paged_pool_from_jax(jpool, device=None) -> PagedKVPool:
     table = torch.from_numpy(np.asarray(jpool.block_table, np.int32).copy()).to(device)
     length = torch.from_numpy(np.asarray(jpool.length, np.int32).copy()).to(device)
     return PagedKVPool(k, v, ks, vs, table, length, jpool.mode)
+
+
+def lora_from_jax(tree, device=None) -> dict:
+    """A JAX LoRA tree or stacked bank ({"blocks": [{name: (A, B)}],
+    "scaling"}) -> the same structure of torch tensors on ``device``
+    (default: the card)."""
+    device = resolve_device(device)
+    return {"blocks": [{name: tuple(to_torch(t, device) for t in ab) for name, ab in blk.items()}
+                       for blk in tree["blocks"]],
+            "scaling": float(tree["scaling"])}

@@ -18,12 +18,16 @@ verify round) for every slot per step, or ``decode_burst`` tokens per
 dispatch (idle slots are masked by kv_length and ignored by the
 scheduler).  A burst chains the next one off its last tokens on the card
 before the host reads it back, as JAX chains off its device-resident
-carry.  LoRA banks and meshes are still to port and raise
-``NotImplementedError``.
+carry.  With ``lora_bank`` (a stacked bank of models/lora.py)
+``InferenceEngine`` serves many adapters over one set of base weights:
+each request names its adapter at ``submit``, its prefill runs alone
+with that adapter, and the decode step gathers each slot's adapter.
+Meshes are still to port and raise ``NotImplementedError``.
 
-The bodies JAX jits (the decode step, the burst, the draft scan, the
-verify step) are ``GraphBody``s (engine/_graph.py): replayed from CUDA
-graphs on the card, plain calls on the CPU and under ``disable_graphs()``.
+The bodies JAX jits (the decode step, the LoRA decode step, the burst,
+the draft scan, the verify step) are ``GraphBody``s (engine/_graph.py):
+replayed from CUDA graphs on the card, plain calls on the CPU and under
+``disable_graphs()``.
 The KV caches and pool are updated in place, so every replay finds them
 where it was captured.  Prefill runs eagerly.
 """
@@ -48,6 +52,7 @@ from flash_attn_tpu_torch.engine.scheduler import (
     Request,
     bucket_length,
 )
+from flash_attn_tpu_torch.models.lora import cast_lora, lora_tensors
 from flash_attn_tpu_torch.ops.quant import quantize_kv
 from flash_attn_tpu_torch.runtime.abi import PagePool
 from flash_attn_tpu_torch.utils.metrics import EngineMetrics
@@ -116,6 +121,11 @@ class ModelAdapter:
     # prefix-cache suffix prefill: (params, tokens [1, C], pool, slot,
     # start) -> (logits [1, C, V], pool)
     prefill_suffix_paged: Callable | None = None
+    # multi-adapter LoRA over a stacked bank (models/lora.py): (params,
+    # tokens, positions, bank, adapter id) -> (logits, kvs) and (params,
+    # token [B], cache, bank, ids [B]) -> (logits, cache)
+    prefill_with_kv_lora: Callable | None = None
+    decode_step_lora: Callable | None = None
 
 
 class InferenceEngine:
@@ -135,16 +145,24 @@ class InferenceEngine:
         prefill_chunk_size: feed prompts longer than this through the
         model's ``prefill_chunk`` in pieces of this size, a decode step for
         the other slots between pieces (JAX's fix for head-of-line
-        blocking); None unless the adapter has ``prefill_chunk``."""
+        blocking); None unless the adapter has ``prefill_chunk``.
+        lora_bank: a stacked LoRA bank (models/lora.stack_adapters) on
+        ``device``, which needs the adapter's LoRA paths; it takes no
+        speculation, chunked prefill or bursts, and its prompts are
+        prefilled one a call (JAX's engine refuses and skips alike).  The
+        bank is cast to the activations' dtype once, and again when one of
+        its tensors is changed in place, which also re-captures the LoRA
+        decode step."""
+        if lora_bank is not None:
+            _check_lora(adapter, spec, prefill_chunk_size)
         if spec is not None:
             _check_spec(spec, adapter, mesh, prefill_chunk_size)
-        unported = {"mesh": mesh is not None, "lora_bank": lora_bank is not None}
-        for name, used in unported.items():
-            if used:
-                raise NotImplementedError(f"{name} is not ported yet")
+        if mesh is not None:
+            raise NotImplementedError("mesh is not ported yet")
         self.decode_burst = max(1, int(decode_burst))
-        if self.decode_burst > 1 and spec is not None:
-            raise ValueError("decode_burst does not compose with speculative decoding")
+        if self.decode_burst > 1 and (spec is not None or lora_bank is not None):
+            raise ValueError("decode_burst does not compose with speculative decoding "
+                             "or LoRA banks")
         self.device = resolve_device(device)
         self.params = params
         self.adapter = adapter
@@ -180,16 +198,30 @@ class InferenceEngine:
             prefill_chunk_size if adapter.prefill_chunk is not None else None)
         self._prefilling: set[int] = set()
         self.packed_prefills = 0  # calls of the packed prefill
+        self.lora_bank = lora_bank
+        # each slot's adapter, set at its prefill
+        self.adapter_ids = np.zeros((max_batch,), np.int64)
+        self.num_adapters = 0
+        if lora_bank is not None:
+            leaves = lora_tensors(lora_bank)
+            if any(t.device.type != self.device.type for t in leaves):
+                raise ValueError(f"the LoRA bank must be on the engine's device {self.device}")
+            self.num_adapters = leaves[0].shape[0]
+            # the activations' dtype (the LoRA paths are the Llama family's)
+            self._lora_dtype = params["tok_emb"].dtype
+            self._bank_key, self._bank = None, None
         draft_params = self.spec.draft_params if self.draft_cache is not None else None
 
         def body(fn, stochastic=True):
             return GraphBody(
                 fn, self.device,
                 buffers=lambda: _cache_buffers(self.cache) + _cache_buffers(self.draft_cache),
-                watch=lambda: tensor_versions(self.params, draft_params),
+                watch=lambda: (tensor_versions(self.params, draft_params),
+                               _versions(lora_tensors(self.lora_bank))),
                 generator=self.generator if stochastic and self.sampling.temperature > 0 else None)
 
         self._decode_jit = body(self._decode_batch)
+        self._decode_lora_jit = body(self._decode_batch_lora)
         self._burst_jit = body(self._decode_burst_body)
         self._draft_scan_jit = body(self._draft_scan, stochastic=False)
         self._verify_jit = body(self._verify, stochastic=False)
@@ -206,6 +238,22 @@ class InferenceEngine:
             _, self.draft_cache = self.spec.draft_adapter.decode_step(
                 self.spec.draft_params, tokens, self.draft_cache)
         return sample(logits, self.generator, self.sampling)
+
+    def _decode_batch_lora(self, tokens, ids):
+        """The decode step with each slot's adapter: tokens, ids [B] ->
+        sampled [B]."""
+        logits, self.cache = self.adapter.decode_step_lora(
+            self.params, tokens, self.cache, self._working_bank(), ids)
+        return sample(logits, self.generator, self.sampling)
+
+    def _working_bank(self):
+        """The bank in the activations' dtype, cast anew once one of its
+        tensors changed (JAX casts at each call: the same values)."""
+        key = _versions(lora_tensors(self.lora_bank))
+        if key != self._bank_key:
+            self._bank_key = key
+            self._bank = cast_lora(self.lora_bank, self._lora_dtype)
+        return self._bank
 
     def _decode_burst_body(self, tokens):
         """decode_burst steps, each feeding its sampled tokens to the next
@@ -238,8 +286,12 @@ class InferenceEngine:
 
     # --- host loop ---
 
-    def submit(self, prompt, max_tokens=64) -> Request:
-        return self.sched.submit(prompt, max_tokens, self.adapter.eos_token)
+    def submit(self, prompt, max_tokens=64, adapter: int = 0) -> Request:
+        """adapter: the request's index into the engine's ``lora_bank``
+        (ignored without one)."""
+        if self.lora_bank is not None and not 0 <= adapter < self.num_adapters:
+            raise ValueError(f"adapter {adapter} is not in the bank of {self.num_adapters}")
+        return self.sched.submit(prompt, max_tokens, self.adapter.eos_token, adapter=adapter)
 
     def cancel(self, req: Request) -> bool:
         return self.sched.cancel(req)
@@ -256,7 +308,7 @@ class InferenceEngine:
                 self._inflight = None
             admitted = self.sched.admit()
             if (len(admitted) >= 2 and self.adapter.prefill_packed is not None
-                    and self.prefill_chunk_size is None
+                    and self.lora_bank is None and self.prefill_chunk_size is None
                     and sum(len(r.prompt) for r in admitted) <= self.capacity):
                 # several prompts through one varlen prefill
                 self._do_prefill_packed(admitted)
@@ -266,13 +318,17 @@ class InferenceEngine:
             if self.sched.active:
                 self._do_decode_step()
 
-    def _prefill_one(self, tokens, slot: int, true_len: int):
-        """Run the model on one padded prompt, write its KV into ``slot``
-        and return the logits at its last real token.  With a draft model
-        its cache gets the prompt's KV and length too."""
+    def _prefill_one(self, tokens, slot: int, true_len: int, adapter: int = 0):
+        """Run the model on one padded prompt (with a LoRA bank, under
+        ``adapter``), write its KV into ``slot`` and return the logits at
+        its last real token.  With a draft model its cache gets the
+        prompt's KV and length too."""
         positions = torch.arange(tokens.shape[1], device=self.device)[None]
-        logits_all, kvs = self.adapter.prefill_with_kv(
-            self.params, tokens, positions)
+        if self.lora_bank is None:
+            logits_all, kvs = self.adapter.prefill_with_kv(self.params, tokens, positions)
+        else:
+            logits_all, kvs = self.adapter.prefill_with_kv_lora(
+                self.params, tokens, positions, self._working_bank(), adapter)
         for layer, (k, v) in enumerate(kvs):
             _insert_slot_kv(self.cache, layer, slot, k[0], v[0])
         self.cache.set_length(slot, true_len)
@@ -303,8 +359,9 @@ class InferenceEngine:
             logits = self._chunked_prefill(req)
         else:
             bucket = min(bucket_length(len(req.prompt)), self.capacity)
+            self.adapter_ids[req.slot] = req.adapter
             logits = self._prefill_one(self._padded(req.prompt, bucket), req.slot,
-                                       len(req.prompt))
+                                       len(req.prompt), req.adapter)
         tok = int(sample(logits[None], self.generator, self.sampling)[0])
         self._host_lens[req.slot] = len(req.prompt)
         self.metrics.record_prefill(len(req.prompt), time.perf_counter() - t0)
@@ -448,7 +505,12 @@ class InferenceEngine:
                 self._speculate(toks)
             self._process_burst(toks, snap, t0)
             return
-        toks = self._decode_jit(_host_tokens(self.next_token)).cpu().numpy()
+        if self.lora_bank is not None:
+            toks = self._decode_lora_jit(_host_tokens(self.next_token),
+                                         _host_tokens(self.adapter_ids))
+        else:
+            toks = self._decode_jit(_host_tokens(self.next_token))
+        toks = toks.cpu().numpy()
         self._host_lens += 1  # decode appends for every batch slot
         self.metrics.record_decode(len(slots), time.perf_counter() - t0)
         self._update_kv_metric()
@@ -930,6 +992,20 @@ def _pool_buffers(pool) -> list:
     """The tensors a decode body updates in place in a PagedKVPool."""
     return [*pool.k_pages, *pool.v_pages, *(pool.k_scale or ()), *(pool.v_scale or ()),
             pool.block_table, pool.length]
+
+
+def _versions(tensors) -> tuple:
+    return tuple(t._version for t in tensors)
+
+
+def _check_lora(adapter: ModelAdapter, spec, prefill_chunk_size):
+    """The JAX engine's constructor checks for a LoRA bank
+    (flash_attn_tpu/engine/engine.py:151-159)."""
+    if adapter.prefill_with_kv_lora is None or adapter.decode_step_lora is None:
+        raise ValueError("lora_bank needs the adapter's lora paths")
+    if spec is not None or prefill_chunk_size is not None:
+        raise ValueError("lora_bank does not compose with speculative decoding "
+                         "or chunked prefill yet")
 
 
 def _check_spec(spec: SpecConfig, adapter: ModelAdapter, mesh, prefill_chunk_size):

@@ -30,6 +30,13 @@ neither.
 The serving paths also take ``mlp``, the layer's MLP (default the SwiGLU
 ``_block_mlp``): ``models/mixtral.py`` runs them with its routed experts.
 
+``prefill_with_kv`` and ``decode_step`` take a LoRA tree or stacked bank
+(``models/lora.py``: ``lora`` with ``lora_id``, or ``lora_ids`` [B] a
+slot), as JAX's do: each adapted projection adds its delta after the base
+matmul (and after a ``BiasedWeight``'s bias), on the split outputs of
+``wqkv`` and ``w_gate_up``.  LoRA takes the dense MLP only (JAX's Mixtral
+has none).
+
 The LM head takes fp32 activations as in the JAX model.  A float head
 runs as an fp32 matmul: the first call that needs it stores an fp32 copy
 in the params dict under ``"_lm_head_f32"`` (about 2.1 GB at the 8B
@@ -51,6 +58,7 @@ from torch.utils.checkpoint import checkpoint
 from flash_attn_tpu_torch._device import resolve_device
 from flash_attn_tpu_torch.engine.kv_cache import KVCache
 from flash_attn_tpu_torch.engine.paged import PagedKVPool, paged_decode_attention
+from flash_attn_tpu_torch.models.lora import lora_delta
 from flash_attn_tpu_torch.ops.attention import flash_attention
 from flash_attn_tpu_torch.ops.decode import flash_decode, flash_decode_chunk
 from flash_attn_tpu_torch.ops.matmul import (
@@ -245,7 +253,17 @@ def _proj(x, w):
     return out.reshape(*lead, out.shape[-1])
 
 
-def _block_mlp(x, blk, cfg):
+def _lora_add(y, x, lblk, name, ids, scaling):
+    """``y`` (the projection of ``x`` by ``name``) plus its LoRA delta
+    when ``lblk`` adapts ``name`` (flash_attn_tpu/models/llama.py:
+    _proj_l): after the bias of a ``BiasedWeight``, on the split output
+    of a fused weight."""
+    if lblk is None or name not in lblk:
+        return y
+    return y + lora_delta(x, lblk[name], ids, scaling).to(y.dtype)
+
+
+def _block_mlp(x, blk, cfg, lblk=None, lora_ids=None, lora_scaling=1.0):
     h = _rms_norm(x, blk["mlp_norm"], cfg.rms_eps)
     if "w_gate_up" in blk:
         y = _proj(h, blk["w_gate_up"])
@@ -253,8 +271,11 @@ def _block_mlp(x, blk, cfg):
     else:
         gate = _proj(h, blk["w_gate"])
         up = _proj(h, blk["w_up"])
-    act = torch.nn.functional.silu(gate.float()) * up.float()
-    return x + _proj(act.to(x.dtype), blk["w_down"])
+    gate = _lora_add(gate, h, lblk, "w_gate", lora_ids, lora_scaling)
+    up = _lora_add(up, h, lblk, "w_up", lora_ids, lora_scaling)
+    act = (torch.nn.functional.silu(gate.float()) * up.float()).to(x.dtype)
+    return x + _lora_add(_proj(act, blk["w_down"]), act, lblk, "w_down", lora_ids,
+                         lora_scaling)
 
 
 def _logits(params, x, cfg):
@@ -282,7 +303,9 @@ def f32_head(params, src, tied: bool):
     return cached[2]
 
 
-def _qkv(h, blk, cfg, b, s):
+def _qkv(h, blk, cfg, b, s, lblk=None, ids=None, lsc=1.0):
+    """q, k, v [b, s, heads, D] from one fused ``wqkv`` matmul or three;
+    LoRA deltas (``lblk``, per name) go on the split outputs."""
     q_dim = cfg.num_heads * cfg.head_dim
     kv_dim = cfg.num_kv_heads * cfg.head_dim
     if "wqkv" in blk:
@@ -290,6 +313,9 @@ def _qkv(h, blk, cfg, b, s):
         q, k, v = y[..., :q_dim], y[..., q_dim:q_dim + kv_dim], y[..., q_dim + kv_dim:]
     else:
         q, k, v = _proj(h, blk["wq"]), _proj(h, blk["wk"]), _proj(h, blk["wv"])
+    q = _lora_add(q, h, lblk, "wq", ids, lsc)
+    k = _lora_add(k, h, lblk, "wk", ids, lsc)
+    v = _lora_add(v, h, lblk, "wv", ids, lsc)
     return (q.reshape(b, s, cfg.num_heads, cfg.head_dim),
             k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim),
             v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim))
@@ -353,25 +379,44 @@ def forward(params, tokens, cfg: LlamaConfig, *, positions=None,
     return _proj(x.float(), head)
 
 
-def prefill_with_kv(params, tokens, positions, cfg: LlamaConfig, *, mlp=_block_mlp):
+def _check_lora(lora, mlp):
+    """LoRA adapts the dense SwiGLU layer only (JAX's Mixtral takes none)."""
+    if lora is not None and mlp is not _block_mlp:
+        raise ValueError("LoRA needs the dense MLP (_block_mlp); a custom mlp takes none")
+
+
+def _lora_layer(lora, i):
+    """(block i's LoRA entries or None, scaling)."""
+    if lora is None:
+        return None, 1.0
+    return lora["blocks"][i], lora["scaling"]
+
+
+def prefill_with_kv(params, tokens, positions, cfg: LlamaConfig, *, mlp=_block_mlp,
+                    lora=None, lora_id=None):
     """tokens, positions [B, S] -> (logits [B, S, V] fp32, per-layer list
     of rotated (k, v) [B, S, Hk, D]).  Attention is K4, causal and clamped,
-    with q rotated inside the kernel, the window and the softcap."""
+    with q rotated inside the kernel, the window and the softcap.
+
+    lora: optional LoRA tree or stacked bank (models/lora.py); with a
+    bank, ``lora_id`` (an int) selects the adapter of this prefill."""
+    _check_lora(lora, mlp)
     b, s = tokens.shape
     x = params["tok_emb"][tokens]
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     kvs = []
-    for blk in params["blocks"]:
+    for i, blk in enumerate(params["blocks"]):
+        lblk, lsc = _lora_layer(lora, i)
         h = _rms_norm(x, blk["attn_norm"], cfg.rms_eps)
-        q, k, v = _qkv(h, blk, cfg, b, s)
+        q, k, v = _qkv(h, blk, cfg, b, s, lblk, lora_id, lsc)
         k = rope_rotate(k, cos, sin)
         kvs.append((k, v))
         attn = flash_attention(q.contiguous(), k, v.contiguous(), causal=True,
                                window=_wnd(cfg), logit_softcap=cfg.attn_logit_softcap,
                                rope_cos=cos, rope_sin=sin, softmax_mode="clamped")
-        x = x + _proj(attn.reshape(b, s, cfg.num_heads * cfg.head_dim),
-                      blk["wo"])
-        x = mlp(x, blk, cfg)
+        a = attn.reshape(b, s, cfg.num_heads * cfg.head_dim)
+        x = x + _lora_add(_proj(a, blk["wo"]), a, lblk, "wo", lora_id, lsc)
+        x = mlp(x, blk, cfg) if lblk is None else _block_mlp(x, blk, cfg, lblk, lora_id, lsc)
     x = _rms_norm(x, params["final_norm"], cfg.rms_eps)
     return _logits(params, x, cfg), kvs
 
@@ -435,18 +480,25 @@ def prefill_packed(params, tokens, positions, segment_ids, cfg: LlamaConfig, *,
     return _logits(params, x, cfg), kvs
 
 
-def decode_step(params, token, cfg: LlamaConfig, cache: KVCache, *, mlp=_block_mlp):
+def decode_step(params, token, cfg: LlamaConfig, cache: KVCache, *, mlp=_block_mlp,
+                lora=None, lora_ids=None):
     """One cached decode step for every slot: token [B] -> (logits [B, V]
     fp32, cache).  The cache is updated in place (K2 appends each layer's
     K/V at ``length``, then ``length`` advances by one); K1 attends with
-    the window and the softcap."""
+    the window and the softcap.
+
+    lora: optional LoRA tree or stacked bank (models/lora.py); with a
+    bank, ``lora_ids`` [B] selects each slot's adapter (multi-adapter
+    serving)."""
+    _check_lora(lora, mlp)
     b = token.shape[0]
     x = params["tok_emb"][token][:, None, :]  # [B, 1, hidden]
     cos, sin = rope_cos_sin(cache.length[:, None], cfg.head_dim, cfg.rope_theta)
     kv_length = cache.length + 1
     for i, blk in enumerate(params["blocks"]):
+        lblk, lsc = _lora_layer(lora, i)
         h = _rms_norm(x, blk["attn_norm"], cfg.rms_eps)
-        q, k, v = _qkv(h, blk, cfg, b, 1)
+        q, k, v = _qkv(h, blk, cfg, b, 1, lblk, lora_ids, lsc)
         q = rope_rotate(q, cos, sin)
         k = rope_rotate(k, cos, sin)
         cache.append(i, k, v)
@@ -455,9 +507,9 @@ def decode_step(params, token, cfg: LlamaConfig, cache: KVCache, *, mlp=_block_m
                             kv_length=kv_length, kv_layout="bhsd",
                             window=cfg.sliding_window,
                             logit_softcap=cfg.attn_logit_softcap)
-        x = x + _proj(attn.reshape(b, 1, cfg.num_heads * cfg.head_dim),
-                      blk["wo"])
-        x = mlp(x, blk, cfg)
+        a = attn.reshape(b, 1, cfg.num_heads * cfg.head_dim)
+        x = x + _lora_add(_proj(a, blk["wo"]), a, lblk, "wo", lora_ids, lsc)
+        x = mlp(x, blk, cfg) if lblk is None else _block_mlp(x, blk, cfg, lblk, lora_ids, lsc)
     cache.advance(1)
     x = _rms_norm(x[:, 0], params["final_norm"], cfg.rms_eps)
     return _logits(params, x, cfg), cache
@@ -568,8 +620,9 @@ def make_cache(cfg: LlamaConfig, batch, capacity, mode="none", dtype=None,
 
 def make_adapter(cfg: LlamaConfig, *, eos_token=None):
     """Engine adapter: one-prompt, chunked and packed prefill, the batched
-    decode step, the speculative verify step, and the paged counterparts
-    (decode step, prefix-cache suffix prefill)."""
+    decode step, the speculative verify step, the paged counterparts
+    (decode step, prefix-cache suffix prefill), and the LoRA prefill and
+    decode step over a stacked bank (``InferenceEngine(lora_bank=...)``)."""
     from flash_attn_tpu_torch.engine.engine import ModelAdapter
 
     return ModelAdapter(
@@ -582,6 +635,10 @@ def make_adapter(cfg: LlamaConfig, *, eos_token=None):
         decode_step_paged=lambda p, tok, pool: decode_step_paged(p, tok, cfg, pool),
         prefill_suffix_paged=lambda p, t, pool, slot, start: prefill_suffix_paged(
             p, t, cfg, pool, slot, start),
+        prefill_with_kv_lora=lambda p, t, pos, bank, aid: prefill_with_kv(
+            p, t, pos, cfg, lora=bank, lora_id=aid),
+        decode_step_lora=lambda p, tok, cache, bank, ids: decode_step(
+            p, tok, cfg, cache, lora=bank, lora_ids=ids),
         num_layers=cfg.num_layers,
         num_kv_heads=cfg.num_kv_heads,
         head_dim=cfg.head_dim,

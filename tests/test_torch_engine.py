@@ -8,6 +8,7 @@ call.
 """
 
 import ast
+import dataclasses
 from pathlib import Path
 
 import jax
@@ -154,11 +155,15 @@ def test_kv_cache_append_matches_jax(kv_mode):
 
 
 def test_engine_rejects_unported_options(both_params):
+    """A mesh is still to port; a LoRA bank is ported and, as in JAX,
+    refused for an adapter without the LoRA paths."""
     _, tp = both_params
     adapter = llama.make_adapter(CFG)
-    for kw in ({"mesh": object()}, {"lora_bank": object()}):
-        with pytest.raises(NotImplementedError):
-            InferenceEngine(tp, adapter, max_batch=1, capacity=32, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        InferenceEngine(tp, adapter, max_batch=1, capacity=32, device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="lora_bank needs the adapter's lora paths"):
+        InferenceEngine(tp, dataclasses.replace(adapter, decode_step_lora=None), max_batch=1,
+                        capacity=32, device="cpu", lora_bank=object())
 
 
 def test_scheduler_slot_lifecycle_and_buckets():
