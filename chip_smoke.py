@@ -93,6 +93,22 @@ Phases, one line each with its seconds:
      fp32 CUDA-core and bf16 tensor-core figures), and at a ragged S_loc
      320 (block_q 64) at B=2, a group of one at head_dim 64, 8 ranks, 1
      rank and large logits (q x 8, logits to ~40: one TF32 pass misses);
+     then the rest of the FA2 surface (check_fa2_surface; rows "K4
+     surface", "K9 surface", "K10 surface"): ALiBi in K4, K9 and K10 at
+     Llama-3-8B's attention widths (H=32, Hk=8, D=128: MPT-7B's and
+     BLOOM-7B1's heads and head_dim; B=1, S=2048, causal, rope,
+     alibi_slopes(32)), at a shifted Sq=1000 Sk=1500, with packed documents
+     and dropout 0.1, and at GPT-2's widths (B=8, S=1024, H=Hk=12, D=64,
+     alibi_slopes(12), the interleaved schedule), timed beside SDPA with
+     ALiBi as a float mask (forward and backward); dbias (K9 writing dS) at
+     B=2, S=2048 with a [1, 32, S, S] bias summed over the batch, a [2, 1,
+     S, S] one summed over the heads and dropout 0.1, beside SDPA's
+     backward with the float mask requiring grad; return_softmax at the 8B
+     prefill shape in both modes with and without dropout (rows summing to
+     1, P @ V recomposing out, the entries above the diagonal 0); auto in
+     range bitwise the clamped call with one launch, with q x32 bitwise the
+     online call with two, with a bias through the clamped_verify flags,
+     which equal the plain version's;
   3. a 2-layer model at full 8B widths with fp8 KV: two prompts and four
      decode steps on the card (kernels) against the CPU (plain versions),
      with int8 weights, int4 + W8A8 head fused, W4A8 + W8A8 head fused,
@@ -251,7 +267,18 @@ Phases, one line each with its seconds:
      0 must equal the base, adapters 1-3 change tokens, requests 1 and 5
      equal across the mixed and all-adapter-1 runs, eager equal captured,
      HTTP equal direct, and the launches exact (K4 32 a prompt, K1 = K2 =
-     K1m 32 a step, K3 128 a prefill call or step).
+     K1m 32 a step, K3 128 a prefill call or step);
+  22. (run right after phase 20) the FA2 surface through the public entry
+     points: flash_attention with ALiBi forward and backward under
+     autograd (8B attention widths, B=1, S=2048, causal, rope), with a
+     [1, 32, 2048, 2048] mask that requires grad (B=2), return_softmax,
+     softmax_mode "auto" in range and with q x32, with and without a mask;
+     flash_attention_varlen at GPT-2's widths (8 sequences in 4096) with
+     return_softmax and a mask that requires grad; the ring (4 ranks of
+     S_loc 1024 on one card, contiguous and striped) with a [1, 32, 4096,
+     4096] bias that requires grad against the single call; each against
+     the plain versions on the card, launches exact (ALiBi, probs, verify
+     and dS counted apart) and a kernels line with their sums.
 
 Before the last line come the kernels' JSON record (each row's launches
 are those of the run named in its "launches_run"; the quantized matmuls'
@@ -268,7 +295,10 @@ G7", "K1c G7", "K8 G7" (a K8c point under "k8c") and "K2 G7", K3's
 Qwen-2-7B widths under "qwen2", "K3 Mixtral", whose launches are
 phase 17's, and "K11", its non-causal point under "non_causal", its
 bound at the fp32 CUDA-core and bf16 peaks under "bound_f32_ms" and
-"bound_bf16_ms", its launches phase 20's)
+"bound_bf16_ms", its launches phase 20's; "K4 surface", "K9 surface" and
+"K10 surface" their GPT-2 point under "gpt2", K4's return_softmax and
+clamped_verify points under "probs" and "verify", K9's and K10's dbias
+point under "dbias", their launches phase 22's)
 and the card; the last line is {"ok": true, "device": {...}}.  Any failed check
 exits nonzero without that line; so does a machine without CUDA or a
 directory without the rest of the repository.
@@ -1294,7 +1324,8 @@ def k4_tile_counts(torch, checks, label, q, k, v, cos, sin, causal, masks):
     _build.check(_build.lib().fatt_flash_fwd(
         p(q), p(k), p(v), p(cos), p(sin), p(out), p(lse), p(qmeta), p(kmeta), p(qr), p(kr),
         p(counts), B, Sq, Sk, H, Hk, D, 0, float(D ** -0.5 * ff.LOG2E), int(causal), 1,
-        -1, -1, 0.0, *ff.extra_args(None, None), _build.stream()), "fatt_flash_fwd")
+        -1, -1, 0.0, *ff.extra_args(None, None), *ff.surface_args(), _build.stream()),
+        "fatt_flash_fwd")
     live, full = tile_test(qr, kr, causal, Sq, Sk)
     got, want = counts.tolist(), [int(live.sum()), int(full.sum())]
     if got != want:
@@ -1367,7 +1398,8 @@ def check_k4_masked(torch, checks, rows):
                 _build.check(lib.fatt_flash_fwd(
                     p(q), p(k), p(v), p(cos), p(sin), p(o2), p(l2), p(qmeta), p(kmeta), p(qr),
                     p(kr), None, 1, Sq, Sk, H, Hk, D, 0, float(D ** -0.5 * ff.LOG2E), 0, 1,
-                    -1, -1, 0.0, *ff.extra_args(None, None), _build.stream()), "fatt_flash_fwd")
+                    -1, -1, 0.0, *ff.extra_args(None, None), *ff.surface_args(),
+                    _build.stream()), "fatt_flash_fwd")
 
             kernel()
             torch.cuda.synchronize()
@@ -1496,6 +1528,19 @@ def one_key_floor(torch, ref, Sk, causal):
     return torch.where(live < 2, noise, 1e-6)[None, :, None].expand(B, Sq, H)
 
 
+def ds_floor(torch, ref, causal):
+    """Per-row floor for dS-shaped [b, h, Sq, Sk] (dS, or dbias summed
+    from it): 2^-12 of its largest |value| on the rows of queries that see
+    fewer than two keys under the bottom-right causal mask (there dP =
+    delta up to fp32 summation order, so both sides give rounding noise, as
+    one_key_floor's dq rows), 1e-6 on every other row."""
+    b, h, Sq, Sk = ref.shape
+    i = torch.arange(Sq, device=ref.device)
+    live = torch.clamp(i + Sk - Sq + 1, 0, Sk) if causal else torch.full_like(i, Sk)
+    noise = 2.0 ** -12 * float(ref.abs().max())
+    return torch.where(live < 2, noise, 1e-6)[None, None, :].expand(b, h, Sq)
+
+
 def sdpa_bwd_device_ms(torch, fn, calls=10):
     """Device time of one call of ``fn`` (a backward of SDPA) and the
     backend that ran it: the sum of the CUDA kernels' times that
@@ -1521,31 +1566,42 @@ def sdpa_bwd_device_ms(torch, fn, calls=10):
     return (us / calls / 1e3 if us > 0 else None), backend, names
 
 
-def _bwd_case(torch, checks, worst, label, args, tail, causal, dq_floor=None):
+def _bwd_case(torch, checks, worst, label, args, tail, causal, dq_floor=None, kw=None):
     """K9 and K10 each launched twice, on ``args`` and on K9's R(q) with
-    ``tail``, against flash_bwd_plain (through bwd_plain): every output row
+    ``tail`` (and the keywords ``kw``: ALiBi slopes for both, ``want_ds``
+    for K9), against flash_bwd_plain (through bwd_plain): every output row
     within its tolerance (``row_err``; dq rows of queries that see one key
-    with ``one_key_floor``, or ``dq_floor(reference dq)`` where given), R(q) bitwise
-    rope_rotate's, the second launch bitwise the first.  Adds each
-    kernel's max |err| into ``worst``; returns (dq, rq, dk, dv, {kernel:
-    its result text})."""
+    with ``one_key_floor``, or ``dq_floor(reference dq)`` where given; with
+    ``want_ds`` also dS's rows, with ``ds_floor``), R(q) bitwise
+    rope_rotate's, the second
+    launch bitwise the first.  Adds each kernel's max |err| into
+    ``worst``; returns (dq, rq, dk, dv, {kernel: its result text})."""
     from flash_attn_tpu_torch.ops import flash_bwd as fb
     from flash_attn_tpu_torch.ops.rope import rope_rotate
 
+    kw = kw or {}
+    kw10 = {n: x for n, x in kw.items() if n == "alibi"}
     q, k, cos, sin = args[0], args[1], args[8], args[9]
-    (dq, rq), (dq2, rq2) = fb.flash_bwd_dq_cuda(*args), fb.flash_bwd_dq_cuda(*args)
-    (dk, dv), (dk2, dv2) = fb.flash_bwd_dkv_cuda(rq, *tail), fb.flash_bwd_dkv_cuda(rq, *tail)
-    rdq, rdk, rdv = bwd_plain(args)
+    r9, r9b = fb.flash_bwd_dq_cuda(*args, **kw), fb.flash_bwd_dq_cuda(*args, **kw)
+    (dq, rq), (dq2, rq2) = r9[:2], r9b[:2]
+    (dk, dv), (dk2, dv2) = (fb.flash_bwd_dkv_cuda(rq, *tail, **kw10),
+                            fb.flash_bwd_dkv_cuda(rq, *tail, **kw10))
+    ref = bwd_plain(args, **kw)
+    rdq, rdk, rdv = ref[:3]
     rq_ok = torch.equal(rq, q if cos is None else rope_rotate(q, cos, sin))
     torch.cuda.synchronize()
-    same = {"K9": torch.equal(dq, dq2) and torch.equal(rq, rq2),
+    same = {"K9": torch.equal(dq, dq2) and torch.equal(rq, rq2)
+            and all(torch.equal(a, b) for a, b in zip(r9[2:], r9b[2:])),
             "K10": torch.equal(dk, dk2) and torch.equal(dv, dv2)}
     if not rq_ok:
         checks.failed.append(f"K9 {label}: R(q) differs from rope_rotate")
     res = {}
     floors = {"dq": one_key_floor(torch, rdq, k.shape[1], causal) if dq_floor is None
               else dq_floor(rdq)}
-    for key, outs in (("K9", ((dq, rdq, "dq"),)), ("K10", ((dk, rdk, "dk"), (dv, rdv, "dv")))):
+    if kw.get("want_ds"):
+        floors["dS"] = ds_floor(torch, ref[3], causal)
+    k9_outs = ((dq, rdq, "dq"),) + (((r9[2], ref[3], "dS"),) if kw.get("want_ds") else ())
+    for key, outs in (("K9", k9_outs), ("K10", ((dk, rdk, "dk"), (dv, rdv, "dv")))):
         parts = []
         for got, ref, name in outs:
             err, share = row_err(got, ref, floor=floors.get(name, 1e-6))
@@ -2032,13 +2088,22 @@ def _group_tail(tail, hs, bias_at):
     return tail
 
 
-def fwd_plain(args):
-    """flash_fwd_plain on ``args`` (flash_fwd_cuda's), over groups of
-    whole GQA groups of query heads (_head_groups): each head's values are
-    the one call's, in a fraction of the memory (a bias sliced by heads,
-    dropout keyed on each head's own index)."""
+def _cat_groups(outs, first_dim):
+    """The per-head-group results of a plain version joined: the first on
+    ``first_dim``, the rest on the heads (dim 1); None stays None."""
     import torch
 
+    return tuple(None if outs[0][i] is None else
+                 torch.cat([o[i] for o in outs], dim=first_dim if i == 0 else 1)
+                 for i in range(len(outs[0])))
+
+
+def fwd_plain(args, **kw):
+    """flash_fwd_plain on ``args`` (flash_fwd_cuda's) and its keywords
+    (ALiBi slopes, probs, verify), over groups of whole GQA groups of
+    query heads (_head_groups): each head's values are the one call's, in a
+    fraction of the memory (a bias and the slopes sliced by heads, dropout
+    keyed on each head's own index)."""
     from flash_attn_tpu_torch.ops import flash_fwd as ff
 
     q, k, v = args[:3]
@@ -2046,20 +2111,24 @@ def fwd_plain(args):
     Sk, Hk = k.shape[1], k.shape[2]
     parts = _head_groups(B, Sq, Sk, H, Hk)
     if len(parts) == 1:
-        return ff.flash_fwd_plain(*args)
+        return ff.flash_fwd_plain(*args, **kw)
     G = H // Hk
     outs = [ff.flash_fwd_plain(q[:, :, hs], k[:, :, hs.start // G:hs.stop // G],
                                v[:, :, hs.start // G:hs.stop // G], *_group_tail(args[3:], hs, 8),
-                               head0=hs.start)
+                               head0=hs.start, **_group_kw(kw, hs))
             for hs in parts]
-    return torch.cat([o for o, _ in outs], dim=2), torch.cat([x for _, x in outs], dim=1)
+    return _cat_groups(outs, 2)
 
 
-def bwd_plain(args):
-    """flash_bwd_plain on ``args`` (flash_bwd_dq_cuda's), as fwd_plain
-    splits flash_fwd_plain."""
-    import torch
+def _group_kw(kw, hs):
+    """A plain version's keywords for the query heads ``hs``: the ALiBi
+    slopes sliced."""
+    return {n: x[hs] if n == "alibi" and x is not None else x for n, x in kw.items()}
 
+
+def bwd_plain(args, **kw):
+    """flash_bwd_plain on ``args`` (flash_bwd_dq_cuda's) and its keywords
+    (ALiBi slopes, want_ds), as fwd_plain splits flash_fwd_plain."""
     from flash_attn_tpu_torch.ops import flash_bwd as fb
 
     q, k, v, dout, lse, delta = args[:6]
@@ -2067,16 +2136,15 @@ def bwd_plain(args):
     Sk, Hk = k.shape[1], k.shape[2]
     parts = _head_groups(B, Sq, Sk, H, Hk)
     if len(parts) == 1:
-        return fb.flash_bwd_plain(*args)
+        return fb.flash_bwd_plain(*args, **kw)
     G = H // Hk
     outs = []
     for hs in parts:
         ks = slice(hs.start // G, hs.stop // G)
         outs.append(fb.flash_bwd_plain(q[:, :, hs], k[:, :, ks], v[:, :, ks], dout[:, :, hs],
                                        lse[:, hs], delta[:, hs], *_group_tail(args[6:], hs, 7),
-                                       head0=hs.start))
-    return (torch.cat([x[0] for x in outs], dim=2), torch.cat([x[1] for x in outs], dim=1),
-            torch.cat([x[2] for x in outs], dim=1))
+                                       head0=hs.start, **_group_kw(kw, hs)))
+    return _cat_groups(outs, 2)
 
 
 def _k4_case(torch, checks, label, q, k, v, cos, sin, clamped, window, timed=False,
@@ -3371,6 +3439,671 @@ def check_fa2_options(torch, checks, rows):
     say(f"  FA2 options: {time.perf_counter() - t0:.2f}s")
 
 
+# ---------------------------------------------------------------- the FA2 surface (ALiBi, dbias, probs, verify)
+
+# (key, B, Sq, Sk, H, Hk, D, causal, rope, masks, dropout): ALiBi's points.
+# Llama-3-8B's attention widths (H=32, D=128, which are also MPT-7B's and
+# BLOOM-7B1's, the public ALiBi models; Hk=8), causal with rope, the
+# training shape first (the rows themselves); the bottom-right shift with
+# ragged tiles; packed documents (segment ids, phase 19's) with dropout
+# 0.1, where ALiBi measures the packed indices as JAX's does; GPT-2's
+# widths (H = Hk = 12, D=64, B=8, S=1024), whose 12 heads take the
+# interleaved schedule
+ALIBI_POINTS = (
+    ("", 1, 2048, 2048, 32, 8, 128, True, True, None, False),
+    ("shifted", 1, 1000, 1500, 32, 8, 128, True, True, None, False),
+    ("segments_dropout", 1, 2048, 2048, 32, 8, 128, True, True, "docs", True),
+    ("gpt2", 8, 1024, 1024, 12, 12, 64, True, False, None, False),
+)
+# (key, bias shape, dropout): dbias at 8B widths, B=2, S=2048, causal,
+# dense: a learned per-head relative-position bias shared over the batch
+# (T5's form), summed over the batch; a per-sequence bias, summed over the
+# heads; the first with dropout 0.1
+DBIAS_POINTS = (("", (1, 32, 2048, 2048), False), ("heads_summed", (2, 1, 2048, 2048), False),
+                ("dropout", (1, 32, 2048, 2048), True))
+
+
+def _alibi_mask(torch, slopes, Sq, Sk, causal):
+    """ALiBi as SDPA's fp32 float mask [1, H, Sq, Sk]: -slope_h |i + Sk -
+    Sq - j|, -inf above the diagonal when causal (the same function)."""
+    from flash_attn_tpu_torch.ops import flash_fwd as ff
+
+    m = -slopes.float()[:, None, None] * ff.alibi_dist(Sq, Sk, "cuda")[None]
+    if causal:
+        m = m.masked_fill(~ff.live_pairs(None, True, Sq, Sk, "cuda")[0], float("-inf"))
+    return m[None]
+
+
+def _surface_inputs(torch, g, B, Sq, Sk, H, Hk, D, rope, masks, q_mult=1.0):
+    """q (times ``q_mult``), k, v, dout in bf16, the rope tables (each
+    sequence its own positions) and the masks (``"docs"``: phase 19's
+    packed documents, segment ids and positions restarting)."""
+    from flash_attn_tpu_torch.ops import flash_fwd as ff
+    from flash_attn_tpu_torch.ops.rope import rope_cos_sin
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda", dtype=torch.bfloat16)
+
+    q, k, v, dout = rnd(B, Sq, H, D) * q_mult, rnd(B, Sk, Hk, D), rnd(B, Sk, Hk, D), rnd(B, Sq, H, D)
+    cos = sin = m = None
+    if masks == "docs":
+        seg, pos = _packed_docs(torch, PACKED_DOCS)
+        m = ff.Masks(seg, seg, None, None)
+        cos, sin = rope_cos_sin(pos, D, 500000.0)
+    elif rope:
+        pos = torch.arange(Sq, device="cuda")[None] + 7 * torch.arange(B, device="cuda")[:, None]
+        cos, sin = rope_cos_sin(pos, D, 500000.0)
+    return q, k, v, dout, cos, sin, m
+
+
+def _k4_surface_case(torch, checks, worst, label, args, kw):
+    """K4's kExtra instance with ``kw`` (ALiBi slopes, probs, verify)
+    launched twice against fwd_plain with the same: out rows to two bf16
+    ulps, the lse of live rows to 1e-3, rows with no live key out 0 and lse
+    -1e30, the second launch bitwise the first; with probs the
+    probabilities (softmax_probs of each side's tiles) row by row to 2^-10
+    of the row's largest plus 1e-7; with verify the flags exactly.
+    Returns (kernel's results, plain's results)."""
+    from flash_attn_tpu_torch.ops import flash_fwd as ff
+
+    Sk = args[1].shape[1]
+    got, got2 = ff.flash_fwd_cuda(*args, **kw), ff.flash_fwd_cuda(*args, **kw)
+    ref = fwd_plain(args, **kw)
+    torch.cuda.synchronize()
+    out, lse, rout, rlse = got[0], got[1], ref[0], ref[1]
+    err, share = row_err(out, rout)
+    live = rlse > -1e29
+    lerr = float((lse - rlse).abs()[live].max()) if bool(live.any()) else 0.0
+    dead_ok = bool((lse[~live] == -1e30).all() and (out.transpose(1, 2)[~live] == 0).all())
+    same = all(torch.equal(a, b) for a, b in zip(got, got2) if a is not None)
+    ok = checks.check(f"K4 {label} out", share, 1.0) & checks.check(f"K4 {label} lse", lerr,
+                                                                      1e-3)
+    worst["K4"] = max(worst["K4"], err)
+    text = (f"max_abs_err {err:.3e} ({share:.3f} of its row's tol), lse err {lerr:.3e}, "
+            f"{int((~live).sum())} dead rows ok {dead_ok}, bitwise repeat {same}")
+    if not dead_ok:
+        checks.failed.append(f"K4 {label}: a row with no live key is not out 0 / lse -1e30")
+    if not same:
+        checks.failed.append(f"K4 {label}: two launches differ")
+    if kw.get("probs"):
+        p, rp = ff.softmax_probs(got[2], got[3], lse, Sk), ff.softmax_probs(ref[2], ref[3], rlse,
+                                                                              Sk)
+        perr, pshare = row_err(p, rp, rel=2.0 ** -10, floor=1e-7)
+        ok &= checks.check(f"K4 {label} probs", pshare, 1.0)
+        text += f", P max_abs_err {perr:.3e} ({pshare:.3f} of its row's tol)"
+        got = (out, lse, p)
+        ref = (rout, rlse, rp)
+    if kw.get("verify"):
+        diff = int((got[2] != ref[2]).sum())
+        ok &= checks.check(f"K4 {label} flags differ", diff, 0)
+        text += (f", flags: {int((ref[2] == 0).sum())} of {ref[2].numel()} rows flagged inexact, "
+                 f"{diff} differ from the plain version's")
+    say(f"  K4 {label}: {text} {'ok' if ok and dead_ok and same else 'FAIL'}")
+    return got, ref
+
+
+def check_fa2_surface(torch, checks, rows):
+    """ALiBi in K4, K9 and K10, dbias (K9's dS), return_softmax and
+    clamped_verify (K4) against their plain versions on the card (rows "K4
+    surface", "K9 surface", "K10 surface"): ALIBI_POINTS (each kernel
+    launched twice, bitwise), the main one timed beside SDPA with ALiBi
+    materialised as a float mask (forward and backward, the same function;
+    the backward's device time by torch.profiler); DBIAS_POINTS (K9 with
+    dS beside K9 with the same bias without it, K10, SDPA's backward with
+    the float mask requiring grad); return_softmax at the 8B prefill shape
+    (B=1, S=2048, causal, rope) in both modes, with and without dropout 0.1:
+    rows of P summing to 1 without dropout, P @ V recomposing out, the
+    entries above the diagonal exactly 0; clamped_verify with a bias and q
+    x32 (some rows past 80): the flags as the plain version's."""
+    from flash_attn_tpu_torch.ops import flash_fwd as ff
+    from flash_attn_tpu_torch.ops.alibi import alibi_slopes
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 80)
+    drop = ff.Dropout(DROP_RATE, DROP_SEED)
+    worst = {"K4": 0.0, "K9": 0.0, "K10": 0.0}
+    k4, k9, k10 = {}, {}, {}
+    for key, B, Sq, Sk, H, Hk, D, causal, rope, mk, dropout in ALIBI_POINTS:
+        q, k, v, dout, cos, sin, masks = _surface_inputs(torch, g, B, Sq, Sk, H, Hk, D, rope, mk)
+        slopes = torch.from_numpy(alibi_slopes(H)).cuda()
+        dr = drop if dropout else None
+        label = (_opt_label(B, Sq, Sk, H, Hk, D, causal, masks, None, dr,
+                            "packed documents" if masks is not None else "")
+                 + (", rope" if cos is not None else "") + ", ALiBi")
+        scale = D ** -0.5
+        args = (q, k, v, causal, scale, cos, sin, False, masks, None, None, None, dr)
+        (out, lse), _ = _k4_surface_case(torch, checks, worst, label, args, dict(alibi=slopes))
+        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        bargs = (q, k, v, dout, lse, delta, causal, scale, cos, sin, None, None, masks, None, dr)
+        tail = (k, v, dout, lse, delta, causal, scale, None, None, masks, None, dr)
+        bw = {"K9": 0.0, "K10": 0.0}
+        dq, rq, _, _, res = _bwd_case(torch, checks, bw, label, bargs, tail, causal,
+                                      kw=dict(alibi=slopes))
+        say(f"  K9 {label}: {res['K9']}")
+        say(f"  K10 {label}: {res['K10']}")
+        worst["K9"], worst["K10"] = max(worst["K9"], bw["K9"]), max(worst["K10"], bw["K10"])
+        if key in ("", "gpt2"):
+            t4, t9, t10 = _alibi_times(torch, args, bargs, rq, tail, slopes, dout)
+            k4[key], k9[key], k10[key] = t4, t9, t10
+        del q, k, v, dout, out, lse, delta, dq, rq, args, bargs, tail
+        torch.cuda.empty_cache()
+    dbias = _check_dbias(torch, checks, worst, g, drop)
+    probs = _check_probs(torch, checks, worst, g, drop)
+    verify = _check_verify(torch, checks, worst, g)
+    for key, name, ref, main, parts in (
+            ("K4 surface", "flash_fwd with ALiBi (also return_softmax and clamped_verify)",
+             "flash_fwd.py:221", k4[""], dict(gpt2=k4["gpt2"], probs=probs, verify=verify)),
+            ("K9 surface", "flash_bwd dq pass with ALiBi (also dS for dbias)",
+             "flash_bwd.py:127", k9[""], dict(gpt2=k9["gpt2"], dbias=dbias["K9"])),
+            ("K10 surface", "flash_bwd dk/dv pass with ALiBi (beside K9's dS)",
+             "flash_bwd.py:194", k10[""], dict(gpt2=k10["gpt2"], dbias=dbias["K10"]))):
+        rows[key] = dict(
+            name=f"{name} (B=1, S=2048, H=32, Hk=8, D=128, causal, rope, alibi_slopes(32))",
+            source=f"flash_attn_tpu_torch/csrc/{ref.split('.')[0]}.cu",
+            replaces=f"flash_attn_tpu/ops/{ref}", max_abs_err=worst[key.split()[0]], **main,
+            **parts)
+    say(f"  FA2 surface: {time.perf_counter() - t0:.2f}s")
+
+
+def _alibi_times(torch, args, bargs, rq, tail, slopes, dout):
+    """The ALiBi point's times: K4, K9 and K10 (CUDA events), the plain
+    versions', SDPA's forward and backward with ALiBi as a float mask (the
+    same function; the backward's device time by torch.profiler, its
+    backend named), and the bounds (K4: q, k, v, out, lse against 4 D
+    flops a live pair; K9: 3 products and dq in fp32; K10: 4 and dk, dv per
+    query head in fp32)."""
+    import torch.nn.functional as F
+
+    from flash_attn_tpu_torch.ops import flash_bwd as fb
+    from flash_attn_tpu_torch.ops import flash_fwd as ff
+    from flash_attn_tpu_torch.ops.rope import rope_rotate
+
+    q, k, v, causal, scale, cos, sin = args[:7]
+    B, Sq, H, D = q.shape
+    Sk, Hk = k.shape[1], k.shape[2]
+    kw = dict(alibi=slopes)
+    ms4 = cuda_ms(torch, lambda: ff.flash_fwd_cuda(*args, **kw))
+    ms9 = cuda_ms(torch, lambda: fb.flash_bwd_dq_cuda(*bargs, **kw))
+    ms10 = cuda_ms(torch, lambda: fb.flash_bwd_dkv_cuda(rq, *tail, **kw))
+    plain4 = cuda_ms(torch, lambda: fwd_plain(args, **kw), iters=1, warmup=1)
+    plain9 = cuda_ms(torch, lambda: bwd_plain(bargs, **kw), iters=1, warmup=1)
+    qt = (q if cos is None else rope_rotate(q, cos, sin)).transpose(1, 2).contiguous()
+    kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
+    fm = _alibi_mask(torch, slopes, Sq, Sk, causal)
+    sdpa4 = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=fm, scale=scale, enable_gqa=True), iters=5)
+    qt.requires_grad_(True)
+    kt.requires_grad_(True)
+    vt.requires_grad_(True)
+    o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=fm, scale=scale, enable_gqa=True)
+    do_t = dout.transpose(1, 2).contiguous()
+    sdpa_bwd, backend, names = sdpa_bwd_device_ms(
+        torch, lambda: torch.autograd.grad(o, (qt, kt, vt), do_t, retain_graph=True), calls=3)
+    del qt, kt, vt, o, fm, do_t
+    pairs = B * int(ff.live_pairs(None, causal, Sq, Sk, "cuda").sum())
+    kv_bytes = 2 * B * Sk * Hk * D * 2
+    b4 = bound(2 * 2 * B * Sq * H * D + kv_bytes + B * H * Sq * 4 + H * 4, 4 * D * H * pairs)
+    ins = 2 * (2 * B * Sq * H * D) + kv_bytes + B * H * Sq * 8 + H * 4
+    b9 = bound(ins + B * Sq * H * D * 4, 3 * 2 * D * H * pairs)
+    b10 = bound(ins + 2 * B * H * Sk * D * 4, 4 * 2 * D * H * pairs)
+    sd = "not measured" if sdpa_bwd is None else f"{sdpa_bwd:.4f}"
+    say(f"    K4 {ms4:.4f} ms ({4 * D * H * pairs / ms4 / 1e9:.1f} TFLOP/s), plain {plain4:.4f}, "
+        f"SDPA with ALiBi as a float mask {sdpa4:.4f}, bound {b4[0]:.4f} ({b4[1]}); K9 "
+        f"{ms9:.4f} ms, bound {b9[0]:.4f} ({b9[1]}); K10 {ms10:.4f} ms, bound {b10[0]:.4f} "
+        f"({b10[1]}); plain (both passes) {plain9:.4f}; SDPA's backward with the float mask, "
+        f"device time {sd} (backend {backend}: {', '.join(names)[:160]})")
+    return (dict(ms=ms4, plain_ms=plain4, bound_ms=b4[0], bound_by=b4[1], library_ms=sdpa4),
+            dict(ms=ms9, plain_ms=plain9, bound_ms=b9[0], bound_by=b9[1], library_ms=sdpa_bwd,
+                 library_backend=backend),
+            dict(ms=ms10, plain_ms=plain9, bound_ms=b10[0], bound_by=b10[1],
+                 library_ms=sdpa_bwd, library_backend=backend))
+
+
+def _check_dbias(torch, checks, worst, g, drop):
+    """DBIAS_POINTS at 8B widths (B=2, S=2048, H=32, Hk=8, D=128, causal):
+    K9 with dS and K10 (the bias's kOpt path) launched twice against the
+    plain version (dq, dS, dk, dv rows), dbias (dS summed over the bias's
+    broadcast axes) against the plain dS's; the main point timed: K9 with
+    dS (the wrapper's zero-fill included) beside K9 with the same bias
+    without it, K10, the plain version, SDPA's backward with the float
+    mask requiring grad (device time; its backend), the bounds (the bias
+    read once at the causal pairs; K9 with dS: the inputs, dq and the
+    whole fp32 dS written once)."""
+    from flash_attn_tpu_torch.ops import flash_bwd as fb
+    from flash_attn_tpu_torch.ops import flash_fwd as ff
+
+    B, S, H, Hk, D = 2, 2048, 32, 8, 128
+    scale = D ** -0.5
+    out9, out10 = {}, {}
+    for key, shape, dropout in DBIAS_POINTS:
+        q, k, v, dout, _, _, _ = _surface_inputs(torch, g, B, S, S, H, Hk, D, False, None)
+        bias = torch.randn(shape, generator=g, device="cuda")
+        b4 = ff.bias4(bias, B, H, S, S)
+        dr = drop if dropout else None
+        out, lse = ff.flash_fwd_cuda(q, k, v, True, scale, None, None, False, None, None, None,
+                                     b4, dr)
+        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        bargs = (q, k, v, dout, lse, delta, True, scale, None, None, None, None, None, b4, dr)
+        tail = (k, v, dout, lse, delta, True, scale, None, None, None, b4, dr)
+        label = _opt_label(B, S, S, H, Hk, D, True, None, bias, dr) + ", dS (dbias)"
+        bw = {"K9": 0.0, "K10": 0.0}
+        _, rq, _, _, res = _bwd_case(torch, checks, bw, label, bargs, tail, True,
+                                     kw=dict(want_ds=True))
+        worst["K9"], worst["K10"] = max(worst["K9"], bw["K9"]), max(worst["K10"], bw["K10"])
+        ds = fb.flash_bwd_dq_cuda(*bargs, want_ds=True)[2]
+        dbias = fb._reduce_to_shape(ds, shape)
+        del ds
+        rds = bwd_plain(bargs, want_ds=True)[3]
+        rdbias = fb._reduce_to_shape(rds, shape)
+        del rds
+        err, share = row_err(dbias, rdbias, floor=ds_floor(torch, rdbias, True))
+        checks.check(f"dbias {label}", share, 1.0)
+        say(f"  K9 {label}: {res['K9']}; dbias {list(shape)} max_abs_err {err:.3e} "
+            f"({share:.3f} of its row's tol) {'ok' if share <= 1.0 else 'FAIL'}")
+        say(f"  K10 {label}: {res['K10']}")
+        if key == "":
+            ms9 = cuda_ms(torch, lambda: fb.flash_bwd_dq_cuda(*bargs, want_ds=True))
+            ms9_nods = cuda_ms(torch, lambda: fb.flash_bwd_dq_cuda(*bargs))
+            ms10 = cuda_ms(torch, lambda: fb.flash_bwd_dkv_cuda(rq, *tail))
+            plain_ms = cuda_ms(torch, lambda: bwd_plain(bargs, want_ds=True), iters=1, warmup=1)
+            lib_ms, backend = _sdpa_dbias_ms(torch, q, k, v, dout, b4, scale)
+            live = ff.live_pairs(None, True, S, S, "cuda")
+            pairs = B * int(live.sum())
+            gemm = 2 * D * H * pairs
+            ins = ((2 * B * S * H * D + 2 * B * S * Hk * D) * 2 + B * H * S * 8
+                   + _bias_bytes(torch, b4, live)[0])
+            b9 = bound(ins + B * S * H * D * 4 + B * H * S * S * 4, 3 * gemm)
+            b10 = bound(ins + 2 * B * H * S * D * 4, 4 * gemm)
+            lib = "not measured" if lib_ms is None else f"{lib_ms:.4f}"
+            say(f"    K9 with dS {ms9:.4f} ms (the zero-filled buffer included), without "
+                f"{ms9_nods:.4f} (dS costs {ms9 - ms9_nods:.4f}), bound {b9[0]:.4f} ({b9[1]}: "
+                f"the {B * H * S * S * 4 / 2 ** 30:.2f} GiB dS written once); K10 {ms10:.4f}, "
+                f"bound {b10[0]:.4f} ({b10[1]}); plain (both passes, dS) {plain_ms:.4f}; SDPA's "
+                f"backward with the float mask requiring grad, device time {lib} "
+                f"(backend {backend})")
+            out9 = dict(ms=ms9, ms_without_ds=ms9_nods, plain_ms=plain_ms, bound_ms=b9[0],
+                        bound_by=b9[1], library_ms=lib_ms, library_backend=backend)
+            out10 = dict(ms=ms10, plain_ms=plain_ms, bound_ms=b10[0], bound_by=b10[1],
+                         library_ms=lib_ms, library_backend=backend)
+        del q, k, v, dout, bias, b4, out, lse, delta, bargs, tail, rq, dbias, rdbias
+        torch.cuda.empty_cache()
+    return {"K9": out9, "K10": out10}
+
+
+def _sdpa_dbias_ms(torch, q, k, v, dout, b4, scale):
+    """SDPA's backward with the bias (causal -inf above the diagonal) as a
+    float mask that requires grad: (device time by torch.profiler or None,
+    the backend, or the error's text where no backend takes it)."""
+    import torch.nn.functional as F
+
+    from flash_attn_tpu_torch.ops import flash_fwd as ff
+
+    S = q.shape[1]
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
+    base = b4[:, :1] if b4.stride(1) == 0 else b4
+    base = base[:1] if base.stride(0) == 0 else base
+    m = base.masked_fill(~ff.live_pairs(None, True, S, S, "cuda")[:, None], float("-inf"))
+    m = m.contiguous().requires_grad_(True)
+    do_t = dout.transpose(1, 2).contiguous()
+    try:
+        o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=m, scale=scale, enable_gqa=True)
+        ms, backend, _ = sdpa_bwd_device_ms(
+            torch, lambda: torch.autograd.grad(o, (qt, kt, vt, m), do_t, retain_graph=True),
+            calls=3)
+    except RuntimeError as e:  # no backend computes the mask's gradient here
+        ms, backend = None, f"none: {str(e).splitlines()[0][:120]}"
+    return ms, backend
+
+
+def _check_probs(torch, checks, worst, g, drop):
+    """return_softmax at the 8B prefill shape (B=1, S=2048, H=32, Hk=8,
+    D=128, causal, rope) in both modes, without dropout and with 0.1: K4's
+    probabilities against the plain version's (_k4_surface_case); without
+    dropout each live row sums to 1 (to 1e-4); P @ V recomposes out (each
+    row to two bf16 ulps); the entries above the diagonal are exactly 0.
+    The online point without dropout timed: the kernel (the zero-filled
+    buffers included), the whole flash_fwd call with the renormalisation,
+    the plain version, the bound (q, k, v, out, lse and the 512 MiB of P
+    written once).  No single PyTorch call returns attention's
+    probabilities."""
+    from flash_attn_tpu_torch.ops import flash_fwd as ff
+
+    B, S, H, Hk, D = 1, 2048, 32, 8, 128
+    q, k, v, _, cos, sin, _ = _surface_inputs(torch, g, B, S, S, H, Hk, D, True, None)
+    res = {}
+    dead = ~ff.live_pairs(None, True, S, S, "cuda")[0]
+    vf = v.float().repeat_interleave(H // Hk, dim=2)
+    for clamped in (False, True):
+        for dr in (None, drop):
+            mode = "clamped" if clamped else "online"
+            args = (q, k, v, True, D ** -0.5, cos, sin, clamped, None, None, None, None, dr)
+            label = (f"B={B}, S={S}, H={H}, Hk={Hk}, D={D}, causal, rope, {mode}"
+                     + (f", dropout {dr.rate}" if dr else "") + ", return_softmax")
+            (out, lse, p), _ = _k4_surface_case(torch, checks, worst, label, args,
+                                                dict(probs=True))
+            zeros = bool((p[:, :, dead] == 0).all())
+            if not zeros:
+                checks.failed.append(f"K4 {label}: P above the diagonal is not 0")
+            _, share = row_err(out, torch.einsum("bhqk,bkhd->bqhd", p, vf))
+            ok = checks.check(f"K4 {label} P @ V", share, 1.0)
+            line = (f"    P above the diagonal exactly 0 {zeros}; P @ V against out "
+                    f"{share:.3f} of its row's tol")
+            if dr is None:
+                sums = float((p.sum(-1) - 1.0).abs().max())
+                ok &= checks.check(f"K4 {label} row sums", sums, 1e-4)
+                line += f"; rows sum to 1 within {sums:.2e} (tol 1e-4)"
+            say(line + f" {'ok' if ok and zeros else 'FAIL'}")
+            del out, lse, p
+            if not clamped and dr is None:
+                ms = cuda_ms(torch, lambda: ff.flash_fwd_cuda(*args, probs=True))
+                called = cuda_ms(torch, lambda: ff.flash_fwd(
+                    q, k, v, causal=True, rope_cos=cos, rope_sin=sin, return_softmax=True))
+                plain = cuda_ms(torch, lambda: fwd_plain(args, probs=True), iters=1, warmup=1)
+                pairs = int((~dead).sum())
+                b = bound(2 * (2 * B * S * H * D) + 2 * 2 * B * S * Hk * D + B * H * S * 4
+                          + B * H * S * S * 4, 4 * D * H * pairs)
+                say(f"    K4 with return_softmax {ms:.4f} ms (the zero-filled buffers "
+                    f"included), as called with the renormalisation {called:.4f}, plain "
+                    f"{plain:.4f}, bound {b[0]:.4f} ({b[1]}: P's {B * H * S * S * 4 / 2 ** 20:.0f} "
+                    "MiB written once)")
+                res = dict(ms=ms, as_called_ms=called, plain_ms=plain, bound_ms=b[0],
+                           bound_by=b[1], library_ms=None)
+            torch.cuda.empty_cache()
+    del q, k, v, vf, cos, sin, dead
+    torch.cuda.empty_cache()
+    return res
+
+
+def _check_verify(torch, checks, worst, g):
+    """clamped_verify and auto at the 8B prefill shape (B=1, S=2048, H=32,
+    Hk=8, D=128, causal, rope): in range, auto is bitwise the clamped call
+    with one K4 launch; with q x32 (base-2 scores past 80) bitwise the
+    online call with two; with a [S, S] bias and q x32 the verify
+    instance's flags against the plain version's (_k4_surface_case), and
+    auto bitwise the online call with the bias (two launches, one of them
+    verify).  Timed: the verify instance beside the clamped call with the
+    same bias (what tracking the max costs), auto in range."""
+    from flash_attn_tpu_torch.ops import flash_fwd as ff
+
+    B, S, H, Hk, D = 1, 2048, 32, 8, 128
+    q, k, v, _, cos, sin, _ = _surface_inputs(torch, g, B, S, S, H, Hk, D, True, None)
+    bias = torch.randn((S, S), generator=g, device="cuda")
+    res = {}
+
+    def call(qq, mode, b=None):
+        before = _read_counts()
+        o = ff.flash_fwd(qq, k, v, causal=True, rope_cos=cos, rope_sin=sin, bias=b,
+                         softmax_mode=mode)
+        after = _read_counts()
+        return o, (after["K4"] - before["K4"], after["K4 verify"] - before["K4 verify"])
+
+    for name, qq, b, other, want in (("in range", q, None, "clamped", (1, 0)),
+                                     ("q x32", q * 32, None, "online", (2, 0)),
+                                     ("in range, a bias", q, bias, "clamped", (1, 1)),
+                                     ("q x32, a bias", q * 32, bias, "online", (2, 1))):
+        (oa, la), n = call(qq, "auto", b)
+        (oo, lo), _ = call(qq, other, b)
+        same = torch.equal(oa, oo) and torch.equal(la, lo)
+        ok = same and n == want
+        if not ok:
+            checks.failed.append(f"auto {name}: bitwise the {other} call {same}, launches "
+                                 f"(K4, verify) {n}, want {want}")
+        say(f"  auto, {name} (B={B}, S={S}, H={H}, Hk={Hk}, D={D}, causal, rope): bitwise the "
+            f"{other} call {same}; K4 launches {n[0]}, verify {n[1]} (want {want}) "
+            f"{'ok' if ok else 'FAIL'}")
+    args = (q * 32, k, v, True, D ** -0.5, cos, sin, True, None, None, None,
+            ff.bias4(bias, B, H, S, S), None)
+    label = f"B={B}, S={S}, H={H}, Hk={Hk}, D={D}, causal, rope, q x32, bias [{S}, {S}], verify"
+    _k4_surface_case(torch, checks, worst, label, args, dict(verify=True))
+    ms_v = cuda_ms(torch, lambda: ff.flash_fwd_cuda(*args, verify=True))
+    ms_c = cuda_ms(torch, lambda: ff.flash_fwd_cuda(*args))
+    ms_auto = cuda_ms(torch, lambda: call(q, "auto"))
+    ms_cl = cuda_ms(torch, lambda: call(q, "clamped"))
+    say(f"    verify {ms_v:.4f} ms beside the clamped call with the same bias {ms_c:.4f}; auto "
+        f"in range as called {ms_auto:.4f} (one host read) beside clamped {ms_cl:.4f}")
+    res = dict(ms=ms_v, clamped_ms=ms_c, auto_ms=ms_auto, auto_clamped_ms=ms_cl)
+    del q, k, v, bias, args
+    torch.cuda.empty_cache()
+    return res
+
+
+def _plain_grads(torch, bargs, kw, Hk):
+    """(dq, dk, dv, and with ``want_ds`` dS) from the plain version on the
+    card, dk and dv summed over each GQA group as flash_bwd sums them."""
+    ref = bwd_plain(bargs, **kw)
+    B, H, Sk, D = ref[1].shape
+    group = lambda x: x.reshape(B, Hk, H // Hk, Sk, D).sum(2).transpose(1, 2)  # noqa: E731
+    return (ref[0], group(ref[1]), group(ref[2]), *ref[3:])
+
+
+def _surface_run(torch, checks, label, fn, want):
+    """``fn()`` with every launch count zeroed just before and read just
+    after, held to ``want`` exactly; returns (fn's result, counts)."""
+    _reset_counts()
+    res = fn()
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    _launches_exact(checks, label, counts, want)
+    return res, counts
+
+
+def phase_fa2_surface(torch, checks, smi):
+    """Phase 22: the FA2 surface through the public entry points at the
+    kernels' phase-2 widths: flash_attention with ALiBi forward and
+    backward under autograd (Llama-3-8B's attention widths, B=1, S=2048,
+    causal, rope, alibi_slopes(32)), a [1, 32, 2048, 2048] mask that
+    requires grad (B=2), return_softmax and softmax_mode "auto" in range and
+    with q x32; flash_attention_varlen at GPT-2's widths (8 sequences in
+    4096, causal in each) with return_softmax and a [4096, 4096] mask that
+    requires grad; the ring (4 ranks of S_loc 1024 on one card, causal,
+    contiguous and striped) with a [1, 32, 4096, 4096] bias that requires
+    grad, held to the single call (out rows, every gradient to
+    TRAIN_GRAD_TOL of its norm).  Each result against the plain versions
+    on the card (out rows to two bf16 ulps, gradients and the mask's to
+    TRAIN_GRAD_TOL of their norm), each run's launches exact (ALiBi, probs,
+    verify and dS counted apart)."""
+    from flash_attn_tpu_torch import alibi_slopes
+    from flash_attn_tpu_torch.ops import flash_bwd as fb
+    from flash_attn_tpu_torch.ops import flash_fwd as ff
+    from flash_attn_tpu_torch.ops.attention import flash_attention, flash_attention_varlen
+    from flash_attn_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from flash_attn_tpu_torch.parallel.ring import (
+        make_ring_attention,
+        stripe_sequence,
+        unstripe_sequence,
+    )
+
+    t0 = time.perf_counter()
+    say(f"[phase 22 the FA2 surface] through flash_attention, flash_attention_varlen and the "
+        f"ring ({smi})")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 82)
+    total = {}
+
+    def add(counts):
+        for key, n in counts.items():
+            total[key] = total.get(key, 0) + n
+
+    def grads_err(got, ref, names):
+        errs = [_rel_norm(a, b) for a, b in zip(got, ref)]
+        ok = all(checks.check(f"phase 22 {n} (relative norm)", e, TRAIN_GRAD_TOL)
+                 for n, e in zip(names, errs))
+        return ok, ", ".join(f"{n} {e:.3e}" for n, e in zip(names, errs))
+
+    # ALiBi, forward and backward under autograd
+    B, S, H, Hk, D = 1, 2048, 32, 8, 128
+    q, k, v, dout, cos, sin, _ = _surface_inputs(torch, g, B, S, S, H, Hk, D, True, None)
+    slopes = torch.from_numpy(alibi_slopes(H)).cuda()
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+
+    def alibi_call():
+        out = flash_attention(*leaves, causal=True, rope_cos=cos, rope_sin=sin,
+                              alibi_slopes=alibi_slopes(H))
+        return out.detach(), torch.autograd.grad(out, leaves, dout)
+
+    want = {"K4": 1, "K4 alibi": 1, "K9": 1, "K9 alibi": 1, "K10": 1, "K10 alibi": 1}
+    (out, grads), counts = _surface_run(torch, checks, "phase 22 ALiBi", alibi_call, want)
+    add(counts)
+    args = (q, k, v, True, D ** -0.5, cos, sin, False, None, None, None, None, None)
+    rout, rlse = fwd_plain(args, alibi=slopes)
+    delta = (dout.float() * rout.float()).sum(-1).transpose(1, 2).contiguous()
+    bargs = (q, k, v, dout, rlse, delta, True, D ** -0.5, cos, sin, None, None, None, None,
+             None)
+    _, share = row_err(out, rout)
+    ok = checks.check("phase 22 ALiBi out", share, 1.0)
+    gok, gtext = grads_err(grads, _plain_grads(torch, bargs, dict(alibi=slopes), Hk),
+                           ("dq", "dk", "dv"))
+    say(f"  flash_attention with ALiBi (B={B}, S={S}, H={H}, Hk={Hk}, D={D}, causal, rope): out "
+        f"{share:.3f} of its row's tol, gradients' relative norm err {gtext} "
+        f"{'ok' if ok and gok else 'FAIL'} | launches {counts_of(counts, want)}")
+    del out, grads, rout, rlse, delta, bargs, leaves
+
+    # return_softmax and auto
+    with torch.no_grad():
+        want = {"K4": 1, "K4 probs": 1}
+        (o, lse, p), counts = _surface_run(torch, checks, "phase 22 return_softmax", lambda: (
+            flash_attention(q, k, v, causal=True, rope_cos=cos, rope_sin=sin,
+                            return_softmax=True)), want)
+        add(counts)
+        ref = fwd_plain(args, probs=True)
+        rp = ff.softmax_probs(ref[2], ref[3], ref[1], S)
+        _, share = row_err(p, rp, rel=2.0 ** -10, floor=1e-7)
+        ok = checks.check("phase 22 return_softmax P", share, 1.0)
+        say(f"  flash_attention(return_softmax=True): P {share:.3f} of its row's tol "
+            f"{'ok' if ok else 'FAIL'} | launches {counts_of(counts, want)}")
+        del o, lse, p, ref, rp
+        mask = torch.randn((S, S), generator=g, device="cuda")
+        for name, qq, m, other, want in (
+                ("in range", q, None, "clamped", {"K4": 1, "K4 verify": 0}),
+                ("q x32", q * 32, None, "online", {"K4": 2, "K4 verify": 0}),
+                ("in range, a mask", q, mask, "clamped", {"K4": 1, "K4 verify": 1}),
+                ("q x32, a mask", q * 32, mask, "online", {"K4": 2, "K4 verify": 1})):
+            oa, counts = _surface_run(torch, checks, f"phase 22 auto {name}", lambda: (
+                flash_attention(qq, k, v, causal=True, rope_cos=cos, rope_sin=sin, mask=m,
+                                softmax_mode="auto")), want)
+            add(counts)
+            oo = flash_attention(qq, k, v, causal=True, rope_cos=cos, rope_sin=sin, mask=m,
+                                 softmax_mode=other)
+            same = torch.equal(oa, oo)
+            if not same:
+                checks.failed.append(f"phase 22 auto {name}: not bitwise the {other} call")
+            say(f"  flash_attention(softmax_mode='auto'), {name}: bitwise the {other} call "
+                f"{same} | launches {counts_of(counts, want)}")
+    del q, k, v, dout, cos, sin, args, mask
+    torch.cuda.empty_cache()
+
+    # a mask that requires grad (dbias), B=2
+    B = 2
+    q, k, v, dout, _, _, _ = _surface_inputs(torch, g, B, S, S, H, Hk, D, False, None)
+    bias = torch.randn((1, H, S, S), generator=g, device="cuda")
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v, bias)]
+
+    def dbias_call():
+        out = flash_attention(*leaves[:3], causal=True, mask=leaves[3])
+        return out.detach(), torch.autograd.grad(out, leaves, dout)
+
+    want = {"K4": 1, "K4 extra": 1, "K9": 1, "K9 ds": 1, "K10": 1}
+    (out, grads), counts = _surface_run(torch, checks, "phase 22 dbias", dbias_call, want)
+    add(counts)
+    b4 = ff.bias4(bias, B, H, S, S)
+    args = (q, k, v, True, D ** -0.5, None, None, False, None, None, None, b4, None)
+    rout, rlse = fwd_plain(args)
+    delta = (dout.float() * rout.float()).sum(-1).transpose(1, 2).contiguous()
+    bargs = (q, k, v, dout, rlse, delta, True, D ** -0.5, None, None, None, None, None, b4, None)
+    ref = _plain_grads(torch, bargs, dict(want_ds=True), Hk)
+    ref = (*ref[:3], fb._reduce_to_shape(ref[3], bias.shape))
+    _, share = row_err(out, rout)
+    ok = checks.check("phase 22 dbias out", share, 1.0)
+    gok, gtext = grads_err(grads, ref, ("dq", "dk", "dv", "dmask"))
+    say(f"  flash_attention with a [1, {H}, {S}, {S}] mask that requires grad (B={B}, causal): "
+        f"out {share:.3f} of its row's tol, gradients' relative norm err {gtext} "
+        f"{'ok' if ok and gok else 'FAIL'} | launches {counts_of(counts, want)}")
+    del q, k, v, dout, bias, leaves, out, grads, b4, args, rout, rlse, delta, bargs, ref
+    torch.cuda.empty_cache()
+
+    # varlen at GPT-2's widths: return_softmax and a mask that requires grad
+    T_, H, Hk, D = sum(GPT2_LENS), 12, 12, 64
+    q, k, v, dout, _, _, _ = _surface_inputs(torch, g, 1, T_, T_, H, Hk, D, False, None)
+    q, k, v, dout = q[0], k[0], v[0], dout[0]
+    cu = _cu(torch, GPT2_LENS)
+    mask = torch.randn((T_, T_), generator=g, device="cuda")
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v, mask)]
+
+    def varlen_call():
+        with torch.no_grad():
+            probs = flash_attention_varlen(q, k, v, cu, cu, causal=True, mask=mask,
+                                           return_softmax=True)
+        out = flash_attention_varlen(*leaves[:3], cu, cu, causal=True, mask=leaves[3])
+        return probs, out.detach(), torch.autograd.grad(out, leaves, dout)
+
+    want = {"K4": 2, "K4 probs": 1, "K4 extra": 2, "K9": 1, "K9 ds": 1, "K10": 1}
+    (probs, out, grads), counts = _surface_run(torch, checks, "phase 22 varlen", varlen_call,
+                                               want)
+    add(counts)
+    masks = _varlen_masks(torch, GPT2_LENS)
+    b4 = ff.bias4(mask[None, None], 1, H, T_, T_)
+    args = (q[None], k[None], v[None], False, D ** -0.5, None, None, False, masks, None, None,
+            b4, None)
+    ref = fwd_plain(args, probs=True)
+    rp = ff.softmax_probs(ref[2], ref[3], ref[1], T_)[0]
+    delta = (dout[None].float() * ref[0].float()).sum(-1).transpose(1, 2).contiguous()
+    bargs = (q[None], k[None], v[None], dout[None], ref[1], delta, False, D ** -0.5, None, None,
+             None, None, masks, b4, None)
+    rg = _plain_grads(torch, bargs, dict(want_ds=True), Hk)
+    rg = (rg[0][0], rg[1][0], rg[2][0], fb._reduce_to_shape(rg[3], (T_, T_)))
+    _, share = row_err(out, ref[0][0])
+    _, pshare = row_err(probs[2], rp, rel=2.0 ** -10, floor=1e-7)
+    ok = checks.check("phase 22 varlen out", share, 1.0) & checks.check(
+        "phase 22 varlen P", pshare, 1.0)
+    gok, gtext = grads_err(grads, rg, ("dq", "dk", "dv", "dmask"))
+    say(f"  flash_attention_varlen (8 sequences in {T_}, H=Hk={H}, D={D}, causal in each, a "
+        f"[{T_}, {T_}] mask): P {pshare:.3f} and out {share:.3f} of their rows' tol, gradients' "
+        f"relative norm err {gtext} {'ok' if ok and gok else 'FAIL'} | launches "
+        f"{counts_of(counts, want)}")
+    del q, k, v, dout, mask, leaves, probs, out, grads, b4, args, ref, rp, delta, bargs, rg
+    torch.cuda.empty_cache()
+
+    # the ring with a bias that requires grad, against the single call
+    n, S, H, Hk, D = SP_N, 4096, 32, 8, 128
+    mesh = make_mesh(MeshConfig(sp=n), devices=["cuda:0"] * n)
+    q, k, v, dout, _, _, _ = _surface_inputs(torch, g, 1, S, S, H, Hk, D, False, None)
+    bias = torch.randn((1, H, S, S), generator=g, device="cuda")
+    xs = [x.clone().requires_grad_(True) for x in (q, k, v, bias)]
+    single = flash_attention(*xs[:3], causal=True, mask=xs[3])
+    ref = (single.detach(), torch.autograd.grad(single, xs, dout))
+    del single
+    ring = make_ring_attention(mesh, causal=True, has_bias=True)
+    striped = make_ring_attention(mesh, causal=True, layout="striped", has_bias=True)
+
+    def striped_call(q_, k_, v_, b_):
+        st = [stripe_sequence(x, n) for x in (q_, k_, v_)]
+        b_st = stripe_sequence(stripe_sequence(b_, n, axis=2), n, axis=3)
+        return unstripe_sequence(striped(*st, b_st), n)
+
+    for name, fn, steps in (("contiguous", ring, n * (n + 1) // 2), ("striped", striped_call,
+                                                                      n * n)):
+        want = {"K4": steps, "K9": steps, "K9 ds": steps, "K10": steps}
+        counts, _, _ = _sp_run(torch, checks, f"phase 22 ring {name}, a [1, {H}, {S}, {S}] "
+                               "bias that requires grad, against the single call", fn, xs, ref,
+                               want, dout)
+        add(counts)
+    del q, k, v, dout, bias, xs, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    total["K4 surface"] = total["K4 alibi"] + total["K4 probs"] + total["K4 verify"]
+    total["K9 surface"] = total["K9 alibi"] + total["K9 ds"]
+    total["K10 surface"] = total["K10 alibi"]
+    keys = ("K4", "K4 alibi", "K4 probs", "K4 verify", "K4 extra", "K9", "K9 alibi", "K9 ds",
+            "K10", "K10 alibi")
+    say(f"  kernels {json.dumps({key: total.get(key, 0) for key in keys})}")
+    say(f"[phase 22 the FA2 surface] {time.perf_counter() - t0:.2f}s")
+    return {RUN_SURFACE: total}
+
+
+def counts_of(counts, want):
+    """The counts of ``want``'s keys, as printed beside a run."""
+    return {key: counts[key] for key in want}
+
+
 K11_N, K11_B, K11_H, K11_HK, K11_D, K11_SLOC = 4, 1, 32, 8, 128, 4096  # Llama-3-8B widths
 # small K11 cases: (label, ranks, B, H, Hk, D, S_loc, block_q, causal,
 # dtype, q multiplier): a ragged S_loc (not a multiple of block_q 128) at
@@ -3530,6 +4263,8 @@ def phase_kernels(torch, checks):
     check_k9_k10(torch, checks, rows)
     torch.cuda.empty_cache()
     check_fa2_options(torch, checks, rows)
+    torch.cuda.empty_cache()
+    check_fa2_surface(torch, checks, rows)
     torch.cuda.empty_cache()
     check_k11(torch, checks, rows)
     torch.cuda.empty_cache()
@@ -4499,10 +5234,13 @@ def _reset_counts():
     for key in ("K4", "K9", "K10"):
         wrappers[key].local_launches = 0
     wrappers["K4"].extra_launches = wrappers["K4"].dropout_launches = 0
+    wrappers["K4"].alibi_launches = wrappers["K4"].probs_launches = 0
+    wrappers["K4"].verify_launches = 0
     for key in ("K9", "K10"):
         wrappers[key].window_launches = wrappers[key].d256_launches = 0
         wrappers[key].d64_launches = 0
         wrappers[key].opt_launches = wrappers[key].seg_launches = 0
+        wrappers[key].alibi_launches = wrappers[key].ds_launches = 0
 
 
 def _read_counts() -> dict:
@@ -4517,8 +5255,11 @@ def _read_counts() -> dict:
     and K8's and K8c's together ("K8 d64") at head_dim 64, and K9's and
     K10's at head_dim 64; K4's launches of a kExtra instance ("K4 extra"),
     K9's and K10's of a kOpt instance ("K9 opt", "K10 opt") and their
-    segment-id launches ("K9 seg", "K10 seg"), and K4's launches with
-    dropout ("K4 dropout")."""
+    segment-id launches ("K9 seg", "K10 seg"), K4's launches with
+    dropout ("K4 dropout"), with ALiBi ("K4 alibi"), with return_softmax
+    ("K4 probs") and with the clamped_verify flags ("K4 verify"), K9's
+    and K10's with ALiBi ("K9 alibi", "K10 alibi") and K9's writing dS
+    ("K9 ds")."""
     wrappers, k8 = _counters()
     counts = {k: fn.launches for k, fn in wrappers.items()}
     k1 = wrappers["K1"]
@@ -4540,6 +5281,10 @@ def _read_counts() -> dict:
     counts["K4 local"] = wrappers["K4"].local_launches
     counts["K4 extra"] = wrappers["K4"].extra_launches
     counts["K4 dropout"] = wrappers["K4"].dropout_launches
+    counts["K4 alibi"] = wrappers["K4"].alibi_launches
+    counts["K4 probs"] = wrappers["K4"].probs_launches
+    counts["K4 verify"] = wrappers["K4"].verify_launches
+    counts["K9 ds"] = wrappers["K9"].ds_launches
     for key in ("K9", "K10"):
         counts[f"{key} local"] = wrappers[key].local_launches
         counts[f"{key} window"] = wrappers[key].window_launches
@@ -4547,6 +5292,7 @@ def _read_counts() -> dict:
         counts[f"{key} d64"] = wrappers[key].d64_launches
         counts[f"{key} opt"] = wrappers[key].opt_launches
         counts[f"{key} seg"] = wrappers[key].seg_launches
+        counts[f"{key} alibi"] = wrappers[key].alibi_launches
     return counts
 
 
@@ -6014,7 +6760,7 @@ def _sp_run(torch, checks, label, fn, args, ref, want, dout=None):
     err, share = row_err(out.detach(), ref_out)
     ok = checks.check(f"{label} out", share, 1.0)
     gerrs = [_rel_norm(g, r) for g, r in zip(grads, ref_grads)]
-    for name, e in zip("qkv", gerrs):
+    for name, e in zip(("q", "k", "v", "bias"), gerrs):
         ok = checks.check(f"{label} d{name} (relative norm)", e, TRAIN_GRAD_TOL) and ok
 
     def call():
@@ -6024,7 +6770,8 @@ def _sp_run(torch, checks, label, fn, args, ref, want, dout=None):
 
     ms = cuda_ms(torch, call, iters=3, warmup=1)
     say(f"  {label}: out max_abs_err {err:.3e} ({share:.3f} of its row's tol)"
-        + (f", dq dk dv relative norm err {', '.join(f'{e:.3e}' for e in gerrs)} (tol "
+        + (f", {' '.join('d' + n for n in ('q', 'k', 'v', 'bias')[:len(gerrs)])} relative "
+           f"norm err {', '.join(f'{e:.3e}' for e in gerrs)} (tol "
            f"{TRAIN_GRAD_TOL:g})" if gerrs else "")
         + f" {'ok' if ok else 'FAIL'} | launches {({k: counts[k] for k in want})} | "
         f"{ms:.3f} ms a call")
@@ -6358,11 +7105,14 @@ RUN_LORA_ONES = (f"phase 21 serve Llama-3-8B int8 fused, fp8 KV, a bank of {LORA
                  f"rank-{LORA_RANK} LoRA adapters, every request on adapter 1")
 RUN_SP_ULYSSES = (f"phase 20 Ulysses attention, causal, {SP_N} ranks on one card, S={SP_S}, "
                   "forward + backward")
+RUN_SURFACE = ("phase 22 the FA2 surface through flash_attention, flash_attention_varlen and the "
+               "ring (ALiBi, dbias, return_softmax, auto)")
 KERNEL_ROWS = ("K1", "K1m", "K1c", "K1b", "K2", "K3", "K3g", "K4", "K5", "K6", "K7", "K8", "K8c",
                "K9", "K10", "K4 d256", "K1 d256", "K2 d256", "K1m d256", "K9 d256", "K10 d256",
                "K4 d64", "K1 d64", "K1c d64", "K8 d64", "K2 d64", "K1m d64", "K9 d64", "K10 d64",
                "K4 27B", "K1 27B", "K9 27B", "K10 27B", "K4 G7", "K1 G7", "K1c G7", "K8 G7",
-               "K2 G7", "K3 Mixtral", "K4 opt", "K9 opt", "K10 opt", "K11")
+               "K2 G7", "K3 Mixtral", "K4 opt", "K9 opt", "K10 opt", "K11", "K4 surface",
+               "K9 surface", "K10 surface")
 # the run whose launches a kernel's row reports, and the count it reads:
 # the main path that the kernel serves (the 70B serve for the shared K1,
 # K1m, K2 and K4, the n-gram speculative serve for K1's chunk mode, the
@@ -6385,7 +7135,8 @@ ROW_RUN = {"K1": RUN_70B, "K1m": RUN_70B, "K1c": RUN_SPEC_NGRAM, "K1b": None, "K
            "K1 27B": RUN_GEMMA27, "K9 27B": RUN_GEMMA27_TRAIN, "K10 27B": RUN_GEMMA27_TRAIN,
            "K4 G7": RUN_QWEN, "K1 G7": RUN_QWEN, "K1c G7": RUN_QWEN_SPEC,
            "K8 G7": RUN_QWEN_PAGED, "K2 G7": RUN_QWEN, "K3 Mixtral": RUN_MIXTRAL,
-           "K4 opt": RUN_ABI, "K9 opt": RUN_ABI, "K10 opt": RUN_ABI, "K11": RUN_SP_RDMA}
+           "K4 opt": RUN_ABI, "K9 opt": RUN_ABI, "K10 opt": RUN_ABI, "K11": RUN_SP_RDMA,
+           "K4 surface": RUN_SURFACE, "K9 surface": RUN_SURFACE, "K10 surface": RUN_SURFACE}
 # a row's count where it is not the row's own key: every K2 and K1m launch
 # of the Gemma-2-9B serve is at head_dim 256, and every launch of the GPT-2
 # serves at head_dim 64 (phase 12 holds the d64 counts equal); the 27B
@@ -6435,6 +7186,7 @@ def main() -> int:
     mixtral_card_vs_cpu(torch, checks, "int4", SEED + 67)
     runs = {RUN_ABI: phase_abi(torch, checks, smi)}
     runs.update(phase_sp(torch, checks, smi))
+    runs.update(phase_fa2_surface(torch, checks, smi))
     runs.update(phase_serve(torch, checks, smi))
     runs.update(phase_gemma(torch, checks, smi))
     runs.update(phase_gemma(torch, checks, smi, "27B"))
@@ -6469,7 +7221,8 @@ def main() -> int:
                                          "bound_per_head_ms", "no_mask", "segments", "dense",
                                          "bias", "d64", "d64_varlen", "d64_segments",
                                          "readout", "bound_f32_ms", "bound_bf16_ms",
-                                         "non_causal")
+                                         "non_causal", "gpt2", "probs", "verify", "dbias",
+                                         "library_backend")
                        if k in r})
                for r in (rows[k] for k in KERNEL_ROWS)]
     print(json.dumps({"kernels": kernels}))

@@ -5,10 +5,12 @@ probes that call several versions of a source through ctypes.
 ``int window_left, int window_right, float softcap2`` just before the
 stream; earlier versions take neither.  Later versions of
 ``fatt_flash_fwd`` also take a bias (its pointer and four strides) and
-dropout (flag, seed, threshold, keep_div) after the softcap.  ``bind``
-sets an entry's argument types from the older list and returns a callable
-that takes that older list, passing no window, no softcap, no bias and no
-dropout where the source has them.
+dropout (flag, seed, threshold, keep_div) after the softcap, and later
+still the ALiBi slopes, return_softmax's two buffers and the
+clamped_verify flags after those.  ``bind`` sets an entry's argument
+types from the older list and returns a callable that takes that older
+list, passing no window, no softcap, no bias, no dropout and none of the
+later four where the source has them.
 """
 
 from __future__ import annotations
@@ -23,6 +25,16 @@ WINDOW_ARGS = {"fatt_decode": ([I, F], (0, 0.0)),
                "fatt_flash_fwd": ([I, I, F], (-1, -1, 0.0))}
 # fatt_flash_fwd's bias and dropout arguments and their values for none
 EXTRA_ARGS = ([P, L, L, L, L, I, U, U, F], (None, 0, 0, 0, 0, 0, 0, 0, 1.0))
+# fatt_flash_fwd's ALiBi, return_softmax and clamped_verify pointers, null
+SURFACE_ARGS = ([P, P, P, P], (None,) * 4)
+
+
+def takes_surface(src: Path) -> bool:
+    """Whether ``fatt_flash_fwd`` of ``src`` takes the ALiBi slopes,
+    return_softmax's buffers and the clamped_verify flags."""
+    text = src.read_text()
+    head = text[text.index('extern "C" int fatt_flash_fwd('):]
+    return "alibi2" in head[:head.index(")")]
 
 
 def takes_window(src: Path, entry: str) -> bool:
@@ -46,6 +58,8 @@ def bind(fn, src: Path, entry: str, argtypes):
     text = src.read_text()
     head = text[text.index(f'extern "C" int {entry}('):]
     more_types, more = EXTRA_ARGS if "keep_div" in head[:head.index(")")] else ([], ())
+    if "alibi2" in head[:head.index(")")]:
+        more_types, more = more_types + SURFACE_ARGS[0], more + SURFACE_ARGS[1]
     fn.argtypes = argtypes[:-1] + types + more_types + argtypes[-1:]
 
     def call(*args):

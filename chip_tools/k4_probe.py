@@ -109,8 +109,15 @@ def build(name, src_dir, out_dir):
     masked = takes_masks(src)
     so = ctypes.CDLL(str(lib))
     fn = entry_args.bind(so.fatt_flash_fwd, src, "fatt_flash_fwd", SIG_MASKED if masked else SIG)
-    # the entry itself, every argument explicit, where it takes a bias and dropout
-    extra = so.fatt_flash_fwd if "keep_div" in src.read_text() else None
+    # the entry with a bias and dropout explicit, where it takes them (and
+    # no ALiBi, return_softmax or clamped_verify, where it takes those)
+    extra = None
+    if "keep_div" in src.read_text():
+        raw = so.fatt_flash_fwd
+        none = entry_args.SURFACE_ARGS[1] if entry_args.takes_surface(src) else ()
+
+        def extra(*args, raw=raw, none=none):
+            return raw(*args[:-1], *none, args[-1])
     return (fn, masked, "launch<128, false, true" in src.read_text(), extra), info
 
 

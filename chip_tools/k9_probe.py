@@ -6,9 +6,10 @@ times, and a mutant that must fail.
 
 Each DIR holds a ``flash_bwd.cu`` (and the ``common.cuh`` it includes),
 for example the parent tree's ``flash_attn_tpu_torch/csrc`` unpacked by
-``git archive``.  Four C interfaces are known: this tree's (as the next,
-and both also take segment ids and positions, a bias and dropout, passed
-as none here), the one before it (K9 also writes R(q), which K10 reads,
+``git archive``.  Five C interfaces are known: this tree's (as the next
+and also the ALiBi slopes and K9's dS, passed as none), the one before it
+(as the next, and both also take segment ids and positions, a bias and
+dropout, passed as none here), the one before that (K9 also writes R(q), which K10 reads,
 and both take a window and a softcap), the one before that without
 window and softcap, and the earlier one in which both passes rotate q
 themselves.  Each version, this tree's
@@ -88,12 +89,18 @@ L, U = ctypes.c_int64, ctypes.c_uint32
 # their values for none
 OPT = [P] * 4 + [P, L, L, L, L, I, U, U, F]
 NO_OPT = (None,) * 4 + (None, 0, 0, 0, 0, 0, 0, 0, 1.0)
-# (dq entry, dkv entry) argument types of each interface
-SIGS = {"opt": ([P] * 10 + [I] * 7 + [F, I, I, I, F] + OPT + [P],
+# (dq entry, dkv entry) argument types of each interface; "surface" is
+# "opt" with the ALiBi slopes (both) and dS (K9) after the options, passed
+# null by ``NO_SURFACE``
+SIGS = {"surface": ([P] * 10 + [I] * 7 + [F, I, I, I, F] + OPT + [P, P, P],
+                    [P] * 8 + [I] * 6 + [F, I, I, I, F] + OPT + [P, P]),
+        "opt": ([P] * 10 + [I] * 7 + [F, I, I, I, F] + OPT + [P],
                 [P] * 8 + [I] * 6 + [F, I, I, I, F] + OPT + [P]),
         "local": ([P] * 10 + [I] * 7 + [F, I, I, I, F, P], [P] * 8 + [I] * 6 + [F, I, I, I, F, P]),
         "rq": ([P] * 10 + [I] * 7 + [F, I, P], [P] * 8 + [I] * 6 + [F, I, P]),
         "rotate": ([P] * 9 + [I] * 7 + [F, I, P], [P] * 10 + [I] * 7 + [F, I, P])}
+# (K9's, K10's) null surface arguments of each interface
+NO_SURFACE = {abi: (((None, None), (None,)) if abi == "surface" else ((), ())) for abi in SIGS}
 # edits of this tree's source, each (anchor, replacement, times it
 # matches): the mutant adds a `continue` after the tile's offset in each
 # loop; no_dt drops dS's factor 1 - t^2 in both passes; no_tanh caps
@@ -145,6 +152,8 @@ def interface(src: Path) -> str:
     text = src.read_text()
     head = text[text.index('extern "C" int fatt_flash_bwd_dq('):]
     head = head[:head.index(")")]
+    if "alibi2" in head:
+        return "surface"
     if "inv_keep" in head:
         return "opt"
     return "local" if "window" in head else "rq" if "void* rq" in head else "rotate"
@@ -156,11 +165,13 @@ def registers(ptxas: str) -> str:
     for line in ptxas.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"(dkv_kernel|dq_kernel)(?:ILi(\d+)E(?:Lb([01])E)?(?:Lb([01])E)?)?",
+            k = re.search(r"(dkv_kernel|dq_kernel)"
+                          r"(?:ILi(\d+)E(?:Lb([01])E)?(?:Lb([01])E)?(?:Lb([01])E)?)?",
                           m.group(1))
             name = None if k is None else (f"{k.group(1)}<{k.group(2) or 128}"
                                            f"{', local' if k.group(3) == '1' else ''}"
-                                           f"{', opt' if k.group(4) == '1' else ''}>")
+                                           f"{', opt' if k.group(4) == '1' else ''}"
+                                           f"{', surface' if k.group(5) == '1' else ''}>")
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
             spill = f"spill {m.group(1)}/{m.group(2)} bytes"
@@ -392,15 +403,16 @@ def main() -> int:
         ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
         common = [ptr(t) for t in (c.q, c.k, c.v, c.dout, c.lse, c.delta, c.cos, c.sin)]
         local = ()
-        if abi in ("local", "opt"):
+        if abi in ("local", "opt", "surface"):
             local = (*(c.window or (-1, -1)), 0.0 if c.cap is None else c.cap * 1.4426950408889634)
-        if abi == "opt":
+        if abi in ("opt", "surface"):
             local += NO_OPT
-        if abi in ("local", "rq", "opt"):
+        s9, s10 = NO_SURFACE[abi]
+        if abi in ("local", "rq", "opt", "surface"):
             c9 = lambda: f9(*common, ptr(dq), ptr(rq), B, S, S, H, Hk, D, 0, c.scale, 1,  # noqa
-                            *local, stream())
+                            *local, *s9, stream())
             c10 = lambda: f10(ptr(rq), *common[1:6], ptr(dk), ptr(dv), B, S, S, H, Hk, D,  # noqa
-                              c.scale, 1, *local, stream())
+                              c.scale, 1, *local, *s10, stream())
         else:
             c9 = lambda: f9(*common, ptr(dq), B, S, S, H, Hk, D, 0, c.scale, 1,  # noqa
                             stream())
@@ -422,7 +434,7 @@ def main() -> int:
     cases = [(x, True) for x in BWD_CASES if x.row is not None or x.bends]
     for bc, bound in cases + [(BwdCase(*PEAKY), False)]:
         c = Case(torch, bc)
-        labels = [n for n, src in srcs if (c.D == 128 or libs[n][0] in ("local", "opt"))
+        labels = [n for n, src in srcs if (c.D == 128 or libs[n][0] in ("local", "opt", "surface"))
                   and takes(Path(src), c) and (n not in CAP_MUTANTS or c.cap is not None)
                   and n not in BIAS_MUTANTS]
         first = None
@@ -468,7 +480,8 @@ def main() -> int:
     def opt_runner(name, c):
         """(K9 call, K10 call, outputs -> (dq, dk, dv) per query head) of
         version ``name`` on OptCase ``c``."""
-        _, (f9, f10), _ = libs[name]
+        abi, (f9, f10), _ = libs[name]
+        s9, s10 = NO_SURFACE[abi]
         B, Sq, Sk, H, Hk, D = c.B, c.Sq, c.Sk, c.H, c.Hk, c.D
         dq = torch.empty((B, Sq, H, D), dtype=torch.float32, device="cuda")
         rq = c.q if c.cos is None else torch.empty_like(c.q)
@@ -478,9 +491,9 @@ def main() -> int:
         common = [ptr(t) for t in (c.q, c.k, c.v, c.dout, c.lse, c.delta, c.cos, c.sin)]
         nolocal = (-1, -1, 0.0)
         c9 = lambda: f9(*common, ptr(dq), ptr(rq), B, Sq, Sk, H, Hk, D, 0, c.scale,  # noqa
-                        int(c.causal), *nolocal, *c.opt, stream())
+                        int(c.causal), *nolocal, *c.opt, *s9, stream())
         c10 = lambda: f10(ptr(rq), *common[1:6], ptr(dk), ptr(dv), B, Sq, Sk, H, Hk, D,  # noqa
-                          c.scale, int(c.causal), *nolocal, *c.opt, stream())
+                          c.scale, int(c.causal), *nolocal, *c.opt, *s10, stream())
         return c9, c10, lambda: (dq, dk, dv)
 
     from chip_smoke import FA2_EDGE_BIAS
@@ -492,7 +505,7 @@ def main() -> int:
         c = OptCase(torch, *spec)
         label_of = (f"{c.name} (B={c.B}, Sq={c.Sq}, Sk={c.Sk}, H={c.H}, Hk={c.Hk}, D={c.D}, "
                     f"{'causal' if c.causal else 'not causal'})")
-        labels = [n for n, _ in srcs if libs[n][0] == "opt" and n not in CAP_MUTANTS
+        labels = [n for n, _ in srcs if libs[n][0] in ("opt", "surface") and n not in CAP_MUTANTS
                   and (n not in BIAS_MUTANTS or c.has_bias)]
         first = None
         for label in labels:

@@ -12,8 +12,10 @@ reaches the plain version.
 """
 
 from flash_attn_tpu_torch._device import resolve_device
+from flash_attn_tpu_torch.ops.alibi import alibi_slopes
 from flash_attn_tpu_torch.ops.attention import flash_attention, flash_attention_varlen
 from flash_attn_tpu_torch.ops.decode import flash_decode, flash_decode_chunk
+from flash_attn_tpu_torch.ops.flash_fwd import FlashConfig
 from flash_attn_tpu_torch.ops.lse import lse_merge, lse_merge2
 from flash_attn_tpu_torch.ops.matmul import (
     W4A8Weight,
@@ -33,6 +35,8 @@ from flash_attn_tpu_torch.ops.quant import (
 from flash_attn_tpu_torch.ops.reference import mha_reference
 
 __all__ = [
+    "FlashConfig",
+    "alibi_slopes",
     "flash_attention",
     "flash_attention_varlen",
     "flash_decode",

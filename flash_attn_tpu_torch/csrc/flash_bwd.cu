@@ -6,9 +6,9 @@
 //   K9  (dq pass)    replaces flash_attn_tpu/ops/flash_bwd.py:_dq_kernel;
 //   K10 (dk/dv pass) replaces flash_attn_tpu/ops/flash_bwd.py:_dkv_kernel
 // on the subset the GPT-2, Llama and Gemma-2 training steps and the C ABI's
-// backward entry points use (no dbias or ALiBi; the window and the softcap
-// at head_dim 128 and 256; segment ids, positions, an additive bias and
-// dropout at head_dim 64 and 128).  K9 runs first: it rotates q once and
+// backward entry points use (the window and the softcap at head_dim 128
+// and 256; segment ids, positions, an additive bias, dropout, ALiBi and
+// dbias at head_dim 64 and 128).  K9 runs first: it rotates q once and
 // writes R(q), which K10 streams as it is.
 //
 // Bound on the H100: operations at D = 128 and 256, bytes at D = 64.  At
@@ -123,6 +123,29 @@
 //     rate) : 0 before ds = p (dp - delta), and K10's dv takes P dropped
 //     alike; ds keeps the undropped P.  Whether to replay is one branch a
 //     tile between two copies of the element loop, not one an element.
+// ALiBi and dbias (kSurface: instances of their own beside the kOpt ones,
+// which they extend, at head dims 64 and 128; the C entries pick them when
+// the slopes or dS are given; flash_bwd.py:75-80, 247-264, 549-611).
+// Compiled into the kOpt instances as runtime branches (copies of the
+// element loop) they left the outputs there bitwise as they were, but
+// took K9's kOpt points 5-14 % slower (222 to 236 registers at 128;
+// NVIDIA H100 80GB HBM3, 700 W, chip_tools/k9_probe.py turns: the mask
+// alone 0.5371-0.5465 to 0.5674-0.5682 ms), so the kOpt instances keep
+// their code:
+//   * ALiBi subtracts slope_h |row + Sk - Sq - col| from the natural-unit
+//     scores after the bias, as 2^(s scale log2 e + (bias log2 e - lse
+//     log2 e) - slope_h log2 e |...|), the slopes premultiplied by log2 e
+//     on the host (K4's); an additive constant, so no factor on dS;
+//   * dbias: K9 writes dS = P (dP - delta) (dP dropped; kOpt has no cap, so
+//     no tanh factor) in fp32 to [B, H, Sq, Sk], each element once, as JAX's
+//     dk/dv pass writes its ds tiles.  K9's accumulator layout holds a
+//     warp's 16 query rows x 64 keys with a quad on 8 consecutive keys of a
+//     row, which is the output's row-major order: each quad stores its row's
+//     32 bytes as float2 pairs, whole sectors, with no transpose through
+//     shared memory (K10 holds dS transposed).  Keys and rows past Sk / Sq
+//     are not written; the wrapper zero-fills the buffer, so tiles K9 never
+//     walks (dead causal tiles, tiles off the live list) are 0, as JAX's
+//     _zero_ds makes them.  At B=2 S=2048 H=32 that is 1 GiB of writes.
 #include <type_traits>
 
 #include "common.cuh"
@@ -147,7 +170,8 @@ constexpr int kFullBit = 1 << 30;
 // greatest segment, greatest position) per 64-token tile; all null for
 // none.  bias: null, or element (b, h, i, j) at b bs_b + h bs_h + i bs_q +
 // j bs_k.  dropout: 0, or 1 with the seed's bits, the threshold and
-// inv_keep = f32(1 / (1 - rate)).
+// inv_keep = f32(1 / (1 - rate)).  alibi2: null, or [H] ALiBi slopes times
+// log2 e.  ds: null, or (K9) fp32 [B, H, Sq, Sk] for dS, zero-filled.
 struct Opt {
   const int2* qmeta;
   const int2* kmeta;
@@ -158,7 +182,20 @@ struct Opt {
   int dropout;
   uint32_t seed, threshold;
   float inv_keep;
+  const float* alibi2;
+  float* ds;
 };
+
+// Two adjacent fp32 values (columns c, c + 1) into a row of n: one 8-byte
+// store where n is even (the row and c 8-byte aligned), else each in range.
+__device__ __forceinline__ void store_pair(float* row, int c, int n, float x0, float x1) {
+  if ((n & 1) == 0 && c + 1 < n) {
+    *reinterpret_cast<float2*>(row + c) = make_float2(x0, x1);
+  } else {
+    if (c < n) row[c] = x0;
+    if (c + 1 < n) row[c + 1] = x1;
+  }
+}
 
 // Lists in shared memory, in order, the tiles t_first + i (i < n) that
 // live(t, full) keeps, each with kFullBit where it sets full; returns how
@@ -325,8 +362,9 @@ __device__ __forceinline__ float lse_base2(float lse) {
 // The kLocal instances apply the window (wleft, wright; -1 open) and the
 // softcap (softcap2, the cap in base-2 units; 0 for none); the others
 // ignore all three.  The kOpt instances apply o (segment ids, positions,
-// the bias, dropout); the others ignore it.
-template <int kD, bool kLocal, bool kOpt>
+// the bias, dropout), the kSurface ones (kOpt too) also its ALiBi slopes
+// and dS; the others ignore it.
+template <int kD, bool kLocal, bool kOpt, bool kSurface = false>
 __global__ void __launch_bounds__(Geo<kD, kLocal, kOpt>::kDqThreads,
                                   Geo<kD, kLocal, kOpt>::kDqMinBlocks) dq_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
@@ -502,6 +540,12 @@ __global__ void __launch_bounds__(Geo<kD, kLocal, kOpt>::kDqThreads,
     drop_rows[1] = fatt::drop_row(mix, my_row + 8);
   }
   const int2* kmeta_b = G::kOpt && meta ? o.kmeta + (int64_t)b * nk64 * kRows : nullptr;
+  // kSurface: the query head's ALiBi slope (base 2) and this thread's
+  // first row of dS
+  const bool has_alibi = kSurface && o.alibi2 != nullptr;
+  const float slope2 = has_alibi ? o.alibi2[h] : 0.f;
+  float* const ds_row =
+      kSurface && o.ds != nullptr ? o.ds + (((int64_t)b * H + h) * Sq + my_row) * Sk : nullptr;
 
   float acc[kParts][32];  // dq, 64-column parts
   zero(acc);
@@ -608,6 +652,9 @@ __global__ void __launch_bounds__(Geo<kD, kLocal, kOpt>::kDqThreads,
             const int row = my_row + (e >> 1) * 8;
             float a = -l2[e >> 1];
             if (bias_vec != 0) a = fmaf(bb[4 * j + e], kLog2e, a);
+            if constexpr (kSurface) {
+              if (has_alibi) a = fmaf(-slope2, (float)abs(row + shift - col), a);
+            }
             float p = exp2f(fmaf(s[4 * j + e], sl2, a));
             if (edge) {
               bool dead = col >= Sk || (causal && col > row + shift);
@@ -621,6 +668,14 @@ __global__ void __launch_bounds__(Geo<kD, kLocal, kOpt>::kDqThreads,
             if constexpr (kDrop)
               dpv = fatt::drop_keep(drop_rows[e >> 1], col, o.threshold) ? dpv * o.inv_keep : 0.f;
             x[e] = p * (dpv - dl[e >> 1]);
+          }
+          if constexpr (kSurface) {
+            // dbias: this thread's dS pairs, rows my_row and my_row + 8
+            if (ds_row != nullptr) {
+              const int c = k0 + j * 8 + (lane & 3) * 2;
+              if (my_row < Sq) store_pair(ds_row, c, Sk, x[0], x[1]);
+              if (my_row + 8 < Sq) store_pair(ds_row + 8 * (int64_t)Sk, c, Sk, x[2], x[3]);
+            }
           }
           dsf[j / 2][(j & 1) * 2] = fatt::pack_bf16(x[0], x[1]);
           dsf[j / 2][(j & 1) * 2 + 1] = fatt::pack_bf16(x[2], x[3]);
@@ -678,7 +733,7 @@ __global__ void __launch_bounds__(Geo<kD, kLocal, kOpt>::kDqThreads,
   }
 }
 
-template <int kD, bool kLocal, bool kOpt>
+template <int kD, bool kLocal, bool kOpt, bool kSurface = false>
 __global__ void __launch_bounds__(Geo<kD, kLocal, kOpt>::kDkvThreads, 1) dkv_kernel(
     const __nv_bfloat16* __restrict__ rq, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
@@ -812,6 +867,9 @@ __global__ void __launch_bounds__(Geo<kD, kLocal, kOpt>::kDkvThreads, 1) dkv_ker
     mix = fatt::drop_mix(o.seed, b, h);
   }
   const int2* qmeta_b = G::kOpt && meta ? o.qmeta + (int64_t)b * nq64 * kRows : nullptr;
+  // kSurface: the query head's ALiBi slope (base 2)
+  const bool has_alibi = kSurface && o.alibi2 != nullptr;
+  const float slope2 = has_alibi ? o.alibi2[h] : 0.f;
   float dk_acc[kOwn][32], dv_acc[kOwn][32];  // 64-column parts of this warpgroup's
   zero(dk_acc);
   zero(dv_acc);
@@ -912,6 +970,10 @@ __global__ void __launch_bounds__(Geo<kD, kLocal, kOpt>::kDkvThreads, 1) dkv_ker
             // the bias at (query c + (e & 1), key my_key + 8 (e >> 1)), staged
             if (bias_vec != 0)
               a = fmaf(bias_t[(j * 8 + (e & 1)) * G::kDkvBiasPitch + (e >> 1) * 8], kLog2e, a);
+            // kSurface: ALiBi at (query col, key), |col + shift - key|
+            if constexpr (kSurface) {
+              if (has_alibi) a = fmaf(-slope2, (float)abs(col + shift - key), a);
+            }
             float p = exp2f(fmaf(st[4 * j + e], sl2, a));
             if (edge) {
               bool dead = key >= Sk || col >= Sq || (causal && key > col + shift);
@@ -990,7 +1052,7 @@ bool shape_ok(int B, int Sq, int Sk, int H, int Hk, int D, int causal, int wleft
          !(D == 256 && !causal);
 }
 
-template <int kD, bool kLocal, bool kOpt>
+template <int kD, bool kLocal, bool kOpt, bool kSurface = false>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
               const void* delta, const void* cosv, const void* sinv, void* dq, void* rq,
               int B, int Sq, int Sk, int H, int Hk, int rope_bstride, float scale, int causal,
@@ -1000,11 +1062,12 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
   constexpr int kSmem = G::kDqSmem + G::kListBytes;
   static fatt::SmemLimitSet smem_set;
   cudaError_t e =
-      fatt::smem_limit_once(dq_kernel<kD, kLocal, kOpt>, kSmem + G::kDqBiasBytes, smem_set);
+      fatt::smem_limit_once(dq_kernel<kD, kLocal, kOpt, kSurface>, kSmem + G::kDqBiasBytes,
+                            smem_set);
   if (e != cudaSuccess) return (int)e;
   const int smem = kSmem + (o.bias != nullptr ? G::kDqBiasBytes : 0);
   dim3 grid(H, B, (Sq + G::kDqRows - 1) / G::kDqRows);
-  dq_kernel<kD, kLocal, kOpt><<<grid, G::kDqThreads, smem, st>>>(
+  dq_kernel<kD, kLocal, kOpt, kSurface><<<grid, G::kDqThreads, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -1014,7 +1077,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
   return (int)cudaGetLastError();
 }
 
-template <int kD, bool kLocal, bool kOpt>
+template <int kD, bool kLocal, bool kOpt, bool kSurface = false>
 int launch_dkv(const void* rq, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv, int B, int Sq, int Sk,
                int H, int Hk, float scale, int causal, int wleft, int wright, float softcap2,
@@ -1024,11 +1087,12 @@ int launch_dkv(const void* rq, const void* k, const void* v, const void* dout,
   constexpr int kSmem = G::kDkvSmem + G::kListBytes;
   static fatt::SmemLimitSet smem_set;
   cudaError_t e =
-      fatt::smem_limit_once(dkv_kernel<kD, kLocal, kOpt>, kSmem + G::kDkvBiasBytes, smem_set);
+      fatt::smem_limit_once(dkv_kernel<kD, kLocal, kOpt, kSurface>, kSmem + G::kDkvBiasBytes,
+                            smem_set);
   if (e != cudaSuccess) return (int)e;
   const int smem = kSmem + (o.bias != nullptr ? G::kDkvBiasBytes : 0);
   dim3 grid(H, B, (Sk + G::kDkvRows - 1) / G::kDkvRows);
-  dkv_kernel<kD, kLocal, kOpt><<<grid, G::kDkvThreads, smem, st>>>(
+  dkv_kernel<kD, kLocal, kOpt, kSurface><<<grid, G::kDkvThreads, smem, st>>>(
       static_cast<const __nv_bfloat16*>(rq), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -1044,7 +1108,8 @@ int launch_dkv(const void* rq, const void* k, const void* v, const void* dout,
 bool opt_ok(const Opt& o, int Sq, int Sk, int D, bool local, bool& opt) {
   const int given = (o.qmeta != nullptr) + (o.kmeta != nullptr) + (o.qrange != nullptr) +
                     (o.krange != nullptr);
-  opt = given != 0 || o.bias != nullptr || o.dropout != 0;
+  opt = given != 0 || o.bias != nullptr || o.dropout != 0 || o.alibi2 != nullptr ||
+        o.ds != nullptr;
   if (!opt) return true;
   return (given == 0 || given == 4) && (D == 64 || D == 128) && !local &&
          (Sq + kRows - 1) / kRows <= kMaxListTiles && (Sk + kRows - 1) / kRows <= kMaxListTiles &&
@@ -1064,7 +1129,9 @@ bool opt_ok(const Opt& o, int Sq, int Sk, int D, bool local, bool& opt) {
 // (all four or none); bias: null, or fp32 in natural units, element
 // (b, h, i, j) at b bs_b + h bs_h + i bs_q + j bs_k; dropout: 0, or 1 with
 // the seed's bits, the keep threshold and inv_keep = f32(1 / (1 - rate)).
-// These at head_dim 64 and 128, without a window or softcap.
+// alibi2: null, or [H] fp32 ALiBi slopes times log2 e.  ds: null, or fp32
+// [B, H, Sq, Sk], zero-filled, for dS (the bias's gradient before any
+// broadcast).  These at head_dim 64 and 128, without a window or softcap.
 extern "C" int fatt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse, const void* delta,
                                  const void* cosv, const void* sinv, void* dq, void* rq,
@@ -1074,17 +1141,22 @@ extern "C" int fatt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* kmeta, const void* qrange, const void* krange,
                                  const float* bias, int64_t bs_b, int64_t bs_h, int64_t bs_q,
                                  int64_t bs_k, int dropout, uint32_t seed, uint32_t threshold,
-                                 float inv_keep, void* stream) {
+                                 float inv_keep, const float* alibi2, float* ds,
+                                 void* stream) {
   const Opt o{static_cast<const int2*>(qmeta), static_cast<const int2*>(kmeta),
               static_cast<const int4*>(qrange), static_cast<const int4*>(krange), bias, bs_b,
-              bs_h, bs_q, bs_k, dropout, seed, threshold, inv_keep};
+              bs_h, bs_q, bs_k, dropout, seed, threshold, inv_keep, alibi2, ds};
   const bool local = window_left >= 0 || window_right >= 0 || softcap2 > 0.f;
   bool opt = false;
   if (!shape_ok(B, Sq, Sk, H, Hk, D, causal, window_left, window_right, softcap2) ||
       !opt_ok(o, Sq, Sk, D, local, opt))
     return (int)cudaErrorInvalidValue;
-  auto fn = D == 256 ? launch_dq<256, true, false>
-            : D == 64 ? (opt ? launch_dq<64, false, true> : launch_dq<64, false, false>)
+  const bool surface = alibi2 != nullptr || ds != nullptr;
+  auto fn = D == 256  ? launch_dq<256, true, false>
+            : D == 64 ? (surface ? launch_dq<64, false, true, true>
+                         : opt   ? launch_dq<64, false, true>
+                                 : launch_dq<64, false, false>)
+            : surface ? launch_dq<128, false, true, true>
             : opt     ? launch_dq<128, false, true>
             : local   ? launch_dq<128, true, false>
                       : launch_dq<128, false, false>;
@@ -1094,7 +1166,8 @@ extern "C" int fatt_flash_bwd_dq(const void* q, const void* k, const void* v,
 }
 
 // rq: R(q) [B, Sq, H, D] bf16 (q itself without rope); the rest, the
-// options included, as fatt_flash_bwd_dq.  dk, dv: [B, H, Sk, D] fp32, per query head.
+// options included, as fatt_flash_bwd_dq (no dS: K9 writes it).  dk, dv:
+// [B, H, Sk, D] fp32, per query head.
 extern "C" int fatt_flash_bwd_dkv(const void* rq, const void* k, const void* v,
                                   const void* dout, const void* lse, const void* delta,
                                   void* dk, void* dv, int B, int Sq, int Sk, int H, int Hk,
@@ -1103,17 +1176,21 @@ extern "C" int fatt_flash_bwd_dkv(const void* rq, const void* k, const void* v,
                                   const void* kmeta, const void* qrange, const void* krange,
                                   const float* bias, int64_t bs_b, int64_t bs_h, int64_t bs_q,
                                   int64_t bs_k, int dropout, uint32_t seed, uint32_t threshold,
-                                  float inv_keep, void* stream) {
+                                  float inv_keep, const float* alibi2, void* stream) {
   const Opt o{static_cast<const int2*>(qmeta), static_cast<const int2*>(kmeta),
               static_cast<const int4*>(qrange), static_cast<const int4*>(krange), bias, bs_b,
-              bs_h, bs_q, bs_k, dropout, seed, threshold, inv_keep};
+              bs_h, bs_q, bs_k, dropout, seed, threshold, inv_keep, alibi2, nullptr};
   const bool local = window_left >= 0 || window_right >= 0 || softcap2 > 0.f;
   bool opt = false;
   if (!shape_ok(B, Sq, Sk, H, Hk, D, causal, window_left, window_right, softcap2) ||
       !opt_ok(o, Sq, Sk, D, local, opt))
     return (int)cudaErrorInvalidValue;
-  auto fn = D == 256 ? launch_dkv<256, true, false>
-            : D == 64 ? (opt ? launch_dkv<64, false, true> : launch_dkv<64, false, false>)
+  const bool surface = alibi2 != nullptr;
+  auto fn = D == 256  ? launch_dkv<256, true, false>
+            : D == 64 ? (surface ? launch_dkv<64, false, true, true>
+                         : opt   ? launch_dkv<64, false, true>
+                                 : launch_dkv<64, false, false>)
+            : surface ? launch_dkv<128, false, true, true>
             : opt     ? launch_dkv<128, false, true>
             : local   ? launch_dkv<128, true, false>
                       : launch_dkv<128, false, false>;

@@ -133,6 +133,38 @@
 //     multiplies kept P by 1 / f32(1 - rate) (a division, as JAX's) before
 //     P is packed for PV; the row sums, and so out's normalisation and
 //     the LSE, are the undropped P's.
+//
+// ALiBi, return_softmax and clamped_verify (kSurface: instances of their
+// own beside the kExtra ones, which they extend, at head_dim 64 and 128,
+// with and without masks; the C entry picks them when one of their
+// pointers is not null).  Compiled into the kExtra instances as runtime
+// branches they left the outputs there bitwise as they were, but took
+// K4's mask-alone point from 0.3389-0.3425 ms to 0.3572-0.3636 (188 to
+// 206 registers; NVIDIA H100 80GB HBM3, 700 W, chip_tools/k4_probe.py
+// turns), so the kExtra instances keep their code:
+//   * ALiBi (flash_fwd.py:374-388, 872-876): s -= slope_h log2(e) |row +
+//     Sk - Sq - col| after the bias clamp and before the masks, on every
+//     tile the block walks (the unmasked ones too), with the query head's
+//     slope (premultiplied by log2 e on the host) and the row and column
+//     indices, never the positions (with segment ids JAX's ALiBi measures
+//     the packed indices too).  __fmul_rn / __fsub_rn, as the bias's, so
+//     that no contraction moves the kernel off its plain version;
+//   * return_softmax (flash_fwd.py:263-269, 460-467, 1048-1061): each
+//     tile's post-dropout P as the softmax made it, unnormalised (online:
+//     2^(s - m) with the row's running max m after the tile, also written,
+//     one float a row and tile; clamped: 2^min(s, 80)), into an fp32
+//     [B, H, Sq, nk*64] buffer that the wrapper zero-fills, so the tiles the
+//     block never walks (above the diagonal, off the live list) stay 0;
+//     JAX disables its causal skip to write them.  The wrapper
+//     renormalises, P = praw exp(m ln 2 - lse), as JAX does outside its
+//     kernel.  The path is for tests and debugging: 512 MiB of fp32 at
+//     B=1 S=2048 H=32, written from the score registers as float2 pairs
+//     (each quad's 32 bytes of a row, whole sectors), in the softmax loop
+//     of the kProbs instances only (kSurface ones with the writes);
+//   * clamped_verify (flash_fwd.py:417-421, 516-524): the clamped mode also
+//     keeps each row's running max (quad_max as the online branch, never
+//     subtracted) and writes the row's flag, l == 0 or m in [-80, 80]: the
+//     rows where clamped equals online exactly.
 #include "common.cuh"
 
 namespace {
@@ -150,6 +182,7 @@ constexpr int kMetaBytes = kBK * 8;
 constexpr int kMaxListTiles = 4096;
 constexpr int kFullBit = 1 << 30;  // list entry: live throughout, no mask
 constexpr float kClamp2 = 80.f;
+constexpr float kVerifyFloor2 = -80.f;  // clamped_verify's floor, base-2 units
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kLog2e = 1.4426950408889634f;
 // kExtra with a bias: two stages of the block's 64 query rows x 64 keys,
@@ -205,9 +238,15 @@ __device__ __forceinline__ void attn_qk_smem(float (&s)[8][4], uint32_t qt, uint
 // softcap (softcap2, the cap in base-2 units; 0 for none); the others
 // ignore all three.  The kExtra instances apply the bias (null for none;
 // element (b, h, i, j) at b bs_b + h bs_h + i bs_q + j bs_k) and, where
-// dropout != 0, dropout (seed bits, threshold, keep_div = f32(1 - rate));
-// the others ignore them.
-template <int kD, bool kMeta, bool kLocal, bool kExtra>
+// dropout != 0, dropout (seed bits, threshold, keep_div = f32(1 - rate)),
+// ALiBi (alibi2: [H] slopes times log2 e), return_softmax (probs: [B, H,
+// Sq, nk*64] unnormalised P, pmax: [B, H, Sq, nk] running maxima, null in
+// clamped mode) and clamped_verify (vflag: [B, H, Sq], with clamped), each
+// null for none; the kSurface instances apply the last three (kSurface
+// implies kExtra; return_softmax only in the kProbs ones, where probs is
+// given), the others ignore them.
+template <int kD, bool kMeta, bool kLocal, bool kExtra, bool kSurface = false,
+          bool kProbs = false>
 __global__ void __launch_bounds__(kThreads, kD == 64 ? (kExtra ? 3 : 4) : kD == 128 ? 2 : 1)
     flash_fwd_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
@@ -219,7 +258,8 @@ __global__ void __launch_bounds__(kThreads, kD == 64 ? (kExtra ? 3 : 4) : kD == 
     int H, int Hk, int rope_bstride, float eff_scale, int causal, int clamped, int wleft,
     int wright, float softcap2, const float* __restrict__ bias, int64_t bs_b, int64_t bs_h,
     int64_t bs_q, int64_t bs_k, int dropout, uint32_t seed, uint32_t threshold,
-    float keep_div) {
+    float keep_div, const float* __restrict__ alibi2, float* __restrict__ probs,
+    float* __restrict__ pmax, float* __restrict__ vflag) {
   using G = Dims<kD>;
   constexpr int kChunks = G::kChunks;
   constexpr int kTileBytes = G::kTileBytes;
@@ -464,6 +504,15 @@ __global__ void __launch_bounds__(kThreads, kD == 64 ? (kExtra ? 3 : 4) : kD == 
     drop_rows[0] = fatt::drop_row(mix, my_row);
     drop_rows[1] = fatt::drop_row(mix, my_row + 8);
   }
+  // kSurface: the query head's ALiBi slope (base 2), whether the clamped
+  // mode tracks the row max (clamped_verify), and this thread's first row
+  // of the unnormalised P (return_softmax; rows of nk * 64 floats)
+  const bool has_alibi = kSurface && alibi2 != nullptr;
+  const float slope2 = has_alibi ? alibi2[h] : 0.f;
+  const bool track = kSurface && vflag != nullptr;
+  const int64_t p_pitch = (int64_t)nk * kBK;
+  float* const p_row =
+      kProbs ? probs + (((int64_t)b * H + h) * Sq + my_row) * p_pitch : nullptr;
 
   for (int t = 0; t < n_live; ++t) {
     if (t + kStages - 1 < n_live)
@@ -507,6 +556,18 @@ __global__ void __launch_bounds__(kThreads, kD == 64 ? (kExtra ? 3 : 4) : kD == 
         }
       }
     }
+    // kSurface with ALiBi: s -= slope2 |row + shift - col|, every tile
+    if (has_alibi) {
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + j * 8 + (lane & 3) * 2 + (e & 1);
+          const int row = my_row + (e >> 1) * 8;
+          const float dist = (float)abs(row + shift - col);
+          s[j][e] = __fsub_rn(s[j][e], __fmul_rn(slope2, dist));
+        }
+    }
 
     // Mask only where this warp's diagonal, a window edge of its rows or
     // Sk's edge crosses the tile, or, with masks, where the list does not
@@ -545,18 +606,25 @@ __global__ void __launch_bounds__(kThreads, kD == 64 ? (kExtra ? 3 : 4) : kD == 
     // Softmax in registers; P to bf16 A fragments (keys 16c..16c+15).
     uint32_t pf[kBK / 16][4];
     float alpha[2] = {1.f, 1.f};
-    if (!clamped) {
+    // clamped_verify: the clamped mode keeps the row max too, unsubtracted
+    if (!clamped || track) {
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
         float mx = kNegInf;
 #pragma unroll
         for (int j = 0; j < kBK / 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * hf], s[j][2 * hf + 1]));
         const float m_new = fmaxf(m_run[hf], fatt::quad_max(mx));
-        alpha[hf] = exp2f(m_run[hf] - m_new);
+        if (!clamped) alpha[hf] = exp2f(m_run[hf] - m_new);
         m_run[hf] = m_new;
       }
     }
     float psum[2] = {0.f, 0.f};
+    // kProbs: P also into the probabilities' buffer.  A compile-time choice:
+    // as a runtime branch here it cost the kSurface instances without the
+    // writes 18-22 %, and as a generic lambda over std::true_type /
+    // false_type the head_dim 256 instances 2-8 % (outputs bitwise either
+    // way; NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py phase 2 and
+    // chip_tools/k4_probe.py turns)
 #pragma unroll
     for (int j = 0; j < kBK / 8; ++j) {
       float p[4];
@@ -574,7 +642,20 @@ __global__ void __launch_bounds__(kThreads, kD == 64 ? (kExtra ? 3 : 4) : kD == 
                                                                     : 0.f;
         }
       }
+      if constexpr (kProbs) {
+        const int col = k0 + j * 8 + (lane & 3) * 2;
+        if (my_row < Sq) *reinterpret_cast<float2*>(p_row + col) = make_float2(p[0], p[1]);
+        if (my_row + 8 < Sq)
+          *reinterpret_cast<float2*>(p_row + 8 * p_pitch + col) = make_float2(p[2], p[3]);
+      }
       fatt::put_p(pf, j, p);
+    }
+    // online: the running max this tile's P was taken against
+    if (kProbs && !clamped && pmax != nullptr && (lane & 3) == 0) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        if (my_row + hf * 8 < Sq)
+          pmax[(((int64_t)b * H + h) * Sq + my_row + hf * 8) * nk + k0 / kBK] = m_run[hf];
     }
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) l_run[hf] = l_run[hf] * alpha[hf] + psum[hf];
@@ -608,6 +689,11 @@ __global__ void __launch_bounds__(kThreads, kD == 64 ? (kExtra ? 3 : 4) : kD == 
       float x = kNegInf;
       if (valid[hf]) x = clamped ? logf(l) : m_run[hf] * kLn2 + logf(l);
       lse[((int64_t)b * H + h) * Sq + row] = x;
+      // clamped_verify: exact where no key is live or the max stayed in
+      // [-80, 80]
+      if (track)
+        vflag[((int64_t)b * H + h) * Sq + row] =
+            !valid[hf] || (m_run[hf] <= kClamp2 && m_run[hf] >= kVerifyFloor2) ? 1.f : 0.f;
     }
   }
   const int lr = warp * 16 + (lane >> 2);
@@ -633,16 +719,22 @@ __global__ void __launch_bounds__(kThreads, kD == 64 ? (kExtra ? 3 : 4) : kD == 
   }
 }
 
-// The bias and dropout arguments of the C entry, as the kernel takes them.
+// The bias, dropout, ALiBi, return_softmax and clamped_verify arguments of
+// the C entry, as the kernel takes them.
 struct Extra {
   const float* bias;
   int64_t bs_b, bs_h, bs_q, bs_k;
   int dropout;
   uint32_t seed, threshold;
   float keep_div;
+  const float* alibi2;
+  float* probs;
+  float* pmax;
+  float* vflag;
 };
 
-template <int kD, bool kMeta, bool kLocal, bool kExtra>
+template <int kD, bool kMeta, bool kLocal, bool kExtra, bool kSurface = false,
+          bool kProbs = false>
 int launch(const void* q, const void* k, const void* v, const void* cosv,
            const void* sinv, void* out, void* lse, const void* qmeta,
            const void* kmeta, const void* qrange, const void* krange, int* tile_count,
@@ -654,13 +746,14 @@ int launch(const void* q, const void* k, const void* v, const void* cosv,
   constexpr int kMaxSmem = kSmemBytes + (kExtra ? kBiasBytes : 0) +
                            (kMeta ? kStages * kMetaBytes + kMaxListTiles * 4 : 0);
   cudaError_t e =
-      fatt::smem_limit_once(flash_fwd_kernel<kD, kMeta, kLocal, kExtra>, kMaxSmem, smem_set);
+      fatt::smem_limit_once(flash_fwd_kernel<kD, kMeta, kLocal, kExtra, kSurface, kProbs>,
+                            kMaxSmem, smem_set);
   if (e != cudaSuccess) return (int)e;
   const int nk = (Sk + kBK - 1) / kBK;
   const int smem = kSmemBytes + (kExtra && x.bias != nullptr ? kBiasBytes : 0) +
                    (kMeta ? kStages * kMetaBytes + nk * 4 : 0);
   dim3 grid(H, B, (Sq + kBQ - 1) / kBQ);
-  flash_fwd_kernel<kD, kMeta, kLocal, kExtra><<<grid, kThreads, smem, st>>>(
+  flash_fwd_kernel<kD, kMeta, kLocal, kExtra, kSurface, kProbs><<<grid, kThreads, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(cosv),
       static_cast<const float*>(sinv), static_cast<__nv_bfloat16*>(out),
@@ -668,7 +761,7 @@ int launch(const void* q, const void* k, const void* v, const void* cosv,
       static_cast<const int2*>(kmeta), static_cast<const int4*>(qrange),
       static_cast<const int4*>(krange), tile_count, Sq, Sk, H, Hk, rope_bstride,
       eff_scale, causal, clamped, wleft, wright, softcap2, x.bias, x.bs_b, x.bs_h, x.bs_q,
-      x.bs_k, x.dropout, x.seed, x.threshold, x.keep_div);
+      x.bs_k, x.dropout, x.seed, x.threshold, x.keep_div, x.alibi2, x.probs, x.pmax, x.vflag);
   return (int)cudaGetLastError();
 }
 
@@ -676,6 +769,13 @@ bool bad_shape(int B, int Sq, int H, int Hk, int D) {
   // Head dims 64 (GPT-2), 128 (Llama-3, Gemma-2-27B) and 256 (Gemma-2-9B) are built.
   return H % Hk != 0 || (D != 64 && D != 128 && D != 256) || B > 65535 ||
          (Sq + kBQ - 1) / kBQ > 65535;
+}
+
+// The kSurface instance, with masks or not, with return_softmax's writes or
+// not.
+template <int kD, bool kMeta>
+auto surface_launch(bool probs) {
+  return probs ? launch<kD, kMeta, false, true, true, true> : launch<kD, kMeta, false, true, true>;
 }
 
 }  // namespace
@@ -695,8 +795,13 @@ bool bad_shape(int B, int Sq, int H, int Hk, int D) {
 // bias: null, or fp32 in natural units, element (b, h, i, j) at
 // b bs_b + h bs_h + i bs_q + j bs_k (0 on a broadcast axis).  dropout:
 // 0, or 1 with the seed's 32 bits, the keep threshold and keep_div =
-// f32(1 - rate).  Both at head_dim 64 and 128, with or without masks,
-// without a window or softcap.
+// f32(1 - rate).  alibi2: null, or [H] fp32 ALiBi slopes times log2 e.
+// probs: null, or fp32 [B, H, Sq, ceil(Sk/64)*64], zero-filled, for each
+// walked tile's unnormalised P; pmax: null, or (online) fp32 [B, H, Sq,
+// ceil(Sk/64)] for the running max each was taken against.  vflag: null,
+// or (clamped) fp32 [B, H, Sq] for clamped_verify's row flags.  All of
+// these at head_dim 64 and 128, with or without masks, without a window
+// or softcap.
 extern "C" int fatt_flash_fwd(const void* q, const void* k, const void* v,
                               const void* cosv, const void* sinv, void* out,
                               void* lse, const void* qmeta, const void* kmeta,
@@ -706,24 +811,32 @@ extern "C" int fatt_flash_fwd(const void* q, const void* k, const void* v,
                               int clamped, int window_left, int window_right,
                               float softcap2, const float* bias, int64_t bs_b, int64_t bs_h,
                               int64_t bs_q, int64_t bs_k, int dropout, uint32_t seed,
-                              uint32_t threshold, float keep_div, void* stream) {
+                              uint32_t threshold, float keep_div, const float* alibi2,
+                              float* probs, float* pmax, float* vflag, void* stream) {
   const int given = (qmeta != nullptr) + (kmeta != nullptr) + (qrange != nullptr) +
                     (krange != nullptr);
   const bool local = window_left >= 0 || window_right >= 0 || softcap2 > 0.f;
-  const bool extra = bias != nullptr || dropout != 0;
+  const bool surface = alibi2 != nullptr || probs != nullptr || vflag != nullptr;
+  const bool extra = bias != nullptr || dropout != 0 || surface;
   // With masks a block lists at most kMaxListTiles key tiles.
   if (bad_shape(B, Sq, H, Hk, D) || window_left < -1 || window_right < -1 ||
       !(softcap2 >= 0.f) || (local && (D == 64 || given != 0 || extra)) ||
-      (extra && (D == 256 || !(keep_div > 0.f))) ||
+      (extra && (D == 256 || !(keep_div > 0.f))) || (vflag != nullptr && !clamped) ||
+      (pmax != nullptr && probs == nullptr) ||
       (given != 0 && (given != 4 || D == 256 || (Sk + kBK - 1) / kBK > kMaxListTiles)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Extra x{bias, bs_b, bs_h, bs_q, bs_k, dropout, seed, threshold, keep_div};
+  const Extra x{bias,   bs_b,    bs_h,  bs_q, bs_k, dropout, seed, threshold, keep_div,
+                alibi2, probs, pmax, vflag};
   auto fn = D == 256 ? launch<256, false, true, false>
-            : D == 64 ? (extra ? (given != 0 ? launch<64, true, false, true>
-                                             : launch<64, false, false, true>)
-                               : (given != 0 ? launch<64, true, false, false>
-                                             : launch<64, false, false, false>))
+            : D == 64 ? (surface ? (given != 0 ? surface_launch<64, true>(probs != nullptr)
+                                               : surface_launch<64, false>(probs != nullptr))
+                         : extra ? (given != 0 ? launch<64, true, false, true>
+                                               : launch<64, false, false, true>)
+                                 : (given != 0 ? launch<64, true, false, false>
+                                               : launch<64, false, false, false>))
+            : surface    ? (given != 0 ? surface_launch<128, true>(probs != nullptr)
+                                       : surface_launch<128, false>(probs != nullptr))
             : extra      ? (given != 0 ? launch<128, true, false, true>
                                        : launch<128, false, false, true>)
             : given != 0 ? launch<128, true, false, false>

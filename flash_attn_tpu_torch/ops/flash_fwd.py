@@ -1,17 +1,19 @@
 """FlashAttention-2 forward (kernel K4, ``csrc/flash_fwd.cu``).
 
-Port of flash_attn_tpu/ops/flash_fwd.py:flash_fwd for the subset the
-Llama, Gemma-2 and GPT-2 prefill paths use: BSHD layout, GQA, head_dim
-64, 128 or 256 on the card (any in the plain version), bottom-right causal mask,
-segment ids and positions (the packed and chunked prefill's masks; at
-head_dim 64 and 128 on the card), an additive fp32 bias and reproducible
-dropout (the C ABI's attn_mask and dropout; head_dim 64 and 128 on the
-card, with or without segment ids and positions), a sliding window and the
-Gemma-2 logit softcap (at head_dim 128 and 256 on the card), q-side RoPE
-inside the kernel, softmax_mode "clamped" or "online", fp32 LSE.  fp16
-computes as bf16 and casts the output back, as JAX does.  A window or a
-softcap with segment ids, positions, a bias or dropout, ALiBi and
-return_softmax are still to port and raise ``NotImplementedError``.
+Port of flash_attn_tpu/ops/flash_fwd.py:flash_fwd: BSHD layout, GQA,
+head_dim 64, 128 or 256 on the card (any in the plain version),
+bottom-right causal mask, segment ids and positions (the packed and
+chunked prefill's masks; at head_dim 64 and 128 on the card), an additive
+fp32 bias and reproducible dropout (the C ABI's attn_mask and dropout),
+ALiBi, ``return_softmax`` and the ``clamped_verify`` flags (head_dim 64 and
+128 on the card, with or without segment ids and positions), a sliding
+window and the Gemma-2 logit softcap (at head_dim 128 and 256 on the
+card), q-side RoPE inside the kernel, softmax_mode "online", "clamped",
+"clamped_verify" or "auto", fp32 LSE.  fp16 computes as bf16 and casts
+the output back, as JAX does.  A window or a softcap with segment ids,
+positions, a bias, dropout, ALiBi, ``return_softmax`` or
+``clamped_verify`` raises ``NotImplementedError``, as does
+``FlashConfig(softmax_dtype="bf16")``.
 
 As on the TPU, the softmax scale and log2(e) are folded into q (rounded
 to the input dtype), q is rotated in fp32 and rounded again before QK^T,
@@ -22,15 +24,26 @@ kv position <= q position.  The softcap is ``c * tanh(s / c)`` on the
 scaled base-2 scores with c = cap * log2(e), before the mask
 (flash_fwd.py:363-367, 757-761).  The bias is added to the base-2
 scores as ``bias * log2(e)`` and clamped, ``max(s + bias, -1e30)``
-(flash_fwd.py:369-372, 764-766).  Dropout keeps an element where
+(flash_fwd.py:369-372, 764-766).  ALiBi subtracts ``slope_h * log2(e) *
+|i + Sk - Sq - j|`` after the bias and before the masks, on the query
+head's slope and the row and column indices (never the positions), as
+flash_fwd.py:374-388 and 872-876.  Dropout keeps an element where
 ``dropout_keep_mask`` (the JAX package's integer hash of the seed, the
 batch and query-head index and the absolute row and column) says so and
 scales it by 1 / (1 - rate) before PV; the row sums and the LSE are the
-undropped P's (flash_fwd.py:451-456).
+undropped P's (flash_fwd.py:451-456).  ``return_softmax`` has K4 write the
+post-dropout P of each 64-key tile it walks, unnormalised (2^(s - m) with
+the row's running max m, also written a tile; clamped: 2^min(s, 80)), and
+``softmax_probs`` renormalises it outside as ``P = praw * exp(m ln 2 -
+lse)`` (flash_fwd.py:1048-1061); tiles K4 skips stay 0.
+``clamped_verify`` also tracks each row's running max in the clamped
+mode, without subtracting it, and flags a row exact when it has no live
+key or its max lies in [-80, 80] (flash_fwd.py:516-524).
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
@@ -41,11 +54,41 @@ from flash_attn_tpu_torch.ops.rope import rope_rotate
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
-# Clamped-softmax score ceiling, base-2 units (flash_fwd.py:42).
+# Clamped-softmax score ceiling, base-2 units (flash_fwd.py:42), and the
+# clamped_verify window's floor (flash_fwd.py:47).
 CLAMP2 = 80.0
+VERIFY_FLOOR2 = -80.0
+SOFTMAX_MODES = ("online", "clamped", "clamped_verify", "auto")
 TILE = 64  # K4's query rows a block and keys a tile
 # K4 builds each block's list of live key tiles in shared memory
 MAX_LIST_TILES = 4096
+
+
+@dataclass(frozen=True)
+class FlashConfig:
+    """JAX's kernel configuration (flash_attn_tpu/ops/flash_fwd.py:51-116),
+    field for field, so that code written against JAX builds one.
+
+    ``softmax_mode`` is honoured: "online" (running max), "clamped" (no
+    running max, p = 2^min(s, 80); exact for natural-units logits in
+    (-87, 55]), "clamped_verify" (clamped, and ``flash_fwd`` also returns
+    each row's exactness flag) or "auto" (clamped, rerun online when a row
+    left the window).  ``block_q``, ``block_k``, ``vmem_limit_bytes``,
+    ``split_causal_mask`` and ``triangular`` are the TPU's schedule knobs:
+    K4's blocks are 64 queries by 64 keys whatever they say, so they change
+    nothing here.  ``exp2=False`` changes only roundings on the TPU (the
+    scores in natural units); K4 stays in base 2 and ignores it.
+    ``softmax_dtype="bf16"`` changes results and is not ported: it raises
+    ``NotImplementedError``."""
+
+    block_q: int = 128
+    block_k: int = 128
+    vmem_limit_bytes: int | None = None
+    exp2: bool = True
+    split_causal_mask: bool = True
+    triangular: bool = False
+    softmax_dtype: str = "f32"
+    softmax_mode: str = "online"
 
 
 class Dropout(NamedTuple):
@@ -192,14 +235,73 @@ def local_args(window, softcap):
     return (*(window or (-1, -1)), 0.0 if softcap is None else float(softcap * LOG2E))
 
 
+def alibi_arg(alibi_slopes, H: int, device):
+    """``alibi_slopes`` as an fp32 [H] tensor on ``device`` (no gradient),
+    or None."""
+    if alibi_slopes is None:
+        return None
+    if isinstance(alibi_slopes, torch.Tensor):
+        alibi_slopes = alibi_slopes.detach()
+    alibi = torch.as_tensor(alibi_slopes, dtype=torch.float32, device=device).reshape(-1)
+    if alibi.shape[0] != H:
+        raise ValueError(f"alibi_slopes must be [{H}] (one a query head), got "
+                         f"{tuple(alibi.shape)}")
+    return alibi
+
+
+def resolve_mode(softmax_mode, config) -> str:
+    """The softmax mode a call runs: ``softmax_mode`` when given, else the
+    config's ("online" without one); checks the config's softmax dtype."""
+    cfg = config or FlashConfig()
+    if cfg.softmax_dtype == "bf16":
+        raise NotImplementedError("FlashConfig(softmax_dtype='bf16') is not ported yet")
+    if cfg.softmax_dtype != "f32":
+        raise ValueError(f"unknown softmax_dtype {cfg.softmax_dtype!r}")
+    mode = cfg.softmax_mode if softmax_mode is None else softmax_mode
+    if mode not in SOFTMAX_MODES:
+        raise ValueError(f"unknown softmax_mode {mode!r}")
+    return mode
+
+
+def clamped_lse_valid(lse, seqlen_q: int, seqlen_k: int, *, causal: bool = False, window=None):
+    """A 0-d bool tensor: every row of a clamped-mode forward was exact
+    (flash_attn_tpu/ops/flash_fwd.py:543-582).  Reads only the [B, H, Sq]
+    lse: a clamped element forces lse >= CLAMP2 ln 2, and lse >=
+    VERIFY_FLOOR2 ln 2 bounds the mass lost to underflow below fp32
+    rounding; lse = -1e30 is exact only where the row is dead by causal
+    and window liveness (other masks need ``clamped_verify``)."""
+    i = torch.arange(seqlen_q, dtype=torch.int32, device=lse.device)
+    shift = seqlen_k - seqlen_q
+    lo = torch.zeros_like(i)
+    if causal:
+        hi = torch.clamp(i + shift, max=seqlen_k - 1)
+    else:
+        hi = torch.full_like(i, seqlen_k - 1)
+    if window is not None:
+        wl, wr = window
+        if wl >= 0:
+            lo = torch.clamp(i + shift - wl, min=0)
+        if wr >= 0:
+            hi = torch.minimum(hi, i + shift + wr)
+    row_live = hi >= lo
+    finite = lse > NEG_INF / 2
+    ok_rows = torch.where(finite, (lse <= CLAMP2 * LN2) & (lse >= VERIFY_FLOOR2 * LN2),
+                          ~row_live[None, None, :])
+    return ok_rows.all()
+
+
 def flash_fwd(q, k, v, *, bias=None, causal: bool = False, scale: float | None = None,
               dropout_rate: float = 0.0, dropout_seed=0,
-              rope_cos=None, rope_sin=None, softmax_mode: str = "online",
+              rope_cos=None, rope_sin=None, softmax_mode: str | None = None,
               q_segment_ids=None, kv_segment_ids=None, q_positions=None,
               kv_positions=None, window=None, logit_softcap: float | None = None,
-              **unported):
+              alibi_slopes=None, config: FlashConfig | None = None,
+              return_softmax: bool = False, **unported):
     """q: [B, Sq, H, D]; k, v: [B, Sk, Hk, D].  Returns (out [B, Sq, H, D]
-    in q.dtype, lse [B, H, Sq] fp32).
+    in q.dtype, lse [B, H, Sq] fp32); with ``return_softmax`` also the
+    post-dropout probabilities [B, H, Sq, Sk] fp32, with softmax_mode
+    "clamped_verify" also each row's exactness flag [B, H, Sq] fp32 (1
+    exact, 0 not).
 
     bias: an additive fp32 bias that broadcasts to [B, H, Sq, Sk] (natural
     units; -inf entries are dead).  dropout_rate / dropout_seed (an int32):
@@ -212,12 +314,27 @@ def flash_fwd(q, k, v, *, bias=None, causal: bool = False, scale: float | None =
     or a chunk over a cache).  window (left, right): query i sees key j
     only where i + Sk - Sq - left <= j <= i + Sk - Sq + right, -1 leaving
     a side open (bottom-right aligned, as causal is).  logit_softcap:
-    scores become cap * tanh(s / cap) before the masks.  A row with no
-    live key gives 0 and lse -1e30."""
+    scores become cap * tanh(s / cap) before the masks.  alibi_slopes
+    ([H]): -slope_h * |i + Sk - Sq - j| on the scores (``ops/alibi``).
+    softmax_mode: as ``FlashConfig.softmax_mode``, over the config's
+    (``config``, default ``FlashConfig()``); "auto" on the card reads one
+    flag on the host (one synchronisation) and so raises under CUDA graph
+    capture.  A row with no live key gives 0 and lse -1e30."""
     for name, val in unported.items():
         if val is None or val is False or (isinstance(val, float) and val == 0.0):
             continue
         raise NotImplementedError(f"flash_fwd option {name!r} is not ported yet")
+    mode = resolve_mode(softmax_mode, config)
+    if mode == "auto":
+        return _auto(q, k, v, dict(
+            bias=bias, causal=causal, scale=scale, dropout_rate=dropout_rate,
+            dropout_seed=dropout_seed, rope_cos=rope_cos, rope_sin=rope_sin,
+            q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+            q_positions=q_positions, kv_positions=kv_positions, window=window,
+            logit_softcap=logit_softcap, alibi_slopes=alibi_slopes), return_softmax)
+    verify = mode == "clamped_verify"
+    if verify and return_softmax:
+        raise ValueError("clamped_verify does not compose with return_softmax")
     dtype = q.dtype
     if dtype == torch.float16:
         # fp16 computes as bf16 and the output is cast back (flash_fwd.py:636-656)
@@ -226,8 +343,6 @@ def flash_fwd(q, k, v, *, bias=None, causal: bool = False, scale: float | None =
     _, Sk, Hk, _ = k.shape
     if H % Hk:
         raise ValueError(f"num_heads {H} not divisible by num_heads_k {Hk}")
-    if softmax_mode not in ("online", "clamped"):
-        raise NotImplementedError(f"softmax_mode {softmax_mode!r} is not ported yet")
     if (rope_cos is None) != (rope_sin is None):
         raise ValueError("rope_cos and rope_sin go together")
     if rope_cos is not None and rope_cos.shape[-2:] != (Sq, D // 2):
@@ -236,19 +351,67 @@ def flash_fwd(q, k, v, *, bias=None, causal: bool = False, scale: float | None =
     window = _window(window)
     bias = bias4(bias, B, H, Sq, Sk)
     dropout = dropout_arg(dropout_rate, dropout_seed)
+    alibi = alibi_arg(alibi_slopes, H, q.device)
     if (window is not None or logit_softcap is not None) and (
-            masks is not None or bias is not None or dropout is not None):
+            masks is not None or bias is not None or dropout is not None or alibi is not None
+            or return_softmax or verify):
         raise NotImplementedError("flash_fwd: a window or a softcap with segment ids, "
-                                  "positions, a bias or dropout is not ported yet")
+                                  "positions, a bias, dropout, ALiBi, return_softmax or "
+                                  "clamped_verify is not ported yet")
     if logit_softcap is not None and not logit_softcap > 0:
         raise ValueError(f"logit_softcap must be > 0, got {logit_softcap}")
     if scale is None:
         scale = D ** -0.5
-    clamped = softmax_mode == "clamped"
+    clamped = mode != "online"
     args = (q, k, v, causal, scale, rope_cos, rope_sin, clamped, masks, window, logit_softcap,
             bias, dropout)
-    out, lse = flash_fwd_cuda(*args) if q.is_cuda else flash_fwd_plain(*args)
-    return out.to(dtype), lse
+    fn = flash_fwd_cuda if q.is_cuda else flash_fwd_plain
+    res = fn(*args, alibi=alibi, probs=return_softmax, verify=verify)
+    out, lse = res[0].to(dtype), res[1]
+    if return_softmax:
+        return out, lse, softmax_probs(res[2], res[3], lse, Sk)
+    if verify:
+        return out, lse, res[2]
+    return out, lse
+
+
+def _auto(q, k, v, kw, return_softmax):
+    """softmax_mode "auto" (flash_fwd.py:679-744): the clamped call, and
+    the online one when some row left the clamped mode's exact window.
+    Without a bias, segment ids or positions the clamped lse decides
+    (``clamped_lse_valid``), else the clamped_verify flags.  JAX decides on
+    the device (``lax.cond``); here the flag is read on the host."""
+    if return_softmax:
+        return flash_fwd(q, k, v, softmax_mode="online", return_softmax=True, **kw)
+    if q.is_cuda and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("flash_fwd softmax_mode='auto' reads a flag on the host and cannot "
+                           "be captured in a CUDA graph; pass 'clamped' or 'online'")
+    if kw["bias"] is None and kw["q_segment_ids"] is None and kw["q_positions"] is None:
+        out, lse = flash_fwd(q, k, v, softmax_mode="clamped", **kw)
+        ok = clamped_lse_valid(lse, q.shape[1], k.shape[1], causal=kw["causal"],
+                               window=_window(kw["window"]))
+    else:
+        out, lse, valid = flash_fwd(q, k, v, softmax_mode="clamped_verify", **kw)
+        ok = valid.min() > 0.5
+    if bool(ok):
+        return out, lse
+    return flash_fwd(q, k, v, softmax_mode="online", **kw)
+
+
+def softmax_probs(praw, pmax, lse, Sk: int):
+    """The probabilities [B, H, Sq, Sk] from K4's (or its plain version's)
+    unnormalised tiles, in place: ``praw`` [B, H, Sq, nk*64] times exp(m
+    ln 2 - lse) with ``pmax`` [B, H, Sq, nk] the running max m of each tile
+    (base 2; None in clamped mode, m = 0); rows with lse -1e30 are 0
+    (flash_fwd.py:1048-1061).  A view when Sk is not a multiple of 64."""
+    B, H, Sq, W = praw.shape
+    if pmax is None:
+        scale = torch.exp(-lse)[..., None, None]
+    else:
+        scale = torch.exp(pmax * LN2 - lse[..., None])[..., None]
+    p = praw.view(B, H, Sq, W // TILE, TILE).mul_(scale).view(B, H, Sq, W)
+    p.masked_fill_((lse <= NEG_INF / 2)[..., None], 0.0)
+    return p[..., :Sk]
 
 
 def live_pairs(masks: Masks | None, causal: bool, Sq: int, Sk: int, device, window=None):
@@ -273,12 +436,25 @@ def live_pairs(masks: Masks | None, causal: bool, Sq: int, Sk: int, device, wind
     return live
 
 
+def alibi_dist(Sq: int, Sk: int, device):
+    """[Sq, Sk] fp32 |i + Sk - Sq - j|: ALiBi's distance, by index."""
+    rows = torch.arange(Sq, device=device)[:, None] + (Sk - Sq)
+    cols = torch.arange(Sk, device=device)[None, :]
+    return (rows - cols).abs().float()
+
+
 def flash_fwd_plain(q, k, v, causal, scale, rope_cos, rope_sin, clamped, masks=None,
-                    window=None, softcap=None, bias=None, dropout=None, head0=0):
+                    window=None, softcap=None, bias=None, dropout=None, head0=0, *,
+                    alibi=None, probs=False, verify=False):
     """Plain PyTorch version of K4 (whole rows at once, same roundings).
     ``bias``: fp32 [B, H, Sq, Sk] (a view); ``dropout``: a ``Dropout``;
     ``head0``: the index of q's first query head, which keys the dropout
-    (0 but for a run over a slice of the heads)."""
+    (0 but for a run over a slice of the heads); ``alibi``: fp32 [H]
+    slopes.  Returns (out, lse), with ``probs`` also K4's unnormalised
+    tiles and their running maxima (``softmax_probs``' inputs: each 64-key
+    tile's 2^(s - m) after dropout, m the running max of the row over the
+    tiles up to it; None in clamped mode), with ``verify`` (clamped) also
+    the exactness flags [B, H, Sq] fp32."""
     B, Sq, H, D = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
     qs = (q.float() * (scale * LOG2E)).to(q.dtype)
@@ -293,6 +469,8 @@ def flash_fwd_plain(q, k, v, causal, scale, rope_cos, rope_sin, clamped, masks=N
     if bias is not None:
         # base-2 units, clamped so that -inf entries stay finite
         s = torch.clamp(s + bias * LOG2E, min=NEG_INF)
+    if alibi is not None:
+        s = s - (alibi.float() * LOG2E)[None, :, None, None] * alibi_dist(Sq, Sk, q.device)
     if causal or masks is not None or window is not None:
         live = live_pairs(masks, causal, Sq, Sk, q.device, window)
         s = s.masked_fill(~live[:, None], NEG_INF)
@@ -303,11 +481,19 @@ def flash_fwd_plain(q, k, v, causal, scale, rope_cos, rope_sin, clamped, masks=N
         m = s.amax(dim=-1, keepdim=True)
         p = torch.exp2(s - m)
     l = p.sum(dim=-1)  # [B, H, Sq]
+    keep = div = None
     if dropout is not None:
         keep = keep_mask(dropout, B, H, Sq, Sk, q.device, head0)
         div = torch.full((), 1.0 - dropout.rate, dtype=torch.float32, device=q.device)
         p = torch.where(keep, p / div, torch.zeros((), device=q.device))
-        del keep
+    extra = ()
+    if probs:
+        extra = _plain_tiles(s, clamped, keep, div)
+    del keep
+    if verify:
+        mrow = s.amax(dim=-1)
+        extra = (((l <= 0) | ((mrow <= CLAMP2) & (mrow >= VERIFY_FLOOR2))).float(),)
+    del s
     o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), vf)
     ok = l > 0
     lse = torch.log(torch.where(ok, l, torch.ones_like(l)))
@@ -317,7 +503,26 @@ def flash_fwd_plain(q, k, v, causal, scale, rope_cos, rope_sin, clamped, masks=N
     lse = torch.where(ok, lse, torch.full_like(lse, NEG_INF))
     l_b = torch.where(ok, l, torch.ones_like(l)).transpose(1, 2)[..., None]
     out = torch.where(ok.transpose(1, 2)[..., None], o / l_b, torch.zeros_like(o))
-    return out.to(q.dtype), lse
+    return (out.to(q.dtype), lse, *extra)
+
+
+def _plain_tiles(s, clamped, keep, div):
+    """(praw [B, H, Sq, nk*64], pmax [B, H, Sq, nk] or None) as K4 writes
+    them for ``return_softmax``, from the masked base-2 scores ``s``: each
+    64-key tile's 2^(s - m) with m the running max over the tiles up to it
+    (clamped: 2^min(s, 80)), dropped by ``keep`` / ``div``."""
+    B, H, Sq, Sk = s.shape
+    nk = -(-Sk // TILE)
+    sp = torch.nn.functional.pad(s, (0, nk * TILE - Sk), value=NEG_INF)
+    if clamped:
+        praw, pmax = torch.exp2(torch.clamp(sp, max=CLAMP2)), None
+    else:
+        tiles = sp.view(B, H, Sq, nk, TILE)
+        pmax = torch.cummax(tiles.amax(dim=-1), dim=-1).values
+        praw = torch.exp2(tiles - pmax[..., None]).view(B, H, Sq, nk * TILE)
+    if keep is not None:
+        praw[..., :Sk] = torch.where(keep, praw[..., :Sk] / div, torch.zeros((), device=s.device))
+    return praw, pmax
 
 
 def tile_meta(segment_ids, positions, B: int, S: int):
@@ -372,21 +577,36 @@ def extra_args(bias, dropout):
             dropout_threshold(dropout.rate), 1.0 - dropout.rate)
 
 
+def surface_args(alibi2=None, praw=None, pmax=None, valid=None):
+    """The ALiBi slopes (times log2 e), the unnormalised-P and running-max
+    buffers of ``return_softmax`` and the clamped_verify flags, as K4's C
+    entry takes them after the dropout's (null for none)."""
+    return tuple(_build.ptr(t) for t in (alibi2, praw, pmax, valid))
+
+
 def flash_fwd_cuda(q, k, v, causal, scale, rope_cos, rope_sin, clamped, masks=None,
-                   window=None, softcap=None, bias=None, dropout=None):
+                   window=None, softcap=None, bias=None, dropout=None, *, alibi=None,
+                   probs=False, verify=False):
     """Launch K4.  Replaces flash_attn_tpu/ops/flash_fwd.py:_fwd_kernel;
     bound by operations (see the source note in csrc/flash_fwd.cu).  A
     window or a softcap runs an instance of its own (kLocal) at head_dim
     128 or 256; at 64, or with masks, it raises.  A bias or dropout runs
     an instance of its own (kExtra) at head_dim 64 or 128, with or without
-    masks.  With masks it counts its
+    masks; ALiBi (``alibi``: fp32 [H] slopes), ``probs`` (return_softmax)
+    or ``verify`` (clamped_verify) one beside it that extends it
+    (kSurface).  Returns (out, lse), with
+    ``probs`` also praw and pmax (``softmax_probs``' inputs; pmax None when
+    clamped), with ``verify`` also the flags.  With masks it counts its
     launches also in ``.seg_launches`` (segment ids given) and
     ``.pos_launches`` (positions given); at head_dim 256 also in
     ``.d256_launches``, at 64 in ``.d64_launches``, with a window in
     ``.window_launches``, every launch of a kLocal instance (a window
     or a softcap, at any head dim: D = 256 always) in
-    ``.local_launches``, and every launch of a kExtra instance in
-    ``.extra_launches`` (with dropout also in ``.dropout_launches``)."""
+    ``.local_launches``, and every launch of a kExtra or kSurface
+    instance in ``.extra_launches`` (with dropout also in
+    ``.dropout_launches``, with
+    ALiBi in ``.alibi_launches``, with probs in ``.probs_launches``, with
+    the flags in ``.verify_launches``)."""
     B, Sq, H, D = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
@@ -395,13 +615,16 @@ def flash_fwd_cuda(q, k, v, causal, scale, rope_cos, rope_sin, clamped, masks=No
         raise ValueError(f"K4 takes head_dim 64 (GPT-2), 128 (Llama-3) or 256 (Gemma-2-9B), "
                          f"got {D}")
     local = window is not None or softcap is not None
-    extra = bias is not None or dropout is not None
+    surface = alibi is not None or probs or verify
+    extra = bias is not None or dropout is not None or surface
     if D == 256 and (masks is not None or extra):
-        raise NotImplementedError("K4 takes segment ids, positions, a bias and dropout at "
-                                  "head_dim 64 and 128")
+        raise NotImplementedError("K4 takes segment ids, positions, a bias, dropout, ALiBi, "
+                                  "return_softmax and clamped_verify at head_dim 64 and 128")
     if local and (D == 64 or masks is not None or extra):
         raise NotImplementedError("K4 takes a window and a softcap at head_dim 128 and 256, "
                                   "without segment ids, positions, a bias or dropout")
+    if verify and not clamped:
+        raise ValueError("K4's clamped_verify flags come with the clamped mode")
     tensors = [q, k, v]
     bstride = 0
     if rope_cos is not None:
@@ -420,34 +643,50 @@ def flash_fwd_cuda(q, k, v, causal, scale, rope_cos, rope_sin, clamped, masks=No
             raise ValueError(f"K4 with masks takes Sk <= {MAX_LIST_TILES * TILE}, got {Sk}")
     if bias is not None and (not bias.is_cuda or bias.dtype != torch.float32):
         raise ValueError("K4 takes an fp32 CUDA bias")
+    if alibi is not None and (not alibi.is_cuda or alibi.shape != (H,)):
+        raise ValueError(f"K4 takes [{H}] CUDA ALiBi slopes")
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    alibi2 = None if alibi is None else (alibi.float() * LOG2E).contiguous()
+    nk = -(-Sk // TILE)
+    praw = pmax = valid = None
+    if probs:
+        # tiles K4 skips stay 0 (praw) and -1e30 (pmax): P = 0 there
+        praw = torch.zeros((B, H, Sq, nk * TILE), dtype=torch.float32, device=q.device)
+        if not clamped:
+            pmax = torch.full((B, H, Sq, nk), NEG_INF, dtype=torch.float32, device=q.device)
+    if verify:
+        valid = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     p = _build.ptr
     tiles = (None,) * 4 if masks is None else _tiles(masks, B, Sq, Sk)
     rc = _build.lib().fatt_flash_fwd(
         p(q), p(k), p(v), p(rope_cos), p(rope_sin), p(out), p(lse), *(p(t) for t in tiles),
         None, B, Sq, Sk, H, Hk, D, bstride, float(scale * LOG2E), int(causal), int(clamped),
-        *local_args(window, softcap), *extra_args(bias, dropout), _build.stream())
+        *local_args(window, softcap), *extra_args(bias, dropout),
+        *surface_args(alibi2, praw, pmax, valid), _build.stream())
     _build.check(rc, "fatt_flash_fwd")
-    flash_fwd_cuda.launches += 1
+    fn = flash_fwd_cuda
+    fn.launches += 1
     if masks is not None:
-        flash_fwd_cuda.seg_launches += masks.q_segment_ids is not None
-        flash_fwd_cuda.pos_launches += masks.q_positions is not None
-    flash_fwd_cuda.d256_launches += D == 256
-    flash_fwd_cuda.d64_launches += D == 64
-    flash_fwd_cuda.window_launches += window is not None
-    flash_fwd_cuda.local_launches += local or D == 256
-    flash_fwd_cuda.extra_launches += extra
-    flash_fwd_cuda.dropout_launches += dropout is not None
+        fn.seg_launches += masks.q_segment_ids is not None
+        fn.pos_launches += masks.q_positions is not None
+    fn.d256_launches += D == 256
+    fn.d64_launches += D == 64
+    fn.window_launches += window is not None
+    fn.local_launches += local or D == 256
+    fn.extra_launches += extra
+    fn.dropout_launches += dropout is not None
+    fn.alibi_launches += alibi is not None
+    fn.probs_launches += bool(probs)
+    fn.verify_launches += bool(verify)
+    if probs:
+        return out, lse, praw, pmax
+    if verify:
+        return out, lse, valid
     return out, lse
 
 
-flash_fwd_cuda.launches = 0
-flash_fwd_cuda.seg_launches = 0
-flash_fwd_cuda.pos_launches = 0
-flash_fwd_cuda.d256_launches = 0
-flash_fwd_cuda.d64_launches = 0
-flash_fwd_cuda.window_launches = 0
-flash_fwd_cuda.local_launches = 0
-flash_fwd_cuda.extra_launches = 0
-flash_fwd_cuda.dropout_launches = 0
+for _name in ("launches", "seg_launches", "pos_launches", "d256_launches", "d64_launches",
+              "window_launches", "local_launches", "extra_launches", "dropout_launches",
+              "alibi_launches", "probs_launches", "verify_launches"):
+    setattr(flash_fwd_cuda, _name, 0)

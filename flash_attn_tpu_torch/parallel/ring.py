@@ -25,8 +25,10 @@ S_loc - 1 keys).
 Options as the single-device kernels take them: causal, GQA, dropout
 (each (q-shard, kv-shard) pair seeded by ``_step_seed``; the backward
 replays it), an additive bias [B, H, S, S] sharded on its query axis
-(forward; backward only for a bias that needs no gradient: the port has
-no dbias) and ``logit_softcap`` without a bias or dropout.  A window
+(with its gradient when it requires one: each step's column block of
+dS goes into a full-K fp32 accumulator of the rank's rows, as JAX's
+``_ring_core_bwd`` does, ring.py:256, 292, 311-349, 364-370) and
+``logit_softcap`` without a bias or dropout.  A window
 raises ``NotImplementedError``: the contiguous window goes through K4's
 positions path, which refuses a window.  Every refusal comes before any
 launch.  Each step's output is rounded to q's dtype and taken to fp32
@@ -97,9 +99,6 @@ def _refuse(q, bias, *, layout, causal, window, logit_softcap, dropout_rate, n, 
     if _window(window) is not None:
         raise NotImplementedError("ring window: the contiguous window goes through K4's "
                                   "positions path, which does not take a window yet")
-    if bias is not None and bias.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError("ring attention: a bias that requires grad (dbias) is not "
-                                  "ported yet")
     if logit_softcap is not None and (bias is not None or float(dropout_rate) > 0.0):
         raise NotImplementedError("ring attention: a softcap with a bias or dropout is not "
                                   "ported yet (flash_fwd refuses it)")
@@ -152,16 +151,19 @@ def _ring_fwd(mesh, axis, qs, ks, vs, bs, opts):
             [lse.clamp(min=NEG_INF) for lse in lses])
 
 
-def _ring_bwd(mesh, axis, qs, ks, vs, bs, outs, lses, douts, opts):
+def _ring_bwd(mesh, axis, qs, ks, vs, bs, outs, lses, douts, opts, want_dbias=False):
     """The backward ring: each step's gradients from the merged LSE; dq
     stays on its rank, dk/dv rotate with the shard and come home after n
-    steps.  Returns per-rank dq, dk, dv in the inputs' dtypes."""
+    steps.  Returns per-rank dq, dk, dv in the inputs' dtypes, and per-rank
+    dbias (fp32, the shape of the rank's bias rows) or None."""
     n = len(qs)
     s_loc = qs[0].shape[1]
     striped = opts["layout"] == "striped"
     dqs = [torch.zeros(q.shape, dtype=torch.float32, device=q.device) for q in qs]
     dkc = [torch.zeros(k.shape, dtype=torch.float32, device=k.device) for k in ks]
     dvc = [torch.zeros(v.shape, dtype=torch.float32, device=v.device) for v in vs]
+    dbs = ([torch.zeros(b.shape, dtype=torch.float32, device=b.device) for b in bs]
+           if want_dbias else None)
     kc, vc = list(ks), list(vs)
     for t in range(n):
         kn, vn = ppermute(mesh, kc, axis), ppermute(mesh, vc, axis)
@@ -172,11 +174,19 @@ def _ring_bwd(mesh, axis, qs, ks, vs, bs, outs, lses, douts, opts):
                 continue
             k_t, v_t, b_t = _kv_step(kc[my], vc[my], _slice_bias_cols(bs[my], kv_idx, s_loc),
                                      step[1])
-            dq, dk, dv = flash_bwd(qs[my], k_t, v_t, outs[my], lses[my], douts[my],
-                                   causal=step[0], scale=opts["scale"], bias=b_t,
-                                   logit_softcap=opts["logit_softcap"],
-                                   dropout_rate=opts["dropout_rate"],
-                                   dropout_seed=_step_seed(opts["seed"], my, kv_idx, n))
+            g = flash_bwd(qs[my], k_t, v_t, outs[my], lses[my], douts[my],
+                          causal=step[0], scale=opts["scale"], bias=b_t,
+                          logit_softcap=opts["logit_softcap"],
+                          dropout_rate=opts["dropout_rate"],
+                          dropout_seed=_step_seed(opts["seed"], my, kv_idx, n),
+                          want_dbias=want_dbias)
+            dq, dk, dv = g[:3]
+            if want_dbias:
+                # this step's bias columns, into the full-K accumulator at the
+                # block they were sliced from (a strict step's last column
+                # saw no query: 0)
+                c0 = kv_idx * s_loc
+                dbs[my][..., c0:c0 + g[3].shape[-1]] += g[3].float()
             if step[1]:  # the last key saw no query: zero gradient
                 pad = (0, 0, 0, 0, 0, 1)
                 dk, dv = (torch.nn.functional.pad(g, pad) for g in (dk, dv))
@@ -186,37 +196,47 @@ def _ring_bwd(mesh, axis, qs, ks, vs, bs, outs, lses, douts, opts):
         dkc, dvc = ppermute(mesh, dkc, axis), ppermute(mesh, dvc, axis)
         kc, vc = kn, vn
     return ([g.to(x.dtype) for g, x in zip(dqs, qs)], [g.to(x.dtype) for g, x in zip(dkc, ks)],
-            [g.to(x.dtype) for g, x in zip(dvc, vs)])
+            [g.to(x.dtype) for g, x in zip(dvc, vs)], dbs)
 
 
 class _Ring(torch.autograd.Function):
     """The whole ring, forward and backward, on global tensors: q, k, v
-    split over the axis, the bias over its query axis."""
+    split over the axis, the bias over its query axis (its gradient,
+    when it requires one, gathered back the same way)."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, mesh, axis, opts):
         spec = (None, axis, None, None)
         qs, ks, vs = (shard(mesh, x, spec) for x in (q, k, v))
         bs = ([None] * len(qs) if bias is None
-              else shard(mesh, bias, (None, None, axis, None)))
+              else shard(mesh, bias, _bias_spec(axis)))
         outs, lses = _ring_fwd(mesh, axis, qs, ks, vs, bs, opts)
         out = unshard(mesh, outs, spec, q.device)
-        ctx.save_for_backward(q, k, v, out, unshard(mesh, lses, (None, None, axis), q.device))
-        ctx.bias, ctx.mesh, ctx.axis, ctx.opts = bias, mesh, axis, opts
+        ctx.save_for_backward(q, k, v, out, unshard(mesh, lses, (None, None, axis), q.device),
+                              bias)
+        ctx.mesh, ctx.axis, ctx.opts = mesh, axis, opts
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
+        q, k, v, out, lse, bias = ctx.saved_tensors
         mesh, axis = ctx.mesh, ctx.axis
         spec = (None, axis, None, None)
         qs, ks, vs, outs, douts = (shard(mesh, x, spec) for x in (q, k, v, out, dout))
         lses = shard(mesh, lse, (None, None, axis))
-        bs = ([None] * len(qs) if ctx.bias is None
-              else shard(mesh, ctx.bias, (None, None, axis, None)))
-        dqs, dks, dvs = _ring_bwd(mesh, axis, qs, ks, vs, bs, outs, lses, douts, ctx.opts)
+        bs = ([None] * len(qs) if bias is None else shard(mesh, bias, _bias_spec(axis)))
+        want_dbias = bias is not None and ctx.needs_input_grad[3]
+        dqs, dks, dvs, dbs = _ring_bwd(mesh, axis, qs, ks, vs, bs, outs, lses, douts, ctx.opts,
+                                       want_dbias)
+        dbias = (unshard(mesh, dbs, _bias_spec(axis), bias.device).to(bias.dtype)
+                 if want_dbias else None)
         return (unshard(mesh, dqs, spec, q.device), unshard(mesh, dks, spec, k.device),
-                unshard(mesh, dvs, spec, v.device), None, None, None, None)
+                unshard(mesh, dvs, spec, v.device), dbias, None, None, None)
+
+
+def _bias_spec(axis):
+    """The bias's split: its query axis over the ring."""
+    return (None, None, axis, None)
 
 
 def ring_attention(q, k, v, *, mesh, axis_name: str = SEQUENCE_AXIS, causal: bool = False,
@@ -228,8 +248,9 @@ def ring_attention(q, k, v, *, mesh, axis_name: str = SEQUENCE_AXIS, causal: boo
     q: [B, S, H, D]; k, v: [B, S, Hk, D], global, split over the ranks
     along S (striped layouts take ``stripe_sequence`` order and give it
     back).  bias: [B, H, S, S] additive, split on its query axis, its key
-    columns in layout order.  Returns out [B, S, H, D] in q's dtype,
-    differentiable w.r.t. q, k and v."""
+    columns in layout order (a striped ring: both axes striped).  Returns
+    out [B, S, H, D] in q's dtype, differentiable w.r.t. q, k, v and the
+    bias."""
     n = len(mesh.axis_devices(axis_name))
     grad = torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v))
     _refuse(q, bias, layout=layout, causal=causal, window=window, logit_softcap=logit_softcap,

@@ -269,28 +269,28 @@ def test_varlen_autograd_matches_jax():
 
 def test_dense_autograd_with_options_matches_jax():
     """flash_attention with a mask, dropout and segment ids, differentiable
-    w.r.t. q, k and v, against jax.grad; a mask that requires grad (dbias)
-    raises."""
+    w.r.t. q, k, v and the mask (dbias: K9's dS summed over the heads and
+    the batch), against jax.grad."""
     q, k, v, w = inputs(15)
     masks = packed_masks(16)
     seg = dict(q_segment_ids=masks["q_segment_ids"], kv_segment_ids=masks["kv_segment_ids"])
     mask = bias_of(17, (SQ, SK))
     kw = dict(causal=True, dropout_rate=0.1, dropout_seed=4)
 
-    def jloss(q_, k_, v_):
-        out = j_flash_attention(q_, k_, v_, mask=jnp.asarray(mask), interpret=True, **kw,
+    def jloss(q_, k_, v_, m_):
+        out = j_flash_attention(q_, k_, v_, mask=m_, interpret=True, **kw,
                                 **{n: jnp.asarray(x) for n, x in seg.items()})
         return jnp.sum(out * w)
 
-    want = jax.grad(jloss, argnums=(0, 1, 2))(q, k, v)
+    want = jax.grad(jloss, argnums=(0, 1, 2, 3))(q, k, v, jnp.asarray(mask))
     tq, tk, tv = (T(x).requires_grad_(True) for x in (q, k, v))
+    tm = torch.from_numpy(mask).requires_grad_(True)
     tseg = {n: torch.from_numpy(x) for n, x in seg.items()}
-    out = flash_attention(tq, tk, tv, mask=torch.from_numpy(mask), **kw, **tseg)
+    out = flash_attention(tq, tk, tv, mask=tm, **kw, **tseg)
     (out * T(w)).sum().backward()
-    for g, wg, name in zip((tq.grad, tk.grad, tv.grad), want, ("dq", "dk", "dv")):
+    for g, wg, name in zip((tq.grad, tk.grad, tv.grad, tm.grad), want,
+                           ("dq", "dk", "dv", "dmask")):
         assert rel_err(g, wg) < GRAD_TOL, name
-    with pytest.raises(NotImplementedError, match="dbias"):
-        flash_attention(tq, tk, tv, mask=torch.from_numpy(mask).requires_grad_(True), **kw)
 
 
 # --- packed-document training ---------------------------------------------------

@@ -27,6 +27,7 @@ from flash_attn_tpu_torch import bridge
 from flash_attn_tpu_torch.ops import quant as tquant
 from flash_attn_tpu_torch.ops.attention import flash_attention
 from flash_attn_tpu_torch.ops.decode import TILE, flash_decode, flash_decode_chunk, split_bounds
+from flash_attn_tpu_torch.ops.flash_fwd import FlashConfig
 from flash_attn_tpu_torch.ops.kv_append import kv_append_token
 from flash_attn_tpu_torch.ops.lse import lse_merge
 from flash_attn_tpu_torch.ops.matmul import matmul_int8, quantized_matmul
@@ -504,11 +505,17 @@ def test_flash_fwd_plain_matches_reference(case, softmax_mode):
 
 
 def test_flash_attention_rejects_unported_options():
-    """A window with positions, a mask, or dropout; ALiBi; return_softmax;
-    a mask that needs a gradient (dbias).  The mask and dropout alone run
-    (tests/test_torch_fa2_options.py)."""
+    """A window with positions, a mask, or dropout; ALiBi with a window or
+    a softcap; softmax_dtype "bf16".  The mask and dropout alone run
+    (tests/test_torch_fa2_options.py), and so do ALiBi, return_softmax and
+    a mask that needs a gradient (tests/test_torch_fa2_surface.py)."""
     q = torch.zeros(1, 8, 2, 32, dtype=torch.bfloat16)
     ids = torch.zeros(1, 8, dtype=torch.int32)
+    assert flash_attention(q, q, q, alibi_slopes=torch.ones(2)).shape == q.shape
+    assert flash_attention(q, q, q, return_softmax=True)[2].shape == (1, 2, 8, 8)
+    m = torch.zeros(8, 8, requires_grad=True)
+    flash_attention(q, q, q, mask=m).float().sum().backward()
+    assert m.grad.shape == (8, 8)
     with pytest.raises(NotImplementedError):  # a window with positions
         flash_attention(q, q, q, window=(4, 0), q_positions=ids, kv_positions=ids)
     with pytest.raises(NotImplementedError):
@@ -516,8 +523,8 @@ def test_flash_attention_rejects_unported_options():
     with pytest.raises(NotImplementedError):
         flash_attention(q, q, q, logit_softcap=30.0, dropout_rate=0.1)
     with pytest.raises(NotImplementedError):
-        flash_attention(q, q, q, alibi_slopes=torch.ones(2))
+        flash_attention(q, q, q, alibi_slopes=torch.ones(2), window=(4, -1))
     with pytest.raises(NotImplementedError):
-        flash_attention(q, q, q, return_softmax=True)
-    with pytest.raises(NotImplementedError, match="dbias"):
-        flash_attention(q, q, q, mask=torch.zeros(8, 8, requires_grad=True))
+        flash_attention(q, q, q, alibi_slopes=torch.ones(2), logit_softcap=30.0)
+    with pytest.raises(NotImplementedError, match="bf16"):
+        flash_attention(q, q, q, config=FlashConfig(softmax_dtype="bf16"))

@@ -290,16 +290,17 @@ def test_ring_softcap(mesh4):
 
 
 def test_ring_refusals_before_any_launch(mesh4, monkeypatch):
-    """A window, a bias that requires grad and a softcap with a bias or
-    dropout raise before the ring calls its first kernel; a bad layout is a
-    ValueError."""
+    """A window (contiguous, and striped as in JAX) and a softcap with a
+    bias or dropout raise before the ring calls its first kernel; a bad
+    layout is a ValueError.  A bias that requires grad runs
+    (tests/test_torch_fa2_surface.py)."""
     calls = []
     monkeypatch.setattr(ring, "flash_fwd", lambda *a, **kw: calls.append(1))
     q, k, v, _ = (T(x) for x in arrays(15, s=64))
     bias = torch.zeros((1, 4, 64, 64), requires_grad=True)
     cases = [
         (NotImplementedError, dict(window=(16, 0), causal=True), ()),
-        (NotImplementedError, dict(has_bias=True), (bias,)),
+        (NotImplementedError, dict(window=(16, 0), causal=True, layout="striped"), ()),
         (NotImplementedError, dict(has_bias=True, logit_softcap=5.0), (bias.detach(),)),
         (NotImplementedError, dict(dropout_rate=0.1, logit_softcap=5.0), ()),
         (ValueError, dict(layout="zigzag"), ()),

@@ -286,23 +286,28 @@ def test_tile_metadata_is_made_once_for_the_same_masks():
 def test_flash_attention_varlen_matches_jax(causal):
     """Three sequences with Sq != Sk per sequence and padding on both
     sides, fp32, against JAX's flash_attention_varlen in interpret mode
-    (causal: bottom-right per sequence pair, through positions)."""
+    (causal: bottom-right per sequence pair, through positions): out and
+    lse, and with ``return_softmax`` the probabilities [H, total_q,
+    total_k] too."""
     r = np.random.default_rng(7)
     cu_q, cu_k = np.array([0, 5, 12, 20], np.int32), np.array([0, 9, 15, 30], np.int32)
     q = jnp.asarray(r.standard_normal((24, H, D)), jnp.float32)
     k = jnp.asarray(r.standard_normal((32, HK, D)), jnp.float32)
     v = jnp.asarray(r.standard_normal((32, HK, D)), jnp.float32)
-    jo, jl = j_varlen(q, k, v, jnp.asarray(cu_q), jnp.asarray(cu_k), causal=causal,
-                      return_lse=True, interpret=True)
+    jo, jl, jp = j_varlen(q, k, v, jnp.asarray(cu_q), jnp.asarray(cu_k), causal=causal,
+                          return_softmax=True, interpret=True)
     to, tl = flash_attention_varlen(to_torch(q), to_torch(k), to_torch(v),
                                     torch.from_numpy(cu_q), torch.from_numpy(cu_k),
                                     causal=causal, return_lse=True)
     assert to.shape == (24, H, D) and tl.shape == (H, 24)
     np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=F32_TOL, rtol=F32_TOL)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4, rtol=1e-4)
-    with pytest.raises(NotImplementedError):
-        flash_attention_varlen(to_torch(q), to_torch(k), to_torch(v), torch.from_numpy(cu_q),
-                               torch.from_numpy(cu_k), return_softmax=True)
+    so, sl, sp = flash_attention_varlen(to_torch(q), to_torch(k), to_torch(v),
+                                        torch.from_numpy(cu_q), torch.from_numpy(cu_k),
+                                        causal=causal, return_softmax=True)
+    assert sp.shape == (H, 24, 32)
+    assert torch.equal(so, to) and torch.equal(sl, tl)
+    np.testing.assert_allclose(sp.numpy(), np.asarray(jp), atol=F32_TOL)
 
 
 # --- KVCache.insert_at / slot_kv_float --------------------------------------

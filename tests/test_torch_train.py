@@ -424,12 +424,13 @@ def test_serve_train_serve_reads_the_trained_head(dtype):
     {"q_positions": np.zeros((B, SQ)), "kv_positions": np.zeros((B, SK)), "window": (4, -1)},
     {"q_segment_ids": np.zeros((B, SQ)), "kv_segment_ids": np.zeros((B, SK)),
      "window": (2, 2)},
-    {"alibi_slopes": np.ones(H)},
-    {"dropout_rate": 0.1, "logit_softcap": 30.0}, {"want_dbias": True}])
+    {"alibi_slopes": np.ones(H), "window": (4, -1)},
+    {"dropout_rate": 0.1, "logit_softcap": 30.0},
+    {"alibi_slopes": np.ones(H), "logit_softcap": 30.0}])
 def test_flash_bwd_refuses_unported_options(option):
-    """ALiBi, dbias, and a bias, segment ids, positions or dropout with a
-    window or a softcap (each of those alone is ported:
-    tests/test_torch_fa2_options.py)."""
+    """A bias, segment ids, positions, dropout or ALiBi with a window or a
+    softcap (each of those alone is ported: tests/test_torch_fa2_options.py,
+    tests/test_torch_fa2_surface.py)."""
     q, k, v, dout, _, _ = (T(x) for x in attn_inputs(9, "float32"))
     out, lse = q.clone(), torch.zeros((B, H, SQ))
     option = {n: T(x) if isinstance(x, np.ndarray) else x for n, x in option.items()}
