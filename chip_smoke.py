@@ -278,7 +278,28 @@ Phases, one line each with its seconds:
      S_loc 1024 on one card, contiguous and striped) with a [1, 32, 4096,
      4096] bias that requires grad against the single call; each against
      the plain versions on the card, launches exact (ALiBi, probs, verify
-     and dS counted apart) and a kernels line with their sums.
+     and dS counted apart) and a kernels line with their sums;
+  23. BASELINE configs 3 and 4 on logical ranks of the card (run last, 23b
+     right after phase 6 on its params): 23a Llama-3-8B int8, fp8 KV,
+     capacity 131072 sharded over sp=4 (each rank's 32768 positions a
+     view of the one cache buffer, read in place by K1's view instances),
+     max_batch 2, prompts of 36000 and 1000 tokens in chunks of 4096:
+     16 teacher-forced steps of decode_step_sharded against decode_step
+     from the same cache state (phase 3's rule; one step's launches K1 4
+     x 32, all view, K1m 32, K2 32), eager ms a position of both, then
+     the mesh engine captured (launches exact) and the unsharded engine,
+     their greedy tokens' agreement printed, peaks; 23b Llama-3-70B int4
+     g=128 + W8A8 head unfused and sharded at tp=4 layer by layer:
+     teacher-forced against tp=1 (phase 3's rule on 2 layers; 80 layers
+     printed beside the fused tree's own spread), K6 and K7 launches a
+     step 4x tp=1's, served captured (ms a position, peak under 75 GiB);
+     23c moe_ffn_ep and moe_ffn_ep_a2a at Mixtral's widths over tp=4
+     against moe_ffn_reference, pipeline_spmd over 4 stages against the
+     stages in sequence.  Phase 2 holds K1 on the 4 shard views of a [8,
+     8, 16384, 128] fp8 cache bitwise against K1 on contiguous copies,
+     the K1m merge against the plain merge and the single call ("K1
+     shard"), and K6 and K7 at 70B's tp=4 slices ("K6 tp4", its slices
+     under "slices"; "K7 tp4").
 
 Before the last line come the kernels' JSON record (each row's launches
 are those of the run named in its "launches_run"; the quantized matmuls'
@@ -900,6 +921,150 @@ def check_k1m(torch, checks, rows):
                        ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
                        bound_by=b_by, max_abs_err=worst)
     del q, k, v, ks, vs, outs, lses
+
+
+def check_k1_shard(torch, checks, rows):
+    """K1 on shard views, the sequence-sharded decode's call: a [8, 8,
+    16384, 128] fp8 cache (H=32) over 4 ranks sharing the card, each
+    rank's [8, 8, 4096, 128] run of the capacity a view of the buffer,
+    lengths S, 1, 0 (an idle slot: every shard empty), 4096 (shards 1-3
+    empty), 4097 (one key in shard 1) and random.  K1 on each view must be
+    bitwise K1 on a contiguous copy of the same shard (partials and LSEs),
+    the K1m merge of every shard's splits the plain merge (JAX's formula)
+    by the row rule, and the sharded call the single-device flash_decode
+    over the whole cache by the row rule; timed beside the plain version
+    and SDPA on the gathered dequantized cache."""
+    import torch.nn.functional as F
+
+    from flash_attn_tpu_torch.ops import decode as dec
+    from flash_attn_tpu_torch.parallel import mesh as pm
+    from flash_attn_tpu_torch.parallel import sharded_decode as sd
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    B, H, Hk, S, D = 8, 32, 8, 16384, 128
+    q, k, v, ks, vs, lens = _decode_inputs(torch, "fp8", g, B=B, H=H, Hk=Hk, S=S, D=D)
+    lens[2], lens[3], lens[4] = 0, S // SP_N, S // SP_N + 1
+    mesh = pm.make_mesh(pm.MeshConfig(sp=SP_N), devices=["cuda:0"] * SP_N)
+    slens = sd.shard_lengths(lens, SP_N, S // SP_N)
+    kv_spec, sc_spec = (None, None, "sp", None), (None, None, "sp")
+    kr, vr = pm.shard_views(mesh, k, kv_spec), pm.shard_views(mesh, v, kv_spec)
+    ksr, vsr = pm.shard_views(mesh, ks, sc_spec), pm.shard_views(mesh, vs, sc_spec)
+    views = all(x.data_ptr() == k.data_ptr() + r * (S // SP_N) * D for r, x in enumerate(kr))
+    same, outs, lses = True, [], []
+    for r in range(SP_N):
+        kw = dict(kv_length=slens[r], kv_layout="bhsd")
+        o1, l1 = dec.flash_decode_partials(q, kr[r], vr[r], k_scale=ksr[r], v_scale=vsr[r], **kw)
+        o2, l2 = dec.flash_decode_partials(q, kr[r].contiguous(), vr[r].contiguous(),
+                                           k_scale=ksr[r].contiguous(),
+                                           v_scale=vsr[r].contiguous(), **kw)
+        same &= bool(torch.equal(o1, o2) and torch.equal(l1, l2))
+        outs.append(o1)
+        lses.append(l1)
+    outs, lses = torch.cat(outs), torch.cat(lses)
+    got = sd.merge_shards(outs, lses, torch.bfloat16)
+    ref = sd.merge_shards_plain(outs, lses, torch.bfloat16)
+    single = dec.flash_decode(q, k, v, k_scale=ks, v_scale=vs, kv_length=lens, kv_layout="bhsd")
+    fn = sd.make_sharded_decode(mesh, quantized=True, kv_layout="bhsd")
+    call = fn(q, k, v, ks, vs, slens)
+    torch.cuda.synchronize()
+    err, share = row_err(got, ref)
+    serr, sshare = row_err(got, single)
+    idle = bool((got[2] == 0).all())
+    ok = checks.check("K1 shard merge", share, 1.0) & checks.check("K1 shard vs single", sshare,
+                                                                    1.0)
+    for name, good in (("views are views of the buffer", views),
+                       ("K1 on a view bitwise K1 on a copy", same),
+                       ("the idle slot is out 0", idle),
+                       ("the call bitwise its parts", bool(torch.equal(call, got)))):
+        if not good:
+            checks.failed.append(f"K1 shard: {name} fails")
+        ok &= good
+    ms = graph_ms(torch, lambda: fn(q, k, v, ks, vs, slens))
+
+    def plain():
+        parts = [dec.flash_decode_plain(q, kr[r], vr[r], ksr[r], vsr[r], slens[r], D ** -0.5,
+                                        True, dec.CLAMP2_DEC_FP8,
+                                        *dec._splits(B, Hk, S // SP_N, None))
+                 for r in range(SP_N)]
+        return sd.merge_shards_plain(torch.cat([p[0] for p in parts]),
+                                     torch.cat([p[1] for p in parts]), torch.bfloat16)
+
+    plain_ms = cuda_ms(torch, plain, iters=3, warmup=1)
+    kd, vd = _dequant(k, ks), _dequant(v, vs)
+    mask = (torch.arange(S, device="cuda")[None, :] < lens[:, None].long())[:, None, None, :]
+    lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        q[:, :, None, :], kd, vd, attn_mask=mask, enable_gqa=True))
+    live = int(lens.long().clamp(max=S).sum())
+    nbytes = k1_bytes(k, lens, ks) + 2 * q.numel() * 2 + lens.numel() * 4
+    b_ms, b_by = bound(nbytes, 4 * H * D * live)
+    nsplit = dec._splits(B, Hk, S // SP_N, None)[0]
+    say(f"  K1 shard ({SP_N} views of {S // SP_N} positions, {nsplit} splits each, one K1m "
+        f"over {SP_N * nsplit}): views {views}, bitwise a copy's {same}, merge max_abs_err "
+        f"{err:.3e} ({share:.3f} of its row's tol), against the single call {serr:.3e} "
+        f"({sshare:.3f}), idle slot {'ok' if idle else 'FAIL'} {'ok' if ok else 'FAIL'} | "
+        f"{ms:.4f} ms (CUDA graph: 4 K1 + K1m), plain {plain_ms:.4f}, library (SDPA on the "
+        f"gathered dequantized cache) {lib_ms:.4f}, bound {b_ms:.4f} ({b_by})")
+    rows["K1 shard"] = dict(
+        name=f"decode_bhsd on {SP_N} shard views + K1m (B=8, H=32, Hk=8, S={S}, fp8 KV)",
+        source="flash_attn_tpu_torch/csrc/decode.cu",
+        replaces="flash_attn_tpu/ops/decode.py:747", ms=ms, plain_ms=plain_ms,
+        library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=max(err, serr))
+    del q, k, v, ks, vs, kd, vd, outs, lses
+
+
+# the 70B projections' slices at tp=4 (K, N): wq, wk / wv, wo, w_gate /
+# w_up, w_down; the W8A8 head's column slice
+TP4_INT4 = ((8192, 2048), (8192, 256), (2048, 8192), (8192, 7168), (7168, 8192))
+TP4_HEAD = (8192, 128256 // 4)
+
+
+def check_tp_slices(torch, checks, rows):
+    """K6 and K7 at Llama-3-70B's tp=4 slices (the shapes phase 23's
+    config 4 launches them at): K6 g=128 at M = 8 on every projection's
+    slice, K7 bit-exact at M = 8 on the head's column slice, each against
+    its plain version, timed beside the library call and the bound."""
+    from flash_attn_tpu_torch.ops import matmul as mm
+    from flash_attn_tpu_torch.ops.quant import dequantize_int4, quantize_int8
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 42)
+    points, M = {}, 8
+    for K, N in TP4_INT4:
+        w = _int4_weight(torch, g, K, N)
+        wdq = dequantize_int4(w, torch.bfloat16)
+        x = torch.randn((M, K), generator=g, device="cuda", dtype=torch.bfloat16)
+        args = (x, w.packed, w.scales, 128, torch.bfloat16)
+        points[(M, K, N)] = _q_point(
+            torch, checks, f"K6 tp4 M={M} K={K} N={N}", lambda: mm.matmul_int4_cuda(*args),
+            lambda: mm.matmul_int4_plain(*args), lambda: torch.matmul(x, wdq),
+            "matmul on the bf16-dequantized weight",
+            M * K * 2 + K * N // 2 + w.scales.numel() * 4 + M * N * 2, 2 * M * K * N)
+        del w, wdq
+    rows["K6 tp4"] = dict(
+        name=f"int4_matmul at 70B's tp=4 slices (M=8, g=128; main K=7168 N=8192, w_down)",
+        source="flash_attn_tpu_torch/csrc/matmul_q.cu", replaces="flash_attn_tpu/ops/matmul.py:187",
+        max_abs_err=max(p["max_abs_err"] for p in points.values()),
+        **{k: points[(M, 7168, 8192)][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                   "bound_by")},
+        slices={f"{K}x{N}": {k: points[(M, K, N)][k] for k in ("ms", "library_ms", "bound_ms")}
+                for K, N in TP4_INT4})
+    K, N = TP4_HEAD
+    wf = torch.randn((K, N), generator=g, device="cuda", dtype=torch.bfloat16) * 0.02
+    w, sw = quantize_int8(wf, dims=(0,))
+    w, sw = w.contiguous(), sw[0].contiguous()
+    wbf = w.to(torch.bfloat16)
+    del wf
+    x = torch.randn((M, K), generator=g, device="cuda", dtype=torch.float32)
+    xq, sx = mm.quantize_activations(x)
+    xb = x.to(torch.bfloat16)
+    args = (xq, sx, w, sw, torch.float32)
+    pt = _q_point(torch, checks, f"K7 tp4 M={M} K={K} N={N}", lambda: mm.matmul_w8a8_cuda(*args),
+                  lambda: mm.matmul_w8a8_plain(*args), lambda: torch.matmul(xb, wbf),
+                  "bf16 matmul on the int8 values", M * K + M * 4 + K * N + N * 4 + M * N * 4,
+                  2 * M * K * N, INT8_OPS_PER_S, exact=True)
+    rows["K7 tp4"] = dict(name=f"w8a8_matmul, 70B head's tp=4 column slice (M=8, K={K}, N={N})",
+                          source="flash_attn_tpu_torch/csrc/matmul_q.cu",
+                          replaces="flash_attn_tpu/ops/matmul.py:488", **pt)
+    del w, wbf
 
 
 def _chunk_times(torch, kernel, call, lib, nbytes, flops):
@@ -4235,6 +4400,8 @@ def phase_kernels(torch, checks):
     check_k3(torch, checks, rows)
     check_k1(torch, checks, rows)
     check_k1m(torch, checks, rows)
+    check_k1_shard(torch, checks, rows)
+    torch.cuda.empty_cache()
     check_k1c(torch, checks, rows)
     check_k1b(torch, checks, rows)
     check_g3(torch, checks)
@@ -4270,7 +4437,7 @@ def phase_kernels(torch, checks):
     torch.cuda.empty_cache()
     check_k8(torch, checks, rows)
     torch.cuda.empty_cache()
-    for check in (check_k3g, check_k6, check_k5, check_k7):
+    for check in (check_k3g, check_k6, check_k5, check_k7, check_tp_slices):
         check(torch, checks, rows)
         torch.cuda.empty_cache()
     check_variants(torch, checks)
@@ -5228,6 +5395,7 @@ def _reset_counts():
     k8.chunk_launches = k8.merges = 0
     wrappers["K1"].chunk_launches = wrappers["K1"].bshd_launches = 0
     wrappers["K1"].window_launches = wrappers["K1"].d256_launches = 0
+    wrappers["K1"].view_launches = 0
     wrappers["K4"].seg_launches = wrappers["K4"].pos_launches = 0
     wrappers["K4"].window_launches = wrappers["K4"].d256_launches = 0
     wrappers["K4"].d64_launches = wrappers["K1"].d64_launches = k8.d64_launches = 0
@@ -5275,6 +5443,7 @@ def _read_counts() -> dict:
     counts["K4 d256"] = wrappers["K4"].d256_launches
     counts["K1 window"] = k1.window_launches
     counts["K1 d256"] = k1.d256_launches
+    counts["K1 view"] = k1.view_launches
     counts["K4 d64"] = wrappers["K4"].d64_launches
     counts["K1 d64"] = k1.d64_launches
     counts["K8 d64"] = k8.d64_launches
@@ -5339,12 +5508,14 @@ def _decode_window(torch, eng):
 
 def serve(torch, checks, label, cfg, params, kv_mode, max_tokens, path, burst=1,
           window=False, packed=True, chunk=None, adapter=None, capacity=4096, prompts=None,
-          max_batch=8, paged=False, spec=None, bank=None, adapters=None):
+          max_batch=8, paged=False, spec=None, bank=None, adapters=None, mesh=None):
     """One engine run of greedy requests (``max_batch``, ``capacity``) at
     ``burst``, through ``adapter`` (default: Llama's for ``cfg``) on
     ``prompts`` ((lengths, token lists); default ``_prompts``), in
     InferenceEngine (with ``spec``, its SpecConfig) or, with ``paged``,
-    PagedInferenceEngine (pages of 128, no prefix cache).  Every counter is set to 0 just before and read just after;
+    PagedInferenceEngine (pages of 128, no prefix cache); with ``mesh`` the
+    cache is sharded over its sequence axis (the adapter must decode with
+    the same mesh).  Every counter is set to 0 just before and read just after;
     each kernel in ``path`` must have launched.  The 8 prompts (3450
     tokens) go through one packed prefill, whose K4 calls carry segment
     ids (one a layer); with ``packed`` False the adapter has no
@@ -5380,7 +5551,7 @@ def serve(torch, checks, label, cfg, params, kv_mode, max_tokens, path, burst=1,
     else:
         eng = InferenceEngine(params, adapter, max_batch=max_batch, capacity=capacity,
                               kv_mode=kv_mode, device="cuda", decode_burst=burst,
-                              prefill_chunk_size=chunk, spec=spec, lora_bank=bank)
+                              prefill_chunk_size=chunk, spec=spec, lora_bank=bank, mesh=mesh)
     between = [0]  # decode steps run while a prompt is mid-way through its chunks
     step = eng._do_decode_step
 
@@ -5855,6 +6026,7 @@ def phase_serve(torch, checks, smi):
         checks.failed.append(f"70B serve peak {peak:.2f} GiB > {MAX_70B_GIB} GiB")
     say(f"[{RUN_70B}] peak {peak:.2f} GiB against the {MAX_70B_GIB} GiB limit (a packed 4096 "
         f"prefill: all 80 layers' K/V and the [4096, 128256] fp32 logits)")
+    runs.update(phase_tp(torch, checks, smi, params))
     del params
     _free(torch)
     return runs
@@ -7057,6 +7229,10 @@ RUN_8B_ONE = "phase 4 serve Llama-3-8B int8, fp8 KV, one prompt a prefill call"
 RUN_CHUNK = "phase 4c serve Llama-3-8B int8, fp8 KV, prefill_chunk_size 512"
 RUN_8B_W4A8 = "phase 5 serve Llama-3-8B W4A8 + W8A8 head, fused, fp8 KV"
 RUN_70B = "phase 6 serve Llama-3-70B int4 + W8A8 head, fused, fp8 KV"
+RUN_SP_DECODE = ("phase 23a serve Llama-3-8B int8, fp8 KV, capacity 131072 sharded over "
+                 "sp=4, chunks of 4096")
+RUN_SP_PLAIN = "phase 23a serve Llama-3-8B int8, fp8 KV, capacity 131072 unsharded, chunks of 4096"
+RUN_TP = "phase 23b serve Llama-3-70B int4 g=128 + W8A8 head, fp8 KV, tp=4"
 RUN_PAGED = "phase 7 serve Llama-3-8B int8, fp8 KV, paged + prefix cache"
 RUN_SPEC_NGRAM = "phase 9a serve Llama-3-8B int8, fp8 KV, n-gram speculation"
 RUN_SPEC_SELF = "phase 9b serve Llama-3-8B int8, bf16 KV, self-draft speculation"
@@ -7107,12 +7283,318 @@ RUN_SP_ULYSSES = (f"phase 20 Ulysses attention, causal, {SP_N} ranks on one card
                   "forward + backward")
 RUN_SURFACE = ("phase 22 the FA2 surface through flash_attention, flash_attention_varlen and the "
                "ring (ALiBi, dbias, return_softmax, auto)")
+# BASELINE config 3: Llama-3-8B at 128k context, the KV cache sharded over
+# the sequence (sp=4 logical ranks of the card)
+SP_CAPACITY, SP_BATCH, SP_CHUNK, SP_TOKENS = 131072, 2, 4096, 24
+SP_PROMPTS = (36000, 1000)  # across the boundary of shards 0 and 1; in shard 0 alone
+FORCED_STEPS = 16
+# BASELINE config 4: Llama-3-70B int4 + fp8 KV at tp=4
+TP_N, TP_STEPS, TP_TOKENS = 4, 8, 16
+MAX_TP_GIB = 75.0
+# the expert-parallel check: Mixtral-8x7B's widths, 64 tokens
+MOE_T, MOE_H, MOE_F, MOE_E = 64, 4096, 14336, 8
+
+
+def _long_prompts(vocab):
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 41)
+    lens = np.asarray(SP_PROMPTS)
+    return lens, [rng.integers(0, vocab, int(n)).tolist() for n in lens]
+
+
+def _forced_cache(torch, cfg, params, prompts, capacity, chunk):
+    """An fp8 cache holding ``prompts``, one a slot, fed through
+    prefill_chunk in pieces of ``chunk`` (so the [1, C, V] fp32 logits stay
+    one piece's), the lengths set after."""
+    from flash_attn_tpu_torch.models import llama
+
+    cache = llama.make_cache(cfg, len(prompts), capacity, mode="fp8", device="cuda")
+    for slot, p in enumerate(prompts):
+        toks = torch.tensor([p], device="cuda")
+        for start in range(0, len(p), chunk):
+            llama.prefill_chunk(params, toks[:, start:start + chunk], cfg, cache, slot, start)
+        cache.set_length(slot, len(p))
+    return cache
+
+
+def _logit_rule(torch, checks, label, got, ref):
+    """Phase 3's rule: every logit within 5 % of the reference's largest
+    (lists of [B, V] logits, one a step); held in ``checks`` unless it is
+    None.  Returns (ok, a line of the numbers)."""
+    got = torch.stack([x.float() for x in got])
+    ref = torch.stack([x.float() for x in ref])
+    err = float((got - ref).abs().max())
+    tol = 5e-2 * float(ref.abs().max())
+    finite = bool(got.isfinite().all())
+    ok = (err <= tol if checks is None else checks.check(label, err, tol)) and finite
+    if checks is not None and not finite:
+        checks.failed.append(f"{label}: logits not finite")
+    agree = int((got.argmax(-1) == ref.argmax(-1)).sum())
+    return ok, (f"max_abs_err {err:.3e} (tol {tol:.3e}, max |logit| "
+                f"{float(ref.abs().max()):.3f}), greedy agreement {agree}/{ref.shape[0] * ref.shape[1]}")
+
+
+def _step_counts(torch, fn):
+    """Each kernel's launches in one call of ``fn`` (the counts set to 0
+    just before, read just after)."""
+    _reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, _read_counts()
+
+
+def phase_sp_decode(torch, checks, smi):
+    """23a. BASELINE config 3: Llama-3-8B int8, fp8 KV, capacity 131072
+    sharded over sp=4 logical ranks of the card (each rank's 32768
+    positions a view of the one buffer), max_batch 2, prompts of 36000
+    tokens (across the first shard boundary) and 1000 (shards 1-3 empty),
+    fed through chunked prefill in pieces of 4096.  Teacher-forced: 16
+    steps of decode_step_sharded and decode_step from the same cache state
+    and tokens, held by phase 3's rule, the launches of one sharded step
+    exact (K1 = 4 x 32, K1m = 32, K2 = 32), eager ms a position of each;
+    then the mesh engine captured (launches exact: K1 4 x 32 and K1m 32 a
+    step) and the unsharded engine on the same prompts, their greedy
+    tokens' agreement printed; peak memory.  Returns {run: counts}."""
+    import numpy as np
+
+    from flash_attn_tpu_torch.models import llama
+    from flash_attn_tpu_torch.parallel import mesh as pm
+
+    t0 = time.perf_counter()
+    cfg = llama.LLAMA3_8B
+    L = cfg.num_layers
+    params, secs = _fresh_model(torch, cfg, quantize="int8")
+    mesh = pm.make_mesh(pm.MeshConfig(sp=SP_N), devices=["cuda:0"] * SP_N)
+    lens, prompts = _long_prompts(cfg.vocab_size)
+    cache = _forced_cache(torch, cfg, params, prompts, SP_CAPACITY, SP_CHUNK)
+    rng = np.random.default_rng(SEED + 43)
+    forced = torch.tensor(rng.integers(0, cfg.vocab_size, (FORCED_STEPS, SP_BATCH)),
+                          device="cuda")
+    got, ref = [], []
+    for s in range(FORCED_STEPS):
+        (a, _), counts = _step_counts(torch, lambda: llama.decode_step_sharded(
+            params, forced[s], cfg, cache, mesh))
+        if s == 0:
+            one = counts_of(counts, ("K1", "K1 view", "K1m", "K2"))
+            _launches_exact(checks, "phase 23 config 3 sharded step", counts,
+                         {"K1": SP_N * L, "K1 view": SP_N * L, "K1m": L, "K2": L})
+        cache.length -= 1
+        b, _ = llama.decode_step(params, forced[s], cfg, cache)
+        got.append(a)
+        ref.append(b)
+    ok, line = _logit_rule(torch, checks, "phase 23 config 3 sharded vs unsharded logits", got, ref)
+
+    def eager_ms(step):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for s in range(8):
+            step(forced[s])
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t) / 8
+
+    sharded_ms = eager_ms(lambda tok: llama.decode_step_sharded(params, tok, cfg, cache, mesh))
+    plain_ms = eager_ms(lambda tok: llama.decode_step(params, tok, cfg, cache))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    say(f"[phase 23 config 3 teacher-forced, {smi}] Llama-3-8B int8, fp8 KV, capacity "
+        f"{SP_CAPACITY} over sp={SP_N} ranks of the card, prompts {lens.tolist()} in chunks of "
+        f"{SP_CHUNK}, {FORCED_STEPS} steps: {line} {'ok' if ok else 'FAIL'} | one sharded step "
+        f"launches {one} | eager {sharded_ms:.3f} ms a position sharded, {plain_ms:.3f} "
+        f"unsharded | peak {peak:.2f} GiB | {time.perf_counter() - t0:.2f}s")
+    del cache
+    _free(torch)
+    kw = dict(capacity=SP_CAPACITY, prompts=(lens, prompts), max_batch=SP_BATCH, chunk=SP_CHUNK,
+              packed=False)
+    path = ("K1", "K1m", "K2", "K3", "K4")
+    torch.cuda.reset_peak_memory_stats()
+    run = serve(torch, checks, RUN_SP_DECODE, cfg, params, "fp8", SP_TOKENS, path,
+                adapter=llama.make_adapter(cfg, mesh=mesh), mesh=mesh, **kw)
+    steps = run["calls"]
+    _launches_exact(checks, RUN_SP_DECODE, run["counts"],
+                 {"K1": SP_N * L * steps, "K1 view": SP_N * L * steps, "K1m": L * steps,
+                  "K2": L * steps})
+    torch.cuda.reset_peak_memory_stats()
+    plain = serve(torch, checks, RUN_SP_PLAIN, cfg, params, "fp8", SP_TOKENS, path, **kw)
+    same = [sum(a == b for a, b in zip(x, y)) for x, y in zip(run["tokens"], plain["tokens"])]
+    first = [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b), len(x))
+             for x, y in zip(run["tokens"], plain["tokens"])]
+    say(f"[phase 23 config 3 engines, {smi}] mesh engine captured {run['pos_ms']:.3f} ms a "
+        f"position (the card {run['dev_ms'] or 0:.3f}), peak {run['peak']:.2f} GiB; unsharded "
+        f"{plain['pos_ms']:.3f} (the card {plain['dev_ms'] or 0:.3f}), peak {plain['peak']:.2f} "
+        f"GiB | greedy tokens equal {same} of {SP_TOKENS} a request, the first difference at "
+        f"{first} | {steps} decode steps, launches K1 {run['counts']['K1']} K1m "
+        f"{run['counts']['K1m']} | {time.perf_counter() - t0:.2f}s")
+    del params
+    _free(torch)
+    return {RUN_SP_DECODE: run["counts"], RUN_SP_PLAIN: plain["counts"]}
+
+
+def _unfuse(blk, cfg):
+    """A fused Llama block's wqkv and w_gate_up split back into wq, wk,
+    wv, w_gate and w_up (int4 halves: every column stands alone, so the
+    column slices are the unfused weights)."""
+    from flash_attn_tpu_torch.ops.quant import Int4Weight
+
+    def cols(w, lo, hi):
+        return Int4Weight(w.packed[:, lo:hi].contiguous(), w.scales[:, lo:hi].contiguous(),
+                          w.group_size, (w.shape[0], hi - lo))
+
+    q, kv, f = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim, cfg.intermediate
+    nb = {k: v for k, v in blk.items() if k not in ("wqkv", "w_gate_up")}
+    w = blk["wqkv"]
+    nb.update(wq=cols(w, 0, q), wk=cols(w, q, q + kv), wv=cols(w, q + kv, q + 2 * kv))
+    w = blk["w_gate_up"]
+    nb.update(w_gate=cols(w, 0, f), w_up=cols(w, f, 2 * f))
+    return nb
+
+
+def phase_tp(torch, checks, smi, params):
+    """23b. BASELINE config 4: phase 6's Llama-3-70B (int4 g=128 fused, W8A8
+    head) unfused and then sharded at tp=4 over logical ranks of the card,
+    layer by layer, each unsharded layer dropped as it is sharded.
+    Teacher-forced: two prompts (600 and 300 tokens, fp8 KV) and 8 decode
+    steps on the same tokens at tp=1 fused, tp=1 unfused and tp=4.  Phase
+    3's rule is held where it holds for the card against the CPU: on the
+    first 2 layers of the same weights (tp=4 against tp=1 unfused).  Over
+    all 80 random layers a rounding difference grows: the errors of tp=4
+    and of the fused tree (the same function as the unfused, summed in
+    another order by K6) against the unfused are printed side by side.
+    K6 and K7 launches a step at tp=4 must be 4 x tp=1's (unfused).  Then
+    the sharded params served captured (phase 4's prompts, 16 tokens, fp8
+    KV): ms a position, peak under 75 GiB.  Empties ``params``.  Returns
+    {run: counts}."""
+    import numpy as np
+
+    from flash_attn_tpu_torch.models import llama
+    from flash_attn_tpu_torch.parallel import mesh as pm
+    from flash_attn_tpu_torch.parallel import tp
+
+    t0 = time.perf_counter()
+    cfg = llama.LLAMA3_70B
+    rng = np.random.default_rng(SEED + 44)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (600, 300)]
+    forced = torch.tensor(rng.integers(0, cfg.vocab_size, (TP_STEPS, 2)), device="cuda")
+
+    def forced_run(p, layers=None):
+        c = cfg if layers is None else dataclasses.replace(cfg, num_layers=layers)
+        if layers is not None:
+            p = dict(p, blocks=p["blocks"][:layers])
+        cache = _forced_cache(torch, c, p, prompts, 1024, 1024)
+        logits, per_step = [], None
+        for s in range(TP_STEPS):
+            (out, _), counts = _step_counts(torch, lambda: llama.decode_step(p, forced[s], c,
+                                                                             cache))
+            logits.append(out)
+            per_step = per_step or counts_of(counts, ("K6", "K7", "K1", "K2"))
+        del cache
+        return logits, per_step
+
+    fused, _ = forced_run(params)
+    blocks = params["blocks"]
+    for i in range(len(blocks)):
+        blocks[i] = _unfuse(blocks[i], cfg)
+    torch.cuda.empty_cache()
+    ref, one = forced_run(params)
+    ref2, _ = forced_run(params, 2)
+    mesh = pm.make_mesh(pm.MeshConfig(tp=TP_N), devices=["cuda:0"] * TP_N)
+    t1 = time.perf_counter()
+    sharded = tp.shard_params_quant(params, mesh, consume=True)
+    torch.cuda.synchronize()
+    shard_s = time.perf_counter() - t1
+    torch.cuda.empty_cache()
+    got, four = forced_run(sharded)
+    got2, _ = forced_run(sharded, 2)
+    ok, line2 = _logit_rule(torch, checks, "phase 23 config 4 tp=4 vs tp=1 logits, 2 layers",
+                            got2, ref2)
+    ok &= _launches_exact(checks, "phase 23 config 4 launches a step", four,
+                       {"K6": TP_N * one["K6"], "K7": TP_N * one["K7"], "K1": one["K1"],
+                        "K2": one["K2"]})
+    _, line80 = _logit_rule(torch, None, "", got, ref)
+    _, line_fused = _logit_rule(torch, None, "", fused, ref)
+    say(f"[phase 23 config 4 teacher-forced, {smi}] Llama-3-70B int4 g=128 + W8A8 head, fp8 KV, "
+        f"tp={TP_N} ranks of the card (80 layers, sharded in {shard_s:.2f}s), prompts 600 and 300, "
+        f"{TP_STEPS} steps: 2 layers, tp={TP_N} against tp=1: {line2} {'ok' if ok else 'FAIL'} | "
+        f"80 layers (printed, not held): tp={TP_N} against tp=1 unfused {line80}; tp=1 fused "
+        f"against unfused {line_fused} | launches a step tp=1 {one}, tp={TP_N} {four}")
+    del ref, got, ref2, got2, fused
+    torch.cuda.reset_peak_memory_stats()
+    run = serve(torch, checks, RUN_TP, cfg, sharded, "fp8", TP_TOKENS,
+                ("K1", "K1m", "K2", "K4", "K6", "K7"))
+    if run["peak"] > MAX_TP_GIB:
+        checks.failed.append(f"{RUN_TP}: peak {run['peak']:.2f} GiB > {MAX_TP_GIB} GiB")
+    say(f"[{RUN_TP}, {smi}] captured {run['pos_ms']:.3f} ms a position (the card "
+        f"{run['dev_ms'] or 0:.3f}), peak {run['peak']:.2f} GiB against {MAX_TP_GIB} | "
+        f"{time.perf_counter() - t0:.2f}s")
+    del sharded
+    _free(torch)
+    return {RUN_TP: run["counts"]}
+
+
+def phase_ep_pp(torch, checks, smi):
+    """23c. Expert parallelism at Mixtral-8x7B's widths (H=4096, F=14336,
+    E=8, top 2) over tp=4 logical ranks of the card, 64 tokens:
+    moe_ffn_ep and moe_ffn_ep_a2a (capacity 32, nothing drops) against
+    moe_ffn_reference on the card by the row rule; then pipeline_spmd with
+    4 stages (a 1024 x 1024 fp32 matmul and tanh each) over 8
+    microbatches against the stages applied in sequence to each
+    microbatch (fp32, the same kernels on the same operands: 1e-6 of the
+    largest output)."""
+    from flash_attn_tpu_torch.parallel import mesh as pm
+    from flash_attn_tpu_torch.parallel import moe, pp
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 45)
+
+    def rnd(*shape, s=1.0):
+        return torch.randn(shape, generator=g, device="cuda", dtype=torch.bfloat16) * s
+
+    x, router = rnd(MOE_T, MOE_H), rnd(MOE_H, MOE_E)
+    wg, wu = rnd(MOE_E, MOE_H, MOE_F, s=0.02), rnd(MOE_E, MOE_H, MOE_F, s=0.02)
+    wd = rnd(MOE_E, MOE_F, MOE_H, s=0.02)
+    mesh = pm.make_mesh(pm.MeshConfig(tp=TP_N), devices=["cuda:0"] * TP_N)
+    ref = moe.moe_ffn_reference(x, router, wg, wu, wd, top_k=2)
+    parts = []
+    for name, fn in (("moe_ffn_ep", moe.make_moe_ffn(mesh, top_k=2)),
+                     ("moe_ffn_ep_a2a", moe.make_moe_ffn_a2a(mesh, axis_name="tp", top_k=2,
+                                                             capacity=MOE_T // TP_N * 2))):
+        got = fn(x, router, wg, wu, wd)
+        ms = cuda_ms(torch, lambda: fn(x, router, wg, wu, wd), iters=5, warmup=1)
+        err, share = row_err(got, ref)
+        ok = checks.check(f"phase 23 {name}", share, 1.0)
+        parts.append(f"{name} max_abs_err {err:.3e} ({share:.3f} of its row's tol) "
+                     f"{'ok' if ok else 'FAIL'}, {ms:.3f} ms")
+    ref_ms = cuda_ms(torch, lambda: moe.moe_ffn_reference(x, router, wg, wu, wd, top_k=2),
+                     iters=5, warmup=1)
+    del wg, wu, wd
+    smesh = pm.make_mesh(pm.MeshConfig(sp=TP_N), devices=["cuda:0"] * TP_N)
+    ws = [torch.randn((1024, 1024), generator=g, device="cuda") / 32 for _ in range(TP_N)]
+    xs = torch.randn((8, 16, 1024), generator=g, device="cuda")
+
+    def stage(w, h):
+        return torch.tanh(h @ w)
+
+    got = pp.pipeline_spmd(stage, ws, xs, mesh=smesh, axis_name="sp", num_microbatches=8)
+    want = []
+    for h in xs:  # microbatch by microbatch, as the stages see them
+        for w in ws:
+            h = stage(w, h)
+        want.append(h)
+    want = torch.stack(want)
+    perr = float((got - want).abs().max())
+    ok = checks.check("phase 23 pipeline_spmd", perr, 1e-6 * float(want.abs().max()))
+    say(f"[phase 23 expert parallel and pipeline, {smi}] Mixtral widths H={MOE_H} F={MOE_F} "
+        f"E={MOE_E} top 2, {MOE_T} tokens over tp={TP_N}: " + "; ".join(parts)
+        + f"; moe_ffn_reference {ref_ms:.3f} ms | pipeline_spmd {TP_N} stages x 8 microbatches "
+        f"max_abs_err {perr:.3e} {'ok' if ok else 'FAIL'} | {time.perf_counter() - t0:.2f}s")
+    _free(torch)
+
+
 KERNEL_ROWS = ("K1", "K1m", "K1c", "K1b", "K2", "K3", "K3g", "K4", "K5", "K6", "K7", "K8", "K8c",
                "K9", "K10", "K4 d256", "K1 d256", "K2 d256", "K1m d256", "K9 d256", "K10 d256",
                "K4 d64", "K1 d64", "K1c d64", "K8 d64", "K2 d64", "K1m d64", "K9 d64", "K10 d64",
                "K4 27B", "K1 27B", "K9 27B", "K10 27B", "K4 G7", "K1 G7", "K1c G7", "K8 G7",
                "K2 G7", "K3 Mixtral", "K4 opt", "K9 opt", "K10 opt", "K11", "K4 surface",
-               "K9 surface", "K10 surface")
+               "K9 surface", "K10 surface", "K1 shard", "K6 tp4", "K7 tp4")
 # the run whose launches a kernel's row reports, and the count it reads:
 # the main path that the kernel serves (the 70B serve for the shared K1,
 # K1m, K2 and K4, the n-gram speculative serve for K1's chunk mode, the
@@ -7136,7 +7618,8 @@ ROW_RUN = {"K1": RUN_70B, "K1m": RUN_70B, "K1c": RUN_SPEC_NGRAM, "K1b": None, "K
            "K4 G7": RUN_QWEN, "K1 G7": RUN_QWEN, "K1c G7": RUN_QWEN_SPEC,
            "K8 G7": RUN_QWEN_PAGED, "K2 G7": RUN_QWEN, "K3 Mixtral": RUN_MIXTRAL,
            "K4 opt": RUN_ABI, "K9 opt": RUN_ABI, "K10 opt": RUN_ABI, "K11": RUN_SP_RDMA,
-           "K4 surface": RUN_SURFACE, "K9 surface": RUN_SURFACE, "K10 surface": RUN_SURFACE}
+           "K4 surface": RUN_SURFACE, "K9 surface": RUN_SURFACE, "K10 surface": RUN_SURFACE,
+           "K1 shard": RUN_SP_DECODE, "K6 tp4": RUN_TP, "K7 tp4": RUN_TP}
 # a row's count where it is not the row's own key: every K2 and K1m launch
 # of the Gemma-2-9B serve is at head_dim 256, and every launch of the GPT-2
 # serves at head_dim 64 (phase 12 holds the d64 counts equal); the 27B
@@ -7145,7 +7628,8 @@ ROW_COUNT = {"K2 d256": "K2", "K1m d256": "K1m", "K4 d64": "K4", "K1 d64": "K1",
              "K1c d64": "K1c", "K8 d64": "K8", "K2 d64": "K2", "K1m d64": "K1m",
              "K4 27B": "K4 local", "K1 27B": "K1", "K9 27B": "K9 local", "K10 27B": "K10 local",
              "K4 G7": "K4", "K1 G7": "K1", "K1c G7": "K1c", "K8 G7": "K8", "K2 G7": "K2",
-             "K3 Mixtral": "K3", "K4 opt": "K4 extra"}
+             "K3 Mixtral": "K3", "K4 opt": "K4 extra", "K1 shard": "K1", "K6 tp4": "K6",
+             "K7 tp4": "K7"}
 
 
 def main() -> int:
@@ -7199,6 +7683,8 @@ def main() -> int:
     runs.update(phase_qwen(torch, checks, smi))
     runs.update(phase_mixtral(torch, checks, smi))
     runs.update(phase_lora(torch, checks, smi))
+    runs.update(phase_sp_decode(torch, checks, smi))
+    phase_ep_pp(torch, checks, smi)
     for key, row in rows.items():
         row["launches_run"] = ROW_RUN[key]
         row["launches"] = runs[ROW_RUN[key]][ROW_COUNT.get(key, key)] if ROW_RUN[key] else 0
@@ -7222,7 +7708,7 @@ def main() -> int:
                                          "bias", "d64", "d64_varlen", "d64_segments",
                                          "readout", "bound_f32_ms", "bound_bf16_ms",
                                          "non_causal", "gpt2", "probs", "verify", "dbias",
-                                         "library_backend")
+                                         "library_backend", "slices")
                        if k in r})
                for r in (rows[k] for k in KERNEL_ROWS)]
     print(json.dumps({"kernels": kernels}))

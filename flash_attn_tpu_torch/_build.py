@@ -43,6 +43,8 @@ _EXTRA = [P, L, L, L, L, I, U, U, F]
 _SIGNATURES = {
     "fatt_decode": [P, P, P, P, P, P, P, P, P,
                     I, I, I, I, I, I, I, I, I, F, F, I, F, I, F, P],
+    "fatt_decode_view": [P, P, P, P, P, P, P, P,
+                         I, I, I, I, I, I, I, I, I, I, I, F, F, I, F, I, F, P],
     "fatt_chunk_attn": [P, P, P, P, P, P, P, P, P, P,
                         I, I, I, I, I, I, I, I, I, I, F, I, F, P],
     "fatt_kv_append": [P, P, P, P, P, P, P, I, I, I, I, I, P],

@@ -42,6 +42,14 @@
 //     windowed calls) each sequence's live walk cut in gridDim.y runs of
 //     whole tiles, so the count stays fixed by the shapes (one captured
 //     grid for every length) and no split walks dead positions.
+// Shard views (kView, entry fatt_decode_view): the sequence-sharded
+// decode runs K1 on each rank's run of S positions of the engine's one
+// [B, Hk, capacity, D] cache buffer, read in place: kv_cap is the position
+// stride between consecutive (b, hk) rows (BHSD) or sequences (BSHD) of
+// K and V, sc_cap the scales'.  Its calls always write fp32 partials, a
+// single split too, since the caller merges every shard's splits in one
+// K1m launch.  The view instances are separate, so the contiguous calls'
+// instances keep their code.
 // Head dim 256 (Gemma-2-9B) is a second instance of every KV type and
 // layout: the ring rows and q widen to 256 and each thread takes two
 // head-dim columns in PV; the ring keeps two stages at that width (71 KB
@@ -99,10 +107,12 @@ __device__ __forceinline__ void load8(const unsigned char* p, float* out) {
   }
 }
 
-// kBshd: the BSHD layout (else BHSD); kMaxD: the widest head dim served.
-// window: 0, or the positions below kv_len a row sees; softcap: the cap in
-// the scores' units, 0 for none; split_len 0: splits cut the live walk.
-template <int KV, bool kBshd, int kMaxD>
+// kBshd: the BSHD layout (else BHSD); kMaxD: the widest head dim served;
+// kView: K/V and scales are runs of buffers of kv_cap / sc_cap positions,
+// and every split writes its partial.  window: 0, or the positions below
+// kv_len a row sees; softcap: the cap in the scores' units, 0 for none;
+// split_len 0: splits cut the live walk.
+template <int KV, bool kBshd, int kMaxD, bool kView>
 __global__ void __launch_bounds__(kThreads) decode_kernel(
     const __nv_bfloat16* __restrict__ q, const void* __restrict__ k,
     const void* __restrict__ v, const float* __restrict__ ks,
@@ -110,7 +120,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
     __nv_bfloat16* __restrict__ out, float* __restrict__ part_out,
     float* __restrict__ part_lse, int B, int Hk, int R, int S, int D,
     int split_len, float qscale, float sscale, int clamped, float clamp2, int window,
-    float softcap) {
+    float softcap, int kv_cap, int sc_cap) {
   using L = Ring<KV, kMaxD>;
   constexpr int kCols = kMaxD / kThreads;  // head-dim columns a thread in PV
   constexpr int kElem = L::kElem;
@@ -163,8 +173,11 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
     lo = walk_lo + split * per;
     hi = min(lo + per, walk_end);
   }
-  // row index of position t: row0 + t * t_stride
-  const int64_t row0 = kBshd ? (int64_t)b * S * Hk + hk : ((int64_t)b * Hk + hk) * S;
+  // row index of position t: row0 + t * t_stride (srow0 for the scales)
+  const int cap = kView ? kv_cap : S;
+  const int64_t row0 = kBshd ? (int64_t)b * cap * Hk + hk : ((int64_t)b * Hk + hk) * cap;
+  const int64_t srow0 =
+      kView ? (kBshd ? (int64_t)b * sc_cap * Hk + hk : ((int64_t)b * Hk + hk) * sc_cap) : row0;
   const int t_stride = kBshd ? Hk : 1;
   const int row_bytes = D * kElem;
   const int chunks = row_bytes / 16;  // 16-byte chunks per row
@@ -190,7 +203,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
     if constexpr (KV != fatt::kBf16) {
       const int r = tid % kTile;
       const bool in = r < nvalid;
-      const int64_t row = row0 + (int64_t)(in ? t0 + r : lo) * t_stride;
+      const int64_t row = srow0 + (int64_t)(in ? t0 + r : lo) * t_stride;
       const float* src = tid < kTile ? ks + row : vs + row;
       fatt::cp_async4(fatt::smem_u32(st + 2 * L::kTileBytes + (tid / kTile) * kTile * 4 + r * 4),
                       src, in ? 4 : 0);
@@ -320,7 +333,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
       const bool valid = l > 0.f && (clamped || m_s[g] > kNegInf / 2);
       const float o = valid ? acc[c][g] / l : 0.f;
       const int64_t h = qrow0 + g;
-      if (nsplit == 1) {
+      if (!kView && nsplit == 1) {
         out[h * D + d] = __float2bfloat16(o);
       } else {
         part_out[(split * rows + h) * D + d] = o;
@@ -335,13 +348,14 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
   }
 }
 
-template <int KV, bool kBshd, int kMaxD>
+template <int KV, bool kBshd, int kMaxD, bool kView>
 int launch(const void* q, const void* k, const void* v, const void* ks,
            const void* vs, const void* kv_len, void* out, void* part_out,
            void* part_lse, int B, int Hk, int R, int S, int D, int num_splits,
            int split_len, float qscale, float sscale, int clamped,
-           float clamp2, int window, float softcap, cudaStream_t st) {
-  auto kernel = decode_kernel<KV, kBshd, kMaxD>;
+           float clamp2, int window, float softcap, int kv_cap, int sc_cap,
+           cudaStream_t st) {
+  auto kernel = decode_kernel<KV, kBshd, kMaxD, kView>;
   constexpr int kBytes = Ring<KV, kMaxD>::kBytes;
   static fatt::SmemLimitSet smem_set;  // one for each instance
   cudaError_t e = fatt::smem_limit_once(kernel, kBytes, smem_set);
@@ -352,20 +366,41 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
       static_cast<const float*>(vs), static_cast<const int*>(kv_len),
       static_cast<__nv_bfloat16*>(out), static_cast<float*>(part_out),
       static_cast<float*>(part_lse), B, Hk, R, S, D, split_len, qscale, sscale,
-      clamped, clamp2, window, softcap);
+      clamped, clamp2, window, softcap, kv_cap, sc_cap);
   return (int)cudaGetLastError();
 }
 
-template <int KV>
+template <int KV, bool kView>
 int launch_layout(const void* q, const void* k, const void* v, const void* ks,
                   const void* vs, const void* kv_len, void* out, void* part_out,
                   void* part_lse, int B, int Hk, int R, int S, int D, int bshd,
                   int num_splits, int split_len, float qscale, float sscale,
-                  int clamped, float clamp2, int window, float softcap, cudaStream_t st) {
-  auto fn = D > 128 ? (bshd ? launch<KV, true, 256> : launch<KV, false, 256>)
-                    : (bshd ? launch<KV, true, 128> : launch<KV, false, 128>);
+                  int clamped, float clamp2, int window, float softcap, int kv_cap,
+                  int sc_cap, cudaStream_t st) {
+  auto fn = D > 128 ? (bshd ? launch<KV, true, 256, kView> : launch<KV, false, 256, kView>)
+                    : (bshd ? launch<KV, true, 128, kView> : launch<KV, false, 128, kView>);
   return fn(q, k, v, ks, vs, kv_len, out, part_out, part_lse, B, Hk, R, S, D,
-            num_splits, split_len, qscale, sscale, clamped, clamp2, window, softcap, st);
+            num_splits, split_len, qscale, sscale, clamped, clamp2, window, softcap, kv_cap,
+            sc_cap, st);
+}
+
+template <bool kView>
+int launch_kv(const void* q, const void* k, const void* v, const void* ks, const void* vs,
+              const void* kv_len, void* out, void* part_out, void* part_lse, int B, int Hk,
+              int R, int S, int D, int bshd, int kv_type, int num_splits, int split_len,
+              float qscale, float sscale, int clamped, float clamp2, int window,
+              float softcap, int kv_cap, int sc_cap, void* stream) {
+  if (R < 1 || R > kMaxRows || D > 256 || D % 32 != 0 || num_splits < 1 ||
+      split_len < 0 || split_len % kTile != 0 || window < 0 || !(softcap >= 0.f))
+    return (int)cudaErrorInvalidValue;
+  auto st = static_cast<cudaStream_t>(stream);
+  auto fn = kv_type == fatt::kBf16   ? launch_layout<fatt::kBf16, kView>
+            : kv_type == fatt::kInt8 ? launch_layout<fatt::kInt8, kView>
+            : kv_type == fatt::kFp8  ? launch_layout<fatt::kFp8, kView>
+                                     : nullptr;
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  return fn(q, k, v, ks, vs, kv_len, out, part_out, part_lse, B, Hk, R, S, D, bshd, num_splits,
+            split_len, qscale, sscale, clamped, clamp2, window, softcap, kv_cap, sc_cap, st);
 }
 
 }  // namespace
@@ -385,27 +420,24 @@ extern "C" int fatt_decode(const void* q, const void* k, const void* v,
                            int num_splits, int split_len, float qscale,
                            float sscale, int clamped, float clamp2, int window,
                            float softcap, void* stream) {
-  if (R < 1 || R > kMaxRows || D > 256 || D % 32 != 0 || num_splits < 1 ||
-      split_len < 0 || split_len % kTile != 0 || window < 0 || !(softcap >= 0.f))
-    return (int)cudaErrorInvalidValue;
-  auto st = static_cast<cudaStream_t>(stream);
-  switch (kv_type) {
-    case fatt::kBf16:
-      return launch_layout<fatt::kBf16>(q, k, v, ks, vs, kv_len, out, part_out,
-                                        part_lse, B, Hk, R, S, D, bshd, num_splits,
-                                        split_len, qscale, sscale, clamped, clamp2,
-                                        window, softcap, st);
-    case fatt::kInt8:
-      return launch_layout<fatt::kInt8>(q, k, v, ks, vs, kv_len, out, part_out,
-                                        part_lse, B, Hk, R, S, D, bshd, num_splits,
-                                        split_len, qscale, sscale, clamped, clamp2,
-                                        window, softcap, st);
-    case fatt::kFp8:
-      return launch_layout<fatt::kFp8>(q, k, v, ks, vs, kv_len, out, part_out,
-                                        part_lse, B, Hk, R, S, D, bshd, num_splits,
-                                        split_len, qscale, sscale, clamped, clamp2,
-                                        window, softcap, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return launch_kv<false>(q, k, v, ks, vs, kv_len, out, part_out, part_lse, B, Hk, R, S, D,
+                          bshd, kv_type, num_splits, split_len, qscale, sscale, clamped,
+                          clamp2, window, softcap, S, S, stream);
 }
+
+// fatt_decode on shard views: K, V (and scales) are runs of S positions of
+// buffers whose sequence axis holds kv_cap (sc_cap) positions; every split,
+// a single one too, writes its fp32 partial to part_out, and out is unused.
+extern "C" int fatt_decode_view(const void* q, const void* k, const void* v,
+                                const void* ks, const void* vs, const void* kv_len,
+                                void* part_out, void* part_lse, int B, int Hk, int R, int S,
+                                int kv_cap, int sc_cap, int D, int bshd, int kv_type,
+                                int num_splits, int split_len, float qscale, float sscale,
+                                int clamped, float clamp2, int window, float softcap,
+                                void* stream) {
+  if (kv_cap < S || sc_cap < S || part_out == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_kv<true>(q, k, v, ks, vs, kv_len, nullptr, part_out, part_lse, B, Hk, R, S, D,
+                         bshd, kv_type, num_splits, split_len, qscale, sscale, clamped,
+                         clamp2, window, softcap, kv_cap, sc_cap, stream);
+}
+

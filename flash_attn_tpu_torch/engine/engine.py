@@ -22,7 +22,12 @@ carry.  With ``lora_bank`` (a stacked bank of models/lora.py)
 ``InferenceEngine`` serves many adapters over one set of base weights:
 each request names its adapter at ``submit``, its prefill runs alone
 with that adapter, and the decode step gathers each slot's adapter.
-Meshes are still to port and raise ``NotImplementedError``.
+With ``mesh`` the cache's capacity axis is sharded over ``kv_shard_axis``
+(BASELINE configs 3-4): the cache stays one buffer a layer, each rank's
+shard a view of it, and the adapter's decode step (``llama.make_adapter(
+mesh=...)``) decodes shard by shard and merges; prefill, the verify step,
+chunked prefill and bursts write and read the whole buffer.  The axis's
+ranks must share the engine's device.
 
 The bodies JAX jits (the decode step, the LoRA decode step, the burst,
 the draft scan, the verify step) are ``GraphBody``s (engine/_graph.py):
@@ -54,6 +59,7 @@ from flash_attn_tpu_torch.engine.scheduler import (
 )
 from flash_attn_tpu_torch.models.lora import cast_lora, lora_tensors
 from flash_attn_tpu_torch.ops.quant import quantize_kv
+from flash_attn_tpu_torch.parallel.sharded_decode import check_kv_mesh
 from flash_attn_tpu_torch.runtime.abi import PagePool
 from flash_attn_tpu_torch.utils.metrics import EngineMetrics
 
@@ -134,7 +140,8 @@ class InferenceEngine:
                  cache_dtype=torch.bfloat16,
                  sampling: SamplingParams | None = None, rng_seed: int = 0,
                  device=None, prefill_chunk_size: int | None = None,
-                 spec=None, mesh=None, lora_bank=None, decode_burst: int = 1):
+                 spec=None, mesh=None, kv_shard_axis: str = "sp", lora_bank=None,
+                 decode_burst: int = 1):
         """device: where the caches live and the steps run (default: the
         card); it must be where ``params`` (and a draft's params) are.
         spec: a SpecConfig; it speculates when sampling is greedy.
@@ -152,18 +159,22 @@ class InferenceEngine:
         prefilled one a call (JAX's engine refuses and skips alike).  The
         bank is cast to the activations' dtype once, and again when one of
         its tensors is changed in place, which also re-captures the LoRA
-        decode step."""
+        decode step.
+        mesh: shard the cache's capacity over the mesh axis ``kv_shard_axis``
+        (the adapter must decode with the same mesh); the capacity must
+        divide by the axis's ranks, and they must sit on ``device``
+        (``NotImplementedError`` otherwise, before anything runs)."""
         if lora_bank is not None:
             _check_lora(adapter, spec, prefill_chunk_size)
         if spec is not None:
             _check_spec(spec, adapter, mesh, prefill_chunk_size)
+        self.device = resolve_device(device)
         if mesh is not None:
-            raise NotImplementedError("mesh is not ported yet")
+            check_kv_mesh(mesh, kv_shard_axis, capacity, self.device)
         self.decode_burst = max(1, int(decode_burst))
         if self.decode_burst > 1 and (spec is not None or lora_bank is not None):
             raise ValueError("decode_burst does not compose with speculative decoding "
                              "or LoRA banks")
-        self.device = resolve_device(device)
         self.params = params
         self.adapter = adapter
         self.capacity = capacity

@@ -48,6 +48,7 @@ from flash_attn_tpu_torch.engine.paged import PagedKVPool, paged_decode_attentio
 from flash_attn_tpu_torch.models import llama
 from flash_attn_tpu_torch.ops.attention import flash_attention
 from flash_attn_tpu_torch.ops.decode import flash_decode, flash_decode_chunk
+from flash_attn_tpu_torch.ops.matmul import ShardedWeight
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -117,6 +118,9 @@ def _layer_norm(x, p, eps=1e-5):
 
 
 def _dense(x, p):
+    if isinstance(p["w"], ShardedWeight):  # tensor parallel (parallel/tp.py)
+        b = p["b"].full() if isinstance(p["b"], ShardedWeight) else p["b"]
+        return (llama._proj(x.float(), p["w"]) + b.float()).to(x.dtype)
     return (torch.matmul(x.float(), p["w"].float()) + p["b"].float()).to(x.dtype)
 
 
@@ -149,6 +153,8 @@ def _logits(params, x):
     """The final LayerNorm, then the tied head in fp32 (serving: the
     cached fp32 copy of ``wte``)."""
     x = _layer_norm(x, params["ln_f"])
+    if isinstance(params["wte"], ShardedWeight):
+        return llama._proj(x.float(), params["wte"])
     return llama._proj(x.float(), llama.f32_head(params, params["wte"], True))
 
 
@@ -172,6 +178,8 @@ def forward(params, tokens, cfg: GPT2Config, *, remat: bool = False):
     for blk in params["blocks"]:
         x = checkpoint(_block, x, blk, cfg, use_reentrant=False) if remat else _block(x, blk, cfg)
     x = _layer_norm(x, params["ln_f"])
+    if isinstance(params["wte"], ShardedWeight):
+        return llama._proj(x.float(), params["wte"])
     return torch.matmul(x.float(), params["wte"].float().T)
 
 

@@ -491,10 +491,52 @@ def decode_step(params, token, cfg: LlamaConfig, cache: KVCache, *, mlp=_block_m
     bank, ``lora_ids`` [B] selects each slot's adapter (multi-adapter
     serving)."""
     _check_lora(lora, mlp)
+    kv_length = cache.length + 1
+
+    def attend(q, kc, vc, ks, vs):
+        return flash_decode(q, kc, vc, k_scale=ks, v_scale=vs, kv_length=kv_length,
+                            kv_layout="bhsd", window=cfg.sliding_window,
+                            logit_softcap=cfg.attn_logit_softcap)
+
+    return _decode_layers(params, token, cfg, cache, attend, mlp, lora, lora_ids)
+
+
+def decode_step_sharded(params, token, cfg: LlamaConfig, cache: KVCache, mesh, *,
+                        axis_name: str = "sp"):
+    """``decode_step`` with the cache's capacity axis sharded over the
+    mesh's ``axis_name`` (BASELINE configs 3-4): per layer K2 appends into
+    the whole buffer, each rank runs K1 on its run of the capacity (a view
+    of the one buffer, read in place) with its own lengths
+    (``shard_lengths``, on the device), and one K1m launch merges every
+    shard's splits (``parallel/sharded_decode.py``).  No length is read
+    back to the host, so the step captures as ``decode_step`` does.
+    Raises ``NotImplementedError`` when the axis's ranks are not all on
+    the cache's device, ``ValueError`` when the capacity does not divide
+    by them; both before any launch."""
+    from flash_attn_tpu_torch.parallel.sharded_decode import (
+        check_kv_mesh,
+        make_sharded_decode,
+        shard_lengths,
+    )
+
+    n = check_kv_mesh(mesh, axis_name, cache.capacity, cache.length.device)
+    _refuse_local(cfg, "decode_step_sharded")
+    dec = make_sharded_decode(mesh, axis_name=axis_name, quantized=cache.mode != "none",
+                              kv_layout="bhsd")
+    lens = shard_lengths(cache.length + 1, n, cache.capacity // n)
+
+    def attend(q, kc, vc, ks, vs):
+        return dec(q, kc, vc, ks, vs, lens) if ks is not None else dec(q, kc, vc, lens)
+
+    return _decode_layers(params, token, cfg, cache, attend, _block_mlp, None, None)
+
+
+def _decode_layers(params, token, cfg, cache, attend, mlp, lora, lora_ids):
+    """The decode step's layers around ``attend(q [B, H, D], k, v, k_scale,
+    v_scale)``, the attention over the cache's layer after its append."""
     b = token.shape[0]
     x = params["tok_emb"][token][:, None, :]  # [B, 1, hidden]
     cos, sin = rope_cos_sin(cache.length[:, None], cfg.head_dim, cfg.rope_theta)
-    kv_length = cache.length + 1
     for i, blk in enumerate(params["blocks"]):
         lblk, lsc = _lora_layer(lora, i)
         h = _rms_norm(x, blk["attn_norm"], cfg.rms_eps)
@@ -502,11 +544,7 @@ def decode_step(params, token, cfg: LlamaConfig, cache: KVCache, *, mlp=_block_m
         q = rope_rotate(q, cos, sin)
         k = rope_rotate(k, cos, sin)
         cache.append(i, k, v)
-        kc, vc, ks, vs = cache.layer(i)
-        attn = flash_decode(q[:, 0], kc, vc, k_scale=ks, v_scale=vs,
-                            kv_length=kv_length, kv_layout="bhsd",
-                            window=cfg.sliding_window,
-                            logit_softcap=cfg.attn_logit_softcap)
+        attn = attend(q[:, 0], *cache.layer(i))
         a = attn.reshape(b, 1, cfg.num_heads * cfg.head_dim)
         x = x + _lora_add(_proj(a, blk["wo"]), a, lblk, "wo", lora_ids, lsc)
         x = mlp(x, blk, cfg) if lblk is None else _block_mlp(x, blk, cfg, lblk, lora_ids, lsc)
@@ -618,16 +656,25 @@ def make_cache(cfg: LlamaConfig, batch, capacity, mode="none", dtype=None,
     )
 
 
-def make_adapter(cfg: LlamaConfig, *, eos_token=None):
+def make_adapter(cfg: LlamaConfig, *, eos_token=None, mesh=None, kv_shard_axis: str = "sp"):
     """Engine adapter: one-prompt, chunked and packed prefill, the batched
     decode step, the speculative verify step, the paged counterparts
     (decode step, prefix-cache suffix prefill), and the LoRA prefill and
-    decode step over a stacked bank (``InferenceEngine(lora_bank=...)``)."""
+    decode step over a stacked bank (``InferenceEngine(lora_bank=...)``).
+    With ``mesh`` the decode step is ``decode_step_sharded`` over
+    ``kv_shard_axis``: pass the same mesh to ``InferenceEngine``."""
     from flash_attn_tpu_torch.engine.engine import ModelAdapter
+
+    if mesh is not None:
+        def dec(p, tok, cache):
+            return decode_step_sharded(p, tok, cfg, cache, mesh, axis_name=kv_shard_axis)
+    else:
+        def dec(p, tok, cache):
+            return decode_step(p, tok, cfg, cache)
 
     return ModelAdapter(
         prefill_with_kv=lambda p, t, pos: prefill_with_kv(p, t, pos, cfg),
-        decode_step=lambda p, tok, cache: decode_step(p, tok, cfg, cache),
+        decode_step=dec,
         decode_multi=lambda p, toks, cache: decode_multi(p, toks, cfg, cache),
         prefill_chunk=lambda p, t, cache, slot, start: prefill_chunk(
             p, t, cfg, cache, slot, start),

@@ -18,24 +18,9 @@ from __future__ import annotations
 
 import torch
 
-from flash_attn_tpu_torch.ops.matmul import BiasedWeight, W4A8Weight, W8A8Weight
-from flash_attn_tpu_torch.ops.quant import Int4Weight
+from flash_attn_tpu_torch.ops.matmul import weight_kn
 
 LORA_TARGETS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
-
-
-def weight_kn(w) -> tuple[int, int]:
-    """Original (K, N) of a float or quantized projection weight (a
-    ``BiasedWeight``'s inner weight's)."""
-    if isinstance(w, BiasedWeight):
-        return weight_kn(w.w)
-    if isinstance(w, (Int4Weight, W4A8Weight)):
-        return tuple(w.shape)
-    if isinstance(w, W8A8Weight):
-        return tuple(w.vals.shape)
-    if isinstance(w, tuple):
-        return tuple((w[1] if isinstance(w[0], str) else w[0]).shape)
-    return tuple(w.shape)
 
 
 def init_lora(params, rank: int, generator: torch.Generator, *, alpha: float | None = None,

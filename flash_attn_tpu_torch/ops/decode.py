@@ -30,6 +30,13 @@ BHSD cache, as JAX's ``_decode_kernel_bhsd`` does (decode.py:835-862); a
 windowed call splits the live walk [max(0, len - window), len), so it
 never reads the keys below the window.  The BSHD layout and chunk mode
 raise on both.  fp16 computes as bf16, as in JAX.
+
+K1 also reads a shard view in place: a run of positions of a larger
+cache buffer (the sequence-sharded decode's rank shard of the engine's
+cache, ``parallel/sharded_decode.py``), whose sequence-axis stride it
+takes apart from the run's length.  ``flash_decode_partials`` returns
+the fp32 split partials and their LSEs unmerged, so that a caller merges
+the splits of every shard in one K1m launch.
 """
 
 from __future__ import annotations
@@ -208,15 +215,35 @@ def flash_decode(q, k, v, *, kv_length=None, scale: float | None = None,
             softmax_mode=softmax_mode, window=window,
             logit_softcap=logit_softcap)
         return _restore_fp16(res, q.dtype, return_lse)
+    out, lse = _decode(q, k, v, kv_length, scale, num_splits, k_scale, v_scale, kv_layout,
+                       softmax_mode, window, logit_softcap, merge=True)
+    return (out, lse) if return_lse else out
+
+
+def flash_decode_partials(q, k, v, *, kv_length=None, scale: float | None = None,
+                          num_splits: int | None = None, k_scale=None, v_scale=None,
+                          kv_layout: str = "bshd", softmax_mode: str | None = None):
+    """``flash_decode``'s split-KV partials before their merge: (out [n,
+    B, H, D] fp32, lse [n, B, H] fp32), n the splits it plans for this
+    cache, a split that sees no position at out 0 and lse -1e30.  Merged by
+    the LSE rule (``merge_splits``) they give ``flash_decode``'s output.
+    The cache may be a shard view (a run of positions of a larger buffer,
+    sliced in place): K1 reads it where it lies.  fp16 computes as bf16."""
+    q, k, v = _as_bf16(q), _as_bf16(k), _as_bf16(v)
+    return _decode(q, k, v, kv_length, scale, num_splits, k_scale, v_scale, kv_layout,
+                   softmax_mode, None, None, merge=False)
+
+
+def _decode(q, k, v, kv_length, scale, num_splits, k_scale, v_scale, kv_layout,
+            softmax_mode, window, logit_softcap, merge):
     B, H, D = q.shape
     Hk, S = _heads_len(k, kv_layout)
     _check(k, k_scale, H, Hk, window, logit_softcap, kv_layout, False)
     clamped = _mode(softmax_mode, k.dtype, kv_layout, logit_softcap)
     if kv_layout == "bshd":
         k_scale, v_scale = _bshd_scales(k_scale, B, S, Hk), _bshd_scales(v_scale, B, S, Hk)
-    out, lse = _attend(q, k, v, k_scale, v_scale, kv_length, scale, clamped,
-                       1, kv_layout, num_splits, window, logit_softcap)
-    return (out, lse) if return_lse else out
+    return _attend(q, k, v, k_scale, v_scale, kv_length, scale, clamped,
+                   1, kv_layout, num_splits, window, logit_softcap, merge)
 
 
 def flash_decode_chunk(q, k, v, *, kv_length, scale: float | None = None,
@@ -274,12 +301,12 @@ def _restore_fp16(res, dtype, return_lse):
 
 
 def _attend(q, k, v, k_scale, v_scale, kv_length, scale, clamped, chunk,
-            layout, num_splits, window=None, softcap=None):
+            layout, num_splits, window=None, softcap=None, merge=True):
     """(out in q.dtype, lse) of q [B, Hk * R, D] rows, R = chunk * G per KV
     head in (t, g) order, through K1 or K1c on the card or their plain
-    version.  A windowed K1 call plans its splits on min(window, S), a
-    count fixed by the shapes, and cuts them over each sequence's live
-    walk."""
+    version; without ``merge`` the fp32 split partials (K1 only).  A
+    windowed K1 call plans its splits on min(window, S), a count fixed by
+    the shapes, and cuts them over each sequence's live walk."""
     B, rows, D = q.shape
     Hk, S = _heads_len(k, layout)
     if scale is None:
@@ -296,10 +323,10 @@ def _attend(q, k, v, k_scale, v_scale, kv_length, scale, clamped, chunk,
     args = (q, k, v, k_scale, v_scale, kv_length, scale, clamped, _clamp2(k.dtype),
             nsplit, split_len, chunk, layout, window, softcap)
     if q.is_cuda:
-        outs, lses = flash_decode_cuda(*args)
+        outs, lses = flash_decode_cuda(*args, partials=not merge)
     else:
         outs, lses = flash_decode_plain(*args)
-    return merge_splits(outs, lses, q.dtype)
+    return merge_splits(outs, lses, q.dtype) if merge else (outs, lses)
 
 
 def merge_splits(outs, lses, dtype):
@@ -399,9 +426,29 @@ def split_partials(s, v, v_scale, clamped, clamp2, bounds, cdt):
     return torch.stack(outs), torch.stack(lses)
 
 
+def _view_cap(t, layout):
+    """The sequence-axis length of the buffer that ``t`` (K or V [B, Hk, S,
+    D] / [B, S, Hk, D], or scales [B, Hk, S] / [B, S, Hk], in ``layout``)
+    is a run of S positions of, sliced in place: S when ``t`` is
+    contiguous; None when it is no such view."""
+    if t.is_contiguous():
+        return t.shape[2 if layout == "bhsd" else 1]
+    shape, st = t.shape, t.stride()
+    inner = shape[3] if t.ndim == 4 else 1
+    if layout == "bhsd":  # [B, Hk, S(, D)]
+        seq, cap = shape[2], st[1] // inner
+        want = (shape[1] * cap * inner, cap * inner, inner)
+    else:  # [B, S, Hk(, D)]
+        seq, cap = shape[1], st[0] // (shape[2] * inner)
+        want = (cap * shape[2] * inner, shape[2] * inner, inner)
+    want += (1,) if t.ndim == 4 else ()
+    ok = cap >= seq and all(s == w or n == 1 for s, w, n in zip(st, want, shape))
+    return cap if ok else None
+
+
 def flash_decode_cuda(q, k, v, k_scale, v_scale, kv_length, scale, clamped,
                       clamp2, nsplit, split_len, chunk=1, layout="bhsd", window=None,
-                      softcap=None):
+                      softcap=None, partials=False):
     """Launch K1 or, for ``split_len`` None without a window, K1c.  K1
     replaces flash_attn_tpu/ops/decode.py:_decode_kernel_bhsd in decode
     mode (with its window and softcap; head_dim up to 256) and, on a BSHD
@@ -411,10 +458,14 @@ def flash_decode_cuda(q, k, v, k_scale, v_scale, kv_length, scale, clamped,
     _decode_kernel_bhsd in chunk mode and takes BHSD decode calls with more
     than ``ROWS`` heads per KV head; bound by bytes at the verify step
     (csrc/chunk_attn.cu).  Returns (out, lse): with one split out is [1,
-    B, rows, D] bf16 written by the kernel, else fp32 partials [n, B,
-    rows, D].  Besides ``.launches`` it counts K1's windowed launches in
-    ``.window_launches``, those at head_dim 256 in ``.d256_launches``, and
-    K1's and K1c's at head_dim 64 in ``.d64_launches``."""
+    B, rows, D] bf16 written by the kernel, else (and with ``partials``,
+    K1 only) fp32 partials [n, B, rows, D].  K1 reads K, V and scales that
+    are shard views (``_view_cap``) in place, through its view instances
+    (``fatt_decode_view``), which also serve ``partials``.  Besides
+    ``.launches`` it counts K1's windowed launches in ``.window_launches``,
+    those at head_dim 256 in ``.d256_launches``, K1's and K1c's at
+    head_dim 64 in ``.d64_launches``, and K1's through its view instances
+    in ``.view_launches``."""
     B, rows, D = q.shape
     Hk, S = _heads_len(k, layout)
     if q.dtype != torch.bfloat16:
@@ -438,17 +489,30 @@ def flash_decode_cuda(q, k, v, k_scale, v_scale, kv_length, scale, clamped,
                          "windowed K1 take split_len None, K1c D = 64 or 128; K1 a split_len")
     if kv_length.dtype != torch.int32 or kv_length.shape != (B,):
         raise ValueError("kv_length must be [B] int32")
-    tensors = [q, k, v, kv_length]
+    if partials and tiled:
+        raise ValueError("K1c merges its own partials")
     if k_scale is not None:
         sshape = (B, Hk, S) if layout == "bhsd" else (B, S, Hk)
         for s in (k_scale, v_scale):
             if s.shape != sshape or s.dtype != torch.float32:
                 raise ValueError(f"scales must be {list(sshape)} fp32")
-        tensors += [k_scale, v_scale]
-    for t in tensors:
-        if not t.is_cuda or not t.is_contiguous():
+    cache = (k, v) if k_scale is None else (k, v, k_scale, v_scale)
+    for t in (q, kv_length, *cache):
+        if not t.is_cuda:
             raise ValueError("K1 takes contiguous CUDA tensors")
-    if nsplit == 1:
+    if not (q.is_contiguous() and kv_length.is_contiguous()):
+        raise ValueError("K1 takes contiguous CUDA tensors")
+    kv_cap = sc_cap = S
+    if not all(t.is_contiguous() for t in cache):  # K1 reads shard views in place
+        caps = [None if tiled else _view_cap(t, layout) for t in cache]
+        if (None in caps or caps[0] != caps[1] or caps[-1] != caps[-2] or k.data_ptr() % 16
+                or v.data_ptr() % 16):
+            raise ValueError("K1 takes contiguous CUDA tensors or, in decode mode, 16-byte "
+                             "aligned runs of positions of contiguous buffers")
+        kv_cap, sc_cap = caps[0], caps[-1]
+    # the view instances: shard views, and calls whose partials the caller merges
+    view = not tiled and (partials or kv_cap != S or sc_cap != S)
+    if nsplit == 1 and not view:
         out = torch.empty((1, B, rows, D), dtype=torch.bfloat16, device=q.device)
         part = None
     else:
@@ -470,11 +534,17 @@ def flash_decode_cuda(q, k, v, k_scale, v_scale, kv_length, scale, clamped,
     else:
         # the softcap in the scores' units: base 2 when clamped
         cap = 0.0 if softcap is None else float(softcap * (LOG2E if clamped else 1.0))
-        rc = _build.lib().fatt_decode(
-            p(q), p(k), p(v), p(k_scale), p(v_scale), p(kv_length), p(out),
-            p(part), p(lse), B, Hk, R, S, D, int(layout == "bshd"),
-            _KV_TYPES[k.dtype], nsplit, split_len or 0, qscale, sscale, int(clamped),
-            float(clamp2), window or 0, cap, _build.stream())
+        args = (B, Hk, R, S, D, int(layout == "bshd"), _KV_TYPES[k.dtype], nsplit,
+                split_len or 0, qscale, sscale, int(clamped), float(clamp2), window or 0, cap,
+                _build.stream())
+        if view:
+            rc = _build.lib().fatt_decode_view(
+                p(q), p(k), p(v), p(k_scale), p(v_scale), p(kv_length), p(part), p(lse),
+                *args[:4], kv_cap, sc_cap, *args[4:])
+            flash_decode_cuda.view_launches += 1
+        else:
+            rc = _build.lib().fatt_decode(p(q), p(k), p(v), p(k_scale), p(v_scale),
+                                          p(kv_length), p(out), p(part), p(lse), *args)
         _build.check(rc, "fatt_decode")
         flash_decode_cuda.window_launches += live_walk
         flash_decode_cuda.d256_launches += D == 256
@@ -482,12 +552,14 @@ def flash_decode_cuda(q, k, v, k_scale, v_scale, kv_length, scale, clamped,
     flash_decode_cuda.d64_launches += D == 64
     if layout == "bshd":
         flash_decode_cuda.bshd_launches += 1
-    return (out if nsplit == 1 else part), lse
+    return (out if part is None else part), lse
 
 
 # every launch (K1 and K1c), those of them on K1c and on a BSHD cache,
-# K1's with a window and at head_dim 256, and K1's and K1c's at head_dim 64
+# K1's with a window, at head_dim 256 and through the view instances, and
+# K1's and K1c's at head_dim 64
 flash_decode_cuda.launches = 0
+flash_decode_cuda.view_launches = 0
 flash_decode_cuda.chunk_launches = 0
 flash_decode_cuda.bshd_launches = 0
 flash_decode_cuda.window_launches = 0

@@ -18,7 +18,8 @@ JAX package leaves both to XLA outside its kernels.
 Weight kinds (as the JAX package's pytree classes): a float tensor, an
 ``(int8, scales)`` tuple (scales [N] or [K//g, N]), ``Int4Weight``,
 ``W4A8Weight``, ``W8A8Weight``, the legacy ``("w8a8", int8, scales)``
-tuple, and ``BiasedWeight`` around any of them.
+tuple, and ``BiasedWeight`` around any of them; ``ShardedWeight`` holds
+one of them split over a tensor-parallel mesh axis (parallel/tp.py).
 """
 
 from __future__ import annotations
@@ -94,6 +95,115 @@ class BiasedWeight:
 
 def _is_legacy_w8a8(w) -> bool:
     return isinstance(w, tuple) and len(w) == 3 and w[0] == "w8a8"
+
+
+def weight_kn(w) -> tuple:
+    """(K, N) of a weight of any kind."""
+    if isinstance(w, BiasedWeight):
+        return weight_kn(w.w)
+    if isinstance(w, (Int4Weight, W4A8Weight)):
+        return tuple(w.shape)
+    if isinstance(w, W8A8Weight):
+        return tuple(w.vals.shape)
+    if isinstance(w, tuple):
+        return tuple(w[1 if _is_legacy_w8a8(w) else 0].shape)
+    return tuple(w.shape)
+
+
+def weight_device(w) -> torch.device:
+    """The device a weight of any kind lies on."""
+    if isinstance(w, BiasedWeight):
+        return weight_device(w.w)
+    if isinstance(w, (Int4Weight, W4A8Weight)):
+        return w.packed.device
+    if isinstance(w, W8A8Weight):
+        return w.vals.device
+    if isinstance(w, tuple):
+        return w[1 if _is_legacy_w8a8(w) else 0].device
+    return w.device
+
+
+@dataclass
+class ShardedWeight:
+    """One leaf of a tensor-parallel param tree (parallel/tp.py):
+    ``parts[r]`` is rank r's slice, on its device, of a weight of any kind
+    above, of an embedding table or of a bias vector.
+
+    kind "col": split on the output axis (the last); the parts' outputs
+      join in rank order.
+    kind "row": split on the input axis K (the first); the parts' fp32
+      outputs sum in rank order.  Activation-quantized kinds (W8A8, and
+      W4A8 below the prefill route) quantize each token once over its
+      whole row, then split the int8 row, so the product is the unsharded
+      one's.
+    kind "vocab": an embedding [V, H] split on the vocabulary.  A lookup
+      (``w[tokens]``) takes each token's row from the rank that holds it;
+      as a tied head it is column-parallel over the transposed table."""
+
+    kind: str
+    parts: list
+    mesh: object = None
+
+    def full(self) -> torch.Tensor:
+        """The parts of a float leaf joined on rank 0's device."""
+        dev = self.parts[0].device
+        dim = self.parts[0].ndim - 1 if self.kind == "col" else 0
+        return torch.cat([p.to(dev) for p in self.parts], dim=dim)
+
+    def __getitem__(self, idx: torch.Tensor) -> torch.Tensor:
+        """Embedding rows for token ids ``idx`` (kind "vocab"): each rank
+        gathers the ids in its range and zeros elsewhere; the sum over
+        ranks adds one nonzero row a token, so it is exact."""
+        if self.kind != "vocab":
+            raise TypeError(f"a {self.kind!r} sharded weight takes no lookup")
+        out, lo = None, 0
+        for p in self.parts:
+            n = p.shape[0]
+            i = idx.to(p.device) - lo
+            hit = ((i >= 0) & (i < n))[..., None]
+            rows = torch.where(hit, p[i.clamp(0, n - 1)], torch.zeros((), dtype=p.dtype,
+                                                                         device=p.device))
+            out = rows.to(idx.device) if out is None else out + rows.to(out.device)
+            lo += n
+        return out
+
+
+def _sharded_matmul(x, w: ShardedWeight, out_dtype):
+    """x [M, K] @ a ShardedWeight, on x's device, in ``out_dtype`` (default
+    x.dtype)."""
+    out_dtype = out_dtype or x.dtype
+    if w.kind in ("col", "vocab"):
+        ys = [quantized_matmul(x.to(weight_device(p)), p.T if w.kind == "vocab" else p,
+                               out_dtype=out_dtype).to(x.device) for p in w.parts]
+        return torch.cat(ys, dim=-1)
+    if w.kind != "row":
+        raise ValueError(f"unknown sharded weight kind {w.kind!r}")
+    p0 = w.parts[0]
+    act_q = (isinstance(p0, W8A8Weight) or _is_legacy_w8a8(p0)
+             or isinstance(p0, W4A8Weight) and x.shape[0] < _PREFILL_M)
+    xin, sx = quantize_activations(x) if act_q else (x, None)
+    total, k0 = None, 0
+    for p in w.parts:
+        k = weight_kn(p)[0]
+        dev = weight_device(p)
+        xs = xin[:, k0:k0 + k].contiguous().to(dev)
+        y = _int8_act_dot(xs, sx.to(dev), p) if act_q else quantized_matmul(
+            xs, p, out_dtype=torch.float32)
+        total = y.to(x.device) if total is None else total + y.to(x.device)
+        k0 += k
+    return total.to(out_dtype)
+
+
+def _int8_act_dot(xq, sx, w):
+    """fp32 xq (int8 [M, K], per-token scales sx) @ an activation-quantized
+    weight, through K7 or K5 on the card, their plain versions here."""
+    cuda = xq.is_cuda
+    if isinstance(w, W4A8Weight):
+        fn = matmul_w4a8_cuda if cuda else matmul_w4a8_plain
+        return fn(xq, sx, w.packed, w.scales, w.group_size, torch.float32)
+    vals, scales = (w[1], w[2]) if _is_legacy_w8a8(w) else (w.vals, w.scales)
+    return (matmul_w8a8_cuda if cuda else matmul_w8a8_plain)(xq, sx, vals, scales,
+                                                             torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -474,6 +584,8 @@ def quantized_matmul(x: torch.Tensor, w, *, out_dtype=None) -> torch.Tensor:
     if isinstance(w, BiasedWeight):
         y = quantized_matmul(x, w.w, out_dtype=out_dtype)
         return (y.float() + w.bias.float()).to(y.dtype)
+    if isinstance(w, ShardedWeight):
+        return _sharded_matmul(x, w, out_dtype)
     if isinstance(w, Int4Weight):
         return matmul_int4(x, w, out_dtype=out_dtype)
     if isinstance(w, W4A8Weight):

@@ -21,6 +21,7 @@ import torch
 DATA_AXIS = "dp"
 TENSOR_AXIS = "tp"
 SEQUENCE_AXIS = "sp"
+EXPERT_AXIS = "ep"
 AXES = (DATA_AXIS, TENSOR_AXIS, SEQUENCE_AXIS)
 
 
@@ -125,3 +126,68 @@ def all_to_all(mesh: Mesh, xs: list, split_dim: int, concat_dim: int,
     parts = [torch.chunk(x, n, split_dim) for x in xs]
     return [torch.cat([parts[s][r].to(devs[r]) for s in range(n)], dim=concat_dim)
             for r in range(n)]
+
+
+def same_device(a, b) -> bool:
+    """Whether two devices are one (``cuda`` is the current CUDA device)."""
+    a, b = torch.device(a), torch.device(b)
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    cur = torch.cuda.current_device() if a.index is None or b.index is None else None
+    return (cur if a.index is None else a.index) == (cur if b.index is None else b.index)
+
+
+def axis_device(mesh: Mesh, axis: str):
+    """The one device that every rank of ``axis`` sits on, or None when
+    they sit on more than one."""
+    devs = mesh.axis_devices(axis)
+    return devs[0] if all(same_device(d, devs[0]) for d in devs) else None
+
+
+def shard_views(mesh: Mesh, x: torch.Tensor, spec) -> list:
+    """``shard`` without a copy where the ranks of the spec's axis all sit
+    on ``x``'s device: rank r's shard is then a view of ``x`` (not
+    contiguous unless the split dimension leads)."""
+    dim, axis = _spec_axis(mesh, spec)
+    dev = axis_device(mesh, axis)
+    if dev is None or not same_device(dev, x.device):
+        return shard(mesh, x, spec)
+    n = mesh.shape[axis]
+    if len(spec) != x.ndim or x.shape[dim] % n:
+        raise ValueError(f"cannot split {tuple(x.shape)} by {spec} over {n} ranks")
+    return list(torch.chunk(x, n, dim))
+
+
+def psum(mesh: Mesh, xs: list, axis: str = TENSOR_AXIS) -> list:
+    """``jax.lax.psum``: the sum of the ranks' tensors in rank order, on
+    every rank's device."""
+    devs = mesh.axis_devices(axis)
+    total = xs[0]
+    for x in xs[1:]:
+        total = total + x.to(total.device)
+    return [total.to(d) for d in devs]
+
+
+def pmax(mesh: Mesh, xs: list, axis: str = TENSOR_AXIS) -> list:
+    """``jax.lax.pmax``: the elementwise max of the ranks' tensors, on
+    every rank's device."""
+    devs = mesh.axis_devices(axis)
+    out = xs[0]
+    for x in xs[1:]:
+        out = torch.maximum(out, x.to(out.device))
+    return [out.to(d) for d in devs]
+
+
+def all_gather(mesh: Mesh, xs: list, axis: str = TENSOR_AXIS, dim: int = 0,
+               tiled: bool = False) -> list:
+    """``jax.lax.all_gather``: the ranks' tensors stacked in rank order
+    along a new ``dim`` (joined along ``dim`` when ``tiled``), on every
+    rank's device."""
+    join = torch.cat if tiled else torch.stack
+    out = {}  # one gathered tensor a device
+    for d in mesh.axis_devices(axis):
+        if str(d) not in out:
+            out[str(d)] = join([x.to(d) for x in xs], dim=dim)
+    return [out[str(d)] for d in mesh.axis_devices(axis)]

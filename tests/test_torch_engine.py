@@ -155,12 +155,17 @@ def test_kv_cache_append_matches_jax(kv_mode):
 
 
 def test_engine_rejects_unported_options(both_params):
-    """A mesh is still to port; a LoRA bank is ported and, as in JAX,
-    refused for an adapter without the LoRA paths."""
+    """A mesh whose ranks sit on more than one device is still to port (the
+    single-device mesh is ported: tests/test_torch_sharded.py); a LoRA bank
+    is ported and, as in JAX, refused for an adapter without the LoRA
+    paths."""
+    from flash_attn_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+
     _, tp = both_params
     adapter = llama.make_adapter(CFG)
+    across = make_mesh(MeshConfig(sp=2), ["cpu", "cuda:0"])
     with pytest.raises(NotImplementedError):
-        InferenceEngine(tp, adapter, max_batch=1, capacity=32, device="cpu", mesh=object())
+        InferenceEngine(tp, adapter, max_batch=1, capacity=32, device="cpu", mesh=across)
     with pytest.raises(ValueError, match="lora_bank needs the adapter's lora paths"):
         InferenceEngine(tp, dataclasses.replace(adapter, decode_step_lora=None), max_batch=1,
                         capacity=32, device="cpu", lora_bank=object())
