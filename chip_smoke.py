@@ -141,7 +141,14 @@ Phases, one line each with its seconds:
      steps, and each layer alone on the card fed the CPU's hidden state:
      per layer at most 1 % of tokens may choose another top-2 expert set,
      and the layer's output (the logits for the last) on the agreeing
-     tokens within 5 %; the end-to-end flips and logits printed; LoRA
+     tokens within 5 %; the end-to-end flips and logits printed; one
+     Mixtral training loss (the whole forward, 1e-3) and every gradient
+     (2 layers at 8x7B widths, bf16, B=1, S=128, remat), the gradients
+     piece by piece, each piece on the card fed the CPU's input and the
+     CPU's gradient at its output (the head; each layer alone, a token
+     whose top-2 set differs given zero upstream gradient on both sides,
+     at most 1 % of a layer's tokens; the embedding), each to 5e-2 of its
+     norm; LoRA
      (2 layers at 8B widths, int8 fused, a bank of 4 rank-16 adapters,
      fp32): 8 prompts prefilled two a call under lora_id 0-3, then four
      decode steps with per-slot ids [0, 1, 2, 3, 0, 1, 2, 3], against the
@@ -243,6 +250,15 @@ Phases, one line each with its seconds:
      engine without prefix caching; launches exact (K3 = 32 x (4 + 3 x
      8) = 896 a step, K1 = K2 = K1m 32 a step, K4 32 a packed call, K1c
      32 a verify round, K8 32 a paged step), peak under 75 GiB;
+  24. (run right after phase 17) training: Mixtral at 8x7B widths, 2 of
+     its 32 layers (bf16 params and moments from the seed), B=1, S=2048, 5
+     AdamW steps (remat on) through mixtral.forward: losses finite and
+     falling, ms per step beside its bound, tokens/s, peak under 75 GiB,
+     K9 = K10 = 2 a step and K4 4; the state saved after step 3 by
+     utils/checkpoint.TrainCheckpointManager and restored bit for bit, the
+     restored state's steps 4-5 against the straight run's; then 2 steps
+     on phase 19's packed documents (K4 masked, K9 and K10 kOpt), launches
+     exact;
   20. (run right after phase 18) sequence-parallel attention at
      Llama-3-8B's attention widths, B=1, 16384 tokens over 4 ranks sharing
      the card (make_mesh with cuda:0 four times; every rotation a
@@ -5040,18 +5056,19 @@ def _train_fwd(cfg):
     return lambda p, tokens, remat: llama.forward(p, tokens, cfg, remat=remat)
 
 
-def _packed_train_fwd(torch, cfg, docs):
-    """The training forward of documents ``docs`` packed in each row:
-    segment ids 1, 2, ... a document and RoPE positions restarting at 0
-    a document, on the tokens' device."""
+def _packed_train_fwd(torch, cfg, docs, forward=None):
+    """The training forward (``forward``, default ``llama.forward``) of
+    documents ``docs`` packed in each row: segment ids 1, 2, ... a document
+    and RoPE positions restarting at 0 a document, on the tokens' device."""
     from flash_attn_tpu_torch.models import llama
 
+    forward = forward or llama.forward
     seg, pos = _packed_docs(torch, docs, device="cpu")
 
     def fwd(p, tokens, remat):
         b, dev = tokens.shape[0], tokens.device
-        return llama.forward(p, tokens, cfg, positions=pos.expand(b, -1).to(dev),
-                             segment_ids=seg.expand(b, -1).to(dev), remat=remat)
+        return forward(p, tokens, cfg, positions=pos.expand(b, -1).to(dev),
+                       segment_ids=seg.expand(b, -1).to(dev), remat=remat)
     return fwd
 
 
@@ -5122,6 +5139,173 @@ def train_card_vs_cpu(torch, checks):
                        "(64, 32, 20, 12)", "packed ", card,
                        _packed_train_fwd(torch, cfg, (64, 32, 20, 12)), cfg.vocab_size, 128,
                        SEED + 72, t0)
+
+
+MIXTRAL_TRAIN_CVC_SEQ = 128  # phase 3's Mixtral training check: B=1 tokens
+
+
+def _cpu_bf16_gemm(torch, matmul):
+    """``matmul`` (the models' quantized_matmul) with each bf16 x bf16
+    product on the CPU taken as an fp32 matmul of the same bf16 values,
+    rounded to bf16 once: the products, the fp32 sums and the rounding
+    points of a bf16 GEMM (and, through autograd, of its backward), about
+    5x faster than the host's bf16 GEMM.  Every other call is
+    ``matmul``'s."""
+    def gemm(x, w, **kw):
+        if (x.device.type == "cpu" and isinstance(w, torch.Tensor) and not kw
+                and x.dtype == w.dtype == torch.bfloat16):
+            return (x.float() @ w.float()).to(torch.bfloat16)
+        return matmul(x, w, **kw)
+    return gemm
+
+
+def mixtral_train_card_vs_cpu(torch, checks, seed=SEED + 81):
+    """One training loss and every parameter's gradient of Mixtral at 2
+    layers of 8x7B's widths (bf16, B=1, S=MIXTRAL_TRAIN_CVC_SEQ), on the
+    card (K4, K9, K10, remat on) against the CPU (plain versions).
+
+    The loss of the whole forward is held to TRAIN_LOSS_TOL.  The router
+    amplifies rounding and a near tie can flip a token's top-2 set (see
+    mixtral_card_vs_cpu), so the gradients are held piece by piece, each
+    piece on the card fed the CPU's input and the CPU's gradient of the
+    loss at its output: the head (final norm, lm_head and the loss) on the
+    CPU's last hidden state; each layer alone (checkpointed, as remat runs
+    it) on the CPU's hidden state entering it; the embedding on the
+    gradient that layer 0 gives its input on each side.  A token whose
+    top-2 set differs between the card and the CPU at a layer gets zero
+    upstream gradient in that layer on both sides; at most MOE_FLIP_SHARE
+    of a layer's tokens may differ.  Each parameter's gradient is then
+    held to TRAIN_GRAD_TOL of its norm.  The CPU's bf16 GEMMs run as
+    ``_cpu_bf16_gemm``."""
+    import numpy as np
+    from torch.utils.checkpoint import checkpoint
+
+    from flash_attn_tpu_torch.models import llama
+    from flash_attn_tpu_torch.models import mixtral as mx
+    from flash_attn_tpu_torch.ops.rope import rope_cos_sin
+    from flash_attn_tpu_torch.parallel.moe import router_topk
+    from flash_attn_tpu_torch.utils import train
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(mx.MIXTRAL_8X7B, num_layers=2)
+    S, L = MIXTRAL_TRAIN_CVC_SEQ, cfg.num_layers
+    card = mx.init_params(cfg, seed=seed, device="cuda")
+    sides = {"cpu": _to(card, "cpu"), "cuda": card}
+    batch = torch.from_numpy(np.random.default_rng(seed).integers(0, cfg.vocab_size, (1, S + 1)))
+    tok, tgt = batch[:, :-1], batch[:, 1:]
+    pos = torch.arange(S)[None]
+    rope = {d: rope_cos_sin(pos.to(d), cfg.head_dim, cfg.rope_theta) for d in sides}
+    for params in sides.values():
+        for p in train.param_leaves(params):
+            p.requires_grad_(True)
+    with torch.no_grad():  # the card's loss through the whole forward
+        loss = {"cuda": float(train.cross_entropy(mx.forward(card, tok.cuda(), cfg),
+                                                  tgt.cuda()))}
+    routed = []
+
+    def recording(x, k):
+        w = router_topk(x, k)
+        routed.append((w > 0).cpu())
+        return w
+
+    def block(d, blk, x):
+        return llama._block_train(x, blk, cfg, *rope[d], mx._moe_mlp)
+
+    def top(params, x):
+        h = llama._rms_norm(x, params["final_norm"], cfg.rms_eps)
+        return train.cross_entropy(llama._proj(h.float(), params["lm_head"]), tgt.to(x.device))
+
+    errs, lines, finite = {}, [], True
+    matmul = llama.quantized_matmul
+    try:
+        mx.router_topk, llama.quantized_matmul = recording, _cpu_bf16_gemm(torch, matmul)
+        cpu = sides["cpu"]
+        # the CPU's input to each layer (then the head's), and each layer's
+        # output with its graph
+        t1 = time.perf_counter()
+        xs, ys = [cpu["tok_emb"][tok].detach().requires_grad_(True)], []
+        for blk in cpu["blocks"]:
+            ys.append(block("cpu", blk, xs[-1]))
+            xs.append(ys[-1].detach().requires_grad_(True))
+        cpu_sets = routed[:]
+        t_cpu = time.perf_counter() - t1
+        # the head; the CPU's loss is that of its whole forward
+        grads = {}
+        for d, params in sides.items():
+            x = xs[L].to(d).requires_grad_(True)
+            leaves = [params["final_norm"], params["lm_head"], x]
+            head_loss = top(params, x)
+            grads[d] = torch.autograd.grad(head_loss, leaves)
+            if d == "cpu":
+                loss["cpu"] = float(head_loss.detach())
+        for name, i in (("final_norm", 0), ("lm_head", 1)):
+            errs[name] = _rel_norm(grads["cuda"][i], grads["cpu"][i].cuda())
+        upstream = grads["cpu"][2]  # the CPU's gradient at the last layer's output
+        # each layer alone, from the top down
+        for layer in reversed(range(L)):
+            names = [f"blocks.{layer}.{n}" for n, _ in train.named_leaves(cpu["blocks"][layer])]
+            x = xs[layer].detach().cuda().requires_grad_(True)
+            routed.clear()
+            y = checkpoint(block, "cuda", card["blocks"][layer], x, use_reentrant=False)
+            out = {"cpu": (xs[layer], ys[layer], train.param_leaves(cpu["blocks"][layer])),
+                   "cuda": (x, y, train.param_leaves(card["blocks"][layer]))}
+            differ = (routed[0] != cpu_sets[layer]).any(-1)  # [S]
+            masked = upstream.clone()
+            masked[0, differ] = 0
+            got = {}
+            for d, (x, y, leaves) in out.items():
+                t1 = time.perf_counter()
+                got[d] = torch.autograd.grad(y, leaves + [x], masked.to(d),
+                                             retain_graph=d == "cpu" and bool(differ.any()))
+                if d == "cpu":
+                    t_cpu += time.perf_counter() - t1
+            finite &= all(bool(torch.isfinite(g).all()) for g in got["cuda"])
+            for name, a, b in zip(names, got["cuda"][:-1], got["cpu"][:-1]):
+                errs[name] = _rel_norm(a, b.cuda())
+            x, y, _ = out["cpu"]
+            # the CPU's whole gradient at this layer's input, for the layer below
+            t1 = time.perf_counter()
+            nxt = (torch.autograd.grad(y, [x], upstream)[0] if bool(differ.any())
+                   else got["cpu"][-1])
+            t_cpu += time.perf_counter() - t1
+            share = float(differ.float().mean())
+            checks.check(f"Mixtral training layer {layer} top-2 sets differing on the same "
+                         "input", share, MOE_FLIP_SHARE)
+            lines.append(f"layer {layer}: {int(differ.sum())} of {S} tokens' sets differ "
+                         f"({share:.5f}, limit {MOE_FLIP_SHARE})")
+            dx = {d: got[d][-1] for d in got}
+            upstream = nxt
+            del out, got
+        # the embedding, on each side's gradient at layer 0's input
+        emb = {}
+        for d, params in sides.items():
+            emb[d] = torch.autograd.grad(params["tok_emb"][tok.to(d)], [params["tok_emb"]],
+                                         dx[d].to(params["tok_emb"].dtype))[0]
+        errs["tok_emb"] = _rel_norm(emb["cuda"], emb["cpu"].cuda())
+        finite &= bool(torch.isfinite(emb["cuda"]).all())
+    finally:
+        mx.router_topk, llama.quantized_matmul = router_topk, matmul
+    torch.cuda.synchronize()
+    lerr = abs(loss["cuda"] - loss["cpu"]) / abs(loss["cpu"])
+    ok = checks.check("Mixtral train card vs cpu loss (relative)", lerr, TRAIN_LOSS_TOL)
+    for name, e in errs.items():
+        ok = checks.check(f"Mixtral train card vs cpu grad {name} (relative norm)", e,
+                          TRAIN_GRAD_TOL) and ok
+    if not (finite and np.isfinite(loss["cuda"])):
+        checks.failed.append("Mixtral train card loss or gradients not finite")
+        ok = False
+    worst = max(errs, key=errs.get)
+    say(f"[phase 3 card vs cpu, Mixtral training: 2 layers at 8x7B widths, bf16, B=1 S={S}, "
+        f"remat] loss {loss['cuda']:.6f} (cpu {loss['cpu']:.6f}, relative err {lerr:.3e}, tol "
+        f"{TRAIN_LOSS_TOL:g}) | each piece on the card fed the CPU's input and output gradient: "
+        + "; ".join(reversed(lines)) + f" | {len(errs)} gradients finite={finite}, worst "
+        f"relative norm err {errs[worst]:.3e} ({worst}; tol {TRAIN_GRAD_TOL:g}), router "
+        + ", ".join(f"{errs[f'blocks.{i}.router']:.3e}" for i in range(L))
+        + f" {'ok' if ok else 'FAIL'} | {time.perf_counter() - t0:.2f}s (the CPU's forward "
+        f"and layers' backward {t_cpu:.2f}s)")
+    del sides, card, xs, ys, grads, emb
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # Gemma-2 at 2 layers on the card against the CPU: the window is cut to 512
@@ -6260,19 +6444,156 @@ def phase_mixtral(torch, checks, smi):
     return runs
 
 
-# each training run's median step (ms), by run label
-STEP_MS = {}
+MIXTRAL_TRAIN_LAYERS = 2   # phase 24: Mixtral-8x7B's widths, 2 of its 32 layers
+MIXTRAL_PACKED_STEPS = 2   # phase 24's steps on packed documents
+MIXTRAL_CKPT_STEP = 3      # phase 24 saves its state after this step
+
+
+def _mixtral_train_bound(torch, cfg, params, seq):
+    """(ms, a line) of a Mixtral training step's least time at B=1, S=``seq``:
+    the bf16 GEMMs (every expert for every token, and the attention
+    projections; four passes: the forward, the backward's two products and
+    remat's rerun) and the attention products (K4's two a pass, twice;
+    K9's three; K10's four: 11 products of 2*D flops a causal pair and
+    head) at BF16_FLOPS_PER_S; the fp32 head and router (three products
+    each) at F32_FLOPS_PER_S; AdamW's bytes (each bf16 param, gradient and
+    two moments read once, the param and moments written once) at
+    HBM_BYTES_PER_S."""
+    from flash_attn_tpu_torch.utils import train
+
+    h, L, E, F = cfg.hidden, cfg.num_layers, cfg.num_experts, cfg.intermediate
+    qd, kvd = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    dense = 2 * (2 * h * qd + 2 * h * kvd + 3 * h * F * E)  # a token, a layer
+    gemms = 4 * L * seq * dense
+    attn = 11 * 2 * cfg.head_dim * cfg.num_heads * L * seq * (seq + 1) // 2
+    f32 = 3 * 2 * seq * h * (cfg.vocab_size + L * E)
+    n_params = sum(p.numel() for p in train.param_leaves(params))
+    adam = 7 * 2 * n_params
+    parts = ((gemms + attn) / BF16_FLOPS_PER_S, f32 / F32_FLOPS_PER_S, adam / HBM_BYTES_PER_S)
+    line = (f"bf16 GEMMs {gemms / 1e12:.3f} TFLOP ({gemms / 4 / L / 1e12:.3f} a layer a pass; "
+            f"{3 * gemms / 4 / L / 1e12:.3f} a layer without remat's rerun) and attention "
+            f"{attn / 1e12:.3f} TFLOP ({1e3 * parts[0]:.3f} ms at {BF16_FLOPS_PER_S / 1e12:g} "
+            f"TFLOP/s), the fp32 head and router {f32 / 1e12:.3f} TFLOP ({1e3 * parts[1]:.3f} ms "
+            f"at {F32_FLOPS_PER_S / 1e12:g}), AdamW {adam / 1e9:.3f} GB ({1e3 * parts[2]:.3f} ms "
+            f"at {HBM_BYTES_PER_S / 1e12:g} TB/s)")
+    return 1e3 * sum(parts), line
+
+
+def phase_mixtral_train(torch, checks, smi):
+    """Phase 24: Mixtral at 8x7B widths and MIXTRAL_TRAIN_LAYERS layers
+    (bf16 params and moments from the seed), B=1, S=TRAIN_SEQ, TRAIN_STEPS
+    AdamW steps of the default TrainConfig (remat on) through
+    ``mixtral.forward``: losses finite and falling, peak under
+    MAX_TRAIN_GIB, launches exact (K9 = K10 = one a layer a step, K4 two:
+    remat reruns it), the median step beside its bound.  After step
+    MIXTRAL_CKPT_STEP the state (params and AdamW moments and count) goes
+    through utils/checkpoint.TrainCheckpointManager into a temporary
+    directory and comes back by restore_latest as a new tree on the card,
+    every leaf bit-equal to the live state's; after the straight run, the
+    restored state takes the remaining steps, whose losses are printed
+    beside the straight run's (bitwise or not; held to TRAIN_LOSS_TOL).
+    Then MIXTRAL_PACKED_STEPS steps on phase 19's packed documents (K4's
+    masked instance, K9's and K10's kOpt instances), launches exact.
+    Returns {run: counts}."""
+    import shutil
+    import tempfile
+
+    from flash_attn_tpu_torch.models import mixtral as mx
+    from flash_attn_tpu_torch.utils import checkpoint, train
+
+    t1 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(mx.MIXTRAL_8X7B, num_layers=MIXTRAL_TRAIN_LAYERS)
+    params = mx.init_params(cfg, seed=SEED + 82, device="cuda")
+    bound_ms, line = _mixtral_train_bound(torch, cfg, params, TRAIN_SEQ)
+    say(f"  phase 24 bound: {line}")
+    fwd = lambda p, tokens, remat: mx.forward(p, tokens, cfg, remat=remat)  # noqa: E731
+    n = MIXTRAL_TRAIN_LAYERS * TRAIN_STEPS
+    ckpt_dir = tempfile.mkdtemp(prefix="mixtral_ckpt_")
+    resumed = {}
+
+    def save_and_restore(i, p, state, step_fn, tok, tgt):
+        if i != MIXTRAL_CKPT_STEP:
+            return
+        t0 = time.perf_counter()
+        mgr = checkpoint.TrainCheckpointManager(ckpt_dir)
+        live = {"params": p, "opt": state}
+        mgr.save(i, live)
+        mgr.close()
+        t_save = time.perf_counter() - t0
+        step, back = checkpoint.TrainCheckpointManager(ckpt_dir).restore_latest(like=live)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0 - t_save
+        a, b = train.param_leaves(back), train.param_leaves(live)
+        same = step == i and len(a) == len(b) and all(
+            x == y if isinstance(x, int) else
+            x.device == y.device and x.dtype == y.dtype and torch.equal(x, y)
+            for x, y in zip(a, b))
+        if not same:
+            checks.failed.append(f"phase 24: the checkpoint of step {i} is not restored bitwise")
+        nbytes = sum(x.numel() * x.element_size() for x in b if not isinstance(x, int))
+        resumed.update(state=back, fn=step_fn, batch=(tok, tgt), same=same, step=step,
+                       line=f"{nbytes / 1e9:.3f} GB saved in {t_save:.2f}s, restored in "
+                            f"{t_load:.2f}s")
+
+    try:
+        counts = _train_run(torch, checks, smi, RUN_MIXTRAL_TRAIN, params, fwd, cfg.vocab_size,
+                            TRAIN_SEQ, SEED + 83, {"K9": n, "K10": n, "K4": 2 * n}, t1,
+                            bound_ms=bound_ms, after_step=save_and_restore)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    straight = LOSSES[RUN_MIXTRAL_TRAIN][MIXTRAL_CKPT_STEP:]
+    if resumed:
+        back, step_fn = resumed["state"], resumed["fn"]
+        p, st = back["params"], back["opt"]
+        again = []
+        for _ in range(TRAIN_STEPS - MIXTRAL_CKPT_STEP):
+            p, st, m = step_fn(p, st, *resumed["batch"])
+            again.append(float(m["loss"]))
+        bitwise = again == straight
+        err = max(abs(a - b) / abs(b) for a, b in zip(again, straight))
+        checks.check("phase 24 resumed losses (relative)", err, TRAIN_LOSS_TOL)
+        say(f"  phase 24 checkpoint ({smi}): TrainCheckpointManager after step "
+            f"{MIXTRAL_CKPT_STEP}, {resumed['line']}, every leaf, moment and the count "
+            f"bit-equal: {resumed['same']} | resumed steps {MIXTRAL_CKPT_STEP + 1}-{TRAIN_STEPS} "
+            f"losses {again} against the straight run's {straight}: bitwise {bitwise}, "
+            f"relative err {err:.3e} (tol {TRAIN_LOSS_TOL:g})")
+        del back, p, st, m, resumed["state"]
+    else:
+        checks.failed.append(f"phase 24: no checkpoint after step {MIXTRAL_CKPT_STEP}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    n = MIXTRAL_TRAIN_LAYERS * MIXTRAL_PACKED_STEPS
+    want = {"K9": n, "K10": n, "K9 opt": n, "K10 opt": n, "K9 seg": n, "K10 seg": n,
+            "K4": 2 * n, "K4 seg": 2 * n}
+    packed = _train_run(torch, checks, smi, RUN_MIXTRAL_PACKED_TRAIN, params,
+                        _packed_train_fwd(torch, cfg, PACKED_DOCS, mx.forward), cfg.vocab_size,
+                        TRAIN_SEQ, SEED + 84, want, t1, steps=MIXTRAL_PACKED_STEPS)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {RUN_MIXTRAL_TRAIN: counts, RUN_MIXTRAL_PACKED_TRAIN: packed}
+
+
+# each training run's median step (ms) and its losses, by run label
+STEP_MS, LOSSES = {}, {}
 
 
 def _train_run(torch, checks, smi, run, params, fwd, vocab, seq, seed, want, t1, batch=1,
-               bound_ms=None):
-    """TRAIN_STEPS AdamW steps (the default TrainConfig: lr 3e-4, weight
+               bound_ms=None, steps=TRAIN_STEPS, after_step=None):
+    """``steps`` AdamW steps (the default TrainConfig: lr 3e-4, weight
     decay 0.1, clip 1.0, remat on) of ``params`` on one batch of B=``batch``,
     S=``seq`` from ``seed`` whose targets are its tokens shifted by one:
     losses finite and falling, peak under MAX_TRAIN_GIB, and each count of
     ``want``.  The counters are set to 0 just before the steps and read
     just after.  ``bound_ms`` (a step's least time, worked out by the
-    caller) is printed beside the median step.  Returns the counts."""
+    caller) is printed beside the median step.  ``after_step(i, params,
+    state, step_fn, tok, tgt)`` runs after step i (from 1), outside its
+    time, and launches no kernel.  The losses are kept in LOSSES[run].
+    Returns the counts."""
     import numpy as np
 
     from flash_attn_tpu_torch.utils import train
@@ -6288,17 +6609,19 @@ def _train_run(torch, checks, smi, run, params, fwd, vocab, seq, seed, want, t1,
         f"{time.perf_counter() - t1:.2f}s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     _reset_counts()
     losses, norms, secs_per_step = [], [], []
-    for _ in range(TRAIN_STEPS):
+    for i in range(steps):
         t0 = time.perf_counter()
         params, state, m = step_fn(params, state, tok, tgt)
         torch.cuda.synchronize()
         secs_per_step.append(time.perf_counter() - t0)
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
+        if after_step is not None:
+            after_step(i + 1, params, state, step_fn, tok, tgt)
     counts = _read_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     step_ms = 1e3 * float(np.median(secs_per_step[1:]))
-    STEP_MS[run] = step_ms
+    STEP_MS[run], LOSSES[run] = step_ms, losses
     for key, n in want.items():
         if counts[key] != n:
             checks.failed.append(f"{run}: {key} launched {counts[key]} times, expected {n}")
@@ -6309,7 +6632,7 @@ def _train_run(torch, checks, smi, run, params, fwd, vocab, seq, seed, want, t1,
         checks.failed.append(f"{run}: peak {peak:.2f} GiB > {MAX_TRAIN_GIB} GiB")
     say(f"[{run}] {smi} | losses {[round(x, 6) for x in losses]} grad_norm "
         f"{[round(x, 4) for x in norms]} {'ok' if good else 'FAIL'} | step ms "
-        f"{[round(1e3 * x, 3) for x in secs_per_step]}, median of steps 2-{TRAIN_STEPS} "
+        f"{[round(1e3 * x, 3) for x in secs_per_step]}, median of steps 2-{steps} "
         f"{step_ms:.3f} ms, {batch * seq / step_ms * 1e3:.1f} tokens/s"
         + ("" if bound_ms is None else f" (bound {bound_ms:.3f} ms, {bound_ms / step_ms:.3f} of "
            "the step)") + f" | max_memory_allocated "
@@ -7267,6 +7590,11 @@ RUN_MIXTRAL_SPEC = "phase 17 serve Mixtral-8x7B int8, fp8 KV, n-gram speculation
 RUN_MIXTRAL_PAGED = "phase 17 serve Mixtral-8x7B int8, fp8 KV, paged"
 RUN_ABI = ("phase 18 the C entry points, Llama-3-8B attention widths (varlen 8 sequences in "
            "8192, dense B=2 S=2048) and GPT-2's (B=4 S=1024)")
+RUN_MIXTRAL_TRAIN = (f"phase 24 train Mixtral-8x7B widths, {MIXTRAL_TRAIN_LAYERS} layers, B=1 "
+                     f"S={TRAIN_SEQ}, {TRAIN_STEPS} AdamW steps, remat")
+RUN_MIXTRAL_PACKED_TRAIN = (f"phase 24 packed training Mixtral-8x7B widths, "
+                            f"{MIXTRAL_TRAIN_LAYERS} layers, B=1 S={TRAIN_SEQ}, documents "
+                            f"{PACKED_DOCS}, {MIXTRAL_PACKED_STEPS} AdamW steps")
 RUN_PACKED_TRAIN = (f"phase 19 packed training Llama-3 8B widths, {TRAIN_LAYERS} layers, B=1 "
                     f"S={TRAIN_SEQ}, documents (1024, 512, 320, 192), {TRAIN_STEPS} AdamW steps")
 RUN_SP_RING = (f"phase 20 ring attention, contiguous, causal, {SP_N} ranks on one card, "
@@ -7668,6 +7996,7 @@ def main() -> int:
     qwen_card_vs_cpu(torch, checks)
     mixtral_card_vs_cpu(torch, checks, "int8", SEED + 66)
     mixtral_card_vs_cpu(torch, checks, "int4", SEED + 67)
+    mixtral_train_card_vs_cpu(torch, checks)
     runs = {RUN_ABI: phase_abi(torch, checks, smi)}
     runs.update(phase_sp(torch, checks, smi))
     runs.update(phase_fa2_surface(torch, checks, smi))
@@ -7682,6 +8011,7 @@ def main() -> int:
     runs[RUN_GPT2_TRAIN] = phase_gpt2_train(torch, checks, smi)
     runs.update(phase_qwen(torch, checks, smi))
     runs.update(phase_mixtral(torch, checks, smi))
+    runs.update(phase_mixtral_train(torch, checks, smi))
     runs.update(phase_lora(torch, checks, smi))
     runs.update(phase_sp_decode(torch, checks, smi))
     phase_ep_pp(torch, checks, smi)

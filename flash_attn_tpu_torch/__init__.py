@@ -33,6 +33,7 @@ from flash_attn_tpu_torch.ops.quant import (
     quantize_kv,
 )
 from flash_attn_tpu_torch.ops.reference import mha_reference
+from flash_attn_tpu_torch.version import __version__
 
 __all__ = [
     "FlashConfig",
@@ -56,4 +57,5 @@ __all__ = [
     "quantize_kv",
     "quantized_matmul",
     "resolve_device",
+    "__version__",
 ]

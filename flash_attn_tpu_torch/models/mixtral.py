@@ -5,7 +5,7 @@ or the port's other quantized GEMMs.
 
 Port of flash_attn_tpu/models/mixtral.py: the configs, ``init_params``
 (from a ``torch.Generator``, quantizing each projection as it is drawn),
-``_moe_mlp``, ``forward`` (no gradient yet), ``prefill_with_kv``,
+``_moe_mlp``, ``forward`` (differentiable, for training), ``prefill_with_kv``,
 ``prefill_packed``, ``decode_step``, ``decode_multi``,
 ``decode_step_paged``, ``make_cache``, ``make_adapter``,
 ``stack_experts``, ``quantize_weights`` and ``convert_hf_model``.  The
@@ -152,7 +152,8 @@ def _moe_mlp(x, blk, cfg: MixtralConfig):
     (a plain matmul, outside any kernel, as in JAX); every expert runs for
     every token through ``quantized_matmul`` and its output, weighted by
     the token's top-k softmax (zero elsewhere), is added in fp32 in expert
-    order."""
+    order.  Differentiable in float weights: the gradient reaches the
+    router's top-k logits and every expert, as ``jax.grad`` of JAX's."""
     h = _rms_norm(x, blk["mlp_norm"], cfg.rms_eps)
     hs = h.reshape(-1, cfg.hidden)
     combine = router_topk(hs.float() @ blk["router"].float(), cfg.top_k)  # [T, E]
@@ -166,12 +167,17 @@ def _moe_mlp(x, blk, cfg: MixtralConfig):
     return x + out.to(x.dtype).reshape(x.shape)
 
 
-@torch.no_grad()
-def forward(params, tokens, cfg: MixtralConfig, *, positions=None, segment_ids=None):
+def forward(params, tokens, cfg: MixtralConfig, *, positions=None, segment_ids=None,
+            remat: bool = False):
     """tokens [B, S] -> logits [B, S, V] fp32 (causal, online softmax, the
-    window).  No gradient: Mixtral's training is not ported yet."""
+    window), differentiable w.r.t. every float param: ``llama.forward``
+    with ``_moe_mlp`` as each block's MLP, so the gradient reaches the
+    router through ``router_topk`` and every expert.  ``remat``
+    checkpoints each block; ``positions`` and ``segment_ids`` (packed
+    documents) as Llama's, and a windowed config with ``segment_ids`` is
+    refused there before any launch."""
     return llama.forward(params, tokens, cfg, positions=positions, segment_ids=segment_ids,
-                         mlp=_moe_mlp)
+                         remat=remat, mlp=_moe_mlp)
 
 
 @torch.no_grad()

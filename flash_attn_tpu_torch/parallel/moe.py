@@ -32,7 +32,9 @@ def router_topk(logits: torch.Tensor, k: int) -> torch.Tensor:
     """logits [T, E] -> weights [T, E], nonzero only at each row's top k,
     softmaxed over them.  Ties go to the lower expert index, as
     ``jax.lax.top_k`` breaks them: a stable descending sort keeps equal
-    logits in index order (``torch.topk`` promises no order on ties)."""
+    logits in index order (``torch.topk`` promises no order on ties).
+    Differentiable as JAX's: the gradient reaches the selected logits
+    through the softmax and is zero at the others."""
     top = _top_k(logits, k)
     w = torch.softmax(torch.gather(logits, -1, top), dim=-1)
     return torch.zeros_like(logits).scatter(-1, top, w)

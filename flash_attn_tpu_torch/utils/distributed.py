@@ -6,12 +6,14 @@ JAX's summary keys; with no coordinator and one process it does nothing.
 The coordinator is ``host:port`` (``tcp://`` is put in front), as JAX's
 ``coordinator_address``; the process count and index come from the
 arguments or from ``WORLD_SIZE`` and ``RANK``.  The backend is NCCL where
-the process has a card, else gloo.  No code of the port runs collectives
+the process has a card, else gloo.  ``shutdown`` leaves the group; it runs
+at exit.  No code of the port runs collectives
 across processes yet: its meshes run every rank in one process.
 """
 
 from __future__ import annotations
 
+import atexit
 import os
 from datetime import timedelta
 
@@ -35,7 +37,17 @@ def initialize(coordinator_address: str | None = None, num_processes: int | None
         backend = "nccl" if torch.cuda.is_available() else "gloo"
     dist.init_process_group(backend, init_method=f"tcp://{addr}", world_size=num_processes,
                             rank=process_id, timeout=timedelta(seconds=timeout_s))
+    atexit.register(shutdown)
     return _summary()
+
+
+def shutdown():
+    """Leave the process group, as JAX's client shuts down at exit: every
+    process waits at a barrier, so none tears down while another still
+    talks to its store or its group, then the group is destroyed."""
+    if dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
 
 
 def _local_devices() -> int:

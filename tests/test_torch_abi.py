@@ -20,6 +20,7 @@ import torch
 
 from flash_attn_tpu.runtime import abi as jabi
 from flash_attn_tpu_torch.runtime import abi
+from _torch_threads import one_torch_thread  # noqa: F401
 
 FWD_TOL, BWD_TOL = 2e-4, 5e-4
 # bf16 / fp16 outputs: the two sides round their fp32 results to the

@@ -34,6 +34,7 @@ from flash_attn_tpu_torch.engine.engine import (
 )
 from flash_attn_tpu_torch.models import llama
 from flash_attn_tpu_torch.utils import profiling
+from _torch_threads import one_torch_thread  # noqa: F401
 
 CFG = llama.LLAMA_TINY
 # three waves of (prompt, max_tokens) through two slots: more requests than

@@ -27,6 +27,7 @@ from flash_attn_tpu_torch.engine.scheduler import (
     bucket_length,
 )
 from flash_attn_tpu_torch.models import llama
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 CFG = llama.LLAMA_TINY

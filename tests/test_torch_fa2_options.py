@@ -33,6 +33,7 @@ from flash_attn_tpu_torch.models import llama
 from flash_attn_tpu_torch.ops import flash_bwd as fb
 from flash_attn_tpu_torch.ops import flash_fwd as ff
 from flash_attn_tpu_torch.ops.attention import flash_attention, flash_attention_varlen
+from _torch_threads import one_torch_thread  # noqa: F401
 
 B, SQ, SK, H, HK, D = 2, 40, 56, 4, 2, 32
 FWD_TOL = 1e-5

@@ -37,6 +37,7 @@ from flash_attn_tpu_torch.ops import reference as ref
 from flash_attn_tpu_torch.ops.attention import flash_attention, flash_attention_varlen
 from flash_attn_tpu_torch.parallel.mesh import host_local_mesh
 from flash_attn_tpu_torch.parallel.ring import make_ring_attention, stripe_sequence
+from _torch_threads import one_torch_thread  # noqa: F401
 
 B, SQ, SK, HK, D = 2, 40, 56, 2, 32
 FWD_TOL = 1e-5

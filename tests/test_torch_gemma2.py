@@ -14,6 +14,7 @@ its kernels.  Each tolerance is stated with its reason.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -33,6 +34,16 @@ from flash_attn_tpu_torch.engine.engine import InferenceEngine
 from flash_attn_tpu_torch.models import gemma2
 from flash_attn_tpu_torch.ops import decode as dec
 from flash_attn_tpu_torch.ops import flash_fwd as ff
+from _torch_threads import one_torch_thread  # noqa: F401
+
+
+@functools.lru_cache(maxsize=None)
+def _jitted(fn, jcfg):
+    """JAX's model function ``fn`` with ``jcfg`` and interpret mode bound,
+    jitted once a module, as the JAX engine runs it (eagerly, interpret
+    mode compiles each of its small ops apart).  The arguments after
+    ``cfg`` go by keyword."""
+    return jax.jit(functools.partial(fn, cfg=jcfg, interpret=True))
 
 CFG = gemma2.GEMMA2_TINY
 # fp32 on both sides: summation order, exp2 against exp, and tanh on
@@ -320,8 +331,8 @@ def test_prefill_and_forward_match_jax(float_params, int8_params, quant):
     jp, tp = float_params if quant == "float" else int8_params
     toks = _prompt(3, 24)
     pos = np.arange(24, dtype=np.int32)[None]
-    jl, jkv = jgemma2.prefill_with_kv(jp, jnp.asarray(toks), jnp.asarray(pos), jgemma2.GEMMA2_TINY,
-                                      interpret=True)
+    jl, jkv = _jitted(jgemma2.prefill_with_kv, jgemma2.GEMMA2_TINY)(jp, jnp.asarray(toks),
+                                                                     jnp.asarray(pos))
     tl, tkv = gemma2.prefill_with_kv(tp, torch.from_numpy(toks).long(), torch.from_numpy(pos), CFG)
     assert tl.shape == (1, 24, CFG.vocab_size) and tl.dtype == torch.float32
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=LOGIT_TOL)
@@ -329,7 +340,7 @@ def test_prefill_and_forward_match_jax(float_params, int8_params, quant):
         np.testing.assert_allclose(tk.numpy(), np.asarray(jk), atol=1e-4)
         np.testing.assert_allclose(tv.numpy(), np.asarray(jv), atol=1e-4)
     assert float(tl.abs().max()) <= CFG.final_logit_softcap
-    jf = jgemma2.forward(jp, jnp.asarray(toks), jgemma2.GEMMA2_TINY, interpret=True)
+    jf = _jitted(jgemma2.forward, jgemma2.GEMMA2_TINY)(jp, jnp.asarray(toks))
     tf = gemma2.forward(tp, torch.from_numpy(toks).long(), CFG)
     np.testing.assert_allclose(tf.numpy(), np.asarray(jf), atol=LOGIT_TOL)
     wide = dataclasses.replace(CFG, sliding_window=1000)
@@ -351,8 +362,8 @@ def test_decode_step_matches_jax(float_params, int8_params, quant, kv_mode):
     jcache = jgemma2.make_cache(jcfg, 2, 64, mode=kv_mode)
     for b, n in enumerate((14, 10)):
         toks = _prompt(5 + b, n)
-        _, kvs = jgemma2.prefill_with_kv(jp, jnp.asarray(toks), jnp.arange(n)[None], jcfg,
-                                         interpret=True)
+        _, kvs = _jitted(jgemma2.prefill_with_kv, jcfg)(jp, jnp.asarray(toks),
+                                                        jnp.arange(n)[None])
         for i, (k, v) in enumerate(kvs):
             jcache = jcache.insert_at(i, b, k[0], v[0], 0)
         jcache = jcache.set_length(b, n)

@@ -18,6 +18,8 @@ mode; the port runs the plain versions of its kernels.  Each tolerance is
 stated with its reason.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -37,6 +39,16 @@ from flash_attn_tpu_torch.models import gemma2
 from flash_attn_tpu_torch.ops import flash_bwd as fb
 from flash_attn_tpu_torch.ops import flash_fwd as ff
 from flash_attn_tpu_torch.utils import train
+from _torch_threads import one_torch_thread  # noqa: F401
+
+
+@functools.lru_cache(maxsize=None)
+def _jitted(fn, jcfg):
+    """JAX's model function ``fn`` with ``jcfg`` and interpret mode bound,
+    jitted once a module, as the JAX engine runs it (eagerly, interpret
+    mode compiles each of its small ops apart).  The arguments after
+    ``cfg`` go by keyword."""
+    return jax.jit(functools.partial(fn, cfg=jcfg, interpret=True))
 
 # 27B's proportions at a tiny size, built on each side from its own config
 # class: q_dim 4 x 32 = 128 != hidden 48, query_pre_attn_scalar 12 != 32
@@ -170,8 +182,7 @@ def test_prefill_and_forward_match_jax(params):
     jp, tp = params
     toks = _prompt(3, 24)
     pos = np.arange(24, dtype=np.int32)[None]
-    jl, jkv = jgemma2.prefill_with_kv(jp, jnp.asarray(toks), jnp.asarray(pos), JCFG,
-                                      interpret=True)
+    jl, jkv = _jitted(jgemma2.prefill_with_kv, JCFG)(jp, jnp.asarray(toks), jnp.asarray(pos))
     tl, tkv = gemma2.prefill_with_kv(tp, torch.from_numpy(toks).long(), torch.from_numpy(pos),
                                      CFG)
     assert tl.shape == (1, 24, CFG.vocab_size)
@@ -180,7 +191,7 @@ def test_prefill_and_forward_match_jax(params):
         assert tuple(tk.shape) == (1, 24, CFG.num_kv_heads, CFG.head_dim)
         np.testing.assert_allclose(tk.numpy(), np.asarray(jk), atol=1e-4)
         np.testing.assert_allclose(tv.numpy(), np.asarray(jv), atol=1e-4)
-    jf = jgemma2.forward(jp, jnp.asarray(toks), JCFG, interpret=True)
+    jf = _jitted(jgemma2.forward, JCFG)(jp, jnp.asarray(toks))
     tf = gemma2.forward(tp, torch.from_numpy(toks).long(), CFG)
     np.testing.assert_allclose(tf.numpy(), np.asarray(jf), atol=LOGIT_TOL)
     other = gemma2.Gemma2Config(**{**TINY_27B, "query_pre_attn_scalar": 32.0})
@@ -198,8 +209,8 @@ def test_decode_step_matches_jax(params, kv_mode):
     jp, tp = params
     jcache = jgemma2.make_cache(JCFG, 2, 64, mode=kv_mode)
     for b, n in enumerate((14, 10)):
-        _, kvs = jgemma2.prefill_with_kv(jp, jnp.asarray(_prompt(5 + b, n)),
-                                         jnp.arange(n)[None], JCFG, interpret=True)
+        _, kvs = _jitted(jgemma2.prefill_with_kv, JCFG)(jp, jnp.asarray(_prompt(5 + b, n)),
+                                                        jnp.arange(n)[None])
         for i, (k, v) in enumerate(kvs):
             jcache = jcache.insert_at(i, b, k[0], v[0], 0)
         jcache = jcache.set_length(b, n)

@@ -33,6 +33,7 @@ from flash_attn_tpu_torch.models import gemma2
 from flash_attn_tpu_torch.ops import flash_bwd as fb
 from flash_attn_tpu_torch.ops.attention import flash_attention
 from flash_attn_tpu_torch.utils import train
+from _torch_threads import one_torch_thread  # noqa: F401
 
 CFG = gemma2.GEMMA2_TINY
 # GQA 4/2 and Sq < Sk, so the causal mask and the window are shifted
@@ -150,7 +151,7 @@ def test_forward_grads_match_jax():
     def jloss(p):
         return jnp.sum(jgemma2.forward(p, jnp.asarray(toks), jcfg, interpret=True) * w)
 
-    want = jax.tree.leaves(jax.grad(jloss)(jp))
+    want = jax.tree.leaves(jax.jit(jax.grad(jloss))(jp))
     leaves = train.param_leaves(tp)
     for p in leaves:
         p.requires_grad_(True)
@@ -166,7 +167,7 @@ def test_forward_grads_match_jax():
     pos = torch.arange(48)[None].expand(2, 48)
     served, _ = gemma2.prefill_with_kv(tp, torch.from_numpy(toks).long(), pos, CFG)
     np.testing.assert_allclose(served.numpy(), logits.detach().numpy(), atol=1e-5)
-    jl = jgemma2.forward(jp, jnp.asarray(toks), jcfg, interpret=True)
+    jl = jax.jit(lambda p: jgemma2.forward(p, jnp.asarray(toks), jcfg, interpret=True))(jp)
     np.testing.assert_allclose(logits.detach().numpy(), np.asarray(jl), atol=5e-3)
 
 
@@ -178,7 +179,7 @@ def _hold_leaf_norms(jcfg, jparams, cfg, tp, tok, tgt, remat):
         return jtrain.cross_entropy(jgemma2.forward(p, jnp.asarray(tok), jcfg, interpret=True),
                                     jnp.asarray(tgt))
 
-    want = [np.asarray(w, np.float32) for w in jax.tree.leaves(jax.grad(jloss)(jparams))]
+    want = [np.asarray(w, np.float32) for w in jax.tree.leaves(jax.jit(jax.grad(jloss))(jparams))]
     for p in train.param_leaves(tp):
         p.requires_grad_(True)
     _, got = train.loss_and_grads(lambda p, t, remat: gemma2.forward(p, t, cfg, remat=remat), tp,

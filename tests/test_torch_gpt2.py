@@ -1,17 +1,18 @@
 """GPT-2 serving in the port against the JAX package, on the CPU, at
 head_dim 64 (GPT-2 124M's): K4's plain version causal, shifted and with
 segment ids and positions; the chunk kernel's (K1c/K8c) and K8's plain
-versions; ``models/gpt2.py`` (forward, prefill, decode steps in three KV
-types, the verify step, chunked, packed and one-prompt prefill, the paged
-step, the position clamp past ``max_position``) in fp32 and bf16; the HF
-conversion against ``GPT2LMHeadModel`` built from config; and both
-engines token for token against JAX's.
+versions; ``models/gpt2.py``'s chunked and packed prefill, paged step,
+position clamp past ``max_position`` and ``greedy_decode`` in fp32 and
+bf16; ``init_params``; the HF conversion against ``GPT2LMHeadModel``
+built from config; and both engines token for token against JAX's
+(tests/test_torch_gpt2_models.py holds ``forward``, ``prefill_with_kv``,
+``prefill``, the decode step and the verify step).
 
 Inputs are made with numpy (or JAX's init, handed over through
-``bridge``) and given to both sides.  JAX runs its Pallas kernels in
-interpret mode or through its plain oracles (``mha_reference``,
-``_decode_chunk_jnp``); the port runs the plain versions of its kernels.
-Each tolerance is stated with its reason.
+``bridge``) and given to both sides.  JAX runs its model functions jitted
+and its Pallas kernels in interpret mode or through its plain oracles
+(``mha_reference``, ``_decode_chunk_jnp``); the port runs the plain
+versions of its kernels.  Each tolerance is stated with its reason.
 """
 
 import dataclasses
@@ -45,6 +46,7 @@ from flash_attn_tpu_torch.models import gpt2
 from flash_attn_tpu_torch.ops import decode as dec
 from flash_attn_tpu_torch.ops import flash_fwd as ff
 from flash_attn_tpu_torch.ops import paged_decode as pd
+from _torch_threads import one_torch_thread  # noqa: F401
 
 # two layers of two heads of 64: GPT-2 124M's head_dim at a tiny size
 _TINY64 = dict(vocab_size=1024, max_position=128, num_layers=2, num_heads=2, hidden=128)
@@ -83,6 +85,15 @@ def _params(dtype):
     jp = jgpt2.init_params(dataclasses.replace(JCFG, dtype=dtype), jax.random.PRNGKey(0))
     return (dtype, jp, bridge.params_from_jax(jp, device="cpu"),
             dataclasses.replace(JCFG, dtype=dtype), dataclasses.replace(CFG, dtype=dtype))
+
+
+@functools.lru_cache(maxsize=None)
+def _jitted(fn, jcfg):
+    """JAX's model function ``fn`` with ``jcfg`` and interpret mode bound,
+    jitted once a module, as the JAX engine runs it (eagerly, interpret
+    mode compiles each of its hundreds of small ops apart).  The arguments
+    after ``cfg`` go by keyword."""
+    return jax.jit(functools.partial(fn, cfg=jcfg, interpret=True))
 
 
 # the model tests run in both dtypes where a call is cheap, and otherwise
@@ -227,10 +238,10 @@ def test_paged_decode_d64_matches_jax(kv, softmax_mode):
     q = r.standard_normal((B, Hk, D)).astype(np.float32)
     ks = None if jp.k_scale is None else jp.k_scale[0]
     vs = None if jp.v_scale is None else jp.v_scale[0]
-    jo, jl = j_paged_decode(jnp.asarray(q), jp.k_pages[0], jp.v_pages[0], jp.block_table,
-                            jp.length, k_scale=ks, v_scale=vs,
-                            scales_permuted=jp.scales_permuted, interpret=True,
-                            return_lse=True, softmax_mode=softmax_mode)
+    jo, jl = jax.jit(functools.partial(
+        j_paged_decode, scales_permuted=jp.scales_permuted, interpret=True, return_lse=True,
+        softmax_mode=softmax_mode))(jnp.asarray(q), jp.k_pages[0], jp.v_pages[0],
+                                    jp.block_table, jp.length, k_scale=ks, v_scale=vs)
     tkw = {} if tp.k_scale is None else {"k_scale": tp.k_scale[0], "v_scale": tp.v_scale[0]}
     to, tl = pd.paged_flash_decode(torch.from_numpy(q), tp.k_pages[0], tp.v_pages[0],
                                    tp.block_table, tp.length, **tkw, return_lse=True,
@@ -241,83 +252,6 @@ def test_paged_decode_d64_matches_jax(kv, softmax_mode):
 
 
 # --- models/gpt2.py against flash_attn_tpu/models/gpt2.py -------------------
-
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_forward_prefill_with_kv_and_probe_match_jax(dtype):
-    """forward (online), prefill_with_kv (clamped; every layer's k, v) and
-    max_attention_logit on the same tokens."""
-    dtype, jp, tp, jcfg, cfg = _params(dtype)
-    toks = _tokens(1, (2, 40))
-    jl = jgpt2.forward(jp, jnp.asarray(toks), jcfg, interpret=True)
-    tl = gpt2.forward(tp, torch.from_numpy(toks), cfg)
-    assert tl.shape == (2, 40, CFG.vocab_size) and tl.dtype == torch.float32
-    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=_tol(dtype))
-    pos = np.tile(np.arange(40), (2, 1))
-    jl, jkv = jgpt2.prefill_with_kv(jp, jnp.asarray(toks), jnp.asarray(pos), jcfg,
-                                    interpret=True)
-    tl, tkv = gpt2.prefill_with_kv(tp, torch.from_numpy(toks), torch.from_numpy(pos), cfg)
-    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=_tol(dtype))
-    for (jk, jv), (tk, tv) in zip(jkv, tkv):
-        assert tk.shape == (2, 40, 2, 64) and tk.dtype == getattr(torch, dtype)
-        np.testing.assert_allclose(_np(tk), _np(jk), atol=_tol(dtype))
-        np.testing.assert_allclose(_np(tv), _np(jv), atol=_tol(dtype))
-    if dtype == "float32":
-        want = jgpt2.max_attention_logit(jp, jnp.asarray(toks[:1]), jcfg)
-        got = gpt2.max_attention_logit(tp, torch.from_numpy(toks[:1]), cfg)
-        assert abs(got - want) <= F32_TOL * max(1.0, abs(want))
-
-
-@pytest.mark.parametrize("dtype,kv_mode", [("float32", "none"), ("float32", "int8"),
-                                           ("bfloat16", "fp8")])
-def test_prefill_and_decode_steps_match_jax(dtype, kv_mode):
-    """prefill of two prompts into a cache, then two decode steps fed
-    JAX's greedy tokens: logits at each step and the cache after."""
-    dtype, jp, tp, jcfg, cfg = _params(dtype)
-    toks = _tokens(2, (2, 21))
-    jc = jgpt2.make_cache(jcfg, 2, 64, mode=kv_mode)
-    tc = gpt2.make_cache(cfg, 2, 64, mode=kv_mode, device="cpu")
-    jl, jc = jgpt2.prefill(jp, jnp.asarray(toks), jcfg, jc, interpret=True)
-    tl, tc = gpt2.prefill(tp, torch.from_numpy(toks), cfg, tc)
-    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=_tol(dtype))
-    for _ in range(2):
-        nxt = jnp.argmax(jl, axis=-1)
-        jl, jc = jgpt2.decode_step(jp, nxt, jcfg, jc, interpret=True)
-        tl, tc = gpt2.decode_step(tp, to_torch(nxt).long(), cfg, tc)
-        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=_tol(dtype))
-    want = bridge.kv_cache_from_jax(jc, device="cpu")
-    assert tc.length.tolist() == want.length.tolist() == [23, 23]
-    if dtype == "float32":
-        # a stored int8 or e4m3 value whose input flipped a rounding moves
-        # one step (1, or at most 1/8 of it); float values agree to LOGIT_TOL
-        for a, b in zip(tc.k + tc.v, want.k + want.v):
-            step = LOGIT_TOL if kv_mode == "none" else np.maximum(1.0, np.abs(_np(b)) / 8)
-            assert np.all(np.abs(_np(a) - _np(b)) <= step)
-
-
-@pytest.mark.parametrize("dtype", ["bfloat16"])
-def test_decode_multi_matches_jax(dtype):
-    """The verify step: T = 5 tokens a sequence after a prefill (one
-    sequence at 30 of 64 positions, one at 7), int8 KV."""
-    dtype, jp, tp, jcfg, cfg = _params(dtype)
-    jc = jgpt2.make_cache(jcfg, 2, 64, mode="int8")
-    tc = gpt2.make_cache(cfg, 2, 64, mode="int8", device="cpu")
-    for slot, n in enumerate((30, 7)):
-        toks = _tokens(3 + slot, (1, n))
-        pos = np.arange(n)[None]
-        _, jkv = jgpt2.prefill_with_kv(jp, jnp.asarray(toks), jnp.asarray(pos), jcfg,
-                                       interpret=True)
-        _, tkv = gpt2.prefill_with_kv(tp, torch.from_numpy(toks), torch.from_numpy(pos), cfg)
-        for layer, ((jk, jv), (tk, tv)) in enumerate(zip(jkv, tkv)):
-            jc = jc.insert_at(layer, slot, jk[0], jv[0], 0)
-            tc.insert_at(layer, slot, tk[0], tv[0], 0)
-        jc, tc = jc.set_length(slot, n), tc.set_length(slot, n)
-    toks = _tokens(5, (2, 5))
-    jl, jc = jgpt2.decode_multi(jp, jnp.asarray(toks), jcfg, jc, interpret=True)
-    tl, tc = gpt2.decode_multi(tp, torch.from_numpy(toks), cfg, tc)
-    assert tl.shape == (2, 5, CFG.vocab_size)
-    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=_tol(dtype))
-    assert tc.length.tolist() == [35, 12]
-
 
 @pytest.mark.parametrize("dtype", ["float32"])
 def test_prefill_chunk_matches_jax(dtype):
@@ -331,7 +265,8 @@ def test_prefill_chunk_matches_jax(dtype):
         chunk = np.zeros((1, 16), np.int64)
         n = min(16, 50 - start)
         chunk[0, :n] = prompt[start:start + n]
-        jl, jc = jgpt2.prefill_chunk(jp, jnp.asarray(chunk), jcfg, jc, 1, start, interpret=True)
+        jl, jc = _jitted(jgpt2.prefill_chunk, jcfg)(jp, jnp.asarray(chunk), cache=jc, slot=1,
+                                                   start=start)
         tl, tc = gpt2.prefill_chunk(tp, torch.from_numpy(chunk), cfg, tc, 1, start)
         np.testing.assert_allclose(tl.numpy()[0, :n], np.asarray(jl)[0, :n], atol=_tol(dtype))
     want = bridge.kv_cache_from_jax(jc, device="cpu")
@@ -360,8 +295,8 @@ def test_prefill_packed_matches_jax(dtype):
         toks[0, off:off + n] = _tokens(7 + i, (n,))
         seg[0, off:off + n], pos[0, off:off + n] = i + 1, np.arange(n)
         off += n
-    jl, jkv = jgpt2.prefill_packed(jp, jnp.asarray(toks), jnp.asarray(pos), jnp.asarray(seg),
-                                   jcfg, interpret=True)
+    jl, jkv = _jitted(jgpt2.prefill_packed, jcfg)(jp, jnp.asarray(toks), jnp.asarray(pos),
+                                                  jnp.asarray(seg))
     tl, tkv = gpt2.prefill_packed(tp, torch.from_numpy(toks), torch.from_numpy(pos),
                                   torch.from_numpy(seg), cfg)
     np.testing.assert_allclose(tl.numpy()[0, :off], np.asarray(jl)[0, :off], atol=_tol(dtype))
@@ -384,8 +319,7 @@ def test_decode_step_paged_matches_jax(dtype, kv_mode):
         jpool = jpool.assign_pages(b, pages)
         tpool.assign_pages(b, pages)
         toks, pos = _tokens(9 + b, (1, n)), np.arange(n)[None]
-        jl, jkv = jgpt2.prefill_with_kv(jp, jnp.asarray(toks), jnp.asarray(pos), jcfg,
-                                        interpret=True)
+        jl, jkv = _jitted(jgpt2.prefill_with_kv, jcfg)(jp, jnp.asarray(toks), jnp.asarray(pos))
         _, tkv = gpt2.prefill_with_kv(tp, torch.from_numpy(toks), torch.from_numpy(pos), cfg)
         for layer, ((jk, jv), (tk, tv)) in enumerate(zip(jkv, tkv)):
             jpool = jpool.append_prefill(layer, b, jk[0], jv[0], 0)
@@ -395,7 +329,7 @@ def test_decode_step_paged_matches_jax(dtype, kv_mode):
     jl = jnp.stack(jlast)
     for _ in range(2):
         nxt = jnp.argmax(jl, axis=-1)
-        jl, jpool = jgpt2.decode_step_paged(jp, nxt, jcfg, jpool, interpret=True)
+        jl, jpool = _jitted(jgpt2.decode_step_paged, jcfg)(jp, nxt, pool=jpool)
         tl, tpool = gpt2.decode_step_paged(tp, to_torch(nxt).long(), cfg, tpool)
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=_tol(dtype))
     assert tpool.length.tolist() == [21, 8]
@@ -413,17 +347,18 @@ def test_positions_past_max_position_clamp_as_jax(dtype):
     for slot, n in enumerate((cfg.max_position + 2, 5)):
         jc, tc = jc.set_length(slot, n), tc.set_length(slot, n)
     tok = np.array([17, 4])
-    jl, jc = jgpt2.decode_step(jp, jnp.asarray(tok), jcfg, jc, interpret=True)
+    jl, jc = _jitted(jgpt2.decode_step, jcfg)(jp, jnp.asarray(tok), cache=jc)
     tl, tc = gpt2.decode_step(tp, torch.from_numpy(tok), cfg, tc)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=_tol(dtype))
     toks = _tokens(10, (2, 3))
-    jl, jc = jgpt2.decode_multi(jp, jnp.asarray(toks), jcfg, jc, interpret=True)
+    jl, jc = _jitted(jgpt2.decode_multi, jcfg)(jp, jnp.asarray(toks), cache=jc)
     tl, tc = gpt2.decode_multi(tp, torch.from_numpy(toks), cfg, tc)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=_tol(dtype))
     assert tc.length.tolist() == [cfg.max_position + 6, 9]
     chunk = _tokens(11, (1, 16))
     start = cfg.max_position - 8
-    jl, _ = jgpt2.prefill_chunk(jp, jnp.asarray(chunk), jcfg, jc, 1, start, interpret=True)
+    jl, _ = _jitted(jgpt2.prefill_chunk, jcfg)(jp, jnp.asarray(chunk), cache=jc, slot=1,
+                                               start=start)
     tl, _ = gpt2.prefill_chunk(tp, torch.from_numpy(chunk), cfg, tc, 1, start)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=_tol(dtype))
 
@@ -434,8 +369,8 @@ def test_greedy_decode_tiny_matches_jax():
     jp = jgpt2.init_params(jgpt2.GPT2_TINY, jax.random.PRNGKey(3))
     tp = bridge.params_from_jax(jp, device="cpu")
     prompt = _tokens(12, (2, 9))
-    want = jgpt2.greedy_decode(jp, jnp.asarray(prompt), jgpt2.GPT2_TINY, steps=4,
-                               kv_mode="int8", interpret=True)
+    want = jax.jit(functools.partial(jgpt2.greedy_decode, cfg=jgpt2.GPT2_TINY, steps=4,
+                                     kv_mode="int8", interpret=True))(jp, jnp.asarray(prompt))
     got = gpt2.greedy_decode(tp, torch.from_numpy(prompt), gpt2.GPT2_TINY, steps=4,
                              kv_mode="int8")
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))

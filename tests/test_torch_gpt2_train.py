@@ -145,7 +145,7 @@ def test_forward_grads_match_jax(cfg_kw, remat):
     def jloss(p):
         return jnp.sum(jgpt2.forward(p, jnp.asarray(toks), jcfg, interpret=True) * w)
 
-    want = jax.tree.leaves(jax.grad(jloss)(jp))
+    want = jax.tree.leaves(jax.jit(jax.grad(jloss))(jp))
     leaves = train.param_leaves(tp)
     for p in leaves:
         p.requires_grad_(True)
@@ -155,7 +155,7 @@ def test_forward_grads_match_jax(cfg_kw, remat):
     assert len(leaves) == len(want)
     for name, p, wg in zip(names, leaves, want):
         assert p.grad is not None and rel_err(p.grad, wg) < 1e-4, name
-    jl = jgpt2.forward(jp, jnp.asarray(toks), jcfg, interpret=True)
+    jl = jax.jit(lambda p: jgpt2.forward(p, jnp.asarray(toks), jcfg, interpret=True))(jp)
     np.testing.assert_allclose(logits.detach().numpy(), np.asarray(jl), atol=1e-5)
     with torch.no_grad():
         again = gpt2.forward(tp, torch.from_numpy(toks).long(), cfg)
@@ -235,8 +235,9 @@ def test_serve_train_serve_reads_the_trained_head(dtype):
         fresh = {k: v for k, v in tp.items() if not k.startswith("_")}
         again, _ = gpt2.decode_step(fresh, torch.from_numpy(tok0).long(), cfg,
                                     gpt2.make_cache(cfg, 2, 16, device="cpu"))
-    want, _ = jgpt2.decode_step(jp, jnp.asarray(tok0), jcfg, jgpt2.make_cache(jcfg, 2, 16),
-                                interpret=True)
+    want, _ = jax.jit(lambda p, c: jgpt2.decode_step(p, jnp.asarray(tok0), jcfg, c,
+                                                     interpret=True))(
+        jp, jgpt2.make_cache(jcfg, 2, 16))
     assert torch.equal(got, again)
     np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32),
                                atol=SERVED_TOL[dtype])

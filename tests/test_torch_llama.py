@@ -22,6 +22,7 @@ from flash_attn_tpu.ops.quant import quantize_kv as j_quantize_kv
 from flash_attn_tpu_torch import bridge
 from flash_attn_tpu_torch.models import llama
 from flash_attn_tpu_torch.ops.decode import flash_decode
+from _torch_threads import one_torch_thread  # noqa: F401
 
 CFG = llama.LLAMA_TINY
 # logits are O(0.1) at this init; fp32 summation order moves them ~1e-6,
@@ -70,8 +71,8 @@ def test_prefill_with_kv_matches_jax(both_params):
     jp, tp = both_params
     toks = np.random.default_rng(0).integers(0, CFG.vocab_size, (1, 24)).astype(np.int32)
     pos = np.arange(24, dtype=np.int32)[None]
-    jl, jkv = jllama.prefill_with_kv(jp, jnp.asarray(toks), jnp.asarray(pos),
-                                     jllama.LLAMA_TINY, interpret=True)
+    jl, jkv = jax.jit(lambda p, t, q: jllama.prefill_with_kv(
+        p, t, q, jllama.LLAMA_TINY, interpret=True))(jp, jnp.asarray(toks), jnp.asarray(pos))
     tl, tkv = llama.prefill_with_kv(tp, torch.from_numpy(toks).long(),
                                     torch.from_numpy(pos), CFG)
     assert tl.shape == (1, 24, CFG.vocab_size) and tl.dtype == torch.float32

@@ -24,6 +24,7 @@ from flash_attn_tpu.models import lora as jlora
 from flash_attn_tpu_torch import bridge
 from flash_attn_tpu_torch.engine.engine import InferenceEngine, SpecConfig
 from flash_attn_tpu_torch.models import llama, lora
+from _torch_threads import one_torch_thread  # noqa: F401
 
 CFG = llama.LLAMA_TINY
 JCFG = jllama.LLAMA_TINY

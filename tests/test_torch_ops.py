@@ -33,6 +33,7 @@ from flash_attn_tpu_torch.ops.lse import lse_merge
 from flash_attn_tpu_torch.ops.matmul import matmul_int8, quantized_matmul
 from flash_attn_tpu_torch.ops.reference import mha_reference
 from flash_attn_tpu_torch.ops.rope import rope_cos_sin, rope_rotate
+from _torch_threads import one_torch_thread  # noqa: F401
 
 # bf16 outputs: one bf16 rounding of a value of size ~1 is 2^-8 ~ 4e-3;
 # the two sides also round p (or p * v_scale) to bf16 relative to different

@@ -39,6 +39,7 @@ from flash_attn_tpu_torch.parallel.ring import (
     unstripe_sequence,
 )
 from flash_attn_tpu_torch.parallel.ulysses import make_ulysses_attention
+from _torch_threads import one_torch_thread  # noqa: F401
 
 N = 4
 OUT_TOL = 2e-5

@@ -16,6 +16,7 @@ import types
 import jax
 import numpy as np
 import pytest
+import torch
 
 from flash_attn_tpu.models import gpt2 as jgpt2
 from flash_attn_tpu.models import llama as jllama
@@ -23,6 +24,7 @@ from flash_attn_tpu.utils import ppl as jppl
 from flash_attn_tpu_torch import bridge
 from flash_attn_tpu_torch.models import gpt2, llama
 from flash_attn_tpu_torch.utils import ppl
+from _torch_threads import one_torch_thread  # noqa: F401
 
 # nll in nats a token, fp32 on both sides.  The float cache: summation
 # order only (measured 6e-8 on 6.93).  int8 and fp8: a value whose input

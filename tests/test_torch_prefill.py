@@ -34,6 +34,7 @@ from flash_attn_tpu_torch.engine.kv_cache import KVCache
 from flash_attn_tpu_torch.models import llama
 from flash_attn_tpu_torch.ops import flash_fwd as ff
 from flash_attn_tpu_torch.ops import varlen
+from _torch_threads import one_torch_thread  # noqa: F401
 
 CFG = llama.LLAMA_TINY
 # fp32: the two sides differ by summation order (and exp2 against exp in
@@ -410,8 +411,9 @@ def test_prefill_packed_matches_jax(both_params):
         seg[0, off:off + n] = i + 1
         pos[0, off:off + n] = np.arange(n)
         off += n
-    jl, jkv = jllama.prefill_packed(jp, jnp.asarray(toks), jnp.asarray(pos), jnp.asarray(seg),
-                                    jllama.LLAMA_TINY, interpret=True)
+    jl, jkv = jax.jit(lambda p, *a: jllama.prefill_packed(p, *a, jllama.LLAMA_TINY,
+                                                          interpret=True))(
+        jp, jnp.asarray(toks), jnp.asarray(pos), jnp.asarray(seg))
     tl, tkv = llama.prefill_packed(tp, torch.from_numpy(toks).long(), torch.from_numpy(pos),
                                    torch.from_numpy(seg), CFG)
     np.testing.assert_allclose(tl.numpy()[:, :off], np.asarray(jl)[:, :off], atol=1e-4)

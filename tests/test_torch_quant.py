@@ -20,6 +20,7 @@ from flash_attn_tpu.ops import quant as jquant
 from flash_attn_tpu_torch import bridge
 from flash_attn_tpu_torch.ops import matmul as mm
 from flash_attn_tpu_torch.ops import quant as tquant
+from _torch_threads import one_torch_thread  # noqa: F401
 
 K, N = 256, 384
 

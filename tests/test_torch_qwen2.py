@@ -42,6 +42,7 @@ from flash_attn_tpu_torch.engine.engine import (
 from flash_attn_tpu_torch.engine.paged import PagedKVPool
 from flash_attn_tpu_torch.models import llama
 from flash_attn_tpu_torch.ops.matmul import BiasedWeight
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 QTINY = dict(vocab_size=512, hidden=128, intermediate=256, num_layers=2, num_heads=7,

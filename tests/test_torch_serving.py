@@ -25,6 +25,7 @@ from flash_attn_tpu_torch.engine.engine import InferenceEngine
 from flash_attn_tpu_torch.models import gpt2, llama, lora
 from flash_attn_tpu_torch.serving import ServingConfig, serve
 from flash_attn_tpu_torch.utils.metrics import EngineMetrics
+from _torch_threads import one_torch_thread  # noqa: F401
 
 TIMEOUT = 30
 # (prompt, max_tokens) of every request the GPT-2 tests send

@@ -46,6 +46,7 @@ from flash_attn_tpu_torch.parallel.sharded_decode import (
     shard_lengths,
 )
 from flash_attn_tpu_torch.utils import distributed
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 N = 4

@@ -30,6 +30,7 @@ from flash_attn_tpu_torch import bridge, flash_decode, flash_decode_chunk
 from flash_attn_tpu_torch.engine.engine import InferenceEngine, SpecConfig, _ngram_draft
 from flash_attn_tpu_torch.engine.kv_cache import KVCache
 from flash_attn_tpu_torch.models import llama
+from _torch_threads import one_torch_thread  # noqa: F401
 
 CFG = llama.LLAMA_TINY
 # bf16 outputs: one bf16 rounding of a value of size ~1 is 2^-8 ~ 4e-3;

@@ -28,6 +28,7 @@ from flash_attn_tpu_torch.models import llama
 from flash_attn_tpu_torch.ops import flash_bwd as fb
 from flash_attn_tpu_torch.ops.attention import flash_attention
 from flash_attn_tpu_torch.utils import train
+from _torch_threads import one_torch_thread  # noqa: F401
 
 CFG = llama.LLAMA_TINY
 # GQA with Sq != Sk, so the causal mask is shifted (bottom-right)
@@ -132,7 +133,8 @@ def test_forward_matches_jax(tiny):
     ~1e-6 on logits of O(0.1), as the prefill test holds them."""
     jp, port = tiny
     toks = tokens(3, (2, 24))
-    want = jllama.forward(jp, jnp.asarray(toks), jllama.LLAMA_TINY, interpret=True)
+    want = jax.jit(lambda p: jllama.forward(p, jnp.asarray(toks), jllama.LLAMA_TINY,
+                                            interpret=True))(jp)
     tp = port()
     got = llama.forward(tp, torch.from_numpy(toks).long(), CFG)
     assert got.shape == (2, 24, CFG.vocab_size) and got.dtype == torch.float32
@@ -410,8 +412,9 @@ def test_serve_train_serve_reads_the_trained_head(dtype):
         fresh = {k: v for k, v in tp.items() if not k.startswith("_")}
         again, _ = llama.decode_step(fresh, torch.from_numpy(tok0).long(), cfg,
                                      llama.make_cache(cfg, 2, 16, device="cpu"))
-    want, _ = jllama.decode_step(jp, jnp.asarray(tok0), jcfg, jllama.make_cache(jcfg, 2, 16),
-                                 interpret=True)
+    want, _ = jax.jit(lambda p, c: jllama.decode_step(p, jnp.asarray(tok0), jcfg, c,
+                                                      interpret=True))(
+        jp, jllama.make_cache(jcfg, 2, 16))
     assert torch.equal(got, again)
     np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32),
                                atol=SERVED_TOL[dtype])
