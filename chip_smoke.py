@@ -81,7 +81,16 @@ Phases, one line each with its seconds:
      at B=8, S=4096, int8 and fp8, K1c at T=5 (35 virtual rows), K8 in
      decode mode (R=7) and K8c at T=128 (896 rows), K2 at Hk=4 bit for
      bit, and K3 at Qwen-2-7B's widths at M = 8 and 512 with the qkv bias
-     through quantized_matmul at the wq and wk/wv widths; then once
+     through quantized_matmul at the wq and wk/wv widths; Mistral-7B's
+     window on the serving paths (check_mistral; H=32, Hk=8, D=128,
+     window 4096): K4's masked kLocal instance with segment ids and
+     positions at 8 prompts packed in 8192 (window (4095, -1) on the
+     positions, clamped, timed beside SDPA with the window as a boolean
+     mask; with cap 50, no library call; online) and a chunk of 512 at
+     6000 over 8192 (its tile counts held to the tile test's), K1c at B=8,
+     T=5 over 8192 positions, K8 in decode mode and K8c at T=128 over
+     pages of 128 (lengths to 8000), int8 and fp8, each against its plain
+     version, K8 also against K1's windowed decode; then once
      each what the main paths do not run: group sizes 32 and 64, K7's
      bf16 output, and the int8, int4 and W4A8 LM heads' fp32 activations
      or output; last, K11, the ring run in one cooperative launch, at
@@ -127,7 +136,9 @@ Phases, one line each with its seconds:
      1024 bucket, and prefill_chunk of a 700-token prompt in chunks of 256
      into an fp8 cache (logits and the cache); then one
      training loss and every parameter's gradient (2 layers at 8B widths,
-     bf16, B=1, S=128, remat); GPT-2 (2 layers at 124M widths, bf16, int8
+     bf16, B=1, S=128, remat); Mistral-7B's prefill, paged and verify
+     rows at 2 layers of its widths with the window cut to 512 and prompts
+     of about 1000 tokens (mistral_card_vs_cpu); GPT-2 (2 layers at 124M widths, bf16, int8
      KV): two prompts, four decode steps with an idle slot past
      max_position, decode_multi of 5 tokens, prefill_packed of three
      prompts, prefill_chunk in chunks of 256 and four paged decode steps
@@ -250,7 +261,17 @@ Phases, one line each with its seconds:
      engine without prefix caching; launches exact (K3 = 32 x (4 + 3 x
      8) = 896 a step, K1 = K2 = K1m 32 a step, K4 32 a packed call, K1c
      32 a verify round, K8 32 a paged step), peak under 75 GiB;
-  24. (run right after phase 17) training: Mixtral at 8x7B widths, 2 of
+  25. (run right after phase 17) Mistral-7B-v0.1's published config at
+     full size (32 layers, window 4096; random int8 weights), fp8 KV,
+     capacity 8192, max_batch 8, 32 tokens: two groups of four prompts
+     (4200 and 4300 past the window, each group one packed call) eager
+     and captured (equal tokens), chunks of 512, the paged engine with
+     prefix caching (a 4096-token prefix, two waves of 8, hits printed),
+     n-gram speculation; launches exact on the windowed instances (K4's
+     masked kLocal 32 a packed call or chunk, K1 32 a step, K1c 32 a
+     verify round, K8 32 a paged step, K8c 32 a suffix piece of 128),
+     ms a position, prefill tokens/s and the peak;
+  24. (run right after phase 25) training: Mixtral at 8x7B widths, 2 of
      its 32 layers (bf16 params and moments from the seed), B=1, S=2048, 5
      AdamW steps (remat on) through mixtral.forward: losses finite and
      falling, ms per step beside its bound, tokens/s, peak under 75 GiB,
@@ -335,7 +356,10 @@ bound at the fp32 CUDA-core and bf16 peaks under "bound_f32_ms" and
 "bound_bf16_ms", its launches phase 20's; "K4 surface", "K9 surface" and
 "K10 surface" their GPT-2 point under "gpt2", K4's return_softmax and
 clamped_verify points under "probs" and "verify", K9's and K10's dbias
-point under "dbias", their launches phase 22's)
+point under "dbias", their launches phase 22's; Mistral-7B's windowed
+rows "K4 local seg" (its cap-50 point under "softcap", its chunk under
+"chunk"), "K1c window", "K8 window" and "K8c window", their launches
+phase 25's)
 and the card; the last line is {"ok": true, "device": {...}}.  Any failed check
 exits nonzero without that line; so does a machine without CUDA or a
 directory without the rest of the repository.
@@ -1459,16 +1483,20 @@ def _packed_positions(torch, lens, S):
     return seg, pos
 
 
-def tile_test(q_ranges, k_ranges, causal: bool, Sq: int, Sk: int):
+def tile_test(q_ranges, k_ranges, causal: bool, Sq: int, Sk: int, window=None):
     """The test K4 runs when it lists a block's key tiles, in plain
     PyTorch, on ``ops/flash_fwd.py:tile_meta``'s ranges: (live, full), each
     [B, nq, nk] bool.  A (q tile, k tile) pair is skipped unless its ranges
     of segment ids overlap, the k tile's least position is at most the q
-    tile's greatest, and (with ``causal``) the tile starts at or before the
-    q tile's last row's diagonal; ``full`` marks a listed pair that needs
-    no segment or position mask (one segment on both sides, greatest kv
-    position <= least q position).  The reference that the kernel's own
-    counts (``k4_tile_counts``) are held to."""
+    tile's greatest, (with ``causal``) the tile starts at or before the
+    q tile's last row's diagonal and (with a ``window`` (left, right) on
+    the positions) the k tile's greatest position is >= the q tile's least
+    - left and its least <= the q tile's greatest + right; ``full`` marks a
+    listed pair that needs no segment or position mask (one segment on
+    both sides, greatest kv position <= least q position, and within the
+    window: least kv position >= greatest q position - left, greatest <=
+    least + right).  The reference that the kernel's own counts
+    (``k4_tile_counts``) are held to."""
     import torch
 
     tile = 64
@@ -1480,17 +1508,26 @@ def tile_test(q_ranges, k_ranges, causal: bool, Sq: int, Sk: int):
         kv_end = torch.clamp(row_last + 1, max=Sk)
         live = live & (torch.arange(nk)[None, :] * tile < kv_end[:, None]).to(live.device)
     one = (qr[..., 0] == qr[..., 2]) & (kr[..., 0] == kr[..., 2]) & (kr[..., 0] == qr[..., 0])
-    full = live & one & (kr[..., 3] <= qr[..., 1])
-    return live, full
+    full = one & (kr[..., 3] <= qr[..., 1])
+    left, right = window or (-1, -1)
+    if left >= 0:
+        live = live & (kr[..., 3] >= qr[..., 1] - left)
+        full = full & (kr[..., 1] >= qr[..., 3] - left)
+    if right >= 0:
+        live = live & (kr[..., 1] <= qr[..., 3] + right)
+        full = full & (kr[..., 3] <= qr[..., 1] + right)
+    return live, live & full
 
 
-def k4_tile_counts(torch, checks, label, q, k, v, cos, sin, causal, masks):
+def k4_tile_counts(torch, checks, label, q, k, v, cos, sin, causal, masks, window=None,
+                   softcap=None):
     """One launch of K4's C entry with its tile count on (not through the
     wrapper, so not a launch of the main path): the key tiles that head
     0's blocks listed and of those the ones walked unmasked, summed over
-    the batch, as the kernel counted them.  Fails the check unless they
-    equal ``tile_test``'s counts on the same ranges.  Returns (live,
-    unmasked, all tile pairs)."""
+    the batch, as the kernel counted them (with a window or a softcap the
+    masked kLocal instance, its window on the positions).  Fails the check
+    unless they equal ``tile_test``'s counts on the same ranges.  Returns
+    (live, unmasked, all tile pairs)."""
     from flash_attn_tpu_torch import _build
     from flash_attn_tpu_torch.ops import flash_fwd as ff
 
@@ -1505,9 +1542,9 @@ def k4_tile_counts(torch, checks, label, q, k, v, cos, sin, causal, masks):
     _build.check(_build.lib().fatt_flash_fwd(
         p(q), p(k), p(v), p(cos), p(sin), p(out), p(lse), p(qmeta), p(kmeta), p(qr), p(kr),
         p(counts), B, Sq, Sk, H, Hk, D, 0, float(D ** -0.5 * ff.LOG2E), int(causal), 1,
-        -1, -1, 0.0, *ff.extra_args(None, None), *ff.surface_args(), _build.stream()),
-        "fatt_flash_fwd")
-    live, full = tile_test(qr, kr, causal, Sq, Sk)
+        *ff.local_args(window, softcap), *ff.extra_args(None, None), *ff.surface_args(),
+        _build.stream()), "fatt_flash_fwd")
+    live, full = tile_test(qr, kr, causal, Sq, Sk, window)
     got, want = counts.tolist(), [int(live.sum()), int(full.sum())]
     if got != want:
         checks.failed.append(f"{label}: K4 listed (live, unmasked) tiles {got}, the tile "
@@ -2041,25 +2078,30 @@ def _mode_args(dec, kv_dtype):
     return dec._default_softmax_mode(kv_dtype) == "clamped", dec._clamp2(kv_dtype)
 
 
-def _k8_times(torch, pd, F, q, k, v, ks, vs, table, lens, args):
+def _k8_times(torch, pd, F, q, k, v, ks, vs, table, lens, args, window=None):
     """K8's times at one set of lengths (fp8, pages of 128): the kernel by
     events and as a replayed CUDA graph (one launch: the walk and the
     in-kernel merge), paged_flash_decode as called as a graph, the library
-    call (SDPA on the gathered, dequantized cache) by events, and the
-    bound."""
+    call (SDPA on the gathered, dequantized cache; with a ``window`` as a
+    boolean mask) by events, and the bound (on the rows in the window)."""
     S = table.shape[1] * k.shape[2]
     B, H, D = q.shape
     kc, vc = pd._gather(k, table), pd._gather(v, table)
     kcs, vcs = pd._gather(ks, table), pd._gather(vs, table)
     kd, vd = _dequant(kc, kcs), _dequant(vc, vcs)
-    mask = (torch.arange(S, device="cuda")[None, :] < lens[:, None].long())[:, None, None, :]
-    nbytes = k1_bytes(kc, lens, kcs) + 2 * q.numel() * 2 + lens.numel() * 4 + table.numel() * 4
-    live_rows = int(lens.long().clamp(0, S).sum())
+    if window is None:
+        mask = (torch.arange(S, device="cuda")[None, :] < lens[:, None].long())[:, None, None, :]
+        nbytes = k1_bytes(kc, lens, kcs)
+        live_rows = int(lens.long().clamp(0, S).sum())
+    else:
+        mask, live_rows = _window_mask(torch, lens, 1, S, window)
+        nbytes = 2 * k.shape[1] * int(_window_rows(torch, lens, 1, S, window).sum()) * (D + 4)
+    nbytes += 2 * q.numel() * 2 + lens.numel() * 4 + table.numel() * 4
     b_ms, b_by = bound(nbytes, 4 * H * D * live_rows)
     res = dict(ms=cuda_ms(torch, lambda: pd.paged_flash_decode_cuda(*args)),
                graph_ms=graph_ms(torch, lambda: pd.paged_flash_decode_cuda(*args)),
                call_graph_ms=graph_ms(torch, lambda: pd.paged_flash_decode(
-                   q, k, v, table, lens, k_scale=ks, v_scale=vs)),
+                   q, k, v, table, lens, k_scale=ks, v_scale=vs, window=window)),
                library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
                    q[:, :, None, :], kd, vd, attn_mask=mask, enable_gqa=True)),
                bound_ms=b_ms, bound_by=b_by)
@@ -2067,10 +2109,11 @@ def _k8_times(torch, pd, F, q, k, v, ks, vs, table, lens, args):
     return res
 
 
-def _k8_decode_case(torch, checks, label, q, k, v, ks, vs, table, lens):
+def _k8_decode_case(torch, checks, label, q, k, v, ks, vs, table, lens, window=None):
     """K8 in decode mode with the live splits it plans against its plain
     version (each row to two bf16 ulps of its largest, the LSE to 1e-3)
-    and against K1 on the same content copied into a contiguous cache; an
+    and against K1 on the same content copied into a contiguous cache
+    (both with ``window``, if given); an
     empty sequence must give out 0 and lse <= -1e29, and the call must be
     one launch of K8 and none of K1m (the splits merged in the kernel).
     Returns (max |err|, K8's args, its splits, K1's args)."""
@@ -2082,11 +2125,12 @@ def _k8_decode_case(torch, checks, label, q, k, v, ks, vs, table, lens):
     Hk, page = k.shape[1], k.shape[2]
     S = table.shape[1] * page
     clamped, clamp2 = _mode_args(dec, k.dtype)
-    nsplit, split_len = pd._plan(B, Hk, H // Hk, 1, S, None)
-    args = (q, k, v, ks, vs, table, lens, D ** -0.5, clamped, clamp2, 1, nsplit, split_len)
+    nsplit, split_len = pd._plan(B, Hk, H // Hk, 1, S, None, window)
+    args = (q, k, v, ks, vs, table, lens, D ** -0.5, clamped, clamp2, 1, nsplit, split_len,
+            window)
     before = (pd.paged_flash_decode_cuda.launches, lse_merge_cuda.launches)
     got, glse = pd.paged_flash_decode(q, k, v, table, lens, k_scale=ks, v_scale=vs,
-                                      return_lse=True)
+                                      window=window, return_lse=True)
     one_launch = (pd.paged_flash_decode_cuda.launches - before[0],
                   lse_merge_cuda.launches - before[1]) == (1, 0)
     ref, rlse = plain_merge(*pd.paged_flash_decode_plain(*args), torch.bfloat16)
@@ -2096,7 +2140,7 @@ def _k8_decode_case(torch, checks, label, q, k, v, ks, vs, table, lens):
     k1_args = (q, kc, vc, kcs, vcs, lens, D ** -0.5, clamped, clamp2,
                *dec._splits(B, Hk, S, None))
     k1 = dec.flash_decode(q, kc, vc, k_scale=kcs, v_scale=vcs, kv_length=lens,
-                          kv_layout="bhsd")
+                          kv_layout="bhsd", window=window)
     torch.cuda.synchronize()
     err, share = row_err(got, ref)
     _, share_k1 = row_err(got, k1)
@@ -3126,6 +3170,295 @@ def check_qwen2(torch, checks, rows):
     del k, v, ks, vs, qc
     check_k3_gemma(torch, checks, rows, QWEN_GEMMS, "qwen2", "Qwen-2-7B", SEED + 61,
                    ms=(8, 512), biased=QWEN_GEMMS[:2])
+
+
+# --- Mistral-7B's attention widths with its 4096-token window (H=32, -------
+# --- Hk=8, D=128): K4's masked kLocal instance, K1c, K8 and K8c ------------
+
+MISTRAL_WINDOW = 4096
+# phase 2's packed prefill: 8 prompts in one 8192-token row, the first past
+# the window
+MISTRAL_PACKED = (4600, 1200, 800, 600, 400, 300, 200, 92)
+
+
+def mistral_7b():
+    """Mistral-7B-v0.1's published config (``mistralai/Mistral-7B-v0.1``,
+    ``config.json``): Llama's layout, 32 layers, hidden 4096, intermediate
+    14336, 32 query heads over 8 KV heads of 128, vocab 32000, rope_theta
+    1e4, rms_norm_eps 1e-5, max_position_embeddings 32768,
+    sliding_window 4096, untied embeddings."""
+    from flash_attn_tpu_torch.models import llama
+
+    return llama.LlamaConfig(vocab_size=32000, hidden=4096, intermediate=14336, num_layers=32,
+                             num_heads=32, num_kv_heads=8, head_dim=128, rope_theta=10000.0,
+                             rms_eps=1e-5, max_position=32768, sliding_window=MISTRAL_WINDOW)
+
+
+def _window_mask(torch, lens, T, S, window):
+    """[B, 1, T, S] bool: chunk row t of a sequence of length ``lens[b]``
+    (the chunk included) sees positions [limit - window, limit), limit =
+    len - (T - 1) + t, as the decode kernels' plain versions mask them.
+    Returns (mask, live pairs summed over the batch and rows)."""
+    limit = lens.long()[:, None] - (T - 1) + torch.arange(T, device="cuda")[None]  # [B, T]
+    pos = torch.arange(S, device="cuda")[None, None, :]
+    mask = (pos < limit[:, :, None]) & (pos >= limit[:, :, None] - window)
+    return mask[:, None], int(mask.sum())
+
+
+def _window_rows(torch, lens, T, S, window):
+    """K/V positions a windowed chunk walk must read per sequence: [max(0,
+    len - (T - 1) - window), min(len, S))."""
+    lo = torch.clamp(lens.long() - (T - 1) - window, min=0)
+    return torch.clamp(torch.clamp(lens.long(), max=S) - lo, min=0)
+
+
+def check_mistral(torch, checks, rows):
+    """The kernels that carry a sliding window on the serving paths, at
+    Mistral-7B's attention widths (H=32, Hk=8, D=128, window 4096), each
+    against its plain version by the row rules above:
+    K4's masked kLocal instance with segment ids and positions, the
+    window (4095, -1) on the positions: 8 prompts packed into 8192 tokens
+    (``MISTRAL_PACKED``), clamped, q rotated in the kernel (the "K4 local
+    seg" row, timed beside SDPA with the window as a boolean mask), again
+    with cap 50 (no single PyTorch call applies the cap) and online, and
+    a chunk of 512 at positions 6000-6511 over an 8192-position cache (the
+    chunked prefill), each with its tile counts held to the tile test's;
+    K1c at B=8, T=5 over a contiguous S=8192 cache, fp8 and int8, lengths
+    to 8000 with 4096, 4097 and an idle slot's S + 7 (the "K1c window"
+    row); K8 in decode mode at pages of 128, lengths to 8000, fp8 and
+    int8, also against K1's windowed decode on the same content (the "K8
+    window" row); K8c at T=128 over pages, kv_len 8000 and 4200 (the "K8c
+    window" row).  Bounds count only the live pairs and the K/V rows inside
+    the window."""
+    import torch.nn.functional as F
+
+    from flash_attn_tpu_torch.ops import decode as dec
+    from flash_attn_tpu_torch.ops import flash_fwd as ff
+    from flash_attn_tpu_torch.ops import paged_decode as pd
+    from flash_attn_tpu_torch.ops.rope import rope_cos_sin, rope_rotate
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 90)
+    H, Hk, D, W = 32, 8, 128, MISTRAL_WINDOW
+    G = H // Hk
+    window = (W - 1, -1)
+
+    # K4 with segment ids, positions and the window
+    S = sum(MISTRAL_PACKED)
+    seg, pos = (x.cuda() for x in _packed_positions(torch, MISTRAL_PACKED, S))
+    masks = ff.Masks(seg, seg, pos, pos)
+    q = torch.randn((1, S, H, D), generator=g, device="cuda", dtype=torch.bfloat16)
+    k, v = (torch.randn((1, S, Hk, D), generator=g, device="cuda", dtype=torch.bfloat16)
+            for _ in range(2))
+    cos, sin = rope_cos_sin(pos, D, 10000.0)
+    live = ff.live_pairs(masks, False, S, S, "cuda", window)
+    qr = rope_rotate(q, cos, sin).transpose(1, 2).contiguous()
+    kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    pairs = int(live.sum())
+    nbytes = (q.numel() + k.numel()) * 2 * 2 + H * S * 4 + 2 * S * 8
+    b_ms, b_by = bound(nbytes, 4 * H * D * pairs)
+    worst, res = 0.0, {}
+    for name, clamped, cap in (("window", True, None), ("window, cap 50", True, GEMMA_CAP),
+                               ("window, online", False, None)):
+        args = (q, k, v, False, D ** -0.5, cos, sin, clamped, masks, window, cap)
+        out, lse = ff.flash_fwd(q, k, v, rope_cos=cos, rope_sin=sin, window=window,
+                                logit_softcap=cap,
+                                softmax_mode="clamped" if clamped else "online",
+                                **masks._asdict())
+        rout, rlse = fwd_plain(args)
+        torch.cuda.synchronize()
+        err, share = row_err(out, rout)
+        lerr = float((lse - rlse).abs().max())
+        label = f"K4 local seg, {name}, {len(MISTRAL_PACKED)} prompts packed in {S}"
+        ok = checks.check(f"{label} out", share, 1.0) & checks.check(f"{label} lse", lerr, 1e-3)
+        worst = max(worst, err)
+        del out, lse, rout, rlse
+        line = (f"  {label}: max_abs_err {err:.3e} ({share:.3f} of its row's tol), lse err "
+                f"{lerr:.3e} (tol 1e-3) {'ok' if ok else 'FAIL'}")
+        if clamped:
+            t = dict(ms=cuda_ms(torch, lambda: ff.flash_fwd_cuda(*args)),
+                     plain_ms=cuda_ms(torch, lambda: fwd_plain(args), iters=3, warmup=1),
+                     library_ms=None if cap else cuda_ms(
+                         torch, lambda: F.scaled_dot_product_attention(
+                             qr, kt, vt, attn_mask=live[:, None], enable_gqa=True)),
+                     bound_ms=b_ms, bound_by=b_by, live_pairs=pairs)
+            res[name] = t
+            line += (f" | {t['ms']:.4f} ms ({4 * H * D * pairs / t['ms'] / 1e9:.1f} TFLOP/s on "
+                     f"{pairs} live pairs), plain {t['plain_ms']:.4f}, library "
+                     + ("none (no single PyTorch call applies the cap)" if cap else
+                        f"(SDPA, the window as a boolean mask) {t['library_ms']:.4f}")
+                     + f", bound {b_ms:.4f} ({b_by})")
+        say(line)
+    n_tiles, n_full, n_all = k4_tile_counts(torch, checks, "K4 local seg packed", q, k, v, cos,
+                                            sin, False, masks, window)
+    say(f"    K4 local seg packed: listed {n_tiles} of {n_all} tiles ({n_full} unmasked; the "
+        f"tile test's counts alike)")
+    del q, k, v, qr, kt, vt, live
+    # the chunked prefill's form: a chunk at positions start.. over the cache
+    Sq, Sk, start = 512, 8192, 6000
+    qpos = (start + torch.arange(Sq, device="cuda", dtype=torch.int32))[None]
+    kpos = torch.arange(Sk, device="cuda", dtype=torch.int32)[None]
+    cmasks = ff.Masks(None, None, qpos, kpos)
+    q = torch.randn((1, Sq, H, D), generator=g, device="cuda", dtype=torch.bfloat16)
+    k, v = (torch.randn((1, Sk, Hk, D), generator=g, device="cuda", dtype=torch.bfloat16)
+            for _ in range(2))
+    cos, sin = rope_cos_sin(qpos, D, 10000.0)
+    args = (q, k, v, False, D ** -0.5, cos, sin, True, cmasks, window, None)
+    out, lse = ff.flash_fwd(q, k, v, rope_cos=cos, rope_sin=sin, window=window,
+                            softmax_mode="clamped", **cmasks._asdict())
+    rout, rlse = fwd_plain(args)
+    torch.cuda.synchronize()
+    err, share = row_err(out, rout)
+    lerr = float((lse - rlse).abs().max())
+    label = f"K4 local seg, chunk Sq={Sq} at {start} over Sk={Sk}"
+    ok = checks.check(f"{label} out", share, 1.0) & checks.check(f"{label} lse", lerr, 1e-3)
+    worst = max(worst, err)
+    c_tiles, c_full, c_all = k4_tile_counts(torch, checks, label, q, k, v, cos, sin, False,
+                                            cmasks, window)
+    cpairs = int(ff.live_pairs(cmasks, False, Sq, Sk, "cuda", window).sum())
+    cb_ms, cb_by = bound((q.numel() + k.numel()) * 2 * 2 + H * Sq * 4 + (Sq + Sk) * 8,
+                         4 * H * D * cpairs)
+    chunk = dict(ms=cuda_ms(torch, lambda: ff.flash_fwd_cuda(*args)), bound_ms=cb_ms,
+                 bound_by=cb_by, live_tiles=c_tiles, unmasked_tiles=c_full)
+    say(f"  {label}: max_abs_err {err:.3e} ({share:.3f} of its row's tol), lse err {lerr:.3e} "
+        f"(tol 1e-3) {'ok' if ok else 'FAIL'} | {chunk['ms']:.4f} ms, bound {cb_ms:.4f} "
+        f"({cb_by}); listed {c_tiles} of {c_all} tiles ({c_full} unmasked)")
+    del q, k, v, out, lse, rout, rlse
+    rows["K4 local seg"] = dict(
+        name=f"flash_fwd masked kLocal (B=1, {len(MISTRAL_PACKED)} prompts packed in {S}, "
+             f"H={H}, Hk={Hk}, D=128, segment ids and positions, window (4095, -1) on the "
+             f"positions, rope, clamped: Mistral-7B)",
+        source="flash_attn_tpu_torch/csrc/flash_fwd.cu",
+        replaces="flash_attn_tpu/ops/flash_fwd.py:221", max_abs_err=worst,
+        softcap=dict(label="cap 50", **res["window, cap 50"]), chunk=chunk,
+        **{key: res["window"][key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                "bound_by")})
+
+    # K1c: T=5 over a contiguous cache of 8192
+    B, T, S = 8, 5, 8192
+    worst = 0.0
+    for kv in ("int8", "fp8"):
+        _, k, v, ks, vs, _ = _decode_inputs(torch, kv, g, B=B, S=S, H=H, Hk=Hk)
+        q = torch.randn((B, T, H, D), generator=g, device="cuda", dtype=torch.bfloat16)
+        lens = torch.randint(T, 8001, (B,), generator=g, device="cuda", dtype=torch.int32)
+        lens[:4] = torch.tensor([8000, 4096, 4097, S + 7], dtype=torch.int32)
+        clamped, clamp2 = _mode_args(dec, k.dtype)
+        nsplit = dec._chunk_splits(B, Hk, T * G, min(S, W + T - 1 + dec.TILE), None)
+        q2 = q.reshape(B, T, Hk, G, D).transpose(1, 2).reshape(B, Hk * T * G, D).contiguous()
+        args = (q2, k, v, ks, vs, lens, D ** -0.5, clamped, clamp2, nsplit, None, T, "bhsd", W)
+        got, glse = dec.flash_decode_chunk(q, k, v, k_scale=ks, v_scale=vs, kv_length=lens,
+                                           window=W, return_lse=True)
+        ref2, rlse2 = plain_merge(*dec.flash_decode_plain(*args), torch.bfloat16)
+        torch.cuda.synchronize()
+        ref = ref2.reshape(B, Hk, T, G, D).transpose(1, 2).reshape(got.shape)
+        rlse = rlse2.reshape(B, Hk, T, G).transpose(1, 2).reshape(glse.shape)
+        err, share = row_err(got, ref)
+        lerr = float((glse - rlse).abs().max())
+        label = f"K1c window {kv} B={B} T={T} S={S} ({nsplit} splits)"
+        ok = checks.check(f"{label} out", share, 1.0) & checks.check(f"{label} lse", lerr, 1e-3)
+        worst = max(worst, err)
+        say(f"  {label}: max_abs_err {err:.3e} ({share:.3f} of its row's tol), lse err "
+            f"{lerr:.3e} (tol 1e-3) {'ok' if ok else 'FAIL'}")
+        if kv == "fp8":
+            kd, vd = _dequant(k, ks), _dequant(v, vs)
+            mask, pairs = _window_mask(torch, lens, T, S, W)
+            nbytes = (2 * Hk * int(_window_rows(torch, lens, T, S, W).sum()) * (D + 4)
+                      + 2 * q.numel() * 2 + lens.numel() * 4)
+            t = _chunk_times(
+                torch, lambda: dec.flash_decode_cuda(*args),
+                lambda: dec.flash_decode_chunk(q, k, v, k_scale=ks, v_scale=vs, kv_length=lens,
+                                               window=W),
+                lambda: F.scaled_dot_product_attention(q.transpose(1, 2), kd, vd,
+                                                       attn_mask=mask, enable_gqa=True),
+                nbytes, 4 * H * D * pairs)
+            t["plain_ms"] = cuda_ms(torch, lambda: dec.flash_decode_plain(*args), iters=3)
+            _say_times(f"K1c window fp8, lengths {lens.tolist()}", t)
+            say(f"    plain {t['plain_ms']:.4f}")
+            rows["K1c window"] = dict(
+                name=f"decode_bhsd, chunk mode, window {W} (B={B}, T={T}, H={H}, Hk={Hk}, "
+                     f"S={S}, D=128, fp8 KV, {nsplit} splits of the windowed walk: Mistral-7B)",
+                source="flash_attn_tpu_torch/csrc/chunk_attn.cu",
+                replaces="flash_attn_tpu/ops/decode.py:747", **t)
+            del kd, vd, mask
+        del q, k, v, ks, vs
+    rows["K1c window"]["max_abs_err"] = worst
+
+    # K8 in decode mode, then K8c at T=128, pages of 128 over 8192 positions
+    worst = 0.0
+    for kv in ("int8", "fp8"):
+        q, k, v, ks, vs, table, lens = _paged_inputs(torch, kv, g, 128, B=B, H=H, Hk=Hk, S=S)
+        lens[4:] = torch.tensor([8000, 4096, 4097, 6000], dtype=torch.int32)
+        err, args, nsplit, _ = _k8_decode_case(torch, checks, f"K8 window {kv} page=128", q, k,
+                                               v, ks, vs, table, lens, window=W)
+        worst = max(worst, err)
+        if kv == "fp8":
+            t = _k8_times(torch, pd, F, q, k, v, ks, vs, table, lens, args, window=W)
+            t["plain_ms"] = cuda_ms(torch, lambda: pd.paged_flash_decode_plain(*args), iters=3)
+            say(f"    K8 window fp8 page=128, lengths {lens.tolist()}: {t['ms']:.4f} ms (graph "
+                f"{t['graph_ms']:.4f}; as called, graph {t['call_graph_ms']:.4f}), plain "
+                f"{t['plain_ms']:.4f}, library (SDPA on the gathered, dequantized cache, the "
+                f"window as a boolean mask) {t['library_ms']:.4f}, bound {t['bound_ms']:.4f} "
+                f"({t['bound_by']})")
+            rows["K8 window"] = dict(
+                name=f"paged_decode, decode mode, window {W} (B={B}, H={H}, Hk={Hk}, D=128, "
+                     f"page=128, 64 pages/seq, fp8 KV, {nsplit} splits of the windowed walk: "
+                     f"Mistral-7B)",
+                source="flash_attn_tpu_torch/csrc/paged_decode.cu",
+                replaces="flash_attn_tpu/ops/paged_decode.py:47", **t)
+        del q, k, v, ks, vs
+    rows["K8 window"]["max_abs_err"] = worst
+    worst = 0.0
+    _, k, v, ks, vs, table, _ = _paged_inputs(torch, "fp8", g, 128, B=1, H=H, Hk=Hk, S=S)
+    T = 128
+    clamped, clamp2 = _mode_args(dec, k.dtype)
+    nsplit = pd._plan(1, Hk, T * G, T, S, None, W)[0]
+    for kv_len in (8000, 4200):
+        qc = torch.randn((1, T, H, D), generator=g, device="cuda", dtype=torch.bfloat16)
+        lens = torch.tensor([kv_len], dtype=torch.int32, device="cuda")
+        q2 = qc.reshape(1, T, Hk, G, D).transpose(1, 2).reshape(1, Hk * T * G, D).contiguous()
+        args = (q2, k, v, ks, vs, table, lens, D ** -0.5, clamped, clamp2, T, nsplit, None, W)
+        got, glse = pd.paged_flash_decode_chunk(qc, k, v, table, lens, k_scale=ks, v_scale=vs,
+                                                window=W, return_lse=True)
+        ref2, rlse2 = plain_merge(*pd.paged_flash_decode_plain(*args), torch.bfloat16)
+        torch.cuda.synchronize()
+        ref = ref2.reshape(1, Hk, T, G, D).transpose(1, 2).reshape(1, T, H, D)
+        rlse = rlse2.reshape(1, Hk, T, G).transpose(1, 2).reshape(1, T, H)
+        err, share = row_err(got, ref)
+        lerr = float((glse - rlse).abs().max())
+        label = f"K8c window fp8 T={T} kv_len={kv_len} ({nsplit} splits)"
+        ok = checks.check(f"{label} out", share, 1.0) & checks.check(f"{label} lse", lerr, 1e-3)
+        worst = max(worst, err)
+        line = (f"  {label}: max_abs_err {err:.3e} ({share:.3f} of its row's tol), lse err "
+                f"{lerr:.3e} (tol 1e-3) {'ok' if ok else 'FAIL'}")
+        if kv_len == 8000:
+            kc, vc = pd._gather(k, table), pd._gather(v, table)
+            kd = _dequant(kc, pd._gather(ks, table))
+            vd = _dequant(vc, pd._gather(vs, table))
+            mask, pairs = _window_mask(torch, lens, T, S, W)
+            nbytes = (2 * Hk * int(_window_rows(torch, lens, T, S, W).sum()) * (D + 4)
+                      + 2 * qc.numel() * 2 + glse.numel() * 4)
+            b_ms, b_by = bound(nbytes, 4 * H * D * pairs)
+            t = dict(ms=cuda_ms(torch, lambda: pd.paged_flash_decode_cuda(*args)),
+                     call_graph_ms=graph_ms(torch, lambda: pd.paged_flash_decode_chunk(
+                         qc, k, v, table, lens, k_scale=ks, v_scale=vs, window=W)),
+                     plain_ms=cuda_ms(torch, lambda: pd.paged_flash_decode_plain(*args),
+                                      iters=3),
+                     library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                         qc.transpose(1, 2), kd, vd, attn_mask=mask, enable_gqa=True)),
+                     bound_ms=b_ms, bound_by=b_by)
+            line += (f" | {t['ms']:.4f} ms (as called, graph {t['call_graph_ms']:.4f}), plain "
+                     f"{t['plain_ms']:.4f}, library (SDPA on the gathered, dequantized cache, "
+                     f"the window as a boolean mask) {t['library_ms']:.4f}, bound "
+                     f"{b_ms:.4f} ({b_by})")
+            rows["K8c window"] = dict(
+                name=f"paged_decode, chunk mode, window {W} (B=1, T={T}, H={H}, Hk={Hk}, "
+                     f"D=128, page=128, kv_len {kv_len}, fp8 KV, {nsplit} splits: the "
+                     f"prefix-hit suffix prefill, Mistral-7B)",
+                source="flash_attn_tpu_torch/csrc/chunk_attn.cu",
+                replaces="flash_attn_tpu/ops/paged_decode.py:47", **t)
+            del kc, vc, kd, vd, mask
+        say(line)
+    rows["K8c window"]["max_abs_err"] = worst
+    del k, v, ks, vs
 
 
 # --- the FA2 options of the C ABI: an additive bias, dropout, segment ids ---
@@ -4443,6 +4776,8 @@ def phase_kernels(torch, checks):
     torch.cuda.empty_cache()
     check_qwen2(torch, checks, rows)
     torch.cuda.empty_cache()
+    check_mistral(torch, checks, rows)
+    torch.cuda.empty_cache()
     check_k9_k10(torch, checks, rows)
     torch.cuda.empty_cache()
     check_fa2_options(torch, checks, rows)
@@ -4544,13 +4879,15 @@ def card_vs_cpu(torch, checks, label, quantize, head_mode, fuse, base=None, widt
     torch.cuda.empty_cache()
 
 
-def prefill_card_vs_cpu(torch, checks, base=None, width="8B", seed=SEED + 24):
+def prefill_card_vs_cpu(torch, checks, base=None, width="8B", seed=SEED + 24,
+                        lens=(300, 200, 57), chunk_len=700):
     """2 layers at full 8B widths (or ``base``'s, named ``width``), int8
     weights, the prefill paths on the
-    card against the CPU: prefill_packed of three prompts (300 + 200 + 57
-    tokens in the 1024 bucket), the logits of every real row; prefill_chunk
-    of a 700-token prompt in chunks of 256 into slot 1 of an fp8 cache of
-    1024 positions, every chunk's real logits and the slot's cache after
+    card against the CPU: prefill_packed of three prompts (``lens``, 300 +
+    200 + 57 tokens in the 1024 bucket), the logits of every real row;
+    prefill_chunk of a ``chunk_len``-token (700) prompt in chunks of 256
+    into slot 1 of an fp8 cache of 1024 positions, every chunk's real
+    logits and the slot's cache after
     the last chunk (dequantized values and scales; the share of equal bytes
     is printed).  Each within the phase's 5 % of its largest reference; a
     cached value also within one e4m3 step of itself (1/8 of its
@@ -4565,7 +4902,6 @@ def prefill_card_vs_cpu(torch, checks, base=None, width="8B", seed=SEED + 24):
     card = llama.init_params(cfg, seed=seed, device="cuda", quantize="int8")
     sides = {"cpu": _to(card, "cpu"), "cuda": card}
     rng = np.random.default_rng(seed)
-    lens = (300, 200, 57)
     off = sum(lens)
     toks = torch.zeros((1, 1024), dtype=torch.long)
     toks[0, :off] = torch.from_numpy(rng.integers(0, cfg.vocab_size, off))
@@ -4576,12 +4912,12 @@ def prefill_card_vs_cpu(torch, checks, base=None, width="8B", seed=SEED + 24):
         got[d] = logits[0, :off].float().cpu()
         del logits
     results = [("prefill_packed logits", got["cuda"], got["cpu"], False)]
-    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, 700))
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, chunk_len))
     caches = {d: llama.make_cache(cfg, 2, 1024, mode="fp8", device=d) for d in sides}
     got = {d: [] for d in sides}
-    for start in range(0, 700, 256):
+    for start in range(0, chunk_len, 256):
         chunk = torch.zeros((1, 256), dtype=torch.long)
-        n = min(256, 700 - start)
+        n = min(256, chunk_len - start)
         chunk[0, :n] = prompt[start:start + n]
         for d, params in sides.items():
             logits, _ = llama.prefill_chunk(params, chunk.to(d), cfg, caches[d], 1, start)
@@ -4622,19 +4958,22 @@ def prefill_card_vs_cpu(torch, checks, base=None, width="8B", seed=SEED + 24):
             checks.failed.append(f"card {name} not finite")
         parts.append(f"{name} {tuple(mine.shape)} max_abs_err {float(diff.max()):.3e} ({what}) "
                      f"{'ok' if ok and finite else 'FAIL'}")
-    say(f"[phase 3 card vs cpu, prefill paths: 2 layers at {width} widths, int8 weights] "
+    say(f"[phase 3 card vs cpu, prefill paths: 2 layers at {width} widths, int8 weights, "
+        f"packed {list(lens)}, a {chunk_len}-token prompt in chunks of 256] "
         + "; ".join(parts) + f" | fp8 cache bytes equal {min(same_bytes):.4f}-"
         f"{max(same_bytes):.4f} | {time.perf_counter() - t0:.2f}s")
     del sides, caches, card
     torch.cuda.empty_cache()
 
 
-def paged_card_vs_cpu(torch, checks, base=None, width="8B", seed=SEED + 11):
+def paged_card_vs_cpu(torch, checks, base=None, width="8B", seed=SEED + 11, a_len=300,
+                      shared=256):
     """The paged path, 2 layers at full 8B widths (or ``base``'s, named
     ``width``), int8 weights, fp8 KV,
-    pages of 128: prompt A (300 tokens) prefilled into slot 0; prompt B,
-    sharing A's first 256 tokens (slot 1's table starts with A's two
-    pages), through prefill_suffix_paged from 256 (K8 chunk mode); then
+    pages of 128: prompt A (``a_len``, 300 tokens) prefilled into slot 0;
+    prompt B, sharing A's first ``shared`` (256) tokens (slot 1's table
+    starts with A's pages) and 100 of its own, through prefill_suffix_paged
+    from there (K8 chunk mode); then
     four decode_step_paged steps (K8 decode mode) in lockstep on the card
     and the CPU, fed the CPU's greedy tokens."""
     import numpy as np
@@ -4647,23 +4986,26 @@ def paged_card_vs_cpu(torch, checks, base=None, width="8B", seed=SEED + 11):
     card = llama.init_params(cfg, seed=seed, device="cuda", quantize="int8")
     sides = {"cpu": _to(card, "cpu"), "cuda": card}
     rng = np.random.default_rng(seed)
-    a = rng.integers(0, cfg.vocab_size, 300).tolist()
-    b = a[:256] + rng.integers(0, cfg.vocab_size, 100).tolist()
-    pages = (rng.permutation(8) + 1).tolist()  # of a pool of 9 (page 0 null)
+    a = rng.integers(0, cfg.vocab_size, a_len).tolist()
+    b = a[:shared] + rng.integers(0, cfg.vocab_size, 100).tolist()
+    na, ns = -(-a_len // 128), shared // 128  # A's pages, the shared ones
+    nb = -(-len(b) // 128) - ns  # B's own
+    mp = max(na, ns + nb)
+    pages = (rng.permutation(na + nb) + 1).tolist()  # of a pool of na + nb + 1 (0 null)
     logits = {d: [] for d in sides}
     pools = {}
     for d, params in sides.items():
-        pool = PagedKVPool.create(2, 9, 128, 2, 4, cfg.num_kv_heads, cfg.head_dim,
+        pool = PagedKVPool.create(2, na + nb + 1, 128, 2, mp, cfg.num_kv_heads, cfg.head_dim,
                                   mode="fp8", device=d)
-        pool.assign_pages(0, pages[:3]).assign_pages(1, pages[:2] + pages[3:5])
+        pool.assign_pages(0, pages[:na]).assign_pages(1, pages[:ns] + pages[na:na + nb])
         out, kvs = llama.prefill_with_kv(params, torch.tensor([a], device=d),
                                          torch.arange(len(a), device=d)[None], cfg)
         for layer, (k, v) in enumerate(kvs):
             pool.append_prefill(layer, 0, k[0], v[0], 0)
         logits[d].append(out[0, -1].float().cpu())
         toks = torch.zeros((1, 128), dtype=torch.long, device=d)
-        toks[0, :100] = torch.tensor(b[256:], device=d)
-        out, _ = llama.prefill_suffix_paged(params, toks, cfg, pool, 1, 256)
+        toks[0, :100] = torch.tensor(b[shared:], device=d)
+        out, _ = llama.prefill_suffix_paged(params, toks, cfg, pool, 1, shared)
         logits[d].append(out[0, 99].float().cpu())
         pools[d] = pool.set_lengths([len(a), len(b)])
     nxt = torch.stack(logits["cpu"]).argmax(-1)
@@ -4684,7 +5026,7 @@ def paged_card_vs_cpu(torch, checks, base=None, width="8B", seed=SEED + 11):
         checks.failed.append("paged card logits not finite")
     agree = int((got.argmax(-1) == ref.argmax(-1)).sum())
     say(f"[phase 3 card vs cpu, paged: 2 layers at {width} widths, int8 weights, fp8 KV, "
-        f"page 128, suffix prefill from 256 + 4 decode steps] logits {tuple(got.shape)} "
+        f"page 128, suffix prefill from {shared} + 4 decode steps] logits {tuple(got.shape)} "
         f"finite={finite} max_abs_err {err:.3e} (tol {tol:.3e}) {'ok' if ok else 'FAIL'} | "
         f"greedy agreement {agree}/{ref.shape[0]} | {time.perf_counter() - t0:.2f}s")
     del sides, pools, card
@@ -4700,10 +5042,10 @@ def _clone_cache(cache):
                    cache.length.clone(), cache.mode)
 
 
-def multi_card_vs_cpu(torch, checks, base=None, width="8B", seed=SEED + 18):
+def multi_card_vs_cpu(torch, checks, base=None, width="8B", seed=SEED + 18, lens=(100, 37)):
     """The verify step, 2 layers at full 8B widths (or ``base``'s, named
     ``width``), int8 weights, fp8 KV:
-    two prompts (100 and 37 tokens), then decode_multi of T=5 tokens per
+    two prompts (``lens``: 100 and 37 tokens), then decode_multi of T=5 tokens per
     sequence (the CPU's greedy first token and four from the seed) on the
     card (K1 in chunk mode) against the CPU (plain versions), and against
     five decode_step calls of the same tokens on the card from a copy of
@@ -4718,15 +5060,17 @@ def multi_card_vs_cpu(torch, checks, base=None, width="8B", seed=SEED + 18):
     cfg = dataclasses.replace(base or llama.LLAMA3_8B, num_layers=2)
     card = llama.init_params(cfg, seed=seed, device="cuda", quantize="int8")
     sides = {"cpu": _to(card, "cpu"), "cuda": card}
-    caches = {d: llama.make_cache(cfg, 2, 256, mode="fp8", device=d) for d in sides}
+    bucket = 128 * -(-max(lens) // 128)
+    caches = {d: llama.make_cache(cfg, 2, 2 * bucket, mode="fp8", device=d) for d in sides}
     rng = np.random.default_rng(seed)
-    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (100, 37)]
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
     first = []
     for slot, prompt in enumerate(prompts):
-        toks = torch.zeros((1, 128), dtype=torch.long)
+        toks = torch.zeros((1, bucket), dtype=torch.long)
         toks[0, :len(prompt)] = torch.tensor(prompt)
         for d, params in sides.items():
-            out, kvs = llama.prefill_with_kv(params, toks.to(d), torch.arange(128, device=d)[None], cfg)
+            out, kvs = llama.prefill_with_kv(params, toks.to(d),
+                                             torch.arange(bucket, device=d)[None], cfg)
             for layer, (k, v) in enumerate(kvs):
                 caches[d].insert_prompt(layer, slot, k[0], v[0])
             caches[d].set_length(slot, len(prompt))
@@ -4751,14 +5095,15 @@ def multi_card_vs_cpu(torch, checks, base=None, width="8B", seed=SEED + 18):
     tol = 5e-2 * float(ref.abs().max())
     ok = (checks.check("verify step card vs cpu logits", err, tol)
           & checks.check("verify step vs five decode steps on the card", err_steps, tol) and finite)
-    lengths_ok = caches["cuda"].length.tolist() == steps_cache.length.tolist() == [105, 42]
+    lengths_ok = (caches["cuda"].length.tolist() == steps_cache.length.tolist()
+                  == [n + T for n in lens])
     if not finite:
         checks.failed.append("verify step logits not finite")
     if not lengths_ok:
         checks.failed.append("verify step lengths differ from five decode steps'")
     agree = int((got.argmax(-1) == ref.argmax(-1)).sum())
     say(f"[phase 3 card vs cpu, verify step: 2 layers at {width} widths, int8 weights, fp8 KV, "
-        f"decode_multi T={T}] logits {tuple(got.shape)} finite={finite} max_abs_err {err:.3e} vs "
+        f"prompts {list(lens)}, decode_multi T={T}] logits {tuple(got.shape)} finite={finite} max_abs_err {err:.3e} vs "
         f"cpu, {err_steps:.3e} vs {T} decode steps (tol {tol:.3e}) "
         f"{'ok' if ok and lengths_ok else 'FAIL'} | greedy agreement {agree}/{2 * T} | "
         f"{time.perf_counter() - t0:.2f}s")
@@ -4889,6 +5234,23 @@ def qwen_card_vs_cpu(torch, checks):
     prefill_card_vs_cpu(torch, checks, seed=SEED + 63, **qwen)
     paged_card_vs_cpu(torch, checks, seed=SEED + 64, **qwen)
     multi_card_vs_cpu(torch, checks, seed=SEED + 65, **qwen)
+
+
+def mistral_card_vs_cpu(torch, checks):
+    """Phase 3's prefill, paged and verify rows at 2 layers of Mistral-7B's
+    widths (``mistral_7b``: 32 query heads over 8 KV heads; int8 weights)
+    with the window cut to 512, so that prompts of about 1000 tokens run
+    past it: packed prompts of 700, 250 and 50 and a 1000-token prompt in
+    chunks of 256 (K4's masked kLocal instance), a 768-token prompt and a
+    suffix prefill from 640 (K8c) with four paged decode steps (K8), and a
+    verify step after prompts of 800 and 600 (K1c), each held as the Llama
+    rows are: logits within 5 % of the CPU's max logit."""
+    mistral = dict(base=dataclasses.replace(mistral_7b(), sliding_window=512),
+                   width="Mistral-7B, window 512")
+    prefill_card_vs_cpu(torch, checks, seed=SEED + 91, lens=(700, 250, 50), chunk_len=1000,
+                        **mistral)
+    paged_card_vs_cpu(torch, checks, seed=SEED + 92, a_len=768, shared=640, **mistral)
+    multi_card_vs_cpu(torch, checks, seed=SEED + 93, lens=(800, 600), **mistral)
 
 
 # the share of tokens whose top-2 expert set may differ between the card and
@@ -5076,20 +5438,27 @@ def _train_card_vs_cpu(torch, checks, label, tag, card, fwd, vocab, seq, seed, t
     """One training loss and every parameter's gradient (the train step's
     forward and backward, remat on) of ``card`` (bf16 params on the card,
     copied to the CPU), B=1, S=``seq`` from ``seed``: on the card (K4, K9,
-    K10) against the CPU (plain versions)."""
+    K10) against the CPU (plain versions; the CPU's bf16 GEMMs as fp32
+    matmuls rounded once, ``_cpu_bf16_gemm``)."""
     import numpy as np
 
+    from flash_attn_tpu_torch.models import llama
     from flash_attn_tpu_torch.utils import train
 
     sides = {"cpu": _to(card, "cpu"), "cuda": card}
     batch = np.random.default_rng(seed).integers(0, vocab, (1, seq + 1))
     res = {}
-    for d, params in sides.items():
-        for p in train.param_leaves(params):
-            p.requires_grad_(True)
-        toks = torch.from_numpy(batch).to(d)
-        loss, grads = train.loss_and_grads(fwd, params, toks[:, :-1], toks[:, 1:])
-        res[d] = (float(loss), [gr.float().cpu() for gr in grads])
+    matmul = llama.quantized_matmul
+    try:
+        llama.quantized_matmul = _cpu_bf16_gemm(torch, matmul)
+        for d, params in sides.items():
+            for p in train.param_leaves(params):
+                p.requires_grad_(True)
+            toks = torch.from_numpy(batch).to(d)
+            loss, grads = train.loss_and_grads(fwd, params, toks[:, :-1], toks[:, 1:])
+            res[d] = (float(loss), [gr.float().cpu() for gr in grads])
+    finally:
+        llama.quantized_matmul = matmul
     torch.cuda.synchronize()
     names = [name for name, _ in train.named_leaves(card)]
     (lc, g_cpu), (lg, gg) = res["cpu"], res["cuda"]
@@ -5587,7 +5956,8 @@ def _reset_counts():
         wrappers[key].local_launches = 0
     wrappers["K4"].extra_launches = wrappers["K4"].dropout_launches = 0
     wrappers["K4"].alibi_launches = wrappers["K4"].probs_launches = 0
-    wrappers["K4"].verify_launches = 0
+    wrappers["K4"].verify_launches = wrappers["K4"].masked_local_launches = 0
+    wrappers["K1"].chunk_local_launches = k8.local_launches = k8.chunk_local_launches = 0
     for key in ("K9", "K10"):
         wrappers[key].window_launches = wrappers[key].d256_launches = 0
         wrappers[key].d64_launches = 0
@@ -5611,7 +5981,9 @@ def _read_counts() -> dict:
     dropout ("K4 dropout"), with ALiBi ("K4 alibi"), with return_softmax
     ("K4 probs") and with the clamped_verify flags ("K4 verify"), K9's
     and K10's with ALiBi ("K9 alibi", "K10 alibi") and K9's writing dS
-    ("K9 ds")."""
+    ("K9 ds"); the launches of the windowed instances of the serving
+    paths: K4's masked kLocal one ("K4 local seg"), K1c's, K8's and K8c's
+    kLocal ones ("K1c local", "K8 local", "K8c local")."""
     wrappers, k8 = _counters()
     counts = {k: fn.launches for k, fn in wrappers.items()}
     k1 = wrappers["K1"]
@@ -5638,6 +6010,10 @@ def _read_counts() -> dict:
     counts["K4 probs"] = wrappers["K4"].probs_launches
     counts["K4 verify"] = wrappers["K4"].verify_launches
     counts["K9 ds"] = wrappers["K9"].ds_launches
+    counts["K4 local seg"] = wrappers["K4"].masked_local_launches
+    counts["K1c local"] = k1.chunk_local_launches
+    counts["K8 local"] = k8.local_launches
+    counts["K8c local"] = k8.chunk_local_launches
     for key in ("K9", "K10"):
         counts[f"{key} local"] = wrappers[key].local_launches
         counts[f"{key} window"] = wrappers[key].window_launches
@@ -5692,7 +6068,7 @@ def _decode_window(torch, eng):
 
 def serve(torch, checks, label, cfg, params, kv_mode, max_tokens, path, burst=1,
           window=False, packed=True, chunk=None, adapter=None, capacity=4096, prompts=None,
-          max_batch=8, paged=False, spec=None, bank=None, adapters=None, mesh=None):
+          max_batch=8, paged=False, spec=None, bank=None, adapters=None, mesh=None, waves=1):
     """One engine run of greedy requests (``max_batch``, ``capacity``) at
     ``burst``, through ``adapter`` (default: Llama's for ``cfg``) on
     ``prompts`` ((lengths, token lists); default ``_prompts``), in
@@ -5707,7 +6083,9 @@ def serve(torch, checks, label, cfg, params, kv_mode, max_tokens, path, burst=1,
     ``bank``, a LoRA bank, request i under adapter ``adapters[i]``, its
     decode steps the engine's LoRA body); with ``chunk`` the
     engine has that prefill_chunk_size (so it does not pack), and K4's
-    calls with positions must be one a layer and chunk.  The step times
+    calls with positions must be one a layer and chunk; with ``waves`` 2
+    the second half of the prompts is submitted after the engine's first
+    step, so each half goes through a packed prefill of its own.  The step times
     leave out the first WARM_STEPS dispatches (warm-up and capture) and,
     with ``window`` (burst 1), the next WINDOW_STEPS, which run inside a
     profiler window.  Captured runs also time their decode graph replayed
@@ -5746,8 +6124,12 @@ def serve(torch, checks, label, cfg, params, kv_mode, max_tokens, path, burst=1,
     eng._do_decode_step = counted_step
     _reset_counts()
     t_run = time.perf_counter()
+    first = len(prompts) // waves
     reqs = [eng.submit(p, max_tokens=max_tokens, **({"adapter": adapters[i]} if bank else {}))
-            for i, p in enumerate(prompts)]
+            for i, p in enumerate(prompts[:first])]
+    if waves > 1:
+        eng.run(max_steps=1)
+        reqs += [eng.submit(p, max_tokens=max_tokens) for p in prompts[first:]]
     m = eng.metrics
 
     def now():
@@ -5773,7 +6155,7 @@ def serve(torch, checks, label, cfg, params, kv_mode, max_tokens, path, burst=1,
     if idle:
         checks.failed.append(f"{label}: kernels {idle} were not launched: {counts}")
     n_chunks = sum(-(-len(p) // chunk) for p in prompts if len(p) > chunk) if chunk else 0
-    packs = int(packed and not chunk and bank is None)  # a bank never packs
+    packs = int(packed and not chunk and bank is None) * waves  # a bank never packs
     want = {"packed prefills": packs, "K4 seg": cfg.num_layers * packs,
             "K4 pos": cfg.num_layers * (n_chunks if chunk else packs)}
     got = {"packed prefills": getattr(eng, "packed_prefills", 0), "K4 seg": counts["K4 seg"],
@@ -5793,7 +6175,8 @@ def serve(torch, checks, label, cfg, params, kv_mode, max_tokens, path, burst=1,
     pos_ms = 1e3 * secs / max(steps * burst, 1)
     prefill_tok_s = m.prefill_tokens / max(m.prefill_seconds, 1e-9)
     how = (f"{n_chunks} chunks of {chunk}, {between[0]} decode steps between them"
-           if chunk else "one packed call" if packs else "one prompt a call")
+           if chunk else f"{packs} packed call{'s' if packs > 1 else ''}" if packs
+           else "one prompt a call")
     say(f"[{label}] {len(prompts)} requests, prompts {lens.tolist()}, {max_tokens} tokens each: "
         f"{'ok' if good else 'FAIL'} | prefill {prefill_tok_s:.1f} tok/s ({how}) | decode "
         f"{tokens / max(secs, 1e-9):.1f} tok/s, {pos_ms:.3f} ms a decode position "
@@ -5958,34 +6341,37 @@ def serve_sampled(torch, checks, smi, params):
         f"{runs[0, 0] != runs[1, 0]} | {time.perf_counter() - t1:.2f}s")
 
 
-def serve_paged(torch, checks, params, burst=1, cfg=None, run=None):
+def serve_paged(torch, checks, params, burst=1, cfg=None, run=None, prefix_len=512,
+                capacity=4096, n_tok=32):
     """Phase 7: Llama-3-8B (phase 4's int8 params; or ``cfg``, a Llama
     config, as the run ``run``) through
     PagedInferenceEngine with prefix caching, fp8 KV, pages of 128,
-    max_batch 8, capacity 4096, 32 greedy tokens per request, decode
-    bodies captured, at ``burst``.  Traffic: a
-    512-token shared prefix (4 full pages) and 16 distinct suffixes of
-    64-512 tokens, all from the seed, in two waves of 8.  Wave 1 is
-    admitted in one round before any prefill, so all 8 miss and the first
-    to prefill donates the prefix pages; wave 2, submitted after wave 1
-    completes, must hit 8 times and prefill only its suffixes (K8 chunk
-    mode, no K4).  Counters are set to 0 before each wave and read after
+    max_batch 8, ``capacity`` (4096), ``n_tok`` (32) greedy tokens per
+    request, decode bodies captured, at ``burst``.  Traffic: a
+    ``prefix_len``-token shared prefix (512: 4 full pages) and 16 distinct
+    suffixes of 64-512 tokens, all from the seed, in two waves of 8.  Wave
+    1 is admitted in one round before any prefill, so all 8 miss and the
+    first to prefill donates the prefix pages; wave 2, submitted after
+    wave 1 completes, must hit 8 times and prefill only its suffixes (K8
+    chunk mode, no K4): K8c once a layer for every 128 tokens of each
+    suffix's bucket.  Counters are set to 0 before each wave and read after
     it; returns the two waves' counts summed and the tokens."""
     import numpy as np
 
     from flash_attn_tpu_torch.engine.engine import PagedInferenceEngine
+    from flash_attn_tpu_torch.engine.scheduler import bucket_length
     from flash_attn_tpu_torch.models import llama
 
     t1 = time.perf_counter()
     run = run or RUN_PAGED
     label = run if burst == 1 else f"{run}, burst {burst}"
-    cfg, n_tok = cfg or llama.LLAMA3_8B, 32
+    cfg = cfg or llama.LLAMA3_8B
     rng = np.random.default_rng(SEED + 7)
-    prefix = rng.integers(0, cfg.vocab_size, 512).tolist()
+    prefix = rng.integers(0, cfg.vocab_size, prefix_len).tolist()
     suffix_lens = rng.integers(64, 513, 16)
     prompts = [prefix + rng.integers(0, cfg.vocab_size, int(n)).tolist() for n in suffix_lens]
     torch.cuda.reset_peak_memory_stats()
-    eng = PagedInferenceEngine(params, llama.make_adapter(cfg), max_batch=8, capacity=4096,
+    eng = PagedInferenceEngine(params, llama.make_adapter(cfg), max_batch=8, capacity=capacity,
                                page_size=128, kv_mode="fp8", prefix_cache=True, device="cuda",
                                decode_burst=burst)
     m = eng.metrics
@@ -6024,6 +6410,14 @@ def serve_paged(torch, checks, params, burst=1, cfg=None, run=None):
     for key in ("K8", "K8c", "K1m", "K3", "K4"):
         if total[key] <= 0:
             checks.failed.append(f"{label}: kernel {key} was not launched: {total}")
+    # wave 2's suffix prefills: the prefix's full pages are cached, each
+    # suffix runs in 128-token pieces of its bucket
+    cached = prefix_len // 128 * 128
+    pieces = sum(-(-min(bucket_length(len(p) - cached), capacity - cached) // 128)
+                 for p in prompts[8:])
+    if waves[1]["K8c"] != cfg.num_layers * pieces:
+        checks.failed.append(f"{label}: K8c launched {waves[1]['K8c']} times in wave 2, "
+                             f"expected {cfg.num_layers} x {pieces} suffix pieces")
     body = eng._burst_jit if burst > 1 else eng._decode_jit
     if body.graph is None:
         checks.failed.append(f"{label}: the decode body was not captured")
@@ -6355,6 +6749,104 @@ def phase_qwen(torch, checks, smi):
         f"{graph['counts']['K1']} = K2 = K1m = {L} x {steps} steps, K1c {spec['counts']['K1c']} "
         f"= {L} x {spec['rounds']} verify rounds, K8 {runs[RUN_QWEN_PAGED]['K8']} (= {L} a "
         f"paged step) | peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del params
+    _free(torch)
+    return runs
+
+
+# phase 25's prompts: two groups of four, each group packed into one call
+# (a packed call holds at most the capacity, 8192 tokens), the first of
+# each past the 4096-token window
+MISTRAL_PROMPTS = ((4200, 1800, 1200, 700), (4300, 1600, 1300, 800))
+MAX_MISTRAL_GIB = 75.0          # the Mistral-7B serve fails above this peak
+
+
+def phase_mistral(torch, checks, smi):
+    """Phase 25: Mistral-7B-v0.1's published config at full size
+    (``mistral_7b``: 32 layers, a 4096-token sliding window; random int8
+    weights from the seed), fp8 KV, capacity 8192, max_batch 8, 32 greedy
+    tokens a request, every way with at least two sequences past the
+    window in prefill and in decode (printed): packed prefill
+    (``MISTRAL_PROMPTS``, two groups, one packed call each), eager against
+    captured (tokens equal); chunks of 512 (all eight prompts at once); the
+    paged engine with prefix caching (serve_paged: a 4096-token shared
+    prefix and suffixes of 64-512, two waves of 8, hits printed); n-gram
+    speculation with 4 drafts.  Launches exact, every one on a windowed
+    instance: K4's masked kLocal instance 32 a packed call (32 a chunk),
+    K1 32 a decode step (all windowed), K1c 32 a verify round, K8 32 a
+    paged step, K8c 32 a 128-token piece of a suffix prefill.  Prints ms a
+    position, prefill tokens/s and the peak with the card's name and power
+    limit.  Returns {run label: counts}."""
+    import numpy as np
+
+    from flash_attn_tpu_torch.engine._graph import disable_graphs
+    from flash_attn_tpu_torch.engine.engine import SpecConfig
+
+    t0 = time.perf_counter()
+    cfg = mistral_7b()
+    L, W = cfg.num_layers, cfg.sliding_window
+    params, secs = _fresh_model(torch, cfg, quantize="int8")
+    say(f"  Mistral-7B-v0.1 params (int8 weights, bf16 embeddings and head) on the card in "
+        f"{secs:.2f}s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    rng = np.random.default_rng(SEED + 25)
+    lens = np.array([n for group in MISTRAL_PROMPTS for n in group])
+    prompts = (lens, [rng.integers(0, cfg.vocab_size, int(n)).tolist() for n in lens])
+    n_tok, base = 32, ("K1", "K1m", "K2", "K3", "K4")
+    kw = dict(capacity=8192, prompts=prompts)
+    past = (int((lens > W).sum()), int((lens + n_tok - 1 > W).sum()))
+    with disable_graphs():
+        eager = serve(torch, checks, RUN_MISTRAL_EAGER, cfg, params, "fp8", n_tok, base,
+                      waves=2, **kw)
+    graph = serve(torch, checks, RUN_MISTRAL, cfg, params, "fp8", n_tok, base, waves=2, **kw)
+    chunked = serve(torch, checks, RUN_MISTRAL_CHUNK, cfg, params, "fp8", n_tok, base,
+                    chunk=512, **kw)
+    spec = serve(torch, checks, RUN_MISTRAL_SPEC, cfg, params, "fp8", n_tok,
+                 ("K1c", "K1m", "K3", "K4"), spec=SpecConfig(num_draft=4, ngram=2), waves=2,
+                 **kw)
+    # serve_paged resets the peak: the serve runs' first
+    peak = max(run["peak"] for run in (eager, graph, chunked, spec))
+    paged, _ = serve_paged(torch, checks, params, cfg=cfg, run=RUN_MISTRAL_PAGED,
+                           prefix_len=4096, capacity=8192, n_tok=n_tok)
+    peak = max(peak, torch.cuda.max_memory_allocated() / 2**30)
+    bad = [i for i, (a, b) in enumerate(zip(eager["tokens"], graph["tokens"])) if a != b]
+    if bad:
+        checks.failed.append(f"{RUN_MISTRAL}: eager tokens differ from the captured run's in "
+                             f"requests {bad}")
+    n_chunks = sum(-(-int(n) // 512) for n in lens if n > 512)
+    for label, run, want in (
+            (RUN_MISTRAL_EAGER, eager, {"K4": 2 * L, "K4 local seg": 2 * L,
+                                        "K1": L * eager["dispatches"],
+                                        "K1 window": L * eager["dispatches"]}),
+            (RUN_MISTRAL, graph, {"K4": 2 * L, "K4 local seg": 2 * L,
+                                  "K1": L * graph["dispatches"],
+                                  "K1 window": L * graph["dispatches"],
+                                  "K2": L * graph["dispatches"], "K1m": L * graph["dispatches"]}),
+            (RUN_MISTRAL_CHUNK, chunked, {"K4 local seg": L * n_chunks,
+                                          "K1 window": chunked["counts"]["K1"]}),
+            (RUN_MISTRAL_SPEC, spec, {"K4 local seg": 2 * L, "K1c": L * spec["rounds"],
+                                      "K1c local": L * spec["rounds"]})):
+        _launches_exact(checks, label, run["counts"], want)
+    _launches_exact(checks, RUN_MISTRAL_PAGED, paged, {"K8 local": paged["K8"],
+                                                        "K8c local": paged["K8c"]})
+    if min(past) < 2:
+        checks.failed.append(f"{RUN_MISTRAL}: {past} sequences past the window in prefill and "
+                             "decode, expected at least 2 of each")
+    if peak > MAX_MISTRAL_GIB:
+        checks.failed.append(f"{RUN_MISTRAL}: peak {peak:.2f} GiB > {MAX_MISTRAL_GIB}")
+    say(f"[{RUN_MISTRAL}] {smi} | prompts {lens.tolist()}: {past[0]} past the {W}-token "
+        f"window in prefill, {past[1]} in decode (the paged run's 16 all past it) | eager / "
+        f"captured {eager['pos_ms']:.3f} / {graph['pos_ms']:.3f} ms a position ("
+        f"{graph['dev_ms'] or float('nan'):.3f} on the card), tokens equal {not bad}; chunks of "
+        f"512 {chunked['pos_ms']:.3f}; n-gram "
+        f"{spec['pos_ms']:.3f} ms a round ({spec['rounds']} rounds) | prefill tok/s: packed "
+        f"{graph['prefill_tok_s']:.1f} (2 calls), chunks of 512 {chunked['prefill_tok_s']:.1f} "
+        f"| launches: K4 local seg {graph['counts']['K4 local seg']} = {L} x 2 packed calls, "
+        f"{chunked['counts']['K4 local seg']} = {L} x {n_chunks} chunks; K1 "
+        f"{graph['counts']['K1']} = {L} x {graph['dispatches']} steps, all windowed; K1c "
+        f"{spec['counts']['K1c']} = {L} x {spec['rounds']} rounds; K8 {paged['K8']}, K8c "
+        f"{paged['K8c']}, all windowed | peak {peak:.2f} GiB | {time.perf_counter() - t0:.2f}s")
+    runs = {RUN_MISTRAL: graph["counts"], RUN_MISTRAL_CHUNK: chunked["counts"],
+            RUN_MISTRAL_SPEC: spec["counts"], RUN_MISTRAL_PAGED: paged}
     del params
     _free(torch)
     return runs
@@ -7586,6 +8078,11 @@ RUN_QWEN_CHUNK = "phase 16 serve Qwen-2-7B int8, fp8 KV, prefill_chunk_size 512"
 RUN_QWEN_PAGED = "phase 16 serve Qwen-2-7B int8, fp8 KV, paged + prefix cache"
 RUN_QWEN_SPEC = "phase 16 serve Qwen-2-7B int8, fp8 KV, n-gram speculation"
 RUN_MIXTRAL = "phase 17 serve Mixtral-8x7B int8, fp8 KV"
+RUN_MISTRAL = "phase 25 serve Mistral-7B-v0.1 int8, fp8 KV, capacity 8192"
+RUN_MISTRAL_EAGER = f"{RUN_MISTRAL}, eager"
+RUN_MISTRAL_CHUNK = f"{RUN_MISTRAL}, prefill_chunk_size 512"
+RUN_MISTRAL_PAGED = f"{RUN_MISTRAL}, paged + prefix cache"
+RUN_MISTRAL_SPEC = f"{RUN_MISTRAL}, n-gram speculation"
 RUN_MIXTRAL_SPEC = "phase 17 serve Mixtral-8x7B int8, fp8 KV, n-gram speculation"
 RUN_MIXTRAL_PAGED = "phase 17 serve Mixtral-8x7B int8, fp8 KV, paged"
 RUN_ABI = ("phase 18 the C entry points, Llama-3-8B attention widths (varlen 8 sequences in "
@@ -7922,7 +8419,8 @@ KERNEL_ROWS = ("K1", "K1m", "K1c", "K1b", "K2", "K3", "K3g", "K4", "K5", "K6", "
                "K4 d64", "K1 d64", "K1c d64", "K8 d64", "K2 d64", "K1m d64", "K9 d64", "K10 d64",
                "K4 27B", "K1 27B", "K9 27B", "K10 27B", "K4 G7", "K1 G7", "K1c G7", "K8 G7",
                "K2 G7", "K3 Mixtral", "K4 opt", "K9 opt", "K10 opt", "K11", "K4 surface",
-               "K9 surface", "K10 surface", "K1 shard", "K6 tp4", "K7 tp4")
+               "K9 surface", "K10 surface", "K1 shard", "K6 tp4", "K7 tp4", "K4 local seg",
+               "K1c window", "K8 window", "K8c window")
 # the run whose launches a kernel's row reports, and the count it reads:
 # the main path that the kernel serves (the 70B serve for the shared K1,
 # K1m, K2 and K4, the n-gram speculative serve for K1's chunk mode, the
@@ -7947,7 +8445,9 @@ ROW_RUN = {"K1": RUN_70B, "K1m": RUN_70B, "K1c": RUN_SPEC_NGRAM, "K1b": None, "K
            "K8 G7": RUN_QWEN_PAGED, "K2 G7": RUN_QWEN, "K3 Mixtral": RUN_MIXTRAL,
            "K4 opt": RUN_ABI, "K9 opt": RUN_ABI, "K10 opt": RUN_ABI, "K11": RUN_SP_RDMA,
            "K4 surface": RUN_SURFACE, "K9 surface": RUN_SURFACE, "K10 surface": RUN_SURFACE,
-           "K1 shard": RUN_SP_DECODE, "K6 tp4": RUN_TP, "K7 tp4": RUN_TP}
+           "K1 shard": RUN_SP_DECODE, "K6 tp4": RUN_TP, "K7 tp4": RUN_TP,
+           "K4 local seg": RUN_MISTRAL, "K1c window": RUN_MISTRAL_SPEC,
+           "K8 window": RUN_MISTRAL_PAGED, "K8c window": RUN_MISTRAL_PAGED}
 # a row's count where it is not the row's own key: every K2 and K1m launch
 # of the Gemma-2-9B serve is at head_dim 256, and every launch of the GPT-2
 # serves at head_dim 64 (phase 12 holds the d64 counts equal); the 27B
@@ -7957,7 +8457,8 @@ ROW_COUNT = {"K2 d256": "K2", "K1m d256": "K1m", "K4 d64": "K4", "K1 d64": "K1",
              "K4 27B": "K4 local", "K1 27B": "K1", "K9 27B": "K9 local", "K10 27B": "K10 local",
              "K4 G7": "K4", "K1 G7": "K1", "K1c G7": "K1c", "K8 G7": "K8", "K2 G7": "K2",
              "K3 Mixtral": "K3", "K4 opt": "K4 extra", "K1 shard": "K1", "K6 tp4": "K6",
-             "K7 tp4": "K7"}
+             "K7 tp4": "K7", "K1c window": "K1c local", "K8 window": "K8 local",
+             "K8c window": "K8c local"}
 
 
 def main() -> int:
@@ -7994,6 +8495,7 @@ def main() -> int:
     gpt2_card_vs_cpu(torch, checks)
     gpt2_train_card_vs_cpu(torch, checks)
     qwen_card_vs_cpu(torch, checks)
+    mistral_card_vs_cpu(torch, checks)
     mixtral_card_vs_cpu(torch, checks, "int8", SEED + 66)
     mixtral_card_vs_cpu(torch, checks, "int4", SEED + 67)
     mixtral_train_card_vs_cpu(torch, checks)
@@ -8011,6 +8513,7 @@ def main() -> int:
     runs[RUN_GPT2_TRAIN] = phase_gpt2_train(torch, checks, smi)
     runs.update(phase_qwen(torch, checks, smi))
     runs.update(phase_mixtral(torch, checks, smi))
+    runs.update(phase_mistral(torch, checks, smi))
     runs.update(phase_mixtral_train(torch, checks, smi))
     runs.update(phase_lora(torch, checks, smi))
     runs.update(phase_sp_decode(torch, checks, smi))
@@ -8038,7 +8541,7 @@ def main() -> int:
                                          "bias", "d64", "d64_varlen", "d64_segments",
                                          "readout", "bound_f32_ms", "bound_bf16_ms",
                                          "non_causal", "gpt2", "probs", "verify", "dbias",
-                                         "library_backend", "slices")
+                                         "library_backend", "slices", "softcap")
                        if k in r})
                for r in (rows[k] for k in KERNEL_ROWS)]
     print(json.dumps({"kernels": kernels}))

@@ -74,8 +74,8 @@ SIGS = {
 }
 SOURCES = ("chunk_attn.cu", "decode.cu", "paged_decode.cu", "flash_fwd.cu")
 # the mutant: split 1 walks no tiles, so its keys drop out of the merge
-ANCHOR = "  const int n_tiles = max(0, min("
-MUTANT = "  const int n_tiles = split == 1 ? 0 : max(0, min("
+ANCHOR = "  const int n_tiles =\n      max(0, min("
+MUTANT = "  const int n_tiles =\n      split == 1 ? 0 : max(0, min("
 WIDE = "constexpr int kWideW = 2;"
 OUT = ROOT / "chiprun_out" / "chunk_probe.txt"
 D = 128

@@ -202,9 +202,12 @@ class Lib:
         text = (src_dir / "paged_decode.cu").read_text()
         head = text[text.index('extern "C" int fatt_paged_decode('):]
         self.live = "arrivals" in head[:head.index(")")]
-        text = (src_dir / "flash_fwd.cu").read_text()
-        head = text[text.index('extern "C" int fatt_flash_fwd('):]
-        self.k4_masks = "qmeta" in head[:head.index(")")]
+        # a mutant's or a variant's copy holds K8's sources alone
+        self.k4_masks = False
+        if (src_dir / "flash_fwd.cu").exists():
+            text = (src_dir / "flash_fwd.cu").read_text()
+            head = text[text.index('extern "C" int fatt_flash_fwd('):]
+            self.k4_masks = "qmeta" in head[:head.index(")")]
         self.fn = {}
         for entry in SIGS:
             base = entry.split("+")[0]

@@ -47,6 +47,8 @@ _SIGNATURES = {
                          I, I, I, I, I, I, I, I, I, I, I, F, F, I, F, I, F, P],
     "fatt_chunk_attn": [P, P, P, P, P, P, P, P, P, P,
                         I, I, I, I, I, I, I, I, I, I, F, I, F, P],
+    "fatt_chunk_attn_local": [P, P, P, P, P, P, P, P, P, P,
+                              I, I, I, I, I, I, I, I, I, I, F, I, F, I, F, P],
     "fatt_kv_append": [P, P, P, P, P, P, P, I, I, I, I, I, P],
     "fatt_empty": [I, I, P],
     "fatt_matmul_float_q": [P, P, P, P, P, I, I, I, I, I, I, I, I, P],
@@ -55,6 +57,8 @@ _SIGNATURES = {
                        I, I, I, I, I, I, I, F, I, I, I, I, F, *_EXTRA, P, P, P, P, P],
     "fatt_paged_decode": [P, P, P, P, P, P, P, P, P, P, P, P,
                           I, I, I, I, I, I, I, I, F, I, F, P],
+    "fatt_paged_decode_local": [P, P, P, P, P, P, P, P, P, P, P, P,
+                                I, I, I, I, I, I, I, I, F, I, F, I, F, P],
     "fatt_flash_bwd_dq": [P, P, P, P, P, P, P, P, P, P,
                           I, I, I, I, I, I, I, F, I, I, I, F, P, P, P, P, *_EXTRA, P, P, P],
     "fatt_flash_bwd_dkv": [P, P, P, P, P, P, P, P,

@@ -51,10 +51,29 @@
 // running max; online mode keeps a running max in natural units.  A row
 // with no visible key writes out 0 and lse -1e30.
 //
+// The sliding window and the logit softcap (Mistral, Gemma-2) are built
+// into instances of their own (kLocal, entry fatt_chunk_attn_local), so the
+// instances without them keep their code, as K4's kLocal ones do
+// (flash_attn_tpu/ops/decode.py:835-862, 931-940; paged_decode.py:150-160,
+// 224-226, 362-374):
+//   * row r also needs positions >= lo(r) = kv_len - (T-1) + r/G - window:
+//     the last `window` positions below its limit;
+//   * the walk starts at the tile holding the loosest row's (t = 0) lower
+//     bound, floor(max(0, kv_len - (T-1) - window) / 64) * 64 (a multiple of
+//     64, so a paged tile still never straddles a page), and the splits cut
+//     that walk, so the keys below the window are never read;
+//   * a tile is masked element by element where some row's limit or window
+//     edge in the warp crosses it;
+//   * the softcap, s = c * tanh(s / c) on the scores after the K scale and
+//     before the mask, c in the scores' units (base 2 when clamped), on
+//     fatt::tanh_exp2 as K4's.
+//
 // Head dim 64 (GPT-2) or 128, a template parameter: at 64 a bf16 tile is
 // one swizzled 64-column part (8 KB a K or V tile of 64 keys), a raw
 // 1-byte row is 64 bytes (4 chunks, swizzled by raw_pos), QK^T takes 4
 // depth steps and PV one n64 product.
+#include <climits>
+
 #include "common.cuh"
 
 namespace {
@@ -95,6 +114,8 @@ struct Params {
   int B, Hk, R, chunk, S, page, max_pages;
   float qscale, clamp2;
   int clamped;
+  int window;     // kLocal: 0 or the positions below its limit a row sees
+  float softcap;  // kLocal: 0 or the cap in the scores' units
 };
 
 // 16 stored bytes (columns 16c..16c+15) as two 16-byte rows of bf16.
@@ -128,7 +149,7 @@ __device__ __forceinline__ int raw_pos(int r, int c) {
   return r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
 }
 
-template <int KV, int W, bool kPaged, int kD>
+template <int KV, int W, bool kPaged, int kD, bool kLocal>
 __global__ void __launch_bounds__(128 * W, W == 1 ? (kD == 64 ? 3 : 2) : 1)
     chunk_attn_kernel(const Params p) {
   using L = Layout<KV, kD>;
@@ -157,12 +178,17 @@ __global__ void __launch_bounds__(128 * W, W == 1 ? (kD == 64 ? 3 : 2) : 1)
   const int len = p.kv_len[b];
   const int cap = kPaged ? p.max_pages * p.page : p.S;
   auto lim = [&](int r) { return min(len - (p.chunk - 1) + min(r, R - 1) / G, cap); };
-  // The split's tiles of the live walk, cut to this block's highest limit.
-  const int n_live = (max(0, min(len, cap)) + kBK - 1) / kBK;
+  // kLocal: row r's lowest position, lim(r) - window before the cap.
+  auto lo = [&](int r) { return len - (p.chunk - 1) + min(r, R - 1) / G - p.window; };
+  // The split's tiles of the live walk, cut to this block's highest limit;
+  // with a window the walk starts at the tile of the loosest row's bound.
+  const int t_begin = kLocal && p.window > 0 ? max(0, lo(0)) / kBK : 0;
+  const int n_live = max(0, (max(0, min(len, cap)) + kBK - 1) / kBK - t_begin);
   const int per = (n_live + nsplit - 1) / nsplit;
-  const int t_lo = split * per;
+  const int t_lo = t_begin + split * per;
   const int walk_end = max(0, lim(r0 + kWgRows * W - 1));
-  const int n_tiles = max(0, min((split + 1) * per, (walk_end + kBK - 1) / kBK) - t_lo);
+  const int n_tiles =
+      max(0, min(t_begin + (split + 1) * per, (walk_end + kBK - 1) / kBK) - t_lo);
 
   // Tile i of the split into ring stage i % kStages; rows past walk_end are
   // zero-filled (their scores are masked and p = 0 meets finite V).
@@ -230,6 +256,12 @@ __global__ void __launch_bounds__(128 * W, W == 1 ? (kD == 64 ? 3 : 2) : 1)
 
   const int row_lim[2] = {lim(my_row), lim(my_row + 8)};
   const int warp_lim = lim(wrow0);  // the lowest limit of the warp's rows
+  // kLocal: this thread's rows' lowest positions, and the highest of the
+  // warp's (INT_MIN without a window, a constant in the other instances:
+  // nothing below it is masked)
+  const bool windowed = kLocal && p.window > 0;
+  const int row_lo[2] = {windowed ? lo(my_row) : INT_MIN, windowed ? lo(my_row + 8) : INT_MIN};
+  const int warp_lo = windowed ? lo(wrow0 + 15) : INT_MIN;
   float o[kD / 8][4];
 #pragma unroll
   for (int j = 0; j < kD / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
@@ -286,12 +318,21 @@ __global__ void __launch_bounds__(128 * W, W == 1 ? (kD == 64 ? 3 : 2) : 1)
         s[j][3] *= sc.y;
       }
     }
-    if (k0 + kBK > warp_lim) {
+    if (kLocal && p.softcap > 0.f) {
+      const float inv_cap = 1.f / p.softcap;
 #pragma unroll
       for (int j = 0; j < kBK / 8; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (k0 + j * 8 + cq + (e & 1) >= row_lim[e >> 1]) s[j][e] = kNegInf;
+        for (int e = 0; e < 4; ++e) s[j][e] = p.softcap * fatt::tanh_exp2(s[j][e] * inv_cap);
+    }
+    if (k0 + kBK > warp_lim || k0 < warp_lo) {
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + j * 8 + cq + (e & 1);
+          if (col >= row_lim[e >> 1] || col < row_lo[e >> 1]) s[j][e] = kNegInf;
+        }
     }
 
     float alpha[2] = {1.f, 1.f};
@@ -363,9 +404,9 @@ __global__ void __launch_bounds__(128 * W, W == 1 ? (kD == 64 ? 3 : 2) : 1)
   }
 }
 
-template <int KV, int W, bool kPaged, int kD>
+template <int KV, int W, bool kPaged, int kD, bool kLocal>
 int launch(const Params& p, int nsplit, cudaStream_t st) {
-  auto kernel = chunk_attn_kernel<KV, W, kPaged, kD>;
+  auto kernel = chunk_attn_kernel<KV, W, kPaged, kD, kLocal>;
   static fatt::SmemLimitSet smem_set;  // one for each instance
   constexpr int kBytes = Layout<KV, kD>::kBytes;
   cudaError_t e = fatt::smem_limit_once(kernel, kBytes, smem_set);
@@ -375,19 +416,57 @@ int launch(const Params& p, int nsplit, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-template <int KV, int kD>
+template <int KV, int kD, bool kLocal>
 int launch_d(const Params& p, int nsplit, cudaStream_t st) {
   const bool wide = p.R > kWgRows;
   if (p.table != nullptr)
-    return wide ? launch<KV, kWideW, true, kD>(p, nsplit, st)
-                : launch<KV, 1, true, kD>(p, nsplit, st);
-  return wide ? launch<KV, kWideW, false, kD>(p, nsplit, st)
-              : launch<KV, 1, false, kD>(p, nsplit, st);
+    return wide ? launch<KV, kWideW, true, kD, kLocal>(p, nsplit, st)
+                : launch<KV, 1, true, kD, kLocal>(p, nsplit, st);
+  return wide ? launch<KV, kWideW, false, kD, kLocal>(p, nsplit, st)
+              : launch<KV, 1, false, kD, kLocal>(p, nsplit, st);
 }
 
-template <int KV>
+template <int KV, bool kLocal>
 int launch_kv(const Params& p, int D, int nsplit, cudaStream_t st) {
-  return D == 64 ? launch_d<KV, 64>(p, nsplit, st) : launch_d<KV, 128>(p, nsplit, st);
+  return D == 64 ? launch_d<KV, 64, kLocal>(p, nsplit, st)
+                 : launch_d<KV, 128, kLocal>(p, nsplit, st);
+}
+
+template <bool kLocal>
+int chunk_attn(const void* q, const void* k, const void* v, const void* ks, const void* vs,
+               const void* table, const void* kv_len, void* out, void* part_out,
+               void* part_lse, int B, int Hk, int R, int chunk, int S, int page,
+               int max_pages, int D, int kv_type, int num_splits, float qscale, int clamped,
+               float clamp2, int window, float softcap, void* stream) {
+  const bool paged = table != nullptr;
+  if ((D != 64 && D != 128) || R < 1 || chunk < 1 || R % chunk != 0 || num_splits < 1 ||
+      num_splits > 65535 || B < 1 || Hk < 1 || (int64_t)B * Hk > 65535 ||
+      (paged ? (page < kBK || page % kBK != 0 || max_pages < 1) : S < 1) ||
+      (kv_type != fatt::kBf16 && (ks == nullptr || vs == nullptr)) || window < 0 ||
+      !(softcap >= 0.f))
+    return (int)cudaErrorInvalidValue;
+  Params p{static_cast<const __nv_bfloat16*>(q),
+           static_cast<const unsigned char*>(k),
+           static_cast<const unsigned char*>(v),
+           static_cast<const float*>(ks),
+           static_cast<const float*>(vs),
+           static_cast<const int*>(table),
+           static_cast<const int*>(kv_len),
+           static_cast<__nv_bfloat16*>(out),
+           static_cast<float*>(part_out),
+           static_cast<float*>(part_lse),
+           B, Hk, R, chunk, S, page, max_pages, qscale, clamp2, clamped, window, softcap};
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (kv_type) {
+    case fatt::kBf16:
+      return launch_kv<fatt::kBf16, kLocal>(p, D, num_splits, st);
+    case fatt::kInt8:
+      return launch_kv<fatt::kInt8, kLocal>(p, D, num_splits, st);
+    case fatt::kFp8:
+      return launch_kv<fatt::kFp8, kLocal>(p, D, num_splits, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -405,32 +484,22 @@ extern "C" int fatt_chunk_attn(const void* q, const void* k, const void* v, cons
                                int R, int chunk, int S, int page, int max_pages, int D,
                                int kv_type, int num_splits, float qscale, int clamped,
                                float clamp2, void* stream) {
-  const bool paged = table != nullptr;
-  if ((D != 64 && D != 128) || R < 1 || chunk < 1 || R % chunk != 0 || num_splits < 1 ||
-      num_splits > 65535 || B < 1 || Hk < 1 || (int64_t)B * Hk > 65535 ||
-      (paged ? (page < kBK || page % kBK != 0 || max_pages < 1) : S < 1) ||
-      (kv_type != fatt::kBf16 && (ks == nullptr || vs == nullptr)))
-    return (int)cudaErrorInvalidValue;
-  Params p{static_cast<const __nv_bfloat16*>(q),
-           static_cast<const unsigned char*>(k),
-           static_cast<const unsigned char*>(v),
-           static_cast<const float*>(ks),
-           static_cast<const float*>(vs),
-           static_cast<const int*>(table),
-           static_cast<const int*>(kv_len),
-           static_cast<__nv_bfloat16*>(out),
-           static_cast<float*>(part_out),
-           static_cast<float*>(part_lse),
-           B, Hk, R, chunk, S, page, max_pages, qscale, clamp2, clamped};
-  auto st = static_cast<cudaStream_t>(stream);
-  switch (kv_type) {
-    case fatt::kBf16:
-      return launch_kv<fatt::kBf16>(p, D, num_splits, st);
-    case fatt::kInt8:
-      return launch_kv<fatt::kInt8>(p, D, num_splits, st);
-    case fatt::kFp8:
-      return launch_kv<fatt::kFp8>(p, D, num_splits, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return chunk_attn<false>(q, k, v, ks, vs, table, kv_len, out, part_out, part_lse, B, Hk, R,
+                           chunk, S, page, max_pages, D, kv_type, num_splits, qscale, clamped,
+                           clamp2, 0, 0.f, stream);
+}
+
+// fatt_chunk_attn's arguments and, before the stream, window (0 or the
+// positions below its limit each row sees) and softcap (0 or the cap in
+// the scores' units, base 2 when clamped): the kLocal instances.
+extern "C" int fatt_chunk_attn_local(const void* q, const void* k, const void* v,
+                                     const void* ks, const void* vs, const void* table,
+                                     const void* kv_len, void* out, void* part_out,
+                                     void* part_lse, int B, int Hk, int R, int chunk, int S,
+                                     int page, int max_pages, int D, int kv_type,
+                                     int num_splits, float qscale, int clamped, float clamp2,
+                                     int window, float softcap, void* stream) {
+  return chunk_attn<true>(q, k, v, ks, vs, table, kv_len, out, part_out, part_lse, B, Hk, R,
+                          chunk, S, page, max_pages, D, kv_type, num_splits, qscale, clamped,
+                          clamp2, window, softcap, stream);
 }

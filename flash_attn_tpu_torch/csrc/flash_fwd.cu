@@ -1,8 +1,9 @@
 // K4: FlashAttention-2 forward, BSHD bf16, head_dim 64, 128 or 256, causal
 // (bottom-right) GQA prefill with q-side RoPE applied in the kernel,
 // "clamped" or "online" softmax, fp32 LSE, an optional sliding window and
-// logit softcap (Gemma-2), optional segment ids and positions (the
-// packed and chunked prefill's masks; head_dim 64 or 128, no window), and
+// logit softcap (Gemma-2, Mistral), optional segment ids and positions (the
+// packed and chunked prefill's masks; head_dim 64 or 128, with a window or
+// softcap at 128), and
 // an optional additive fp32 bias and counter-based dropout (the C ABI's
 // attn_mask and dropout; head_dim 64 or 128, with or without the masks).
 //
@@ -98,6 +99,22 @@
 //     JAX;
 //   * the q tiles keep the causal order (last first): in a chunk over a
 //     cache and within a packed prompt the later tiles see the most keys.
+//
+// Masks with a window or a softcap (kMeta and kLocal: one head_dim 128
+// instance, the packed and chunked prefill of a windowed Llama such as
+// Mistral-7B).  With positions the window compares them, not the indices
+// (flash_fwd.py:320-333): kv position >= q position - left (<= q position +
+// right), which keeps the window per prompt in a packed row and at start + i
+// in a chunk over a cache.  So the index-based tile range of the kLocal
+// instances is not used here: the live list bounds the walk, and its tile
+// test also drops a tile whose greatest position lies below the q tile's
+// least position - left (or whose least lies above its greatest + right);
+// a tile is live throughout only if, besides the test above, its least
+// position is >= the q tile's greatest - left (and its greatest <= the
+// least + right).  Ranges only have to be conservative, so the list still
+// never drops a live tile.  The element mask adds the window on the
+// positions; the softcap is the kLocal one.  The wrapper refuses a window
+// with segment ids but no positions (a window on indices there).
 //
 // Head dim 64 (GPT-2; the kD = 64 instances, with and without masks): a
 // bf16 row is 128 bytes, one swizzle atom, so a K/V tile is one 64-column
@@ -291,7 +308,7 @@ __global__ void __launch_bounds__(kThreads, kD == 64 ? (kExtra ? 3 : 4) : kD == 
   int kv_end = Sk;
   if (causal) kv_end = min(kv_end, row_last + shift + 1);
   int kv_begin = 0;
-  if constexpr (kLocal) {
+  if constexpr (kLocal && !kMeta) {  // kMeta: the window on positions, in the list
     if (wright >= 0) kv_end = min(kv_end, row_last + shift + wright + 1);
     if (wleft >= 0) kv_begin = max(0, row0 + shift - wleft);
   }
@@ -311,7 +328,18 @@ __global__ void __launch_bounds__(kThreads, kD == 64 ? (kExtra ? 3 : 4) : kD == 
       if (t < n_tiles) {
         const int4 kr = krange[(int64_t)b * nk + t];
         live = kr.z >= qr.x && kr.x <= qr.z && kr.y <= qr.w;
-        if (qr.x == qr.z && kr.x == kr.z && kr.x == qr.x && kr.w <= qr.y) entry |= kFullBit;
+        bool full = qr.x == qr.z && kr.x == kr.z && kr.x == qr.x && kr.w <= qr.y;
+        if constexpr (kLocal) {  // the window on positions
+          if (wleft >= 0) {
+            live = live && kr.w >= qr.y - wleft;
+            full = full && kr.y >= qr.w - wleft;
+          }
+          if (wright >= 0) {
+            live = live && kr.y <= qr.w + wright;
+            full = full && kr.w <= qr.y + wright;
+          }
+        }
+        if (full) entry |= kFullBit;
       }
       const unsigned m = __ballot_sync(0xffffffffu, live);
       if (lane == 0) warp_live[warp] = __popc(m);
@@ -573,7 +601,7 @@ __global__ void __launch_bounds__(kThreads, kD == 64 ? (kExtra ? 3 : 4) : kD == 
     // Sk's edge crosses the tile, or, with masks, where the list does not
     // say the tile is live throughout.
     bool edge = k0 + kBK > Sk || (causal && k0 + kBK - 1 > wrow0 + shift);
-    if constexpr (kLocal) {
+    if constexpr (kLocal && !kMeta) {
       if (wright >= 0) edge = edge || k0 + kBK - 1 > wrow0 + shift + wright;
       if (wleft >= 0) edge = edge || k0 < wrow0 + 15 + shift - wleft;
     }
@@ -591,12 +619,15 @@ __global__ void __launch_bounds__(kThreads, kD == 64 ? (kExtra ? 3 : 4) : kD == 
           const int col = k0 + j * 8 + (lane & 3) * 2 + (e & 1);
           const int row = my_row + (e >> 1) * 8;
           bool dead = col >= Sk || (causal && col > row + shift);
-          if constexpr (kLocal)
+          if constexpr (kLocal && !kMeta)
             dead = dead || (wleft >= 0 && col < row + shift - wleft) ||
                    (wright >= 0 && col > row + shift + wright);
           if constexpr (kMeta) {
             const int kseg = (e & 1) ? km.z : km.x, kpos = (e & 1) ? km.w : km.y;
             dead = dead || kseg != qm[e >> 1].x || kpos > qm[e >> 1].y;
+            if constexpr (kLocal)
+              dead = dead || (wleft >= 0 && kpos < qm[e >> 1].y - wleft) ||
+                     (wright >= 0 && kpos > qm[e >> 1].y + wright);
           }
           if (dead) s[j][e] = kNegInf;
         }
@@ -791,7 +822,8 @@ auto surface_launch(bool probs) {
 // that head 0's blocks add their live and unmasked key tiles to.
 // window_left / window_right: the window's sides (-1 open); softcap2: the
 // logit softcap in base-2 units (cap * log2 e), 0 for none; both at
-// head_dim 128 and 256, without masks.  Masks at head_dim 64 and 128.
+// head_dim 128 and 256 without masks, at 128 with them (the window then
+// compares the positions).  Masks at head_dim 64 and 128.
 // bias: null, or fp32 in natural units, element (b, h, i, j) at
 // b bs_b + h bs_h + i bs_q + j bs_k (0 on a broadcast axis).  dropout:
 // 0, or 1 with the seed's 32 bits, the keep threshold and keep_div =
@@ -820,7 +852,7 @@ extern "C" int fatt_flash_fwd(const void* q, const void* k, const void* v,
   const bool extra = bias != nullptr || dropout != 0 || surface;
   // With masks a block lists at most kMaxListTiles key tiles.
   if (bad_shape(B, Sq, H, Hk, D) || window_left < -1 || window_right < -1 ||
-      !(softcap2 >= 0.f) || (local && (D == 64 || given != 0 || extra)) ||
+      !(softcap2 >= 0.f) || (local && (D == 64 || (given != 0 && D != 128) || extra)) ||
       (extra && (D == 256 || !(keep_div > 0.f))) || (vflag != nullptr && !clamped) ||
       (pmax != nullptr && probs == nullptr) ||
       (given != 0 && (given != 4 || D == 256 || (Sk + kBK - 1) / kBK > kMaxListTiles)))
@@ -839,7 +871,8 @@ extern "C" int fatt_flash_fwd(const void* q, const void* k, const void* v,
                                        : surface_launch<128, false>(probs != nullptr))
             : extra      ? (given != 0 ? launch<128, true, false, true>
                                        : launch<128, false, false, true>)
-            : given != 0 ? launch<128, true, false, false>
+            : given != 0 ? (local ? launch<128, true, true, false>
+                                  : launch<128, true, false, false>)
             : local      ? launch<128, false, true, false>
                          : launch<128, false, false, false>;
   return fn(q, k, v, cosv, sinv, out, lse, qmeta, kmeta, qrange, krange, tile_count, B, Sq,

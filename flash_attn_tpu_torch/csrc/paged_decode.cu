@@ -52,11 +52,28 @@
 // with log2(e) folded into the q pre-scale); online mode keeps natural
 // units.  A row with no visible key writes out 0 and lse -1e30.
 //
+// The sliding window and the logit softcap (Mistral, Gemma-2) are built
+// into instances of their own (kLocal, entry fatt_paged_decode_local), so
+// the instances without them keep their code
+// (flash_attn_tpu/ops/paged_decode.py:150-160, 224-226, 362-374):
+//   * the query sees positions [kv_len - window, kv_len); the walk starts at
+//     the tile that holds kv_len - window, floor(max(0, kv_len - window) /
+//     64) * 64, and the splits cut that walk, so no page below the window is
+//     read.  A split the window leaves empty still writes its partial (out
+//     0, lse -1e30) and arrives, so the arrival counter counts every split;
+//   * a warp's 16 keys are masked where the window's edge or kv_len crosses
+//     them;
+//   * the softcap, s = c * tanh(s / c) on the scores after the K scale and
+//     before the mask, c in the scores' units (base 2 when clamped), on
+//     fatt::tanh_exp2 as K4's.
+//
 // Head dim 64 (GPT-2) or 128, a template parameter.  At 64 a thread's K
 // fragments are one 16-byte chunk of its key row (1-byte pages) and V's
 // pairing reads 8 columns of four key rows, so logical column 8n + c is
 // column 8c + n (kD / 8 c + n in general); 64 of the 128 threads merge
 // the four warps' columns.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -105,6 +122,20 @@ struct Params {
   float qscale, clamp2;
   int clamped;
 };
+
+// The kLocal instances' parameters.  The other instances keep Params as it
+// was: with the two fields added to it (136 bytes of kernel parameters
+// instead of 128) they ran 5-11 % slower, 0.0216-0.0220 ms against
+// 0.0200-0.0201 at phase 2's bf16 point (chip_tools/k8_probe.py turns
+// against the parent's source and a copy of it with the fields added;
+// NVIDIA H100 80GB HBM3, 700 W).
+struct LocalParams : Params {
+  int window;     // 0 or the positions below kv_len the query sees
+  float softcap;  // 0 or the cap in the scores' units
+};
+
+template <bool kLocal>
+using ParamsOf = std::conditional_t<kLocal, LocalParams, Params>;
 
 // Stored position of 16-byte chunk c of ring row r: the K reads (a quarter
 // warp takes two consecutive rows at four chunks) and the V reads (four
@@ -162,8 +193,8 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <int KV, int kD>
-__global__ void __launch_bounds__(kThreads) paged_decode_kernel(const Params p) {
+template <int KV, int kD, bool kLocal>
+__global__ void __launch_bounds__(kThreads) paged_decode_kernel(const ParamsOf<kLocal> p) {
   using L = Ring<KV, kD>;
   constexpr int kOLd = L::kOLd;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -184,13 +215,22 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(const Params p) 
 
   // The split's tiles of the live walk, never past the table's reach.
   const int walk_end = max(0, min(p.kv_len[b], p.max_pages * p.page));
-  const int n_live = (walk_end + kBK - 1) / kBK;
+  // kLocal with a window: the walk starts t_begin tiles in, at the tile that
+  // holds kv_len - window, and the keys below walk_lo are masked
+  int walk_lo = 0, t_begin = 0;
+  if constexpr (kLocal) {
+    if (p.window > 0) {
+      walk_lo = p.kv_len[b] - p.window;
+      t_begin = min(max(0, walk_lo), walk_end) / kBK;
+    }
+  }
+  const int n_live = (walk_end + kBK - 1) / kBK - t_begin;
   const int per = (n_live + nsplit - 1) / nsplit;
   const int t_lo = split * per;
   const int n_tiles = max(0, min(per, n_live - t_lo));
 
   auto page_of = [&](int i) {  // i: a tile of the split, in increasing order
-    const int j = (t_lo + i) * kBK / p.page;
+    const int j = (t_begin + t_lo + i) * kBK / p.page;
     if (j - pids_from >= 32) {
       pids_from = j & ~31;
       pids = pids_from + lane < p.max_pages ? trow[pids_from + lane] : 0;
@@ -201,7 +241,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(const Params p) 
   // This warp's 16 keys of tile i into its ring stage i % kStages.
   auto load_tile = [&](int i) {
     const uint32_t st = ring_s + (i % L::kStages) * L::kStageBytes;
-    const int k0 = (t_lo + i) * kBK;
+    const int k0 = (t_begin + t_lo + i) * kBK;
     const int pid = page_of(i);
     const int key0 = k0 + warp * kWK;
     const int64_t row0 = ((int64_t)pid * p.Hk + hk) * p.page + key0 % p.page;
@@ -294,7 +334,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(const Params p) 
         }
       }
     }
-    const int key0 = (t_lo + t) * kBK + warp * kWK;
+    const int key0 = (t_begin + t_lo + t) * kBK + warp * kWK;
     const float* ksc = reinterpret_cast<const float*>(vt + L::kSliceBytes);
     const float* vsc = ksc + kWK;
     if constexpr (L::kRaw) {
@@ -307,7 +347,25 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(const Params p) 
         s[j][3] *= sc.y;
       }
     }
-    if (key0 + kWK > walk_end) {
+    if constexpr (kLocal) {
+      if (p.softcap > 0.f) {
+        const float inv_cap = 1.f / p.softcap;
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[j][e] = p.softcap * fatt::tanh_exp2(s[j][e] * inv_cap);
+      }
+      if (key0 + kWK > walk_end || key0 < walk_lo) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = key0 + 8 * j + 2 * q4 + (e & 1);
+            if (key >= walk_end || key < walk_lo) s[j][e] = kNegInf;
+          }
+      }
+    } else if (key0 + kWK > walk_end) {
 #pragma unroll
       for (int j = 0; j < 2; ++j)
 #pragma unroll
@@ -479,9 +537,9 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(const Params p) 
   if (tid == 0) p.arrivals[bh] = 0;
 }
 
-template <int KV, int kD>
-int launch_d(const Params& p, int nsplit, cudaStream_t st) {
-  auto kernel = paged_decode_kernel<KV, kD>;
+template <int KV, int kD, bool kLocal>
+int launch_d(const ParamsOf<kLocal>& p, int nsplit, cudaStream_t st) {
+  auto kernel = paged_decode_kernel<KV, kD, kLocal>;
   static fatt::SmemLimitSet smem_set;  // one for each instance
   constexpr int kBytes = Ring<KV, kD>::kBytes;
   cudaError_t e = fatt::smem_limit_once(kernel, kBytes, smem_set);
@@ -491,9 +549,55 @@ int launch_d(const Params& p, int nsplit, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-template <int KV>
-int launch(const Params& p, int D, int nsplit, cudaStream_t st) {
-  return D == 64 ? launch_d<KV, 64>(p, nsplit, st) : launch_d<KV, 128>(p, nsplit, st);
+template <int KV, bool kLocal>
+int launch(const ParamsOf<kLocal>& p, int D, int nsplit, cudaStream_t st) {
+  return D == 64 ? launch_d<KV, 64, kLocal>(p, nsplit, st)
+                 : launch_d<KV, 128, kLocal>(p, nsplit, st);
+}
+
+template <bool kLocal>
+int paged_decode(const void* q, const void* k, const void* v, const void* ks, const void* vs,
+                 const void* table, const void* kv_len, void* out, void* lse, void* part_out,
+                 void* part_lse, void* arrivals, int B, int Hk, int R, int page, int max_pages,
+                 int D, int kv_type, int num_splits, float qscale, int clamped, float clamp2,
+                 int window, float softcap, void* stream) {
+  if ((D != 64 && D != 128) || R < 1 || R > kRows || page < kBK || page % kBK != 0 || max_pages < 1 ||
+      B < 1 || Hk < 1 || (int64_t)B * Hk > 0x7fffffff || num_splits < 1 ||
+      num_splits > 65535 ||
+      (num_splits > 1 && (part_out == nullptr || part_lse == nullptr || arrivals == nullptr)) ||
+      (kv_type != fatt::kBf16 && (ks == nullptr || vs == nullptr)) || window < 0 ||
+      !(softcap >= 0.f))
+    return (int)cudaErrorInvalidValue;
+  Params p{static_cast<const __nv_bfloat16*>(q),
+           static_cast<const unsigned char*>(k),
+           static_cast<const unsigned char*>(v),
+           static_cast<const float*>(ks),
+           static_cast<const float*>(vs),
+           static_cast<const int*>(table),
+           static_cast<const int*>(kv_len),
+           static_cast<__nv_bfloat16*>(out),
+           static_cast<float*>(lse),
+           static_cast<float*>(part_out),
+           static_cast<float*>(part_lse),
+           static_cast<int*>(arrivals),
+           B, Hk, R, page, max_pages, qscale, clamp2, clamped};
+  ParamsOf<kLocal> pk;
+  static_cast<Params&>(pk) = p;
+  if constexpr (kLocal) {
+    pk.window = window;
+    pk.softcap = softcap;
+  }
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (kv_type) {
+    case fatt::kBf16:
+      return launch<fatt::kBf16, kLocal>(pk, D, num_splits, st);
+    case fatt::kInt8:
+      return launch<fatt::kInt8, kLocal>(pk, D, num_splits, st);
+    case fatt::kFp8:
+      return launch<fatt::kFp8, kLocal>(pk, D, num_splits, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -511,34 +615,22 @@ extern "C" int fatt_paged_decode(const void* q, const void* k, const void* v,
                                  void* part_lse, void* arrivals, int B, int Hk, int R,
                                  int page, int max_pages, int D, int kv_type, int num_splits,
                                  float qscale, int clamped, float clamp2, void* stream) {
-  if ((D != 64 && D != 128) || R < 1 || R > kRows || page < kBK || page % kBK != 0 || max_pages < 1 ||
-      B < 1 || Hk < 1 || (int64_t)B * Hk > 0x7fffffff || num_splits < 1 ||
-      num_splits > 65535 ||
-      (num_splits > 1 && (part_out == nullptr || part_lse == nullptr || arrivals == nullptr)) ||
-      (kv_type != fatt::kBf16 && (ks == nullptr || vs == nullptr)))
-    return (int)cudaErrorInvalidValue;
-  Params p{static_cast<const __nv_bfloat16*>(q),
-           static_cast<const unsigned char*>(k),
-           static_cast<const unsigned char*>(v),
-           static_cast<const float*>(ks),
-           static_cast<const float*>(vs),
-           static_cast<const int*>(table),
-           static_cast<const int*>(kv_len),
-           static_cast<__nv_bfloat16*>(out),
-           static_cast<float*>(lse),
-           static_cast<float*>(part_out),
-           static_cast<float*>(part_lse),
-           static_cast<int*>(arrivals),
-           B, Hk, R, page, max_pages, qscale, clamp2, clamped};
-  auto st = static_cast<cudaStream_t>(stream);
-  switch (kv_type) {
-    case fatt::kBf16:
-      return launch<fatt::kBf16>(p, D, num_splits, st);
-    case fatt::kInt8:
-      return launch<fatt::kInt8>(p, D, num_splits, st);
-    case fatt::kFp8:
-      return launch<fatt::kFp8>(p, D, num_splits, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return paged_decode<false>(q, k, v, ks, vs, table, kv_len, out, lse, part_out, part_lse,
+                             arrivals, B, Hk, R, page, max_pages, D, kv_type, num_splits,
+                             qscale, clamped, clamp2, 0, 0.f, stream);
+}
+
+// fatt_paged_decode's arguments and, before the stream, window (0 or the
+// positions below kv_len the query sees) and softcap (0 or the cap in the
+// scores' units, base 2 when clamped): the kLocal instances.
+extern "C" int fatt_paged_decode_local(const void* q, const void* k, const void* v,
+                                       const void* ks, const void* vs, const void* table,
+                                       const void* kv_len, void* out, void* lse,
+                                       void* part_out, void* part_lse, void* arrivals, int B,
+                                       int Hk, int R, int page, int max_pages, int D,
+                                       int kv_type, int num_splits, float qscale, int clamped,
+                                       float clamp2, int window, float softcap, void* stream) {
+  return paged_decode<true>(q, k, v, ks, vs, table, kv_len, out, lse, part_out, part_lse,
+                            arrivals, B, Hk, R, page, max_pages, D, kv_type, num_splits,
+                            qscale, clamped, clamp2, window, softcap, stream);
 }

@@ -45,8 +45,10 @@ from flash_attn_tpu_torch.ops.paged_decode import paged_flash_decode_cuda
 # every launch counter of the wrappers a body may reach
 _COUNTERS = (
     (flash_decode_cuda, ("launches", "chunk_launches", "bshd_launches", "window_launches",
-                         "d256_launches", "d64_launches", "view_launches")),
-    (paged_flash_decode_cuda, ("launches", "chunk_launches", "merges", "d64_launches")),
+                         "d256_launches", "d64_launches", "view_launches",
+                         "chunk_local_launches")),
+    (paged_flash_decode_cuda, ("launches", "chunk_launches", "merges", "d64_launches",
+                               "local_launches", "chunk_local_launches")),
     (kv_append_cuda, ("launches",)),
     (lse_merge_cuda, ("launches",)),
     (flash_fwd_cuda, ("launches", "d256_launches", "d64_launches", "window_launches",

@@ -20,12 +20,16 @@ top level tok_emb, final_norm, lm_head.  A weight is any kind that
 ``ops/matmul.quantized_matmul`` takes; with ``qkv_bias`` (Qwen-2) wq, wk
 and wv are ``BiasedWeight``s whose bias stays float.
 
-``sliding_window`` and ``attn_logit_softcap`` are honored where the
-kernels take them: ``forward`` and ``prefill_with_kv`` (K4, and K9 + K10
-in the backward) and ``decode_step`` (K1 in decode mode).  The packed,
-chunked, verify and paged paths raise ``NotImplementedError`` on either
-before any launch: their kernels (K4 with masks, K1c, K8, K8c) take
-neither.
+``sliding_window`` (Mistral-7B's layout) and ``attn_logit_softcap`` are
+honored on every serving path, as JAX's model passes them: ``forward``
+and ``prefill_with_kv`` (K4, and K9 + K10 in the backward),
+``prefill_chunk`` and ``prefill_packed`` (K4 with positions, the window
+compared on them), ``decode_step`` (K1), ``decode_multi`` (K1c),
+``decode_step_paged`` (K8) and ``prefill_suffix_paged`` (K8c), each
+through its kernel's kLocal instances.  ``forward`` with ``segment_ids``
+raises ``NotImplementedError`` on either before any launch (K9 and K10
+take no window with segment ids), and so does ``decode_step_sharded``,
+whose JAX counterpart passes neither option and so attends globally.
 
 The serving paths also take ``mlp``, the layer's MLP (default the SwiGLU
 ``_block_mlp``): ``models/mixtral.py`` runs them with its routed experts.
@@ -327,8 +331,8 @@ def _wnd(cfg):
 
 
 def _refuse_local(cfg, path: str):
-    """Raise before any launch when ``path``'s kernels cannot honor the
-    window or the softcap (``ROADMAP.md`` queue B item 3)."""
+    """Raise before any launch when ``path`` cannot honor the window or the
+    softcap (``ROADMAP.md`` queue B)."""
     for name in ("sliding_window", "attn_logit_softcap"):
         if getattr(cfg, name) is not None:
             raise NotImplementedError(f"{path} with {name} is not ported yet")
@@ -427,10 +431,10 @@ def prefill_chunk(params, tokens, cfg: LlamaConfig, cache: KVCache, slot: int,
     ``slot``.  Per layer the chunk's K/V is written into the cache at
     ``start`` (``insert_at``), then its queries attend to the slot's whole
     dequantized cache through K4 with positions (q at start + i, the cache
-    at its index; no causal flag), clamped, q rotated in the kernel: K4
-    skips the key tiles past the chunk, so the cache is not sliced.
+    at its index; no causal flag), clamped, q rotated in the kernel, with
+    the window (on the positions) and the softcap: K4 skips the key tiles
+    past the chunk and below the window, so the cache is not sliced.
     Returns (logits [1, C, V] fp32, cache), the cache updated in place."""
-    _refuse_local(cfg, "prefill_chunk")
     b, c = tokens.shape
     dev = tokens.device
     x = params["tok_emb"][tokens]
@@ -444,8 +448,9 @@ def prefill_chunk(params, tokens, cfg: LlamaConfig, cache: KVCache, slot: int,
         cache.insert_at(i, slot, k[0], v[0], start)
         kc, vc = cache.slot_kv_float(i, slot, dtype=x.dtype)
         attn = flash_attention(q.contiguous(), kc, vc, q_positions=qpos,
-                               kv_positions=kvpos, rope_cos=cos, rope_sin=sin,
-                               softmax_mode="clamped")
+                               kv_positions=kvpos, window=_wnd(cfg),
+                               logit_softcap=cfg.attn_logit_softcap, rope_cos=cos,
+                               rope_sin=sin, softmax_mode="clamped")
         x = x + _proj(attn.reshape(b, c, cfg.num_heads * cfg.head_dim), blk["wo"])
         x = _block_mlp(x, blk, cfg)
     x = _rms_norm(x, params["final_norm"], cfg.rms_eps)
@@ -458,9 +463,9 @@ def prefill_packed(params, tokens, positions, segment_ids, cfg: LlamaConfig, *,
     [1, T] row, ``positions`` restarting at 0 a prompt (RoPE's positions
     too) and ``segment_ids`` 1, 2, ... a prompt (0 padding).  Attention is
     K4 with segment ids and positions (per-prompt causality; no causal
-    flag), clamped, q rotated in the kernel.  Returns (logits [1, T, V]
-    fp32, per-layer list of rotated (k, v) [1, T, Hk, D])."""
-    _refuse_local(cfg, "prefill_packed")
+    flag), clamped, q rotated in the kernel, with the window (per prompt,
+    on the positions) and the softcap.  Returns (logits [1, T, V] fp32,
+    per-layer list of rotated (k, v) [1, T, Hk, D])."""
     b, t = tokens.shape
     x = params["tok_emb"][tokens]
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
@@ -470,7 +475,8 @@ def prefill_packed(params, tokens, positions, segment_ids, cfg: LlamaConfig, *,
         q, k, v = _qkv(h, blk, cfg, b, t)
         k = rope_rotate(k, cos, sin)
         kvs.append((k, v))
-        attn = flash_attention(q.contiguous(), k, v.contiguous(),
+        attn = flash_attention(q.contiguous(), k, v.contiguous(), window=_wnd(cfg),
+                               logit_softcap=cfg.attn_logit_softcap,
                                q_segment_ids=segment_ids, kv_segment_ids=segment_ids,
                                q_positions=positions, kv_positions=positions,
                                rope_cos=cos, rope_sin=sin, softmax_mode="clamped")
@@ -511,8 +517,10 @@ def decode_step_sharded(params, token, cfg: LlamaConfig, cache: KVCache, mesh, *
     shard's splits (``parallel/sharded_decode.py``).  No length is read
     back to the host, so the step captures as ``decode_step`` does.
     Raises ``NotImplementedError`` when the axis's ranks are not all on
-    the cache's device, ``ValueError`` when the capacity does not divide
-    by them; both before any launch."""
+    the cache's device or the config has a window or a softcap (JAX's
+    sharded step passes neither, so its windowed model attends globally
+    there), ``ValueError`` when the capacity does not divide by them; all
+    before any launch."""
     from flash_attn_tpu_torch.parallel.sharded_decode import (
         check_kv_mesh,
         make_sharded_decode,
@@ -558,9 +566,9 @@ def decode_multi(params, tokens, cfg: LlamaConfig, cache: KVCache, *, mlp=_block
     verify step: tokens [B, T] -> (logits [B, T, V] fp32, cache).  Per
     layer the chunk's K/V is appended at ``length`` first, then its T
     queries attend to the cache through K1c, the chunk kernel (one cache
-    sweep, causal within the chunk); ``length`` advances by T after the
-    last layer.  The cache is updated in place."""
-    _refuse_local(cfg, "decode_multi")
+    sweep, causal within the chunk; each row's window ends at its own
+    limit); ``length`` advances by T after the last layer.  The cache is
+    updated in place."""
     b, t = tokens.shape
     x = params["tok_emb"][tokens]  # [B, T, hidden]
     pos = cache.length[:, None] + torch.arange(t, device=tokens.device)[None]
@@ -574,7 +582,9 @@ def decode_multi(params, tokens, cfg: LlamaConfig, cache: KVCache, *, mlp=_block
         cache.append(i, k, v)
         kc, vc, ks, vs = cache.layer(i)
         attn = flash_decode_chunk(q, kc, vc, k_scale=ks, v_scale=vs,
-                                  kv_length=kv_length, kv_layout="bhsd")
+                                  kv_length=kv_length, kv_layout="bhsd",
+                                  window=cfg.sliding_window,
+                                  logit_softcap=cfg.attn_logit_softcap)
         x = x + _proj(attn.reshape(b, t, cfg.num_heads * cfg.head_dim), blk["wo"])
         x = mlp(x, blk, cfg)
     cache.advance(t)
@@ -586,10 +596,9 @@ def decode_step_paged(params, token, cfg: LlamaConfig, pool: PagedKVPool, *,
                       mlp=_block_mlp):
     """One decode step for every slot against a paged pool: token [B] ->
     (logits [B, V] fp32, pool).  Per layer the token's K/V is appended at
-    ``length``, then attention (K8, decode mode) sees ``length + 1``
-    positions; ``length`` advances once after the last layer.  The pool
-    is updated in place."""
-    _refuse_local(cfg, "decode_step_paged")
+    ``length``, then attention (K8, decode mode, with the window and the
+    softcap) sees ``length + 1`` positions; ``length`` advances once after
+    the last layer.  The pool is updated in place."""
     b = token.shape[0]
     x = params["tok_emb"][token][:, None, :]
     cos, sin = rope_cos_sin(pool.length[:, None], cfg.head_dim, cfg.rope_theta)
@@ -601,7 +610,8 @@ def decode_step_paged(params, token, cfg: LlamaConfig, pool: PagedKVPool, *,
         k = rope_rotate(k, cos, sin)
         pool.append_token(i, k[:, 0], v[:, 0])
         attn = paged_decode_attention(pool, i, q[:, 0].contiguous(),
-                                      kv_length=kv_length)
+                                      kv_length=kv_length, window=cfg.sliding_window,
+                                      logit_softcap=cfg.attn_logit_softcap)
         x = x + _proj(attn.reshape(b, 1, cfg.num_heads * cfg.head_dim), blk["wo"])
         x = mlp(x, blk, cfg)
     pool.advance(1)
@@ -615,11 +625,10 @@ def prefill_suffix_paged(params, tokens, cfg: LlamaConfig, pool: PagedKVPool,
     start + C) of ``slot``, whose positions [0, start) are already in its
     pages.  Each ``sub_chunk``-token piece goes through every layer before
     the next: per layer its K/V is appended to the pool, then its queries
-    attend to the slot's pages through K8c, the chunk kernel, so the prefix
-    KV streams from its pages and is never recomputed.  The pieces set M in
-    every projection, as in the JAX model.  Returns (logits [1, C, V]
-    fp32, pool)."""
-    _refuse_local(cfg, "prefill_suffix_paged")
+    attend to the slot's pages through K8c, the chunk kernel (with the
+    window and the softcap), so the prefix KV streams from its pages and is
+    never recomputed.  The pieces set M in every projection, as in the JAX
+    model.  Returns (logits [1, C, V] fp32, pool)."""
     b, c = tokens.shape
     table = pool.block_table[slot:slot + 1]
     parts = []
@@ -640,7 +649,8 @@ def prefill_suffix_paged(params, tokens, cfg: LlamaConfig, pool: PagedKVPool,
             attn = paged_flash_decode_chunk(
                 q, pool.k_pages[i], pool.v_pages[i], table, kv_len,
                 k_scale=None if pool.k_scale is None else pool.k_scale[i],
-                v_scale=None if pool.v_scale is None else pool.v_scale[i])
+                v_scale=None if pool.v_scale is None else pool.v_scale[i],
+                window=cfg.sliding_window, logit_softcap=cfg.attn_logit_softcap)
             x = x + _proj(attn.reshape(b, cc, cfg.num_heads * cfg.head_dim), blk["wo"])
             x = _block_mlp(x, blk, cfg)
         x = _rms_norm(x, params["final_norm"], cfg.rms_eps)

@@ -10,9 +10,10 @@ Port of flash_attn_tpu/models/mixtral.py: the configs, ``init_params``
 ``decode_step_paged``, ``make_cache``, ``make_adapter``,
 ``stack_experts``, ``quantize_weights`` and ``convert_hf_model``.  The
 attention and the head are ``models/llama.py``'s paths, run with
-``_moe_mlp`` as the layer's MLP; the sliding window is honored where
-Llama's paths honor it (``forward``, ``prefill_with_kv``,
-``decode_step``) and refused on the others.
+``_moe_mlp`` as the layer's MLP; the sliding window is honored on every
+serving path, as Llama's paths honor it (``prefill_with_kv``,
+``prefill_packed``, ``decode_step``, ``decode_multi``,
+``decode_step_paged``), and by ``forward`` except with ``segment_ids``.
 
 Params per block: attn_norm, wq/wk/wv/wo, mlp_norm, router [H, E] and
 experts, a list of {w_gate, w_up, w_down} dicts (any weight kind of

@@ -24,12 +24,14 @@ KV head; it splits the live walk, not the capacity (``split_bounds``).  The
 TPU's packed e4m3 bit-decode (E4M3_FIX, P_SHIFT*) and its scale-lane
 permutation exist only because of Mosaic and are not ported: Hopper
 converts e4m3 natively.  A sliding window (the last ``window`` positions
-below kv_length) and the Gemma-2 logit softcap (cap * tanh(s / cap) on
-the scaled scores, base 2 when clamped) run on K1 in decode mode over a
-BHSD cache, as JAX's ``_decode_kernel_bhsd`` does (decode.py:835-862); a
-windowed call splits the live walk [max(0, len - window), len), so it
-never reads the keys below the window.  The BSHD layout and chunk mode
-raise on both.  fp16 computes as bf16, as in JAX.
+below each row's limit) and the Gemma-2 logit softcap (cap * tanh(s /
+cap) on the scaled scores, base 2 when clamped) run over a BHSD cache, as
+JAX's ``_decode_kernel_bhsd`` does (decode.py:835-862, 931-940): on K1 in
+decode mode, whose windowed call splits the live walk [max(0, len -
+window), len), and on K1c's kLocal instances, whose walk starts at the
+key tile that holds the loosest chunk row's bound, max(0, len - (T - 1) -
+window); neither reads the keys below the window.  The BSHD layout raises
+on both.  fp16 computes as bf16, as in JAX.
 
 K1 also reads a shard view in place: a run of positions of a larger
 cache buffer (the sequence-sharded decode's rank shard of the engine's
@@ -119,19 +121,24 @@ def _chunk_splits(batch: int, num_heads_k: int, rows: int, reach: int, num_split
     return max(1, min(int(num_splits), -(-reach // TILE)))
 
 
-def split_bounds(nsplit: int, split_len, S: int, kv_length=None, window=None):
+def split_bounds(nsplit: int, split_len, S: int, kv_length=None, window=None, chunk: int = 1,
+                 align: int = 1):
     """Each split's key range [lo, hi) over S positions.  With ``split_len``
     (K1) split i is [i * split_len, (i + 1) * split_len), the same for
     every sequence.  With ``split_len`` None (K8, K1c, K8c, and K1 with a
-    window) it follows each sequence's live walk [w, min(kv_length, S)),
-    w = max(0, kv_length - window) (0 without a window), as the kernels cut
-    it: n = ceil(walk / TILE) tiles from w, c = ceil(n / nsplit) a split,
-    split i the tiles [i * c, (i + 1) * c); lo and hi are then [B]
-    tensors."""
+    window) it follows each sequence's live walk [w, min(kv_length, S)), as
+    the kernels cut it: w = max(0, kv_length - (chunk - 1) - window), the
+    loosest chunk row's bound, rounded down to a multiple of ``align``
+    (K1: 1; the chunk kernel and K8, whose tiles keep to pages: TILE), 0
+    without a window; n = ceil(walk / TILE) tiles from w, c = ceil(n /
+    nsplit) a split, split i the tiles [i * c, (i + 1) * c); lo and hi are
+    then [B] tensors."""
     if split_len is not None:
         return [(i * split_len, min(S, (i + 1) * split_len)) for i in range(nsplit)]
     kv = kv_length.long()
-    start = torch.zeros_like(kv) if window is None else torch.clamp(kv - window, 0, S)
+    start = torch.zeros_like(kv)
+    if window is not None:
+        start = torch.clamp(kv - (chunk - 1) - window, min=0) // align * align
     n = -(-torch.clamp(torch.clamp(kv, 0, S) - start, min=0) // TILE)
     per = -(-n // nsplit) * TILE
     return [(start + i * per, start + (i + 1) * per) for i in range(nsplit)]
@@ -148,11 +155,10 @@ def _as_bf16(x):
     return x.to(torch.bfloat16) if x is not None and x.dtype == torch.float16 else x
 
 
-def _check(k, k_scale, H, Hk, window, logit_softcap, kv_layout, chunk):
-    if (window is not None or logit_softcap is not None) and (kv_layout != "bhsd" or chunk):
-        raise NotImplementedError("window and logit_softcap are ported for single-token "
-                                  "decode over a BHSD cache (K1) only, not for the BSHD "
-                                  "layout or chunk mode")
+def _check(k, k_scale, H, Hk, window, logit_softcap, kv_layout):
+    if (window is not None or logit_softcap is not None) and kv_layout != "bhsd":
+        raise NotImplementedError("window and logit_softcap are ported over a BHSD cache "
+                                  "(K1, K1c), not for the BSHD layout")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     if logit_softcap is not None and not logit_softcap > 0:
@@ -238,7 +244,7 @@ def _decode(q, k, v, kv_length, scale, num_splits, k_scale, v_scale, kv_layout,
             softmax_mode, window, logit_softcap, merge):
     B, H, D = q.shape
     Hk, S = _heads_len(k, kv_layout)
-    _check(k, k_scale, H, Hk, window, logit_softcap, kv_layout, False)
+    _check(k, k_scale, H, Hk, window, logit_softcap, kv_layout)
     clamped = _mode(softmax_mode, k.dtype, kv_layout, logit_softcap)
     if kv_layout == "bshd":
         k_scale, v_scale = _bshd_scales(k_scale, B, S, Hk), _bshd_scales(v_scale, B, S, Hk)
@@ -262,8 +268,10 @@ def flash_decode_chunk(q, k, v, *, kv_length, scale: float | None = None,
     default, as in JAX) or "bshd".  The default softmax follows
     _default_softmax_mode (clamped for fp8) on BHSD.  BSHD chunks run
     online and only on the CPU: JAX sends them to its jnp oracle, and no
-    path of the port needs them on the card.  Returns out [B, T, H, D]
-    (+ lse [B, T, H] with return_lse)."""
+    path of the port needs them on the card.  window / logit_softcap as
+    ``flash_decode``'s, row t's window ending at its own limit (BHSD; K1c's
+    kLocal instances).  Returns out [B, T, H, D] (+ lse [B, T, H] with
+    return_lse)."""
     if torch.float16 in (q.dtype, k.dtype):
         res = flash_decode_chunk(
             _as_bf16(q), _as_bf16(k), _as_bf16(v), kv_length=kv_length,
@@ -274,7 +282,7 @@ def flash_decode_chunk(q, k, v, *, kv_length, scale: float | None = None,
         return _restore_fp16(res, q.dtype, return_lse)
     B, T, H, D = q.shape
     Hk, S = _heads_len(k, kv_layout)
-    _check(k, k_scale, H, Hk, window, logit_softcap, kv_layout, True)
+    _check(k, k_scale, H, Hk, window, logit_softcap, kv_layout)
     clamped = _mode(softmax_mode, k.dtype, kv_layout, logit_softcap)
     if kv_layout == "bshd":
         k_scale, v_scale = _bshd_scales(k_scale, B, S, Hk), _bshd_scales(v_scale, B, S, Hk)
@@ -282,7 +290,7 @@ def flash_decode_chunk(q, k, v, *, kv_length, scale: float | None = None,
     # (hk, t, g)-major virtual heads: each KV head's rows stay contiguous
     q2 = q.reshape(B, T, Hk, G, D).transpose(1, 2).reshape(B, Hk * T * G, D).contiguous()
     out, lse = _attend(q2, k, v, k_scale, v_scale, kv_length, scale, clamped,
-                       T, kv_layout, num_splits)
+                       T, kv_layout, num_splits, window, logit_softcap)
 
     def unshuffle(x):
         rest = x.shape[2:]
@@ -305,8 +313,10 @@ def _attend(q, k, v, k_scale, v_scale, kv_length, scale, clamped, chunk,
     """(out in q.dtype, lse) of q [B, Hk * R, D] rows, R = chunk * G per KV
     head in (t, g) order, through K1 or K1c on the card or their plain
     version; without ``merge`` the fp32 split partials (K1 only).  A
-    windowed K1 call plans its splits on min(window, S), a count fixed by
-    the shapes, and cuts them over each sequence's live walk."""
+    windowed call plans its splits on the walk's greatest length (K1:
+    min(window, S); K1c: the window, the chunk and a tile of alignment), a
+    count fixed by the shapes, and cuts them over each sequence's live
+    walk."""
     B, rows, D = q.shape
     Hk, S = _heads_len(k, layout)
     if scale is None:
@@ -315,7 +325,8 @@ def _attend(q, k, v, k_scale, v_scale, kv_length, scale, clamped, chunk,
         kv_length = torch.full((B,), S, dtype=torch.int32, device=q.device)
     R = rows // Hk
     if layout == "bhsd" and (chunk > 1 or R > ROWS):  # K1c
-        nsplit, split_len = _chunk_splits(B, Hk, R, S, num_splits), None
+        reach = S if window is None else min(S, window + chunk - 1 + TILE)
+        nsplit, split_len = _chunk_splits(B, Hk, R, reach, num_splits), None
     elif window is not None:  # K1 over the live walk
         nsplit, split_len = _splits(B * -(-R // ROWS), Hk, min(window, S), num_splits)[0], None
     else:
@@ -355,10 +366,11 @@ def flash_decode_plain(q, k, v, k_scale, v_scale, kv_length, scale, clamped,
     per KV head in (t, g) order), with the kernels' roundings: on BHSD the
     bf16 q pre-scale, on BSHD the scale applied to the fp32 scores; bf16
     p * v_scale before PV; fp32 throughout for fp32 q.  ``split_len`` None
-    splits the live walk as K1c and a windowed K1 do (``split_bounds``).
-    ``softcap`` caps the scores after the K scale, in the softmax's units
-    (base 2 when clamped); ``window`` keeps the last ``window`` positions
-    below each row's limit."""
+    splits the live walk as K1c and a windowed K1 do (``split_bounds``;
+    K1c's windowed walk starts on a key tile).  ``softcap`` caps the
+    scores after the K scale, in the softmax's units (base 2 when clamped);
+    ``window`` keeps the last ``window`` positions below each row's
+    limit."""
     B, rows, D = q.shape
     if layout == "bshd":
         k, v = k.transpose(1, 2), v.transpose(1, 2)
@@ -385,7 +397,8 @@ def flash_decode_plain(q, k, v, k_scale, v_scale, kv_length, scale, clamped,
     if window is not None:
         valid = valid & (pos >= limit[:, :, None] - window)
     s = torch.where(valid[:, None], s, torch.full_like(s, NEG_INF))
-    bounds = split_bounds(nsplit, split_len, S, kv_length.to(q.device), window)
+    align = TILE if layout == "bhsd" and (chunk > 1 or R > ROWS) else 1  # K1c
+    bounds = split_bounds(nsplit, split_len, S, kv_length.to(q.device), window, chunk, align)
     outs, lses = split_partials(s, v, v_scale, clamped, clamp2, bounds, cdt)
     return outs.reshape(nsplit, B, rows, D), lses.reshape(nsplit, B, rows)
 
@@ -449,20 +462,22 @@ def _view_cap(t, layout):
 def flash_decode_cuda(q, k, v, k_scale, v_scale, kv_length, scale, clamped,
                       clamp2, nsplit, split_len, chunk=1, layout="bhsd", window=None,
                       softcap=None, partials=False):
-    """Launch K1 or, for ``split_len`` None without a window, K1c.  K1
-    replaces flash_attn_tpu/ops/decode.py:_decode_kernel_bhsd in decode
-    mode (with its window and softcap; head_dim up to 256) and, on a BSHD
+    """Launch K1 or, for chunk > 1 or more than ``ROWS`` rows a KV head,
+    K1c.  K1 replaces flash_attn_tpu/ops/decode.py:_decode_kernel_bhsd in
+    decode mode (with its window and softcap; head_dim up to 256) and, on a BSHD
     cache, _decode_kernel; bound by bytes (see the source note in
     csrc/decode.cu).  A windowed K1 call takes ``split_len`` None and cuts
     each sequence's live walk in the kernel.  K1c replaces
     _decode_kernel_bhsd in chunk mode and takes BHSD decode calls with more
     than ``ROWS`` heads per KV head; bound by bytes at the verify step
-    (csrc/chunk_attn.cu).  Returns (out, lse): with one split out is [1,
-    B, rows, D] bf16 written by the kernel, else (and with ``partials``,
+    (csrc/chunk_attn.cu); a window or a softcap runs its kLocal instances
+    (``fatt_chunk_attn_local``).  Returns (out, lse): with one split out is
+    [1, B, rows, D] bf16 written by the kernel, else (and with ``partials``,
     K1 only) fp32 partials [n, B, rows, D].  K1 reads K, V and scales that
     are shard views (``_view_cap``) in place, through its view instances
     (``fatt_decode_view``), which also serve ``partials``.  Besides
     ``.launches`` it counts K1's windowed launches in ``.window_launches``,
+    K1c's kLocal ones in ``.chunk_local_launches``,
     those at head_dim 256 in ``.d256_launches``, K1's and K1c's at
     head_dim 64 in ``.d64_launches``, and K1's through its view instances
     in ``.view_launches``."""
@@ -480,9 +495,13 @@ def flash_decode_cuda(q, k, v, k_scale, v_scale, kv_length, scale, clamped,
     if layout == "bshd" and tiled:
         raise NotImplementedError(f"K1 takes a BSHD cache in decode mode, at most "
                                   f"{ROWS} heads per KV head")
-    if (window is not None or softcap is not None) and (tiled or layout == "bshd"):
-        raise NotImplementedError("K1 takes a window and a softcap in decode mode over a "
-                                  "BHSD cache only")
+    if (window is not None or softcap is not None) and layout == "bshd":
+        raise NotImplementedError("K1 and K1c take a window and a softcap over a BHSD "
+                                  "cache only")
+    local = window is not None or softcap is not None
+    if local and tiled and D not in (64, 128):
+        raise NotImplementedError("K1c takes a window and a softcap at head_dim 64 and 128; "
+                                  "above that K1 takes them in decode mode")
     live_walk = window is not None
     if (tiled or live_walk) != (split_len is None) or (tiled and D not in (64, 128)):
         raise ValueError("K1c (chunk > 1 or more than ROWS heads per KV head) and a "
@@ -524,16 +543,20 @@ def flash_decode_cuda(q, k, v, k_scale, v_scale, kv_length, scale, clamped,
     else:  # B12: scale applied to the scores
         qscale, sscale = 1.0, float(scale)
     p = _build.ptr
+    # the softcap in the scores' units: base 2 when clamped
+    cap = 0.0 if softcap is None else float(softcap * (LOG2E if clamped else 1.0))
     if tiled:
-        rc = _build.lib().fatt_chunk_attn(
-            p(q), p(k), p(v), p(k_scale), p(v_scale), None, p(kv_length), p(out),
-            p(part), p(lse), B, Hk, R, chunk, S, 0, 0, D, _KV_TYPES[k.dtype], nsplit,
-            qscale, int(clamped), float(clamp2), _build.stream())
+        args = (p(q), p(k), p(v), p(k_scale), p(v_scale), None, p(kv_length), p(out),
+                p(part), p(lse), B, Hk, R, chunk, S, 0, 0, D, _KV_TYPES[k.dtype], nsplit,
+                qscale, int(clamped), float(clamp2))
+        if local:
+            rc = _build.lib().fatt_chunk_attn_local(*args, window or 0, cap, _build.stream())
+        else:
+            rc = _build.lib().fatt_chunk_attn(*args, _build.stream())
         _build.check(rc, "fatt_chunk_attn")
         flash_decode_cuda.chunk_launches += 1
+        flash_decode_cuda.chunk_local_launches += local
     else:
-        # the softcap in the scores' units: base 2 when clamped
-        cap = 0.0 if softcap is None else float(softcap * (LOG2E if clamped else 1.0))
         args = (B, Hk, R, S, D, int(layout == "bshd"), _KV_TYPES[k.dtype], nsplit,
                 split_len or 0, qscale, sscale, int(clamped), float(clamp2), window or 0, cap,
                 _build.stream())
@@ -555,10 +578,11 @@ def flash_decode_cuda(q, k, v, k_scale, v_scale, kv_length, scale, clamped,
     return (out if part is None else part), lse
 
 
-# every launch (K1 and K1c), those of them on K1c and on a BSHD cache,
-# K1's with a window, at head_dim 256 and through the view instances, and
-# K1's and K1c's at head_dim 64
+# every launch (K1 and K1c), those of them on K1c (and on its kLocal
+# instances) and on a BSHD cache, K1's with a window, at head_dim 256 and
+# through the view instances, and K1's and K1c's at head_dim 64
 flash_decode_cuda.launches = 0
+flash_decode_cuda.chunk_local_launches = 0
 flash_decode_cuda.view_launches = 0
 flash_decode_cuda.chunk_launches = 0
 flash_decode_cuda.bshd_launches = 0

@@ -8,10 +8,10 @@ fp32 bias and reproducible dropout (the C ABI's attn_mask and dropout),
 ALiBi, ``return_softmax`` and the ``clamped_verify`` flags (head_dim 64 and
 128 on the card, with or without segment ids and positions), a sliding
 window and the Gemma-2 logit softcap (at head_dim 128 and 256 on the
-card), q-side RoPE inside the kernel, softmax_mode "online", "clamped",
-"clamped_verify" or "auto", fp32 LSE.  fp16 computes as bf16 and casts
-the output back, as JAX does.  A window or a softcap with segment ids,
-positions, a bias, dropout, ALiBi, ``return_softmax`` or
+card; with segment ids and positions at 128), q-side RoPE inside the
+kernel, softmax_mode "online", "clamped", "clamped_verify" or "auto",
+fp32 LSE.  fp16 computes as bf16 and casts the output back, as JAX does.
+A window or a softcap with a bias, dropout, ALiBi, ``return_softmax`` or
 ``clamped_verify`` raises ``NotImplementedError``, as does
 ``FlashConfig(softmax_dtype="bf16")``.
 
@@ -19,8 +19,9 @@ As on the TPU, the softmax scale and log2(e) are folded into q (rounded
 to the input dtype), q is rotated in fp32 and rounded again before QK^T,
 scores are base-2, and p is rounded to the V dtype before PV.  A (query,
 key) pair is live only where every mask given holds, as ``_apply_mask``
-composes them: causal by index, the window by index, equal segment ids,
-kv position <= q position.  The softcap is ``c * tanh(s / c)`` on the
+composes them: causal by index, the window by index (by the positions
+where they are given: flash_fwd.py:320-333), equal segment ids, kv
+position <= q position.  The softcap is ``c * tanh(s / c)`` on the
 scaled base-2 scores with c = cap * log2(e), before the mask
 (flash_fwd.py:363-367, 757-761).  The bias is added to the base-2
 scores as ``bias * log2(e)`` and clamped, ``max(s + bias, -1e30)``
@@ -313,7 +314,8 @@ def flash_fwd(q, k, v, *, bias=None, causal: bool = False, scale: float | None =
     only where kv_pos <= q_pos (per-sequence causality on a packed batch,
     or a chunk over a cache).  window (left, right): query i sees key j
     only where i + Sk - Sq - left <= j <= i + Sk - Sq + right, -1 leaving
-    a side open (bottom-right aligned, as causal is).  logit_softcap:
+    a side open (bottom-right aligned, as causal is); with positions
+    q_pos - left <= kv_pos <= q_pos + right instead.  logit_softcap:
     scores become cap * tanh(s / cap) before the masks.  alibi_slopes
     ([H]): -slope_h * |i + Sk - Sq - j| on the scores (``ops/alibi``).
     softmax_mode: as ``FlashConfig.softmax_mode``, over the config's
@@ -353,11 +355,10 @@ def flash_fwd(q, k, v, *, bias=None, causal: bool = False, scale: float | None =
     dropout = dropout_arg(dropout_rate, dropout_seed)
     alibi = alibi_arg(alibi_slopes, H, q.device)
     if (window is not None or logit_softcap is not None) and (
-            masks is not None or bias is not None or dropout is not None or alibi is not None
+            bias is not None or dropout is not None or alibi is not None
             or return_softmax or verify):
-        raise NotImplementedError("flash_fwd: a window or a softcap with segment ids, "
-                                  "positions, a bias, dropout, ALiBi, return_softmax or "
-                                  "clamped_verify is not ported yet")
+        raise NotImplementedError("flash_fwd: a window or a softcap with a bias, dropout, "
+                                  "ALiBi, return_softmax or clamped_verify is not ported yet")
     if logit_softcap is not None and not logit_softcap > 0:
         raise ValueError(f"logit_softcap must be > 0, got {logit_softcap}")
     if scale is None:
@@ -415,12 +416,16 @@ def softmax_probs(praw, pmax, lse, Sk: int):
 
 
 def live_pairs(masks: Masks | None, causal: bool, Sq: int, Sk: int, device, window=None):
-    """[B or 1, Sq, Sk] bool: the (query, key) pairs every mask leaves live."""
+    """[B or 1, Sq, Sk] bool: the (query, key) pairs every mask leaves live;
+    the window compares the positions where they are given, else the
+    bottom-right aligned indices."""
     live = torch.ones((1, Sq, Sk), dtype=torch.bool, device=device)
     rows = torch.arange(Sq, device=device)[:, None] + (Sk - Sq)
     cols = torch.arange(Sk, device=device)[None, :]
     if causal:
         live = live & (cols <= rows)
+    if window is not None and masks is not None and masks.q_positions is not None:
+        rows, cols = masks.q_positions[:, :, None], masks.kv_positions[:, None, :]
     if window is not None:
         left, right = window
         if left >= 0:
@@ -590,7 +595,9 @@ def flash_fwd_cuda(q, k, v, causal, scale, rope_cos, rope_sin, clamped, masks=No
     """Launch K4.  Replaces flash_attn_tpu/ops/flash_fwd.py:_fwd_kernel;
     bound by operations (see the source note in csrc/flash_fwd.cu).  A
     window or a softcap runs an instance of its own (kLocal) at head_dim
-    128 or 256; at 64, or with masks, it raises.  A bias or dropout runs
+    128 or 256, and with masks one at 128 (kMeta and kLocal, counted also
+    in ``.masked_local_launches``; a window there needs the positions); at
+    64 it raises.  A bias or dropout runs
     an instance of its own (kExtra) at head_dim 64 or 128, with or without
     masks; ALiBi (``alibi``: fp32 [H] slopes), ``probs`` (return_softmax)
     or ``verify`` (clamped_verify) one beside it that extends it
@@ -620,9 +627,12 @@ def flash_fwd_cuda(q, k, v, causal, scale, rope_cos, rope_sin, clamped, masks=No
     if D == 256 and (masks is not None or extra):
         raise NotImplementedError("K4 takes segment ids, positions, a bias, dropout, ALiBi, "
                                   "return_softmax and clamped_verify at head_dim 64 and 128")
-    if local and (D == 64 or masks is not None or extra):
+    if local and (D == 64 or extra):
         raise NotImplementedError("K4 takes a window and a softcap at head_dim 128 and 256, "
-                                  "without segment ids, positions, a bias or dropout")
+                                  "without a bias or dropout")
+    if window is not None and masks is not None and masks.q_positions is None:
+        raise NotImplementedError("K4 takes a window with segment ids only together with "
+                                  "positions, which the window compares")
     if verify and not clamped:
         raise ValueError("K4's clamped_verify flags come with the clamped mode")
     tensors = [q, k, v]
@@ -674,6 +684,7 @@ def flash_fwd_cuda(q, k, v, causal, scale, rope_cos, rope_sin, clamped, masks=No
     fn.d64_launches += D == 64
     fn.window_launches += window is not None
     fn.local_launches += local or D == 256
+    fn.masked_local_launches += local and masks is not None
     fn.extra_launches += extra
     fn.dropout_launches += dropout is not None
     fn.alibi_launches += alibi is not None
@@ -687,6 +698,6 @@ def flash_fwd_cuda(q, k, v, causal, scale, rope_cos, rope_sin, clamped, masks=No
 
 
 for _name in ("launches", "seg_launches", "pos_launches", "d256_launches", "d64_launches",
-              "window_launches", "local_launches", "extra_launches", "dropout_launches",
-              "alibi_launches", "probs_launches", "verify_launches"):
+              "window_launches", "local_launches", "masked_local_launches", "extra_launches",
+              "dropout_launches", "alibi_launches", "probs_launches", "verify_launches"):
     setattr(flash_fwd_cuda, _name, 0)

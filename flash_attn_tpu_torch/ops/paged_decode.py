@@ -15,8 +15,13 @@ Port of flash_attn_tpu/ops/paged_decode.py (``paged_flash_decode`` and
 The TPU's lane-dense [P, Hk, 1, page] scales with their evens-then-odds
 order, the packed-fp8 bit decode, the per-call scale reconciliation and
 the G-pages-per-grid-step grouping exist only for Mosaic and are not
-ported.  Sliding windows and logit softcaps are not on the Llama-3 path
-and raise for now.
+ported.  A sliding window (each row sees the last ``window`` positions
+below its limit) and the logit softcap (cap * tanh(s / cap) on the scaled
+scores after the K scale, base 2 when clamped) run on both kernels'
+kLocal instances, as JAX's kernel applies them (paged_decode.py:150-160,
+224-226, 362-374): the walk starts at the key tile that holds the loosest
+row's bound, max(0, kv_length - (T - 1) - window), so no page below the
+window is read.
 
 Chunk mode hands K8c the T tokens' query heads as virtual rows in (hk, t,
 g) order, row t of a KV head seeing positions < kv_length - (T - 1) + t;
@@ -35,6 +40,7 @@ import torch
 from flash_attn_tpu_torch import _build
 from flash_attn_tpu_torch.ops.decode import (
     _KV_TYPES,
+    LOG2E,
     NEG_INF,
     _chunk_splits,
     _clamp2,
@@ -58,14 +64,18 @@ _HEAD_DIMS = (64, 128)
 _TARGET_BLOCKS = 396
 
 
-def _plan(batch: int, num_heads_k: int, rows: int, chunk: int, reach: int, num_splits):
+def _plan(batch: int, num_heads_k: int, rows: int, chunk: int, reach: int, num_splits,
+          window=None):
     """(num_splits, split_len) of a call with ``rows`` query rows per KV
     head over a table whose reach is ``reach`` positions.  Both kernels cut
     each sequence's live walk into the splits (split_len None, ops/decode.py
     ``split_bounds``), so the host needs no lengths.  K8 (decode mode, at
     most ``_MAX_GROUP`` rows) aims at ``_TARGET_BLOCKS`` blocks, K8c at
     ops/decode.py's warpgroup target; at most one split per key tile of
-    ``reach``, and the caller may fix the count."""
+    the walk's greatest length (``reach``, or with a window the window, the
+    chunk and a tile of alignment), and the caller may fix the count."""
+    if window is not None:
+        reach = min(reach, window + chunk - 1 + TILE)
     if chunk > 1 or rows > _MAX_GROUP:  # K8c
         return _chunk_splits(batch, num_heads_k, rows, reach, num_splits), None
     if num_splits is None:
@@ -90,10 +100,14 @@ def paged_flash_decode(q, k_pages, v_pages, block_table, kv_length, *,
       taking a share of the sequence's live walk; None picks enough to fill
       the card.  Partials merge by the LSE rule: in K8 on the card,
       otherwise through ops/decode.py merge_splits.
+    window: attend only to the last ``window`` positions below each row's
+      limit; logit_softcap: cap * tanh(s / cap) on the scaled scores.
     Returns out [B, H, D] in q.dtype; with return_lse also lse [B, H] fp32.
     """
-    if window is not None or logit_softcap is not None:
-        raise NotImplementedError("window and logit_softcap are not ported yet")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if logit_softcap is not None and not logit_softcap > 0:
+        raise ValueError(f"logit_softcap must be > 0, got {logit_softcap}")
     B, H, D = q.shape
     _, Hk, page, _ = k_pages.shape
     max_pages = block_table.shape[1]
@@ -109,13 +123,14 @@ def paged_flash_decode(q, k_pages, v_pages, block_table, kv_length, *,
         raise ValueError(f"unknown softmax_mode {softmax_mode!r}")
     clamped = softmax_mode == "clamped"
     clamp2 = _clamp2(k_pages.dtype)
-    nsplit, split_len = _plan(B, Hk, H // Hk, chunk, max_pages * page, num_splits)
+    nsplit, split_len = _plan(B, Hk, H // Hk, chunk, max_pages * page, num_splits, window)
     args = (q, k_pages, v_pages, k_scale, v_scale, block_table, kv_length,
             scale, clamped, clamp2, chunk, nsplit, split_len)
-    if q.is_cuda:
-        outs, lses = paged_flash_decode_cuda(*args)
-    else:
-        outs, lses = paged_flash_decode_plain(*args)
+    # the kLocal options, only when one is given
+    local = {} if window is None and logit_softcap is None else dict(window=window,
+                                                                     softcap=logit_softcap)
+    fn = paged_flash_decode_cuda if q.is_cuda else paged_flash_decode_plain
+    outs, lses = fn(*args, **local)
     out, lse = merge_splits(outs, lses, q.dtype)
     if return_lse:
         return out, lse
@@ -172,12 +187,14 @@ def _gather(pages, block_table):
 
 def paged_flash_decode_plain(q, k_pages, v_pages, k_scale, v_scale,
                              block_table, kv_length, scale, clamped, clamp2,
-                             chunk, nsplit, split_len):
+                             chunk, nsplit, split_len, window=None, softcap=None):
     """Plain PyTorch version of K8 and K8c: the sequences' pages gathered
     into contiguous [B, Hk, max_pages * page, D] views, then K1's
-    arithmetic with a causal limit per virtual row; ``split_len`` None
-    splits the live walk as both kernels do.  Returns per-split (out
-    [n, B, H, D] fp32, lse [n, B, H])."""
+    arithmetic with a causal limit per virtual row (and the last
+    ``window`` positions below it; ``softcap`` on the scores after the K
+    scale, in the softmax's units); ``split_len`` None splits the live walk
+    as both kernels do, a windowed walk from a key tile.  Returns per-split
+    (out [n, B, H, D] fp32, lse [n, B, H])."""
     B, H, D = q.shape
     Hk = k_pages.shape[1]
     R = H // Hk
@@ -191,12 +208,18 @@ def paged_flash_decode_plain(q, k_pages, v_pages, k_scale, v_scale,
     if k_scale is not None:
         s = s * _gather(k_scale, block_table)[:, :, None, :]
         vs = _gather(v_scale, block_table)
+    if softcap is not None:
+        c = softcap * (LOG2E if clamped else 1.0)
+        s = c * torch.tanh(s / c)
     # row r = t * G + g sees positions < kv_length - (chunk - 1) + t
     t = torch.arange(R, device=q.device) // (R // chunk)
     limit = kv_length.to(q.device).long()[:, None] - (chunk - 1) + t[None, :]
-    valid = torch.arange(S, device=q.device)[None, None, :] < limit[:, :, None]
+    pos = torch.arange(S, device=q.device)[None, None, :]
+    valid = pos < limit[:, :, None]
+    if window is not None:
+        valid = valid & (pos >= limit[:, :, None] - window)
     s = torch.where(valid[:, None], s, torch.full_like(s, NEG_INF))
-    bounds = split_bounds(nsplit, split_len, S, kv_length.to(q.device))
+    bounds = split_bounds(nsplit, split_len, S, kv_length.to(q.device), window, chunk, TILE)
     outs, lses = split_partials(s, v, vs, clamped, clamp2, bounds, cdt)
     return outs.reshape(nsplit, B, H, D), lses.reshape(nsplit, B, H)
 
@@ -222,15 +245,18 @@ _ARRIVALS = {}
 
 def paged_flash_decode_cuda(q, k_pages, v_pages, k_scale, v_scale,
                             block_table, kv_length, scale, clamped, clamp2,
-                            chunk, nsplit, split_len):
+                            chunk, nsplit, split_len, window=None, softcap=None):
     """Launch K8 (decode mode, at most 16 heads per KV head) or K8c.  Both
     replace flash_attn_tpu/ops/paged_decode.py:_paged_decode_kernel: K8 in
     decode mode, bound by bytes (csrc/paged_decode.cu); K8c in chunk mode,
     bound by operations at T = 128, and decode calls with more than 16
     heads per KV head (csrc/chunk_attn.cu).  Both take head_dim 64 or 128
-    and split the live walk (``split_len`` None).  Returns (out, lse): K8
-    merges its splits in the kernel, so out is [1, B, H, D] bf16; K8c
-    writes that with one split, else fp32 partials [n, B, H, D] for K1m."""
+    and split the live walk (``split_len`` None); a window or a softcap
+    runs their kLocal instances (``fatt_paged_decode_local``,
+    ``fatt_chunk_attn_local``), counted also in ``.local_launches`` (K8)
+    and ``.chunk_local_launches`` (K8c).  Returns (out, lse): K8 merges its
+    splits in the kernel, so out is [1, B, H, D] bf16; K8c writes that with
+    one split, else fp32 partials [n, B, H, D] for K1m."""
     B, H, D = q.shape
     P, Hk, page, _ = k_pages.shape
     max_pages = block_table.shape[1]
@@ -262,19 +288,26 @@ def paged_flash_decode_cuda(q, k_pages, v_pages, k_scale, v_scale,
     if nsplit > 1:
         part = torch.empty((nsplit, B, H, D), dtype=torch.float32, device=q.device)
     qscale = float(_qscale(scale, clamped, torch.bfloat16))
+    local = window is not None or softcap is not None
+    # the window and the softcap in the scores' units (base 2 when clamped)
+    loc = (window or 0, 0.0 if softcap is None else float(softcap * (LOG2E if clamped else 1.0)))
     p = _build.ptr
     if tiled:
         out = None
         if nsplit == 1:
             out = torch.empty((1, B, H, D), dtype=torch.bfloat16, device=q.device)
         lse = torch.empty((nsplit, B, H), dtype=torch.float32, device=q.device)
-        rc = _build.lib().fatt_chunk_attn(
-            p(q), p(k_pages), p(v_pages), p(k_scale), p(v_scale), p(block_table),
-            p(kv_length), p(out), p(part), p(lse), B, Hk, R, chunk, 0, page,
-            max_pages, D, _KV_TYPES[k_pages.dtype], nsplit, qscale, int(clamped),
-            float(clamp2), _build.stream())
+        args = (p(q), p(k_pages), p(v_pages), p(k_scale), p(v_scale), p(block_table),
+                p(kv_length), p(out), p(part), p(lse), B, Hk, R, chunk, 0, page,
+                max_pages, D, _KV_TYPES[k_pages.dtype], nsplit, qscale, int(clamped),
+                float(clamp2))
+        if local:
+            rc = _build.lib().fatt_chunk_attn_local(*args, *loc, _build.stream())
+        else:
+            rc = _build.lib().fatt_chunk_attn(*args, _build.stream())
         _build.check(rc, "fatt_chunk_attn")
         paged_flash_decode_cuda.chunk_launches += 1
+        paged_flash_decode_cuda.chunk_local_launches += local
         paged_flash_decode_cuda.launches += 1
         paged_flash_decode_cuda.d64_launches += D == 64
         return (out if nsplit == 1 else part), lse
@@ -284,13 +317,17 @@ def paged_flash_decode_cuda(q, k_pages, v_pages, k_scale, v_scale,
     if nsplit > 1:
         part_lse = torch.empty((nsplit, B, H), dtype=torch.float32, device=q.device)
         arrivals = _arrivals(q.device, B, Hk)
-    rc = _build.lib().fatt_paged_decode(
-        p(q), p(k_pages), p(v_pages), p(k_scale), p(v_scale), p(block_table),
-        p(kv_length), p(out), p(lse), p(part), p(part_lse), p(arrivals), B, Hk, R, page,
-        max_pages, D, _KV_TYPES[k_pages.dtype], nsplit, qscale, int(clamped), float(clamp2),
-        _build.stream())
+    args = (p(q), p(k_pages), p(v_pages), p(k_scale), p(v_scale), p(block_table),
+            p(kv_length), p(out), p(lse), p(part), p(part_lse), p(arrivals), B, Hk, R, page,
+            max_pages, D, _KV_TYPES[k_pages.dtype], nsplit, qscale, int(clamped),
+            float(clamp2))
+    if local:
+        rc = _build.lib().fatt_paged_decode_local(*args, *loc, _build.stream())
+    else:
+        rc = _build.lib().fatt_paged_decode(*args, _build.stream())
     _build.check(rc, "fatt_paged_decode")
     paged_flash_decode_cuda.launches += 1
+    paged_flash_decode_cuda.local_launches += local
     paged_flash_decode_cuda.d64_launches += D == 64
     if nsplit > 1:
         paged_flash_decode_cuda.merges += 1
@@ -298,8 +335,11 @@ def paged_flash_decode_cuda(q, k_pages, v_pages, k_scale, v_scale,
 
 
 # every launch (K8 and K8c), those of them on K8c, K8's in-kernel merges,
-# and the launches (K8 and K8c) at head_dim 64
+# the launches (K8 and K8c) at head_dim 64, and K8's and K8c's on their
+# kLocal instances
 paged_flash_decode_cuda.launches = 0
 paged_flash_decode_cuda.chunk_launches = 0
+paged_flash_decode_cuda.local_launches = 0
+paged_flash_decode_cuda.chunk_local_launches = 0
 paged_flash_decode_cuda.d64_launches = 0
 paged_flash_decode_cuda.merges = 0

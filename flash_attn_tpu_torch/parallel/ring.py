@@ -29,8 +29,9 @@ replays it), an additive bias [B, H, S, S] sharded on its query axis
 dS goes into a full-K fp32 accumulator of the rank's rows, as JAX's
 ``_ring_core_bwd`` does, ring.py:256, 292, 311-349, 364-370) and
 ``logit_softcap`` without a bias or dropout.  A window
-raises ``NotImplementedError``: the contiguous window goes through K4's
-positions path, which refuses a window.  Every refusal comes before any
+raises ``NotImplementedError``: the contiguous window goes through the
+positions path, whose backward (K9 and K10 with positions) refuses a
+window.  Every refusal comes before any
 launch.  Each step's output is rounded to q's dtype and taken to fp32
 before the merge, as JAX does (ring.py:163).
 """
@@ -97,8 +98,9 @@ def _refuse(q, bias, *, layout, causal, window, logit_softcap, dropout_rate, n, 
     if layout not in LAYOUTS:
         raise ValueError(f"unknown ring layout {layout!r}")
     if _window(window) is not None:
-        raise NotImplementedError("ring window: the contiguous window goes through K4's "
-                                  "positions path, which does not take a window yet")
+        raise NotImplementedError("ring window: the contiguous window goes through the "
+                                  "positions path, whose backward (K9, K10) does not take a "
+                                  "window yet")
     if logit_softcap is not None and (bias is not None or float(dropout_rate) > 0.0):
         raise NotImplementedError("ring attention: a softcap with a bias or dropout is not "
                                   "ported yet (flash_fwd refuses it)")

@@ -123,10 +123,12 @@ def test_flash_fwd_window_softcap_matches_jax_flash_attention():
 
 def test_flash_fwd_window_and_softcap_arguments():
     """Window and softcap go through the backward too (so do segment
-    ids); a window does not compose with positions yet; the
-    wrappers refuse what K4 does not take (a window or a softcap at
-    head_dim 64 or with masks, masks at 256; raised before any build) and
-    pass a window and a softcap at head_dim 128 on to the CUDA check."""
+    ids); a window composes with positions, which it compares (positions
+    0..7 give the causal window by index); the wrappers refuse what K4
+    does not take (a window or a softcap at head_dim 64, a window with
+    segment ids but no positions, masks at 256; raised before any build)
+    and pass a window and a softcap at head_dim 128, with or without
+    masks, on to the CUDA check."""
     q = torch.zeros(1, 8, 2, 32)
     ids = torch.zeros(1, 8, dtype=torch.int32)
     out = flash_attention(q.clone().requires_grad_(True), q, q, causal=True, window=(4, -1),
@@ -136,8 +138,12 @@ def test_flash_fwd_window_and_softcap_arguments():
     out = flash_attention(q.clone().requires_grad_(True), q, q, q_segment_ids=ids,
                           kv_segment_ids=ids)
     assert out.requires_grad
-    with pytest.raises(NotImplementedError, match="window"):
-        ff.flash_fwd(q, q, q, window=(4, -1), q_positions=ids, kv_positions=ids)
+    pos = torch.arange(8, dtype=torch.int32)[None]
+    qr = torch.from_numpy(np.random.default_rng(0).standard_normal((1, 8, 2, 32)).astype(
+        np.float32))
+    a, _ = ff.flash_fwd(qr, qr, qr, window=(4, -1), q_positions=pos, kv_positions=pos)
+    b, _ = ff.flash_fwd(qr, qr, qr, window=(4, -1), causal=True)
+    assert torch.equal(a, b)
     with pytest.raises(ValueError, match="window"):
         ff.flash_fwd(q, q, q, window=(-2, 0))
     # both sides open is no window at all
@@ -154,9 +160,12 @@ def test_flash_fwd_window_and_softcap_arguments():
         ff.flash_fwd_cuda(b64, b64, b64, True, 1.0, None, None, True, None, (4, -1))
     with pytest.raises(NotImplementedError, match="head_dim 128 and 256"):
         ff.flash_fwd_cuda(b64, b64, b64, True, 1.0, None, None, True, None, None, 50.0)
-    with pytest.raises(NotImplementedError, match="without segment ids"):
+    with pytest.raises(ValueError, match="CUDA"):
         ff.flash_fwd_cuda(b128, b128, b128, True, 1.0, None, None, True,
                           ff.Masks(None, None, ids, ids), (4, -1))
+    with pytest.raises(NotImplementedError, match="positions"):
+        ff.flash_fwd_cuda(b128, b128, b128, True, 1.0, None, None, True,
+                          ff.Masks(ids, ids, None, None), (4, -1))
     with pytest.raises(NotImplementedError, match="head_dim 64 and 128"):
         ff.flash_fwd_cuda(b256, b256, b256, False, 1.0, None, None, True,
                           ff.Masks(None, None, ids, ids))
@@ -255,7 +264,7 @@ def test_decode_window_split_plan_and_mode_rule():
     its count on min(window, S) (fixed by shapes, so one captured grid
     serves every length); the default mode follows JAX's rule (fp8 with a
     cap whose base-2 bound reaches the fp8 ceiling runs online); the
-    options still to port raise."""
+    options still to port (the BSHD layout) raise."""
     lens = torch.tensor([0, 1, 19, 20, 21, 64, 65, 96, 130])
     for ns in (1, 3, 7, 13):
         bounds = dec.split_bounds(ns, None, DEC_S, lens, window=W)
@@ -275,9 +284,8 @@ def test_decode_window_split_plan_and_mode_rule():
     with pytest.raises(NotImplementedError, match="BHSD"):
         dec.flash_decode(q, k, k, window=16)  # the BSHD layout
     with pytest.raises(NotImplementedError, match="BHSD"):
-        dec.flash_decode_chunk(q[:, None], k.transpose(1, 2), k.transpose(1, 2),
-                               kv_length=torch.tensor([64], dtype=torch.int32),
-                               logit_softcap=30.0)
+        dec.flash_decode_chunk(q[:, None], k, k, kv_length=torch.tensor([64], dtype=torch.int32),
+                               logit_softcap=30.0, kv_layout="bshd")
     with pytest.raises(ValueError, match="window"):
         dec.flash_decode(q, k.transpose(1, 2), k.transpose(1, 2), window=0, kv_layout="bhsd")
 

@@ -221,7 +221,10 @@ def test_serving_paths_match_jax(params, weights):
 def test_sliding_window_prefill_and_decode_match_jax(params):
     """sliding_window=6 (tests/test_mixtral.py:147): prefill_with_kv of 12
     tokens and two decode steps past the window equal JAX's, and differ
-    from the global model's; the packed and paged paths refuse it."""
+    from the global model's; the packed prefill and the verify step take
+    it too (held against JAX in tests/test_torch_window_paths.py): the
+    prompt packed alone gives the one-prompt prefill's logits, and a
+    verify round of 2 tokens two decode steps' logits."""
     jp, tp = params["float"]
     cfg, jcfg = (dataclasses.replace(c, sliding_window=6) for c in (CFG, JCFG))
     prompt = np.random.default_rng(7).integers(0, CFG.vocab_size, (1, 12)).astype(np.int32)
@@ -229,6 +232,7 @@ def test_sliding_window_prefill_and_decode_match_jax(params):
     jl, jkv = _jit(jmx.prefill_with_kv, jcfg)(jp, jnp.asarray(prompt), jnp.asarray(pos))
     tl, _ = mx.prefill_with_kv(tp, torch.from_numpy(prompt).long(), torch.from_numpy(pos), cfg)
     np.testing.assert_allclose(_np(tl), np.asarray(jl), atol=F32_TOL)
+    one = tl
     glob, _ = mx.prefill_with_kv(tp, torch.from_numpy(prompt).long(), torch.from_numpy(pos), CFG)
     assert float((tl[:, -1] - glob[:, -1]).abs().max()) > 1e-4
     jcache = jmx.make_cache(jcfg, 1, 32)
@@ -243,11 +247,16 @@ def test_sliding_window_prefill_and_decode_match_jax(params):
         tl, tcache = mx.decode_step(tp, torch.from_numpy(tok).long(), cfg, tcache)
         np.testing.assert_allclose(_np(tl), np.asarray(jl), atol=F32_TOL)
         tok = np.asarray(jl).argmax(-1).astype(np.int32)
-    t = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="prefill_packed with sliding_window"):
-        mx.prefill_packed(tp, t, torch.arange(4)[None], torch.ones_like(t), cfg)
-    with pytest.raises(NotImplementedError, match="decode_multi with sliding_window"):
-        mx.decode_multi(tp, t, cfg, mx.make_cache(cfg, 1, 16, device="cpu"))
+    t = torch.from_numpy(prompt).long()
+    packed, _ = mx.prefill_packed(tp, t, torch.from_numpy(pos), torch.ones_like(t), cfg)
+    np.testing.assert_allclose(_np(packed), _np(one), atol=F32_TOL)
+    multi = bridge.kv_cache_from_jax(jax.device_get(jcache), device="cpu")
+    steps = bridge.kv_cache_from_jax(jax.device_get(jcache), device="cpu")
+    two = np.array([[tok[0], 7]], np.int64)
+    ml, _ = mx.decode_multi(tp, torch.from_numpy(two), cfg, multi)
+    for i in range(2):
+        sl, steps = mx.decode_step(tp, torch.from_numpy(two[:, i]), cfg, steps)
+        np.testing.assert_allclose(_np(ml[:, i]), _np(sl), atol=F32_TOL)
 
 
 def _leaves(tree):

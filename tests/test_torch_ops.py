@@ -391,8 +391,9 @@ def test_flash_decode_matches_oracle_fp32():
 
 
 def test_flash_decode_rejects_unported_options():
-    """Window and softcap run in decode mode over a BHSD cache only; the
-    BSHD layout and chunk mode still raise on them."""
+    """Window and softcap run over a BHSD cache, in decode mode and in
+    chunk mode (a chunk of one token is the decode step, window and
+    softcap included); the BSHD layout still raises on them."""
     q = torch.zeros(1, 2, 32)
     k = torch.zeros(1, 1, 64, 32)
     with pytest.raises(NotImplementedError):
@@ -400,9 +401,15 @@ def test_flash_decode_rejects_unported_options():
     with pytest.raises(NotImplementedError):
         flash_decode(q, k.transpose(1, 2), k.transpose(1, 2), logit_softcap=30.0,
                      kv_layout="bshd")
-    with pytest.raises(NotImplementedError):
-        flash_decode_chunk(q[:, None], k, k, kv_length=torch.tensor([64], dtype=torch.int32),
-                           window=16)
+    r = _rng(12)
+    qr = torch.from_numpy(r.standard_normal((2, 2, 32)).astype(np.float32))
+    kr, vr = (torch.from_numpy(r.standard_normal((2, 1, 64, 32)).astype(np.float32))
+              for _ in range(2))
+    lens = torch.tensor([64, 21], dtype=torch.int32)
+    got = flash_decode_chunk(qr[:, None], kr, vr, kv_length=lens, window=16, logit_softcap=3.0)
+    want = flash_decode(qr, kr, vr, kv_length=lens, window=16, logit_softcap=3.0,
+                        kv_layout="bhsd")
+    np.testing.assert_allclose(got[:, 0].numpy(), want.numpy(), atol=1e-6)
 
 
 @pytest.mark.parametrize("M", [5, 40])
@@ -506,19 +513,22 @@ def test_flash_fwd_plain_matches_reference(case, softmax_mode):
 
 
 def test_flash_attention_rejects_unported_options():
-    """A window with positions, a mask, or dropout; ALiBi with a window or
-    a softcap; softmax_dtype "bf16".  The mask and dropout alone run
-    (tests/test_torch_fa2_options.py), and so do ALiBi, return_softmax and
-    a mask that needs a gradient (tests/test_torch_fa2_surface.py)."""
+    """A window with a mask or dropout; ALiBi with a window or a softcap;
+    softmax_dtype "bf16".  The mask and dropout alone run
+    (tests/test_torch_fa2_options.py), and so do ALiBi, return_softmax, a
+    mask that needs a gradient (tests/test_torch_fa2_surface.py) and a
+    window with positions (positions 0..7 give the causal window)."""
     q = torch.zeros(1, 8, 2, 32, dtype=torch.bfloat16)
-    ids = torch.zeros(1, 8, dtype=torch.int32)
     assert flash_attention(q, q, q, alibi_slopes=torch.ones(2)).shape == q.shape
     assert flash_attention(q, q, q, return_softmax=True)[2].shape == (1, 2, 8, 8)
     m = torch.zeros(8, 8, requires_grad=True)
     flash_attention(q, q, q, mask=m).float().sum().backward()
     assert m.grad.shape == (8, 8)
-    with pytest.raises(NotImplementedError):  # a window with positions
-        flash_attention(q, q, q, window=(4, 0), q_positions=ids, kv_positions=ids)
+    qr = torch.from_numpy(_rng(13).standard_normal((1, 8, 2, 32)).astype(np.float32))
+    pos = torch.arange(8, dtype=torch.int32)[None]
+    assert torch.equal(flash_attention(qr, qr, qr, window=(4, 0), q_positions=pos,
+                                       kv_positions=pos),
+                       flash_attention(qr, qr, qr, window=(4, 0), causal=True))
     with pytest.raises(NotImplementedError):
         flash_attention(q, q, q, window=(4, 0), mask=torch.zeros(8, 8))
     with pytest.raises(NotImplementedError):

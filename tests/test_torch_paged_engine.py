@@ -21,6 +21,7 @@ from flash_attn_tpu.engine.engine import PagedInferenceEngine as JPagedEngine
 from flash_attn_tpu.engine.paged import PagedKVPool as JPool
 from flash_attn_tpu.engine.prefix_cache import PrefixCache as JPrefixCache
 from flash_attn_tpu.models import llama as jllama
+from flash_attn_tpu.ops.paged_decode import paged_flash_decode as j_paged_decode
 from flash_attn_tpu.runtime import abi as jabi
 from flash_attn_tpu_torch import bridge
 from flash_attn_tpu_torch.engine.engine import PagedInferenceEngine
@@ -212,10 +213,21 @@ def test_paged_engine_matches_jax(jax_allocator, both_params, case):
 
 
 def test_paged_engine_rejects_unported_options():
-    q = torch.zeros(1, 2, 32)
-    pages = torch.zeros(4, 1, 8, 32)
-    table = torch.zeros(1, 2, dtype=torch.int32)
-    lens = torch.ones(1, dtype=torch.int32)
-    for kw in ({"window": 4}, {"logit_softcap": 30.0}):
-        with pytest.raises(NotImplementedError):
-            paged_flash_decode(q, pages, pages, table, lens, **kw)
+    """The window and the softcap, once refused, run: paged decode with
+    each (and a bad value of each raising as in JAX) against JAX's kernel
+    in interpret mode, fp32 (3e-4: the order of fp32 sums)."""
+    r = np.random.default_rng(8)
+    q = r.standard_normal((1, 2, 32)).astype(np.float32)
+    pages = r.standard_normal((4, 1, 8, 32)).astype(np.float32)
+    table = np.array([[2, 1]], np.int32)
+    lens = np.array([13], np.int32)
+    for kw in ({"window": 4}, {"logit_softcap": 3.0}):
+        want = j_paged_decode(*(jnp.asarray(x) for x in (q, pages, pages, table, lens)), **kw,
+                              interpret=True)
+        got = paged_flash_decode(*(torch.from_numpy(x) for x in (q, pages, pages, table, lens)),
+                                 **kw)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-4, rtol=3e-4)
+    t = torch.from_numpy(q)
+    with pytest.raises(ValueError, match="window"):
+        paged_flash_decode(t, torch.from_numpy(pages), torch.from_numpy(pages),
+                           torch.from_numpy(table), torch.from_numpy(lens), window=0)

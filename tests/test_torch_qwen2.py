@@ -8,7 +8,7 @@ attention kernel had run only at 1, 2, 4 or 8.  A tiny config keeps both
 (7 heads of 32 over 1 KV head, q_dim 224 against hidden 128) and goes
 through every serving path and both engines on both sides.  The sliding
 window and the logit softcap, which no default config sets, are held on
-the paths that honor them and refused on the others; ``convert_hf_model``
+every path; ``convert_hf_model``
 is held against HF ``Qwen2ForCausalLM`` and ``LlamaForCausalLM`` built
 from config and against JAX's conversion.
 
@@ -357,34 +357,62 @@ def test_window_and_softcap_match_jax(params):
         np.testing.assert_allclose(_np(tl), np.asarray(jl), atol=LOGIT_TOL)
 
 
-def _refused_calls(tp, cfg):
-    """The five paths whose kernels take neither option, each a thunk."""
-    t = torch.zeros((1, 4), dtype=torch.long)
-    pos = torch.arange(4)[None]
-    cache = llama.make_cache(cfg, 1, 16, device="cpu")
-    ppool = PagedKVPool.create(cfg.num_layers, 4, 8, 1, 2, cfg.num_kv_heads, cfg.head_dim,
+def _local_pairs(tp, cfg, path):
+    """(got, want) logits of ``path`` with the option and of a path that
+    honors it already (held against JAX above and in
+    tests/test_torch_window_paths.py), on a 12-token prompt past the
+    window of 8: the chunked, packed and suffix prefills against
+    ``prefill_with_kv``, the verify step against two decode steps, the
+    paged decode step against the contiguous one."""
+    toks = torch.from_numpy(np.random.default_rng(6).integers(0, CFG.vocab_size, (1, 12)))
+    pos = torch.arange(12)[None]
+    want, kvs = llama.prefill_with_kv(tp, toks, pos, cfg)
+    if path == "prefill_chunk":
+        cache = llama.make_cache(cfg, 1, 16, device="cpu")
+        return llama.prefill_chunk(tp, toks, cfg, cache, 0, 0)[0], want
+    if path == "prefill_packed":
+        row = torch.cat([toks, toks[:, :4]], dim=1)
+        seg = torch.tensor([[1] * 12 + [2] * 4])
+        rpos = torch.cat([pos, pos[:, :4]], dim=1)
+        return llama.prefill_packed(tp, row, rpos, seg, cfg)[0][:, :12], want
+    if path == "prefill_suffix_paged":
+        ppool = PagedKVPool.create(cfg.num_layers, 5, 4, 1, 4, cfg.num_kv_heads, cfg.head_dim,
+                                   dtype=torch.float32, device="cpu")
+        ppool.assign_pages(0, [1, 2, 3, 4])
+        return llama.prefill_suffix_paged(tp, toks, cfg, ppool, 0, 0)[0], want
+    caches = [llama.make_cache(cfg, 1, 16, device="cpu") for _ in range(2)]
+    for cache in caches:
+        for i, (k, v) in enumerate(kvs):
+            cache.append(i, k, v)
+        cache.advance(12)
+    cache = caches[0]
+    two = torch.tensor([[int(want[0, -1].argmax()), 7]])
+    if path == "decode_multi":
+        got = llama.decode_multi(tp, two, cfg, caches[1])[0]
+        steps = [llama.decode_step(tp, two[:, i], cfg, cache)[0] for i in range(2)]
+        return got, torch.stack(steps, dim=1)
+    ppool = PagedKVPool.create(cfg.num_layers, 5, 4, 1, 4, cfg.num_kv_heads, cfg.head_dim,
                                dtype=torch.float32, device="cpu")
-    return {
-        "prefill_chunk": lambda: llama.prefill_chunk(tp, t, cfg, cache, 0, 0),
-        "prefill_suffix_paged": lambda: llama.prefill_suffix_paged(tp, t, cfg, ppool, 0, 0),
-        "prefill_packed": lambda: llama.prefill_packed(tp, t, pos, torch.ones_like(t), cfg),
-        "decode_multi": lambda: llama.decode_multi(tp, t, cfg, cache),
-        "decode_step_paged": lambda: llama.decode_step_paged(tp, t[0, :1], cfg, ppool),
-    }
+    ppool.assign_pages(0, [1, 2, 3, 4])
+    for i, (k, v) in enumerate(kvs):
+        ppool.append_prefill(i, 0, k[0], v[0], 0)
+    ppool.set_lengths([12])
+    got = llama.decode_step_paged(tp, two[:, 0], cfg, ppool)[0]
+    return got, llama.decode_step(tp, two[:, 0], cfg, cache)[0]
 
 
 @pytest.mark.parametrize("option", ["sliding_window", "attn_logit_softcap"])
 @pytest.mark.parametrize("path", ["prefill_chunk", "prefill_suffix_paged", "prefill_packed",
                                   "decode_multi", "decode_step_paged"])
 def test_window_and_softcap_refused_on_other_paths(params, option, path):
-    """The packed, chunked, verify and paged paths raise
-    NotImplementedError naming the option and the path, before any
-    launch: the cache is left as it was."""
+    """The packed, chunked, verify and paged paths, which refused either
+    option before their kernels took it, now honor it: each gives the
+    logits of a path that honors it already, on a prompt past the window
+    (fp32, F32_TOL: the two differ in the order of fp32 sums)."""
     _, tp = params["float"]
     cfg = dataclasses.replace(CFG, **{option: LOCAL[option]})
-    calls = _refused_calls(tp, cfg)
-    with pytest.raises(NotImplementedError, match=f"{path} with {option}"):
-        calls[path]()
+    got, want = _local_pairs(tp, cfg, path)
+    np.testing.assert_allclose(_np(got), _np(want), atol=F32_TOL)
 
 
 def _hf_model(kind, tied=False):
