@@ -90,7 +90,16 @@ Phases, one line each with its seconds:
      6000 over 8192 (its tile counts held to the tile test's), K1c at B=8,
      T=5 over 8192 positions, K8 in decode mode and K8c at T=128 over
      pages of 128 (lengths to 8000), int8 and fp8, each against its plain
-     version, K8 also against K1's windowed decode; then once
+     version, K8 also against K1's windowed decode; Mistral-7B's training
+     kernels (check_mistral_train; the rows "K4 local seg idx", "K9 local
+     seg", "K10 local seg"): four documents of 4800, 2000, 900 and 492
+     packed in 8192 with segment ids alone, as llama.forward(segment_ids=)
+     passes them, so the window (4095, -1) compares the indices: K4's
+     masked kLocal twin, K9's and K10's kLocal and kOpt twin (each launched
+     twice, bitwise), timed beside SDPA (and its backward) with the
+     segments and the window as a boolean mask; then, checked only, the
+     same row with positions given (the window on the positions) and with
+     cap 5 on the indices; then once
      each what the main paths do not run: group sizes 32 and 64, K7's
      bf16 output, and the int8, int4 and W4A8 LM heads' fp32 activations
      or output; last, K11, the ring run in one cooperative launch, at
@@ -159,7 +168,9 @@ Phases, one line each with its seconds:
      CPU's gradient at its output (the head; each layer alone, a token
      whose top-2 set differs given zero upstream gradient on both sides,
      at most 1 % of a layer's tokens; the embedding), each to 5e-2 of its
-     norm; LoRA
+     norm; one Mistral-7B training loss and every gradient (2 layers at
+     its widths, the window cut to 256, B=1, S=1024 holding documents of
+     600, 250 and 174, the window on the indices); LoRA
      (2 layers at 8B widths, int8 fused, a bank of 4 rank-16 adapters,
      fp32): 8 prompts prefilled two a call under lora_id 0-3, then four
      decode steps with per-slot ids [0, 1, 2, 3, 0, 1, 2, 3], against the
@@ -280,6 +291,15 @@ Phases, one line each with its seconds:
      restored state's steps 4-5 against the straight run's; then 2 steps
      on phase 19's packed documents (K4 masked, K9 and K10 kOpt), launches
      exact;
+  26. (run right after phase 24) training: Mistral-7B-v0.1's published
+     config at full size (32 layers, window 4096; bf16 params and moments
+     from the seed), B=1, S=8192 holding four documents of 4800, 2000, 900
+     and 492 (segment ids 1-4, positions restarting for RoPE; the first
+     past the window), 5 AdamW steps (remat on) through
+     llama.forward(segment_ids=): losses finite and falling, ms a step
+     (median of steps 2-5) beside its bound, tokens/s, peak under 75 GiB,
+     launches exact (K4's masked kLocal twin 64 a step, K9's and K10's
+     kLocal and kOpt twin 32 each);
   20. (run right after phase 18) sequence-parallel attention at
      Llama-3-8B's attention widths, B=1, 16384 tokens over 4 ranks sharing
      the card (make_mesh with cuda:0 four times; every rotation a
@@ -290,7 +310,10 @@ Phases, one line each with its seconds:
      flash_attention on the whole sequence (rows to two bf16 ulps,
      gradients to 5e-2 of their norm), the rdma ring also against the
      ring, with launches a call exact (K4 = K9 = K10 = 10 contiguous, 16
-     striped, 4 Ulysses; K11 1) and ms a call;
+     striped, 4 Ulysses; K11 1) and ms a call; the contiguous ring with
+     the window (4095, -1) on the global positions against one windowed
+     call (K4's masked kLocal instance and K9's and K10's kLocal and kOpt
+     instances 10 each);
   21. (run last) multi-adapter LoRA serving: Llama-3-8B int8 fused, fp8
      KV, capacity 4096, phase 4's prompts one a prefill call, 32 tokens,
      a bank of 4 rank-16 adapters (alpha 32, all seven linear layers,
@@ -359,7 +382,8 @@ clamped_verify points under "probs" and "verify", K9's and K10's dbias
 point under "dbias", their launches phase 22's; Mistral-7B's windowed
 rows "K4 local seg" (its cap-50 point under "softcap", its chunk under
 "chunk"), "K1c window", "K8 window" and "K8c window", their launches
-phase 25's)
+phase 25's; Mistral-7B's training rows "K4 local seg idx", "K9 local seg"
+and "K10 local seg", their launches phase 26's)
 and the card; the last line is {"ok": true, "device": {...}}.  Any failed check
 exits nonzero without that line; so does a machine without CUDA or a
 directory without the rest of the repository.
@@ -1543,7 +1567,7 @@ def k4_tile_counts(torch, checks, label, q, k, v, cos, sin, causal, masks, windo
         p(q), p(k), p(v), p(cos), p(sin), p(out), p(lse), p(qmeta), p(kmeta), p(qr), p(kr),
         p(counts), B, Sq, Sk, H, Hk, D, 0, float(D ** -0.5 * ff.LOG2E), int(causal), 1,
         *ff.local_args(window, softcap), *ff.extra_args(None, None), *ff.surface_args(),
-        _build.stream()), "fatt_flash_fwd")
+        ff.window_idx(window, masks), _build.stream()), "fatt_flash_fwd")
     live, full = tile_test(qr, kr, causal, Sq, Sk, window)
     got, want = counts.tolist(), [int(live.sum()), int(full.sum())]
     if got != want:
@@ -1616,7 +1640,7 @@ def check_k4_masked(torch, checks, rows):
                 _build.check(lib.fatt_flash_fwd(
                     p(q), p(k), p(v), p(cos), p(sin), p(o2), p(l2), p(qmeta), p(kmeta), p(qr),
                     p(kr), None, 1, Sq, Sk, H, Hk, D, 0, float(D ** -0.5 * ff.LOG2E), 0, 1,
-                    -1, -1, 0.0, *ff.extra_args(None, None), *ff.surface_args(),
+                    -1, -1, 0.0, *ff.extra_args(None, None), *ff.surface_args(), 0,
                     _build.stream()), "fatt_flash_fwd")
 
             kernel()
@@ -3461,6 +3485,162 @@ def check_mistral(torch, checks, rows):
     del k, v, ks, vs
 
 
+# phase 26's row: Mistral-7B trained on four documents packed in 8192 tokens,
+# the first past the 4096-token window
+MISTRAL_TRAIN_DOCS = (4800, 2000, 900, 492)
+MISTRAL_TRAIN_SEQ = 8192
+
+
+def check_mistral_train(torch, checks, rows):
+    """The kernels of Mistral-7B's training on packed documents, at its
+    attention widths (H=32, Hk=8, D=128, window (4095, -1)), B=1, the
+    documents MISTRAL_TRAIN_DOCS in one 8192-token row (segment ids 1-4,
+    RoPE on the positions restarting a document, causal, online), as
+    ``llama.forward(segment_ids=...)`` calls them: segment ids alone, so
+    the window compares the indices.  K4's masked kLocal instance's twin
+    on the indices (the "K4 local seg idx" row) against its plain version
+    by the row rule, timed beside SDPA with the segment-and-window mask as
+    a boolean mask; K9's and K10's kLocal and kOpt instances' twin (the
+    rows "K9 local seg" and "K10 local seg") through _bwd_case (each
+    launched twice, bitwise; the rows of a document's first query, one
+    live key, at the noise floor), timed beside SDPA's backward with the
+    same boolean mask (device time); then, checked only, the same row with
+    positions given (the window on the positions: the instances without
+    the twin), and with cap 5 on the indices (the cap bends: a kernel
+    without its 1 - t^2 factor fails).  Bounds: ops on the live pairs (K4
+    two products, K9 three, K10 four)."""
+    import torch.nn.functional as F
+
+    from flash_attn_tpu_torch.ops import flash_bwd as fb
+    from flash_attn_tpu_torch.ops import flash_fwd as ff
+    from flash_attn_tpu_torch.ops.rope import rope_cos_sin, rope_rotate
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 95)
+    H, Hk, D, S = 32, 8, 128, MISTRAL_TRAIN_SEQ
+    window, scale = (MISTRAL_WINDOW - 1, -1), D ** -0.5
+    seg, pos = (x.cuda() for x in _packed_positions(torch, MISTRAL_TRAIN_DOCS, S))
+    masks = ff.Masks(seg, seg, None, None)
+
+    def rnd(h):
+        return torch.randn((1, S, h, D), generator=g, device="cuda", dtype=torch.bfloat16)
+
+    q, k, v, dout = rnd(H), rnd(Hk), rnd(Hk), rnd(H)
+    cos, sin = rope_cos_sin(pos, D, 10000.0)
+    live = ff.live_pairs(masks, True, S, S, "cuda", window)
+    pairs = int(live.sum())
+    gemm = 2 * D * H * pairs  # one product over the live pairs
+    qr = rope_rotate(q, cos, sin).transpose(1, 2).contiguous()
+    kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+
+    # K4, the window on the indices
+    args = (q, k, v, True, scale, cos, sin, False, masks, window, None)
+    out, lse = ff.flash_fwd_cuda(*args)
+    rout, rlse = fwd_plain(args)
+    torch.cuda.synchronize()
+    err, share = row_err(out, rout)
+    lerr = float((lse - rlse).abs().max())
+    label = (f"K4 local seg idx, documents {MISTRAL_TRAIN_DOCS} in {S}, segment ids alone, "
+             f"window {window} on the indices, causal, online")
+    ok = checks.check(f"{label} out", share, 1.0) & checks.check(f"{label} lse", lerr, 1e-3)
+    del rout, rlse
+    nbytes = (q.numel() + k.numel()) * 2 * 2 + H * S * 4 + 2 * S * 8
+    b_ms, b_by = bound(nbytes, 2 * gemm)
+    t4 = dict(ms=cuda_ms(torch, lambda: ff.flash_fwd_cuda(*args)),
+              plain_ms=cuda_ms(torch, lambda: fwd_plain(args), iters=2, warmup=1),
+              library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                  qr, kt, vt, attn_mask=live[:, None], enable_gqa=True), iters=5),
+              bound_ms=b_ms, bound_by=b_by, live_pairs=pairs)
+    say(f"  {label}: max_abs_err {err:.3e} ({share:.3f} of its row's tol), lse err {lerr:.3e} "
+        f"(tol 1e-3) {'ok' if ok else 'FAIL'} | {t4['ms']:.4f} ms ({2 * gemm / t4['ms'] / 1e9:.1f}"
+        f" TFLOP/s on {pairs} live pairs), plain {t4['plain_ms']:.4f}, library (SDPA, the "
+        f"segments and the window as a boolean mask) {t4['library_ms']:.4f}, bound "
+        f"{b_ms:.4f} ({b_by})")
+    rows["K4 local seg idx"] = dict(
+        name=f"flash_fwd masked kLocal, the window on the indices (B=1, documents "
+             f"{MISTRAL_TRAIN_DOCS} in {S}, H={H}, Hk={Hk}, D=128, segment ids alone, window "
+             f"{window}, causal, rope, online: Mistral-7B's training forward)",
+        source="flash_attn_tpu_torch/csrc/flash_fwd.cu",
+        replaces="flash_attn_tpu/ops/flash_fwd.py:221", max_abs_err=err, **t4)
+
+    # K9 and K10 on K4's out and lse
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    del out
+    worst = {"K9": 0.0, "K10": 0.0}
+    counts = live.sum(-1)[..., None].expand(-1, -1, H)
+
+    def floor(rdq):
+        return torch.where(counts < 2, 2.0 ** -12 * float(rdq.abs().max()), 1e-6)
+
+    args = (q, k, v, dout, lse, delta, True, scale, cos, sin, window, None, masks)
+    tail = (k, v, dout, lse, delta, True, scale, window, None, masks)
+    label = (f"local seg, documents {MISTRAL_TRAIN_DOCS} in {S}, segment ids alone, window "
+             f"{window} on the indices, causal, rope")
+    dq, rq, dk, dv, res = _bwd_case(torch, checks, worst, label, args, tail, True, floor)
+    say(f"  K9 {label}: {res['K9']}")
+    say(f"  K10 {label}: {res['K10']}")
+    del dq, dk, dv
+    kargs = (rq, *tail)
+    ms9 = cuda_ms(torch, lambda: fb.flash_bwd_dq_cuda(*args))
+    ms10 = cuda_ms(torch, lambda: fb.flash_bwd_dkv_cuda(*kargs))
+    plain_ms = cuda_ms(torch, lambda: bwd_plain(args), iters=1, warmup=1)
+    qt = qr.clone().requires_grad_(True)
+    kt.requires_grad_(True)
+    vt.requires_grad_(True)
+    o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=live[:, None], scale=scale,
+                                       enable_gqa=True)
+    do_t = dout.transpose(1, 2).contiguous()
+    sdpa_ms, backend, names = sdpa_bwd_device_ms(
+        torch, lambda: torch.autograd.grad(o, (qt, kt, vt), do_t, retain_graph=True), calls=3)
+    del qt, kt, vt, o, do_t, qr
+    ins = (q.numel() + dout.numel() + k.numel() + v.numel()) * 2 + lse.numel() * 8 + 2 * S * 8
+    b9 = bound(ins + q.numel() * 4, 3 * gemm)
+    b10 = bound(ins + 2 * H * S * D * 4, 4 * gemm)
+    sdpa = "not measured" if sdpa_ms is None else f"{sdpa_ms:.4f}"
+    say(f"    K9 {ms9:.4f} ms ({3 * gemm / ms9 / 1e9:.1f} TFLOP/s on {pairs} live pairs), bound "
+        f"{b9[0]:.4f} ({b9[1]}); K10 {ms10:.4f} ms ({4 * gemm / ms10 / 1e9:.1f} TFLOP/s), bound "
+        f"{b10[0]:.4f} ({b10[1]}); plain (both passes) {plain_ms:.4f}; SDPA's backward with the "
+        f"boolean mask, device time {sdpa} (backend {backend}: {', '.join(names)[:200]})")
+    for key, line, ms, b in (("K9", 127, ms9, b9), ("K10", 194, ms10, b10)):
+        rows[f"{key} local seg"] = dict(
+            name=f"flash_bwd {'dq' if key == 'K9' else 'dk/dv'} pass, kLocal and kOpt, the "
+                 f"window on the indices (B=1, documents {MISTRAL_TRAIN_DOCS} in {S}, H={H}, "
+                 f"Hk={Hk}, D=128, segment ids alone, window {window}, causal, rope: "
+                 f"Mistral-7B's training backward)",
+            source="flash_attn_tpu_torch/csrc/flash_bwd.cu",
+            replaces=f"flash_attn_tpu/ops/flash_bwd.py:{line}", max_abs_err=worst[key], ms=ms,
+            plain_ms=plain_ms, library_ms=sdpa_ms, bound_ms=b[0], bound_by=b[1],
+            live_pairs=pairs)
+    del rq, lse, delta
+    torch.cuda.empty_cache()
+
+    # checked only: the window on the positions, and cap 5 on the indices
+    for what, m, cap in (("segment ids and positions, the window on the positions",
+                          ff.Masks(seg, seg, pos, pos), None),
+                         ("segment ids alone, the window on the indices, cap 5", masks, 5.0)):
+        out, lse = ff.flash_fwd_cuda(q, k, v, True, scale, cos, sin, False, m, window, cap)
+        rout, rlse = fwd_plain((q, k, v, True, scale, cos, sin, False, m, window, cap))
+        torch.cuda.synchronize()
+        err, share = row_err(out, rout)
+        lerr = float((lse - rlse).abs().max())
+        label = f"local seg, documents {MISTRAL_TRAIN_DOCS} in {S}, {what}"
+        ok = (checks.check(f"K4 {label} out", share, 1.0)
+              & checks.check(f"K4 {label} lse", lerr, 1e-3))
+        say(f"  K4 {label}: max_abs_err {err:.3e} ({share:.3f} of its row's tol), lse err "
+            f"{lerr:.3e} (tol 1e-3) {'ok' if ok else 'FAIL'}")
+        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        del out, rout, rlse
+        args = (q, k, v, dout, lse, delta, True, scale, cos, sin, window, cap, m)
+        tail = (k, v, dout, lse, delta, True, scale, window, cap, m)
+        dq, rq, dk, dv, res = _bwd_case(torch, checks, worst, label, args, tail, True, floor)
+        say(f"  K9 {label}: {res['K9']}")
+        say(f"  K10 {label}: {res['K10']}")
+        del dq, rq, dk, dv, lse, delta
+        torch.cuda.empty_cache()
+    for key in ("K9", "K10"):
+        rows[f"{key} local seg"]["max_abs_err"] = worst[key]
+    del q, k, v, dout, live, counts
+
+
 # --- the FA2 options of the C ABI: an additive bias, dropout, segment ids ---
 # --- and positions in K4, K9 and K10 (the kExtra and kOpt instances) -------
 
@@ -4778,6 +4958,8 @@ def phase_kernels(torch, checks):
     torch.cuda.empty_cache()
     check_mistral(torch, checks, rows)
     torch.cuda.empty_cache()
+    check_mistral_train(torch, checks, rows)
+    torch.cuda.empty_cache()
     check_k9_k10(torch, checks, rows)
     torch.cuda.empty_cache()
     check_fa2_options(torch, checks, rows)
@@ -5251,6 +5433,31 @@ def mistral_card_vs_cpu(torch, checks):
                         **mistral)
     paged_card_vs_cpu(torch, checks, seed=SEED + 92, a_len=768, shared=640, **mistral)
     multi_card_vs_cpu(torch, checks, seed=SEED + 93, lens=(800, 600), **mistral)
+
+
+# phase 3's Mistral training check: its widths at 2 layers, the window cut
+# to 256 and three documents packed in 1024 tokens, the first past it
+MISTRAL_TRAIN_CVC_DOCS = (600, 250, 174)
+MISTRAL_TRAIN_CVC_WINDOW = 256
+
+
+def mistral_train_card_vs_cpu(torch, checks, seed=SEED + 96):
+    """The training check for a windowed Llama on packed documents: 2
+    layers at Mistral-7B's widths, the window cut to MISTRAL_TRAIN_CVC_WINDOW,
+    B=1, S=1024 holding MISTRAL_TRAIN_CVC_DOCS (segment ids 1-3, positions
+    restarting a document; the window on the indices): K4's masked kLocal
+    instance's twin forward, K9's and K10's kLocal and kOpt twin
+    backward."""
+    from flash_attn_tpu_torch.models import llama
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(mistral_7b(), num_layers=2,
+                              sliding_window=MISTRAL_TRAIN_CVC_WINDOW)
+    card = llama.init_params(cfg, seed=seed, device="cuda")
+    _train_card_vs_cpu(torch, checks, f"Mistral-7B training: 2 layers at its widths, the window "
+                       f"cut to {MISTRAL_TRAIN_CVC_WINDOW}, documents {MISTRAL_TRAIN_CVC_DOCS}",
+                       "Mistral ", card, _packed_train_fwd(torch, cfg, MISTRAL_TRAIN_CVC_DOCS),
+                       cfg.vocab_size, sum(MISTRAL_TRAIN_CVC_DOCS), seed, t0)
 
 
 # the share of tokens whose top-2 expert set may differ between the card and
@@ -7070,6 +7277,71 @@ def phase_mixtral_train(torch, checks, smi):
     return {RUN_MIXTRAL_TRAIN: counts, RUN_MIXTRAL_PACKED_TRAIN: packed}
 
 
+def _llama_train_bound(torch, cfg, params, seq, pairs):
+    """(ms, a line) of a Llama-layout training step's least time at B=1,
+    S=``seq`` with ``pairs`` live attention pairs a head: the bf16 GEMMs of
+    the layers (four passes: the forward, the backward's two products and
+    remat's rerun) and attention's 11 products of 2*D flops a live pair
+    and head (K4's two a pass, twice; K9's three; K10's four) at
+    BF16_FLOPS_PER_S; the fp32 head (three products) at F32_FLOPS_PER_S;
+    AdamW's bytes (each bf16 param, gradient and two moments read once,
+    the param and moments written once) at HBM_BYTES_PER_S."""
+    from flash_attn_tpu_torch.utils import train
+
+    h, L, F = cfg.hidden, cfg.num_layers, cfg.intermediate
+    qd, kvd = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    dense = 2 * (2 * h * qd + 2 * h * kvd + 3 * h * F)  # a token, a layer
+    gemms = 4 * L * seq * dense
+    attn = 11 * 2 * cfg.head_dim * cfg.num_heads * L * pairs
+    f32 = 3 * 2 * seq * h * cfg.vocab_size
+    n_params = sum(p.numel() for p in train.param_leaves(params))
+    adam = 7 * 2 * n_params
+    parts = ((gemms + attn) / BF16_FLOPS_PER_S, f32 / F32_FLOPS_PER_S, adam / HBM_BYTES_PER_S)
+    line = (f"bf16 GEMMs {gemms / 1e12:.3f} TFLOP and attention {attn / 1e12:.3f} TFLOP on "
+            f"{pairs} live pairs a head ({1e3 * parts[0]:.3f} ms at "
+            f"{BF16_FLOPS_PER_S / 1e12:g} TFLOP/s), the fp32 head {f32 / 1e12:.3f} TFLOP "
+            f"({1e3 * parts[1]:.3f} ms at {F32_FLOPS_PER_S / 1e12:g}), AdamW {adam / 1e9:.3f} GB "
+            f"({1e3 * parts[2]:.3f} ms at {HBM_BYTES_PER_S / 1e12:g} TB/s)")
+    return 1e3 * sum(parts), line
+
+
+def phase_mistral_train(torch, checks, smi):
+    """Phase 26: Mistral-7B-v0.1's published config (``mistral_7b``: 32
+    layers, window 4096; bf16 params and AdamW moments from the seed,
+    7.24 B parameters) trained on packed documents: B=1,
+    S=MISTRAL_TRAIN_SEQ holding MISTRAL_TRAIN_DOCS (segment ids 1-4, RoPE
+    positions restarting a document; the first document, 4800 tokens, runs
+    past the window), TRAIN_STEPS AdamW steps of the default TrainConfig
+    (remat on) through ``llama.forward(segment_ids=...)``: losses finite
+    and falling, peak under MAX_TRAIN_GIB, the median step beside its
+    bound, and the launches exact: K4's masked kLocal instance (its twin
+    with the window on the indices) twice a layer a step (remat reruns
+    it), K9's and K10's kLocal and kOpt instances (their twin) once.
+    Returns {run: counts}."""
+    from flash_attn_tpu_torch.models import llama
+    from flash_attn_tpu_torch.ops import flash_fwd as ff
+
+    t1 = time.perf_counter()
+    cfg = mistral_7b()
+    params, _ = _fresh_model(torch, cfg)
+    seg, _ = _packed_positions(torch, MISTRAL_TRAIN_DOCS, MISTRAL_TRAIN_SEQ)
+    pairs = int(ff.live_pairs(ff.Masks(seg, seg, None, None), True, MISTRAL_TRAIN_SEQ,
+                              MISTRAL_TRAIN_SEQ, "cpu", (MISTRAL_WINDOW - 1, -1)).sum())
+    bound_ms, line = _llama_train_bound(torch, cfg, params, MISTRAL_TRAIN_SEQ, pairs)
+    say(f"  phase 26 bound: {line}")
+    n = cfg.num_layers * TRAIN_STEPS
+    want = {"K9": n, "K10": n, "K9 local": n, "K10 local": n, "K9 opt": n, "K10 opt": n,
+            "K9 seg": n, "K10 seg": n, "K9 window": n, "K10 window": n, "K4": 2 * n,
+            "K4 local seg": 2 * n, "K4 seg": 2 * n, "K4 pos": 0}
+    counts = _train_run(torch, checks, smi, RUN_MISTRAL_TRAIN, params,
+                        _packed_train_fwd(torch, cfg, MISTRAL_TRAIN_DOCS), cfg.vocab_size,
+                        MISTRAL_TRAIN_SEQ, SEED + 97, want, t1, bound_ms=bound_ms)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {RUN_MISTRAL_TRAIN: counts}
+
+
 # each training run's median step (ms) and its losses, by run label
 STEP_MS, LOSSES = {}, {}
 
@@ -7724,6 +7996,7 @@ def phase_gpt2_train(torch, checks, smi):
 
 
 SP_N, SP_S = 4, 16384  # phase 20: ranks, and tokens over them (S_loc 4096)
+SP_WINDOW = (4095, -1)  # phase 20's windowed ring: Mistral-7B's window
 
 
 def _rel_norm(a, b) -> float:
@@ -7774,7 +8047,12 @@ def phase_sp(torch, checks, smi):
     backward.  Each is held to the single-device flash_attention on the
     whole sequence (K4, K9 + K10), with its launches a call exact: the
     contiguous ring K4 = K9 = K10 = 10 (ranks 0-3 live on 1-4 steps), the
-    striped 16, K11 1, Ulysses 4 (one a rank)."""
+    striped 16, K11 1, Ulysses 4 (one a rank).  The contiguous ring with
+    Mistral-7B's window SP_WINDOW (the positions path: each step passes
+    the shards' global positions, K4's masked kLocal instance forward, K9's
+    and K10's kLocal and kOpt instances backward, 10 each) is held to one
+    windowed flash_attention over the whole sequence (K4's and K9/K10's
+    kLocal instances without masks)."""
     from flash_attn_tpu_torch.ops.attention import flash_attention
     from flash_attn_tpu_torch.parallel.mesh import MeshConfig, make_mesh
     from flash_attn_tpu_torch.parallel.rdma_ring import make_rdma_ring_attention
@@ -7813,6 +8091,22 @@ def phase_sp(torch, checks, smi):
     want = {"K4": 10, "K9": 10, "K10": 10}
     runs[RUN_SP_RING], ring_out, _ = _sp_run(torch, checks, "ring contiguous", ring,
                                              (q, k, v), ref, want, dout)
+    # the windowed ring (positions path) against one windowed call
+    wsingle = lambda q_, k_, v_: flash_attention(q_, k_, v_, causal=True,  # noqa: E731
+                                                 window=SP_WINDOW)
+    wref_out = wsingle(q, k, v)
+    wref = (wref_out.detach(), torch.autograd.grad(wref_out, (q, k, v), dout))
+    del wref_out
+    msw = cuda_ms(torch, lambda: torch.autograd.grad(wsingle(q, k, v), (q, k, v), dout),
+                  iters=3, warmup=1)
+    say(f"  single-device flash_attention with the window {SP_WINDOW} (K4, K9 + K10 kLocal) on "
+        f"the whole sequence: {msw:.3f} ms a forward + backward call")
+    want = {"K4": 10, "K9": 10, "K10": 10, "K4 local seg": 10, "K4 pos": 10, "K4 seg": 0,
+            "K9 local": 10, "K10 local": 10, "K9 opt": 10, "K10 opt": 10}
+    runs[RUN_SP_WINDOW], _, _ = _sp_run(torch, checks, f"ring contiguous, window {SP_WINDOW}",
+                                        make_ring_attention(mesh, causal=True, window=SP_WINDOW),
+                                        (q, k, v), wref, want, dout)
+    del wref
     striped = make_ring_attention(mesh, causal=True, layout="striped")
 
     def striped_call(q_, k_, v_):
@@ -8098,6 +8392,11 @@ RUN_SP_RING = (f"phase 20 ring attention, contiguous, causal, {SP_N} ranks on on
                f"S={SP_S}, forward + backward")
 RUN_SP_STRIPED = (f"phase 20 ring attention, striped, causal, {SP_N} ranks on one card, "
                   f"S={SP_S}, forward + backward")
+RUN_SP_WINDOW = (f"phase 20 ring attention, contiguous, causal, window {SP_WINDOW}, {SP_N} ranks "
+                 f"on one card, S={SP_S}, forward + backward")
+RUN_MISTRAL_TRAIN = (f"phase 26 train Mistral-7B-v0.1, 32 layers, B=1 S={MISTRAL_TRAIN_SEQ}, "
+                     f"documents {MISTRAL_TRAIN_DOCS}, window {MISTRAL_WINDOW}, {TRAIN_STEPS} "
+                     f"AdamW steps, remat")
 RUN_SP_RDMA = f"phase 20 rdma ring attention (K11), causal, {SP_N} ranks on one card, S={SP_S}"
 RUN_LORA = (f"phase 21 serve Llama-3-8B int8 fused, fp8 KV, a bank of {LORA_ADAPTERS} "
             f"rank-{LORA_RANK} LoRA adapters, request i on adapter i % {LORA_ADAPTERS}")
@@ -8420,7 +8719,8 @@ KERNEL_ROWS = ("K1", "K1m", "K1c", "K1b", "K2", "K3", "K3g", "K4", "K5", "K6", "
                "K4 27B", "K1 27B", "K9 27B", "K10 27B", "K4 G7", "K1 G7", "K1c G7", "K8 G7",
                "K2 G7", "K3 Mixtral", "K4 opt", "K9 opt", "K10 opt", "K11", "K4 surface",
                "K9 surface", "K10 surface", "K1 shard", "K6 tp4", "K7 tp4", "K4 local seg",
-               "K1c window", "K8 window", "K8c window")
+               "K1c window", "K8 window", "K8c window", "K4 local seg idx", "K9 local seg",
+               "K10 local seg")
 # the run whose launches a kernel's row reports, and the count it reads:
 # the main path that the kernel serves (the 70B serve for the shared K1,
 # K1m, K2 and K4, the n-gram speculative serve for K1's chunk mode, the
@@ -8430,8 +8730,9 @@ KERNEL_ROWS = ("K1", "K1m", "K1c", "K1b", "K2", "K3", "K3g", "K4", "K5", "K6", "
 # for their head_dim 64 points, the captured Gemma-2-27B serve and its
 # training run for the head_dim 128 kLocal points, the Qwen-2-7B serve's
 # runs for the 7-heads-a-KV-head points, the captured Mixtral-8x7B serve for
-# K3 at its experts' widths); K3 grouped and K1 over a BSHD cache have no
-# model path, so their rows report none
+# K3 at its experts' widths, the Mistral-7B training run for the windowed
+# training instances); K3 grouped and K1 over a BSHD cache have no model
+# path, so their rows report none
 ROW_RUN = {"K1": RUN_70B, "K1m": RUN_70B, "K1c": RUN_SPEC_NGRAM, "K1b": None, "K2": RUN_70B,
            "K3": RUN_8B_INT8, "K3g": None, "K4": RUN_70B, "K5": RUN_8B_W4A8, "K6": RUN_70B,
            "K7": RUN_70B, "K8": RUN_PAGED, "K8c": RUN_PAGED, "K9": RUN_TRAIN, "K10": RUN_TRAIN,
@@ -8447,7 +8748,9 @@ ROW_RUN = {"K1": RUN_70B, "K1m": RUN_70B, "K1c": RUN_SPEC_NGRAM, "K1b": None, "K
            "K4 surface": RUN_SURFACE, "K9 surface": RUN_SURFACE, "K10 surface": RUN_SURFACE,
            "K1 shard": RUN_SP_DECODE, "K6 tp4": RUN_TP, "K7 tp4": RUN_TP,
            "K4 local seg": RUN_MISTRAL, "K1c window": RUN_MISTRAL_SPEC,
-           "K8 window": RUN_MISTRAL_PAGED, "K8c window": RUN_MISTRAL_PAGED}
+           "K8 window": RUN_MISTRAL_PAGED, "K8c window": RUN_MISTRAL_PAGED,
+           "K4 local seg idx": RUN_MISTRAL_TRAIN, "K9 local seg": RUN_MISTRAL_TRAIN,
+           "K10 local seg": RUN_MISTRAL_TRAIN}
 # a row's count where it is not the row's own key: every K2 and K1m launch
 # of the Gemma-2-9B serve is at head_dim 256, and every launch of the GPT-2
 # serves at head_dim 64 (phase 12 holds the d64 counts equal); the 27B
@@ -8458,7 +8761,8 @@ ROW_COUNT = {"K2 d256": "K2", "K1m d256": "K1m", "K4 d64": "K4", "K1 d64": "K1",
              "K4 G7": "K4", "K1 G7": "K1", "K1c G7": "K1c", "K8 G7": "K8", "K2 G7": "K2",
              "K3 Mixtral": "K3", "K4 opt": "K4 extra", "K1 shard": "K1", "K6 tp4": "K6",
              "K7 tp4": "K7", "K1c window": "K1c local", "K8 window": "K8 local",
-             "K8c window": "K8c local"}
+             "K8c window": "K8c local", "K4 local seg idx": "K4 local seg",
+             "K9 local seg": "K9 local", "K10 local seg": "K10 local"}
 
 
 def main() -> int:
@@ -8496,6 +8800,7 @@ def main() -> int:
     gpt2_train_card_vs_cpu(torch, checks)
     qwen_card_vs_cpu(torch, checks)
     mistral_card_vs_cpu(torch, checks)
+    mistral_train_card_vs_cpu(torch, checks)
     mixtral_card_vs_cpu(torch, checks, "int8", SEED + 66)
     mixtral_card_vs_cpu(torch, checks, "int4", SEED + 67)
     mixtral_train_card_vs_cpu(torch, checks)
@@ -8515,6 +8820,7 @@ def main() -> int:
     runs.update(phase_mixtral(torch, checks, smi))
     runs.update(phase_mistral(torch, checks, smi))
     runs.update(phase_mixtral_train(torch, checks, smi))
+    runs.update(phase_mistral_train(torch, checks, smi))
     runs.update(phase_lora(torch, checks, smi))
     runs.update(phase_sp_decode(torch, checks, smi))
     phase_ep_pp(torch, checks, smi)

@@ -29,6 +29,15 @@ without the softcap too (what the softcap costs); GPT-2's head_dim 64
 K4's head_dim 128 kLocal instance, Gemma-2-27B's (H=32, Hk=16, scale
 1/12, softcap 50) with the window and without: the same errors and
 bitwise checks, and the time with its TFLOP/s on the live pairs.  Versions
+that build the masked kLocal instance are held at MASKED_LOCAL_CASES too:
+Mistral-7B's widths (H=32, Hk=8, D=128, rope theta 1e4, window (4095, -1))
+with segment ids and positions, 8 prompts packed in 8192 (the window on
+the positions, clamped and with cap 50); versions whose entry takes
+``window_idx`` also with segment ids alone (the window on the indices):
+the training row's four documents in 8192, causal, online, with and
+without cap 50, and a two-sided window (64, 32) not causal over eight
+documents in 2048, each against the plain version and bitwise against the
+first version that ran it.  Versions
 whose entry takes a bias and dropout are also held at EXTRA_CASES, the
 kExtra instances (online softmax): the mask alone at phase 18's dense
 shape (B=2, S=2048, H=32, Hk=8, D=128, causal, a [2, 1, 2048, 2048] fp32
@@ -50,6 +59,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import re
 import shutil
 import subprocess
@@ -115,10 +125,12 @@ def build(name, src_dir, out_dir):
     if "keep_div" in src.read_text():
         raw = so.fatt_flash_fwd
         none = entry_args.SURFACE_ARGS[1] if entry_args.takes_surface(src) else ()
+        none += (0,) * entry_args.takes_window_idx(src)
 
         def extra(*args, raw=raw, none=none):
             return raw(*args[:-1], *none, args[-1])
-    return (fn, masked, "launch<128, false, true" in src.read_text(), extra), info
+    return (fn, masked, "launch<128, false, true" in src.read_text(), extra,
+            "launch<128, true, true" in src.read_text()), info
 
 
 def main() -> int:
@@ -156,6 +168,7 @@ def main() -> int:
     refs = {c: ff.flash_fwd_plain(q, k, v, True, D ** -0.5, cos, sin, c) for c in (True, False)}
     masked_cases = _masked_cases(torch, ff)
     local_cases = _local_cases(torch, ff)
+    masked_local = _masked_local_cases(torch, ff)
     olds = [tuple(o.split("=", 1)) for o in args.old]
     fns = {}
     for name, src in [*olds, ("this", ROOT / "flash_attn_tpu_torch" / "csrc")]:
@@ -164,7 +177,7 @@ def main() -> int:
     order = [n for n, _ in olds] + ["this", "this"] + [n for n, _ in reversed(olds)]
     first = {}  # softmax mode -> the first version's (out, lse)
     for name in order:
-        fn, masked, local128, _ = fns[name]
+        fn, masked, local128, _, masked_local128 = fns[name]
         line = []
         for clamped in (True, False):
             def call(fn=fn, clamped=clamped, none=(None,) * (5 * masked)):
@@ -191,7 +204,12 @@ def main() -> int:
             print(f"[turn] {name} with window and softcap args: " + "; ".join(
                 _local_turn(torch, fn.raw, case, first, name) for case in local_cases
                 if local128 or not case[7]), flush=True)
-    del masked_cases, local_cases
+        if masked_local128:
+            print(f"[turn] {name} masked, with window and softcap args: " + "; ".join(
+                _local_turn(torch, functools.partial(fn.raw, window_idx=case[7]), case, first,
+                            name) for case in masked_local
+                if fn.takes_window_idx or not case[7]), flush=True)
+    del masked_cases, local_cases, masked_local
     torch.cuda.empty_cache()
     ok = _extra_cases(torch, fns, [n for n, _ in olds])
     shutil.rmtree(out_dir, ignore_errors=True)
@@ -342,6 +360,54 @@ def _local_turn(torch, fn, case, first, name):
     return (f"{label} {ms:.4f} ms ({4 * H * D * n_live / ms / 1e9:.1f} TFLOP/s on "
             f"{n_live} live pairs), share {share:.3f}, lse err {lerr:.2e}, bitwise "
             f"{f_name}'s {same}")
+
+
+# (label, document lengths, S, causal, window, cap, clamped, the window on
+# the indices) of the masked kLocal cases
+MASKED_LOCAL_CASES = (
+    ("packed positions, window (4095, -1)", (4600, 1200, 800, 600, 400, 300, 200, 92), 8192,
+     False, (4095, -1), None, True, False),
+    ("packed positions, window (4095, -1), cap 50", (4600, 1200, 800, 600, 400, 300, 200, 92),
+     8192, False, (4095, -1), 50.0, True, False),
+    ("segment ids, window (4095, -1) on the indices", (4800, 2000, 900, 492), 8192, True,
+     (4095, -1), None, False, True),
+    ("segment ids, window (4095, -1) on the indices, cap 50", (4800, 2000, 900, 492), 8192, True,
+     (4095, -1), 50.0, False, True),
+    ("segment ids, window (64, 32) on the indices, not causal", (512, 300, 256, 256, 200, 300,
+     124, 100), 2048, False, (64, 32), None, False, True),
+)
+
+
+def _masked_local_cases(torch, ff):
+    """MASKED_LOCAL_CASES as _local_turn takes them: (label, args of the
+    C entry with window and softcap but the stream, out, lse, plain (out,
+    lse), live pairs, (H, D), the window on the indices, the inputs); H=32,
+    Hk=8, D=128, rope theta 1e4 on each document's positions."""
+    from chip_smoke import _packed_positions, fwd_plain
+    from flash_attn_tpu_torch.ops.rope import rope_cos_sin
+
+    g = torch.Generator(device="cuda").manual_seed(24)
+    H, Hk, D = 32, 8, 128
+    cases = []
+    for label, lens, S, causal, window, cap, clamped, idx in MASKED_LOCAL_CASES:
+        seg, pos = (x.cuda() for x in _packed_positions(torch, lens, S))
+        masks = ff.Masks(seg, seg, None, None) if idx else ff.Masks(seg, seg, pos, pos)
+        q = torch.randn((1, S, H, D), generator=g, device="cuda", dtype=torch.bfloat16)
+        k = torch.randn((1, S, Hk, D), generator=g, device="cuda", dtype=torch.bfloat16)
+        v = torch.randn((1, S, Hk, D), generator=g, device="cuda", dtype=torch.bfloat16)
+        cos, sin = rope_cos_sin(pos, D, 10000.0)
+        qm, qr = ff.tile_meta(masks.q_segment_ids, masks.q_positions, 1, S)
+        km, kr = ff.tile_meta(masks.kv_segment_ids, masks.kv_positions, 1, S)
+        out = torch.empty_like(q)
+        lse = torch.empty((1, H, S), dtype=torch.float32, device="cuda")
+        args = [t.data_ptr() for t in (q, k, v, cos, sin, out, lse, qm, km, qr, kr)]
+        args += [None, 1, S, S, H, Hk, D, 0, float(D ** -0.5 * ff.LOG2E), int(causal),
+                 int(clamped), *ff.local_args(window, cap)]
+        ref = fwd_plain((q, k, v, causal, D ** -0.5, cos, sin, clamped, masks, window, cap))
+        n_live = int(ff.live_pairs(masks, causal, S, S, "cuda", window).sum())
+        cases.append((label, args, out, lse, ref, n_live, (H, D), idx,
+                      (q, k, v, cos, sin, qm, km, qr, kr)))
+    return cases
 
 
 def _masked_cases(torch, ff):

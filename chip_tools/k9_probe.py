@@ -66,6 +66,19 @@ and dv bitwise the first version's on every case, or the probe exits 1.
 The timed cases run in turns as above; the dense bias-alone case also
 gives cuDNN's backward on the same float mask (device time by
 torch.profiler).
+Then the kLocal and kOpt instances (the window and the softcap with
+segment ids and positions, head_dim 128) on ``LOCAL_SEG_CASES``, in every
+version whose C entries take ``window_idx``: Mistral-7B's training row
+(H=32, Hk=8, four documents of 4800, 2000, 900 and 492 in 8192, rope on
+each document's positions, causal, window (4095, -1)) with segment ids
+alone (the window on the indices, the twin instance) and with segment ids
+and positions (the window on the positions), the windowed ring's first
+off-diagonal step (positions alone, 4096 queries after 4096 keys), a
+two-sided window (64, 32) not causal on the indices, and the cap-5 pair
+(S=2048, window (1023, -1), on the indices and on the positions) where
+the cap bends: each held to ``flash_bwd_plain`` by the row rule, the tile
+mutant missing everywhere and the cap's mutants where the cap bends; the
+timed ones in turns beside SDPA's backward with the same boolean mask.
 The card's name and power limit head the output.
 """
 
@@ -91,16 +104,23 @@ OPT = [P] * 4 + [P, L, L, L, L, I, U, U, F]
 NO_OPT = (None,) * 4 + (None, 0, 0, 0, 0, 0, 0, 0, 1.0)
 # (dq entry, dkv entry) argument types of each interface; "surface" is
 # "opt" with the ALiBi slopes (both) and dS (K9) after the options, passed
-# null by ``NO_SURFACE``
-SIGS = {"surface": ([P] * 10 + [I] * 7 + [F, I, I, I, F] + OPT + [P, P, P],
+# null by ``NO_SURFACE``; "idx" is "surface" with window_idx after them
+SIGS = {"idx": ([P] * 10 + [I] * 7 + [F, I, I, I, F] + OPT + [P, P, I, P],
+                [P] * 8 + [I] * 6 + [F, I, I, I, F] + OPT + [P, I, P]),
+        "surface": ([P] * 10 + [I] * 7 + [F, I, I, I, F] + OPT + [P, P, P],
                     [P] * 8 + [I] * 6 + [F, I, I, I, F] + OPT + [P, P]),
         "opt": ([P] * 10 + [I] * 7 + [F, I, I, I, F] + OPT + [P],
                 [P] * 8 + [I] * 6 + [F, I, I, I, F] + OPT + [P]),
         "local": ([P] * 10 + [I] * 7 + [F, I, I, I, F, P], [P] * 8 + [I] * 6 + [F, I, I, I, F, P]),
         "rq": ([P] * 10 + [I] * 7 + [F, I, P], [P] * 8 + [I] * 6 + [F, I, P]),
         "rotate": ([P] * 9 + [I] * 7 + [F, I, P], [P] * 10 + [I] * 7 + [F, I, P])}
-# (K9's, K10's) null surface arguments of each interface
-NO_SURFACE = {abi: (((None, None), (None,)) if abi == "surface" else ((), ())) for abi in SIGS}
+# (K9's, K10's) null surface arguments of each interface (and window_idx 0)
+NO_SURFACE = {abi: ((None, None, 0), (None, 0)) if abi == "idx" else
+              ((None, None), (None,)) if abi == "surface" else ((), ()) for abi in SIGS}
+# the interfaces that take a window and a softcap; those that take the kOpt
+# options
+LOCAL_ABIS = ("local", "opt", "surface", "idx")
+OPT_ABIS = ("opt", "surface", "idx")
 # edits of this tree's source, each (anchor, replacement, times it
 # matches): the mutant adds a `continue` after the tile's offset in each
 # loop; no_dt drops dS's factor 1 - t^2 in both passes; no_tanh caps
@@ -109,9 +129,9 @@ K9 = "    const int k0 = tile_of(t) * kRows;\n"
 K10 = "    float st[32], dpt[32];\n"
 EDITS = {"mutant": ((K9, K9 + "if (t == 1) { __syncthreads(); continue; }\n", 1),
                     (K10, "if (it == 1) { __syncthreads(); continue; }\n" + K10, 1)),
-         "no_dt": (("        if (capped) x[e] *= dt;\n", "", 2),),
-         "no_tanh": (("fatt::tanh_exp2(s[4 * j + e] * cap_in)", "(s[4 * j + e] * cap_in)", 1),
-                     ("fatt::tanh_exp2(st[4 * j + e] * cap_in)", "(st[4 * j + e] * cap_in)", 1)),
+         "no_dt": (("        if (capped) x[e] *= dt;\n", "", 4),),
+         "no_tanh": (("fatt::tanh_exp2(s[4 * j + e] * cap_in)", "(s[4 * j + e] * cap_in)", 2),
+                     ("fatt::tanh_exp2(st[4 * j + e] * cap_in)", "(st[4 * j + e] * cap_in)", 2)),
          # the staged bias read from the ring's other stage
          "bias_stage": (("bias_my + (t & 1) *", "bias_my + ((t + 1) & 1) *", 1),
                         ("bias_my + (it & 1) *", "bias_my + ((it + 1) & 1) *", 1))}
@@ -135,6 +155,21 @@ OPT_CASES = (
     ("GPT-2 bias, segments, dropout, varlen", 1, 4096, 4096, 12, 12, 64, False, "varlen64",
      (4096, 4096), True, True),
 )
+# the kLocal and kOpt cases: (name, documents (None: the ring's step),
+# S, causal, positions given, window, cap, timed); H=32, Hk=8, D=128
+LOCAL_SEG_CASES = (
+    ("Mistral packed, window on the indices", (4800, 2000, 900, 492), 8192, True, False,
+     (4095, -1), None, True),
+    ("Mistral packed, window on the positions", (4800, 2000, 900, 492), 8192, True, True,
+     (4095, -1), None, True),
+    ("ring step, positions alone", None, 4096, False, True, (4095, -1), None, False),
+    ("two-sided (64, 32) on the indices, not causal", (512, 300, 256, 256, 200, 300, 124, 100),
+     2048, False, False, (64, 32), None, False),
+    ("cap 5, window on the indices", (1024, 600, 424), 2048, True, False, (1023, -1), 5.0,
+     False),
+    ("cap 5, window on the positions", (1024, 600, 424), 2048, True, True, (1023, -1), 5.0,
+     False),
+)
 # reported, held to nothing (B, Sq, Sk, H, Hk, D, causal, rope, window, cap, q_mult)
 PEAKY = (1, 2048, 2048, 16, 8, 256, True, True, (1023, -1), 50.0, 8.0)
 
@@ -152,6 +187,8 @@ def interface(src: Path) -> str:
     text = src.read_text()
     head = text[text.index('extern "C" int fatt_flash_bwd_dq('):]
     head = head[:head.index(")")]
+    if "window_idx" in head:
+        return "idx"
     if "alibi2" in head:
         return "surface"
     if "inv_keep" in head:
@@ -166,12 +203,13 @@ def registers(ptxas: str) -> str:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             k = re.search(r"(dkv_kernel|dq_kernel)"
-                          r"(?:ILi(\d+)E(?:Lb([01])E)?(?:Lb([01])E)?(?:Lb([01])E)?)?",
-                          m.group(1))
+                          r"(?:ILi(\d+)E(?:Lb([01])E)?(?:Lb([01])E)?(?:Lb([01])E)?"
+                          r"(?:Lb([01])E)?)?", m.group(1))
             name = None if k is None else (f"{k.group(1)}<{k.group(2) or 128}"
                                            f"{', local' if k.group(3) == '1' else ''}"
                                            f"{', opt' if k.group(4) == '1' else ''}"
-                                           f"{', surface' if k.group(5) == '1' else ''}>")
+                                           f"{', surface' if k.group(5) == '1' else ''}"
+                                           f"{', idx' if k.group(6) == '1' else ''}>")
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
             spill = f"spill {m.group(1)}/{m.group(2)} bytes"
@@ -294,6 +332,73 @@ class OptCase:
         return ms, backend
 
 
+class LocalSegCase:
+    """One of LOCAL_SEG_CASES: its inputs (out and lse from this tree's
+    K4 with the same masks, window and cap; rope on the documents'
+    positions), the C entries' option arguments, the plain version's
+    outputs (per query head), the dq floor and the live pairs."""
+
+    def __init__(self, torch, name, docs, S, causal, positions, window, cap, timed):
+        from chip_smoke import _packed_positions, bwd_plain
+        from flash_attn_tpu_torch.ops import flash_bwd as fb
+        from flash_attn_tpu_torch.ops import flash_fwd as ff
+        from flash_attn_tpu_torch.ops.rope import rope_cos_sin
+
+        H, Hk, D = 32, 8, 128
+        self.name, self.S, self.H, self.Hk, self.D = name, S, H, Hk, D
+        self.causal, self.window, self.cap, self.timed = causal, window, cap, timed
+        self.scale, self.bends = D ** -0.5, cap is not None and 1.0 / cap >= 0.1
+        g = torch.Generator(device="cuda").manual_seed(9)
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=g, device="cuda", dtype=torch.bfloat16)
+
+        self.q, self.k, self.v, self.dout = rnd(1, S, H, D), rnd(1, S, Hk, D), rnd(1, S, Hk, D), \
+            rnd(1, S, H, D)
+        if docs is None:  # the ring's step: queries S..2S-1 after keys 0..S-1
+            qpos = torch.arange(S, 2 * S, device="cuda", dtype=torch.int32)[None]
+            kpos = qpos - S
+            m = ff.Masks(None, None, qpos, kpos)
+        else:
+            seg, qpos = (x.cuda() for x in _packed_positions(torch, docs, S))
+            kpos = qpos
+            m = ff.Masks(seg, seg, qpos, kpos) if positions else ff.Masks(seg, seg, None, None)
+        self.cos, self.sin = rope_cos_sin(qpos, D, 10000.0)
+        out, self.lse = ff.flash_fwd_cuda(self.q, self.k, self.v, causal, self.scale, self.cos,
+                                          self.sin, False, m, window, cap)
+        self.delta = (self.dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        del out
+        self.masks = m
+        self.tiles = ff._tiles(m, 1, S, S)  # held: opt_args takes their pointers
+        self.opt = fb.opt_args(m, None, None, 1, S, S)
+        self.local = (*ff.local_args(window, cap), ff.window_idx(window, m))
+        self.ref = bwd_plain((self.q, self.k, self.v, self.dout, self.lse, self.delta, causal,
+                              self.scale, self.cos, self.sin, window, cap, m))
+        live = ff.live_pairs(m, causal, S, S, "cuda", window)
+        counts = live.sum(-1)[..., None].expand(-1, -1, H)
+        self.floor = torch.where(counts < 2, 2.0 ** -12 * float(self.ref[0].abs().max()), 1e-6)
+        self.live = live
+        self.gemm = 2 * D * H * int(live.sum())
+
+    def sdpa_ms(self, torch):
+        """SDPA's backward with the same boolean mask (device time), and
+        its backend."""
+        import torch.nn.functional as F
+
+        from chip_smoke import sdpa_bwd_device_ms
+        from flash_attn_tpu_torch.ops.rope import rope_rotate
+
+        qt = rope_rotate(self.q, self.cos, self.sin).transpose(1, 2).contiguous()
+        qt.requires_grad_(True)
+        kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (self.k, self.v))
+        o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=self.live[:, None],
+                                           scale=self.scale, enable_gqa=True)
+        do_t = self.dout.transpose(1, 2).contiguous()
+        ms, backend, _ = sdpa_bwd_device_ms(
+            torch, lambda: torch.autograd.grad(o, (qt, kt, vt), do_t, retain_graph=True), calls=5)
+        return ms, backend
+
+
 class Case:
     """One of chip_smoke.py's BWD_CASES (Sq = Sk, causal): its inputs,
     references and operation count."""
@@ -403,12 +508,12 @@ def main() -> int:
         ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
         common = [ptr(t) for t in (c.q, c.k, c.v, c.dout, c.lse, c.delta, c.cos, c.sin)]
         local = ()
-        if abi in ("local", "opt", "surface"):
+        if abi in LOCAL_ABIS:
             local = (*(c.window or (-1, -1)), 0.0 if c.cap is None else c.cap * 1.4426950408889634)
-        if abi in ("opt", "surface"):
+        if abi in OPT_ABIS:
             local += NO_OPT
         s9, s10 = NO_SURFACE[abi]
-        if abi in ("local", "rq", "opt", "surface"):
+        if abi in ("rq", *LOCAL_ABIS):
             c9 = lambda: f9(*common, ptr(dq), ptr(rq), B, S, S, H, Hk, D, 0, c.scale, 1,  # noqa
                             *local, *s9, stream())
             c10 = lambda: f10(ptr(rq), *common[1:6], ptr(dk), ptr(dv), B, S, S, H, Hk, D,  # noqa
@@ -434,7 +539,7 @@ def main() -> int:
     cases = [(x, True) for x in BWD_CASES if x.row is not None or x.bends]
     for bc, bound in cases + [(BwdCase(*PEAKY), False)]:
         c = Case(torch, bc)
-        labels = [n for n, src in srcs if (c.D == 128 or libs[n][0] in ("local", "opt", "surface"))
+        labels = [n for n, src in srcs if (c.D == 128 or libs[n][0] in LOCAL_ABIS)
                   and takes(Path(src), c) and (n not in CAP_MUTANTS or c.cap is not None)
                   and n not in BIAS_MUTANTS]
         first = None
@@ -505,7 +610,7 @@ def main() -> int:
         c = OptCase(torch, *spec)
         label_of = (f"{c.name} (B={c.B}, Sq={c.Sq}, Sk={c.Sk}, H={c.H}, Hk={c.Hk}, D={c.D}, "
                     f"{'causal' if c.causal else 'not causal'})")
-        labels = [n for n, _ in srcs if libs[n][0] in ("opt", "surface") and n not in CAP_MUTANTS
+        labels = [n for n, _ in srcs if libs[n][0] in OPT_ABIS and n not in CAP_MUTANTS
                   and (n not in BIAS_MUTANTS or c.has_bias)]
         first = None
         for label in labels:
@@ -547,6 +652,66 @@ def main() -> int:
         torch.cuda.empty_cache()
     print(f"[opt] every version bitwise {srcs[0][0]}'s on every kOpt case: {all_bitwise}",
           flush=True)
+
+    def local_seg_runner(name, c):
+        """(K9 call, K10 call, outputs) of version ``name`` on
+        LocalSegCase ``c``."""
+        _, (f9, f10), _ = libs[name]
+        S, H, Hk, D = c.S, c.H, c.Hk, c.D
+        dq = torch.empty((1, S, H, D), dtype=torch.float32, device="cuda")
+        rq = torch.empty_like(c.q)
+        dk = torch.empty((1, H, S, D), dtype=torch.float32, device="cuda")
+        dv = torch.empty_like(dk)
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        common = [ptr(t) for t in (c.q, c.k, c.v, c.dout, c.lse, c.delta, c.cos, c.sin)]
+        wl, wr, cap2, idx = c.local
+        c9 = lambda: f9(*common, ptr(dq), ptr(rq), 1, S, S, H, Hk, D, 0, c.scale,  # noqa
+                        int(c.causal), wl, wr, cap2, *c.opt, None, None, idx, stream())
+        c10 = lambda: f10(ptr(rq), *common[1:6], ptr(dk), ptr(dv), 1, S, S, H, Hk, D,  # noqa
+                          c.scale, int(c.causal), wl, wr, cap2, *c.opt, None, idx, stream())
+        return c9, c10, lambda: (dq, dk, dv)
+
+    for spec in LOCAL_SEG_CASES:
+        c = LocalSegCase(torch, *spec)
+        label_of = (f"{c.name} (B=1, S={c.S}, H={c.H}, Hk={c.Hk}, D={c.D}, "
+                    f"{'causal' if c.causal else 'not causal'}, window {c.window}"
+                    f"{f', cap {c.cap:g}' if c.cap else ''})")
+        labels = [n for n, _ in srcs if libs[n][0] == "idx" and n not in BIAS_MUTANTS
+                  and (n not in CAP_MUTANTS or c.cap is not None)]
+        first = None
+        for label in labels:
+            c9, c10, outs = local_seg_runner(label, c)
+            assert c9() == 0 and c10() == 0, label
+            torch.cuda.synchronize()
+            got = outs()
+            first = first or tuple(x.clone() for x in got)
+            same = all(torch.equal(a, b) for a, b in zip(got, first))
+            shares = [row_err(got[0], c.ref[0], floor=c.floor)[1], row_err(got[1], c.ref[1])[1],
+                      row_err(got[2], c.ref[2])[1]]
+            held = max(shares) <= 1.0
+            must_miss = label == "mutant" or (label in CAP_MUTANTS and c.bends)
+            if label not in CAP_MUTANTS or c.bends:
+                ok = ok and (not held if must_miss else held)
+            note = (" (must miss)" if must_miss else " (not bound to miss: the cap does not "
+                    "bend here)" if label in CAP_MUTANTS else "")
+            print(f"[local seg] {label_of}, {label}: share of the row tolerance dq "
+                  f"{shares[0]:.3f}, dk {shares[1]:.3f}, dv {shares[2]:.3f}; bitwise "
+                  f"{labels[0]}'s {same}; {'held' if held else 'missed'}{note}", flush=True)
+        if c.timed:
+            for label in [n for n in labels if n not in EDITS] * 2:
+                c9, c10, _ = local_seg_runner(label, c)
+                ms9, ms10 = cuda_ms(torch, c9), cuda_ms(torch, c10)
+                g9, g10 = graph_ms(torch, c9), graph_ms(torch, c10)
+                print(f"[local seg turn] {label_of}, {label}: K9 {ms9:.4f} ms (graph {g9:.4f}, "
+                      f"{3 * c.gemm / g9 / 1e9:.1f} TFLOP/s on {c.gemm // (2 * c.D * c.H)} live "
+                      f"pairs a head); K10 {ms10:.4f} ms (graph {g10:.4f}, "
+                      f"{4 * c.gemm / g10 / 1e9:.1f} TFLOP/s)", flush=True)
+            lib_ms, backend = c.sdpa_ms(torch)
+            print(f"[local seg library] {label_of}: SDPA's backward with the same boolean mask, "
+                  f"device time {'not measured' if lib_ms is None else f'{lib_ms:.4f}'} ms "
+                  f"(backend {backend})", flush=True)
+        del c
+        torch.cuda.empty_cache()
     shutil.rmtree(out_dir, ignore_errors=True)
     print(f"[probe] {'ok' if ok else 'FAIL'}", flush=True)
     return 0 if ok else 1

@@ -37,7 +37,9 @@ U = ctypes.c_uint32
 # f32(1 - rate) (K4) or 1 / (1 - rate) (K9, K10)
 _EXTRA = [P, L, L, L, L, I, U, U, F]
 # after them, K4 takes the ALiBi slopes, return_softmax's two buffers and
-# the clamped_verify flags; K9 the slopes and dS; K10 the slopes
+# the clamped_verify flags; K9 the slopes and dS; K10 the slopes; then all
+# three window_idx (the window on the indices of segment ids without
+# positions)
 
 # C entry point -> argument types (every pointer and the stream as c_void_p)
 _SIGNATURES = {
@@ -54,15 +56,15 @@ _SIGNATURES = {
     "fatt_matmul_float_q": [P, P, P, P, P, I, I, I, I, I, I, I, I, P],
     "fatt_matmul_s8_q": [P, P, P, P, P, P, I, I, I, I, I, I, I, P],
     "fatt_flash_fwd": [P, P, P, P, P, P, P, P, P, P, P, P,
-                       I, I, I, I, I, I, I, F, I, I, I, I, F, *_EXTRA, P, P, P, P, P],
+                       I, I, I, I, I, I, I, F, I, I, I, I, F, *_EXTRA, P, P, P, P, I, P],
     "fatt_paged_decode": [P, P, P, P, P, P, P, P, P, P, P, P,
                           I, I, I, I, I, I, I, I, F, I, F, P],
     "fatt_paged_decode_local": [P, P, P, P, P, P, P, P, P, P, P, P,
                                 I, I, I, I, I, I, I, I, F, I, F, I, F, P],
     "fatt_flash_bwd_dq": [P, P, P, P, P, P, P, P, P, P,
-                          I, I, I, I, I, I, I, F, I, I, I, F, P, P, P, P, *_EXTRA, P, P, P],
+                          I, I, I, I, I, I, I, F, I, I, I, F, P, P, P, P, *_EXTRA, P, P, I, P],
     "fatt_flash_bwd_dkv": [P, P, P, P, P, P, P, P,
-                           I, I, I, I, I, I, F, I, I, I, F, P, P, P, P, *_EXTRA, P, P],
+                           I, I, I, I, I, I, F, I, I, I, F, P, P, P, P, *_EXTRA, P, I, P],
     "fatt_lse_merge": [P, P, P, P, I, L, I, I, P],
     "fatt_ring_attn": [P, P, P, P, P, I, I, I, I, I, I, I, I, F, P, P],
 }

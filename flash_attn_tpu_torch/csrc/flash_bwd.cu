@@ -8,7 +8,8 @@
 // on the subset the GPT-2, Llama and Gemma-2 training steps and the C ABI's
 // backward entry points use (the window and the softcap at head_dim 128
 // and 256; segment ids, positions, an additive bias, dropout, ALiBi and
-// dbias at head_dim 64 and 128).  K9 runs first: it rotates q once and
+// dbias at head_dim 64 and 128; segment ids and positions with the window
+// and the softcap at 128).  K9 runs first: it rotates q once and
 // writes R(q), which K10 streams as it is.
 //
 // Bound on the H100: operations at D = 128 and 256, bytes at D = 64.  At
@@ -123,6 +124,27 @@
 //     rate) : 0 before ds = p (dp - delta), and K10's dv takes P dropped
 //     alike; ds keeps the undropped P.  Whether to replay is one branch a
 //     tile between two copies of the element loop, not one an element.
+// The window and the softcap with segment ids and positions (kLocal and
+// kOpt: one head_dim 128 instance a pass, and its twin kWinIdx; training
+// a windowed Llama such as Mistral-7B on packed documents, the windowed
+// ring), neither with a bias, dropout, ALiBi or dS:
+//   * with positions the window compares them (flash_bwd.py:87-95, as K4's
+//     masked kLocal instance does): the index range of the kLocal walk
+//     does not bound it; the list's tile test also drops a tile whose
+//     positions lie outside the window of the block's (K9: the key tile's
+//     greatest position below the query rows' least - left, or its least
+//     above their greatest + right), and a tile is live throughout only if
+//     every pair lies inside the window as well as in one segment;
+//   * without positions (kWinIdx: segment ids alone, as llama.forward
+//     packs documents) the window compares the bottom-right aligned
+//     indices: the kLocal walk's index range bounds the list, its index
+//     edges mark the tiles to mask, and the list's test is the segments'
+//     alone (the positions are 0 there).  A tile dead by the window and
+//     live by the segments, or the reverse, is skipped or masked by
+//     whichever test says so;
+//   * the softcap is the kLocal one (the forward's tanh; dS times 1 - t^2
+//     for dq and dk, dv takes P); the bias staging and the dropout replay
+//     are compiled out of these instances.
 // ALiBi and dbias (kSurface: instances of their own beside the kOpt ones,
 // which they extend, at head dims 64 and 128; the C entries pick them when
 // the slopes or dS are given; flash_bwd.py:75-80, 247-264, 549-611).
@@ -241,6 +263,23 @@ __device__ __forceinline__ int4 tile_range(const int4* ranges, int t0, int n, in
 __device__ __forceinline__ bool ranges_live(int4 qr, int4 kr, bool& full) {
   full = qr.x == qr.z && kr.x == kr.z && kr.x == qr.x && kr.w <= qr.y;
   return kr.z >= qr.x && kr.x <= qr.z && kr.y <= qr.w;
+}
+
+// ranges_live with the window (left, right; -1 open) on the positions:
+// some kv position can lie within [q - left, q + right] of some q position;
+// full also wants every pair within it.
+__device__ __forceinline__ bool ranges_live_window(int4 qr, int4 kr, int wleft, int wright,
+                                                   bool& full) {
+  bool live = ranges_live(qr, kr, full);
+  if (wleft >= 0) {
+    live = live && kr.w >= qr.y - wleft;
+    full = full && kr.y >= qr.w - wleft;
+  }
+  if (wright >= 0) {
+    live = live && kr.y <= qr.w + wright;
+    full = full && kr.w <= qr.y + wright;
+  }
+  return live;
 }
 
 // The geometry of head dim kD (64, 128 or 256); kLocalT: the window and
@@ -363,8 +402,10 @@ __device__ __forceinline__ float lse_base2(float lse) {
 // softcap (softcap2, the cap in base-2 units; 0 for none); the others
 // ignore all three.  The kOpt instances apply o (segment ids, positions,
 // the bias, dropout), the kSurface ones (kOpt too) also its ALiBi slopes
-// and dS; the others ignore it.
-template <int kD, bool kLocal, bool kOpt, bool kSurface = false>
+// and dS; the others ignore it.  kLocal and kOpt together: segment ids
+// and positions only, the window on the positions, or on the indices in
+// the kWinIdx twin.
+template <int kD, bool kLocal, bool kOpt, bool kSurface = false, bool kWinIdx = false>
 __global__ void __launch_bounds__(Geo<kD, kLocal, kOpt>::kDqThreads,
                                   Geo<kD, kLocal, kOpt>::kDqMinBlocks) dq_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
@@ -392,6 +433,11 @@ __global__ void __launch_bounds__(Geo<kD, kLocal, kOpt>::kDqThreads,
   const int tid = threadIdx.x, lane = tid & 31, warp = (tid >> 5) & 3, wg = tid >> 7;
   const int row0 = qt * kBlockRows;
   const int shift = Sk - Sq;  // bottom-right causal alignment
+  // the window compares the indices (kLocal, without masks or kWinIdx) or
+  // the positions (kLocal and kOpt); kExtras: the bias and dropout
+  constexpr bool kIdxWindow = G::kLocal && (!G::kOpt || kWinIdx);
+  constexpr bool kPosWindow = G::kLocal && G::kOpt && !kWinIdx;
+  constexpr bool kExtras = G::kOpt && !G::kLocal;
 
   // The key tiles some row of the block sees: causal and the window's
   // right edge bound them above (at the block's last row), the window's
@@ -400,7 +446,7 @@ __global__ void __launch_bounds__(Geo<kD, kLocal, kOpt>::kDqThreads,
   if (causal) kv_end = min(Sk, min(row0 + kBlockRows - 1, Sq - 1) + shift + 1);
   int t_first = 0;
   int n_tiles = kv_end > 0 ? (kv_end + kRows - 1) / kRows : 0;
-  if constexpr (G::kLocal) {
+  if constexpr (kIdxWindow) {
     const int row_last = min(row0 + kBlockRows - 1, Sq - 1);
     if (wright >= 0) kv_end = min(kv_end, row_last + shift + wright + 1);
     const int kv_begin = wleft >= 0 ? max(0, row0 + shift - wleft) : 0;
@@ -419,8 +465,12 @@ __global__ void __launch_bounds__(Geo<kD, kLocal, kOpt>::kDqThreads,
       const int4 qr = tile_range(o.qrange + (int64_t)b * nq64, row0 / kRows,
                                  kBlockRows / kRows, nq64);
       const int4* kr = o.krange + (int64_t)b * nk64;
-      n_live = build_list<kThreads>(list, warp_live, t_first, n_tiles,
-                                    [&](int t, bool& full) { return ranges_live(qr, kr[t], full); });
+      n_live = build_list<kThreads>(list, warp_live, t_first, n_tiles, [&](int t, bool& full) {
+        if constexpr (kPosWindow)
+          return ranges_live_window(qr, kr[t], wleft, wright, full);
+        else
+          return ranges_live(qr, kr[t], full);
+      });
     }
   }
   // key tile of the walk's step i, and whether no segment or position
@@ -433,7 +483,7 @@ __global__ void __launch_bounds__(Geo<kD, kLocal, kOpt>::kDqThreads,
   const float* bias_bh = nullptr;
   int bias_vec = 0;
   const uint32_t bias_ring = s_base + G::kDqSmem + G::kListBytes;
-  if constexpr (G::kOpt) {
+  if constexpr (kExtras) {
     if (o.bias != nullptr) {
       bias_bh = o.bias + b * o.bs_b + h * o.bs_h;
       bias_vec = fatt::bias_piece(bias_bh, o.bs_q, o.bs_k);
@@ -594,7 +644,7 @@ __global__ void __launch_bounds__(Geo<kD, kLocal, kOpt>::kDqThreads,
     // this warp's diagonal, a window edge of its rows or Sk's edge crosses
     // the tile, packed to bf16 A fragments (keys 16c..16c+15).
     bool edge = k0 + kRows > Sk || (causal && k0 + kRows - 1 > wrow0 + shift);
-    if constexpr (G::kLocal) {
+    if constexpr (kIdxWindow) {
       if (wright >= 0) edge = edge || k0 + kRows - 1 > wrow0 + shift + wright;
       if (wleft >= 0) edge = edge || k0 < wrow0 + 15 + shift - wleft;
     }
@@ -629,9 +679,10 @@ __global__ void __launch_bounds__(Geo<kD, kLocal, kOpt>::kDqThreads,
         dsf[j / 2][(j & 1) * 2 + 1] = fatt::pack_bf16(x[2], x[3]);
       }
     } else {
-      // kOpt (no window, no cap): the bias on the scores, the segment and
-      // position masks where the list does not say the tile is live
-      // throughout, and the dropout's replay on dP
+      // kOpt: the bias on the scores, the segment and position masks where
+      // the list does not say the tile is live throughout, and the
+      // dropout's replay on dP; with kLocal (no bias, no dropout) the
+      // softcap and the window instead
       const bool seg_mask = !full_at(t);
       edge = edge || seg_mask;
       // the tile's elements with the dropout's replay (kDrop) or without:
@@ -655,12 +706,30 @@ __global__ void __launch_bounds__(Geo<kD, kLocal, kOpt>::kDqThreads,
             if constexpr (kSurface) {
               if (has_alibi) a = fmaf(-slope2, (float)abs(row + shift - col), a);
             }
-            float p = exp2f(fmaf(s[4 * j + e], sl2, a));
+            float p;
+            [[maybe_unused]] float dt = 1.f;
+            if constexpr (G::kLocal) {
+              if (capped) {
+                const float tc = fatt::tanh_exp2(s[4 * j + e] * cap_in);
+                p = exp2f(fmaf(tc, softcap2, a));
+                dt = 1.f - tc * tc;
+              } else {
+                p = exp2f(fmaf(s[4 * j + e], sl2, a));
+              }
+            } else {
+              p = exp2f(fmaf(s[4 * j + e], sl2, a));
+            }
             if (edge) {
               bool dead = col >= Sk || (causal && col > row + shift);
+              if constexpr (kIdxWindow)
+                dead = dead || (wleft >= 0 && col < row + shift - wleft) ||
+                       (wright >= 0 && col > row + shift + wright);
               if (seg_mask) {
                 const int kseg = (e & 1) ? km.z : km.x, kpos = (e & 1) ? km.w : km.y;
                 dead = dead || kseg != qm[e >> 1].x || kpos > qm[e >> 1].y;
+                if constexpr (kPosWindow)
+                  dead = dead || (wleft >= 0 && kpos < qm[e >> 1].y - wleft) ||
+                         (wright >= 0 && kpos > qm[e >> 1].y + wright);
               }
               if (dead) p = 0.f;
             }
@@ -668,6 +737,9 @@ __global__ void __launch_bounds__(Geo<kD, kLocal, kOpt>::kDqThreads,
             if constexpr (kDrop)
               dpv = fatt::drop_keep(drop_rows[e >> 1], col, o.threshold) ? dpv * o.inv_keep : 0.f;
             x[e] = p * (dpv - dl[e >> 1]);
+            if constexpr (G::kLocal) {
+              if (capped) x[e] *= dt;
+            }
           }
           if constexpr (kSurface) {
             // dbias: this thread's dS pairs, rows my_row and my_row + 8
@@ -681,7 +753,7 @@ __global__ void __launch_bounds__(Geo<kD, kLocal, kOpt>::kDqThreads,
           dsf[j / 2][(j & 1) * 2 + 1] = fatt::pack_bf16(x[2], x[3]);
         }
       };
-      if (o.dropout)
+      if (kExtras && o.dropout)
         elements(std::true_type{});
       else
         elements(std::false_type{});
@@ -733,7 +805,7 @@ __global__ void __launch_bounds__(Geo<kD, kLocal, kOpt>::kDqThreads,
   }
 }
 
-template <int kD, bool kLocal, bool kOpt, bool kSurface = false>
+template <int kD, bool kLocal, bool kOpt, bool kSurface = false, bool kWinIdx = false>
 __global__ void __launch_bounds__(Geo<kD, kLocal, kOpt>::kDkvThreads, 1) dkv_kernel(
     const __nv_bfloat16* __restrict__ rq, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
@@ -757,6 +829,10 @@ __global__ void __launch_bounds__(Geo<kD, kLocal, kOpt>::kDkvThreads, 1) dkv_ker
   const int tid = threadIdx.x, lane = tid & 31, warp = (tid >> 5) & 3, wg = tid >> 7;
   const int k0 = kt * kBlockRows;
   const int shift = Sk - Sq;
+  // as K9's
+  constexpr bool kIdxWindow = G::kLocal && (!G::kOpt || kWinIdx);
+  constexpr bool kPosWindow = G::kLocal && G::kOpt && !kWinIdx;
+  constexpr bool kExtras = G::kOpt && !G::kLocal;
 
   // First live query tile: (k0, qt) is live iff k0 <= qt*64 + 63 + shift.
   int qt0 = 0;
@@ -765,7 +841,7 @@ __global__ void __launch_bounds__(Geo<kD, kLocal, kOpt>::kDkvThreads, 1) dkv_ker
     qt0 = t > 0 ? (t + kRows - 1) / kRows : 0;
   }
   int n_iter = max((Sq + kRows - 1) / kRows - qt0, 0);
-  if constexpr (G::kLocal) {
+  if constexpr (kIdxWindow) {
     // the window's right edge bounds the first live query tile as causal
     // does; its left edge the last: the last tile whose first row lies
     // within the block's last key + left
@@ -791,8 +867,12 @@ __global__ void __launch_bounds__(Geo<kD, kLocal, kOpt>::kDkvThreads, 1) dkv_ker
       const int4 kr = tile_range(o.krange + (int64_t)b * nk64, k0 / kRows,
                                  kBlockRows / kRows, nk64);
       const int4* qr = o.qrange + (int64_t)b * nq64;
-      n_iter = build_list<kThreads>(list, warp_live, qt0, n_iter,
-                                    [&](int t, bool& full) { return ranges_live(qr[t], kr, full); });
+      n_iter = build_list<kThreads>(list, warp_live, qt0, n_iter, [&](int t, bool& full) {
+        if constexpr (kPosWindow)
+          return ranges_live_window(qr[t], kr, wleft, wright, full);
+        else
+          return ranges_live(qr[t], kr, full);
+      });
     }
   }
   // query tile of the walk's step it, and whether no segment or position
@@ -805,7 +885,7 @@ __global__ void __launch_bounds__(Geo<kD, kLocal, kOpt>::kDkvThreads, 1) dkv_ker
   const float* bias_bh = nullptr;
   int bias_vec = 0;
   const uint32_t bias_ring = s_base + G::kDkvSmem + G::kListBytes;
-  if constexpr (G::kOpt) {
+  if constexpr (kExtras) {
     if (o.bias != nullptr) {
       bias_bh = o.bias + b * o.bs_b + h * o.bs_h;
       bias_vec = fatt::bias_piece(bias_bh, o.bs_q, o.bs_k);
@@ -903,7 +983,7 @@ __global__ void __launch_bounds__(Geo<kD, kLocal, kOpt>::kDkvThreads, 1) dkv_ker
     // edge crosses the tile, packed to bf16 A fragments (queries
     // 16c..16c+15).
     bool edge = wkey0 + 16 > Sk || q0 + kRows > Sq || (causal && wkey0 + 15 > q0 + shift);
-    if constexpr (G::kLocal) {
+    if constexpr (kIdxWindow) {
       if (wleft >= 0) edge = edge || wkey0 < q0 + kRows - 1 + shift - wleft;
       if (wright >= 0) edge = edge || wkey0 + 15 > q0 + shift + wright;
     }
@@ -943,9 +1023,10 @@ __global__ void __launch_bounds__(Geo<kD, kLocal, kOpt>::kDkvThreads, 1) dkv_ker
         dsf[j / 2][(j & 1) * 2 + 1] = fatt::pack_bf16(x[2], x[3]);
       }
     } else {
-      // kOpt (no window, no cap): the bias on the scores, the segment and
-      // position masks where the list does not say the tile is live
-      // throughout, and the dropout's replay on P (for dv) and dP
+      // kOpt: the bias on the scores, the segment and position masks where
+      // the list does not say the tile is live throughout, and the
+      // dropout's replay on P (for dv) and dP; with kLocal (no bias, no
+      // dropout) the softcap and the window instead
       const bool seg_mask = !full_at(it);
       edge = edge || seg_mask;
       const float* bias_t = bias_my + (it & 1) * (G::kDkvBiasStage / 4);
@@ -974,12 +1055,30 @@ __global__ void __launch_bounds__(Geo<kD, kLocal, kOpt>::kDkvThreads, 1) dkv_ker
             if constexpr (kSurface) {
               if (has_alibi) a = fmaf(-slope2, (float)abs(col + shift - key), a);
             }
-            float p = exp2f(fmaf(st[4 * j + e], sl2, a));
+            float p;
+            [[maybe_unused]] float dt = 1.f;
+            if constexpr (G::kLocal) {
+              if (capped) {
+                const float tc = fatt::tanh_exp2(st[4 * j + e] * cap_in);
+                p = exp2f(fmaf(tc, softcap2, a));
+                dt = 1.f - tc * tc;
+              } else {
+                p = exp2f(fmaf(st[4 * j + e], sl2, a));
+              }
+            } else {
+              p = exp2f(fmaf(st[4 * j + e], sl2, a));
+            }
             if (edge) {
               bool dead = key >= Sk || col >= Sq || (causal && key > col + shift);
+              if constexpr (kIdxWindow)
+                dead = dead || (wleft >= 0 && key < col + shift - wleft) ||
+                       (wright >= 0 && key > col + shift + wright);
               if (seg_mask) {
                 const int qseg = (e & 1) ? qm.z : qm.x, qpos = (e & 1) ? qm.w : qm.y;
                 dead = dead || km[e >> 1].x != qseg || km[e >> 1].y > qpos;
+                if constexpr (kPosWindow)
+                  dead = dead || (wleft >= 0 && km[e >> 1].y < qpos - wleft) ||
+                         (wright >= 0 && km[e >> 1].y > qpos + wright);
               }
               if (dead) p = 0.f;
             }
@@ -991,6 +1090,9 @@ __global__ void __launch_bounds__(Geo<kD, kLocal, kOpt>::kDkvThreads, 1) dkv_ker
               pd[e] = keep ? p * o.inv_keep : 0.f;
             }
             x[e] = p * (dpv - dl[e & 1]);
+            if constexpr (G::kLocal) {
+              if (capped) x[e] *= dt;
+            }
           }
           pf[j / 2][(j & 1) * 2] = fatt::pack_bf16(pd[0], pd[1]);
           pf[j / 2][(j & 1) * 2 + 1] = fatt::pack_bf16(pd[2], pd[3]);
@@ -998,7 +1100,7 @@ __global__ void __launch_bounds__(Geo<kD, kLocal, kOpt>::kDkvThreads, 1) dkv_ker
           dsf[j / 2][(j & 1) * 2 + 1] = fatt::pack_bf16(x[2], x[3]);
         }
       };
-      if (o.dropout)
+      if (kExtras && o.dropout)
         elements(std::true_type{});
       else
         elements(std::false_type{});
@@ -1052,7 +1154,7 @@ bool shape_ok(int B, int Sq, int Sk, int H, int Hk, int D, int causal, int wleft
          !(D == 256 && !causal);
 }
 
-template <int kD, bool kLocal, bool kOpt, bool kSurface = false>
+template <int kD, bool kLocal, bool kOpt, bool kSurface = false, bool kWinIdx = false>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
               const void* delta, const void* cosv, const void* sinv, void* dq, void* rq,
               int B, int Sq, int Sk, int H, int Hk, int rope_bstride, float scale, int causal,
@@ -1062,12 +1164,12 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
   constexpr int kSmem = G::kDqSmem + G::kListBytes;
   static fatt::SmemLimitSet smem_set;
   cudaError_t e =
-      fatt::smem_limit_once(dq_kernel<kD, kLocal, kOpt, kSurface>, kSmem + G::kDqBiasBytes,
-                            smem_set);
+      fatt::smem_limit_once(dq_kernel<kD, kLocal, kOpt, kSurface, kWinIdx>,
+                            kSmem + G::kDqBiasBytes, smem_set);
   if (e != cudaSuccess) return (int)e;
   const int smem = kSmem + (o.bias != nullptr ? G::kDqBiasBytes : 0);
   dim3 grid(H, B, (Sq + G::kDqRows - 1) / G::kDqRows);
-  dq_kernel<kD, kLocal, kOpt, kSurface><<<grid, G::kDqThreads, smem, st>>>(
+  dq_kernel<kD, kLocal, kOpt, kSurface, kWinIdx><<<grid, G::kDqThreads, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -1077,7 +1179,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
   return (int)cudaGetLastError();
 }
 
-template <int kD, bool kLocal, bool kOpt, bool kSurface = false>
+template <int kD, bool kLocal, bool kOpt, bool kSurface = false, bool kWinIdx = false>
 int launch_dkv(const void* rq, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv, int B, int Sq, int Sk,
                int H, int Hk, float scale, int causal, int wleft, int wright, float softcap2,
@@ -1087,12 +1189,12 @@ int launch_dkv(const void* rq, const void* k, const void* v, const void* dout,
   constexpr int kSmem = G::kDkvSmem + G::kListBytes;
   static fatt::SmemLimitSet smem_set;
   cudaError_t e =
-      fatt::smem_limit_once(dkv_kernel<kD, kLocal, kOpt, kSurface>, kSmem + G::kDkvBiasBytes,
-                            smem_set);
+      fatt::smem_limit_once(dkv_kernel<kD, kLocal, kOpt, kSurface, kWinIdx>,
+                            kSmem + G::kDkvBiasBytes, smem_set);
   if (e != cudaSuccess) return (int)e;
   const int smem = kSmem + (o.bias != nullptr ? G::kDkvBiasBytes : 0);
   dim3 grid(H, B, (Sk + G::kDkvRows - 1) / G::kDkvRows);
-  dkv_kernel<kD, kLocal, kOpt, kSurface><<<grid, G::kDkvThreads, smem, st>>>(
+  dkv_kernel<kD, kLocal, kOpt, kSurface, kWinIdx><<<grid, G::kDkvThreads, smem, st>>>(
       static_cast<const __nv_bfloat16*>(rq), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -1103,15 +1205,17 @@ int launch_dkv(const void* rq, const void* k, const void* v, const void* dout,
 
 // The kOpt arguments of a C entry, checked: the four tile-metadata
 // pointers all or none (with at most kMaxListTiles tiles a side), kOpt
-// only at head_dim 64 and 128 without a window or softcap.  Sets opt when
-// any option is given.
+// only at head_dim 64 and 128, and with a window or softcap only the tile
+// metadata, at head_dim 128.  Sets opt when any option is given.
 bool opt_ok(const Opt& o, int Sq, int Sk, int D, bool local, bool& opt) {
   const int given = (o.qmeta != nullptr) + (o.kmeta != nullptr) + (o.qrange != nullptr) +
                     (o.krange != nullptr);
-  opt = given != 0 || o.bias != nullptr || o.dropout != 0 || o.alibi2 != nullptr ||
-        o.ds != nullptr;
+  const bool extra = o.bias != nullptr || o.dropout != 0 || o.alibi2 != nullptr ||
+                     o.ds != nullptr;
+  opt = given != 0 || extra;
   if (!opt) return true;
-  return (given == 0 || given == 4) && (D == 64 || D == 128) && !local &&
+  return (given == 0 || given == 4) && (D == 64 || D == 128) &&
+         !(local && (D != 128 || extra)) &&
          (Sq + kRows - 1) / kRows <= kMaxListTiles && (Sk + kRows - 1) / kRows <= kMaxListTiles &&
          (o.dropout == 0 || o.inv_keep > 0.f);
 }
@@ -1131,7 +1235,11 @@ bool opt_ok(const Opt& o, int Sq, int Sk, int D, bool local, bool& opt) {
 // the seed's bits, the keep threshold and inv_keep = f32(1 / (1 - rate)).
 // alibi2: null, or [H] fp32 ALiBi slopes times log2 e.  ds: null, or fp32
 // [B, H, Sq, Sk], zero-filled, for dS (the bias's gradient before any
-// broadcast).  These at head_dim 64 and 128, without a window or softcap.
+// broadcast).  These at head_dim 64 and 128, without a window or softcap,
+// but for the tile metadata, which takes both at head_dim 128.
+// window_idx: nonzero where the tile metadata carries segment ids without
+// positions and a window is given: the window then compares the indices
+// (else the positions); ignored otherwise.
 extern "C" int fatt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse, const void* delta,
                                  const void* cosv, const void* sinv, void* dq, void* rq,
@@ -1142,7 +1250,7 @@ extern "C" int fatt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const float* bias, int64_t bs_b, int64_t bs_h, int64_t bs_q,
                                  int64_t bs_k, int dropout, uint32_t seed, uint32_t threshold,
                                  float inv_keep, const float* alibi2, float* ds,
-                                 void* stream) {
+                                 int window_idx, void* stream) {
   const Opt o{static_cast<const int2*>(qmeta), static_cast<const int2*>(kmeta),
               static_cast<const int4*>(qrange), static_cast<const int4*>(krange), bias, bs_b,
               bs_h, bs_q, bs_k, dropout, seed, threshold, inv_keep, alibi2, ds};
@@ -1152,21 +1260,24 @@ extern "C" int fatt_flash_bwd_dq(const void* q, const void* k, const void* v,
       !opt_ok(o, Sq, Sk, D, local, opt))
     return (int)cudaErrorInvalidValue;
   const bool surface = alibi2 != nullptr || ds != nullptr;
-  auto fn = D == 256  ? launch_dq<256, true, false>
-            : D == 64 ? (surface ? launch_dq<64, false, true, true>
-                         : opt   ? launch_dq<64, false, true>
-                                 : launch_dq<64, false, false>)
-            : surface ? launch_dq<128, false, true, true>
-            : opt     ? launch_dq<128, false, true>
-            : local   ? launch_dq<128, true, false>
-                      : launch_dq<128, false, false>;
+  auto fn = D == 256        ? launch_dq<256, true, false>
+            : D == 64       ? (surface ? launch_dq<64, false, true, true>
+                               : opt   ? launch_dq<64, false, true>
+                                       : launch_dq<64, false, false>)
+            : surface       ? launch_dq<128, false, true, true>
+            : opt && local  ? (window_idx ? launch_dq<128, true, true, false, true>
+                                          : launch_dq<128, true, true>)
+            : opt           ? launch_dq<128, false, true>
+            : local         ? launch_dq<128, true, false>
+                            : launch_dq<128, false, false>;
   return fn(q, k, v, dout, lse, delta, cosv, sinv, dq, rq, B, Sq, Sk, H, Hk, rope_bstride,
             scale, causal, window_left, window_right, softcap2, o,
             static_cast<cudaStream_t>(stream));
 }
 
 // rq: R(q) [B, Sq, H, D] bf16 (q itself without rope); the rest, the
-// options included, as fatt_flash_bwd_dq (no dS: K9 writes it).  dk, dv:
+// options and window_idx included, as fatt_flash_bwd_dq (no dS: K9 writes
+// it).  dk, dv:
 // [B, H, Sk, D] fp32, per query head.
 extern "C" int fatt_flash_bwd_dkv(const void* rq, const void* k, const void* v,
                                   const void* dout, const void* lse, const void* delta,
@@ -1176,7 +1287,8 @@ extern "C" int fatt_flash_bwd_dkv(const void* rq, const void* k, const void* v,
                                   const void* kmeta, const void* qrange, const void* krange,
                                   const float* bias, int64_t bs_b, int64_t bs_h, int64_t bs_q,
                                   int64_t bs_k, int dropout, uint32_t seed, uint32_t threshold,
-                                  float inv_keep, const float* alibi2, void* stream) {
+                                  float inv_keep, const float* alibi2, int window_idx,
+                                  void* stream) {
   const Opt o{static_cast<const int2*>(qmeta), static_cast<const int2*>(kmeta),
               static_cast<const int4*>(qrange), static_cast<const int4*>(krange), bias, bs_b,
               bs_h, bs_q, bs_k, dropout, seed, threshold, inv_keep, alibi2, nullptr};
@@ -1186,14 +1298,16 @@ extern "C" int fatt_flash_bwd_dkv(const void* rq, const void* k, const void* v,
       !opt_ok(o, Sq, Sk, D, local, opt))
     return (int)cudaErrorInvalidValue;
   const bool surface = alibi2 != nullptr;
-  auto fn = D == 256  ? launch_dkv<256, true, false>
-            : D == 64 ? (surface ? launch_dkv<64, false, true, true>
-                         : opt   ? launch_dkv<64, false, true>
-                                 : launch_dkv<64, false, false>)
-            : surface ? launch_dkv<128, false, true, true>
-            : opt     ? launch_dkv<128, false, true>
-            : local   ? launch_dkv<128, true, false>
-                      : launch_dkv<128, false, false>;
+  auto fn = D == 256        ? launch_dkv<256, true, false>
+            : D == 64       ? (surface ? launch_dkv<64, false, true, true>
+                               : opt   ? launch_dkv<64, false, true>
+                                       : launch_dkv<64, false, false>)
+            : surface       ? launch_dkv<128, false, true, true>
+            : opt && local  ? (window_idx ? launch_dkv<128, true, true, false, true>
+                                          : launch_dkv<128, true, true>)
+            : opt           ? launch_dkv<128, false, true>
+            : local         ? launch_dkv<128, true, false>
+                            : launch_dkv<128, false, false>;
   return fn(rq, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, Hk, scale, causal, window_left,
             window_right, softcap2, o, static_cast<cudaStream_t>(stream));
 }

@@ -113,8 +113,15 @@
 // position is >= the q tile's greatest - left (and its greatest <= the
 // least + right).  Ranges only have to be conservative, so the list still
 // never drops a live tile.  The element mask adds the window on the
-// positions; the softcap is the kLocal one.  The wrapper refuses a window
-// with segment ids but no positions (a window on indices there).
+// positions; the softcap is the kLocal one.  With segment ids and no
+// positions (llama.forward's packed documents) JAX's window compares the
+// bottom-right aligned indices: a twin of the instance (kWinIdx, which the
+// C entry picks on window_idx) bounds the walk by the kLocal instances'
+// index range, lists that range's tiles by the segments alone (the
+// positions are 0 there) and masks the window on the indices where an
+// edge crosses a warp's rows, as the kLocal instances without masks do.
+// The wrapper never makes index positions up: they would add kv position
+// <= q position, which is wrong for a call that is not causal.
 //
 // Head dim 64 (GPT-2; the kD = 64 instances, with and without masks): a
 // bf16 row is 128 bytes, one swizzle atom, so a K/V tile is one 64-column
@@ -263,7 +270,7 @@ __device__ __forceinline__ void attn_qk_smem(float (&s)[8][4], uint32_t qt, uint
 // implies kExtra; return_softmax only in the kProbs ones, where probs is
 // given), the others ignore them.
 template <int kD, bool kMeta, bool kLocal, bool kExtra, bool kSurface = false,
-          bool kProbs = false>
+          bool kProbs = false, bool kWinIdx = false>
 __global__ void __launch_bounds__(kThreads, kD == 64 ? (kExtra ? 3 : 4) : kD == 128 ? 2 : 1)
     flash_fwd_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
@@ -300,6 +307,10 @@ __global__ void __launch_bounds__(kThreads, kD == 64 ? (kExtra ? 3 : 4) : kD == 
   const int row0 = qt * kBQ;
   const int shift = Sk - Sq;  // bottom-right causal alignment
   const int nk = (Sk + kBK - 1) / kBK;
+  // the window compares the indices (kLocal without masks, or kWinIdx) or
+  // the positions (kLocal with masks)
+  constexpr bool kIdxWindow = kLocal && (!kMeta || kWinIdx);
+  constexpr bool kPosWindow = kLocal && kMeta && !kWinIdx;
 
   // The key range some row of the block sees: causal and the window's
   // right edge bound it above (at the block's last row), the window's left
@@ -308,7 +319,7 @@ __global__ void __launch_bounds__(kThreads, kD == 64 ? (kExtra ? 3 : 4) : kD == 
   int kv_end = Sk;
   if (causal) kv_end = min(kv_end, row_last + shift + 1);
   int kv_begin = 0;
-  if constexpr (kLocal && !kMeta) {  // kMeta: the window on positions, in the list
+  if constexpr (kIdxWindow) {  // kPosWindow: the window on positions, in the list
     if (wright >= 0) kv_end = min(kv_end, row_last + shift + wright + 1);
     if (wleft >= 0) kv_begin = max(0, row0 + shift - wleft);
   }
@@ -324,12 +335,12 @@ __global__ void __launch_bounds__(kThreads, kD == 64 ? (kExtra ? 3 : 4) : kD == 
     for (int base = 0; base < n_tiles; base += kThreads) {
       const int t = base + tid;
       bool live = false;
-      int entry = t;
+      int entry = t_first + t;
       if (t < n_tiles) {
-        const int4 kr = krange[(int64_t)b * nk + t];
+        const int4 kr = krange[(int64_t)b * nk + t_first + t];
         live = kr.z >= qr.x && kr.x <= qr.z && kr.y <= qr.w;
         bool full = qr.x == qr.z && kr.x == kr.z && kr.x == qr.x && kr.w <= qr.y;
-        if constexpr (kLocal) {  // the window on positions
+        if constexpr (kPosWindow) {  // the window on positions
           if (wleft >= 0) {
             live = live && kr.w >= qr.y - wleft;
             full = full && kr.y >= qr.w - wleft;
@@ -601,7 +612,7 @@ __global__ void __launch_bounds__(kThreads, kD == 64 ? (kExtra ? 3 : 4) : kD == 
     // Sk's edge crosses the tile, or, with masks, where the list does not
     // say the tile is live throughout.
     bool edge = k0 + kBK > Sk || (causal && k0 + kBK - 1 > wrow0 + shift);
-    if constexpr (kLocal && !kMeta) {
+    if constexpr (kIdxWindow) {
       if (wright >= 0) edge = edge || k0 + kBK - 1 > wrow0 + shift + wright;
       if (wleft >= 0) edge = edge || k0 < wrow0 + 15 + shift - wleft;
     }
@@ -619,13 +630,13 @@ __global__ void __launch_bounds__(kThreads, kD == 64 ? (kExtra ? 3 : 4) : kD == 
           const int col = k0 + j * 8 + (lane & 3) * 2 + (e & 1);
           const int row = my_row + (e >> 1) * 8;
           bool dead = col >= Sk || (causal && col > row + shift);
-          if constexpr (kLocal && !kMeta)
+          if constexpr (kIdxWindow)
             dead = dead || (wleft >= 0 && col < row + shift - wleft) ||
                    (wright >= 0 && col > row + shift + wright);
           if constexpr (kMeta) {
             const int kseg = (e & 1) ? km.z : km.x, kpos = (e & 1) ? km.w : km.y;
             dead = dead || kseg != qm[e >> 1].x || kpos > qm[e >> 1].y;
-            if constexpr (kLocal)
+            if constexpr (kPosWindow)
               dead = dead || (wleft >= 0 && kpos < qm[e >> 1].y - wleft) ||
                      (wright >= 0 && kpos > qm[e >> 1].y + wright);
           }
@@ -765,7 +776,7 @@ struct Extra {
 };
 
 template <int kD, bool kMeta, bool kLocal, bool kExtra, bool kSurface = false,
-          bool kProbs = false>
+          bool kProbs = false, bool kWinIdx = false>
 int launch(const void* q, const void* k, const void* v, const void* cosv,
            const void* sinv, void* out, void* lse, const void* qmeta,
            const void* kmeta, const void* qrange, const void* krange, int* tile_count,
@@ -776,15 +787,15 @@ int launch(const void* q, const void* k, const void* v, const void* cosv,
   constexpr int kSmemBytes = Dims<kD>::kSmemBytes;
   constexpr int kMaxSmem = kSmemBytes + (kExtra ? kBiasBytes : 0) +
                            (kMeta ? kStages * kMetaBytes + kMaxListTiles * 4 : 0);
-  cudaError_t e =
-      fatt::smem_limit_once(flash_fwd_kernel<kD, kMeta, kLocal, kExtra, kSurface, kProbs>,
-                            kMaxSmem, smem_set);
+  cudaError_t e = fatt::smem_limit_once(
+      flash_fwd_kernel<kD, kMeta, kLocal, kExtra, kSurface, kProbs, kWinIdx>, kMaxSmem, smem_set);
   if (e != cudaSuccess) return (int)e;
   const int nk = (Sk + kBK - 1) / kBK;
   const int smem = kSmemBytes + (kExtra && x.bias != nullptr ? kBiasBytes : 0) +
                    (kMeta ? kStages * kMetaBytes + nk * 4 : 0);
   dim3 grid(H, B, (Sq + kBQ - 1) / kBQ);
-  flash_fwd_kernel<kD, kMeta, kLocal, kExtra, kSurface, kProbs><<<grid, kThreads, smem, st>>>(
+  flash_fwd_kernel<kD, kMeta, kLocal, kExtra, kSurface, kProbs, kWinIdx>
+      <<<grid, kThreads, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(cosv),
       static_cast<const float*>(sinv), static_cast<__nv_bfloat16*>(out),
@@ -823,7 +834,9 @@ auto surface_launch(bool probs) {
 // window_left / window_right: the window's sides (-1 open); softcap2: the
 // logit softcap in base-2 units (cap * log2 e), 0 for none; both at
 // head_dim 128 and 256 without masks, at 128 with them (the window then
-// compares the positions).  Masks at head_dim 64 and 128.
+// compares the positions, or with window_idx nonzero the indices: segment
+// ids without positions; window_idx is ignored elsewhere).  Masks at
+// head_dim 64 and 128.
 // bias: null, or fp32 in natural units, element (b, h, i, j) at
 // b bs_b + h bs_h + i bs_q + j bs_k (0 on a broadcast axis).  dropout:
 // 0, or 1 with the seed's 32 bits, the keep threshold and keep_div =
@@ -844,7 +857,8 @@ extern "C" int fatt_flash_fwd(const void* q, const void* k, const void* v,
                               float softcap2, const float* bias, int64_t bs_b, int64_t bs_h,
                               int64_t bs_q, int64_t bs_k, int dropout, uint32_t seed,
                               uint32_t threshold, float keep_div, const float* alibi2,
-                              float* probs, float* pmax, float* vflag, void* stream) {
+                              float* probs, float* pmax, float* vflag, int window_idx,
+                              void* stream) {
   const int given = (qmeta != nullptr) + (kmeta != nullptr) + (qrange != nullptr) +
                     (krange != nullptr);
   const bool local = window_left >= 0 || window_right >= 0 || softcap2 > 0.f;
@@ -871,7 +885,9 @@ extern "C" int fatt_flash_fwd(const void* q, const void* k, const void* v,
                                        : surface_launch<128, false>(probs != nullptr))
             : extra      ? (given != 0 ? launch<128, true, false, true>
                                        : launch<128, false, false, true>)
-            : given != 0 ? (local ? launch<128, true, true, false>
+            : given != 0 ? (local ? (window_idx
+                                         ? launch<128, true, true, false, false, false, true>
+                                         : launch<128, true, true, false>)
                                   : launch<128, true, false, false>)
             : local      ? launch<128, false, true, false>
                          : launch<128, false, false, false>;

@@ -364,9 +364,11 @@ def forward(params, tokens, cfg: LlamaConfig, *, positions=None,
     (packed documents, with ``positions`` restarting a document for RoPE)
     keep each query to its own document's keys, causal within it, as JAX's
     ``_block_attn`` does: K4 with segment ids forward, K9 and K10 with
-    them backward."""
-    if segment_ids is not None:
-        _refuse_local(cfg, "forward with segment_ids")
+    them backward; with ``sliding_window`` (Mistral-7B) the window
+    compares the bottom-right aligned indices, as JAX's (no positions reach
+    the attention), and with ``attn_logit_softcap`` the cap goes on the
+    scores: K4's masked kLocal instance forward, K9's and K10's kLocal and
+    kOpt instances backward."""
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, device=tokens.device)[None].expand(b, s)

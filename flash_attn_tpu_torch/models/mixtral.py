@@ -175,8 +175,7 @@ def forward(params, tokens, cfg: MixtralConfig, *, positions=None, segment_ids=N
     with ``_moe_mlp`` as each block's MLP, so the gradient reaches the
     router through ``router_topk`` and every expert.  ``remat``
     checkpoints each block; ``positions`` and ``segment_ids`` (packed
-    documents) as Llama's, and a windowed config with ``segment_ids`` is
-    refused there before any launch."""
+    documents, also with the window) as Llama's."""
     return llama.forward(params, tokens, cfg, positions=positions, segment_ids=segment_ids,
                          remat=remat, mlp=_moe_mlp)
 

@@ -7,11 +7,12 @@ mask, q-side RoPE, ``scale``, a sliding window and the logit softcap,
 segment ids, positions, an additive bias and dropout (``_recompute_p_ds``,
 flash_bwd.py:48-131).  On the card: head_dim 64 (GPT-2) and 128 (Llama-3)
 with segment ids, positions, a bias or dropout and without window and
-softcap, 128 (Gemma-2-27B) with them, causal or not, or 256 (Gemma-2-9B)
-causal with or without them; ALiBi and dbias at head_dim 64 and 128
-beside those options.  fp16 computes as bf16 and the gradients are cast
-back (flash_bwd.py:300-312).  ALiBi with a window or a softcap raises
-``NotImplementedError``.
+softcap, 128 (Gemma-2-27B) with them, causal or not, also with segment
+ids and positions (Mistral-7B on packed documents, the windowed ring), or
+256 (Gemma-2-9B) causal with or without them; ALiBi and dbias at head_dim
+64 and 128 beside those options.  fp16 computes as bf16 and the gradients
+are cast back (flash_bwd.py:300-312).  A window or a softcap with a bias,
+dropout or ALiBi raises ``NotImplementedError`` (K4 has no such forward).
 
 As on the TPU: ``delta = rowsum(dout * out)`` is plain fp32 arithmetic
 outside the kernels; the dq pass (K9) and the dk/dv pass (K10) each
@@ -23,7 +24,8 @@ scale, unlike the forward's base-2 scores, so P differs from the
 forward's by rounding, as in the reference.  With the softcap, s becomes
 cap * tanh(s / cap) before P, and dS = P (dP - delta) (1 - tanh^2) feeds
 dq and dk while dv takes P.  The window (left, right; -1 open) keeps key
-j for query i only where i + Sk - Sq - left <= j <= i + Sk - Sq + right.
+j for query i only where i + Sk - Sq - left <= j <= i + Sk - Sq + right,
+or with positions where q_pos - left <= kv_pos <= q_pos + right.
 The bias is added to the natural-unit scores after the cap; segment ids
 and positions keep a pair where qs == ks and kp <= qp; dropout replays
 the forward's mask: dP becomes keep ? dP / (1 - rate) : 0 before dS and
@@ -56,6 +58,7 @@ from flash_attn_tpu_torch.ops.flash_fwd import (
     keep_mask,
     live_pairs,
     local_args,
+    window_idx,
 )
 from flash_attn_tpu_torch.ops.rope import rope_rotate, rope_unrotate
 
@@ -107,9 +110,9 @@ def flash_bwd(q, k, v, out, lse, dout, *, bias=None, q_segment_ids=None,
     dropout = dropout_arg(dropout_rate, dropout_seed)
     alibi = alibi_arg(alibi_slopes, H, q.device)
     if (window is not None or logit_softcap is not None) and (
-            masks is not None or bias is not None or dropout is not None or alibi is not None):
-        raise NotImplementedError("flash_bwd: a window or a softcap with segment ids, "
-                                  "positions, a bias, dropout or ALiBi is not ported yet")
+            bias is not None or dropout is not None or alibi is not None):
+        raise NotImplementedError("flash_bwd: a window or a softcap with a bias, dropout or "
+                                  "ALiBi is not ported yet")
     if logit_softcap is not None and not logit_softcap > 0:
         raise ValueError(f"logit_softcap must be > 0, got {logit_softcap}")
     if scale is None:
@@ -201,15 +204,18 @@ def _check_cuda(q, k, v, dout, lse, delta, rope_cos, rope_sin, name, causal=True
     batch stride (0 when shared across the batch or absent)."""
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
-    opt = (masks is not None or bias is not None or dropout is not None or alibi is not None
-           or want_ds)
-    if D == 64 and (window is not None or softcap is not None):
+    extra = bias is not None or dropout is not None or alibi is not None or want_ds
+    local = window is not None or softcap is not None
+    if D == 64 and local:
         raise NotImplementedError(f"{name} takes a window and a softcap at head_dim 128 and 256")
     if D == 256 and not causal:
         raise NotImplementedError(f"{name} at head_dim 256 is causal only")
-    if opt and (D == 256 or window is not None or softcap is not None):
+    if (masks is not None or extra) and D == 256:
         raise NotImplementedError(f"{name} takes segment ids, positions, a bias, dropout, ALiBi "
-                                  "and dbias at head_dim 64 and 128, without a window or softcap")
+                                  "and dbias at head_dim 64 and 128")
+    if extra and local:
+        raise NotImplementedError(f"{name} takes a window and a softcap with segment ids and "
+                                  "positions, not with a bias, dropout, ALiBi or dbias")
     if not (q.dtype == k.dtype == v.dtype == dout.dtype == torch.bfloat16):
         raise ValueError(f"{name} takes bf16 q, k, v, dout (fp16 computes as bf16 in "
                          "flash_bwd)")
@@ -267,6 +273,7 @@ def _count(fn, D, window, softcap, masks=None, bias=None, dropout=None, alibi=No
     # a kLocal instance: a window or a softcap, or head_dim 256 (built so only)
     fn.local_launches += window is not None or softcap is not None or D == 256
     # a kOpt instance: segment ids, positions, a bias, dropout, ALiBi or dS
+    # (with a window or a softcap, the kLocal and kOpt one: counted in both)
     fn.opt_launches += (masks is not None or bias is not None or dropout is not None
                         or alibi is not None or want_ds)
     fn.seg_launches += masks is not None and masks.q_segment_ids is not None
@@ -289,7 +296,10 @@ def flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal, scale, rope_cos, rope_s
     instance with segment ids, positions, a bias and dropout, kOpt, or one
     that extends it with ALiBi and dS, kSurface: any given),
     ``.seg_launches`` (segment ids given), ``.alibi_launches`` (ALiBi
-    given) and ``.ds_launches`` (dS written)."""
+    given) and ``.ds_launches`` (dS written); a window or a softcap with
+    segment ids or positions runs the kLocal and kOpt instance (its twin
+    with the window on the indices where no positions are given), counted
+    in both ``.local_launches`` and ``.opt_launches``."""
     bstride = _check_cuda(q, k, v, dout, lse, delta, rope_cos, rope_sin, "K9", causal,
                           window, softcap, masks, bias, dropout, alibi, want_ds)
     B, Sq, H, D = q.shape
@@ -302,7 +312,7 @@ def flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal, scale, rope_cos, rope_s
         p(q), p(k), p(v), p(dout), p(lse), p(delta), p(rope_cos), p(rope_sin),
         p(dq), p(rq), B, Sq, Sk, H, Hk, D, bstride, float(scale), int(causal),
         *local_args(window, softcap), *opt_args(masks, bias, dropout, B, Sq, Sk),
-        p(_slopes2(alibi)), p(ds), _build.stream())
+        p(_slopes2(alibi)), p(ds), window_idx(window, masks), _build.stream())
     _build.check(rc, "fatt_flash_bwd_dq")
     _count(flash_bwd_dq_cuda, D, window, softcap, masks, bias, dropout, alibi, want_ds)
     return (dq, rq, ds) if want_ds else (dq, rq)
@@ -323,7 +333,8 @@ def flash_bwd_dkv_cuda(rq, k, v, dout, lse, delta, causal, scale, window=None, s
     rc = _build.lib().fatt_flash_bwd_dkv(
         p(rq), p(k), p(v), p(dout), p(lse), p(delta), p(dk), p(dv),
         B, Sq, Sk, H, Hk, D, float(scale), int(causal), *local_args(window, softcap),
-        *opt_args(masks, bias, dropout, B, Sq, Sk), p(_slopes2(alibi)), _build.stream())
+        *opt_args(masks, bias, dropout, B, Sq, Sk), p(_slopes2(alibi)),
+        window_idx(window, masks), _build.stream())
     _build.check(rc, "fatt_flash_bwd_dkv")
     _count(flash_bwd_dkv_cuda, D, window, softcap, masks, bias, dropout, alibi)
     return dk, dv

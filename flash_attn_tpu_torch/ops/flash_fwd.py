@@ -8,7 +8,8 @@ fp32 bias and reproducible dropout (the C ABI's attn_mask and dropout),
 ALiBi, ``return_softmax`` and the ``clamped_verify`` flags (head_dim 64 and
 128 on the card, with or without segment ids and positions), a sliding
 window and the Gemma-2 logit softcap (at head_dim 128 and 256 on the
-card; with segment ids and positions at 128), q-side RoPE inside the
+card; with segment ids and positions at 128, the window on the positions
+where they are given, else on the indices), q-side RoPE inside the
 kernel, softmax_mode "online", "clamped", "clamped_verify" or "auto",
 fp32 LSE.  fp16 computes as bf16 and casts the output back, as JAX does.
 A window or a softcap with a bias, dropout, ALiBi, ``return_softmax`` or
@@ -234,6 +235,13 @@ def local_args(window, softcap):
     """K4's, K9's and K10's window sides (-1 open) and softcap in base-2
     units (0 for none), as their C entries take them."""
     return (*(window or (-1, -1)), 0.0 if softcap is None else float(softcap * LOG2E))
+
+
+def window_idx(window, masks) -> int:
+    """K4's, K9's and K10's ``window_idx``: 1 where a window comes with
+    segment ids and no positions, so that it compares the bottom-right
+    aligned indices (``live_pairs``), else 0."""
+    return int(window is not None and masks is not None and masks.q_positions is None)
 
 
 def alibi_arg(alibi_slopes, H: int, device):
@@ -596,7 +604,8 @@ def flash_fwd_cuda(q, k, v, causal, scale, rope_cos, rope_sin, clamped, masks=No
     bound by operations (see the source note in csrc/flash_fwd.cu).  A
     window or a softcap runs an instance of its own (kLocal) at head_dim
     128 or 256, and with masks one at 128 (kMeta and kLocal, counted also
-    in ``.masked_local_launches``; a window there needs the positions); at
+    in ``.masked_local_launches``; its window compares the positions, or
+    in its twin the indices where segment ids come without positions); at
     64 it raises.  A bias or dropout runs
     an instance of its own (kExtra) at head_dim 64 or 128, with or without
     masks; ALiBi (``alibi``: fp32 [H] slopes), ``probs`` (return_softmax)
@@ -630,9 +639,6 @@ def flash_fwd_cuda(q, k, v, causal, scale, rope_cos, rope_sin, clamped, masks=No
     if local and (D == 64 or extra):
         raise NotImplementedError("K4 takes a window and a softcap at head_dim 128 and 256, "
                                   "without a bias or dropout")
-    if window is not None and masks is not None and masks.q_positions is None:
-        raise NotImplementedError("K4 takes a window with segment ids only together with "
-                                  "positions, which the window compares")
     if verify and not clamped:
         raise ValueError("K4's clamped_verify flags come with the clamped mode")
     tensors = [q, k, v]
@@ -673,7 +679,7 @@ def flash_fwd_cuda(q, k, v, causal, scale, rope_cos, rope_sin, clamped, masks=No
         p(q), p(k), p(v), p(rope_cos), p(rope_sin), p(out), p(lse), *(p(t) for t in tiles),
         None, B, Sq, Sk, H, Hk, D, bstride, float(scale * LOG2E), int(causal), int(clamped),
         *local_args(window, softcap), *extra_args(bias, dropout),
-        *surface_args(alibi2, praw, pmax, valid), _build.stream())
+        *surface_args(alibi2, praw, pmax, valid), window_idx(window, masks), _build.stream())
     _build.check(rc, "fatt_flash_fwd")
     fn = flash_fwd_cuda
     fn.launches += 1

@@ -28,12 +28,16 @@ replays it), an additive bias [B, H, S, S] sharded on its query axis
 (with its gradient when it requires one: each step's column block of
 dS goes into a full-K fp32 accumulator of the rank's rows, as JAX's
 ``_ring_core_bwd`` does, ring.py:256, 292, 311-349, 364-370) and
-``logit_softcap`` without a bias or dropout.  A window
-raises ``NotImplementedError``: the contiguous window goes through the
-positions path, whose backward (K9 and K10 with positions) refuses a
-window.  Every refusal comes before any
-launch.  Each step's output is rounded to q's dtype and taken to fp32
-before the merge, as JAX does (ring.py:163).
+``logit_softcap`` without a bias or dropout.  A window (contiguous
+layout, causal, no bias or dropout; head_dim 128 on the card) goes
+through the positions path, as JAX's ``use_pos`` (ring.py:117-148,
+246-274): every live step passes the shards' global positions, which the
+window and ``kv_pos <= q_pos`` compare, with no causal flag (K4's masked
+kLocal instance forward, K9's and K10's kLocal and kOpt instances
+backward); later shards are skipped as in the causal ring.  The striped
+layout with a window raises, as JAX does (ring.py:418-419).  Every
+refusal comes before any launch.  Each step's output is rounded to q's
+dtype and taken to fp32 before the merge, as JAX does (ring.py:163).
 """
 
 from __future__ import annotations
@@ -97,10 +101,18 @@ def _refuse(q, bias, *, layout, causal, window, logit_softcap, dropout_rate, n, 
     """Raise on what the ring does not take, before any launch."""
     if layout not in LAYOUTS:
         raise ValueError(f"unknown ring layout {layout!r}")
-    if _window(window) is not None:
-        raise NotImplementedError("ring window: the contiguous window goes through the "
-                                  "positions path, whose backward (K9, K10) does not take a "
-                                  "window yet")
+    if window is not None:
+        if layout == "striped":
+            raise NotImplementedError("window + striped ring layout")
+        if not causal:
+            raise NotImplementedError("ring window requires causal=True (the kernel positions "
+                                      "path implies kv_pos <= q_pos)")
+        if bias is not None or float(dropout_rate) > 0.0:
+            raise NotImplementedError("ring attention: a window with a bias or dropout is not "
+                                      "ported yet (flash_fwd refuses it)")
+        if q.is_cuda and q.shape[-1] != 128:
+            raise NotImplementedError("ring window on the card: K4, K9 and K10 take a window "
+                                      "with positions at head_dim 128")
     if logit_softcap is not None and (bias is not None or float(dropout_rate) > 0.0):
         raise NotImplementedError("ring attention: a softcap with a bias or dropout is not "
                                   "ported yet (flash_fwd refuses it)")
@@ -110,6 +122,23 @@ def _refuse(q, bias, *, layout, causal, window, logit_softcap, dropout_rate, n, 
     if grad and q.is_cuda and q.shape[-1] == 256 and some_full:
         raise NotImplementedError("ring backward at head_dim 256 needs non-causal steps, which "
                                   "K9 and K10 do not take")
+
+
+def _positions(x, rank: int, s_loc: int):
+    """[B, s_loc] int32 global positions of shard ``rank`` (contiguous
+    layout), on x's device."""
+    pos = torch.arange(rank * s_loc, (rank + 1) * s_loc, dtype=torch.int32, device=x.device)
+    return pos[None].expand(x.shape[0], s_loc)
+
+
+def _pos_kw(opts, q, my: int, kv_idx: int, s_loc: int):
+    """A windowed step's keywords: the shards' global positions and the
+    window, with no causal flag (kv_pos <= q_pos is the causal mask); {}
+    without a window."""
+    if opts["window"] is None:
+        return {}
+    return dict(q_positions=_positions(q, my, s_loc), kv_positions=_positions(q, kv_idx, s_loc),
+                window=opts["window"])
 
 
 def _kv_step(kc, vc, bias, strict: bool):
@@ -143,10 +172,11 @@ def _ring_fwd(mesh, axis, qs, ks, vs, bs, opts):
                 continue
             k_t, v_t, b_t = _kv_step(kc[my], vc[my], _slice_bias_cols(bs[my], kv_idx, s_loc),
                                      step[1])
-            o, lse = flash_fwd(qs[my], k_t, v_t, causal=step[0], scale=opts["scale"], bias=b_t,
-                               logit_softcap=opts["logit_softcap"],
+            pos = _pos_kw(opts, qs[my], my, kv_idx, s_loc)
+            o, lse = flash_fwd(qs[my], k_t, v_t, causal=step[0] and not pos, scale=opts["scale"],
+                               bias=b_t, logit_softcap=opts["logit_softcap"],
                                dropout_rate=opts["dropout_rate"],
-                               dropout_seed=_step_seed(opts["seed"], my, kv_idx, n))
+                               dropout_seed=_step_seed(opts["seed"], my, kv_idx, n), **pos)
             outs[my], lses[my] = lse_merge2(outs[my], lses[my], o.float().transpose(1, 2), lse)
         kc, vc = kn, vn
     return ([o.transpose(1, 2).to(q.dtype).contiguous() for o, q in zip(outs, qs)],
@@ -176,12 +206,13 @@ def _ring_bwd(mesh, axis, qs, ks, vs, bs, outs, lses, douts, opts, want_dbias=Fa
                 continue
             k_t, v_t, b_t = _kv_step(kc[my], vc[my], _slice_bias_cols(bs[my], kv_idx, s_loc),
                                      step[1])
+            pos = _pos_kw(opts, qs[my], my, kv_idx, s_loc)
             g = flash_bwd(qs[my], k_t, v_t, outs[my], lses[my], douts[my],
-                          causal=step[0], scale=opts["scale"], bias=b_t,
+                          causal=step[0] and not pos, scale=opts["scale"], bias=b_t,
                           logit_softcap=opts["logit_softcap"],
                           dropout_rate=opts["dropout_rate"],
                           dropout_seed=_step_seed(opts["seed"], my, kv_idx, n),
-                          want_dbias=want_dbias)
+                          want_dbias=want_dbias, **pos)
             dq, dk, dv = g[:3]
             if want_dbias:
                 # this step's bias columns, into the full-K accumulator at the
@@ -252,13 +283,15 @@ def ring_attention(q, k, v, *, mesh, axis_name: str = SEQUENCE_AXIS, causal: boo
     back).  bias: [B, H, S, S] additive, split on its query axis, its key
     columns in layout order (a striped ring: both axes striped).  Returns
     out [B, S, H, D] in q's dtype, differentiable w.r.t. q, k, v and the
-    bias."""
+    bias.  window (left, right; -1 open): the contiguous layout with
+    ``causal`` only, on the global positions."""
     n = len(mesh.axis_devices(axis_name))
     grad = torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v))
+    window = _window(window)
     _refuse(q, bias, layout=layout, causal=causal, window=window, logit_softcap=logit_softcap,
             dropout_rate=dropout_rate, n=n, grad=grad)
     opts = dict(causal=causal, scale=scale, layout=layout, logit_softcap=logit_softcap,
-                dropout_rate=float(dropout_rate), seed=seed32(dropout_seed))
+                dropout_rate=float(dropout_rate), seed=seed32(dropout_seed), window=window)
     return _Ring.apply(q, k, v, bias, mesh, axis_name, opts)
 
 

@@ -124,11 +124,12 @@ def test_flash_fwd_window_softcap_matches_jax_flash_attention():
 def test_flash_fwd_window_and_softcap_arguments():
     """Window and softcap go through the backward too (so do segment
     ids); a window composes with positions, which it compares (positions
-    0..7 give the causal window by index); the wrappers refuse what K4
-    does not take (a window or a softcap at head_dim 64, a window with
-    segment ids but no positions, masks at 256; raised before any build)
-    and pass a window and a softcap at head_dim 128, with or without
-    masks, on to the CUDA check."""
+    0..7 give the causal window by index), and with segment ids and no
+    positions it compares the indices (one segment gives the causal window
+    by index); the wrappers refuse what K4 does not take (a window or a
+    softcap at head_dim 64, masks at 256; raised before any build) and
+    pass a window and a softcap at head_dim 128, with or without masks
+    (segment ids alone too), on to the CUDA check."""
     q = torch.zeros(1, 8, 2, 32)
     ids = torch.zeros(1, 8, dtype=torch.int32)
     out = flash_attention(q.clone().requires_grad_(True), q, q, causal=True, window=(4, -1),
@@ -163,7 +164,11 @@ def test_flash_fwd_window_and_softcap_arguments():
     with pytest.raises(ValueError, match="CUDA"):
         ff.flash_fwd_cuda(b128, b128, b128, True, 1.0, None, None, True,
                           ff.Masks(None, None, ids, ids), (4, -1))
-    with pytest.raises(NotImplementedError, match="positions"):
+    a, _ = ff.flash_fwd(qr, qr, qr, window=(4, -1), causal=True, q_segment_ids=ids,
+                        kv_segment_ids=ids)
+    b, _ = ff.flash_fwd(qr, qr, qr, window=(4, -1), causal=True)
+    assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="CUDA"):
         ff.flash_fwd_cuda(b128, b128, b128, True, 1.0, None, None, True,
                           ff.Masks(ids, ids, None, None), (4, -1))
     with pytest.raises(NotImplementedError, match="head_dim 64 and 128"):

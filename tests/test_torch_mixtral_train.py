@@ -26,7 +26,6 @@ from flash_attn_tpu.parallel import moe as jmoe
 from flash_attn_tpu.utils import train as jtrain
 import flash_attn_tpu_torch
 from flash_attn_tpu_torch import bridge
-from flash_attn_tpu_torch.models import llama
 from flash_attn_tpu_torch.models import mixtral as mx
 from flash_attn_tpu_torch.parallel import moe
 from flash_attn_tpu_torch.utils import checkpoint, train
@@ -182,17 +181,22 @@ def test_router_topk_gradient_matches_jax(router_grads, k, logits):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
 
 
-def test_windowed_config_with_segment_ids_is_refused(jparams, monkeypatch):
-    """Queue B: the packed path takes no window; refused before attention."""
-    def launched(*a, **k):
-        raise AssertionError("attention ran")
-
-    monkeypatch.setattr(llama, "flash_attention", launched)
+def test_windowed_config_with_segment_ids_is_refused(jparams):
+    """The packed path with a window, once refused before attention, now
+    runs (K4's masked kLocal instance, K9's and K10's kLocal and kOpt ones
+    on the card): a window of 8 on documents of 10 and 14 gives JAX's
+    forward(segment_ids=...) logits at F32_TOL (the gradient is held in
+    tests/test_torch_window_train.py)."""
     seg, pos = _packed()
-    toks = torch.from_numpy(_tokens(1, (B, S))).long()
-    with pytest.raises(NotImplementedError, match="segment_ids with sliding_window"):
-        mx.forward(_port(jparams), toks, dataclasses.replace(CFG, sliding_window=8),
-                   segment_ids=torch.from_numpy(seg), positions=torch.from_numpy(pos).long())
+    toks = _tokens(1, (B, S))
+    jcfg = dataclasses.replace(JCFG, sliding_window=8)
+    want = jax.jit(lambda p: jmx.forward(p, jnp.asarray(toks), jcfg, interpret=True,
+                                         segment_ids=jnp.asarray(seg),
+                                         positions=jnp.asarray(pos)))(jparams)
+    got = mx.forward(_port(jparams), torch.from_numpy(toks).long(),
+                     dataclasses.replace(CFG, sliding_window=8),
+                     segment_ids=torch.from_numpy(seg), positions=torch.from_numpy(pos).long())
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=0, atol=F32_TOL)
 
 
 def _port_fwd(cfg):

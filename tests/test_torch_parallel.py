@@ -291,17 +291,24 @@ def test_ring_softcap(mesh4):
 
 
 def test_ring_refusals_before_any_launch(mesh4, monkeypatch):
-    """A window (contiguous, and striped as in JAX) and a softcap with a
-    bias or dropout raise before the ring calls its first kernel; a bad
-    layout is a ValueError.  A bias that requires grad runs
-    (tests/test_torch_fa2_surface.py)."""
+    """A window with the striped layout (as in JAX), without causal or with
+    a bias or dropout, and a softcap with a bias or dropout raise before
+    the ring calls its first kernel; a bad layout is a ValueError.  A bias
+    that requires grad runs (tests/test_torch_fa2_surface.py).  The
+    contiguous causal window, once refused, runs: its out matches
+    mha_reference with the window at OUT_TOL (tests/test_torch_window_train.py
+    holds it against JAX's ring, with gradients)."""
+    q, k, v, _ = (T(x) for x in arrays(15, s=64))
+    jq, jk, jv, _ = arrays(15, s=64)
+    got = make_ring_attention(mesh4, window=(16, 0), causal=True)(q, k, v)
+    assert err(got, j_mha(jq, jk, jv, causal=True, window=(16, 0))) <= OUT_TOL
     calls = []
     monkeypatch.setattr(ring, "flash_fwd", lambda *a, **kw: calls.append(1))
-    q, k, v, _ = (T(x) for x in arrays(15, s=64))
     bias = torch.zeros((1, 4, 64, 64), requires_grad=True)
     cases = [
-        (NotImplementedError, dict(window=(16, 0), causal=True), ()),
+        (NotImplementedError, dict(window=(16, 0)), ()),
         (NotImplementedError, dict(window=(16, 0), causal=True, layout="striped"), ()),
+        (NotImplementedError, dict(window=(16, 0), causal=True, dropout_rate=0.1), ()),
         (NotImplementedError, dict(has_bias=True, logit_softcap=5.0), (bias.detach(),)),
         (NotImplementedError, dict(dropout_rate=0.1, logit_softcap=5.0), ()),
         (ValueError, dict(layout="zigzag"), ()),

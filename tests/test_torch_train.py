@@ -431,10 +431,26 @@ def test_serve_train_serve_reads_the_trained_head(dtype):
     {"dropout_rate": 0.1, "logit_softcap": 30.0},
     {"alibi_slopes": np.ones(H), "logit_softcap": 30.0}])
 def test_flash_bwd_refuses_unported_options(option):
-    """A bias, segment ids, positions, dropout or ALiBi with a window or a
-    softcap (each of those alone is ported: tests/test_torch_fa2_options.py,
-    tests/test_torch_fa2_surface.py)."""
-    q, k, v, dout, _, _ = (T(x) for x in attn_inputs(9, "float32"))
+    """A bias, dropout or ALiBi with a window or a softcap raises (each of
+    those alone is ported: tests/test_torch_fa2_options.py,
+    tests/test_torch_fa2_surface.py).  Segment ids or positions with a
+    window or a softcap are ported: those options' gradients match JAX's
+    flash_bwd on the same inputs, its out and lse (interpret mode), at
+    BWD_TOL (tests/test_torch_window_train.py holds them on packed
+    documents)."""
+    jq, jk, jv, jdout, _, _ = attn_inputs(9, "float32")
+    q, k, v, dout = (T(x) for x in (jq, jk, jv, jdout))
+    if any(n.endswith(("segment_ids", "positions")) for n in option):
+        jopt = {n: jnp.asarray(x, jnp.int32) if isinstance(x, np.ndarray) else x
+                for n, x in option.items()}
+        jout, jlse = j_flash_fwd(jq, jk, jv, interpret=True, **jopt)
+        want = j_flash_bwd(jq, jk, jv, jout, jlse, jdout, interpret=True, **jopt)
+        got = fb.flash_bwd(q, k, v, T(jout), T(jlse), dout,
+                           **{n: T(x) if isinstance(x, jax.Array) else x
+                              for n, x in jopt.items()})
+        for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+            assert rel_err(g, w) < BWD_TOL["float32"], name
+        return
     out, lse = q.clone(), torch.zeros((B, H, SQ))
     option = {n: T(x) if isinstance(x, np.ndarray) else x for n, x in option.items()}
     with pytest.raises(NotImplementedError):
@@ -445,8 +461,10 @@ def test_training_wrappers_refuse():
     """fp16 (computed as bf16, gradients cast back), what K9/K10 do not
     take (CPU tensors, fp32, D other than 128 and 256, fp32 lse, fp32 rope tables, head_dim 256 without causal;
     raised before any build; a window or a softcap at head_dim 128 reaches
-    the CUDA check), and the unported model and attention options.  K10 takes R(q) from K9 and no
-    tables."""
+    the CUDA check), and the unported attention options.  K10 takes R(q) from K9 and no
+    tables.  The training forward with segment ids and a window, once
+    refused, matches JAX's forward(segment_ids=...) (logits at 1e-4, as
+    test_forward_matches_jax holds them)."""
     q, k, v, dout, _, _ = (T(x) for x in attn_inputs(10, "float32"))
     lse = torch.zeros((B, H, SQ))
     grads = fb.flash_bwd(q.half(), k.half(), v.half(), q.half(), lse, dout.half())
@@ -484,9 +502,16 @@ def test_training_wrappers_refuse():
         fb.flash_bwd_dkv_cuda(*big, stats, stats, False, 1.0, (3, 3), 50.0)
     assert fb.flash_bwd_dq_cuda.launches == 0 and fb.flash_bwd_dkv_cuda.launches == 0
     assert fb.flash_bwd_dq_cuda.local_launches == 0 == fb.flash_bwd_dkv_cuda.local_launches
-    toks = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="segment_ids with sliding_window"):
-        llama.forward({}, toks, dataclasses.replace(CFG, sliding_window=4), segment_ids=toks)
+    jcfg = dataclasses.replace(jllama.LLAMA_TINY, sliding_window=4)
+    jp = jllama.init_params(jcfg, jax.random.PRNGKey(1))
+    toks = tokens(12, (1, 12))
+    seg = np.repeat(np.array([1, 2], np.int32), [7, 5])[None]
+    want = jax.jit(lambda p: jllama.forward(p, jnp.asarray(toks), jcfg,
+                                            segment_ids=jnp.asarray(seg), interpret=True))(jp)
+    got = llama.forward(bridge.params_from_jax(jax.device_get(jp), device="cpu"),
+                        torch.from_numpy(toks).long(), dataclasses.replace(CFG, sliding_window=4),
+                        segment_ids=torch.from_numpy(seg))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=1e-4)
     ids = torch.zeros((B, SQ), dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="forward-only"):
         flash_attention(q.requires_grad_(True), k, v, q_segment_ids=ids,
